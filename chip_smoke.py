@@ -11,16 +11,29 @@ result line):
 1. build: nvcc builds every kernel under ``deepspeed_tpu_torch/csrc`` (one
    process per source, all at once); TF32 is switched off for fp32 products.
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
-   card inputs, at the shapes of the serving and scoring paths, with the
-   kernel's time, the plain version's, one PyTorch library call's
-   (``scaled_dot_product_attention``, a yardstick the port never calls) and
-   the least time the card could take (``bound_ms``), all from CUDA events on
-   a cold L2 cache.
+   card inputs, at the shapes of the serving, scoring and training paths,
+   with the kernel's time, the plain version's, one PyTorch library call's
+   (``scaled_dot_product_attention`` forward, or its backward through
+   ``torch.autograd.grad``, or for B2's delta one ``einsum``: a yardstick
+   the port never calls) and the least
+   time the card could take (``bound_ms``), all device time from CUDA
+   events on a cold L2 cache (the host's launch overhead kept out, see
+   ``Timer``). The flash backward (three kernels: delta, dq, dk/dv) is also
+   run twice on the same inputs and must give bitwise-equal gradients.
 3. scoring path: GPT-2-125M forward + next-token loss at B4 x T512 in fp32
    (the workload of ``__graft_entry__.entry()``) through the flash kernel.
 4. serving path: ``init_inference(...).generate`` on GPT-2-125M, B4, prompt
    512, 64 new greedy tokens, through the decode kernel, in fp32 (tokens
    identical to the plain path) and bf16 (throughput, greedy match rate).
+5. training path: ``initialize(model=build("gpt2-125m"), ...).train_batch``
+   at full width and depth. (a) fp32, B4 x T512, AdamW + clipping, 5 steps
+   through the flash kernels and 5 through plain attention from the same
+   state: losses and grad norms agree, and each micro-step launches the
+   forward and each backward kernel 12 times. (b) bf16 with the fp32 master
+   and ZeRO stage 2 (the verify-notes configuration), B8 x T512, 10 steps on
+   one batch: the loss starts near ln(V) and falls; step time, tokens/s,
+   peak memory and a profiler breakdown of one step. (c) gas 2 x micro 4
+   and gas 1 x micro 8 over the same 8 rows give the same grad norm.
 
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after. The last lines are the card's name and power limit
@@ -48,10 +61,21 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 ATOL = {"float32": 5e-5, "bfloat16": 2e-2, "float16": 2e-2}
 LSE_ATOL = 1e-4  # fp32 logsumexp in every dtype
 
+# tolerance of the flash backward against its plain version, relative to the
+# largest gradient entry: fp32 -- both accumulate in fp32 in another order;
+# bf16 -- both round the gradients to bf16 (2^-8)
+BWD_RTOL = {"float32": 5e-5, "bfloat16": 2e-2, "float16": 2e-2}
+
 FLASH_SRC = "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu"
+FLASH_BWD_SRC = "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu"
 DECODE_SRC = "deepspeed_tpu_torch/csrc/decode_attention.cu"
 FLASH_TPU = "deepspeed_tpu/ops/pallas/flash_attention.py:118"
 DECODE_TPU = "deepspeed_tpu/ops/pallas/decode_attention.py:109"
+# the backward's three pallas_call sites in _bwd
+BWD_TPU = {"delta": "deepspeed_tpu/ops/pallas/flash_attention.py:277",
+           "dq": "deepspeed_tpu/ops/pallas/flash_attention.py:291",
+           "dkv": "deepspeed_tpu/ops/pallas/flash_attention.py:309"}
+BWD_KERNELS = ("delta", "dq", "dkv")
 
 
 class Failed(Exception):
@@ -70,19 +94,30 @@ def log(msg: str) -> None:
 class Timer:
     """Median per-call device time from CUDA events, with the 50 MB L2
     flushed before each call (the callers on the main paths find their
-    inputs cold)."""
+    inputs cold).
+
+    With ``device_only`` (for a kernel's time) the stream spins for ~1 ms
+    on the device before each start event, so the host has queued the whole
+    call before the device reaches the event: the time between the events
+    is the device's work alone, not the host's launch overhead (a ctypes
+    call, autograd's dispatch) waited out by an idle device. Without it
+    (for a path's time) the host's overhead counts, as a caller feels it."""
+
+    HOST_LEAD_CYCLES = 2_000_000  # ~1 ms at the H100's 1.98 GHz boost clock
 
     def __init__(self, torch):
         self.torch = torch
         self.flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
 
-    def ms(self, fn, iters: int = 15, warmup: int = 3) -> float:
+    def ms(self, fn, iters: int = 15, warmup: int = 3, device_only: bool = True) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         events = []
         for _ in range(iters):
             self.flush_buf.zero_()
+            if device_only:
+                torch.cuda._sleep(self.HOST_LEAD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -93,10 +128,9 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def device_breakdown(torch, fn, wall_ms: float, top: int = 4) -> str:
-    """Device-busy time of one call of ``fn`` from a torch.profiler trace (the
-    sum of the CUDA kernels' self times), its share of ``wall_ms`` (the same
-    call timed without the profiler), and the kernels that take the most."""
+def device_kernels(torch, fn):
+    """The CUDA kernels of one call of ``fn`` from a torch.profiler trace, as
+    [(name, count, self device ms)], largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -104,14 +138,20 @@ def device_breakdown(torch, fn, wall_ms: float, top: int = 4) -> str:
         fn()
         torch.cuda.synchronize()
     # device-side rows only: a CPU op's row carries its kernels' time as well
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: r[2], reverse=True)
+
+
+def device_breakdown(torch, fn, wall_ms: float, top: int = 4, kernels=None) -> str:
+    """Device-busy time of one call of ``fn`` (the sum of the CUDA kernels'
+    self times in a profiler trace), its share of ``wall_ms`` (the same call
+    timed without the profiler), and the kernels that take the most."""
+    kernels = kernels if kernels is not None else device_kernels(torch, fn)
+    busy_ms = sum(r[2] for r in kernels)
     if busy_ms == 0:
         return "device_busy_ms=not measured (the profiler saw no device time)"
-    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    tops = "; ".join(f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
-                     for e in kernels[:top])
+    tops = "; ".join(f"{name[:48]} x{count} {ms:.3f} ms" for name, count, ms in kernels[:top])
     return (f"device_busy_ms={busy_ms:.3f} wall_ms={wall_ms:.3f} "
             f"device_idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} top: {tops}")
 
@@ -131,6 +171,31 @@ def flash_bound(B, T, S, H, D, causal, dtype, elt):
     flops = 4.0 * D * entries * B * H  # two products, 2 flops per multiply-add
     nbytes = (2 * B * T * H * D + 2 * B * S * H * D) * elt + B * H * T * 4  # q,o,k,v + lse
     return bound(nbytes, flops, dtype)
+
+
+def causal_pairs(T, S, causal):
+    """Visible (query, key) pairs of one (b, h): row t sees min(S, t + S - T + 1) keys."""
+    if not causal:
+        return T * S
+    return int(np.clip(np.arange(T) + S - T + 1, 0, S).sum())
+
+
+def flash_bwd_bounds(B, T, S, H, D, causal, dtype, elt):
+    """Least time of each backward kernel: (delta, dq, dkv) -> (ms, by).
+    delta reads o and dO and writes delta; dq does 3 products per visible
+    pair (q k^T, dO v^T, dS k) and reads q, k, v, dO, lse, delta, writes dq;
+    dkv does 4 (q k^T, dO v^T, P^T dO, dS^T q) and writes dk, dv. The whole
+    backward needs 5 products (``bwd_total``): the two passes recompute 2."""
+    pairs = causal_pairs(T, S, causal) * B * H
+    qo = B * T * H * D * elt  # one of q, o, dO, dq
+    kv = B * S * H * D * elt  # one of k, v, dk, dv
+    rows = B * H * T * 4  # lse or delta, fp32
+    return {
+        "delta": bound(2 * qo + rows, 2.0 * B * T * H * D, dtype),
+        "dq": bound(3 * qo + 2 * kv + 2 * rows, 6.0 * D * pairs, dtype),
+        "dkv": bound(2 * qo + 4 * kv + 2 * rows, 8.0 * D * pairs, dtype),
+        "bwd_total": bound(4 * qo + 4 * kv + 2 * rows, 10.0 * D * pairs, dtype),
+    }
 
 
 def decode_bound(lens, H, S, Dh, dtype, elt):
@@ -243,6 +308,105 @@ def phase_kernels(torch, ctx):
         ctx["decode"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                              bound_ms=bound_ms, bound_by=bound_by)
     ctx["decode"]["max_abs_err"] = decode_err
+    phase_kernels_bwd(torch, ctx, randn)
+
+
+def phase_kernels_bwd(torch, ctx, randn):
+    """B2: the three backward kernels against their plain versions, a
+    bitwise re-run, and their times beside the SDPA backward's. q/k/v are
+    views of one fused [B, T, 3HD] buffer, as the model's qkv projection
+    gives them."""
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    timer = ctx["timer"]
+    # the training shape B8 T=S512 H12 D64 (fp32 and bf16; bf16 is the
+    # main-path row), the bottom-right causal offset T128 S512, and D128
+    cases = [(8, 512, 512, 12, 64, True, "float32"), (8, 512, 512, 12, 64, True, "bfloat16"),
+             (4, 128, 512, 12, 64, True, "float32"), (4, 128, 512, 12, 64, True, "bfloat16"),
+             (4, 512, 512, 12, 128, True, "float32")]
+    errs = {name: 0.0 for name in BWD_KERNELS}
+    for B, T, S, H, D, causal, dt in cases:
+        dtype = getattr(torch, dt)
+        qkv = randn((B, S, 3 * H * D), dtype)
+        k = qkv[..., H * D:2 * H * D].reshape(B, S, H, D)
+        v = qkv[..., 2 * H * D:].reshape(B, S, H, D)
+        q = qkv[:, S - T:, :H * D].reshape(B, T, H, D)
+        do = randn((B, T, H, D), dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        scale = 1.0 / math.sqrt(D)
+        first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+        delta = fa.flash_attention_bwd_delta(o, do)
+        delta_ref = fa.flash_attention_bwd_delta_ref(o, do)
+        ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+        rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+               for a, b in zip(first, ref)]
+        absd = [(a.float() - b.float()).abs().max().item() for a, b in zip(first, ref)]
+        delta_err = (delta - delta_ref).abs().max().item()
+        errs["delta"] = max(errs["delta"], delta_err)
+        errs["dq"] = max(errs["dq"], absd[0])
+        errs["dkv"] = max(errs["dkv"], absd[1], absd[2])
+
+        kernel_ms = {
+            "delta": timer.ms(lambda: fa.flash_attention_bwd_delta(o, do)),
+            "dq": timer.ms(lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
+                                                             scale)),
+            "dkv": timer.ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                               causal, scale)),
+        }
+        plain_ms = {
+            "delta": timer.ms(lambda: fa.flash_attention_bwd_delta_ref(o, do)),
+            "dq": timer.ms(lambda: fa.flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
+                                                                 causal, scale)),
+            "dkv": timer.ms(lambda: fa.flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
+                                                                   causal, scale)),
+        }
+        library_ms = _sdpa_backward_ms(torch, timer, q, k, v, do, causal)
+        # delta's yardstick: rowsum(dO * O) as one einsum ([B, H, T] is a view
+        # of the kernel's [B*H, T])
+        delta_library_ms = timer.ms(lambda: torch.einsum("bthd,bthd->bht", o, do))
+        bounds = flash_bwd_bounds(B, T, S, H, D, causal, dt, q.element_size())
+        log(f"phase2 flash_attention_bwd B{B} T{T} S{S} H{H} D{D} causal={causal} {dt}: "
+            f"rel_err dq/dk/dv={rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} "
+            f"max_abs_err dq/dk/dv={absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e} "
+            f"delta_err={delta_err:.3e} bitwise_rerun={bitwise} "
+            + " ".join(f"{n}: kernel_ms={kernel_ms[n]:.4f} plain_ms={plain_ms[n]:.4f} "
+                       f"bound_ms={bounds[n][0]:.4f} ({bounds[n][1]})" for n in BWD_KERNELS)
+            + f" delta_einsum_ms={delta_library_ms:.4f}"
+            f" sum_kernel_ms={sum(kernel_ms.values()):.4f} "
+            f"bwd_bound_ms={bounds['bwd_total'][0]:.4f} ({bounds['bwd_total'][1]}) "
+            f"sdpa_backward_ms={library_ms:.4f}")
+        check(bitwise, f"flash backward {B, T, S, D, dt}: two runs differ")
+        check(max(rel) <= BWD_RTOL[dt], f"flash backward {B, T, S, D, dt}: rel error {rel}")
+        check(delta_err <= LSE_ATOL * max(1.0, delta_ref.abs().max().item()),
+              f"flash backward delta {B, T, S, D, dt}: error {delta_err}")
+        if (B, T, D, dt) == (8, 512, 64, "bfloat16"):  # the training path's row
+            for n in BWD_KERNELS:
+                ctx[f"bwd_{n}"] = dict(ms=kernel_ms[n], plain_ms=plain_ms[n],
+                                       library_ms=delta_library_ms if n == "delta"
+                                       else library_ms,
+                                       bound_ms=bounds[n][0], bound_by=bounds[n][1])
+    for n in BWD_KERNELS:
+        ctx[f"bwd_{n}"]["max_abs_err"] = errs[n]
+
+
+def _sdpa_backward_ms(torch, timer, q, k, v, do, causal) -> float:
+    """The yardstick: torch.autograd.grad through scaled_dot_product_attention
+    at the same shape, its forward excluded (the graph is kept and reused)."""
+    import torch.nn.functional as F
+
+    T, S = q.shape[1], k.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    mask = None
+    if causal and T != S:  # SDPA's is_causal aligns top-left; pass the bottom-right mask
+        mask = (torch.arange(S, device="cuda")[None, :]
+                <= torch.arange(T, device="cuda")[:, None] + (S - T))
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         is_causal=causal and mask is None)
+    dot = do.transpose(1, 2)
+    return timer.ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
 
 
 def _reset_counts():
@@ -250,8 +414,14 @@ def _reset_counts():
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
     fa.launches = 0
+    fa.bwd_delta_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
     da.launches = 0
     return fa, da
+
+
+def _bwd_launches(fa):
+    return {"delta": fa.bwd_delta_launches, "dq": fa.bwd_dq_launches,
+            "dkv": fa.bwd_dkv_launches}
 
 
 def phase_scoring(torch, ctx):
@@ -267,23 +437,26 @@ def phase_scoring(torch, ctx):
         loss, _ = gpt.loss_fn(cfg, params, batch, train=False)
         torch.cuda.synchronize()
         flash_launches, decode_launches = fa.launches, da.launches
+        bwd_launches = _bwd_launches(fa)
         loss = loss.item()
         plain = gpt.loss_fn(dataclasses.replace(cfg, use_flash=False), params, batch,
                             train=False)[0].item()
         ids_t = torch.as_tensor(ids, device="cuda")
         fwd_ms = ctx["timer"].ms(lambda: gpt.forward(cfg, params, ids_t, train=False),
-                                 iters=5, warmup=2)
+                                 iters=5, warmup=2, device_only=False)
         profile = device_breakdown(
             torch, lambda: gpt.forward(cfg, params, ids_t, train=False), fwd_ms)
     log(f"phase3 scoring gpt2-125m B4xT512 fp32: loss={loss:.6f} plain_loss={plain:.6f} "
         f"|diff|={abs(loss - plain):.3e} ln(V)={math.log(cfg.vocab_size):.4f} "
         f"flash_launches={flash_launches} decode_launches={decode_launches} "
+        f"flash_bwd_launches={bwd_launches} "
         f"forward_ms={fwd_ms:.3f}")
     log(f"phase3 scoring forward profile: {profile}")
     check(math.isfinite(loss), "scoring loss is not finite")
     check(abs(loss - math.log(cfg.vocab_size)) < 0.5, f"scoring loss {loss} far from ln(V)")
     check(abs(loss - plain) <= 1e-4, f"flash loss {loss} vs plain {plain}")
     check(flash_launches == cfg.n_layer, f"{flash_launches} flash launches, expected 12")
+    check(not any(bwd_launches.values()), f"no_grad scoring ran the backward: {bwd_launches}")
     ctx["flash"]["launches"] = flash_launches
 
 
@@ -357,6 +530,121 @@ def _decode_profile(torch, engine, prompt, steps: int) -> str:
         return device_breakdown(torch, decode, float(np.median(walls[1:])) * 1e3)
 
 
+def _train_config(micro: int, gas: int = 1, **over):
+    cfg = {"train_micro_batch_size_per_gpu": micro, "gradient_accumulation_steps": gas,
+           "optimizer": {"type": "AdamW", "params": {"lr": 6e-4}},
+           "gradient_clipping": 1.0, "steps_per_print": 0}
+    cfg.update(over)
+    return cfg
+
+
+def _engine(cfg_dict, gpt_cfg, seed=0):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt
+
+    model, _ = gpt.build(gpt_cfg)
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(model=model, config=cfg_dict, seed=seed)
+    return engine
+
+
+def phase_training(torch, ctx):
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    V = cfg.vocab_size
+    rng = np.random.default_rng(2)
+
+    # (a) fp32 (TF32 off since phase 1), B4 x T512, 5 steps through the
+    # kernels and 5 through plain attention, from the same seed and batches
+    batches = [{"input_ids": rng.integers(0, V, (4, 512)).astype(np.int32)} for _ in range(5)]
+    runs = {}
+    for use_flash in (None, False):  # None: the default dispatch, the kernels on CUDA
+        engine = _engine(_train_config(4), dataclasses.replace(cfg, use_flash=use_flash))
+        fa, _ = _reset_counts()  # the fp32 training main path
+        metrics = [engine.train_batch(b) for b in batches]
+        torch.cuda.synchronize()
+        launches = {"fwd": fa.launches, **_bwd_launches(fa)}
+        runs[use_flash] = ([m["loss"].item() for m in metrics],
+                           [m["grad_norm"].item() for m in metrics], launches)
+        del engine
+    (loss_k, norm_k, launches), (loss_p, norm_p, plain_launches) = runs[None], runs[False]
+    log(f"phase5a train fp32 gpt2-125m B4xT512 AdamW clip1.0: losses={loss_k} "
+        f"plain_losses={loss_p} grad_norms={norm_k} plain_grad_norms={norm_p} "
+        f"launches over 5 micro-steps={launches} plain-path launches={plain_launches}")
+    check(np.allclose(loss_k, loss_p, rtol=1e-4, atol=0), f"fp32 losses differ: {loss_k} vs {loss_p}")
+    check(np.allclose(norm_k, norm_p, rtol=1e-3, atol=0), f"fp32 grad norms differ: {norm_k} vs {norm_p}")
+    expected = 5 * cfg.n_layer
+    check(all(n == expected for n in launches.values()),
+          f"launches over 5 fp32 micro-steps {launches}, expected {expected} each")
+    check(not any(plain_launches.values()), f"plain path launched kernels: {plain_launches}")
+    torch.cuda.empty_cache()
+
+    # (b) bf16 + fp32 master + ZeRO stage 2 (the verify-notes configuration),
+    # B8 x T512, 10 steps on one fixed batch
+    batch = {"input_ids": rng.integers(0, V, (8, 512)).astype(np.int32)}
+    engine = _engine(_train_config(8, bf16={"enabled": True},
+                                   zero_optimization={"stage": 2}), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa, _ = _reset_counts()  # the bf16 training main path
+    losses, norms, step_ms, host_ms = [], [], [], []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        m = engine.train_batch(batch)  # no host read inside: this is the host's issue time
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        step_ms.append((start, end))
+    torch.cuda.synchronize()
+    launches = {"fwd": fa.launches, **_bwd_launches(fa)}
+    tokens_per_s = engine.tokens_per_sec()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+    norms = [x.item() for x in norms]
+    step_ms = [s.elapsed_time(e) for s, e in step_ms]
+    steady_ms = float(np.median(step_ms[1:]))
+    kernels = device_kernels(torch, lambda: engine.train_batch(batch))
+    attn_ms = sum(ms for name, _, ms in kernels if "flash_" in name)
+    busy_ms = sum(ms for _, _, ms in kernels)
+    log(f"phase5b train bf16 master zero2 gpt2-125m B8xT512: losses={losses} "
+        f"grad_norms={norms} launches over 10 steps={launches}")
+    log(f"phase5b train bf16 step_ms (CUDA events, median of steps 2-10)={steady_ms:.3f} "
+        f"step_ms_all={[round(x, 3) for x in step_ms]} "
+        f"host_issue_ms (median of steps 2-10)={float(np.median(host_ms[1:])):.3f} "
+        f"tokens_per_s={tokens_per_s:.1f} "
+        f"peak_memory_gb={peak_gb:.3f}")
+    log(f"phase5b train bf16 profile of one step: "
+        + device_breakdown(torch, None, steady_ms, top=6, kernels=kernels)
+        + f" flash_fwd+bwd_ms={attn_ms:.3f} flash_share_of_busy="
+        + (f"{attn_ms / busy_ms:.3f}" if busy_ms else "not measured"))
+    check(abs(losses[0] - math.log(V)) < 0.5, f"bf16 step-1 loss {losses[0]} far from ln(V)")
+    check(losses[-1] < losses[0], f"bf16 loss did not fall: {losses}")
+    check(all(math.isfinite(x) for x in losses + norms), "bf16 loss or grad norm not finite")
+    check(all(n == 10 * cfg.n_layer for n in launches.values()),
+          f"launches over 10 bf16 steps {launches}, expected {10 * cfg.n_layer} each")
+    for n in BWD_KERNELS:
+        ctx[f"bwd_{n}"]["launches"] = launches[n]
+    del engine
+    torch.cuda.empty_cache()
+
+    # (c) gas 2 x micro 4 and gas 1 x micro 8 over the same 8 rows (fp32)
+    rows = rng.integers(0, V, (8, 512)).astype(np.int32)
+    e_gas = _engine(_train_config(4, gas=2), cfg)
+    n_gas = e_gas.train_batch({"input_ids": rows.reshape(2, 4, 512)})["grad_norm"].item()
+    del e_gas
+    e_one = _engine(_train_config(8), cfg)
+    n_one = e_one.train_batch({"input_ids": rows})["grad_norm"].item()
+    del e_one
+    torch.cuda.empty_cache()
+    log(f"phase5c grad_norm gas2 x micro4={n_gas:.6f} gas1 x micro8={n_one:.6f} "
+        f"rel_diff={abs(n_gas - n_one) / n_one:.3e}")
+    check(abs(n_gas - n_one) <= 1e-3 * n_one, f"gas grad norms differ: {n_gas} vs {n_one}")
+
+
 def main() -> int:
     import torch
 
@@ -369,7 +657,7 @@ def main() -> int:
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     ctx = {"timer": Timer(torch)}
     failures = []
-    for phase in (phase_build, phase_kernels, phase_scoring, phase_serving):
+    for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)
@@ -393,7 +681,8 @@ def main() -> int:
          "replaces": FLASH_TPU, **ctx["flash"]},
         {"name": "decode_attention", "route": "cuda", "source": DECODE_SRC,
          "replaces": DECODE_TPU, **ctx["decode"]},
-    ]
+    ] + [{"name": f"flash_attention_bwd_{n}", "route": "cuda", "source": FLASH_BWD_SRC,
+          "replaces": BWD_TPU[n], **ctx[f"bwd_{n}"]} for n in BWD_KERNELS]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

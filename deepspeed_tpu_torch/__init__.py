@@ -7,13 +7,14 @@ caller passes ``device="cpu"``, which takes the plain PyTorch versions of
 the kernels. The package imports torch and numpy, never jax and nothing of
 ``deepspeed_tpu``.
 
-Ported so far: GPT forward and next-token loss (``models.gpt``), and
-KV-cache greedy generation through :func:`init_inference`.
+Ported so far: GPT forward and next-token loss (``models.gpt``), training
+on one device through :func:`initialize` (``DeepSpeedEngine.train_batch``),
+and KV-cache greedy generation through :func:`init_inference`.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Optional, Tuple
 
 from .accelerator import get_accelerator  # noqa: F401
 from .utils.logging import log_dist, logger  # noqa: F401
@@ -30,7 +31,8 @@ def init_inference(model: Any = None, config: Any = None, device=None, **kwargs)
     defaults to the CUDA device and raises when there is none."""
     from .inference.config import DeepSpeedInferenceConfig
     from .inference.engine import InferenceEngine, for_gpt
-    from .models.gpt import GPTModel, unported
+    from .models.gpt import GPTModel
+    from .utils.errors import unported
 
     if isinstance(config, DeepSpeedInferenceConfig):
         if kwargs:
@@ -47,3 +49,37 @@ def init_inference(model: Any = None, config: Any = None, device=None, **kwargs)
           and not hasattr(model, "prefill")):
         raise unported("importing a Hugging Face model in init_inference", "A13")
     return InferenceEngine(model, inf_cfg, device=device)
+
+
+def initialize(model: Any = None, config: Any = None, optimizer: Any = None,
+               lr_scheduler: Optional[Callable] = None, seed: Optional[int] = None,
+               device=None, config_params: Any = None) -> Tuple[Any, Any, None, Callable]:
+    """Create a training engine (counterpart of ``deepspeed_tpu.initialize``),
+    with the reference's return arity ``(engine, optimizer, dataloader,
+    lr_scheduler)``; the dataloader is None.
+
+    ``model`` is a :class:`models.api.Module` (``models.gpt.build``);
+    ``config`` a DeepSpeed JSON dict, a path or a ``DeepSpeedConfig``
+    (``config_params`` is the legacy alias). ``optimizer`` overrides the
+    config's and must be a port :class:`ops.optimizers.Optimizer`;
+    ``lr_scheduler`` is a ``step -> lr`` callable. ``device`` defaults to
+    the CUDA device and raises when there is none."""
+    from .models.api import Module
+    from .ops.optimizers import Optimizer
+    from .runtime.config import DeepSpeedConfig
+    from .runtime.engine import DeepSpeedEngine
+
+    if model is None:
+        raise ValueError("deepspeed_tpu_torch.initialize: model is required")
+    if not isinstance(model, Module):
+        raise TypeError("model must be a deepspeed_tpu_torch.models.api.Module "
+                        f"(models.gpt.build gives one), got {type(model)}")
+    if optimizer is not None and not isinstance(optimizer, Optimizer):
+        raise TypeError("client optimizer must be a deepspeed_tpu_torch.ops.optimizers."
+                        f"Optimizer (got {type(optimizer)})")
+    cfg = config if config is not None else config_params
+    ds_config = cfg if isinstance(cfg, DeepSpeedConfig) else DeepSpeedConfig.load(cfg)
+    engine = DeepSpeedEngine(model, ds_config, seed=seed,
+                             lr_scheduler_fn=lr_scheduler if callable(lr_scheduler) else None,
+                             client_optimizer=optimizer, device=device)
+    return engine, engine.optimizer, None, engine.lr_fn

@@ -1,19 +1,27 @@
-"""Carries parameter trees between the JAX package and the port as numpy arrays.
+"""Carries parameter trees and training state between the JAX package and
+the port as numpy arrays.
 
 The port keeps the reference's leaf names, its layer-stacked ``[L, ...]``
 leaves and its ``x @ W`` layout (``qkv_w`` is ``[L, d, 3d]``), so a tree
 crosses over leaf by leaf with no reshaping: a test hands both packages the
-same weights, and parity never depends on matching random streams.
+same weights, and parity never depends on matching random streams. The
+optimizer states (``AdamState(count, mu, nu)``, ``AdagradState``,
+``SGDState``) and the loss scaler's ``ScalerState`` keep the reference's
+field names too, so a whole engine state crosses over
+(:func:`train_state_from_numpy` / :func:`train_state_to_numpy`). The JAX
+side's NamedTuples are read by their field names; nothing here imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from .accelerator import resolve_device
+from .ops.optimizers import AdagradState, AdamState, SGDState
+from .runtime.precision import ScalerState
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -50,3 +58,71 @@ def params_to_numpy(params: Any) -> Any:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+# optimizer-state NamedTuples by their field names (the same on both sides)
+_OPT_STATES = {cls._fields: cls for cls in (AdamState, AdagradState, SGDState)}
+
+
+def _scalar(a: Any, device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.as_tensor(np.array(a)).to(device=device, dtype=dtype)
+
+
+def opt_state_from_numpy(state: Any, device=None) -> Any:
+    """An optimizer state (a NamedTuple with the reference's fields, numpy or
+    JAX leaves) -> the port's NamedTuple on ``device``: the int32 step count,
+    fp32 moment trees."""
+    dev = resolve_device(device)
+    cls = _OPT_STATES.get(tuple(state._fields))
+    if cls is None:
+        raise TypeError(f"unknown optimizer state fields {state._fields}")
+    return cls(**{f: (_scalar(v, dev, torch.int32) if f == "count" else
+                      None if v is None else params_from_numpy(v, dev, torch.float32))
+                  for f, v in zip(state._fields, state)})
+
+
+def opt_state_to_numpy(state: Any) -> Any:
+    """The inverse of :func:`opt_state_from_numpy`: the same NamedTuple type
+    with numpy leaves."""
+    return type(state)(*(None if v is None else params_to_numpy(v) for v in state))
+
+
+def scaler_state_from_numpy(state: Any, device=None) -> ScalerState:
+    dev = resolve_device(device)
+    return ScalerState(scale=_scalar(state.scale, dev, torch.float32),
+                       good_steps=_scalar(state.good_steps, dev, torch.int32),
+                       hysteresis=_scalar(state.hysteresis, dev, torch.int32))
+
+
+def scaler_state_to_numpy(state: ScalerState) -> ScalerState:
+    return ScalerState(*(np.asarray(t.detach().cpu().numpy()) for t in state))
+
+
+def train_state_from_numpy(state: Dict[str, Any], device=None,
+                           dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """A whole engine state {params, master, opt, step, micro, scaler} with
+    numpy (or JAX) leaves -> the port's, on ``device``. ``dtype`` is the
+    compute dtype of ``params`` (default: as given); the master copy and the
+    optimizer state are fp32."""
+    dev = resolve_device(device)
+    master = state.get("master") or {}
+    return {
+        "params": params_from_numpy(state["params"], dev, dtype),
+        "master": params_from_numpy(master, dev, torch.float32) if master else {},
+        "opt": opt_state_from_numpy(state["opt"], dev),
+        "step": _scalar(state["step"], dev, torch.int32),
+        "micro": _scalar(state["micro"], dev, torch.int32),
+        "scaler": scaler_state_from_numpy(state["scaler"], dev),
+    }
+
+
+def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`train_state_from_numpy` (bf16 leaves widen to fp32)."""
+    return {
+        "params": params_to_numpy(state["params"]),
+        "master": params_to_numpy(state["master"]) if state["master"] else {},
+        "opt": opt_state_to_numpy(state["opt"]),
+        "step": state["step"].cpu().numpy(),
+        "micro": state["micro"].cpu().numpy(),
+        "scaler": scaler_state_to_numpy(state["scaler"]),
+    }

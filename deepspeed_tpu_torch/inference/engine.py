@@ -17,7 +17,7 @@ import torch
 
 from ..accelerator import resolve_device
 from ..models import gpt as gpt_mod
-from ..models.gpt import unported
+from ..utils.errors import unported
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
 from .serving.buckets import bucket_for

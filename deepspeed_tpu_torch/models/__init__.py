@@ -1,3 +1,4 @@
-from .gpt import PRESETS, GPTConfig, GPTModel
+from .api import Module
+from .gpt import PRESETS, GPTConfig, GPTModel, build
 
-__all__ = ["GPTConfig", "GPTModel", "PRESETS"]
+__all__ = ["GPTConfig", "GPTModel", "Module", "PRESETS", "build"]

@@ -11,12 +11,18 @@ The functional API of the reference is kept, ``f(cfg, params, ...)`` with
   ``[L, d, 3d]``, not ``nn.Linear``'s ``[out, in]``), so a JAX parameter tree
   crosses over through :mod:`deepspeed_tpu_torch.bridge` unchanged;
 - attention goes through ``ops.attention.multihead_attention`` (the flash
-  kernel on CUDA when eligible) and the cached decode step through the
-  decode-attention kernel; the dense projections stay ``torch.matmul``.
+  kernels on CUDA when eligible, differentiable through the B1 forward and
+  B2 backward) and the cached decode step through the decode-attention
+  kernel; the dense projections stay ``torch.matmul``;
+- the training-mode forward has dropout and stochastic depth drawn from
+  explicit per-(step, layer, salt) seeds, and activation checkpointing
+  (``remat``) through ``torch.utils.checkpoint``, which recomputes each
+  block with the same seeds and so the same masks.
 
-:class:`GPTModel` is a thin ``nn.Module`` that owns such a parameter dict.
-Options this slice does not port raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that will port them (:func:`check_config`).
+:func:`build` makes the trainable :class:`~.api.Module` the engine takes;
+:class:`GPTModel` is a thin frozen ``nn.Module`` for inference. Options this
+slice does not port raise ``NotImplementedError`` naming the ``ROADMAP.md``
+item that will port them (:func:`check_config`).
 """
 
 from __future__ import annotations
@@ -28,11 +34,15 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import resolve_device
 from ..ops.attention import multihead_attention
 from ..ops.cuda.decode_attention import decode_attention
 from ..ops.cuda.flash_attention import NEG_INF
+from ..utils.errors import unported
+from ..utils.rng import fold_in
+from .api import Module
 
 Params = Dict[str, Any]
 
@@ -48,7 +58,7 @@ class GPTConfig:
     rotary: bool = False  # False: learned positions (GPT-2); True: RoPE (NeoX)
     rotary_pct: float = 1.0
     tie_embeddings: bool = True
-    dropout: float = 0.0  # training only (ROADMAP.md A3)
+    dropout: float = 0.0  # residual-branch dropout, training only
     layer_norm_eps: float = 1e-5
     activation: str = "gelu"  # "gelu" (tanh approx), "gelu_exact", "relu", "quick_gelu"
     parallel_residual: bool = False  # NeoX-style x + attn(ln1 x) + mlp(ln2 x)
@@ -57,21 +67,21 @@ class GPTConfig:
     rotary_interleaved: bool = False  # GPT-J rotate_every_two vs NeoX rotate_half
     embed_layernorm: bool = False  # Bloom: LN right after the token embedding
     lm_head_bias: bool = False  # GPT-J: bias on the (untied) LM head
-    remat: bool = False  # activation checkpointing: a training memory knob (A3)
-    remat_policy: str = "nothing_saveable"
+    remat: bool = False  # activation checkpointing per block (torch.utils.checkpoint)
+    remat_policy: str = "nothing_saveable"  # the only policy ported (others: A3b)
     use_flash: Optional[bool] = None  # None = auto dispatch (the kernels on CUDA)
     # the reference's Pallas tile sizes; the CUDA kernels fix their own tiles
     # (64 rows), and the tile size does not change the result
     flash_block_q: int = 256
     flash_block_k: int = 256
     stochastic_mode: bool = False  # bf16 flash operands: raises in the kernel (B1 redesign)
-    stochastic_depth: float = 0.0  # training only (A3)
+    stochastic_depth: float = 0.0  # whole-block drop probability, training only
     local_attention_period: int = 0  # not ported (A2b)
     window_size: int = 256
     attention_scale: Optional[float] = None  # None = 1/sqrt(head_dim)
     has_lm_head: bool = True  # False: pure encoder, only return_hidden=True is valid
     sparse_attention: Optional[Any] = None  # not ported (A13, kernel B9)
-    random_ltd_layer_ids: Tuple[int, ...] = ()  # training only (A3)
+    random_ltd_layer_ids: Tuple[int, ...] = ()  # random-LTD, not ported (A3b)
     random_ltd_keep: Optional[int] = None
     seq_parallel_impl: str = "dense"  # "ring" / "ulysses" not ported (A13)
     loss_chunk: int = 0  # chunked cross-entropy, not ported (A2b)
@@ -116,11 +126,6 @@ PRESETS: Dict[str, GPTConfig] = {
 }
 
 
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP.md {item})")
-
-
 def check_config(cfg: GPTConfig) -> None:
     """Raise for a config option whose semantics this slice does not port."""
     if cfg.alibi:
@@ -136,13 +141,15 @@ def check_config(cfg: GPTConfig) -> None:
                        "(sequence-parallel attention)", "A13")
 
 
-def _check_train(cfg: GPTConfig, train: bool, pld_theta) -> None:
+def _check_train(cfg: GPTConfig, train: bool, pld_theta, seq_len: int) -> None:
     if pld_theta is not None:
-        raise unported("progressive layer drop (pld_theta)", "A3")
-    if train and (cfg.dropout > 0.0 or cfg.stochastic_depth > 0.0
-                  or (cfg.random_ltd_keep is not None and cfg.random_ltd_layer_ids)):
-        raise unported("a training-mode forward with dropout, stochastic depth "
-                       "or random-LTD", "A3")
+        raise unported("progressive layer drop (pld_theta)", "A3b")
+    if (train and cfg.random_ltd_keep is not None and cfg.random_ltd_keep < seq_len
+            and cfg.random_ltd_layer_ids):
+        raise unported("random-LTD (random_ltd_keep / random_ltd_layer_ids)", "A3b")
+    if cfg.remat and cfg.remat_policy != "nothing_saveable":
+        raise unported(f"remat_policy={cfg.remat_policy!r} (only nothing_saveable "
+                       "is ported)", "A3b")
 
 
 # --------------------------------------------------------------------------- init
@@ -282,13 +289,26 @@ def _mlp_delta(cfg: GPTConfig, x: torch.Tensor, w: Params) -> torch.Tensor:
     return _wm(h, w["mlp_down_w"]) + w["mlp_down_b"]
 
 
-def _block(cfg: GPTConfig, x: torch.Tensor, w: Params,
-           positions: torch.Tensor) -> torch.Tensor:
+def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], train: bool,
+             salt: int) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``fold_in(seed, salt)``:
+    the same seed gives the same mask, which is what a recompute needs."""
+    if rate == 0.0 or not train or seed is None:
+        return x
+    gen = torch.Generator(device=x.device).manual_seed(fold_in(seed, salt))
+    u = torch.rand(x.shape, generator=gen, device=x.device)
+    return torch.where(u < 1.0 - rate, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def _block(cfg: GPTConfig, x: torch.Tensor, w: Params, positions: torch.Tensor,
+           seed: Optional[int] = None, train: bool = False) -> torch.Tensor:
+    """One block; ``seed`` is the layer's dropout seed (None: no dropout)."""
     if cfg.parallel_residual:
         # NeoX/GPT-J style: both sublayers read the same input
-        return x + _attention_delta(cfg, x, w, positions) + _mlp_delta(cfg, x, w)
-    x = x + _attention_delta(cfg, x, w, positions)
-    return x + _mlp_delta(cfg, x, w)
+        attn = _dropout(_attention_delta(cfg, x, w, positions), cfg.dropout, seed, train, 0)
+        return x + attn + _dropout(_mlp_delta(cfg, x, w), cfg.dropout, seed, train, 1)
+    x = x + _dropout(_attention_delta(cfg, x, w, positions), cfg.dropout, seed, train, 0)
+    return x + _dropout(_mlp_delta(cfg, x, w), cfg.dropout, seed, train, 1)
 
 
 def _layer(blocks: Params, i: int) -> Params:
@@ -324,20 +344,46 @@ def _as_ids(input_ids, params: Params) -> torch.Tensor:
 def forward(cfg: GPTConfig, params: Params, input_ids, rngs=None, train: bool = True,
             return_hidden: bool = False, pld_theta=None) -> torch.Tensor:
     """Return logits [B, T, V] (or the final-LN hidden states [B, T, D] with
-    ``return_hidden``). Dropout, stochastic depth, random-LTD and progressive
-    layer drop belong to the training slice and raise when active; ``rngs`` is
-    accepted for the reference's signature and unused."""
+    ``return_hidden``).
+
+    ``rngs={"dropout": seed}`` (an int) seeds the training-mode draws: layer
+    i uses ``fold_in(seed, i)``, its two dropout masks fold in salts 0 and 1
+    and its stochastic-depth draw 0x5D, as the reference folds its keys.
+    Without a seed (or with ``train=False``) nothing is dropped. Random-LTD
+    and progressive layer drop raise (ROADMAP.md A3b)."""
     check_config(cfg)
-    _check_train(cfg, train, pld_theta)
     input_ids = _as_ids(input_ids, params)
     B, T = input_ids.shape
+    _check_train(cfg, train, pld_theta, T)
     if T > cfg.max_seq_len:
         raise ValueError(f"sequence length {T} exceeds max_seq_len {cfg.max_seq_len}")
     positions = torch.arange(T, device=input_ids.device).expand(B, T)
     x = _embed(cfg, params, input_ids, positions)
     blocks = params["blocks"]
+    drop_seed = (rngs or {}).get("dropout")
+    sd = cfg.stochastic_depth if train else 0.0
+
+    def block_fn(x, w, seed):
+        return _block(cfg, x, w, positions, seed, train)
+
+    if cfg.remat and torch.is_grad_enabled():
+        # recompute each block in the backward; the explicit seeds give the
+        # recompute the masks of the first pass
+        def run(x, w, seed):
+            return checkpoint(block_fn, x, w, seed, use_reentrant=False)
+    else:
+        run = block_fn
     for i in range(blocks["qkv_w"].shape[0]):
-        x = _block(cfg, x, _layer(blocks, i), positions)
+        seed = fold_in(drop_seed, i) if drop_seed is not None else None
+        if sd > 0.0 and seed is not None:
+            # stochastic depth: drop the whole block with probability sd (a
+            # host-side draw, so no device sync); a surviving delta is scaled
+            # so that eval needs no correction
+            u = torch.rand((), generator=torch.Generator().manual_seed(fold_in(seed, 0x5D)))
+            if bool(u < 1.0 - sd):
+                x = x + (run(x, _layer(blocks, i), seed) - x) / (1.0 - sd)
+        else:
+            x = run(x, _layer(blocks, i), seed)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layer_norm_eps)
     if return_hidden:
         return x
@@ -468,8 +514,9 @@ def forward_with_cache(cfg: GPTConfig, params: Params, input_ids, cache: Dict[st
 # --------------------------------------------------------------------------- module
 class GPTModel(nn.Module):
     """Owns a GPT parameter dict (the functional layout above) as frozen
-    ``nn.Parameter``s and runs the functional forward and loss on it.
-    Training is not ported yet (ROADMAP.md A3), so no parameter needs grad."""
+    ``nn.Parameter``s and runs the functional forward and loss on it, for
+    inference; no parameter needs grad. Training goes through
+    ``deepspeed_tpu_torch.initialize(model=build(...)[0], ...)``."""
 
     def __init__(self, cfg: GPTConfig, params: Optional[Params] = None,
                  seed: int = 0, device=None):
@@ -494,3 +541,20 @@ class GPTModel(nn.Module):
 
     def loss(self, batch: Dict[str, Any]) -> torch.Tensor:
         return loss_fn(self.cfg, self.params(), batch, train=False)[0]
+
+
+# --------------------------------------------------------------------------- build
+def build(cfg_or_name: Union[str, GPTConfig]) -> Tuple[Module, GPTConfig]:
+    """A trainable :class:`~.api.Module` from a config or preset name: its
+    ``init(seed, device)`` is :func:`init_params` and its ``apply`` is
+    :func:`loss_fn`."""
+    cfg = PRESETS[cfg_or_name] if isinstance(cfg_or_name, str) else cfg_or_name
+    check_config(cfg)
+
+    def init(seed: Union[int, torch.Generator] = 0, device=None) -> Params:
+        return init_params(cfg, seed, device=device)
+
+    def apply(params, batch, rngs=None, train: bool = True, pld_theta=None):
+        return loss_fn(cfg, params, batch, rngs=rngs, train=train, pld_theta=pld_theta)
+
+    return Module(init=init, apply=apply, gpt_config=cfg), cfg

@@ -2,9 +2,11 @@
 
 This module is the dispatch point; models call :func:`multihead_attention`
 and never pick a kernel themselves. An eligible call on a CUDA device goes to
-the hand-written flash-attention kernel (``ops/cuda/flash_attention.py``),
-which launches or raises; everything else takes the plain PyTorch
-:func:`dot_product_attention`.
+the hand-written flash-attention kernels (``ops/cuda/flash_attention.py``),
+which launch or raise; that route is differentiable (the forward kernel and
+the three backward kernels under one ``torch.autograd.Function``) and runs
+the forward alone where no gradient is wanted. Everything else takes the
+plain PyTorch :func:`dot_product_attention`.
 """
 
 from __future__ import annotations

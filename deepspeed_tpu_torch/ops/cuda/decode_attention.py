@@ -7,7 +7,8 @@ Counterpart of ``decode_attention`` and ``_as_lengths`` in
 split and what bounds it.
 
 :func:`decode_attention` takes the plain version only for tensors on the CPU.
-For CUDA tensors it launches the kernel or raises.
+For CUDA tensors it launches the kernel or raises. It is inference-only and
+raises where autograd would differentiate it.
 """
 
 from __future__ import annotations
@@ -91,9 +92,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     """q [B, 1, H, Dh] (the new token's query), k/v cache [B, H, S, Dh],
     ``cur_len`` an int or an int32 scalar or [B] tensor: the valid entries
     INCLUDING the new token, whose k/v must already be in the cache.
-    Returns [B, 1, H, Dh] in q's dtype."""
+    Returns [B, 1, H, Dh] in q's dtype.
+
+    Inference only: the kernel's output has no gradient, so a call that
+    autograd would differentiate raises (on the CPU as well, so that the
+    two devices agree) rather than cut the graph without a word."""
     global launches
     _check(q, k_cache, v_cache)
+    if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
+                                    or v_cache.requires_grad):
+        raise RuntimeError("decode_attention is inference-only and has no backward: "
+                           "call it under torch.no_grad() or on tensors that do not "
+                           "require grad")
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, cur_len, softmax_scale)
     if q.device.type != "cuda":

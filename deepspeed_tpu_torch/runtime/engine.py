@@ -1,0 +1,404 @@
+"""The training engine on one device (counterpart of
+``deepspeed_tpu/runtime/engine.py``).
+
+It owns the model, the optimizer, the precision policy, the LR schedule
+and the throughput timer, and exposes the reference's surface:
+``train_batch`` / ``train_batches`` and the imperative ``forward`` /
+``backward`` / ``step`` with gradient accumulation at the same boundaries.
+
+The train state keeps the reference's keys and leaf names: ``params`` (the
+compute-dtype parameters, which are the autograd leaves), ``master`` (the
+fp32 master copy, or ``{}``), ``opt`` (the optimizer state, fp32),
+``step``, ``micro`` and ``scaler``. One micro-step is the reference's
+``_micro_step``: forward, ``torch.autograd.grad`` of the (loss-scaled,
+predivided) loss, the gradients cast to fp32, unscaled and accumulated
+times 1/gas. The boundary is its ``_boundary_step``: the overflow check
+(fp16 loss scaling), the global norm, clipping, the LR at the count of
+steps taken so far, the optimizer on the master (or the params), and the
+recast of the master to the compute dtype.
+
+Nothing reads a device value back per leaf: metrics come back as 0-dim
+tensors (``loss``, ``grad_norm``, ``lr``, ``loss_scale``, ``overflow``).
+With fp16 loss scaling the engine reads the overflow flag once per step,
+to skip the update. ZeRO stages 0-2 at world size 1 run the unsharded
+update (partitioning over one rank is the identity); everything else the
+reference engine does raises ``NotImplementedError`` naming its ROADMAP.md
+item.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..accelerator import resolve_device
+from ..models.api import Module
+from ..ops.optimizers import Optimizer, get_optimizer
+from ..utils.errors import unported
+from ..utils.logging import log_dist
+from ..utils.rng import fold_in
+from ..utils.timer import ThroughputTimer
+from ..utils.tree import tree_leaves, tree_map, tree_unflatten
+from .config import DeepSpeedConfig
+from .lr_schedules import schedule_fn_from_config
+from .precision import (
+    PrecisionConfig,
+    cast_to_compute,
+    grads_finite,
+    init_scaler_state,
+    make_master,
+    update_scaler,
+    validate_comm_dtype,
+)
+from .utils import clip_by_global_norm, count_parameters, global_norm
+
+
+class DeepSpeedEngine:
+    """Training engine on one device. See the module docstring."""
+
+    def __init__(self, model: Module, config: DeepSpeedConfig, seed: Optional[int] = None,
+                 lr_scheduler_fn: Optional[Callable] = None,
+                 client_optimizer: Optional[Optimizer] = None, device=None):
+        self.device = resolve_device(device)
+        self.model = model
+        self.config = config
+        self.pc = PrecisionConfig.from_ds_config(config)
+        validate_comm_dtype(config.communication_data_type, self.pc.compute_dtype)
+        self.gas = int(config.gradient_accumulation_steps or 1)
+        self.micro_batch_size = int(config.train_micro_batch_size_per_gpu or 1)
+        self.train_batch_size = int(config.train_batch_size or 1)
+        stage = config.zero_optimization.stage
+        if stage > 0:
+            log_dist(f"ZeRO stage {stage} at world size 1: partitioning over one rank is "
+                     "the identity, so the update runs unsharded")
+
+        # ---------------- optimizer + lr schedule
+        opt_cfg = config.optimizer
+        if client_optimizer is not None:
+            if stage > 0 and not config.zero_allow_untested_optimizer:
+                raise ValueError(
+                    "a client optimizer with ZeRO requires "
+                    "zero_allow_untested_optimizer=true (its state layout "
+                    "must tolerate sharding)")
+            self.optimizer = client_optimizer
+            self.base_lr = float(opt_cfg.params.get("lr", 1e-3)) if opt_cfg else 1e-3
+        elif opt_cfg is None:
+            self.optimizer = get_optimizer("Adam", {"lr": 1e-3})
+            self.base_lr = 1e-3
+        else:
+            self.optimizer = get_optimizer(opt_cfg.type, opt_cfg.params)
+            self.base_lr = float(opt_cfg.params.get("lr", 1e-3))
+        if lr_scheduler_fn is not None:
+            self.lr_fn = lr_scheduler_fn
+        elif config.scheduler is not None:
+            self.lr_fn = schedule_fn_from_config(config.scheduler.type, config.scheduler.params)
+        else:
+            base = self.base_lr
+            self.lr_fn = lambda step: base
+
+        # ---------------- counters, timer, state
+        self.seed = int(seed if seed is not None else config.seed)
+        self.global_steps = 0
+        self.micro_steps = 0
+        self.skipped_steps = 0
+        self._micro = 0  # micro-steps accumulated in the open window (host mirror of state["micro"])
+        self._grad_acc: Optional[List[torch.Tensor]] = None
+        self._pending = None  # the scaled loss of the last imperative forward()
+        self._last_metrics: Dict[str, Any] = {}
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else None
+        self.tput_timer = ThroughputTimer(synchronize=sync)
+        self.state = self._init_state()
+        log_dist(
+            f"engine ready: {count_parameters(tree_leaves(self.state['params'])) / 1e6:.1f}M "
+            f"params, ZeRO stage {stage}, dtype {self.pc.compute_dtype}, device "
+            f"{self.device}, micro_bs {self.micro_batch_size} x gas {self.gas}")
+        if config.dump_state:
+            config.print_config()
+
+    # ------------------------------------------------------------------ state
+    def _init_state(self) -> Dict[str, Any]:
+        params_f32 = self.model.init(self.seed, device=self.device)
+        params = cast_to_compute(params_f32, self.pc)
+        master = make_master(params_f32, self.pc)
+        opt = self.optimizer.init(master if master is not None else params)
+        return self._with_leaves({
+            "params": params,
+            "master": master if master is not None else {},
+            "opt": opt,
+            "step": torch.zeros((), dtype=torch.int32, device=self.device),
+            "micro": torch.zeros((), dtype=torch.int32, device=self.device),
+            "scaler": init_scaler_state(self.pc, self.device),
+        })
+
+    @staticmethod
+    def _with_leaves(state: Dict[str, Any]) -> Dict[str, Any]:
+        """Make the compute-dtype params the autograd leaves."""
+        state["params"] = tree_map(
+            lambda p: p.detach().requires_grad_(True) if p.is_floating_point() else p,
+            state["params"])
+        return state
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Replace the train state (for example one carried over from the
+        JAX engine by ``bridge.train_state_from_numpy``). It must have the
+        keys of the engine's own state; the step counters follow it."""
+        missing = {"params", "master", "opt", "step", "micro", "scaler"} - set(state)
+        if missing:
+            raise ValueError(f"load_state: missing keys {sorted(missing)}")
+        if bool(state["master"]) != self.pc.master_weights:
+            raise ValueError("load_state: the master copy does not match the precision mode")
+        self.state = self._with_leaves(dict(state))
+        self.global_steps = int(state["step"])
+        self._micro = int(state["micro"])
+        self._grad_acc = None
+        self._pending = None
+
+    @property
+    def params(self):
+        return self.state["params"]
+
+    @property
+    def module(self):
+        """The wrapped model, as the reference exposes it."""
+        return self.model
+
+    # ------------------------------------------------------------------ steps
+    def _place_batch(self, batch) -> Dict[str, torch.Tensor]:
+        cast = self.pc.compute_dtype if (self.config.fp16.enabled
+                                         and self.config.fp16.auto_cast) else None
+
+        def place(x):
+            x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
+            if self.device.type == "cuda" and x.device.type == "cpu":
+                # staged in pinned memory, the copy is queued on the stream
+                # like a launch; from pageable memory it would wait for the
+                # device to drain the previous step
+                x = x.pin_memory()
+            x = x.to(self.device, non_blocking=True)
+            if cast is not None and x.is_floating_point():
+                x = x.to(cast)  # fp16 auto_cast: float inputs ride the compute dtype
+            return x
+
+        return {k: place(v) for k, v in batch.items()}
+
+    def _micro_seed(self) -> int:
+        """The dropout seed of the next micro-step: fresh for every micro-step,
+        a function of the engine seed and the micro-step count only."""
+        return fold_in(self.seed, self.micro_steps)
+
+    def _scales(self):
+        """(loss multiplier, gradient multiplier): the loss scale over the
+        predivide factor and its inverse (the reference's eff_scale, inv)."""
+        predivide = (float(self.config.gradient_predivide_factor or 1.0)
+                     if self.config.prescale_gradients else 1.0)
+        if self.pc.loss_scaling:
+            eff = self.state["scaler"].scale / predivide
+            return eff, 1.0 / eff
+        return 1.0 / predivide, predivide
+
+    def _forward(self, batch):
+        """The model's training loss on one placed micro-batch, with its graph."""
+        out = self.model.apply(self.state["params"], batch,
+                               rngs={"dropout": self._micro_seed()}, train=True)
+        loss, _ = out if isinstance(out, tuple) else (out, {})
+        eff, _ = self._scales()
+        return loss.float() * eff, loss
+
+    def _accumulate(self, scaled_loss: torch.Tensor) -> None:
+        """Gradients of ``scaled_loss`` w.r.t. the params, in fp32, unscaled,
+        added times 1/gas into the accumulation buffer."""
+        leaves = tree_leaves(self.state["params"])
+        grads = torch.autograd.grad(scaled_loss, leaves, materialize_grads=True)
+        grads = [g.float() for g in grads]  # bf16/fp16 leaves give grads in their dtype
+        _, inv = self._scales()
+        if not (isinstance(inv, float) and inv == 1.0):
+            torch._foreach_mul_(grads, inv)
+        if self.gas > 1:
+            torch._foreach_mul_(grads, 1.0 / self.gas)
+        if self._grad_acc is None:
+            self._grad_acc = grads  # 0 + g, without the zeros
+        else:
+            torch._foreach_add_(self._grad_acc, grads)
+        self._micro += 1
+        self.micro_steps += 1
+        self.state["micro"] += 1
+
+    def _boundary_step(self) -> Dict[str, Any]:
+        """The optimizer step at the accumulation boundary (the reference's
+        ``_boundary_step``, overflow skip included)."""
+        state = self.state
+        grads = self._grad_acc
+        self._grad_acc = None
+        if self.pc.loss_scaling:
+            finite = grads_finite(grads)
+            do_update = bool(finite)  # the one host read per step, fp16 only
+        else:
+            finite = torch.ones((), dtype=torch.bool, device=self.device)
+            do_update = True
+        gnorm = global_norm(grads)
+        if self.config.gradient_clipping and self.config.gradient_clipping > 0:
+            grads, gnorm = clip_by_global_norm(grads, self.config.gradient_clipping, norm=gnorm)
+        # torch.full, not torch.tensor: a fill launch, not a synchronising copy
+        lr = torch.full((), float(self.lr_fn(self.global_steps)), dtype=torch.float32,
+                        device=self.device)
+        has_master = bool(state["master"])
+        target = state["master"] if has_master else state["params"]
+        if do_update:
+            with torch.no_grad():
+                target, state["opt"] = self.optimizer.update(
+                    tree_unflatten(target, grads), state["opt"], target, lr)
+                if has_master:
+                    for p, m in zip(tree_leaves(state["params"]), tree_leaves(target)):
+                        p.copy_(m)  # the recast to the compute dtype
+        loss_scale = state["scaler"].scale
+        state["scaler"] = update_scaler(self.pc, state["scaler"], finite)
+        state["step"] = state["step"] + 1
+        state["micro"] = torch.zeros_like(state["micro"])
+        self._micro = 0
+        return {"grad_norm": gnorm, "lr": lr, "loss_scale": loss_scale, "overflow": ~finite,
+                "_skipped": not do_update}
+
+    def _finish_step(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
+        skipped = metrics.pop("_skipped")
+        self.global_steps += 1
+        self._last_metrics = metrics
+        if skipped:
+            self.skipped_steps += 1
+            log_dist(f"step {self.global_steps}: non-finite grads, step skipped; loss scale "
+                     f"-> {float(self.state['scaler'].scale)}")
+        spp = self.config.steps_per_print
+        if spp and self.global_steps % spp == 0:
+            loss = metrics.get("loss")
+            loss_str = f"loss={float(loss):.4f} " if loss is not None else ""
+            log_dist(f"step={self.global_steps} {loss_str}lr={float(metrics['lr']):.3e} "
+                     f"grad_norm={float(metrics['grad_norm']):.3f}")
+        return metrics
+
+    # ------------------------------------------------------------------ public API
+    def train_batch(self, batch) -> Dict[str, Any]:
+        """One full step: ``gas`` micro-batches and the optimizer update.
+        ``batch`` arrays are [gas, micro, ...] when gas > 1, else [micro, ...]."""
+        if self._micro:
+            raise RuntimeError("train_batch: an imperative accumulation window is open "
+                               f"({self._micro} of {self.gas} micro-steps); finish it with "
+                               "step() first")
+        self.tput_timer.start()
+        batch = self._place_batch(batch)
+        ids = batch["input_ids"]
+        if self.gas > 1 and (ids.dim() != 3 or ids.shape[0] != self.gas):
+            raise ValueError(f"train_batch: with gas={self.gas} the batch leaves are "
+                             f"[gas, micro, T]; got input_ids {tuple(ids.shape)}")
+        losses = []
+        for i in range(self.gas):
+            mb = batch if self.gas == 1 else {k: v[i] for k, v in batch.items()}
+            scaled, loss = self._forward(mb)
+            self._accumulate(scaled)
+            losses.append(loss.detach())
+        metrics = self._boundary_step()
+        metrics["loss"] = losses[0] if self.gas == 1 else torch.stack(losses).mean()
+        self.tput_timer.stop(tokens=ids.numel())
+        return self._finish_step(metrics)
+
+    def train_batches(self, batch) -> Dict[str, Any]:
+        """K full steps. Batch leaves are [k, gas, micro, ...] when gas > 1,
+        else [k, micro, ...]. Returns the last step's metrics, with
+        ``mean_loss`` over the K steps and each metric's K values stacked
+        under ``"steps"``."""
+        k = int(next(iter(batch.values())).shape[0])
+        per_step = [self.train_batch({name: v[i] for name, v in batch.items()})
+                    for i in range(k)]
+        out = dict(per_step[-1])
+        out["steps"] = {name: torch.stack([torch.as_tensor(m[name]) for m in per_step])
+                        for name in per_step[-1]}
+        out["mean_loss"] = out["steps"]["loss"].mean()
+        return out
+
+    def forward(self, batch) -> torch.Tensor:
+        """The training loss of one micro-batch, with its graph kept for
+        :meth:`backward`."""
+        scaled, loss = self._forward(self._place_batch(batch))
+        self._pending = scaled
+        return loss
+
+    def backward(self, loss: Optional[torch.Tensor] = None) -> None:
+        """Accumulate the gradients of the last :meth:`forward`'s loss."""
+        if self._pending is None:
+            raise RuntimeError("backward(): no forward() loss to differentiate")
+        scaled, self._pending = self._pending, None
+        self._accumulate(scaled)
+
+    def is_gradient_accumulation_boundary(self) -> bool:
+        return self._micro >= self.gas
+
+    def step(self) -> None:
+        """Apply the optimizer iff at the accumulation boundary."""
+        if not self.is_gradient_accumulation_boundary():
+            return
+        if self._grad_acc is None:
+            raise RuntimeError("step(): gradient-accumulation boundary reached with no "
+                               "accumulated gradients")
+        self._finish_step(self._boundary_step())
+
+    # ------------------------------------------------------------------ info surface
+    def tokens_per_sec(self) -> float:
+        """Training throughput over the steps after the first (synchronises)."""
+        return self.tput_timer.tokens_per_sec()
+
+    def get_global_grad_norm(self) -> float:
+        return float(self._last_metrics.get("grad_norm", 0.0))
+
+    def get_lr(self) -> List[float]:
+        return [float(self.lr_fn(self.global_steps))]
+
+    def get_loss_scale(self) -> float:
+        return float(self.state["scaler"].scale)
+
+    def zero_optimization_stage(self) -> int:
+        return self.config.zero_optimization.stage
+
+    def train_micro_batch_size_per_gpu(self) -> int:
+        return self.micro_batch_size
+
+    def gradient_accumulation_steps(self) -> int:
+        return self.gas
+
+    def set_train_batch_size(self, train_batch_size: int) -> None:
+        """Change the global batch size through the accumulation steps; the
+        micro-batch size stays."""
+        if train_batch_size % self.micro_batch_size:
+            raise ValueError(f"train_batch_size {train_batch_size} not divisible by "
+                             f"micro_batch x dp = {self.micro_batch_size}")
+        self.gas = train_batch_size // self.micro_batch_size
+        self.train_batch_size = train_batch_size
+        self.config.gradient_accumulation_steps = self.gas
+        self.config.train_batch_size = train_batch_size
+
+    # ------------------------------------------------------------------ not ported yet
+    def save_checkpoint(self, *args, **kwargs):
+        raise unported("DeepSpeedEngine.save_checkpoint", "A4")
+
+    def load_checkpoint(self, *args, **kwargs):
+        raise unported("DeepSpeedEngine.load_checkpoint", "A4")
+
+    def save_16bit_model(self, *args, **kwargs):
+        raise unported("DeepSpeedEngine.save_16bit_model", "A4")
+
+    def comms_summary(self, *args, **kwargs):
+        raise unported("DeepSpeedEngine.comms_summary", "A9")
+
+    def comms_verify(self, *args, **kwargs):
+        raise unported("DeepSpeedEngine.comms_verify", "A9")
+
+    def measure_overlap(self, *args, **kwargs):
+        raise unported("DeepSpeedEngine.measure_overlap", "A9")
+
+    def analyze(self, *args, **kwargs):
+        raise unported("DeepSpeedEngine.analyze (static analysis)", "A14")
+
+    def install_preemption_guard(self, *args, **kwargs):
+        raise unported("DeepSpeedEngine.install_preemption_guard", "A11")
+
+    def request_drain(self, *args, **kwargs):
+        raise unported("DeepSpeedEngine.request_drain", "A11")

@@ -47,7 +47,7 @@ def test_bf16_leaves_cross_bitwise():
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys; before = set(sys.modules); import deepspeed_tpu_torch, "
             "deepspeed_tpu_torch.inference, deepspeed_tpu_torch.models.gpt, "
-            "deepspeed_tpu_torch.bridge; "
+            "deepspeed_tpu_torch.bridge, deepspeed_tpu_torch.runtime.engine; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "
             "'deepspeed_tpu')); print(bad); sys.exit(1 if bad else 0)")
@@ -83,4 +83,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         gpt.init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="CUDA device"):
         deepspeed_tpu_torch.get_accelerator()
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        deepspeed_tpu_torch.initialize(model=gpt.build("tiny")[0], config={})
     assert deepspeed_tpu_torch.get_accelerator("cpu").preferred_dtype() == torch.float32
+
+
+def test_train_state_round_trips_bitwise():
+    """A JAX engine state (bf16 params, fp32 master, AdamState after one
+    step, ScalerState) crosses into the port and back unchanged."""
+    import deepspeed_tpu
+    from deepspeed_tpu.models import build_gpt
+    from deepspeed_tpu.runtime.config import DeepSpeedConfig
+    from deepspeed_tpu.runtime.topology import MeshTopology
+    from deepspeed_tpu_torch.bridge import train_state_from_numpy, train_state_to_numpy
+
+    model, _ = build_gpt(jax_gpt.PRESETS["tiny"])
+    cfg = DeepSpeedConfig.load({"train_micro_batch_size_per_gpu": 2, "bf16": {"enabled": True},
+                                "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}, 1)
+    engine, *_ = deepspeed_tpu.initialize(model=model, config=cfg, seed=0,
+                                          topology=MeshTopology.single_device())
+    engine.train_batch({"input_ids": np.arange(32, dtype=np.int32).reshape(2, 16)})
+    tree = jax.tree_util.tree_map(np.asarray, engine.state)
+    state = train_state_from_numpy(tree, "cpu", torch.bfloat16)
+    assert state["params"]["wte"].dtype == torch.bfloat16
+    assert state["opt"].mu["wte"].dtype == torch.float32 and int(state["opt"].count) == 1
+    back = train_state_to_numpy(state)
+    flat = jax.tree_util.tree_leaves(tree)
+    flat_back = jax.tree_util.tree_leaves(back)
+    assert len(flat) == len(flat_back)
+    for a, b in zip(flat, flat_back):
+        np.testing.assert_array_equal(np.asarray(a, np.float64), np.asarray(b, np.float64))

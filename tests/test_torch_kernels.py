@@ -66,3 +66,49 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, atol):
         assert da.launches == before + 1
         ref = da.decode_attention_ref(q, k, v, cur_len)
         assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T,S,causal,D", [(512, 512, True, 64), (128, 512, True, 64),
+                                          (256, 256, False, 64), (256, 256, True, 128),
+                                          (100, 200, True, 64)])
+def test_flash_backward_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, rtol, T, S,
+                                                              causal, D):
+    """B2 (delta, dq, dk/dv) vs its plain version, with q/k/v read as views of
+    one fused buffer, and two runs giving bitwise-equal gradients (no atomics).
+    Tolerance relative to the largest gradient entry."""
+    H = 3
+    qkv = _normal((2, S, 3 * H * D), cuda_device, dtype, 6)
+    k = qkv[..., H * D:2 * H * D].reshape(2, S, H, D)
+    v = qkv[..., 2 * H * D:].reshape(2, S, H, D)
+    q = qkv[:, S - T:, :H * D].reshape(2, T, H, D)
+    do = _normal((2, T, H, D), cuda_device, dtype, 7)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    before = (fa.bwd_delta_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.bwd_delta_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == tuple(
+        n + 2 for n in before)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    for g, g2, r in zip(grads, again, ref):
+        assert g.shape == r.shape and g.dtype == dtype
+        assert torch.equal(g, g2)
+        scale = r.float().abs().max().item()
+        assert (g.float() - r.float()).abs().max().item() <= rtol * scale
+
+
+@pytest.mark.cuda
+def test_flash_autograd_function_on_the_card(cuda_device):
+    """gradients through FlashAttention (B1 forward + B2 backward) equal
+    autograd of the plain forward, and no_grad saves nothing."""
+    q, k, v = (_normal((2, 256, 4, 64), cuda_device, torch.float32, s).requires_grad_(True)
+               for s in (8, 9, 10))
+    out = fa.flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    ref = torch.autograd.grad(fa.flash_attention_ref(q, k, v, True)[0].square().sum(), (q, k, v))
+    for g, r in zip(grads, ref):
+        assert (g - r).abs().max().item() <= 5e-5 * r.abs().max().item()
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v).grad_fn is None
