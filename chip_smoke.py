@@ -14,7 +14,9 @@ result line):
    card inputs, at the shapes of the serving, scoring and training paths,
    with the kernel's time, the plain version's, one PyTorch library call's
    (``scaled_dot_product_attention`` forward, or its backward through
-   ``torch.autograd.grad``, or for B2's delta one ``einsum``: a yardstick
+   ``torch.autograd.grad``, or for B2's delta one ``einsum``; for the paged
+   B4 kernels SDPA over the already-gathered, already-dequantized cache,
+   the gather excluded, with the gather + SDPA time beside it: a yardstick
    the port never calls) and the least
    time the card could take (``bound_ms``), all device time from CUDA
    events on a cold L2 cache (the host's launch overhead kept out, see
@@ -34,6 +36,21 @@ result line):
    one batch: the loss starts near ln(V) and falls; step time, tokens/s,
    peak memory and a profiler breakdown of one step. (c) gas 2 x micro 4
    and gas 1 x micro 8 over the same 8 rows give the same grad norm.
+6. paged serving: ``ServingEngine`` + ``run_continuous`` on GPT-2-125M with
+   the reference's serving bench configuration (8 slots, page 64, model
+   length 512, pool 17, prefill chunk 128; 24 open-loop requests at 8 rps,
+   prompts 32-128, generations 16-96, seed 0), decode attention through the
+   B4 kernels. (a) fp32 dense pools: every request finishes, the pool audit
+   is clean, each request's tokens equal ``generate``'s and the
+   ``kernel_impl="gather"`` run's, B4 launches 12 times per decode step and
+   B1/B3 never. (b) bf16: TTFT, per-token time, tokens/s, the greedy match
+   rate against the gather path, and a profiler breakdown of 8 decode steps
+   at 8 active slots. (c) fp32 with a pool small enough to preempt: at least
+   one preemption, tokens equal to (a)'s. (d) int8 and int4 pools, fp32:
+   every request finishes with a clean audit; the kernel agrees with the
+   gather path on the pools serving wrote, layer by layer; the free-running
+   match rate against the gather path (at least 0.5) and (a), and the bytes
+   a cached token costs.
 
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after. The last lines are the card's name and power limit
@@ -69,8 +86,14 @@ BWD_RTOL = {"float32": 5e-5, "bfloat16": 2e-2, "float16": 2e-2}
 FLASH_SRC = "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu"
 FLASH_BWD_SRC = "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu"
 DECODE_SRC = "deepspeed_tpu_torch/csrc/decode_attention.cu"
+PAGED_SRC = "deepspeed_tpu_torch/csrc/paged_decode_attention.cu"
 FLASH_TPU = "deepspeed_tpu/ops/pallas/flash_attention.py:118"
 DECODE_TPU = "deepspeed_tpu/ops/pallas/decode_attention.py:109"
+# B4's two bodies behind the one pallas_call (:260): dense, and int8 / int4
+PAGED_TPU = {"dense": "deepspeed_tpu/ops/pallas/decode_attention.py:269",
+             "kv8": "deepspeed_tpu/ops/pallas/decode_attention.py:277",
+             "kv4": "deepspeed_tpu/ops/pallas/decode_attention.py:277"}
+PAGED_KINDS = {"dense": None, "kv8": 8, "kv4": 4}
 # the backward's three pallas_call sites in _bwd
 BWD_TPU = {"delta": "deepspeed_tpu/ops/pallas/flash_attention.py:277",
            "dq": "deepspeed_tpu/ops/pallas/flash_attention.py:291",
@@ -204,6 +227,20 @@ def decode_bound(lens, H, S, Dh, dtype, elt):
     return bound(nbytes, 4.0 * Dh * positions, dtype)
 
 
+def paged_bound(lens, H, Dh, ps, bits, dtype, q_elt):
+    """Least time of one paged call: the K/V rows below each length at the
+    pool's element size (half a byte for int4), the table entry (and, for
+    quantized pools, the two scales) of every page they touch, q read and o
+    written; 4 * Dh flops per position."""
+    lens = np.asarray(lens)
+    positions = int(lens.sum()) * H
+    row = Dh * q_elt if bits is None else (Dh if bits == 8 else Dh // 2)
+    pages = int((-(-lens // ps)).sum())
+    nbytes = (2.0 * positions * row + 4 * pages + (2 * 4 * H * pages if bits else 0)
+              + 2 * len(lens) * H * Dh * q_elt + 4 * len(lens))
+    return bound(nbytes, 4.0 * Dh * positions, dtype)
+
+
 # --------------------------------------------------------------------------- phases
 def phase_build(torch, ctx):
     from deepspeed_tpu_torch.ops import _build
@@ -309,6 +346,97 @@ def phase_kernels(torch, ctx):
                              bound_ms=bound_ms, bound_by=bound_by)
     ctx["decode"]["max_abs_err"] = decode_err
     phase_kernels_bwd(torch, ctx, randn)
+    phase_kernels_paged(torch, ctx)
+
+
+def phase_kernels_paged(torch, ctx):
+    """B4 (dense pools) and B4q (int8, int4 pools) against the gather + plain
+    softmax version, at the serving bench shape (8 slots, H12, Dh64, page 64,
+    8 pages per row, pool 17) and a long one (16 pages per row, pool 257),
+    fp32 and bf16, lengths {0, 1, 63, 64, 65, full, ...} over scattered page
+    ids. The kernels' rows of the result line are the bench shape in fp32,
+    the dtype of the paths that count their launches (phase 6 a and d)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+
+    timer = ctx["timer"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(5)
+    B, H, Dh, ps = 8, 12, 64, 64
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    errs = {kind: 0.0 for kind in PAGED_KINDS}
+    for pages, pool in ((8, 17), (16, 257)):
+        full = pages * ps
+        lens_list = [0, 1, 63, 64, 65, full, full // 2 + 7, full - 1]
+        tables_np = np.zeros((B, pages), np.int32)
+        for b, n in enumerate(lens_list):
+            used = -(-n // ps)
+            tables_np[b, :used] = rng.choice(np.arange(1, pool), used, replace=False)
+        tables = torch.from_numpy(tables_np).cuda()
+        tl = tables.long()
+        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        S = pages * ps
+        valid = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            for kind, bits in PAGED_KINDS.items():
+                q = randn((B, 1, H, Dh), dtype)
+                if bits is None:
+                    k, v = randn((H, pool, ps, Dh), dtype), randn((H, pool, ps, Dh), dtype)
+                    ks = vs = None
+                else:
+                    dq = Dh // 2 if bits == 4 else Dh
+                    k, v = (torch.randint(-128, 128, (H, pool, ps, dq), generator=gen,
+                                          device="cuda", dtype=torch.int8) for _ in range(2))
+                    ks, vs = (torch.rand((H, pool), generator=gen, device="cuda") * 0.02 + 1e-3
+                              for _ in range(2))
+
+                def kernel():
+                    return da.paged_decode_attention(q, k, v, lens, tables, k_scales=ks,
+                                                     v_scales=vs)
+
+                def plain():
+                    return da.paged_decode_attention(q, k, v, lens, tables, impl="gather",
+                                                     k_scales=ks, v_scales=vs)
+
+                out = kernel()
+                torch.cuda.synchronize()
+                err = (out.float() - plain().float()).abs().max().item()
+                errs[kind] = max(errs[kind], err)
+                qt = q.transpose(1, 2)
+                kc = da.gather_pages(k, ks, tl, Dh).to(dtype)
+                vc = da.gather_pages(v, vs, tl, Dh).to(dtype)
+
+                def library():  # the gather (and dequantization) excluded
+                    return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=valid)
+
+                def gather_library():
+                    return F.scaled_dot_product_attention(
+                        qt, da.gather_pages(k, ks, tl, Dh).to(dtype),
+                        da.gather_pages(v, vs, tl, Dh).to(dtype), attn_mask=valid)
+
+                kernel_ms, plain_ms = timer.ms(kernel), timer.ms(plain)
+                library_ms, gather_sdpa_ms = timer.ms(library), timer.ms(gather_library)
+                bound_ms, bound_by = paged_bound(lens_list, H, Dh, ps, bits, dt,
+                                                 q.element_size())
+                log(f"phase2 paged_decode_attention {kind} B{B} H{H} Dh{Dh} ps{ps} "
+                    f"pages_per_seq{pages} pool{pool} lengths={lens_list} {dt}: "
+                    f"max_abs_err={err:.3e} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+                    f"library_ms(sdpa, gather excluded)={library_ms:.4f} "
+                    f"gather_sdpa_ms={gather_sdpa_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+                check(err <= ATOL[dt], f"paged {kind} {pages} {dt}: max_abs_err {err}")
+                check(torch.count_nonzero(out[0]).item() == 0,
+                      f"paged {kind} {pages} {dt}: the length-0 row is not zero")
+                if (pages, dt) == (8, "float32"):
+                    ctx[f"paged_{kind}"] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                                library_ms=library_ms, bound_ms=bound_ms,
+                                                bound_by=bound_by)
+    for kind in PAGED_KINDS:
+        ctx[f"paged_{kind}"]["max_abs_err"] = errs[kind]
 
 
 def phase_kernels_bwd(torch, ctx, randn):
@@ -416,6 +544,7 @@ def _reset_counts():
     fa.launches = 0
     fa.bwd_delta_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
     da.launches = 0
+    da.paged_launches = da.paged_kv8_launches = da.paged_kv4_launches = 0
     return fa, da
 
 
@@ -645,6 +774,175 @@ def phase_training(torch, ctx):
     check(abs(n_gas - n_one) <= 1e-3 * n_one, f"gas grad norms differ: {n_gas} vs {n_one}")
 
 
+# quantized pools (phase 6d): the least free-running greedy match rate of
+# the kernel path against the gather path. int8/int4 rounding of the
+# appended K/V lets the two drift apart (0.9896 and 1.0 for kv8, 0.9150 for
+# kv4, measured on an H100); a broken kernel would match near 1/V. The
+# kernel's own agreement is held per layer on the served pools.
+PAGED_MATCH_FLOOR = 0.5
+# the reference's serving bench configuration (bench.py's serving cell)
+SERVE_CFG = dict(num_slots=8, page_size=64, max_model_len=512, num_pages=17, prefill_chunk=128)
+
+
+def _serve(torch, cfg, params, dtype, **over):
+    """One ``run_continuous`` of the bench workload (24 requests at 8 rps,
+    prompts 32-128, generations 16-96, seed 0) after ``warmup``, with the
+    launch counts set to 0 just before and read just after. Returns the
+    report, the requests, the decode steps run and the launches."""
+    from deepspeed_tpu_torch.inference.serving import (ServingConfig, ServingEngine,
+                                                       make_open_loop_workload, run_continuous)
+
+    eng = ServingEngine(cfg, params, ServingConfig(**{**SERVE_CFG, "dtype": dtype, **over}))
+    eng.warmup()
+    decode, steps_run = eng.decode, [0]
+
+    def counted(tokens, tables, lengths, active, steps=1):
+        steps_run[0] += steps
+        return decode(tokens, tables, lengths, active, steps=steps)
+
+    eng.decode = counted
+    wl = make_open_loop_workload(24, 8.0, (32, 128), (16, 96), cfg.vocab_size, seed=0)
+    fa, da = _reset_counts()  # a paged serving main path
+    rep = run_continuous(eng, wl)
+    torch.cuda.synchronize()
+    launches = {"flash": fa.launches, "decode": da.launches, "dense": da.paged_launches,
+                "kv8": da.paged_kv8_launches, "kv4": da.paged_kv4_launches}
+    tag = " ".join([dtype] + [f"{k}={v}" for k, v in over.items()])
+    log(f"phase6 run {tag}: finished={rep['finished']}/{len(wl)} audit_ok={rep['pool_audit_ok']} "
+        f"decode_dispatches={rep['decode_steps']} decode_steps={steps_run[0]} "
+        f"preemptions={rep['preemptions']} launches={launches} "
+        f"ttft_p50_ms={rep['ttft_p50_ms']} ttft_p99_ms={rep['ttft_p99_ms']} "
+        f"per_token_p50_ms={rep['per_token_p50_ms']} tokens_per_sec={rep['tokens_per_sec']} "
+        f"wall_s={rep['wall_s']} kv_bytes_per_token={eng.kv_bytes_per_token()}")
+    check(rep["finished"] == len(wl), f"{tag}: {rep['finished']} of {len(wl)} finished")
+    check(rep["pool_audit_ok"], f"{tag}: the page audit failed")
+    check(launches["flash"] == 0 and launches["decode"] == 0,
+          f"{tag}: B1/B3 launched on the paged path: {launches}")
+    kind = {None: "dense", 8: "kv8", 4: "kv4"}[over.get("kv_bits")]
+    paged = {k: launches[k] for k in PAGED_KINDS}
+    if over.get("kernel_impl") == "gather":
+        check(not any(paged.values()), f"{tag}: the gather path launched B4: {paged}")
+    else:
+        want = {k: cfg.n_layer * steps_run[0] if k == kind else 0 for k in PAGED_KINDS}
+        check(paged == want, f"{tag}: B4 launches {paged}, expected {want}")
+    return rep, [r.tokens[:r.max_new_tokens] for r in wl], wl, launches[kind], eng
+
+
+def _match(a, b) -> float:
+    pairs = [(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb)]
+    return float(np.mean([x == y for x, y in pairs]))
+
+
+def phase_paged_serving(torch, ctx):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import for_gpt
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    params = ctx["params"]
+
+    # (a) fp32, dense pools: tokens == generate == the gather path
+    _, toks_a, wl_a, launches_a, _ = _serve(torch, cfg, params, "float32")
+    _, toks_ag, _, _, _ = _serve(torch, cfg, params, "float32", kernel_impl="gather")
+    engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="float32")
+    gen = [engine.generate(r.prompt[None], max_new_tokens=r.max_new_tokens)[0, len(r.prompt):]
+           .tolist() for r in wl_a]
+    log(f"phase6a fp32 dense: match vs gather={_match(toks_a, toks_ag):.4f} "
+        f"match vs generate={_match(toks_a, gen):.4f}")
+    check(toks_a == toks_ag, "fp32 served tokens differ from the gather path")
+    check(toks_a == gen, "fp32 served tokens differ from generate")
+    ctx["paged_dense"]["launches"] = launches_a
+    del engine
+
+    # (b) bf16, dense pools: the bench numbers
+    rep_b, toks_b, _, _, eng_b = _serve(torch, cfg, params, "bfloat16")
+    _, toks_bg, _, _, _ = _serve(torch, cfg, params, "bfloat16", kernel_impl="gather")
+    log(f"phase6b bf16 dense: ttft_p50_ms={rep_b['ttft_p50_ms']} "
+        f"ttft_p99_ms={rep_b['ttft_p99_ms']} tpot_p50_ms={rep_b['per_token_p50_ms']} "
+        f"output_tokens_per_s={rep_b['tokens_per_sec']} "
+        f"greedy_match_rate_vs_gather={_match(toks_b, toks_bg):.4f}")
+    slots = SERVE_CFG["num_slots"]
+    tables = np.zeros((slots, 8), np.int32)
+    tables[:, :2] = np.arange(1, 2 * slots + 1).reshape(slots, 2)
+    tokens = np.zeros(slots, np.int32)
+    mask = np.ones(slots, bool)
+
+    def eight_steps():  # two blocks of 4 at 8 active slots, lengths 100..107
+        eng_b.decode(tokens, tables, np.full(slots, 100, np.int32), mask, steps=4)
+        eng_b.decode(tokens, tables, np.full(slots, 104, np.int32), mask, steps=4)
+
+    walls = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        eight_steps()
+        walls.append(time.perf_counter() - t0)
+    log("phase6b bf16 profile of 8 decode steps at 8 active slots: "
+        + device_breakdown(torch, eight_steps, float(np.median(walls[1:])) * 1e3, top=6))
+    del eng_b
+
+    # (c) fp32 under pool pressure: preemption, the tokens of (a)
+    rep_c, toks_c, _, _, _ = _serve(torch, cfg, params, "float32", num_pages=9)
+    log(f"phase6c fp32 pool 9: preemptions={rep_c['preemptions']} "
+        f"match vs (a)={_match(toks_c, toks_a):.4f}")
+    check(rep_c["preemptions"] >= 1, "pool 9 forced no preemption")
+    check(toks_c == toks_a, "tokens under preemption differ from (a)")
+
+    # (d) int8 and int4 pools, fp32. Free-running, the kernel and gather
+    # paths need not give the same tokens: their attention sums differ in
+    # the last fp32 bits, an appended K/V element then now and then rounds
+    # to the neighbouring int8/int4 step, and the two runs drift apart (the
+    # dense pools of (a) have no such rounding). So the kernel is held to the
+    # gather path on the pools serving wrote, layer by layer, and the
+    # free-running greedy match rate is bounded below.
+    for bits in (8, 4):
+        _, toks_d, _, launches_d, eng_d = _serve(torch, cfg, params, "float32", kv_bits=bits)
+        _, toks_dg, _, _, _ = _serve(torch, cfg, params, "float32", kv_bits=bits,
+                                     kernel_impl="gather")
+        err = _kernel_on_served_pools(torch, eng_d)
+        match = _match(toks_d, toks_dg)
+        log(f"phase6d fp32 kv{bits}: kernel vs gather on the served pools, 12 layers: "
+            f"max_abs_err={err:.3e}; free-running match vs gather={match:.4f} "
+            f"match vs (a) dense={_match(toks_d, toks_a):.4f} "
+            f"kv_bytes_per_token={eng_d.kv_bytes_per_token()} (dense fp32 "
+            f"{gpt.paged_kv_bytes_per_token(cfg, None, 64, torch.float32)})")
+        check(err <= ATOL["float32"], f"kv{bits}: kernel vs gather on served pools: {err}")
+        check(match >= PAGED_MATCH_FLOOR, f"kv{bits}: free-running match {match}")
+        ctx[f"paged_kv{bits}"]["launches"] = launches_d
+        del eng_d
+    torch.cuda.empty_cache()
+
+
+def _kernel_on_served_pools(torch, eng) -> float:
+    """Prefill 8 prompts of 100 tokens through ``eng`` and decode a block of
+    4 (the quantized writers of the serving path fill the pools), then hold
+    the kernel to the gather path on each layer's pools at those rows'
+    lengths, with a random query: the largest difference."""
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+
+    slots = SERVE_CFG["num_slots"]
+    rng = np.random.default_rng(7)
+    tables = np.zeros((slots, 8), np.int32)
+    tables[:, :2] = np.arange(1, 2 * slots + 1).reshape(slots, 2)
+    first = eng.prefill_many([(s, rng.integers(0, eng.cfg.vocab_size, 100), tables[s])
+                              for s in range(slots)])
+    eng.decode(np.array([first[s] for s in range(slots)], np.int32), tables,
+               np.full(slots, 100, np.int32), np.ones(slots, bool), steps=4)
+    tbl = torch.from_numpy(tables).cuda()
+    lens = torch.full((slots,), 104, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    pools = eng.paged_cache
+    err = 0.0
+    for layer in range(eng.cfg.n_layer):
+        q = torch.randn((slots, 1, eng.cfg.n_head, eng.cfg.head_dim), generator=gen,
+                        device="cuda")
+        args = (q, pools["k_pages"][layer], pools["v_pages"][layer], lens, tbl)
+        kw = dict(k_scales=pools["k_scales"][layer], v_scales=pools["v_scales"][layer])
+        out = da.paged_decode_attention(*args, **kw)
+        ref = da.paged_decode_attention(*args, impl="gather", **kw)
+        err = max(err, (out - ref).abs().max().item())
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -657,7 +955,8 @@ def main() -> int:
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     ctx = {"timer": Timer(torch)}
     failures = []
-    for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training):
+    for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
+                  phase_paged_serving):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)
@@ -682,7 +981,10 @@ def main() -> int:
         {"name": "decode_attention", "route": "cuda", "source": DECODE_SRC,
          "replaces": DECODE_TPU, **ctx["decode"]},
     ] + [{"name": f"flash_attention_bwd_{n}", "route": "cuda", "source": FLASH_BWD_SRC,
-          "replaces": BWD_TPU[n], **ctx[f"bwd_{n}"]} for n in BWD_KERNELS]
+          "replaces": BWD_TPU[n], **ctx[f"bwd_{n}"]} for n in BWD_KERNELS] + [
+        {"name": "paged_decode_attention" + ("" if kind == "dense" else f"_{kind}"),
+         "route": "cuda", "source": PAGED_SRC, "replaces": PAGED_TPU[kind],
+         **ctx[f"paged_{kind}"]} for kind in PAGED_KINDS]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -4,6 +4,7 @@ from .real_accelerator import (
     CUDAAccelerator,
     get_accelerator,
     resolve_device,
+    to_device,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "CPUAccelerator",
     "get_accelerator",
     "resolve_device",
+    "to_device",
 ]

@@ -9,8 +9,9 @@ CPU quietly.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Any, Union
 
+import numpy as np
 import torch
 
 from .abstract_accelerator import Accelerator
@@ -72,3 +73,14 @@ def get_accelerator(device: DeviceLike = None) -> Accelerator:
     if resolve_device(device).type == "cuda":
         return CUDAAccelerator()
     return CPUAccelerator()
+
+
+def to_device(x: Any, device: torch.device) -> torch.Tensor:
+    """``x`` (a host array or a tensor) on ``device``. A host tensor bound for
+    CUDA is staged in pinned memory and copied non-blocking: the copy is
+    queued on the stream like a launch, where a copy from pageable memory
+    would wait for the device to drain first."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.ascontiguousarray(x))
+    if device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)

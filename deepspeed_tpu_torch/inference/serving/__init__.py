@@ -1,0 +1,30 @@
+"""Continuous-batching serving: paged KV cache + per-step scheduler
+(counterpart of ``deepspeed_tpu/inference/serving``).
+
+- :mod:`.paging`: host-side page allocator (free list; page 0 reserved).
+- :mod:`.buckets`: the shape buckets the serving engine and
+  ``InferenceEngine`` share.
+- :mod:`.scheduler`: host-only admit/evict/preempt over decode slots.
+- :mod:`.engine`: the prefill and paged-decode programs (the executor).
+- :mod:`.bench`: open-loop workload, TTFT/tokens-per-second reports, and the
+  static-batch baseline.
+
+Not ported yet: the prefix index and speculation (ROADMAP.md A7), tenancy,
+tensor parallelism and the fleet (A10), and the resilience hooks (A11).
+"""
+
+from .bench import (estimate_saturation_rps, make_open_loop_workload, percentile,
+                    run_continuous, run_static_baseline)
+from .buckets import bucket_for, default_buckets
+from .engine import ServingConfig, ServingEngine
+from .paging import RESERVED_PAGE, PageAllocator, pages_for
+from .scheduler import AdmissionVerdict, ContinuousBatchingScheduler, Request, RequestState
+
+__all__ = [
+    "PageAllocator", "RESERVED_PAGE", "pages_for",
+    "bucket_for", "default_buckets",
+    "AdmissionVerdict", "ContinuousBatchingScheduler", "Request", "RequestState",
+    "ServingConfig", "ServingEngine",
+    "estimate_saturation_rps", "make_open_loop_workload", "percentile",
+    "run_continuous", "run_static_baseline",
+]

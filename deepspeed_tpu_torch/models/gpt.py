@@ -12,8 +12,10 @@ The functional API of the reference is kept, ``f(cfg, params, ...)`` with
   crosses over through :mod:`deepspeed_tpu_torch.bridge` unchanged;
 - attention goes through ``ops.attention.multihead_attention`` (the flash
   kernels on CUDA when eligible, differentiable through the B1 forward and
-  B2 backward) and the cached decode step through the decode-attention
-  kernel; the dense projections stay ``torch.matmul``;
+  B2 backward), the cached decode step through the decode-attention kernel
+  and the paged decode step (:func:`paged_decode_step`, over dense, int8 or
+  int4 page pools) through the paged one; the dense projections stay
+  ``torch.matmul``;
 - the training-mode forward has dropout and stochastic depth drawn from
   explicit per-(step, layer, salt) seeds, and activation checkpointing
   (``remat``) through ``torch.utils.checkpoint``, which recomputes each
@@ -31,15 +33,18 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..accelerator import resolve_device
+from ..accelerator import resolve_device, to_device
 from ..ops.attention import multihead_attention
-from ..ops.cuda.decode_attention import decode_attention
+from ..ops.cuda.decode_attention import (decode_attention, paged_decode_attention,
+                                         unpack_kv_int4)
 from ..ops.cuda.flash_attention import NEG_INF
+from ..ops.cuda.int8_matmul import pack_int4
 from ..utils.errors import unported
 from ..utils.rng import fold_in
 from .api import Module
@@ -509,6 +514,262 @@ def forward_with_cache(cfg: GPTConfig, params: Params, input_ids, cache: Dict[st
                                     cache["v"][i], pos, layer_idx=i)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layer_norm_eps)
     return _head(cfg, params, x), {"k": cache["k"], "v": cache["v"], "pos": pos + T}
+
+
+# ---------------------------------------------------------------- paged KV decode
+KV_QMAX = {8: 127.0, 4: 7.0}
+
+
+def init_paged_cache(cfg: GPTConfig, num_pages: int, page_size: int,
+                     dtype: torch.dtype = torch.bfloat16, kv_bits: Optional[int] = None,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """Block-allocated KV cache: one shared page pool per layer,
+    ``[L, H, P, page_size, Dh]``. Requests own pages through a block table
+    (``inference/serving/paging.py``); the pool holds ``P * page_size`` token
+    slots shared by every request in flight.
+
+    ``kv_bits`` (8 or 4) stores the pools quantized: int8 payloads (int4
+    packs two values per byte along Dh, the ``pack_int4`` layout) and one
+    symmetric fp32 scale per (layer, head, page) in ``k_scales``/``v_scales``,
+    initialised to 1. A quantized cache is recognized by its scale stacks.
+    Page 0 is the allocator's reserved sink: inactive decode slots and
+    dropped scatter lanes write there."""
+    dev = resolve_device(device)
+    if not kv_bits:
+        shape = (cfg.n_layer, cfg.n_head, num_pages, page_size, cfg.head_dim)
+        return {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
+                "v_pages": torch.zeros(shape, dtype=dtype, device=dev)}
+    if kv_bits not in KV_QMAX:
+        raise ValueError(f"kv_bits must be 8 or 4 (or None), got {kv_bits}")
+    if kv_bits == 4 and cfg.head_dim % 2:
+        raise ValueError("int4 KV needs an even head_dim (nibble packing)")
+    dq = cfg.head_dim // 2 if kv_bits == 4 else cfg.head_dim
+    shape = (cfg.n_layer, cfg.n_head, num_pages, page_size, dq)
+    sshape = (cfg.n_layer, cfg.n_head, num_pages)
+    return {"k_pages": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "v_pages": torch.zeros(shape, dtype=torch.int8, device=dev),
+            "k_scales": torch.ones(sshape, dtype=torch.float32, device=dev),
+            "v_scales": torch.ones(sshape, dtype=torch.float32, device=dev)}
+
+
+def paged_cache_bits(paged_cache: Dict[str, torch.Tensor], head_dim: int) -> Optional[int]:
+    """The cache's KV quantization width (None = dense pools)."""
+    if "k_scales" not in paged_cache:
+        return None
+    return 4 if paged_cache["k_pages"].shape[-1] * 2 == head_dim else 8
+
+
+def paged_kv_bytes_per_token(cfg: GPTConfig, kv_bits: Optional[int] = None,
+                             page_size: int = 64,
+                             dtype: torch.dtype = torch.bfloat16) -> float:
+    """Device bytes one cached token costs in an :func:`init_paged_cache`
+    pool: the dense payload at ``dtype``, or the quantized payload at
+    ``kv_bits`` plus the fp32 per-(layer, head, page) scales amortized over
+    the page."""
+    per_tok = 2 * cfg.n_layer * cfg.n_head * cfg.head_dim
+    if not kv_bits:
+        return float(per_tok * dtype.itemsize)
+    payload = per_tok // (2 if kv_bits == 4 else 1)
+    scales = 2 * cfg.n_layer * cfg.n_head * 4 / page_size
+    return float(payload + scales)
+
+
+def _pack_kv_int4(q: torch.Tensor) -> torch.Tensor:
+    """Values in [-8, 7] packed two per byte along the last dim, the one
+    half-split layout (``ops.cuda.int8_matmul.pack_int4``, inverted by
+    ``ops.cuda.decode_attention.unpack_kv_int4``)."""
+    return pack_int4(q)
+
+
+def _kv_payload(q: torch.Tensor, bits: int) -> torch.Tensor:
+    return _pack_kv_int4(q) if bits == 4 else q.to(torch.int8)
+
+
+def _host_index(a, device: torch.device) -> torch.Tensor:
+    return to_device(np.asarray(a, np.int64), device)
+
+
+def write_prompt_kv_batch(paged_cache: Dict[str, torch.Tensor],
+                          dense_cache: Dict[str, Any], block_tables, lengths,
+                          starts=None) -> Dict[str, torch.Tensor]:
+    """Scatter a batch of prefilled requests' dense K/V (``dense_cache``
+    ``[L, F, H, S, Dh]``) into the pages their block-table rows name, IN
+    PLACE (the reference returns new arrays); returns ``paged_cache``.
+
+    ``block_tables`` [F, pages_per_seq], ``lengths`` [F] and ``starts`` [F]
+    (or a scalar, default 0) are host arrays, the scheduler's own: the
+    positions that land are computed here on the host, so no device mask
+    has to be read back. Position s of row f lands iff
+    ``starts[f] <= s < lengths[f]``; the rest (bucket padding, rows of
+    length 0, positions below a borrowed-prefix start, scratch past the
+    table) is dropped, as the reference's out-of-bounds ``mode="drop"``
+    drops it.
+
+    Quantized pools quantize at scatter time: one symmetric scale per
+    (layer, head, page) from the absmax of the tokens landing in that page,
+    payloads rounded and clipped to [-qmax - 1, qmax]."""
+    k = dense_cache["k"]  # [L, F, H, S, Dh]
+    L, R, H, S, Dh = k.shape
+    ps = paged_cache["k_pages"].shape[3]
+    dev = paged_cache["k_pages"].device
+    tables = np.asarray(block_tables, np.int64).reshape(R, -1)
+    lens = np.broadcast_to(np.asarray(lengths, np.int64), (R,))
+    st = np.broadcast_to(np.asarray(0 if starts is None else starts, np.int64), (R,))
+    pos = np.arange(S)
+    valid = (pos[None, :] >= st[:, None]) & (pos[None, :] < lens[:, None])  # [F, S]
+    rows, cols = np.nonzero(valid)
+    if cols.size and cols.max() // ps >= tables.shape[1]:
+        raise ValueError(f"write_prompt_kv_batch: a length reaches past the block table "
+                         f"({tables.shape[1]} pages of {ps})")
+    f_idx, s_idx = _host_index(rows, dev), _host_index(cols, dev)
+    page = _host_index(tables[rows, cols // ps], dev)
+    off = _host_index(cols % ps, dev)
+    bits = paged_cache_bits(paged_cache, Dh)
+    if bits is None:
+        for key, pool in (("k", "k_pages"), ("v", "v_pages")):
+            dst = paged_cache[pool]
+            # dst[l, h, page[n], off[n], :] = dense[l, f_idx[n], h, s_idx[n], :]
+            vals = dense_cache[key].permute(1, 3, 0, 2, 4)[f_idx, s_idx]  # [N, L, H, Dh]
+            dst[:, :, page, off] = vals.permute(1, 2, 0, 3).to(dst.dtype)
+        return paged_cache
+    qmax = KV_QMAX[bits]
+    npg = -(-S // ps)
+    Sp = npg * ps  # S padded up to whole pages for the per-page absmax
+    vmask = np.zeros((R, Sp), bool)
+    vmask[:, :S] = valid
+    vmask = vmask.reshape(R, npg, ps)
+    # one scale per (row, page slot) that receives a token
+    w_rows, w_slots = np.nonzero(vmask.any(axis=2))
+    w_page = _host_index(tables[w_rows, w_slots], dev)
+    w_rows_t, w_slots_t = _host_index(w_rows, dev), _host_index(w_slots, dev)
+    mask = to_device(vmask.astype(np.float32), dev)[None, None, :, :, :, None]
+    for key, pool, skey in (("k", "k_pages", "k_scales"), ("v", "v_pages", "v_scales")):
+        xt = dense_cache[key].permute(0, 2, 1, 3, 4).float()  # [L, H, F, S, Dh]
+        if Sp != S:
+            xt = F.pad(xt, (0, 0, 0, Sp - S))
+        xg = xt.reshape(L, H, R, npg, ps, Dh)
+        amax = (xg.abs() * mask).amax(dim=(4, 5))  # [L, H, F, npg]
+        scales = torch.where(amax > 0, amax / qmax, 1.0)
+        q = torch.clamp(torch.round(xg / scales[..., None, None]), -qmax - 1, qmax)
+        q = _kv_payload(q, bits)
+        q = q.reshape(L, H, R, Sp, q.shape[-1])
+        paged_cache[pool][:, :, page, off] = q[:, :, f_idx, s_idx]
+        paged_cache[skey][:, :, w_page] = scales[:, :, w_rows_t, w_slots_t]
+    return paged_cache
+
+
+def write_prompt_kv(paged_cache: Dict[str, torch.Tensor], dense_cache: Dict[str, Any],
+                    block_table, length: int, row: int = 0,
+                    start: int = 0) -> Dict[str, torch.Tensor]:
+    """Single-request :func:`write_prompt_kv_batch` over ``dense_cache`` row
+    ``row``; ``start`` skips positions below it (borrowed prefix pages)."""
+    one = {"k": dense_cache["k"][:, row:row + 1], "v": dense_cache["v"][:, row:row + 1]}
+    return write_prompt_kv_batch(paged_cache, one, np.asarray(block_table)[None],
+                                 np.asarray([length]), np.asarray([start]))
+
+
+def _append_kv_token(pages_q: torch.Tensor, scales: torch.Tensor, tok: torch.Tensor,
+                     page: torch.Tensor, off: torch.Tensor,
+                     bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential quantized-pool append, IN PLACE: one token per batch row
+    into its tail page. ``pages_q`` [H, P, ps, Dq]; ``scales`` [H, P];
+    ``tok`` [H, B, Dh] float32; ``page``/``off`` [B] int64.
+
+    A row opening a page (offset 0) takes the page scale from its own token
+    (the pool's prior value there is garbage: the init, or a recycled page's
+    previous tenant). Mid-page the scale grows monotonically, and on a step
+    where some row's scale grew, every row's page requantizes under its new
+    scale (ratio-1.0 rows round-trip bit for bit). The reference picks the
+    requantize branch with ``lax.cond``; here both results are computed and
+    ``torch.where`` selects on the device, so no step waits on a host read
+    of the condition, and the payloads are the reference's bit for bit."""
+    qmax = KV_QMAX[bits]
+    B = tok.shape[1]
+    opening = (off == 0)[None, :]                     # [1, B]
+    s_old = scales[:, page]                           # [H, B]
+    amax = tok.abs().amax(dim=-1)
+    fresh = torch.where(amax > 0, amax / qmax, 1.0)
+    s_new = torch.where(opening, fresh, torch.maximum(s_old, fresh))
+    tq = _kv_payload(torch.clamp(torch.round(tok / s_new[..., None]), -qmax - 1, qmax), bits)
+    cur = pages_q[:, page]                            # [H, B, ps, Dq]
+    deq = unpack_kv_int4(cur) if bits == 4 else cur.float()
+    ratio = (s_old / s_new)[..., None, None]
+    requant = _kv_payload(torch.clamp(torch.round(deq * ratio), -qmax - 1, qmax), bits)
+    grew = (~opening & (s_new > s_old)).any()
+    new = torch.where(grew, requant, cur)
+    new[:, torch.arange(B, device=tok.device), off] = tq
+    pages_q[:, page] = new
+    scales[:, page] = s_new
+    return pages_q, scales
+
+
+def _paged_attn_sublayer(cfg: GPTConfig, x: torch.Tensor, w: Params, k_pages, v_pages,
+                         tables: torch.Tensor, lengths: torch.Tensor, impl=None,
+                         k_scales=None, v_scales=None) -> torch.Tensor:
+    """Cached self-attention over one layer's page pool (pre-LN + residual)
+    for ONE new token per row: x [B, 1, D]; pools [H, P, ps, Dh] (or int8
+    [..., Dh or Dh/2] with ``k_scales``/``v_scales`` [H, P]); tables [B,
+    pages_per_seq] int32; lengths [B] int32, the tokens already cached (the
+    new token lands at position ``lengths[b]``). The new K/V are written into
+    the pools in place; returns x + attn_out."""
+    B, T, D = x.shape
+    if T != 1:
+        raise ValueError(f"paged decode takes one token per row, got {T}")
+    Dh = cfg.head_dim
+    ps = k_pages.shape[2]
+    q, k, v = _qkv(cfg, x, w, lengths[:, None].long())  # each row at its own position
+    page = tables.gather(1, (lengths // ps)[:, None].long())[:, 0].long()
+    off = (lengths % ps).long()
+    quantized = k_scales is not None
+    if not quantized:
+        k_pages[:, page, off] = k[:, 0].to(k_pages.dtype).transpose(0, 1)
+        v_pages[:, page, off] = v[:, 0].to(v_pages.dtype).transpose(0, 1)
+    else:
+        bits = 4 if k_pages.shape[-1] * 2 == Dh else 8
+        _append_kv_token(k_pages, k_scales, k[:, 0].transpose(0, 1).float(), page, off, bits)
+        _append_kv_token(v_pages, v_scales, v[:, 0].transpose(0, 1).float(), page, off, bits)
+    scale = cfg.attention_scale if cfg.attention_scale is not None else 1.0 / math.sqrt(Dh)
+    qdt = x.dtype if quantized else k_pages.dtype
+    attn = paged_decode_attention(q.to(qdt), k_pages, v_pages, lengths + 1, tables,
+                                  softmax_scale=scale, impl=impl, k_scales=k_scales,
+                                  v_scales=v_scales)
+    attn = attn.reshape(B, 1, D).to(x.dtype)
+    return x + _wm(attn, w["attn_out_w"]) + w["attn_out_b"]
+
+
+def paged_decode_step(cfg: GPTConfig, params: Params, input_ids,
+                      paged_cache: Dict[str, torch.Tensor], block_tables, lengths,
+                      impl: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step over the paged cache: ``input_ids`` [B] (or [B, 1]),
+    one new token per slot, each appended at its row's own ``lengths[b]``.
+    Returns (logits [B, V], paged_cache), the pools written in place.
+
+    B is the fixed decode slot count: inactive slots (length 0, a table row
+    of page 0) write to the sink page and give logits the caller ignores.
+    Dense or quantized pools (recognized by the scale stacks); learned or
+    rotary positions; the parallel residual. ``impl`` goes to
+    :func:`paged_decode_attention` (None: the B4 kernel on CUDA)."""
+    check_config(cfg)
+    ids = _as_ids(input_ids, params)
+    if ids.dim() == 1:
+        ids = ids[:, None]
+    dev = ids.device
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    tables = torch.as_tensor(block_tables, dtype=torch.int32, device=dev)
+    x = _embed(cfg, params, ids, lengths[:, None].long())
+    kv_q = "k_scales" in paged_cache
+    blocks = params["blocks"]
+    for i in range(blocks["qkv_w"].shape[0]):
+        w = _layer(blocks, i)
+        y = _paged_attn_sublayer(
+            cfg, x, w, paged_cache["k_pages"][i], paged_cache["v_pages"][i], tables,
+            lengths, impl=impl, k_scales=paged_cache["k_scales"][i] if kv_q else None,
+            v_scales=paged_cache["v_scales"][i] if kv_q else None)
+        # parallel residual (NeoX/GPT-J): the MLP reads the pre-attention stream
+        x = y + _mlp_delta(cfg, x if cfg.parallel_residual else y, w)
+    x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layer_norm_eps)
+    return _head(cfg, params, x)[:, 0], paged_cache
 
 
 # --------------------------------------------------------------------------- module

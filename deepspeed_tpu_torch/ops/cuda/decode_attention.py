@@ -1,14 +1,21 @@
-"""Single-token decode attention over a contiguous KV cache: the hand-written
-CUDA kernel and its plain version.
+"""Single-token decode attention over a KV cache: the hand-written CUDA
+kernels and their plain versions.
 
-Counterpart of ``decode_attention`` and ``_as_lengths`` in
-``deepspeed_tpu/ops/pallas/decode_attention.py``. The kernel is
-``deepspeed_tpu_torch/csrc/decode_attention.cu``; its header says how it is
-split and what bounds it.
+Counterpart of ``decode_attention``, ``paged_decode_attention``,
+``unpack_kv_int4`` and ``_as_lengths`` in
+``deepspeed_tpu/ops/pallas/decode_attention.py``. Two kernels:
 
-:func:`decode_attention` takes the plain version only for tensors on the CPU.
-For CUDA tensors it launches the kernel or raises. It is inference-only and
-raises where autograd would differentiate it.
+- :func:`decode_attention` (B3) over a contiguous ``[B, H, S, Dh]`` cache,
+  ``deepspeed_tpu_torch/csrc/decode_attention.cu``;
+- :func:`paged_decode_attention` (B4) through a block table over a shared
+  page pool, dense or quantized (int8, nibble-packed int4),
+  ``deepspeed_tpu_torch/csrc/paged_decode_attention.cu``.
+
+Each source's header says how it is split and what bounds it. Both wrappers
+take the plain version only for tensors on the CPU (or, for the paged one,
+when asked with ``impl="gather"``); for CUDA tensors they launch the kernel
+or raise. Both are inference-only and raise where autograd would
+differentiate them.
 """
 
 from __future__ import annotations
@@ -22,10 +29,15 @@ import torch
 
 from .. import _build
 from .flash_attention import DTYPE_CODE, HEAD_DIMS, NEG_INF
+from .int8_matmul import unpack_int4
 
-# kernel launches since import or the last reset to 0 (chip_smoke.py reads it
-# to show that the main path went through the kernel)
+# kernel launches since import or the last reset to 0 (chip_smoke.py reads
+# them to show that a main path went through the kernels): B3, and B4 by
+# pool layout (dense, int8, int4)
 launches = 0
+paged_launches = 0
+paged_kv8_launches = 0
+paged_kv4_launches = 0
 
 Lengths = Union[int, torch.Tensor]
 
@@ -38,6 +50,22 @@ def _lib() -> ctypes.CDLL:
         [ptr] * 5 + [i32] * 6 + [i64] * 2 + [ctypes.c_float, ptr])
     lib.ds_decode_attention.restype = i32
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_lib() -> ctypes.CDLL:
+    lib = _build.load("paged_decode_attention")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ds_paged_decode_attention.argtypes = (
+        [ptr] * 8 + [i32] * 8 + [i64] * 2 + [ctypes.c_float, ptr])
+    lib.ds_paged_decode_attention.restype = i32
+    return lib
+
+
+def _refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} is inference-only and has no backward: call it "
+                           "under torch.no_grad() or on tensors that do not require grad")
 
 
 def _as_lengths(cur_len: Lengths, batch: int, device: torch.device) -> torch.Tensor:
@@ -99,11 +127,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     two devices agree) rather than cut the graph without a word."""
     global launches
     _check(q, k_cache, v_cache)
-    if torch.is_grad_enabled() and (q.requires_grad or k_cache.requires_grad
-                                    or v_cache.requires_grad):
-        raise RuntimeError("decode_attention is inference-only and has no backward: "
-                           "call it under torch.no_grad() or on tensors that do not "
-                           "require grad")
+    _refuse_autograd("decode_attention", q, k_cache, v_cache)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, cur_len, softmax_scale)
     if q.device.type != "cuda":
@@ -134,4 +158,147 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
             q.stride(0), q.stride(2), scale, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, status, "decode_attention")
     launches += 1
+    return o
+
+
+# ------------------------------------------------------------------ paged (B4)
+# kv_mode codes of csrc/paged_decode_attention.cu by quantization width
+_KV_MODE = {None: 0, 8: 8, 4: 4}
+
+
+def unpack_kv_int4(packed: torch.Tensor) -> torch.Tensor:
+    """Two int4 values per int8 byte, half-split along the last dim (the
+    ``int8_matmul.pack_int4`` layout), widened to float32."""
+    return unpack_int4(packed).float()
+
+
+def _pool_bits(k_pages: torch.Tensor, k_scales, v_scales, head_dim: int) -> Optional[int]:
+    """The pool's quantization width (None = dense), with the reference's checks."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    if k_scales is None:
+        return None
+    if k_pages.shape[-1] * 2 == head_dim:
+        return 4
+    if k_pages.shape[-1] != head_dim:
+        raise ValueError(
+            f"quantized pool last dim {k_pages.shape[-1]} matches neither int8 "
+            f"({head_dim}) nor packed int4 ({head_dim // 2})")
+    return 8
+
+
+def gather_pages(pages: torch.Tensor, scales: Optional[torch.Tensor],
+                  tables: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """[H, P, ps, Dq] pool -> [B, H, pages * ps, Dh]: each row's pages in
+    table order, dequantized against ``scales[:, tables]`` when quantized."""
+    g = pages[:, tables]  # [H, B, n, ps, Dq]
+    if scales is not None:
+        g = unpack_kv_int4(g) if g.shape[-1] * 2 == head_dim else g.float()
+        g = g * scales[:, tables][..., None, None]
+    g = g.permute(1, 0, 2, 3, 4)
+    return g.reshape(g.shape[0], g.shape[1], -1, head_dim)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, lengths: Lengths,
+                               block_tables: torch.Tensor,
+                               softmax_scale: Optional[float] = None,
+                               k_scales: Optional[torch.Tensor] = None,
+                               v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the paged kernel (the counterpart of
+    ``_paged_gather_attention``): gather each row's pages contiguously,
+    dequantize quantized pools, then exactly :func:`decode_attention_ref`'s
+    masked fp32 softmax, so the result is bitwise that of the contiguous
+    formula over the gathered cache. A row of length 0 gives zeros."""
+    Dh = q.shape[-1]
+    tables = block_tables.long()
+    k = gather_pages(k_pages, k_scales, tables, Dh)
+    v = gather_pages(v_pages, v_scales, tables, Dh)
+    return decode_attention_ref(q, k, v, lengths, softmax_scale)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           lengths: Lengths, block_tables: torch.Tensor,
+                           softmax_scale: Optional[float] = None, impl: Optional[str] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode attention reading K/V through a block table.
+
+    q [B, 1, H, Dh]; k/v pages one layer's pool [H, P, page_size, Dh] (dense,
+    in q's dtype), or int8 [H, P, page_size, Dh] / nibble-packed int4
+    [H, P, page_size, Dh // 2] with fp32 ``k_scales``/``v_scales`` [H, P];
+    ``lengths`` an int or an int32 [B] tensor of valid tokens INCLUDING the
+    new one; ``block_tables`` int32 [B, pages_per_seq] of valid page ids
+    (page 0, the sink, past a row's length). Returns [B, 1, H, Dh] in q's
+    dtype.
+
+    ``impl``: None launches the kernel for CUDA tensors and takes the plain
+    version for CPU tensors; "gather" is the plain version on any device (the
+    comparison path); "kernel" insists on the kernel and raises on the CPU.
+    Inference only: a call autograd would differentiate raises."""
+    global paged_launches, paged_kv8_launches, paged_kv4_launches
+    if q.dim() != 4 or q.shape[1] != 1:
+        raise ValueError(f"paged_decode_attention: q must be [B, 1, H, Dh], got {tuple(q.shape)}")
+    B, _, H, Dh = q.shape
+    bits = _pool_bits(k_pages, k_scales, v_scales, Dh)
+    if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape or k_pages.shape[0] != H
+            or block_tables.dim() != 2 or block_tables.shape[0] != B):
+        raise ValueError(f"paged_decode_attention: pools {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} and tables {tuple(block_tables.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    _refuse_autograd("paged_decode_attention", q, k_pages, v_pages)
+    if impl not in (None, "kernel", "gather"):
+        raise ValueError(f"impl must be None, 'kernel' or 'gather': {impl!r}")
+    if impl == "gather" or (impl is None and q.device.type == "cpu"):
+        return paged_decode_attention_ref(q, k_pages, v_pages, lengths, block_tables,
+                                          softmax_scale, k_scales, v_scales)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention kernel: needs CUDA tensors, got {q.device}")
+    P, ps = k_pages.shape[1], k_pages.shape[2]
+    if Dh not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"paged_decode_attention kernel: head dim {Dh} (built for {HEAD_DIMS}; other "
+            "head dims are ROADMAP.md queue B-redesign)")
+    if q.dtype not in DTYPE_CODE:
+        raise TypeError(f"paged_decode_attention kernel: q dtype {q.dtype}; expected "
+                        "float32, bfloat16 or float16")
+    if bits is None and not (k_pages.dtype == v_pages.dtype == q.dtype):
+        raise TypeError(f"paged_decode_attention kernel: dense pools {k_pages.dtype}/"
+                        f"{v_pages.dtype} must have q's dtype {q.dtype}")
+    if bits is not None:
+        if not (k_pages.dtype == v_pages.dtype == torch.int8):
+            raise TypeError("paged_decode_attention kernel: quantized pools must be int8")
+        if (k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32
+                or k_scales.shape != (H, P) or v_scales.shape != (H, P)
+                or not (k_scales.is_contiguous() and v_scales.is_contiguous())):
+            raise ValueError(f"paged_decode_attention kernel: scales must be contiguous "
+                             f"float32 [H, P] = {(H, P)}")
+    pools = (k_pages, v_pages) + ((k_scales, v_scales) if bits is not None else ())
+    if any(t.device != q.device for t in pools + (block_tables,)):
+        raise ValueError("paged_decode_attention: q, pools and tables on different devices")
+    if q.stride(-1) != 1 or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("paged_decode_attention kernel: q's head dim and the pools "
+                         "must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_decode_attention kernel: pools must be 16-byte aligned")
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(Dh)
+    lens = _as_lengths(lengths, B, q.device).contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    o = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
+    lib = _paged_lib()
+    with torch.cuda.device(q.device):
+        status = lib.ds_paged_decode_attention(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scales.data_ptr() if bits is not None else None,
+            v_scales.data_ptr() if bits is not None else None,
+            o.data_ptr(), lens.data_ptr(), tables.data_ptr(), B, H, P, ps,
+            tables.shape[1], Dh, DTYPE_CODE[q.dtype], _KV_MODE[bits],
+            q.stride(0), q.stride(2), scale, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, status, "paged_decode_attention")
+    if bits is None:
+        paged_launches += 1
+    elif bits == 8:
+        paged_kv8_launches += 1
+    else:
+        paged_kv4_launches += 1
     return o

@@ -30,10 +30,9 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional
 
-import numpy as np
 import torch
 
-from ..accelerator import resolve_device
+from ..accelerator import resolve_device, to_device
 from ..models.api import Module
 from ..ops.optimizers import Optimizer, get_optimizer
 from ..utils.errors import unported
@@ -170,13 +169,9 @@ class DeepSpeedEngine:
                                          and self.config.fp16.auto_cast) else None
 
         def place(x):
-            x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
-            if self.device.type == "cuda" and x.device.type == "cpu":
-                # staged in pinned memory, the copy is queued on the stream
-                # like a launch; from pageable memory it would wait for the
-                # device to drain the previous step
-                x = x.pin_memory()
-            x = x.to(self.device, non_blocking=True)
+            # pinned and non-blocking: a copy from pageable memory would wait
+            # for the device to drain the previous step
+            x = to_device(x, self.device)
             if cast is not None and x.is_floating_point():
                 x = x.to(cast)  # fp16 auto_cast: float inputs ride the compute dtype
             return x

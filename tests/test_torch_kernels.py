@@ -112,3 +112,52 @@ def test_flash_autograd_function_on_the_card(cuda_device):
         assert (g - r).abs().max().item() <= 5e-5 * r.abs().max().item()
     with torch.no_grad():
         assert fa.flash_attention(q, k, v).grad_fn is None
+
+
+def _paged_inputs(device, dtype, bits, B, H, pages, pool, seed):
+    """q, one layer's pools (+ scales), scattered tables, and lengths
+    {0, 1, 63, 64, 65, full} at page size 64."""
+    Dh, ps = 64, 64
+    rng = np.random.default_rng(seed)
+    q = _normal((B, 1, H, Dh), device, dtype, seed)
+    tables = np.zeros((B, pages), np.int32)
+    ids = rng.permutation(np.arange(1, pool))
+    lens = [0, 1, 63, 64, 65, pages * ps] + [pages * ps // 2] * (B - 6)
+    for b, n in enumerate(lens):
+        used = -(-n // ps)
+        tables[b, :used] = ids[:used]
+        ids = np.roll(ids, -used)
+    t = {"tables": torch.from_numpy(tables).to(device),
+         "lengths": torch.tensor(lens, dtype=torch.int32, device=device)}
+    if bits is None:
+        k = _normal((H, pool, ps, Dh), device, dtype, seed + 1)
+        v = _normal((H, pool, ps, Dh), device, dtype, seed + 2)
+        return q, k, v, None, None, t
+    dq = Dh // 2 if bits == 4 else Dh
+    k = torch.from_numpy(rng.integers(-128, 128, (H, pool, ps, dq)).astype(np.int8)).to(device)
+    v = torch.from_numpy(rng.integers(-128, 128, (H, pool, ps, dq)).astype(np.int8)).to(device)
+    ks = torch.from_numpy(rng.uniform(0.001, 0.02, (H, pool)).astype(np.float32)).to(device)
+    vs = torch.from_numpy(rng.uniform(0.001, 0.02, (H, pool)).astype(np.float32)).to(device)
+    return q, k, v, ks, vs, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", TOLERANCES)
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
+@pytest.mark.parametrize("pages,pool", [(8, 17), (16, 257)])
+def test_paged_kernel_matches_plain(cuda_device, dtype, atol, bits, pages, pool):
+    """B4 (dense pools) and B4q (int8, int4) at the serving shape (8 slots,
+    H12, page 64, 8 pages per row, pool 17) and a long one (16 pages per
+    row, pool 257), against the gather + plain softmax version."""
+    counter = {None: "paged_launches", 8: "paged_kv8_launches", 4: "paged_kv4_launches"}[bits]
+    q, k, v, ks, vs, t = _paged_inputs(cuda_device, dtype, bits, 8, 12, pages, pool, 11)
+    before = getattr(da, counter)
+    out = da.paged_decode_attention(q, k, v, t["lengths"], t["tables"], k_scales=ks,
+                                    v_scales=vs)
+    torch.cuda.synchronize()
+    assert getattr(da, counter) == before + 1
+    ref = da.paged_decode_attention(q, k, v, t["lengths"], t["tables"], impl="gather",
+                                    k_scales=ks, v_scales=vs)
+    assert getattr(da, counter) == before + 1
+    assert out.dtype == dtype and torch.count_nonzero(out[0]) == 0  # the length-0 row
+    assert (out.float() - ref.float()).abs().max().item() <= atol
