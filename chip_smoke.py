@@ -16,8 +16,10 @@ result line):
    (``scaled_dot_product_attention`` forward, or its backward through
    ``torch.autograd.grad``, or for B2's delta one ``einsum``; for the paged
    B4 kernels SDPA over the already-gathered, already-dequantized cache,
-   the gather excluded, with the gather + SDPA time beside it: a yardstick
-   the port never calls) and the least
+   the gather excluded, with the gather + SDPA time beside it; for B6/B7
+   the cuBLAS dense product over the weight already dequantized to x's
+   dtype, the dequantize excluded: no PyTorch call computes the group
+   layout, and the port never calls these) and the least
    time the card could take (``bound_ms``), all device time from CUDA
    events on a cold L2 cache (the host's launch overhead kept out, see
    ``Timer``). The flash backward (three kernels: delta, dq, dk/dv) is also
@@ -51,6 +53,20 @@ result line):
    gather path on the pools serving wrote, layer by layer; the free-running
    match rate against the gather path (at least 0.5) and (a), and the bytes
    a cached token costs.
+7. quantized-weight inference (weights int8 or int4, group 128, through the
+   B6 / B7 kernels in every decode projection). (a) GPT-2-125M fp32,
+   ``init_inference(..., quant=...)``, B4, prompt 512, +64: tokens identical
+   to a dense fp32 engine over the dequantized tree; B6 or B7 launch 4 x 12
+   x 63 times (prefill, 2048 rows, takes the dequantize-then-matmul route)
+   and B3 12 x 63. (b) the reference's ``gpt2-350m-decode-b8-int4`` bench
+   row beside int8 and dense bf16: bf16, B8, prompt 128, +64; the marginal
+   per-token decode latency (generate 16 vs 64, five repetitions, p50, as
+   the reference's bench measures it), tokens/s, the block stacks' weight
+   bytes, the greedy match rate against dense bf16 (reported only), and a
+   profile of 8 decode steps. (c) phase 6's serving run over
+   ``quantize_for_inference(bits=8)`` weights, fp32, dense pools: every
+   request finishes, the audit is clean, tokens equal serving over the
+   dequantized dense tree, and B6 launches 48 times per decode step.
 
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after. The last lines are the card's name and power limit
@@ -99,6 +115,13 @@ BWD_TPU = {"delta": "deepspeed_tpu/ops/pallas/flash_attention.py:277",
            "dq": "deepspeed_tpu/ops/pallas/flash_attention.py:291",
            "dkv": "deepspeed_tpu/ops/pallas/flash_attention.py:309"}
 BWD_KERNELS = ("delta", "dq", "dkv")
+QMM_SRC = "deepspeed_tpu_torch/csrc/int8_matmul.cu"
+QMM_TPU = {"int8": "deepspeed_tpu/ops/pallas/int8_matmul.py:42",
+           "int4": "deepspeed_tpu/ops/pallas/int8_matmul.py:145"}
+QUANT_GROUP = 128
+# B6/B7 against their plain versions, relative to the largest output entry:
+# fp32 -- both accumulate in fp32 in another order; bf16 -- both round once
+QMM_RTOL = {"float32": 5e-5, "bfloat16": 2e-2}
 
 
 class Failed(Exception):
@@ -347,6 +370,71 @@ def phase_kernels(torch, ctx):
     ctx["decode"]["max_abs_err"] = decode_err
     phase_kernels_bwd(torch, ctx, randn)
     phase_kernels_paged(torch, ctx)
+    phase_kernels_qmatmul(torch, ctx)
+
+
+def qmm_bound(M, D, F, group, bits, dtype, elt):
+    """Least time of one quantized product: the weight payload (a byte per
+    weight, half for int4), its fp32 scales, x read and out written once;
+    2 flops per multiply-add at the peak of x's dtype."""
+    nbytes = D * F * bits / 8 + 4 * D * F / group + (M * D + M * F) * elt
+    return bound(nbytes, 2.0 * M * D * F, dtype)
+
+
+def phase_kernels_qmatmul(torch, ctx):
+    """B6 (int8) and B7 (int4) against their plain versions at the four
+    projection shapes of GPT-2-125M and of gpt2-350m, at the decode and
+    prefill-chunk row counts, group 128, fp32 and bf16; int8 also at group 64
+    and at a group that crosses rows. The kernels' rows of the result line
+    are GPT-2-125M's mlp_up at M=4 in fp32, phase 7a's decode shape."""
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
+    from deepspeed_tpu_torch.ops.quantizer import dequantize, quantize
+
+    timer = ctx["timer"]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    shapes = [(768, 2304), (768, 768), (768, 3072), (3072, 768),
+              (1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+    cases = [(M, D, F, QUANT_GROUP, bits, dt) for bits in (8, 4) for dt in ("float32", "bfloat16")
+             for D, F in shapes for M in (1, 4, 8, 64, 256)]
+    cases += [(M, D, F, g, 8, dt) for dt in ("float32", "bfloat16")
+              for M, D, F, g in ((8, 768, 3072, 64), (8, 320, 960, 128))]
+    errs = {8: 0.0, 4: 0.0}
+    weights = {}
+    for M, D, F, group, bits, dt in cases:
+        dtype = getattr(torch, dt)
+        key = (D, F, group, bits)
+        if key not in weights:
+            w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
+            q, s = quantize(w, bits=bits, num_groups=D * F // group)
+            weights[key] = (im.pack_int4(q) if bits == 4 else q, s)
+        q, s = weights[key]
+        x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
+        kernel_fn, plain_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
+                               else (im.int8_matmul, im.int8_matmul_ref))
+        out = kernel_fn(x, q, s, group)
+        again = kernel_fn(x, q, s, group)
+        torch.cuda.synchronize()
+        ref = plain_fn(x, q, s, group)
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = err / max(ref.float().abs().max().item(), 1e-30)
+        errs[bits] = max(errs[bits], err)
+        w_dense = dequantize(im.unpack_int4(q) if bits == 4 else q, s, dtype)
+        kernel_ms = timer.ms(lambda: kernel_fn(x, q, s, group))
+        plain_ms = timer.ms(lambda: plain_fn(x, q, s, group))
+        library_ms = timer.ms(lambda: torch.matmul(x, w_dense))
+        bound_ms, bound_by = qmm_bound(M, D, F, group, bits, dt, x.element_size())
+        name = "int4_matmul" if bits == 4 else "int8_matmul"
+        log(f"phase2 {name} M{M} D{D} F{F} group{group} {dt}: max_abs_err={err:.3e} "
+            f"rel_err={rel:.3e} bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms(cuBLAS dense, dequantize excluded)="
+            f"{library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
+        check(torch.equal(out, again), f"{name} {M, D, F, group, dt}: two runs differ")
+        check(rel <= QMM_RTOL[dt], f"{name} {M, D, F, group, dt}: rel error {rel}")
+        if (M, D, F, group, dt) == (4, 768, 3072, QUANT_GROUP, "float32"):
+            ctx[f"qmm_int{bits}"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by)
+    for bits in (8, 4):
+        ctx[f"qmm_int{bits}"]["max_abs_err"] = errs[bits]
 
 
 def phase_kernels_paged(torch, ctx):
@@ -540,11 +628,13 @@ def _sdpa_backward_ms(torch, timer, q, k, v, do, causal) -> float:
 def _reset_counts():
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
     fa.launches = 0
     fa.bwd_delta_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
     da.launches = 0
     da.paged_launches = da.paged_kv8_launches = da.paged_kv4_launches = 0
+    im.int8_launches = im.int4_launches = 0
     return fa, da
 
 
@@ -792,13 +882,20 @@ def _serve(torch, cfg, params, dtype, **over):
     from deepspeed_tpu_torch.inference.serving import (ServingConfig, ServingEngine,
                                                        make_open_loop_workload, run_continuous)
 
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
+
     eng = ServingEngine(cfg, params, ServingConfig(**{**SERVE_CFG, "dtype": dtype, **over}))
     eng.warmup()
-    decode, steps_run = eng.decode, [0]
+    decode, steps_run, decode_qmm = eng.decode, [0], {"int8": 0, "int4": 0}
 
     def counted(tokens, tables, lengths, active, steps=1):
         steps_run[0] += steps
-        return decode(tokens, tables, lengths, active, steps=steps)
+        before = (im.int8_launches, im.int4_launches)
+        out = decode(tokens, tables, lengths, active, steps=steps)
+        decode_qmm["int8"] += im.int8_launches - before[0]
+        decode_qmm["int4"] += im.int4_launches - before[1]
+        return out
 
     eng.decode = counted
     wl = make_open_loop_workload(24, 8.0, (32, 128), (16, 96), cfg.vocab_size, seed=0)
@@ -806,7 +903,10 @@ def _serve(torch, cfg, params, dtype, **over):
     rep = run_continuous(eng, wl)
     torch.cuda.synchronize()
     launches = {"flash": fa.launches, "decode": da.launches, "dense": da.paged_launches,
-                "kv8": da.paged_kv8_launches, "kv4": da.paged_kv4_launches}
+                "kv8": da.paged_kv8_launches, "kv4": da.paged_kv4_launches,
+                "int8_matmul": im.int8_launches, "int4_matmul": im.int4_launches,
+                "int8_matmul_in_decode": decode_qmm["int8"],
+                "int4_matmul_in_decode": decode_qmm["int4"]}
     tag = " ".join([dtype] + [f"{k}={v}" for k, v in over.items()])
     log(f"phase6 run {tag}: finished={rep['finished']}/{len(wl)} audit_ok={rep['pool_audit_ok']} "
         f"decode_dispatches={rep['decode_steps']} decode_steps={steps_run[0]} "
@@ -825,6 +925,15 @@ def _serve(torch, cfg, params, dtype, **over):
     else:
         want = {k: cfg.n_layer * steps_run[0] if k == kind else 0 for k in PAGED_KINDS}
         check(paged == want, f"{tag}: B4 launches {paged}, expected {want}")
+    # quantized weights: every decode projection is one B6/B7 launch (4 per
+    # layer); dense weights launch neither anywhere
+    qleaf = params["blocks"]["qkv_w"]
+    wkind = ("int4" if "q4" in qleaf else "int8") if gpt._is_qleaf(qleaf) else None
+    want_q = {k: 4 * cfg.n_layer * steps_run[0] if k == wkind else 0 for k in decode_qmm}
+    check(decode_qmm == want_q, f"{tag}: B6/B7 launches in decode {decode_qmm}, expected {want_q}")
+    if wkind is None:
+        check(launches["int8_matmul"] == launches["int4_matmul"] == 0,
+              f"{tag}: dense weights launched B6/B7: {launches}")
     return rep, [r.tokens[:r.max_new_tokens] for r in wl], wl, launches[kind], eng
 
 
@@ -912,6 +1021,128 @@ def phase_paged_serving(torch, ctx):
     torch.cuda.empty_cache()
 
 
+def _block_weight_bytes(params) -> int:
+    """Bytes of the block stacks' weight matrices: the payloads and scales of
+    quantized leaves, or the dense [L, D, F] stacks."""
+    from deepspeed_tpu_torch.models import gpt
+
+    total = 0
+    for leaf in params["blocks"].values():
+        if gpt._is_qleaf(leaf):
+            total += sum(t.numel() * t.element_size() for t in leaf.values())
+        elif leaf.dim() >= 3:
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def _marginal_decode_ms(engine, prompt, short=16, long_=64, reps=5):
+    """The reference bench's per-token decode latency: generate ``short`` and
+    ``long_`` new tokens back to back, ``reps`` times; the difference of the
+    two times over ``long_ - short`` tokens, p50 (host clock; generate
+    returns host numpy, so each call ends synchronized)."""
+    engine.generate(prompt, max_new_tokens=short)
+    engine.generate(prompt, max_new_tokens=long_)
+    lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        engine.generate(prompt, max_new_tokens=short)
+        t1 = time.perf_counter()
+        engine.generate(prompt, max_new_tokens=long_)
+        t2 = time.perf_counter()
+        lat.append(((t2 - t1) - (t1 - t0)) / (long_ - short) * 1e3)
+    return sorted(lat)[len(lat) // 2], lat
+
+
+def phase_quantized(torch, ctx):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import for_gpt
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    params = ctx["params"]
+    new = 64
+
+    # (a) GPT-2-125M fp32, int8 and int4 weights: tokens equal the plain
+    # path, a dense fp32 engine over the dequantized tree
+    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 512)).astype(np.int32)
+    for bits in (8, 4):
+        kind = f"int{bits}"
+        quant = {"enabled": True, "bits": bits, "group_size": QUANT_GROUP}
+        engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="float32",
+                                                    quant=quant)
+        plain = deepspeed_tpu_torch.init_inference(
+            for_gpt(cfg, gpt.dequantize_params(engine.params)), dtype="float32")
+        engine.generate(prompt, max_new_tokens=2)  # warm-up
+        fa, da = _reset_counts()  # the quantized generate main path
+        out = engine.generate(prompt, max_new_tokens=new)
+        launches = {"int8": im.int8_launches, "int4": im.int4_launches, "decode": da.launches,
+                    "flash": fa.launches}
+        ref = plain.generate(prompt, max_new_tokens=new)
+        match = float(np.mean(out[:, 512:] == ref[:, 512:]))
+        log(f"phase7a generate gpt2-125m B4 prompt512 new{new} fp32 {kind} group{QUANT_GROUP}: "
+            f"greedy_match_rate vs dequantized dense={match:.4f} launches={launches} "
+            f"block_weight_bytes={_block_weight_bytes(engine.params)} "
+            f"(dense fp32 {_block_weight_bytes(plain.params)})")
+        check(match == 1.0, f"{kind} fp32 generate differs from the dequantized dense path")
+        want = {"int8": 0, "int4": 0, "decode": cfg.n_layer * (new - 1), "flash": 0}
+        want[kind] = 4 * cfg.n_layer * (new - 1)
+        check(launches == want, f"{kind}: launches {launches}, expected {want}")
+        ctx[f"qmm_{kind}"]["launches"] = launches[kind]
+        del engine, plain
+    torch.cuda.empty_cache()
+
+    # (b) the reference's gpt2-350m-decode-b8-int4 bench row, with int8 and
+    # dense bf16 beside it
+    cfg350 = gpt.PRESETS["gpt2-350m"]
+    p350 = gpt.init_params(cfg350, 0, device="cuda")
+    prompt = np.random.default_rng(0).integers(0, cfg350.vocab_size, (8, 128)).astype(np.int32)
+    toks, rows = {}, {}
+    for kind, bits in (("bf16", None), ("int8", 8), ("int4", 4)):
+        quant = {"enabled": True, "bits": bits, "group_size": QUANT_GROUP} if bits else {}
+        engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg350, p350), dtype="bfloat16",
+                                                    quant=quant)
+        p50, lat = _marginal_decode_ms(engine, prompt)
+        _reset_counts()
+        toks[kind] = engine.generate(prompt, max_new_tokens=new)[:, 128:]
+        launches = {"int8": im.int8_launches, "int4": im.int4_launches}
+        nbytes = _block_weight_bytes(engine.params)
+        rows[kind] = nbytes
+        log(f"phase7b gpt2-350m-decode-b8 {kind} bf16 B8 prompt128 +{new}: "
+            f"decode_p50_ms={p50:.3f} decode_ms_all={[round(x, 3) for x in lat]} "
+            f"tokens_per_s={1e3 / p50 * 8:.1f} block_weight_bytes={nbytes} "
+            f"launches over one generate={launches}")
+        log(f"phase7b {kind} profile of 8 decode steps at position 128: "
+            + _decode_profile(torch, engine, prompt, steps=8))
+        if bits:
+            want = {"int8": 0, "int4": 0}
+            want[kind] = 4 * cfg350.n_layer * (new - 1)
+            check(launches == want, f"350m {kind}: launches {launches}, expected {want}")
+        del engine
+        torch.cuda.empty_cache()
+    log(f"phase7b greedy match vs dense bf16 (reported only: quantization changes the "
+        f"function): int8={float(np.mean(toks['int8'] == toks['bf16'])):.4f} "
+        f"int4={float(np.mean(toks['int4'] == toks['bf16'])):.4f}; weight bytes vs bf16: "
+        f"int8={rows['int8'] / rows['bf16']:.4f} int4={rows['int4'] / rows['bf16']:.4f}")
+    # a byte per weight (half for int4) plus a 4-byte scale per 128
+    check(abs(rows["int4"] / rows["bf16"] - (0.5 + 4 / QUANT_GROUP) / 2) < 1e-3,
+          f"int4 block bytes {rows['int4']} vs bf16 {rows['bf16']}")
+    del p350
+    torch.cuda.empty_cache()
+
+    # (c) paged serving over int8 weights (fp32, dense pools): tokens equal
+    # serving over the dequantized dense tree
+    qparams = gpt.quantize_for_inference(cfg, params, bits=8, group_size=QUANT_GROUP)
+    rep, toks_q, wl, _, eng_q = _serve(torch, cfg, qparams, "float32")
+    _, toks_d, _, _, _ = _serve(torch, cfg, gpt.dequantize_params(qparams), "float32")
+    log(f"phase7c serving int8 weights fp32: finished={rep['finished']}/{len(wl)} "
+        f"audit_ok={rep['pool_audit_ok']} match vs dequantized dense={_match(toks_q, toks_d):.4f} "
+        f"tpot_p50_ms={rep['per_token_p50_ms']} tokens_per_sec={rep['tokens_per_sec']}")
+    check(toks_q == toks_d, "int8-weight served tokens differ from the dequantized dense run")
+    del eng_q
+    torch.cuda.empty_cache()
+
+
 def _kernel_on_served_pools(torch, eng) -> float:
     """Prefill 8 prompts of 100 tokens through ``eng`` and decode a block of
     4 (the quantized writers of the serving path fill the pools), then hold
@@ -956,7 +1187,7 @@ def main() -> int:
     ctx = {"timer": Timer(torch)}
     failures = []
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
-                  phase_paged_serving):
+                  phase_paged_serving, phase_quantized):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)
@@ -984,7 +1215,9 @@ def main() -> int:
           "replaces": BWD_TPU[n], **ctx[f"bwd_{n}"]} for n in BWD_KERNELS] + [
         {"name": "paged_decode_attention" + ("" if kind == "dense" else f"_{kind}"),
          "route": "cuda", "source": PAGED_SRC, "replaces": PAGED_TPU[kind],
-         **ctx[f"paged_{kind}"]} for kind in PAGED_KINDS]
+         **ctx[f"paged_{kind}"]} for kind in PAGED_KINDS] + [
+        {"name": f"int{bits}_matmul", "route": "cuda", "source": QMM_SRC,
+         "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_int{bits}"]} for bits in (8, 4)]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

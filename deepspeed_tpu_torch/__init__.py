@@ -9,7 +9,9 @@ the kernels. The package imports torch and numpy, never jax and nothing of
 
 Ported so far: GPT forward and next-token loss (``models.gpt``), training
 on one device through :func:`initialize` (``DeepSpeedEngine.train_batch``),
-and KV-cache greedy generation through :func:`init_inference`.
+KV-cache greedy generation through :func:`init_inference` (dense, or int8 /
+int4 weights with ``quant={"enabled": True, ...}``), and continuous-batching
+paged serving (``inference.serving``).
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .accelerator import resolve_device
+from .models import gpt as gpt_mod
 from .ops.optimizers import AdagradState, AdamState, SGDState
 from .runtime.precision import ScalerState
 
@@ -35,18 +36,15 @@ def _tensor(a: Any) -> torch.Tensor:
 
 def params_from_numpy(tree: Any, device=None, dtype: Optional[torch.dtype] = None) -> Any:
     """A nested dict of numpy arrays -> the same dict of tensors on ``device``
-    (default: the CUDA device). ``dtype`` casts the floating-point leaves."""
-    dev = resolve_device(device)
-
+    (default: the CUDA device). ``dtype`` casts the floating-point leaves;
+    quantized ``{"q"|"q4", "s"}`` leaves cross whole (int8 payloads, fp32
+    scales), as the engines keep them."""
     def convert(node):
         if isinstance(node, dict):
             return {k: convert(v) for k, v in node.items()}
-        t = _tensor(node)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t.to(dev)
+        return _tensor(node)
 
-    return convert(tree)
+    return gpt_mod.cast_params(convert(tree), resolve_device(device), dtype)
 
 
 def params_to_numpy(params: Any) -> Any:

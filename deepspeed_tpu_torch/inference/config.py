@@ -88,9 +88,11 @@ class DeepSpeedInferenceConfig:
         name = str(self.dtype).lower()
         name = _DTYPE_NAMES.get(name, name)
         if name == "int8":
+            # the reference casts every float leaf to int8 here; weight-only
+            # quantization is quant={"enabled": True, ...}
             raise NotImplementedError(
-                "dtype int8 (quantized inference) is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP.md A8)")
+                "dtype int8 (every float weight cast to int8) is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP.md A13); use quant={'enabled': True}")
         if name not in _TORCH_DTYPES:
             raise ValueError(f"unknown inference dtype {self.dtype!r}")
         return _TORCH_DTYPES[name]

@@ -6,6 +6,10 @@ one cached forward per new token, each reaching the decode-attention kernel
 on CUDA. The reference compiles the whole loop into one program; here it runs
 eagerly, as a Python loop, until CUDA-graph capture is ported (ROADMAP.md
 A5b). Greedy decoding only: sampling and beam search raise (A5b).
+
+With ``quant.enabled`` (or a tree that arrives quantized) the layer stacks
+hold int8 or packed int4 weights with fp32 group scales, and every
+projection of a decode step runs the int8 / int4 weight kernels.
 """
 
 from __future__ import annotations
@@ -40,19 +44,27 @@ class InferenceEngine:
             raise unported("tensor-parallel inference (tp_size > 1)", "A10")
         if self.config.moe.ep_size > 1:
             raise unported("expert-parallel (MoE) inference", "A13")
-        if self.config.quant.enabled:
-            raise unported("quantized-weight inference (quant.enabled)", "A8")
         self.device = resolve_device(device)
         self.dtype = self.config.torch_dtype()
         self.model = model
-
-        def cast(node):
-            if isinstance(node, dict):
-                return {k: cast(v) for k, v in node.items()}
-            t = torch.as_tensor(node)
-            return t.to(self.device, self.dtype if t.is_floating_point() else None)
-
-        self.params = cast(model.params)
+        # the dtype cast passes quantized {"q"|"q4", "s"} leaves whole: int
+        # payloads are not float-cast and the scales stay fp32
+        params = gpt_mod.cast_params(model.params, self.device, self.dtype)
+        # weight-only quantization (the reference's GroupQuantizer route): a
+        # tree that arrives quantized (init_quantized_decode_params) is used
+        # as it is; quant.enabled quantizes the layer stacks after the cast,
+        # so bf16 weights quantize from their bf16 values
+        quant = self.config.quant
+        if gpt_mod.has_quantized_leaves(params):
+            log_dist("inference engine: pre-quantized layer-stack weights")
+        elif quant.enabled:
+            if not hasattr(model, "quantize_params"):
+                raise unported("quant.enabled for a model adapter without quantize_params "
+                               "(compression.quantize_params_for_inference)", "A13")
+            params = model.quantize_params(params, bits=quant.bits, group_size=quant.group_size)
+            log_dist(f"inference engine: int{quant.bits} layer-stack weights "
+                     f"(group {quant.group_size})")
+        self.params = params
         log_dist(f"inference engine: dtype {self.dtype}, device {self.device}, "
                  f"max_out_tokens={self.config.max_out_tokens}")
 
@@ -147,6 +159,10 @@ class _GPTInferenceAdapter:
 
     def prefill(self, params, input_ids, cache):
         return gpt_mod.forward_with_cache(self.cfg, params, input_ids, cache)
+
+    def quantize_params(self, params, bits: int, group_size: int):
+        return gpt_mod.quantize_for_inference(self.cfg, params, bits=bits,
+                                              group_size=group_size)
 
 
 def for_gpt(cfg: gpt_mod.GPTConfig, params: Any) -> _GPTInferenceAdapter:

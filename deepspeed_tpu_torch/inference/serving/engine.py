@@ -10,7 +10,9 @@ are the reference's:
   ``[num_slots]``, greedy-sampled on the device. A block of K steps is a
   loop of K steps in which each step's argmax feeds the next without
   leaving the device; the block reads the host once (``[K, num_slots]``).
-  Its attention is the B4 paged kernel on CUDA.
+  Its attention is the B4 paged kernel on CUDA; over a quantized weight
+  tree (``models.gpt.quantize_for_inference``) its projections are the
+  int8 / int4 weight kernels.
 - **prefill**: one shape per chunk bucket (powers of two up to
   ``prefill_chunk``): a prompt of at most one chunk runs in one padded
   forward (fused), an admission cycle of several such prompts as one
@@ -173,14 +175,8 @@ class ServingEngine:
                           else self.num_slots * s.pages_per_seq + 1)
         self.dtype = getattr(torch, {"bf16": "bfloat16", "fp32": "float32",
                                      "fp16": "float16"}.get(s.dtype, s.dtype))
-
-        def cast(node):
-            if isinstance(node, dict):
-                return {k: cast(v) for k, v in node.items()}
-            t = torch.as_tensor(node)
-            return t.to(self.device, self.dtype if t.is_floating_point() else None)
-
-        self.params = cast(params)
+        # quantized {"q"|"q4", "s"} leaves pass whole (fp32 scales)
+        self.params = gpt_mod.cast_params(params, self.device, self.dtype)
         self.paged_cache = gpt_mod.init_paged_cache(cfg, self.num_pages, s.page_size,
                                                     self.dtype, kv_bits=s.kv_bits,
                                                     device=self.device)

@@ -14,8 +14,14 @@ The functional API of the reference is kept, ``f(cfg, params, ...)`` with
   kernels on CUDA when eligible, differentiable through the B1 forward and
   B2 backward), the cached decode step through the decode-attention kernel
   and the paged decode step (:func:`paged_decode_step`, over dense, int8 or
-  int4 page pools) through the paged one; the dense projections stay
-  ``torch.matmul``;
+  int4 page pools) through the paged one;
+- a projection weight is dense (``torch.matmul``) or a quantized leaf,
+  ``{"q", "s"}`` (int8) or ``{"q4", "s"}`` (nibble-packed int4) with fp32
+  group scales [L, groups per layer] (:func:`quantize_for_inference`,
+  :func:`init_quantized_decode_params`); :func:`_wm` sends those to the
+  int8 / int4 weight kernels. The cached paths (:func:`forward_with_cache`,
+  :func:`paged_decode_step`) take either; the scoring :func:`forward` takes
+  dense weights, as the reference's does;
 - the training-mode forward has dropout and stochastic depth drawn from
   explicit per-(step, layer, salt) seeds, and activation checkpointing
   (``remat``) through ``torch.utils.checkpoint``, which recomputes each
@@ -44,7 +50,8 @@ from ..ops.attention import multihead_attention
 from ..ops.cuda.decode_attention import (decode_attention, paged_decode_attention,
                                          unpack_kv_int4)
 from ..ops.cuda.flash_attention import NEG_INF
-from ..ops.cuda.int8_matmul import pack_int4
+from ..ops.cuda.int8_matmul import int4_matmul, int8_matmul, pack_int4, unpack_int4
+from ..ops.quantizer import dequantize, quantize
 from ..utils.errors import unported
 from ..utils.rng import fold_in
 from .api import Module
@@ -250,11 +257,29 @@ def _act(cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
     return F.gelu(h, approximate="tanh")
 
 
+def _is_qleaf(v) -> bool:
+    """A quantized weight leaf: int8 ``{"q", "s"}`` or packed int4 ``{"q4", "s"}``."""
+    return isinstance(v, dict) and set(v.keys()) in ({"q", "s"}, {"q4", "s"})
+
+
 def _wm(h: torch.Tensor, leaf) -> torch.Tensor:
-    """``h @ W`` for a dense weight; quantized ``{"q","s"}`` leaves are not ported."""
-    if not isinstance(leaf, torch.Tensor):
-        raise unported("quantized weight leaves (the int8/int4 _wm dispatch)", "A8")
-    return h @ leaf
+    """``h @ W`` where W is dense or one layer's quantized leaf, int8
+    ``{"q", "s"}`` or packed int4 ``{"q4", "s"}``: those go to the int8 / int4
+    weight kernels (B6 / B7), which dequantize in registers, so no dequantized
+    weight exists for a decode step. The group size is the leaf's own,
+    weights per scale."""
+    if not _is_qleaf(leaf):
+        return h @ leaf
+    shape = h.shape
+    x = h.reshape(-1, shape[-1])
+    s = leaf["s"].reshape(-1)
+    if "q4" in leaf:
+        q4 = leaf["q4"]
+        out = int4_matmul(x, q4, s, group_size=2 * q4.numel() // s.numel())
+        return out.reshape(*shape[:-1], 2 * q4.shape[1])
+    q = leaf["q"]
+    out = int8_matmul(x, q, s, group_size=q.numel() // s.numel())
+    return out.reshape(*shape[:-1], q.shape[1])
 
 
 def _rotary_dims(cfg: GPTConfig) -> int:
@@ -317,7 +342,14 @@ def _block(cfg: GPTConfig, x: torch.Tensor, w: Params, positions: torch.Tensor,
 
 
 def _layer(blocks: Params, i: int) -> Params:
-    return {k: v[i] for k, v in blocks.items()}
+    """Layer ``i`` of the stacked blocks (a quantized leaf indexed leaf by leaf)."""
+    return {k: ({kk: vv[i] for kk, vv in v.items()} if _is_qleaf(v) else v[i])
+            for k, v in blocks.items()}
+
+
+def _n_layers(blocks: Params) -> int:
+    leaf = blocks["qkv_w"]
+    return (leaf["s"] if _is_qleaf(leaf) else leaf).shape[0]
 
 
 def _embed(cfg: GPTConfig, params: Params, input_ids: torch.Tensor,
@@ -327,10 +359,9 @@ def _embed(cfg: GPTConfig, params: Params, input_ids: torch.Tensor,
         x = x + F.embedding(positions + cfg.pos_offset, params["wpe"])
     if cfg.embed_layernorm:
         x = layer_norm(x, params["emb_ln_scale"], params["emb_ln_bias"], cfg.layer_norm_eps)
+    # a quantized tree computes in the dtype of its dense leaves
     qkv_w = params["blocks"]["qkv_w"]
-    if not isinstance(qkv_w, torch.Tensor):
-        raise unported("quantized weight leaves (the int8/int4 _wm dispatch)", "A8")
-    return x.to(qkv_w.dtype)
+    return x.to(params["lnf_scale"].dtype if _is_qleaf(qkv_w) else qkv_w.dtype)
 
 
 def _head(cfg: GPTConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -357,6 +388,10 @@ def forward(cfg: GPTConfig, params: Params, input_ids, rngs=None, train: bool = 
     Without a seed (or with ``train=False``) nothing is dropped. Random-LTD
     and progressive layer drop raise (ROADMAP.md A3b)."""
     check_config(cfg)
+    if _is_qleaf(params["blocks"]["qkv_w"]):
+        raise TypeError("forward takes dense weights, as the reference's does; a quantized "
+                        "tree runs through forward_with_cache (init_inference(...).forward "
+                        "and generate) or paged_decode_step")
     input_ids = _as_ids(input_ids, params)
     B, T = input_ids.shape
     _check_train(cfg, train, pld_theta, T)
@@ -441,6 +476,159 @@ def loss_fn(cfg: GPTConfig, params: Params, batch: Dict[str, Any], rngs=None,
         cfg.max_seq_len, batch)
 
 
+# ------------------------------------------------------------- quantized weights
+class GPTStream:
+    """The model as ``embed`` / ``layer_0..L-1`` / ``final`` units with a host
+    (numpy) init per unit, the reference's ``GPTStream`` init: every unit
+    draws from its own ``default_rng([seed, unit index])``, so one layer can
+    be made without the others. The stream runner's device programs (the
+    param-stream offload) are ROADMAP.md A12."""
+
+    def __init__(self, cfg: GPTConfig):
+        self.cfg = cfg
+        self.n_layer = cfg.n_layer
+
+    def unit_names(self):
+        return ["embed"] + [f"layer_{i}" for i in range(self.n_layer)] + ["final"]
+
+    def init_unit(self, name: str, seed: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        d, f, v = cfg.d_model, cfg.ffn_dim, cfg.vocab_size
+        idx = self.unit_names().index(name)
+        rng = np.random.default_rng([int(seed) & 0x7FFFFFFF, idx])
+        std = 0.02
+        res_std = float(std / np.sqrt(2.0 * cfg.n_layer))
+
+        def normal(shape, s):
+            return rng.standard_normal(shape, np.float32) * np.float32(s)
+
+        def ones(shape):
+            return np.ones(shape, np.float32)
+
+        def zeros(shape):
+            return np.zeros(shape, np.float32)
+
+        if name == "embed":
+            out = {"wte": normal((v, d), std)}
+            if not cfg.rotary and not cfg.alibi:
+                out["wpe"] = normal((cfg.max_seq_len + cfg.pos_offset, d), std)
+            if cfg.embed_layernorm:
+                out["emb_ln_scale"] = ones((d,))
+                out["emb_ln_bias"] = zeros((d,))
+            return out
+        if name == "final":
+            out = {"lnf_scale": ones((d,)), "lnf_bias": zeros((d,))}
+            if not cfg.tie_embeddings:
+                out["lm_head"] = normal((v, d), std)
+                if cfg.lm_head_bias:
+                    out["lm_head_b"] = zeros((v,))
+            return out
+        return {
+            "ln1_scale": ones((d,)), "ln1_bias": zeros((d,)),
+            "qkv_w": normal((d, 3 * d), std), "qkv_b": zeros((3 * d,)),
+            "attn_out_w": normal((d, d), res_std), "attn_out_b": zeros((d,)),
+            "ln2_scale": ones((d,)), "ln2_bias": zeros((d,)),
+            "mlp_up_w": normal((d, f), std), "mlp_up_b": zeros((f,)),
+            "mlp_down_w": normal((f, d), res_std), "mlp_down_b": zeros((d,)),
+        }
+
+
+def _quantized_leaf(q: torch.Tensor, s: torch.Tensor, bits: int) -> Dict[str, torch.Tensor]:
+    """int4 packs two values per byte when the last dim is even."""
+    if bits == 4 and q.shape[-1] % 2 == 0:
+        return {"q4": pack_int4(q), "s": s}
+    return {"q": q, "s": s}
+
+
+def quantize_for_inference(cfg: GPTConfig, params: Params, bits: int = 8,
+                           group_size: int = 128) -> Params:
+    """Replace the stacked block weight matrices with int8 ``{"q", "s"}`` (or,
+    at ``bits=4``, packed ``{"q4", "s"}``) leaves: each layer's matrix is cut
+    into ``group_size`` runs, each with an fp32 scale, and the scales are
+    ``[L, groups per layer]``. Leaves of fewer than 3 dims, layer norms and
+    matrices whose layer size is not a whole number of groups stay dense.
+    The cached paths feed the leaves to the weight kernels (:func:`_wm`)."""
+    L = cfg.n_layer
+    blocks = {}
+    for k, v in params["blocks"].items():
+        per_layer = v.numel() // L
+        if v.dim() >= 3 and per_layer % group_size == 0 and not k.startswith("ln"):
+            ng_l = max(1, per_layer // group_size)
+            q, s = quantize(v, bits=bits, num_groups=L * ng_l)
+            blocks[k] = _quantized_leaf(q, s.reshape(L, ng_l), bits)
+        else:
+            blocks[k] = v
+    return {**params, "blocks": blocks}
+
+
+def init_quantized_decode_params(cfg: GPTConfig, seed: int = 0, bits: int = 4,
+                                 group_size: int = 128,
+                                 compute_dtype: torch.dtype = torch.bfloat16,
+                                 device=None) -> Params:
+    """The quantized decode tree built without an fp32 model on the device:
+    layer units are initialized on the host one at a time
+    (:meth:`GPTStream.init_unit`), quantized there (the quantizer of
+    :func:`quantize_for_inference`), and only the narrow stacks, the fp32
+    scales and the other leaves in ``compute_dtype`` go to ``device``."""
+    dev = resolve_device(device)
+    stream = GPTStream(cfg)
+    stacks: Dict[str, list] = {}
+    for i in range(cfg.n_layer):
+        for k, v in stream.init_unit(f"layer_{i}", seed).items():
+            t = torch.from_numpy(v)
+            if v.ndim >= 2 and v.size % group_size == 0 and not k.startswith("ln"):
+                q, s = quantize(t, bits=bits, num_groups=v.size // group_size)
+                stacks.setdefault(k, []).append(_quantized_leaf(q, s, bits))
+            else:
+                stacks.setdefault(k, []).append(t.to(compute_dtype))
+    blocks: Dict[str, Any] = {}
+    for k, per_layer in stacks.items():
+        if isinstance(per_layer[0], dict):
+            blocks[k] = {kk: torch.stack([leaf[kk] for leaf in per_layer]).to(dev)
+                         for kk in per_layer[0]}
+        else:
+            blocks[k] = torch.stack(per_layer).to(dev)
+    params: Params = {"blocks": blocks}
+    for unit in ("embed", "final"):
+        for k, v in stream.init_unit(unit, seed).items():
+            params[k] = torch.from_numpy(v).to(compute_dtype).to(dev)
+    return params
+
+
+def dequantize_params(params: Params) -> Params:
+    """The dense tree a quantized tree stands for: each ``{"q"|"q4", "s"}``
+    leaf dequantized (in fp32, cast to the dense leaves' dtype) to its
+    ``[L, D, F]`` stack; other leaves as they are."""
+    dtype = params["lnf_scale"].dtype
+
+    def dense(leaf):
+        if not _is_qleaf(leaf):
+            return leaf
+        q = unpack_int4(leaf["q4"]) if "q4" in leaf else leaf["q"]
+        return dequantize(q, leaf["s"].reshape(-1), dtype)
+
+    return {**params, "blocks": {k: dense(v) for k, v in params["blocks"].items()}}
+
+
+def cast_params(params: Any, device: torch.device, dtype: Optional[torch.dtype]) -> Any:
+    """A nested dict of arrays or tensors on ``device``, the floating-point
+    leaves cast to ``dtype`` (kept as they are if None); quantized leaves move
+    whole (int payloads, fp32 scales), as the reference's engines pass them
+    through."""
+    if _is_qleaf(params):
+        return {k: torch.as_tensor(v).to(device) for k, v in params.items()}
+    if isinstance(params, dict):
+        return {k: cast_params(v, device, dtype) for k, v in params.items()}
+    t = torch.as_tensor(params)
+    return t.to(device, dtype if t.is_floating_point() else None)
+
+
+def has_quantized_leaves(params: Any) -> bool:
+    if _is_qleaf(params):
+        return True
+    return isinstance(params, dict) and any(has_quantized_leaves(v) for v in params.values())
+
+
 # --------------------------------------------------------------------- KV-cache decode
 def init_cache(cfg: GPTConfig, batch_size: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, device=None) -> Dict[str, Any]:
@@ -509,7 +697,7 @@ def forward_with_cache(cfg: GPTConfig, params: Params, input_ids, cache: Dict[st
     positions = pos + torch.arange(T, device=input_ids.device).expand(B, T)
     x = _embed(cfg, params, input_ids, positions)
     blocks = params["blocks"]
-    for i in range(blocks["qkv_w"].shape[0]):
+    for i in range(_n_layers(blocks)):
         x, _, _ = _block_with_cache(cfg, x, _layer(blocks, i), cache["k"][i],
                                     cache["v"][i], pos, layer_idx=i)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layer_norm_eps)
@@ -760,7 +948,7 @@ def paged_decode_step(cfg: GPTConfig, params: Params, input_ids,
     x = _embed(cfg, params, ids, lengths[:, None].long())
     kv_q = "k_scales" in paged_cache
     blocks = params["blocks"]
-    for i in range(blocks["qkv_w"].shape[0]):
+    for i in range(_n_layers(blocks)):
         w = _layer(blocks, i)
         y = _paged_attn_sublayer(
             cfg, x, w, paged_cache["k_pages"][i], paged_cache["v_pages"][i], tables,

@@ -93,11 +93,13 @@ def test_unported_options_raise():
     for kwargs in ({"temperature": 0.7}, {"top_k": 5}, {"top_p": 0.9}, {"num_beams": 2}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md A5b"):
             eng.generate(ids, max_new_tokens=4, **kwargs)
-    for config in ({"tp": {"tp_size": 2}}, {"quant": {"enabled": True}},
-                   {"moe": {"ep_size": 2}}, {"dtype": "int8"},
-                   {"checkpoint": "ckpt_dir"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for config, item in (({"tp": {"tp_size": 2}}, "A10"), ({"moe": {"ep_size": 2}}, "A13"),
+                         ({"dtype": "int8"}, "A13"), ({"checkpoint": "ckpt_dir"}, "A13")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             deepspeed_tpu_torch.init_inference(model, config, device="cpu")
+    # weight-only quantization is ported: it builds int8 layer stacks
+    eng = deepspeed_tpu_torch.init_inference(model, {"quant": {"enabled": True}}, device="cpu")
+    assert eng.params["blocks"]["qkv_w"]["q"].dtype == torch.int8
 
 
 def test_config_keys_aliases_and_buckets():

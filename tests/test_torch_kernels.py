@@ -13,6 +13,7 @@ import torch
 
 from deepspeed_tpu_torch.ops.cuda import decode_attention as da
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
 # fp32: the kernel and the plain version both accumulate in fp32, in another
 # order; bf16: both round the output to bf16 (2^-8 relative)
@@ -161,3 +162,54 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, atol, bits, pages, pool)
     assert getattr(da, counter) == before + 1
     assert out.dtype == dtype and torch.count_nonzero(out[0]) == 0  # the length-0 row
     assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+def _quantized(D, F, group, bits, device, seed):
+    from deepspeed_tpu_torch.ops.quantizer import quantize
+
+    w = _normal((D, F), device, torch.float32, seed)
+    q, s = quantize(w, bits=bits, num_groups=D * F // group)
+    return (im.pack_int4(q) if bits == 4 else q), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2),
+                                        (torch.float16, 2e-2)])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("M,D,F,group", [(1, 768, 2304, 128), (4, 768, 768, 128),
+                                         (8, 768, 3072, 128), (8, 3072, 768, 128),
+                                         (8, 1024, 3072, 128), (8, 1024, 1024, 128),
+                                         (64, 1024, 4096, 128), (8, 4096, 1024, 128),
+                                         (256, 768, 2304, 128),
+                                         (2, 128, 256, 64), (2, 320, 960, 128),
+                                         (3, 100, 30, 10)])
+def test_quantized_matmul_kernels_match_plain(cuda_device, dtype, rtol, bits, M, D, F, group):
+    """B6 (int8) and B7 (int4) against their plain versions, at GPT-2-125M's
+    and gpt2-350m's projection shapes, group 64, a group that crosses rows
+    and an odd packed width; bitwise equal over two runs. Tolerance relative
+    to the largest output entry: fp32, both accumulate in fp32 in another
+    order; bf16/fp16, both round the output once."""
+    q, s = _quantized(D, F, group, bits, cuda_device, 12)
+    x = _normal((M, D), cuda_device, dtype, 13)
+    fn, ref_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
+                  else (im.int8_matmul, im.int8_matmul_ref))
+    counter = "int4_launches" if bits == 4 else "int8_launches"
+    before = getattr(im, counter)
+    out, again = fn(x, q, s, group), fn(x, q, s, group)
+    torch.cuda.synchronize()
+    assert getattr(im, counter) == before + 2
+    ref = ref_fn(x, q, s, group)
+    assert out.dtype == dtype and out.shape == (M, F) and torch.equal(out, again)
+    scale = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= rtol * scale
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_takes_the_dequantize_route_past_256_rows(cuda_device):
+    """Prefill-sized x (M > 256) is the reference's dequantize-then-matmul, no launch."""
+    q, s = _quantized(256, 512, 128, 8, cuda_device, 14)
+    x = _normal((300, 256), cuda_device, torch.float32, 15)
+    before = im.int8_launches
+    out = im.int8_matmul(x, q, s, 128)
+    assert im.int8_launches == before
+    torch.testing.assert_close(out, im.int8_matmul_ref(x, q, s, 128), atol=1e-4, rtol=1e-5)
