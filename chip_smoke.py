@@ -19,11 +19,16 @@ result line):
    the gather excluded, with the gather + SDPA time beside it; for B6/B7
    the cuBLAS dense product over the weight already dequantized to x's
    dtype, the dequantize excluded: no PyTorch call computes the group
-   layout, and the port never calls these) and the least
+   layout; for the B5 verify kernels SDPA over the gathered cache with the
+   window scattered in and a [B, H, W, S] mask, the gather excluded; the
+   port never calls these) and the least
    time the card could take (``bound_ms``), all device time from CUDA
    events on a cold L2 cache (the host's launch overhead kept out, see
    ``Timer``). The flash backward (three kernels: delta, dq, dk/dv) is also
-   run twice on the same inputs and must give bitwise-equal gradients.
+   run twice on the same inputs and must give bitwise-equal gradients, and
+   B5 (dense, int8, int4 pools) over 90 cases (windows 2-17, pages 8-128,
+   fp32 and bf16) must agree with its plain version on the committable
+   window positions and be bitwise equal on a re-run.
 3. scoring path: GPT-2-125M forward + next-token loss at B4 x T512 in fp32
    (the workload of ``__graft_entry__.entry()``) through the flash kernel.
 4. serving path: ``init_inference(...).generate`` on GPT-2-125M, B4, prompt
@@ -67,10 +72,26 @@ result line):
    ``quantize_for_inference(bits=8)`` weights, fp32, dense pools: every
    request finishes, the audit is clean, tokens equal serving over the
    dequantized dense tree, and B6 launches 48 times per decode step.
+8. speculative serving (n-gram drafts unless named, spec_k 4, decode_block
+   1), every verify window's attention through B5. (a) phase 6's
+   configuration, fp32 dense pools: tokens equal 6a's spec-off tokens and
+   the gather path's; B5 launches 12 times a verify window and B4 12 times a
+   fallback decode step. (b) the reference's gpt2-125m-serving-cb-spec
+   shapes (16 slots, page 128, 32 requests, prompts 32-160, generations
+   8-128) in bf16 at 8 rps, spec off and on: TTFT, TPOT, tokens/s, accept
+   rate, tokens per verify call, the greedy match (reported only), and the
+   device's idle share over 8 verify windows against 8 decode steps. (c)
+   int8 and int4 pools, fp32: B5 against its plain version on the served
+   pools, the spec-on vs spec-off match at least 0.5. (d) the draft-model
+   drafter drafting with the target's own weights: tokens equal spec-off,
+   accept rate at least 0.8, B3 12 times a single-token draft forward. (e)
+   int8 weights, 12 requests: tokens equal spec-off over the same tree, B6
+   48 times a verify window.
 
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after. The last lines are the card's name and power limit
-(nvidia-smi), a ``{"kernels": [...]}`` line and the ``{"ok": true, ...}`` line.
+(nvidia-smi), a ``{"kernels": [...]}`` line (13 kernels) and the ``{"ok": true, ...}``
+line.
 """
 
 from __future__ import annotations
@@ -110,6 +131,8 @@ PAGED_TPU = {"dense": "deepspeed_tpu/ops/pallas/decode_attention.py:269",
              "kv8": "deepspeed_tpu/ops/pallas/decode_attention.py:277",
              "kv4": "deepspeed_tpu/ops/pallas/decode_attention.py:277"}
 PAGED_KINDS = {"dense": None, "kv8": 8, "kv4": 4}
+VERIFY_SRC = "deepspeed_tpu_torch/csrc/paged_verify_attention.cu"
+VERIFY_TPU = "deepspeed_tpu/ops/pallas/decode_attention.py:443"  # _verify_kernel, call :434
 # the backward's three pallas_call sites in _bwd
 BWD_TPU = {"delta": "deepspeed_tpu/ops/pallas/flash_attention.py:277",
            "dq": "deepspeed_tpu/ops/pallas/flash_attention.py:291",
@@ -250,6 +273,22 @@ def decode_bound(lens, H, S, Dh, dtype, elt):
     return bound(nbytes, 4.0 * Dh * positions, dtype)
 
 
+def verify_bound(lens, W, H, Dh, ps, bits, dtype, q_elt):
+    """Least time of one verify call: the pool's K/V rows below each length
+    at the pool's element size, the table entry (and for quantized pools the
+    two scales) of every page they touch, q, the window's K and V and o once
+    each; 4 * Dh flops per (query, visible key): each window query sees its
+    row's history and on average (W + 1) / 2 window positions."""
+    lens = np.asarray(lens)
+    row = Dh * q_elt if bits is None else (Dh if bits == 8 else Dh // 2)
+    pages = int((-(-lens // ps)).sum())
+    B = len(lens)
+    nbytes = (2.0 * int(lens.sum()) * H * row + 4 * pages + (2 * 4 * H * pages if bits else 0)
+              + 4 * B * W * H * Dh * q_elt + 4 * B)
+    flops = 4.0 * H * W * Dh * (float(lens.sum()) + B * (W + 1) / 2)
+    return bound(nbytes, flops, dtype)
+
+
 def paged_bound(lens, H, Dh, ps, bits, dtype, q_elt):
     """Least time of one paged call: the K/V rows below each length at the
     pool's element size (half a byte for int4), the table entry (and, for
@@ -370,6 +409,7 @@ def phase_kernels(torch, ctx):
     ctx["decode"]["max_abs_err"] = decode_err
     phase_kernels_bwd(torch, ctx, randn)
     phase_kernels_paged(torch, ctx)
+    phase_kernels_verify(torch, ctx)
     phase_kernels_qmatmul(torch, ctx)
 
 
@@ -527,6 +567,122 @@ def phase_kernels_paged(torch, ctx):
         ctx[f"paged_{kind}"]["max_abs_err"] = errs[kind]
 
 
+def _verify_library_inputs(torch, da, k, v, ks, vs, tables, lens, wk, wv, dtype):
+    """SDPA's inputs for the verify function: each row's pages gathered and
+    dequantized, the window scattered at its positions (dropped past the
+    table), and the [B, 1, W, S] mask of what each window query sees."""
+    B, W, H, Dh = wk.shape
+    tl = tables.long()
+    kc, vc = da.gather_pages(k, ks, tl, Dh).to(dtype), da.gather_pages(v, vs, tl, Dh).to(dtype)
+    S = kc.shape[2]
+    pos = lens.long()[:, None] + torch.arange(W, device="cuda")[None, :]
+    keep = pos < S
+    rows = torch.arange(B, device="cuda")[:, None].expand(B, W)[keep]
+    kc[rows, :, pos[keep]] = wk[keep].to(dtype)
+    vc[rows, :, pos[keep]] = wv[keep].to(dtype)
+    mask = torch.arange(S, device="cuda")[None, None, :] < (pos + 1)[:, :, None]
+    return kc, vc, mask[:, None]
+
+
+def phase_kernels_verify(torch, ctx):
+    """B5 (dense, int8, int4 pools) against the plain version, on the
+    committable window positions (the plain version drops positions past the
+    table, the kernel attends them), at 8 slots, H12, Dh64, a 512-token
+    table of page size 8, 64 or 128, windows W of 2, 3, 5, 9 and 17, fp32
+    and bf16, lengths {0, 1, ps - 1, ps, ps + 1, mid, near capacity}, with q
+    and the window as strided views of one fused qkv buffer; a second run is
+    bitwise equal. Timed at page 64 for W 2, 5 and 17 (kernel, plain, SDPA
+    over the gathered cache with the window scattered in and a [B, H, W, S]
+    mask, the gather excluded). The kernels' rows of the result line are B4's
+    shape (page 64, 8 pages per row, pool 17), W 5, fp32."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+
+    timer = ctx["timer"]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rng = np.random.default_rng(6)
+    B, H, Dh, cap = 8, 12, 64, 512
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    errs = {kind: 0.0 for kind in PAGED_KINDS}
+    timed = 0
+    for ps in (8, 64, 128):
+        pages = cap // ps
+        pool = 17 if ps == 64 else B * pages + 1
+        lens_list = [0, 1, ps - 1, ps, ps + 1, cap // 2 + 7, cap - 9, cap - 1]
+        tables_np = np.zeros((B, pages), np.int32)
+        for b, n in enumerate(lens_list):
+            used = min(-(-(n + 17) // ps), pages)  # the pages a window may commit to
+            tables_np[b, :used] = rng.choice(np.arange(1, pool), used, replace=False)
+        tables = torch.from_numpy(tables_np).cuda()
+        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            for kind, bits in PAGED_KINDS.items():
+                if bits is None:
+                    k, v = randn((H, pool, ps, Dh), dtype), randn((H, pool, ps, Dh), dtype)
+                    ks = vs = None
+                else:
+                    dq = Dh // 2 if bits == 4 else Dh
+                    k, v = (torch.randint(-128, 128, (H, pool, ps, dq), generator=gen,
+                                          device="cuda", dtype=torch.int8) for _ in range(2))
+                    ks, vs = (torch.rand((H, pool), generator=gen, device="cuda") * 0.02 + 1e-3
+                              for _ in range(2))
+                for W in (2, 3, 5, 9, 17):
+                    qkv = randn((B, W, 3 * H * Dh), dtype)
+                    q, wk, wv = (x.reshape(B, W, H, Dh) for x in qkv.split(H * Dh, dim=-1))
+
+                    def kernel():
+                        return da.paged_verify_attention(q, k, v, lens, tables, wk, wv,
+                                                         k_scales=ks, v_scales=vs)
+
+                    def plain():
+                        return da.paged_verify_attention(q, k, v, lens, tables, wk, wv,
+                                                         impl="gather", k_scales=ks, v_scales=vs)
+
+                    out, again = kernel(), kernel()
+                    torch.cuda.synchronize()
+                    ref = plain()
+                    # the committable positions: inside the table
+                    keep = lens.long()[:, None] + torch.arange(W, device="cuda") < cap
+                    err = (out[keep].float() - ref[keep].float()).abs().max().item()
+                    errs[kind] = max(errs[kind], err)
+                    tag = f"{kind} ps{ps} W{W} {dt}"
+                    check(torch.equal(out, again), f"verify {tag}: two runs differ")
+                    check(err <= ATOL[dt], f"verify {tag}: max_abs_err {err} > {ATOL[dt]}")
+                    if ps != 64 or W not in (2, 5, 17):
+                        continue
+                    qt = q.transpose(1, 2)
+                    kc, vc, mask = _verify_library_inputs(torch, da, k, v, ks, vs, tables, lens,
+                                                          wk, wv, dtype)
+
+                    def library():  # the gather, dequantization and scatter excluded
+                        return F.scaled_dot_product_attention(qt, kc, vc, attn_mask=mask)
+
+                    kernel_ms, plain_ms, library_ms = (timer.ms(kernel), timer.ms(plain),
+                                                       timer.ms(library))
+                    bound_ms, bound_by = verify_bound(lens_list, W, H, Dh, ps, bits, dt,
+                                                      q.element_size())
+                    timed += 1
+                    log(f"phase2 paged_verify_attention {kind} B{B} H{H} Dh{Dh} ps{ps} "
+                        f"pages_per_seq{pages} pool{pool} W{W} lengths={lens_list} {dt}: "
+                        f"max_abs_err={err:.3e} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+                        f"library_ms(sdpa, gather excluded)={library_ms:.4f} "
+                        f"bound_ms={bound_ms:.5f} ({bound_by})")
+                    if (W, dt) == (5, "float32"):
+                        ctx[f"verify_{kind}"] = dict(ms=kernel_ms, plain_ms=plain_ms,
+                                                     library_ms=library_ms, bound_ms=bound_ms,
+                                                     bound_by=bound_by)
+    log(f"phase2 paged_verify_attention: 90 cases within tolerance and bitwise on re-run "
+        f"({timed} timed); max_abs_err dense/kv8/kv4 = "
+        + "/".join(f"{errs[k]:.3e}" for k in PAGED_KINDS))
+    for kind in PAGED_KINDS:
+        ctx[f"verify_{kind}"]["max_abs_err"] = errs[kind]
+
+
 def phase_kernels_bwd(torch, ctx, randn):
     """B2: the three backward kernels against their plain versions, a
     bitwise re-run, and their times beside the SDPA backward's. q/k/v are
@@ -634,6 +790,7 @@ def _reset_counts():
     fa.bwd_delta_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
     da.launches = 0
     da.paged_launches = da.paged_kv8_launches = da.paged_kv4_launches = 0
+    da.verify_launches = da.verify_kv8_launches = da.verify_kv4_launches = 0
     im.int8_launches = im.int4_launches = 0
     return fa, da
 
@@ -874,67 +1031,103 @@ PAGED_MATCH_FLOOR = 0.5
 SERVE_CFG = dict(num_slots=8, page_size=64, max_model_len=512, num_pages=17, prefill_chunk=128)
 
 
-def _serve(torch, cfg, params, dtype, **over):
-    """One ``run_continuous`` of the bench workload (24 requests at 8 rps,
-    prompts 32-128, generations 16-96, seed 0) after ``warmup``, with the
-    launch counts set to 0 just before and read just after. Returns the
-    report, the requests, the decode steps run and the launches."""
+SERVE_WORKLOAD = (24, 8.0, (32, 128), (16, 96))  # requests, rps, prompt and generation ranges
+
+
+def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_CFG, draft=None,
+           **over):
+    """One ``run_continuous`` of an open-loop workload (seed 0; by default
+    the bench's: 24 requests at 8 rps, prompts 32-128, generations 16-96)
+    after ``warmup``, with the launch counts set to 0 just before and read
+    just after. Checks what the path must launch: B4 12 times a decode step,
+    B5 12 times a verify window (by pool kind; neither on the gather path),
+    B3 12 times a single-token draft-model forward and never otherwise, B1
+    never, B6/B7 4 per layer per decode step and per verify window over a
+    quantized tree. Returns the report, the requests' tokens, the requests,
+    the launches and the engine."""
     from deepspeed_tpu_torch.inference.serving import (ServingConfig, ServingEngine,
                                                        make_open_loop_workload, run_continuous)
 
     from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
-    eng = ServingEngine(cfg, params, ServingConfig(**{**SERVE_CFG, "dtype": dtype, **over}))
+    eng = ServingEngine(cfg, params, ServingConfig(**{**serve_cfg, "dtype": dtype, **over}),
+                        draft=draft)
     eng.warmup()
-    decode, steps_run, decode_qmm = eng.decode, [0], {"int8": 0, "int4": 0}
+    decode, verify, forward_with_cache = eng.decode, eng.verify, gpt.forward_with_cache
+    count = {"steps": 0, "windows": 0, "draft_tokens": 0}
+    qmm = {f"{k}_in_{where}": 0 for k in ("int8", "int4") for where in ("decode", "verify")}
 
-    def counted(tokens, tables, lengths, active, steps=1):
-        steps_run[0] += steps
-        before = (im.int8_launches, im.int4_launches)
-        out = decode(tokens, tables, lengths, active, steps=steps)
-        decode_qmm["int8"] += im.int8_launches - before[0]
-        decode_qmm["int4"] += im.int4_launches - before[1]
-        return out
+    def counted(fn, where, n):
+        def call(*args, **kw):
+            count[where] += n(*args, **kw)
+            before = (im.int8_launches, im.int4_launches)
+            out = fn(*args, **kw)
+            path = "decode" if where == "steps" else "verify"
+            qmm[f"int8_in_{path}"] += im.int8_launches - before[0]
+            qmm[f"int4_in_{path}"] += im.int4_launches - before[1]
+            return out
+        return call
 
-    eng.decode = counted
-    wl = make_open_loop_workload(24, 8.0, (32, 128), (16, 96), cfg.vocab_size, seed=0)
-    fa, da = _reset_counts()  # a paged serving main path
-    rep = run_continuous(eng, wl)
-    torch.cuda.synchronize()
+    def counted_forward(cfg_, params_, ids, cache):
+        count["draft_tokens"] += int(np.asarray(ids.shape)[-1] == 1)
+        return forward_with_cache(cfg_, params_, ids, cache)
+
+    eng.decode = counted(decode, "steps", lambda *a, steps=1: steps)
+    eng.verify = counted(verify, "windows", lambda *a: 1)
+    n_req, rps, prompts, gens = workload
+    wl = make_open_loop_workload(n_req, rps, prompts, gens, cfg.vocab_size, seed=0)
+    gpt.forward_with_cache = counted_forward
+    try:
+        fa, da = _reset_counts()  # a paged serving main path
+        rep = run_continuous(eng, wl)
+        torch.cuda.synchronize()
+    finally:
+        gpt.forward_with_cache = forward_with_cache
     launches = {"flash": fa.launches, "decode": da.launches, "dense": da.paged_launches,
                 "kv8": da.paged_kv8_launches, "kv4": da.paged_kv4_launches,
-                "int8_matmul": im.int8_launches, "int4_matmul": im.int4_launches,
-                "int8_matmul_in_decode": decode_qmm["int8"],
-                "int4_matmul_in_decode": decode_qmm["int4"]}
+                "verify_dense": da.verify_launches, "verify_kv8": da.verify_kv8_launches,
+                "verify_kv4": da.verify_kv4_launches,
+                "int8_matmul": im.int8_launches, "int4_matmul": im.int4_launches, **qmm}
     tag = " ".join([dtype] + [f"{k}={v}" for k, v in over.items()])
-    log(f"phase6 run {tag}: finished={rep['finished']}/{len(wl)} audit_ok={rep['pool_audit_ok']} "
-        f"decode_dispatches={rep['decode_steps']} decode_steps={steps_run[0]} "
+    spec = rep.get("spec", {})
+    log(f"phase run {tag}: finished={rep['finished']}/{len(wl)} audit_ok={rep['pool_audit_ok']} "
+        f"scheduler_steps={rep['decode_steps']} decode_steps={count['steps']} "
+        f"verify_windows={count['windows']} draft_single_token_forwards={count['draft_tokens']} "
         f"preemptions={rep['preemptions']} launches={launches} "
         f"ttft_p50_ms={rep['ttft_p50_ms']} ttft_p99_ms={rep['ttft_p99_ms']} "
         f"per_token_p50_ms={rep['per_token_p50_ms']} tokens_per_sec={rep['tokens_per_sec']} "
-        f"wall_s={rep['wall_s']} kv_bytes_per_token={eng.kv_bytes_per_token()}")
+        f"wall_s={rep['wall_s']} kv_bytes_per_token={eng.kv_bytes_per_token()}"
+        + (f" spec={spec}" if spec else ""))
     check(rep["finished"] == len(wl), f"{tag}: {rep['finished']} of {len(wl)} finished")
     check(rep["pool_audit_ok"], f"{tag}: the page audit failed")
-    check(launches["flash"] == 0 and launches["decode"] == 0,
-          f"{tag}: B1/B3 launched on the paged path: {launches}")
+    check(launches["flash"] == 0, f"{tag}: B1 launched on the paged path: {launches}")
+    check(launches["decode"] == cfg.n_layer * count["draft_tokens"],
+          f"{tag}: B3 launches {launches['decode']}, expected 12 per single-token draft "
+          f"forward ({count['draft_tokens']})")
     kind = {None: "dense", 8: "kv8", 4: "kv4"}[over.get("kv_bits")]
     paged = {k: launches[k] for k in PAGED_KINDS}
+    verified = {k: launches[f"verify_{k}"] for k in PAGED_KINDS}
     if over.get("kernel_impl") == "gather":
-        check(not any(paged.values()), f"{tag}: the gather path launched B4: {paged}")
+        check(not any(paged.values()) and not any(verified.values()),
+              f"{tag}: the gather path launched B4/B5: {paged} {verified}")
     else:
-        want = {k: cfg.n_layer * steps_run[0] if k == kind else 0 for k in PAGED_KINDS}
+        want = {k: cfg.n_layer * count["steps"] if k == kind else 0 for k in PAGED_KINDS}
         check(paged == want, f"{tag}: B4 launches {paged}, expected {want}")
-    # quantized weights: every decode projection is one B6/B7 launch (4 per
-    # layer); dense weights launch neither anywhere
+        want = {k: cfg.n_layer * count["windows"] if k == kind else 0 for k in PAGED_KINDS}
+        check(verified == want, f"{tag}: B5 launches {verified}, expected {want}")
+    # quantized weights: every decode or verify projection (at most 256 rows)
+    # is one B6/B7 launch, 4 per layer; dense weights launch neither anywhere
     qleaf = params["blocks"]["qkv_w"]
     wkind = ("int4" if "q4" in qleaf else "int8") if gpt._is_qleaf(qleaf) else None
-    want_q = {k: 4 * cfg.n_layer * steps_run[0] if k == wkind else 0 for k in decode_qmm}
-    check(decode_qmm == want_q, f"{tag}: B6/B7 launches in decode {decode_qmm}, expected {want_q}")
+    want_q = {f"{k}_in_{where}": (4 * cfg.n_layer * count[n] if k == wkind else 0)
+              for k in ("int8", "int4") for where, n in (("decode", "steps"),
+                                                          ("verify", "windows"))}
+    check(qmm == want_q, f"{tag}: B6/B7 launches {qmm}, expected {want_q}")
     if wkind is None:
         check(launches["int8_matmul"] == launches["int4_matmul"] == 0,
               f"{tag}: dense weights launched B6/B7: {launches}")
-    return rep, [r.tokens[:r.max_new_tokens] for r in wl], wl, launches[kind], eng
+    return rep, [r.tokens[:r.max_new_tokens] for r in wl], wl, launches, eng
 
 
 def _match(a, b) -> float:
@@ -952,6 +1145,7 @@ def phase_paged_serving(torch, ctx):
 
     # (a) fp32, dense pools: tokens == generate == the gather path
     _, toks_a, wl_a, launches_a, _ = _serve(torch, cfg, params, "float32")
+    ctx["toks_6a"] = toks_a
     _, toks_ag, _, _, _ = _serve(torch, cfg, params, "float32", kernel_impl="gather")
     engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="float32")
     gen = [engine.generate(r.prompt[None], max_new_tokens=r.max_new_tokens)[0, len(r.prompt):]
@@ -960,7 +1154,7 @@ def phase_paged_serving(torch, ctx):
         f"match vs generate={_match(toks_a, gen):.4f}")
     check(toks_a == toks_ag, "fp32 served tokens differ from the gather path")
     check(toks_a == gen, "fp32 served tokens differ from generate")
-    ctx["paged_dense"]["launches"] = launches_a
+    ctx["paged_dense"]["launches"] = launches_a["dense"]
     del engine
 
     # (b) bf16, dense pools: the bench numbers
@@ -1005,9 +1199,10 @@ def phase_paged_serving(torch, ctx):
     # free-running greedy match rate is bounded below.
     for bits in (8, 4):
         _, toks_d, _, launches_d, eng_d = _serve(torch, cfg, params, "float32", kv_bits=bits)
+        ctx[f"toks_6d_kv{bits}"] = toks_d
         _, toks_dg, _, _, _ = _serve(torch, cfg, params, "float32", kv_bits=bits,
                                      kernel_impl="gather")
-        err = _kernel_on_served_pools(torch, eng_d)
+        err, _ = _kernel_on_served_pools(torch, eng_d)
         match = _match(toks_d, toks_dg)
         log(f"phase6d fp32 kv{bits}: kernel vs gather on the served pools, 12 layers: "
             f"max_abs_err={err:.3e}; free-running match vs gather={match:.4f} "
@@ -1016,7 +1211,7 @@ def phase_paged_serving(torch, ctx):
             f"{gpt.paged_kv_bytes_per_token(cfg, None, 64, torch.float32)})")
         check(err <= ATOL["float32"], f"kv{bits}: kernel vs gather on served pools: {err}")
         check(match >= PAGED_MATCH_FLOOR, f"kv{bits}: free-running match {match}")
-        ctx[f"paged_kv{bits}"]["launches"] = launches_d
+        ctx[f"paged_kv{bits}"]["launches"] = launches_d[f"kv{bits}"]
         del eng_d
     torch.cuda.empty_cache()
 
@@ -1143,11 +1338,12 @@ def phase_quantized(torch, ctx):
     torch.cuda.empty_cache()
 
 
-def _kernel_on_served_pools(torch, eng) -> float:
+def _kernel_on_served_pools(torch, eng):
     """Prefill 8 prompts of 100 tokens through ``eng`` and decode a block of
     4 (the quantized writers of the serving path fill the pools), then hold
-    the kernel to the gather path on each layer's pools at those rows'
-    lengths, with a random query: the largest difference."""
+    B4 and B5 (a 5-token window) to their plain versions on each layer's
+    pools at those rows' lengths, with a random query and window: the
+    largest differences (B4, B5)."""
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
 
     slots = SERVE_CFG["num_slots"]
@@ -1162,16 +1358,151 @@ def _kernel_on_served_pools(torch, eng) -> float:
     lens = torch.full((slots,), 104, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(3)
     pools = eng.paged_cache
-    err = 0.0
+    H, Dh = eng.cfg.n_head, eng.cfg.head_dim
+    err = verr = 0.0
     for layer in range(eng.cfg.n_layer):
-        q = torch.randn((slots, 1, eng.cfg.n_head, eng.cfg.head_dim), generator=gen,
-                        device="cuda")
-        args = (q, pools["k_pages"][layer], pools["v_pages"][layer], lens, tbl)
+        q, wq, wk, wv = (torch.randn(shape, generator=gen, device="cuda")
+                         for shape in ((slots, 1, H, Dh),) + ((slots, 5, H, Dh),) * 3)
         kw = dict(k_scales=pools["k_scales"][layer], v_scales=pools["v_scales"][layer])
-        out = da.paged_decode_attention(*args, **kw)
-        ref = da.paged_decode_attention(*args, impl="gather", **kw)
+        args = (pools["k_pages"][layer], pools["v_pages"][layer])
+        out = da.paged_decode_attention(q, *args, lens, tbl, **kw)
+        ref = da.paged_decode_attention(q, *args, lens, tbl, impl="gather", **kw)
         err = max(err, (out - ref).abs().max().item())
-    return err
+        out = da.paged_verify_attention(wq, *args, lens, tbl, wk, wv, **kw)
+        ref = da.paged_verify_attention(wq, *args, lens, tbl, wk, wv, impl="gather", **kw)
+        verr = max(verr, (out - ref).abs().max().item())
+    return err, verr
+
+
+# spec-on against spec-off over quantized pools (8c): the window attends its
+# own positions at dense precision where spec-off decode reads them back
+# int8/int4-rounded, so the two runs drift apart like 6d's kernel and gather
+# runs; the same floor
+SPEC_QUANT_MATCH_FLOOR = PAGED_MATCH_FLOOR
+# the draft model drafter with the target's own weights (8d): only
+# budget-truncated drafts and fp32 rounding differences are rejected
+DRAFT_SELF_ACCEPT_FLOOR = 0.8
+# the reference's gpt2-125m-serving-cb-spec bench row (bench.py): 16 slots,
+# page 128, model length 512, chunk 128, 32 requests, prompts 32-160,
+# generations 8-128, spec_k 4, decode_block 1 on both sides; at the
+# -serving-cb row's 8 rps (its 2x-saturation rate needs max_queue and
+# request_deadline_s, which are not ported)
+SPEC_BENCH_CFG = dict(num_slots=16, page_size=128, max_model_len=512, prefill_chunk=128,
+                      decode_block=1)
+SPEC_BENCH_WORKLOAD = (32, 8.0, (32, 160), (8, 128))
+SPEC = dict(spec_drafter="ngram", spec_k=4, decode_block=1)
+
+
+def _spec_line(rep) -> str:
+    sp = rep["spec"]
+    return (f"windows={sp['windows']} fallback_steps={sp['fallback_steps']} "
+            f"accept_rate={sp['accept_rate']} tokens_per_dispatch={sp['tokens_per_dispatch']}")
+
+
+def phase_spec_serving(torch, ctx):
+    """Phase 8: speculative serving on GPT-2-125M (ngram drafts unless
+    named, spec_k 4, decode_block 1), through B5 in every verify window."""
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    params = ctx["params"]
+
+    # (a) fp32 dense pools, phase 6's configuration: tokens = 6a's spec-off
+    # tokens = the gather path's; exact B4/B5 launch counts (in _serve)
+    rep_a, toks_a, _, launches_a, _ = _serve(torch, cfg, params, "float32", **SPEC)
+    _, toks_ag, _, _, _ = _serve(torch, cfg, params, "float32", kernel_impl="gather", **SPEC)
+    log(f"phase8a fp32 dense spec: {_spec_line(rep_a)} match vs spec-off (6a)="
+        f"{_match(toks_a, ctx['toks_6a']):.4f} match vs gather={_match(toks_a, toks_ag):.4f} "
+        f"B5 launches={launches_a['verify_dense']} B4 launches={launches_a['dense']} "
+        f"tpot_p50_ms={rep_a['per_token_p50_ms']} tokens_per_sec={rep_a['tokens_per_sec']}")
+    check(toks_a == ctx["toks_6a"], "fp32 spec-on tokens differ from spec-off (6a)")
+    check(toks_a == toks_ag, "fp32 spec-on tokens differ from the gather path")
+    check(rep_a["spec"]["windows"] > 0, "no verify window ran")
+    ctx["verify_dense"]["launches"] = launches_a["verify_dense"]
+
+    # (b) bf16, the reference's -serving-cb-spec shapes: spec off and on
+    runs = {}
+    for name, over in (("off", {}), ("on", SPEC)):
+        runs[name] = _serve(torch, cfg, params, "bfloat16", workload=SPEC_BENCH_WORKLOAD,
+                            serve_cfg=SPEC_BENCH_CFG, **over)
+    (rep_off, toks_off, _, _, _), (rep_on, toks_on, _, _, eng_on) = runs["off"], runs["on"]
+    for name, rep in (("off", rep_off), ("on", rep_on)):
+        log(f"phase8b bf16 spec-{name} gpt2-125m 16 slots page128: ttft_p50_ms={rep['ttft_p50_ms']} "
+            f"ttft_p99_ms={rep['ttft_p99_ms']} tpot_p50_ms={rep['per_token_p50_ms']} "
+            f"output_tokens_per_s={rep['tokens_per_sec']} scheduler_steps={rep['decode_steps']} "
+            f"wall_s={rep['wall_s']}" + (f" {_spec_line(rep)}" if name == "on" else ""))
+    log(f"phase8b greedy match spec-on vs spec-off (reported only: bf16 B4 and B5 round "
+        f"differently)={_match(toks_on, toks_off):.4f}")
+    slots, W = SPEC_BENCH_CFG["num_slots"], 5
+    tables = np.zeros((slots, 4), np.int32)
+    tables[:, :2] = np.arange(1, 2 * slots + 1).reshape(slots, 2)
+    mask = np.ones(slots, bool)
+    window = np.random.default_rng(8).integers(0, cfg.vocab_size, (slots, W)).astype(np.int32)
+
+    def eight(kind):
+        def run():
+            for i in range(8):
+                lens = np.full(slots, 100 + i * W, np.int32)
+                if kind == "verify":  # budget 5: every window commits what it accepts
+                    eng_on.verify(window, tables, lens, mask, np.full(slots, -1, np.int32),
+                                  np.full(slots, W, np.int32))
+                else:
+                    eng_on.decode(window[:, 0], tables, lens, mask, steps=1)
+        return run
+
+    for kind in ("verify", "decode"):
+        walls = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            eight(kind)()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        label = "verify windows (W 5)" if kind == "verify" else "decode steps"
+        log(f"phase8b bf16 profile of 8 {label} at 16 active slots: "
+            + device_breakdown(torch, eight(kind), float(np.median(walls[1:])) * 1e3, top=6))
+    del eng_on, runs
+    torch.cuda.empty_cache()
+
+    # (c) int8 and int4 pools, fp32: B5 against its plain version on the
+    # pools serving wrote; spec-on vs spec-off (6d) match rate floored
+    for bits in (8, 4):
+        rep_c, toks_c, _, launches_c, eng_c = _serve(torch, cfg, params, "float32",
+                                                     kv_bits=bits, **SPEC)
+        _, verr = _kernel_on_served_pools(torch, eng_c)
+        match = _match(toks_c, ctx[f"toks_6d_kv{bits}"])
+        log(f"phase8c fp32 kv{bits} spec: {_spec_line(rep_c)} B5 vs plain on the served pools, "
+            f"12 layers, W5: max_abs_err={verr:.3e}; match vs spec-off (6d)={match:.4f} "
+            f"B5 launches={launches_c[f'verify_kv{bits}']}")
+        check(verr <= ATOL["float32"], f"kv{bits}: B5 vs plain on served pools: {verr}")
+        check(match >= SPEC_QUANT_MATCH_FLOOR, f"kv{bits}: spec-on vs spec-off match {match}")
+        ctx[f"verify_kv{bits}"]["launches"] = launches_c[f"verify_kv{bits}"]
+        del eng_c
+    torch.cuda.empty_cache()
+
+    # (d) the draft-model drafter, drafting with the target's own weights:
+    # tokens = spec-off; B3 runs in the draft (counted in _serve)
+    rep_d, toks_d, _, launches_d, _ = _serve(
+        torch, cfg, params, "float32", draft=(cfg, params),
+        **{**SPEC, "spec_drafter": "draft_model"})
+    log(f"phase8d fp32 draft_model (draft = target): {_spec_line(rep_d)} match vs spec-off (6a)="
+        f"{_match(toks_d, ctx['toks_6a']):.4f} B3 launches={launches_d['decode']} "
+        f"B5 launches={launches_d['verify_dense']} tpot_p50_ms={rep_d['per_token_p50_ms']}")
+    check(toks_d == ctx["toks_6a"], "draft-model spec tokens differ from spec-off")
+    check(rep_d["spec"]["accept_rate"] >= DRAFT_SELF_ACCEPT_FLOOR,
+          f"draft = target accept rate {rep_d['spec']['accept_rate']}")
+    check(launches_d["decode"] > 0, "the draft model launched no B3")
+
+    # (e) int8 weights, fp32, 12 requests: tokens = spec-off over the same
+    # tree; 48 B6 launches per verify window (checked in _serve)
+    qparams = gpt.quantize_for_inference(cfg, params, bits=8, group_size=QUANT_GROUP)
+    wl12 = (12,) + SERVE_WORKLOAD[1:]
+    rep_e, toks_e, _, launches_e, _ = _serve(torch, cfg, qparams, "float32", workload=wl12, **SPEC)
+    _, toks_eo, _, _, _ = _serve(torch, cfg, qparams, "float32", workload=wl12, decode_block=1)
+    log(f"phase8e fp32 int8 weights spec: {_spec_line(rep_e)} match vs spec-off="
+        f"{_match(toks_e, toks_eo):.4f} B6 launches in verify={launches_e['int8_in_verify']}")
+    check(toks_e == toks_eo, "int8-weight spec tokens differ from spec-off")
+    del qparams
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1187,7 +1518,7 @@ def main() -> int:
     ctx = {"timer": Timer(torch)}
     failures = []
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
-                  phase_paged_serving, phase_quantized):
+                  phase_paged_serving, phase_quantized, phase_spec_serving):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)
@@ -1217,7 +1548,10 @@ def main() -> int:
          "route": "cuda", "source": PAGED_SRC, "replaces": PAGED_TPU[kind],
          **ctx[f"paged_{kind}"]} for kind in PAGED_KINDS] + [
         {"name": f"int{bits}_matmul", "route": "cuda", "source": QMM_SRC,
-         "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_int{bits}"]} for bits in (8, 4)]
+         "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_int{bits}"]} for bits in (8, 4)] + [
+        {"name": "paged_verify_attention" + ("" if kind == "dense" else f"_{kind}"),
+         "route": "cuda", "source": VERIFY_SRC, "replaces": VERIFY_TPU,
+         **ctx[f"verify_{kind}"]} for kind in PAGED_KINDS]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -41,32 +41,13 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "paged_kv.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 32;  // positions per warp tile: one per lane
-
-// pool layouts; the values are the kv_mode codes passed from Python
-enum KvMode : int { kDense = 0, kInt4 = 4, kInt8 = 8 };
-
-__device__ __forceinline__ int byte_at(unsigned w, int j) {  // sign-extended byte j of w
-  return static_cast<int>(w << (24 - 8 * j)) >> 24;
-}
-
-__device__ __forceinline__ int low_nibble(int b) { return ((b & 0xF) ^ 8) - 8; }
-__device__ __forceinline__ int high_nibble(int b) { return (((b >> 4) & 0xF) ^ 8) - 8; }
-
-// Load 16 int8 values at p (16-byte aligned) as sign-extended ints.
-__device__ __forceinline__ void load16_s8(const int8_t* p, int* out) {
-  const uint4 r = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[4 * i + j] = byte_at(w[i], j);
-}
 
 // q . k for one key row (element offset `row` into the pool), k dequantized
 // against `ks` for the quantized layouts; sq is the scaled fp32 query.

@@ -146,6 +146,13 @@ def run_continuous(engine, workload: Sequence[Request], max_wall_s: float = 600.
         "physical_logical_page_ratio": round(stats["physical"] / stats["logical"], 4)
         if stats["logical"] else None,
     }
+    if sched.drafter is not None:
+        # the speculation ledger: the accept rate, and the tokens a verify
+        # call produced on average (1.0: no better than plain decode)
+        ss = dict(sched.spec_stats)
+        ss["accept_rate"] = round(ss["accepted"] / max(ss["drafted"], 1), 4)
+        ss["tokens_per_dispatch"] = round(ss["committed_tokens"] / max(ss["windows"], 1), 3)
+        extra["spec"] = ss
     return _report(workload, t0, t_end, "continuous", slo_s=slo_s, extra=extra)
 
 

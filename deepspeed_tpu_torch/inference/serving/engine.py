@@ -13,6 +13,13 @@ are the reference's:
   Its attention is the B4 paged kernel on CUDA; over a quantized weight
   tree (``models.gpt.quantize_for_inference``) its projections are the
   int8 / int4 weight kernels.
+- **verify** (speculative decoding, ``spec_drafter`` set): one
+  ``models/gpt.paged_verify_step`` over a ``[num_slots, k + 1]`` window per
+  ladder entry k (``spec_k_set``), its attention the B5 kernel on CUDA;
+  greedy longest-prefix acceptance, truncated at eos and at the remaining
+  budget, runs on the device, then ``commit_window_kv`` appends the
+  accepted prefix; the host reads the outputs and counts once per window.
+  The drafter is ``speculate.make_drafter``'s.
 - **prefill**: one shape per chunk bucket (powers of two up to
   ``prefill_chunk``): a prompt of at most one chunk runs in one padded
   forward (fused), an admission cycle of several such prompts as one
@@ -45,6 +52,7 @@ from ...utils.errors import unported
 from .buckets import bucket_for, default_buckets
 from .paging import pages_for
 from .scheduler import ContinuousBatchingScheduler
+from .speculate import make_drafter, spec_k_ladder
 
 
 @dataclasses.dataclass
@@ -52,9 +60,14 @@ class ServingConfig:
     """Knobs of the serving path, with the reference's fields and defaults.
     The port honours ``num_slots`` (an int), ``page_size``,
     ``max_model_len``, ``num_pages``, ``prefill_chunk``, ``kv_bits``
-    (None or 0 for dense pools, 8 or 4), ``decode_block``, ``dtype`` and ``kernel_impl``
-    (None = the kernel on CUDA | "kernel" | "gather"); the rest must keep
-    their defaults (see :func:`check_serving_config`)."""
+    (None or 0 for dense pools, 8 or 4), ``decode_block``, the speculation
+    knobs ``spec_drafter`` (None | "ngram" | "draft_model"), ``spec_k`` (1 to
+    16), ``spec_adaptive``, ``spec_ngram`` and ``spec_draft_model``, ``dtype``
+    and ``kernel_impl`` (None = the kernel on CUDA | "kernel" | "gather").
+    ``spec_equivalence_harness`` is accepted and does nothing: its only
+    reader is the reference's dslint rule ``analysis/rules_serving.py``
+    (ROADMAP.md A14). The rest must keep their defaults (see
+    :func:`check_serving_config`)."""
 
     num_slots: Union[int, str] = 4
     page_size: int = 64
@@ -106,13 +119,18 @@ class ServingConfig:
     def pages_per_seq(self) -> int:
         return pages_for(self.max_model_len, self.page_size)
 
+    @property
+    def spec_k_set(self) -> tuple:
+        """The draft-length ladder, one verify window shape per entry (empty
+        when no drafter is configured)."""
+        return spec_k_ladder(self.spec_k) if self.spec_drafter else ()
+
 
 # the knobs outside this slice, by the ROADMAP.md item that ports them
 _UNPORTED_KNOBS = {
-    "A7": ("enable_prefix_cache", "spec_drafter", "spec_k", "spec_adaptive", "spec_ngram",
-           "spec_draft_model", "spec_equivalence_harness", "max_queue",
-           "max_queued_tokens", "shed_policy", "ttft_deadline_s", "request_deadline_s",
-           "dispatch_retries", "quarantine_after", "dispatch_failure_budget"),
+    "A7": ("enable_prefix_cache", "max_queue", "max_queued_tokens", "shed_policy",
+           "ttft_deadline_s", "request_deadline_s", "dispatch_retries", "quarantine_after",
+           "dispatch_failure_budget"),
     "A10": ("tp", "role", "tiers", "tenants", "brownout_window_s",
             "brownout_enter_shed_rate", "brownout_enter_misses", "brownout_exit_shed_rate",
             "brownout_min_dwell_s"),
@@ -144,22 +162,25 @@ def check_serving_config(s: ServingConfig) -> None:
         raise ValueError(f"kv_bits must be 8 or 4 (None or 0: dense), got {s.kv_bits}")
     if s.kernel_impl not in (None, "kernel", "gather"):
         raise ValueError(f"kernel_impl must be None, 'kernel' or 'gather': {s.kernel_impl!r}")
+    if s.spec_drafter and not (1 <= s.spec_k <= 16):
+        raise ValueError(f"spec_k {s.spec_k} outside [1, 16]")
 
 
 class ServingEngine:
     """Executor over a GPT config + params (see the module docstring).
     ``device`` (default: the CUDA device, raising where there is none) is
-    where the params, the page pool and every program live."""
+    where the params, the page pool and every program live. ``draft``, a
+    ``(GPTConfig, params)`` pair, is the model the ``"draft_model"`` drafter
+    proposes tokens with."""
 
     def __init__(self, cfg: gpt_mod.GPTConfig, params, serving: Optional[ServingConfig] = None,
                  monitor=None, draft=None, device=None):
         self.cfg = cfg
         self.serving = serving or ServingConfig()
+        self.draft = draft
         s = self.serving
         if monitor is not None:
             raise unported("ServingEngine(monitor=...) (serving telemetry)", "A3b")
-        if draft is not None:
-            raise unported("ServingEngine(draft=...) (draft-model speculation)", "A7")
         check_serving_config(s)
         gpt_mod.check_config(cfg)
         if s.max_model_len > cfg.max_seq_len and not cfg.rotary:
@@ -306,11 +327,47 @@ class ServingEngine:
             lens = lens + 1
         return torch.stack(out).to(torch.int32).cpu().numpy()
 
+    @torch.no_grad()
+    def verify(self, tokens: np.ndarray, tables: np.ndarray, lengths: np.ndarray,
+               active: np.ndarray, eos: np.ndarray, budget: np.ndarray):
+        """One speculation window over every slot: ``tokens`` [num_slots, W]
+        (the verified input token, then the drafts), per-slot ``eos`` (-1 =
+        none) and remaining ``budget``. Returns (outputs [num_slots, W],
+        n_accept [num_slots]); the accepted prefix's K/V is already
+        committed. Draft i survives iff it equals the target's output at
+        position i and every earlier draft survived; an accepted eos ends the
+        window at that token; nothing commits past the budget (0 for an
+        inactive slot, which writes only to the sink page). Acceptance runs
+        on the device; the host reads the outputs and counts once."""
+        del active  # every slot runs; inactive ones ride budget 0
+        W = int(np.asarray(tokens).shape[1])
+        self._log_shape("serving_verify", (W, self.num_slots))
+        toks = self._to_device(tokens)
+        tbl = self._to_device(tables, np.int32)
+        lens = self._to_device(lengths, np.int32)
+        eos_t = self._to_device(eos)[:, None]
+        # a draft outside the vocabulary (a draft model with a larger one) is
+        # looked up clamped; it never equals an output, so it is never accepted
+        logits, win_k, win_v = gpt_mod.paged_verify_step(
+            self.cfg, self.params, toks.clamp(0, self.cfg.vocab_size - 1), self.paged_cache,
+            tbl, lens, impl=self.serving.kernel_impl)
+        outs = logits.argmax(-1)                                    # [S, W]
+        agree = (toks[:, 1:] == outs[:, :-1]).long()
+        n = 1 + agree.cumprod(dim=1).sum(dim=1)
+        is_eos = (outs == eos_t) & (eos_t >= 0)
+        eos_pos = is_eos.long().argmax(dim=1)                       # the first eos
+        n = torch.where(is_eos.any(dim=1), torch.minimum(n, eos_pos + 1), n)
+        n = torch.minimum(n, self._to_device(budget).clamp(min=0)).clamp(min=0)
+        gpt_mod.commit_window_kv(self.paged_cache, win_k, win_v, tbl, lens, n)
+        host = torch.cat([outs, n[:, None]], dim=1).to(torch.int32).cpu().numpy()
+        return host[:, :W], host[:, W]
+
     def warmup(self) -> int:
         """Run every program shape once before traffic arrives: the fused
         prefill per chunk bucket (and the admission-batch one), the chunked
-        long-prompt path when configured, and each decode block size. Every
-        write lands on the reserved sink page (all-zero tables, zero
+        long-prompt path when configured, each decode block size and each
+        verify window of the spec ladder (zero budget: nothing commits).
+        Every write lands on the reserved sink page (all-zero tables, zero
         lengths), so live state is safe. Returns the number of shapes seen."""
         s = self.serving
         sink_row = np.zeros(s.pages_per_seq, np.int32)
@@ -336,6 +393,9 @@ class ServingEngine:
         while k * 2 <= s.decode_block:  # the scheduler's power-of-two blocks
             k *= 2
             self.decode(zeros, tables, zeros, mask, steps=k)
+        for k in s.spec_k_set:
+            self.verify(np.zeros((self.num_slots, k + 1), np.int32), tables, zeros, mask,
+                        np.full(self.num_slots, -1, np.int32), zeros)
         return len(self.compile_log)
 
     # -------------------------------------------------------------- assembly
@@ -349,7 +409,8 @@ class ServingEngine:
         sched = ContinuousBatchingScheduler(
             executor=self, num_slots=self.num_slots, num_pages=self.num_pages,
             page_size=s.page_size, pages_per_seq=s.pages_per_seq,
-            decode_block=s.decode_block, max_context=s.max_model_len, clock=clock)
+            decode_block=s.decode_block, max_context=s.max_model_len, clock=clock,
+            drafter=make_drafter(self, s), spec_k=s.spec_k, spec_adaptive=s.spec_adaptive)
         self.last_scheduler = sched
         return sched
 

@@ -20,15 +20,24 @@ The scheduler is host-only: all device work goes through an *executor*
 
 - ``prefill(slot, tokens, table_row) -> first_token`` and optionally
   ``prefill_many(items) -> {slot: first_token}`` for one admission cycle;
-- ``decode(tokens, tables, lengths, active, steps=1) -> [steps, num_slots]``.
+- ``decode(tokens, tables, lengths, active, steps=1) -> [steps, num_slots]``;
+- with a drafter, ``verify(tokens, tables, lengths, active, eos, budget) ->
+  (outputs [num_slots, W], n_accept [num_slots])``.
+
+Speculative decoding: with a ``drafter`` (``speculate.py``), each step asks
+it for up to k tokens per active slot, scores the k + 1 window positions in
+one ``verify`` call (acceptance and the commit of the accepted prefix run in
+the executor) and appends the accepted tokens; k follows the accept rate
+(``AdaptiveSpecK``). A step in which no slot drafted falls back to plain
+decode.
 
 An executor exception propagates out of :meth:`step` unchanged: nothing
 here retries, so a device fault is never hidden.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP.md item when a constructor argument asks for it: overload control,
-deadlines and dispatch-fault recovery (retries, quarantine, failure budget),
-the prefix cache and speculation (A7); SLO tiers, tenants, the brownout
+deadlines and dispatch-fault recovery (retries, quarantine, failure budget)
+and the prefix cache (A7); SLO tiers, tenants, the brownout
 ladder and the disaggregated prefill/decode roles (A10); the recovery log,
 the watchdog and page fingerprints (A11).
 """
@@ -46,6 +55,7 @@ import numpy as np
 
 from ...utils.errors import unported
 from .paging import PageAllocator, pages_for
+from .speculate import AdaptiveSpecK, spec_k_ladder
 
 
 class RequestState(enum.Enum):
@@ -92,6 +102,10 @@ class Request:
     t_done: Optional[float] = None
     preemptions: int = 0
     reject_reason: Optional[str] = None
+    # the request's speculation ledger: draft positions offered to the
+    # verifier, and confirmed by it
+    spec_drafted: int = 0
+    spec_accepted: int = 0
 
     @property
     def context_len(self) -> int:
@@ -112,8 +126,7 @@ _UNPORTED_ARGS = {
     "deadline_s": (None, "A7"), "dispatch_retries": (2, "A7"),
     "retry_base_delay": (0.02, "A7"), "retry_max_delay": (0.25, "A7"),
     "quarantine_after": (2, "A7"), "dispatch_failure_budget": (8, "A7"),
-    "prefix_cache": (None, "A7"), "drafter": (None, "A7"), "spec_k": (4, "A7"),
-    "spec_adaptive": (True, "A7"), "role": ("both", "A10"), "tiers": (None, "A10"),
+    "prefix_cache": (None, "A7"), "role": ("both", "A10"), "tiers": (None, "A10"),
     "tenants": (None, "A10"), "brownout": (None, "A10"),
     "latency_preempt_budget": (2, "A10"), "recovery_log": (None, "A11"),
     "watchdog": (None, "A11"), "page_fingerprints": (False, "A11"),
@@ -124,7 +137,8 @@ _UNPORTED_ARGS = {
 class ContinuousBatchingScheduler:
     def __init__(self, executor: Any, num_slots: int, num_pages: int, page_size: int,
                  pages_per_seq: int, decode_block: int = 1,
-                 max_context: Optional[int] = None, clock=time.monotonic, **unported_args):
+                 max_context: Optional[int] = None, clock=time.monotonic, drafter=None,
+                 spec_k: int = 4, spec_adaptive: bool = True, **unported_args):
         for name, value in unported_args.items():
             if name not in _UNPORTED_ARGS:
                 raise TypeError(f"ContinuousBatchingScheduler got an unexpected argument "
@@ -163,6 +177,19 @@ class ContinuousBatchingScheduler:
         self.counters: Dict[str, int] = {}
         self.steps = 0
         self._draining = False
+        self.drafter = drafter
+        self._spec_ctl = (AdaptiveSpecK(spec_k_ladder(spec_k), adaptive=spec_adaptive)
+                          if drafter is not None else None)
+        self.spec_stats: Dict[str, Any] = {
+            "drafter": getattr(drafter, "kind", None),
+            "windows": 0,               # verify calls
+            "drafted": 0,               # draft positions offered
+            "accepted": 0,              # draft positions confirmed
+            "committed_tokens": 0,      # tokens the verify windows produced
+            "full_accept_windows": 0,   # slot-windows where every draft held
+            "full_reject_windows": 0,   # slot-windows with drafts, none held
+            "fallback_steps": 0,        # steps with no draft: plain decode
+        }
 
     # ------------------------------------------------------------ bookkeeping
     @property
@@ -229,6 +256,8 @@ class ContinuousBatchingScheduler:
         return AdmissionVerdict(True)
 
     def _release(self, slot: int) -> None:
+        if self.drafter is not None:
+            self.drafter.release(slot)
         self.allocator.free(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self.tables[slot] = 0
@@ -383,25 +412,112 @@ class ContinuousBatchingScheduler:
 
     def step(self) -> int:
         """Admit what fits, then run one decode step (or one safe decode
-        block) over the slot array. Returns the tokens produced."""
+        block, or with a drafter one speculation window) over the slot
+        array. Returns the tokens produced."""
         self._admit()
         if not self.active_slots:
             return 0
+        if self.drafter is not None:
+            produced = self._spec_step()
+            if produced is not None:
+                return produced
+            # no slot drafted this step: plain decode
+            self.spec_stats["fallback_steps"] += 1
         return self._decode_step()
 
-    def _decode_step(self) -> int:
-        block = self._block_size()
-        # page growth for the block's horizon, preempting newest-first under
-        # pool pressure; the growing slot itself may be the newest, so an
-        # old request is never evicted by a younger grower
+    def _grow_pages(self, horizon) -> None:
+        """Pages for each active slot's next ``horizon(req)`` writes,
+        preempting newest-first under pool pressure; the growing slot itself
+        may be the newest, so an old request is never evicted by a younger
+        grower."""
         for slot in list(self.active_slots):
-            if self.slots[slot] is None:
+            req = self.slots[slot]
+            if req is None:
                 continue
-            while not self._ensure_page(slot, horizon=block):
+            while not self._ensure_page(slot, horizon=horizon(req)):
                 victim = max(self.active_slots, key=lambda s: self._admit_seq[s])
                 self._preempt(victim)
                 if victim == slot:
                     break
+
+    def _spec_step(self) -> Optional[int]:
+        """One speculation window: up to k drafts per active slot, one
+        ``verify`` call over the k + 1 positions (acceptance and the commit
+        of the accepted prefix run in the executor), then the accepted
+        tokens. Returns the tokens produced, or None when no slot drafted."""
+        k = self._spec_ctl.k
+        W = k + 1
+        drafts: Dict[int, np.ndarray] = {}
+        for slot in self.active_slots:
+            req = self.slots[slot]
+            try:
+                d = np.asarray(self.drafter.draft(slot, req.rid, np.asarray(req.prompt, np.int32),
+                                                  req.tokens, k), np.int32)[:k]
+            except Exception:  # a broken drafter must not stop serving: no drafts
+                self._record("drafter_error")
+                d = np.empty(0, np.int32)
+            drafts[slot] = d
+        if not any(len(d) for d in drafts.values()):
+            return None
+        # pages for each slot's commit horizon (never past its remaining
+        # budget: commits are budget-truncated in the executor)
+        self._grow_pages(lambda req: max(min(W, req.max_new_tokens - len(req.tokens)), 1))
+        active = self.active_slots
+        if not active:
+            return 0
+        win = np.zeros((self.num_slots, W), np.int32)
+        eos = np.full(self.num_slots, -1, np.int32)
+        budget = np.zeros(self.num_slots, np.int32)
+        offered: Dict[int, int] = {}
+        for slot in active:
+            req = self.slots[slot]
+            d = drafts.get(slot, np.empty(0, np.int32))
+            win[slot, 0] = self.next_input[slot]
+            win[slot, 1:1 + len(d)] = d
+            offered[slot] = len(d)
+            if req.eos_token_id is not None:
+                eos[slot] = req.eos_token_id
+            budget[slot] = req.max_new_tokens - len(req.tokens)
+        mask = np.zeros(self.num_slots, bool)
+        mask[active] = True
+        outs, n_acc = self.executor.verify(win, self.tables.copy(), self.lengths.copy(), mask,
+                                           eos, budget)
+        outs, n_acc = np.asarray(outs), np.asarray(n_acc)
+        self.steps += 1
+        produced = step_offered = step_accepted = 0
+        for slot in active:
+            req = self.slots[slot]
+            if req is None or req.state is not RequestState.RUNNING:
+                continue
+            n = int(n_acc[slot])
+            self.lengths[slot] += n  # the n accepted inputs' K/V is cached
+            dr = offered[slot]
+            acc = min(max(n - 1, 0), dr)
+            req.spec_drafted += dr
+            req.spec_accepted += acc
+            step_offered += dr
+            step_accepted += acc
+            if dr and acc == dr:
+                self.spec_stats["full_accept_windows"] += 1
+            elif dr and acc == 0:
+                self.spec_stats["full_reject_windows"] += 1
+            req.tokens.extend(int(t) for t in outs[slot, :n])
+            produced += n
+            if n:
+                self.next_input[slot] = req.tokens[-1]
+            if req.done:
+                self._finish(slot)
+        self.spec_stats["windows"] += 1
+        self.spec_stats["drafted"] += step_offered
+        self.spec_stats["accepted"] += step_accepted
+        self.spec_stats["committed_tokens"] += produced
+        self._spec_ctl.observe(step_offered, step_accepted)
+        self._record("spec_window")
+        return produced
+
+    def _decode_step(self) -> int:
+        block = self._block_size()
+        self._grow_pages(lambda req: block)
         active = self.active_slots
         if not active:
             return 0

@@ -48,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from ..accelerator import resolve_device, to_device
 from ..ops.attention import multihead_attention
 from ..ops.cuda.decode_attention import (decode_attention, paged_decode_attention,
-                                         unpack_kv_int4)
+                                         paged_verify_attention, unpack_kv_int4)
 from ..ops.cuda.flash_attention import NEG_INF
 from ..ops.cuda.int8_matmul import int4_matmul, int8_matmul, pack_int4, unpack_int4
 from ..ops.quantizer import dequantize, quantize
@@ -860,8 +860,10 @@ def _append_kv_token(pages_q: torch.Tensor, scales: torch.Tensor, tok: torch.Ten
                      page: torch.Tensor, off: torch.Tensor,
                      bits: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sequential quantized-pool append, IN PLACE: one token per batch row
-    into its tail page. ``pages_q`` [H, P, ps, Dq]; ``scales`` [H, P];
-    ``tok`` [H, B, Dh] float32; ``page``/``off`` [B] int64.
+    into its tail page. ``pages_q`` [..., H, P, ps, Dq]; ``scales`` [..., H,
+    P]; ``tok`` [..., H, B, Dh] float32; ``page``/``off`` [B] int64. Leading
+    dims (the layer stack of :func:`commit_window_kv`) are independent pools,
+    each appended as the reference's one-layer call would.
 
     A row opening a page (offset 0) takes the page scale from its own token
     (the pool's prior value there is garbage: the init, or a recycled page's
@@ -872,22 +874,22 @@ def _append_kv_token(pages_q: torch.Tensor, scales: torch.Tensor, tok: torch.Ten
     ``torch.where`` selects on the device, so no step waits on a host read
     of the condition, and the payloads are the reference's bit for bit."""
     qmax = KV_QMAX[bits]
-    B = tok.shape[1]
-    opening = (off == 0)[None, :]                     # [1, B]
-    s_old = scales[:, page]                           # [H, B]
+    B = tok.shape[-2]
+    opening = off == 0                                # [B]
+    s_old = scales[..., page]                         # [..., H, B]
     amax = tok.abs().amax(dim=-1)
     fresh = torch.where(amax > 0, amax / qmax, 1.0)
     s_new = torch.where(opening, fresh, torch.maximum(s_old, fresh))
     tq = _kv_payload(torch.clamp(torch.round(tok / s_new[..., None]), -qmax - 1, qmax), bits)
-    cur = pages_q[:, page]                            # [H, B, ps, Dq]
+    cur = pages_q[..., page, :, :]                    # [..., H, B, ps, Dq]
     deq = unpack_kv_int4(cur) if bits == 4 else cur.float()
     ratio = (s_old / s_new)[..., None, None]
     requant = _kv_payload(torch.clamp(torch.round(deq * ratio), -qmax - 1, qmax), bits)
-    grew = (~opening & (s_new > s_old)).any()
-    new = torch.where(grew, requant, cur)
-    new[:, torch.arange(B, device=tok.device), off] = tq
-    pages_q[:, page] = new
-    scales[:, page] = s_new
+    grew = (~opening & (s_new > s_old)).flatten(-2).any(-1)  # per pool
+    new = torch.where(grew[..., None, None, None, None], requant, cur)
+    new[..., torch.arange(B, device=tok.device), off, :] = tq
+    pages_q[..., page, :, :] = new
+    scales[..., page] = s_new
     return pages_q, scales
 
 
@@ -958,6 +960,129 @@ def paged_decode_step(cfg: GPTConfig, params: Params, input_ids,
         x = y + _mlp_delta(cfg, x if cfg.parallel_residual else y, w)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layer_norm_eps)
     return _head(cfg, params, x)[:, 0], paged_cache
+
+
+# ------------------------------------------------------- speculative verification
+def _paged_verify_sublayer(cfg: GPTConfig, x: torch.Tensor, w: Params, k_pages, v_pages,
+                           tables: torch.Tensor, lengths: torch.Tensor, impl=None,
+                           k_scales=None, v_scales=None):
+    """Cached self-attention over one layer's page pool for a W-token
+    speculation window per row (pre-LN + residual): x [B, W, D]; window
+    position i sits at absolute position ``lengths[b] + i`` and attends the
+    pool history plus the window's causal prefix. Nothing is written to the
+    pool. Returns (x + attn_out, win_k, win_v), the window's K/V [B, W, H,
+    Dh] post-rope in the compute dtype: the values sequential decode steps
+    would have appended."""
+    B, W, D = x.shape
+    Dh = cfg.head_dim
+    positions = lengths[:, None].long() + torch.arange(W, device=x.device)[None, :]
+    q, k, v = _qkv(cfg, x, w, positions)
+    scale = cfg.attention_scale if cfg.attention_scale is not None else 1.0 / math.sqrt(Dh)
+    # a quantized pool's window stays in the compute dtype (not round-tripped
+    # through int8/int4), as the reference's does
+    qdt = x.dtype if k_scales is not None else k_pages.dtype
+    attn = paged_verify_attention(q.to(qdt), k_pages, v_pages, lengths, tables, k, v,
+                                  softmax_scale=scale, impl=impl, k_scales=k_scales,
+                                  v_scales=v_scales)
+    attn = attn.reshape(B, W, D).to(x.dtype)
+    return x + _wm(attn, w["attn_out_w"]) + w["attn_out_b"], k, v
+
+
+def paged_verify_step(cfg: GPTConfig, params: Params, window_ids, paged_cache: Dict[str, torch.Tensor],
+                      block_tables, lengths, impl: Optional[str] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Score a speculation window, ``window_ids`` [B, W] per slot (the
+    verified next input token, then up to W - 1 drafted tokens), in one pass
+    over the paged cache. Returns (logits [B, W, V], win_k, win_v), the
+    window's per-layer post-rope K/V [L, B, W, H, Dh] in the compute dtype.
+
+    Every weight matrix is read once for W positions where W sequential
+    :func:`paged_decode_step` calls read it W times. The pool is read-only:
+    the window K/V stay dense, so a rejected suffix needs no undo, and
+    :func:`commit_window_kv` then appends exactly the accepted prefix with
+    sequential-append semantics. Over quantized pools the window attends its
+    own positions at dense precision where spec-off decode would read them
+    int8/int4 round-tripped from the pool, so spec-on equals spec-off there
+    only to quantization tolerance, as in the reference. The same support
+    as :func:`paged_decode_step`: learned or rotary positions, the parallel
+    residual, dense or quantized weights (projections of at most 256 rows
+    take the B6/B7 kernels), dense, int8 or int4 pools; alibi and local
+    attention raise. ``impl`` goes to :func:`paged_verify_attention` (None:
+    the B5 kernel on CUDA)."""
+    check_config(cfg)
+    ids = _as_ids(window_ids, params)
+    B, W = ids.shape
+    dev = ids.device
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    tables = torch.as_tensor(block_tables, dtype=torch.int32, device=dev)
+    positions = lengths[:, None].long() + torch.arange(W, device=dev)[None, :]
+    # a window at the end of the model length may reach past the learned
+    # position table; those positions are never committed (the budget and
+    # admission bound them), so their lookups are clamped into the table
+    x = _embed(cfg, params, ids, positions.clamp(max=cfg.max_seq_len - 1 - cfg.pos_offset))
+    kv_q = "k_scales" in paged_cache
+    blocks = params["blocks"]
+    win_k, win_v = [], []
+    for i in range(_n_layers(blocks)):
+        w = _layer(blocks, i)
+        y, k, v = _paged_verify_sublayer(
+            cfg, x, w, paged_cache["k_pages"][i], paged_cache["v_pages"][i], tables, lengths,
+            impl=impl, k_scales=paged_cache["k_scales"][i] if kv_q else None,
+            v_scales=paged_cache["v_scales"][i] if kv_q else None)
+        x = y + _mlp_delta(cfg, x if cfg.parallel_residual else y, w)
+        win_k.append(k)
+        win_v.append(v)
+    x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layer_norm_eps)
+    return _head(cfg, params, x), torch.stack(win_k), torch.stack(win_v)
+
+
+def commit_window_kv(paged_cache: Dict[str, torch.Tensor], win_k: torch.Tensor,
+                     win_v: torch.Tensor, block_tables, lengths, n_commit
+                     ) -> Dict[str, torch.Tensor]:
+    """Append each row's ACCEPTED window prefix, ``n_commit[b]`` tokens at
+    positions ``lengths[b] .. lengths[b] + n_commit[b] - 1``, into the paged
+    pool IN PLACE (the reference returns new arrays), exactly as
+    ``n_commit[b]`` sequential decode steps would have; returns
+    ``paged_cache``. ``win_k``/``win_v`` [L, B, W, H, Dh]; ``block_tables``
+    [B, pages_per_seq]; ``lengths`` [B], the pool tokens before the window;
+    ``n_commit`` [B] in 0..W, which may live on the device (nothing here
+    reads it on the host).
+
+    Uncommitted window positions write to the sink page 0 at offset ``pos %
+    page_size`` (the page index clipped to the table), so a rejected suffix
+    is the absence of a write. Quantized pools take one
+    :func:`_append_kv_token` per window step, in order (the page-scale
+    semantics depend on it), over all layers at once; dense pools take one
+    scatter of all W positions: committed (page, offset) pairs are distinct,
+    so it equals the sequential writes."""
+    k_pages = paged_cache["k_pages"]
+    dev = k_pages.device
+    L, B, W, H, Dh = win_k.shape
+    ps = k_pages.shape[3]
+    tables = torch.as_tensor(block_tables, dtype=torch.int32, device=dev).long()
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=dev).long()
+    n_commit = torch.as_tensor(n_commit, device=dev).long()
+    steps = torch.arange(W, device=dev)
+    pos = lengths[None, :] + steps[:, None]                               # [W, B]
+    pidx = torch.clamp(pos // ps, 0, tables.shape[1] - 1)
+    table_page = tables.gather(1, pidx.t()).t()                           # [W, B]
+    page = torch.where(steps[:, None] < n_commit[None, :], table_page, 0)
+    off = pos % ps
+    bits = paged_cache_bits(paged_cache, Dh)
+    if bits is None:
+        # step-major order: where the sink page takes several writes at one
+        # offset, the last step's lands, as the sequential writes leave it
+        flat_page, flat_off = page.reshape(-1), off.reshape(-1)
+        for win, pool in ((win_k, "k_pages"), (win_v, "v_pages")):
+            dst = paged_cache[pool]
+            vals = win.permute(0, 3, 2, 1, 4).reshape(L, H, W * B, Dh)   # [L, H, W*B, Dh]
+            dst[:, :, flat_page, flat_off] = vals.to(dst.dtype)
+        return paged_cache
+    for i in range(W):
+        for win, pool, skey in ((win_k, "k_pages", "k_scales"), (win_v, "v_pages", "v_scales")):
+            tok = win[:, :, i].permute(0, 2, 1, 3).float()                 # [L, H, B, Dh]
+            _append_kv_token(paged_cache[pool], paged_cache[skey], tok, page[i], off[i], bits)
+    return paged_cache
 
 
 # --------------------------------------------------------------------------- module

@@ -1,20 +1,23 @@
-"""Single-token decode attention over a KV cache: the hand-written CUDA
-kernels and their plain versions.
+"""Decode attention over a KV cache (one token, or a speculation window):
+the hand-written CUDA kernels and their plain versions.
 
 Counterpart of ``decode_attention``, ``paged_decode_attention``,
-``unpack_kv_int4`` and ``_as_lengths`` in
-``deepspeed_tpu/ops/pallas/decode_attention.py``. Two kernels:
+``paged_verify_attention``, ``unpack_kv_int4`` and ``_as_lengths`` in
+``deepspeed_tpu/ops/pallas/decode_attention.py``. Three kernels:
 
 - :func:`decode_attention` (B3) over a contiguous ``[B, H, S, Dh]`` cache,
   ``deepspeed_tpu_torch/csrc/decode_attention.cu``;
 - :func:`paged_decode_attention` (B4) through a block table over a shared
   page pool, dense or quantized (int8, nibble-packed int4),
-  ``deepspeed_tpu_torch/csrc/paged_decode_attention.cu``.
+  ``deepspeed_tpu_torch/csrc/paged_decode_attention.cu``;
+- :func:`paged_verify_attention` (B5), a speculation window of W queries
+  per row over the same pools plus the window's own dense K/V,
+  ``deepspeed_tpu_torch/csrc/paged_verify_attention.cu``.
 
-Each source's header says how it is split and what bounds it. Both wrappers
-take the plain version only for tensors on the CPU (or, for the paged one,
+Each source's header says how it is split and what bounds it. The wrappers
+take the plain version only for tensors on the CPU (or, for the paged ones,
 when asked with ``impl="gather"``); for CUDA tensors they launch the kernel
-or raise. Both are inference-only and raise where autograd would
+or raise. All are inference-only and raise where autograd would
 differentiate them.
 """
 
@@ -32,12 +35,15 @@ from .flash_attention import DTYPE_CODE, HEAD_DIMS, NEG_INF
 from .int8_matmul import unpack_int4
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
-# them to show that a main path went through the kernels): B3, and B4 by
-# pool layout (dense, int8, int4)
+# them to show that a main path went through the kernels): B3, and B4 and B5
+# by pool layout (dense, int8, int4)
 launches = 0
 paged_launches = 0
 paged_kv8_launches = 0
 paged_kv4_launches = 0
+verify_launches = 0
+verify_kv8_launches = 0
+verify_kv4_launches = 0
 
 Lengths = Union[int, torch.Tensor]
 
@@ -217,6 +223,53 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     return decode_attention_ref(q, k, v, lengths, softmax_scale)
 
 
+def _check_pool_shapes(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, block_tables: torch.Tensor) -> None:
+    B, H = q.shape[0], q.shape[2]
+    if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape or k_pages.shape[0] != H
+            or block_tables.dim() != 2 or block_tables.shape[0] != B):
+        raise ValueError(f"{name}: pools {tuple(k_pages.shape)} / {tuple(v_pages.shape)} and "
+                         f"tables {tuple(block_tables.shape)} do not match q {tuple(q.shape)}")
+
+
+def _check_paged_kernel(name: str, q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, block_tables: torch.Tensor, bits: Optional[int],
+                        k_scales, v_scales) -> None:
+    """What the paged kernels (B4, B5) take: CUDA tensors on one device, head
+    dim 64 or 128, q in fp32/bf16/fp16, dense pools in q's dtype or int8
+    pools with contiguous fp32 [H, P] scales, q's head dim contiguous, the
+    pools contiguous and 16-byte aligned."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} kernel: needs CUDA tensors, got {q.device}")
+    H, Dh = q.shape[2], q.shape[3]
+    P = k_pages.shape[1]
+    if Dh not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"{name} kernel: head dim {Dh} (built for {HEAD_DIMS}; other "
+            "head dims are ROADMAP.md queue B-redesign)")
+    if q.dtype not in DTYPE_CODE:
+        raise TypeError(f"{name} kernel: q dtype {q.dtype}; expected "
+                        "float32, bfloat16 or float16")
+    if bits is None and not (k_pages.dtype == v_pages.dtype == q.dtype):
+        raise TypeError(f"{name} kernel: dense pools {k_pages.dtype}/"
+                        f"{v_pages.dtype} must have q's dtype {q.dtype}")
+    if bits is not None:
+        if not (k_pages.dtype == v_pages.dtype == torch.int8):
+            raise TypeError(f"{name} kernel: quantized pools must be int8")
+        if (k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32
+                or k_scales.shape != (H, P) or v_scales.shape != (H, P)
+                or not (k_scales.is_contiguous() and v_scales.is_contiguous())):
+            raise ValueError(f"{name} kernel: scales must be contiguous "
+                             f"float32 [H, P] = {(H, P)}")
+    pools = (k_pages, v_pages) + ((k_scales, v_scales) if bits is not None else ())
+    if any(t.device != q.device for t in pools + (block_tables,)):
+        raise ValueError(f"{name}: q, pools and tables on different devices")
+    if q.stride(-1) != 1 or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError(f"{name} kernel: q's head dim and the pools must be contiguous")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(f"{name} kernel: pools must be 16-byte aligned")
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                            lengths: Lengths, block_tables: torch.Tensor,
                            softmax_scale: Optional[float] = None, impl: Optional[str] = None,
@@ -241,46 +294,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         raise ValueError(f"paged_decode_attention: q must be [B, 1, H, Dh], got {tuple(q.shape)}")
     B, _, H, Dh = q.shape
     bits = _pool_bits(k_pages, k_scales, v_scales, Dh)
-    if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape or k_pages.shape[0] != H
-            or block_tables.dim() != 2 or block_tables.shape[0] != B):
-        raise ValueError(f"paged_decode_attention: pools {tuple(k_pages.shape)} / "
-                         f"{tuple(v_pages.shape)} and tables {tuple(block_tables.shape)} "
-                         f"do not match q {tuple(q.shape)}")
+    _check_pool_shapes("paged_decode_attention", q, k_pages, v_pages, block_tables)
     _refuse_autograd("paged_decode_attention", q, k_pages, v_pages)
     if impl not in (None, "kernel", "gather"):
         raise ValueError(f"impl must be None, 'kernel' or 'gather': {impl!r}")
     if impl == "gather" or (impl is None and q.device.type == "cpu"):
         return paged_decode_attention_ref(q, k_pages, v_pages, lengths, block_tables,
                                           softmax_scale, k_scales, v_scales)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_decode_attention kernel: needs CUDA tensors, got {q.device}")
+    _check_paged_kernel("paged_decode_attention", q, k_pages, v_pages, block_tables, bits,
+                        k_scales, v_scales)
     P, ps = k_pages.shape[1], k_pages.shape[2]
-    if Dh not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"paged_decode_attention kernel: head dim {Dh} (built for {HEAD_DIMS}; other "
-            "head dims are ROADMAP.md queue B-redesign)")
-    if q.dtype not in DTYPE_CODE:
-        raise TypeError(f"paged_decode_attention kernel: q dtype {q.dtype}; expected "
-                        "float32, bfloat16 or float16")
-    if bits is None and not (k_pages.dtype == v_pages.dtype == q.dtype):
-        raise TypeError(f"paged_decode_attention kernel: dense pools {k_pages.dtype}/"
-                        f"{v_pages.dtype} must have q's dtype {q.dtype}")
-    if bits is not None:
-        if not (k_pages.dtype == v_pages.dtype == torch.int8):
-            raise TypeError("paged_decode_attention kernel: quantized pools must be int8")
-        if (k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32
-                or k_scales.shape != (H, P) or v_scales.shape != (H, P)
-                or not (k_scales.is_contiguous() and v_scales.is_contiguous())):
-            raise ValueError(f"paged_decode_attention kernel: scales must be contiguous "
-                             f"float32 [H, P] = {(H, P)}")
-    pools = (k_pages, v_pages) + ((k_scales, v_scales) if bits is not None else ())
-    if any(t.device != q.device for t in pools + (block_tables,)):
-        raise ValueError("paged_decode_attention: q, pools and tables on different devices")
-    if q.stride(-1) != 1 or not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("paged_decode_attention kernel: q's head dim and the pools "
-                         "must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("paged_decode_attention kernel: pools must be 16-byte aligned")
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(Dh)
     lens = _as_lengths(lengths, B, q.device).contiguous()
     tables = block_tables.to(torch.int32).contiguous()
@@ -301,4 +324,135 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         paged_kv8_launches += 1
     else:
         paged_kv4_launches += 1
+    return o
+
+
+# ------------------------------------------------------------ verify window (B5)
+# the widest window the kernel takes: spec_k 16 drafts + the verified token
+VERIFY_MAX_WINDOW = 17
+
+
+@functools.lru_cache(maxsize=None)
+def _verify_lib() -> ctypes.CDLL:
+    lib = _build.load("paged_verify_attention")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ds_paged_verify_attention.argtypes = (
+        [ptr] * 10 + [i32] * 9 + [i64] * 9 + [ctypes.c_float, ptr])
+    lib.ds_paged_verify_attention.restype = i32
+    return lib
+
+
+def paged_verify_attention_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                               lengths: Lengths, block_tables: torch.Tensor,
+                               win_k: torch.Tensor, win_v: torch.Tensor,
+                               softmax_scale: Optional[float] = None,
+                               k_scales: Optional[torch.Tensor] = None,
+                               v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the verify kernel (the counterpart of
+    ``_paged_verify_gather``): gather each row's pages contiguously and
+    dequantize them, scatter the window K/V at their absolute positions
+    ``lengths[b] + i`` (gathered order is table order), DROPPING the
+    positions at or past the gathered length S (never clipping them onto S -
+    1, where a rejected draft's K/V would overwrite a committable token's),
+    then the masked fp32 softmax of :func:`decode_attention_ref` with limit
+    ``lengths[b] + i + 1`` per window query. At W = 1 over a pool that holds
+    the window token it is bitwise :func:`paged_decode_attention_ref` at
+    ``lengths + 1``."""
+    B, W, H, Dh = q.shape
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(Dh)
+    tables = block_tables.long()
+    k = gather_pages(k_pages, k_scales, tables, Dh)  # [B, H, S, Dh], a copy of the pool's rows
+    v = gather_pages(v_pages, v_scales, tables, Dh)
+    S = k.shape[2]
+    lens = _as_lengths(lengths, B, q.device).long()
+    pos = lens[:, None] + torch.arange(W, device=q.device)[None, :]  # [B, W]
+    keep = pos < S
+    rows = torch.arange(B, device=q.device)[:, None].expand(B, W)[keep]
+    k[rows, :, pos[keep]] = win_k[keep].to(k.dtype)
+    v[rows, :, pos[keep]] = win_v[keep].to(v.dtype)
+    s = torch.einsum("bwhd,bhsd->bhws", q.float() * scale, k.float())
+    limit = pos + 1  # query i sees the history, the window prefix and itself
+    mask = torch.arange(S, device=q.device)[None, None, :] < limit[:, :, None]  # [B, W, S]
+    s = s.masked_fill(~mask[:, None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhws,bhsd->bwhd", p, v.float()).to(q.dtype)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           lengths: Lengths, block_tables: torch.Tensor,
+                           win_k: torch.Tensor, win_v: torch.Tensor,
+                           softmax_scale: Optional[float] = None, impl: Optional[str] = None,
+                           k_scales: Optional[torch.Tensor] = None,
+                           v_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Speculative-decoding verify attention: a W-token window per row in
+    one call.
+
+    q, ``win_k``, ``win_v`` [B, W, H, Dh]: the window's queries and its dense
+    post-rope keys and values; window position i sits at absolute position
+    ``lengths[b] + i`` and attends the pool history (positions below
+    ``lengths[b]``, the pool tokens BEFORE the window, read through
+    ``block_tables`` and dequantized as :func:`paged_decode_attention` does)
+    plus window positions 0..i. The pools (as for
+    :func:`paged_decode_attention`) are read-only: the window's accepted
+    prefix is committed later (``models.gpt.commit_window_kv``). For dense
+    pools the window is first cast to the pool dtype, the bits a committed
+    window token would have. Returns [B, W, H, Dh] in q's dtype.
+
+    ``impl``: None launches the kernel (B5) for CUDA tensors and takes the
+    plain version for CPU tensors; "gather" is the plain version on any
+    device; "kernel" insists on the kernel. The two differ only at window
+    positions at or past the table's capacity, which the plain version
+    drops and the kernel attends; those are never committed. Inference
+    only: a call autograd would differentiate raises."""
+    global verify_launches, verify_kv8_launches, verify_kv4_launches
+    if q.dim() != 4:
+        raise ValueError(f"paged_verify_attention: q must be [B, W, H, Dh], got {tuple(q.shape)}")
+    B, W, H, Dh = q.shape
+    if win_k.shape != (B, W, H, Dh) or win_v.shape != (B, W, H, Dh):
+        raise ValueError(f"win_k/win_v must be [B, W, H, Dh]={(B, W, H, Dh)}, got "
+                         f"{tuple(win_k.shape)} / {tuple(win_v.shape)}")
+    bits = _pool_bits(k_pages, k_scales, v_scales, Dh)
+    _check_pool_shapes("paged_verify_attention", q, k_pages, v_pages, block_tables)
+    _refuse_autograd("paged_verify_attention", q, k_pages, v_pages, win_k, win_v)
+    if impl not in (None, "kernel", "gather"):
+        raise ValueError(f"impl must be None, 'kernel' or 'gather': {impl!r}")
+    if bits is None:
+        win_k, win_v = win_k.to(k_pages.dtype), win_v.to(v_pages.dtype)
+    if impl == "gather" or (impl is None and q.device.type == "cpu"):
+        return paged_verify_attention_ref(q, k_pages, v_pages, lengths, block_tables,
+                                          win_k, win_v, softmax_scale, k_scales, v_scales)
+    _check_paged_kernel("paged_verify_attention", q, k_pages, v_pages, block_tables, bits,
+                        k_scales, v_scales)
+    if not 1 <= W <= VERIFY_MAX_WINDOW:
+        raise ValueError(f"paged_verify_attention kernel: window {W} outside "
+                         f"[1, {VERIFY_MAX_WINDOW}] (spec_k <= 16)")
+    if win_k.dtype != q.dtype or win_v.dtype != q.dtype:
+        raise TypeError(f"paged_verify_attention kernel: window {win_k.dtype}/{win_v.dtype} "
+                        f"must have q's dtype {q.dtype}")
+    if win_k.device != q.device or win_v.device != q.device:
+        raise ValueError("paged_verify_attention: q and the window on different devices")
+    if win_k.stride(-1) != 1 or win_v.stride(-1) != 1:
+        raise ValueError("paged_verify_attention kernel: the window's head dim must be "
+                         "contiguous")
+    P, ps = k_pages.shape[1], k_pages.shape[2]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(Dh)
+    lens = _as_lengths(lengths, B, q.device).contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    o = torch.empty((B, W, H, Dh), dtype=q.dtype, device=q.device)
+    strides = [t.stride(i) for t in (q, win_k, win_v) for i in (0, 1, 2)]
+    lib = _verify_lib()
+    with torch.cuda.device(q.device):
+        status = lib.ds_paged_verify_attention(
+            q.data_ptr(), win_k.data_ptr(), win_v.data_ptr(), k_pages.data_ptr(),
+            v_pages.data_ptr(), k_scales.data_ptr() if bits is not None else None,
+            v_scales.data_ptr() if bits is not None else None, o.data_ptr(), lens.data_ptr(),
+            tables.data_ptr(), B, W, H, P, ps, tables.shape[1], Dh, DTYPE_CODE[q.dtype],
+            _KV_MODE[bits], *strides, scale, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, status, "paged_verify_attention")
+    if bits is None:
+        verify_launches += 1
+    elif bits == 8:
+        verify_kv8_launches += 1
+    else:
+        verify_kv4_launches += 1
     return o

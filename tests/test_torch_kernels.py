@@ -164,6 +164,41 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, atol, bits, pages, pool)
     assert (out.float() - ref.float()).abs().max().item() <= atol
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", TOLERANCES)
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
+@pytest.mark.parametrize("W", [1, 2, 5, 17])
+def test_verify_kernel_matches_plain(cuda_device, dtype, atol, bits, W):
+    """B5 at the serving shape (8 slots, H12, page 64, 8 pages per row, pool
+    17) with q and the window as strided views of one fused qkv buffer,
+    against the plain version on the committable positions (the plain
+    version drops window positions past the table, the kernel attends
+    them); a second run is bitwise equal."""
+    counter = {None: "verify_launches", 8: "verify_kv8_launches",
+               4: "verify_kv4_launches"}[bits]
+    B, H, Dh, ps, pages = 8, 12, 64, 64, 8
+    _, k, v, ks, vs, t = _paged_inputs(cuda_device, dtype, bits, B, H, pages, 17, 12)
+    qkv = _normal((B, W, 3 * H * Dh), cuda_device, dtype, 13)
+    q, wk, wv = (x.reshape(B, W, H, Dh) for x in qkv.split(H * Dh, dim=-1))
+    before = getattr(da, counter)
+    out = da.paged_verify_attention(q, k, v, t["lengths"], t["tables"], wk, wv, k_scales=ks,
+                                    v_scales=vs)
+    again = da.paged_verify_attention(q, k, v, t["lengths"], t["tables"], wk, wv, k_scales=ks,
+                                      v_scales=vs)
+    torch.cuda.synchronize()
+    assert getattr(da, counter) == before + 2
+    ref = da.paged_verify_attention(q, k, v, t["lengths"], t["tables"], wk, wv, impl="gather",
+                                    k_scales=ks, v_scales=vs)
+    assert getattr(da, counter) == before + 2
+    keep = (t["lengths"][:, None] + torch.arange(W, device=cuda_device)) < pages * ps
+    assert out.dtype == dtype and torch.equal(out, again)
+    assert (out[keep].float() - ref[keep].float()).abs().max().item() <= atol
+    with pytest.raises(ValueError, match="window"):
+        da.paged_verify_attention(q.new_zeros(B, 18, H, Dh), k, v, t["lengths"], t["tables"],
+                                  q.new_zeros(B, 18, H, Dh), q.new_zeros(B, 18, H, Dh),
+                                  k_scales=ks, v_scales=vs)
+
+
 def _quantized(D, F, group, bits, device, seed):
     from deepspeed_tpu_torch.ops.quantizer import quantize
 

@@ -136,7 +136,7 @@ def test_executor_fault_propagates_and_drain_refuses():
 SCHED_KNOBS = [("max_queue", 8, "A7"), ("ttft_deadline_s", 1.0, "A7"),
                ("dispatch_retries", 0, "A7"), ("quarantine_after", 1, "A7"),
                ("dispatch_failure_budget", 1, "A7"), ("prefix_cache", object(), "A7"),
-               ("drafter", object(), "A7"), ("role", "prefill", "A10"),
+               ("role", "prefill", "A10"),
                ("tiers", {"interactive": {}}, "A10"), ("recovery_log", object(), "A11"),
                ("watchdog", object(), "A11"), ("page_fingerprints", True, "A11")]
 
@@ -180,12 +180,19 @@ def test_serving_config_refuses_unported_knobs(name, item):
 
 
 def test_serving_engine_refuses_auto_slots_monitor_and_draft(monkeypatch):
+    """``num_slots="auto"`` and ``monitor`` raise naming their item; ``draft``
+    (the draft model of speculative decoding) is accepted and kept."""
     cfg = TG.PRESETS["tiny"]
     params = TG.init_params(cfg, 0, device="cpu")
     for kw, item in ((dict(serving=serving.ServingConfig(num_slots="auto")), "A14"),
-                     (dict(monitor=object()), "A3b"), (dict(draft=object()), "A7")):
+                     (dict(monitor=object()), "A3b")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             serving.ServingEngine(cfg, params, device="cpu", **kw)
+    draft = (cfg, params)
+    eng = serving.ServingEngine(cfg, params, serving.ServingConfig(
+        max_model_len=64, spec_drafter="draft_model"), draft=draft, device="cpu")
+    assert eng.draft is draft
+    assert isinstance(eng.make_scheduler().drafter, serving.DraftModelDrafter)
     # device=None means the CUDA device, and raises where there is none
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
