@@ -28,7 +28,13 @@ result line):
    run twice on the same inputs and must give bitwise-equal gradients, and
    B5 (dense, int8, int4 pools) over 90 cases (windows 2-17, pages 8-128,
    fp32 and bf16) must agree with its plain version on the committable
-   window positions and be bitwise equal on a re-run.
+   window positions and be bitwise equal on a re-run. B8 (the dequant-fused
+   product of the quantized wire) at the LM head's shape (x [4096, 768],
+   vocabulary 50304 padded to 197 blocks of 256; fp32 x, the main path,
+   and bf16 x), M = 1 and 37, an effective block of 96, a block of 128, the
+   [768, 2304] leaf and ragged D and F, bitwise on a re-run; its library
+   yardstick is cuBLAS fp32 (TF32 off) over the weight already dequantized,
+   with the dequantize + cuBLAS time beside it, and ptxas's report.
 3. scoring path: GPT-2-125M forward + next-token loss at B4 x T512 in fp32
    (the workload of ``__graft_entry__.entry()``) through the flash kernel.
 4. serving path: ``init_inference(...).generate`` on GPT-2-125M, B4, prompt
@@ -88,9 +94,25 @@ result line):
    int8 weights, 12 requests: tokens equal spec-off over the same tree, B6
    48 times a verify window.
 
+9. ZeRO-3 with the quantized weight wire and the quantized LM head
+   (``zero_optimization: {stage: 3, zero_quantized_weights: true,
+   zero_quantized_head: true}``) through ``initialize(...).train_batch`` on
+   GPT-2-125M at full width and depth, one rank: every layer's leaves
+   quantized and dequantized as they are gathered, the head's product
+   through B8. (a) fp32, B4 x T512, AdamW + clipping, 5 steps through B8
+   and 5 with B8's plain version in its place, from the same seed: losses
+   and grad norms agree; B8 launches 5 times, B1/B2 12 times a micro-step.
+   (b) bf16 with the fp32 master, B8 x T512, 10 steps on one batch: the
+   loss starts near ln(V) and falls, B8 launches 10 times; step time, host
+   issue time, tokens/s, peak memory and a profile of one step beside phase
+   5b's ZeRO-2 step, and the wire ledger's ops and ratios. (c)
+   ``comm.init_distributed`` over NCCL at world size 1 with a file store
+   under ``build/``: one NCCL all-reduce, and ``qall_gather`` of a
+   [768, 2304] leaf equal to quantize-then-dequantize, bitwise.
+
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after. The last lines are the card's name and power limit
-(nvidia-smi), a ``{"kernels": [...]}`` line (13 kernels) and the ``{"ok": true, ...}``
+(nvidia-smi), a ``{"kernels": [...]}`` line (14 kernels) and the ``{"ok": true, ...}``
 line.
 """
 
@@ -142,6 +164,8 @@ QMM_SRC = "deepspeed_tpu_torch/csrc/int8_matmul.cu"
 QMM_TPU = {"int8": "deepspeed_tpu/ops/pallas/int8_matmul.py:42",
            "int4": "deepspeed_tpu/ops/pallas/int8_matmul.py:145"}
 QUANT_GROUP = 128
+DQM_SRC = "deepspeed_tpu_torch/csrc/dequant_matmul.cu"
+DQM_TPU = "deepspeed_tpu/ops/pallas/dequant_matmul.py:41"  # _kernel, call :86
 # B6/B7 against their plain versions, relative to the largest output entry:
 # fp32 -- both accumulate in fp32 in another order; bf16 -- both round once
 QMM_RTOL = {"float32": 5e-5, "bfloat16": 2e-2}
@@ -411,6 +435,80 @@ def phase_kernels(torch, ctx):
     phase_kernels_paged(torch, ctx)
     phase_kernels_verify(torch, ctx)
     phase_kernels_qmatmul(torch, ctx)
+    phase_kernels_dequant(torch, ctx)
+
+
+def dqm_bound(M, D, F, Fp, nb, elt):
+    """Least time of one B8 product: x, the uint8 payload and its fp32
+    scales and zero-points read once, the output written once; 2 flops per
+    multiply-add at the fp32 peak (the kernel computes in fp32 whatever x's
+    dtype)."""
+    nbytes = M * D * elt + D * Fp + 8 * D * nb + M * F * elt
+    return bound(nbytes, 2.0 * M * D * F, "float32")
+
+
+def phase_kernels_dequant(torch, ctx):
+    """B8 against its plain version: the main-path shape (the GPT-2-125M LM
+    head at B8 x T512, x fp32 as the forward casts it, and with bf16 x),
+    M = 1 and 37, D 64 x F 96 (an effective block of 96), a block of 128,
+    the qkv leaf [768, 2304], ragged D and F; every case also bitwise on a
+    re-run. The main-path row is timed against its plain version, cuBLAS
+    fp32 (TF32 off) over the weight already dequantized, and the dequantize
+    plus cuBLAS."""
+    from deepspeed_tpu_torch.comm.quantized import dequantize_blockwise, quantize_blockwise
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    timer = ctx["timer"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    V = 50304
+    cases = [(4096, 768, V, 256, "float32"), (4096, 768, V, 256, "bfloat16"),
+             (1, 768, V, 256, "float32"), (37, 768, V, 256, "float32"),
+             (64, 64, 96, 256, "float32"), (256, 768, 3072, 128, "float32"),
+             (2048, 768, 2304, 256, "float32"), (2048, 768, 2304, 256, "bfloat16"),
+             (100, 300, 1000, 256, "float32"), (37, 768, 3000, 128, "bfloat16")]
+    worst = 0.0
+    payloads = {}
+    for M, D, F, block, dt in cases:
+        if (D, F, block) not in payloads:
+            w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
+            payloads[(D, F, block)] = quantize_blockwise(w, bits=8, block_size=block)
+        q, s, z = payloads[(D, F, block)]
+        x = torch.randn((M, D), generator=gen, device="cuda").to(getattr(torch, dt))
+        out = dqm.dequant_matmul(x, q, s, z, orig_size=F)
+        again = dqm.dequant_matmul(x, q, s, z, orig_size=F)
+        torch.cuda.synchronize()
+        ref = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F)
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = err / max(ref.float().abs().max().item(), 1e-30)
+        worst = max(worst, err)
+        kernel_ms = timer.ms(lambda: dqm.dequant_matmul(x, q, s, z, orig_size=F), iters=7)
+        bound_ms, bound_by = dqm_bound(M, D, F, q.shape[1], s.shape[1], x.element_size())
+        line = (f"phase2 dequant_matmul M{M} D{D} F{F} Fp{q.shape[1]} block{q.shape[1] // s.shape[1]} "
+                f"{dt}: max_abs_err={err:.3e} rel_err={rel:.3e} "
+                f"bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
+                f"bound_ms={bound_ms:.4f} ({bound_by})")
+        if (M, D, F, dt) == (4096, 768, V, "float32"):
+            w_hat = dequantize_blockwise(q, s, z, orig_size=F)
+            plain_ms = timer.ms(lambda: dqm.dequant_matmul_ref(x, q, s, z, orig_size=F), iters=7)
+            library_ms = timer.ms(lambda: torch.matmul(x, w_hat), iters=7)
+            deq_library_ms = timer.ms(
+                lambda: torch.matmul(x, dequantize_blockwise(q, s, z, orig_size=F)), iters=7)
+            line += (f" plain_ms={plain_ms:.4f} library_ms(cuBLAS fp32, TF32 off, dequantize "
+                     f"excluded)={library_ms:.4f} dequantize+cuBLAS_ms={deq_library_ms:.4f} "
+                     f"kernel_tflops={2.0 * M * D * F / kernel_ms / 1e9:.2f}")
+            ctx["dqm"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+            del w_hat
+        log(line)
+        check(torch.equal(out, again), f"dequant_matmul {M, D, F, block, dt}: two runs differ")
+        check(rel <= QMM_RTOL[dt], f"dequant_matmul {M, D, F, block, dt}: rel error {rel}")
+        del out, again, ref
+    ctx["dqm"]["max_abs_err"] = worst
+    for line in _build.build_logs.get("dequant_matmul", "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"phase2 dequant_matmul ptxas: {line.strip()}")
+    torch.cuda.empty_cache()
 
 
 def qmm_bound(M, D, F, group, bits, dtype, elt):
@@ -783,6 +881,7 @@ def _sdpa_backward_ms(torch, timer, q, k, v, do, causal) -> float:
 
 def _reset_counts():
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
@@ -792,6 +891,7 @@ def _reset_counts():
     da.paged_launches = da.paged_kv8_launches = da.paged_kv4_launches = 0
     da.verify_launches = da.verify_kv8_launches = da.verify_kv4_launches = 0
     im.int8_launches = im.int4_launches = 0
+    dqm.launches = 0
     return fa, da
 
 
@@ -923,6 +1023,26 @@ def _engine(cfg_dict, gpt_cfg, seed=0):
     return engine
 
 
+def _timed_steps(torch, engine, batch, n):
+    """``n`` train_batch calls on one batch: (losses, grad norms, device
+    step ms between CUDA events, host issue ms of each call)."""
+    losses, norms, events, host_ms = [], [], [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        m = engine.train_batch(batch)  # no host read inside: this is the host's issue time
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return ([x.item() for x in losses], [x.item() for x in norms],
+            [s.elapsed_time(e) for s, e in events], host_ms)
+
+
 def phase_training(torch, ctx):
     from deepspeed_tpu_torch.models import gpt
 
@@ -963,26 +1083,13 @@ def phase_training(torch, ctx):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa, _ = _reset_counts()  # the bf16 training main path
-    losses, norms, step_ms, host_ms = [], [], [], []
-    for _ in range(10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        t0 = time.perf_counter()
-        m = engine.train_batch(batch)  # no host read inside: this is the host's issue time
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        end.record()
-        losses.append(m["loss"])
-        norms.append(m["grad_norm"])
-        step_ms.append((start, end))
-    torch.cuda.synchronize()
+    losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, 10)
     launches = {"fwd": fa.launches, **_bwd_launches(fa)}
     tokens_per_s = engine.tokens_per_sec()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [x.item() for x in losses]
-    norms = [x.item() for x in norms]
-    step_ms = [s.elapsed_time(e) for s, e in step_ms]
     steady_ms = float(np.median(step_ms[1:]))
+    ctx["train5b"] = dict(step_ms=steady_ms, host_ms=float(np.median(host_ms[1:])),
+                          tokens_per_s=tokens_per_s, peak_gb=peak_gb)
     kernels = device_kernels(torch, lambda: engine.train_batch(batch))
     attn_ms = sum(ms for name, _, ms in kernels if "flash_" in name)
     busy_ms = sum(ms for _, _, ms in kernels)
@@ -1505,6 +1612,125 @@ def phase_spec_serving(torch, ctx):
     torch.cuda.empty_cache()
 
 
+ZERO3Q = {"stage": 3, "zero_quantized_weights": True, "zero_quantized_head": True}
+
+
+def phase_zero3(torch, ctx):
+    """Phase 9: ZeRO-3 with the quantized weight wire and the quantized LM
+    head (B8) on GPT-2-125M at full width and depth, one rank."""
+    import os
+
+    from deepspeed_tpu_torch.comm import comm, quantized as tq
+    from deepspeed_tpu_torch.comm.runtime_accounting import wire_ledger
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    V = cfg.vocab_size
+    rng = np.random.default_rng(9)
+
+    # (a) fp32, B4 x T512, AdamW + clipping, 5 steps through B8 and 5 with
+    # B8's plain version in its place, from the same seed and batches
+    batches = [{"input_ids": rng.integers(0, V, (4, 512)).astype(np.int32)} for _ in range(5)]
+    kernel_fn = dqm.dequant_matmul
+    runs = {}
+    for route in ("kernel", "plain"):
+        engine = _engine(_train_config(4, zero_optimization=ZERO3Q), cfg)
+        if route == "plain":
+            dqm.dequant_matmul = dqm.dequant_matmul_ref
+        try:
+            fa, _ = _reset_counts()  # the fp32 stage-3 training main path
+            metrics = [engine.train_batch(b) for b in batches]
+            torch.cuda.synchronize()
+        finally:
+            dqm.dequant_matmul = kernel_fn
+        runs[route] = ([m["loss"].item() for m in metrics], [m["grad_norm"].item() for m in metrics],
+                       {"b8": dqm.launches, "fwd": fa.launches, **_bwd_launches(fa)})
+        del engine
+    (loss_k, norm_k, launches), (loss_p, norm_p, plain_launches) = runs["kernel"], runs["plain"]
+    log(f"phase9a train fp32 zero3 quantized weights+head gpt2-125m B4xT512: losses={loss_k} "
+        f"plain_b8_losses={loss_p} grad_norms={norm_k} plain_b8_grad_norms={norm_p} "
+        f"launches over 5 micro-steps={launches} plain-B8 launches={plain_launches}")
+    check(np.allclose(loss_k, loss_p, rtol=1e-4, atol=0), f"9a losses differ: {loss_k} vs {loss_p}")
+    check(np.allclose(norm_k, norm_p, rtol=1e-3, atol=0), f"9a grad norms differ: {norm_k} vs {norm_p}")
+    check(launches["b8"] == 5 and plain_launches["b8"] == 0,
+          f"9a B8 launches {launches['b8']} / plain {plain_launches['b8']}, expected 5 / 0")
+    check(all(launches[k] == 5 * cfg.n_layer for k in ("fwd", *BWD_KERNELS)),
+          f"9a flash launches {launches}, expected {5 * cfg.n_layer} each")
+    torch.cuda.empty_cache()
+
+    # (b) bf16 + fp32 master, the same ZeRO-3 config, B8 x T512, 10 steps on
+    # one batch, beside phase 5b's ZeRO-2 step of this run
+    batch = {"input_ids": rng.integers(0, V, (8, 512)).astype(np.int32)}
+    engine = _engine(_train_config(8, bf16={"enabled": True}, zero_optimization=ZERO3Q), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wire_ledger.reset()
+    fa, _ = _reset_counts()  # the bf16 stage-3 training main path
+    losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, 10)
+    launches = {"b8": dqm.launches, "fwd": fa.launches, **_bwd_launches(fa)}
+    ledger = wire_ledger.summary_dict()
+    tokens_per_s = engine.tokens_per_sec()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady_ms = float(np.median(step_ms[1:]))
+    kernels = device_kernels(torch, lambda: engine.train_batch(batch))
+    b8_ms = sum(ms for name, _, ms in kernels if "dequant_matmul" in name)
+    z2 = ctx.get("train5b", {})
+    log(f"phase9b train bf16 master zero3 quantized weights+head gpt2-125m B8xT512: "
+        f"losses={losses} grad_norms={norms} launches over 10 steps={launches}")
+    log(f"phase9b step_ms (CUDA events, median of steps 2-10)={steady_ms:.3f} "
+        f"step_ms_all={[round(x, 3) for x in step_ms]} "
+        f"host_issue_ms (median of steps 2-10)={float(np.median(host_ms[1:])):.3f} "
+        f"tokens_per_s={tokens_per_s:.1f} peak_memory_gb={peak_gb:.3f}; phase5b zero2 in this "
+        f"run: step_ms={z2.get('step_ms', float('nan')):.3f} "
+        f"host_issue_ms={z2.get('host_ms', float('nan')):.3f} "
+        f"tokens_per_s={z2.get('tokens_per_s', float('nan')):.1f} "
+        f"peak_memory_gb={z2.get('peak_gb', float('nan')):.3f}")
+    log("phase9b profile of one step: "
+        + device_breakdown(torch, None, steady_ms, top=6, kernels=kernels)
+        + f" dequant_matmul_ms={b8_ms:.3f}")
+    log("phase9b wire ledger over 10 steps: " + "; ".join(
+        f"{name} count={row['count']} logical={row['logical_bytes']} wire={row['wire_bytes']} "
+        f"ratio={row['ratio']}" for name, row in ledger.items()))
+    check(abs(losses[0] - math.log(V)) < 0.5, f"9b step-1 loss {losses[0]} far from ln(V)")
+    check(losses[-1] < losses[0], f"9b loss did not fall: {losses}")
+    check(all(math.isfinite(x) for x in losses + norms), "9b loss or grad norm not finite")
+    check(launches["b8"] == 10, f"9b B8 launches {launches['b8']}, expected 10")
+    check(all(launches[k] == 10 * cfg.n_layer for k in ("fwd", *BWD_KERNELS)),
+          f"9b flash launches {launches}, expected {10 * cfg.n_layer} each")
+    check(any(n.startswith("qgather[zero3]") for n in ledger)
+          and any(n.startswith("qmatmul[lm_head]") for n in ledger), f"9b ledger {ledger}")
+    ctx["dqm"]["launches"] = launches["b8"]
+    del engine
+    torch.cuda.empty_cache()
+
+    # (c) the facade over NCCL at world size 1, a file store under build/:
+    # qall_gather of the qkv leaf is quantize-then-dequantize, bitwise
+    store = os.path.abspath(os.path.join("build", f"nccl_init_{os.getpid()}"))
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    comm.init_distributed(init_method=f"file://{store}", world_size=1, rank=0)
+    try:
+        backend = torch.distributed.get_backend()
+        probe = torch.full((4,), 3.0, device="cuda")
+        torch.distributed.all_reduce(probe)  # one NCCL call: the communicator works
+        leaf = torch.randn((768, 2304), generator=torch.Generator(device="cuda").manual_seed(5),
+                           device="cuda")
+        got = tq.qall_gather(leaf)
+        want = tq.dequantize_blockwise(*tq.quantize_blockwise(leaf), orig_size=2304)
+        torch.cuda.synchronize()
+        log(f"phase9c init_distributed backend={backend} world={comm.get_world_size()} "
+            f"all_reduce_probe={probe.tolist()} qall_gather bitwise={torch.equal(got, want)}")
+        check(backend == "nccl", f"9c backend {backend}, expected nccl")
+        check(probe.tolist() == [3.0] * 4, f"9c NCCL all_reduce gave {probe.tolist()}")
+        check(torch.equal(got, want), "9c qall_gather differs from quantize-then-dequantize")
+    finally:
+        torch.distributed.destroy_process_group()
+        if os.path.exists(store):
+            os.remove(store)
+
+
 def main() -> int:
     import torch
 
@@ -1518,7 +1744,7 @@ def main() -> int:
     ctx = {"timer": Timer(torch)}
     failures = []
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
-                  phase_paged_serving, phase_quantized, phase_spec_serving):
+                  phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)
@@ -1551,7 +1777,9 @@ def main() -> int:
          "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_int{bits}"]} for bits in (8, 4)] + [
         {"name": "paged_verify_attention" + ("" if kind == "dense" else f"_{kind}"),
          "route": "cuda", "source": VERIFY_SRC, "replaces": VERIFY_TPU,
-         **ctx[f"verify_{kind}"]} for kind in PAGED_KINDS]
+         **ctx[f"verify_{kind}"]} for kind in PAGED_KINDS] + [
+        {"name": "dequant_matmul", "route": "cuda", "source": DQM_SRC, "replaces": DQM_TPU,
+         **ctx["dqm"]}]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -8,7 +8,9 @@ the kernels. The package imports torch and numpy, never jax and nothing of
 ``deepspeed_tpu``.
 
 Ported so far: GPT forward and next-token loss (``models.gpt``), training
-on one device through :func:`initialize` (``DeepSpeedEngine.train_batch``),
+through :func:`initialize` (``DeepSpeedEngine.train_batch``; ZeRO stage 3
+with the quantized weight wire and LM head, data parallel over the ranks of
+``comm.init_distributed``),
 KV-cache greedy generation through :func:`init_inference` (dense, or int8 /
 int4 weights with ``quant={"enabled": True, ...}``), and continuous-batching
 paged serving (``inference.serving``).
@@ -65,7 +67,9 @@ def initialize(model: Any = None, config: Any = None, optimizer: Any = None,
     (``config_params`` is the legacy alias). ``optimizer`` overrides the
     config's and must be a port :class:`ops.optimizers.Optimizer`;
     ``lr_scheduler`` is a ``step -> lr`` callable. ``device`` defaults to
-    the CUDA device and raises when there is none."""
+    the CUDA device and raises when there is none. The data-parallel world is
+    the process group of ``comm.init_distributed`` (one rank without it)."""
+    from .comm import comm
     from .models.api import Module
     from .ops.optimizers import Optimizer
     from .runtime.config import DeepSpeedConfig
@@ -80,7 +84,8 @@ def initialize(model: Any = None, config: Any = None, optimizer: Any = None,
         raise TypeError("client optimizer must be a deepspeed_tpu_torch.ops.optimizers."
                         f"Optimizer (got {type(optimizer)})")
     cfg = config if config is not None else config_params
-    ds_config = cfg if isinstance(cfg, DeepSpeedConfig) else DeepSpeedConfig.load(cfg)
+    ds_config = (cfg if isinstance(cfg, DeepSpeedConfig)
+                 else DeepSpeedConfig.load(cfg, world_size=comm.get_world_size()))
     engine = DeepSpeedEngine(model, ds_config, seed=seed,
                              lr_scheduler_fn=lr_scheduler if callable(lr_scheduler) else None,
                              client_optimizer=optimizer, device=device)

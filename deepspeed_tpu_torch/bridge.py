@@ -10,6 +10,11 @@ optimizer states (``AdamState(count, mu, nu)``, ``AdagradState``,
 field names too, so a whole engine state crosses over
 (:func:`train_state_from_numpy` / :func:`train_state_to_numpy`). The JAX
 side's NamedTuples are read by their field names; nothing here imports JAX.
+
+Under ZeRO stage 3 a rank holds slices: ``train_state_from_numpy(...,
+policy=engine.zero_policy)`` cuts a full state into this rank's slices, and
+``train_state_to_numpy(state, specs=engine.param_specs)`` joins every rank's
+slices back into the full state (a collective: every rank calls it).
 """
 
 from __future__ import annotations
@@ -20,9 +25,11 @@ import numpy as np
 import torch
 
 from .accelerator import resolve_device
+from .comm import comm
 from .models import gpt as gpt_mod
 from .ops.optimizers import AdagradState, AdamState, SGDState
 from .runtime.precision import ScalerState
+from .utils.tree import tree_map
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -96,26 +103,51 @@ def scaler_state_to_numpy(state: ScalerState) -> ScalerState:
     return ScalerState(*(np.asarray(t.detach().cpu().numpy()) for t in state))
 
 
+def _map_opt(state: Any, fn) -> Any:
+    """``fn`` over the parameter-shaped trees of an optimizer state."""
+    return type(state)(*(v if (v is None or f == "count") else fn(v)
+                         for f, v in zip(state._fields, state)))
+
+
 def train_state_from_numpy(state: Dict[str, Any], device=None,
-                           dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+                           dtype: Optional[torch.dtype] = None,
+                           policy: Any = None) -> Dict[str, Any]:
     """A whole engine state {params, master, opt, step, micro, scaler} with
     numpy (or JAX) leaves -> the port's, on ``device``. ``dtype`` is the
     compute dtype of ``params`` (default: as given); the master copy and the
-    optimizer state are fp32."""
+    optimizer state are fp32. ``policy`` (a ``ZeroShardingPolicy``, the
+    engine's ``zero_policy``) cuts every parameter-shaped tree to this
+    rank's slices."""
     dev = resolve_device(device)
     master = state.get("master") or {}
+    opt = state["opt"]
+    if policy is not None:
+        specs = policy.tree_param_specs(state["params"])
+        cut = lambda tree: policy.shard_tree(  # noqa: E731
+            tree_map(np.asarray, tree), specs)
+        state = {**state, "params": cut(state["params"])}
+        master = cut(master) if master else {}
+        opt = _map_opt(opt, cut)
     return {
         "params": params_from_numpy(state["params"], dev, dtype),
         "master": params_from_numpy(master, dev, torch.float32) if master else {},
-        "opt": opt_state_from_numpy(state["opt"], dev),
+        "opt": opt_state_from_numpy(opt, dev),
         "step": _scalar(state["step"], dev, torch.int32),
         "micro": _scalar(state["micro"], dev, torch.int32),
         "scaler": scaler_state_from_numpy(state["scaler"], dev),
     }
 
 
-def train_state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
-    """The inverse of :func:`train_state_from_numpy` (bf16 leaves widen to fp32)."""
+def train_state_to_numpy(state: Dict[str, Any], specs: Any = None) -> Dict[str, Any]:
+    """The inverse of :func:`train_state_from_numpy` (bf16 leaves widen to
+    fp32). ``specs`` (the engine's ``param_specs``) joins every rank's
+    slices into the full leaves first."""
+    if specs is not None:
+        join = lambda tree: tree_map(  # noqa: E731
+            lambda t, d: t if d is None else comm.all_gather(t.detach(), axis=d), tree, specs)
+        state = {**state, "params": join(state["params"]),
+                 "master": join(state["master"]) if state["master"] else {},
+                 "opt": _map_opt(state["opt"], join)}
     return {
         "params": params_to_numpy(state["params"]),
         "master": params_to_numpy(state["master"]) if state["master"] else {},

@@ -22,6 +22,13 @@ The functional API of the reference is kept, ``f(cfg, params, ...)`` with
   int8 / int4 weight kernels. The cached paths (:func:`forward_with_cache`,
   :func:`paged_decode_step`) take either; the scoring :func:`forward` takes
   dense weights, as the reference's does;
+- under a bound ZeRO stage-3 config (``runtime/zero/gather.py``
+  ``gather_window``) the layer loop gathers each layer's parameters just
+  before it runs (:func:`~..runtime.zero.gather.zero3_layers`), over the
+  int8/int4 wire with ``zero_quantized_weights``; with
+  ``zero_quantized_head`` as well, the LM head runs through
+  ``comm.quantized.quantized_matmul_reshard`` and kernel B8, exactly where
+  the reference's ``_head_quantization`` gate opens;
 - the training-mode forward has dropout and stochastic depth drawn from
   explicit per-(step, layer, salt) seeds, and activation checkpointing
   (``remat``) through ``torch.utils.checkpoint``, which recomputes each
@@ -46,12 +53,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..accelerator import resolve_device, to_device
+from ..comm.quantized import QuantizedCommConfig, quantized_matmul_reshard
 from ..ops.attention import multihead_attention
 from ..ops.cuda.decode_attention import (decode_attention, paged_decode_attention,
                                          paged_verify_attention, unpack_kv_int4)
 from ..ops.cuda.flash_attention import NEG_INF
 from ..ops.cuda.int8_matmul import int4_matmul, int8_matmul, pack_int4, unpack_int4
 from ..ops.quantizer import dequantize, quantize
+from ..runtime.zero.gather import _active_cfg, _quantization, zero3_layers
 from ..utils.errors import unported
 from ..utils.rng import fold_in
 from .api import Module
@@ -364,9 +373,24 @@ def _embed(cfg: GPTConfig, params: Params, input_ids: torch.Tensor,
     return x.to(params["lnf_scale"].dtype if _is_qleaf(qkv_w) else qkv_w.dtype)
 
 
+def _head_quantization() -> Optional[QuantizedCommConfig]:
+    """The quantized-LM-head config, or None: open under a bound stage-3
+    config with quantized weights and ``zero_quantized_head``, as the
+    reference's gate is."""
+    qc = _quantization()
+    return qc if qc is not None and getattr(_active_cfg(), "zero_quantized_head", False) else None
+
+
 def _head(cfg: GPTConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     head = params["wte"] if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ head.to(x.dtype).t()
+    qh = _head_quantization()
+    if qh is not None:
+        # the int payload feeds the logits product (kernel B8); the head is
+        # whole here, gathered at full precision with the embedding
+        logits = quantized_matmul_reshard(x, head.to(x.dtype).t(), qh.bits, qh.block_size,
+                                          "qmatmul[lm_head]")
+    else:
+        logits = x @ head.to(x.dtype).t()
     if cfg.lm_head_bias and not cfg.tie_embeddings:
         logits = logits + params["lm_head_b"].to(logits.dtype)
     return logits
@@ -413,7 +437,7 @@ def forward(cfg: GPTConfig, params: Params, input_ids, rngs=None, train: bool = 
             return checkpoint(block_fn, x, w, seed, use_reentrant=False)
     else:
         run = block_fn
-    for i in range(blocks["qkv_w"].shape[0]):
+    for i, w in zero3_layers(blocks):
         seed = fold_in(drop_seed, i) if drop_seed is not None else None
         if sd > 0.0 and seed is not None:
             # stochastic depth: drop the whole block with probability sd (a
@@ -421,9 +445,9 @@ def forward(cfg: GPTConfig, params: Params, input_ids, rngs=None, train: bool = 
             # so that eval needs no correction
             u = torch.rand((), generator=torch.Generator().manual_seed(fold_in(seed, 0x5D)))
             if bool(u < 1.0 - sd):
-                x = x + (run(x, _layer(blocks, i), seed) - x) / (1.0 - sd)
+                x = x + (run(x, w, seed) - x) / (1.0 - sd)
         else:
-            x = run(x, _layer(blocks, i), seed)
+            x = run(x, w, seed)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layer_norm_eps)
     if return_hidden:
         return x

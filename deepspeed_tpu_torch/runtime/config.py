@@ -10,9 +10,12 @@ the reference's rules and error messages.
 Ported blocks: ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``prescale_gradients`` / ``gradient_predivide_factor``,
 ``communication_data_type``, ``seed``, ``steps_per_print``, ``dump_state``,
-and ``zero_optimization`` stages 0-2 (see :mod:`.zero.config`). Every other
-block the reference knows raises ``NotImplementedError`` naming its ROADMAP.md
-item when it is set to something other than its default.
+``zero_optimization`` (see :mod:`.zero.config`), ``comms_logger``, and
+``mesh`` with a data-parallel axis only: ``{"dp": W}`` must name the world
+size the config is loaded for (``initialize`` passes the initialized
+process group's). Every other block the reference knows raises
+``NotImplementedError`` naming its ROADMAP.md item when it is set to
+something other than its default.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 from ..utils.errors import unported
 from ..utils.logging import logger
@@ -93,22 +96,29 @@ def _enabled(block: Any) -> bool:
 
 
 def _mesh_asks(mesh: Optional[Dict[str, Any]]) -> bool:
-    """A mesh of more than one device: data parallel (A9) or a model-parallel
-    axis (A13)."""
-    mesh = mesh or {}
-    return (int(mesh.get("dp", -1)) not in (-1, 1)
-            or any(int(mesh.get(ax, 1)) > 1 for ax in ("tp", "pp", "ep", "sp")))
+    """A model-parallel mesh axis (A13); the dp axis is checked in ``_validate``."""
+    return any(int((mesh or {}).get(ax, 1)) > 1 for ax in ("tp", "pp", "ep", "sp"))
+
+
+@dataclasses.dataclass
+class CommsLoggerConfig:
+    """The ``"comms_logger"`` block (``comm.configure``'s fields)."""
+
+    enabled: bool = False
+    verbose: bool = False
+    prof_all: bool = True
+    debug: bool = False
+    prof_ops: List[str] = dataclasses.field(default_factory=list)
 
 
 # Known blocks and flags this slice does not port: key -> (is it asking for
 # the feature?, ROADMAP.md item). Default values pass.
 _UNPORTED_BLOCKS = {
-    "mesh": (_mesh_asks, "A9 / A13"),
+    "mesh": (_mesh_asks, "A13"),
     "pipeline": (lambda v: any(v.get(k, d) != d for k, d in
                                (("stages", 1), ("activation_checkpoint_interval", 0),
                                 ("micro_batches", 0))), "A13"),
     "activation_checkpointing": (_enabled, "A3b"),
-    "comms_logger": (_enabled, "A9"),
     "flops_profiler": (_enabled, "A3b"),
     "monitor_config": (_enabled, "A3b"),
     "tensorboard": (_enabled, "A3b"),
@@ -159,6 +169,8 @@ class DeepSpeedConfig:
     scheduler: Optional[SchedulerConfig] = None
     zero_optimization: DeepSpeedZeroConfig = dataclasses.field(
         default_factory=DeepSpeedZeroConfig)
+    comms_logger: CommsLoggerConfig = dataclasses.field(default_factory=CommsLoggerConfig)
+    mesh: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     # ------------------------------------------------------------------ loading
     @classmethod
@@ -171,7 +183,8 @@ class DeepSpeedConfig:
                 config = json.load(f)
         if not isinstance(config, dict):
             raise TypeError(f"config must be a dict or path, got {type(config)}")
-        blocks = {"fp16", "bf16", "optimizer", "scheduler", "zero_optimization"}
+        blocks = {"fp16", "bf16", "optimizer", "scheduler", "zero_optimization",
+                  "comms_logger", "mesh"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         for key in config:
             if key not in scalars and key not in blocks and key not in _UNPORTED_BLOCKS:
@@ -187,6 +200,8 @@ class DeepSpeedConfig:
         if config.get("scheduler") is not None:
             self.scheduler = _from_dict(SchedulerConfig, config["scheduler"])
         self.zero_optimization = DeepSpeedZeroConfig.from_dict(config.get("zero_optimization"))
+        self.comms_logger = _from_dict(CommsLoggerConfig, config.get("comms_logger"))
+        self.mesh = dict(config.get("mesh") or {})
         self._resolve_batch(world_size)
         self._validate(world_size)
         return self
@@ -226,6 +241,10 @@ class DeepSpeedConfig:
             raise ValueError(
                 f"batch triangle violated: train_batch_size={train} != "
                 f"micro({micro}) * gas({gas}) * world({world_size})")
+        dp = int(self.mesh.get("dp", -1))
+        if dp not in (-1, world_size):
+            raise ValueError(f"mesh.dp={dp} does not match the world size {world_size}: the "
+                             "port's data-parallel axis is the whole process group")
         if self.fp16.enabled and self.bf16.enabled:
             raise ValueError("fp16 and bf16 cannot both be enabled")
         if self.zero_enabled and not (self.fp16.enabled or self.bf16.enabled):

@@ -20,10 +20,23 @@ recast of the master to the compute dtype.
 Nothing reads a device value back per leaf: metrics come back as 0-dim
 tensors (``loss``, ``grad_norm``, ``lr``, ``loss_scale``, ``overflow``).
 With fp16 loss scaling the engine reads the overflow flag once per step,
-to skip the update. ZeRO stages 0-2 at world size 1 run the unsharded
-update (partitioning over one rank is the identity); everything else the
-reference engine does raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+to skip the update. ZeRO stages 0-2 run at world size 1, where partitioning
+over one rank is the identity.
+
+ZeRO stage 3 runs at any world size of the process group
+(``comm.init_distributed``; none is needed at world size 1). Each rank keeps
+its slices of the parameters, of the fp32 master copy and of the optimizer
+state (``zero/policy.py``), and takes its rows of the global batch. The
+forward gathers the top-level leaves whole and, under the bound
+:func:`~.zero.gather.gather_window`, the model gathers each layer just
+before it runs (over the int wire with ``zero_quantized_weights``); the
+gathers' backward mean-reduces each gradient to its owners' slices, so the
+update is rank-local. The global norm for clipping, the overflow flag and
+the reported loss are reduced over the ranks. A ``loss_mask`` across ranks
+(a mean of per-rank means is not the global masked mean), LAMB's per-leaf
+trust ratios over slices, and stages 1-2 across ranks raise ROADMAP.md A9b;
+everything else the reference engine does and the port does not raises
+``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,6 +46,8 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from ..accelerator import resolve_device, to_device
+from ..comm import comm
+from ..comm.runtime_accounting import wire_ledger
 from ..models.api import Module
 from ..ops.optimizers import Optimizer, get_optimizer
 from ..utils.errors import unported
@@ -52,6 +67,8 @@ from .precision import (
     validate_comm_dtype,
 )
 from .utils import clip_by_global_norm, count_parameters, global_norm
+from .zero.gather import gather_leaf, gather_window
+from .zero.policy import STACKED, ZeroShardingPolicy
 
 
 class DeepSpeedEngine:
@@ -69,9 +86,23 @@ class DeepSpeedEngine:
         self.micro_batch_size = int(config.train_micro_batch_size_per_gpu or 1)
         self.train_batch_size = int(config.train_batch_size or 1)
         stage = config.zero_optimization.stage
-        if stage > 0:
+        self.world_size, self.rank = comm.get_world_size(), comm.get_rank()
+        if self.world_size > 1 and stage < 3:
+            raise unported(f"data parallelism across {self.world_size} ranks at ZeRO stage "
+                           f"{stage}", "A9b")
+        if self.train_batch_size != self.micro_batch_size * self.gas * self.world_size:
+            raise ValueError(f"train_batch_size {self.train_batch_size} != micro "
+                             f"{self.micro_batch_size} x gas {self.gas} x world "
+                             f"{self.world_size}: load the config for this world size")
+        if stage in (1, 2):
             log_dist(f"ZeRO stage {stage} at world size 1: partitioning over one rank is "
                      "the identity, so the update runs unsharded")
+        self.zero_policy = ZeroShardingPolicy(config.zero_optimization, self.world_size,
+                                              self.rank)
+        cl = config.comms_logger
+        if cl.enabled:
+            comm.configure(enabled=True, verbose=cl.verbose or cl.debug, prof_all=cl.prof_all,
+                           prof_ops=cl.prof_ops)
 
         # ---------------- optimizer + lr schedule
         opt_cfg = config.optimizer
@@ -96,6 +127,8 @@ class DeepSpeedEngine:
         else:
             base = self.base_lr
             self.lr_fn = lambda step: base
+        if self.world_size > 1 and self.optimizer.name == "FusedLamb":
+            raise unported("LAMB's per-leaf trust ratio over ZeRO-3 slices", "A9b")
 
         # ---------------- counters, timer, state
         self.seed = int(seed if seed is not None else config.seed)
@@ -119,6 +152,12 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ state
     def _init_state(self) -> Dict[str, Any]:
         params_f32 = self.model.init(self.seed, device=self.device)
+        # every rank builds the whole tree from the seed and keeps its slices
+        self.param_specs = self.zero_policy.tree_param_specs(params_f32)
+        self._leaf_dims = [t[0] for t in tree_leaves(
+            tree_map(lambda p, d: (d,), params_f32, self.param_specs))]
+        params_f32 = tree_map(lambda p, d: self.zero_policy.shard(p, d).clone(),
+                              params_f32, self.param_specs)
         params = cast_to_compute(params_f32, self.pc)
         master = make_master(params_f32, self.pc)
         opt = self.optimizer.init(master if master is not None else params)
@@ -141,8 +180,9 @@ class DeepSpeedEngine:
 
     def load_state(self, state: Dict[str, Any]) -> None:
         """Replace the train state (for example one carried over from the
-        JAX engine by ``bridge.train_state_from_numpy``). It must have the
-        keys of the engine's own state; the step counters follow it."""
+        JAX engine by ``bridge.train_state_from_numpy``, cut to this rank's
+        slices by ``policy=engine.zero_policy``). It must have the keys of the
+        engine's own state; the step counters follow it."""
         missing = {"params", "master", "opt", "step", "micro", "scaler"} - set(state)
         if missing:
             raise ValueError(f"load_state: missing keys {sorted(missing)}")
@@ -164,9 +204,14 @@ class DeepSpeedEngine:
         return self.model
 
     # ------------------------------------------------------------------ steps
-    def _place_batch(self, batch) -> Dict[str, torch.Tensor]:
+    def _place_batch(self, batch, rows_axis: int = 0) -> Dict[str, torch.Tensor]:
+        """The batch on the device, this rank's rows of it along ``rows_axis``."""
         cast = self.pc.compute_dtype if (self.config.fp16.enabled
                                          and self.config.fp16.auto_cast) else None
+        if self.world_size > 1:
+            if "loss_mask" in batch:
+                raise unported("a loss_mask across data-parallel ranks", "A9b")
+            batch = {k: self.zero_policy.shard(v, rows_axis) for k, v in batch.items()}
 
         def place(x):
             # pinned and non-blocking: a copy from pageable memory would wait
@@ -193,10 +238,21 @@ class DeepSpeedEngine:
             return eff, 1.0 / eff
         return 1.0 / predivide, predivide
 
+    def _model_params(self):
+        """The parameters the model runs on: at stage 3 the top-level leaves
+        gathered whole; the layer-stacked blocks stay sliced, since the model
+        gathers each layer as it runs."""
+        params = self.state["params"]
+        if self.zero_policy.stage < 3:
+            return params
+        return {k: v if k == STACKED else tree_map(gather_leaf, v, self.param_specs[k])
+                for k, v in params.items()}
+
     def _forward(self, batch):
         """The model's training loss on one placed micro-batch, with its graph."""
-        out = self.model.apply(self.state["params"], batch,
-                               rngs={"dropout": self._micro_seed()}, train=True)
+        with gather_window(self.config.zero_optimization, self.param_specs.get(STACKED)):
+            out = self.model.apply(self._model_params(), batch,
+                                   rngs={"dropout": self._micro_seed()}, train=True)
         loss, _ = out if isinstance(out, tuple) else (out, {})
         eff, _ = self._scales()
         return loss.float() * eff, loss
@@ -228,11 +284,13 @@ class DeepSpeedEngine:
         self._grad_acc = None
         if self.pc.loss_scaling:
             finite = grads_finite(grads)
+            if self.world_size > 1:  # a slice may overflow on one rank only
+                finite = comm.all_reduce(finite.float(), op="min") > 0
             do_update = bool(finite)  # the one host read per step, fp16 only
         else:
             finite = torch.ones((), dtype=torch.bool, device=self.device)
             do_update = True
-        gnorm = global_norm(grads)
+        gnorm = self._global_norm(grads)
         if self.config.gradient_clipping and self.config.gradient_clipping > 0:
             grads, gnorm = clip_by_global_norm(grads, self.config.gradient_clipping, norm=gnorm)
         # torch.full, not torch.tensor: a fill launch, not a synchronising copy
@@ -254,6 +312,21 @@ class DeepSpeedEngine:
         self._micro = 0
         return {"grad_norm": gnorm, "lr": lr, "loss_scale": loss_scale, "overflow": ~finite,
                 "_skipped": not do_update}
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global gradient norm: the squares of the sliced leaves summed
+        over the ranks, plus those of the leaves every rank holds whole."""
+        if self.world_size == 1:
+            return global_norm(grads)
+
+        def sq(ts):
+            if not ts:
+                return torch.zeros((), dtype=torch.float32, device=self.device)
+            return torch.stack(torch._foreach_norm([t.float() for t in ts])).square().sum()
+
+        sliced = [g for g, d in zip(grads, self._leaf_dims) if d is not None]
+        whole = [g for g, d in zip(grads, self._leaf_dims) if d is None]
+        return torch.sqrt(comm.all_reduce(sq(sliced)) + sq(whole))
 
     def _finish_step(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
         skipped = metrics.pop("_skipped")
@@ -280,7 +353,7 @@ class DeepSpeedEngine:
                                f"({self._micro} of {self.gas} micro-steps); finish it with "
                                "step() first")
         self.tput_timer.start()
-        batch = self._place_batch(batch)
+        batch = self._place_batch(batch, rows_axis=1 if self.gas > 1 else 0)
         ids = batch["input_ids"]
         if self.gas > 1 and (ids.dim() != 3 or ids.shape[0] != self.gas):
             raise ValueError(f"train_batch: with gas={self.gas} the batch leaves are "
@@ -292,8 +365,9 @@ class DeepSpeedEngine:
             self._accumulate(scaled)
             losses.append(loss.detach())
         metrics = self._boundary_step()
-        metrics["loss"] = losses[0] if self.gas == 1 else torch.stack(losses).mean()
-        self.tput_timer.stop(tokens=ids.numel())
+        loss = losses[0] if self.gas == 1 else torch.stack(losses).mean()
+        metrics["loss"] = comm.all_reduce(loss, op="mean")
+        self.tput_timer.stop(tokens=ids.numel() * self.world_size)
         return self._finish_step(metrics)
 
     def train_batches(self, batch) -> Dict[str, Any]:
@@ -311,11 +385,11 @@ class DeepSpeedEngine:
         return out
 
     def forward(self, batch) -> torch.Tensor:
-        """The training loss of one micro-batch, with its graph kept for
-        :meth:`backward`."""
+        """The training loss of one micro-batch (across ranks: its mean over
+        them), with its graph kept for :meth:`backward`."""
         scaled, loss = self._forward(self._place_batch(batch))
         self._pending = scaled
-        return loss
+        return comm.all_reduce(loss, op="mean")
 
     def backward(self, loss: Optional[torch.Tensor] = None) -> None:
         """Accumulate the gradients of the last :meth:`forward`'s loss."""
@@ -337,6 +411,15 @@ class DeepSpeedEngine:
         self._finish_step(self._boundary_step())
 
     # ------------------------------------------------------------------ info surface
+    def comms_summary(self) -> str:
+        """The facade's per-op collective counts and bytes (one record per
+        executed call, so no scaling by steps), followed by the quantized
+        wire's logical-vs-wire ledger when a quantized op ran."""
+        out = comm.comms_logger.log_summary()
+        if wire_ledger.records:
+            out += "\n" + wire_ledger.summary()
+        return out
+
     def tokens_per_sec(self) -> float:
         """Training throughput over the steps after the first (synchronises)."""
         return self.tput_timer.tokens_per_sec()
@@ -362,10 +445,11 @@ class DeepSpeedEngine:
     def set_train_batch_size(self, train_batch_size: int) -> None:
         """Change the global batch size through the accumulation steps; the
         micro-batch size stays."""
-        if train_batch_size % self.micro_batch_size:
+        per_step = self.micro_batch_size * self.world_size
+        if train_batch_size % per_step:
             raise ValueError(f"train_batch_size {train_batch_size} not divisible by "
-                             f"micro_batch x dp = {self.micro_batch_size}")
-        self.gas = train_batch_size // self.micro_batch_size
+                             f"micro_batch x dp = {per_step}")
+        self.gas = train_batch_size // per_step
         self.train_batch_size = train_batch_size
         self.config.gradient_accumulation_steps = self.gas
         self.config.train_batch_size = train_batch_size
@@ -380,14 +464,11 @@ class DeepSpeedEngine:
     def save_16bit_model(self, *args, **kwargs):
         raise unported("DeepSpeedEngine.save_16bit_model", "A4")
 
-    def comms_summary(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.comms_summary", "A9")
-
     def comms_verify(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.comms_verify", "A9")
+        raise unported("DeepSpeedEngine.comms_verify", "A9b")
 
     def measure_overlap(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.measure_overlap", "A9")
+        raise unported("DeepSpeedEngine.measure_overlap", "A9b")
 
     def analyze(self, *args, **kwargs):
         raise unported("DeepSpeedEngine.analyze (static analysis)", "A14")

@@ -248,3 +248,32 @@ def test_quantized_matmul_takes_the_dequantize_route_past_256_rows(cuda_device):
     out = im.int8_matmul(x, q, s, 128)
     assert im.int8_launches == before
     torch.testing.assert_close(out, im.int8_matmul_ref(x, q, s, 128), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2),
+                                        (torch.float16, 2e-2)])
+@pytest.mark.parametrize("M,D,F,block", [(256, 768, 50304, 256), (1, 768, 2304, 256),
+                                         (37, 768, 3072, 256), (64, 64, 96, 256),
+                                         (130, 256, 520, 128), (8, 768, 2304, 256),
+                                         (5, 100, 301, 64)])
+def test_dequant_matmul_kernel_matches_plain(cuda_device, dtype, rtol, M, D, F, block):
+    """B8 against its plain version: the LM head's vocabulary padded to whole
+    blocks and trimmed, M = 1 and 37, an effective block of 96, a block of
+    128, the qkv leaf, ragged D and F; bitwise equal over two runs.
+    Tolerance relative to the largest output entry: fp32, both accumulate in
+    fp32 in another order; bf16/fp16, both round the output once."""
+    from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 16) * 0.02,
+                                 bits=8, block_size=block)
+    x = _normal((M, D), cuda_device, dtype, 17)
+    before = dqm.launches
+    out, again = (dqm.dequant_matmul(x, q, s, z, orig_size=F) for _ in range(2))
+    torch.cuda.synchronize()
+    assert dqm.launches == before + 2
+    ref = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F)
+    assert out.dtype == dtype and out.shape == (M, F) and torch.equal(out, again)
+    scale = ref.float().abs().max().item()
+    assert (out.float() - ref.float()).abs().max().item() <= rtol * scale

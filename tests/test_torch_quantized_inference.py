@@ -247,9 +247,13 @@ BASE = dict(num_slots=3, page_size=8, max_model_len=64, prefill_chunk=16, dtype=
 
 
 def _workload(pkg):
+    """Every request present at the start, so the step counts depend on
+    steps only, not on the wall clock (see test_torch_serving.py)."""
     wl = pkg.make_open_loop_workload(6, rate_rps=1e4, prompt_len=(3, 30), max_new=(2, 8),
                                      vocab_size=64, seed=3)
     wl.append(pkg.Request(prompt=np.arange(20, dtype=np.int32) + 1, max_new_tokens=4))
+    for r in wl:
+        r.arrival_time = 0.0
     return wl
 
 

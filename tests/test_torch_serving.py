@@ -222,10 +222,15 @@ def weights():
 
 
 def _workload(pkg):
+    """Every request present at the start: the admissions, and with them the
+    step and preemption counts, then depend on steps only, not on how fast
+    each engine's first steps run on a loaded host."""
     wl = pkg.make_open_loop_workload(6, rate_rps=1e4, prompt_len=(3, 30), max_new=(2, 8),
                                      vocab_size=64, seed=3)
     # one prompt longer than a chunk, for the chunked prefill path
     wl.append(pkg.Request(prompt=np.arange(20, dtype=np.int32) + 1, max_new_tokens=4))
+    for r in wl:
+        r.arrival_time = 0.0
     return wl
 
 
@@ -251,6 +256,24 @@ def test_served_tokens_match_the_jax_engine(weights, over):
     if over.get("kv_bits"):
         assert eng.paged_cache["k_pages"].dtype == torch.int8
         assert eng.kv_bytes_per_token() < 4 * CFG.n_layer * CFG.n_head * CFG.head_dim
+
+
+def test_serving_config_eos_token_id_is_inert(weights):
+    """``ServingConfig.eos_token_id`` is accepted and read by nothing, in the
+    port as in the reference: both engines built with it set serve the
+    tokens of the port's engine without it."""
+    jparams, np_params = weights
+    ref_wl, wl, plain_wl = _workload(jserving), _workload(serving), _workload(serving)
+    serving.run_continuous(serving.ServingEngine(
+        TCFG, params_from_numpy(np_params, "cpu"), serving.ServingConfig(**BASE),
+        device="cpu"), plain_wl)
+    eos = plain_wl[0].tokens[0]  # a token every run emits first for request 0
+    jserving.run_continuous(jserving.ServingEngine(
+        CFG, jparams, jserving.ServingConfig(**BASE, eos_token_id=eos)), ref_wl)
+    serving.run_continuous(serving.ServingEngine(
+        TCFG, params_from_numpy(np_params, "cpu"),
+        serving.ServingConfig(**BASE, eos_token_id=eos), device="cpu"), wl)
+    assert [r.tokens for r in wl] == [r.tokens for r in ref_wl] == [r.tokens for r in plain_wl]
 
 
 def test_served_tokens_match_generate_and_gather(weights):
