@@ -34,7 +34,16 @@ result line):
    and bf16 x), M = 1 and 37, an effective block of 96, a block of 128, the
    [768, 2304] leaf and ragged D and F, bitwise on a re-run; its library
    yardstick is cuBLAS fp32 (TF32 off) over the weight already dequantized,
-   with the dequantize + cuBLAS time beside it, and ptxas's report.
+   with the dequantize + cuBLAS time beside it, and ptxas's report. B9
+   (blocksparse attention: forward, dq with delta, dk/dv) over nine layouts
+   (the sparse GPT-2-125M's Fixed unidirectional layout of 128-blocks at
+   phase 10a's B2 x T1024 fp32 and 10b's B2 x T4096 bf16, the main-path
+   row; bench.py's bidirectional Fixed row at B4 x T1024 H16 under causal;
+   BigBird with a layout per head at block 64; Variable, BSLongformer and
+   LocalSlidingWindow at blocks 16 and 32; D128 non-causal), the backward
+   bitwise on a re-run; its yardstick is one SDPA call with the layout
+   expanded to a boolean [H, T, T] mask (mask construction excluded) and
+   that call's backward, with B1 / B2's dense causal times beside it.
 3. scoring path: GPT-2-125M forward + next-token loss at B4 x T512 in fp32
    (the workload of ``__graft_entry__.entry()``) through the flash kernel.
 4. serving path: ``init_inference(...).generate`` on GPT-2-125M, B4, prompt
@@ -110,9 +119,23 @@ result line):
    under ``build/``: one NCCL all-reduce, and ``qall_gather`` of a
    [768, 2304] leaf equal to quantize-then-dequantize, bitwise.
 
+10. blocksparse attention: GPT-2-125M at full width and depth with
+   ``sparse_attention=FixedSparsityConfig(num_heads=12, block=128,
+   num_local_blocks=4, num_global_blocks=1, attention="unidirectional")``,
+   every layer's attention through B9. (a) fp32, B2 x T1024 (GPT-2's own
+   length): the scoring loss through B9 equals its plain versions' (12
+   forward launches, no B1); 5 ``train_batch`` steps (AdamW + clipping)
+   through B9 and 5 with its plain versions in their places, from the same
+   seed and batches: losses and grad norms agree, and B9's forward, dq and
+   dk/dv launch 60 times each, B1/B2 never. (b) bf16 with the fp32 master
+   and ZeRO stage 2, B2 x T4096 (``max_seq_len=4096``), 10 steps on one
+   batch: the loss starts near ln(V) and falls; step time, host issue time,
+   tokens/s, peak memory and a profile of one step, beside the same model
+   with dense attention (B1/B2) at the same shape (no gain claimed).
+
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after. The last lines are the card's name and power limit
-(nvidia-smi), a ``{"kernels": [...]}`` line (14 kernels) and the ``{"ok": true, ...}``
+(nvidia-smi), a ``{"kernels": [...]}`` line (17 kernels) and the ``{"ok": true, ...}``
 line.
 """
 
@@ -166,6 +189,17 @@ QMM_TPU = {"int8": "deepspeed_tpu/ops/pallas/int8_matmul.py:42",
 QUANT_GROUP = 128
 DQM_SRC = "deepspeed_tpu_torch/csrc/dequant_matmul.cu"
 DQM_TPU = "deepspeed_tpu/ops/pallas/dequant_matmul.py:41"  # _kernel, call :86
+BS_FWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd.cu"
+BS_BWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_bwd.cu"
+# B9: _fwd_kernel, _bwd_dq_kernel and _bwd_dkv_kernel (calls :186, :215, :239)
+BS_TPU = {"fwd": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:68",
+          "dq": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:102",
+          "dkv": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:133"}
+BS_KERNELS = ("fwd", "dq", "dkv")
+# the sparse GPT-2-125M's layout (phases 2 and 10): Sparse Transformers'
+# fixed pattern, 4 local blocks of 128 and the last one of each window global
+SPARSE_GPT_LAYOUT = dict(num_heads=12, block=128, num_local_blocks=4, num_global_blocks=1,
+                         attention="unidirectional")
 # B6/B7 against their plain versions, relative to the largest output entry:
 # fp32 -- both accumulate in fp32 in another order; bf16 -- both round once
 QMM_RTOL = {"float32": 5e-5, "bfloat16": 2e-2}
@@ -436,6 +470,7 @@ def phase_kernels(torch, ctx):
     phase_kernels_verify(torch, ctx)
     phase_kernels_qmatmul(torch, ctx)
     phase_kernels_dequant(torch, ctx)
+    phase_kernels_blocksparse(torch, ctx, randn)
 
 
 def dqm_bound(M, D, F, Fp, nb, elt):
@@ -879,10 +914,187 @@ def _sdpa_backward_ms(torch, timer, q, k, v, do, causal) -> float:
     return timer.ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True))
 
 
+def bs_visible_pairs(layout, block, causal):
+    """Visible (query, key) pairs of one batch row under ``layout`` [H, n, n]
+    (and the causal mask): a block below the diagonal gives block^2 pairs,
+    the diagonal block block * (block + 1) / 2 under causal, a block above
+    it none under causal."""
+    layout = np.asarray(layout).astype(bool)
+    n = layout.shape[1]
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    if not causal:
+        return int(layout.sum()) * block * block
+    per = np.where(j < i, block * block, np.where(j == i, block * (block + 1) // 2, 0))
+    return int((layout * per[None]).sum())
+
+
+def bs_bounds(B, T, H, D, pairs, dtype, elt):
+    """Least time of each B9 kernel at ``pairs`` visible pairs over the
+    batch: (fwd, dq, dkv, bwd_total) -> (ms, by). fwd does 2 products (4 * D
+    flops a pair) and reads q, k, v, writes o and lse; dq does 3 (q k^T,
+    dO v^T, dS k) plus delta, reads q, k, v, o, dO, lse and writes dq and
+    delta; dkv does 4 (q k^T, dO v^T, P^T dO, dS^T q), reads q, k, v, dO,
+    lse, delta and writes dk, dv. The whole backward needs 5 products
+    (``bwd_total``): the two passes recompute 2."""
+    t = B * T * H * D * elt  # one of q, k, v, o, dO, dq, dk, dv
+    rows = B * H * T * 4  # lse or delta, fp32
+    return {
+        "fwd": bound(4 * t + rows, 4.0 * D * pairs, dtype),
+        "dq": bound(6 * t + 2 * rows, 6.0 * D * pairs + 2.0 * B * T * H * D, dtype),
+        "dkv": bound(6 * t + 2 * rows, 8.0 * D * pairs, dtype),
+        "bwd_total": bound(8 * t + rows, 10.0 * D * pairs + 2.0 * B * T * H * D, dtype),
+    }
+
+
+def _bs_cases():
+    """The B9 rows of phase 2: (label, layout, block, B, H, D, causal, dtype)."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
+                                                          BSLongformerSparsityConfig,
+                                                          FixedSparsityConfig,
+                                                          LocalSlidingWindowSparsityConfig,
+                                                          VariableSparsityConfig)
+
+    fixed = FixedSparsityConfig(**SPARSE_GPT_LAYOUT)
+    fixed_d128 = FixedSparsityConfig(num_heads=8, block=128)
+    return [
+        # (i) phase 10a's shape; (ii) phase 10b's, the main-path row
+        ("fixed-uni-128 (10a)", fixed.make_layout(1024), 128, 2, 12, 64, True, "float32"),
+        ("fixed-uni-128 (10b, main path)", fixed.make_layout(4096), 128, 2, 12, 64, True,
+         "bfloat16"),
+        # (iii) bench.py's row: the bidirectional default under causal=True
+        ("fixed-bi-128 bench", FixedSparsityConfig(num_heads=16, block=128).make_layout(1024),
+         128, 4, 16, 64, True, "bfloat16"),
+        # (iv) a layout per head
+        ("bigbird-per-head-64", BigBirdSparsityConfig(
+            num_heads=12, block=64, different_layout_per_head=True,
+            attention="unidirectional").make_layout(1024), 64, 2, 12, 64, True, "float32"),
+        # (v) small blocks
+        ("variable-16", VariableSparsityConfig(
+            num_heads=12, block=16, num_random_blocks=2, local_window_blocks=[4],
+            global_block_indices=[0], attention="unidirectional").make_layout(512), 16, 2, 12,
+         64, True, "float32"),
+        ("longformer-32", BSLongformerSparsityConfig(
+            num_heads=12, block=32, num_sliding_window_blocks=5).make_layout(512), 32, 2, 12,
+         64, False, "float32"),
+        ("sliding-16", LocalSlidingWindowSparsityConfig(
+            num_heads=12, block=16, num_sliding_window_blocks=8).make_layout(512), 16, 2, 12, 64,
+         True, "bfloat16"),
+        ("sliding-32", LocalSlidingWindowSparsityConfig(
+            num_heads=12, block=32, num_sliding_window_blocks=4).make_layout(512), 32, 2, 12, 64,
+         True, "float32"),
+        # (vi) head dim 128, not causal
+        ("fixed-bi-128 D128 noncausal", fixed_d128.make_layout(1024), 128, 2, 8, 128, False,
+         "float32"),
+    ]
+
+
+def phase_kernels_blocksparse(torch, ctx, randn):
+    """B9: the forward, dq and dk/dv kernels against their plain versions on
+    q/k/v views of one fused [B, T, 3HD] buffer, the backward twice (bitwise),
+    their times beside one SDPA call with the expanded boolean layout (and
+    causal) mask (mask construction excluded) and its backward, and beside
+    B1 / B2's dense causal times at the same shape."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
+    from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+    timer = ctx["timer"]
+    errs = {n: 0.0 for n in BS_KERNELS}
+    for label, layout, block, B, H, D, causal, dt in _bs_cases():
+        dtype = getattr(torch, dt)
+        T = layout.shape[1] * block
+        qkv = randn((B, T, 3 * H * D), dtype)
+        q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+        do = randn((B, T, H, D), dtype)
+        tables = bs.device_tables(layout, "cuda")
+        scale = 1.0 / math.sqrt(D)
+        o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
+        first = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
+                                             tables=tables)
+        again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
+                                             tables=tables)
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+        o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
+        dq_ref, delta = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block,
+                                                            causal, scale)
+        ref = (dq_ref, *bs.blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta, layout,
+                                                            block, causal, scale))
+        o_err = (o.float() - o_ref.float()).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+               for a, b in zip(first, ref)]
+        absd = [(a.float() - b.float()).abs().max().item() for a, b in zip(first, ref)]
+        errs["fwd"] = max(errs["fwd"], o_err)
+        errs["dq"] = max(errs["dq"], absd[0])
+        errs["dkv"] = max(errs["dkv"], absd[1], absd[2])
+        del o_ref, lse_ref, dq_ref, ref
+
+        kernel_ms = {
+            "fwd": timer.ms(lambda: bs.blocksparse_attention_fwd(q, k, v, layout, block, causal,
+                                                                 tables=tables)),
+            "dq": timer.ms(lambda: bs.blocksparse_attention_bwd_dq(
+                q, k, v, o, do, lse, layout, block, causal, scale, tables)),
+            "dkv": timer.ms(lambda: bs.blocksparse_attention_bwd_dkv(
+                q, k, v, do, lse, delta, layout, block, causal, scale, tables)),
+        }
+        plain_ms = {
+            "fwd": timer.ms(lambda: bs.blocksparse_attention_fwd_ref(q, k, v, layout, block,
+                                                                     causal), iters=5),
+            "dq": timer.ms(lambda: bs.blocksparse_attention_bwd_dq_ref(
+                q, k, v, o, do, lse, layout, block, causal, scale), iters=5),
+            "dkv": timer.ms(lambda: bs.blocksparse_attention_bwd_dkv_ref(
+                q, k, v, do, lse, delta, layout, block, causal, scale), iters=5),
+        }
+        # the yardstick: SDPA with the layout expanded to a [H, T, T] bool mask
+        mask = bs.layout_mask(layout, block, causal, "cuda")
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+        sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dot = do.transpose(1, 2)
+        sdpa_bwd_ms = timer.ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                           retain_graph=True))
+        del out, mask, qt, kt, vt
+        # B1 / B2 dense causal at the same shape
+        fo, flse = fa.flash_attention_fwd(q, k, v, causal=True)
+        flash_ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
+        flash_bwd_ms = timer.ms(lambda: fa.flash_attention_bwd(q, k, v, fo, flse, do, True))
+        del fo, flse
+        pairs = bs_visible_pairs(layout, block, causal) * B
+        bounds = bs_bounds(B, T, H, D, pairs, dt, q.element_size())
+        log(f"phase2 blocksparse_attention {label} B{B} T{T} H{H} D{D} block{block} "
+            f"causal={causal} {dt}: active_blocks={int(np.asarray(layout).sum())} "
+            f"visible_pairs={pairs} o_err={o_err:.3e} lse_err={lse_err:.3e} "
+            f"rel_err dq/dk/dv={rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} "
+            f"max_abs_err dq/dk/dv={absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e} "
+            f"bitwise_rerun={bitwise} "
+            + " ".join(f"{n}: kernel_ms={kernel_ms[n]:.4f} plain_ms={plain_ms[n]:.4f} "
+                       f"bound_ms={bounds[n][0]:.4f} ({bounds[n][1]})" for n in BS_KERNELS)
+            + f" sum_bwd_kernel_ms={kernel_ms['dq'] + kernel_ms['dkv']:.4f} "
+            f"bwd_bound_ms={bounds['bwd_total'][0]:.4f} ({bounds['bwd_total'][1]}) "
+            f"sdpa_masked_ms={sdpa_ms:.4f} sdpa_masked_backward_ms={sdpa_bwd_ms:.4f} "
+            f"b1_dense_causal_ms={flash_ms:.4f} b2_dense_causal_ms={flash_bwd_ms:.4f}")
+        check(o_err <= ATOL[dt], f"blocksparse {label}: o error {o_err} > {ATOL[dt]}")
+        check(lse_err <= LSE_ATOL, f"blocksparse {label}: lse error {lse_err}")
+        check(bitwise, f"blocksparse backward {label}: two runs differ")
+        check(max(rel) <= BWD_RTOL[dt], f"blocksparse backward {label}: rel error {rel}")
+        if "main path" in label:
+            for n in BS_KERNELS:
+                ctx[f"bs_{n}"] = dict(ms=kernel_ms[n], plain_ms=plain_ms[n],
+                                      library_ms=sdpa_ms if n == "fwd" else sdpa_bwd_ms,
+                                      bound_ms=bounds[n][0], bound_by=bounds[n][1])
+        del q, k, v, qkv, do, o, lse, first, again, delta
+        torch.cuda.empty_cache()
+    for n in BS_KERNELS:
+        ctx[f"bs_{n}"]["max_abs_err"] = errs[n]
+
+
 def _reset_counts():
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+    from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
     fa.launches = 0
@@ -892,6 +1104,7 @@ def _reset_counts():
     da.verify_launches = da.verify_kv8_launches = da.verify_kv4_launches = 0
     im.int8_launches = im.int4_launches = 0
     dqm.launches = 0
+    bs.launches = bs.bwd_dq_launches = bs.bwd_dkv_launches = 0
     return fa, da
 
 
@@ -1731,6 +1944,141 @@ def phase_zero3(torch, ctx):
             os.remove(store)
 
 
+def _bs_launches(fa):
+    from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
+
+    return {"b9_fwd": bs.launches, "b9_dq": bs.bwd_dq_launches, "b9_dkv": bs.bwd_dkv_launches,
+            "b1": fa.launches, **{f"b2_{n}": c for n, c in _bwd_launches(fa).items()}}
+
+
+def _plain_b9(bs):
+    """B9's plain versions in the wrappers' places (the reference has no
+    knob for this): the autograd Function looks the wrappers up by name and
+    passes the device tables last, which the plain versions do not take."""
+    return {"blocksparse_attention_fwd": lambda *a: bs.blocksparse_attention_fwd_ref(*a[:-1]),
+            "blocksparse_attention_bwd_dq": lambda *a: bs.blocksparse_attention_bwd_dq_ref(
+                *a[:-1]),
+            "blocksparse_attention_bwd_dkv": lambda *a: bs.blocksparse_attention_bwd_dkv_ref(
+                *a[:-1])}
+
+
+def phase_sparse(torch, ctx):
+    """Phase 10: a sparse GPT-2-125M (every layer's attention through B9)
+    at full width and depth, scored and trained through the entry points."""
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+
+    cfg = dataclasses.replace(gpt.PRESETS["gpt2-125m"],
+                              sparse_attention=FixedSparsityConfig(**SPARSE_GPT_LAYOUT))
+    V, L = cfg.vocab_size, cfg.n_layer
+    rng = np.random.default_rng(10)
+    kernels = {name: getattr(bs, name) for name in _plain_b9(bs)}
+
+    def swap(fns):
+        for name, fn in fns.items():
+            setattr(bs, name, fn)
+
+    # (a) fp32 (TF32 off since phase 1), B2 x T1024: the scoring loss through
+    # B9 and through its plain versions, then 5 train_batch steps of each
+    # from the same seed and batches, AdamW + clipping
+    ids = rng.integers(0, V, (2, 1024)).astype(np.int32)
+    params = gpt.init_params(cfg, 0, device="cuda")
+    with torch.no_grad():
+        fa, _ = _reset_counts()  # the sparse scoring main path
+        loss = gpt.loss_fn(cfg, params, {"input_ids": ids}, train=False)[0].item()
+        score_launches = _bs_launches(fa)
+        swap(_plain_b9(bs))
+        try:
+            plain_loss = gpt.loss_fn(cfg, params, {"input_ids": ids}, train=False)[0].item()
+        finally:
+            swap(kernels)
+    del params
+    log(f"phase10a scoring sparse gpt2-125m B2xT1024 fp32: loss={loss:.6f} "
+        f"plain_b9_loss={plain_loss:.6f} |diff|={abs(loss - plain_loss):.3e} "
+        f"launches={score_launches}")
+    check(abs(loss - math.log(V)) < 0.5, f"10a scoring loss {loss} far from ln(V)")
+    check(abs(loss - plain_loss) <= 1e-4, f"10a B9 loss {loss} vs plain {plain_loss}")
+    check(score_launches["b9_fwd"] == L and score_launches["b9_dq"] == 0
+          and score_launches["b1"] == 0, f"10a scoring launches {score_launches}")
+
+    batches = [{"input_ids": rng.integers(0, V, (2, 1024)).astype(np.int32)} for _ in range(5)]
+    runs = {}
+    for route in ("kernel", "plain"):
+        engine = _engine(_train_config(2), cfg)
+        if route == "plain":
+            swap(_plain_b9(bs))
+        try:
+            fa, _ = _reset_counts()  # the fp32 sparse training main path
+            metrics = [engine.train_batch(b) for b in batches]
+            torch.cuda.synchronize()
+        finally:
+            swap(kernels)
+        runs[route] = ([m["loss"].item() for m in metrics], [m["grad_norm"].item() for m in metrics],
+                       _bs_launches(fa))
+        del engine
+    (loss_k, norm_k, launches), (loss_p, norm_p, plain_launches) = runs["kernel"], runs["plain"]
+    log(f"phase10a train fp32 sparse gpt2-125m B2xT1024 AdamW clip1.0: losses={loss_k} "
+        f"plain_b9_losses={loss_p} grad_norms={norm_k} plain_b9_grad_norms={norm_p} "
+        f"launches over 5 micro-steps={launches} plain-B9 launches={plain_launches}")
+    check(np.allclose(loss_k, loss_p, rtol=1e-4, atol=0), f"10a losses differ: {loss_k} vs {loss_p}")
+    check(np.allclose(norm_k, norm_p, rtol=1e-3, atol=0),
+          f"10a grad norms differ: {norm_k} vs {norm_p}")
+    check(all(launches[f"b9_{n}"] == 5 * L for n in BS_KERNELS),
+          f"10a B9 launches {launches}, expected {5 * L} each")
+    check(not any(n for name, n in launches.items() if not name.startswith("b9")),
+          f"10a dense kernels launched: {launches}")
+    check(not any(plain_launches.values()), f"10a plain run launched kernels: {plain_launches}")
+    torch.cuda.empty_cache()
+
+    # (b) bf16 + fp32 master + ZeRO stage 2, B2 x T4096 (max_seq_len 4096),
+    # 10 steps on one batch; the same model dense (B1/B2) beside it
+    batch = {"input_ids": rng.integers(0, V, (2, 4096)).astype(np.int32)}
+    rows = {}
+    for name, sc in (("sparse", cfg.sparse_attention), ("dense", None)):
+        model_cfg = dataclasses.replace(cfg, max_seq_len=4096, sparse_attention=sc)
+        engine = _engine(_train_config(2, bf16={"enabled": True},
+                                       zero_optimization={"stage": 2}), model_cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa, _ = _reset_counts()  # the bf16 sparse training main path (and its dense twin)
+        losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, 10)
+        launches = _bs_launches(fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        steady_ms = float(np.median(step_ms[1:]))
+        tokens_per_s = engine.tokens_per_sec()
+        kernels_run = device_kernels(torch, lambda: engine.train_batch(batch))
+        attn_ms = sum(ms for kname, _, ms in kernels_run
+                      if "blocksparse_" in kname or "flash_" in kname)
+        busy_ms = sum(ms for _, _, ms in kernels_run)
+        rows[name] = dict(step_ms=steady_ms, launches=launches)
+        log(f"phase10b train bf16 master zero2 {name} gpt2-125m B2xT4096: losses={losses} "
+            f"grad_norms={norms} launches over 10 steps={launches}")
+        log(f"phase10b {name} step_ms (CUDA events, median of steps 2-10)={steady_ms:.3f} "
+            f"step_ms_all={[round(x, 3) for x in step_ms]} "
+            f"host_issue_ms (median of steps 2-10)={float(np.median(host_ms[1:])):.3f} "
+            f"tokens_per_s={tokens_per_s:.1f} peak_memory_gb={peak_gb:.3f}")
+        log(f"phase10b {name} profile of one step: "
+            + device_breakdown(torch, None, steady_ms, top=6, kernels=kernels_run)
+            + f" attention_fwd+bwd_ms={attn_ms:.3f} attention_share_of_busy="
+            + (f"{attn_ms / busy_ms:.3f}" if busy_ms else "not measured"))
+        check(abs(losses[0] - math.log(V)) < 0.5, f"10b {name} step-1 loss {losses[0]} far from ln(V)")
+        check(losses[-1] < losses[0], f"10b {name} loss did not fall: {losses}")
+        check(all(math.isfinite(x) for x in losses + norms), f"10b {name} loss or norm not finite")
+        del engine
+        torch.cuda.empty_cache()
+    sparse, dense = rows["sparse"]["launches"], rows["dense"]["launches"]
+    log(f"phase10b sparse/dense step ratio={rows['sparse']['step_ms'] / rows['dense']['step_ms']:.4f} "
+        f"(reported only; no gain is claimed)")
+    check(all(sparse[f"b9_{n}"] == 10 * L for n in BS_KERNELS)
+          and not any(n for k, n in sparse.items() if not k.startswith("b9")),
+          f"10b sparse launches {sparse}, expected {10 * L} of each B9 kernel and no B1/B2")
+    check(not any(n for k, n in dense.items() if k.startswith("b9")) and dense["b1"] == 10 * L,
+          f"10b dense launches {dense}")
+    for n in BS_KERNELS:
+        ctx[f"bs_{n}"]["launches"] = sparse[f"b9_{n}"]
+
+
 def main() -> int:
     import torch
 
@@ -1744,7 +2092,8 @@ def main() -> int:
     ctx = {"timer": Timer(torch)}
     failures = []
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
-                  phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3):
+                  phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
+                  phase_sparse):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)
@@ -1779,7 +2128,10 @@ def main() -> int:
          "route": "cuda", "source": VERIFY_SRC, "replaces": VERIFY_TPU,
          **ctx[f"verify_{kind}"]} for kind in PAGED_KINDS] + [
         {"name": "dequant_matmul", "route": "cuda", "source": DQM_SRC, "replaces": DQM_TPU,
-         **ctx["dqm"]}]
+         **ctx["dqm"]}] + [
+        {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}"),
+         "route": "cuda", "source": BS_FWD_SRC if n == "fwd" else BS_BWD_SRC,
+         "replaces": BS_TPU[n], **ctx[f"bs_{n}"]} for n in BS_KERNELS]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

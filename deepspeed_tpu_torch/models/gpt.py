@@ -12,7 +12,9 @@ The functional API of the reference is kept, ``f(cfg, params, ...)`` with
   crosses over through :mod:`deepspeed_tpu_torch.bridge` unchanged;
 - attention goes through ``ops.attention.multihead_attention`` (the flash
   kernels on CUDA when eligible, differentiable through the B1 forward and
-  B2 backward), the cached decode step through the decode-attention kernel
+  B2 backward) or, with ``GPTConfig.sparse_attention``, through
+  ``ops.sparse_attention`` and the blocksparse kernels (B9, forward and
+  backward), the cached decode step through the decode-attention kernel
   and the paged decode step (:func:`paged_decode_step`, over dense, int8 or
   int4 page pools) through the paged one;
 - a projection weight is dense (``torch.matmul``) or a quantized leaf,
@@ -60,6 +62,7 @@ from ..ops.cuda.decode_attention import (decode_attention, paged_decode_attentio
 from ..ops.cuda.flash_attention import NEG_INF
 from ..ops.cuda.int8_matmul import int4_matmul, int8_matmul, pack_int4, unpack_int4
 from ..ops.quantizer import dequantize, quantize
+from ..ops.sparse_attention import sparse_attention
 from ..runtime.zero.gather import _active_cfg, _quantization, zero3_layers
 from ..utils.errors import unported
 from ..utils.rng import fold_in
@@ -101,7 +104,11 @@ class GPTConfig:
     window_size: int = 256
     attention_scale: Optional[float] = None  # None = 1/sqrt(head_dim)
     has_lm_head: bool = True  # False: pure encoder, only return_hidden=True is valid
-    sparse_attention: Optional[Any] = None  # not ported (A13, kernel B9)
+    # a SparsityConfig (ops.sparse_attention) routes every layer's attention
+    # in forward / loss_fn / training through the blocksparse kernels (B9),
+    # whatever use_flash says; the cached and paged paths attend densely, as
+    # the reference's do
+    sparse_attention: Optional[Any] = None
     random_ltd_layer_ids: Tuple[int, ...] = ()  # random-LTD, not ported (A3b)
     random_ltd_keep: Optional[int] = None
     seq_parallel_impl: str = "dense"  # "ring" / "ulysses" not ported (A13)
@@ -155,8 +162,6 @@ def check_config(cfg: GPTConfig) -> None:
         raise unported("GPTConfig.local_attention_period (local attention)", "A2b")
     if cfg.loss_chunk:
         raise unported("GPTConfig.loss_chunk (chunked cross-entropy)", "A2b")
-    if cfg.sparse_attention is not None:
-        raise unported("GPTConfig.sparse_attention", "A13 and kernel B9")
     if cfg.seq_parallel_impl != "dense":
         raise unported(f"seq_parallel_impl={cfg.seq_parallel_impl!r} "
                        "(sequence-parallel attention)", "A13")
@@ -315,9 +320,13 @@ def _attention_delta(cfg: GPTConfig, x: torch.Tensor, w: Params,
     """Attention output (pre-residual): attn_out(MHA(ln1(x)))."""
     B, T, D = x.shape
     q, k, v = _qkv(cfg, x, w, positions)
-    attn = multihead_attention(q, k, v, causal=True, use_flash=cfg.use_flash,
-                               softmax_scale=cfg.attention_scale,
-                               stochastic_mode=cfg.stochastic_mode)
+    if cfg.sparse_attention is not None:
+        attn = sparse_attention(q, k, v, cfg.sparse_attention, causal=True,
+                                softmax_scale=cfg.attention_scale)
+    else:
+        attn = multihead_attention(q, k, v, causal=True, use_flash=cfg.use_flash,
+                                   softmax_scale=cfg.attention_scale,
+                                   stochastic_mode=cfg.stochastic_mode)
     return _wm(attn.reshape(B, T, D), w["attn_out_w"]) + w["attn_out_b"]
 
 

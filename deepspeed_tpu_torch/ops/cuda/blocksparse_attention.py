@@ -1,0 +1,364 @@
+"""Blocksparse attention (kernel B9): the hand-written CUDA kernels and their
+plain versions.
+
+Counterpart of ``deepspeed_tpu/ops/pallas/blocksparse_attention.py``:
+attention restricted to the active blocks of a static ``[H, T/block,
+T/block]`` 0/1 layout, with flash-style online softmax, so neither the dense
+``[T, T]`` scores nor the score blocks reach device memory. The forward
+(``_fwd`` / ``_fwd_kernel``) is ``csrc/blocksparse_attention_fwd.cu``; the
+backward's two passes (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) are
+``csrc/blocksparse_attention_bwd.cu``, whose dq pass also writes delta =
+rowsum(dO * O) for the dk/dv pass. Each source's header says how it is split
+and what bounds it. :class:`BlocksparseAttention` is the counterpart of the
+reference's ``jax.custom_vjp`` around ``_bs_attn``: it saves (q, k, v, o,
+lse) and the index tables in the forward and runs dq, then dk/dv.
+
+The layout reaches the kernels as the host-built tables of
+:func:`layout_tables` (bitwise the reference's), moved to the device once by
+the caller that keeps them (``ops/sparse_attention``). ``causal`` masks keys
+after the query (T == S, aligned top-left); blocks above the diagonal of a
+bidirectional layout are then wholly masked and the kernels skip them.
+
+Every wrapper takes its plain version only for tensors on the CPU. For CUDA
+tensors it launches its kernel or raises: the kernels are built for blocks
+of 16, 32, 64 and 128 and head dims 64 and 128.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import _build
+from .flash_attention import DTYPE_CODE, NEG_INF, _readable, _stream
+
+BLOCKS = (16, 32, 64, 128)  # the kernels' block sizes (tiles of min(block, 64) rows)
+HEAD_DIMS = (64, 128)  # the kernels' template instances
+
+# kernel launches since import or the last reset to 0 (chip_smoke.py reads
+# them to show that the main path went through the kernels): the forward,
+# and the backward's dq and dk/dv passes
+launches = 0
+bwd_dq_launches = 0
+bwd_dkv_launches = 0
+
+Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("blocksparse_attention_fwd")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ds_blocksparse_attention_fwd.argtypes = (
+        [ptr] * 7 + [i32] * 7 + [i64] * 9 + [ctypes.c_float, i32, ptr])
+    lib.ds_blocksparse_attention_fwd.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("blocksparse_attention_bwd")
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.ds_blocksparse_attention_bwd_dq.argtypes = (
+        [ptr] * 10 + [i32] * 7 + [i64] * 15 + [f32, i32, ptr])
+    lib.ds_blocksparse_attention_bwd_dkv.argtypes = (
+        [ptr] * 10 + [i32] * 7 + [i64] * 12 + [f32, i32, ptr])
+    lib.ds_blocksparse_attention_bwd_dq.restype = i32
+    lib.ds_blocksparse_attention_bwd_dkv.restype = i32
+    return lib
+
+
+def layout_tables(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Static index tables from a [H, nQ, nK] 0/1 layout.
+
+    Returns (kidx [H,nQ,A], kcnt [H,nQ], qidx [H,nK,Aq], qcnt [H,nK]) int32,
+    padded with 0 (padding entries are never read: the loop bound is the
+    count); the active indices are ascending."""
+    H, nQ, nK = layout.shape
+    max_k = max(1, int(layout.sum(axis=2).max()))
+    max_q = max(1, int(layout.sum(axis=1).max()))
+    kidx = np.zeros((H, nQ, max_k), np.int32)
+    kcnt = np.zeros((H, nQ), np.int32)
+    qidx = np.zeros((H, nK, max_q), np.int32)
+    qcnt = np.zeros((H, nK), np.int32)
+    for h in range(H):
+        for i in range(nQ):
+            cols = np.nonzero(layout[h, i])[0]
+            kidx[h, i, : len(cols)] = cols
+            kcnt[h, i] = len(cols)
+        for j in range(nK):
+            rows = np.nonzero(layout[h, :, j])[0]
+            qidx[h, j, : len(rows)] = rows
+            qcnt[h, j] = len(rows)
+    return kidx, kcnt, qidx, qcnt
+
+
+def device_tables(layout: np.ndarray, device) -> Tables:
+    """:func:`layout_tables` as int32 tensors on ``device``."""
+    return tuple(torch.from_numpy(t).to(device) for t in layout_tables(np.asarray(layout)))
+
+
+def _scale(q: torch.Tensor, softmax_scale: Optional[float]) -> float:
+    return softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+def layout_mask(layout, block: int, causal: bool, device) -> torch.Tensor:
+    """[H, T, T] bool: the layout expanded to elements (``layout ⊗
+    ones(block, block)``), and under ``causal`` keys at or before the query."""
+    lay = torch.as_tensor(np.asarray(layout), device=device).bool()
+    vis = lay.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    if causal:
+        T = vis.shape[-1]
+        vis = vis & torch.ones((T, T), dtype=torch.bool, device=device).tril()
+    return vis
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout, block: int) -> None:
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"blocksparse_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and "
+                         f"v {tuple(v.shape)} must all be [B, T, H, D]")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPE_CODE:
+        raise TypeError(f"blocksparse_attention: q/k/v dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
+                        "expected one of float32, bfloat16, float16 for all three")
+    if not (q.device == k.device == v.device):
+        raise ValueError("blocksparse_attention: q, k, v on different devices")
+    B, T, H, D = q.shape
+    if tuple(np.shape(layout)) != (H, T // block, T // block):
+        raise ValueError(
+            f"layout {tuple(np.shape(layout))} != (H={H}, {T // block}, {T // block})")
+    if T % block:
+        raise ValueError(f"blocksparse_attention: T={T} is not a multiple of block {block}")
+
+
+def _check_kernel(block: int, *ts: torch.Tensor) -> None:
+    D = ts[0].shape[-1]
+    if block not in BLOCKS or D not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"blocksparse_attention kernel: block {block}, head dim {D} (built for blocks "
+            f"{BLOCKS} and head dims {HEAD_DIMS}; others are ROADMAP.md kernel redesign, B9)")
+    for t in ts:
+        if not _readable(t):
+            raise ValueError("blocksparse_attention kernel: the head dim must be contiguous "
+                             f"and rows 16-byte aligned (strides {t.stride()}, element size "
+                             f"{t.element_size()})")
+
+
+# --------------------------------------------------------------------------- plain versions
+def blocksparse_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout,
+                                  block: int, causal: bool = True,
+                                  softmax_scale: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward: dense attention masked by the
+    expanded layout (and the causal mask), every operand widened to fp32.
+    A row with no visible key gives o = 0 and lse = -1e30, as the kernel's
+    ``l_safe`` does. Returns (o [B, T, H, D] in q's dtype, lse [B*H, T] fp32)."""
+    B, T, H, D = q.shape
+    s = torch.einsum("bthd,bshd->bhts", q.float() * _scale(q, softmax_scale), k.float())
+    vis = layout_mask(layout, block, causal, q.device)
+    s = s.masked_fill(~vis, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~vis, 0.0)
+    l = p.sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bhts,bshd->bthd", p / l_safe, v.float()).to(q.dtype)
+    return o, (m + torch.log(l_safe)).reshape(B * H, T)
+
+
+def _probs(q, k, lse, layout, block: int, causal: bool, scale: float) -> torch.Tensor:
+    """P = exp(scale * q k^T - lse) as [B, H, T, T] fp32, 0 where a key is hidden."""
+    B, T, H, _ = q.shape
+    s = torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float())
+    p = torch.exp(s - lse.reshape(B, H, T, 1))
+    return p.masked_fill(~layout_mask(layout, block, causal, q.device), 0.0)
+
+
+def blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block: int, causal: bool,
+                                     scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dq pass: delta = rowsum(dO * O) ([B*H, T] fp32),
+    dS = P * (dO v^T - delta) * scale, dQ = dS k in q's dtype. Returns
+    (dq, delta)."""
+    B, T, H, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * H, T)
+    p = _probs(q, k, lse, layout, block, causal, scale)
+    dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+    ds = p * (dp - delta.reshape(B, H, T, 1)) * scale
+    return torch.einsum("bhts,bshd->bthd", ds, k.float()).to(q.dtype), delta
+
+
+def blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta, layout, block: int,
+                                      causal: bool, scale: float
+                                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dk/dv pass: dV = P^T dO, dK = dS^T q, in k's and
+    v's dtypes."""
+    B, T, H, _ = q.shape
+    p = _probs(q, k, lse, layout, block, causal, scale)
+    dv = torch.einsum("bhts,bthd->bshd", p, do.float())
+    dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+    ds = p * (dp - delta.reshape(B, H, T, 1)) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# --------------------------------------------------------------------------- kernels
+def _device_tables(layout, tables: Optional[Tables], device) -> Tables:
+    if tables is None:
+        return device_tables(layout, device)
+    return tuple(t if t.device == device else t.to(device) for t in tables)
+
+
+def blocksparse_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout,
+                              block: int, causal: bool = True,
+                              softmax_scale: Optional[float] = None,
+                              tables: Optional[Tables] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q/k/v [B, T, H, D] -> (o [B, T, H, D] in q's dtype, lse [B*H, T]
+    fp32), the forward kernel. ``tables`` are :func:`device_tables` of
+    ``layout`` (built here when None)."""
+    global launches
+    _check(q, k, v, layout, block)
+    scale = _scale(q, softmax_scale)
+    if q.device.type == "cpu":
+        return blocksparse_attention_fwd_ref(q, k, v, layout, block, causal, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"blocksparse_attention: unsupported device {q.device}")
+    _check_kernel(block, q, k, v)
+    kidx, kcnt, _, _ = _device_tables(layout, tables, q.device)
+    B, T, H, D = q.shape
+    o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        status = lib.ds_blocksparse_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            kidx.data_ptr(), kcnt.data_ptr(), B, H, T, D, DTYPE_CODE[q.dtype], block,
+            kidx.shape[-1], *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            scale, int(bool(causal)), _stream())
+    _build.check(lib, status, "blocksparse_attention_fwd")
+    launches += 1
+    return o, lse
+
+
+def blocksparse_attention_bwd_dq(q, k, v, o, do, lse, layout, block: int, causal: bool,
+                                 scale: float, tables: Optional[Tables] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dq [B, T, H, D] in q's dtype, delta [B*H, T] fp32), the dq kernel."""
+    global bwd_dq_launches
+    if q.device.type == "cpu":
+        return blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block, causal,
+                                                scale)
+    _check_kernel(block, q, k, v, o, do)
+    kidx, kcnt, _, _ = _device_tables(layout, tables, q.device)
+    B, T, H, D = q.shape
+    dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        status = lib.ds_blocksparse_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), kidx.data_ptr(), kcnt.data_ptr(),
+            B, H, T, D, DTYPE_CODE[q.dtype], block, kidx.shape[-1],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            *do.stride()[:3], scale, int(bool(causal)), _stream())
+    _build.check(lib, status, "blocksparse_attention_bwd_dq")
+    bwd_dq_launches += 1
+    return dq, delta
+
+
+def blocksparse_attention_bwd_dkv(q, k, v, do, lse, delta, layout, block: int, causal: bool,
+                                  scale: float, tables: Optional[Tables] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) [B, T, H, D] in k's dtype, the dk/dv kernel; ``delta`` is the
+    dq pass's."""
+    global bwd_dkv_launches
+    if q.device.type == "cpu":
+        return blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta, layout, block,
+                                                 causal, scale)
+    _check_kernel(block, q, k, v, do)
+    _, _, qidx, qcnt = _device_tables(layout, tables, q.device)
+    B, T, H, D = q.shape
+    dk = torch.empty((B, T, H, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, T, H, D), dtype=v.dtype, device=v.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        status = lib.ds_blocksparse_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), qidx.data_ptr(), qcnt.data_ptr(),
+            B, H, T, D, DTYPE_CODE[q.dtype], block, qidx.shape[-1],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+            scale, int(bool(causal)), _stream())
+    _build.check(lib, status, "blocksparse_attention_bwd_dkv")
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block: int, causal: bool = True,
+                              softmax_scale: Optional[float] = None,
+                              tables: Optional[Tables] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward from the forward's saved (q, k, v, o, lse [B*H, T]) and
+    dO: (dq, dk, dv) in the shapes and dtypes of q, k, v. Two kernel launches
+    on a CUDA device (dq with delta, then dk/dv), the plain versions on the
+    CPU."""
+    _check(q, k, v, layout, block)
+    if do.shape != q.shape or o.shape != q.shape or lse.shape != (q.shape[0] * q.shape[2],
+                                                                  q.shape[1]):
+        raise ValueError(f"blocksparse_attention_bwd: o {tuple(o.shape)} / dO "
+                         f"{tuple(do.shape)} / lse {tuple(lse.shape)} do not match q "
+                         f"{tuple(q.shape)}")
+    scale = _scale(q, softmax_scale)
+    if q.device.type == "cuda":
+        do = do.to(q.dtype)
+        if not _readable(do):  # autograd may hand dO over in any layout
+            do = do.contiguous()
+        lse = lse.float().contiguous()
+        tables = _device_tables(layout, tables, q.device)
+    elif q.device.type != "cpu":
+        raise ValueError(f"blocksparse_attention: unsupported device {q.device}")
+    dq, delta = blocksparse_attention_bwd_dq(q, k, v, o, do, lse, layout, block, causal, scale,
+                                             tables)
+    dk, dv = blocksparse_attention_bwd_dkv(q, k, v, do, lse, delta, layout, block, causal,
+                                           scale, tables)
+    return dq, dk, dv
+
+
+class BlocksparseAttention(torch.autograd.Function):
+    """Differentiable blocksparse attention: the forward kernel, then the dq
+    and dk/dv kernels from the saved logsumexp (the reference's
+    ``custom_vjp`` around ``_bs_attn``). On CPU tensors both halves take
+    their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, block: int, causal: bool,
+                softmax_scale: Optional[float], tables: Optional[Tables]):
+        o, lse = blocksparse_attention_fwd(q, k, v, layout, block, causal, softmax_scale,
+                                           tables)
+        ctx.save_for_backward(q, k, v, o, lse, *(tables or ()))
+        ctx.layout, ctx.block, ctx.causal = layout, block, causal
+        ctx.softmax_scale = softmax_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, *tables = ctx.saved_tensors
+        dq, dk, dv = blocksparse_attention_bwd(q, k, v, o, lse, do, ctx.layout, ctx.block,
+                                               ctx.causal, ctx.softmax_scale,
+                                               tuple(tables) or None)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blocksparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout,
+                          block: int, causal: bool = True,
+                          softmax_scale: Optional[float] = None,
+                          tables: Optional[Tables] = None) -> torch.Tensor:
+    """Attention restricted to the active blocks of ``layout`` ([H, T/block,
+    T/block], static 0/1) on q/k/v [B, T, H, D]; differentiable through
+    :class:`BlocksparseAttention`. ``tables`` are the layout's
+    :func:`device_tables`, kept by a caller that calls again (built per call
+    when None). A layout whose shape is not [H, T/block, T/block] raises the
+    reference's ValueError."""
+    return BlocksparseAttention.apply(q, k, v, layout, block, causal, softmax_scale, tables)

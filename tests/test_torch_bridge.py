@@ -47,7 +47,8 @@ def test_bf16_leaves_cross_bitwise():
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys; before = set(sys.modules); import deepspeed_tpu_torch, "
             "deepspeed_tpu_torch.inference, deepspeed_tpu_torch.inference.serving, "
-            "deepspeed_tpu_torch.models.gpt, "
+            "deepspeed_tpu_torch.models.gpt, deepspeed_tpu_torch.ops.sparse_attention, "
+            "deepspeed_tpu_torch.ops.cuda.blocksparse_attention, "
             "deepspeed_tpu_torch.bridge, deepspeed_tpu_torch.runtime.engine; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', "

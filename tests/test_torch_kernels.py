@@ -277,3 +277,121 @@ def test_dequant_matmul_kernel_matches_plain(cuda_device, dtype, rtol, M, D, F, 
     assert out.dtype == dtype and out.shape == (M, F) and torch.equal(out, again)
     scale = ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= rtol * scale
+
+
+def _bs_layouts():
+    """(name, layout [H, T/block, T/block], block, causal) for the B9 card
+    cases: the sparse GPT's Fixed unidirectional layout, a bidirectional
+    Fixed layout under causal (blocks above the diagonal skipped), BigBird
+    with a layout per head, Variable / BSLongformer / LocalSlidingWindow at
+    blocks 16 and 32, non-causal runs and a hand-made layout with an empty
+    block row."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    H = 4
+    empty = np.ones((H, 8, 8), np.int64)
+    empty[:, 3] = 0
+    return [
+        ("fixed-uni-128", sa.FixedSparsityConfig(H, block=128, attention="unidirectional")
+         .make_layout(1024), 128, True),
+        ("fixed-bi-128-causal", sa.FixedSparsityConfig(H).make_layout(512), 128, True),
+        ("bigbird-per-head-64", sa.BigBirdSparsityConfig(H, block=64,
+                                                         different_layout_per_head=True)
+         .make_layout(512), 64, True),
+        ("variable-16", sa.VariableSparsityConfig(H, block=16, num_random_blocks=1,
+                                                  different_layout_per_head=True)
+         .make_layout(256), 16, True),
+        ("longformer-32", sa.BSLongformerSparsityConfig(H, block=32).make_layout(256), 32,
+         False),
+        ("sliding-16", sa.LocalSlidingWindowSparsityConfig(H, block=16).make_layout(256), 16,
+         True),
+        ("sliding-32-noncausal", sa.LocalSlidingWindowSparsityConfig(
+            H, block=32, attention="bidirectional").make_layout(256), 32, False),
+        ("empty-row-32", empty, 32, False),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("case", range(8))
+def test_blocksparse_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, rtol, D, case):
+    """B9 (forward, dq with delta, dk/dv) vs the plain versions, with q/k/v
+    read as views of one fused buffer, and two backward runs giving
+    bitwise-equal gradients (no atomics). o within the forward tolerances
+    (fp32 5e-5, bf16 2e-2), lse within 1e-4, gradients relative to the
+    largest entry."""
+    from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
+
+    _, layout, block, causal = _bs_layouts()[case]
+    H, n = layout.shape[:2]
+    T = n * block
+    qkv = _normal((2, T, 3 * H * D), cuda_device, dtype, 20 + case)
+    q, k, v = (t.reshape(2, T, H, D) for t in qkv.split(H * D, dim=-1))
+    do = _normal((2, T, H, D), cuda_device, dtype, 40 + case)
+    tables = bs.device_tables(layout, cuda_device)
+    before = (bs.launches, bs.bwd_dq_launches, bs.bwd_dkv_launches)
+    o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
+    grads = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
+                                         tables=tables)
+    again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
+                                         tables=tables)
+    torch.cuda.synchronize()
+    assert (bs.launches, bs.bwd_dq_launches, bs.bwd_dkv_launches) == (
+        before[0] + 1, before[1] + 2, before[2] + 2)
+    o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
+    assert (o.float() - o_ref.float()).abs().max().item() <= (5e-5 if dtype == torch.float32
+                                                              else 2e-2)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    scale = 1.0 / np.sqrt(D)
+    dq_ref, delta = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block,
+                                                        causal, scale)
+    ref = (dq_ref, *bs.blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta, layout, block,
+                                                        causal, scale))
+    for g, g2, r in zip(grads, again, ref):
+        assert g.shape == r.shape and g.dtype == dtype
+        assert torch.equal(g, g2)
+        assert (g.float() - r.float()).abs().max().item() <= rtol * r.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_blocksparse_autograd_and_module_on_the_card(cuda_device):
+    """gradients through SparseSelfAttention (B9 forward + dq + dk/dv) equal
+    autograd of the plain forward; the tables are built once per T and kept
+    on the card; no_grad saves nothing."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+    from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
+
+    module = sa.SparseSelfAttention(sa.BigBirdSparsityConfig(
+        4, block=32, attention="unidirectional", different_layout_per_head=True))
+    q, k, v = (_normal((2, 256, 4, 64), cuda_device, torch.float32, s).requires_grad_(True)
+               for s in (50, 51, 52))
+    out = module(q, k, v)
+    grads = torch.autograd.grad(out.square().sum(), (q, k, v))
+    layout = module.get_layout(256)
+    ref_out = bs.blocksparse_attention_fwd_ref(q, k, v, layout, 32, True)[0]
+    ref = torch.autograd.grad(ref_out.square().sum(), (q, k, v))
+    assert (out - ref_out).abs().max().item() <= 5e-5
+    for g, r in zip(grads, ref):
+        assert (g - r).abs().max().item() <= 5e-5 * r.abs().max().item()
+    tables = sa.sparse_self_attention._tables(module.sparsity_config, 256, q.device)
+    assert all(t.device == q.device for t in tables)
+    assert sa.sparse_self_attention._tables(module.sparsity_config, 256, q.device) is tables
+    with torch.no_grad():
+        assert module(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,D", [(8, 64), (256, 64), (32, 32), (32, 96)])
+def test_blocksparse_kernel_raises_for_unbuilt_shapes(cuda_device, block, D):
+    """Blocks other than 16-128 and head dims other than 64/128 raise on the
+    card; they never fall back to the plain version."""
+    from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
+
+    T = 2 * block
+    q = _normal((1, T, 2, D), cuda_device, torch.float32, 60)
+    layout = np.ones((2, 2, 2), np.int64)
+    before = bs.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        bs.blocksparse_attention(q, q, q, layout, block)
+    assert bs.launches == before
