@@ -9,7 +9,9 @@ Phases, each of which must pass (the script exits 1 otherwise and prints no
 result line):
 
 1. build: nvcc builds every kernel under ``deepspeed_tpu_torch/csrc`` (one
-   process per source, all at once); TF32 is switched off for fp32 products.
+   process per source, all at once); TF32 is switched off for fp32 products;
+   every instance of the tensor-core kernels holds HGMMA instructions in
+   its SASS (``cuobjdump -sass`` of the built library).
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
    card inputs, at the shapes of the serving, scoring and training paths,
    with the kernel's time, the plain version's, one PyTorch library call's
@@ -24,7 +26,13 @@ result line):
    port never calls these) and the least
    time the card could take (``bound_ms``), all device time from CUDA
    events on a cold L2 cache (the host's launch overhead kept out, see
-   ``Timer``). The flash backward (three kernels: delta, dq, dk/dv) is also
+   ``Timer``). The flash backward (three kernels: delta, dq, dk/dv; dq and
+   dk/dv on the tensor cores for bf16 / fp16, on the CUDA cores for fp32,
+   each case printing its route, its launches and, in bf16 / fp16, its
+   largest error in ulps of its dtype against the fp32 plain version, at
+   most 2 over the entries of at least 1e-3 of the largest, beside the
+   error of dV from a single cast of P, which must exceed it; the cases
+   include phase 10b's B2 x T4096 and fp16 with small gradients) is also
    run twice on the same inputs and must give bitwise-equal gradients, and
    B5 (dense, int8, int4 pools) over 90 cases (windows 2-17, pages 8-128,
    fp32 and bf16) must agree with its plain version on the committable
@@ -55,8 +63,11 @@ result line):
    state: losses and grad norms agree, and each micro-step launches the
    forward and each backward kernel 12 times. (b) bf16 with the fp32 master
    and ZeRO stage 2 (the verify-notes configuration), B8 x T512, 10 steps on
-   one batch: the loss starts near ln(V) and falls; step time, tokens/s,
-   peak memory and a profiler breakdown of one step. (c) gas 2 x micro 4
+   one batch: the loss starts near ln(V) and falls, the forward, delta and
+   the tensor-core dq and dk/dv kernels launch 12 times a step and the
+   CUDA-core dq and dk/dv never; step time, tokens/s, peak memory and a
+   profiler breakdown of one step with B2's device time and its share of
+   the busy time. (c) gas 2 x micro 4
    and gas 1 x micro 8 over the same 8 rows give the same grad norm.
 6. paged serving: ``ServingEngine`` + ``run_continuous`` on GPT-2-125M with
    the reference's serving bench configuration (8 slots, page 64, model
@@ -131,11 +142,12 @@ result line):
    and ZeRO stage 2, B2 x T4096 (``max_seq_len=4096``), 10 steps on one
    batch: the loss starts near ln(V) and falls; step time, host issue time,
    tokens/s, peak memory and a profile of one step, beside the same model
-   with dense attention (B1/B2) at the same shape (no gain claimed).
+   with dense attention (B1/B2, B2's share of the busy time reported) at
+   the same shape (no gain claimed).
 
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after. The last lines are the card's name and power limit
-(nvidia-smi), a ``{"kernels": [...]}`` line (17 kernels) and the ``{"ok": true, ...}``
+(nvidia-smi), a ``{"kernels": [...]}`` line (19 kernels) and the ``{"ok": true, ...}``
 line.
 """
 
@@ -164,9 +176,18 @@ LSE_ATOL = 1e-4  # fp32 logsumexp in every dtype
 # largest gradient entry: fp32 -- both accumulate in fp32 in another order;
 # bf16 -- both round the gradients to bf16 (2^-8)
 BWD_RTOL = {"float32": 5e-5, "bfloat16": 2e-2, "float16": 2e-2}
+# bf16 / fp16 gradients of the tensor-core kernels against the fp32 plain
+# version, in ulps of the dtype: the kernels' fp32 sums differ from it by
+# ~2^-16 (bf16) or ~2^-22 (fp16) of the terms (the hi/lo halves of P and dS,
+# another order), so after both round to the dtype they are at most a
+# rounding apart; entries below 1e-3 of the largest are left out, where
+# cancellation makes an ulp of the entry smaller than the sums' error
+BWD_MAX_ULP = 2
+BWD_ULP_FLOOR = 1e-3
 
 FLASH_SRC = "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu"
 FLASH_BWD_SRC = "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu"
+FLASH_BWD_TC_SRC = "deepspeed_tpu_torch/csrc/flash_attention_bwd_tc.cu"
 DECODE_SRC = "deepspeed_tpu_torch/csrc/decode_attention.cu"
 PAGED_SRC = "deepspeed_tpu_torch/csrc/paged_decode_attention.cu"
 FLASH_TPU = "deepspeed_tpu/ops/pallas/flash_attention.py:118"
@@ -183,6 +204,13 @@ BWD_TPU = {"delta": "deepspeed_tpu/ops/pallas/flash_attention.py:277",
            "dq": "deepspeed_tpu/ops/pallas/flash_attention.py:291",
            "dkv": "deepspeed_tpu/ops/pallas/flash_attention.py:309"}
 BWD_KERNELS = ("delta", "dq", "dkv")
+# the tensor-core dq and dk/dv kernels that bf16 / fp16 inputs take
+BWD_TC_KERNELS = ("dq_tc", "dkv_tc")
+# the backward kernels each dtype's main path launches
+BWD_PATH = {"float32": BWD_KERNELS, "bfloat16": ("delta", *BWD_TC_KERNELS)}
+# each tensor-core library and the kernels whose every instance must hold
+# wgmma (HGMMA in SASS)
+TC_KERNELS = {"flash_attention_bwd_tc": ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")}
 QMM_SRC = "deepspeed_tpu_torch/csrc/int8_matmul.cu"
 QMM_TPU = {"int8": "deepspeed_tpu/ops/pallas/int8_matmul.py:42",
            "int4": "deepspeed_tpu/ops/pallas/int8_matmul.py:145"}
@@ -377,6 +405,31 @@ def phase_build(torch, ctx):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"phase1 ptxas {name}: {line.strip()}")
+    for lib, kernels in TC_KERNELS.items():
+        counts = sass_tensor_ops(_build, lib)
+        for kernel in kernels:
+            per_instance = sorted(c for fn, c in counts.items() if kernel in fn)
+            log(f"phase1 sass {lib} {kernel}: {len(per_instance)} instances, "
+                f"HGMMA per instance {per_instance}")
+            check(bool(per_instance) and min(per_instance) > 0,
+                  f"{kernel} in {lib}: an instance without wgmma ({per_instance})")
+
+
+def sass_tensor_ops(_build, lib: str) -> dict:
+    """HGMMA (wgmma) instructions in each function of a built library's SASS."""
+    from pathlib import Path
+
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def phase_kernels(torch, ctx):
@@ -820,28 +873,45 @@ def phase_kernels_bwd(torch, ctx, randn):
     """B2: the three backward kernels against their plain versions, a
     bitwise re-run, and their times beside the SDPA backward's. q/k/v are
     views of one fused [B, T, 3HD] buffer, as the model's qkv projection
-    gives them."""
+    gives them. dq and dk/dv run on the tensor cores for bf16 / fp16 inputs
+    (route ``tc``) and on the CUDA cores for fp32 (route ``fp32``)."""
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
     timer = ctx["timer"]
-    # the training shape B8 T=S512 H12 D64 (fp32 and bf16; bf16 is the
-    # main-path row), the bottom-right causal offset T128 S512, and D128
+    # the training shape B8 T=S512 H12 D64 (bf16 is the main-path row, fp32
+    # the fp32 training path's), the bottom-right causal offset T128 S512,
+    # non-causal, D128, a ragged T100 S200 and phase 10b's B2 x T4096 (64 k
+    # tiles a q tile); then fp16 with dO 2^-8 of the others' (small
+    # gradients: dS falls below fp16's normal range unless the kernels scale
+    # its rows)
     cases = [(8, 512, 512, 12, 64, True, "float32"), (8, 512, 512, 12, 64, True, "bfloat16"),
+             (8, 512, 512, 12, 64, True, "float16"),
              (4, 128, 512, 12, 64, True, "float32"), (4, 128, 512, 12, 64, True, "bfloat16"),
-             (4, 512, 512, 12, 128, True, "float32")]
-    errs = {name: 0.0 for name in BWD_KERNELS}
-    for B, T, S, H, D, causal, dt in cases:
+             (4, 128, 512, 12, 64, True, "float16"),
+             (4, 256, 256, 12, 64, False, "bfloat16"), (4, 256, 256, 12, 64, False, "float16"),
+             (4, 512, 512, 12, 128, True, "float32"), (4, 512, 512, 12, 128, True, "bfloat16"),
+             (4, 512, 512, 12, 128, True, "float16"), (2, 100, 200, 12, 64, True, "bfloat16"),
+             (2, 4096, 4096, 12, 64, True, "bfloat16"), (2, 4096, 4096, 12, 64, True, "float16")]
+    small_do = [(4, 512, 512, 12, 64, True, "float16")]
+    errs = {name: 0.0 for name in BWD_KERNELS + BWD_TC_KERNELS}
+    for (B, T, S, H, D, causal, dt), do_scale in ([(c, 1.0) for c in cases]
+                                                  + [(c, 2.0**-8) for c in small_do]):
         dtype = getattr(torch, dt)
+        tc = dt != "float32"
+        names = {"delta": "delta", "dq": "dq_tc" if tc else "dq", "dkv": "dkv_tc" if tc else "dkv"}
         qkv = randn((B, S, 3 * H * D), dtype)
         k = qkv[..., H * D:2 * H * D].reshape(B, S, H, D)
         v = qkv[..., 2 * H * D:].reshape(B, S, H, D)
         q = qkv[:, S - T:, :H * D].reshape(B, T, H, D)
-        do = randn((B, T, H, D), dtype)
+        do = randn((B, T, H, D), dtype) * do_scale
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
         scale = 1.0 / math.sqrt(D)
+        before = _bwd_launches(fa)
         first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
         again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
+        counted = {n: c - before[n] for n, c in _bwd_launches(fa).items()}
+        expected = {n: 2 if n in names.values() else 0 for n in counted}
         bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
         delta = fa.flash_attention_bwd_delta(o, do)
         delta_ref = fa.flash_attention_bwd_delta_ref(o, do)
@@ -849,10 +919,17 @@ def phase_kernels_bwd(torch, ctx, randn):
         rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                for a, b in zip(first, ref)]
         absd = [(a.float() - b.float()).abs().max().item() for a, b in zip(first, ref)]
+        ulps = cast_ulps = None
+        if tc:  # against a single cast of P, which the check must tell apart
+            ulps = [ulp_err(torch, a, b, dtype) for a, b in zip(first, ref)]
+            p_cast = fa._probs(q, k, lse, causal, scale).to(dtype).float()
+            dv_cast = torch.einsum("bhts,bthd->bshd", p_cast, do.float()).to(dtype)
+            cast_ulps = ulp_err(torch, dv_cast, ref[2], dtype)
+            del p_cast, dv_cast
         delta_err = (delta - delta_ref).abs().max().item()
         errs["delta"] = max(errs["delta"], delta_err)
-        errs["dq"] = max(errs["dq"], absd[0])
-        errs["dkv"] = max(errs["dkv"], absd[1], absd[2])
+        errs[names["dq"]] = max(errs[names["dq"]], absd[0])
+        errs[names["dkv"]] = max(errs[names["dkv"]], absd[1], absd[2])
 
         kernel_ms = {
             "delta": timer.ms(lambda: fa.flash_attention_bwd_delta(o, do)),
@@ -873,28 +950,54 @@ def phase_kernels_bwd(torch, ctx, randn):
         # of the kernel's [B*H, T])
         delta_library_ms = timer.ms(lambda: torch.einsum("bthd,bthd->bht", o, do))
         bounds = flash_bwd_bounds(B, T, S, H, D, causal, dt, q.element_size())
-        log(f"phase2 flash_attention_bwd B{B} T{T} S{S} H{H} D{D} causal={causal} {dt}: "
+        pair_ms = kernel_ms["dq"] + kernel_ms["dkv"]
+        log(f"phase2 flash_attention_bwd B{B} T{T} S{S} H{H} D{D} causal={causal} {dt} "
+            + (f"dO_scale={do_scale} " if do_scale != 1.0 else "")
+            + f"route={'tc' if tc else 'fp32'}: "
             f"rel_err dq/dk/dv={rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} "
             f"max_abs_err dq/dk/dv={absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e} "
-            f"delta_err={delta_err:.3e} bitwise_rerun={bitwise} "
+            + (f"max_ulp_err dq/dk/dv={ulps[0]:.2f}/{ulps[1]:.2f}/{ulps[2]:.2f} "
+               f"single_cast_dv_ulp_err={cast_ulps:.2f} " if ulps else "")
+            + f"delta_err={delta_err:.3e} bitwise_rerun={bitwise} launches={counted} "
             + " ".join(f"{n}: kernel_ms={kernel_ms[n]:.4f} plain_ms={plain_ms[n]:.4f} "
                        f"bound_ms={bounds[n][0]:.4f} ({bounds[n][1]})" for n in BWD_KERNELS)
             + f" delta_einsum_ms={delta_library_ms:.4f}"
             f" sum_kernel_ms={sum(kernel_ms.values()):.4f} "
             f"bwd_bound_ms={bounds['bwd_total'][0]:.4f} ({bounds['bwd_total'][1]}) "
-            f"sdpa_backward_ms={library_ms:.4f}")
+            f"dq+dkv_ms={pair_ms:.4f} sdpa_backward_ms={library_ms:.4f} "
+            f"dq+dkv/sdpa_backward={pair_ms / library_ms:.3f}")
         check(bitwise, f"flash backward {B, T, S, D, dt}: two runs differ")
+        check(counted == expected, f"flash backward {B, T, S, D, dt}: launches {counted}")
         check(max(rel) <= BWD_RTOL[dt], f"flash backward {B, T, S, D, dt}: rel error {rel}")
+        check(ulps is None or max(ulps) <= BWD_MAX_ULP,
+              f"flash backward {B, T, S, D, dt, do_scale}: {ulps} {dt} ulps")
+        check(cast_ulps is None or cast_ulps > BWD_MAX_ULP,
+              f"flash backward {B, T, S, D, dt, do_scale}: a single cast of P is within "
+              f"{cast_ulps} ulps, the ulp check cannot tell it from the hi/lo split")
         check(delta_err <= LSE_ATOL * max(1.0, delta_ref.abs().max().item()),
               f"flash backward delta {B, T, S, D, dt}: error {delta_err}")
-        if (B, T, D, dt) == (8, 512, 64, "bfloat16"):  # the training path's row
-            for n in BWD_KERNELS:
-                ctx[f"bwd_{n}"] = dict(ms=kernel_ms[n], plain_ms=plain_ms[n],
-                                       library_ms=delta_library_ms if n == "delta"
-                                       else library_ms,
-                                       bound_ms=bounds[n][0], bound_by=bounds[n][1])
-    for n in BWD_KERNELS:
+        if (B, T, D) == (8, 512, 64) and dt in BWD_PATH:  # the training paths' rows
+            for role, n in names.items():
+                if n in BWD_PATH[dt]:
+                    ctx[f"bwd_{n}"] = dict(ms=kernel_ms[role], plain_ms=plain_ms[role],
+                                           library_ms=delta_library_ms if role == "delta"
+                                           else library_ms,
+                                           bound_ms=bounds[role][0], bound_by=bounds[role][1])
+    for n in errs:
         ctx[f"bwd_{n}"]["max_abs_err"] = errs[n]
+
+
+def ulp_err(torch, x, ref, dtype) -> float:
+    """Largest |x - ref| in ulps of ``dtype`` at ref, over the entries with
+    |ref| at least BWD_ULP_FLOOR of the largest: an ulp of a value in
+    [2^e, 2^(e+1)) is eps 2^e (eps 2^-7 for bf16, 2^-10 for fp16), and eps
+    times the smallest normal below the normal range."""
+    info = torch.finfo(dtype)
+    r = ref.float()
+    keep = r.abs() >= BWD_ULP_FLOOR * r.abs().max()
+    _, ex = torch.frexp(r[keep])  # |r| = f 2^ex, f in [0.5, 1)
+    ulp = info.eps * torch.clamp(torch.ldexp(torch.ones_like(r[keep]), ex - 1), min=info.tiny)
+    return ((x.float()[keep] - r[keep]).abs() / ulp).max().item()
 
 
 def _sdpa_backward_ms(torch, timer, q, k, v, do, causal) -> float:
@@ -1099,6 +1202,7 @@ def _reset_counts():
 
     fa.launches = 0
     fa.bwd_delta_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    fa.bwd_dq_tc_launches = fa.bwd_dkv_tc_launches = 0
     da.launches = 0
     da.paged_launches = da.paged_kv8_launches = da.paged_kv4_launches = 0
     da.verify_launches = da.verify_kv8_launches = da.verify_kv4_launches = 0
@@ -1110,7 +1214,25 @@ def _reset_counts():
 
 def _bwd_launches(fa):
     return {"delta": fa.bwd_delta_launches, "dq": fa.bwd_dq_launches,
-            "dkv": fa.bwd_dkv_launches}
+            "dkv": fa.bwd_dkv_launches, "dq_tc": fa.bwd_dq_tc_launches,
+            "dkv_tc": fa.bwd_dkv_tc_launches}
+
+
+def path_launches(launches, n, path):
+    """The exact launch counts of a run: ``n`` for each counter in ``path``,
+    0 for every other (the other dtype's backward kernels among them)."""
+    return {name: n if name in path else 0 for name in launches}
+
+
+def b2_profile(kernels, busy_ms: float) -> str:
+    """B2's kernels (delta, dq, dk/dv) in one step's profile: their device
+    ms, each and together, and their share of the device-busy time."""
+    rows = [(name, ms) for name, _, ms in kernels if "flash_bwd" in name]
+    b2_ms = sum(ms for _, ms in rows)
+    each = "; ".join(f"{name.replace('(anonymous namespace)::', '')[:32]} {ms:.3f} ms"
+                     for name, ms in rows)
+    share = f"{b2_ms / busy_ms:.3f}" if busy_ms else "not measured"
+    return f"b2_ms={b2_ms:.3f} b2_share_of_busy={share} ({each})"
 
 
 def phase_scoring(torch, ctx):
@@ -1282,10 +1404,11 @@ def phase_training(torch, ctx):
         f"launches over 5 micro-steps={launches} plain-path launches={plain_launches}")
     check(np.allclose(loss_k, loss_p, rtol=1e-4, atol=0), f"fp32 losses differ: {loss_k} vs {loss_p}")
     check(np.allclose(norm_k, norm_p, rtol=1e-3, atol=0), f"fp32 grad norms differ: {norm_k} vs {norm_p}")
-    expected = 5 * cfg.n_layer
-    check(all(n == expected for n in launches.values()),
-          f"launches over 5 fp32 micro-steps {launches}, expected {expected} each")
+    expected = path_launches(launches, 5 * cfg.n_layer, ("fwd", *BWD_PATH["float32"]))
+    check(launches == expected, f"launches over 5 fp32 micro-steps {launches}, expected {expected}")
     check(not any(plain_launches.values()), f"plain path launched kernels: {plain_launches}")
+    for n in ("dq", "dkv"):  # the CUDA-core kernels' main path
+        ctx[f"bwd_{n}"]["launches"] = launches[n]
     torch.cuda.empty_cache()
 
     # (b) bf16 + fp32 master + ZeRO stage 2 (the verify-notes configuration),
@@ -1306,6 +1429,7 @@ def phase_training(torch, ctx):
     kernels = device_kernels(torch, lambda: engine.train_batch(batch))
     attn_ms = sum(ms for name, _, ms in kernels if "flash_" in name)
     busy_ms = sum(ms for _, _, ms in kernels)
+    ctx["train5b"]["b2"] = b2_profile(kernels, busy_ms)
     log(f"phase5b train bf16 master zero2 gpt2-125m B8xT512: losses={losses} "
         f"grad_norms={norms} launches over 10 steps={launches}")
     log(f"phase5b train bf16 step_ms (CUDA events, median of steps 2-10)={steady_ms:.3f} "
@@ -1316,13 +1440,14 @@ def phase_training(torch, ctx):
     log(f"phase5b train bf16 profile of one step: "
         + device_breakdown(torch, None, steady_ms, top=6, kernels=kernels)
         + f" flash_fwd+bwd_ms={attn_ms:.3f} flash_share_of_busy="
-        + (f"{attn_ms / busy_ms:.3f}" if busy_ms else "not measured"))
+        + (f"{attn_ms / busy_ms:.3f}" if busy_ms else "not measured")
+        + f" {ctx['train5b']['b2']}")
     check(abs(losses[0] - math.log(V)) < 0.5, f"bf16 step-1 loss {losses[0]} far from ln(V)")
     check(losses[-1] < losses[0], f"bf16 loss did not fall: {losses}")
     check(all(math.isfinite(x) for x in losses + norms), "bf16 loss or grad norm not finite")
-    check(all(n == 10 * cfg.n_layer for n in launches.values()),
-          f"launches over 10 bf16 steps {launches}, expected {10 * cfg.n_layer} each")
-    for n in BWD_KERNELS:
+    expected = path_launches(launches, 10 * cfg.n_layer, ("fwd", *BWD_PATH["bfloat16"]))
+    check(launches == expected, f"launches over 10 bf16 steps {launches}, expected {expected}")
+    for n in BWD_PATH["bfloat16"]:  # delta and the tensor-core kernels' main path
         ctx[f"bwd_{n}"]["launches"] = launches[n]
     del engine
     torch.cuda.empty_cache()
@@ -1868,8 +1993,9 @@ def phase_zero3(torch, ctx):
     check(np.allclose(norm_k, norm_p, rtol=1e-3, atol=0), f"9a grad norms differ: {norm_k} vs {norm_p}")
     check(launches["b8"] == 5 and plain_launches["b8"] == 0,
           f"9a B8 launches {launches['b8']} / plain {plain_launches['b8']}, expected 5 / 0")
-    check(all(launches[k] == 5 * cfg.n_layer for k in ("fwd", *BWD_KERNELS)),
-          f"9a flash launches {launches}, expected {5 * cfg.n_layer} each")
+    flash = {n: c for n, c in launches.items() if n != "b8"}
+    expected = path_launches(flash, 5 * cfg.n_layer, ("fwd", *BWD_PATH["float32"]))
+    check(flash == expected, f"9a flash launches {flash}, expected {expected}")
     torch.cuda.empty_cache()
 
     # (b) bf16 + fp32 master, the same ZeRO-3 config, B8 x T512, 10 steps on
@@ -1909,8 +2035,9 @@ def phase_zero3(torch, ctx):
     check(losses[-1] < losses[0], f"9b loss did not fall: {losses}")
     check(all(math.isfinite(x) for x in losses + norms), "9b loss or grad norm not finite")
     check(launches["b8"] == 10, f"9b B8 launches {launches['b8']}, expected 10")
-    check(all(launches[k] == 10 * cfg.n_layer for k in ("fwd", *BWD_KERNELS)),
-          f"9b flash launches {launches}, expected {10 * cfg.n_layer} each")
+    flash = {n: c for n, c in launches.items() if n != "b8"}
+    expected = path_launches(flash, 10 * cfg.n_layer, ("fwd", *BWD_PATH["bfloat16"]))
+    check(flash == expected, f"9b flash launches {flash}, expected {expected}")
     check(any(n.startswith("qgather[zero3]") for n in ledger)
           and any(n.startswith("qmatmul[lm_head]") for n in ledger), f"9b ledger {ledger}")
     ctx["dqm"]["launches"] = launches["b8"]
@@ -2061,7 +2188,8 @@ def phase_sparse(torch, ctx):
         log(f"phase10b {name} profile of one step: "
             + device_breakdown(torch, None, steady_ms, top=6, kernels=kernels_run)
             + f" attention_fwd+bwd_ms={attn_ms:.3f} attention_share_of_busy="
-            + (f"{attn_ms / busy_ms:.3f}" if busy_ms else "not measured"))
+            + (f"{attn_ms / busy_ms:.3f}" if busy_ms else "not measured")
+            + (f" {b2_profile(kernels_run, busy_ms)}" if name == "dense" else ""))
         check(abs(losses[0] - math.log(V)) < 0.5, f"10b {name} step-1 loss {losses[0]} far from ln(V)")
         check(losses[-1] < losses[0], f"10b {name} loss did not fall: {losses}")
         check(all(math.isfinite(x) for x in losses + norms), f"10b {name} loss or norm not finite")
@@ -2073,8 +2201,8 @@ def phase_sparse(torch, ctx):
     check(all(sparse[f"b9_{n}"] == 10 * L for n in BS_KERNELS)
           and not any(n for k, n in sparse.items() if not k.startswith("b9")),
           f"10b sparse launches {sparse}, expected {10 * L} of each B9 kernel and no B1/B2")
-    check(not any(n for k, n in dense.items() if k.startswith("b9")) and dense["b1"] == 10 * L,
-          f"10b dense launches {dense}")
+    expected = path_launches(dense, 10 * L, ("b1", *(f"b2_{n}" for n in BWD_PATH["bfloat16"])))
+    check(dense == expected, f"10b dense launches {dense}, expected {expected}")
     for n in BS_KERNELS:
         ctx[f"bs_{n}"]["launches"] = sparse[f"b9_{n}"]
 
@@ -2119,6 +2247,8 @@ def main() -> int:
          "replaces": DECODE_TPU, **ctx["decode"]},
     ] + [{"name": f"flash_attention_bwd_{n}", "route": "cuda", "source": FLASH_BWD_SRC,
           "replaces": BWD_TPU[n], **ctx[f"bwd_{n}"]} for n in BWD_KERNELS] + [
+        {"name": f"flash_attention_bwd_{n}", "route": "cuda", "source": FLASH_BWD_TC_SRC,
+         "replaces": BWD_TPU[n[:-3]], **ctx[f"bwd_{n}"]} for n in BWD_TC_KERNELS] + [
         {"name": "paged_decode_attention" + ("" if kind == "dense" else f"_{kind}"),
          "route": "cuda", "source": PAGED_SRC, "replaces": PAGED_TPU[kind],
          **ctx[f"paged_{kind}"]} for kind in PAGED_KINDS] + [

@@ -3,10 +3,13 @@
 Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``: the forward
 (``_fwd`` / ``_fwd_kernel``, B1) is ``csrc/flash_attention_fwd.cu``; the
 backward (``_bwd``: ``_bwd_delta_kernel``, ``_bwd_dq_kernel``,
-``_bwd_dkv_kernel``, B2) is ``csrc/flash_attention_bwd.cu``. Each source's
-header says how it is split and what bounds it. :class:`FlashAttention` is
-the counterpart of the reference's ``jax.custom_vjp`` around ``_flash``: it
-saves (q, k, v, o, lse) in the forward and runs the three backward kernels.
+``_bwd_dkv_kernel``, B2) is ``csrc/flash_attention_bwd.cu`` for fp32 inputs
+and, for dq and dk/dv on bf16 / fp16 inputs, the tensor-core kernels of
+``csrc/flash_attention_bwd_tc.cu`` (delta stays on the first source in every
+dtype). Each source's header says how it is split and what bounds it.
+:class:`FlashAttention` is the counterpart of the reference's
+``jax.custom_vjp`` around ``_flash``: it saves (q, k, v, o, lse) in the
+forward and runs the three backward kernels.
 
 Every wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises.
@@ -29,11 +32,14 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
 # them to show that the main path went through the kernels): the forward, and
-# the backward's delta, dq and dk/dv passes
+# the backward's delta, dq and dk/dv passes (dq and dk/dv on fp32 inputs; the
+# _tc counters are the tensor-core kernels that bf16 / fp16 inputs take)
 launches = 0
 bwd_delta_launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+bwd_dq_tc_launches = 0
+bwd_dkv_tc_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,6 +64,19 @@ def _bwd_lib() -> ctypes.CDLL:
     for fn in (lib.ds_flash_attention_bwd_delta, lib.ds_flash_attention_bwd_dq,
                lib.ds_flash_attention_bwd_dkv):
         fn.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_tc_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd_tc")
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.ds_flash_attention_bwd_dq_tc.argtypes = (
+        [ptr] * 7 + [i32] * 6 + [i64] * 12 + [f32, i32, ptr])
+    lib.ds_flash_attention_bwd_dkv_tc.argtypes = (
+        [ptr] * 8 + [i32] * 6 + [i64] * 12 + [f32, i32, ptr])
+    lib.ds_flash_attention_bwd_dq_tc.restype = i32
+    lib.ds_flash_attention_bwd_dkv_tc.restype = i32
     return lib
 
 
@@ -219,6 +238,70 @@ def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
     return dq, dk, dv
 
 
+# the tensor-core kernels stream their rows' operands in tiles of this many
+# columns; fp16's running row scale changes only between tiles
+_TC_TILE = 64
+
+
+def _row_scale(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The fp16 kernels' running row exponent e of ``x`` [B, H, T, S] (as
+    fp32, one per entry): each row (the axis other than ``dim``) is streamed
+    along ``dim`` in tiles of 64, and an entry of tile t gets the largest e
+    that keeps every entry of tiles 0..t of its row below 2^15 (the row's
+    largest so far in [2^14, 2^15)), clamped to [-126, 126]; 0 before the
+    row's first nonzero tile."""
+    a = x.abs().movedim(dim, -1)
+    n = a.shape[-1]
+    a = torch.nn.functional.pad(a, (0, -n % _TC_TILE))
+    m = a.reshape(*a.shape[:-1], -1, _TC_TILE).amax(-1)
+    _, ex = torch.frexp(m)  # m = f 2^ex, f in [0.5, 1): floor(log2 m) = ex - 1
+    none = 1 << 30
+    need = torch.where(m > 0, (15 - ex).clamp(-126, 126), torch.full_like(ex, none))
+    e = torch.cummin(need, dim=-1).values
+    e = torch.where(e == none, torch.zeros_like(e), e)
+    return e.repeat_interleave(_TC_TILE, -1)[..., :n].movedim(-1, dim)
+
+
+def _split(x: torch.Tensor, dtype: torch.dtype, dim: Optional[int] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 ``x`` [B, H, T, S] as the tensor-core kernels feed it to a
+    product, both halves widened back to fp32: hi = dtype(y), lo =
+    dtype(y - hi) of y = x 2^e, divided by 2^e again (the kernels divide
+    their fp32 sums). e = 0 for bf16 (fp32's exponent range); for fp16 with
+    ``dim`` given it is :func:`_row_scale`, which keeps hi and lo above
+    fp16's subnormal range, where they would lose bits."""
+    e = _row_scale(x, dim) if dtype == torch.float16 and dim is not None else None
+    y = x if e is None else torch.ldexp(x, e.float())
+    hi = y.to(dtype).float()
+    lo = (y - hi).to(dtype).float()
+    if e is not None:
+        hi, lo = torch.ldexp(hi, -e.float()), torch.ldexp(lo, -e.float())
+    return hi, lo
+
+
+def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = True,
+                                  softmax_scale: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the tensor-core kernels' rounding (bf16 / fp16
+    inputs): :func:`flash_attention_bwd_ref`, except that P and dS enter dV,
+    dK and dQ as hi + lo halves in the input dtype (:func:`_split`), each
+    product taken on both halves in fp32. fp16 scales the rows as the
+    kernels do: dQ's dS by query row, dV's P and dK's dS by key row. For the
+    tests: the CPU path runs :func:`flash_attention_bwd_ref`, the reference's
+    fp32 function."""
+    scale = _scale(q, softmax_scale)
+    B, T, H, _ = q.shape
+    delta = flash_attention_bwd_delta_ref(o, do)
+    p = _probs(q, k, lse, causal, scale)
+    dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+    ds = p * (dp - delta.reshape(B, H, T, 1)) * scale
+    # the dk/dv kernel streams query tiles (rows are keys), the dq kernel key tiles
+    dv = sum(torch.einsum("bhts,bthd->bshd", x, do.float()) for x in _split(p, q.dtype, -2))
+    dk = sum(torch.einsum("bhts,bthd->bshd", x, q.float()) for x in _split(ds, q.dtype, -2))
+    dq = sum(torch.einsum("bhts,bshd->bthd", x, k.float()) for x in _split(ds, q.dtype, -1))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) as [B*H, T] fp32 (the delta kernel)."""
     global bwd_delta_launches
@@ -237,49 +320,68 @@ def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor
     return delta
 
 
+def _bwd_route(q, k, v, do) -> Tuple[ctypes.CDLL, bool]:
+    """The library of a dq or dk/dv launch on CUDA tensors: the tensor-core
+    kernels for bf16 / fp16, the CUDA-core kernels for fp32."""
+    _check_kernel_layout(q, k, v, do)
+    if not (q.dtype == k.dtype == v.dtype == do.dtype):
+        raise TypeError(f"flash_attention backward: q/k/v/dO dtypes {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}/{do.dtype} differ")
+    tc = q.dtype in (torch.bfloat16, torch.float16)
+    return (_bwd_tc_lib() if tc else _bwd_lib()), tc
+
+
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float
                            ) -> torch.Tensor:
-    """dq [B, T, H, D] in q's dtype (the dq kernel)."""
-    global bwd_dq_launches
+    """dq [B, T, H, D] in q's dtype (the dq kernel: tensor cores for bf16 /
+    fp16, CUDA cores for fp32)."""
+    global bwd_dq_launches, bwd_dq_tc_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale)
-    _check_kernel_layout(q, k, v, do)
+    lib, tc = _bwd_route(q, k, v, do)
     B, T, H, D = q.shape
     S = k.shape[1]
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    lib = _bwd_lib()
+    fn = lib.ds_flash_attention_bwd_dq_tc if tc else lib.ds_flash_attention_bwd_dq
     with torch.cuda.device(q.device):
-        status = lib.ds_flash_attention_bwd_dq(
+        status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), B, H, T, S, D, DTYPE_CODE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             scale, int(bool(causal)), _stream())
-    _build.check(lib, status, "flash_attention_bwd_dq")
-    bwd_dq_launches += 1
+    _build.check(lib, status, "flash_attention_bwd_dq" + ("_tc" if tc else ""))
+    if tc:
+        bwd_dq_tc_launches += 1
+    else:
+        bwd_dq_launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) [B, S, H, D] in k's dtype (the dk/dv kernel)."""
-    global bwd_dkv_launches
+    """(dk, dv) [B, S, H, D] in k's dtype (the dk/dv kernel: tensor cores for
+    bf16 / fp16, CUDA cores for fp32)."""
+    global bwd_dkv_launches, bwd_dkv_tc_launches
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale)
-    _check_kernel_layout(q, k, v, do)
+    lib, tc = _bwd_route(q, k, v, do)
     B, T, H, D = q.shape
     S = k.shape[1]
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=v.device)
-    lib = _bwd_lib()
+    fn = lib.ds_flash_attention_bwd_dkv_tc if tc else lib.ds_flash_attention_bwd_dkv
     with torch.cuda.device(q.device):
-        status = lib.ds_flash_attention_bwd_dkv(
+        status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, S, D,
             DTYPE_CODE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             scale, int(bool(causal)), _stream())
-    _build.check(lib, status, "flash_attention_bwd_dkv")
-    bwd_dkv_launches += 1
+    _build.check(lib, status, "flash_attention_bwd_dkv" + ("_tc" if tc else ""))
+    if tc:
+        bwd_dkv_tc_launches += 1
+    else:
+        bwd_dkv_launches += 1
     return dk, dv
 
 
@@ -290,7 +392,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """The backward from the forward's saved (q, k, v, o, lse [B*H, T]) and
     dO: (dq, dk, dv) in the shapes and dtypes of q, k, v. Three kernel
     launches on a CUDA device (delta, dq, dk/dv), the plain versions on the
-    CPU."""
+    CPU. dq and dk/dv run on the tensor cores for bf16 / fp16 inputs."""
     _check(q, k, v)
     if do.shape != q.shape or o.shape != q.shape or lse.shape != (q.shape[0] * q.shape[2],
                                                                   q.shape[1]):

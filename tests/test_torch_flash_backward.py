@@ -7,7 +7,13 @@ tests/test_flash_attention.py runs them); the port side is its
 ``flash_attention_bwd_ref``, which the Function takes on CPU tensors. Inputs
 and the output cotangent come from numpy with a seed. Tolerances: fp32 atol
 1e-5 (fp32 arithmetic in another order, gradients of O(1)); bf16 atol 5e-2
-(both sides round q/k/v/dO and the gradients to bf16).
+(both sides round q/k/v/dO and the gradients to bf16). The split plain
+version (``flash_attention_bwd_split_ref``: P and dS as hi + lo halves of
+the input dtype, the card's tensor-core rounding) is held to the same 5e-2
+against JAX in bf16, and to 1 ulp of its dtype of the fp32 plain version on
+entries of at least 1e-3 of the largest (its fp32 sums differ by ~2^-16 in
+bf16, ~2^-22 in fp16 with its rows scaled, so the two round at most one step
+apart).
 """
 
 import dataclasses
@@ -23,6 +29,8 @@ from deepspeed_tpu.ops.pallas.flash_attention import flash_attention as jax_flas
 from deepspeed_tpu_torch.ops.cuda import decode_attention as da
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.models import gpt
+
+from _torch_ulps import ulp_err
 
 B, H, D = 1, 2, 64
 
@@ -130,3 +138,111 @@ def test_decode_attention_refuses_autograd():
     with torch.no_grad():
         out = da.decode_attention(q, cache, cache, 5)
     assert out.shape == (2, 1, 2, 64) and out.grad_fn is None
+
+
+SPLIT_CASES = [(256, 256, True), (256, 256, False), (128, 256, True)]
+SPLIT_IDS = ["causal", "non-causal", "offset"]
+
+
+@pytest.mark.parametrize("T,S,causal", SPLIT_CASES, ids=SPLIT_IDS)
+def test_split_ref_matches_jax_grad_bf16(T, S, causal):
+    """The tensor-core kernels' rounding (P and dS as hi + lo bf16 halves)
+    gives the reference's gradients: JAX's vjp of the Pallas kernels at the
+    file's bf16 tolerance."""
+    q, k, v, do = _inputs(T, S, seed=2)
+    _, g_ref = _jax_grads(q, k, v, do, causal, jnp.bfloat16)
+    qt, kt, vt, dot = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v, do))
+    o, lse = fa.flash_attention_fwd(qt, kt, vt, causal)
+    grads = fa.flash_attention_bwd_split_ref(qt, kt, vt, o, lse, dot, causal)
+    for g, r, name in zip(grads, g_ref, "qkv"):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_allclose(g.float().numpy(), r, rtol=0, atol=5e-2, err_msg=name)
+
+
+@pytest.mark.parametrize("T,S,causal", SPLIT_CASES + [(100, 200, True)],
+                         ids=SPLIT_IDS + ["ragged"])
+def test_split_ref_within_one_ulp_of_the_fp32_function(T, S, causal):
+    """hi + lo keeps P and dS to ~2^-16: the split version's bf16 gradients
+    are within one bf16 ulp of flash_attention_bwd_ref's (the reference's
+    fp32 function) on every entry of at least 1e-3 of the largest; a single
+    bf16 cast of P and dS (stochastic_mode's function) is not."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _inputs(T, S, seed=3))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    split = fa.flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal)
+    for a, r in zip(split, ref):
+        assert ulp_err(a, r, torch.bfloat16) <= 1.0
+    # the single cast, for contrast: dV = bf16(P)^T dO
+    p = fa._probs(q, k, lse, causal, fa._scale(q, None)).to(torch.bfloat16).float()
+    dv_cast = torch.einsum("bhts,bthd->bshd", p, do.float()).to(torch.bfloat16)
+    assert ulp_err(dv_cast, ref[2], torch.bfloat16) > 1.0
+
+
+@pytest.mark.parametrize("do_scale", [1.0, 2.0**-8], ids=["unit", "small-grad"])
+@pytest.mark.parametrize("T,S,causal", SPLIT_CASES + [(100, 200, True)],
+                         ids=SPLIT_IDS + ["ragged"])
+def test_split_ref_fp16_within_one_ulp_of_the_fp32_function(T, S, causal, do_scale):
+    """fp16: with each row of P and dS scaled by the kernels' running power
+    of two before the split, the gradients are within one fp16 ulp of
+    flash_attention_bwd_ref's, also for small gradients (dO 2^-8 of unit
+    scale), where dS lies below fp16's normal range; a single fp16 cast of
+    P, and the unscaled split of a small dS, are not."""
+    q, k, v, do = (torch.from_numpy(x).to(torch.float16) for x in _inputs(T, S, seed=5))
+    do = do * do_scale
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    split = fa.flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal)
+    for a, r in zip(split, ref):
+        assert a.dtype == torch.float16
+        assert ulp_err(a, r, torch.float16) <= 1.0
+    scale = fa._scale(q, None)
+    p = fa._probs(q, k, lse, causal, scale)
+    if do_scale == 1.0:  # dV = fp16(P)^T dO
+        dv_cast = torch.einsum("bhts,bthd->bshd", p.half().float(), do.float()).half()
+        assert ulp_err(dv_cast, ref[2], torch.float16) > 1.0
+    else:  # dQ from the hi + lo halves of dS without the row scale
+        dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+        delta = fa.flash_attention_bwd_delta_ref(o, do).reshape(B, H, T, 1)
+        hi, lo = fa._split(p * (dp - delta) * scale, torch.float16)
+        dq_unscaled = torch.einsum("bhts,bshd->bthd", hi + lo, k.float()).half()
+        assert ulp_err(dq_unscaled, ref[0], torch.float16) > 1.0
+
+
+def test_fp16_row_scale_follows_the_running_maximum():
+    """The fp16 row exponent of a row streamed in 64-wide tiles: 0 before
+    the first nonzero tile, then the largest e with every entry so far
+    below 2^15, which only falls; the split halves undo it exactly."""
+    x = torch.zeros(1, 1, 3, 192)
+    x[0, 0, 0, 64:128] = 0.75  # tile 1: largest 0.75 -> e = 15
+    x[0, 0, 0, 128] = 3.0  # tile 2: largest 3 -> e = 13
+    x[0, 0, 0, 129] = 0.5  # smaller than the row's largest so far: e stays
+    x[0, 0, 1, :64] = 2.0**-100  # far below fp16's range: e = 114
+    x[0, 0, 2, 100] = 2.0**-140  # an fp32 subnormal: e clamps at 126
+    e = fa._row_scale(x, -1)
+    assert e[0, 0, 0, :64].eq(0).all() and e[0, 0, 0, 64:128].eq(15).all()
+    assert e[0, 0, 0, 128:].eq(13).all() and e[0, 0, 1].eq(114).all()
+    assert e[0, 0, 2, :64].eq(0).all() and e[0, 0, 2, 64:].eq(126).all()
+    hi, lo = fa._split(x, torch.float16, -1)
+    assert torch.equal(hi + lo, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_cpu_tensors_take_the_plain_versions(dtype):
+    """On CPU tensors every backward wrapper runs its plain version, in every
+    dtype, and launches nothing: no kernel counter moves."""
+    q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _inputs(64, 128, seed=4))
+    counters = ("bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches",
+                "bwd_dq_tc_launches", "bwd_dkv_tc_launches")
+    before = [getattr(fa, c) for c in counters]
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    delta = fa.flash_attention_bwd_delta(o, do)
+    scale = fa._scale(q, None)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True, scale)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+    assert [getattr(fa, c) for c in counters] == before
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, True)
+    for g, w, r in zip(grads, (dq, dk, dv), ref):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+        torch.testing.assert_close(w, r, rtol=0, atol=0)

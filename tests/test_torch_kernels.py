@@ -15,6 +15,8 @@ from deepspeed_tpu_torch.ops.cuda import decode_attention as da
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
+from _torch_ulps import ulp_err
+
 # fp32: the kernel and the plain version both accumulate in fp32, in another
 # order; bf16: both round the output to bf16 (2^-8 relative)
 TOLERANCES = [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)]
@@ -69,8 +71,23 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, atol):
         assert (out.float() - ref.float()).abs().max().item() <= atol
 
 
+_BWD_COUNTERS = ("bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches",
+                 "bwd_dq_tc_launches", "bwd_dkv_tc_launches")
+
+
+def _bwd_counts():
+    return {c: getattr(fa, c) for c in _BWD_COUNTERS}
+
+
+def _single_cast_dv(q, k, lse, do, causal):
+    """dV from one cast of P to q's dtype (not the kernels' hi/lo split)."""
+    p = fa._probs(q, k, lse, causal, fa._scale(q, None)).to(q.dtype).float()
+    return torch.einsum("bhts,bthd->bshd", p, do.float()).to(q.dtype)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2),
+                                        (torch.float16, 2e-2)])
 @pytest.mark.parametrize("T,S,causal,D", [(512, 512, True, 64), (128, 512, True, 64),
                                           (256, 256, False, 64), (256, 256, True, 128),
                                           (100, 200, True, 64)])
@@ -78,7 +95,11 @@ def test_flash_backward_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype
                                                               causal, D):
     """B2 (delta, dq, dk/dv) vs its plain version, with q/k/v read as views of
     one fused buffer, and two runs giving bitwise-equal gradients (no atomics).
-    Tolerance relative to the largest gradient entry."""
+    Tolerance relative to the largest gradient entry. bf16 / fp16 take the
+    tensor-core dq and dk/dv kernels (the _tc counters), fp32 the CUDA-core
+    ones; bf16 / fp16 gradients are within 2 ulps of their dtype of the fp32
+    plain version on entries of at least 1e-3 of the largest, where dV from
+    a single cast of P is not."""
     H = 3
     qkv = _normal((2, S, 3 * H * D), cuda_device, dtype, 6)
     k = qkv[..., H * D:2 * H * D].reshape(2, S, H, D)
@@ -86,18 +107,43 @@ def test_flash_backward_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype
     q = qkv[:, S - T:, :H * D].reshape(2, T, H, D)
     do = _normal((2, T, H, D), cuda_device, dtype, 7)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
-    before = (fa.bwd_delta_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    before = _bwd_counts()
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
-    assert (fa.bwd_delta_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == tuple(
-        n + 2 for n in before)
+    route = (("bwd_dq_tc_launches", "bwd_dkv_tc_launches") if dtype != torch.float32
+             else ("bwd_dq_launches", "bwd_dkv_launches"))
+    assert _bwd_counts() == {c: n + (2 if c in route or c == "bwd_delta_launches" else 0)
+                             for c, n in before.items()}
     ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
     for g, g2, r in zip(grads, again, ref):
         assert g.shape == r.shape and g.dtype == dtype
         assert torch.equal(g, g2)
         scale = r.float().abs().max().item()
         assert (g.float() - r.float()).abs().max().item() <= rtol * scale
+        if dtype != torch.float32:
+            assert ulp_err(g, r, dtype) <= 2.0
+    if dtype != torch.float32:
+        assert ulp_err(_single_cast_dv(q, k, lse, do, causal), ref[2], dtype) > 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_fp16_small_gradients_on_the_card(cuda_device, D):
+    """fp16 with dO 2^-8 of unit scale, as a loss averaged over many tokens
+    gives it: dS lies below fp16's normal range, and the kernels' running
+    row scale keeps dq, dk and dv within 2 fp16 ulps of the fp32 plain
+    version, bitwise on a re-run."""
+    H, T = 3, 512
+    q, k, v = (_normal((2, T, H, D), cuda_device, torch.float16, s) for s in (12, 13, 14))
+    do = _normal((2, T, H, D), cuda_device, torch.float16, 15) * 2.0**-8
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, True)
+    for g, g2, r in zip(grads, again, ref):
+        assert torch.equal(g, g2)
+        assert ulp_err(g, r, torch.float16) <= 2.0
 
 
 @pytest.mark.cuda
@@ -113,6 +159,31 @@ def test_flash_autograd_function_on_the_card(cuda_device):
         assert (g - r).abs().max().item() <= 5e-5 * r.abs().max().item()
     with torch.no_grad():
         assert fa.flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_flash_autograd_function_bf16_on_the_card(cuda_device):
+    """bf16 gradients through FlashAttention take the tensor-core backward
+    (one launch of each _tc kernel, none of the CUDA-core dq / dk/dv) and
+    equal autograd of the plain fp32 forward on the same bf16 inputs to
+    2e-2 of the largest entry (both round the gradients to bf16)."""
+    q, k, v = (_normal((2, 256, 4, 64), cuda_device, torch.bfloat16, s).requires_grad_(True)
+               for s in (8, 9, 10))
+    before = _bwd_counts()
+    out = fa.flash_attention(q, k, v, causal=True)
+    cot = _normal(out.shape, cuda_device, torch.bfloat16, 11)
+    grads = torch.autograd.grad(out, (q, k, v), cot)
+    torch.cuda.synchronize()
+    after = _bwd_counts()
+    assert {c: after[c] - before[c] for c in _BWD_COUNTERS} == {
+        "bwd_delta_launches": 1, "bwd_dq_launches": 0, "bwd_dkv_launches": 0,
+        "bwd_dq_tc_launches": 1, "bwd_dkv_tc_launches": 1}
+    q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    ref = torch.autograd.grad(fa.flash_attention_ref(q32, k32, v32, True)[0], (q32, k32, v32),
+                              cot.float())
+    for g, r in zip(grads, ref):
+        assert g.dtype == torch.bfloat16
+        assert (g.float() - r).abs().max().item() <= 2e-2 * r.abs().max().item()
 
 
 def _paged_inputs(device, dtype, bits, B, H, pages, pool, seed):
