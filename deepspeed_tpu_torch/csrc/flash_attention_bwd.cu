@@ -1,9 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface.
+// Flash-attention backward for Hopper (sm_90a) on the CUDA cores, plain C
+// interface.
 //
 // Replaces the TPU kernels of deepspeed_tpu/ops/pallas/flash_attention.py
-// _bwd: _bwd_delta_kernel (delta = rowsum(dO * O)), _bwd_dq_kernel and
-// _bwd_dkv_kernel. Same function: from the saved fp32 logsumexp of the
-// forward (csrc/flash_attention_fwd.cu, lse [B*H, T]),
+// _bwd: _bwd_delta_kernel (delta = rowsum(dO * O), every dtype), and
+// _bwd_dq_kernel and _bwd_dkv_kernel for fp32 inputs (bf16 and fp16 take
+// the tensor-core kernels of csrc/flash_attention_bwd_tc.cu). Same function:
+// from the saved fp32 logsumexp of the forward (lse [B*H, T]),
 //   P  = exp(scale * q k^T - lse)          (0 where the causal mask hides a key)
 //   dV = P^T dO
 //   dS = P * (dO v^T - delta) * scale
@@ -30,20 +32,22 @@
 // 16-byte aligned), so the q/k/v views of the fused qkv projection need no
 // copy; dq/dk/dv are written contiguous [B, T|S, H, D].
 //
-// Numerics match stochastic_mode=False: every operand is widened to fp32 and
-// the products accumulate in fp32 on the CUDA cores (no tensor cores).
+// Numerics are the reference's fp32 function (stochastic_mode is the same
+// function for fp32 inputs): the products accumulate in fp32 on the CUDA
+// cores.
 //
 // What bounds it on the H100: at the GPT-2-125M training shape (B8, T=S=512,
 // H12, D64, causal) the backward does 5 products x 2*D flops for the
 // T(T+1)/2 visible pairs of each (b, h) -- about 5 GFLOP -- and moves q, k,
-// v, o, dO, lse, delta, dq, dk and dv once, about 25 MB in bf16. Without
-// tensor cores (67 TFLOP/s fp32) that is operation-bound at ~75 us; on bf16
-// tensor cores it would be memory-bound at ~8 us. This first kernel does fp32
-// FMA work on the CUDA cores, recomputes q k^T and dO v^T in both the dq and
-// the dkv pass (7 products instead of 5), and reads its operands through
-// shared memory, so it is bound by FMA issue and shared-memory bandwidth. The
-// fast design (wgmma on bf16 tiles, one pass for dk/dv and dq) is left to a
-// kernel-redesign PR.
+// v, o, dO, lse, delta, dq, dk and dv once, about 50 MB in fp32. Without
+// tensor cores (67 TFLOP/s fp32) that is operation-bound at ~75 us. The
+// kernels do fp32 FMA work on the CUDA cores, recompute q k^T and dO v^T in
+// both the dq and the dkv pass (7 products instead of 5), and read their
+// operands through shared memory, so they are bound by FMA issue and
+// shared-memory bandwidth. The tensor cores' route for fp32 (3xTF32) is left
+// to a later redesign.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -482,12 +486,12 @@ enum Pass { kDelta = 0, kDq = 1, kDkv = 2 };
 
 template <typename T, int D>
 cudaError_t run_pass(int pass, const Args& a) {
-  switch (pass) {
-    case kDelta: return launch_delta<T, D>(a);
-    case kDq: return launch_dq<T, D>(a);
-    case kDkv: return launch_dkv<T, D>(a);
-    default: return cudaErrorInvalidValue;
+  if (pass == kDelta) return launch_delta<T, D>(a);
+  if constexpr (std::is_same<T, float>::value) {  // 16-bit: flash_attention_bwd_tc.cu
+    if (pass == kDq) return launch_dq<T, D>(a);
+    if (pass == kDkv) return launch_dkv<T, D>(a);
   }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -534,7 +538,7 @@ extern "C" int ds_flash_attention_bwd_delta(const void* o, const void* dout, flo
   return dispatch(dtype, D, kDelta, a);
 }
 
-// dq (the counterpart of _bwd_dq_kernel).
+// dq (the counterpart of _bwd_dq_kernel), fp32 inputs.
 extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                          const void* dout, const float* lse, const float* delta,
                                          void* dq, int B, int H, int T, int S, int D, int dtype,
@@ -565,7 +569,7 @@ extern "C" int ds_flash_attention_bwd_dq(const void* q, const void* k, const voi
   return dispatch(dtype, D, kDq, a);
 }
 
-// dk and dv (the counterpart of _bwd_dkv_kernel).
+// dk and dv (the counterpart of _bwd_dkv_kernel), fp32 inputs.
 extern "C" int ds_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                           const void* dout, const float* lse, const float* delta,
                                           void* dk, void* dv, int B, int H, int T, int S, int D,

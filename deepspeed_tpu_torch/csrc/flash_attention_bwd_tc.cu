@@ -5,31 +5,35 @@
 // _bwd_dkv_kernel of deepspeed_tpu/ops/pallas/flash_attention.py (_bwd, the
 // pallas_calls at :291 and :309). fp32 inputs keep the CUDA-core kernels of
 // csrc/flash_attention_bwd.cu, and so does delta = rowsum(dO * O), which
-// both passes read. The function is that of the reference's default mode
-// (stochastic_mode=False, every operand widened to fp32):
+// both passes read. The function is that of the reference's _bwd_dq_kernel
+// and _bwd_dkv_kernel:
 //   P  = exp(scale * q k^T - lse)          (0 where the causal mask hides a key)
 //   dV = P^T dO,   dS = P * (dO v^T - delta) * scale,   dQ = dS k,   dK = dS^T q
 // with the causal mask aligned bottom-right (query row t sits at position
-// t + S - T), fp32 accumulators cast to the input dtype at the end.
+// t + S - T), fp32 accumulators cast to the input dtype at the end. Each
+// kernel has two instances a dtype (template flag kSingle): the default
+// mode (stochastic_mode=False, every operand widened to fp32) and
+// stochastic_mode (the reference's lo = the input dtype: P and dS cast once
+// to the input dtype for dV, dK and dQ, with no hi/lo and no row scale).
 //
 // Numerics. q k^T and dO v^T take the 16-bit operands as they come: their
-// products are exact in fp32 and wgmma sums them in fp32, so only the order
-// of the sum differs from the plain version. P and dS are fp32 in
-// registers; they enter dV, dK and dQ as a hi/lo pair (hi = T(x),
-// lo = T(x - hi), each product issued on both), which keeps x to ~2^-16
-// relative for bf16 where a single cast (the reference's stochastic_mode,
-// not ported) keeps 2^-8. fp16 keeps ~2^-22 against 2^-11, but only above
-// its subnormal range (2^-14 for hi, which puts lo there for every |x| below
-// ~2^-3): P of long rows and the dS of small gradients would lose most of
-// their bits. So fp16 first multiplies each row of P and dS by a running
-// power of two that puts the row's largest entry so far in [2^14, 2^15)
-// as it splits them (scale_rows, acc_to_a; when a later tile raises the
+// products are exact in fp32 and wgmma sums them in fp32, so only the order of
+// the sum differs from the plain version. P and dS are fp32 in registers; they
+// enter dV, dK and dQ as a hi/lo pair (hi = T(x), lo = T(x - hi), each product
+// issued on both), which keeps x to ~2^-16 relative for bf16 where a single
+// cast (the kSingle instances) keeps 2^-8. fp16 keeps ~2^-22 against 2^-11,
+// but only above its subnormal range (2^-14 for hi, which puts lo there for
+// every |x| below ~2^-3): P of long rows and the dS of small gradients would
+// lose most of their bits. So fp16 first multiplies each row of P and dS by a
+// running power of two that puts the row's largest entry so far in [2^14,
+// 2^15) as it splits them (scale_rows, acc_to_a; when a later tile raises the
 // row's largest, the row's fp32 accumulator is multiplied down by the same
-// power of two) and divides the accumulator by it at the end; all exact. dQ's dS rows are queries,
-// dV's P^T and dK's dS^T rows are keys. The score scale multiplies the fp32 accumulator
-// (the forward, csrc/flash_attention_fwd.cu, scales q in fp32 before its
-// product): at D 64 the scale is 1/8 and both are exact, at D 128 P differs
-// from the forward's by about one fp32 rounding of the score.
+// power of two) and divides the accumulator by it at the end; all exact. dQ's
+// dS rows are queries, dV's P^T and dK's dS^T rows are keys. The score scale
+// multiplies the fp32 accumulator, as the reference's backward and the
+// tensor-core forward (flash_attention_fwd_tc.cu) do. In stochastic_mode the
+// forward scored q rounded after its scale (T(q scale)), so at D 128 the
+// backward's P is not the forward's, as in the reference.
 //
 // Work split: two passes, no atomics. Every output element is written by one
 // block in a fixed order, so two runs give bitwise-equal gradients. (One
@@ -84,8 +88,27 @@ namespace {
 using namespace ds::tc;
 
 // fp16 operands take the running row scale of tc_tile.cuh (scale_rows)
-// before their hi/lo split; bf16 has fp32's exponent range and needs none
-template <typename T> constexpr bool kScaled = std::is_same<T, __half>::value;
+// before their hi/lo split; bf16 has fp32's exponent range and needs none,
+// and the single cast (stochastic_mode) takes none, as the reference's
+template <typename T, bool kSingle>
+constexpr bool kScaled = std::is_same<T, __half>::value && !kSingle;
+
+// dst += A B for one k step: A the hi/lo halves of the fp32 accumulator x
+// (times the rows' scales sc), or its single cast; B MN-major in shared memory.
+template <typename T, bool kSingle>
+__device__ __forceinline__ void mma_acc_a(float (&dst)[32], const float (&x)[32], int kk,
+                                          const float (&sc)[2], uint64_t db) {
+  if constexpr (kSingle) {
+    uint32_t a[4];
+    acc_to_a_single<T>(x, kk, a);
+    wgmma_rs_mn<T>(dst, a, db);
+  } else {
+    uint32_t hi[4], lo[4];
+    acc_to_a<T>(x, kk, hi, lo, sc);
+    wgmma_rs_mn<T>(dst, hi, db);
+    wgmma_rs_mn<T>(dst, lo, db);
+  }
+}
 
 constexpr int kTile = 64;     // rows of a q tile and of a k tile
 constexpr int kStages = 2;    // ring depth of the streamed tiles
@@ -136,7 +159,7 @@ __device__ __forceinline__ int acc_col(int l, int i) {
   return 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSingle>
 __global__ void __launch_bounds__(kWgThreads)
 flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const T* __restrict__ dout, const float* __restrict__ lse,
@@ -252,27 +275,22 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = s[i] * (dp[i] - dlt[(i >> 1) & 1]) * scale;
     float sc[2] = {1.f, 1.f};  // dS's row scale in the split (fp16 only)
-    if constexpr (kScaled<T>) {  // and dQ's sums so far brought to it
+    if constexpr (kScaled<T, kSingle>) {  // and dQ's sums so far brought to it
       float f[2];
       scale_rows(s, e_ds, sc, f);
 #pragma unroll
       for (int p = 0; p < NP; ++p) rescale_rows(acc[p], f);
     }
 
-    // dQ += dS_hi k + dS_lo k (A from registers, k MN-major)
+    // dQ += dS_hi k + dS_lo k, or T(dS) k (A from registers, k MN-major)
 #pragma unroll
     for (int p = 0; p < NP; ++p) fence_regs(acc[p]);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      acc_to_a<T>(s, kk, hi, lo, sc);
+    for (int kk = 0; kk < kTile / 16; ++kk)
 #pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        wgmma_rs_mn<T>(acc[p], hi, desc_mnmajor<kTile>(sK, p, kk));
-        wgmma_rs_mn<T>(acc[p], lo, desc_mnmajor<kTile>(sK, p, kk));
-      }
-    }
+      for (int p = 0; p < NP; ++p)
+        mma_acc_a<T, kSingle>(acc[p], s, kk, sc, desc_mnmajor<kTile>(sK, p, kk));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -295,7 +313,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSingle>
 __global__ void __launch_bounds__(kWgThreads * (D / kPanelCols))
 flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
@@ -407,23 +425,19 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
       st[i] = p;
     }
     float sc_p[2] = {1.f, 1.f};  // P^T's row scale in the split (fp16 only)
-    if constexpr (kScaled<T>) {
+    if constexpr (kScaled<T, kSingle>) {
       float f[2];
       scale_rows(st, e_p, sc_p, f);
       rescale_rows(acc_v, f);
     }
 
-    // dV += P^T_hi dO + P^T_lo dO on this warpgroup's 64 columns (dO read
-    // MN-major), issued before dS^T so the two overlap
+    // dV += P^T_hi dO + P^T_lo dO, or T(P^T) dO, on this warpgroup's 64
+    // columns (dO read MN-major), issued before dS^T so the two overlap
     fence_regs(acc_v);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      acc_to_a<T>(st, kk, hi, lo, sc_p);
-      wgmma_rs_mn<T>(acc_v, hi, desc_mnmajor<kTile>(sO, wg, kk));
-      wgmma_rs_mn<T>(acc_v, lo, desc_mnmajor<kTile>(sO, wg, kk));
-    }
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      mma_acc_a<T, kSingle>(acc_v, st, kk, sc_p, desc_mnmajor<kTile>(sO, wg, kk));
     wgmma_commit();
 
     // dS^T = P^T * (dP^T - delta) * scale into dpt (v dO^T is done once
@@ -433,22 +447,18 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 32; ++i) dpt[i] = st[i] * (dpt[i] - sD[acc_col(lane, i)]) * scale;
     float sc_ds[2] = {1.f, 1.f};  // dS^T's row scale in the split (fp16 only)
-    if constexpr (kScaled<T>) {
+    if constexpr (kScaled<T, kSingle>) {
       float f[2];
       scale_rows(dpt, e_ds, sc_ds, f);
       rescale_rows(acc_k, f);
     }
 
-    // dK += dS^T_hi q + dS^T_lo q (q read MN-major)
+    // dK += dS^T_hi q + dS^T_lo q, or T(dS^T) q (q read MN-major)
     fence_regs(acc_k);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t hi[4], lo[4];
-      acc_to_a<T>(dpt, kk, hi, lo, sc_ds);
-      wgmma_rs_mn<T>(acc_k, hi, desc_mnmajor<kTile>(sQ, wg, kk));
-      wgmma_rs_mn<T>(acc_k, lo, desc_mnmajor<kTile>(sQ, wg, kk));
-    }
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      mma_acc_a<T, kSingle>(acc_k, dpt, kk, sc_ds, desc_mnmajor<kTile>(sQ, wg, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc_k);
@@ -484,7 +494,7 @@ struct Args {
   int B, H, T, S;
   Strides qs, ks, vs, dos;
   float scale;
-  int causal;
+  int causal, single;
   cudaStream_t stream;
 };
 
@@ -494,13 +504,13 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSingle>
 cudaError_t launch_dq(const Args& a) {
   constexpr size_t smem = DqLayout<D>::bytes + 1024;
-  cudaError_t err = set_smem(flash_bwd_dq_tc_kernel<T, D>, smem);
+  cudaError_t err = set_smem(flash_bwd_dq_tc_kernel<T, D, kSingle>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.T + kTile - 1) / kTile);
-  flash_bwd_dq_tc_kernel<T, D><<<grid, kWgThreads, smem, a.stream>>>(
+  flash_bwd_dq_tc_kernel<T, D, kSingle><<<grid, kWgThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dq), a.H, a.T, a.S,
       a.qs.b, a.qs.t, a.qs.h, a.ks.b, a.ks.t, a.ks.h, a.vs.b, a.vs.t, a.vs.h,
@@ -508,13 +518,13 @@ cudaError_t launch_dq(const Args& a) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kSingle>
 cudaError_t launch_dkv(const Args& a) {
   constexpr size_t smem = DkvLayout<D>::bytes + 1024;
-  cudaError_t err = set_smem(flash_bwd_dkv_tc_kernel<T, D>, smem);
+  cudaError_t err = set_smem(flash_bwd_dkv_tc_kernel<T, D, kSingle>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
-  flash_bwd_dkv_tc_kernel<T, D><<<grid, kWgThreads * (D / kPanelCols), smem, a.stream>>>(
+  flash_bwd_dkv_tc_kernel<T, D, kSingle><<<grid, kWgThreads * (D / kPanelCols), smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.H, a.T, a.S,
@@ -525,17 +535,23 @@ cudaError_t launch_dkv(const Args& a) {
 
 enum Pass { kDq = 0, kDkv = 1 };
 
-template <typename T>
+template <typename T, bool kSingle>
 cudaError_t dispatch_dim(int D, int pass, const Args& a) {
-  if (D == 64) return pass == kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-  if (D == 128) return pass == kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+  if (D == 64) return pass == kDq ? launch_dq<T, 64, kSingle>(a) : launch_dkv<T, 64, kSingle>(a);
+  if (D == 128)
+    return pass == kDq ? launch_dq<T, 128, kSingle>(a) : launch_dkv<T, 128, kSingle>(a);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_mode(int D, int pass, const Args& a) {
+  return a.single ? dispatch_dim<T, true>(D, pass, a) : dispatch_dim<T, false>(D, pass, a);
 }
 
 cudaError_t dispatch(int dtype, int D, int pass, const Args& a) {
   switch (dtype) {  // fp32 runs the CUDA-core kernels of flash_attention_bwd.cu
-    case ds::kBF16: return dispatch_dim<__nv_bfloat16>(D, pass, a);
-    case ds::kF16: return dispatch_dim<__half>(D, pass, a);
+    case ds::kBF16: return dispatch_mode<__nv_bfloat16>(D, pass, a);
+    case ds::kF16: return dispatch_mode<__half>(D, pass, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -546,7 +562,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
                long long k_sb, long long k_st, long long k_sh,
                long long v_sb, long long v_st, long long v_sh,
                long long d_sb, long long d_st, long long d_sh,
-               float scale, int causal, void* stream) {
+               float scale, int causal, int single, void* stream) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -564,6 +580,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
   a.dos = {d_sb, d_st, d_sh};
   a.scale = scale;
   a.causal = causal;
+  a.single = single;
   a.stream = static_cast<cudaStream_t>(stream);
   return a;
 }
@@ -572,8 +589,9 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 
 // Each entry point launches one kernel on `stream` and returns the CUDA error
 // code of the launch (0 on success). The arguments are those of
-// ds_flash_attention_bwd_dq / _dkv in flash_attention_bwd.cu; dtype is 1
-// (bf16) or 2 (fp16), D 64 or 128.
+// ds_flash_attention_bwd_dq / _dkv in flash_attention_bwd.cu, with `single`
+// before the stream; dtype is 1 (bf16) or 2 (fp16), D 64 or 128; `single` 1
+// selects stochastic_mode's single-cast instances.
 
 // dq (the counterpart of _bwd_dq_kernel) on the tensor cores.
 extern "C" int ds_flash_attention_bwd_dq_tc(const void* q, const void* k, const void* v,
@@ -584,9 +602,10 @@ extern "C" int ds_flash_attention_bwd_dq_tc(const void* q, const void* k, const 
                                             long long k_sb, long long k_st, long long k_sh,
                                             long long v_sb, long long v_st, long long v_sh,
                                             long long d_sb, long long d_st, long long d_sh,
-                                            float scale, int causal, void* stream) {
+                                            float scale, int causal, int single,
+                                            void* stream) {
   Args a = make_args(q, k, v, dout, lse, delta, B, H, T, S, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-                     v_sb, v_st, v_sh, d_sb, d_st, d_sh, scale, causal, stream);
+                     v_sb, v_st, v_sh, d_sb, d_st, d_sh, scale, causal, single, stream);
   a.dq = dq;
   return dispatch(dtype, D, kDq, a);
 }
@@ -600,9 +619,10 @@ extern "C" int ds_flash_attention_bwd_dkv_tc(const void* q, const void* k, const
                                              long long k_sb, long long k_st, long long k_sh,
                                              long long v_sb, long long v_st, long long v_sh,
                                              long long d_sb, long long d_st, long long d_sh,
-                                             float scale, int causal, void* stream) {
+                                             float scale, int causal, int single,
+                                             void* stream) {
   Args a = make_args(q, k, v, dout, lse, delta, B, H, T, S, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
-                     v_sb, v_st, v_sh, d_sb, d_st, d_sh, scale, causal, stream);
+                     v_sb, v_st, v_sh, d_sb, d_st, d_sh, scale, causal, single, stream);
   a.dk = dk;
   a.dv = dv;
   return dispatch(dtype, D, kDkv, a);

@@ -1,7 +1,10 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface.
+// Flash-attention forward for Hopper (sm_90a) on the CUDA cores, for fp32
+// inputs; plain C interface.
 //
-// Replaces the TPU kernel deepspeed_tpu/ops/pallas/flash_attention.py:
-// _fwd / _fwd_kernel (the forward of flash_attention). Same function: for
+// Replaces, for fp32 inputs, the TPU kernel
+// deepspeed_tpu/ops/pallas/flash_attention.py: _fwd / _fwd_kernel (the
+// forward of flash_attention); bf16 and fp16 inputs take the tensor-core
+// kernel of csrc/flash_attention_fwd_tc.cu. Same function: for
 // each (batch, head), o = softmax(scale * q k^T + causal mask) v with the mask
 // aligned bottom-right (query row t sits at absolute position t + S - T), fp32
 // online-softmax state, l == 0 -> l_safe = 1, and the fp32 logsumexp of every
@@ -18,19 +21,17 @@
 // Inputs are read through their strides (last dimension contiguous), so the
 // q/k/v views of the fused qkv projection need no copy.
 //
-// Numerics match stochastic_mode=False: every operand is widened to fp32 and
-// both products accumulate in fp32 on the CUDA cores (no tensor cores).
+// Numerics are the reference's fp32 function (stochastic_mode is the same
+// function for fp32 inputs): both products accumulate in fp32 on the CUDA
+// cores.
 //
 // What bounds it on the H100: at the GPT-2-125M scoring shape (B4, T=S=512,
 // H12, D64, causal) it must do 2 products x 2*D flops for T(T+1)/2 score
 // entries per (b, h), about 1.6 GFLOP, and move q, k, v and o once, about
-// 25 MB in fp32. In fp32 without tensor cores (67 TFLOP/s) that is
-// compute-bound at about 24 us; in bf16 the bytes halve and tensor cores
-// would make it memory-bound at a few us. This first kernel does the fp32
-// arithmetic on the CUDA cores in every dtype and reads q and each k/v tile
-// through shared memory, so it is bound by fp32 FMA issue and shared-memory
-// bandwidth, well above both bounds in bf16. The fast design (wgmma on bf16
-// tiles fed by TMA, warp-specialised) is left to a kernel-redesign PR.
+// 25 MB in fp32. Without tensor cores (67 TFLOP/s) that is compute-bound at
+// about 24 us. The kernel reads q and each k/v tile through shared memory,
+// so it is bound by fp32 FMA issue and shared-memory bandwidth. The tensor
+// cores' route for fp32 (3xTF32) is left to a later redesign.
 
 #include "common.cuh"
 
@@ -241,28 +242,17 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
 
 }  // namespace
 
-// q [B, T, H, D], k/v [B, S, H, D] given by element strides (batch, seq, head;
-// the last dimension contiguous, rows 16-byte aligned); o [B, T, H, D]
-// contiguous in the input dtype; lse [B*H, T] fp32. Returns the CUDA error
-// code of the launch (0 on success).
+// q [B, T, H, D], k/v [B, S, H, D] fp32 (dtype 0) given by element strides
+// (batch, seq, head; the last dimension contiguous, rows 16-byte aligned);
+// o [B, T, H, D] contiguous; lse [B*H, T] fp32. Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int ds_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                       float* lse, int B, int H, int T, int S, int D, int dtype,
                                       long long q_sb, long long q_st, long long q_sh,
                                       long long k_sb, long long k_st, long long k_sh,
                                       long long v_sb, long long v_st, long long v_sh,
                                       float scale, int causal, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ds::kF32:
-      return dispatch_dim<float>(D, q, k, v, o, lse, B, H, T, S, q_sb, q_st, q_sh, k_sb, k_st,
-                                 k_sh, v_sb, v_st, v_sh, scale, causal, st);
-    case ds::kBF16:
-      return dispatch_dim<__nv_bfloat16>(D, q, k, v, o, lse, B, H, T, S, q_sb, q_st, q_sh,
-                                         k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, causal, st);
-    case ds::kF16:
-      return dispatch_dim<__half>(D, q, k, v, o, lse, B, H, T, S, q_sb, q_st, q_sh, k_sb, k_st,
-                                  k_sh, v_sb, v_st, v_sh, scale, causal, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (dtype != ds::kF32) return cudaErrorInvalidValue;  // 16-bit: flash_attention_fwd_tc.cu
+  return dispatch_dim<float>(D, q, k, v, o, lse, B, H, T, S, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                             v_sb, v_st, v_sh, scale, causal, static_cast<cudaStream_t>(stream));
 }

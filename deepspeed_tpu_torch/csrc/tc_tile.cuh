@@ -3,7 +3,7 @@
 // descriptors, the wgmma instructions themselves and the accumulator ->
 // A-fragment conversion (with the hi/lo split that keeps an fp32 operand to
 // ~2^-16, and for fp16 the running row scale that keeps the split above
-// fp16's subnormal range).
+// fp16's subnormal range; or one cast, stochastic_mode's function).
 //
 // Tile layout. A [R][D] tile of 16-bit elements (R a multiple of 8, D a
 // multiple of 64) is kept as D / 64 column panels of R rows x 128 bytes,
@@ -255,6 +255,14 @@ __device__ __forceinline__ void acc_to_a(const float (&x)[32], int kk, uint32_t 
     const float2 h = unpack2<T>(hi[j]);
     lo[j] = pack2<T>(a - h.x, b - h.y);
   }
+}
+
+// The A fragment of k step `kk` of an fp32 accumulator cast once to T
+// (stochastic_mode's function: ~2^-8 relative for bf16, 2^-11 for fp16).
+template <typename T>
+__device__ __forceinline__ void acc_to_a_single(const float (&x)[32], int kk, uint32_t (&a)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = pack2<T>(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
 }
 
 // ------------------------------------------------- fp16 running row scale

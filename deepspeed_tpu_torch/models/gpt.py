@@ -98,7 +98,7 @@ class GPTConfig:
     # (64 rows), and the tile size does not change the result
     flash_block_q: int = 256
     flash_block_k: int = 256
-    stochastic_mode: bool = False  # bf16 flash operands: raises in the kernel (B1 redesign)
+    stochastic_mode: bool = False  # flash attention's single-cast function (16-bit inputs)
     stochastic_depth: float = 0.0  # whole-block drop probability, training only
     local_attention_period: int = 0  # not ported (A2b)
     window_size: int = 256

@@ -1,15 +1,22 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``: the forward
-(``_fwd`` / ``_fwd_kernel``, B1) is ``csrc/flash_attention_fwd.cu``; the
-backward (``_bwd``: ``_bwd_delta_kernel``, ``_bwd_dq_kernel``,
-``_bwd_dkv_kernel``, B2) is ``csrc/flash_attention_bwd.cu`` for fp32 inputs
-and, for dq and dk/dv on bf16 / fp16 inputs, the tensor-core kernels of
-``csrc/flash_attention_bwd_tc.cu`` (delta stays on the first source in every
-dtype). Each source's header says how it is split and what bounds it.
-:class:`FlashAttention` is the counterpart of the reference's
+Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``. The forward
+(``_fwd`` / ``_fwd_kernel``, B1) is ``csrc/flash_attention_fwd_tc.cu`` on the
+tensor cores for bf16 / fp16 inputs and ``csrc/flash_attention_fwd.cu`` on
+the CUDA cores for fp32. The backward (``_bwd``: ``_bwd_delta_kernel``,
+``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, B2) is ``csrc/flash_attention_bwd.cu``
+for fp32 inputs and, for dq and dk/dv on bf16 / fp16 inputs, the tensor-core
+kernels of ``csrc/flash_attention_bwd_tc.cu`` (delta stays on the first
+source in every dtype). Each source's header says how it is split and what
+bounds it. :class:`FlashAttention` is the counterpart of the reference's
 ``jax.custom_vjp`` around ``_flash``: it saves (q, k, v, o, lse) in the
 forward and runs the three backward kernels.
+
+``stochastic_mode`` is the reference's second function (its kernels' ``lo``
+is the input dtype): q scaled in fp32 and rounded to the input dtype, P cast
+once for P V; in the backward dO, P and dS cast once for their products. For
+bf16 / fp16 inputs the tensor-core kernels have a single-cast instance of
+each; for fp32 inputs it is the default function.
 
 Every wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises.
@@ -31,15 +38,21 @@ HEAD_DIMS = (64, 128)  # the kernel's template instances
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
-# them to show that the main path went through the kernels): the forward, and
-# the backward's delta, dq and dk/dv passes (dq and dk/dv on fp32 inputs; the
-# _tc counters are the tensor-core kernels that bf16 / fp16 inputs take)
+# them to show that the main path went through the kernels): the forward and
+# the backward's delta, dq and dk/dv passes on fp32 inputs (the CUDA-core
+# kernels; delta in every dtype); the _tc counters are the tensor-core
+# kernels that bf16 / fp16 inputs take, the _tc_stochastic counters their
+# single-cast instances (stochastic_mode)
 launches = 0
+fwd_tc_launches = 0
+fwd_tc_stochastic_launches = 0
 bwd_delta_launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 bwd_dq_tc_launches = 0
 bwd_dkv_tc_launches = 0
+bwd_dq_tc_stochastic_launches = 0
+bwd_dkv_tc_stochastic_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -49,6 +62,16 @@ def _lib() -> ctypes.CDLL:
     lib.ds_flash_attention_fwd.argtypes = (
         [ptr] * 5 + [i32] * 6 + [i64] * 9 + [ctypes.c_float, i32, ptr])
     lib.ds_flash_attention_fwd.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_tc_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_fwd_tc")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ds_flash_attention_fwd_tc.argtypes = (
+        [ptr] * 5 + [i32] * 6 + [i64] * 9 + [ctypes.c_float, i32, i32, ptr])
+    lib.ds_flash_attention_fwd_tc.restype = i32
     return lib
 
 
@@ -72,9 +95,9 @@ def _bwd_tc_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd_tc")
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.ds_flash_attention_bwd_dq_tc.argtypes = (
-        [ptr] * 7 + [i32] * 6 + [i64] * 12 + [f32, i32, ptr])
+        [ptr] * 7 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, ptr])
     lib.ds_flash_attention_bwd_dkv_tc.argtypes = (
-        [ptr] * 8 + [i32] * 6 + [i64] * 12 + [f32, i32, ptr])
+        [ptr] * 8 + [i32] * 6 + [i64] * 12 + [f32, i32, i32, ptr])
     lib.ds_flash_attention_bwd_dq_tc.restype = i32
     lib.ds_flash_attention_bwd_dkv_tc.restype = i32
     return lib
@@ -82,6 +105,17 @@ def _bwd_tc_lib() -> ctypes.CDLL:
 
 def _scale(q: torch.Tensor, softmax_scale: Optional[float]) -> float:
     return softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(q.shape[-1])
+
+
+def _stochastic(q: torch.Tensor, stochastic: bool) -> bool:
+    """stochastic_mode's single-cast function applies to 16-bit inputs; for
+    fp32 ones it is the default function."""
+    return bool(stochastic) and q.dtype != torch.float32
+
+
+def _cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """fp32 ``x`` rounded once to ``dtype`` and widened back."""
+    return x.to(dtype).float()
 
 
 def _visible(T: int, S: int, causal: bool, device) -> Optional[torch.Tensor]:
@@ -93,12 +127,19 @@ def _visible(T: int, S: int, causal: bool, device) -> Optional[torch.Tensor]:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, softmax_scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: ``dot_product_attention`` with the
-    logsumexp, every operand widened to fp32 as the kernel does
-    (``stochastic_mode=False``). Returns (o [B, T, H, D] in q's dtype,
-    lse [B*H, T] fp32)."""
+                        causal: bool = True, softmax_scale: Optional[float] = None,
+                        stochastic: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the forward, the CPU path. The default is
+    ``dot_product_attention`` with the logsumexp, every operand widened to
+    fp32 (the reference's ``stochastic_mode=False``); ``stochastic`` with
+    16-bit inputs is the reference's single-cast function
+    (:func:`_tiled_forward`: q scaled in fp32 and rounded to its dtype, P
+    cast once, relative to each 64-key tile's running maximum as the
+    kernels hold it). Returns (o [B, T, H, D] in q's dtype, lse [B*H, T]
+    fp32)."""
+    if _stochastic(q, stochastic):
+        return _tiled_forward(q, k, v, causal, _scale(q, softmax_scale), True,
+                              lambda p: _cast(p, q.dtype))
     B, T, H, D = q.shape
     S = k.shape[1]
     logits = torch.einsum("bthd,bshd->bhts", q.float() * _scale(q, softmax_scale), k.float())
@@ -109,6 +150,72 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhts,bshd->bthd", probs, v.float()).to(q.dtype)
     return o, lse.reshape(B * H, T)
+
+
+# keys per tile of the tensor-core kernels: the forward's running maximum
+# and fp16's running row scale in the backward change only between tiles
+_TC_TILE = 64
+# the tensor-core forward holds fp16's P times 2^14 (so its lo half stays
+# above fp16's subnormal range; P <= 1 after the running maximum)
+FP16_P_EXP = 14
+
+
+def _running_tile_max(s: torch.Tensor) -> torch.Tensor:
+    """The running row maximum of [..., S] scores as a forward kernel holds it
+    while it streams keys in tiles of 64: each entry gets the maximum of its
+    row over its own and the earlier tiles."""
+    n = s.shape[-1]
+    a = torch.nn.functional.pad(s, (0, -n % _TC_TILE), value=NEG_INF)
+    m = a.reshape(*a.shape[:-1], -1, _TC_TILE).amax(-1)
+    m = torch.cummax(m, dim=-1).values
+    return m.repeat_interleave(_TC_TILE, -1)[..., :n]
+
+
+def _tiled_forward(q, k, v, causal: bool, scale: float, stochastic: bool, round_p
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core forward's arithmetic as plain PyTorch. Scores: the fp32
+    product times the scale, or with ``stochastic`` the product of q~ =
+    dtype(fp32(q) scale) and k (the reference's single-cast q). Each 64-key
+    tile's P = exp(s - m_t) is taken relative to the row's running maximum
+    m_t as of that tile and enters P V as ``round_p(P)`` (fp32 in, fp32
+    out), weighted by exp(m_t - m), which is what the kernel's rescales of
+    its accumulator by alpha amount to; l sums the unrounded P. Returns (o in
+    q's dtype, lse [B*H, T] fp32)."""
+    B, T, H, _ = q.shape
+    S = k.shape[1]
+    if stochastic:
+        s = torch.einsum("bthd,bshd->bhts", _cast(q.float() * scale, q.dtype), k.float())
+    else:
+        s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    visible = _visible(T, S, causal, q.device)
+    if visible is not None:
+        s = s.masked_fill(~visible, NEG_INF)
+    m_t = _running_tile_max(s)
+    m = m_t[..., -1:]
+    p = torch.exp(s - m_t)
+    w = torch.exp(m_t - m)
+    l = (p * w).sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = torch.einsum("bhts,bshd->bthd", round_p(p) * w / l_safe, v.float())
+    return o.to(q.dtype), (m + torch.log(l_safe)).reshape(B * H, T)
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = True, softmax_scale: Optional[float] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the tensor-core forward's rounding (bf16 / fp16
+    inputs, the default function): :func:`_tiled_forward` with each tile's P
+    entering P V as hi + lo halves of the input dtype, fp16's times
+    2^FP16_P_EXP before the split (exact both ways). For the tests: the CPU
+    path runs :func:`flash_attention_ref`, the reference's fp32 function."""
+    f = 2.0**FP16_P_EXP if q.dtype == torch.float16 else 1.0
+
+    def split(p: torch.Tensor) -> torch.Tensor:
+        y = p * f
+        hi = _cast(y, q.dtype)
+        return (hi + _cast(y - hi, q.dtype)) / f
+
+    return _tiled_forward(q, k, v, causal, _scale(q, softmax_scale), False, split)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -153,16 +260,19 @@ def _stream() -> int:
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, softmax_scale: Optional[float] = None
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        causal: bool = True, softmax_scale: Optional[float] = None,
+                        stochastic: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """q [B, T, H, D], k/v [B, S, H, D] -> (o [B, T, H, D] in q's dtype,
     lse [B*H, T] fp32). Causal masking is aligned bottom-right: query row t
-    sees keys up to t + S - T."""
-    global launches
+    sees keys up to t + S - T. On CUDA, bf16 / fp16 launch the tensor-core
+    kernel (its single-cast instance with ``stochastic``), fp32 the
+    CUDA-core kernel."""
+    global launches, fwd_tc_launches, fwd_tc_stochastic_launches
     _check(q, k, v)
     scale = _scale(q, softmax_scale)
+    stochastic = _stochastic(q, stochastic)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal, scale)
+        return flash_attention_ref(q, k, v, causal, scale, stochastic)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_kernel_layout(q, k, v)
@@ -170,25 +280,38 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S = k.shape[1]
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        status = lib.ds_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+    tc = q.dtype != torch.float32
+    lib = _fwd_tc_lib() if tc else _lib()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             B, H, T, S, D, DTYPE_CODE[q.dtype],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            scale, int(bool(causal)), _stream())
-    _build.check(lib, status, "flash_attention_fwd")
-    launches += 1
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale, int(bool(causal)))
+    with torch.cuda.device(q.device):
+        if tc:
+            status = lib.ds_flash_attention_fwd_tc(*args, int(stochastic), _stream())
+        else:
+            status = lib.ds_flash_attention_fwd(*args, _stream())
+    _build.check(lib, status, "flash_attention_fwd" + ("_tc" if tc else ""))
+    if stochastic:
+        fwd_tc_stochastic_launches += 1
+    elif tc:
+        fwd_tc_launches += 1
+    else:
+        launches += 1
     return o, lse
 
 
 # --------------------------------------------------------------------------- backward
 def _probs(q: torch.Tensor, k: torch.Tensor, lse: torch.Tensor, causal: bool,
-           scale: float) -> torch.Tensor:
-    """P = exp(scale * q k^T - lse) as [B, H, T, S] fp32, 0 where a key is hidden."""
+           scale: float, stochastic: bool = False) -> torch.Tensor:
+    """P = exp(scale * q k^T - lse) as [B, H, T, S] fp32, 0 where a key is
+    hidden; q scaled in fp32 first (as the CUDA-core kernels score), or with
+    ``stochastic`` the product scaled (the reference's backward order)."""
     B, T, H, _ = q.shape
     S = k.shape[1]
-    s = torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float())
+    if stochastic:
+        s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    else:
+        s = torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float())
     p = torch.exp(s - lse.reshape(B, H, T, 1))
     visible = _visible(T, S, causal, q.device)
     return p if visible is None else p.masked_fill(~visible, 0.0)
@@ -200,47 +323,58 @@ def flash_attention_bwd_delta_ref(o: torch.Tensor, do: torch.Tensor) -> torch.Te
     return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B * H, T)
 
 
-def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool, scale: float
-                               ) -> torch.Tensor:
+def _lo(q: torch.Tensor, stochastic: bool):
+    """The reference's ``astype(lo)`` of a product's fp32 operand: a single
+    cast to q's dtype in stochastic_mode, nothing otherwise."""
+    return (lambda x: _cast(x, q.dtype)) if stochastic else (lambda x: x)
+
+
+def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal: bool, scale: float,
+                               stochastic: bool = False) -> torch.Tensor:
     """Plain version of the dq kernel: dS = P * (dO v^T - delta) * scale,
-    dQ = dS k, in q's dtype."""
+    dQ = dS k, in q's dtype; with ``stochastic`` (16-bit inputs) dO and dS
+    cast once to q's dtype for their products."""
     B, T, H, _ = q.shape
-    p = _probs(q, k, lse, causal, scale)
-    dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+    stochastic = _stochastic(q, stochastic)
+    lo = _lo(q, stochastic)
+    p = _probs(q, k, lse, causal, scale, stochastic)
+    dp = torch.einsum("bthd,bshd->bhts", lo(do.float()), v.float())
     ds = p * (dp - delta.reshape(B, H, T, 1)) * scale
-    return torch.einsum("bhts,bshd->bthd", ds, k.float()).to(q.dtype)
+    return torch.einsum("bhts,bshd->bthd", lo(ds), k.float()).to(q.dtype)
 
 
-def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal: bool, scale: float
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal: bool, scale: float,
+                                stochastic: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the dk/dv kernel: dV = P^T dO, dK = dS^T q, in k's
-    and v's dtypes."""
+    and v's dtypes; with ``stochastic`` (16-bit inputs) P, dO and dS cast
+    once to q's dtype for their products."""
     B, T, H, _ = q.shape
-    p = _probs(q, k, lse, causal, scale)
-    dv = torch.einsum("bhts,bthd->bshd", p, do.float())
-    dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+    stochastic = _stochastic(q, stochastic)
+    lo = _lo(q, stochastic)
+    p = _probs(q, k, lse, causal, scale, stochastic)
+    do_lo = lo(do.float())
+    dv = torch.einsum("bhts,bthd->bshd", lo(p), do_lo)
+    dp = torch.einsum("bthd,bshd->bhts", do_lo, v.float())
     ds = p * (dp - delta.reshape(B, H, T, 1)) * scale
-    dk = torch.einsum("bhts,bthd->bshd", ds, q.float())
+    dk = torch.einsum("bhts,bthd->bshd", lo(ds), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
-                            softmax_scale: Optional[float] = None
+                            softmax_scale: Optional[float] = None, stochastic: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward, written with its explicit
     formulas (not autograd of the forward), every operand widened to fp32:
     P = exp(S * scale - lse), delta = rowsum(dO * O), dV = P^T dO,
-    dS = P * (dO V^T - delta) * scale, dQ = dS K, dK = dS^T Q."""
+    dS = P * (dO V^T - delta) * scale, dQ = dS K, dK = dS^T Q; with
+    ``stochastic`` (16-bit inputs) the reference's single-cast function: S
+    scaled after the product, P, dO and dS cast once to the input dtype for
+    the products."""
     scale = _scale(q, softmax_scale)
     delta = flash_attention_bwd_delta_ref(o, do)
-    dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale)
+    dq = flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale, stochastic)
+    dk, dv = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale, stochastic)
     return dq, dk, dv
-
-
-# the tensor-core kernels stream their rows' operands in tiles of this many
-# columns; fp16's running row scale changes only between tiles
-_TC_TILE = 64
 
 
 def _row_scale(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -331,54 +465,66 @@ def _bwd_route(q, k, v, do) -> Tuple[ctypes.CDLL, bool]:
     return (_bwd_tc_lib() if tc else _bwd_lib()), tc
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float
-                           ) -> torch.Tensor:
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
+                           stochastic: bool = False) -> torch.Tensor:
     """dq [B, T, H, D] in q's dtype (the dq kernel: tensor cores for bf16 /
-    fp16, CUDA cores for fp32)."""
-    global bwd_dq_launches, bwd_dq_tc_launches
+    fp16, their single-cast instance with ``stochastic``; CUDA cores for
+    fp32)."""
+    global bwd_dq_launches, bwd_dq_tc_launches, bwd_dq_tc_stochastic_launches
+    stochastic = _stochastic(q, stochastic)
     if q.device.type == "cpu":
-        return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale)
+        return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale, stochastic)
     lib, tc = _bwd_route(q, k, v, do)
     B, T, H, D = q.shape
     S = k.shape[1]
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
-    fn = lib.ds_flash_attention_bwd_dq_tc if tc else lib.ds_flash_attention_bwd_dq
-    with torch.cuda.device(q.device):
-        status = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), B, H, T, S, D, DTYPE_CODE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            scale, int(bool(causal)), _stream())
+            scale, int(bool(causal)))
+    with torch.cuda.device(q.device):
+        if tc:
+            status = lib.ds_flash_attention_bwd_dq_tc(*args, int(stochastic), _stream())
+        else:
+            status = lib.ds_flash_attention_bwd_dq(*args, _stream())
     _build.check(lib, status, "flash_attention_bwd_dq" + ("_tc" if tc else ""))
-    if tc:
+    if stochastic:
+        bwd_dq_tc_stochastic_launches += 1
+    elif tc:
         bwd_dq_tc_launches += 1
     else:
         bwd_dq_launches += 1
     return dq
 
 
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
+                            stochastic: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B, S, H, D] in k's dtype (the dk/dv kernel: tensor cores for
-    bf16 / fp16, CUDA cores for fp32)."""
-    global bwd_dkv_launches, bwd_dkv_tc_launches
+    bf16 / fp16, their single-cast instance with ``stochastic``; CUDA cores
+    for fp32)."""
+    global bwd_dkv_launches, bwd_dkv_tc_launches, bwd_dkv_tc_stochastic_launches
+    stochastic = _stochastic(q, stochastic)
     if q.device.type == "cpu":
-        return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale)
+        return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale, stochastic)
     lib, tc = _bwd_route(q, k, v, do)
     B, T, H, D = q.shape
     S = k.shape[1]
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, S, H, D), dtype=v.dtype, device=v.device)
-    fn = lib.ds_flash_attention_bwd_dkv_tc if tc else lib.ds_flash_attention_bwd_dkv
-    with torch.cuda.device(q.device):
-        status = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, T, S, D,
             DTYPE_CODE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            scale, int(bool(causal)), _stream())
+            scale, int(bool(causal)))
+    with torch.cuda.device(q.device):
+        if tc:
+            status = lib.ds_flash_attention_bwd_dkv_tc(*args, int(stochastic), _stream())
+        else:
+            status = lib.ds_flash_attention_bwd_dkv(*args, _stream())
     _build.check(lib, status, "flash_attention_bwd_dkv" + ("_tc" if tc else ""))
-    if tc:
+    if stochastic:
+        bwd_dkv_tc_stochastic_launches += 1
+    elif tc:
         bwd_dkv_tc_launches += 1
     else:
         bwd_dkv_launches += 1
@@ -387,12 +533,13 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
-                        softmax_scale: Optional[float] = None
+                        softmax_scale: Optional[float] = None, stochastic: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward from the forward's saved (q, k, v, o, lse [B*H, T]) and
     dO: (dq, dk, dv) in the shapes and dtypes of q, k, v. Three kernel
     launches on a CUDA device (delta, dq, dk/dv), the plain versions on the
-    CPU. dq and dk/dv run on the tensor cores for bf16 / fp16 inputs."""
+    CPU. dq and dk/dv run on the tensor cores for bf16 / fp16 inputs, with
+    ``stochastic`` their single-cast instances."""
     _check(q, k, v)
     if do.shape != q.shape or o.shape != q.shape or lse.shape != (q.shape[0] * q.shape[2],
                                                                   q.shape[1]):
@@ -407,8 +554,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     elif q.device.type != "cpu":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     delta = flash_attention_bwd_delta(o, do)
-    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale)
-    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale, stochastic)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale, stochastic)
     return dq, dk, dv
 
 
@@ -418,18 +565,21 @@ class FlashAttention(torch.autograd.Function):
     On CPU tensors both halves take their plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, softmax_scale: Optional[float]):
-        o, lse = flash_attention_fwd(q, k, v, causal, softmax_scale)
+    def forward(ctx, q, k, v, causal: bool, softmax_scale: Optional[float],
+                stochastic: bool = False):
+        o, lse = flash_attention_fwd(q, k, v, causal, softmax_scale, stochastic)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         ctx.softmax_scale = softmax_scale
+        ctx.stochastic = stochastic
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal, ctx.softmax_scale)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal, ctx.softmax_scale,
+                                         ctx.stochastic)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -439,10 +589,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :class:`FlashAttention`. Where no input needs a gradient (``no_grad``
     scoring and serving) autograd builds no graph, so nothing stays saved.
 
-    ``stochastic_mode`` (bf16 matmul operands) is not ported: it raises
-    until the kernel-redesign PR (ROADMAP.md queue B, B1)."""
-    if stochastic_mode:
-        raise NotImplementedError(
-            "flash_attention stochastic_mode is not ported yet "
-            "(ROADMAP.md queue B: B1 kernel redesign)")
-    return FlashAttention.apply(q, k, v, causal, softmax_scale)
+    ``stochastic_mode`` trades bit-exactness for speed, as the reference's:
+    for bf16 / fp16 inputs q is rounded to the input dtype after its scale
+    and P, dO and dS are cast once for their products (the kernels' single-
+    cast instances); fp32 inputs compute the default function."""
+    return FlashAttention.apply(q, k, v, causal, softmax_scale, bool(stochastic_mode))

@@ -81,6 +81,24 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
         fa.flash_attention_fwd(q, k.double(), v)
     with pytest.raises(ValueError, match="does not match"):
         fa.flash_attention_fwd(q, k[:, :, :1], v)
-    with pytest.raises(NotImplementedError, match="stochastic_mode"):
-        fa.flash_attention(q, k, v, stochastic_mode=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stochastic_mode_runs_on_cpu_as_the_single_cast_version(dtype):
+    """stochastic_mode runs on CPU tensors through the autograd Function and
+    equals the single-cast plain versions (for fp32 the default function),
+    launching no kernel."""
+    q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(128, 128, seed=4))
+    do = torch.from_numpy(_qkv(128, 128, seed=5)[0]).to(dtype)
+    counters = [getattr(fa, c) for c in ("launches", "fwd_tc_launches",
+                                         "fwd_tc_stochastic_launches")]
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    out = fa.flash_attention(qr, kr, vr, stochastic_mode=True)
+    grads = torch.autograd.grad(out, (qr, kr, vr), do)
+    o_ref, lse = fa.flash_attention_ref(q, k, v, stochastic=True)
+    torch.testing.assert_close(out.detach(), o_ref, rtol=0, atol=0)
+    for g, r in zip(grads, fa.flash_attention_bwd_ref(q, k, v, o_ref, lse, do, stochastic=True)):
+        torch.testing.assert_close(g, r, rtol=0, atol=0)
+    assert [getattr(fa, c) for c in ("launches", "fwd_tc_launches",
+                                     "fwd_tc_stochastic_launches")] == counters
 

@@ -15,7 +15,7 @@ from deepspeed_tpu_torch.ops.cuda import decode_attention as da
 from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
-from _torch_ulps import ulp_err
+from _torch_ulps import ulp_err, ulp_of_max_err
 
 # fp32: the kernel and the plain version both accumulate in fp32, in another
 # order; bf16: both round the output to bf16 (2^-8 relative)
@@ -36,21 +36,139 @@ def _normal(shape, device, dtype, seed):
     return torch.from_numpy(x).to(device, dtype)
 
 
+_FWD_COUNTERS = ("launches", "fwd_tc_launches", "fwd_tc_stochastic_launches")
+_FLASH_COUNTERS = _FWD_COUNTERS + (
+    "bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches", "bwd_dq_tc_launches",
+    "bwd_dkv_tc_launches", "bwd_dq_tc_stochastic_launches", "bwd_dkv_tc_stochastic_launches")
+
+
+def _counts(names=_FLASH_COUNTERS):
+    return {c: getattr(fa, c) for c in names}
+
+
+def _moved(before, after):
+    """The counters that moved, and by how much."""
+    return {c: after[c] - n for c, n in before.items() if after[c] != n}
+
+
+def _fused_qkv(T, S, H, D, device, dtype, seed):
+    """q [B, T, H, D] and k, v [B, S, H, D] as strided views of one fused
+    [B, S, 3HD] buffer (the model's qkv projection; q its last T rows)."""
+    qkv = _normal((2, S, 3 * H * D), device, dtype, seed)
+    k = qkv[..., H * D:2 * H * D].reshape(2, S, H, D)
+    v = qkv[..., 2 * H * D:].reshape(2, S, H, D)
+    return qkv[:, S - T:, :H * D].reshape(2, T, H, D), k, v
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", TOLERANCES)
 @pytest.mark.parametrize("T,S,causal,D", [(512, 512, True, 64), (128, 512, True, 64),
                                           (256, 256, False, 64), (256, 256, True, 128)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, atol, T, S, causal, D):
+    """B1 vs its plain version: fp32 launches the CUDA-core kernel
+    (``launches``), bf16 the tensor-core one (``fwd_tc_launches``)."""
     q = _normal((2, T, 3, D), cuda_device, dtype, 0)
     k = _normal((2, S, 3, D), cuda_device, dtype, 1)
     v = _normal((2, S, 3, D), cuda_device, dtype, 2)
-    before = fa.launches
+    before = _counts(_FWD_COUNTERS)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
+    route = "launches" if dtype == torch.float32 else "fwd_tc_launches"
+    assert _moved(before, _counts(_FWD_COUNTERS)) == {route: 1}
     o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
     assert (o.float() - o_ref.float()).abs().max().item() <= atol
     assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("T,S,causal,D", [(512, 512, True, 64), (128, 512, True, 64),
+                                          (256, 256, False, 64), (512, 512, True, 128),
+                                          (100, 200, True, 64), (200, 200, False, 128)])
+def test_flash_forward_tc_kernel_within_two_ulps_and_rerun_bitwise(cuda_device, dtype, T, S,
+                                                                   causal, D):
+    """The tensor-core B1 on fused-qkv views: within 2 ulps of its dtype of
+    the fp32 function and of flash_attention_split_ref (its rounding) on
+    entries of at least 1e-3 of the largest, lse within 1e-4, bitwise on a
+    re-run; a single cast of P is not within 2 ulps."""
+    q, k, v = _fused_qkv(T, S, 3, D, cuda_device, dtype, 20)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    again, lse_again = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again) and torch.equal(lse, lse_again)
+    ref, lse_ref = fa.flash_attention_ref(q, k, v, causal)
+    split, _ = fa.flash_attention_split_ref(q, k, v, causal)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert ulp_err(o, ref, dtype) <= 2.0
+    assert ulp_err(o, split, dtype) <= 2.0
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    cast, _ = fa.flash_attention_ref(q, k, v, causal, stochastic=True)
+    assert ulp_err(cast, ref, dtype) > 2.0
+
+
+def _single_cast_close(x, ref, dtype):
+    """A kernel's single-cast (stochastic_mode) output against its plain
+    version: where the two fp32 values of a term straddle a rounding
+    boundary of the dtype they round apart (more often for fp16's 11-bit
+    P than for bf16's 8-bit one), so the bar is 2 ulps at the largest entry
+    and bitwise on at least 95% of the entries."""
+    assert ulp_of_max_err(x, ref, dtype) <= 2.0
+    assert (x.float() == ref.float()).float().mean().item() >= 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("T,S,causal,D", [(512, 512, True, 64), (128, 512, True, 64),
+                                          (256, 256, False, 128), (100, 200, True, 64)])
+def test_flash_stochastic_kernels_match_single_cast_plain(cuda_device, dtype, T, S, causal, D):
+    """stochastic_mode on the card: the single-cast instances of B1 and of
+    B2's tensor-core dq and dk/dv against the single-cast plain versions
+    (from the kernel's own lse), bitwise on a re-run, one launch each of
+    the _tc_stochastic counters (delta as always) and none of the others."""
+    q, k, v = _fused_qkv(T, S, 3, D, cuda_device, dtype, 21)
+    do = _normal((2, T, 3, D), cuda_device, dtype, 22)
+    before = _counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, stochastic=True)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, stochastic=True)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, stochastic=True)
+    o2, _ = fa.flash_attention_fwd(q, k, v, causal, stochastic=True)
+    torch.cuda.synchronize()
+    assert _moved(before, _counts()) == {
+        "fwd_tc_stochastic_launches": 2, "bwd_delta_launches": 2,
+        "bwd_dq_tc_stochastic_launches": 2, "bwd_dkv_tc_stochastic_launches": 2}
+    assert torch.equal(o, o2)
+    o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal, stochastic=True)
+    _single_cast_close(o, o_ref, dtype)
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, stochastic=True)
+    for g, g2, r in zip(grads, again, ref):
+        assert g.dtype == dtype and torch.equal(g, g2)
+        _single_cast_close(g, r, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,stochastic,path", [
+    (torch.float32, False, ("launches", "bwd_dq_launches", "bwd_dkv_launches")),
+    (torch.float32, True, ("launches", "bwd_dq_launches", "bwd_dkv_launches")),
+    (torch.bfloat16, False, ("fwd_tc_launches", "bwd_dq_tc_launches", "bwd_dkv_tc_launches")),
+    (torch.bfloat16, True, ("fwd_tc_stochastic_launches", "bwd_dq_tc_stochastic_launches",
+                            "bwd_dkv_tc_stochastic_launches")),
+    (torch.float16, False, ("fwd_tc_launches", "bwd_dq_tc_launches", "bwd_dkv_tc_launches")),
+    (torch.float16, True, ("fwd_tc_stochastic_launches", "bwd_dq_tc_stochastic_launches",
+                           "bwd_dkv_tc_stochastic_launches")),
+], ids=["fp32", "fp32-stochastic", "bf16", "bf16-stochastic", "fp16", "fp16-stochastic"])
+def test_flash_routes_by_dtype_and_mode(cuda_device, dtype, stochastic, path):
+    """One forward and backward through FlashAttention launch exactly the
+    route's kernels once each (delta in every dtype): fp32 the CUDA-core
+    kernels (stochastic_mode is the default function there), bf16 / fp16
+    the tensor-core ones, their single-cast instances with stochastic_mode."""
+    q, k, v = (_normal((2, 256, 4, 64), cuda_device, dtype, s).requires_grad_(True)
+               for s in (30, 31, 32))
+    before = _counts()
+    out = fa.flash_attention(q, k, v, causal=True, stochastic_mode=stochastic)
+    torch.autograd.grad(out, (q, k, v), _normal(out.shape, cuda_device, dtype, 33))
+    torch.cuda.synchronize()
+    assert _moved(before, _counts()) == {c: 1 for c in path + ("bwd_delta_launches",)}
 
 
 @pytest.mark.cuda
