@@ -11,9 +11,10 @@ result line):
 1. build: nvcc builds every kernel under ``deepspeed_tpu_torch/csrc`` (one
    process per source, all at once; ptxas's registers and spills printed);
    TF32 is switched off for fp32 products; each tensor-core kernel (B1's
-   forward, B2's dq and dk/dv) has its 8 instances (bf16 / fp16, D 64 /
-   128, the default and the single-cast function) and every one holds
-   HGMMA instructions in its SASS (``cuobjdump -sass`` of the library).
+   forward, B2's dq and dk/dv: 8 instances, bf16 / fp16, D 64 / 128, the
+   default and the single-cast function; B6/B7's: 8, bf16 / fp16 x int8 /
+   int4 x 64 / 128 rows a block) has its instances and every one holds HGMMA instructions in its
+   SASS (``cuobjdump -sass`` of the library).
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
    card inputs, at the shapes of the serving, scoring and training paths,
    with the kernel's time, the plain version's, one PyTorch library call's
@@ -53,7 +54,15 @@ result line):
    and bf16 x), M = 1 and 37, an effective block of 96, a block of 128, the
    [768, 2304] leaf and ragged D and F, bitwise on a re-run; its library
    yardstick is cuBLAS fp32 (TF32 off) over the weight already dequantized,
-   with the dequantize + cuBLAS time beside it, and ptxas's report. B9
+   with the dequantize + cuBLAS time beside it, and ptxas's report. B6/B7
+   through their routes (fp32 and bf16, M 1-256, the 8 projection shapes of
+   GPT-2-125M and gpt2-350m), then on the tensor cores at those shapes, M
+   16-256, bf16 and fp16, groups 128 and 64: at most 2 ulps of the dtype of
+   the fp32 plain version (entries of at least 1e-3 of the largest), bitwise
+   on a re-run; in bf16 at group 128 the tensor-core and the CUDA-core
+   kernel timed on the same inputs at every M and at the crossover rows 8-64
+   (the speedup at M=256 against the target of 3, and against cuBLAS
+   against 1.5, reported), with plain / cuBLAS / bound times. B9
    (blocksparse attention: forward, dq with delta, dk/dv) over nine layouts
    (the sparse GPT-2-125M's Fixed unidirectional layout of 128-blocks at
    phase 10a's B2 x T1024 fp32 and 10b's B2 x T4096 bf16, the main-path
@@ -98,7 +107,7 @@ result line):
    match rate against the gather path (at least 0.5) and (a), and the bytes
    a cached token costs.
 7. quantized-weight inference (weights int8 or int4, group 128, through the
-   B6 / B7 kernels in every decode projection). (a) GPT-2-125M fp32,
+   B6 / B7 kernels in every projection of at most 256 rows). (a) GPT-2-125M fp32,
    ``init_inference(..., quant=...)``, B4, prompt 512, +64: tokens identical
    to a dense fp32 engine over the dequantized tree; B6 or B7 launch 4 x 12
    x 63 times (prefill, 2048 rows, takes the dequantize-then-matmul route)
@@ -110,7 +119,13 @@ result line):
    profile of 8 decode steps. (c) phase 6's serving run over
    ``quantize_for_inference(bits=8)`` weights, fp32, dense pools: every
    request finishes, the audit is clean, tokens equal serving over the
-   dequantized dense tree, and B6 launches 48 times per decode step.
+   dequantized dense tree, and B6 launches 48 times per decode step. (d)
+   phase 6's serving run in bf16 over int8 and over int4 weights: every
+   request finishes, the audit is clean, each prefill forward of 9-256 rows
+   launches the tensor-core B6/B7 48 times, each decode step the CUDA-core
+   kernel 48 times, each larger prefill neither; TTFT, TPOT, tokens/s, the
+   greedy match against the dequantized dense tree (reported only) and a
+   profile of one 128-row prefill forward with B6/B7's share.
 8. speculative serving (n-gram drafts unless named, spec_k 4, decode_block
    1), every verify window's attention through B5. (a) phase 6's
    configuration, fp32 dense pools: tokens equal 6a's spec-off tokens and
@@ -162,7 +177,7 @@ Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the CUDA-core flash kernels only, bf16 paths the tensor-core ones
 only). The last lines are the card's name and power limit (nvidia-smi), a
-``{"kernels": [...]}`` line (20 kernels) and the ``{"ok": true, ...}`` line.
+``{"kernels": [...]}`` line (22 kernels) and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -228,11 +243,13 @@ BWD_PATH = {"float32": BWD_KERNELS, "bfloat16": ("delta", *BWD_TC_KERNELS),
 # tensor-core one for bf16 / fp16 (its single-cast instance in stochastic_mode)
 FWD_PATH = {"float32": ("fwd",), "bfloat16": ("fwd_tc",), "stochastic": ("fwd_tc_stochastic",)}
 # each tensor-core library, the kernels whose every instance must hold wgmma
-# (HGMMA in SASS), and their instances: bf16 / fp16 x D 64 / 128 x the
-# default and the single-cast (stochastic_mode) function
-TC_KERNELS = {"flash_attention_fwd_tc": ("flash_fwd_tc_kernel",),
-              "flash_attention_bwd_tc": ("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")}
-TC_INSTANCES = 8
+# (HGMMA in SASS), and their instances
+# (flash: bf16 / fp16 x D 64 / 128 x the default and the single-cast
+# (stochastic_mode) function; B6/B7: bf16 / fp16 x int8 / int4 x 64 / 128
+# rows a block)
+TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel",), 8),
+              "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"), 8),
+              "int8_matmul_tc": (("qmatmul_tc_kernel",), 8)}
 # stochastic_mode's kernels against their single-cast plain versions: a
 # term whose two fp32 values straddle a rounding boundary of the dtype
 # rounds apart, so at most 2 ulps of the dtype at the largest entry and
@@ -242,6 +259,10 @@ TC_INSTANCES = 8
 SINGLE_MAX_ULP = 2
 SINGLE_EQUAL = 0.95
 QMM_SRC = "deepspeed_tpu_torch/csrc/int8_matmul.cu"
+QMM_TC_SRC = "deepspeed_tpu_torch/csrc/int8_matmul_tc.cu"
+# the quantized-weight launch counters, by kernel: CUDA cores, tensor cores
+QMM_COUNTERS = {"int8": "int8_launches", "int4": "int4_launches",
+                "int8_tc": "int8_tc_launches", "int4_tc": "int4_tc_launches"}
 QMM_TPU = {"int8": "deepspeed_tpu/ops/pallas/int8_matmul.py:42",
            "int4": "deepspeed_tpu/ops/pallas/int8_matmul.py:145"}
 QUANT_GROUP = 128
@@ -435,14 +456,14 @@ def phase_build(torch, ctx):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"phase1 ptxas {name}: {line.strip()}")
-    for lib, kernels in TC_KERNELS.items():
+    for lib, (kernels, instances) in TC_KERNELS.items():
         counts = sass_tensor_ops(_build, lib)
         for kernel in kernels:
             per_instance = sorted(c for fn, c in counts.items() if kernel in fn)
             log(f"phase1 sass {lib} {kernel}: {len(per_instance)} instances, "
                 f"HGMMA per instance {per_instance}")
-            check(len(per_instance) == TC_INSTANCES and min(per_instance) > 0,
-                  f"{kernel} in {lib}: {len(per_instance)} instances, expected {TC_INSTANCES}, "
+            check(len(per_instance) == instances and min(per_instance) > 0,
+                  f"{kernel} in {lib}: {len(per_instance)} instances, expected {instances}, "
                   f"each with wgmma ({per_instance})")
 
 
@@ -772,9 +793,12 @@ def qmm_bound(M, D, F, group, bits, dtype, elt):
 def phase_kernels_qmatmul(torch, ctx):
     """B6 (int8) and B7 (int4) against their plain versions at the four
     projection shapes of GPT-2-125M and of gpt2-350m, at the decode and
-    prefill-chunk row counts, group 128, fp32 and bf16; int8 also at group 64
-    and at a group that crosses rows. The kernels' rows of the result line
-    are GPT-2-125M's mlp_up at M=4 in fp32, phase 7a's decode shape."""
+    prefill-chunk row counts, group 128, fp32 and bf16, each through the
+    kernel its route names (bf16 at 64 and 256 rows: the tensor cores); int8
+    also at group 64 and at a group that crosses rows. The CUDA-core
+    kernels' rows of the result line are GPT-2-125M's mlp_up at M=4 in fp32,
+    phase 7a's decode shape. Then the tensor-core kernel's own cases
+    (phase_kernels_qmatmul_tc)."""
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
     from deepspeed_tpu_torch.ops.quantizer import dequantize, quantize
 
@@ -799,6 +823,7 @@ def phase_kernels_qmatmul(torch, ctx):
         x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
         kernel_fn, plain_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
                                else (im.int8_matmul, im.int8_matmul_ref))
+        route = im.qmm_route(M, dtype, D, F, group, bits)
         out = kernel_fn(x, q, s, group)
         again = kernel_fn(x, q, s, group)
         torch.cuda.synchronize()
@@ -812,7 +837,7 @@ def phase_kernels_qmatmul(torch, ctx):
         library_ms = timer.ms(lambda: torch.matmul(x, w_dense))
         bound_ms, bound_by = qmm_bound(M, D, F, group, bits, dt, x.element_size())
         name = "int4_matmul" if bits == 4 else "int8_matmul"
-        log(f"phase2 {name} M{M} D{D} F{F} group{group} {dt}: max_abs_err={err:.3e} "
+        log(f"phase2 {name} M{M} D{D} F{F} group{group} {dt} route={route}: max_abs_err={err:.3e} "
             f"rel_err={rel:.3e} bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms(cuBLAS dense, dequantize excluded)="
             f"{library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
@@ -823,6 +848,122 @@ def phase_kernels_qmatmul(torch, ctx):
                                          bound_ms=bound_ms, bound_by=bound_by)
     for bits in (8, 4):
         ctx[f"qmm_int{bits}"]["max_abs_err"] = errs[bits]
+    phase_kernels_qmatmul_tc(torch, ctx)
+
+
+QMM_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768),
+              (1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+# B6/B7 on the tensor cores against the fp32 plain version, in ulps of x's
+# dtype: w enters as hi + lo halves (~2^-16 of w in bf16, ~2^-22 in fp16),
+# the fp32 sums run in another order, and both round once to the dtype
+QMM_TC_MAX_ULP = 2
+# the row counts the tensor-core cases cover (verify windows 40-80, prefill
+# chunks 32-128, a batched admission 256), and the crossover rows at which
+# both kernels are timed
+QMM_TC_ROWS = (16, 32, 40, 64, 100, 128, 256)
+QMM_CROSSOVER_ROWS = (8, 16, 32, 40, 64)
+# PR 9's CUDA-core times at M=256 bf16, group 128 (PERF.md kernel table)
+# are re-timed in this run beside the tensor-core kernel; the redesign's
+# target is at least this factor faster on each shape (reported)
+QMM_TC_TARGET_SPEEDUP = 3.0
+
+
+def phase_kernels_qmatmul_tc(torch, ctx):
+    """B6 / B7 on the tensor cores (``csrc/int8_matmul_tc.cu``) at the 8
+    projection shapes of GPT-2-125M and gpt2-350m, M in QMM_TC_ROWS, bf16
+    and fp16 x, groups 128 and 64: at most QMM_TC_MAX_ULP ulps of the dtype
+    of the fp32 plain version on the entries of at least 1e-3 of the
+    largest, bitwise on a re-run, two tensor-core launches and no other.
+    bf16 at group 128 is timed at every M and at the crossover rows: the
+    tensor-core kernel, the CUDA-core kernel on the same inputs (each
+    launched directly, whatever the route), the plain version, cuBLAS over
+    the weight already dequantized to bf16, and the bound; fp16 at M=256.
+    The result line's rows are mlp_up (768 x 3072) at M=128, a prefill
+    chunk of phase 7d, bf16, group 128."""
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
+    from deepspeed_tpu_torch.ops.quantizer import dequantize, quantize
+
+    timer = ctx["timer"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = {8: 0.0, 4: 0.0}
+    worst_ulp = {"bfloat16": 0.0, "float16": 0.0}
+    speedups = {}
+    for bits in (8, 4):
+        name = f"int{bits}_matmul"
+        kernel_fn, plain_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
+                               else (im.int8_matmul, im.int8_matmul_ref))
+        for D, F in QMM_SHAPES:
+            for group in (QUANT_GROUP, 64):
+                w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
+                q, s = quantize(w, bits=bits, num_groups=D * F // group)
+                q = im.pack_int4(q) if bits == 4 else q
+                w_bf16 = dequantize(im.unpack_int4(q) if bits == 4 else q, s, torch.bfloat16)
+                rows = sorted(set(QMM_TC_ROWS) | (set(QMM_CROSSOVER_ROWS) if group == QUANT_GROUP
+                                                  else set()))
+                for M in rows:
+                    for dt in ("bfloat16", "float16"):
+                        dtype = getattr(torch, dt)
+                        x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
+                        tag = f"{name} M{M} D{D} F{F} group{group} {dt}"
+                        line = f"phase2 {tag}"
+                        if M in QMM_TC_ROWS:
+                            before = {k: getattr(im, c) for k, c in QMM_COUNTERS.items()}
+                            out = kernel_fn(x, q, s, group)
+                            again = kernel_fn(x, q, s, group)
+                            torch.cuda.synchronize()
+                            moved = {k: getattr(im, c) - before[k]
+                                     for k, c in QMM_COUNTERS.items()}
+                            ref = plain_fn(x.float(), q, s, group)
+                            ulps = ulp_err(torch, out, ref, dtype)
+                            err = (out.float() - ref).abs().max().item()
+                            bitwise = torch.equal(out, again)
+                            worst[bits] = max(worst[bits], err)
+                            worst_ulp[dt] = max(worst_ulp[dt], ulps)
+                            line += (f" route=tc: max_ulp_err={ulps:.2f} max_abs_err={err:.3e} "
+                                     f"bitwise_rerun={bitwise} launches={moved}")
+                            check(bitwise, f"{tag}: two runs differ")
+                            check(ulps <= QMM_TC_MAX_ULP, f"{tag}: {ulps} {dt} ulps")
+                            want = {k: 2 if k == f"int{bits}_tc" else 0 for k in QMM_COUNTERS}
+                            check(moved == want, f"{tag}: launches {moved}, expected {want}")
+                            del out, again, ref
+                        timed = group == QUANT_GROUP and (dt == "bfloat16" or M == 256)
+                        if timed:
+                            tc_ms = timer.ms(lambda: im._launch_tc(name, x, q, s, F, group, bits))
+                            line += f" tc_ms={tc_ms:.4f}"
+                        if timed and dt == "bfloat16":
+                            cc_ms = timer.ms(lambda: im._launch(name, x, q, s, F, group, bits))
+                            plain_ms = timer.ms(lambda: plain_fn(x, q, s, group))
+                            library_ms = timer.ms(lambda: torch.matmul(x, w_bf16))
+                            bound_ms, bound_by = qmm_bound(M, D, F, group, bits, dt, 2)
+                            line += (f" cuda_cores_ms={cc_ms:.4f} plain_ms={plain_ms:.4f} "
+                                     f"library_ms(cuBLAS bf16, dequantize excluded)="
+                                     f"{library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
+                                     f"cuda_cores/tc={cc_ms / tc_ms:.2f} "
+                                     f"tc/cublas={tc_ms / library_ms:.2f} "
+                                     f"plan={im.tc_plan(M, D, F, sms)}")
+                            if M == 256:
+                                speedups[(bits, D, F)] = (cc_ms / tc_ms, tc_ms / library_ms)
+                            if (D, F, M) == (768, 3072, 128):
+                                ctx[f"qmm_tc_int{bits}"] = dict(
+                                    ms=tc_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+                        log(line)
+                del w, q, s, w_bf16
+    for bits in (8, 4):
+        ctx[f"qmm_tc_int{bits}"]["max_abs_err"] = worst[bits]
+    for (bits, D, F), (fast, vs_lib) in speedups.items():
+        log(f"phase2 int{bits}_matmul_tc M256 D{D} F{F} bf16: {fast:.2f}x faster than the "
+            f"CUDA-core kernel (target {QMM_TC_TARGET_SPEEDUP}: "
+            f"{'met' if fast >= QMM_TC_TARGET_SPEEDUP else 'missed'}), {vs_lib:.2f}x cuBLAS "
+            f"(target 1.5: {'met' if vs_lib <= 1.5 else 'missed'})")
+    log(f"phase2 int8/int4_matmul_tc: largest ulps bf16={worst_ulp['bfloat16']:.2f} "
+        f"fp16={worst_ulp['float16']:.2f} over {len(QMM_SHAPES) * len(QMM_TC_ROWS) * 8} cases")
+    for line in _build.build_logs.get("int8_matmul_tc", "").splitlines():
+        if "registers" in line or "spill" in line or "C75" in line:
+            log(f"phase2 int8_matmul_tc ptxas: {line.strip()}")
+    torch.cuda.empty_cache()
 
 
 def phase_kernels_paged(torch, ctx):
@@ -1378,7 +1519,8 @@ def _reset_counts():
     da.launches = 0
     da.paged_launches = da.paged_kv8_launches = da.paged_kv4_launches = 0
     da.verify_launches = da.verify_kv8_launches = da.verify_kv4_launches = 0
-    im.int8_launches = im.int4_launches = 0
+    for counter in QMM_COUNTERS.values():
+        setattr(im, counter, 0)
     dqm.launches = 0
     bs.launches = bs.bwd_dq_launches = bs.bwd_dkv_launches = 0
     return fa, da
@@ -1703,9 +1845,11 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
     just after. Checks what the path must launch: B4 12 times a decode step,
     B5 12 times a verify window (by pool kind; neither on the gather path),
     B3 12 times a single-token draft-model forward and never otherwise, B1
-    never, B6/B7 4 per layer per decode step and per verify window over a
-    quantized tree. Returns the report, the requests' tokens, the requests,
-    the launches and the engine."""
+    never, and over a quantized tree, in every prefill forward, decode step,
+    verify window and draft forward, B6/B7 4 times a layer by the route of
+    its rows (``_qmm_expected``). Returns the report, the requests' tokens,
+    the requests, the launches (B6/B7 by route and path, and the prefill
+    forwards by rows) and the engine."""
     from deepspeed_tpu_torch.inference.serving import (ServingConfig, ServingEngine,
                                                        make_open_loop_workload, run_continuous)
 
@@ -1717,25 +1861,44 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
     eng.warmup()
     decode, verify, forward_with_cache = eng.decode, eng.verify, gpt.forward_with_cache
     count = {"steps": 0, "windows": 0, "draft_tokens": 0}
-    qmm = {f"{k}_in_{where}": 0 for k in ("int8", "int4") for where in ("decode", "verify")}
+    qmm = {f"{k}_in_{where}": 0 for k in QMM_COUNTERS
+           for where in ("prefill", "decode", "verify", "draft")}
+    prefill_rows = {}  # rows of a prefill forward -> forwards
+    wrong = []  # calls whose B6/B7 launches differ from their route's
 
-    def counted(fn, where, n):
+    def qmm_counted(fn, where, params_, rows, n, *args, **kw):
+        """Run fn; add its B6/B7 launches to ``where`` and check them against
+        ``n`` forwards of ``rows`` rows over ``params_``."""
+        before = {k: getattr(im, c) for k, c in QMM_COUNTERS.items()}
+        out = fn(*args, **kw)
+        moved = {k: getattr(im, c) - before[k] for k, c in QMM_COUNTERS.items()}
+        for k, v in moved.items():
+            qmm[f"{k}_in_{where}"] += v
+        want = _qmm_expected(torch, cfg, params_, rows, eng.dtype, n)
+        if moved != want and len(wrong) < 5:
+            wrong.append(f"{where} rows={rows} x{n}: {moved}, expected {want}")
+        return out
+
+    def counted(fn, where, n, rows):
         def call(*args, **kw):
             count[where] += n(*args, **kw)
-            before = (im.int8_launches, im.int4_launches)
-            out = fn(*args, **kw)
             path = "decode" if where == "steps" else "verify"
-            qmm[f"int8_in_{path}"] += im.int8_launches - before[0]
-            qmm[f"int4_in_{path}"] += im.int4_launches - before[1]
-            return out
+            return qmm_counted(fn, path, eng.params, rows(*args, **kw), n(*args, **kw),
+                               *args, **kw)
         return call
 
     def counted_forward(cfg_, params_, ids, cache):
-        count["draft_tokens"] += int(np.asarray(ids.shape)[-1] == 1)
-        return forward_with_cache(cfg_, params_, ids, cache)
+        rows = int(np.prod(ids.shape))
+        draft_token = int(np.asarray(ids.shape)[-1] == 1)
+        count["draft_tokens"] += draft_token
+        if not draft_token:
+            prefill_rows[rows] = prefill_rows.get(rows, 0) + 1
+        return qmm_counted(forward_with_cache, "draft" if draft_token else "prefill", params_,
+                           rows, 1, cfg_, params_, ids, cache)
 
-    eng.decode = counted(decode, "steps", lambda *a, steps=1: steps)
-    eng.verify = counted(verify, "windows", lambda *a: 1)
+    eng.decode = counted(decode, "steps", lambda *a, steps=1: steps, lambda *a, **k: eng.num_slots)
+    eng.verify = counted(verify, "windows", lambda *a: 1,
+                         lambda tokens, *a: eng.num_slots * int(np.asarray(tokens).shape[1]))
     n_req, rps, prompts, gens = workload
     wl = make_open_loop_workload(n_req, rps, prompts, gens, cfg.vocab_size, seed=0)
     gpt.forward_with_cache = counted_forward
@@ -1750,7 +1913,8 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
                 "kv8": da.paged_kv8_launches, "kv4": da.paged_kv4_launches,
                 "verify_dense": da.verify_launches, "verify_kv8": da.verify_kv8_launches,
                 "verify_kv4": da.verify_kv4_launches,
-                "int8_matmul": im.int8_launches, "int4_matmul": im.int4_launches, **qmm}
+                **{f"{k}_matmul": getattr(im, c) for k, c in QMM_COUNTERS.items()}, **qmm,
+                "prefill_rows": dict(sorted(prefill_rows.items()))}
     tag = " ".join([dtype] + [f"{k}={v}" for k, v in over.items()])
     spec = rep.get("spec", {})
     log(f"phase run {tag}: finished={rep['finished']}/{len(wl)} audit_ok={rep['pool_audit_ok']} "
@@ -1778,18 +1942,34 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
         check(paged == want, f"{tag}: B4 launches {paged}, expected {want}")
         want = {k: cfg.n_layer * count["windows"] if k == kind else 0 for k in PAGED_KINDS}
         check(verified == want, f"{tag}: B5 launches {verified}, expected {want}")
-    # quantized weights: every decode or verify projection (at most 256 rows)
-    # is one B6/B7 launch, 4 per layer; dense weights launch neither anywhere
-    qleaf = params["blocks"]["qkv_w"]
-    wkind = ("int4" if "q4" in qleaf else "int8") if gpt._is_qleaf(qleaf) else None
-    want_q = {f"{k}_in_{where}": (4 * cfg.n_layer * count[n] if k == wkind else 0)
-              for k in ("int8", "int4") for where, n in (("decode", "steps"),
-                                                          ("verify", "windows"))}
-    check(qmm == want_q, f"{tag}: B6/B7 launches {qmm}, expected {want_q}")
-    if wkind is None:
-        check(launches["int8_matmul"] == launches["int4_matmul"] == 0,
-              f"{tag}: dense weights launched B6/B7: {launches}")
+    # quantized weights: each call launched B6/B7 as its rows' route says
+    # (checked per call above); and nothing launched them outside the calls
+    check(not wrong, f"{tag}: B6/B7 launches by route: {wrong}")
+    total = {k: sum(qmm[f"{k}_in_{w}"] for w in ("prefill", "decode", "verify", "draft"))
+             for k in QMM_COUNTERS}
+    check(total == {k: launches[f"{k}_matmul"] for k in QMM_COUNTERS},
+          f"{tag}: B6/B7 launched outside a counted call: {launches}")
     return rep, [r.tokens[:r.max_new_tokens] for r in wl], wl, launches, eng
+
+
+def _qmm_expected(torch, cfg, params, rows, dtype, n=1):
+    """The B6/B7 launches of ``n`` forwards of ``rows`` rows over ``params``:
+    none for dense weights; else 4 a layer (qkv, attn_out, mlp_up,
+    mlp_down) of the kernel the rows' route names: none past 256 rows (the
+    dequantize route), the tensor cores for bf16 / fp16 past the crossover
+    (every GPT-2 projection layout at group 128 qualifies), the CUDA cores
+    otherwise (decode steps of 8 rows, fp32)."""
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
+
+    want = {k: 0 for k in QMM_COUNTERS}
+    qleaf = params["blocks"]["qkv_w"]
+    if not gpt._is_qleaf(qleaf) or rows > im._MAX_M:
+        return want
+    kind = "int4" if "q4" in qleaf else "int8"
+    tc = dtype in (torch.bfloat16, torch.float16) and rows > im._TC_MIN_M
+    want[f"{kind}_tc" if tc else kind] = 4 * cfg.n_layer * n
+    return want
 
 
 def _match(a, b) -> float:
@@ -1933,8 +2113,8 @@ def phase_quantized(torch, ctx):
         engine.generate(prompt, max_new_tokens=2)  # warm-up
         fa, da = _reset_counts()  # the quantized generate main path
         out = engine.generate(prompt, max_new_tokens=new)
-        launches = {"int8": im.int8_launches, "int4": im.int4_launches, "decode": da.launches,
-                    "flash": sum(_fwd_launches(fa).values())}
+        launches = {**{k: getattr(im, c) for k, c in QMM_COUNTERS.items()},
+                    "decode": da.launches, "flash": sum(_fwd_launches(fa).values())}
         ref = plain.generate(prompt, max_new_tokens=new)
         match = float(np.mean(out[:, 512:] == ref[:, 512:]))
         log(f"phase7a generate gpt2-125m B4 prompt512 new{new} fp32 {kind} group{QUANT_GROUP}: "
@@ -1942,7 +2122,7 @@ def phase_quantized(torch, ctx):
             f"block_weight_bytes={_block_weight_bytes(engine.params)} "
             f"(dense fp32 {_block_weight_bytes(plain.params)})")
         check(match == 1.0, f"{kind} fp32 generate differs from the dequantized dense path")
-        want = {"int8": 0, "int4": 0, "decode": cfg.n_layer * (new - 1), "flash": 0}
+        want = {**{k: 0 for k in QMM_COUNTERS}, "decode": cfg.n_layer * (new - 1), "flash": 0}
         want[kind] = 4 * cfg.n_layer * (new - 1)
         check(launches == want, f"{kind}: launches {launches}, expected {want}")
         ctx[f"qmm_{kind}"]["launches"] = launches[kind]
@@ -1962,7 +2142,7 @@ def phase_quantized(torch, ctx):
         p50, lat = _marginal_decode_ms(engine, prompt)
         _reset_counts()
         toks[kind] = engine.generate(prompt, max_new_tokens=new)[:, 128:]
-        launches = {"int8": im.int8_launches, "int4": im.int4_launches}
+        launches = {k: getattr(im, c) for k, c in QMM_COUNTERS.items()}
         nbytes = _block_weight_bytes(engine.params)
         rows[kind] = nbytes
         log(f"phase7b gpt2-350m-decode-b8 {kind} bf16 B8 prompt128 +{new}: "
@@ -1971,8 +2151,8 @@ def phase_quantized(torch, ctx):
             f"launches over one generate={launches}")
         log(f"phase7b {kind} profile of 8 decode steps at position 128: "
             + _decode_profile(torch, engine, prompt, steps=8))
-        if bits:
-            want = {"int8": 0, "int4": 0}
+        if bits:  # decode steps of 8 rows: the CUDA cores; prefill (1024 rows): dequantize
+            want = {k: 0 for k in QMM_COUNTERS}
             want[kind] = 4 * cfg350.n_layer * (new - 1)
             check(launches == want, f"350m {kind}: launches {launches}, expected {want}")
         del engine
@@ -1998,6 +2178,70 @@ def phase_quantized(torch, ctx):
     check(toks_q == toks_d, "int8-weight served tokens differ from the dequantized dense run")
     del eng_q
     torch.cuda.empty_cache()
+    phase_quantized_prefill(torch, ctx)
+
+
+def phase_quantized_prefill(torch, ctx):
+    """(d) phase 6's serving run in bf16 over int8 and over int4 weights
+    (``quantize_for_inference``, group 128): every request finishes, the
+    audit is clean, and every forward launches B6/B7 by its rows' route
+    (checked per call in ``_serve``): 4 x 12 tensor-core launches per
+    prefill forward of more than the crossover's rows and at most 256 (the
+    fused prefill buckets 32-128), 48 CUDA-core launches per decode step
+    (8 rows), none past 256 rows (a batched admission of 8 x 64 or 8 x 128
+    takes the dequantize route). Reports TTFT, TPOT, tokens/s, the greedy
+    match against the dequantized dense tree served in bf16 (reported only:
+    bf16 rounds the two differently), and a profile of one 128-row prefill
+    forward with B6/B7's device time and share."""
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    params = ctx["params"]
+    for bits in (8, 4):
+        kind = f"int{bits}"
+        qparams = gpt.quantize_for_inference(cfg, params, bits=bits, group_size=QUANT_GROUP)
+        for leaf in ("qkv_w", "attn_out_w", "mlp_up_w", "mlp_down_w"):
+            q = qparams["blocks"][leaf]["q4" if bits == 4 else "q"]
+            F = q.shape[-1] * (2 if bits == 4 else 1)
+            check(im.tc_layout(q.shape[1], F, QUANT_GROUP, bits),
+                  f"7d: the tensor-core kernel does not take {leaf} [{q.shape[1]}, {F}]")
+        rep, toks_q, wl, launches, eng = _serve(torch, cfg, qparams, "bfloat16")
+        _, toks_d, _, _, _ = _serve(torch, cfg, gpt.dequantize_params(qparams), "bfloat16")
+        tc = launches[f"{kind}_tc_in_prefill"]
+        check(tc > 0 and tc % (4 * cfg.n_layer) == 0,
+              f"7d {kind}: {tc} tensor-core launches in prefill")
+        check(launches[f"{kind}_in_decode"] > 0, f"7d {kind}: no CUDA-core launch in decode")
+
+        ids = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab_size, (1, 128)),
+                              device="cuda")
+
+        def prefill_128():  # one fused prefill forward at the 128-row bucket
+            cache = gpt.init_cache(cfg, 1, 128, torch.bfloat16, "cuda")
+            return gpt.forward_with_cache(cfg, eng.params, ids, cache)
+
+        wall_ms = ctx["timer"].ms(prefill_128, iters=5, warmup=2, device_only=False)
+        kernels = device_kernels(torch, prefill_128)
+        busy = sum(r[2] for r in kernels)
+        qmm_ms = sum(r[2] for r in kernels if "qmatmul_tc" in r[0])
+        qmm_n = sum(r[1] for r in kernels if "qmatmul_tc" in r[0])
+        share = f"{qmm_ms / busy:.3f}" if busy else "not measured"
+        log(f"phase7d serving bf16 {kind} weights group{QUANT_GROUP}: finished={rep['finished']}/"
+            f"{len(wl)} audit_ok={rep['pool_audit_ok']} ttft_p50_ms={rep['ttft_p50_ms']} "
+            f"ttft_p99_ms={rep['ttft_p99_ms']} tpot_p50_ms={rep['per_token_p50_ms']} "
+            f"tokens_per_sec={rep['tokens_per_sec']} greedy_match_vs_dequantized_dense_bf16="
+            f"{_match(toks_q, toks_d):.4f} (reported only) prefill_forwards_by_rows="
+            f"{launches['prefill_rows']} tc_launches_in_prefill={tc} "
+            f"tc_launches_in_verify={launches[f'{kind}_tc_in_verify']} "
+            f"cuda_core_launches_in_decode={launches[f'{kind}_in_decode']} "
+            f"cuda_core_launches_in_prefill={launches[f'{kind}_in_prefill']}")
+        log(f"phase7d {kind} profile of one 128-row prefill forward: b6b7_tc_ms={qmm_ms:.3f} "
+            f"launches={qmm_n} share_of_busy={share} "
+            + device_breakdown(torch, prefill_128, wall_ms, top=5, kernels=kernels))
+        check(qmm_n == 4 * cfg.n_layer, f"7d {kind}: {qmm_n} tensor-core kernels in the profile")
+        ctx[f"qmm_tc_{kind}"]["launches"] = tc
+        del eng
+        torch.cuda.empty_cache()
 
 
 def _kernel_on_served_pools(torch, eng):
@@ -2476,6 +2720,8 @@ def main() -> int:
          **ctx[f"paged_{kind}"]} for kind in PAGED_KINDS] + [
         {"name": f"int{bits}_matmul", "route": "cuda", "source": QMM_SRC,
          "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_int{bits}"]} for bits in (8, 4)] + [
+        {"name": f"int{bits}_matmul_tc", "route": "cuda", "source": QMM_TC_SRC,
+         "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_tc_int{bits}"]} for bits in (8, 4)] + [
         {"name": "paged_verify_attention" + ("" if kind == "dense" else f"_{kind}"),
          "route": "cuda", "source": VERIFY_SRC, "replaces": VERIFY_TPU,
          **ctx[f"verify_{kind}"]} for kind in PAGED_KINDS] + [

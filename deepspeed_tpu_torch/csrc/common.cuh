@@ -1,5 +1,6 @@
 // Helpers shared by the port's CUDA kernels: element types, 16-byte vector
-// loads converted to fp32, and the C entry point that names a CUDA error.
+// loads converted to fp32, the int8 / int4 weight-word widening of the
+// quantized-weight products, and the C entry point that names a CUDA error.
 //
 // Every kernel library is built from one .cu file by nvcc into its own shared
 // object with a plain C interface (deepspeed_tpu_torch/ops/_build.py), so
@@ -75,6 +76,28 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
+}
+
+// The 4 weights of one int8 word (or the 4 + 4 of one packed int4 word: low
+// nibbles in w[0], high nibbles in w[1]), as floats: a byte permute puts each
+// biased value under the exponent of 2^23, and one subtraction removes the
+// bias (exact for integers below 2^23).
+template <int BITS>
+__device__ __forceinline__ void dequant_word(unsigned word, float (&w)[BITS == 4 ? 2 : 1][4]) {
+  if constexpr (BITS == 8) {
+    const unsigned t = word ^ 0x80808080u;  // each byte v + 128
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      w[0][u] = __uint_as_float(__byte_perm(t, 0x4B000000u, 0x7540u | u)) - 8388736.0f;
+  } else {
+    const unsigned t = word ^ 0x88888888u;  // each nibble v + 8
+    const unsigned lo = t & 0x0F0F0F0Fu, hi = (t >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      w[0][u] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7540u | u)) - 8388616.0f;
+      w[1][u] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540u | u)) - 8388616.0f;
+    }
+  }
 }
 
 }  // namespace ds

@@ -98,11 +98,6 @@ __device__ __forceinline__ int acc_col(int l, int i) {
   return 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
 }
 
-__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
-               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
-}
-
 // stochastic_mode's q~ = T(fp32(q) scale) for rows [r0, r0 + 64) of one head
 // into the swizzled tile at `dst` through registers (rows at or past `n`
 // are zero): every load of the thread is in flight before its first store.

@@ -35,8 +35,9 @@
 // by a shuffle butterfly, the 8 warps in a fixed tree through shared
 // memory, and the cluster's blocks through distributed shared memory, each
 // block a share of the tile, in rank order. One launch, no scratch in
-// device memory, no atomics: a result is bitwise repeatable. wgmma with
-// operands dequantized in shared memory is later work.
+// device memory, no atomics: a result is bitwise repeatable. bf16 / fp16 x
+// with more rows than a decode step take csrc/int8_matmul_tc.cu instead, on
+// the tensor cores (ops/cuda/int8_matmul.py qmm_route).
 
 #include <stdint.h>
 
@@ -53,27 +54,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kCols = 4 * 32;     // q bytes of the widest tile: 4 per lane
 constexpr int kStage = 256;       // rows of x staged in shared memory at a time
 constexpr int kMaxCluster = 8;    // blocks along D in one cluster (the portable maximum)
-
-// The 4 weights of one int8 word (or the 4 + 4 of one packed int4 word), as
-// floats: a byte permute puts each biased value under the exponent of 2^23,
-// and one subtraction removes the bias (exact for integers below 2^23).
-template <int BITS>
-__device__ __forceinline__ void dequant_word(unsigned word, float (&w)[BITS == 4 ? 2 : 1][4]) {
-  if constexpr (BITS == 8) {
-    const unsigned t = word ^ 0x80808080u;  // each byte v + 128
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      w[0][u] = __uint_as_float(__byte_perm(t, 0x4B000000u, 0x7540u | u)) - 8388736.0f;
-  } else {
-    const unsigned t = word ^ 0x88888888u;  // each nibble v + 8
-    const unsigned lo = t & 0x0F0F0F0Fu, hi = (t >> 4) & 0x0F0F0F0Fu;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      w[0][u] = __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7540u | u)) - 8388616.0f;
-      w[1][u] = __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540u | u)) - 8388616.0f;
-    }
-  }
-}
 
 template <typename T, int TM, int BITS>
 __global__ void __launch_bounds__(kThreads)
@@ -158,7 +138,7 @@ qmatmul_kernel(const T* __restrict__ x, long long ldx, const int8_t* __restrict_
         const int dl = b0 + r * row_step;
         if (dl >= sn) continue;
         float w[NH][4];
-        dequant_word<BITS>(words[r], w);
+        ds::dequant_word<BITS>(words[r], w);
         if (run_scale) {
 #pragma unroll
           for (int h = 0; h < NH; ++h)

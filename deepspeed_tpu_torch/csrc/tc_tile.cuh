@@ -1,6 +1,8 @@
 // Tensor-core building blocks for Hopper (sm_90a) kernels: swizzled shared
-// tiles, the cp.async copies that fill a ring of them, wgmma shared-memory
-// descriptors, the wgmma instructions themselves and the accumulator ->
+// tiles, the cp.async copies that fill a ring of them (or TMA copies
+// completing an mbarrier), wgmma shared-memory descriptors, the wgmma
+// instructions themselves (m64n64k16; m64n128k16 with both operands in
+// shared memory and B MN-major) and the accumulator ->
 // A-fragment conversion (with the hi/lo split that keeps an fp32 operand to
 // ~2^-16, and for fp16 the running row scale that keeps the split above
 // fp16's subnormal range; or one cast, stochastic_mode's function).
@@ -69,6 +71,39 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ----------------------------------------------------------------- TMA
+// mbarrier of `count` arrivals (one thread initialises; all wait after a
+// fence and a barrier).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also expects `bytes` of TMA transfers in this phase.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile("{\n.reg .pred P1;\nLAB_WAIT:\n"
+               "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+               "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n"
+               :: "r"(bar), "r"(parity) : "memory");
+}
+// The box of a 2-D tensor map at coordinates (c0 innermost, c1) into shared
+// memory at `dst`, completing `bar`'s expected bytes (out-of-bounds
+// elements arrive as zeros).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tensor_map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%3, %4}], [%2];\n"
+               :: "r"(dst), "l"(reinterpret_cast<uint64_t>(tensor_map)), "r"(bar), "r"(c0),
+                  "r"(c1)
+               : "memory");
+}
+
 // Byte offset of 16-byte chunk `chunk` (0 .. D/8) of row `row` in a
 // panel-major swizzled tile of R rows.
 template <int R>
@@ -101,6 +136,12 @@ __device__ __forceinline__ void load_row_async(uint32_t dst, const float* src, i
     const bool in = r0 + i < n;
     cp_async4(dst + 4 * i, in ? src + r0 + i : src, in);
   }
+}
+
+// 16 bytes from registers into shared memory (a swizzled tile built in place).
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w) : "memory");
 }
 
 // ----------------------------------------------------------------- descriptors
@@ -146,9 +187,9 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving reads or writes of registers that an
 // in-flight wgmma owns across the fence / wait that bracket it.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 #define DS_TC_ACC32                                                                   \
@@ -186,6 +227,55 @@ template <> __device__ __forceinline__ void wgmma_ss<__half>(float (&d)[32], uin
       : DS_TC_OUT32(d)
       : "l"(da), "l"(db), "r"(accumulate));
 }
+
+#define DS_TC_ACC64                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "   \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define DS_TC_OUT64(d)                                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+  "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),       \
+  "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),       \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+  "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),       \
+  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),       \
+  "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),       \
+  "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),       \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128 fp32) += A B with A K-major and B MN-major (transpose flag 1),
+// both in shared memory: B's two 64-column panels lie LBO apart (desc_mnmajor
+// of panel 0). Accumulator entries 32 p .. 32 p + 31 are panel p's, laid out
+// as a 64 x 64 accumulator's.
+template <typename T> __device__ __forceinline__ void wgmma_ss_mn128(float (&d)[64], uint64_t da,
+                                                                     uint64_t db);
+
+template <> __device__ __forceinline__ void wgmma_ss_mn128<__nv_bfloat16>(float (&d)[64],
+                                                                          uint64_t da,
+                                                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " DS_TC_ACC64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : DS_TC_OUT64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <> __device__ __forceinline__ void wgmma_ss_mn128<__half>(float (&d)[64], uint64_t da,
+                                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " DS_TC_ACC64
+      ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : DS_TC_OUT64(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
+#undef DS_TC_ACC64
+#undef DS_TC_OUT64
 
 // d (64 x 64 fp32) += A B with A (64 x 16) in registers and B MN-major in
 // shared memory (transpose flag 1).

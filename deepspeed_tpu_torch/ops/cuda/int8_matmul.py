@@ -1,26 +1,30 @@
 """Quantized-weight matrix products: the hand-written CUDA kernels, their
-plain versions, and the int4 nibble layout.
+plain versions, the route between them, and the int4 nibble layout.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/int8_matmul.py``:
 
 - :func:`int8_matmul` (B6, the reference's ``_kernel``) and
   :func:`int4_matmul` (B7, ``_kernel4``): ``x @ W`` with ``W`` stored as
   int8, or nibble-packed int4, plus one fp32 scale per ``group_size``
-  consecutive weights of the row-major flattened ``[D, F]`` weight. Both are
-  ``deepspeed_tpu_torch/csrc/int8_matmul.cu``; its header says how it is
-  split and what bounds it.
+  consecutive weights of the row-major flattened ``[D, F]`` weight. Two
+  kernels compute it: ``deepspeed_tpu_torch/csrc/int8_matmul.cu`` on the
+  CUDA cores (decode rows, fp32 x) and ``csrc/int8_matmul_tc.cu`` on the
+  tensor cores (bf16 / fp16 x at prefill and verify rows); each header says
+  how it is split and what bounds it.
 - :func:`pack_int4` / :func:`unpack_int4`: the half-split layout, where byte
   j of a packed last axis holds value j in its low nibble and value j + F/2
   in its high nibble (shared with the quantized KV pools).
 
-Dispatch keeps the reference's shape rule: at most ``_MAX_M`` rows of ``x``
-(decode) take the kernel on CUDA and the plain version on the CPU; a larger
-``x`` (prefill) takes the reference's own route on any device, the layer's
-weight dequantized to ``x.dtype`` and one ``torch.matmul``. The TPU tile
-rules of the reference (``group % 128``, ``D % block_d``, ``F % block_f``)
-are Mosaic layout constraints and do not carry over: every shape runs the
-kernel. The kernels are inference-only and raise where autograd would
-differentiate them.
+:func:`qmm_route` picks the route from the shapes alone. It keeps the
+reference's shape rule: more than ``_MAX_M`` rows of ``x`` (a large prefill)
+take the reference's own route on any device, the layer's weight
+dequantized to ``x.dtype`` and one ``torch.matmul``. At most ``_MAX_M`` rows
+take a kernel on CUDA and its plain version on the CPU: the tensor-core
+kernel for bf16 / fp16 x with more than ``_TC_MIN_M`` rows in a layout it
+takes, the CUDA-core kernel otherwise. The TPU tile rules of the reference
+(``group % 128``, ``D % block_d``, ``F % block_f``) are Mosaic layout
+constraints and do not carry over: every shape runs a kernel. The kernels
+are inference-only and raise where autograd would differentiate them.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,12 +42,26 @@ from .flash_attention import DTYPE_CODE
 
 _MAX_M = 256  # the reference's bound: more rows take dequantize-then-matmul
 _WARPS = 8  # warps of a block, each its own rows of a chunk (kWarps)
-_MAX_CLUSTER = 8  # blocks of one cluster along D (kMaxCluster)
+_MAX_CLUSTER = 8  # blocks of one cluster along D (kMaxCluster, both kernels)
+# bf16 / fp16 x with more rows than this takes the tensor-core kernel. A
+# decode step's rows (8 slots, or fewer) keep the CUDA-core kernel. On the
+# H100 (chip_smoke.py phase 2, both kernels on the same inputs, cold L2) the
+# tensor-core kernel is 1.2-2.6x faster at 16 rows over the 8 projection
+# shapes of GPT-2-125M and gpt2-350m, and already 1.1-2.1x at 8 rows; moving
+# decode onto it is a change of the decode route, which this kernel's
+# redesign of prefill and verify rows leaves as it was (ROADMAP.md).
+_TC_MIN_M = 8
+_TC_ROWS = 128  # rows of x a tensor-core block owns (64 for M <= 64)
+_TC_STEP = 64  # rows of D a tensor-core step consumes (kStep)
+_TC_COLS = 128  # output columns a tensor-core block owns (kCols)
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
-# them to show that a main path went through the kernels): B6 and B7
+# them to show that a main path went through the kernels): B6 and B7 on the
+# CUDA cores, and on the tensor cores
 int8_launches = 0
 int4_launches = 0
+int8_tc_launches = 0
+int4_tc_launches = 0
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -88,6 +106,76 @@ def int4_matmul_ref(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
     return int8_matmul_ref(x, unpack_int4(q4), s, group_size)
 
 
+def _panel_exponents(s: torch.Tensor, F: int, group_size: int, qmax: float) -> torch.Tensor:
+    """fp16's power of two for each 64-column panel of a chunk's rows: the
+    exponent e that puts ``qmax`` times the panel's largest scale in [2^14,
+    2^15) (0 for a panel of zero scales), clamped to [-126, 126]."""
+    col_s = s.abs().repeat_interleave(group_size, dim=1)[:, :F]  # [rows, F]
+    top = col_s.amax(dim=0).reshape(F // 64, 64).amax(dim=1)
+    _, ex = torch.frexp(qmax * top)  # qmax top = m 2^ex, m in [0.5, 1)
+    return torch.where(top > 0, (15 - ex).clamp(-126, 126), torch.zeros_like(ex))
+
+
+def qmatmul_split_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, group_size: int,
+                      bits: int = 8, chunk: Optional[int] = None) -> torch.Tensor:
+    """The tensor-core kernel's rounding, for the tests: the fp32 weight w =
+    q s enters as hi = T(w) and lo = T(w - hi) of x's 16-bit dtype T, fp16's
+    weights first times 2^e per 64-column panel and chunk of D
+    (:func:`_panel_exponents`, with |q| at most 128 for int8 and 8 for
+    int4); each ``chunk`` of D (all of it by default: a cluster of one)
+    sums x_tile hi_tile + x_tile lo_tile in fp32 over 64-deep steps, in
+    order, undoes its 2^e, and the chunks add in order before one rounding
+    to T. ``q`` is int8 [D, F], or packed [D, F/2] for bits 4; needs F % 64
+    == 0 and F % group_size == 0 (the kernel's layouts)."""
+    w_q = unpack_int4(q) if bits == 4 else q
+    D, F = w_q.shape
+    w = dequantize(w_q, s.reshape(-1).float())
+    s_rows = s.reshape(D, F // group_size).float()
+    dtype, xf = x.dtype, x.float()
+    chunk = chunk or D
+    out = torch.zeros((x.shape[0], F), dtype=torch.float32, device=x.device)
+    for d0 in range(0, D, chunk):
+        wc = w[d0:d0 + chunk]
+        e = torch.zeros(F // 64, dtype=torch.int32, device=x.device)
+        if dtype == torch.float16:
+            e = _panel_exponents(s_rows[d0:d0 + chunk], F, group_size, 128.0 if bits == 8 else 8.0)
+        up = torch.ldexp(torch.ones_like(e, dtype=torch.float32), e).repeat_interleave(64)
+        w2 = wc * up
+        hi = w2.to(dtype).float()
+        lo = (w2 - hi).to(dtype).float()
+        part = torch.zeros_like(out)
+        for k in range(0, wc.shape[0], _TC_STEP):
+            xs = xf[:, d0 + k:d0 + k + _TC_STEP]
+            part = part + (xs @ hi[k:k + _TC_STEP] + xs @ lo[k:k + _TC_STEP])
+        out = out + part / up
+    return out.to(dtype)
+
+
+# ------------------------------------------------------------------ the route
+def tc_layout(D: int, F: int, group_size: int, bits: int) -> bool:
+    """Whether the tensor-core kernel takes this weight layout: whole 64-row
+    steps of D, whole groups in a row, no 64-column panel across a group
+    boundary, and whole panels (int4: whole packed panels in each half)."""
+    return (D % _TC_STEP == 0 and group_size >= 8 and F % group_size == 0
+            and (group_size % 64 == 0 or 64 % group_size == 0)
+            and F % (128 if bits == 4 else 64) == 0)
+
+
+def qmm_route(M: int, dtype: torch.dtype, D: int, F: int, group_size: int, bits: int) -> str:
+    """The route of one quantized product of ``M`` rows: ``"dequantize"``
+    (more than ``_MAX_M`` rows: the reference's dequantize-then-matmul),
+    ``"tensor_cores"`` (bf16 / fp16 x with more than ``_TC_MIN_M`` rows, in a
+    layout :func:`tc_layout` takes) or ``"cuda_cores"`` (everything else:
+    fp32 x, decode rows, other layouts). On the CPU the two kernel routes run
+    the plain version."""
+    if M > _MAX_M:
+        return "dequantize"
+    if (dtype in (torch.bfloat16, torch.float16) and M > _TC_MIN_M
+            and tc_layout(D, F, group_size, bits)):
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 # ------------------------------------------------------------------ kernels
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -95,6 +183,15 @@ def _lib() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ds_quant_matmul.argtypes = [ptr, i64] + [ptr] * 3 + [i32] * 9 + [ptr]
     lib.ds_quant_matmul.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_tc() -> ctypes.CDLL:
+    lib = _build.load("int8_matmul_tc")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ds_quant_matmul_tc.argtypes = [ptr, i64] + [ptr] * 3 + [i32] * 8 + [ptr]
+    lib.ds_quant_matmul_tc.restype = i32
     return lib
 
 
@@ -126,6 +223,30 @@ def split_plan(M: int, D: int, Fq: int, sms: int) -> Tuple[int, int, int]:
     return lanes, math.ceil(D / cluster), cluster
 
 
+@functools.lru_cache(maxsize=None)
+def tc_plan(M: int, D: int, F: int, sms: int) -> Tuple[int, int]:
+    """(chunk, cluster) of one tensor-core launch: the grid has a block per
+    128-row (64 for M <= 64) x 128-column output tile; D is cut into
+    ``cluster`` chunks of ``chunk`` rows (whole 64-row steps), one block of
+    a thread block cluster each. A block's time is a fixed cost (the first
+    tiles' latency, the cluster's reduction) plus a time per step, so the
+    split takes the largest cluster, up to 8, that keeps every chunk
+    at least two steps long and the grid within one block per SM; clusters
+    of more than 3 within three quarters of the SMs (on the H100, grids of
+    128 blocks in clusters of 4 or 8 ran markedly slower than smaller grids:
+    such clusters do not all fit on the card at once). Empty chunks are
+    dropped. A pure function of the shapes, so a result is bitwise
+    repeatable."""
+    tiles = math.ceil(F / _TC_COLS) * (1 if M <= 64 else math.ceil(M / _TC_ROWS))
+    steps = D // _TC_STEP
+    cluster = 1
+    for c in range(2, _MAX_CLUSTER + 1):
+        if steps >= 2 * c and tiles * c <= (sms if c <= 3 else 3 * sms // 4):
+            cluster = c
+    per_chunk = math.ceil(steps / cluster)
+    return _TC_STEP * per_chunk, math.ceil(steps / per_chunk)
+
+
 def _check(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int,
            group_size: int) -> None:
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0]:
@@ -142,8 +263,8 @@ def _check(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int,
                            "torch.no_grad() or on tensors that do not require grad")
 
 
-def _launch(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int,
-            group_size: int, bits: int) -> torch.Tensor:
+def _launch_checks(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> int:
+    """Raise on what neither kernel takes; returns the card's index."""
     if x.dtype not in DTYPE_CODE:
         raise TypeError(f"{name} kernel: x dtype {x.dtype}; expected float32, bfloat16 "
                         "or float16")
@@ -151,12 +272,19 @@ def _launch(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int
         raise TypeError(f"{name} kernel: scales must be float32, got {s.dtype}")
     if not (x.device == q.device == s.device):
         raise ValueError(f"{name}: x, q and s on different devices")
+    dev = x.device
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _launch(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int,
+            group_size: int, bits: int) -> torch.Tensor:
+    """One launch of the CUDA-core kernel (any dtype, any layout)."""
+    index = _launch_checks(name, x, q, s)
     if x.stride(-1) != 1:
         x = x.contiguous()
     q, s = q.contiguous(), s.contiguous()
     M, D = x.shape
     dev = x.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
     lanes, chunk, cluster = split_plan(M, D, q.shape[1], _num_sms(index))
     out = torch.empty((M, F), dtype=x.dtype, device=dev)
     lib = _lib()
@@ -169,6 +297,35 @@ def _launch(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int
     return out
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with 16-byte-aligned rows (a fresh copy of a view that lacks them)."""
+    if t.stride(-1) != 1 or t.stride(0) * t.element_size() % 16 or t.data_ptr() % 16:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
+
+
+def _launch_tc(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int,
+               group_size: int, bits: int) -> torch.Tensor:
+    """One launch of the tensor-core kernel (bf16 / fp16 x, a layout
+    :func:`tc_layout` takes); raises on anything else."""
+    index = _launch_checks(name, x, q, s)
+    M, D = x.shape
+    if x.dtype not in (torch.bfloat16, torch.float16) or not tc_layout(D, F, group_size, bits):
+        raise ValueError(f"{name} tensor-core kernel: x {x.dtype} with D {D}, F {F}, group "
+                         f"{group_size} is not a dtype and layout it takes")
+    x, q, s = _aligned(x), _aligned(q.contiguous()), s.contiguous()
+    chunk, cluster = tc_plan(M, D, F, _num_sms(index))
+    out = torch.empty((M, F), dtype=x.dtype, device=x.device)
+    lib = _lib_tc()
+    with torch.cuda.device(index):
+        status = lib.ds_quant_matmul_tc(
+            x.data_ptr(), x.stride(0), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, D, F,
+            group_size, chunk, cluster, bits, DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(index).cuda_stream)
+    _build.check(lib, status, name)
+    return out
+
+
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                 group_size: int = 64) -> torch.Tensor:
     """``x @ dequantize(q, s)`` without a dequantized weight.
@@ -176,15 +333,20 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     x [M, D] float; q int8 [D, F]; s fp32 scales (any shape, read flat) for
     the row-major ``group_size`` runs of the weight (the
     ``models.gpt.quantize_for_inference`` layout). Returns [M, F] in x's dtype."""
-    global int8_launches
+    global int8_launches, int8_tc_launches
     F = q.shape[-1]
     _check("int8_matmul", x, q, s, F, group_size)
-    if x.shape[0] > _MAX_M:
+    route = qmm_route(x.shape[0], x.dtype, q.shape[0], F, group_size, 8)
+    if route == "dequantize":
         return x @ dequantize(q, s.reshape(-1), x.dtype)
     if x.device.type == "cpu":
         return int8_matmul_ref(x, q, s, group_size)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    if route == "tensor_cores":
+        out = _launch_tc("int8_matmul", x, q, s, F, group_size, 8)
+        int8_tc_launches += 1
+        return out
     out = _launch("int8_matmul", x, q, s, F, group_size, 8)
     int8_launches += 1
     return out
@@ -198,15 +360,20 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
     x [M, D] float; q4 int8 [D, F/2] in the :func:`pack_int4` layout; s fp32
     scales for the row-major ``group_size`` runs of the UNPACKED [D, F]
     weight. Returns [M, F] in x's dtype."""
-    global int4_launches
+    global int4_launches, int4_tc_launches
     F = 2 * q4.shape[-1]
     _check("int4_matmul", x, q4, s, F, group_size)
-    if x.shape[0] > _MAX_M:
+    route = qmm_route(x.shape[0], x.dtype, q4.shape[0], F, group_size, 4)
+    if route == "dequantize":
         return x @ dequantize(unpack_int4(q4), s.reshape(-1), x.dtype)
     if x.device.type == "cpu":
         return int4_matmul_ref(x, q4, s, group_size)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
+    if route == "tensor_cores":
+        out = _launch_tc("int4_matmul", x, q4, s, F, group_size, 4)
+        int4_tc_launches += 1
+        return out
     out = _launch("int4_matmul", x, q4, s, F, group_size, 4)
     int4_launches += 1
     return out

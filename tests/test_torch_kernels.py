@@ -410,14 +410,16 @@ def _quantized(D, F, group, bits, device, seed):
 def test_quantized_matmul_kernels_match_plain(cuda_device, dtype, rtol, bits, M, D, F, group):
     """B6 (int8) and B7 (int4) against their plain versions, at GPT-2-125M's
     and gpt2-350m's projection shapes, group 64, a group that crosses rows
-    and an odd packed width; bitwise equal over two runs. Tolerance relative
+    and an odd packed width, through the route's kernel (16-bit x at 64 and
+    256 rows on the tensor cores); bitwise equal over two runs. Tolerance relative
     to the largest output entry: fp32, both accumulate in fp32 in another
     order; bf16/fp16, both round the output once."""
     q, s = _quantized(D, F, group, bits, cuda_device, 12)
     x = _normal((M, D), cuda_device, dtype, 13)
     fn, ref_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
                   else (im.int8_matmul, im.int8_matmul_ref))
-    counter = "int4_launches" if bits == 4 else "int8_launches"
+    route = im.qmm_route(M, dtype, D, F, group, bits)
+    counter = f"int{bits}_{'tc_' if route == 'tensor_cores' else ''}launches"
     before = getattr(im, counter)
     out, again = fn(x, q, s, group), fn(x, q, s, group)
     torch.cuda.synchronize()
@@ -426,6 +428,62 @@ def test_quantized_matmul_kernels_match_plain(cuda_device, dtype, rtol, bits, M,
     assert out.dtype == dtype and out.shape == (M, F) and torch.equal(out, again)
     scale = ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= rtol * scale
+
+
+_QMM_COUNTERS = ("int8_launches", "int4_launches", "int8_tc_launches", "int4_tc_launches")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("group", [128, 64])
+@pytest.mark.parametrize("M,D,F", [(16, 768, 2304), (40, 768, 768), (64, 3072, 768),
+                                   (100, 1024, 4096), (256, 768, 3072), (256, 4096, 1024),
+                                   (9, 1024, 3072)])
+def test_qmatmul_tc_kernel_within_two_ulps_and_rerun_bitwise(cuda_device, dtype, bits, group, M,
+                                                             D, F):
+    """B6 / B7 on the tensor cores (bf16 / fp16 x above the crossover rows)
+    against the fp32 plain version: at most 2 ulps of the dtype on the
+    entries of at least 1e-3 of the largest (the hi/lo split keeps the fp32
+    function to ~2^-16), bitwise equal over two runs, two tensor-core
+    launches and no other."""
+    q, s = _quantized(D, F, group, bits, cuda_device, 16)
+    s = s * 0.02  # GPT-2's weight magnitudes: fp16's lo half needs its panel scale
+    x = _normal((M, D), cuda_device, dtype, 17)
+    assert im.qmm_route(M, dtype, D, F, group, bits) == "tensor_cores"
+    fn, ref_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
+                  else (im.int8_matmul, im.int8_matmul_ref))
+    before = {c: getattr(im, c) for c in _QMM_COUNTERS}
+    out, again = fn(x, q, s, group), fn(x, q, s, group)
+    torch.cuda.synchronize()
+    assert _moved(before, {c: getattr(im, c) for c in _QMM_COUNTERS}) == {
+        f"int{bits}_tc_launches": 2}
+    assert out.dtype == dtype and out.shape == (M, F) and torch.equal(out, again)
+    assert ulp_err(out, ref_fn(x.float(), q, s, group), dtype) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,dtype,D,F,group,route", [
+    (8, torch.bfloat16, 768, 3072, 128, "cuda_cores"),
+    (9, torch.bfloat16, 768, 3072, 128, "tensor_cores"),
+    (64, torch.float32, 768, 3072, 128, "cuda_cores"),
+    (40, torch.bfloat16, 320, 960, 128, "cuda_cores"),
+    (40, torch.float16, 768, 960, 64, "tensor_cores")])
+def test_qmatmul_routes_by_rows_dtype_and_layout(cuda_device, M, dtype, D, F, group, route):
+    """The wrapper launches the kernel qmm_route names, once, and it agrees
+    with the plain version; a layout with F % 64 == 64 takes the
+    tensor-core kernel with its second panel empty."""
+    q, s = _quantized(D, F, group, 8, cuda_device, 18)
+    x = _normal((M, D), cuda_device, dtype, 19)
+    assert im.qmm_route(M, dtype, D, F, group, 8) == route
+    before = {c: getattr(im, c) for c in _QMM_COUNTERS}
+    out = im.int8_matmul(x, q, s, group)
+    torch.cuda.synchronize()
+    counter = "int8_tc_launches" if route == "tensor_cores" else "int8_launches"
+    assert _moved(before, {c: getattr(im, c) for c in _QMM_COUNTERS}) == {counter: 1}
+    ref = im.int8_matmul_ref(x, q, s, group)
+    tol = 5e-5 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
 
 
 @pytest.mark.cuda
