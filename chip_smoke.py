@@ -11,10 +11,12 @@ result line):
 1. build: nvcc builds every kernel under ``deepspeed_tpu_torch/csrc`` (one
    process per source, all at once; ptxas's registers and spills printed);
    TF32 is switched off for fp32 products; each tensor-core kernel (B1's
-   forward, B2's dq and dk/dv: 8 instances, bf16 / fp16, D 64 / 128, the
-   default and the single-cast function; B6/B7's: 8, bf16 / fp16 x int8 /
-   int4 x 64 / 128 rows a block) has its instances and every one holds HGMMA instructions in its
-   SASS (``cuobjdump -sass`` of the library).
+   forward, B2's dq and dk/dv: 12 instances, bf16 / fp16, D 64 / 96 / 128,
+   the default and the single-cast function; B6/B7's: 8, bf16 / fp16 x int8
+   / int4 x 64 / 128 rows a block) has its instances and every one holds
+   HGMMA instructions in its SASS (``cuobjdump -sass`` of the library); B5's
+   36 bf16 / fp16 instances each hold HMMA (``mma.sync``) and its 9 fp32
+   ones none.
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
    card inputs, at the shapes of the serving, scoring and training paths,
    with the kernel's time, the plain version's, one PyTorch library call's
@@ -45,10 +47,16 @@ result line):
    most 2 over the entries of at least 1e-3 of the largest, beside the
    error of dV from a single cast of P, which must exceed it; the cases
    include phase 10b's B2 x T4096 and fp16 with small gradients) is also
-   run twice on the same inputs and must give bitwise-equal gradients, and
-   B5 (dense, int8, int4 pools) over 90 cases (windows 2-17, pages 8-128,
-   fp32 and bf16) must agree with its plain version on the committable
-   window positions and be bitwise equal on a re-run. B8 (the dequant-fused
+   run twice on the same inputs and must give bitwise-equal gradients. B3
+   (split over the cache) at Dh 64 / 96 / 128 with a length-0 row (zeros),
+   a split's edge and the capacity, bitwise on a re-run, beside the earlier
+   one-block-a-row kernel's time.
+   B5 (dense, int8, int4 pools; split over the pages) over 126 cases
+   (90 base cases: windows 2-17, pages 8-128, fp32 and bf16; 36 more at Dh96 and
+   in fp16) must agree with its plain version on the committable window
+   positions, be bitwise equal on a re-run, and in bf16 / fp16 lie within 2
+   ulps of the dtype of the fp32 function. B1, B2, B4 and B9 also run cases
+   at Dh 96. B8 (the dequant-fused
    product of the quantized wire) at the LM head's shape (x [4096, 768],
    vocabulary 50304 padded to 197 blocks of 256; fp32 x, the main path,
    and bf16 x), M = 1 and 37, an effective block of 96, a block of 128, the
@@ -68,7 +76,8 @@ result line):
    phase 10a's B2 x T1024 fp32 and 10b's B2 x T4096 bf16, the main-path
    row; bench.py's bidirectional Fixed row at B4 x T1024 H16 under causal;
    BigBird with a layout per head at block 64; Variable, BSLongformer and
-   LocalSlidingWindow at blocks 16 and 32; D128 non-causal), the backward
+   LocalSlidingWindow at blocks 16 and 32; D128 non-causal; D96 at gpt2-760m's
+   16 heads, fp32 and bf16), the backward
    bitwise on a re-run; its yardstick is one SDPA call with the layout
    expanded to a boolean [H, T, T] mask (mask construction excluded) and
    that call's backward, with B1 / B2's dense causal times beside it.
@@ -173,6 +182,13 @@ result line):
    with dense attention (B1/B2, B2's share of the busy time reported) at
    the same shape (no gain claimed).
 
+11. head dim 96: ``PRESETS["gpt2-760m"]`` (d 1536, 16 heads of 96) at full
+   width, depth cut to 4 of 24 layers: (a) fp32 scoring B4 x T512 (B1 =
+   plain attention), (b) 3 bf16 ZeRO-2 steps (B1/B2 on the tensor cores),
+   (c) greedy ``generate`` = the plain path (B3), (d) paged serving =
+   ``generate`` (B4), (e) n-gram speculative serving = spec-off (B5), each
+   with exact launch counts.
+
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the CUDA-core flash kernels only, bf16 paths the tensor-core ones
@@ -244,12 +260,23 @@ BWD_PATH = {"float32": BWD_KERNELS, "bfloat16": ("delta", *BWD_TC_KERNELS),
 FWD_PATH = {"float32": ("fwd",), "bfloat16": ("fwd_tc",), "stochastic": ("fwd_tc_stochastic",)}
 # each tensor-core library, the kernels whose every instance must hold wgmma
 # (HGMMA in SASS), and their instances
-# (flash: bf16 / fp16 x D 64 / 128 x the default and the single-cast
+# (flash: bf16 / fp16 x D 64 / 96 / 128 x the default and the single-cast
 # (stochastic_mode) function; B6/B7: bf16 / fp16 x int8 / int4 x 64 / 128
 # rows a block)
-TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel",), 8),
-              "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"), 8),
+TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel",), 12),
+              "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"), 12),
               "int8_matmul_tc": (("qmatmul_tc_kernel",), 8)}
+# B5's mma.sync instances: bf16 / fp16 x D 64 / 96 / 128 x dense / int8 /
+# int4 x one or two 16-row m tiles hold HMMA; fp32's 9 (CUDA cores) none. An
+# instance's mangled name starts its template arguments with its type
+# (If: float)
+VERIFY_KERNEL = "verify_split_kernel"
+VERIFY_MMA_INSTANCES = 36
+VERIFY_FP32_INSTANCES = 9
+# the times of the earlier one-block-per-row B3 and B5 at the main-path rows
+# (PERF.md kernel table), printed beside the split kernels' for comparison
+OLD_MS = {"decode bfloat16": 0.0504, "verify dense bfloat16": 0.0944,
+          "verify dense float32": 0.0989}
 # stochastic_mode's kernels against their single-cast plain versions: a
 # term whose two fp32 values straddle a rounding boundary of the dtype
 # rounds apart, so at most 2 ulps of the dtype at the largest entry and
@@ -465,10 +492,23 @@ def phase_build(torch, ctx):
             check(len(per_instance) == instances and min(per_instance) > 0,
                   f"{kernel} in {lib}: {len(per_instance)} instances, expected {instances}, "
                   f"each with wgmma ({per_instance})")
+    counts = sass_tensor_ops(_build, "paged_verify_attention", op="HMMA")
+    fp32 = sorted(c for fn, c in counts.items() if VERIFY_KERNEL + "If" in fn)
+    mma = sorted(c for fn, c in counts.items() if VERIFY_KERNEL in fn
+                 and VERIFY_KERNEL + "If" not in fn)
+    log(f"phase1 sass paged_verify_attention {VERIFY_KERNEL}: {len(mma)} bf16/fp16 instances, "
+        f"HMMA per instance {mma}; {len(fp32)} fp32 instances, HMMA {fp32}")
+    check(len(mma) == VERIFY_MMA_INSTANCES and min(mma) > 0,
+          f"B5's bf16/fp16 instances: {len(mma)}, expected {VERIFY_MMA_INSTANCES}, each with "
+          f"HMMA ({mma})")
+    check(len(fp32) == VERIFY_FP32_INSTANCES and max(fp32) == 0,
+          f"B5's fp32 instances: {len(fp32)}, expected {VERIFY_FP32_INSTANCES}, none with "
+          f"HMMA ({fp32})")
 
 
-def sass_tensor_ops(_build, lib: str) -> dict:
-    """HGMMA (wgmma) instructions in each function of a built library's SASS."""
+def sass_tensor_ops(_build, lib: str, op: str = "HGMMA") -> dict:
+    """``op`` instructions (HGMMA: wgmma; HMMA: mma.sync) in each function
+    of a built library's SASS."""
     from pathlib import Path
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
@@ -479,15 +519,12 @@ def sass_tensor_ops(_build, lib: str) -> dict:
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HGMMA" in line:
+        elif fn is not None and op in line:
             counts[fn] += 1
     return counts
 
 
 def phase_kernels(torch, ctx):
-    import torch.nn.functional as F
-
-    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
     timer = ctx["timer"]
@@ -497,9 +534,11 @@ def phase_kernels(torch, ctx):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     # B1 forward on the CUDA cores (fp32): the scoring shape (the main-path
-    # row), the bottom-right causal case, non-causal, and head dim 128
+    # row), the bottom-right causal case, non-causal, head dim 128, and head
+    # dim 96 at gpt2-760m's 16 heads
     flash_cases = [(4, 512, 512, 12, 64, True), (4, 128, 512, 12, 64, True),
-                   (4, 256, 256, 12, 64, False), (4, 512, 512, 12, 128, True)]
+                   (4, 256, 256, 12, 64, False), (4, 512, 512, 12, 128, True),
+                   (4, 512, 512, 16, 96, True)]
     flash_err = 0.0
     for i, (B, T, S, H, D, causal) in enumerate(flash_cases):
         dt = "float32"
@@ -530,20 +569,47 @@ def phase_kernels(torch, ctx):
     ctx["flash"]["max_abs_err"] = flash_err
     phase_kernels_flash_tc(torch, ctx, randn)
 
-    # B3: GPT-2-125M decode shapes (B4, H12, cache 640 = 512 + 64 padded to
-    # 128, Dh 64); per-row lengths {1, 77, 513, 640}, then the serving path's
-    # mid-run length 544 for every row in bf16 (the main-path row)
-    B, H, S, Dh = 4, 12, 640, 64
-    decode_cases = [([1, 77, 513, 640], "float32"), ([1, 77, 513, 640], "bfloat16"),
-                    ([544] * 4, "bfloat16")]
+    phase_kernels_decode(torch, ctx, randn)
+    phase_kernels_bwd(torch, ctx, randn)
+    phase_kernels_paged(torch, ctx)
+    phase_kernels_verify(torch, ctx)
+    phase_kernels_qmatmul(torch, ctx)
+    phase_kernels_dequant(torch, ctx)
+    phase_kernels_blocksparse(torch, ctx, randn)
+
+
+def phase_kernels_decode(torch, ctx, randn):
+    """B3, split over the cache (``split_plan``: 5 splits of 128 at S 640 and
+    B4), against its plain version at GPT-2-125M's decode shapes (H12, cache
+    640 = 512 + 64 padded to 128) with Dh 64, 96 and 128: per-row lengths
+    {0, 1, 77, 128, 129, 513, 639, 640} at B8 (0 must give zeros; a split's
+    edge; a length inside the last split; the capacity) in fp32 / bf16 / fp16,
+    the earlier row {1, 77, 513, 640}, and the serving path's mid-run length 544
+    for every row in bf16 (the main-path row); bitwise on a re-run; kernel /
+    plain / SDPA / bound times, beside the earlier one-block-a-row kernel's."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.cuda import decode_attention as da
+
+    timer = ctx["timer"]
+    H, S = 12, 640
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edge = [0, 1, 77, 128, 129, 513, 639, 640]
+    cases = [(8, edge, "float32", 64), (8, edge, "bfloat16", 64), (8, edge, "float16", 64),
+             (8, edge, "float32", 96), (8, edge, "bfloat16", 96), (8, edge, "bfloat16", 128),
+             (4, [1, 77, 513, 640], "float32", 64), (4, [1, 77, 513, 640], "bfloat16", 64),
+             (4, [544] * 4, "bfloat16", 64), (4, [544] * 4, "bfloat16", 96),
+             (4, [544] * 4, "float32", 96)]
     decode_err = 0.0
-    for lens_list, dt in decode_cases:
+    for B, lens_list, dt, Dh in cases:
         dtype = getattr(torch, dt)
         q = randn((B, 1, H, Dh), dtype)
         k, v = randn((B, H, S, Dh), dtype), randn((B, H, S, Dh), dtype)
         lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
-        out = da.decode_attention(q, k, v, lens)
+        before = da.launches
+        out, again = da.decode_attention(q, k, v, lens), da.decode_attention(q, k, v, lens)
         torch.cuda.synchronize()
+        launched = da.launches - before
         err = (out.float() - da.decode_attention_ref(q, k, v, lens).float()).abs().max().item()
         decode_err = max(decode_err, err)
         valid = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
@@ -556,19 +622,23 @@ def phase_kernels(torch, ctx):
         plain_ms = timer.ms(lambda: da.decode_attention_ref(q, k, v, lens))
         library_ms = timer.ms(library)
         bound_ms, bound_by = decode_bound(lens_list, H, S, Dh, dt, q.element_size())
-        log(f"phase2 decode_attention B{B} H{H} S{S} Dh{Dh} lengths={lens_list} {dt}: "
-            f"max_abs_err={err:.3e} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
-        check(err <= ATOL[dt], f"decode {lens_list} {dt}: max_abs_err {err} > {ATOL[dt]}")
-        ctx["decode"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
+        main = (B, lens_list, dt, Dh) == (4, [544] * 4, "bfloat16", 64)
+        log(f"phase2 decode_attention B{B} H{H} S{S} Dh{Dh} lengths={lens_list} {dt} "
+            f"splits={da.split_plan(B * H, S, sms)}: "
+            f"max_abs_err={err:.3e} bitwise_rerun={torch.equal(out, again)} launches={launched} "
+            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+            f"bound_ms={bound_ms:.5f} ({bound_by}) kernel/sdpa={kernel_ms / library_ms:.3f}"
+            + (f" one_block_a_row_ms={OLD_MS['decode bfloat16']}" if main else ""))
+        check(err <= ATOL[dt], f"decode {B} {lens_list} {dt} Dh{Dh}: max_abs_err {err}")
+        check(torch.equal(out, again), f"decode {lens_list} {dt} Dh{Dh}: two runs differ")
+        check(launched == 2, f"decode {lens_list} {dt} Dh{Dh}: {launched} launches")
+        if 0 in lens_list:
+            check(torch.count_nonzero(out[lens_list.index(0)]).item() == 0,
+                  f"decode {dt} Dh{Dh}: the length-0 row is not zero")
+        if main:
+            ctx["decode"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
     ctx["decode"]["max_abs_err"] = decode_err
-    phase_kernels_bwd(torch, ctx, randn)
-    phase_kernels_paged(torch, ctx)
-    phase_kernels_verify(torch, ctx)
-    phase_kernels_qmatmul(torch, ctx)
-    phase_kernels_dequant(torch, ctx)
-    phase_kernels_blocksparse(torch, ctx, randn)
 
 
 def _sdpa_forward(torch, q, k, v, causal):
@@ -605,9 +675,10 @@ def phase_kernels_flash_tc(torch, ctx, randn):
     a re-run, with kernel / plain (the split version) / SDPA / bound times.
     q/k/v are views of one fused buffer. Cases: phase 5b's B8 x T512 (bf16:
     the main-path row; fp16), the bottom-right offset T128 S512, non-causal,
-    D128 (bf16, fp16), a ragged T100 S200, and phase 10b's B2 x T4096 (bf16,
-    fp16). Then stochastic_mode's single-cast instances of B1 and of B2's
-    tensor-core dq and dk/dv against the single-cast plain versions."""
+    D128 (bf16, fp16), a ragged T100 S200, phase 10b's B2 x T4096 (bf16,
+    fp16), and D96 (gpt2-760m's: bf16, fp16, ragged). Then stochastic_mode's
+    single-cast instances of B1 and of B2's tensor-core dq and dk/dv against
+    the single-cast plain versions."""
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
     timer = ctx["timer"]
@@ -615,7 +686,10 @@ def phase_kernels_flash_tc(torch, ctx, randn):
              (4, 128, 512, 12, 64, True, "bfloat16"), (4, 256, 256, 12, 64, False, "bfloat16"),
              (4, 512, 512, 12, 128, True, "bfloat16"), (4, 512, 512, 12, 128, True, "float16"),
              (2, 100, 200, 12, 64, True, "bfloat16"),
-             (2, 4096, 4096, 12, 64, True, "bfloat16"), (2, 4096, 4096, 12, 64, True, "float16")]
+             (2, 4096, 4096, 12, 64, True, "bfloat16"), (2, 4096, 4096, 12, 64, True, "float16"),
+             # head dim 96 (gpt2-760m's H16): the padded second panel
+             (4, 512, 512, 16, 96, True, "bfloat16"), (4, 512, 512, 16, 96, True, "float16"),
+             (2, 100, 200, 16, 96, True, "bfloat16")]
     err_max = 0.0
     for i, (B, T, S, H, D, causal, dt) in enumerate(cases):
         dtype = getattr(torch, dt)
@@ -665,7 +739,8 @@ def phase_kernels_flash_tc(torch, ctx, randn):
     # single-cast plain versions (the backward from the kernel's own lse)
     for B, T, S, H, D, causal, dt in [(8, 512, 512, 12, 64, True, "bfloat16"),
                                       (4, 256, 256, 12, 128, False, "float16"),
-                                      (2, 100, 200, 12, 64, True, "bfloat16")]:
+                                      (2, 100, 200, 12, 64, True, "bfloat16"),
+                                      (4, 256, 256, 16, 96, True, "bfloat16")]:
         dtype = getattr(torch, dt)
         q, k, v = _fused_qkv(randn, B, T, S, H, D, dtype)
         do = randn((B, T, H, D), dtype)
@@ -969,7 +1044,8 @@ def phase_kernels_qmatmul_tc(torch, ctx):
 def phase_kernels_paged(torch, ctx):
     """B4 (dense pools) and B4q (int8, int4 pools) against the gather + plain
     softmax version, at the serving bench shape (8 slots, H12, Dh64, page 64,
-    8 pages per row, pool 17) and a long one (16 pages per row, pool 257),
+    8 pages per row, pool 17), a long one (16 pages per row, pool 257) and
+    the bench shape at Dh 96 (whose int4 dims straddle a byte's nibbles),
     fp32 and bf16, lengths {0, 1, 63, 64, 65, full, ...} over scattered page
     ids. The kernels' rows of the result line are the bench shape in fp32,
     the dtype of the paths that count their launches (phase 6 a and d)."""
@@ -980,13 +1056,13 @@ def phase_kernels_paged(torch, ctx):
     timer = ctx["timer"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     rng = np.random.default_rng(5)
-    B, H, Dh, ps = 8, 12, 64, 64
+    B, H, ps = 8, 12, 64
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     errs = {kind: 0.0 for kind in PAGED_KINDS}
-    for pages, pool in ((8, 17), (16, 257)):
+    for Dh, pages, pool in ((64, 8, 17), (64, 16, 257), (96, 8, 17)):
         full = pages * ps
         lens_list = [0, 1, 63, 64, 65, full, full // 2 + 7, full - 1]
         tables_np = np.zeros((B, pages), np.int32)
@@ -1045,10 +1121,10 @@ def phase_kernels_paged(torch, ctx):
                     f"max_abs_err={err:.3e} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
                     f"library_ms(sdpa, gather excluded)={library_ms:.4f} "
                     f"gather_sdpa_ms={gather_sdpa_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
-                check(err <= ATOL[dt], f"paged {kind} {pages} {dt}: max_abs_err {err}")
+                check(err <= ATOL[dt], f"paged {kind} {pages} Dh{Dh} {dt}: max_abs_err {err}")
                 check(torch.count_nonzero(out[0]).item() == 0,
-                      f"paged {kind} {pages} {dt}: the length-0 row is not zero")
-                if (pages, dt) == (8, "float32"):
+                      f"paged {kind} {pages} Dh{Dh} {dt}: the length-0 row is not zero")
+                if (Dh, pages, dt) == (64, 8, "float32"):
                     ctx[f"paged_{kind}"] = dict(ms=kernel_ms, plain_ms=plain_ms,
                                                 library_ms=library_ms, bound_ms=bound_ms,
                                                 bound_by=bound_by)
@@ -1074,16 +1150,21 @@ def _verify_library_inputs(torch, da, k, v, ks, vs, tables, lens, wk, wv, dtype)
 
 
 def phase_kernels_verify(torch, ctx):
-    """B5 (dense, int8, int4 pools) against the plain version, on the
-    committable window positions (the plain version drops positions past the
-    table, the kernel attends them), at 8 slots, H12, Dh64, a 512-token
-    table of page size 8, 64 or 128, windows W of 2, 3, 5, 9 and 17, fp32
-    and bf16, lengths {0, 1, ps - 1, ps, ps + 1, mid, near capacity}, with q
-    and the window as strided views of one fused qkv buffer; a second run is
-    bitwise equal. Timed at page 64 for W 2, 5 and 17 (kernel, plain, SDPA
-    over the gathered cache with the window scattered in and a [B, H, W, S]
-    mask, the gather excluded). The kernels' rows of the result line are B4's
-    shape (page 64, 8 pages per row, pool 17), W 5, fp32."""
+    """B5 (dense, int8, int4 pools; split over the pages by ``split_plan``;
+    bf16 / fp16 on mma.sync) against the plain version, on the committable
+    window positions (the plain version drops positions past the table, the
+    kernel attends them): 90 base cases (8 slots, H12, Dh64, a 512-token
+    table of page size 8, 64 or 128, windows W of 2, 3, 5, 9 and 17, fp32 and
+    bf16, lengths {0, 1, ps - 1, ps, ps + 1, mid, near capacity}) and 36 more
+    at page 64 and W 2 / 5 / 17: Dh96 in fp32 / bf16 / fp16 and Dh64 in fp16;
+    q and the window strided views of one fused qkv buffer; a second run
+    bitwise equal; bf16 / fp16 within 2 ulps of the dtype of the fp32
+    function (the plain version on the inputs widened to fp32) on entries of
+    at least 1e-3 of the largest. Timed at page 64 for W 2, 5 and 17, fp32
+    and bf16, Dh 64 and 96 (kernel, plain, SDPA over the gathered cache with
+    the window scattered in and a [B, H, W, S] mask, the gather excluded).
+    The kernels' rows of the result line are B4's shape (page 64, 8 pages per
+    row, pool 17), W 5, fp32, Dh 64."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
@@ -1091,14 +1172,20 @@ def phase_kernels_verify(torch, ctx):
     timer = ctx["timer"]
     gen = torch.Generator(device="cuda").manual_seed(4)
     rng = np.random.default_rng(6)
-    B, H, Dh, cap = 8, 12, 64, 512
+    B, H, cap = 8, 12, 512
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
+    # (page size, dtypes, head dim, windows): the 90 base cases, then 36 more
+    groups = [(ps, ("float32", "bfloat16"), 64, (2, 3, 5, 9, 17)) for ps in (8, 64, 128)]
+    groups += [(64, ("float32", "bfloat16", "float16"), 96, (2, 5, 17)),
+               (64, ("float16",), 64, (2, 5, 17))]
     errs = {kind: 0.0 for kind in PAGED_KINDS}
-    timed = 0
-    for ps in (8, 64, 128):
+    worst_ulp = {"bfloat16": 0.0, "float16": 0.0}
+    n_cases = timed = 0
+    for ps, dts, Dh, windows in groups:
         pages = cap // ps
         pool = 17 if ps == 64 else B * pages + 1
         lens_list = [0, 1, ps - 1, ps, ps + 1, cap // 2 + 7, cap - 9, cap - 1]
@@ -1108,7 +1195,7 @@ def phase_kernels_verify(torch, ctx):
             tables_np[b, :used] = rng.choice(np.arange(1, pool), used, replace=False)
         tables = torch.from_numpy(tables_np).cuda()
         lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
-        for dt in ("float32", "bfloat16"):
+        for dt in dts:
             dtype = getattr(torch, dt)
             for kind, bits in PAGED_KINDS.items():
                 if bits is None:
@@ -1120,7 +1207,7 @@ def phase_kernels_verify(torch, ctx):
                                           device="cuda", dtype=torch.int8) for _ in range(2))
                     ks, vs = (torch.rand((H, pool), generator=gen, device="cuda") * 0.02 + 1e-3
                               for _ in range(2))
-                for W in (2, 3, 5, 9, 17):
+                for W in windows:
                     qkv = randn((B, W, 3 * H * Dh), dtype)
                     q, wk, wv = (x.reshape(B, W, H, Dh) for x in qkv.split(H * Dh, dim=-1))
 
@@ -1139,10 +1226,21 @@ def phase_kernels_verify(torch, ctx):
                     keep = lens.long()[:, None] + torch.arange(W, device="cuda") < cap
                     err = (out[keep].float() - ref[keep].float()).abs().max().item()
                     errs[kind] = max(errs[kind], err)
-                    tag = f"{kind} ps{ps} W{W} {dt}"
+                    tag = f"{kind} ps{ps} Dh{Dh} W{W} {dt}"
+                    n_cases += 1
                     check(torch.equal(out, again), f"verify {tag}: two runs differ")
                     check(err <= ATOL[dt], f"verify {tag}: max_abs_err {err} > {ATOL[dt]}")
-                    if ps != 64 or W not in (2, 5, 17):
+                    ulps = None
+                    if dt != "float32":  # against the fp32 function of the same inputs
+                        pools = (k, v) if bits is not None else (k.float(), v.float())
+                        ref32 = da.paged_verify_attention(
+                            q.float(), *pools, lens, tables, wk.float(), wv.float(),
+                            impl="gather", k_scales=ks, v_scales=vs)
+                        ulps = ulp_err(torch, out[keep], ref32[keep], dtype)
+                        worst_ulp[dt] = max(worst_ulp[dt], ulps)
+                        check(ulps <= BWD_MAX_ULP, f"verify {tag}: {ulps} {dt} ulps of the "
+                              "fp32 function")
+                    if ps != 64 or W not in (2, 5, 17) or dt == "float16":
                         continue
                     qt = q.transpose(1, 2)
                     kc, vc, mask = _verify_library_inputs(torch, da, k, v, ks, vs, tables, lens,
@@ -1156,18 +1254,27 @@ def phase_kernels_verify(torch, ctx):
                     bound_ms, bound_by = verify_bound(lens_list, W, H, Dh, ps, bits, dt,
                                                       q.element_size())
                     timed += 1
+                    old = OLD_MS.get(f"verify {kind} {dt}") if (W, Dh) == (5, 64) else None
                     log(f"phase2 paged_verify_attention {kind} B{B} H{H} Dh{Dh} ps{ps} "
-                        f"pages_per_seq{pages} pool{pool} W{W} lengths={lens_list} {dt}: "
-                        f"max_abs_err={err:.3e} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+                        f"pages_per_seq{pages} pool{pool} W{W} lengths={lens_list} {dt} "
+                        f"splits={da.split_plan(B * H, cap, sms)}: max_abs_err={err:.3e} "
+                        + (f"max_ulp_err={ulps:.2f} " if ulps is not None else "")
+                        + f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
                         f"library_ms(sdpa, gather excluded)={library_ms:.4f} "
-                        f"bound_ms={bound_ms:.5f} ({bound_by})")
-                    if (W, dt) == (5, "float32"):
+                        f"bound_ms={bound_ms:.5f} ({bound_by}) "
+                        f"kernel/sdpa={kernel_ms / library_ms:.3f}"
+                        + (f" one_block_a_row_ms={old}" if old else ""))
+                    if (W, dt, Dh) == (5, "float32", 64):
                         ctx[f"verify_{kind}"] = dict(ms=kernel_ms, plain_ms=plain_ms,
                                                      library_ms=library_ms, bound_ms=bound_ms,
                                                      bound_by=bound_by)
-    log(f"phase2 paged_verify_attention: 90 cases within tolerance and bitwise on re-run "
+                    del kc, vc, mask
+    log(f"phase2 paged_verify_attention: {n_cases} cases within tolerance and bitwise on re-run "
         f"({timed} timed); max_abs_err dense/kv8/kv4 = "
-        + "/".join(f"{errs[k]:.3e}" for k in PAGED_KINDS))
+        + "/".join(f"{errs[k]:.3e}" for k in PAGED_KINDS)
+        + f"; largest ulps of the fp32 function bf16={worst_ulp['bfloat16']:.2f} "
+        f"fp16={worst_ulp['float16']:.2f}")
+    check(n_cases == 126, f"B5: {n_cases} cases, expected 90 + 36")
     for kind in PAGED_KINDS:
         ctx[f"verify_{kind}"]["max_abs_err"] = errs[kind]
 
@@ -1183,10 +1290,10 @@ def phase_kernels_bwd(torch, ctx, randn):
     timer = ctx["timer"]
     # the training shape B8 T=S512 H12 D64 (bf16 is the main-path row, fp32
     # the fp32 training path's), the bottom-right causal offset T128 S512,
-    # non-causal, D128, a ragged T100 S200 and phase 10b's B2 x T4096 (64 k
-    # tiles a q tile); then fp16 with dO 2^-8 of the others' (small
-    # gradients: dS falls below fp16's normal range unless the kernels scale
-    # its rows)
+    # non-causal, D128, a ragged T100 S200, phase 10b's B2 x T4096 (64 k
+    # tiles a q tile) and D96 (gpt2-760m's); then fp16 with dO 2^-8 of the
+    # others' (small gradients: dS falls below fp16's normal range unless the
+    # kernels scale its rows)
     cases = [(8, 512, 512, 12, 64, True, "float32"), (8, 512, 512, 12, 64, True, "bfloat16"),
              (8, 512, 512, 12, 64, True, "float16"),
              (4, 128, 512, 12, 64, True, "float32"), (4, 128, 512, 12, 64, True, "bfloat16"),
@@ -1194,8 +1301,11 @@ def phase_kernels_bwd(torch, ctx, randn):
              (4, 256, 256, 12, 64, False, "bfloat16"), (4, 256, 256, 12, 64, False, "float16"),
              (4, 512, 512, 12, 128, True, "float32"), (4, 512, 512, 12, 128, True, "bfloat16"),
              (4, 512, 512, 12, 128, True, "float16"), (2, 100, 200, 12, 64, True, "bfloat16"),
-             (2, 4096, 4096, 12, 64, True, "bfloat16"), (2, 4096, 4096, 12, 64, True, "float16")]
-    small_do = [(4, 512, 512, 12, 64, True, "float16")]
+             (2, 4096, 4096, 12, 64, True, "bfloat16"), (2, 4096, 4096, 12, 64, True, "float16"),
+             # head dim 96 (gpt2-760m's H16)
+             (4, 512, 512, 16, 96, True, "float32"), (4, 512, 512, 16, 96, True, "bfloat16"),
+             (4, 512, 512, 16, 96, True, "float16"), (2, 100, 200, 16, 96, True, "bfloat16")]
+    small_do = [(4, 512, 512, 12, 64, True, "float16"), (4, 512, 512, 16, 96, True, "float16")]
     errs = {name: 0.0 for name in BWD_KERNELS + BWD_TC_KERNELS}
     for (B, T, S, H, D, causal, dt), do_scale in ([(c, 1.0) for c in cases]
                                                   + [(c, 2.0**-8) for c in small_do]):
@@ -1371,6 +1481,7 @@ def _bs_cases():
 
     fixed = FixedSparsityConfig(**SPARSE_GPT_LAYOUT)
     fixed_d128 = FixedSparsityConfig(num_heads=8, block=128)
+    fixed_d96 = FixedSparsityConfig(**{**SPARSE_GPT_LAYOUT, "num_heads": 16})
     return [
         # (i) phase 10a's shape; (ii) phase 10b's, the main-path row
         ("fixed-uni-128 (10a)", fixed.make_layout(1024), 128, 2, 12, 64, True, "float32"),
@@ -1400,6 +1511,9 @@ def _bs_cases():
         # (vi) head dim 128, not causal
         ("fixed-bi-128 D128 noncausal", fixed_d128.make_layout(1024), 128, 2, 8, 128, False,
          "float32"),
+        # (vii) head dim 96: the fixed pattern at gpt2-760m's width (H16)
+        ("fixed-uni-128 D96", fixed_d96.make_layout(1024), 128, 2, 16, 96, True, "float32"),
+        ("fixed-uni-128 D96", fixed_d96.make_layout(1024), 128, 2, 16, 96, True, "bfloat16"),
     ]
 
 
@@ -2671,6 +2785,107 @@ def phase_sparse(torch, ctx):
         ctx[f"bs_{n}"]["launches"] = sparse[f"b9_{n}"]
 
 
+# phase 11: gpt2-760m (d 1536, H16: head dim 96) at full width, its 24
+# layers cut to D96_DEPTH to keep the script within its time limit (every
+# layer runs the same kernels at the same shapes); the serving workload is
+# phase 6's configuration with 8 requests and generations of 8-32
+D96_PRESET = "gpt2-760m"
+D96_DEPTH = 4
+D96_WORKLOAD = (8, 8.0, (32, 128), (8, 32))
+
+
+def phase_head_dim_96(torch, ctx):
+    """Phase 11: ``PRESETS["gpt2-760m"]`` at full width (d 1536, 16 heads of
+    96), depth cut to 4 of its 24 layers, random weights from seed 0. (a)
+    fp32 scoring at B4 x T512 through B1 on the CUDA cores, equal to plain
+    attention; (b) bf16 + fp32 master + ZeRO-2 training at B4 x T512, 3
+    steps, through B1 / B2 on the tensor cores (the padded second panel);
+    (c) greedy ``generate`` (B2, prompt 256, +32), fp32, through B3,
+    token-identical to the plain path; (d) paged serving (phase 6's
+    configuration, 8 requests), fp32, through B4, each request's tokens
+    equal to ``generate``'s; (e) n-gram speculative serving (spec_k 4,
+    decode_block 1) of (d)'s workload through B5, equal to (d)'s tokens.
+    Every path's launch counts are exact and printed."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import for_gpt
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = dataclasses.replace(gpt.PRESETS[D96_PRESET], n_layer=D96_DEPTH)
+    check(cfg.head_dim == 96, f"{D96_PRESET}: head dim {cfg.head_dim}")
+    L, V = cfg.n_layer, cfg.vocab_size
+    params = gpt.init_params(cfg, 0, device="cuda")
+    rng = np.random.default_rng(11)
+    tag = f"{D96_PRESET} (d{cfg.d_model} H{cfg.n_head} Dh96, {L} of 24 layers)"
+
+    # (a) fp32 scoring, B4 x T512
+    batch = {"input_ids": rng.integers(0, V, (4, 512)).astype(np.int32)}
+    with torch.no_grad():
+        fa, da = _reset_counts()  # the scoring main path
+        loss = gpt.loss_fn(cfg, params, batch, train=False)[0].item()
+        torch.cuda.synchronize()
+        launches = _flash_launches(fa)
+        plain = gpt.loss_fn(dataclasses.replace(cfg, use_flash=False), params, batch,
+                            train=False)[0].item()
+    log(f"phase11a scoring {tag} B4xT512 fp32: loss={loss:.6f} plain_loss={plain:.6f} "
+        f"|diff|={abs(loss - plain):.3e} launches={launches}")
+    check(math.isfinite(loss) and abs(loss - math.log(V)) < 0.5, f"D96 scoring loss {loss}")
+    check(abs(loss - plain) <= 1e-4, f"D96 flash loss {loss} vs plain {plain}")
+    check(launches == path_launches(launches, L, FWD_PATH["float32"]),
+          f"D96 scoring launches {launches}")
+
+    # (b) bf16 + fp32 master + ZeRO-2, B4 x T512, 3 steps on one batch
+    engine = _engine(_train_config(4, bf16={"enabled": True}, zero_optimization={"stage": 2}),
+                     cfg)
+    fa, _ = _reset_counts()  # the bf16 training main path
+    losses, norms, step_ms, _ = _timed_steps(torch, engine, batch, 3)
+    launches = _flash_launches(fa)
+    log(f"phase11b train bf16 master zero2 {tag} B4xT512: losses={losses} grad_norms={norms} "
+        f"step_ms={[round(x, 3) for x in step_ms]} launches over 3 steps={launches}")
+    check(abs(losses[0] - math.log(V)) < 0.5, f"D96 bf16 step-1 loss {losses[0]}")
+    check(losses[-1] < losses[0], f"D96 bf16 loss did not fall: {losses}")
+    check(all(math.isfinite(x) for x in losses + norms), "D96 bf16 loss or norm not finite")
+    want = path_launches(launches, 3 * L, _flash_path("bfloat16"))
+    check(launches == want, f"D96 bf16 launches {launches}, expected {want}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # (c) greedy generate, fp32, B2 prompt 256 +32: the plain path's tokens
+    prompt = rng.integers(0, V, (2, 256)).astype(np.int32)
+    new = 32
+    engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="float32")
+    plain_engine = deepspeed_tpu_torch.init_inference(
+        for_gpt(dataclasses.replace(cfg, use_flash=False), params), dtype="float32")
+    engine.generate(prompt, max_new_tokens=2)  # warm-up
+    fa, da = _reset_counts()  # the generate main path
+    out = engine.generate(prompt, max_new_tokens=new)
+    decode_launches = da.launches
+    ref = plain_engine.generate(prompt, max_new_tokens=new)
+    log(f"phase11c generate {tag} B2 prompt256 new{new} fp32: decode_launches="
+        f"{decode_launches} greedy_match_rate={float(np.mean(out == ref)):.4f}")
+    check(decode_launches == L * (new - 1), f"D96 B3 launches {decode_launches}")
+    check(np.array_equal(out, ref), "D96 generate differs from the plain path")
+    del plain_engine
+
+    # (d) paged serving, fp32 dense pools: each request's tokens = generate's
+    _, toks_d, wl, launches_d, _ = _serve(torch, cfg, params, "float32", workload=D96_WORKLOAD)
+    gen = [engine.generate(r.prompt[None], max_new_tokens=r.max_new_tokens)[0, len(r.prompt):]
+           .tolist() for r in wl]
+    log(f"phase11d paged serving {tag} fp32: B4 launches={launches_d['dense']} "
+        f"match vs generate={_match(toks_d, gen):.4f}")
+    check(toks_d == gen, "D96 served tokens differ from generate")
+    del engine
+
+    # (e) n-gram speculative serving: (d)'s tokens, B5 in every window
+    rep_e, toks_e, _, launches_e, _ = _serve(torch, cfg, params, "float32",
+                                             workload=D96_WORKLOAD, **SPEC)
+    log(f"phase11e spec serving {tag} fp32: {_spec_line(rep_e)} B5 launches="
+        f"{launches_e['verify_dense']} B4 launches={launches_e['dense']} "
+        f"match vs spec-off (d)={_match(toks_e, toks_d):.4f}")
+    check(toks_e == toks_d, "D96 spec-on tokens differ from spec-off")
+    check(rep_e["spec"]["windows"] > 0, "D96: no verify window ran")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2685,7 +2900,7 @@ def main() -> int:
     failures = []
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
                   phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
-                  phase_sparse):
+                  phase_sparse, phase_head_dim_96):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)

@@ -55,28 +55,46 @@ def init_inference(model: Any = None, config: Any = None, device=None, **kwargs)
     return InferenceEngine(model, inf_cfg, device=device)
 
 
-def initialize(model: Any = None, config: Any = None, optimizer: Any = None,
-               lr_scheduler: Optional[Callable] = None, seed: Optional[int] = None,
-               device=None, config_params: Any = None) -> Tuple[Any, Any, None, Callable]:
+def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
+               model_parameters: Any = None, training_data: Any = None,
+               lr_scheduler: Optional[Callable] = None, topology: Any = None,
+               dist_init_required: Optional[bool] = None, config: Any = None,
+               config_params: Any = None, seed: Optional[int] = None,
+               device=None) -> Tuple[Any, Any, None, Callable]:
     """Create a training engine (counterpart of ``deepspeed_tpu.initialize``),
-    with the reference's return arity ``(engine, optimizer, dataloader,
-    lr_scheduler)``; the dataloader is None.
+    with the reference's parameters in its order (``device`` after them) and
+    its return arity ``(engine, optimizer, dataloader, lr_scheduler)``; the
+    dataloader is None.
 
     ``model`` is a :class:`models.api.Module` (``models.gpt.build``);
     ``config`` a DeepSpeed JSON dict, a path or a ``DeepSpeedConfig``
-    (``config_params`` is the legacy alias). ``optimizer`` overrides the
-    config's and must be a port :class:`ops.optimizers.Optimizer`;
-    ``lr_scheduler`` is a ``step -> lr`` callable. ``device`` defaults to
-    the CUDA device and raises when there is none. The data-parallel world is
-    the process group of ``comm.init_distributed`` (one rank without it)."""
+    (``config_params`` is the legacy alias; without either,
+    ``args.deepspeed_config``). ``optimizer`` overrides the config's and must
+    be a port :class:`ops.optimizers.Optimizer`; ``lr_scheduler`` is a
+    ``step -> lr`` callable. ``model_parameters`` is accepted and unused, as
+    the reference's is (the model carries its parameters).
+    ``dist_init_required`` None or True joins the process group of the
+    ``WORLD_SIZE`` / ``RANK`` environment when it names more than one rank
+    and none is joined yet (single-process runs need none, as in the
+    reference); False leaves it to the caller (``comm.init_distributed``).
+    ``training_data`` (A3b) and ``topology`` (A13) raise: not ported.
+    ``device`` defaults to the CUDA device and raises when there is none. The
+    data-parallel world is the joined process group (one rank without it)."""
+    import os
+
     from .comm import comm
     from .models.api import Module
     from .ops.optimizers import Optimizer
     from .runtime.config import DeepSpeedConfig
     from .runtime.engine import DeepSpeedEngine
+    from .utils.errors import unported
 
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
+    if training_data is not None:
+        raise unported("initialize(training_data=...): the DeepSpeed dataloader", "A3b")
+    if topology is not None:
+        raise unported("initialize(topology=...): a device mesh", "A13")
     if not isinstance(model, Module):
         raise TypeError("model must be a deepspeed_tpu_torch.models.api.Module "
                         f"(models.gpt.build gives one), got {type(model)}")
@@ -84,6 +102,11 @@ def initialize(model: Any = None, config: Any = None, optimizer: Any = None,
         raise TypeError("client optimizer must be a deepspeed_tpu_torch.ops.optimizers."
                         f"Optimizer (got {type(optimizer)})")
     cfg = config if config is not None else config_params
+    if cfg is None and args is not None:
+        cfg = getattr(args, "deepspeed_config", None)
+    if ((dist_init_required is None or dist_init_required) and not comm.is_initialized()
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        comm.init_distributed(device=device)
     ds_config = (cfg if isinstance(cfg, DeepSpeedConfig)
                  else DeepSpeedConfig.load(cfg, world_size=comm.get_world_size()))
     engine = DeepSpeedEngine(model, ds_config, seed=seed,

@@ -517,6 +517,7 @@ cudaError_t dispatch_tile(int pass, const Args& a) {
 template <typename T>
 cudaError_t dispatch_dim(int D, int pass, const Args& a) {
   if (D == 64) return dispatch_tile<T, 64>(pass, a);
+  if (D == 96) return dispatch_tile<T, 96>(pass, a);
   if (D == 128) return dispatch_tile<T, 128>(pass, a);
   return cudaErrorInvalidValue;
 }

@@ -268,6 +268,7 @@ cudaError_t dispatch_tile(const Args& a) {
 template <typename T>
 cudaError_t dispatch_dim(int D, const Args& a) {
   if (D == 64) return dispatch_tile<T, 64>(a);
+  if (D == 96) return dispatch_tile<T, 96>(a);
   if (D == 128) return dispatch_tile<T, 128>(a);
   return cudaErrorInvalidValue;
 }

@@ -497,6 +497,7 @@ cudaError_t run_pass(int pass, const Args& a) {
 template <typename T>
 cudaError_t dispatch_dim(int D, int pass, const Args& a) {
   if (D == 64) return run_pass<T, 64>(pass, a);
+  if (D == 96) return run_pass<T, 96>(pass, a);
   if (D == 128) return run_pass<T, 128>(pass, a);
   return cudaErrorInvalidValue;
 }

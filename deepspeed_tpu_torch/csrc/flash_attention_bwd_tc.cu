@@ -116,7 +116,7 @@ constexpr int kWgThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D> struct TileBytes {
-  static constexpr int value = kTile * D * 2;  // one [64][D] 16-bit tile
+  static constexpr int value = kTile * kPadded<D> * 2;  // one [64][D] 16-bit tile, whole panels
 };
 
 // Shared layout of the dq kernel (bytes from a 1024-aligned base): q, dO,
@@ -170,7 +170,8 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
                        long long d_sb, long long d_st, long long d_sh,
                        float scale, int causal) {
   using L = DqLayout<D>;
-  constexpr int NP = D / kPanelCols;  // output panels of 64 columns
+  constexpr int DP = kPadded<D>;         // whole 64-column panels (D 96: 128)
+  constexpr int NP = DP / kPanelCols;    // output panels of 64 columns
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = aligned_smem_base(smem_raw);
   const uint32_t sQ = base + L::q, sO = base + L::dout;
@@ -195,14 +196,14 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s == 0) {
-      load_tile_async<T, kTile, D>(sQ, q + b * q_sb + h * q_sh, q_st, q0, T_, tid, kWgThreads);
-      load_tile_async<T, kTile, D>(sO, dout + b * d_sb + h * d_sh, d_st, q0, T_, tid,
+      load_tile_async<T, kTile, D, DP>(sQ, q + b * q_sb + h * q_sh, q_st, q0, T_, tid, kWgThreads);
+      load_tile_async<T, kTile, D, DP>(sO, dout + b * d_sb + h * d_sh, d_st, q0, T_, tid,
                                    kWgThreads);
     }
     if (s < n_k_tiles) {
       const uint32_t st = base + L::ring + s * L::stage;
-      load_tile_async<T, kTile, D>(st, kb, k_st, s * kTile, S, tid, kWgThreads);
-      load_tile_async<T, kTile, D>(st + L::tile, vb, v_st, s * kTile, S, tid, kWgThreads);
+      load_tile_async<T, kTile, D, DP>(st, kb, k_st, s * kTile, S, tid, kWgThreads);
+      load_tile_async<T, kTile, D, DP>(st + L::tile, vb, v_st, s * kTile, S, tid, kWgThreads);
     }
     cp_async_commit();
   }
@@ -228,8 +229,8 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
     const int pf = kt + kStages - 1;  // refill the stage consumed last iteration
     if (pf < n_k_tiles) {
       const uint32_t st = base + L::ring + (pf % kStages) * L::stage;
-      load_tile_async<T, kTile, D>(st, kb, k_st, pf * kTile, S, tid, kWgThreads);
-      load_tile_async<T, kTile, D>(st + L::tile, vb, v_st, pf * kTile, S, tid, kWgThreads);
+      load_tile_async<T, kTile, D, DP>(st, kb, k_st, pf * kTile, S, tid, kWgThreads);
+      load_tile_async<T, kTile, D, DP>(st + L::tile, vb, v_st, pf * kTile, S, tid, kWgThreads);
     }
     cp_async_commit();
     cp_async_wait<kStages - 1>();  // tile kt (and q, dO) have landed
@@ -305,7 +306,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int t = q0 + acc_row(warp, lane, i);
-      if (t >= T_) continue;
+      if (t >= T_ || p * kPanelCols + acc_col(lane, i) >= D) continue;  // D 96's zero columns
       T* row = dq + (((long long)b * T_ + t) * H + h) * D;
       const float u = undo[(i >> 1) & 1];
       *reinterpret_cast<uint32_t*>(row + p * kPanelCols + acc_col(lane, i)) =
@@ -314,7 +315,7 @@ flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
 }
 
 template <typename T, int D, bool kSingle>
-__global__ void __launch_bounds__(kWgThreads * (D / kPanelCols))
+__global__ void __launch_bounds__(kWgThreads * (kPadded<D> / kPanelCols))
 flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
@@ -325,7 +326,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         long long d_sb, long long d_st, long long d_sh,
                         float scale, int causal) {
   using L = DkvLayout<D>;
-  constexpr int NWG = D / kPanelCols;  // warpgroups, one 64-column panel of dK / dV each
+  constexpr int DP = kPadded<D>;       // whole 64-column panels (D 96: 128)
+  constexpr int NWG = DP / kPanelCols;  // warpgroups, one 64-column panel of dK / dV each
   constexpr int NT = kWgThreads * NWG;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = aligned_smem_base(smem_raw);
@@ -356,8 +358,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto load_q_tile = [&](int it) {
     const int s = it % kStages, q0 = (first + it) * kTile;
     const uint32_t st = base + L::ring + s * L::stage;
-    load_tile_async<T, kTile, D>(st, qb, q_st, q0, T_, tid, NT);
-    load_tile_async<T, kTile, D>(st + L::tile, db, d_st, q0, T_, tid, NT);
+    load_tile_async<T, kTile, D, DP>(st, qb, q_st, q0, T_, tid, NT);
+    load_tile_async<T, kTile, D, DP>(st + L::tile, db, d_st, q0, T_, tid, NT);
     const uint32_t rs = base + L::rows + s * L::row_stage;
     load_row_async(rs, lb, q0, T_, kTile, tid, NT);
     load_row_async(rs + kTile * 4, deb, q0, T_, kTile, tid, NT);
@@ -366,8 +368,8 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (s == 0) {
-      load_tile_async<T, kTile, D>(sK, k + b * k_sb + h * k_sh, k_st, k0, S, tid, NT);
-      load_tile_async<T, kTile, D>(sV, v + b * v_sb + h * v_sh, v_st, k0, S, tid, NT);
+      load_tile_async<T, kTile, D, DP>(sK, k + b * k_sb + h * k_sh, k_st, k0, S, tid, NT);
+      load_tile_async<T, kTile, D, DP>(sV, v + b * v_sb + h * v_sh, v_st, k0, S, tid, NT);
     }
     if (s < n) load_q_tile(s);
     cp_async_commit();
@@ -472,7 +474,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 32; i += 2) {
     const int key = k0 + acc_row(warp, lane, i);
-    if (key >= S) continue;
+    if (key >= S || wg * kPanelCols + acc_col(lane, i) >= D) continue;  // D 96's zero columns
     const long long off = (((long long)b * S + key) * H + h) * D + wg * kPanelCols +
                           acc_col(lane, i);
     const int r = (i >> 1) & 1;
@@ -524,7 +526,8 @@ cudaError_t launch_dkv(const Args& a) {
   cudaError_t err = set_smem(flash_bwd_dkv_tc_kernel<T, D, kSingle>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.B * a.H, (a.S + kTile - 1) / kTile);
-  flash_bwd_dkv_tc_kernel<T, D, kSingle><<<grid, kWgThreads * (D / kPanelCols), smem, a.stream>>>(
+  flash_bwd_dkv_tc_kernel<T, D, kSingle><<<grid, kWgThreads * (kPadded<D> / kPanelCols), smem,
+                                           a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), a.H, a.T, a.S,
@@ -538,6 +541,7 @@ enum Pass { kDq = 0, kDkv = 1 };
 template <typename T, bool kSingle>
 cudaError_t dispatch_dim(int D, int pass, const Args& a) {
   if (D == 64) return pass == kDq ? launch_dq<T, 64, kSingle>(a) : launch_dkv<T, 64, kSingle>(a);
+  if (D == 96) return pass == kDq ? launch_dq<T, 96, kSingle>(a) : launch_dkv<T, 96, kSingle>(a);
   if (D == 128)
     return pass == kDq ? launch_dq<T, 128, kSingle>(a) : launch_dkv<T, 128, kSingle>(a);
   return cudaErrorInvalidValue;
@@ -590,7 +594,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 // Each entry point launches one kernel on `stream` and returns the CUDA error
 // code of the launch (0 on success). The arguments are those of
 // ds_flash_attention_bwd_dq / _dkv in flash_attention_bwd.cu, with `single`
-// before the stream; dtype is 1 (bf16) or 2 (fp16), D 64 or 128; `single` 1
+// before the stream; dtype is 1 (bf16) or 2 (fp16), D 64, 96 or 128; `single` 1
 // selects stochastic_mode's single-cast instances.
 
 // dq (the counterpart of _bwd_dq_kernel) on the tensor cores.

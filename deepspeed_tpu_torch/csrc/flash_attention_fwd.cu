@@ -234,6 +234,9 @@ cudaError_t dispatch_dim(int D, const void* q, const void* k, const void* v, voi
   if (D == 64)
     return launch<T, 64>(q, k, v, o, lse, B, H, T_, S, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                          v_sb, v_st, v_sh, scale, causal, stream);
+  if (D == 96)
+    return launch<T, 96>(q, k, v, o, lse, B, H, T_, S, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
+                         v_sb, v_st, v_sh, scale, causal, stream);
   if (D == 128)
     return launch<T, 128>(q, k, v, o, lse, B, H, T_, S, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                           v_sb, v_st, v_sh, scale, causal, stream);

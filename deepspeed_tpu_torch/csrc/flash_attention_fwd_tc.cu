@@ -78,7 +78,7 @@ constexpr int kPExp = (std::is_same<T, __half>::value && !kSingle) ? 14 : 0;
 
 // Shared layout (bytes from a 1024-aligned base): q, then kStages x (k, v).
 template <int D> struct FwdLayout {
-  static constexpr int tile = kTile * D * 2;  // one [64][D] 16-bit tile
+  static constexpr int tile = kTile * kPadded<D> * 2;  // one [64][D] 16-bit tile, whole panels
   static constexpr int q = 0;
   static constexpr int ring = q + tile;
   static constexpr int stage = 2 * tile;  // k then v
@@ -138,7 +138,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     long long v_sb, long long v_st, long long v_sh,
                     float scale, int causal) {
   using L = FwdLayout<D>;
-  constexpr int NP = D / kPanelCols;  // output panels of 64 columns
+  constexpr int DP = kPadded<D>;         // whole 64-column panels (D 96: 128)
+  constexpr int NP = DP / kPanelCols;    // output panels of 64 columns
   constexpr float kPOffset = static_cast<float>(kPExp<T, kSingle>);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = aligned_smem_base(smem_raw);
@@ -165,11 +166,11 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   if constexpr (kSingle) load_q_scaled<T, D>(sQ, qb, q_st, q0, T_, scale, tid);
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (!kSingle && s == 0) load_tile_async<T, kTile, D>(sQ, qb, q_st, q0, T_, tid, kWgThreads);
+    if (!kSingle && s == 0) load_tile_async<T, kTile, D, DP>(sQ, qb, q_st, q0, T_, tid, kWgThreads);
     if (s < n_k_tiles) {
       const uint32_t st = base + L::ring + s * L::stage;
-      load_tile_async<T, kTile, D>(st, kb, k_st, s * kTile, S, tid, kWgThreads);
-      load_tile_async<T, kTile, D>(st + L::tile, vb, v_st, s * kTile, S, tid, kWgThreads);
+      load_tile_async<T, kTile, D, DP>(st, kb, k_st, s * kTile, S, tid, kWgThreads);
+      load_tile_async<T, kTile, D, DP>(st + L::tile, vb, v_st, s * kTile, S, tid, kWgThreads);
     }
     cp_async_commit();
   }
@@ -189,8 +190,8 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const int pf = kt + kStages - 1;  // refill the stage consumed last iteration
     if (pf < n_k_tiles) {
       const uint32_t st = base + L::ring + (pf % kStages) * L::stage;
-      load_tile_async<T, kTile, D>(st, kb, k_st, pf * kTile, S, tid, kWgThreads);
-      load_tile_async<T, kTile, D>(st + L::tile, vb, v_st, pf * kTile, S, tid, kWgThreads);
+      load_tile_async<T, kTile, D, DP>(st, kb, k_st, pf * kTile, S, tid, kWgThreads);
+      load_tile_async<T, kTile, D, DP>(st + L::tile, vb, v_st, pf * kTile, S, tid, kWgThreads);
     }
     cp_async_commit();
     cp_async_wait<kStages - 1>();  // tile kt (and q) have landed
@@ -301,7 +302,7 @@ flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int i = 0; i < 32; i += 2) {
       const int t = q0 + acc_row(warp, lane, i);
-      if (t >= T_) continue;
+      if (t >= T_ || p * kPanelCols + acc_col(lane, i) >= D) continue;  // D 96's zero columns
       T* row = o + (((long long)b * T_ + t) * H + h) * D;
       const float u = inv[(i >> 1) & 1];
       *reinterpret_cast<uint32_t*>(row + p * kPanelCols + acc_col(lane, i)) =
@@ -338,6 +339,7 @@ cudaError_t launch(const Args& a) {
 template <typename T, bool kSingle>
 cudaError_t dispatch_dim(int D, const Args& a) {
   if (D == 64) return launch<T, 64, kSingle>(a);
+  if (D == 96) return launch<T, 96, kSingle>(a);
   if (D == 128) return launch<T, 128, kSingle>(a);
   return cudaErrorInvalidValue;
 }
@@ -352,7 +354,7 @@ cudaError_t dispatch_mode(int single, int D, const Args& a) {
 // q [B, T, H, D], k/v [B, S, H, D] given by element strides (batch, seq, head;
 // the last dimension contiguous, rows 16-byte aligned); o [B, T, H, D]
 // contiguous in the input dtype; lse [B*H, T] fp32. dtype is 1 (bf16) or 2
-// (fp16), D 64 or 128; `single` 1 selects stochastic_mode's single-cast
+// (fp16), D 64, 96 or 128; `single` 1 selects stochastic_mode's single-cast
 // function. Returns the CUDA error code of the launch (0 on success).
 extern "C" int ds_flash_attention_fwd_tc(const void* q, const void* k, const void* v, void* o,
                                          float* lse, int B, int H, int T, int S, int D, int dtype,

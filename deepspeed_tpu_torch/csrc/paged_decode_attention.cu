@@ -154,14 +154,15 @@ paged_kernel(const T* __restrict__ q, const void* __restrict__ k_pages,
         for (int dd = 0; dd < DL; ++dd)
           acc[dd] = fmaf(pj, static_cast<float>(vr[32 * dd]) * vsj, acc[dd]);
       } else {
-        // dims lane + 32 * dd below Dh/2 are the low nibbles of bytes
-        // lane + 32 * dd, the rest the high nibbles of bytes lane + 32 * dd - Dh/2
+        // output dim d = lane + 32 * dd below Dh/2 is the low nibble of byte
+        // d, a dim at or past Dh/2 the high nibble of byte d - Dh/2 (at Dh 96
+        // a lane's second dim is either, so the test is per dim)
         const float vsj = __shfl_sync(0xffffffffu, vs, j);
-        const int8_t* vr = static_cast<const int8_t*>(v_pages) + rj * (D / 2) + lane;
+        const int8_t* vr = static_cast<const int8_t*>(v_pages) + rj * (D / 2);
 #pragma unroll
         for (int dd = 0; dd < DL; ++dd) {
-          const int byte = vr[32 * (dd % (DL / 2))];
-          const int x = dd < DL / 2 ? low_nibble(byte) : high_nibble(byte);
+          const int d = lane + 32 * dd;
+          const int x = d < D / 2 ? low_nibble(vr[d]) : high_nibble(vr[d - D / 2]);
           acc[dd] = fmaf(pj, static_cast<float>(x) * vsj, acc[dd]);
         }
       }
@@ -225,6 +226,7 @@ cudaError_t dispatch_mode(int kv_mode, const Args& a) {
 template <typename T>
 cudaError_t dispatch_dim(int D, int kv_mode, const Args& a) {
   if (D == 64) return dispatch_mode<T, 64>(kv_mode, a);
+  if (D == 96) return dispatch_mode<T, 96>(kv_mode, a);
   if (D == 128) return dispatch_mode<T, 128>(kv_mode, a);
   return cudaErrorInvalidValue;
 }

@@ -8,7 +8,8 @@
 // fp16's subnormal range; or one cast, stochastic_mode's function).
 //
 // Tile layout. A [R][D] tile of 16-bit elements (R a multiple of 8, D a
-// multiple of 64) is kept as D / 64 column panels of R rows x 128 bytes,
+// multiple of 64; a head dim of 96 is kept as 128, kPadded, its last 32
+// columns zero) is kept as D / 64 column panels of R rows x 128 bytes,
 // panel after panel. Inside a panel, the 16-byte chunk c of row r sits at
 // chunk c ^ (r % 8): the 128-byte swizzle that wgmma's descriptors name as
 // layout type B128. Every panel starts on a 1024-byte boundary (8 rows), so
@@ -34,6 +35,12 @@ namespace ds {
 namespace tc {
 
 constexpr int kPanelCols = 64;         // 16-bit elements in one 128-byte panel row
+
+// The tile width that holds a head dim of D: whole 64-column panels. At
+// D 96 the last panel's columns 96-127 are zero-filled (load_tile_async):
+// products with K = D step over D / 16 k slices only, and the columns a
+// product with N = D gives past D are never stored.
+template <int D> constexpr int kPadded = (D + kPanelCols - 1) / kPanelCols * kPanelCols;
 constexpr int kRowBytes = 128;
 constexpr int kAtomBytes = 8 * kRowBytes;  // 8 rows: one swizzle atom
 
@@ -115,14 +122,16 @@ __device__ __forceinline__ uint32_t tile_offset(int row, int chunk) {
 // Start the copy of rows [r0, r0 + R) of one head into the tile at `dst`:
 // `src` is the head's row 0, `stride` its row stride in elements (the last
 // dimension contiguous, rows 16-byte aligned); rows at or past `n` are
-// zero-filled. Threads `tid` of `nthreads` share the chunks.
-template <typename T, int R, int D>
+// zero-filled, and so are columns D .. DP of a tile DP wide (kPadded).
+// Threads `tid` of `nthreads` share the chunks.
+template <typename T, int R, int D, int DP = D>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const T* src, long long stride,
                                                 int r0, int n, int tid, int nthreads) {
-  constexpr int chunks = D * static_cast<int>(sizeof(T)) / 16;  // per row
+  constexpr int chunks = DP * static_cast<int>(sizeof(T)) / 16;  // per tile row
+  constexpr int real = D * static_cast<int>(sizeof(T)) / 16;     // read from src
   for (int idx = tid; idx < R * chunks; idx += nthreads) {
     const int r = idx / chunks, c = idx % chunks;
-    const bool in = r0 + r < n;
+    const bool in = r0 + r < n && c < real;
     const T* p = in ? src + (long long)(r0 + r) * stride + c * (16 / sizeof(T)) : src;
     cp_async16(dst + tile_offset<R>(r, c), p, in);
   }

@@ -21,7 +21,7 @@ bidirectional layout are then wholly masked and the kernels skip them.
 
 Every wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises: the kernels are built for blocks
-of 16, 32, 64 and 128 and head dims 64 and 128.
+of 16, 32, 64 and 128 and head dims 64, 96 and 128.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from .. import _build
 from .flash_attention import DTYPE_CODE, NEG_INF, _readable, _stream
 
 BLOCKS = (16, 32, 64, 128)  # the kernels' block sizes (tiles of min(block, 64) rows)
-HEAD_DIMS = (64, 128)  # the kernels' template instances
+HEAD_DIMS = (64, 96, 128)  # the kernels' template instances
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
 # them to show that the main path went through the kernels): the forward,
@@ -140,7 +140,7 @@ def _check_kernel(block: int, *ts: torch.Tensor) -> None:
     if block not in BLOCKS or D not in HEAD_DIMS:
         raise NotImplementedError(
             f"blocksparse_attention kernel: block {block}, head dim {D} (built for blocks "
-            f"{BLOCKS} and head dims {HEAD_DIMS}; others are ROADMAP.md kernel redesign, B9)")
+            f"{BLOCKS} and head dims {HEAD_DIMS}, the head dims of the reference's presets)")
     for t in ts:
         if not _readable(t):
             raise ValueError("blocksparse_attention kernel: the head dim must be contiguous "

@@ -14,11 +14,13 @@ Counterpart of ``decode_attention``, ``paged_decode_attention``,
   per row over the same pools plus the window's own dense K/V,
   ``deepspeed_tpu_torch/csrc/paged_verify_attention.cu``.
 
-Each source's header says how it is split and what bounds it. The wrappers
-take the plain version only for tensors on the CPU (or, for the paged ones,
-when asked with ``impl="gather"``); for CUDA tensors they launch the kernel
-or raise. All are inference-only and raise where autograd would
-differentiate them.
+Each source's header says how it is split and what bounds it. B3 and B5
+split each row's cache over several blocks and merge the partials in the same
+launch (:func:`split_plan`; the workspace is cached per device and shape,
+:func:`_workspace`). The wrappers take the plain version only for tensors on
+the CPU (or, for the paged ones, when asked with ``impl="gather"``); for
+CUDA tensors they launch the kernel or raise. All are inference-only and
+raise where autograd would differentiate them.
 """
 
 from __future__ import annotations
@@ -26,12 +28,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from .. import _build
-from .flash_attention import DTYPE_CODE, HEAD_DIMS, NEG_INF
+from .flash_attention import DTYPE_CODE, HEAD_DIMS, NEG_INF, _readable
 from .int8_matmul import unpack_int4
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
@@ -53,9 +55,52 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("decode_attention")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ds_decode_attention.argtypes = (
-        [ptr] * 5 + [i32] * 6 + [i64] * 2 + [ctypes.c_float, ptr])
+        [ptr] * 5 + [i32] * 6 + [i64] * 2 + [ctypes.c_float] + [i32] * 2 + [ptr] * 4)
     lib.ds_decode_attention.restype = i32
     return lib
+
+
+# the smallest split of a row's cache (positions), the split's granularity
+# (B5's tensor-core tile), and the blocks per SM a grid need not exceed
+SPLIT_MIN_SPAN = 128
+SPLIT_TILE = 64
+SPLIT_BLOCKS_PER_SM = 4
+
+
+def split_plan(rows: int, capacity: int, sms: int) -> Tuple[int, int]:
+    """(n_split, span): how B3 and B5 split each of ``rows`` (b, h) rows'
+    ``capacity`` cache positions. Splits of at least SPLIT_MIN_SPAN positions,
+    as many as fill about SPLIT_BLOCKS_PER_SM blocks an SM and no more, each a
+    multiple of SPLIT_TILE, ``n_split * span >= capacity``. Shapes only: the
+    lengths stay on the device (reading them would stall the host's decode
+    loop), and a split past a row's length is skipped by the kernel."""
+    n = max(1, min(-(-capacity // SPLIT_MIN_SPAN), -(-SPLIT_BLOCKS_PER_SM * sms // rows)))
+    span = max(SPLIT_TILE, -(-capacity // n // SPLIT_TILE) * SPLIT_TILE)
+    return max(1, -(-capacity // span)), span
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_WORKSPACES: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, kernel: str, rows: int, n_split: int, per_split: int,
+               D: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The split kernels' scratch, cached per device and shape: fp32 partial
+    (m, l) pairs [rows * n_split * per_split * 2] and sums [rows * n_split *
+    per_split * D] (per_split window rows, 1 for B3), and int32 tickets [rows]
+    that start at 0 and that the kernel's last split of a row resets to 0.
+    Launches on one stream use it in turn."""
+    key = (device, kernel, rows, n_split, per_split, D)
+    if key not in _WORKSPACES:
+        n = rows * n_split * per_split
+        _WORKSPACES[key] = (torch.empty(2 * n, dtype=torch.float32, device=device),
+                            torch.empty(n * D, dtype=torch.float32, device=device),
+                            torch.zeros(rows, dtype=torch.int32, device=device))
+    return _WORKSPACES[key]
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,8 +187,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     S = k_cache.shape[2]
     if Dh not in HEAD_DIMS:
         raise NotImplementedError(
-            f"decode_attention kernel: head dim {Dh} (built for {HEAD_DIMS}; other "
-            "head dims are ROADMAP.md queue B, B3 follow-up)")
+            f"decode_attention kernel: head dim {Dh} (built for {HEAD_DIMS}, the head "
+            "dims of the reference's presets)")
     if q.stride(-1) != 1 or not (k_cache.is_contiguous() and v_cache.is_contiguous()):
         raise ValueError("decode_attention kernel: q's head dim and the caches "
                          "must be contiguous")
@@ -158,10 +203,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     o = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
+        n_split, span = split_plan(B * H, S, _sm_count(q.device.index or 0))
+        ws_ml, ws_acc, tickets = _workspace(q.device, "decode", B * H, n_split, 1, Dh)
         status = lib.ds_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
             lens_ptr, scalar, B, H, S, Dh, DTYPE_CODE[q.dtype],
-            q.stride(0), q.stride(2), scale, torch.cuda.current_stream().cuda_stream)
+            q.stride(0), q.stride(2), scale, n_split, span, ws_ml.data_ptr(),
+            ws_acc.data_ptr(), tickets.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, status, "decode_attention")
     launches += 1
     return o
@@ -236,7 +284,7 @@ def _check_paged_kernel(name: str, q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_tables: torch.Tensor, bits: Optional[int],
                         k_scales, v_scales) -> None:
     """What the paged kernels (B4, B5) take: CUDA tensors on one device, head
-    dim 64 or 128, q in fp32/bf16/fp16, dense pools in q's dtype or int8
+    dim 64, 96 or 128, q in fp32/bf16/fp16, dense pools in q's dtype or int8
     pools with contiguous fp32 [H, P] scales, q's head dim contiguous, the
     pools contiguous and 16-byte aligned."""
     if q.device.type != "cuda":
@@ -245,8 +293,8 @@ def _check_paged_kernel(name: str, q: torch.Tensor, k_pages: torch.Tensor,
     P = k_pages.shape[1]
     if Dh not in HEAD_DIMS:
         raise NotImplementedError(
-            f"{name} kernel: head dim {Dh} (built for {HEAD_DIMS}; other "
-            "head dims are ROADMAP.md queue B-redesign)")
+            f"{name} kernel: head dim {Dh} (built for {HEAD_DIMS}, the head dims of "
+            "the reference's presets)")
     if q.dtype not in DTYPE_CODE:
         raise TypeError(f"{name} kernel: q dtype {q.dtype}; expected "
                         "float32, bfloat16 or float16")
@@ -337,7 +385,7 @@ def _verify_lib() -> ctypes.CDLL:
     lib = _build.load("paged_verify_attention")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ds_paged_verify_attention.argtypes = (
-        [ptr] * 10 + [i32] * 9 + [i64] * 9 + [ctypes.c_float, ptr])
+        [ptr] * 10 + [i32] * 9 + [i64] * 9 + [ctypes.c_float] + [i32] * 2 + [ptr] * 4)
     lib.ds_paged_verify_attention.restype = i32
     return lib
 
@@ -434,6 +482,8 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if win_k.stride(-1) != 1 or win_v.stride(-1) != 1:
         raise ValueError("paged_verify_attention kernel: the window's head dim must be "
                          "contiguous")
+    # the kernel copies the window's rows with 16-byte copies
+    win_k, win_v = (w if _readable(w) else w.contiguous() for w in (win_k, win_v))
     P, ps = k_pages.shape[1], k_pages.shape[2]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(Dh)
     lens = _as_lengths(lengths, B, q.device).contiguous()
@@ -442,12 +492,16 @@ def paged_verify_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     strides = [t.stride(i) for t in (q, win_k, win_v) for i in (0, 1, 2)]
     lib = _verify_lib()
     with torch.cuda.device(q.device):
+        n_split, span = split_plan(B * H, tables.shape[1] * ps, _sm_count(q.device.index or 0))
+        ws_ml, ws_acc, tickets = _workspace(q.device, "verify", B * H, n_split,
+                                            VERIFY_MAX_WINDOW, Dh)
         status = lib.ds_paged_verify_attention(
             q.data_ptr(), win_k.data_ptr(), win_v.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), k_scales.data_ptr() if bits is not None else None,
             v_scales.data_ptr() if bits is not None else None, o.data_ptr(), lens.data_ptr(),
             tables.data_ptr(), B, W, H, P, ps, tables.shape[1], Dh, DTYPE_CODE[q.dtype],
-            _KV_MODE[bits], *strides, scale, torch.cuda.current_stream().cuda_stream)
+            _KV_MODE[bits], *strides, scale, n_split, span, ws_ml.data_ptr(),
+            ws_acc.data_ptr(), tickets.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, status, "paged_verify_attention")
     if bits is None:
         verify_launches += 1

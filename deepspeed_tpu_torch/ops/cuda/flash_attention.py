@@ -34,7 +34,9 @@ import torch
 from .. import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)  # the kernel's template instances
+# the kernels' template instances: the head dims of every preset the
+# reference has (gpt2-760m and gpt-neox-20b have 96)
+HEAD_DIMS = (64, 96, 128)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
@@ -246,8 +248,8 @@ def _check_kernel_layout(*ts: torch.Tensor) -> None:
     D = ts[0].shape[-1]
     if D not in HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention kernel: head dim {D} (built for {HEAD_DIMS}; other "
-            "head dims are ROADMAP.md queue B, B1 follow-up)")
+            f"flash_attention kernel: head dim {D} (built for {HEAD_DIMS}, the head "
+            "dims of the reference's presets)")
     for t in ts:
         if not _readable(t):
             raise ValueError("flash_attention kernel: the head dim must be contiguous and "

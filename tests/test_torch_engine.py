@@ -9,6 +9,7 @@ rtol 2e-2 on the loss and 5e-2 on the grad norm, since the two frameworks
 round bf16 at other places.
 """
 
+import argparse
 import dataclasses
 
 import numpy as np
@@ -276,3 +277,63 @@ def test_initialize_rejects_foreign_optimizer_and_accepts_port_one():
     assert opt is sgd and isinstance(engine.state["opt"], optimizers.SGDState)
     assert np.isfinite(engine.train_batch({"input_ids": batch(0)["input_ids"] % 256})["loss"]
                        .item())
+
+
+def _first_loss_from_jax_state(jengine, engine):
+    """The first train_batch loss of both engines, the port's started from
+    the JAX engine's state."""
+    state = jax.tree_util.tree_map(np.asarray, jengine.state)
+    engine.load_state(bridge.train_state_from_numpy(state, "cpu", engine.pc.compute_dtype))
+    return _f(jengine.train_batch(batch(0))["loss"]), _f(engine.train_batch(batch(0))["loss"])
+
+
+@pytest.mark.parametrize("call", ["positional", "keyword"])
+def test_initialize_takes_the_reference_signature(call):
+    """Both packages' initialize with the same arguments, in the reference's
+    order (args, model, optimizer, model_parameters, training_data,
+    lr_scheduler, topology, dist_init_required, config, config_params, seed),
+    the config read from ``args.deepspeed_config``: the same first loss
+    (fp32, rtol 1e-5). The one argument that differs is topology: the
+    reference gets its single-device mesh (the simulated CPU mesh has 8
+    devices), the port None, since it has no mesh (A13)."""
+    cfg = config()
+    args = argparse.Namespace(deepspeed_config=cfg)
+    jmodel, _ = build_gpt(JaxGPTConfig(**TINY))
+    model, _ = gpt.build(gpt.GPTConfig(**TINY))
+    jtopo = MeshTopology.single_device()
+    if call == "positional":
+        jengine, *_ = deepspeed_tpu.initialize(args, jmodel, None, None, None, None, jtopo,
+                                               False, None, None, 0)
+        engine, opt, loader, lr_fn = deepspeed_tpu_torch.initialize(
+            args, model, None, None, None, None, None, False, None, None, 0, "cpu")
+    else:
+        kw = dict(args=args, model_parameters=None, dist_init_required=None, seed=0)
+        jengine, *_ = deepspeed_tpu.initialize(model=jmodel, topology=jtopo, **kw)
+        engine, opt, loader, lr_fn = deepspeed_tpu_torch.initialize(model=model, device="cpu",
+                                                                    **kw)
+    assert opt is engine.optimizer and loader is None and lr_fn is engine.lr_fn
+    assert engine.train_micro_batch_size_per_gpu() == 4
+    ref, out = _first_loss_from_jax_state(jengine, engine)
+    np.testing.assert_allclose(out, ref, rtol=1e-5)
+
+
+def test_initialize_config_wins_over_args_and_model_parameters_is_accepted():
+    """``config`` (or ``config_params``) is read before ``args.deepspeed_config``,
+    and ``model_parameters`` is accepted and unused, as in the reference."""
+    model, _ = gpt.build(gpt.GPTConfig(**TINY))
+    args = argparse.Namespace(deepspeed_config=config(micro=2))
+    for kw in ({"config": config()}, {"config_params": config()}):
+        engine, *_ = deepspeed_tpu_torch.initialize(args=args, model=model, device="cpu",
+                                                    model_parameters=model, **kw)
+        assert engine.train_micro_batch_size_per_gpu() == 4
+    engine, *_ = deepspeed_tpu_torch.initialize(args=args, model=model, device="cpu")
+    assert engine.train_micro_batch_size_per_gpu() == 2
+
+
+@pytest.mark.parametrize("kw,item", [({"training_data": [1, 2, 3]}, "A3b"),
+                                     ({"topology": object()}, "A13")],
+                         ids=["training_data", "topology"])
+def test_initialize_unported_arguments_raise_their_item(kw, item):
+    model, _ = gpt.build(gpt.GPTConfig(**TINY))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+        deepspeed_tpu_torch.initialize(model=model, config=config(), device="cpu", **kw)

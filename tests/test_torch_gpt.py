@@ -32,6 +32,8 @@ def _pair(cfg_kwargs, seed=0):
 
 
 TINY = dataclasses.asdict(jax_gpt.PRESETS["tiny"])
+# tiny's depth at head dim 96 (gpt2-760m's and gpt-neox-20b's)
+TINY_D96 = {**TINY, "n_head": 2, "d_model": 192}
 # two layers of GPT-2-125M at full width
 GPT2_WIDTH_2L = dict(n_layer=2, n_head=12, d_model=768, vocab_size=50304, max_seq_len=128)
 
@@ -46,8 +48,9 @@ GPT2_WIDTH_2L = dict(n_layer=2, n_head=12, d_model=768, vocab_size=50304, max_se
     ({**TINY, "rotary": True, "rotary_interleaved": True, "rotary_pct": 0.5,
       "activation": "gelu_exact", "tie_embeddings": False, "lm_head_bias": True,
       "embed_layernorm": True, "pos_offset": 2}, 32, False),
+    (TINY_D96, 64, True),
 ], ids=["tiny", "gpt2-width-2l", "rotary-half-parallel-residual",
-        "rotary-interleaved-untied-head"])
+        "rotary-interleaved-untied-head", "tiny-d96"])
 def test_forward_and_loss_match_jax(cfg_kwargs, T, masked):
     jcfg, jparams, cfg, params = _pair(cfg_kwargs)
     ids = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, T)).astype(np.int32)
@@ -66,6 +69,28 @@ def test_forward_and_loss_match_jax(cfg_kwargs, T, masked):
         loss, aux = gpt.loss_fn(cfg, params, batch, train=False)
         np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=LOSS_RTOL)
         assert aux["num_tokens"] == ref_aux["num_tokens"]
+
+
+@pytest.mark.parametrize("cfg_kwargs", [TINY, TINY_D96], ids=["tiny", "tiny-d96"])
+def test_loss_grads_match_jax(cfg_kwargs):
+    """The scoring loss's gradients with respect to every parameter (the
+    port through its flash Function's plain versions at head dim 96, whose
+    head dim takes the flash route; tiny's 16 the plain attention) against
+    jax.grad of the reference's loss: fp32, 1e-5 of each leaf's largest
+    entry (the same arithmetic in another summation order)."""
+    jcfg, jparams, cfg, params = _pair(cfg_kwargs, seed=4)
+    ids = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 64)).astype(np.int32)
+    jgrads = jax.grad(lambda p: jax_gpt.loss_fn(jcfg, p, {"input_ids": jnp.asarray(ids)},
+                                                train=False)[0])(jparams)
+    leaves, jleaves = [], jax.tree_util.tree_leaves(jgrads)
+    for t in jax.tree_util.tree_leaves(params):
+        leaves.append(t.requires_grad_(True))
+    loss, _ = gpt.loss_fn(cfg, params, {"input_ids": ids}, train=False)
+    grads = torch.autograd.grad(loss, leaves)
+    assert len(grads) == len(jleaves)
+    for g, r in zip(grads, jleaves):
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, rtol=0, atol=1e-5 * max(np.abs(r).max(), 1e-3))
 
 
 def test_cached_decode_matches_jax_kernel_path():

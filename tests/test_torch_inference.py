@@ -4,6 +4,8 @@
 token-identical to the JAX ``InferenceEngine.generate`` on ``tiny``.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -21,16 +23,26 @@ from deepspeed_tpu_torch.inference.serving.buckets import bucket_for, default_bu
 from deepspeed_tpu_torch.models import gpt
 
 
+# tiny's depth at head dim 96 (gpt2-760m's), whose decode steps take B3
+D96 = dict(n_head=2, d_model=192)
+
+
 @pytest.fixture(scope="module")
 def engines():
-    jparams = jax_gpt.init_params(jax_gpt.PRESETS["tiny"], jax.random.PRNGKey(0))
-    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams), "cpu")
+    weights = {}
 
-    def make(**cfg):
-        ref = JaxEngine(jax_for_gpt(jax_gpt.PRESETS["tiny"], jparams),
-                        JaxConfig(dtype="float32", **cfg))
+    def make(head_dim=16, **cfg):
+        over = D96 if head_dim == 96 else {}
+        jcfg = dataclasses.replace(jax_gpt.PRESETS["tiny"], **over)
+        tcfg = dataclasses.replace(gpt.PRESETS["tiny"], **over)
+        if head_dim not in weights:
+            jparams = jax_gpt.init_params(jcfg, jax.random.PRNGKey(0))
+            weights[head_dim] = (jparams, params_from_numpy(
+                jax.tree_util.tree_map(np.asarray, jparams), "cpu"))
+        jparams, params = weights[head_dim]
+        ref = JaxEngine(jax_for_gpt(jcfg, jparams), JaxConfig(dtype="float32", **cfg))
         port = deepspeed_tpu_torch.init_inference(
-            for_gpt(gpt.PRESETS["tiny"], params), dtype="float32", device="cpu", **cfg)
+            for_gpt(tcfg, params), dtype="float32", device="cpu", **cfg)
         return ref, port
 
     return make
@@ -43,7 +55,8 @@ PROMPT = np.random.default_rng(0).integers(0, 256, (2, 16)).astype(np.int32)
     ({}, {}),
     ({"repetition_penalty": 1.5}, {}),
     ({}, {"decode_buckets": [4, 32]}),
-], ids=["greedy", "repetition-penalty", "decode-buckets"])
+    ({}, {"head_dim": 96}),
+], ids=["greedy", "repetition-penalty", "decode-buckets", "greedy-d96"])
 def test_generate_token_identical_to_jax(engines, kwargs, cfg):
     ref_engine, engine = engines(**cfg)
     ref = ref_engine.generate(PROMPT, max_new_tokens=16, **kwargs)

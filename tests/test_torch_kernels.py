@@ -22,6 +22,11 @@ from _torch_ulps import ulp_err, ulp_of_max_err
 TOLERANCES = [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)]
 
 
+def _d96(T, S, causal):
+    """A (T, S, causal, D) case at head dim 96, selectable with ``-k d96``."""
+    return pytest.param(T, S, causal, 96, id=f"{T}-{S}-{causal}-d96")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -63,7 +68,8 @@ def _fused_qkv(T, S, H, D, device, dtype, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", TOLERANCES)
 @pytest.mark.parametrize("T,S,causal,D", [(512, 512, True, 64), (128, 512, True, 64),
-                                          (256, 256, False, 64), (256, 256, True, 128)])
+                                          (256, 256, False, 64), (256, 256, True, 128),
+                                          _d96(256, 256, True), _d96(100, 200, False)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, atol, T, S, causal, D):
     """B1 vs its plain version: fp32 launches the CUDA-core kernel
     (``launches``), bf16 the tensor-core one (``fwd_tc_launches``)."""
@@ -84,7 +90,8 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, atol, T, S, causal, D):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("T,S,causal,D", [(512, 512, True, 64), (128, 512, True, 64),
                                           (256, 256, False, 64), (512, 512, True, 128),
-                                          (100, 200, True, 64), (200, 200, False, 128)])
+                                          (100, 200, True, 64), (200, 200, False, 128),
+                                          _d96(512, 512, True), _d96(100, 200, True)])
 def test_flash_forward_tc_kernel_within_two_ulps_and_rerun_bitwise(cuda_device, dtype, T, S,
                                                                    causal, D):
     """The tensor-core B1 on fused-qkv views: within 2 ulps of its dtype of
@@ -119,7 +126,8 @@ def _single_cast_close(x, ref, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("T,S,causal,D", [(512, 512, True, 64), (128, 512, True, 64),
-                                          (256, 256, False, 128), (100, 200, True, 64)])
+                                          (256, 256, False, 128), (100, 200, True, 64),
+                                          _d96(256, 256, True)])
 def test_flash_stochastic_kernels_match_single_cast_plain(cuda_device, dtype, T, S, causal, D):
     """stochastic_mode on the card: the single-cast instances of B1 and of
     B2's tensor-core dq and dk/dv against the single-cast plain versions
@@ -172,21 +180,28 @@ def test_flash_routes_by_dtype_and_mode(cuda_device, dtype, stochastic, path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", TOLERANCES)
-def test_decode_kernel_matches_plain(cuda_device, dtype, atol):
-    """GPT-2-125M decode shapes, per-row and scalar lengths."""
-    B, H, S, Dh = 4, 12, 640, 64
+@pytest.mark.parametrize("dtype,atol", TOLERANCES + [(torch.float16, 2e-2)])
+@pytest.mark.parametrize("Dh", [64, pytest.param(96, id="d96"), 128])
+def test_decode_kernel_matches_plain(cuda_device, dtype, atol, Dh):
+    """B3, split over the cache (5 splits of 128 at S 640), at GPT-2-125M's
+    decode shapes with Dh 64, 96 and 128: per-row lengths (0 gives zeros, 1,
+    a split's edge 128 / 129, a length inside the last split, the
+    capacity), a scalar one and 0 for every row; bitwise on a re-run."""
+    B, H, S = 8, 12, 640
     q = _normal((B, 1, H, Dh), cuda_device, dtype, 3)
     k = _normal((B, H, S, Dh), cuda_device, dtype, 4)
     v = _normal((B, H, S, Dh), cuda_device, dtype, 5)
-    lens = torch.tensor([1, 77, 513, 640], dtype=torch.int32, device=cuda_device)
-    for cur_len in (lens, 300):
+    lens = torch.tensor([0, 1, 77, 128, 129, 513, 639, 640], dtype=torch.int32,
+                        device=cuda_device)
+    for cur_len in (lens, 300, 0):
         before = da.launches
         out = da.decode_attention(q, k, v, cur_len)
+        again = da.decode_attention(q, k, v, cur_len)
         torch.cuda.synchronize()
-        assert da.launches == before + 1
+        assert da.launches == before + 2 and torch.equal(out, again)
         ref = da.decode_attention_ref(q, k, v, cur_len)
         assert (out.float() - ref.float()).abs().max().item() <= atol
+    assert torch.count_nonzero(da.decode_attention(q, k, v, lens)[0]) == 0
 
 
 _BWD_COUNTERS = ("bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches",
@@ -208,7 +223,8 @@ def _single_cast_dv(q, k, lse, do, causal):
                                         (torch.float16, 2e-2)])
 @pytest.mark.parametrize("T,S,causal,D", [(512, 512, True, 64), (128, 512, True, 64),
                                           (256, 256, False, 64), (256, 256, True, 128),
-                                          (100, 200, True, 64)])
+                                          (100, 200, True, 64), _d96(256, 256, True),
+                                          _d96(100, 200, False)])
 def test_flash_backward_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, rtol, T, S,
                                                               causal, D):
     """B2 (delta, dq, dk/dv) vs its plain version, with q/k/v read as views of
@@ -246,7 +262,7 @@ def test_flash_backward_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, pytest.param(96, id="d96"), 128])
 def test_flash_backward_fp16_small_gradients_on_the_card(cuda_device, D):
     """fp16 with dO 2^-8 of unit scale, as a loss averaged over many tokens
     gives it: dS lies below fp16's normal range, and the kernels' running
@@ -304,10 +320,10 @@ def test_flash_autograd_function_bf16_on_the_card(cuda_device):
         assert (g.float() - r).abs().max().item() <= 2e-2 * r.abs().max().item()
 
 
-def _paged_inputs(device, dtype, bits, B, H, pages, pool, seed):
+def _paged_inputs(device, dtype, bits, B, H, pages, pool, seed, Dh=64):
     """q, one layer's pools (+ scales), scattered tables, and lengths
     {0, 1, 63, 64, 65, full} at page size 64."""
-    Dh, ps = 64, 64
+    ps = 64
     rng = np.random.default_rng(seed)
     q = _normal((B, 1, H, Dh), device, dtype, seed)
     tables = np.zeros((B, pages), np.int32)
@@ -335,12 +351,14 @@ def _paged_inputs(device, dtype, bits, B, H, pages, pool, seed):
 @pytest.mark.parametrize("dtype,atol", TOLERANCES)
 @pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
 @pytest.mark.parametrize("pages,pool", [(8, 17), (16, 257)])
-def test_paged_kernel_matches_plain(cuda_device, dtype, atol, bits, pages, pool):
+@pytest.mark.parametrize("Dh", [64, pytest.param(96, id="d96"), 128])
+def test_paged_kernel_matches_plain(cuda_device, dtype, atol, bits, pages, pool, Dh):
     """B4 (dense pools) and B4q (int8, int4) at the serving shape (8 slots,
     H12, page 64, 8 pages per row, pool 17) and a long one (16 pages per
-    row, pool 257), against the gather + plain softmax version."""
+    row, pool 257), Dh 64 / 96 / 128, against the gather + plain softmax
+    version."""
     counter = {None: "paged_launches", 8: "paged_kv8_launches", 4: "paged_kv4_launches"}[bits]
-    q, k, v, ks, vs, t = _paged_inputs(cuda_device, dtype, bits, 8, 12, pages, pool, 11)
+    q, k, v, ks, vs, t = _paged_inputs(cuda_device, dtype, bits, 8, 12, pages, pool, 11, Dh)
     before = getattr(da, counter)
     out = da.paged_decode_attention(q, k, v, t["lengths"], t["tables"], k_scales=ks,
                                     v_scales=vs)
@@ -356,17 +374,19 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, atol, bits, pages, pool)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", TOLERANCES)
 @pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
-@pytest.mark.parametrize("W", [1, 2, 5, 17])
-def test_verify_kernel_matches_plain(cuda_device, dtype, atol, bits, W):
-    """B5 at the serving shape (8 slots, H12, page 64, 8 pages per row, pool
-    17) with q and the window as strided views of one fused qkv buffer,
-    against the plain version on the committable positions (the plain
-    version drops window positions past the table, the kernel attends
-    them); a second run is bitwise equal."""
+@pytest.mark.parametrize("W", [1, 2, 5, 16, 17])
+@pytest.mark.parametrize("Dh", [64, pytest.param(96, id="d96"), 128])
+def test_verify_kernel_matches_plain(cuda_device, dtype, atol, bits, W, Dh):
+    """B5 (split over the pages: 4 splits of 128) at the serving shape (8
+    slots, H12, page 64, 8 pages per row, pool 17), Dh 64 / 96 / 128, with q
+    and the window as strided views of one fused qkv buffer, against the
+    plain version on the committable positions (the plain version drops
+    window positions past the table, the kernel attends them); a second run
+    is bitwise equal."""
     counter = {None: "verify_launches", 8: "verify_kv8_launches",
                4: "verify_kv4_launches"}[bits]
-    B, H, Dh, ps, pages = 8, 12, 64, 64, 8
-    _, k, v, ks, vs, t = _paged_inputs(cuda_device, dtype, bits, B, H, pages, 17, 12)
+    B, H, ps, pages = 8, 12, 64, 8
+    _, k, v, ks, vs, t = _paged_inputs(cuda_device, dtype, bits, B, H, pages, 17, 12, Dh)
     qkv = _normal((B, W, 3 * H * Dh), cuda_device, dtype, 13)
     q, wk, wv = (x.reshape(B, W, H, Dh) for x in qkv.split(H * Dh, dim=-1))
     before = getattr(da, counter)
@@ -386,6 +406,63 @@ def test_verify_kernel_matches_plain(cuda_device, dtype, atol, bits, W):
         da.paged_verify_attention(q.new_zeros(B, 18, H, Dh), k, v, t["lengths"], t["tables"],
                                   q.new_zeros(B, 18, H, Dh), q.new_zeros(B, 18, H, Dh),
                                   k_scales=ks, v_scales=vs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "fp16"])
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
+@pytest.mark.parametrize("W", [2, 5, 17])
+@pytest.mark.parametrize("Dh", [64, pytest.param(96, id="d96")])
+def test_verify_kernel_16bit_within_two_ulps_of_the_fp32_function(cuda_device, dtype, bits, W,
+                                                                  Dh):
+    """B5 on the tensor cores (mma.sync, P as hi + lo halves): within 2 ulps
+    of its dtype of the fp32 function (the plain version on the same inputs
+    widened to fp32) on the committable entries of at least 1e-3 of the
+    largest, as B1 is; bitwise on a re-run."""
+    B, H, ps, pages = 8, 12, 64, 8
+    _, k, v, ks, vs, t = _paged_inputs(cuda_device, dtype, bits, B, H, pages, 17, 21, Dh)
+    qkv = _normal((B, W, 3 * H * Dh), cuda_device, dtype, 22)
+    q, wk, wv = (x.reshape(B, W, H, Dh) for x in qkv.split(H * Dh, dim=-1))
+    out = da.paged_verify_attention(q, k, v, t["lengths"], t["tables"], wk, wv, k_scales=ks,
+                                    v_scales=vs)
+    again = da.paged_verify_attention(q, k, v, t["lengths"], t["tables"], wk, wv, k_scales=ks,
+                                      v_scales=vs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    pools = (k, v) if bits is not None else (k.float(), v.float())
+    ref = da.paged_verify_attention(q.float(), *pools, t["lengths"], t["tables"], wk.float(),
+                                    wv.float(), impl="gather", k_scales=ks, v_scales=vs)
+    keep = (t["lengths"][:, None] + torch.arange(W, device=cuda_device)) < pages * ps
+    assert ulp_err(out[keep], ref[keep], dtype) <= 2.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged", "verify"])
+def test_int4_nibble_order_at_d96_on_the_card(cuda_device, kernel):
+    """At Dh 96 a lane's output dims straddle the two nibbles of a byte (dim
+    d < 48 is byte d's low nibble, d >= 48 byte d - 48's high one): B4 and
+    B5 over an int4 pool equal the dense formula over the pool unpacked by
+    unpack_kv_int4 and scaled (fp32, 5e-5)."""
+    B, H, Dh, ps, pages = 8, 4, 96, 64, 8
+    q, k, v, ks, vs, t = _paged_inputs(cuda_device, torch.float32, 4, B, H, pages, 17, 23, Dh)
+    tables = t["tables"].long()
+    dense = [(da.unpack_kv_int4(p) * s[:, :, None, None]) for p, s in ((k, ks), (v, vs))]
+    if kernel == "paged":
+        out = da.paged_decode_attention(q, k, v, t["lengths"], t["tables"], k_scales=ks,
+                                        v_scales=vs)
+        kc, vc = (da.gather_pages(d, None, tables, Dh) for d in dense)
+        ref = da.decode_attention_ref(q, kc, vc, t["lengths"])
+    else:
+        wk, wv = (_normal((B, 3, H, Dh), cuda_device, torch.float32, s) for s in (24, 25))
+        q3 = _normal((B, 3, H, Dh), cuda_device, torch.float32, 26)
+        out = da.paged_verify_attention(q3, k, v, t["lengths"], t["tables"], wk, wv,
+                                        k_scales=ks, v_scales=vs)
+        ref = da.paged_verify_attention(q3, *dense, t["lengths"], t["tables"], wk, wv,
+                                        impl="gather")
+        keep = (t["lengths"][:, None] + torch.arange(3, device=cuda_device)) < pages * ps
+        out, ref = out[keep], ref[keep]
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= 5e-5
 
 
 def _quantized(D, F, group, bits, device, seed):
@@ -560,7 +637,7 @@ def _bs_layouts():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, pytest.param(96, id="d96"), 128])
 @pytest.mark.parametrize("case", range(8))
 def test_blocksparse_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, rtol, D, case):
     """B9 (forward, dq with delta, dk/dv) vs the plain versions, with q/k/v
@@ -629,16 +706,16 @@ def test_blocksparse_autograd_and_module_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block,D", [(8, 64), (256, 64), (32, 32), (32, 96)])
+@pytest.mark.parametrize("block,D", [(8, 64), (256, 64), (32, 32), (32, 80)])
 def test_blocksparse_kernel_raises_for_unbuilt_shapes(cuda_device, block, D):
-    """Blocks other than 16-128 and head dims other than 64/128 raise on the
-    card; they never fall back to the plain version."""
+    """Blocks other than 16-128 and head dims other than 64 / 96 / 128 raise
+    on the card; they never fall back to the plain version."""
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
 
     T = 2 * block
     q = _normal((1, T, 2, D), cuda_device, torch.float32, 60)
     layout = np.ones((2, 2, 2), np.int64)
     before = bs.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="built for blocks"):
         bs.blocksparse_attention(q, q, q, layout, block)
     assert bs.launches == before

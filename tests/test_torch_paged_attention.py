@@ -27,7 +27,7 @@ B, H, Dh, PS, PAGES, POOL = 6, 3, 64, 8, 4, 19
 LENGTHS = [0, 1, PS - 1, PS, PS + 1, PAGES * PS]
 
 
-def _case(bits, seed=0):
+def _case(bits, seed=0, Dh=Dh):
     """q, pools (+ scales) and scattered tables from numpy; page 0 is the
     sink every table slot past a row's pages names."""
     rng = np.random.default_rng(seed)
@@ -72,16 +72,20 @@ def _jax(q, k, v, ks, vs, tables, lengths, impl, dtype=jnp.float32):
         v_scales=None if vs is None else jnp.asarray(vs))
 
 
-@pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
-def test_paged_plain_matches_jax_kernel_and_gather(bits):
+@pytest.mark.parametrize("bits,head_dim", [(None, 64), (8, 64), (4, 64),
+                                           (None, 96), (8, 96), (4, 96)],
+                         ids=["dense", "kv8", "kv4", "dense-d96", "kv8-d96", "kv4-d96"])
+def test_paged_plain_matches_jax_kernel_and_gather(bits, head_dim):
     """Every length of LENGTHS, sink row included, against the Pallas kernel
     (interpret mode); against the gather fallback on rows of length > 0 (its
     softmax over an all-masked row is uniform over the sink's garbage, where
-    the kernel and the port give zeros)."""
-    q, k, v, ks, vs, tables = _case(bits)
+    the kernel and the port give zeros). Head dim 64, and 96 (gpt2-760m's):
+    an odd number of 32-dim lane groups, whose int4 dims straddle the
+    nibble halves."""
+    q, k, v, ks, vs, tables = _case(bits, Dh=head_dim)
     lengths = np.asarray(LENGTHS, np.int32)
     out = _port(q, k, v, ks, vs, tables, lengths)
-    assert out.shape == (B, 1, H, Dh) and out.dtype == torch.float32
+    assert out.shape == (B, 1, H, head_dim) and out.dtype == torch.float32
     atol = ATOL[("dense" if bits is None else bits, "float32")]
     ref = np.asarray(_jax(q, k, v, ks, vs, tables, lengths, "kernel"))
     np.testing.assert_allclose(out.numpy(), ref, atol=atol, rtol=0)
@@ -101,11 +105,12 @@ def test_paged_plain_matches_jax_bf16():
                                atol=ATOL[("dense", "bfloat16")], rtol=0)
 
 
-@pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
-def test_paged_plain_is_bitwise_the_contiguous_formula(bits):
+@pytest.mark.parametrize("bits,Dh", [(None, 64), (8, 64), (4, 64), (4, 96)],
+                         ids=["dense", "kv8", "kv4", "kv4-d96"])
+def test_paged_plain_is_bitwise_the_contiguous_formula(bits, Dh):
     """The reference's own claim, about the port: the paged plain version is
     bitwise ``decode_attention_ref`` over the gathered (dequantized) cache."""
-    q, k, v, ks, vs, tables = _case(bits, seed=2)
+    q, k, v, ks, vs, tables = _case(bits, seed=2, Dh=Dh)
     lengths = torch.tensor([5, 17, 32, 9, 1, 24], dtype=torch.int32)
     out = _port(q, k, v, ks, vs, tables, lengths.numpy(), impl="gather")
     t = torch.from_numpy
@@ -121,6 +126,28 @@ def test_paged_plain_is_bitwise_the_contiguous_formula(bits):
                   for p, s in ((pages_k, ks), (pages_v, vs)))
     ref = da.decode_attention_ref(t(q), kc, vc, lengths)
     assert torch.equal(out, ref)
+
+
+def test_int4_nibble_order_at_head_dim_96_matches_jax():
+    """At head dim 96 a row packs into 48 bytes: dim d < 48 is byte d's low
+    nibble, dim d >= 48 byte d - 48's high one (the JAX package's
+    pack_int4). The port's unpack_kv_int4 gives each dim its own value back,
+    and the paged plain version over an int4 pool equals the dense formula
+    over the pool unpacked by it (bitwise) and the JAX kernel (1e-5)."""
+    dims = np.arange(96) % 16 - 8  # every dim its own nibble value, in [-8, 7]
+    rows = np.stack([np.roll(dims, r) for r in range(8)]).astype(np.int8)  # [8, 96]
+    packed = np.array(jax_pack_int4(jnp.asarray(rows)))
+    assert packed.shape == (8, 48)
+    np.testing.assert_array_equal(da.unpack_kv_int4(torch.from_numpy(packed)).numpy(), rows)
+    q, k, v, ks, vs, tables = _case(4, seed=6, Dh=96)
+    lengths = np.asarray(LENGTHS, np.int32)
+    out = _port(q, k, v, ks, vs, tables, lengths)
+    t = torch.from_numpy
+    kc, vc = (da.gather_pages(da.unpack_kv_int4(t(p)) * t(sc)[..., None, None], None,
+                              t(tables).long(), 96) for p, sc in ((k, ks), (v, vs)))
+    assert torch.equal(out, da.decode_attention_ref(t(q), kc, vc, t(lengths)))
+    ref = np.asarray(_jax(q, k, v, ks, vs, tables, lengths, "kernel"))
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL[(4, "float32")], rtol=0)
 
 
 def test_pack_int4_matches_jax_and_round_trips():

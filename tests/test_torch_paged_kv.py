@@ -301,13 +301,15 @@ def _decode_setup(cfg, bits, seed):
 
 @pytest.mark.parametrize("variant,bits", [("learned", None), ("rotary", None),
                                           ("parallel_rotary", None), ("learned", 8),
-                                          ("rotary", 4)])
+                                          ("rotary", 4), ("d96", None), ("d96", 8),
+                                          ("d96", 4)])
 def test_paged_decode_step_matches_jax(variant, bits):
     """Three decode steps at mixed lengths (crossing a page boundary) on
     ``tiny``: logits to 1e-5 and the pools afterwards. Learned and rotary
     positions, the parallel residual, and int8 / int4 pools."""
     over = {"learned": {}, "rotary": dict(rotary=True, rotary_pct=0.5),
-            "parallel_rotary": dict(rotary=True, parallel_residual=True)}[variant]
+            "parallel_rotary": dict(rotary=True, parallel_residual=True),
+            "d96": dict(n_head=2, d_model=192)}[variant]  # head dim 96
     cfg = dataclasses.replace(G.PRESETS["tiny"], **over)
     tcfg = dataclasses.replace(TG.PRESETS["tiny"], **over)
     jparams, np_params, paged, tables, lens, toks = _decode_setup(cfg, bits, seed=5)

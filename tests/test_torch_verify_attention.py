@@ -206,13 +206,16 @@ def _setup(cfg, bits, seed, quantized_weights=False):
 
 
 VARIANTS = {"learned": {}, "rotary": dict(rotary=True, rotary_pct=0.5),
-            "parallel_rotary": dict(rotary=True, parallel_residual=True)}
+            "parallel_rotary": dict(rotary=True, parallel_residual=True),
+            "d96": dict(n_head=2, d_model=192)}  # head dim 96
 
 
 @pytest.mark.parametrize("variant,bits,qweights", [
     ("learned", None, False), ("rotary", None, False), ("parallel_rotary", None, False),
-    ("learned", 8, False), ("rotary", 4, False), ("learned", None, True)],
-    ids=["learned", "rotary", "parallel_rotary", "kv8", "kv4", "int8_weights"])
+    ("learned", 8, False), ("rotary", 4, False), ("learned", None, True),
+    ("d96", None, False), ("d96", 8, False), ("d96", 4, False)],
+    ids=["learned", "rotary", "parallel_rotary", "kv8", "kv4", "int8_weights", "d96",
+         "d96-kv8", "d96-kv4"])
 def test_paged_verify_step_matches_jax(variant, bits, qweights):
     """A 4-token window at mixed lengths on ``tiny``: logits and the window
     K/V to 1e-5; the pools are left as they were."""
