@@ -14,7 +14,8 @@ result line):
    forward, B2's dq and dk/dv: 12 instances, bf16 / fp16, D 64 / 96 / 128,
    the default and the single-cast function; B6/B7's: 8, bf16 / fp16 x int8
    / int4 x 64 / 128 rows a block) has its instances and every one holds
-   HGMMA instructions in its SASS (``cuobjdump -sass`` of the library); B5's
+   HGMMA instructions in its SASS (``cuobjdump -sass`` of the library), and
+   so does each of B8's 3 tensor-core instances (fp32 / bf16 / fp16 x); B5's
    36 bf16 / fp16 instances each hold HMMA (``mma.sync``) and its 9 fp32
    ones none.
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
@@ -51,6 +52,11 @@ result line):
    (split over the cache) at Dh 64 / 96 / 128 with a length-0 row (zeros),
    a split's edge and the capacity, bitwise on a re-run, beside the earlier
    one-block-a-row kernel's time.
+   B4 (dense, int8, int4 pools; split over the pages) at the
+   serving shape, 16 pages, Dh 96, pages of 128 at 16 slots (3 splits of
+   192: a split starts inside a page) and Dh 128 at 64 slots (one split a
+   row), fp32 and bf16 (fp16 at page 128), each case's split plan printed,
+   bitwise on a re-run, beside the earlier one-block-a-row kernel's time.
    B5 (dense, int8, int4 pools; split over the pages) over 126 cases
    (90 base cases: windows 2-17, pages 8-128, fp32 and bf16; 36 more at Dh96 and
    in fp16) must agree with its plain version on the committable window
@@ -60,9 +66,16 @@ result line):
    product of the quantized wire) at the LM head's shape (x [4096, 768],
    vocabulary 50304 padded to 197 blocks of 256; fp32 x, the main path,
    and bf16 x), M = 1 and 37, an effective block of 96, a block of 128, the
-   [768, 2304] leaf and ragged D and F, bitwise on a re-run; its library
-   yardstick is cuBLAS fp32 (TF32 off) over the weight already dequantized,
-   with the dequantize + cuBLAS time beside it, and ptxas's report. B6/B7
+   [768, 2304] leaf and ragged D and F, each through its route
+   (``dqm_route``: the tensor cores for the head and the leaf at 2048 rows,
+   the CUDA cores for the rest, checked by the counters), bitwise on a
+   re-run, each case's error against the float64 product over the unrounded
+   weights beside its plain version's; at the main-path shape the
+   tensor-core and the CUDA-core kernel timed on the same inputs, with both
+   bounds (three bf16 passes at the bf16 peak; one fp32 pass at the fp32
+   peak); its library yardstick is cuBLAS fp32 (TF32 off) over the weight
+   already dequantized, with the dequantize + cuBLAS time beside it, and
+   ptxas's report. B6/B7
    through their routes (fp32 and bf16, M 1-256, the 8 projection shapes of
    GPT-2-125M and gpt2-350m), then on the tensor cores at those shapes, M
    16-256, bf16 and fp16, groups 128 and 64: at most 2 ulps of the dtype of
@@ -158,14 +171,18 @@ result line):
    quantized and dequantized as they are gathered, the head's product
    through B8. (a) fp32, B4 x T512, AdamW + clipping, 5 steps through B8
    and 5 with B8's plain version in its place, from the same seed: losses
-   and grad norms agree; B8 launches 5 times, B1/B2 12 times a micro-step.
-   (b) bf16 with the fp32 master, B8 x T512, 10 steps on one batch: the
-   loss starts near ln(V) and falls, B8 launches 10 times; step time, host
+   and grad norms agree; B8 launches 5 times on the tensor cores and never
+   on the CUDA cores, B1/B2 12 times a micro-step. (b) bf16 with the fp32
+   master, B8 x T512, 10 steps on one batch: the loss starts near ln(V) and
+   falls, B8 launches 10 times on the tensor cores; step time, host
    issue time, tokens/s, peak memory and a profile of one step beside phase
    5b's ZeRO-2 step, and the wire ledger's ops and ratios. (c)
    ``comm.init_distributed`` over NCCL at world size 1 with a file store
    under ``build/``: one NCCL all-reduce, and ``qall_gather`` of a
-   [768, 2304] leaf equal to quantize-then-dequantize, bitwise.
+   [768, 2304] leaf equal to quantize-then-dequantize, bitwise. (d) fp32
+   at B1 x T32 (a short fine-tuning batch: 32 rows of the head), 2 steps:
+   finite losses; B8 launches twice on the CUDA cores and never on the
+   tensor cores.
 
 10. blocksparse attention: GPT-2-125M at full width and depth with
    ``sparse_attention=FixedSparsityConfig(num_heads=12, block=128,
@@ -193,7 +210,7 @@ Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the CUDA-core flash kernels only, bf16 paths the tensor-core ones
 only). The last lines are the card's name and power limit (nvidia-smi), a
-``{"kernels": [...]}`` line (22 kernels) and the ``{"ok": true, ...}`` line.
+``{"kernels": [...]}`` line (23 kernels) and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -262,10 +279,11 @@ FWD_PATH = {"float32": ("fwd",), "bfloat16": ("fwd_tc",), "stochastic": ("fwd_tc
 # (HGMMA in SASS), and their instances
 # (flash: bf16 / fp16 x D 64 / 96 / 128 x the default and the single-cast
 # (stochastic_mode) function; B6/B7: bf16 / fp16 x int8 / int4 x 64 / 128
-# rows a block)
+# rows a block; B8: fp32 / bf16 / fp16 x)
 TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel",), 12),
               "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"), 12),
-              "int8_matmul_tc": (("qmatmul_tc_kernel",), 8)}
+              "int8_matmul_tc": (("qmatmul_tc_kernel",), 8),
+              "dequant_matmul_tc": (("dequant_matmul_tc_kernel",), 3)}
 # B5's mma.sync instances: bf16 / fp16 x D 64 / 96 / 128 x dense / int8 /
 # int4 x one or two 16-row m tiles hold HMMA; fp32's 9 (CUDA cores) none. An
 # instance's mangled name starts its template arguments with its type
@@ -277,6 +295,16 @@ VERIFY_FP32_INSTANCES = 9
 # (PERF.md kernel table), printed beside the split kernels' for comparison
 OLD_MS = {"decode bfloat16": 0.0504, "verify dense bfloat16": 0.0944,
           "verify dense float32": 0.0989}
+# the one-block-a-row B4 (PERF.md kernel table), by (pool, dtype, Dh, pages
+# a row), and the CUDA-core B8 at the LM head's shape
+OLD_PAGED_MS = {("dense", "float32", 64, 8): 0.0469, ("kv8", "float32", 64, 8): 0.0404,
+                ("kv4", "float32", 64, 8): 0.0318, ("dense", "bfloat16", 64, 8): 0.0408,
+                ("kv8", "bfloat16", 64, 8): 0.0399, ("kv4", "bfloat16", 64, 8): 0.0318,
+                ("dense", "bfloat16", 64, 16): 0.0799,
+                ("dense", "float32", 96, 8): 0.0572, ("kv8", "float32", 96, 8): 0.0406,
+                ("kv4", "float32", 96, 8): 0.0549, ("dense", "bfloat16", 96, 8): 0.0404,
+                ("kv8", "bfloat16", 96, 8): 0.0404, ("kv4", "bfloat16", 96, 8): 0.0555}
+OLD_DQM_MS = 10.6136
 # stochastic_mode's kernels against their single-cast plain versions: a
 # term whose two fp32 values straddle a rounding boundary of the dtype
 # rounds apart, so at most 2 ulps of the dtype at the largest entry and
@@ -294,6 +322,7 @@ QMM_TPU = {"int8": "deepspeed_tpu/ops/pallas/int8_matmul.py:42",
            "int4": "deepspeed_tpu/ops/pallas/int8_matmul.py:145"}
 QUANT_GROUP = 128
 DQM_SRC = "deepspeed_tpu_torch/csrc/dequant_matmul.cu"
+DQM_TC_SRC = "deepspeed_tpu_torch/csrc/dequant_matmul_tc.cu"
 DQM_TPU = "deepspeed_tpu/ops/pallas/dequant_matmul.py:41"  # _kernel, call :86
 BS_FWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd.cu"
 BS_BWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_bwd.cu"
@@ -308,7 +337,7 @@ SPARSE_GPT_LAYOUT = dict(num_heads=12, block=128, num_local_blocks=4, num_global
                          attention="unidirectional")
 # B6/B7 against their plain versions, relative to the largest output entry:
 # fp32 -- both accumulate in fp32 in another order; bf16 -- both round once
-QMM_RTOL = {"float32": 5e-5, "bfloat16": 2e-2}
+QMM_RTOL = {"float32": 5e-5, "bfloat16": 2e-2, "float16": 2e-2}
 
 
 class Failed(Exception):
@@ -784,23 +813,39 @@ def phase_kernels_flash_tc(torch, ctx, randn):
         torch.cuda.empty_cache()
 
 
-def dqm_bound(M, D, F, Fp, nb, elt):
+def dqm_bound(M, D, F, Fp, nb, elt, route="cuda_cores"):
     """Least time of one B8 product: x, the uint8 payload and its fp32
-    scales and zero-points read once, the output written once; 2 flops per
-    multiply-add at the fp32 peak (the kernel computes in fp32 whatever x's
-    dtype)."""
+    scales and zero-points read once, the output written once; its
+    operations on the route's fastest units for the fp32-accurate function:
+    one fp32 pass (2 flops per multiply-add) at the fp32 peak on the CUDA
+    cores, three bf16 passes (x s as three exact parts against the exact q)
+    at the bf16 peak on the tensor cores."""
     nbytes = M * D * elt + D * Fp + 8 * D * nb + M * F * elt
+    if route == "tensor_cores":
+        return bound(nbytes, 3 * 2.0 * M * D * F, "bfloat16")
     return bound(nbytes, 2.0 * M * D * F, "float32")
 
 
+def _dqm_exact(torch, x, q, s, z, F):
+    """x @ (q s + z)[:, :F] in float64 over the unrounded weights: the
+    function both fp32 routes approximate."""
+    block = q.shape[1] // s.shape[1]
+    w = (q.double() * s.double().repeat_interleave(block, 1)
+         + z.double().repeat_interleave(block, 1))[:, :F]
+    return x.double() @ w
+
+
 def phase_kernels_dequant(torch, ctx):
-    """B8 against its plain version: the main-path shape (the GPT-2-125M LM
-    head at B8 x T512, x fp32 as the forward casts it, and with bf16 x),
-    M = 1 and 37, D 64 x F 96 (an effective block of 96), a block of 128,
-    the qkv leaf [768, 2304], ragged D and F; every case also bitwise on a
-    re-run. The main-path row is timed against its plain version, cuBLAS
-    fp32 (TF32 off) over the weight already dequantized, and the dequantize
-    plus cuBLAS."""
+    """B8 against its plain version, each case through its route
+    (``dqm_route``, checked by the counters): the main-path shape (the
+    GPT-2-125M LM head at B8 x T512, x fp32 as the forward casts it, and
+    with bf16 x) and the leaf at 2048 rows on the tensor cores; M = 1 and
+    37, D 64 x F 96 (an effective block of 96), a block of 128, ragged D
+    and F on the CUDA cores; every case also bitwise on a re-run, with its
+    error and its plain version's against the float64 product. At the
+    main-path shape the tensor-core and the CUDA-core kernel are timed on
+    the same inputs against the plain version, cuBLAS fp32 (TF32 off) over
+    the weight already dequantized, and the dequantize plus cuBLAS."""
     from deepspeed_tpu_torch.comm.quantized import dequantize_blockwise, quantize_blockwise
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
@@ -808,52 +853,84 @@ def phase_kernels_dequant(torch, ctx):
     timer = ctx["timer"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     V = 50304
-    cases = [(4096, 768, V, 256, "float32"), (4096, 768, V, 256, "bfloat16"),
-             (1, 768, V, 256, "float32"), (37, 768, V, 256, "float32"),
-             (64, 64, 96, 256, "float32"), (256, 768, 3072, 128, "float32"),
-             (2048, 768, 2304, 256, "float32"), (2048, 768, 2304, 256, "bfloat16"),
-             (100, 300, 1000, 256, "float32"), (37, 768, 3000, 128, "bfloat16")]
-    worst = 0.0
+    tc, cc = "tensor_cores", "cuda_cores"  # the route each case must take
+    cases = [(4096, 768, V, 256, "float32", tc), (4096, 768, V, 256, "bfloat16", tc),
+             (1, 768, V, 256, "float32", cc), (37, 768, V, 256, "float32", cc),
+             (64, 64, 96, 256, "float32", cc), (256, 768, 3072, 128, "float32", cc),
+             (2048, 768, 2304, 256, "float32", tc), (2048, 768, 2304, 256, "bfloat16", tc),
+             (100, 300, 1000, 256, "float32", cc), (37, 768, 3000, 128, "bfloat16", cc),
+             (200, 768, 2304, 256, "float16", tc)]
+    worst = {"cuda_cores": 0.0, "tensor_cores": 0.0}
     payloads = {}
-    for M, D, F, block, dt in cases:
+    for M, D, F, block, dt, expect in cases:
         if (D, F, block) not in payloads:
             w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
             payloads[(D, F, block)] = quantize_blockwise(w, bits=8, block_size=block)
         q, s, z = payloads[(D, F, block)]
+        Fp, nb = q.shape[1], s.shape[1]
+        route = dqm.dqm_route(M, D, Fp, nb)
         x = torch.randn((M, D), generator=gen, device="cuda").to(getattr(torch, dt))
+        before = (dqm.launches, dqm.tc_launches)
         out = dqm.dequant_matmul(x, q, s, z, orig_size=F)
         again = dqm.dequant_matmul(x, q, s, z, orig_size=F)
         torch.cuda.synchronize()
+        moved = (dqm.launches - before[0], dqm.tc_launches - before[1])
         ref = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F)
         err = (out.float() - ref.float()).abs().max().item()
         rel = err / max(ref.float().abs().max().item(), 1e-30)
-        worst = max(worst, err)
+        worst[route] = max(worst[route], err)
+        exact = _dqm_exact(torch, x, q, s, z, F)
+        top = exact.abs().max().item()
+        rel64 = (out.double() - exact).abs().max().item() / top
+        plain_rel64 = (ref.double() - exact).abs().max().item() / top
+        del exact
         kernel_ms = timer.ms(lambda: dqm.dequant_matmul(x, q, s, z, orig_size=F), iters=7)
-        bound_ms, bound_by = dqm_bound(M, D, F, q.shape[1], s.shape[1], x.element_size())
-        line = (f"phase2 dequant_matmul M{M} D{D} F{F} Fp{q.shape[1]} block{q.shape[1] // s.shape[1]} "
-                f"{dt}: max_abs_err={err:.3e} rel_err={rel:.3e} "
+        bound_ms, bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size(), route)
+        line = (f"phase2 dequant_matmul M{M} D{D} F{F} Fp{Fp} block{Fp // nb} {dt} "
+                f"route={route} launches(cuda_cores, tensor_cores)={moved}: "
+                f"max_abs_err={err:.3e} rel_err={rel:.3e} rel_err_vs_fp64={rel64:.3e} "
+                f"plain_rel_err_vs_fp64={plain_rel64:.3e} "
                 f"bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
                 f"bound_ms={bound_ms:.4f} ({bound_by})")
         if (M, D, F, dt) == (4096, 768, V, "float32"):
             w_hat = dequantize_blockwise(q, s, z, orig_size=F)
+            core = dqm._launch(x, q, s, z, F, "cuda_cores")
+            core_rel64 = ((core.double() - _dqm_exact(torch, x, q, s, z, F)).abs().max().item()
+                          / top)
+            core_ms = timer.ms(lambda: dqm._launch(x, q, s, z, F, "cuda_cores"), iters=7)
+            core_bound_ms, core_bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size())
             plain_ms = timer.ms(lambda: dqm.dequant_matmul_ref(x, q, s, z, orig_size=F), iters=7)
             library_ms = timer.ms(lambda: torch.matmul(x, w_hat), iters=7)
             deq_library_ms = timer.ms(
                 lambda: torch.matmul(x, dequantize_blockwise(q, s, z, orig_size=F)), iters=7)
-            line += (f" plain_ms={plain_ms:.4f} library_ms(cuBLAS fp32, TF32 off, dequantize "
+            line += (f" cuda_core_kernel_ms={core_ms:.4f} (earlier run: {OLD_DQM_MS}) "
+                     f"cuda_core_rel_err_vs_fp64={core_rel64:.3e} "
+                     f"cuda_core_bound_ms={core_bound_ms:.4f} ({core_bound_by}) "
+                     f"plain_ms={plain_ms:.4f} library_ms(cuBLAS fp32, TF32 off, dequantize "
                      f"excluded)={library_ms:.4f} dequantize+cuBLAS_ms={deq_library_ms:.4f} "
-                     f"kernel_tflops={2.0 * M * D * F / kernel_ms / 1e9:.2f}")
-            ctx["dqm"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by)
-            del w_hat
+                     f"kernel_tflops(fp32 function)={2.0 * M * D * F / kernel_ms / 1e9:.2f} "
+                     f"speedup_vs_cuda_cores={core_ms / kernel_ms:.2f} "
+                     f"vs_cuBLAS_fp32={library_ms / kernel_ms:.2f}")
+            ctx["dqm_tc"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by)
+            ctx["dqm"] = dict(ms=core_ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=core_bound_ms, bound_by=core_bound_by,
+                              max_abs_err=(core.float() - ref.float()).abs().max().item())
+            del w_hat, core
         log(line)
-        check(torch.equal(out, again), f"dequant_matmul {M, D, F, block, dt}: two runs differ")
-        check(rel <= QMM_RTOL[dt], f"dequant_matmul {M, D, F, block, dt}: rel error {rel}")
+        tag = f"dequant_matmul {M, D, F, block, dt}"
+        want = (2, 0) if expect == cc else (0, 2)
+        check(route == expect and moved == want,
+              f"{tag}: route {route}, launches {moved}; expected {expect}, {want}")
+        check(torch.equal(out, again), f"{tag}: two runs differ")
+        check(rel <= QMM_RTOL[dt], f"{tag}: rel error {rel}")
         del out, again, ref
-    ctx["dqm"]["max_abs_err"] = worst
-    for line in _build.build_logs.get("dequant_matmul", "").splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"phase2 dequant_matmul ptxas: {line.strip()}")
+    ctx["dqm"]["max_abs_err"] = max(ctx["dqm"]["max_abs_err"], worst["cuda_cores"])
+    ctx["dqm_tc"]["max_abs_err"] = worst["tensor_cores"]
+    for lib in ("dequant_matmul", "dequant_matmul_tc"):
+        for line in _build.build_logs.get(lib, "").splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"phase2 {lib} ptxas: {line.strip()}")
     torch.cuda.empty_cache()
 
 
@@ -1041,14 +1118,31 @@ def phase_kernels_qmatmul_tc(torch, ctx):
     torch.cuda.empty_cache()
 
 
+def _paged_lengths(B, pages, ps, rng):
+    """Lengths of a B4 case: 0, 1, a page's edge (ps - 1, ps, ps + 1), the
+    capacity, mid and one short of it, then split edges and random ones."""
+    full = pages * ps
+    lens = [0, 1, ps - 1, ps, ps + 1, full, full // 2 + 7, full - 1]
+    extra = [191, 192, 193, 255, 256, 300, 383, 384]
+    lens += [n for n in extra if n <= full][:max(0, B - len(lens))]
+    lens += [int(n) for n in rng.integers(0, full + 1, max(0, B - len(lens)))]
+    return lens[:B]
+
+
 def phase_kernels_paged(torch, ctx):
-    """B4 (dense pools) and B4q (int8, int4 pools) against the gather + plain
-    softmax version, at the serving bench shape (8 slots, H12, Dh64, page 64,
-    8 pages per row, pool 17), a long one (16 pages per row, pool 257) and
-    the bench shape at Dh 96 (whose int4 dims straddle a byte's nibbles),
-    fp32 and bf16, lengths {0, 1, 63, 64, 65, full, ...} over scattered page
-    ids. The kernels' rows of the result line are the bench shape in fp32,
-    the dtype of the paths that count their launches (phase 6 a and d)."""
+    """B4 (dense pools) and B4q (int8, int4 pools), split over each row's
+    pages (``split_plan``), against the gather + plain softmax version: the
+    serving bench shape (8 slots, H12, Dh64, page 64, 8 pages per row, pool
+    17), a long one (16 pages per row, pool 257: 6 splits of 192), the bench
+    shape at Dh 96 (whose int4 dims straddle a byte's nibbles), pages of 128
+    at 16 slots (phase 8b's table: 3 splits of 192, so a split starts inside
+    a page; also fp16) and Dh 128 at 64 slots (768 rows fill the card: one
+    split a row, every output written directly), fp32 and bf16, lengths {0,
+    1, ps - 1, ps, ps + 1, full, ...} over scattered page ids; every case
+    bitwise on a re-run, beside the one-block-a-row kernel's time where an
+    earlier run measured it (``OLD_PAGED_MS``). The kernels' rows of the result line are the bench shape in
+    fp32, the dtype of the paths that count their launches (phase 6 a and
+    d)."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.cuda import decode_attention as da
@@ -1056,15 +1150,21 @@ def phase_kernels_paged(torch, ctx):
     timer = ctx["timer"]
     gen = torch.Generator(device="cuda").manual_seed(1)
     rng = np.random.default_rng(5)
-    B, H, ps = 8, 12, 64
+    H = 12
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     errs = {kind: 0.0 for kind in PAGED_KINDS}
-    for Dh, pages, pool in ((64, 8, 17), (64, 16, 257), (96, 8, 17)):
+    shapes = ((64, 8, 8, 17, 64, ("float32", "bfloat16")),
+              (64, 8, 16, 257, 64, ("float32", "bfloat16")),
+              (96, 8, 8, 17, 64, ("float32", "bfloat16")),
+              (64, 16, 4, 65, 128, ("float32", "bfloat16", "float16")),
+              (128, 64, 8, 513, 64, ("float32", "bfloat16")))
+    for Dh, B, pages, pool, ps, dtypes in shapes:
         full = pages * ps
-        lens_list = [0, 1, 63, 64, 65, full, full // 2 + 7, full - 1]
+        lens_list = _paged_lengths(B, pages, ps, rng)
         tables_np = np.zeros((B, pages), np.int32)
         for b, n in enumerate(lens_list):
             used = -(-n // ps)
@@ -1072,9 +1172,9 @@ def phase_kernels_paged(torch, ctx):
         tables = torch.from_numpy(tables_np).cuda()
         tl = tables.long()
         lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
-        S = pages * ps
-        valid = (torch.arange(S, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        for dt in ("float32", "bfloat16"):
+        valid = (torch.arange(full, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        n_split, span = da.split_plan(B * H, full, sms)
+        for dt in dtypes:
             dtype = getattr(torch, dt)
             for kind, bits in PAGED_KINDS.items():
                 q = randn((B, 1, H, Dh), dtype)
@@ -1097,6 +1197,7 @@ def phase_kernels_paged(torch, ctx):
                                                      k_scales=ks, v_scales=vs)
 
                 out = kernel()
+                again = kernel()
                 torch.cuda.synchronize()
                 err = (out.float() - plain().float()).abs().max().item()
                 errs[kind] = max(errs[kind], err)
@@ -1116,18 +1217,25 @@ def phase_kernels_paged(torch, ctx):
                 library_ms, gather_sdpa_ms = timer.ms(library), timer.ms(gather_library)
                 bound_ms, bound_by = paged_bound(lens_list, H, Dh, ps, bits, dt,
                                                  q.element_size())
+                old = OLD_PAGED_MS.get((kind, dt, Dh, pages)) if (B, ps) == (8, 64) else None
                 log(f"phase2 paged_decode_attention {kind} B{B} H{H} Dh{Dh} ps{ps} "
-                    f"pages_per_seq{pages} pool{pool} lengths={lens_list} {dt}: "
-                    f"max_abs_err={err:.3e} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"library_ms(sdpa, gather excluded)={library_ms:.4f} "
+                    f"pages_per_seq{pages} pool{pool} split={n_split}x{span} "
+                    f"lengths={lens_list} {dt}: max_abs_err={err:.3e} "
+                    f"bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
+                    f"(one block a row: {old if old is not None else 'not measured'}) "
+                    f"plain_ms={plain_ms:.4f} library_ms(sdpa, gather excluded)={library_ms:.4f} "
                     f"gather_sdpa_ms={gather_sdpa_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
-                check(err <= ATOL[dt], f"paged {kind} {pages} Dh{Dh} {dt}: max_abs_err {err}")
+                tag = f"paged {kind} B{B} ps{ps} {pages} pages Dh{Dh} {dt}"
+                check(err <= ATOL[dt], f"{tag}: max_abs_err {err}")
                 check(torch.count_nonzero(out[0]).item() == 0,
-                      f"paged {kind} {pages} Dh{Dh} {dt}: the length-0 row is not zero")
-                if (Dh, pages, dt) == (64, 8, "float32"):
+                      f"{tag}: the length-0 row is not zero")
+                check(torch.equal(out, again), f"{tag}: two runs differ")
+                if (Dh, B, pages, dt) == (64, 8, 8, "float32"):
                     ctx[f"paged_{kind}"] = dict(ms=kernel_ms, plain_ms=plain_ms,
                                                 library_ms=library_ms, bound_ms=bound_ms,
                                                 bound_by=bound_by)
+                del q, k, v, kc, vc, out, again
+        torch.cuda.empty_cache()
     for kind in PAGED_KINDS:
         ctx[f"paged_{kind}"]["max_abs_err"] = errs[kind]
 
@@ -1635,7 +1743,7 @@ def _reset_counts():
     da.verify_launches = da.verify_kv8_launches = da.verify_kv4_launches = 0
     for counter in QMM_COUNTERS.values():
         setattr(im, counter, 0)
-    dqm.launches = 0
+    dqm.launches = dqm.tc_launches = 0
     bs.launches = bs.bwd_dq_launches = bs.bwd_dkv_launches = 0
     return fa, da
 
@@ -2558,7 +2666,8 @@ def phase_zero3(torch, ctx):
         finally:
             dqm.dequant_matmul = kernel_fn
         runs[route] = ([m["loss"].item() for m in metrics], [m["grad_norm"].item() for m in metrics],
-                       {"b8": dqm.launches, **_flash_launches(fa)})
+                       {"b8": dqm.tc_launches, "b8_cuda_cores": dqm.launches,
+                        **_flash_launches(fa)})
         del engine
     (loss_k, norm_k, launches), (loss_p, norm_p, plain_launches) = runs["kernel"], runs["plain"]
     log(f"phase9a train fp32 zero3 quantized weights+head gpt2-125m B4xT512: losses={loss_k} "
@@ -2567,8 +2676,11 @@ def phase_zero3(torch, ctx):
     check(np.allclose(loss_k, loss_p, rtol=1e-4, atol=0), f"9a losses differ: {loss_k} vs {loss_p}")
     check(np.allclose(norm_k, norm_p, rtol=1e-3, atol=0), f"9a grad norms differ: {norm_k} vs {norm_p}")
     check(launches["b8"] == 5 and plain_launches["b8"] == 0,
-          f"9a B8 launches {launches['b8']} / plain {plain_launches['b8']}, expected 5 / 0")
-    flash = {n: c for n, c in launches.items() if n != "b8"}
+          f"9a B8 tensor-core launches {launches['b8']} / plain {plain_launches['b8']}, "
+          "expected 5 / 0")
+    check(launches["b8_cuda_cores"] == 0 and plain_launches["b8_cuda_cores"] == 0,
+          f"9a B8 CUDA-core launches {launches['b8_cuda_cores']}, expected 0")
+    flash = {n: c for n, c in launches.items() if not n.startswith("b8")}
     expected = path_launches(flash, 5 * cfg.n_layer, _flash_path("float32"))
     check(flash == expected, f"9a flash launches {flash}, expected {expected}")
     torch.cuda.empty_cache()
@@ -2582,7 +2694,7 @@ def phase_zero3(torch, ctx):
     wire_ledger.reset()
     fa, _ = _reset_counts()  # the bf16 stage-3 training main path
     losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, 10)
-    launches = {"b8": dqm.launches, **_flash_launches(fa)}
+    launches = {"b8": dqm.tc_launches, "b8_cuda_cores": dqm.launches, **_flash_launches(fa)}
     ledger = wire_ledger.summary_dict()
     tokens_per_s = engine.tokens_per_sec()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2609,13 +2721,15 @@ def phase_zero3(torch, ctx):
     check(abs(losses[0] - math.log(V)) < 0.5, f"9b step-1 loss {losses[0]} far from ln(V)")
     check(losses[-1] < losses[0], f"9b loss did not fall: {losses}")
     check(all(math.isfinite(x) for x in losses + norms), "9b loss or grad norm not finite")
-    check(launches["b8"] == 10, f"9b B8 launches {launches['b8']}, expected 10")
-    flash = {n: c for n, c in launches.items() if n != "b8"}
+    check(launches["b8"] == 10 and launches["b8_cuda_cores"] == 0,
+          f"9b B8 launches {launches['b8']} on the tensor cores, "
+          f"{launches['b8_cuda_cores']} on the CUDA cores, expected 10 / 0")
+    flash = {n: c for n, c in launches.items() if not n.startswith("b8")}
     expected = path_launches(flash, 10 * cfg.n_layer, _flash_path("bfloat16"))
     check(flash == expected, f"9b flash launches {flash}, expected {expected}")
     check(any(n.startswith("qgather[zero3]") for n in ledger)
           and any(n.startswith("qmatmul[lm_head]") for n in ledger), f"9b ledger {ledger}")
-    ctx["dqm"]["launches"] = launches["b8"]
+    ctx["dqm_tc"]["launches"] = launches["b8"]
     del engine
     torch.cuda.empty_cache()
 
@@ -2644,6 +2758,23 @@ def phase_zero3(torch, ctx):
         torch.distributed.destroy_process_group()
         if os.path.exists(store):
             os.remove(store)
+
+    # (d) fp32 at B1 x T32, 2 steps: the head's product has 32 rows, under
+    # the tensor-core tile, and takes the CUDA-core kernel
+    engine = _engine(_train_config(1, zero_optimization=ZERO3Q), cfg)
+    batches = [{"input_ids": rng.integers(0, V, (1, 32)).astype(np.int32)} for _ in range(2)]
+    _reset_counts()  # the short-batch fp32 stage-3 training main path
+    losses = [engine.train_batch(b)["loss"].item() for b in batches]
+    torch.cuda.synchronize()
+    launches = {"b8": dqm.tc_launches, "b8_cuda_cores": dqm.launches}
+    log(f"phase9d train fp32 zero3 quantized weights+head gpt2-125m B1xT32: losses={losses} "
+        f"launches over 2 steps={launches}")
+    check(all(math.isfinite(x) for x in losses), f"9d losses not finite: {losses}")
+    check(launches == {"b8": 0, "b8_cuda_cores": 2},
+          f"9d B8 launches {launches}, expected 2 on the CUDA cores and none on the tensor cores")
+    ctx["dqm"]["launches"] = launches["b8_cuda_cores"]
+    del engine
+    torch.cuda.empty_cache()
 
 
 def _bs_launches(fa):
@@ -2941,7 +3072,9 @@ def main() -> int:
          "route": "cuda", "source": VERIFY_SRC, "replaces": VERIFY_TPU,
          **ctx[f"verify_{kind}"]} for kind in PAGED_KINDS] + [
         {"name": "dequant_matmul", "route": "cuda", "source": DQM_SRC, "replaces": DQM_TPU,
-         **ctx["dqm"]}] + [
+         **ctx["dqm"]},
+        {"name": "dequant_matmul_tc", "route": "cuda", "source": DQM_TC_SRC,
+         "replaces": DQM_TPU, **ctx["dqm_tc"]}] + [
         {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}"),
          "route": "cuda", "source": BS_FWD_SRC if n == "fwd" else BS_BWD_SRC,
          "replaces": BS_TPU[n], **ctx[f"bs_{n}"]} for n in BS_KERNELS]

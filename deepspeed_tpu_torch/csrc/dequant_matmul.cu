@@ -4,7 +4,10 @@
 //   out[M, F] = x[M, D] @ (q * scale + zero_point)[:, :F]
 //
 // Replaces the TPU kernel deepspeed_tpu/ops/pallas/dequant_matmul.py:_kernel
-// (dequant_matmul). q is the uint8 [D, Fp] 8-bit payload of
+// (dequant_matmul) for the shapes the tensor-core kernel
+// (dequant_matmul_tc.cu) does not take: fewer than 64 rows of x, D off 64-row
+// steps, scale blocks that are not a multiple of 256 columns
+// (dequant_matmul.py dqm_route). q is the uint8 [D, Fp] 8-bit payload of
 // comm/quantized.py quantize_blockwise; scale and zero_point are fp32
 // [D, nb], one affine pair per `block = Fp / nb` columns of a row (any block
 // size: each column resolves its own block). F <= Fp is the unpadded width:
@@ -15,14 +18,14 @@
 // does it, a rounded multiply then a rounded add (no fused multiply-add), so
 // the kernel's weights are the plain version's bit for bit.
 //
-// What bounds it on the H100: operations. At the main-path shape, the
-// GPT-2-125M LM head at B8 x T512 (x [4096, 768] fp32, q [768, 50432],
+// What bounds it on the H100: operations. At the GPT-2-125M LM head's shape
+// at B8 x T512 (x [4096, 768] fp32, q [768, 50432],
 // F 50304), the product is 3.17e11 flops, 4.7 ms at the fp32 FMA peak of
 // 67 TFLOP/s, while its bytes (mostly the 824 MB fp32 output) take 0.25 ms
-// at 3.35 TB/s. The reference computes an fp32 product; TF32 or bf16 tensor
-// cores would change that function, so this first kernel stays on the CUDA
-// cores. wgmma over tiles dequantized in shared memory, fed by TMA, is the
-// later redesign.
+// at 3.35 TB/s. The reference computes an fp32 product, which TF32 or a
+// single bf16 pass would change; the tensor-core kernel keeps it with three
+// bf16 passes and takes that shape (about 4.7x faster on the H100, PERF.md),
+// so this kernel serves the few-row and ragged shapes.
 //
 // Design, right and simple first: a block of 256 threads owns a 128 x 128
 // output tile and walks D in steps of 16. Each step stages a [128, 16] tile

@@ -14,7 +14,7 @@ Counterpart of ``decode_attention``, ``paged_decode_attention``,
   per row over the same pools plus the window's own dense K/V,
   ``deepspeed_tpu_torch/csrc/paged_verify_attention.cu``.
 
-Each source's header says how it is split and what bounds it. B3 and B5
+Each source's header says how it is split and what bounds it. All three
 split each row's cache over several blocks and merge the partials in the same
 launch (:func:`split_plan`; the workspace is cached per device and shape,
 :func:`_workspace`). The wrappers take the plain version only for tensors on
@@ -68,7 +68,7 @@ SPLIT_BLOCKS_PER_SM = 4
 
 
 def split_plan(rows: int, capacity: int, sms: int) -> Tuple[int, int]:
-    """(n_split, span): how B3 and B5 split each of ``rows`` (b, h) rows'
+    """(n_split, span): how B3, B4 and B5 split each of ``rows`` (b, h) rows'
     ``capacity`` cache positions. Splits of at least SPLIT_MIN_SPAN positions,
     as many as fill about SPLIT_BLOCKS_PER_SM blocks an SM and no more, each a
     multiple of SPLIT_TILE, ``n_split * span >= capacity``. Shapes only: the
@@ -91,7 +91,7 @@ def _workspace(device: torch.device, kernel: str, rows: int, n_split: int, per_s
                D: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The split kernels' scratch, cached per device and shape: fp32 partial
     (m, l) pairs [rows * n_split * per_split * 2] and sums [rows * n_split *
-    per_split * D] (per_split window rows, 1 for B3), and int32 tickets [rows]
+    per_split * D] (per_split window rows, 1 for B3 and B4), and int32 tickets [rows]
     that start at 0 and that the kernel's last split of a row resets to 0.
     Launches on one stream use it in turn."""
     key = (device, kernel, rows, n_split, per_split, D)
@@ -108,7 +108,7 @@ def _paged_lib() -> ctypes.CDLL:
     lib = _build.load("paged_decode_attention")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ds_paged_decode_attention.argtypes = (
-        [ptr] * 8 + [i32] * 8 + [i64] * 2 + [ctypes.c_float, ptr])
+        [ptr] * 8 + [i32] * 8 + [i64] * 2 + [ctypes.c_float] + [i32] * 2 + [ptr] * 4)
     lib.ds_paged_decode_attention.restype = i32
     return lib
 
@@ -358,13 +358,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     o = torch.empty((B, 1, H, Dh), dtype=q.dtype, device=q.device)
     lib = _paged_lib()
     with torch.cuda.device(q.device):
+        n_split, span = split_plan(B * H, tables.shape[1] * ps, _sm_count(q.device.index or 0))
+        ws_ml, ws_acc, tickets = _workspace(q.device, "paged", B * H, n_split, 1, Dh)
         status = lib.ds_paged_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             k_scales.data_ptr() if bits is not None else None,
             v_scales.data_ptr() if bits is not None else None,
             o.data_ptr(), lens.data_ptr(), tables.data_ptr(), B, H, P, ps,
             tables.shape[1], Dh, DTYPE_CODE[q.dtype], _KV_MODE[bits],
-            q.stride(0), q.stride(2), scale, torch.cuda.current_stream().cuda_stream)
+            q.stride(0), q.stride(2), scale, n_split, span, ws_ml.data_ptr(),
+            ws_acc.data_ptr(), tickets.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, status, "paged_decode_attention")
     if bits is None:
         paged_launches += 1

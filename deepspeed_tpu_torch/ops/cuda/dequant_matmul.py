@@ -1,5 +1,5 @@
 """The dequant-fused product over the quantized wire format (kernel B8): the
-hand-written CUDA kernel and its plain version.
+hand-written CUDA kernels, their plain version and the route between them.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/dequant_matmul.py``:
 
@@ -8,14 +8,24 @@ Counterpart of ``deepspeed_tpu/ops/pallas/dequant_matmul.py``:
 with ``q`` the uint8 ``[D, Fp]`` payload of ``comm.quantized.quantize_blockwise``
 and ``scale`` / ``zero_point`` fp32 ``[D, Fp / block]``, the block extent
 ``Fp // nb`` taken from the shapes (any even block that ``effective_block``
-gives). The kernel (``deepspeed_tpu_torch/csrc/dequant_matmul.cu``; its
-header says how it is tiled and what bounds it) reads x as fp32 whatever its
-dtype, dequantizes each weight tile as it stages it, accumulates in fp32 and
-writes x's dtype. The reference's ``_eligible`` tile rule is a Mosaic limit
-and does not carry over: every 8-bit payload takes the kernel, ragged tiles
-masked. Packed int4 payloads take the plain route on every device, as the
-reference's do. On a CUDA tensor an 8-bit payload launches the kernel or
-raises; a CPU tensor takes the plain version.
+gives). Two kernels compute it, each reading x as fp32 whatever its dtype and
+writing x's dtype; each header says how it is tiled and what bounds it:
+
+- ``deepspeed_tpu_torch/csrc/dequant_matmul_tc.cu`` on the tensor cores
+  (``wgmma``), for the shapes :func:`dqm_route` sends there (the LM head at
+  any training batch): x times each column block's scales as three exact
+  bf16 parts against the exact bf16 q - 128, plus a side product (the
+  zero-points and the 128 taken off q), an fp32-accurate product (modelled
+  by :func:`dequant_matmul_split_ref`);
+- ``deepspeed_tpu_torch/csrc/dequant_matmul.cu`` on the CUDA cores, for every
+  other 8-bit shape (a few rows, ragged blocks, D off 64-row steps), each
+  weight dequantized as the plain version does it.
+
+The reference's ``_eligible`` tile rule is a Mosaic limit and does not carry
+over: every 8-bit payload takes a kernel, ragged tiles masked. Packed int4
+payloads take the plain route on every device, as the reference's do. On a
+CUDA tensor an 8-bit payload launches its route's kernel or raises; a CPU
+tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -28,9 +38,33 @@ import torch
 from .. import _build
 from .flash_attention import DTYPE_CODE
 
-# kernel launches since import or the last reset to 0 (chip_smoke.py reads it
-# to show that a main path went through the kernel)
+# the tensor-core kernel's tile: output columns inside one scale block (kBN),
+# rows of one wgmma (the route's fewest rows of x), rows of D a step (kBK)
+_TC_COLS = 256
+_TC_MIN_M = 64
+_TC_STEP = 64
+
+# kernel launches since import or the last reset to 0 (chip_smoke.py reads
+# them to show that a main path went through the kernels): the CUDA-core
+# kernel, and the tensor-core one
 launches = 0
+tc_launches = 0
+
+
+def dqm_route(M: int, D: int, Fp: int, nb: int, bits: int = 8) -> str:
+    """The route of one product of ``M`` rows over a ``[D, Fp]`` payload in
+    ``nb`` scale blocks, from the shapes alone: ``"plain"`` for a packed
+    4-bit payload (on every device, as the reference's); for 8 bits
+    ``"tensor_cores"`` where every 256-column tile lies inside one scale
+    block, x fills a 64-row wgmma tile and D is whole 64-row steps, and
+    ``"cuda_cores"`` otherwise. On the CPU both kernel routes run the plain
+    version."""
+    if bits == 4:
+        return "plain"
+    if (M >= _TC_MIN_M and D % _TC_STEP == 0 and nb >= 1 and Fp % nb == 0
+            and (Fp // nb) % _TC_COLS == 0):
+        return "tensor_cores"
+    return "cuda_cores"
 
 
 def _dequantize(q, scale, zero_point, bits, orig_size):
@@ -47,6 +81,42 @@ def dequant_matmul_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return (x.float() @ _dequantize(q, scale, zero_point, bits, orig_size)).to(x.dtype)
 
 
+def _bf16_top(v: torch.Tensor) -> torch.Tensor:
+    """The top 16 bits of fp32 ``v`` (a bf16 value, truncated), as fp32."""
+    return (v.view(torch.int32) & -65536).view(torch.float32)
+
+
+def split3(v: torch.Tensor):
+    """fp32 ``v`` as three bf16-representable parts by truncation, as the
+    tensor-core kernel cuts it: hi = the top 16 bits of v, mid = those of v -
+    hi, lo = v - hi - mid. Each difference is exact, so hi + mid + lo == v."""
+    hi = _bf16_top(v)
+    r = v - hi
+    mid = _bf16_top(r)
+    return hi, mid, r - mid
+
+
+def dequant_matmul_split_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                             zero_point: torch.Tensor, orig_size: int) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic, for the tests: for each scale
+    block b, v = x times the block's scales rounded once in fp32 and cut by
+    :func:`split3`, the three parts' fp32 products with the exact q - 128,
+    plus the side product ``x @ zero_point[:, b] + 128 v.sum(1)`` in fp32;
+    one rounding to x's dtype. 8-bit payloads only."""
+    xf = x.float()
+    nb = scale.shape[1]
+    block = q.shape[1] // nb
+    out = torch.empty((x.shape[0], nb * block), dtype=torch.float32, device=x.device)
+    for b in range(nb):
+        cols = slice(b * block, (b + 1) * block)
+        qb = q[:, cols].float() - 128.0
+        v = xf * scale[:, b]
+        hi, mid, lo = split3(v)
+        side = xf @ zero_point[:, b] + 128.0 * v.sum(dim=1)
+        out[:, cols] = (hi @ qb + mid @ qb + lo @ qb) + side[:, None]
+    return out[:, :orig_size].to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dequant_matmul")
@@ -56,7 +126,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(x, q, scale, zero_point, orig_size: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _lib_tc() -> ctypes.CDLL:
+    lib = _build.load("dequant_matmul_tc")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ds_dequant_matmul_tc.argtypes = [ptr, i64] + [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.ds_dequant_matmul_tc.restype = i32
+    return lib
+
+
+def _launch(x, q, scale, zero_point, orig_size: int, route: str) -> torch.Tensor:
+    """One launch of ``route``'s kernel (the tensor-core one raises on a
+    layout it does not take)."""
     if x.dtype not in DTYPE_CODE:
         raise TypeError(f"dequant_matmul kernel: x dtype {x.dtype}; expected float32, "
                         "bfloat16 or float16")
@@ -64,17 +145,27 @@ def _launch(x, q, scale, zero_point, orig_size: int) -> torch.Tensor:
         raise TypeError("dequant_matmul kernel: scale and zero_point must be float32")
     if not (x.device == q.device == scale.device == zero_point.device):
         raise ValueError("dequant_matmul: x, q, scale and zero_point on different devices")
-    if x.stride(-1) != 1:
-        x = x.contiguous()
     q, scale, zero_point = q.contiguous(), scale.contiguous(), zero_point.contiguous()
     M, D = x.shape
     Fp, nb = q.shape[1], scale.shape[1]
+    if route == "tensor_cores":
+        if dqm_route(M, D, Fp, nb) != route:
+            raise ValueError(f"dequant_matmul tensor-core kernel: M {M}, D {D}, Fp {Fp}, "
+                             f"{nb} blocks is not a layout it takes")
+        # the kernel copies x's rows and q's with 16-byte copies
+        if x.stride(-1) != 1 or x.stride(0) * x.element_size() % 16 or x.data_ptr() % 16:
+            x = x.clone(memory_format=torch.contiguous_format)
+        if q.data_ptr() % 16:
+            q = q.clone()
+    elif x.stride(-1) != 1:
+        x = x.contiguous()
     dev = x.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     out = torch.empty((M, orig_size), dtype=x.dtype, device=dev)
-    lib = _lib()
+    lib, fn = ((_lib_tc(), "ds_dequant_matmul_tc") if route == "tensor_cores"
+               else (_lib(), "ds_dequant_matmul"))
     with torch.cuda.device(index):
-        status = lib.ds_dequant_matmul(
+        status = getattr(lib, fn)(
             x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(), zero_point.data_ptr(),
             out.data_ptr(), M, D, Fp, nb, orig_size, DTYPE_CODE[x.dtype],
             torch.cuda.current_stream(index).cuda_stream)
@@ -89,7 +180,7 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     packed 4-bit payload takes the plain route); scale / zero_point fp32
     [D, nb]. Returns [M, orig_size] in x's dtype. It has no autograd rule of
     its own: ``comm.quantized.quantized_matmul_reshard`` carries it."""
-    global launches
+    global launches, tc_launches
     if bits not in (4, 8):
         raise ValueError(f"dequant_matmul: bits must be 8 or 4, got {bits}")
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0]:
@@ -104,10 +195,14 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"dequant_matmul: scale {tuple(scale.shape)}, zero_point "
                          f"{tuple(zero_point.shape)} and orig_size {orig_size} do not fit q "
                          f"{tuple(q.shape)} of {bits} bits")
-    if bits == 4 or x.device.type == "cpu":
+    route = dqm_route(x.shape[0], q.shape[0], q.shape[1], nb, bits)
+    if route == "plain" or x.device.type == "cpu":
         return dequant_matmul_ref(x, q, scale, zero_point, orig_size, bits)
     if x.device.type != "cuda":
         raise ValueError(f"dequant_matmul: unsupported device {x.device}")
-    out = _launch(x, q, scale, zero_point, orig_size)
-    launches += 1
+    out = _launch(x, q, scale, zero_point, orig_size, route)
+    if route == "tensor_cores":
+        tc_launches += 1
+    else:
+        launches += 1
     return out

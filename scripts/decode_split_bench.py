@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Times the decode attention kernels B3 (``decode_attention``) and B5
-(``paged_verify_attention``) of one checkout of the PyTorch/CUDA port on one
-CUDA card, beside SDPA and their bounds, and the device-busy time of one bf16
-decode step (GPT-2-125M, B4, position 512: ``chip_smoke.py`` phase 4's
-``generate`` step) and of one verify window (W 5 at 16 active slots, page
-128: phase 8b's) with their idle shares.
+"""Times the decode attention kernels B3 (``decode_attention``), B4
+(``paged_decode_attention``) and B5 (``paged_verify_attention``) and the
+dequant-fused LM-head product B8 (``dequant_matmul``) of one checkout of the
+PyTorch/CUDA port on one CUDA card, beside SDPA (cuBLAS fp32 for B8) and
+their bounds, and the device-busy time of one bf16 decode step (GPT-2-125M,
+B4, position 512: ``chip_smoke.py`` phase 4's ``generate`` step), of one
+paged decode step (8 slots, page 64: phase 6b's) and of one verify window (W
+5 at 16 active slots, page 128: phase 8b's) with their idle shares.
 
     python3 scripts/decode_split_bench.py [--tree DIR] [--tag NAME] [--out FILE]
 
@@ -33,8 +35,9 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.append(REPO)  # after --tree's entry, so that the tree's package is the one imported
 
-from chip_smoke import (Timer, _verify_library_inputs, decode_bound,  # noqa: E402
-                        device_kernels, verify_bound)
+from chip_smoke import (Timer, _dqm_exact, _paged_lengths,  # noqa: E402
+                        _verify_library_inputs, decode_bound, device_kernels, dqm_bound,
+                        paged_bound, verify_bound)
 
 
 def busy(torch, fn) -> float:
@@ -80,6 +83,89 @@ def decode_rows(torch, da, timer, emit):
               "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
                   qt, k, v, attn_mask=valid)),
               "bound_ms": bms, "bound_by": by})
+
+
+def paged_rows(torch, da, timer, emit):
+    """B4 at the serving shape (8 slots, H12, page 64, 8 pages a row, pool
+    17) and at 16 pages a row (pool 257), dense / int8 / int4 pools, fp32 and
+    bf16, over the same lengths and page ids as chip_smoke.py phase 2."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(5)
+    B, H, Dh, ps = 8, 12, 64, 64
+    for pages, pool in ((8, 17), (16, 257)):
+        full = pages * ps
+        lens_list = _paged_lengths(B, pages, ps, rng)
+        tables_np = np.zeros((B, pages), np.int32)
+        for b, n in enumerate(lens_list):
+            used = -(-n // ps)
+            tables_np[b, :used] = rng.choice(np.arange(1, pool), used, replace=False)
+        tables = torch.from_numpy(tables_np).cuda()
+        lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+        valid = (torch.arange(full, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            for kind, bits in (("dense", None), ("kv8", 8), ("kv4", 4)):
+                q = torch.randn((B, 1, H, Dh), generator=gen, device="cuda").to(dtype)
+                if bits is None:
+                    k, v = (torch.randn((H, pool, ps, Dh), generator=gen, device="cuda")
+                            .to(dtype) for _ in range(2))
+                    ks = vs = None
+                else:
+                    dq = Dh // 2 if bits == 4 else Dh
+                    k, v = (torch.randint(-128, 128, (H, pool, ps, dq), generator=gen,
+                                          device="cuda", dtype=torch.int8) for _ in range(2))
+                    ks, vs = (torch.rand((H, pool), generator=gen, device="cuda") * 0.02 + 1e-3
+                              for _ in range(2))
+
+                def kernel():
+                    return da.paged_decode_attention(q, k, v, lens, tables, k_scales=ks,
+                                                     v_scales=vs)
+
+                ref = da.paged_decode_attention(q, k, v, lens, tables, impl="gather",
+                                                k_scales=ks, v_scales=vs)
+                err = (kernel().float() - ref.float()).abs().max().item()
+                tl = tables.long()
+                kc = da.gather_pages(k, ks, tl, Dh).to(dtype)
+                vc = da.gather_pages(v, vs, tl, Dh).to(dtype)
+                qt = q.transpose(1, 2)
+                bms, by = paged_bound(lens_list, H, Dh, ps, bits, dt, q.element_size())
+                emit({"kernel": "B4", "kind": kind, "B": B, "H": H, "Dh": Dh, "ps": ps,
+                      "pages": pages, "dtype": dt, "lengths": lens_list, "max_abs_err": err,
+                      "kernel_ms": timer.ms(kernel),
+                      "library_ms": timer.ms(lambda: F.scaled_dot_product_attention(
+                          qt, kc, vc, attn_mask=valid)),
+                      "bound_ms": bms, "bound_by": by})
+                del kc, vc
+
+
+def dequant_rows(torch, timer, emit):
+    """B8 at the main-path shape (the GPT-2-125M LM head at B8 x T512: x
+    [4096, 768] fp32, vocabulary 50304 in blocks of 256) through the tree's
+    own route, its error and cuBLAS fp32's (TF32 off, over the weight
+    already dequantized) against the float64 product."""
+    from deepspeed_tpu_torch.comm.quantized import dequantize_blockwise, quantize_blockwise
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    M, D, F = 4096, 768, 50304
+    w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
+    q, s, z = quantize_blockwise(w, bits=8)
+    x = torch.randn((M, D), generator=gen, device="cuda")
+    w_hat = dequantize_blockwise(q, s, z, orig_size=F)
+    out, lib = dqm.dequant_matmul(x, q, s, z, orig_size=F), torch.matmul(x, w_hat)
+    exact = _dqm_exact(torch, x, q, s, z, F)
+    top = exact.abs().max().item()
+    route = dqm.dqm_route(M, D, q.shape[1], s.shape[1]) if hasattr(dqm, "dqm_route") else (
+        "cuda_cores")
+    bms, by = dqm_bound(M, D, F, q.shape[1], s.shape[1], 4, route)
+    emit({"kernel": "B8", "M": M, "D": D, "F": F, "dtype": "float32", "route": route,
+          "rel_err_vs_fp64": (out.double() - exact).abs().max().item() / top,
+          "library_rel_err_vs_fp64": (lib.double() - exact).abs().max().item() / top,
+          "kernel_ms": timer.ms(lambda: dqm.dequant_matmul(x, q, s, z, orig_size=F), iters=7),
+          "library_ms": timer.ms(lambda: torch.matmul(x, w_hat), iters=7),
+          "bound_ms": bms, "bound_by": by})
 
 
 def verify_rows(torch, da, timer, emit):
@@ -188,6 +274,26 @@ def step_rows(torch, emit):
     w, b = wall(torch, eight_verify), busy(torch, eight_verify)
     emit(dict(path="verify window (phase 8b, bf16, 16 slots, page 128, W 5)",
               device_busy_ms=b / 8, wall_ms=w / 8, idle_share=max(0.0, 1 - b / w)))
+    del eng
+
+    # phase 6b's paged decode step: 8 active slots of 8 pages of 64, lengths
+    # near 300, one token each
+    eng = ServingEngine(cfg, params, ServingConfig(
+        num_slots=8, page_size=64, max_model_len=512, num_pages=65, prefill_chunk=128,
+        decode_block=1, dtype="bfloat16"))
+    eng.warmup()
+    slots = 8
+    tables = np.arange(1, 8 * slots + 1, dtype=np.int32).reshape(slots, 8)
+    mask = np.ones(slots, bool)
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (slots, 1)).astype(np.int32)
+
+    def eight_decode_paged():
+        for i in range(8):
+            eng.decode(toks, tables, np.full(slots, 300 + i, np.int32), mask)
+
+    w, b = wall(torch, eight_decode_paged), busy(torch, eight_decode_paged)
+    emit(dict(path="paged decode step (phase 6b, bf16, 8 slots, page 64, lengths ~300)",
+              device_busy_ms=b / 8, wall_ms=w / 8, idle_share=max(0.0, 1 - b / w)))
 
 
 def main() -> int:
@@ -220,7 +326,9 @@ def main() -> int:
     assert os.path.abspath(da.__file__).startswith(os.path.abspath(args.tree)), da.__file__
     timer = Timer(torch)
     decode_rows(torch, da, timer, emit)
+    paged_rows(torch, da, timer, emit)
     verify_rows(torch, da, timer, emit)
+    dequant_rows(torch, timer, emit)
     step_rows(torch, emit)
     return 0
 

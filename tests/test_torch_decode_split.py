@@ -1,14 +1,17 @@
-"""A CPU model of the split-KV decode kernels (B3 ``decode_attention`` and
-B5 ``paged_verify_attention``, ``csrc/decode_attention.cu`` and
+"""A CPU model of the split-KV decode kernels (B3 ``decode_attention``, B4
+``paged_decode_attention`` and B5 ``paged_verify_attention``,
+``csrc/decode_attention.cu``, ``csrc/paged_decode_attention.cu`` and
 ``csrc/paged_verify_attention.cu``) against the JAX package's functions.
 
 The kernels split each (b, h) row's cache into ``n_split`` spans
 (``split_plan``), compute one partial (m, l, acc) per span that holds a
 position below the row's length, skip every span wholly past it, and merge
 the partials in split order. B5's split 0 also attends the window, causally.
-Quantized pools enter as integers: a page's K scale multiplies each
-position's score and its V scale each position's probability.
-``decode_split_ref`` and ``verify_split_ref`` below compute the same in
+B4 and B5 resolve each position's page from the block table, so a split may
+start inside a page. Quantized pools enter as integers: a page's K scale
+multiplies each position's score and its V scale each position's
+probability. ``decode_split_ref``, ``paged_split_ref`` and
+``verify_split_ref`` below compute the same in
 float64 on the CPU, split by split, so the algebra of the split (empty spans,
 the window's owner, the merge) is held to the JAX package's function here;
 the kernels themselves are held to the plain versions on the card
@@ -87,6 +90,49 @@ def _unpack4(packed):
     lo = ((p & 0xF) ^ 8) - 8
     hi = (((p >> 4) & 0xF) ^ 8) - 8
     return np.concatenate([lo, hi], axis=-1)
+
+
+def _pool_rows(k_pages, v_pages, tables, b, h, k_scales, v_scales, D):
+    """Row b's positions 0 .. capacity - 1 read through its table for head h:
+    K and V as float64 (integers for quantized pools) and each position's K
+    and V page scale (ones for dense pools)."""
+    ps, pps = k_pages.shape[2], tables.shape[1]
+    pos = np.arange(ps * pps)
+    page, off = tables[b, pos // ps], pos % ps
+    kk, vv = k_pages[h, page, off], v_pages[h, page, off]
+    if k_scales is None:
+        ks = vs = np.ones(len(pos))
+    else:
+        widen = _unpack4 if k_pages.shape[-1] * 2 == D else (lambda x: x)
+        kk, vv = widen(kk), widen(vv)
+        ks, vs = k_scales[h, page], v_scales[h, page]
+    return kk.astype(np.float64), vv.astype(np.float64), ks, vs
+
+
+def paged_split_ref(q, k_pages, v_pages, lengths, tables, span, scale=None, k_scales=None,
+                    v_scales=None):
+    """B4's split-KV function: q [B, 1, H, D], pools [H, P, ps, Dq] dense or
+    int8 / nibble-packed int4 with [H, P] scales, tables [B, pps]; split s
+    holds positions [s * span, (s + 1) * span) below the row's length
+    (their pages from the table: a split may start inside a page), a split
+    with none is skipped."""
+    B, _, H, D = q.shape
+    cap = k_pages.shape[2] * tables.shape[1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    out = np.zeros((B, 1, H, D))
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), cap)
+        for h in range(H):
+            kk, vv, ks, vs = _pool_rows(k_pages, v_pages, tables, b, h, k_scales, v_scales, D)
+            qh = q[b, 0, h].astype(np.float64) * scale
+            parts = []
+            for sp in range(-(-n // span)):
+                pos = np.arange(sp * span, min((sp + 1) * span, n))
+                parts.append(_partial((kk[pos] @ qh) * ks[pos], vv[pos] * vs[pos][:, None],
+                                      np.ones(len(pos), bool)))
+            merged = _merge(parts)
+            out[b, 0, h] = 0.0 if merged is None else merged
+    return out
 
 
 def verify_split_ref(q, k_pages, v_pages, lengths, tables, win_k, win_v, span, scale=None,
@@ -242,9 +288,75 @@ def test_verify_split_model_is_independent_of_the_split(span):
     _check_verify(8, 64, 5, span=span, seed=11)
 
 
+# ---------------------------------------------------------------- B4
+def _paged_case(bits, D, ps, pages, lengths, seed):
+    """q, one layer's pools (+ scales) and scattered tables for a B4 case."""
+    rng = np.random.default_rng(seed)
+    H, B = 2, len(lengths)
+    pool = B * pages + 1
+    tables = rng.permutation(np.arange(1, pool))[:B * pages].reshape(B, pages).astype(np.int32)
+    q = rng.standard_normal((B, 1, H, D), dtype=np.float32)
+    if bits is None:
+        k, v = (rng.standard_normal((H, pool, ps, D), dtype=np.float32) for _ in range(2))
+        return q, k, v, None, None, tables
+    qmax = 127 if bits == 8 else 7
+    k, v = (rng.integers(-qmax - 1, qmax + 1, (H, pool, ps, D)).astype(np.int8)
+            for _ in range(2))
+    if bits == 4:
+        k, v = (np.array(jax_pack_int4(jnp.asarray(t))) for t in (k, v))
+    ks, vs = (rng.uniform(0.001, 0.05, (H, pool)).astype(np.float32) for _ in range(2))
+    return q, k, v, ks, vs, tables
+
+
+def _check_paged(bits, D, ps, span, seed=0):
+    """Lengths 0, 1, a span's edge (span - 1, span, span + 1) and the
+    capacity of a 512-position table; the length-0 row gives zeros."""
+    cap = 512
+    lengths = np.array([0, 1, span - 1, span, span + 1, cap], np.int32)
+    q, k, v, ks, vs, tables = _paged_case(bits, D, ps, cap // ps, lengths, seed)
+    out = paged_split_ref(q, k, v, lengths, tables, span, k_scales=ks, v_scales=vs)
+    j = jnp.asarray
+    opt = {} if ks is None else {"k_scales": j(ks), "v_scales": j(vs)}
+    # the Pallas kernel (interpret mode on the CPU): its length-0 row gives
+    # zeros, where the reference's gather fallback returns the mean of V
+    ref = np.asarray(jda.paged_decode_attention(j(q), j(k), j(v), j(lengths), j(tables),
+                                                impl="kernel", **opt), np.float64)
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+    assert not out[0].any()
+    t = {} if ks is None else {"k_scales": torch.from_numpy(ks), "v_scales": torch.from_numpy(vs)}
+    port = da.paged_decode_attention(*map(torch.from_numpy, (q, k, v, lengths, tables)), **t)
+    np.testing.assert_allclose(port.numpy(), out, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("span", [64, 128, 192])
+@pytest.mark.parametrize("ps", [64, 128])
+@pytest.mark.parametrize("D", [64, 96])
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
+def test_paged_split_model_matches_jax(bits, D, ps, span):
+    """Dense, int8 and int4 pools (the scales on scores and probabilities)
+    at Dh 64 / 96, pages of 64 and 128, spans of 64 (inside a page of 128:
+    every odd split starts mid-page), 128 and 192 (the 16-page plan's span:
+    splits start mid-page at either page size)."""
+    _check_paged(bits, D, ps, span, seed=D + ps + span + (bits or 0))
+
+
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
+def test_paged_split_model_is_independent_of_the_split(bits):
+    """The same pools and lengths split at spans 64, 128, 192 and one span
+    over the whole table (no merge): the same function."""
+    cap, ps = 512, 128
+    lengths = np.array([0, 1, 63, 64, 65, 127, 128, 129, 191, 192, 193, 300, cap], np.int32)
+    q, k, v, ks, vs, tables = _paged_case(bits, 64, ps, cap // ps, lengths, 7)
+    outs = [paged_split_ref(q, k, v, lengths, tables, span, k_scales=ks, v_scales=vs)
+            for span in (64, 128, 192, cap)]
+    for out in outs[1:]:
+        np.testing.assert_allclose(out, outs[0], atol=1e-12, rtol=0)
+
+
 @pytest.mark.parametrize("rows,capacity,expect", [
     (48, 640, (5, 128)),    # B3 at the serving path's B4 H12 S640
-    (96, 512, (4, 128)),    # B5 at phase 8's 8 slots H12, 8 pages of 64
+    (96, 512, (4, 128)),    # B4 and B5 at phase 6's / 8's 8 slots H12, 8 pages of 64
+    (96, 1024, (6, 192)),   # B4 at 16 pages of 64 (phase 2's long row)
     (192, 512, (3, 192)),   # B5 at 16 slots, 4 pages of 128
     (1024, 2048, (1, 2048)),  # a grid that fills the card unsplit
     (2, 64, (1, 64)),       # shorter than a span

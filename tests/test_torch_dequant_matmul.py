@@ -44,10 +44,10 @@ def test_plain_route_matches_the_jax_fallback(M, D, F, block, bits, dtype, rtol)
     ref = jdequant_matmul(jnp.asarray(x, dtype), jnp.asarray(q), jnp.asarray(s),
                           jnp.asarray(z), orig_size=F, bits=bits)
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    before = dqm.launches
+    before = (dqm.launches, dqm.tc_launches)
     got = dqm.dequant_matmul(tx, *(torch.from_numpy(a) for a in (q, s, z)), orig_size=F,
                              bits=bits)
-    assert dqm.launches == before  # a CPU tensor takes the plain version
+    assert (dqm.launches, dqm.tc_launches) == before  # a CPU tensor takes the plain version
     assert got.dtype == tx.dtype and got.shape == (M, F)
     _close(got.float().numpy(), np.asarray(ref.astype(jnp.float32)), rtol)
 
@@ -78,3 +78,69 @@ def test_rejects_what_the_kernel_does_not_take():
         dqm.dequant_matmul(x[:, :10], q, s, z, orig_size=96)
     with pytest.raises(ValueError, match="bits"):
         dqm.dequant_matmul(x, q, s, z, orig_size=96, bits=2)
+
+
+def _exact(x, q, s, z, F):
+    """x @ (q s + z) in float64, the weights unrounded: the function both
+    fp32 routes approximate."""
+    block = q.shape[1] // s.shape[1]
+    w = (q.astype(np.float64) * np.repeat(s.astype(np.float64), block, axis=1)
+         + np.repeat(z.astype(np.float64), block, axis=1))
+    return x.astype(np.float64) @ w[:, :F]
+
+
+@pytest.mark.parametrize("M,D,F,block", [(64, 64, 512, 256), (96, 128, 700, 256),
+                                         (130, 192, 1000, 512), (64, 768, 600, 256)],
+                         ids=["one-tile", "ragged-F", "block-512", "head-width"])
+def test_tensor_core_model_matches_the_jax_fallback(M, D, F, block):
+    """The tensor-core route's arithmetic (x times each block's scales cut
+    into three bf16 parts, the exact q, the zero-point side product; modelled
+    by ``dequant_matmul_split_ref``) against the JAX fallback, within 5e-5 of
+    the largest output (chip_smoke.py's fp32 tolerance for B8), and as close
+    to the float64 function as the plain fp32 version (1e-5: both are fp32
+    products, which cancel z against q s)."""
+    x, (q, s, z) = _inputs(M, D, F, block, 8, M + D + F)
+    assert dqm.dqm_route(M, D, q.shape[1], s.shape[1]) == "tensor_cores"
+    ref = np.asarray(jdequant_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s),
+                                     jnp.asarray(z), orig_size=F))
+    t = [torch.from_numpy(a) for a in (x, q, s, z)]
+    got = dqm.dequant_matmul_split_ref(*t, orig_size=F)
+    assert got.dtype == torch.float32 and got.shape == (M, F)
+    _close(got.numpy(), ref, 5e-5)
+    exact = _exact(x, q, s, z, F)
+    top = np.abs(exact).max()
+    assert np.abs(got.numpy() - exact).max() <= 1e-5 * top
+    plain = dqm.dequant_matmul(*t, orig_size=F).numpy()
+    assert np.abs(plain - exact).max() <= 1e-5 * top
+
+
+def test_three_bf16_parts_are_exact():
+    """split3 cuts fp32 values (normal, tiny and large magnitudes, both
+    signs) into three bf16-representable parts whose sum is the value,
+    bitwise, in either order of addition."""
+    rng = np.random.default_rng(2)
+    v = torch.from_numpy((rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096))
+                         .astype(np.float32))
+    hi, mid, lo = dqm.split3(v)
+    for part in (hi, mid, lo):
+        torch.testing.assert_close(part.to(torch.bfloat16).float(), part, rtol=0, atol=0)
+    torch.testing.assert_close((hi + mid) + lo, v, rtol=0, atol=0)
+    torch.testing.assert_close(hi + (mid + lo), v, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("M,D,Fp,nb,bits,route", [
+    (4096, 768, 50432, 197, 8, "tensor_cores"),  # the LM head at B8 x T512 (phase 9b)
+    (2048, 768, 50432, 197, 8, "tensor_cores"),  # B4 x T512 (phase 9a)
+    (64, 64, 512, 2, 8, "tensor_cores"),         # one 64-row wgmma tile
+    (64, 128, 1024, 2, 8, "tensor_cores"),       # a block of 512: two tiles a block
+    (63, 768, 50432, 197, 8, "cuda_cores"),      # M below the tile
+    (1, 768, 50432, 197, 8, "cuda_cores"),       # one row
+    (4096, 768, 3072, 24, 8, "cuda_cores"),      # a block of 128, not a multiple of 256
+    (4096, 64, 96, 1, 8, "cuda_cores"),          # an effective block of 96
+    (4096, 100, 512, 2, 8, "cuda_cores"),        # D off whole 64-row steps
+    (4096, 768, 25216, 197, 4, "plain"),         # packed int4: the plain route everywhere
+])
+def test_dqm_route(M, D, Fp, nb, bits, route):
+    """The route from the shapes alone, at its edges."""
+    assert dqm.dqm_route(M, D, Fp, nb, bits) == route
+

@@ -360,14 +360,50 @@ def test_paged_kernel_matches_plain(cuda_device, dtype, atol, bits, pages, pool,
     counter = {None: "paged_launches", 8: "paged_kv8_launches", 4: "paged_kv4_launches"}[bits]
     q, k, v, ks, vs, t = _paged_inputs(cuda_device, dtype, bits, 8, 12, pages, pool, 11, Dh)
     before = getattr(da, counter)
-    out = da.paged_decode_attention(q, k, v, t["lengths"], t["tables"], k_scales=ks,
-                                    v_scales=vs)
+    out, again = (da.paged_decode_attention(q, k, v, t["lengths"], t["tables"], k_scales=ks,
+                                            v_scales=vs) for _ in range(2))
     torch.cuda.synchronize()
-    assert getattr(da, counter) == before + 1
+    assert getattr(da, counter) == before + 2
     ref = da.paged_decode_attention(q, k, v, t["lengths"], t["tables"], impl="gather",
                                     k_scales=ks, v_scales=vs)
-    assert getattr(da, counter) == before + 1
+    assert getattr(da, counter) == before + 2
     assert out.dtype == dtype and torch.count_nonzero(out[0]) == 0  # the length-0 row
+    assert torch.equal(out, again)  # the split's merge runs in split order
+    assert (out.float() - ref.float()).abs().max().item() <= atol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", TOLERANCES + [(torch.float16, 2e-2)])
+@pytest.mark.parametrize("bits", [None, 8, 4], ids=["dense", "kv8", "kv4"])
+@pytest.mark.parametrize("Dh", [64, pytest.param(96, id="d96")])
+def test_paged_kernel_splits_inside_a_page(cuda_device, dtype, atol, bits, Dh):
+    """B4 over pages of 128 at 16 slots and 4 pages a row (phase 8b's
+    table): 3 splits of 192 positions, so split 1 starts inside page 1;
+    lengths in one split (1, 191, 192), across a page inside a split (129),
+    across splits (193, 300) and the capacity; bitwise on a re-run."""
+    B, H, ps, pages, pool = 16, 12, 128, 4, 65
+    assert da.split_plan(B * H, pages * ps, 132) == (3, 192)
+    rng = np.random.default_rng(31)
+    lens = [0, 1, 127, 128, 129, 191, 192, 193, 255, 256, 300, 383, 384, 385, 500, 512]
+    tables = np.stack([rng.permutation(np.arange(1, pool))[:pages] for _ in lens]).astype(np.int32)
+    q = _normal((B, 1, H, Dh), cuda_device, dtype, 32)
+    if bits is None:
+        k, v = (_normal((H, pool, ps, Dh), cuda_device, dtype, s) for s in (33, 34))
+        ks = vs = None
+    else:
+        dq = Dh // 2 if bits == 4 else Dh
+        k, v = (torch.from_numpy(rng.integers(-128, 128, (H, pool, ps, dq)).astype(np.int8))
+                .to(cuda_device) for _ in range(2))
+        ks, vs = (torch.from_numpy(rng.uniform(0.001, 0.02, (H, pool)).astype(np.float32))
+                  .to(cuda_device) for _ in range(2))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    tables = torch.from_numpy(tables).to(cuda_device)
+    out, again = (da.paged_decode_attention(q, k, v, lengths, tables, k_scales=ks, v_scales=vs)
+                  for _ in range(2))
+    ref = da.paged_decode_attention(q, k, v, lengths, tables, impl="gather", k_scales=ks,
+                                    v_scales=vs)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[0]) == 0 and torch.equal(out, again)
     assert (out.float() - ref.float()).abs().max().item() <= atol
 
 
@@ -580,11 +616,15 @@ def test_quantized_matmul_takes_the_dequantize_route_past_256_rows(cuda_device):
 @pytest.mark.parametrize("M,D,F,block", [(256, 768, 50304, 256), (1, 768, 2304, 256),
                                          (37, 768, 3072, 256), (64, 64, 96, 256),
                                          (130, 256, 520, 128), (8, 768, 2304, 256),
-                                         (5, 100, 301, 64)])
+                                         (5, 100, 301, 64), (128, 768, 2304, 256),
+                                         (70, 128, 600, 512)])
 def test_dequant_matmul_kernel_matches_plain(cuda_device, dtype, rtol, M, D, F, block):
-    """B8 against its plain version: the LM head's vocabulary padded to whole
-    blocks and trimmed, M = 1 and 37, an effective block of 96, a block of
-    128, the qkv leaf, ragged D and F; bitwise equal over two runs.
+    """B8 against its plain version, each case through its route
+    (``dqm_route``: the tensor cores for the LM head at M 256, the qkv leaf
+    at 128 rows and a ragged 70-row block of 512; the CUDA cores for the
+    rest): the LM head's vocabulary padded to whole blocks and trimmed, M = 1
+    and 37, an effective block of 96, a block of 128, the qkv leaf, ragged D
+    and F; bitwise equal over two runs.
     Tolerance relative to the largest output entry: fp32, both accumulate in
     fp32 in another order; bf16/fp16, both round the output once."""
     from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
@@ -593,14 +633,43 @@ def test_dequant_matmul_kernel_matches_plain(cuda_device, dtype, rtol, M, D, F, 
     q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 16) * 0.02,
                                  bits=8, block_size=block)
     x = _normal((M, D), cuda_device, dtype, 17)
-    before = dqm.launches
+    route = dqm.dqm_route(M, D, q.shape[1], s.shape[1])
+    counter = "tc_launches" if route == "tensor_cores" else "launches"
+    before = (dqm.launches, dqm.tc_launches)
     out, again = (dqm.dequant_matmul(x, q, s, z, orig_size=F) for _ in range(2))
     torch.cuda.synchronize()
-    assert dqm.launches == before + 2
+    moved = {c: getattr(dqm, c) - n for c, n in zip(("launches", "tc_launches"), before)}
+    assert moved == {"launches": 0, "tc_launches": 0, counter: 2}
     ref = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F)
     assert out.dtype == dtype and out.shape == (M, F) and torch.equal(out, again)
     scale = ref.float().abs().max().item()
     assert (out.float() - ref.float()).abs().max().item() <= rtol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [64, 256])
+def test_dequant_matmul_routes_against_float64(cuda_device, M):
+    """At the LM head's width (D 768, vocabulary 50304 in blocks of 256) the
+    tensor-core kernel (three bf16 parts of x s, exact q, the zero-point side
+    product) and the CUDA-core kernel (each weight rounded to fp32 first) on
+    the same fp32 inputs: both within 1e-5 of the largest entry of the
+    float64 product over the unrounded weights q s + z."""
+    from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    D, F = 768, 50304
+    q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 18) * 0.02, bits=8)
+    x = _normal((M, D), cuda_device, torch.float32, 19)
+    assert dqm.dqm_route(M, D, q.shape[1], s.shape[1]) == "tensor_cores"
+    tc = dqm._launch(x, q, s, z, F, "tensor_cores")
+    core = dqm._launch(x, q, s, z, F, "cuda_cores")
+    block = q.shape[1] // s.shape[1]
+    w = (q.double() * s.double().repeat_interleave(block, 1)
+         + z.double().repeat_interleave(block, 1))[:, :F]
+    exact = x.double() @ w
+    top = exact.abs().max().item()
+    for out in (tc, core):
+        assert (out.double() - exact).abs().max().item() <= 1e-5 * top
 
 
 def _bs_layouts():
