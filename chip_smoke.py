@@ -12,12 +12,13 @@ result line):
    process per source, all at once; ptxas's registers and spills printed);
    TF32 is switched off for fp32 products; each tensor-core kernel (B1's
    forward, B2's dq and dk/dv: 12 instances, bf16 / fp16, D 64 / 96 / 128,
-   the default and the single-cast function; B6/B7's: 8, bf16 / fp16 x int8
-   / int4 x 64 / 128 rows a block) has its instances and every one holds
-   HGMMA instructions in its SASS (``cuobjdump -sass`` of the library), and
-   so does each of B8's 3 tensor-core instances (fp32 / bf16 / fp16 x); B5's
-   36 bf16 / fp16 instances each hold HMMA (``mma.sync``) and its 9 fp32
-   ones none.
+   the default and the single-cast function; their fp32 3xTF32 kernels: 3,
+   D 64 / 96 / 128; B6/B7's: 8, bf16 / fp16 x int8 / int4 x 64 / 128 rows a
+   block) has its instances and every one holds HGMMA instructions in its
+   SASS (``cuobjdump -sass`` of the library), and so does each of B8's 3
+   tensor-core instances (fp32 / bf16 / fp16 x); every 3xTF32 instance also
+   holds HMMA (``mma.sync``, its products with an MN-major B); B5's 36 bf16 /
+   fp16 instances each hold HMMA and its 9 fp32 ones none.
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
    card inputs, at the shapes of the serving, scoring and training paths,
    with the kernel's time, the plain version's, one PyTorch library call's
@@ -37,13 +38,18 @@ result line):
    D128, non-causal, offset and ragged cases: at most 2 ulps of its dtype
    of the fp32 plain version beside a single cast of P's error (which must
    exceed it), bitwise on a re-run, kernel / plain / SDPA / bound times; B1
-   in fp32 on the CUDA cores at the scoring shape. stochastic_mode's
+   in fp32 (3xTF32 on the tensor cores) at the scoring shape, the offset,
+   non-causal, D128 and D96 cases: within the fp32 bars of the plain
+   version and of its CPU model (``flash_attention_tf32_ref``), where one
+   TF32 pass must miss them, bitwise on a re-run, with both bounds (three
+   TF32 passes at the TF32 peak; one fp32 pass on the CUDA cores). stochastic_mode's
    single-cast instances of B1 and B2 against the single-cast plain
    versions (at most 2 ulps of the dtype at the largest entry, bitwise on
    at least 99% of the entries), bitwise on a re-run. The flash backward
    (three kernels: delta, dq, dk/dv; dq and
-   dk/dv on the tensor cores for bf16 / fp16, on the CUDA cores for fp32,
-   each case printing its route, its launches and, in bf16 / fp16, its
+   dk/dv on the tensor cores, 3xTF32 for fp32 (held to the plain version and
+   the CPU model, both bounds), each case printing its route, its launches
+   and, in bf16 / fp16, its
    largest error in ulps of its dtype against the fp32 plain version, at
    most 2 over the entries of at least 1e-3 of the largest, beside the
    error of dV from a single cast of P, which must exceed it; the cases
@@ -103,14 +109,16 @@ result line):
    at full width and depth. (a) fp32, B4 x T512, AdamW + clipping, 5 steps
    through the flash kernels and 5 through plain attention from the same
    state: losses and grad norms agree, and each micro-step launches the
-   forward and each backward kernel 12 times. (b) bf16 with the fp32 master
+   3xTF32 forward, delta and the 3xTF32 dq and dk/dv 12 times each and no
+   other flash kernel. (b) bf16 with the fp32 master
    and ZeRO stage 2 (the verify-notes configuration), B8 x T512, 10 steps on
    one batch: the loss starts near ln(V) and falls, the tensor-core
    forward, delta and the tensor-core dq and dk/dv kernels launch 12 times
    a step and no other flash kernel; step time, tokens/s, peak memory and a
    profiler breakdown of one step with B1's and B2's device time and their
    shares of the busy time. (c) gas 2 x micro 4 and gas 1 x micro 8 over
-   the same 8 rows give the same grad norm. (d) (b)'s configuration with
+   the same 8 rows give the same grad norm, their 3 micro-steps through
+   (a)'s kernels (36 launches each). (d) (b)'s configuration with
    ``stochastic_mode``, 5 steps: the loss starts near ln(V) and falls, only
    the single-cast instances (and delta) launch, 12 times a step.
 6. paged serving: ``ServingEngine`` + ``run_continuous`` on GPT-2-125M with
@@ -208,8 +216,8 @@ result line):
 
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
-paths the CUDA-core flash kernels only, bf16 paths the tensor-core ones
-only). The last lines are the card's name and power limit (nvidia-smi), a
+paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
+only, delta on both). The last lines are the card's name and power limit (nvidia-smi), a
 ``{"kernels": [...]}`` line (23 kernels) and the ``{"ok": true, ...}`` line.
 """
 
@@ -225,9 +233,11 @@ import traceback
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit); "tf32x3" is
+# an fp32 product as three TF32 passes at the TF32 peak (the fp32 flash
+# kernels), "float32" one fp32 pass on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12, "tf32x3": 495e12 / 3}
 # tolerances of a kernel against its plain version: fp32 -- both accumulate
 # in fp32, in another order; bf16/fp16 -- both round the output to 8 or 11
 # mantissa bits, and a few ulps of O(1) outputs is up to 2e-2
@@ -247,9 +257,10 @@ BWD_RTOL = {"float32": 5e-5, "bfloat16": 2e-2, "float16": 2e-2}
 BWD_MAX_ULP = 2
 BWD_ULP_FLOOR = 1e-3
 
-FLASH_SRC = "deepspeed_tpu_torch/csrc/flash_attention_fwd.cu"
+FLASH_TF32_SRC = "deepspeed_tpu_torch/csrc/flash_attention_fwd_tf32.cu"
 FLASH_TC_SRC = "deepspeed_tpu_torch/csrc/flash_attention_fwd_tc.cu"
-FLASH_BWD_SRC = "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu"
+FLASH_BWD_SRC = "deepspeed_tpu_torch/csrc/flash_attention_bwd.cu"  # delta
+FLASH_BWD_TF32_SRC = "deepspeed_tpu_torch/csrc/flash_attention_bwd_tf32.cu"
 FLASH_BWD_TC_SRC = "deepspeed_tpu_torch/csrc/flash_attention_bwd_tc.cu"
 DECODE_SRC = "deepspeed_tpu_torch/csrc/decode_attention.cu"
 PAGED_SRC = "deepspeed_tpu_torch/csrc/paged_decode_attention.cu"
@@ -267,21 +278,27 @@ BWD_TPU = {"delta": "deepspeed_tpu/ops/pallas/flash_attention.py:277",
            "dq": "deepspeed_tpu/ops/pallas/flash_attention.py:291",
            "dkv": "deepspeed_tpu/ops/pallas/flash_attention.py:309"}
 BWD_KERNELS = ("delta", "dq", "dkv")
-# the tensor-core dq and dk/dv kernels that bf16 / fp16 inputs take
+# the dq and dk/dv kernels by route: 3xTF32 for fp32, the 16-bit tensor-core
+# kernels for bf16 / fp16 (delta is one CUDA-core kernel in every dtype)
+BWD_TF32_KERNELS = ("dq_tf32", "dkv_tf32")
 BWD_TC_KERNELS = ("dq_tc", "dkv_tc")
 # the backward kernels each dtype's main path launches, and stochastic_mode's
-BWD_PATH = {"float32": BWD_KERNELS, "bfloat16": ("delta", *BWD_TC_KERNELS),
+BWD_PATH = {"float32": ("delta", *BWD_TF32_KERNELS), "bfloat16": ("delta", *BWD_TC_KERNELS),
             "stochastic": ("delta", "dq_tc_stochastic", "dkv_tc_stochastic")}
-# the forward kernel each path launches: the CUDA-core kernel for fp32, the
+# the forward kernel each path launches: the 3xTF32 kernel for fp32, the
 # tensor-core one for bf16 / fp16 (its single-cast instance in stochastic_mode)
-FWD_PATH = {"float32": ("fwd",), "bfloat16": ("fwd_tc",), "stochastic": ("fwd_tc_stochastic",)}
+FWD_PATH = {"float32": ("fwd_tf32",), "bfloat16": ("fwd_tc",),
+            "stochastic": ("fwd_tc_stochastic",)}
 # each tensor-core library, the kernels whose every instance must hold wgmma
 # (HGMMA in SASS), and their instances
 # (flash: bf16 / fp16 x D 64 / 96 / 128 x the default and the single-cast
-# (stochastic_mode) function; B6/B7: bf16 / fp16 x int8 / int4 x 64 / 128
-# rows a block; B8: fp32 / bf16 / fp16 x)
+# (stochastic_mode) function; flash 3xTF32: D 64 / 96 / 128; B6/B7: bf16 /
+# fp16 x int8 / int4 x 64 / 128 rows a block; B8: fp32 / bf16 / fp16 x)
 TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel",), 12),
               "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"), 12),
+              "flash_attention_fwd_tf32": (("flash_fwd_tf32_kernel",), 3),
+              "flash_attention_bwd_tf32": (("flash_bwd_dq_tf32_kernel",
+                                            "flash_bwd_dkv_tf32_kernel"), 3),
               "int8_matmul_tc": (("qmatmul_tc_kernel",), 8),
               "dequant_matmul_tc": (("dequant_matmul_tc_kernel",), 3)}
 # B5's mma.sync instances: bf16 / fp16 x D 64 / 96 / 128 x dense / int8 /
@@ -289,6 +306,9 @@ TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel",), 12),
 # instance's mangled name starts its template arguments with its type
 # (If: float)
 VERIFY_KERNEL = "verify_split_kernel"
+# the 3xTF32 flash kernels' products whose B is MN-major (P V, dS k, P^T dO,
+# dS^T q) run on mma.sync: HMMA in every instance beside the HGMMA above
+TF32_MMA_LIBS = ("flash_attention_fwd_tf32", "flash_attention_bwd_tf32")
 VERIFY_MMA_INSTANCES = 36
 VERIFY_FP32_INSTANCES = 9
 # the times of the earlier one-block-per-row B3 and B5 at the main-path rows
@@ -521,6 +541,15 @@ def phase_build(torch, ctx):
             check(len(per_instance) == instances and min(per_instance) > 0,
                   f"{kernel} in {lib}: {len(per_instance)} instances, expected {instances}, "
                   f"each with wgmma ({per_instance})")
+    for lib in TF32_MMA_LIBS:
+        kernels, instances = TC_KERNELS[lib]
+        counts = sass_tensor_ops(_build, lib, op="HMMA")
+        for kernel in kernels:
+            per_instance = sorted(c for fn, c in counts.items() if kernel in fn)
+            log(f"phase1 sass {lib} {kernel}: HMMA (mma.sync) per instance {per_instance}")
+            check(len(per_instance) == instances and min(per_instance) > 0,
+                  f"{kernel} in {lib}: {len(per_instance)} instances, expected {instances}, "
+                  f"each with mma.sync ({per_instance})")
     counts = sass_tensor_ops(_build, "paged_verify_attention", op="HMMA")
     fp32 = sorted(c for fn, c in counts.items() if VERIFY_KERNEL + "If" in fn)
     mma = sorted(c for fn, c in counts.items() if VERIFY_KERNEL in fn
@@ -562,39 +591,62 @@ def phase_kernels(torch, ctx):
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    # B1 forward on the CUDA cores (fp32): the scoring shape (the main-path
-    # row), the bottom-right causal case, non-causal, head dim 128, and head
-    # dim 96 at gpt2-760m's 16 heads
+    # B1 forward in fp32 on the tensor cores (3xTF32) on fused-qkv views: the
+    # scoring shape (the main-path row), the bottom-right causal case,
+    # non-causal, head dim 128, and head dim 96 at gpt2-760m's 16 heads;
+    # against the plain fp32 version (the fp32 bars) and the CPU model of its
+    # arithmetic, bitwise on a re-run, with both bounds (three TF32 passes at
+    # the TF32 peak, one fp32 pass on the CUDA cores)
     flash_cases = [(4, 512, 512, 12, 64, True), (4, 128, 512, 12, 64, True),
                    (4, 256, 256, 12, 64, False), (4, 512, 512, 12, 128, True),
                    (4, 512, 512, 16, 96, True)]
     flash_err = 0.0
     for i, (B, T, S, H, D, causal) in enumerate(flash_cases):
         dt = "float32"
-        q, k, v = (randn((B, n, H, D), torch.float32) for n in (T, S, S))
+        q, k, v = _fused_qkv(randn, B, T, S, H, D, torch.float32)
         before = _fwd_launches(fa)
         o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        again, lse_again = fa.flash_attention_fwd(q, k, v, causal=causal)
         torch.cuda.synchronize()
         counted = {n: c - before[n] for n, c in _fwd_launches(fa).items()}
+        bitwise = torch.equal(o, again) and torch.equal(lse, lse_again)
         o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
         err = (o.float() - o_ref.float()).abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
+        o_model, lse_model = fa.flash_attention_tf32_ref(q, k, v, causal)
+        model_err = (o - o_model).abs().max().item()
+        model_lse_err = (lse - lse_model).abs().max().item()
+        one_pass_err = (fa.flash_attention_tf32_ref(q, k, v, causal, passes=1)[0]
+                        - o_ref).abs().max().item()
         flash_err = max(flash_err, err)
+        del again, o_model
         kernel_ms = timer.ms(lambda: fa.flash_attention_fwd(q, k, v, causal=causal))
         plain_ms = timer.ms(lambda: fa.flash_attention_ref(q, k, v, causal=causal))
         library_ms = timer.ms(_sdpa_forward(torch, q, k, v, causal))
-        bound_ms, bound_by = flash_bound(B, T, S, H, D, causal, dt, q.element_size())
+        bound_ms, bound_by = flash_bound(B, T, S, H, D, causal, "tf32x3", q.element_size())
+        cc_ms, cc_by = flash_bound(B, T, S, H, D, causal, dt, q.element_size())
         log(f"phase2 flash_attention_fwd B{B} T{T} S{S} H{H} D{D} causal={causal} {dt} "
-            f"route=fp32: max_abs_err={err:.3e} lse_err={lse_err:.3e} launches={counted} "
-            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
+            f"route=tf32: max_abs_err={err:.3e} lse_err={lse_err:.3e} "
+            f"tf32_model_err={model_err:.3e} tf32_model_lse_err={model_lse_err:.3e} "
+            f"one_pass_model_err={one_pass_err:.3e} bitwise_rerun={bitwise} "
+            f"launches={counted} kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}, 3xTF32) "
+            f"cuda_core_bound_ms={cc_ms:.4f} ({cc_by}) kernel/sdpa={kernel_ms / library_ms:.3f} "
+            f"kernel/bound={kernel_ms / bound_ms:.2f}")
         check(err <= ATOL[dt], f"flash {flash_cases[i]}: max_abs_err {err} > {ATOL[dt]}")
         check(lse_err <= LSE_ATOL, f"flash {flash_cases[i]}: lse error {lse_err}")
-        check(counted == path_launches(counted, 1, FWD_PATH["float32"]),
+        check(model_err <= ATOL[dt] and model_lse_err <= LSE_ATOL,
+              f"flash {flash_cases[i]}: {model_err} / {model_lse_err} from the 3xTF32 model")
+        check(one_pass_err > ATOL[dt], f"flash {flash_cases[i]}: one TF32 pass is within "
+              f"{one_pass_err}, the check cannot tell it from 3xTF32")
+        check(bitwise, f"flash {flash_cases[i]}: two runs differ")
+        check(counted == path_launches(counted, 2, FWD_PATH["float32"]),
               f"flash {flash_cases[i]}: launches {counted}")
         if i == 0:
             ctx["flash"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                                 bound_ms=bound_ms, bound_by=bound_by)
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
     ctx["flash"]["max_abs_err"] = flash_err
     phase_kernels_flash_tc(torch, ctx, randn)
 
@@ -1391,8 +1443,11 @@ def phase_kernels_bwd(torch, ctx, randn):
     """B2: the three backward kernels against their plain versions, a
     bitwise re-run, and their times beside the SDPA backward's. q/k/v are
     views of one fused [B, T, 3HD] buffer, as the model's qkv projection
-    gives them. dq and dk/dv run on the tensor cores for bf16 / fp16 inputs
-    (route ``tc``) and on the CUDA cores for fp32 (route ``fp32``)."""
+    gives them. dq and dk/dv run on the tensor cores: for bf16 / fp16 inputs
+    the 16-bit kernels (route ``tc``), for fp32 the 3xTF32 ones (route
+    ``tf32``: also held to their CPU model, and a one-pass model must miss
+    the bar; both bounds, three TF32 passes and one fp32 pass on the CUDA
+    cores)."""
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
     timer = ctx["timer"]
@@ -1414,12 +1469,13 @@ def phase_kernels_bwd(torch, ctx, randn):
              (4, 512, 512, 16, 96, True, "float32"), (4, 512, 512, 16, 96, True, "bfloat16"),
              (4, 512, 512, 16, 96, True, "float16"), (2, 100, 200, 16, 96, True, "bfloat16")]
     small_do = [(4, 512, 512, 12, 64, True, "float16"), (4, 512, 512, 16, 96, True, "float16")]
-    errs = {name: 0.0 for name in BWD_KERNELS + BWD_TC_KERNELS}
+    errs = {name: 0.0 for name in ("delta", *BWD_TF32_KERNELS, *BWD_TC_KERNELS)}
     for (B, T, S, H, D, causal, dt), do_scale in ([(c, 1.0) for c in cases]
                                                   + [(c, 2.0**-8) for c in small_do]):
         dtype = getattr(torch, dt)
         tc = dt != "float32"
-        names = {"delta": "delta", "dq": "dq_tc" if tc else "dq", "dkv": "dkv_tc" if tc else "dkv"}
+        route = "tc" if tc else "tf32"
+        names = {"delta": "delta", "dq": f"dq_{route}", "dkv": f"dkv_{route}"}
         qkv = randn((B, S, 3 * H * D), dtype)
         k = qkv[..., H * D:2 * H * D].reshape(B, S, H, D)
         v = qkv[..., 2 * H * D:].reshape(B, S, H, D)
@@ -1440,7 +1496,15 @@ def phase_kernels_bwd(torch, ctx, randn):
         rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                for a, b in zip(first, ref)]
         absd = [(a.float() - b.float()).abs().max().item() for a, b in zip(first, ref)]
-        ulps = cast_ulps = None
+        ulps = cast_ulps = model_rel = one_pass_rel = None
+        if not tc:  # against the 3xTF32 model and one TF32 pass, which must miss
+            model = fa.flash_attention_bwd_tf32_ref(q, k, v, o, lse, do, causal)
+            model_rel = max(((a - b).abs().max() / b.abs().max()).item()
+                            for a, b in zip(first, model))
+            one = fa.flash_attention_bwd_tf32_ref(q, k, v, o, lse, do, causal, passes=1)
+            one_pass_rel = min(((a - b).abs().max() / b.abs().max()).item()
+                               for a, b in zip(one, ref))
+            del model, one
         if tc:  # against a single cast of P, which the check must tell apart
             ulps = [ulp_err(torch, a, b, dtype) for a, b in zip(first, ref)]
             p_cast = fa._probs(q, k, lse, causal, scale).to(dtype).float()
@@ -1470,28 +1534,37 @@ def phase_kernels_bwd(torch, ctx, randn):
         # delta's yardstick: rowsum(dO * O) as one einsum ([B, H, T] is a view
         # of the kernel's [B*H, T])
         delta_library_ms = timer.ms(lambda: torch.einsum("bthd,bthd->bht", o, do))
-        bounds = flash_bwd_bounds(B, T, S, H, D, causal, dt, q.element_size())
+        bounds = flash_bwd_bounds(B, T, S, H, D, causal, dt if tc else "tf32x3",
+                                  q.element_size())
+        cc = flash_bwd_bounds(B, T, S, H, D, causal, dt, q.element_size())
         pair_ms = kernel_ms["dq"] + kernel_ms["dkv"]
         log(f"phase2 flash_attention_bwd B{B} T{T} S{S} H{H} D{D} causal={causal} {dt} "
             + (f"dO_scale={do_scale} " if do_scale != 1.0 else "")
-            + f"route={'tc' if tc else 'fp32'}: "
+            + f"route={route}: "
             f"rel_err dq/dk/dv={rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} "
             f"max_abs_err dq/dk/dv={absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e} "
             + (f"max_ulp_err dq/dk/dv={ulps[0]:.2f}/{ulps[1]:.2f}/{ulps[2]:.2f} "
                f"single_cast_dv_ulp_err={cast_ulps:.2f} " if ulps else "")
+            + (f"tf32_model_rel_err={model_rel:.3e} one_pass_model_rel_err={one_pass_rel:.3e} "
+               if model_rel is not None else "")
             + f"delta_err={delta_err:.3e} bitwise_rerun={bitwise} launches={counted} "
             + " ".join(f"{n}: kernel_ms={kernel_ms[n]:.4f} plain_ms={plain_ms[n]:.4f} "
                        f"bound_ms={bounds[n][0]:.4f} ({bounds[n][1]})" for n in BWD_KERNELS)
             + f" delta_einsum_ms={delta_library_ms:.4f}"
             f" sum_kernel_ms={sum(kernel_ms.values()):.4f} "
             f"bwd_bound_ms={bounds['bwd_total'][0]:.4f} ({bounds['bwd_total'][1]}) "
-            f"dq+dkv_ms={pair_ms:.4f} sdpa_backward_ms={library_ms:.4f} "
+            + ("" if tc else "cuda_core_bound_ms dq/dkv="
+               f"{cc['dq'][0]:.4f}/{cc['dkv'][0]:.4f} ({cc['dq'][1]}) ")
+            + f"dq+dkv_ms={pair_ms:.4f} sdpa_backward_ms={library_ms:.4f} "
             f"dq+dkv/sdpa_backward={pair_ms / library_ms:.3f}")
         check(bitwise, f"flash backward {B, T, S, D, dt}: two runs differ")
         check(counted == expected, f"flash backward {B, T, S, D, dt}: launches {counted}")
         check(max(rel) <= BWD_RTOL[dt], f"flash backward {B, T, S, D, dt}: rel error {rel}")
         check(ulps is None or max(ulps) <= BWD_MAX_ULP,
               f"flash backward {B, T, S, D, dt, do_scale}: {ulps} {dt} ulps")
+        check(model_rel is None or (model_rel <= BWD_RTOL[dt] and one_pass_rel > BWD_RTOL[dt]),
+              f"flash backward {B, T, S, D, dt}: {model_rel} from the 3xTF32 model, one "
+              f"TF32 pass {one_pass_rel} (must exceed {BWD_RTOL[dt]})")
         check(cast_ulps is None or cast_ulps > BWD_MAX_ULP,
               f"flash backward {B, T, S, D, dt, do_scale}: a single cast of P is within "
               f"{cast_ulps} ulps, the ulp check cannot tell it from the hi/lo split")
@@ -1734,8 +1807,8 @@ def _reset_counts():
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
-    fa.launches = fa.fwd_tc_launches = fa.fwd_tc_stochastic_launches = 0
-    fa.bwd_delta_launches = fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+    fa.fwd_tf32_launches = fa.fwd_tc_launches = fa.fwd_tc_stochastic_launches = 0
+    fa.bwd_delta_launches = fa.bwd_dq_tf32_launches = fa.bwd_dkv_tf32_launches = 0
     fa.bwd_dq_tc_launches = fa.bwd_dkv_tc_launches = 0
     fa.bwd_dq_tc_stochastic_launches = fa.bwd_dkv_tc_stochastic_launches = 0
     da.launches = 0
@@ -1749,13 +1822,13 @@ def _reset_counts():
 
 
 def _fwd_launches(fa):
-    return {"fwd": fa.launches, "fwd_tc": fa.fwd_tc_launches,
+    return {"fwd_tf32": fa.fwd_tf32_launches, "fwd_tc": fa.fwd_tc_launches,
             "fwd_tc_stochastic": fa.fwd_tc_stochastic_launches}
 
 
 def _bwd_launches(fa):
-    return {"delta": fa.bwd_delta_launches, "dq": fa.bwd_dq_launches,
-            "dkv": fa.bwd_dkv_launches, "dq_tc": fa.bwd_dq_tc_launches,
+    return {"delta": fa.bwd_delta_launches, "dq_tf32": fa.bwd_dq_tf32_launches,
+            "dkv_tf32": fa.bwd_dkv_tf32_launches, "dq_tc": fa.bwd_dq_tc_launches,
             "dkv_tc": fa.bwd_dkv_tc_launches, "dq_tc_stochastic": fa.bwd_dq_tc_stochastic_launches,
             "dkv_tc_stochastic": fa.bwd_dkv_tc_stochastic_launches}
 
@@ -1824,7 +1897,7 @@ def phase_scoring(torch, ctx):
     want = path_launches(flash_launches, cfg.n_layer, FWD_PATH["float32"])
     check(flash_launches == want, f"flash launches {flash_launches}, expected {want}")
     check(not any(bwd_launches.values()), f"no_grad scoring ran the backward: {bwd_launches}")
-    ctx["flash"]["launches"] = flash_launches["fwd"]
+    ctx["flash"]["launches"] = flash_launches["fwd_tf32"]
 
 
 def phase_serving(torch, ctx):
@@ -1963,7 +2036,7 @@ def phase_training(torch, ctx):
     expected = path_launches(launches, 5 * cfg.n_layer, _flash_path("float32"))
     check(launches == expected, f"launches over 5 fp32 micro-steps {launches}, expected {expected}")
     check(not any(plain_launches.values()), f"plain path launched kernels: {plain_launches}")
-    for n in ("dq", "dkv"):  # the CUDA-core kernels' main path
+    for n in BWD_TF32_KERNELS:  # the 3xTF32 kernels' main path
         ctx[f"bwd_{n}"]["launches"] = launches[n]
     torch.cuda.empty_cache()
 
@@ -2010,18 +2083,24 @@ def phase_training(torch, ctx):
     torch.cuda.empty_cache()
     train5b_batch = batch
 
-    # (c) gas 2 x micro 4 and gas 1 x micro 8 over the same 8 rows (fp32)
+    # (c) gas 2 x micro 4 and gas 1 x micro 8 over the same 8 rows (fp32):
+    # three micro-steps, each through the 3xTF32 flash kernels
     rows = rng.integers(0, V, (8, 512)).astype(np.int32)
     e_gas = _engine(_train_config(4, gas=2), cfg)
+    fa, _ = _reset_counts()  # the fp32 accumulation main path
     n_gas = e_gas.train_batch({"input_ids": rows.reshape(2, 4, 512)})["grad_norm"].item()
     del e_gas
     e_one = _engine(_train_config(8), cfg)
     n_one = e_one.train_batch({"input_ids": rows})["grad_norm"].item()
+    torch.cuda.synchronize()
+    launches = _flash_launches(fa)
     del e_one
     torch.cuda.empty_cache()
     log(f"phase5c grad_norm gas2 x micro4={n_gas:.6f} gas1 x micro8={n_one:.6f} "
-        f"rel_diff={abs(n_gas - n_one) / n_one:.3e}")
+        f"rel_diff={abs(n_gas - n_one) / n_one:.3e} launches over 3 micro-steps={launches}")
     check(abs(n_gas - n_one) <= 1e-3 * n_one, f"gas grad norms differ: {n_gas} vs {n_one}")
+    expected = path_launches(launches, 3 * cfg.n_layer, _flash_path("float32"))
+    check(launches == expected, f"5c launches {launches}, expected {expected}")
 
     # (d) stochastic_mode: 5b's configuration and batch with
     # GPTConfig.stochastic_mode, 5 steps through the single-cast instances
@@ -3051,16 +3130,18 @@ def main() -> int:
                          timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
     kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda", "source": FLASH_SRC,
+        {"name": "flash_attention_fwd_tf32", "route": "cuda", "source": FLASH_TF32_SRC,
          "replaces": FLASH_TPU, **ctx["flash"]},
         {"name": "flash_attention_fwd_tc", "route": "cuda", "source": FLASH_TC_SRC,
          "replaces": FLASH_TPU, **ctx["flash_tc"]},
         {"name": "decode_attention", "route": "cuda", "source": DECODE_SRC,
          "replaces": DECODE_TPU, **ctx["decode"]},
-    ] + [{"name": f"flash_attention_bwd_{n}", "route": "cuda", "source": FLASH_BWD_SRC,
-          "replaces": BWD_TPU[n], **ctx[f"bwd_{n}"]} for n in BWD_KERNELS] + [
+        {"name": "flash_attention_bwd_delta", "route": "cuda", "source": FLASH_BWD_SRC,
+         "replaces": BWD_TPU["delta"], **ctx["bwd_delta"]},
+    ] + [{"name": f"flash_attention_bwd_{n}", "route": "cuda", "source": FLASH_BWD_TF32_SRC,
+          "replaces": BWD_TPU[n.split("_")[0]], **ctx[f"bwd_{n}"]} for n in BWD_TF32_KERNELS] + [
         {"name": f"flash_attention_bwd_{n}", "route": "cuda", "source": FLASH_BWD_TC_SRC,
-         "replaces": BWD_TPU[n[:-3]], **ctx[f"bwd_{n}"]} for n in BWD_TC_KERNELS] + [
+         "replaces": BWD_TPU[n.split("_")[0]], **ctx[f"bwd_{n}"]} for n in BWD_TC_KERNELS] + [
         {"name": "paged_decode_attention" + ("" if kind == "dense" else f"_{kind}"),
          "route": "cuda", "source": PAGED_SRC, "replaces": PAGED_TPU[kind],
          **ctx[f"paged_{kind}"]} for kind in PAGED_KINDS] + [

@@ -3,10 +3,10 @@
 //
 // Replaces, for 16-bit inputs, the TPU kernels _bwd_dq_kernel and
 // _bwd_dkv_kernel of deepspeed_tpu/ops/pallas/flash_attention.py (_bwd, the
-// pallas_calls at :291 and :309). fp32 inputs keep the CUDA-core kernels of
-// csrc/flash_attention_bwd.cu, and so does delta = rowsum(dO * O), which
-// both passes read. The function is that of the reference's _bwd_dq_kernel
-// and _bwd_dkv_kernel:
+// pallas_calls at :291 and :309). fp32 inputs take the 3xTF32 kernels of
+// csrc/flash_attention_bwd_tf32.cu; delta = rowsum(dO * O), which both passes
+// read, is the CUDA-core kernel of csrc/flash_attention_bwd.cu. The
+// function is that of the reference's _bwd_dq_kernel and _bwd_dkv_kernel:
 //   P  = exp(scale * q k^T - lse)          (0 where the causal mask hides a key)
 //   dV = P^T dO,   dS = P * (dO v^T - delta) * scale,   dQ = dS k,   dK = dS^T q
 // with the causal mask aligned bottom-right (query row t sits at position
@@ -553,7 +553,7 @@ cudaError_t dispatch_mode(int D, int pass, const Args& a) {
 }
 
 cudaError_t dispatch(int dtype, int D, int pass, const Args& a) {
-  switch (dtype) {  // fp32 runs the CUDA-core kernels of flash_attention_bwd.cu
+  switch (dtype) {  // fp32 runs the 3xTF32 kernels of flash_attention_bwd_tf32.cu
     case ds::kBF16: return dispatch_mode<__nv_bfloat16>(D, pass, a);
     case ds::kF16: return dispatch_mode<__half>(D, pass, a);
     default: return cudaErrorInvalidValue;

@@ -3,8 +3,8 @@
 //
 // Replaces, for 16-bit inputs, the TPU kernel _fwd_kernel of
 // deepspeed_tpu/ops/pallas/flash_attention.py (_fwd, the pallas_call at :129).
-// fp32 inputs keep the CUDA-core kernel of csrc/flash_attention_fwd.cu. For
-// each (batch, head): o = softmax(scale q k^T + causal mask) v with the mask
+// fp32 inputs take the 3xTF32 kernel of csrc/flash_attention_fwd_tf32.cu.
+// For each (batch, head): o = softmax(scale q k^T + causal mask) v with the mask
 // aligned bottom-right (query row t sits at position t + S - T), an fp32
 // online softmax, l == 0 -> l_safe = 1, o cast to the input dtype and the
 // fp32 logsumexp of every row stored as [B*H, T] for the backward.
@@ -364,7 +364,7 @@ extern "C" int ds_flash_attention_fwd_tc(const void* q, const void* k, const voi
                                          float scale, int causal, int single, void* stream) {
   const Args a{q, k, v, o, lse, B, H, T, S, q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                v_sb, v_st, v_sh, scale, causal, static_cast<cudaStream_t>(stream)};
-  switch (dtype) {  // fp32 runs the CUDA-core kernel of flash_attention_fwd.cu
+  switch (dtype) {  // fp32 runs the 3xTF32 kernel of flash_attention_fwd_tf32.cu
     case ds::kBF16: return dispatch_mode<__nv_bfloat16>(single, D, a);
     case ds::kF16: return dispatch_mode<__half>(single, D, a);
     default: return cudaErrorInvalidValue;

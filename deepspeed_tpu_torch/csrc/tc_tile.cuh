@@ -5,7 +5,9 @@
 // shared memory and B MN-major) and the accumulator ->
 // A-fragment conversion (with the hi/lo split that keeps an fp32 operand to
 // ~2^-16, and for fp16 the running row scale that keeps the split above
-// fp16's subnormal range; or one cast, stochastic_mode's function).
+// fp16's subnormal range; or one cast, stochastic_mode's function); for
+// fp32 operands, the 3xTF32 pieces (section "tf32"): wgmma m64nNk8 tf32 over
+// split tiles and mma.sync m16n8k8 tf32 fed from accumulators.
 //
 // Tile layout. A [R][D] tile of 16-bit elements (R a multiple of 8, D a
 // multiple of 64; a head dim of 96 is kept as 128, kPadded, its last 32
@@ -312,6 +314,184 @@ template <> __device__ __forceinline__ void wgmma_rs_mn<__half>(float (&d)[32],
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : DS_TC_OUT32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// ----------------------------------------------------------------- tf32 (fp32 operands)
+// An fp32 tile [R][D] keeps the same panels: a 128-byte panel row holds 32
+// fp32 columns, so D / 32 panels (D 96: three, no zero-filled panel), and a
+// k8 step of a tf32 product spans 32 bytes, as a k16 step of a 16-bit one:
+// load_tile_async<float, R, D>, tile_offset and desc_kmajor serve unchanged.
+// For tf32, wgmma reads both shared-memory operands K-major only (the
+// transpose bits exist for f16 / bf16 alone); products whose B would be
+// MN-major run on mma.sync m16n8k8 instead, with B gathered per thread from
+// the same tiles (mma_acc_tf32x3).
+//
+// 3xTF32: a b = big_a big_b + big_a small_b + small_a big_b + O(2^-21 |a b|)
+// with big = tf32(x), small = tf32(x - big) (x - big is exact in fp32).
+
+// x rounded to TF32 (10 explicit mantissa bits; nearest, ties away from
+// zero): the value the tensor cores multiply, its low 13 bits zero.
+__device__ __forceinline__ float to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ float4 ld_shared16f(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(addr) : "memory");
+  return v;
+}
+
+// The 3xTF32 split of an fp32 tile of `bytes` bytes whose raw values lie at
+// `src`: big parts to `big`, small parts to `small`, in the same layout (src
+// may be either: each thread reads a 16-byte chunk before it writes it).
+// The layout is a bijection of 16-byte chunks, so a linear pass covers it.
+__device__ __forceinline__ void split_tile_tf32(uint32_t src, uint32_t big, uint32_t small,
+                                                int bytes, int tid, int nthreads) {
+  for (int off = tid * 16; off < bytes; off += nthreads * 16) {
+    const float4 x = ld_shared16f(src + off);
+    const float4 b = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
+    const float4 s = make_float4(to_tf32(x.x - b.x), to_tf32(x.y - b.y), to_tf32(x.z - b.z),
+                                 to_tf32(x.w - b.w));
+    st_shared16(big + off, make_uint4(__float_as_uint(b.x), __float_as_uint(b.y),
+                                      __float_as_uint(b.z), __float_as_uint(b.w)));
+    st_shared16(small + off, make_uint4(__float_as_uint(s.x), __float_as_uint(s.y),
+                                        __float_as_uint(s.z), __float_as_uint(s.w)));
+  }
+}
+
+#define DS_TC_ACC16                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define DS_TC_OUT16(d)                                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+  "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),          \
+  "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d (64 x N fp32, N 32 or 64) = [d +] A B for one k8 step, A and B tf32
+// K-major in shared memory. `accumulate` 0 ignores d's old value.
+template <int N> __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
+                                                            uint64_t db, int accumulate);
+
+template <> __device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], uint64_t da,
+                                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " DS_TC_ACC32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : DS_TC_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <> __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], uint64_t da,
+                                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " DS_TC_ACC16
+      ", %16, %17, p, 1, 1;\n}\n"
+      : DS_TC_OUT16(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef DS_TC_ACC16
+#undef DS_TC_OUT16
+
+// d (64 x N) [+]= a b in 3xTF32 over K = 8 * ksteps: a (64 rows) and b (N
+// rows) K-major fp32 tiles split into big and small parts (split_tile_tf32);
+// per k step small_a big_b, big_a small_b, then big_a big_b. One commit
+// group's worth of wgmma; the caller fences and commits.
+template <int N, int RA, int RB>
+__device__ __forceinline__ void wgmma_tf32x3(float (&d)[N / 2], uint32_t a, uint32_t a_small,
+                                             uint32_t b, uint32_t b_small, int ksteps) {
+#pragma unroll
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const uint64_t da = desc_kmajor<RA>(a, ks), db = desc_kmajor<RB>(b, ks);
+    wgmma_tf32<N>(d, desc_kmajor<RA>(a_small, ks), db, ks > 0);
+    wgmma_tf32<N>(d, da, desc_kmajor<RB>(b_small, ks), 1);
+    wgmma_tf32<N>(d, da, db, 1);
+  }
+}
+
+// d (16 x 8 fp32) += a (16 x 8) b (8 x 8), tf32, one warp (mma.sync: HMMA).
+// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g,
+// t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); d0, d1 (g,
+// 2 t, 2 t + 1), d2, d3 (g + 8, 2 t, 2 t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], float b0,
+                                         float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// The mma.sync A fragments (big, small) of k step kk of a wgmma fp32
+// accumulator x (the warp's 16 rows; columns [8 kk, 8 kk + 8)). The thread
+// holds columns 8 kk + 2 t and 8 kk + 2 t + 1 of its rows g and g + 8, and
+// they become the fragment's k indices t and t + 4 as they lie: k index c of
+// the step stands for column 8 kk + 2 c (c < 4) or 8 kk + 2 (c - 4) + 1, and B
+// is read in the same order (b_offset_tf32). No shuffle is needed.
+template <int N>
+__device__ __forceinline__ void acc_to_a_tf32(const float (&x)[N], int kk, uint32_t (&big)[4],
+                                              uint32_t (&small)[4]) {
+  const float v[4] = {x[4 * kk], x[4 * kk + 2], x[4 * kk + 1], x[4 * kk + 3]};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float b = to_tf32(v[j]);
+    big[j] = __float_as_uint(b);
+    small[j] = __float_as_uint(to_tf32(v[j] - b));
+  }
+}
+
+// Byte offset, in a swizzled fp32 tile of R rows (rows are the product's K),
+// of B fragment element b0 (half 0: row 8 kk + 2 t) or b1 (half 1: row
+// 8 kk + 2 t + 1) of n tile j (column 8 j + g), in acc_to_a_tf32's k order.
+// A warp's 32 loads hit 32 banks: the swizzle spreads the four rows' chunks.
+template <int R>
+__device__ __forceinline__ uint32_t b_offset_tf32(int kk, int j, int lane, int half) {
+  const int row = 8 * kk + 2 * (lane & 3) + half, col = 8 * j + (lane >> 2);
+  return tile_offset<R>(row, col >> 2) + (col & 3) * 4;
+}
+
+// acc (NT n tiles of 16 x 8) += x B in 3xTF32 over K = 8 * ksteps: x a
+// warp's 16 rows of a wgmma accumulator (acc_to_a_tf32), B an fp32 tile of R
+// rows (K) split into big and small parts (columns are N), given by generic
+// pointers into shared memory (plain 4-byte loads: the compiler may batch
+// them between barriers, and keeps them inside). acc[j] holds columns
+// 8 j .. 8 j + 7 as a wgmma accumulator's entries 4 j .. 4 j + 3.
+template <int R, int NT, int N>
+__device__ __forceinline__ void mma_acc_tf32x3(float (&acc)[NT][4], const float (&x)[N],
+                                               const unsigned char* b,
+                                               const unsigned char* b_small, int ksteps,
+                                               int lane) {
+#pragma unroll
+  for (int kk = 0; kk < ksteps; ++kk) {
+    uint32_t ab[4], as[4];
+    acc_to_a_tf32(x, kk, ab, as);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const uint32_t o0 = b_offset_tf32<R>(kk, j, lane, 0), o1 = b_offset_tf32<R>(kk, j, lane, 1);
+      const float b0 = *reinterpret_cast<const float*>(b + o0);
+      const float b1 = *reinterpret_cast<const float*>(b + o1);
+      const float s0 = *reinterpret_cast<const float*>(b_small + o0);
+      const float s1 = *reinterpret_cast<const float*>(b_small + o1);
+      mma_tf32(acc[j], as, b0, b1);
+      mma_tf32(acc[j], ab, s0, s1);
+      mma_tf32(acc[j], ab, b0, b1);
+    }
+  }
+}
+
+// Row r (0: g, 1: g + 8) of a warp's mma_acc_tf32x3 accumulator, times f,
+// into `row` (the output row's column 0): columns 8 j + 2 t, + 1 as float2s.
+template <int NT>
+__device__ __forceinline__ void store_acc_tf32(float* row, const float (&acc)[NT][4], int r,
+                                               float f, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    *reinterpret_cast<float2*>(row + 8 * j + 2 * (lane & 3)) =
+        make_float2(acc[j][2 * r] * f, acc[j][2 * r + 1] * f);
 }
 
 #undef DS_TC_ACC32

@@ -1,14 +1,15 @@
 """Flash attention: the hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``. The forward
-(``_fwd`` / ``_fwd_kernel``, B1) is ``csrc/flash_attention_fwd_tc.cu`` on the
-tensor cores for bf16 / fp16 inputs and ``csrc/flash_attention_fwd.cu`` on
-the CUDA cores for fp32. The backward (``_bwd``: ``_bwd_delta_kernel``,
-``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, B2) is ``csrc/flash_attention_bwd.cu``
-for fp32 inputs and, for dq and dk/dv on bf16 / fp16 inputs, the tensor-core
-kernels of ``csrc/flash_attention_bwd_tc.cu`` (delta stays on the first
-source in every dtype). Each source's header says how it is split and what
-bounds it. :class:`FlashAttention` is the counterpart of the reference's
+Counterpart of ``deepspeed_tpu/ops/pallas/flash_attention.py``. Every kernel
+runs on the tensor cores but delta (:func:`flash_route`): the forward
+(``_fwd`` / ``_fwd_kernel``, B1) is ``csrc/flash_attention_fwd_tc.cu`` for
+bf16 / fp16 inputs and ``csrc/flash_attention_fwd_tf32.cu`` (3xTF32: each
+fp32 product as three TF32 passes, which keeps the fp32 function) for fp32;
+the backward's dq and dk/dv (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``, B2) are
+``csrc/flash_attention_bwd_tc.cu`` and ``csrc/flash_attention_bwd_tf32.cu``
+likewise, and delta (``_bwd_delta_kernel``) is the CUDA-core kernel of
+``csrc/flash_attention_bwd.cu`` in every dtype. Each source's header says
+how it is split and what bounds it. :class:`FlashAttention` is the counterpart of the reference's
 ``jax.custom_vjp`` around ``_flash``: it saves (q, k, v, o, lse) in the
 forward and runs the three backward kernels.
 
@@ -39,18 +40,21 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 96, 128)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+# the kernels' route by input dtype (flash_route): "tf32" the 3xTF32
+# kernels for fp32, "tc" the 16-bit tensor-core kernels
+ROUTES = {torch.float32: "tf32", torch.bfloat16: "tc", torch.float16: "tc"}
+
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
-# them to show that the main path went through the kernels): the forward and
-# the backward's delta, dq and dk/dv passes on fp32 inputs (the CUDA-core
-# kernels; delta in every dtype); the _tc counters are the tensor-core
-# kernels that bf16 / fp16 inputs take, the _tc_stochastic counters their
-# single-cast instances (stochastic_mode)
-launches = 0
+# them to show that the main path went through the kernels): the forward,
+# dq and dk/dv by route (_tf32 for fp32, _tc for bf16 / fp16, _tc_stochastic
+# the 16-bit kernels' single-cast instances, stochastic_mode) and the
+# backward's delta in every dtype
+fwd_tf32_launches = 0
 fwd_tc_launches = 0
 fwd_tc_stochastic_launches = 0
 bwd_delta_launches = 0
-bwd_dq_launches = 0
-bwd_dkv_launches = 0
+bwd_dq_tf32_launches = 0
+bwd_dkv_tf32_launches = 0
 bwd_dq_tc_launches = 0
 bwd_dkv_tc_launches = 0
 bwd_dq_tc_stochastic_launches = 0
@@ -58,12 +62,12 @@ bwd_dkv_tc_stochastic_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention_fwd")
+def _fwd_tf32_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_fwd_tf32")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ds_flash_attention_fwd.argtypes = (
+    lib.ds_flash_attention_fwd_tf32.argtypes = (
         [ptr] * 5 + [i32] * 6 + [i64] * 9 + [ctypes.c_float, i32, ptr])
-    lib.ds_flash_attention_fwd.restype = i32
+    lib.ds_flash_attention_fwd_tf32.restype = i32
     return lib
 
 
@@ -78,17 +82,24 @@ def _fwd_tc_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_lib() -> ctypes.CDLL:
+def _delta_lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention_bwd")
-    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ds_flash_attention_bwd_delta.argtypes = [ptr] * 3 + [i32] * 5 + [i64] * 6 + [ptr]
-    lib.ds_flash_attention_bwd_dq.argtypes = (
+    lib.ds_flash_attention_bwd_delta.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_tf32_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd_tf32")
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.ds_flash_attention_bwd_dq_tf32.argtypes = (
         [ptr] * 7 + [i32] * 6 + [i64] * 12 + [f32, i32, ptr])
-    lib.ds_flash_attention_bwd_dkv.argtypes = (
+    lib.ds_flash_attention_bwd_dkv_tf32.argtypes = (
         [ptr] * 8 + [i32] * 6 + [i64] * 12 + [f32, i32, ptr])
-    for fn in (lib.ds_flash_attention_bwd_delta, lib.ds_flash_attention_bwd_dq,
-               lib.ds_flash_attention_bwd_dkv):
-        fn.restype = i32
+    lib.ds_flash_attention_bwd_dq_tf32.restype = i32
+    lib.ds_flash_attention_bwd_dkv_tf32.restype = i32
     return lib
 
 
@@ -220,6 +231,59 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _tiled_forward(q, k, v, causal, _scale(q, softmax_scale), False, split)
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 explicit
+    mantissa bits, to nearest with ties away from zero (half of the dropped
+    13 bits' weight added to the magnitude, then those bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(eq: str, a: torch.Tensor, b: torch.Tensor, passes: int = 3,
+             a_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``einsum(eq, a, b)`` as the fp32 kernels take it on the tensor cores:
+    with big = tf32(x) and small = tf32(x - big), 3xTF32 sums small_a big_b,
+    big_a small_b and big_a big_b (``passes`` 1: big_a big_b alone, one TF32
+    pass, for the tests). ``a_weight`` multiplies a's parts after the split
+    (the forward's per-tile rescale of its fp32 accumulator)."""
+    a, b = a.float(), b.float()
+    ab, bb = _tf32(a), _tf32(b)
+    w = 1.0 if a_weight is None else a_weight
+    out = torch.einsum(eq, ab * w, bb)
+    if passes == 3:
+        out = (torch.einsum(eq, _tf32(a - ab) * w, bb) + torch.einsum(eq, ab * w, _tf32(b - bb))
+               + out)
+    elif passes != 1:
+        raise ValueError(f"_mm_tf32: passes {passes} (3, or 1 for the tests)")
+    return out
+
+
+def flash_attention_tf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             causal: bool = True, softmax_scale: Optional[float] = None,
+                             passes: int = 3) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fp32 kernel's arithmetic (3xTF32, for the tests;
+    the CPU path runs :func:`flash_attention_ref`): S = q k^T in
+    :func:`_mm_tf32` times the scale, each 64-key tile's P = exp(s - m_t)
+    relative to the row's running maximum, P V in :func:`_mm_tf32` with P
+    weighted by exp(m_t - m) after its split, as the kernel rescales its
+    accumulator. ``passes`` 1 is one TF32 pass, which the fp32 bars must
+    refuse. Returns (o fp32, lse [B*H, T] fp32)."""
+    B, T, H, _ = q.shape
+    S = k.shape[1]
+    s = _mm_tf32("bthd,bshd->bhts", q, k, passes) * _scale(q, softmax_scale)
+    visible = _visible(T, S, causal, q.device)
+    if visible is not None:
+        s = s.masked_fill(~visible, NEG_INF)
+    m_t = _running_tile_max(s)
+    m = m_t[..., -1:]
+    p = torch.exp(s - m_t)
+    w = torch.exp(m_t - m)
+    l = (p * w).sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = _mm_tf32("bhts,bshd->bthd", p, v, passes, a_weight=w / l_safe)
+    return o, (m + torch.log(l_safe)).reshape(B * H, T)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention: q, k, v must be [B, T, H, D] / [B, S, H, D]")
@@ -244,17 +308,31 @@ def _readable(t: torch.Tensor) -> bool:
             and not any((s * es) % 16 for s in t.stride()[:3]))
 
 
-def _check_kernel_layout(*ts: torch.Tensor) -> None:
-    D = ts[0].shape[-1]
-    if D not in HEAD_DIMS:
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernels CUDA inputs of ``dtype`` and ``head_dim`` take: "tf32" (the
+    3xTF32 forward, dq and dk/dv for fp32) or "tc" (the 16-bit tensor-core
+    ones for bf16 / fp16), at every head dim the kernels are built for; delta
+    is the CUDA-core kernel on both routes. Other head dims raise
+    NotImplementedError, other dtypes TypeError: nothing falls back."""
+    if head_dim not in HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention kernel: head dim {D} (built for {HEAD_DIMS}, the head "
+            f"flash_attention kernel: head dim {head_dim} (built for {HEAD_DIMS}, the head "
             "dims of the reference's presets)")
+    if dtype not in ROUTES:
+        raise TypeError(f"flash_attention kernel: dtype {dtype} (built for {tuple(ROUTES)})")
+    return ROUTES[dtype]
+
+
+def _check_kernel_layout(*ts: torch.Tensor) -> str:
+    """The route of ``ts[0]``'s dtype and head dim (:func:`flash_route`), after
+    checking that the kernels can read every tensor of ``ts``."""
+    route = flash_route(ts[0].dtype, ts[0].shape[-1])
     for t in ts:
         if not _readable(t):
             raise ValueError("flash_attention kernel: the head dim must be contiguous and "
                              f"rows 16-byte aligned (strides {t.stride()}, element size "
                              f"{t.element_size()})")
+    return route
 
 
 def _stream() -> int:
@@ -267,9 +345,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, T, H, D], k/v [B, S, H, D] -> (o [B, T, H, D] in q's dtype,
     lse [B*H, T] fp32). Causal masking is aligned bottom-right: query row t
     sees keys up to t + S - T. On CUDA, bf16 / fp16 launch the tensor-core
-    kernel (its single-cast instance with ``stochastic``), fp32 the
-    CUDA-core kernel."""
-    global launches, fwd_tc_launches, fwd_tc_stochastic_launches
+    kernel (its single-cast instance with ``stochastic``), fp32 the 3xTF32
+    one (:func:`flash_route`)."""
+    global fwd_tf32_launches, fwd_tc_launches, fwd_tc_stochastic_launches
     _check(q, k, v)
     scale = _scale(q, softmax_scale)
     stochastic = _stochastic(q, stochastic)
@@ -277,28 +355,28 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_ref(q, k, v, causal, scale, stochastic)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check_kernel_layout(q, k, v)
+    route = _check_kernel_layout(q, k, v)
     B, T, H, D = q.shape
     S = k.shape[1]
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    tc = q.dtype != torch.float32
-    lib = _fwd_tc_lib() if tc else _lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             B, H, T, S, D, DTYPE_CODE[q.dtype],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale, int(bool(causal)))
     with torch.cuda.device(q.device):
-        if tc:
+        if route == "tc":
+            lib = _fwd_tc_lib()
             status = lib.ds_flash_attention_fwd_tc(*args, int(stochastic), _stream())
         else:
-            status = lib.ds_flash_attention_fwd(*args, _stream())
-    _build.check(lib, status, "flash_attention_fwd" + ("_tc" if tc else ""))
+            lib = _fwd_tf32_lib()
+            status = lib.ds_flash_attention_fwd_tf32(*args, _stream())
+    _build.check(lib, status, f"flash_attention_fwd_{route}")
     if stochastic:
         fwd_tc_stochastic_launches += 1
-    elif tc:
+    elif route == "tc":
         fwd_tc_launches += 1
     else:
-        launches += 1
+        fwd_tf32_launches += 1
     return o, lse
 
 
@@ -438,6 +516,32 @@ def flash_attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_tf32_ref(q, k, v, o, lse, do, causal: bool = True,
+                                 softmax_scale: Optional[float] = None, passes: int = 3
+                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the fp32 backward kernels' arithmetic (3xTF32, for
+    the tests; the CPU path runs :func:`flash_attention_bwd_ref`): every
+    product of the backward (q k^T scored as the forward scores it, dO v^T,
+    P^T dO, dS k, dS^T q) in :func:`_mm_tf32`; delta is the fp32 rowsum of
+    the CUDA-core kernel. ``passes`` 1 is one TF32 pass. Returns (dq, dk, dv)
+    fp32."""
+    B, T, H, _ = q.shape
+    S = k.shape[1]
+    scale = _scale(q, softmax_scale)
+    delta = flash_attention_bwd_delta_ref(o, do)
+    s = _mm_tf32("bthd,bshd->bhts", q, k, passes) * scale
+    p = torch.exp(s - lse.reshape(B, H, T, 1))
+    visible = _visible(T, S, causal, q.device)
+    if visible is not None:
+        p = p.masked_fill(~visible, 0.0)
+    dp = _mm_tf32("bthd,bshd->bhts", do, v, passes)
+    ds = p * (dp - delta.reshape(B, H, T, 1)) * scale
+    dv = _mm_tf32("bhts,bthd->bshd", p, do, passes)
+    dk = _mm_tf32("bhts,bthd->bshd", ds, q, passes)
+    dq = _mm_tf32("bhts,bshd->bthd", ds, k, passes)
+    return dq, dk, dv
+
+
 def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(dO * O) as [B*H, T] fp32 (the delta kernel)."""
     global bwd_delta_launches
@@ -446,7 +550,7 @@ def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor
     _check_kernel_layout(o, do)
     B, T, H, D = o.shape
     delta = torch.empty((B * H, T), dtype=torch.float32, device=o.device)
-    lib = _bwd_lib()
+    lib = _delta_lib()
     with torch.cuda.device(o.device):
         status = lib.ds_flash_attention_bwd_delta(
             o.data_ptr(), do.data_ptr(), delta.data_ptr(), B, H, T, D, DTYPE_CODE[o.dtype],
@@ -456,27 +560,23 @@ def flash_attention_bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor
     return delta
 
 
-def _bwd_route(q, k, v, do) -> Tuple[ctypes.CDLL, bool]:
-    """The library of a dq or dk/dv launch on CUDA tensors: the tensor-core
-    kernels for bf16 / fp16, the CUDA-core kernels for fp32."""
-    _check_kernel_layout(q, k, v, do)
+def _bwd_route(q, k, v, do) -> str:
+    """The route of a dq or dk/dv launch on CUDA tensors (:func:`flash_route`)."""
     if not (q.dtype == k.dtype == v.dtype == do.dtype):
         raise TypeError(f"flash_attention backward: q/k/v/dO dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}/{do.dtype} differ")
-    tc = q.dtype in (torch.bfloat16, torch.float16)
-    return (_bwd_tc_lib() if tc else _bwd_lib()), tc
+    return _check_kernel_layout(q, k, v, do)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
                            stochastic: bool = False) -> torch.Tensor:
     """dq [B, T, H, D] in q's dtype (the dq kernel: tensor cores for bf16 /
-    fp16, their single-cast instance with ``stochastic``; CUDA cores for
-    fp32)."""
-    global bwd_dq_launches, bwd_dq_tc_launches, bwd_dq_tc_stochastic_launches
+    fp16, their single-cast instance with ``stochastic``; 3xTF32 for fp32)."""
+    global bwd_dq_tf32_launches, bwd_dq_tc_launches, bwd_dq_tc_stochastic_launches
     stochastic = _stochastic(q, stochastic)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale, stochastic)
-    lib, tc = _bwd_route(q, k, v, do)
+    route = _bwd_route(q, k, v, do)
     B, T, H, D = q.shape
     S = k.shape[1]
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
@@ -485,30 +585,32 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             scale, int(bool(causal)))
     with torch.cuda.device(q.device):
-        if tc:
+        if route == "tc":
+            lib = _bwd_tc_lib()
             status = lib.ds_flash_attention_bwd_dq_tc(*args, int(stochastic), _stream())
         else:
-            status = lib.ds_flash_attention_bwd_dq(*args, _stream())
-    _build.check(lib, status, "flash_attention_bwd_dq" + ("_tc" if tc else ""))
+            lib = _bwd_tf32_lib()
+            status = lib.ds_flash_attention_bwd_dq_tf32(*args, _stream())
+    _build.check(lib, status, f"flash_attention_bwd_dq_{route}")
     if stochastic:
         bwd_dq_tc_stochastic_launches += 1
-    elif tc:
+    elif route == "tc":
         bwd_dq_tc_launches += 1
     else:
-        bwd_dq_launches += 1
+        bwd_dq_tf32_launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
                             stochastic: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B, S, H, D] in k's dtype (the dk/dv kernel: tensor cores for
-    bf16 / fp16, their single-cast instance with ``stochastic``; CUDA cores
-    for fp32)."""
-    global bwd_dkv_launches, bwd_dkv_tc_launches, bwd_dkv_tc_stochastic_launches
+    bf16 / fp16, their single-cast instance with ``stochastic``; 3xTF32 for
+    fp32)."""
+    global bwd_dkv_tf32_launches, bwd_dkv_tc_launches, bwd_dkv_tc_stochastic_launches
     stochastic = _stochastic(q, stochastic)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale, stochastic)
-    lib, tc = _bwd_route(q, k, v, do)
+    route = _bwd_route(q, k, v, do)
     B, T, H, D = q.shape
     S = k.shape[1]
     dk = torch.empty((B, S, H, D), dtype=k.dtype, device=k.device)
@@ -519,17 +621,19 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             scale, int(bool(causal)))
     with torch.cuda.device(q.device):
-        if tc:
+        if route == "tc":
+            lib = _bwd_tc_lib()
             status = lib.ds_flash_attention_bwd_dkv_tc(*args, int(stochastic), _stream())
         else:
-            status = lib.ds_flash_attention_bwd_dkv(*args, _stream())
-    _build.check(lib, status, "flash_attention_bwd_dkv" + ("_tc" if tc else ""))
+            lib = _bwd_tf32_lib()
+            status = lib.ds_flash_attention_bwd_dkv_tf32(*args, _stream())
+    _build.check(lib, status, f"flash_attention_bwd_dkv_{route}")
     if stochastic:
         bwd_dkv_tc_stochastic_launches += 1
-    elif tc:
+    elif route == "tc":
         bwd_dkv_tc_launches += 1
     else:
-        bwd_dkv_launches += 1
+        bwd_dkv_tf32_launches += 1
     return dk, dv
 
 
@@ -540,8 +644,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """The backward from the forward's saved (q, k, v, o, lse [B*H, T]) and
     dO: (dq, dk, dv) in the shapes and dtypes of q, k, v. Three kernel
     launches on a CUDA device (delta, dq, dk/dv), the plain versions on the
-    CPU. dq and dk/dv run on the tensor cores for bf16 / fp16 inputs, with
-    ``stochastic`` their single-cast instances."""
+    CPU. dq and dk/dv run on the tensor cores (:func:`flash_route`), for
+    bf16 / fp16 inputs with ``stochastic`` their single-cast instances."""
     _check(q, k, v)
     if do.shape != q.shape or o.shape != q.shape or lse.shape != (q.shape[0] * q.shape[2],
                                                                   q.shape[1]):

@@ -55,10 +55,10 @@ def test_multihead_attention_dispatch_on_cpu(use_flash):
     ref = jax_attention.multihead_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
         use_flash=use_flash, block_q=128, block_k=128)
-    launches = fa.launches
+    launches = fa.fwd_tf32_launches
     out = attention.multihead_attention(*map(torch.from_numpy, (q, k, v)), causal=True,
                                         use_flash=use_flash)
-    assert fa.launches == launches  # no kernel runs for CPU tensors
+    assert fa.fwd_tf32_launches == launches  # no kernel runs for CPU tensors
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
@@ -90,7 +90,7 @@ def test_stochastic_mode_runs_on_cpu_as_the_single_cast_version(dtype):
     launching no kernel."""
     q, k, v = (torch.from_numpy(x).to(dtype) for x in _qkv(128, 128, seed=4))
     do = torch.from_numpy(_qkv(128, 128, seed=5)[0]).to(dtype)
-    counters = [getattr(fa, c) for c in ("launches", "fwd_tc_launches",
+    counters = [getattr(fa, c) for c in ("fwd_tf32_launches", "fwd_tc_launches",
                                          "fwd_tc_stochastic_launches")]
     qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
     out = fa.flash_attention(qr, kr, vr, stochastic_mode=True)
@@ -99,6 +99,6 @@ def test_stochastic_mode_runs_on_cpu_as_the_single_cast_version(dtype):
     torch.testing.assert_close(out.detach(), o_ref, rtol=0, atol=0)
     for g, r in zip(grads, fa.flash_attention_bwd_ref(q, k, v, o_ref, lse, do, stochastic=True)):
         torch.testing.assert_close(g, r, rtol=0, atol=0)
-    assert [getattr(fa, c) for c in ("launches", "fwd_tc_launches",
+    assert [getattr(fa, c) for c in ("fwd_tf32_launches", "fwd_tc_launches",
                                      "fwd_tc_stochastic_launches")] == counters
 

@@ -231,7 +231,7 @@ def test_cpu_tensors_take_the_plain_versions(dtype):
     """On CPU tensors every backward wrapper runs its plain version, in every
     dtype, and launches nothing: no kernel counter moves."""
     q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _inputs(64, 128, seed=4))
-    counters = ("bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches",
+    counters = ("bwd_delta_launches", "bwd_dq_tf32_launches", "bwd_dkv_tf32_launches",
                 "bwd_dq_tc_launches", "bwd_dkv_tc_launches")
     before = [getattr(fa, c) for c in counters]
     o, lse = fa.flash_attention_fwd(q, k, v, True)

@@ -41,9 +41,9 @@ def _normal(shape, device, dtype, seed):
     return torch.from_numpy(x).to(device, dtype)
 
 
-_FWD_COUNTERS = ("launches", "fwd_tc_launches", "fwd_tc_stochastic_launches")
+_FWD_COUNTERS = ("fwd_tf32_launches", "fwd_tc_launches", "fwd_tc_stochastic_launches")
 _FLASH_COUNTERS = _FWD_COUNTERS + (
-    "bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches", "bwd_dq_tc_launches",
+    "bwd_delta_launches", "bwd_dq_tf32_launches", "bwd_dkv_tf32_launches", "bwd_dq_tc_launches",
     "bwd_dkv_tc_launches", "bwd_dq_tc_stochastic_launches", "bwd_dkv_tc_stochastic_launches")
 
 
@@ -71,19 +71,27 @@ def _fused_qkv(T, S, H, D, device, dtype, seed):
                                           (256, 256, False, 64), (256, 256, True, 128),
                                           _d96(256, 256, True), _d96(100, 200, False)])
 def test_flash_kernel_matches_plain(cuda_device, dtype, atol, T, S, causal, D):
-    """B1 vs its plain version: fp32 launches the CUDA-core kernel
-    (``launches``), bf16 the tensor-core one (``fwd_tc_launches``)."""
+    """B1 vs its plain version: fp32 launches the 3xTF32 kernel
+    (``fwd_tf32_launches``), also within the fp32 bars of its CPU model
+    (``flash_attention_tf32_ref``) and bitwise on a re-run; bf16 the
+    tensor-core one (``fwd_tc_launches``)."""
     q = _normal((2, T, 3, D), cuda_device, dtype, 0)
     k = _normal((2, S, 3, D), cuda_device, dtype, 1)
     v = _normal((2, S, 3, D), cuda_device, dtype, 2)
     before = _counts(_FWD_COUNTERS)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    route = "launches" if dtype == torch.float32 else "fwd_tc_launches"
+    route = "fwd_tf32_launches" if dtype == torch.float32 else "fwd_tc_launches"
     assert _moved(before, _counts(_FWD_COUNTERS)) == {route: 1}
     o_ref, lse_ref = fa.flash_attention_ref(q, k, v, causal=causal)
     assert (o.float() - o_ref.float()).abs().max().item() <= atol
     assert (lse - lse_ref).abs().max().item() <= 1e-4
+    if dtype == torch.float32:
+        again, lse_again = fa.flash_attention_fwd(q, k, v, causal=causal)
+        assert torch.equal(o, again) and torch.equal(lse, lse_again)
+        o_model, lse_model = fa.flash_attention_tf32_ref(q, k, v, causal)
+        assert (o - o_model).abs().max().item() <= atol
+        assert (lse - lse_model).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
@@ -156,8 +164,10 @@ def test_flash_stochastic_kernels_match_single_cast_plain(cuda_device, dtype, T,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,stochastic,path", [
-    (torch.float32, False, ("launches", "bwd_dq_launches", "bwd_dkv_launches")),
-    (torch.float32, True, ("launches", "bwd_dq_launches", "bwd_dkv_launches")),
+    (torch.float32, False, ("fwd_tf32_launches", "bwd_dq_tf32_launches",
+                            "bwd_dkv_tf32_launches")),
+    (torch.float32, True, ("fwd_tf32_launches", "bwd_dq_tf32_launches",
+                           "bwd_dkv_tf32_launches")),
     (torch.bfloat16, False, ("fwd_tc_launches", "bwd_dq_tc_launches", "bwd_dkv_tc_launches")),
     (torch.bfloat16, True, ("fwd_tc_stochastic_launches", "bwd_dq_tc_stochastic_launches",
                             "bwd_dkv_tc_stochastic_launches")),
@@ -167,7 +177,7 @@ def test_flash_stochastic_kernels_match_single_cast_plain(cuda_device, dtype, T,
 ], ids=["fp32", "fp32-stochastic", "bf16", "bf16-stochastic", "fp16", "fp16-stochastic"])
 def test_flash_routes_by_dtype_and_mode(cuda_device, dtype, stochastic, path):
     """One forward and backward through FlashAttention launch exactly the
-    route's kernels once each (delta in every dtype): fp32 the CUDA-core
+    route's kernels once each (delta in every dtype): fp32 the 3xTF32
     kernels (stochastic_mode is the default function there), bf16 / fp16
     the tensor-core ones, their single-cast instances with stochastic_mode."""
     q, k, v = (_normal((2, 256, 4, 64), cuda_device, dtype, s).requires_grad_(True)
@@ -204,7 +214,7 @@ def test_decode_kernel_matches_plain(cuda_device, dtype, atol, Dh):
     assert torch.count_nonzero(da.decode_attention(q, k, v, lens)[0]) == 0
 
 
-_BWD_COUNTERS = ("bwd_delta_launches", "bwd_dq_launches", "bwd_dkv_launches",
+_BWD_COUNTERS = ("bwd_delta_launches", "bwd_dq_tf32_launches", "bwd_dkv_tf32_launches",
                  "bwd_dq_tc_launches", "bwd_dkv_tc_launches")
 
 
@@ -230,10 +240,11 @@ def test_flash_backward_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype
     """B2 (delta, dq, dk/dv) vs its plain version, with q/k/v read as views of
     one fused buffer, and two runs giving bitwise-equal gradients (no atomics).
     Tolerance relative to the largest gradient entry. bf16 / fp16 take the
-    tensor-core dq and dk/dv kernels (the _tc counters), fp32 the CUDA-core
-    ones; bf16 / fp16 gradients are within 2 ulps of their dtype of the fp32
-    plain version on entries of at least 1e-3 of the largest, where dV from
-    a single cast of P is not."""
+    tensor-core dq and dk/dv kernels (the _tc counters), fp32 the 3xTF32
+    ones (the _tf32 counters), also within the fp32 bar of their CPU model
+    (``flash_attention_bwd_tf32_ref``); bf16 / fp16 gradients are within 2
+    ulps of their dtype of the fp32 plain version on entries of at least
+    1e-3 of the largest, where dV from a single cast of P is not."""
     H = 3
     qkv = _normal((2, S, 3 * H * D), cuda_device, dtype, 6)
     k = qkv[..., H * D:2 * H * D].reshape(2, S, H, D)
@@ -246,7 +257,7 @@ def test_flash_backward_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype
     again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
     route = (("bwd_dq_tc_launches", "bwd_dkv_tc_launches") if dtype != torch.float32
-             else ("bwd_dq_launches", "bwd_dkv_launches"))
+             else ("bwd_dq_tf32_launches", "bwd_dkv_tf32_launches"))
     assert _bwd_counts() == {c: n + (2 if c in route or c == "bwd_delta_launches" else 0)
                              for c, n in before.items()}
     ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
@@ -259,6 +270,10 @@ def test_flash_backward_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype
             assert ulp_err(g, r, dtype) <= 2.0
     if dtype != torch.float32:
         assert ulp_err(_single_cast_dv(q, k, lse, do, causal), ref[2], dtype) > 2.0
+    else:
+        model = fa.flash_attention_bwd_tf32_ref(q, k, v, o, lse, do, causal)
+        for g, m in zip(grads, model):
+            assert (g - m).abs().max().item() <= rtol * m.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -298,7 +313,7 @@ def test_flash_autograd_function_on_the_card(cuda_device):
 @pytest.mark.cuda
 def test_flash_autograd_function_bf16_on_the_card(cuda_device):
     """bf16 gradients through FlashAttention take the tensor-core backward
-    (one launch of each _tc kernel, none of the CUDA-core dq / dk/dv) and
+    (one launch of each _tc kernel, none of the 3xTF32 dq / dk/dv) and
     equal autograd of the plain fp32 forward on the same bf16 inputs to
     2e-2 of the largest entry (both round the gradients to bf16)."""
     q, k, v = (_normal((2, 256, 4, 64), cuda_device, torch.bfloat16, s).requires_grad_(True)
@@ -310,7 +325,7 @@ def test_flash_autograd_function_bf16_on_the_card(cuda_device):
     torch.cuda.synchronize()
     after = _bwd_counts()
     assert {c: after[c] - before[c] for c in _BWD_COUNTERS} == {
-        "bwd_delta_launches": 1, "bwd_dq_launches": 0, "bwd_dkv_launches": 0,
+        "bwd_delta_launches": 1, "bwd_dq_tf32_launches": 0, "bwd_dkv_tf32_launches": 0,
         "bwd_dq_tc_launches": 1, "bwd_dkv_tc_launches": 1}
     q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
     ref = torch.autograd.grad(fa.flash_attention_ref(q32, k32, v32, True)[0], (q32, k32, v32),
