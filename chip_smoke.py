@@ -16,7 +16,8 @@ result line):
    D 64 / 96 / 128; B6/B7's: 8, bf16 / fp16 x int8 / int4 x 64 / 128 rows a
    block) has its instances and every one holds HGMMA instructions in its
    SASS (``cuobjdump -sass`` of the library), and so does each of B8's 3
-   tensor-core instances (fp32 / bf16 / fp16 x); every 3xTF32 instance also
+   tensor-core instances (fp32 / bf16 / fp16 x) and of B9's tensor-core
+   forward, dq and dk/dv (6 each: bf16 / fp16, D 64 / 96 / 128); every 3xTF32 instance also
    holds HMMA (``mma.sync``, its products with an MN-major B); B5's 36 bf16 /
    fp16 instances each hold HMMA and its 9 fp32 ones none.
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
@@ -71,7 +72,9 @@ result line):
    at Dh 96. B8 (the dequant-fused
    product of the quantized wire) at the LM head's shape (x [4096, 768],
    vocabulary 50304 padded to 197 blocks of 256; fp32 x, the main path,
-   and bf16 x), M = 1 and 37, an effective block of 96, a block of 128, the
+   and bf16 x), at phase 9d's head (x [32, 768] fp32: the CUDA-core route's
+   row, timed beside its plain version, cuBLAS fp32 over the dequantized
+   weight and its bound), M = 1 and 37, an effective block of 96, a block of 128, the
    [768, 2304] leaf and ragged D and F, each through its route
    (``dqm_route``: the tensor cores for the head and the leaf at 2048 rows,
    the CUDA cores for the rest, checked by the counters), bitwise on a
@@ -90,13 +93,21 @@ result line):
    kernel timed on the same inputs at every M and at the crossover rows 8-64
    (the speedup at M=256 against the target of 3, and against cuBLAS
    against 1.5, reported), with plain / cuBLAS / bound times. B9
-   (blocksparse attention: forward, dq with delta, dk/dv) over nine layouts
-   (the sparse GPT-2-125M's Fixed unidirectional layout of 128-blocks at
-   phase 10a's B2 x T1024 fp32 and 10b's B2 x T4096 bf16, the main-path
-   row; bench.py's bidirectional Fixed row at B4 x T1024 H16 under causal;
-   BigBird with a layout per head at block 64; Variable, BSLongformer and
-   LocalSlidingWindow at blocks 16 and 32; D128 non-causal; D96 at gpt2-760m's
-   16 heads, fp32 and bf16), the backward
+   (blocksparse attention: forward, dq with delta, dk/dv) over 21 cases, each
+   through its route (``bs_route``, checked by the counters: the tensor
+   cores for bf16 / fp16 at blocks 64 / 128, the CUDA cores for fp32 and
+   blocks 16 / 32): the sparse GPT-2-125M's Fixed unidirectional layout of
+   128-blocks at phase 10a's B2 x T1024 fp32 (the CUDA-core main-path row)
+   and 10b's B2 x T4096 bf16 (the tensor-core main-path row) and fp16;
+   bench.py's bidirectional Fixed row at B4 x T1024 H16 under causal;
+   BigBird with a layout per head at block 64 (fp32, bf16, fp16 D96);
+   Variable, BSLongformer and LocalSlidingWindow at blocks 16 and 32;
+   BSLongformer not causal at blocks 128 (bf16) and 64 (fp16 D96); D128 not
+   causal and D96 at gpt2-760m's 16 heads, fp32 and bf16; layouts with an
+   empty block row and column (zeros, lse -1e30); fp16 with dO 2^-8. The
+   tensor-core cases lie within 2 ulps of their dtype of the fp32 plain
+   versions (and, up to T 2048, of the split plain versions that model their
+   rounding) where a single cast of P must miss; the backward is
    bitwise on a re-run; its yardstick is one SDPA call with the layout
    expanded to a boolean [H, T, T] mask (mask construction excluded) and
    that call's backward, with B1 / B2's dense causal times beside it.
@@ -199,13 +210,15 @@ result line):
    length): the scoring loss through B9 equals its plain versions' (12
    forward launches, no B1); 5 ``train_batch`` steps (AdamW + clipping)
    through B9 and 5 with its plain versions in their places, from the same
-   seed and batches: losses and grad norms agree, and B9's forward, dq and
-   dk/dv launch 60 times each, B1/B2 never. (b) bf16 with the fp32 master
-   and ZeRO stage 2, B2 x T4096 (``max_seq_len=4096``), 10 steps on one
-   batch: the loss starts near ln(V) and falls; step time, host issue time,
+   seed and batches: losses and grad norms agree, and B9's CUDA-core
+   forward, dq and dk/dv launch 60 times each, its tensor-core kernels and
+   B1/B2 never. (b) bf16 with the fp32 master and ZeRO stage 2, B2 x T4096
+   (``max_seq_len=4096``), 10 steps on one batch: the loss starts near
+   ln(V) and falls, B9's tensor-core forward, dq and dk/dv launch 120 times
+   each and no other attention kernel; step time, host issue time,
    tokens/s, peak memory and a profile of one step, beside the same model
    with dense attention (B1/B2, B2's share of the busy time reported) at
-   the same shape (no gain claimed).
+   the same shape.
 
 11. head dim 96: ``PRESETS["gpt2-760m"]`` (d 1536, 16 heads of 96) at full
    width, depth cut to 4 of 24 layers: (a) fp32 scoring B4 x T512 (B1 =
@@ -217,8 +230,8 @@ result line):
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
-only, delta on both). The last lines are the card's name and power limit (nvidia-smi), a
-``{"kernels": [...]}`` line (23 kernels) and the ``{"ok": true, ...}`` line.
+only, delta on both; B9's by route). The last lines are the card's name and power limit
+(nvidia-smi), a ``{"kernels": [...]}`` line (26 kernels) and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -293,14 +306,18 @@ FWD_PATH = {"float32": ("fwd_tf32",), "bfloat16": ("fwd_tc",),
 # (HGMMA in SASS), and their instances
 # (flash: bf16 / fp16 x D 64 / 96 / 128 x the default and the single-cast
 # (stochastic_mode) function; flash 3xTF32: D 64 / 96 / 128; B6/B7: bf16 /
-# fp16 x int8 / int4 x 64 / 128 rows a block; B8: fp32 / bf16 / fp16 x)
+# fp16 x int8 / int4 x 64 / 128 rows a block; B8: fp32 / bf16 / fp16 x; B9:
+# bf16 / fp16 x D 64 / 96 / 128)
 TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel",), 12),
               "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"), 12),
               "flash_attention_fwd_tf32": (("flash_fwd_tf32_kernel",), 3),
               "flash_attention_bwd_tf32": (("flash_bwd_dq_tf32_kernel",
                                             "flash_bwd_dkv_tf32_kernel"), 3),
               "int8_matmul_tc": (("qmatmul_tc_kernel",), 8),
-              "dequant_matmul_tc": (("dequant_matmul_tc_kernel",), 3)}
+              "dequant_matmul_tc": (("dequant_matmul_tc_kernel",), 3),
+              "blocksparse_attention_fwd_tc": (("blocksparse_fwd_tc_kernel",), 6),
+              "blocksparse_attention_bwd_tc": (("blocksparse_bwd_dq_tc_kernel",
+                                                "blocksparse_bwd_dkv_tc_kernel"), 6)}
 # B5's mma.sync instances: bf16 / fp16 x D 64 / 96 / 128 x dense / int8 /
 # int4 x one or two 16-row m tiles hold HMMA; fp32's 9 (CUDA cores) none. An
 # instance's mangled name starts its template arguments with its type
@@ -346,11 +363,19 @@ DQM_TC_SRC = "deepspeed_tpu_torch/csrc/dequant_matmul_tc.cu"
 DQM_TPU = "deepspeed_tpu/ops/pallas/dequant_matmul.py:41"  # _kernel, call :86
 BS_FWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd.cu"
 BS_BWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_bwd.cu"
+BS_FWD_TC_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd_tc.cu"
+BS_BWD_TC_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_bwd_tc.cu"
 # B9: _fwd_kernel, _bwd_dq_kernel and _bwd_dkv_kernel (calls :186, :215, :239)
 BS_TPU = {"fwd": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:68",
           "dq": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:102",
           "dkv": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:133"}
 BS_KERNELS = ("fwd", "dq", "dkv")
+# B9's launch counters by route (ops/cuda/blocksparse_attention.py bs_route):
+# the CUDA cores for fp32 and blocks of 16 / 32, the tensor cores for bf16 /
+# fp16 at blocks of 64 / 128
+BS_COUNTERS = {"cuda": {"fwd": "launches", "dq": "bwd_dq_launches", "dkv": "bwd_dkv_launches"},
+               "tc": {"fwd": "tc_launches", "dq": "bwd_dq_tc_launches",
+                      "dkv": "bwd_dkv_tc_launches"}}
 # the sparse GPT-2-125M's layout (phases 2 and 10): Sparse Transformers'
 # fixed pattern, 4 local blocks of 128 and the last one of each window global
 SPARSE_GPT_LAYOUT = dict(num_heads=12, block=128, num_local_blocks=4, num_global_blocks=1,
@@ -865,13 +890,14 @@ def phase_kernels_flash_tc(torch, ctx, randn):
         torch.cuda.empty_cache()
 
 
-def dqm_bound(M, D, F, Fp, nb, elt, route="cuda_cores"):
+def dqm_bound(M, D, F, Fp, nb, elt, route="tensor_cores"):
     """Least time of one B8 product: x, the uint8 payload and its fp32
     scales and zero-points read once, the output written once; its
-    operations on the route's fastest units for the fp32-accurate function:
-    one fp32 pass (2 flops per multiply-add) at the fp32 peak on the CUDA
-    cores, three bf16 passes (x s as three exact parts against the exact q)
-    at the bf16 peak on the tensor cores."""
+    operations for the fp32-accurate function at the card's fastest rate,
+    three bf16 passes (x s as three exact parts against the exact q) at the
+    bf16 peak on the tensor cores, whichever route serves the case. With
+    ``route="cuda_cores"``: the CUDA cores' own ceiling, one fp32 pass (2
+    flops per multiply-add) at the fp32 peak."""
     nbytes = M * D * elt + D * Fp + 8 * D * nb + M * F * elt
     if route == "tensor_cores":
         return bound(nbytes, 3 * 2.0 * M * D * F, "bfloat16")
@@ -907,6 +933,7 @@ def phase_kernels_dequant(torch, ctx):
     V = 50304
     tc, cc = "tensor_cores", "cuda_cores"  # the route each case must take
     cases = [(4096, 768, V, 256, "float32", tc), (4096, 768, V, 256, "bfloat16", tc),
+             (32, 768, V, 256, "float32", cc),  # phase 9d's head: the CUDA-core route's row
              (1, 768, V, 256, "float32", cc), (37, 768, V, 256, "float32", cc),
              (64, 64, 96, 256, "float32", cc), (256, 768, 3072, 128, "float32", cc),
              (2048, 768, 2304, 256, "float32", tc), (2048, 768, 2304, 256, "bfloat16", tc),
@@ -937,7 +964,7 @@ def phase_kernels_dequant(torch, ctx):
         plain_rel64 = (ref.double() - exact).abs().max().item() / top
         del exact
         kernel_ms = timer.ms(lambda: dqm.dequant_matmul(x, q, s, z, orig_size=F), iters=7)
-        bound_ms, bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size(), route)
+        bound_ms, bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size())
         line = (f"phase2 dequant_matmul M{M} D{D} F{F} Fp{Fp} block{Fp // nb} {dt} "
                 f"route={route} launches(cuda_cores, tensor_cores)={moved}: "
                 f"max_abs_err={err:.3e} rel_err={rel:.3e} rel_err_vs_fp64={rel64:.3e} "
@@ -950,7 +977,7 @@ def phase_kernels_dequant(torch, ctx):
             core_rel64 = ((core.double() - _dqm_exact(torch, x, q, s, z, F)).abs().max().item()
                           / top)
             core_ms = timer.ms(lambda: dqm._launch(x, q, s, z, F, "cuda_cores"), iters=7)
-            core_bound_ms, core_bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size())
+            core_bound_ms, core_bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size(), cc)
             plain_ms = timer.ms(lambda: dqm.dequant_matmul_ref(x, q, s, z, orig_size=F), iters=7)
             library_ms = timer.ms(lambda: torch.matmul(x, w_hat), iters=7)
             deq_library_ms = timer.ms(
@@ -965,10 +992,24 @@ def phase_kernels_dequant(torch, ctx):
                      f"vs_cuBLAS_fp32={library_ms / kernel_ms:.2f}")
             ctx["dqm_tc"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                                  bound_ms=bound_ms, bound_by=bound_by)
-            ctx["dqm"] = dict(ms=core_ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=core_bound_ms, bound_by=core_bound_by,
-                              max_abs_err=(core.float() - ref.float()).abs().max().item())
+            worst["cuda_cores"] = max(worst["cuda_cores"],
+                                      (core.float() - ref.float()).abs().max().item())
             del w_hat, core
+        if (M, D, F, dt) == (32, 768, V, "float32"):  # the shape the CUDA-core route serves
+            w_hat = dequantize_blockwise(q, s, z, orig_size=F)
+            plain_ms = timer.ms(lambda: dqm.dequant_matmul_ref(x, q, s, z, orig_size=F), iters=7)
+            library_ms = timer.ms(lambda: torch.matmul(x, w_hat), iters=7)
+            deq_library_ms = timer.ms(
+                lambda: torch.matmul(x, dequantize_blockwise(q, s, z, orig_size=F)), iters=7)
+            core_bound_ms, core_bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size(), cc)
+            line += (f" plain_ms={plain_ms:.4f} library_ms(cuBLAS fp32, TF32 off, dequantize "
+                     f"excluded)={library_ms:.4f} dequantize+cuBLAS_ms={deq_library_ms:.4f} "
+                     f"kernel/cuBLAS={kernel_ms / library_ms:.2f} "
+                     f"kernel/bound={kernel_ms / bound_ms:.2f} "
+                     f"cuda_core_ceiling_ms={core_bound_ms:.4f} ({core_bound_by})")
+            ctx["dqm"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
+            del w_hat
         log(line)
         tag = f"dequant_matmul {M, D, F, block, dt}"
         want = (2, 0) if expect == cc else (0, 2)
@@ -1653,7 +1694,9 @@ def bs_bounds(B, T, H, D, pairs, dtype, elt):
 
 
 def _bs_cases():
-    """The B9 rows of phase 2: (label, layout, block, B, H, D, causal, dtype)."""
+    """The B9 rows of phase 2: (label, layout, block, B, H, D, causal, dtype,
+    dO scale). bf16 / fp16 at blocks of 64 / 128 take the tensor cores, the
+    rest the CUDA cores (``bs_route``)."""
     from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
                                                           BSLongformerSparsityConfig,
                                                           FixedSparsityConfig,
@@ -1663,68 +1706,110 @@ def _bs_cases():
     fixed = FixedSparsityConfig(**SPARSE_GPT_LAYOUT)
     fixed_d128 = FixedSparsityConfig(num_heads=8, block=128)
     fixed_d96 = FixedSparsityConfig(**{**SPARSE_GPT_LAYOUT, "num_heads": 16})
+    bigbird = BigBirdSparsityConfig(num_heads=12, block=64, different_layout_per_head=True,
+                                    attention="unidirectional").make_layout(1024)
+    # an empty block row (head 1) and an empty block column (head 0)
+    empty_128 = np.tril(np.ones((12, 8, 8), np.int64))
+    empty_128[1, 3] = 0
+    empty_128[0, :, 2] = 0
+    empty_64 = np.ones((12, 16, 16), np.int64)
+    empty_64[1, 5] = 0
+    empty_64[0, :, 9] = 0
     return [
-        # (i) phase 10a's shape; (ii) phase 10b's, the main-path row
-        ("fixed-uni-128 (10a)", fixed.make_layout(1024), 128, 2, 12, 64, True, "float32"),
+        # (i) phase 10a's shape (the CUDA-core main-path row); (ii) phase 10b's
+        # (the tensor-core main-path row), in bf16 and fp16
+        ("fixed-uni-128 (10a)", fixed.make_layout(1024), 128, 2, 12, 64, True, "float32", 1.0),
         ("fixed-uni-128 (10b, main path)", fixed.make_layout(4096), 128, 2, 12, 64, True,
-         "bfloat16"),
+         "bfloat16", 1.0),
+        ("fixed-uni-128 (10b)", fixed.make_layout(4096), 128, 2, 12, 64, True, "float16", 1.0),
         # (iii) bench.py's row: the bidirectional default under causal=True
         ("fixed-bi-128 bench", FixedSparsityConfig(num_heads=16, block=128).make_layout(1024),
-         128, 4, 16, 64, True, "bfloat16"),
+         128, 4, 16, 64, True, "bfloat16", 1.0),
         # (iv) a layout per head
-        ("bigbird-per-head-64", BigBirdSparsityConfig(
-            num_heads=12, block=64, different_layout_per_head=True,
-            attention="unidirectional").make_layout(1024), 64, 2, 12, 64, True, "float32"),
-        # (v) small blocks
+        ("bigbird-per-head-64", bigbird, 64, 2, 12, 64, True, "float32", 1.0),
+        ("bigbird-per-head-64", bigbird, 64, 2, 12, 64, True, "bfloat16", 1.0),
+        ("bigbird-per-head-64 D96", bigbird, 64, 2, 12, 96, True, "float16", 1.0),
+        # (v) small blocks (the CUDA cores in every dtype)
         ("variable-16", VariableSparsityConfig(
             num_heads=12, block=16, num_random_blocks=2, local_window_blocks=[4],
             global_block_indices=[0], attention="unidirectional").make_layout(512), 16, 2, 12,
-         64, True, "float32"),
+         64, True, "float32", 1.0),
         ("longformer-32", BSLongformerSparsityConfig(
             num_heads=12, block=32, num_sliding_window_blocks=5).make_layout(512), 32, 2, 12,
-         64, False, "float32"),
+         64, False, "float32", 1.0),
         ("sliding-16", LocalSlidingWindowSparsityConfig(
             num_heads=12, block=16, num_sliding_window_blocks=8).make_layout(512), 16, 2, 12, 64,
-         True, "bfloat16"),
+         True, "bfloat16", 1.0),
         ("sliding-32", LocalSlidingWindowSparsityConfig(
             num_heads=12, block=32, num_sliding_window_blocks=4).make_layout(512), 32, 2, 12, 64,
-         True, "float32"),
-        # (vi) head dim 128, not causal
+         True, "float32", 1.0),
+        # (vi) not causal, and head dim 128
+        ("longformer-128", BSLongformerSparsityConfig(num_heads=12, block=128)
+         .make_layout(2048), 128, 2, 12, 64, False, "bfloat16", 1.0),
+        ("longformer-64 D96", BSLongformerSparsityConfig(num_heads=12, block=64)
+         .make_layout(1024), 64, 2, 12, 96, False, "float16", 1.0),
         ("fixed-bi-128 D128 noncausal", fixed_d128.make_layout(1024), 128, 2, 8, 128, False,
-         "float32"),
+         "float32", 1.0),
+        ("fixed-bi-128 D128 noncausal", fixed_d128.make_layout(1024), 128, 2, 8, 128, False,
+         "bfloat16", 1.0),
         # (vii) head dim 96: the fixed pattern at gpt2-760m's width (H16)
-        ("fixed-uni-128 D96", fixed_d96.make_layout(1024), 128, 2, 16, 96, True, "float32"),
-        ("fixed-uni-128 D96", fixed_d96.make_layout(1024), 128, 2, 16, 96, True, "bfloat16"),
+        ("fixed-uni-128 D96", fixed_d96.make_layout(1024), 128, 2, 16, 96, True, "float32",
+         1.0),
+        ("fixed-uni-128 D96", fixed_d96.make_layout(1024), 128, 2, 16, 96, True, "bfloat16",
+         1.0),
+        # (viii) empty block rows and columns: o = 0, lse = -1e30, dq / dk / dv = 0
+        ("empty-row-col-128", empty_128, 128, 2, 12, 64, True, "bfloat16", 1.0),
+        ("empty-row-col-64", empty_64, 64, 2, 12, 64, False, "float16", 1.0),
+        # (ix) fp16 with small gradients (dS below fp16's normal range unless
+        # the kernels scale its rows)
+        ("fixed-uni-128 small dO", fixed.make_layout(1024), 128, 2, 12, 64, True, "float16",
+         2.0**-8),
+        ("bigbird-per-head-64 D96 small dO", bigbird, 64, 2, 12, 96, True, "float16", 2.0**-8),
     ]
+
+
+def _bs_counts(bs):
+    return {f"{route}_{n}": getattr(bs, c) for route, names in BS_COUNTERS.items()
+            for n, c in names.items()}
 
 
 def phase_kernels_blocksparse(torch, ctx, randn):
     """B9: the forward, dq and dk/dv kernels against their plain versions on
-    q/k/v views of one fused [B, T, 3HD] buffer, the backward twice (bitwise),
+    q/k/v views of one fused [B, T, 3HD] buffer, each case through its route
+    (``bs_route``, checked by the counters), the backward twice (bitwise),
     their times beside one SDPA call with the expanded boolean layout (and
     causal) mask (mask construction excluded) and its backward, and beside
-    B1 / B2's dense causal times at the same shape."""
+    B1 / B2's dense causal times at the same shape. The tensor-core cases
+    (bf16 / fp16 at blocks 64 / 128) are also held to at most 2 ulps of the
+    dtype of the fp32 plain versions on entries of at least 1e-3 of the
+    largest (and, up to T 2048, of the split plain versions that model their
+    rounding), where a single cast of P must miss that bar."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
     timer = ctx["timer"]
-    errs = {n: 0.0 for n in BS_KERNELS}
-    for label, layout, block, B, H, D, causal, dt in _bs_cases():
+    errs = {f"{route}_{n}": 0.0 for route in BS_COUNTERS for n in BS_KERNELS}
+    for label, layout, block, B, H, D, causal, dt, do_scale in _bs_cases():
         dtype = getattr(torch, dt)
+        route = bs.bs_route(dtype, block, D)
         T = layout.shape[1] * block
         qkv = randn((B, T, 3 * H * D), dtype)
         q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
-        do = randn((B, T, H, D), dtype)
+        do = randn((B, T, H, D), dtype) * do_scale
         tables = bs.device_tables(layout, "cuda")
         scale = 1.0 / math.sqrt(D)
+        before = _bs_counts(bs)
         o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
         first = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                              tables=tables)
         again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                              tables=tables)
         torch.cuda.synchronize()
+        counted = {c: n - before[c] for c, n in _bs_counts(bs).items()}
+        expected = {c: 0 for c in counted}
+        expected.update({f"{route}_fwd": 1, f"{route}_dq": 2, f"{route}_dkv": 2})
         bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
         o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
         dq_ref, delta = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block,
@@ -1736,9 +1821,36 @@ def phase_kernels_blocksparse(torch, ctx, randn):
         rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                for a, b in zip(first, ref)]
         absd = [(a.float() - b.float()).abs().max().item() for a, b in zip(first, ref)]
-        errs["fwd"] = max(errs["fwd"], o_err)
-        errs["dq"] = max(errs["dq"], absd[0])
-        errs["dkv"] = max(errs["dkv"], absd[1], absd[2])
+        ulps = split_ulps = cast_ulps = None
+        if route == "tc":  # the fp32 function, the split model and a single cast of P
+            ulps = [ulp_err(torch, o, o_ref, dtype)] + [ulp_err(torch, a, b, dtype)
+                                                        for a, b in zip(first, ref)]
+            p_cast = bs._probs(q, k, lse, layout, block, causal, scale).to(dtype).float()
+            dv_cast = torch.einsum("bhts,bthd->bshd", p_cast, do.float()).to(dtype)
+            cast_ulps = ulp_err(torch, dv_cast, ref[2], dtype)
+            del p_cast, dv_cast
+            if T <= 2048:
+                o_split, _ = bs.blocksparse_attention_split_ref(q, k, v, layout, block, causal)
+                split = bs.blocksparse_attention_bwd_split_ref(q, k, v, o, lse, do, layout,
+                                                               block, causal)
+                split_ulps = [ulp_err(torch, o, o_split, dtype)] + [
+                    ulp_err(torch, a, b, dtype) for a, b in zip(first, split)]
+                del o_split, split
+        errs[f"{route}_fwd"] = max(errs[f"{route}_fwd"], o_err)
+        errs[f"{route}_dq"] = max(errs[f"{route}_dq"], absd[0])
+        errs[f"{route}_dkv"] = max(errs[f"{route}_dkv"], absd[1], absd[2])
+        empty_ok = True
+        if label.startswith("empty"):  # the empty block row of head 1 and column of head 0
+            lay = np.asarray(layout)
+            row = int(np.nonzero(lay[1].sum(1) == 0)[0][0])
+            col = int(np.nonzero(lay[0].sum(0) == 0)[0][0])
+            rows = slice(row * block, (row + 1) * block)
+            cols = slice(col * block, (col + 1) * block)
+            empty_ok = bool((o[:, rows, 1] == 0).all() and (lse.view(B, H, T)[:, 1, rows]
+                                                             == -1e30).all()
+                            and (first[0][:, rows, 1] == 0).all()
+                            and (first[1][:, cols, 0] == 0).all()
+                            and (first[2][:, cols, 0] == 0).all())
         del o_ref, lse_ref, dq_ref, ref
 
         kernel_ms = {
@@ -1774,30 +1886,46 @@ def phase_kernels_blocksparse(torch, ctx, randn):
         pairs = bs_visible_pairs(layout, block, causal) * B
         bounds = bs_bounds(B, T, H, D, pairs, dt, q.element_size())
         log(f"phase2 blocksparse_attention {label} B{B} T{T} H{H} D{D} block{block} "
-            f"causal={causal} {dt}: active_blocks={int(np.asarray(layout).sum())} "
+            f"causal={causal} {dt} " + (f"dO_scale={do_scale} " if do_scale != 1.0 else "")
+            + f"route={route} launches={counted}: "
+            f"active_blocks={int(np.asarray(layout).sum())} "
             f"visible_pairs={pairs} o_err={o_err:.3e} lse_err={lse_err:.3e} "
             f"rel_err dq/dk/dv={rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} "
             f"max_abs_err dq/dk/dv={absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e} "
-            f"bitwise_rerun={bitwise} "
+            + (f"max_ulp_err o/dq/dk/dv={'/'.join(f'{u:.2f}' for u in ulps)} "
+               f"single_cast_dv_ulp_err={cast_ulps:.2f} " if ulps else "")
+            + (f"split_model_ulp_err o/dq/dk/dv={'/'.join(f'{u:.2f}' for u in split_ulps)} "
+               if split_ulps else "")
+            + f"bitwise_rerun={bitwise} "
             + " ".join(f"{n}: kernel_ms={kernel_ms[n]:.4f} plain_ms={plain_ms[n]:.4f} "
                        f"bound_ms={bounds[n][0]:.4f} ({bounds[n][1]})" for n in BS_KERNELS)
             + f" sum_bwd_kernel_ms={kernel_ms['dq'] + kernel_ms['dkv']:.4f} "
             f"bwd_bound_ms={bounds['bwd_total'][0]:.4f} ({bounds['bwd_total'][1]}) "
             f"sdpa_masked_ms={sdpa_ms:.4f} sdpa_masked_backward_ms={sdpa_bwd_ms:.4f} "
             f"b1_dense_causal_ms={flash_ms:.4f} b2_dense_causal_ms={flash_bwd_ms:.4f}")
-        check(o_err <= ATOL[dt], f"blocksparse {label}: o error {o_err} > {ATOL[dt]}")
-        check(lse_err <= LSE_ATOL, f"blocksparse {label}: lse error {lse_err}")
-        check(bitwise, f"blocksparse backward {label}: two runs differ")
-        check(max(rel) <= BWD_RTOL[dt], f"blocksparse backward {label}: rel error {rel}")
-        if "main path" in label:
+        tag = f"blocksparse {label} {dt}"
+        check(counted == expected, f"{tag}: route {route}, launches {counted}")
+        check(o_err <= ATOL[dt], f"{tag}: o error {o_err} > {ATOL[dt]}")
+        check(lse_err <= LSE_ATOL, f"{tag}: lse error {lse_err}")
+        check(bitwise, f"{tag}: two backward runs differ")
+        check(max(rel) <= BWD_RTOL[dt], f"{tag}: rel error {rel}")
+        check(ulps is None or max(ulps) <= BWD_MAX_ULP, f"{tag}: {ulps} ulps of the fp32 function")
+        check(split_ulps is None or max(split_ulps) <= BWD_MAX_ULP,
+              f"{tag}: {split_ulps} ulps of the split model")
+        check(ulps is None or cast_ulps > BWD_MAX_ULP,
+              f"{tag}: a single cast of P is within {cast_ulps} ulps, the ulp check cannot "
+              "tell it from the hi/lo split")
+        check(empty_ok, f"{tag}: an empty block row or column is not zero")
+        main = {"fixed-uni-128 (10a)": "cuda", "fixed-uni-128 (10b, main path)": "tc"}
+        if main.get(label) == route:
             for n in BS_KERNELS:
-                ctx[f"bs_{n}"] = dict(ms=kernel_ms[n], plain_ms=plain_ms[n],
-                                      library_ms=sdpa_ms if n == "fwd" else sdpa_bwd_ms,
-                                      bound_ms=bounds[n][0], bound_by=bounds[n][1])
+                ctx[f"bs_{route}_{n}"] = dict(ms=kernel_ms[n], plain_ms=plain_ms[n],
+                                              library_ms=sdpa_ms if n == "fwd" else sdpa_bwd_ms,
+                                              bound_ms=bounds[n][0], bound_by=bounds[n][1])
         del q, k, v, qkv, do, o, lse, first, again, delta
         torch.cuda.empty_cache()
-    for n in BS_KERNELS:
-        ctx[f"bs_{n}"]["max_abs_err"] = errs[n]
+    for key, err in errs.items():
+        ctx[f"bs_{key}"]["max_abs_err"] = err
 
 
 def _reset_counts():
@@ -1817,7 +1945,9 @@ def _reset_counts():
     for counter in QMM_COUNTERS.values():
         setattr(im, counter, 0)
     dqm.launches = dqm.tc_launches = 0
-    bs.launches = bs.bwd_dq_launches = bs.bwd_dkv_launches = 0
+    for names in BS_COUNTERS.values():
+        for counter in names.values():
+            setattr(bs, counter, 0)
     return fa, da
 
 
@@ -2859,7 +2989,8 @@ def phase_zero3(torch, ctx):
 def _bs_launches(fa):
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
 
-    return {"b9_fwd": bs.launches, "b9_dq": bs.bwd_dq_launches, "b9_dkv": bs.bwd_dkv_launches,
+    return {**{f"b9_{n}" + ("" if route == "cuda" else "_tc"): getattr(bs, c)
+               for route, names in BS_COUNTERS.items() for n, c in names.items()},
             **{f"b1_{n}": c for n, c in _fwd_launches(fa).items()},
             **{f"b2_{n}": c for n, c in _bwd_launches(fa).items()}}
 
@@ -2938,11 +3069,12 @@ def phase_sparse(torch, ctx):
     check(np.allclose(loss_k, loss_p, rtol=1e-4, atol=0), f"10a losses differ: {loss_k} vs {loss_p}")
     check(np.allclose(norm_k, norm_p, rtol=1e-3, atol=0),
           f"10a grad norms differ: {norm_k} vs {norm_p}")
-    check(all(launches[f"b9_{n}"] == 5 * L for n in BS_KERNELS),
-          f"10a B9 launches {launches}, expected {5 * L} each")
-    check(not any(n for name, n in launches.items() if not name.startswith("b9")),
-          f"10a dense kernels launched: {launches}")
+    check(launches == path_launches(launches, 5 * L, tuple(f"b9_{n}" for n in BS_KERNELS)),
+          f"10a launches {launches}, expected {5 * L} of each CUDA-core B9 kernel (fp32) and "
+          "no other")
     check(not any(plain_launches.values()), f"10a plain run launched kernels: {plain_launches}")
+    for n in BS_KERNELS:
+        ctx[f"bs_cuda_{n}"]["launches"] = launches[f"b9_{n}"]
     torch.cuda.empty_cache()
 
     # (b) bf16 + fp32 master + ZeRO stage 2, B2 x T4096 (max_seq_len 4096),
@@ -2984,15 +3116,15 @@ def phase_sparse(torch, ctx):
         torch.cuda.empty_cache()
     sparse, dense = rows["sparse"]["launches"], rows["dense"]["launches"]
     log(f"phase10b sparse/dense step ratio={rows['sparse']['step_ms'] / rows['dense']['step_ms']:.4f} "
-        f"(reported only; no gain is claimed)")
-    check(all(sparse[f"b9_{n}"] == 10 * L for n in BS_KERNELS)
-          and not any(n for k, n in sparse.items() if not k.startswith("b9")),
-          f"10b sparse launches {sparse}, expected {10 * L} of each B9 kernel and no B1/B2")
+        f"(below 1: the sparse step is faster than the dense one)")
+    check(sparse == path_launches(sparse, 10 * L, tuple(f"b9_{n}_tc" for n in BS_KERNELS)),
+          f"10b sparse launches {sparse}, expected {10 * L} of each tensor-core B9 kernel and "
+          "no other")
     expected = path_launches(dense, 10 * L, (*(f"b1_{n}" for n in FWD_PATH["bfloat16"]),
                                             *(f"b2_{n}" for n in BWD_PATH["bfloat16"])))
     check(dense == expected, f"10b dense launches {dense}, expected {expected}")
     for n in BS_KERNELS:
-        ctx[f"bs_{n}"]["launches"] = sparse[f"b9_{n}"]
+        ctx[f"bs_tc_{n}"]["launches"] = sparse[f"b9_{n}_tc"]
 
 
 # phase 11: gpt2-760m (d 1536, H16: head dim 96) at full width, its 24
@@ -3158,7 +3290,10 @@ def main() -> int:
          "replaces": DQM_TPU, **ctx["dqm_tc"]}] + [
         {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}"),
          "route": "cuda", "source": BS_FWD_SRC if n == "fwd" else BS_BWD_SRC,
-         "replaces": BS_TPU[n], **ctx[f"bs_{n}"]} for n in BS_KERNELS]
+         "replaces": BS_TPU[n], **ctx[f"bs_cuda_{n}"]} for n in BS_KERNELS] + [
+        {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}") + "_tc",
+         "route": "cuda", "source": BS_FWD_TC_SRC if n == "fwd" else BS_BWD_TC_SRC,
+         "replaces": BS_TPU[n], **ctx[f"bs_tc_{n}"]} for n in BS_KERNELS]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -40,17 +40,24 @@
 // need no copy; dq/dk/dv are written contiguous [B, T, H, D].
 //
 // Numerics: every operand is widened to fp32 and the products accumulate in
-// fp32 on the CUDA cores (no tensor cores), as the flash kernels do.
+// fp32 on the CUDA cores (no tensor cores).
 //
-// What bounds it on the H100: at the sparse GPT-2-125M training shape (B2,
-// T4096, H12, D64, the Fixed layout of 4 local and 1 global block of 128,
+// Which inputs it serves (ops/cuda/blocksparse_attention.py bs_route): fp32
+// at every block, and bf16 / fp16 at blocks of 16 and 32; bf16 / fp16 at
+// blocks of 64 and 128 run csrc/blocksparse_attention_bwd_tc.cu, and this
+// file has no 16-bit instance of its 64-row tile.
+//
+// What bounds it on the H100: at the sparse GPT-2-125M's fp32 shape (B2,
+// T1024, H12, D64, the Fixed layout of 4 local and 1 global block of 128,
 // unidirectional) the backward needs 5 products x 2*D flops for each of the
-// about 69M visible pairs, 44 GFLOP: 0.66 ms in fp32 on the CUDA cores
-// (67 TFLOP/s, data sheet), 0.045 ms on bf16 tensor cores. This first kernel
-// recomputes q k^T and dO v^T in both passes (7 products instead of 5) and
-// reads its operands through shared memory, so it is bound by FMA issue and
-// shared-memory bandwidth. The fast design (wgmma on bf16 tiles, one pass)
-// is left to a kernel-redesign PR.
+// about 7.9M visible pairs, 5.0 GFLOP: 0.075 ms in fp32 on the CUDA cores
+// (67 TFLOP/s, data sheet). This kernel recomputes q k^T and dO v^T in both
+// passes (7 products instead of 5) and reads its operands through shared
+// memory, so it is bound by FMA issue and shared-memory bandwidth. A 3xTF32
+// design on the tensor cores, as the fp32 flash kernels have, is queued
+// (ROADMAP.md).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -509,7 +516,9 @@ cudaError_t dispatch_tile(int pass, const Args& a) {
     case 16: return run_pass<T, D, 16>(pass, a);
     case 32: return run_pass<T, D, 32>(pass, a);
     case 64:
-    case 128: return run_pass<T, D, 64>(pass, a);
+    case 128:  // bf16 / fp16 at these blocks run the tensor-core kernel (the _tc file)
+      if constexpr (std::is_same<T, float>::value) return run_pass<T, D, 64>(pass, a);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

@@ -32,19 +32,24 @@
 // q/k/v views of the fused qkv projection need no copy.
 //
 // Numerics: every operand is widened to fp32 and both products accumulate in
-// fp32 on the CUDA cores (no tensor cores), as the flash kernels do.
+// fp32 on the CUDA cores (no tensor cores).
 //
-// What bounds it on the H100: at the sparse GPT-2-125M training shape (B2,
-// T4096, H12, D64, Fixed layout of 4 local and 1 global block of 128,
-// unidirectional) 192 of the 528 causal blocks are active, about 69M visible
-// (query, key) pairs over the batch and heads; two products of 2*D flops
-// each is 17.7 GFLOP, 0.26 ms in fp32 on the CUDA cores (67 TFLOP/s, data
-// sheet), 0.018 ms on bf16 tensor cores, where the 50 MB of bf16 q, k, v and
-// o take 0.015 ms at 3.35 TB/s. This first kernel does the
-// fp32 arithmetic on the CUDA cores in every dtype and reads q and each k/v
-// tile through shared memory, so it is bound by fp32 FMA issue and
-// shared-memory bandwidth. The fast design (wgmma on bf16 tiles fed by TMA)
-// is left to a kernel-redesign PR.
+// Which inputs it serves (ops/cuda/blocksparse_attention.py bs_route): fp32
+// at every block, and bf16 / fp16 at blocks of 16 and 32; bf16 / fp16 at
+// blocks of 64 and 128 run csrc/blocksparse_attention_fwd_tc.cu, and this
+// file has no 16-bit instance of its 64-row tile.
+//
+// What bounds it on the H100: at the sparse GPT-2-125M's fp32 shape (B2,
+// T1024, H12, D64, Fixed layout of 4 local and 1 global block of 128,
+// unidirectional: 24 of a head's 36 causal blocks active) about 7.9M visible
+// (query, key) pairs; two products of 2*D flops each is 2.0 GFLOP, 0.030 ms
+// in fp32 on the CUDA cores (67 TFLOP/s, data sheet). This
+// kernel does the fp32 arithmetic with one lane a key and reads q and each
+// k/v tile through shared memory, so it is bound by fp32 FMA issue and
+// shared-memory bandwidth. A 3xTF32 design on the tensor cores, as the fp32
+// flash kernels have, is queued (ROADMAP.md).
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -260,7 +265,9 @@ cudaError_t dispatch_tile(const Args& a) {
     case 16: return launch<T, D, 16>(a);
     case 32: return launch<T, D, 32>(a);
     case 64:
-    case 128: return launch<T, D, 64>(a);
+    case 128:  // bf16 / fp16 at these blocks run the tensor-core kernel (the _tc file)
+      if constexpr (std::is_same<T, float>::value) return launch<T, D, 64>(a);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }

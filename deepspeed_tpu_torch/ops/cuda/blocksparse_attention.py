@@ -8,20 +8,27 @@ T/block]`` 0/1 layout, with flash-style online softmax, so neither the dense
 (``_fwd`` / ``_fwd_kernel``) is ``csrc/blocksparse_attention_fwd.cu``; the
 backward's two passes (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) are
 ``csrc/blocksparse_attention_bwd.cu``, whose dq pass also writes delta =
-rowsum(dO * O) for the dk/dv pass. Each source's header says how it is split
-and what bounds it. :class:`BlocksparseAttention` is the counterpart of the
-reference's ``jax.custom_vjp`` around ``_bs_attn``: it saves (q, k, v, o,
-lse) and the index tables in the forward and runs dq, then dk/dv.
+rowsum(dO * O) for the dk/dv pass. bf16 / fp16 inputs at blocks of 64 and
+128 take the tensor-core kernels of ``csrc/blocksparse_attention_fwd_tc.cu``
+and ``csrc/blocksparse_attention_bwd_tc.cu`` instead (:func:`bs_route`), which
+keep the reference's fp32 function from 16-bit operands (P and dS as hi +
+lo halves; :func:`blocksparse_attention_split_ref` and
+:func:`blocksparse_attention_bwd_split_ref` model their rounding). Each
+source's header says how it is split and what bounds it.
+:class:`BlocksparseAttention` is the counterpart of the reference's
+``jax.custom_vjp`` around ``_bs_attn``: it saves (q, k, v, o, lse) and the
+index tables in the forward and runs dq, then dk/dv.
 
 The layout reaches the kernels as the host-built tables of
-:func:`layout_tables` (bitwise the reference's), moved to the device once by
-the caller that keeps them (``ops/sparse_attention``). ``causal`` masks keys
-after the query (T == S, aligned top-left); blocks above the diagonal of a
+:func:`layout_tables` (bitwise the reference's) and the tensor-core kernels'
+work orders (:func:`work_order`), moved to the device once by the caller
+that keeps them (``ops/sparse_attention``). ``causal`` masks keys after the
+query (T == S, aligned top-left); blocks above the diagonal of a
 bidirectional layout are then wholly masked and the kernels skip them.
 
 Every wrapper takes its plain version only for tensors on the CPU. For CUDA
-tensors it launches its kernel or raises: the kernels are built for blocks
-of 16, 32, 64 and 128 and head dims 64, 96 and 128.
+tensors it launches its route's kernel or raises: the kernels are built for
+blocks of 16, 32, 64 and 128 and head dims 64, 96 and 128.
 """
 
 from __future__ import annotations
@@ -35,19 +42,28 @@ import numpy as np
 import torch
 
 from .. import _build
+from . import flash_attention as fa
 from .flash_attention import DTYPE_CODE, NEG_INF, _readable, _stream
 
 BLOCKS = (16, 32, 64, 128)  # the kernels' block sizes (tiles of min(block, 64) rows)
+TC_BLOCKS = (64, 128)  # the tensor-core kernels' blocks (one or two 64-row tiles)
 HEAD_DIMS = (64, 96, 128)  # the kernels' template instances
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
 # them to show that the main path went through the kernels): the forward,
-# and the backward's dq and dk/dv passes
+# and the backward's dq and dk/dv passes, on the CUDA cores (route "cuda")
+# and on the tensor cores (route "tc")
 launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
+tc_launches = 0
+bwd_dq_tc_launches = 0
+bwd_dkv_tc_launches = 0
 
-Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# kidx, kcnt, qidx, qcnt (layout_tables) and the q- and k-block work orders
+# (work_order), int32 on one device
+Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+               torch.Tensor]
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,6 +86,29 @@ def _bwd_lib() -> ctypes.CDLL:
         [ptr] * 10 + [i32] * 7 + [i64] * 12 + [f32, i32, ptr])
     lib.ds_blocksparse_attention_bwd_dq.restype = i32
     lib.ds_blocksparse_attention_bwd_dkv.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_lib() -> ctypes.CDLL:
+    lib = _build.load("blocksparse_attention_fwd_tc")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ds_blocksparse_attention_fwd_tc.argtypes = (
+        [ptr] * 8 + [i32] * 7 + [i64] * 9 + [ctypes.c_float, i32, ptr])
+    lib.ds_blocksparse_attention_fwd_tc.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_tc_lib() -> ctypes.CDLL:
+    lib = _build.load("blocksparse_attention_bwd_tc")
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.ds_blocksparse_attention_bwd_dq_tc.argtypes = (
+        [ptr] * 11 + [i32] * 7 + [i64] * 15 + [f32, i32, ptr])
+    lib.ds_blocksparse_attention_bwd_dkv_tc.argtypes = (
+        [ptr] * 11 + [i32] * 7 + [i64] * 12 + [f32, i32, ptr])
+    lib.ds_blocksparse_attention_bwd_dq_tc.restype = i32
+    lib.ds_blocksparse_attention_bwd_dkv_tc.restype = i32
     return lib
 
 
@@ -98,9 +137,20 @@ def layout_tables(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarra
     return kidx, kcnt, qidx, qcnt
 
 
+def work_order(cnt: np.ndarray) -> np.ndarray:
+    """The (head, block) pairs of a [H, n] count table as flat indices h * n
+    + i, the largest count first (ties in index order): the order in which
+    the tensor-core kernels hand out their tiles, so that the longest lists
+    start first and the short ones fill the tail."""
+    return np.argsort(-np.asarray(cnt).reshape(-1), kind="stable").astype(np.int32)
+
+
 def device_tables(layout: np.ndarray, device) -> Tables:
-    """:func:`layout_tables` as int32 tensors on ``device``."""
-    return tuple(torch.from_numpy(t).to(device) for t in layout_tables(np.asarray(layout)))
+    """:func:`layout_tables` and the work orders of kcnt and qcnt
+    (:func:`work_order`) as int32 tensors on ``device``."""
+    kidx, kcnt, qidx, qcnt = layout_tables(np.asarray(layout))
+    return tuple(torch.from_numpy(t).to(device)
+                 for t in (kidx, kcnt, qidx, qcnt, work_order(kcnt), work_order(qcnt)))
 
 
 def _scale(q: torch.Tensor, softmax_scale: Optional[float]) -> float:
@@ -135,17 +185,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout, block: int
         raise ValueError(f"blocksparse_attention: T={T} is not a multiple of block {block}")
 
 
-def _check_kernel(block: int, *ts: torch.Tensor) -> None:
-    D = ts[0].shape[-1]
-    if block not in BLOCKS or D not in HEAD_DIMS:
+def bs_route(dtype: torch.dtype, block: int, head_dim: int) -> str:
+    """The kernels CUDA inputs of ``dtype``, ``block`` and ``head_dim`` take:
+    "tc" (the tensor-core forward, dq and dk/dv) for bf16 / fp16 at blocks of
+    64 and 128, "cuda" (the CUDA-core ones) for fp32 and for blocks of 16
+    and 32, at every head dim the kernels are built for. Other blocks and
+    head dims raise NotImplementedError, other dtypes TypeError: nothing
+    falls back."""
+    if block not in BLOCKS or head_dim not in HEAD_DIMS:
         raise NotImplementedError(
-            f"blocksparse_attention kernel: block {block}, head dim {D} (built for blocks "
-            f"{BLOCKS} and head dims {HEAD_DIMS}, the head dims of the reference's presets)")
+            f"blocksparse_attention kernel: block {block}, head dim {head_dim} (built for "
+            f"blocks {BLOCKS} and head dims {HEAD_DIMS}, the head dims of the reference's "
+            "presets)")
+    if dtype not in DTYPE_CODE:
+        raise TypeError(f"blocksparse_attention kernel: dtype {dtype} (built for "
+                        f"{tuple(DTYPE_CODE)})")
+    return "tc" if dtype != torch.float32 and block in TC_BLOCKS else "cuda"
+
+
+def _check_kernel(block: int, *ts: torch.Tensor) -> str:
+    """The route of ``ts[0]`` (:func:`bs_route`), after checking that the
+    kernels can read every tensor of ``ts``."""
+    route = bs_route(ts[0].dtype, block, ts[0].shape[-1])
     for t in ts:
         if not _readable(t):
             raise ValueError("blocksparse_attention kernel: the head dim must be contiguous "
                              f"and rows 16-byte aligned (strides {t.stride()}, element size "
                              f"{t.element_size()})")
+    return route
 
 
 # --------------------------------------------------------------------------- plain versions
@@ -169,10 +236,17 @@ def blocksparse_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     return o, (m + torch.log(l_safe)).reshape(B * H, T)
 
 
-def _probs(q, k, lse, layout, block: int, causal: bool, scale: float) -> torch.Tensor:
-    """P = exp(scale * q k^T - lse) as [B, H, T, T] fp32, 0 where a key is hidden."""
+def _probs(q, k, lse, layout, block: int, causal: bool, scale: float,
+           scale_q: bool = True) -> torch.Tensor:
+    """P = exp(scale * q k^T - lse) as [B, H, T, T] fp32, 0 where a key is
+    hidden; q scaled in fp32 first (as the reference and the CUDA-core
+    kernels score), or with ``scale_q`` False the fp32 product scaled (as the
+    tensor-core kernels score)."""
     B, T, H, _ = q.shape
-    s = torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float())
+    if scale_q:
+        s = torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float())
+    else:
+        s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
     p = torch.exp(s - lse.reshape(B, H, T, 1))
     return p.masked_fill(~layout_mask(layout, block, causal, q.device), 0.0)
 
@@ -204,6 +278,63 @@ def blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta, layout, block: in
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def blocksparse_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout,
+                                    block: int, causal: bool = True,
+                                    softmax_scale: Optional[float] = None
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the tensor-core forward's rounding (bf16 / fp16
+    inputs): the fp32 product times the scale; each 64-key tile's P = exp(s -
+    m_t) relative to the row's running maximum m_t as of that tile (the
+    kernel visits a row's active tiles in ascending order, and hidden keys
+    move no maximum), entering P V as hi + lo halves of the input dtype
+    (fp16's times 2^14 first, exact both ways), weighted by exp(m_t - m); l
+    sums the unrounded P; hidden keys have P = 0, so a row with no visible
+    key gives o = 0 and lse = -1e30. For the tests and the card check: the
+    CPU path runs :func:`blocksparse_attention_fwd_ref`, the reference's fp32
+    function. Returns (o in q's dtype, lse [B*H, T] fp32)."""
+    B, T, H, _ = q.shape
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * _scale(q, softmax_scale)
+    vis = layout_mask(layout, block, causal, q.device)
+    s = s.masked_fill(~vis, NEG_INF)
+    m_t = fa._running_tile_max(s)
+    m = m_t[..., -1:]
+    p = torch.exp(s - m_t).masked_fill(~vis, 0.0)
+    w = torch.exp(m_t - m)
+    l = (p * w).sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    f = 2.0**fa.FP16_P_EXP if q.dtype == torch.float16 else 1.0
+    hi = (p * f).to(q.dtype).float()
+    lo = (p * f - hi).to(q.dtype).float()
+    o = torch.einsum("bhts,bshd->bthd", (hi + lo) / f * w / l_safe, v.float())
+    return o.to(q.dtype), (m + torch.log(l_safe)).reshape(B * H, T)
+
+
+def blocksparse_attention_bwd_split_ref(q, k, v, o, lse, do, layout, block: int,
+                                        causal: bool = True,
+                                        softmax_scale: Optional[float] = None
+                                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the tensor-core backward's rounding (bf16 / fp16
+    inputs): P from the fp32 product times the scale, and P and dS entering
+    dV, dK and dQ as hi + lo halves of the input dtype (``fa._split``), each
+    product taken on both halves in fp32; fp16 scales each row by the
+    kernels' running power of two first (dQ's dS by query row, dV's P and
+    dK's dS by key row: the kernels stream a row's active tiles in ascending
+    order, and inactive tiles are zero, which moves no scale). For the tests
+    and the card check: the CPU path runs the reference's fp32 function.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    scale = _scale(q, softmax_scale)
+    B, T, H, _ = q.shape
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B, H, T, 1)
+    p = _probs(q, k, lse, layout, block, causal, scale, scale_q=False)
+    dp = torch.einsum("bthd,bshd->bhts", do.float(), v.float())
+    ds = p * (dp - delta) * scale
+    # the dk/dv kernel streams query tiles (rows are keys), the dq kernel key tiles
+    dv = sum(torch.einsum("bhts,bthd->bshd", x, do.float()) for x in fa._split(p, q.dtype, -2))
+    dk = sum(torch.einsum("bhts,bthd->bshd", x, q.float()) for x in fa._split(ds, q.dtype, -2))
+    dq = sum(torch.einsum("bhts,bshd->bthd", x, k.float()) for x in fa._split(ds, q.dtype, -1))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # --------------------------------------------------------------------------- kernels
 def _device_tables(layout, tables: Optional[Tables], device) -> Tables:
     if tables is None:
@@ -217,82 +348,108 @@ def blocksparse_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               tables: Optional[Tables] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q/k/v [B, T, H, D] -> (o [B, T, H, D] in q's dtype, lse [B*H, T]
-    fp32), the forward kernel. ``tables`` are :func:`device_tables` of
-    ``layout`` (built here when None)."""
-    global launches
+    fp32), the forward kernel of :func:`bs_route`'s route. ``tables`` are
+    :func:`device_tables` of ``layout`` (built here when None)."""
+    global launches, tc_launches
     _check(q, k, v, layout, block)
     scale = _scale(q, softmax_scale)
     if q.device.type == "cpu":
         return blocksparse_attention_fwd_ref(q, k, v, layout, block, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"blocksparse_attention: unsupported device {q.device}")
-    _check_kernel(block, q, k, v)
-    kidx, kcnt, _, _ = _device_tables(layout, tables, q.device)
+    route = _check_kernel(block, q, k, v)
+    kidx, kcnt, _, _, q_order, _ = _device_tables(layout, tables, q.device)
     B, T, H, D = q.shape
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    lib = _lib()
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     with torch.cuda.device(q.device):
-        status = lib.ds_blocksparse_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            kidx.data_ptr(), kcnt.data_ptr(), B, H, T, D, DTYPE_CODE[q.dtype], block,
-            kidx.shape[-1], *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            scale, int(bool(causal)), _stream())
-    _build.check(lib, status, "blocksparse_attention_fwd")
-    launches += 1
+        if route == "tc":
+            lib = _tc_lib()
+            status = lib.ds_blocksparse_attention_fwd_tc(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                kidx.data_ptr(), kcnt.data_ptr(), q_order.data_ptr(), B, H, T, D,
+                DTYPE_CODE[q.dtype], block, kidx.shape[-1], *strides, scale,
+                int(bool(causal)), _stream())
+        else:
+            lib = _lib()
+            status = lib.ds_blocksparse_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                kidx.data_ptr(), kcnt.data_ptr(), B, H, T, D, DTYPE_CODE[q.dtype], block,
+                kidx.shape[-1], *strides, scale, int(bool(causal)), _stream())
+    _build.check(lib, status, f"blocksparse_attention_fwd ({route})")
+    if route == "tc":
+        tc_launches += 1
+    else:
+        launches += 1
     return o, lse
 
 
 def blocksparse_attention_bwd_dq(q, k, v, o, do, lse, layout, block: int, causal: bool,
                                  scale: float, tables: Optional[Tables] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dq [B, T, H, D] in q's dtype, delta [B*H, T] fp32), the dq kernel."""
-    global bwd_dq_launches
+    """(dq [B, T, H, D] in q's dtype, delta [B*H, T] fp32), the dq kernel of
+    :func:`bs_route`'s route."""
+    global bwd_dq_launches, bwd_dq_tc_launches
     if q.device.type == "cpu":
         return blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block, causal,
                                                 scale)
-    _check_kernel(block, q, k, v, o, do)
-    kidx, kcnt, _, _ = _device_tables(layout, tables, q.device)
+    route = _check_kernel(block, q, k, v, o, do)
+    kidx, kcnt, _, _, q_order, _ = _device_tables(layout, tables, q.device)
     B, T, H, D = q.shape
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    lib = _bwd_lib()
-    with torch.cuda.device(q.device):
-        status = lib.ds_blocksparse_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), kidx.data_ptr(), kcnt.data_ptr(),
-            B, H, T, D, DTYPE_CODE[q.dtype], block, kidx.shape[-1],
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), kidx.data_ptr(), kcnt.data_ptr())
+    rest = (B, H, T, D, DTYPE_CODE[q.dtype], block, kidx.shape[-1],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             *do.stride()[:3], scale, int(bool(causal)), _stream())
-    _build.check(lib, status, "blocksparse_attention_bwd_dq")
-    bwd_dq_launches += 1
+    with torch.cuda.device(q.device):
+        if route == "tc":
+            lib = _bwd_tc_lib()
+            status = lib.ds_blocksparse_attention_bwd_dq_tc(*ptrs, q_order.data_ptr(), *rest)
+        else:
+            lib = _bwd_lib()
+            status = lib.ds_blocksparse_attention_bwd_dq(*ptrs, *rest)
+    _build.check(lib, status, f"blocksparse_attention_bwd_dq ({route})")
+    if route == "tc":
+        bwd_dq_tc_launches += 1
+    else:
+        bwd_dq_launches += 1
     return dq, delta
 
 
 def blocksparse_attention_bwd_dkv(q, k, v, do, lse, delta, layout, block: int, causal: bool,
                                   scale: float, tables: Optional[Tables] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv) [B, T, H, D] in k's dtype, the dk/dv kernel; ``delta`` is the
-    dq pass's."""
-    global bwd_dkv_launches
+    """(dk, dv) [B, T, H, D] in k's dtype, the dk/dv kernel of
+    :func:`bs_route`'s route; ``delta`` is the dq pass's."""
+    global bwd_dkv_launches, bwd_dkv_tc_launches
     if q.device.type == "cpu":
         return blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta, layout, block,
                                                  causal, scale)
-    _check_kernel(block, q, k, v, do)
-    _, _, qidx, qcnt = _device_tables(layout, tables, q.device)
+    route = _check_kernel(block, q, k, v, do)
+    _, _, qidx, qcnt, _, k_order = _device_tables(layout, tables, q.device)
     B, T, H, D = q.shape
     dk = torch.empty((B, T, H, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, T, H, D), dtype=v.dtype, device=v.device)
-    lib = _bwd_lib()
-    with torch.cuda.device(q.device):
-        status = lib.ds_blocksparse_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), qidx.data_ptr(), qcnt.data_ptr(),
-            B, H, T, D, DTYPE_CODE[q.dtype], block, qidx.shape[-1],
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), qidx.data_ptr(), qcnt.data_ptr())
+    rest = (B, H, T, D, DTYPE_CODE[q.dtype], block, qidx.shape[-1],
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
             scale, int(bool(causal)), _stream())
-    _build.check(lib, status, "blocksparse_attention_bwd_dkv")
-    bwd_dkv_launches += 1
+    with torch.cuda.device(q.device):
+        if route == "tc":
+            lib = _bwd_tc_lib()
+            status = lib.ds_blocksparse_attention_bwd_dkv_tc(*ptrs, k_order.data_ptr(), *rest)
+        else:
+            lib = _bwd_lib()
+            status = lib.ds_blocksparse_attention_bwd_dkv(*ptrs, *rest)
+    _build.check(lib, status, f"blocksparse_attention_bwd_dkv ({route})")
+    if route == "tc":
+        bwd_dkv_tc_launches += 1
+    else:
+        bwd_dkv_launches += 1
     return dk, dv
 
 

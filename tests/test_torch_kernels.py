@@ -719,6 +719,19 @@ def _bs_layouts():
     ]
 
 
+_BS_COUNTERS = {"cuda": ("launches", "bwd_dq_launches", "bwd_dkv_launches"),
+                "tc": ("tc_launches", "bwd_dq_tc_launches", "bwd_dkv_tc_launches")}
+
+
+def _bs_counts(bs):
+    return {c: getattr(bs, c) for names in _BS_COUNTERS.values() for c in names}
+
+
+def _bs_route_counts(route):
+    """The counters one forward and two backward runs move on ``route``."""
+    return dict(zip(_BS_COUNTERS[route], (1, 2, 2)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("D", [64, pytest.param(96, id="d96"), 128])
@@ -738,15 +751,14 @@ def test_blocksparse_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, r
     q, k, v = (t.reshape(2, T, H, D) for t in qkv.split(H * D, dim=-1))
     do = _normal((2, T, H, D), cuda_device, dtype, 40 + case)
     tables = bs.device_tables(layout, cuda_device)
-    before = (bs.launches, bs.bwd_dq_launches, bs.bwd_dkv_launches)
+    before = _bs_counts(bs)
     o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
     grads = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                          tables=tables)
     again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                          tables=tables)
     torch.cuda.synchronize()
-    assert (bs.launches, bs.bwd_dq_launches, bs.bwd_dkv_launches) == (
-        before[0] + 1, before[1] + 2, before[2] + 2)
+    assert _moved(before, _bs_counts(bs)) == _bs_route_counts(bs.bs_route(dtype, block, D))
     o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
     assert (o.float() - o_ref.float()).abs().max().item() <= (5e-5 if dtype == torch.float32
                                                               else 2e-2)
@@ -799,7 +811,92 @@ def test_blocksparse_kernel_raises_for_unbuilt_shapes(cuda_device, block, D):
     T = 2 * block
     q = _normal((1, T, 2, D), cuda_device, torch.float32, 60)
     layout = np.ones((2, 2, 2), np.int64)
-    before = bs.launches
+    before = _bs_counts(bs)
     with pytest.raises(NotImplementedError, match="built for blocks"):
         bs.blocksparse_attention(q, q, q, layout, block)
-    assert bs.launches == before
+    assert _bs_counts(bs) == before
+
+
+def _bs_tc_layouts():
+    """(name, layout, block, causal) of the tensor-core B9 card cases: the
+    sparse GPT's Fixed unidirectional layout at blocks of 128 and 64,
+    BigBird with a layout per head, BSLongformer not causal, and a layout
+    with an empty block row (head 1) and an empty block column (head 0)."""
+    from deepspeed_tpu_torch.ops import sparse_attention as sa
+
+    H = 4
+    empty = np.tril(np.ones((H, 8, 8), np.int64))
+    empty[1, 3] = 0
+    empty[0, :, 2] = 0
+    return [
+        ("fixed-uni-128", sa.FixedSparsityConfig(H, block=128, attention="unidirectional")
+         .make_layout(1024), 128, True),
+        ("fixed-uni-64", sa.FixedSparsityConfig(H, block=64, num_local_blocks=4,
+                                                attention="unidirectional").make_layout(512),
+         64, True),
+        ("bigbird-per-head-64", sa.BigBirdSparsityConfig(H, block=64,
+                                                         different_layout_per_head=True,
+                                                         attention="unidirectional")
+         .make_layout(512), 64, True),
+        ("longformer-128-noncausal", sa.BSLongformerSparsityConfig(H, block=128)
+         .make_layout(1024), 128, False),
+        ("empty-row-col-128", empty, 128, True),
+    ]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, pytest.param(96, id="d96"), 128])
+@pytest.mark.parametrize("case", range(5))
+def test_blocksparse_tc_kernels_within_two_ulps_and_rerun_bitwise(cuda_device, dtype, D, case):
+    """B9 on the tensor cores (bf16 / fp16 at blocks 64 / 128): the forward,
+    dq and dk/dv within 2 ulps of the dtype of the fp32 plain versions and of
+    the split plain versions (the kernels' own rounding) on entries of at
+    least 1e-3 of the largest, lse within 1e-4; a single cast of P more than
+    2 ulps off; the backward bitwise on a re-run; only the tensor-core
+    counters move. fp16 also runs with dO 2^-8 of unit scale, where dS lies
+    below fp16's normal range unless the kernels scale its rows."""
+    from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
+
+    _, layout, block, causal = _bs_tc_layouts()[case]
+    H, n = layout.shape[:2]
+    T = n * block
+    qkv = _normal((2, T, 3 * H * D), cuda_device, dtype, 70 + case)
+    q, k, v = (t.reshape(2, T, H, D) for t in qkv.split(H * D, dim=-1))
+    tables = bs.device_tables(layout, cuda_device)
+    assert bs.bs_route(dtype, block, D) == "tc"
+    for do_scale in (1.0, 2.0**-8) if dtype == torch.float16 else (1.0,):
+        do = _normal((2, T, H, D), cuda_device, dtype, 90 + case) * do_scale
+        before = _bs_counts(bs)
+        o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
+        grads = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
+                                             tables=tables)
+        again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
+                                             tables=tables)
+        torch.cuda.synchronize()
+        assert _moved(before, _bs_counts(bs)) == _bs_route_counts("tc")
+        o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
+        o_split, lse_split = bs.blocksparse_attention_split_ref(q, k, v, layout, block, causal)
+        assert ulp_err(o, o_ref, dtype) <= 2.0 and ulp_err(o, o_split, dtype) <= 2.0
+        assert (lse - lse_ref).abs().max().item() <= 1e-4
+        assert (lse - lse_split).abs().max().item() <= 1e-4
+        scale = 1.0 / np.sqrt(D)
+        dq_ref, delta = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block,
+                                                            causal, scale)
+        ref = (dq_ref, *bs.blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta, layout,
+                                                            block, causal, scale))
+        split = bs.blocksparse_attention_bwd_split_ref(q, k, v, o, lse, do, layout, block,
+                                                       causal)
+        for g, g2, r, m in zip(grads, again, ref, split):
+            assert g.dtype == dtype and torch.equal(g, g2)
+            assert ulp_err(g, r, dtype) <= 2.0
+            assert ulp_err(g, m, dtype) <= 2.0
+        p = bs._probs(q, k, lse, layout, block, causal, bs._scale(q, None))
+        dv_cast = torch.einsum("bhts,bthd->bshd", p.to(dtype).float(), do.float()).to(dtype)
+        assert ulp_err(dv_cast, ref[2], dtype) > 2.0
+        if case == 4:  # the empty block row and column
+            assert (o[:, 3 * block:4 * block, 1] == 0).all()
+            assert (lse.view(2, H, T)[:, 1, 3 * block:4 * block] == -1e30).all()
+            assert (grads[0][:, 3 * block:4 * block, 1] == 0).all()
+            assert (grads[1][:, 2 * block:3 * block, 0] == 0).all()
+            assert (grads[2][:, 2 * block:3 * block, 0] == 0).all()
