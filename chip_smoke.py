@@ -14,9 +14,10 @@ result line):
    forward, B2's dq and dk/dv: 12 instances, bf16 / fp16, D 64 / 96 / 128,
    the default and the single-cast function; their fp32 3xTF32 kernels: 3,
    D 64 / 96 / 128; B6/B7's: 8, bf16 / fp16 x int8 / int4 x 64 / 128 rows a
-   block) has its instances and every one holds HGMMA instructions in its
-   SASS (``cuobjdump -sass`` of the library), and so does each of B8's 3
-   tensor-core instances (fp32 / bf16 / fp16 x) and of B9's tensor-core
+   block, and 4 of its fp32 kernel, int8 / int4 x 64 / 128 rows) has its
+   instances and every one holds HGMMA instructions in its SASS
+   (``cuobjdump -sass`` of the library), and so does each of B8's 15
+   tensor-core instances (fp32 / bf16 / fp16 x x 5 tilings) and of B9's tensor-core
    forward, dq and dk/dv (6 each: bf16 / fp16, D 64 / 96 / 128); every 3xTF32 instance also
    holds HMMA (``mma.sync``, its products with an MN-major B); B5's 36 bf16 /
    fp16 instances each hold HMMA and its 9 fp32 ones none.
@@ -72,27 +73,27 @@ result line):
    at Dh 96. B8 (the dequant-fused
    product of the quantized wire) at the LM head's shape (x [4096, 768],
    vocabulary 50304 padded to 197 blocks of 256; fp32 x, the main path,
-   and bf16 x), at phase 9d's head (x [32, 768] fp32: the CUDA-core route's
-   row, timed beside its plain version, cuBLAS fp32 over the dequantized
-   weight and its bound), M = 1 and 37, an effective block of 96, a block of 128, the
-   [768, 2304] leaf and ragged D and F, each through its route
-   (``dqm_route``: the tensor cores for the head and the leaf at 2048 rows,
-   the CUDA cores for the rest, checked by the counters), bitwise on a
-   re-run, each case's error against the float64 product over the unrounded
-   weights beside its plain version's; at the main-path shape the
-   tensor-core and the CUDA-core kernel timed on the same inputs, with both
-   bounds (three bf16 passes at the bf16 peak; one fp32 pass at the fp32
-   peak); its library yardstick is cuBLAS fp32 (TF32 off) over the weight
-   already dequantized, with the dequantize + cuBLAS time beside it, and
-   ptxas's report. B6/B7
+   and bf16 x), at phase 9d's head (x [32, 768] fp32: the 64-row tiling),
+   M = 1, 37 and 63, blocks of 64 and 128 at 4096 rows (9e's head) and 256
+   rows, the [768, 2304] leaf, each through the tensor cores; an effective
+   block of 96 (9d's head at a block of 96: the CUDA-core route's row) and
+   ragged D through the CUDA cores (``dqm_route``, checked by the
+   counters); bitwise on a re-run, each case's error against the float64
+   product over the unrounded weights beside its plain version's (fp32
+   within 1e-5 of its largest entry); at the result line's rows the plain
+   version, cuBLAS fp32 (TF32 off) over the weight already dequantized, the
+   dequantize + cuBLAS, both bounds (three bf16 passes at the bf16 peak;
+   one fp32 pass at the fp32 peak) and, for a tensor-core row, the
+   CUDA-core kernel on the same inputs; and ptxas's report. B6/B7
    through their routes (fp32 and bf16, M 1-256, the 8 projection shapes of
    GPT-2-125M and gpt2-350m), then on the tensor cores at those shapes, M
-   16-256, bf16 and fp16, groups 128 and 64: at most 2 ulps of the dtype of
-   the fp32 plain version (entries of at least 1e-3 of the largest), bitwise
-   on a re-run; in bf16 at group 128 the tensor-core and the CUDA-core
-   kernel timed on the same inputs at every M and at the crossover rows 8-64
-   (the speedup at M=256 against the target of 3, and against cuBLAS
-   against 1.5, reported), with plain / cuBLAS / bound times. B9
+   16-256, bf16, fp16 and fp32, groups 128 and 64: bf16 / fp16 at most 2
+   ulps of the dtype of the fp32 plain version (entries of at least 1e-3 of
+   the largest), fp32 within 5e-5 of the plain version's largest output and
+   1e-5 of the float64 product's, bitwise on a re-run; in bf16 and fp32 at
+   group 128 the tensor-core and the CUDA-core kernel timed on the same
+   inputs at every M and at the crossover rows 8-64 (the speedup at M=256
+   and the ratio to cuBLAS reported), with plain / cuBLAS / bound times. B9
    (blocksparse attention: forward, dq with delta, dk/dv) over 21 cases, each
    through its route (``bs_route``, checked by the counters: the tensor
    cores for bf16 / fp16 at blocks 64 / 128, the CUDA cores for fp32 and
@@ -158,9 +159,12 @@ result line):
    the reference's bench measures it), tokens/s, the block stacks' weight
    bytes, the greedy match rate against dense bf16 (reported only), and a
    profile of 8 decode steps. (c) phase 6's serving run over
-   ``quantize_for_inference(bits=8)`` weights, fp32, dense pools: every
-   request finishes, the audit is clean, tokens equal serving over the
-   dequantized dense tree, and B6 launches 48 times per decode step. (d)
+   ``quantize_for_inference(bits=8)`` and ``(bits=4)`` weights, fp32, dense
+   pools: every request finishes, the audit is clean, tokens equal serving
+   over the dequantized dense tree (where one differs, the first flip's
+   logit gap is printed), each prefill forward of 9-256 rows launches the
+   tensor-core B6/B7 48 times (the fp32 kernel), each decode step the
+   CUDA-core kernel 48 times. (d)
    phase 6's serving run in bf16 over int8 and over int4 weights: every
    request finishes, the audit is clean, each prefill forward of 9-256 rows
    launches the tensor-core B6/B7 48 times, each decode step the CUDA-core
@@ -181,7 +185,7 @@ result line):
    drafter drafting with the target's own weights: tokens equal spec-off,
    accept rate at least 0.8, B3 12 times a single-token draft forward. (e)
    int8 weights, 12 requests: tokens equal spec-off over the same tree, B6
-   48 times a verify window.
+   48 times a verify window (its 40 fp32 rows on the tensor cores).
 
 9. ZeRO-3 with the quantized weight wire and the quantized LM head
    (``zero_optimization: {stage: 3, zero_quantized_weights: true,
@@ -200,8 +204,13 @@ result line):
    under ``build/``: one NCCL all-reduce, and ``qall_gather`` of a
    [768, 2304] leaf equal to quantize-then-dequantize, bitwise. (d) fp32
    at B1 x T32 (a short fine-tuning batch: 32 rows of the head), 2 steps:
-   finite losses; B8 launches twice on the CUDA cores and never on the
-   tensor cores.
+   finite losses; B8 launches twice on the tensor cores (the 64-row
+   tiling) and never on the CUDA cores; then the same with
+   ``zero_quantize_block_size`` 96 (a block off 64-column panels): twice on
+   the CUDA cores and never on the tensor cores. (e) (b)'s configuration
+   with ``zero_quantize_block_size`` 128, 3 steps: the loss starts near
+   ln(V) and stays finite, B8 launches 3 times on the tensor cores (the
+   128-column tiles) and never on the CUDA cores; step time beside (b)'s.
 
 10. blocksparse attention: GPT-2-125M at full width and depth with
    ``sparse_attention=FixedSparsityConfig(num_heads=12, block=128,
@@ -231,7 +240,7 @@ Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
 only, delta on both; B9's by route). The last lines are the card's name and power limit
-(nvidia-smi), a ``{"kernels": [...]}`` line (26 kernels) and the ``{"ok": true, ...}`` line.
+(nvidia-smi), a ``{"kernels": [...]}`` line (30 kernels) and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -302,22 +311,25 @@ BWD_PATH = {"float32": ("delta", *BWD_TF32_KERNELS), "bfloat16": ("delta", *BWD_
 # tensor-core one for bf16 / fp16 (its single-cast instance in stochastic_mode)
 FWD_PATH = {"float32": ("fwd_tf32",), "bfloat16": ("fwd_tc",),
             "stochastic": ("fwd_tc_stochastic",)}
-# each tensor-core library, the kernels whose every instance must hold wgmma
-# (HGMMA in SASS), and their instances
+# each tensor-core library, its kernels whose every instance must hold wgmma
+# (HGMMA in SASS), and each kernel's instances
 # (flash: bf16 / fp16 x D 64 / 96 / 128 x the default and the single-cast
 # (stochastic_mode) function; flash 3xTF32: D 64 / 96 / 128; B6/B7: bf16 /
-# fp16 x int8 / int4 x 64 / 128 rows a block; B8: fp32 / bf16 / fp16 x; B9:
-# bf16 / fp16 x D 64 / 96 / 128)
-TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel",), 12),
-              "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel"), 12),
-              "flash_attention_fwd_tf32": (("flash_fwd_tf32_kernel",), 3),
-              "flash_attention_bwd_tf32": (("flash_bwd_dq_tf32_kernel",
-                                            "flash_bwd_dkv_tf32_kernel"), 3),
-              "int8_matmul_tc": (("qmatmul_tc_kernel",), 8),
-              "dequant_matmul_tc": (("dequant_matmul_tc_kernel",), 3),
-              "blocksparse_attention_fwd_tc": (("blocksparse_fwd_tc_kernel",), 6),
-              "blocksparse_attention_bwd_tc": (("blocksparse_bwd_dq_tc_kernel",
-                                                "blocksparse_bwd_dkv_tc_kernel"), 6)}
+# fp16 x int8 / int4 x 64 / 128 rows a block, and fp32 x int8 / int4 x 64 /
+# 128 rows a block; B8: fp32 / bf16 / fp16 x x 5 tilings (128 rows x 256 /
+# 128 / 64 columns, 64 rows x 256 / 128 columns); B9: bf16 / fp16 x D 64 /
+# 96 / 128)
+TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel", 12),),
+              "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", 12),
+                                         ("flash_bwd_dkv_tc_kernel", 12)),
+              "flash_attention_fwd_tf32": (("flash_fwd_tf32_kernel", 3),),
+              "flash_attention_bwd_tf32": (("flash_bwd_dq_tf32_kernel", 3),
+                                           ("flash_bwd_dkv_tf32_kernel", 3)),
+              "int8_matmul_tc": (("qmatmul_tc_kernel", 8), ("qmatmul_tc_f32_kernel", 4)),
+              "dequant_matmul_tc": (("dequant_matmul_tc_kernel", 15),),
+              "blocksparse_attention_fwd_tc": (("blocksparse_fwd_tc_kernel", 6),),
+              "blocksparse_attention_bwd_tc": (("blocksparse_bwd_dq_tc_kernel", 6),
+                                               ("blocksparse_bwd_dkv_tc_kernel", 6))}
 # B5's mma.sync instances: bf16 / fp16 x D 64 / 96 / 128 x dense / int8 /
 # int4 x one or two 16-row m tiles hold HMMA; fp32's 9 (CUDA cores) none. An
 # instance's mangled name starts its template arguments with its type
@@ -383,6 +395,10 @@ SPARSE_GPT_LAYOUT = dict(num_heads=12, block=128, num_local_blocks=4, num_global
 # B6/B7 against their plain versions, relative to the largest output entry:
 # fp32 -- both accumulate in fp32 in another order; bf16 -- both round once
 QMM_RTOL = {"float32": 5e-5, "bfloat16": 2e-2, "float16": 2e-2}
+# an fp32 route of B6/B7/B8 against the float64 product over the unrounded
+# weights, relative to its largest entry: both are fp32-accurate products
+# (the tensor-core kernels' fp32 accumulators truncate: ~4e-6 at D 768)
+DQM_FP64_RTOL = 1e-5
 
 
 class Failed(Exception):
@@ -557,9 +573,9 @@ def phase_build(torch, ctx):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"phase1 ptxas {name}: {line.strip()}")
-    for lib, (kernels, instances) in TC_KERNELS.items():
+    for lib, kernels in TC_KERNELS.items():
         counts = sass_tensor_ops(_build, lib)
-        for kernel in kernels:
+        for kernel, instances in kernels:
             per_instance = sorted(c for fn, c in counts.items() if kernel in fn)
             log(f"phase1 sass {lib} {kernel}: {len(per_instance)} instances, "
                 f"HGMMA per instance {per_instance}")
@@ -567,9 +583,8 @@ def phase_build(torch, ctx):
                   f"{kernel} in {lib}: {len(per_instance)} instances, expected {instances}, "
                   f"each with wgmma ({per_instance})")
     for lib in TF32_MMA_LIBS:
-        kernels, instances = TC_KERNELS[lib]
         counts = sass_tensor_ops(_build, lib, op="HMMA")
-        for kernel in kernels:
+        for kernel, instances in TC_KERNELS[lib]:
             per_instance = sorted(c for fn, c in counts.items() if kernel in fn)
             log(f"phase1 sass {lib} {kernel}: HMMA (mma.sync) per instance {per_instance}")
             check(len(per_instance) == instances and min(per_instance) > 0,
@@ -913,17 +928,29 @@ def _dqm_exact(torch, x, q, s, z, F):
     return x.double() @ w
 
 
+# B8's rows of the {"kernels"} line, by phase 2 case (M, D, F, block, dtype):
+# the tensor-core kernel at the LM head's shape (phases 9a / 9b), under 64
+# rows (9d's B1 x T32 head) and at a block of 128 (9e), and the CUDA-core
+# kernel at 9d's head with a block of 96 (off 64-column panels)
+DQM_ROWS = {(4096, 768, 50304, 256, "float32"): "dqm_tc",
+            (32, 768, 50304, 256, "float32"): "dqm_tc_few_rows",
+            (4096, 768, 50304, 128, "float32"): "dqm_tc_block128",
+            (32, 768, 50304, 96, "float32"): "dqm"}
+
+
 def phase_kernels_dequant(torch, ctx):
     """B8 against its plain version, each case through its route
-    (``dqm_route``, checked by the counters): the main-path shape (the
-    GPT-2-125M LM head at B8 x T512, x fp32 as the forward casts it, and
-    with bf16 x) and the leaf at 2048 rows on the tensor cores; M = 1 and
-    37, D 64 x F 96 (an effective block of 96), a block of 128, ragged D
-    and F on the CUDA cores; every case also bitwise on a re-run, with its
-    error and its plain version's against the float64 product. At the
-    main-path shape the tensor-core and the CUDA-core kernel are timed on
-    the same inputs against the plain version, cuBLAS fp32 (TF32 off) over
-    the weight already dequantized, and the dequantize plus cuBLAS."""
+    (``dqm_route``, checked by the counters): on the tensor cores the
+    main-path shape (the GPT-2-125M LM head at B8 x T512, x fp32 as the
+    forward casts it, and with bf16 x), 9d's head at 32 rows, M = 1, 37 and
+    63 (the 64-row tiling), blocks of 64 and 128 at 4096 and 256 rows (the
+    narrower tiles), the leaf at 2048 rows; on the CUDA cores an effective
+    block of 96 (D 64 x F 96, and 9d's head at a block of 96) and ragged D;
+    every case also bitwise on a re-run, with its error and its plain
+    version's against the float64 product. The rows of ``DQM_ROWS`` also
+    time the plain version, cuBLAS fp32 (TF32 off) over the weight already
+    dequantized, the dequantize plus cuBLAS, and, for a tensor-core row, the
+    CUDA-core kernel on the same inputs."""
     from deepspeed_tpu_torch.comm.quantized import dequantize_blockwise, quantize_blockwise
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
@@ -933,11 +960,16 @@ def phase_kernels_dequant(torch, ctx):
     V = 50304
     tc, cc = "tensor_cores", "cuda_cores"  # the route each case must take
     cases = [(4096, 768, V, 256, "float32", tc), (4096, 768, V, 256, "bfloat16", tc),
-             (32, 768, V, 256, "float32", cc),  # phase 9d's head: the CUDA-core route's row
-             (1, 768, V, 256, "float32", cc), (37, 768, V, 256, "float32", cc),
-             (64, 64, 96, 256, "float32", cc), (256, 768, 3072, 128, "float32", cc),
+             (32, 768, V, 256, "float32", tc),  # phase 9d's head
+             (1, 768, V, 256, "float32", tc), (37, 768, V, 256, "float32", tc),
+             (63, 768, V, 128, "float32", tc), (1, 768, V, 64, "float32", tc),
+             (4096, 768, V, 128, "float32", tc),  # phase 9e's head
+             (4096, 768, V, 64, "bfloat16", tc), (256, 768, 3072, 128, "float32", tc),
+             (256, 768, 3072, 64, "float16", tc),
+             (32, 768, V, 96, "float32", cc),  # 9d's head at a block of 96
+             (64, 64, 96, 256, "float32", cc),
              (2048, 768, 2304, 256, "float32", tc), (2048, 768, 2304, 256, "bfloat16", tc),
-             (100, 300, 1000, 256, "float32", cc), (37, 768, 3000, 128, "bfloat16", cc),
+             (100, 300, 1000, 256, "float32", cc), (37, 768, 3000, 128, "bfloat16", tc),
              (200, 768, 2304, 256, "float16", tc)]
     worst = {"cuda_cores": 0.0, "tensor_cores": 0.0}
     payloads = {}
@@ -965,37 +997,15 @@ def phase_kernels_dequant(torch, ctx):
         del exact
         kernel_ms = timer.ms(lambda: dqm.dequant_matmul(x, q, s, z, orig_size=F), iters=7)
         bound_ms, bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size())
+        tile = dqm.dqm_tile(M, Fp, nb) if route == tc else None
         line = (f"phase2 dequant_matmul M{M} D{D} F{F} Fp{Fp} block{Fp // nb} {dt} "
-                f"route={route} launches(cuda_cores, tensor_cores)={moved}: "
+                f"route={route} tile={tile} launches(cuda_cores, tensor_cores)={moved}: "
                 f"max_abs_err={err:.3e} rel_err={rel:.3e} rel_err_vs_fp64={rel64:.3e} "
                 f"plain_rel_err_vs_fp64={plain_rel64:.3e} "
                 f"bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
                 f"bound_ms={bound_ms:.4f} ({bound_by})")
-        if (M, D, F, dt) == (4096, 768, V, "float32"):
-            w_hat = dequantize_blockwise(q, s, z, orig_size=F)
-            core = dqm._launch(x, q, s, z, F, "cuda_cores")
-            core_rel64 = ((core.double() - _dqm_exact(torch, x, q, s, z, F)).abs().max().item()
-                          / top)
-            core_ms = timer.ms(lambda: dqm._launch(x, q, s, z, F, "cuda_cores"), iters=7)
-            core_bound_ms, core_bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size(), cc)
-            plain_ms = timer.ms(lambda: dqm.dequant_matmul_ref(x, q, s, z, orig_size=F), iters=7)
-            library_ms = timer.ms(lambda: torch.matmul(x, w_hat), iters=7)
-            deq_library_ms = timer.ms(
-                lambda: torch.matmul(x, dequantize_blockwise(q, s, z, orig_size=F)), iters=7)
-            line += (f" cuda_core_kernel_ms={core_ms:.4f} (earlier run: {OLD_DQM_MS}) "
-                     f"cuda_core_rel_err_vs_fp64={core_rel64:.3e} "
-                     f"cuda_core_bound_ms={core_bound_ms:.4f} ({core_bound_by}) "
-                     f"plain_ms={plain_ms:.4f} library_ms(cuBLAS fp32, TF32 off, dequantize "
-                     f"excluded)={library_ms:.4f} dequantize+cuBLAS_ms={deq_library_ms:.4f} "
-                     f"kernel_tflops(fp32 function)={2.0 * M * D * F / kernel_ms / 1e9:.2f} "
-                     f"speedup_vs_cuda_cores={core_ms / kernel_ms:.2f} "
-                     f"vs_cuBLAS_fp32={library_ms / kernel_ms:.2f}")
-            ctx["dqm_tc"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by)
-            worst["cuda_cores"] = max(worst["cuda_cores"],
-                                      (core.float() - ref.float()).abs().max().item())
-            del w_hat, core
-        if (M, D, F, dt) == (32, 768, V, "float32"):  # the shape the CUDA-core route serves
+        row = DQM_ROWS.get((M, D, F, block, dt))
+        if row:
             w_hat = dequantize_blockwise(q, s, z, orig_size=F)
             plain_ms = timer.ms(lambda: dqm.dequant_matmul_ref(x, q, s, z, orig_size=F), iters=7)
             library_ms = timer.ms(lambda: torch.matmul(x, w_hat), iters=7)
@@ -1006,9 +1016,21 @@ def phase_kernels_dequant(torch, ctx):
                      f"excluded)={library_ms:.4f} dequantize+cuBLAS_ms={deq_library_ms:.4f} "
                      f"kernel/cuBLAS={kernel_ms / library_ms:.2f} "
                      f"kernel/bound={kernel_ms / bound_ms:.2f} "
-                     f"cuda_core_ceiling_ms={core_bound_ms:.4f} ({core_bound_by})")
-            ctx["dqm"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
+                     f"cuda_core_ceiling_ms={core_bound_ms:.4f} ({core_bound_by}) "
+                     f"kernel_tflops(fp32 function)={2.0 * M * D * F / kernel_ms / 1e9:.2f}")
+            if route == tc:  # the CUDA-core kernel on the same inputs
+                core = dqm._launch(x, q, s, z, F, cc)
+                core_rel64 = ((core.double() - _dqm_exact(torch, x, q, s, z, F)).abs().max()
+                              .item() / top)
+                core_ms = timer.ms(lambda: dqm._launch(x, q, s, z, F, cc), iters=7)
+                earlier = f" (earlier run: {OLD_DQM_MS})" if (M, block) == (4096, 256) else ""
+                line += (f" cuda_core_kernel_ms={core_ms:.4f}{earlier} "
+                         f"cuda_core_rel_err_vs_fp64={core_rel64:.3e} "
+                         f"speedup_vs_cuda_cores={core_ms / kernel_ms:.2f}")
+                worst[cc] = max(worst[cc], (core.float() - ref.float()).abs().max().item())
+                del core
+            ctx[row] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
             del w_hat
         log(line)
         tag = f"dequant_matmul {M, D, F, block, dt}"
@@ -1017,8 +1039,10 @@ def phase_kernels_dequant(torch, ctx):
               f"{tag}: route {route}, launches {moved}; expected {expect}, {want}")
         check(torch.equal(out, again), f"{tag}: two runs differ")
         check(rel <= QMM_RTOL[dt], f"{tag}: rel error {rel}")
+        if dt == "float32":  # the fp32 function, held to the float64 product
+            check(rel64 <= DQM_FP64_RTOL, f"{tag}: {rel64} from the float64 product")
         del out, again, ref
-    ctx["dqm"]["max_abs_err"] = max(ctx["dqm"]["max_abs_err"], worst["cuda_cores"])
+    ctx["dqm"]["max_abs_err"] = worst["cuda_cores"]
     ctx["dqm_tc"]["max_abs_err"] = worst["tensor_cores"]
     for lib in ("dequant_matmul", "dequant_matmul_tc"):
         for line in _build.build_logs.get(lib, "").splitlines():
@@ -1030,8 +1054,13 @@ def phase_kernels_dequant(torch, ctx):
 def qmm_bound(M, D, F, group, bits, dtype, elt):
     """Least time of one quantized product: the weight payload (a byte per
     weight, half for int4), its fp32 scales, x read and out written once;
-    2 flops per multiply-add at the peak of x's dtype."""
+    2 flops per multiply-add at the peak of x's dtype, and for fp32 x the
+    fp32 function at the card's fastest rate for it, three bf16 passes (x
+    times the scales as three exact parts against the exact integers) at
+    the bf16 peak, whichever route serves the case."""
     nbytes = D * F * bits / 8 + 4 * D * F / group + (M * D + M * F) * elt
+    if dtype == "float32":
+        return bound(nbytes, 3 * 2.0 * M * D * F, "bfloat16")
     return bound(nbytes, 2.0 * M * D * F, dtype)
 
 
@@ -1115,16 +1144,19 @@ QMM_TC_TARGET_SPEEDUP = 3.0
 
 def phase_kernels_qmatmul_tc(torch, ctx):
     """B6 / B7 on the tensor cores (``csrc/int8_matmul_tc.cu``) at the 8
-    projection shapes of GPT-2-125M and gpt2-350m, M in QMM_TC_ROWS, bf16
-    and fp16 x, groups 128 and 64: at most QMM_TC_MAX_ULP ulps of the dtype
-    of the fp32 plain version on the entries of at least 1e-3 of the
-    largest, bitwise on a re-run, two tensor-core launches and no other.
-    bf16 at group 128 is timed at every M and at the crossover rows: the
-    tensor-core kernel, the CUDA-core kernel on the same inputs (each
-    launched directly, whatever the route), the plain version, cuBLAS over
-    the weight already dequantized to bf16, and the bound; fp16 at M=256.
-    The result line's rows are mlp_up (768 x 3072) at M=128, a prefill
-    chunk of phase 7d, bf16, group 128."""
+    projection shapes of GPT-2-125M and gpt2-350m, M in QMM_TC_ROWS, groups
+    128 and 64, bf16 / fp16 and fp32 x: bf16 / fp16 at most QMM_TC_MAX_ULP
+    ulps of the dtype of the fp32 plain version on the entries of at least
+    1e-3 of the largest; fp32 (three bf16 parts of x times the scales
+    against the exact integers) within QMM_RTOL of the largest output of the
+    plain version and DQM_FP64_RTOL of the float64 product; all bitwise on a
+    re-run, two tensor-core launches and no other. bf16 and fp32 at group
+    128 are timed at every M and at the crossover rows: the tensor-core
+    kernel, the CUDA-core kernel on the same inputs (each launched directly,
+    whatever the route), the plain version, cuBLAS over the weight already
+    dequantized to x's dtype, and the bound; fp16 at M=256. The result
+    line's rows are mlp_up (768 x 3072) at M=128, a prefill chunk of phase
+    7d (bf16) and 7c (fp32), group 128."""
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
     from deepspeed_tpu_torch.ops.quantizer import dequantize, quantize
@@ -1132,8 +1164,9 @@ def phase_kernels_qmatmul_tc(torch, ctx):
     timer = ctx["timer"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(5)
-    worst = {8: 0.0, 4: 0.0}
+    worst = {(bits, f32): 0.0 for bits in (8, 4) for f32 in (False, True)}
     worst_ulp = {"bfloat16": 0.0, "float16": 0.0}
+    worst_fp32 = {"plain": 0.0, "fp64": 0.0}
     speedups = {}
     for bits in (8, 4):
         name = f"int{bits}_matmul"
@@ -1143,12 +1176,14 @@ def phase_kernels_qmatmul_tc(torch, ctx):
             for group in (QUANT_GROUP, 64):
                 w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
                 q, s = quantize(w, bits=bits, num_groups=D * F // group)
+                w64 = (q.double().reshape(-1, group) * s.double().reshape(-1, 1)).reshape(D, F)
                 q = im.pack_int4(q) if bits == 4 else q
-                w_bf16 = dequantize(im.unpack_int4(q) if bits == 4 else q, s, torch.bfloat16)
+                w_deq = {dt: dequantize(im.unpack_int4(q) if bits == 4 else q, s,
+                                        getattr(torch, dt)) for dt in ("bfloat16", "float32")}
                 rows = sorted(set(QMM_TC_ROWS) | (set(QMM_CROSSOVER_ROWS) if group == QUANT_GROUP
                                                   else set()))
                 for M in rows:
-                    for dt in ("bfloat16", "float16"):
+                    for dt in ("bfloat16", "float16", "float32"):
                         dtype = getattr(torch, dt)
                         x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
                         tag = f"{name} M{M} D{D} F{F} group{group} {dt}"
@@ -1161,50 +1196,73 @@ def phase_kernels_qmatmul_tc(torch, ctx):
                             moved = {k: getattr(im, c) - before[k]
                                      for k, c in QMM_COUNTERS.items()}
                             ref = plain_fn(x.float(), q, s, group)
-                            ulps = ulp_err(torch, out, ref, dtype)
                             err = (out.float() - ref).abs().max().item()
                             bitwise = torch.equal(out, again)
-                            worst[bits] = max(worst[bits], err)
-                            worst_ulp[dt] = max(worst_ulp[dt], ulps)
-                            line += (f" route=tc: max_ulp_err={ulps:.2f} max_abs_err={err:.3e} "
-                                     f"bitwise_rerun={bitwise} launches={moved}")
+                            worst[(bits, dt == "float32")] = max(worst[(bits, dt == "float32")],
+                                                                 err)
+                            if dt == "float32":
+                                rel = err / ref.abs().max().item()
+                                exact = x.double() @ w64
+                                rel64 = (out.double() - exact).abs().max().item() / \
+                                    exact.abs().max().item()
+                                worst_fp32["plain"] = max(worst_fp32["plain"], rel)
+                                worst_fp32["fp64"] = max(worst_fp32["fp64"], rel64)
+                                line += (f" route=tc: rel_err={rel:.3e} rel_err_vs_fp64="
+                                         f"{rel64:.3e} max_abs_err={err:.3e} "
+                                         f"bitwise_rerun={bitwise} launches={moved}")
+                                check(rel <= QMM_RTOL[dt], f"{tag}: rel error {rel}")
+                                check(rel64 <= DQM_FP64_RTOL, f"{tag}: {rel64} from float64")
+                                del exact
+                            else:
+                                ulps = ulp_err(torch, out, ref, dtype)
+                                worst_ulp[dt] = max(worst_ulp[dt], ulps)
+                                line += (f" route=tc: max_ulp_err={ulps:.2f} max_abs_err={err:.3e} "
+                                         f"bitwise_rerun={bitwise} launches={moved}")
+                                check(ulps <= QMM_TC_MAX_ULP, f"{tag}: {ulps} {dt} ulps")
                             check(bitwise, f"{tag}: two runs differ")
-                            check(ulps <= QMM_TC_MAX_ULP, f"{tag}: {ulps} {dt} ulps")
                             want = {k: 2 if k == f"int{bits}_tc" else 0 for k in QMM_COUNTERS}
                             check(moved == want, f"{tag}: launches {moved}, expected {want}")
                             del out, again, ref
-                        timed = group == QUANT_GROUP and (dt == "bfloat16" or M == 256)
+                        timed = group == QUANT_GROUP and (dt != "float16" or M == 256)
                         if timed:
                             tc_ms = timer.ms(lambda: im._launch_tc(name, x, q, s, F, group, bits))
                             line += f" tc_ms={tc_ms:.4f}"
-                        if timed and dt == "bfloat16":
+                        if timed and dt != "float16":
+                            w_lib = w_deq[dt]
                             cc_ms = timer.ms(lambda: im._launch(name, x, q, s, F, group, bits))
                             plain_ms = timer.ms(lambda: plain_fn(x, q, s, group))
-                            library_ms = timer.ms(lambda: torch.matmul(x, w_bf16))
-                            bound_ms, bound_by = qmm_bound(M, D, F, group, bits, dt, 2)
+                            library_ms = timer.ms(lambda: torch.matmul(x, w_lib))
+                            bound_ms, bound_by = qmm_bound(M, D, F, group, bits, dt,
+                                                           x.element_size())
+                            lib = "cuBLAS fp32, TF32 off" if dt == "float32" else "cuBLAS bf16"
                             line += (f" cuda_cores_ms={cc_ms:.4f} plain_ms={plain_ms:.4f} "
-                                     f"library_ms(cuBLAS bf16, dequantize excluded)="
+                                     f"library_ms({lib}, dequantize excluded)="
                                      f"{library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by}) "
                                      f"cuda_cores/tc={cc_ms / tc_ms:.2f} "
                                      f"tc/cublas={tc_ms / library_ms:.2f} "
                                      f"plan={im.tc_plan(M, D, F, sms)}")
                             if M == 256:
-                                speedups[(bits, D, F)] = (cc_ms / tc_ms, tc_ms / library_ms)
+                                speedups[(bits, dt, D, F)] = (cc_ms / tc_ms, tc_ms / library_ms)
                             if (D, F, M) == (768, 3072, 128):
-                                ctx[f"qmm_tc_int{bits}"] = dict(
+                                key = "qmm_tc_f32" if dt == "float32" else "qmm_tc"
+                                ctx[f"{key}_int{bits}"] = dict(
                                     ms=tc_ms, plain_ms=plain_ms, library_ms=library_ms,
                                     bound_ms=bound_ms, bound_by=bound_by)
                         log(line)
-                del w, q, s, w_bf16
+                del w, q, s, w64, w_deq
     for bits in (8, 4):
-        ctx[f"qmm_tc_int{bits}"]["max_abs_err"] = worst[bits]
-    for (bits, D, F), (fast, vs_lib) in speedups.items():
-        log(f"phase2 int{bits}_matmul_tc M256 D{D} F{F} bf16: {fast:.2f}x faster than the "
-            f"CUDA-core kernel (target {QMM_TC_TARGET_SPEEDUP}: "
-            f"{'met' if fast >= QMM_TC_TARGET_SPEEDUP else 'missed'}), {vs_lib:.2f}x cuBLAS "
-            f"(target 1.5: {'met' if vs_lib <= 1.5 else 'missed'})")
+        ctx[f"qmm_tc_int{bits}"]["max_abs_err"] = worst[(bits, False)]
+        ctx[f"qmm_tc_f32_int{bits}"]["max_abs_err"] = worst[(bits, True)]
+    for (bits, dt, D, F), (fast, vs_lib) in speedups.items():
+        target = QMM_TC_TARGET_SPEEDUP if dt == "bfloat16" else 1.0
+        log(f"phase2 int{bits}_matmul_tc M256 D{D} F{F} {dt}: {fast:.2f}x faster than the "
+            f"CUDA-core kernel (target {target}: {'met' if fast >= target else 'missed'}), "
+            f"{vs_lib:.2f}x cuBLAS (target {1.5 if dt == 'bfloat16' else 1.0}: "
+            f"{'met' if vs_lib <= (1.5 if dt == 'bfloat16' else 1.0) else 'missed'})")
     log(f"phase2 int8/int4_matmul_tc: largest ulps bf16={worst_ulp['bfloat16']:.2f} "
-        f"fp16={worst_ulp['float16']:.2f} over {len(QMM_SHAPES) * len(QMM_TC_ROWS) * 8} cases")
+        f"fp16={worst_ulp['float16']:.2f}; fp32 largest rel error vs plain="
+        f"{worst_fp32['plain']:.3e} vs fp64={worst_fp32['fp64']:.3e} over "
+        f"{len(QMM_SHAPES) * len(QMM_TC_ROWS) * 12} cases")
     for line in _build.build_logs.get("int8_matmul_tc", "").splitlines():
         if "registers" in line or "spill" in line or "C75" in line:
             log(f"phase2 int8_matmul_tc ptxas: {line.strip()}")
@@ -2385,22 +2443,46 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
 
 def _qmm_expected(torch, cfg, params, rows, dtype, n=1):
     """The B6/B7 launches of ``n`` forwards of ``rows`` rows over ``params``:
-    none for dense weights; else 4 a layer (qkv, attn_out, mlp_up,
-    mlp_down) of the kernel the rows' route names: none past 256 rows (the
-    dequantize route), the tensor cores for bf16 / fp16 past the crossover
-    (every GPT-2 projection layout at group 128 qualifies), the CUDA cores
-    otherwise (decode steps of 8 rows, fp32)."""
+    none for dense weights; else one a layer for each projection (qkv,
+    attn_out, mlp_up, mlp_down) on the kernel its ``qmm_route`` names: none
+    past 256 rows (the dequantize route), the tensor cores past the
+    crossover (every GPT-2 projection layout at group 128 qualifies, in
+    every dtype), the CUDA cores otherwise (decode steps of 8 rows)."""
     from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
     want = {k: 0 for k in QMM_COUNTERS}
-    qleaf = params["blocks"]["qkv_w"]
-    if not gpt._is_qleaf(qleaf) or rows > im._MAX_M:
+    if not gpt._is_qleaf(params["blocks"]["qkv_w"]):
         return want
-    kind = "int4" if "q4" in qleaf else "int8"
-    tc = dtype in (torch.bfloat16, torch.float16) and rows > im._TC_MIN_M
-    want[f"{kind}_tc" if tc else kind] = 4 * cfg.n_layer * n
+    for leaf in ("qkv_w", "attn_out_w", "mlp_up_w", "mlp_down_w"):
+        node = params["blocks"][leaf]
+        bits = 4 if "q4" in node else 8
+        q = node["q4" if bits == 4 else "q"]
+        D, F = q.shape[1], q.shape[-1] * (2 if bits == 4 else 1)
+        route = im.qmm_route(rows, dtype, D, F, D * F // node["s"].shape[-1], bits)
+        if route != "dequantize":
+            want[f"int{bits}" + ("_tc" if route == "tensor_cores" else "")] += cfg.n_layer * n
     return want
+
+
+def _first_flip(torch, cfg, qparams, toks_q, toks_d, wl) -> str:
+    """The first request whose served tokens differ between the quantized
+    tree and its dequantized dense tree: the position, both tokens, and the
+    gap between the two largest logits of the dense tree's forward over the
+    shared prefix there (a near tie flips under another rounding)."""
+    from deepspeed_tpu_torch.models import gpt
+
+    for i, (a, b) in enumerate(zip(toks_q, toks_d)):
+        if a == b:
+            continue
+        j = next(k for k, (u, v) in enumerate(zip(a, b)) if u != v)
+        ids = np.concatenate([wl[i].prompt, np.asarray(b[:j], np.int32)])[None]
+        logits = gpt.forward(cfg, gpt.dequantize_params(qparams),
+                             torch.as_tensor(ids, device="cuda"), train=False)[0, -1].float()
+        top2 = torch.topk(logits, 2).values
+        return (f"request {i} token {j}: quantized {a[j]} dense {b[j]} "
+                f"dense top-2 logit gap {float(top2[0] - top2[1]):.3e}")
+    return "none"
 
 
 def _match(a, b) -> float:
@@ -2598,17 +2680,32 @@ def phase_quantized(torch, ctx):
     del p350
     torch.cuda.empty_cache()
 
-    # (c) paged serving over int8 weights (fp32, dense pools): tokens equal
-    # serving over the dequantized dense tree
-    qparams = gpt.quantize_for_inference(cfg, params, bits=8, group_size=QUANT_GROUP)
-    rep, toks_q, wl, _, eng_q = _serve(torch, cfg, qparams, "float32")
-    _, toks_d, _, _, _ = _serve(torch, cfg, gpt.dequantize_params(qparams), "float32")
-    log(f"phase7c serving int8 weights fp32: finished={rep['finished']}/{len(wl)} "
-        f"audit_ok={rep['pool_audit_ok']} match vs dequantized dense={_match(toks_q, toks_d):.4f} "
-        f"tpot_p50_ms={rep['per_token_p50_ms']} tokens_per_sec={rep['tokens_per_sec']}")
-    check(toks_q == toks_d, "int8-weight served tokens differ from the dequantized dense run")
-    del eng_q
-    torch.cuda.empty_cache()
+    # (c) paged serving over int8 and int4 weights (fp32, dense pools):
+    # tokens equal serving over the dequantized dense tree; each prefill
+    # forward of 9-256 rows on B6/B7's fp32 tensor-core route, each decode
+    # step on the CUDA cores (checked per call in _serve)
+    for bits in (8, 4):
+        kind = f"int{bits}"
+        qparams = gpt.quantize_for_inference(cfg, params, bits=bits, group_size=QUANT_GROUP)
+        rep, toks_q, wl, launches, eng_q = _serve(torch, cfg, qparams, "float32")
+        _, toks_d, _, _, _ = _serve(torch, cfg, gpt.dequantize_params(qparams), "float32")
+        tc = launches[f"{kind}_tc_in_prefill"]
+        log(f"phase7c serving {kind} weights fp32: finished={rep['finished']}/{len(wl)} "
+            f"audit_ok={rep['pool_audit_ok']} match vs dequantized dense="
+            f"{_match(toks_q, toks_d):.4f} tpot_p50_ms={rep['per_token_p50_ms']} "
+            f"tokens_per_sec={rep['tokens_per_sec']} prefill_forwards_by_rows="
+            f"{launches['prefill_rows']} tc_launches_in_prefill={tc} "
+            f"cuda_core_launches_in_decode={launches[f'{kind}_in_decode']}")
+        if toks_q != toks_d:  # where the greedy paths part, and by how much
+            log("phase7c first differing request: " + _first_flip(torch, cfg, qparams,
+                                                                  toks_q, toks_d, wl))
+        check(toks_q == toks_d,
+              f"{kind}-weight served tokens differ from the dequantized dense run")
+        check(tc > 0 and tc % (4 * cfg.n_layer) == 0,
+              f"7c {kind}: {tc} tensor-core launches in prefill")
+        ctx[f"qmm_tc_f32_{kind}"]["launches"] = tc
+        del eng_q
+        torch.cuda.empty_cache()
     phase_quantized_prefill(torch, ctx)
 
 
@@ -2830,13 +2927,15 @@ def phase_spec_serving(torch, ctx):
     check(launches_d["decode"] > 0, "the draft model launched no B3")
 
     # (e) int8 weights, fp32, 12 requests: tokens = spec-off over the same
-    # tree; 48 B6 launches per verify window (checked in _serve)
+    # tree; 48 B6 launches per verify window of 40 rows, on the fp32
+    # tensor-core route (checked in _serve)
     qparams = gpt.quantize_for_inference(cfg, params, bits=8, group_size=QUANT_GROUP)
     wl12 = (12,) + SERVE_WORKLOAD[1:]
     rep_e, toks_e, _, launches_e, _ = _serve(torch, cfg, qparams, "float32", workload=wl12, **SPEC)
     _, toks_eo, _, _, _ = _serve(torch, cfg, qparams, "float32", workload=wl12, decode_block=1)
     log(f"phase8e fp32 int8 weights spec: {_spec_line(rep_e)} match vs spec-off="
-        f"{_match(toks_e, toks_eo):.4f} B6 launches in verify={launches_e['int8_in_verify']}")
+        f"{_match(toks_e, toks_eo):.4f} B6 launches in verify: tensor cores="
+        f"{launches_e['int8_tc_in_verify']} CUDA cores={launches_e['int8_in_verify']}")
     check(toks_e == toks_eo, "int8-weight spec tokens differ from spec-off")
     del qparams
     torch.cuda.empty_cache()
@@ -2968,20 +3067,46 @@ def phase_zero3(torch, ctx):
         if os.path.exists(store):
             os.remove(store)
 
-    # (d) fp32 at B1 x T32, 2 steps: the head's product has 32 rows, under
-    # the tensor-core tile, and takes the CUDA-core kernel
-    engine = _engine(_train_config(1, zero_optimization=ZERO3Q), cfg)
-    batches = [{"input_ids": rng.integers(0, V, (1, 32)).astype(np.int32)} for _ in range(2)]
-    _reset_counts()  # the short-batch fp32 stage-3 training main path
-    losses = [engine.train_batch(b)["loss"].item() for b in batches]
-    torch.cuda.synchronize()
+    # (d) fp32 at B1 x T32, 2 steps: the head's product has 32 rows and
+    # takes the tensor-core kernel's 64-row tiling; then the same with
+    # zero_quantize_block_size 96, a block off 64-column panels, which keeps
+    # the CUDA-core kernel
+    for block, route in ((256, "b8"), (96, "b8_cuda_cores")):
+        engine = _engine(_train_config(1, zero_optimization={
+            **ZERO3Q, "zero_quantize_block_size": block}), cfg)
+        batches = [{"input_ids": rng.integers(0, V, (1, 32)).astype(np.int32)} for _ in range(2)]
+        _reset_counts()  # the short-batch fp32 stage-3 training main path
+        losses = [engine.train_batch(b)["loss"].item() for b in batches]
+        torch.cuda.synchronize()
+        launches = {"b8": dqm.tc_launches, "b8_cuda_cores": dqm.launches}
+        log(f"phase9d train fp32 zero3 quantized weights+head gpt2-125m B1xT32 block{block}: "
+            f"losses={losses} launches over 2 steps={launches}")
+        check(all(math.isfinite(x) for x in losses), f"9d block {block}: losses {losses}")
+        want = {"b8": 0, "b8_cuda_cores": 0, route: 2}
+        check(launches == want, f"9d block {block}: B8 launches {launches}, expected {want}")
+        ctx["dqm_tc_few_rows" if route == "b8" else "dqm"]["launches"] = launches[route]
+        del engine
+        torch.cuda.empty_cache()
+
+    # (e) (b)'s configuration with zero_quantize_block_size 128 (a user's
+    # block to cut quantization error), 3 steps: the head's product on the
+    # tensor cores' 128-column tiles, its step beside (b)'s
+    engine = _engine(_train_config(8, bf16={"enabled": True}, zero_optimization={
+        **ZERO3Q, "zero_quantize_block_size": 128}), cfg)
+    _reset_counts()  # the bf16 stage-3 training main path at a block of 128
+    losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, 3)
     launches = {"b8": dqm.tc_launches, "b8_cuda_cores": dqm.launches}
-    log(f"phase9d train fp32 zero3 quantized weights+head gpt2-125m B1xT32: losses={losses} "
-        f"launches over 2 steps={launches}")
-    check(all(math.isfinite(x) for x in losses), f"9d losses not finite: {losses}")
-    check(launches == {"b8": 0, "b8_cuda_cores": 2},
-          f"9d B8 launches {launches}, expected 2 on the CUDA cores and none on the tensor cores")
-    ctx["dqm"]["launches"] = launches["b8_cuda_cores"]
+    log(f"phase9e train bf16 master zero3 quantized weights+head block128 gpt2-125m B8xT512: "
+        f"losses={losses} grad_norms={norms} launches over 3 steps={launches} "
+        f"step_ms (CUDA events, median of steps 2-3)={float(np.median(step_ms[1:])):.3f} "
+        f"step_ms_all={[round(x, 3) for x in step_ms]} host_issue_ms (median of steps 2-3)="
+        f"{float(np.median(host_ms[1:])):.3f}; phase9b (block 256) in this run: "
+        f"step_ms={steady_ms:.3f}")
+    check(abs(losses[0] - math.log(V)) < 0.5, f"9e step-1 loss {losses[0]} far from ln(V)")
+    check(all(math.isfinite(x) for x in losses + norms), "9e loss or grad norm not finite")
+    check(launches == {"b8": 3, "b8_cuda_cores": 0},
+          f"9e B8 launches {launches}, expected 3 on the tensor cores and none on the CUDA cores")
+    ctx["dqm_tc_block128"]["launches"] = launches["b8"]
     del engine
     torch.cuda.empty_cache()
 
@@ -3281,13 +3406,20 @@ def main() -> int:
          "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_int{bits}"]} for bits in (8, 4)] + [
         {"name": f"int{bits}_matmul_tc", "route": "cuda", "source": QMM_TC_SRC,
          "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_tc_int{bits}"]} for bits in (8, 4)] + [
+        {"name": f"int{bits}_matmul_tc_fp32", "route": "cuda", "source": QMM_TC_SRC,
+         "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_tc_f32_int{bits}"]}
+        for bits in (8, 4)] + [
         {"name": "paged_verify_attention" + ("" if kind == "dense" else f"_{kind}"),
          "route": "cuda", "source": VERIFY_SRC, "replaces": VERIFY_TPU,
          **ctx[f"verify_{kind}"]} for kind in PAGED_KINDS] + [
         {"name": "dequant_matmul", "route": "cuda", "source": DQM_SRC, "replaces": DQM_TPU,
          **ctx["dqm"]},
         {"name": "dequant_matmul_tc", "route": "cuda", "source": DQM_TC_SRC,
-         "replaces": DQM_TPU, **ctx["dqm_tc"]}] + [
+         "replaces": DQM_TPU, **ctx["dqm_tc"]},
+        {"name": "dequant_matmul_tc_few_rows", "route": "cuda", "source": DQM_TC_SRC,
+         "replaces": DQM_TPU, **ctx["dqm_tc_few_rows"]},
+        {"name": "dequant_matmul_tc_block128", "route": "cuda", "source": DQM_TC_SRC,
+         "replaces": DQM_TPU, **ctx["dqm_tc_block128"]}] + [
         {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}"),
          "route": "cuda", "source": BS_FWD_SRC if n == "fwd" else BS_BWD_SRC,
          "replaces": BS_TPU[n], **ctx[f"bs_cuda_{n}"]} for n in BS_KERNELS] + [

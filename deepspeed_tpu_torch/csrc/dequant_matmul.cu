@@ -5,9 +5,11 @@
 //
 // Replaces the TPU kernel deepspeed_tpu/ops/pallas/dequant_matmul.py:_kernel
 // (dequant_matmul) for the shapes the tensor-core kernel
-// (dequant_matmul_tc.cu) does not take: fewer than 64 rows of x, D off 64-row
-// steps, scale blocks that are not a multiple of 256 columns
-// (dequant_matmul.py dqm_route). q is the uint8 [D, Fp] 8-bit payload of
+// (dequant_matmul_tc.cu) does not take: D off 64-row steps, and scale blocks
+// off 64-column steps, which comm/quantized.py effective_block gives to rows
+// shorter than the block or a user's zero_quantize_block_size sets (no
+// preset's head has one at the default of 256) (dequant_matmul.py
+// dqm_route). q is the uint8 [D, Fp] 8-bit payload of
 // comm/quantized.py quantize_blockwise; scale and zero_point are fp32
 // [D, nb], one affine pair per `block = Fp / nb` columns of a row (any block
 // size: each column resolves its own block). F <= Fp is the unpadded width:
@@ -25,7 +27,8 @@
 // at 3.35 TB/s. The reference computes an fp32 product, which TF32 or a
 // single bf16 pass would change; the tensor-core kernel keeps it with three
 // bf16 passes and takes that shape (about 4.7x faster on the H100, PERF.md),
-// so this kernel serves the few-row and ragged shapes.
+// and every shape with whole 64-column blocks at any number of rows, so this
+// kernel serves the ragged ones.
 //
 // Design, right and simple first: a block of 256 threads owns a 128 x 128
 // output tile and walks D in steps of 16. Each step stages a [128, 16] tile

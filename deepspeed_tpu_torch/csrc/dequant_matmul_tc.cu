@@ -4,17 +4,20 @@
 //
 //   out[M, F] = x[M, D] @ (q * scale + zero_point)[:, :F]
 //
-// Replaces, for the shapes dequant_matmul.py dqm_route sends here (M >= 64,
-// D % 64 == 0, a scale block that is a multiple of 256 columns: the LM head
-// of every preset at any training batch), the TPU kernel
+// Replaces, for the shapes dequant_matmul.py dqm_route sends here (D % 64 ==
+// 0 and a scale block that is a multiple of 64 columns, at any number of
+// rows: the LM head of every preset at every batch, with the default block
+// of 256 and with the blocks of 64 and 128 a user may set), the TPU kernel
 // deepspeed_tpu/ops/pallas/dequant_matmul.py:_kernel (pallas_call :86).
-// Other shapes keep the CUDA-core kernel of csrc/dequant_matmul.cu. q is the
-// uint8 [D, Fp] payload of comm/quantized.py quantize_blockwise with fp32
-// [D, nb] scales and zero-points, one pair per block = Fp / nb columns of a
-// row; x (fp32, bf16 or fp16) is read as fp32, the sum is an fp32-accurate
-// product, the output is rounded once to x's dtype.
+// Effective blocks off 64-column steps (short rows, comm/quantized.py
+// effective_block; no preset's head has one) and D off 64-row steps keep the
+// CUDA-core kernel of csrc/dequant_matmul.cu. q is the uint8 [D, Fp] payload
+// of comm/quantized.py quantize_blockwise with fp32 [D, nb] scales and
+// zero-points, one pair per block = Fp / nb columns of a row; x (fp32, bf16
+// or fp16) is read as fp32, the sum is an fp32-accurate product, the output
+// is rounded once to x's dtype.
 //
-// The fp32 function on 16-bit tensor cores. A block's 256 output columns lie
+// The fp32 function on 16-bit tensor cores. The columns a warpgroup owns lie
 // in one scale block b, so with s_k = scale[k, b], z_k = zero_point[k, b]
 // and v = x s rounded once in fp32:
 //
@@ -40,65 +43,109 @@
 // same arithmetic in IEEE fp32 (dequant_matmul_split_ref) lies as close as
 // the plain version.
 //
-// Work split: a block owns 128 rows of x (two warpgroups of 64) and 256
-// output columns, and walks D in 64-deep steps. Each step's raw tiles (x in
-// its dtype, the q bytes, the step's 64 scales and zero-points of block b)
-// come into one shared stage by 16-byte cp.async copies; every thread then
-// converts its share into one of two buffers: x's three parts as K-major
-// [128][64] bf16 tiles and q widened to an MN-major [64][256] bf16 tile
-// (a byte permute puts each byte under the exponent of 2^23, one
-// subtraction removes it), all 128-byte swizzled (csrc/tc_tile.cuh). A
-// warpgroup's step is 24 wgmma m64n128k16 (4 k16 x 3 parts x 2 column
-// halves); they run while both warpgroups convert the next step into the
-// other buffer and the stage is refilled with the step after it. The sum
-// over D runs in one order inside one block, with no atomics: a result is
-// bitwise repeatable.
+// Work split: a block is two warpgroups and walks D in 64-deep steps. Each
+// warpgroup owns 64 rows of x and WN output columns inside one scale block,
+// and reads its own A set: three parts of v = x s for its rows and its
+// block. Two tilings (RW, the warpgroups stacked along rows, 2 or 1):
+//   RW 2 (more than 64 rows): a block owns 128 rows and BN columns, BN = 256,
+//        128 or 64, the largest that divides the scale block (one block b for
+//        the whole tile; sets 0 and 1 are the two row halves);
+//   RW 1 (at most 64 rows, where a second row half would be empty): a block
+//        owns 64 rows and BN = 256 or 128 columns, warpgroup w the column
+//        half w (sets 0 and 1 are the same rows times the scales of each
+//        half's block, which may differ: a block of 128 or 64 columns).
+// A block of 64 or 128 columns thus shrinks the tile to the block (RW 2) or
+// gives each warpgroup its own block (RW 1) instead of converting x once per
+// sub-panel of a 256-column tile: three parts of two 128-row sets take 96 KB
+// a buffer, which with the double buffer, the q tiles and the raw stage
+// exceeds the 227 KB of shared memory. Each step's raw tiles come into a
+// ring of shared stages (as many as fit, up to three): x in its dtype and
+// the q bytes by TMA (one thread starts both; rows of x past M arrive as
+// zeros), the step's 64 scales and zero-points of each set's block by
+// 4-byte cp.async copies. (Moving x and q from 16-byte cp.async copies,
+// some 3000 a step at 128 rows, to TMA took 11% off the LM head's product
+// on the H100: 2.268 -> 2.024 ms, scripts/quant_tc_bench.py. A step still
+// takes about twice its products' time, ~3.5 us against 1.7.) Every thread then
+// converts its share into one of two buffers: the A sets' three parts as
+// K-major [128][64] bf16 tiles (set s is rows 64 s ..; at RW 1 rows past M
+// are not converted, their outputs never being stored) and q widened to an
+// MN-major [64][BN] bf16 tile (a byte permute puts each byte under the
+// exponent of 2^23, one subtraction removes it), all 128-byte swizzled
+// (csrc/tc_tile.cuh). A warpgroup's step is 12 wgmma per 128 of its columns
+// (4 k16 x 3 parts; m64n128k16, or m64n64k16 for WN = 64); they run while
+// both warpgroups convert the next step into the other buffer, and its
+// stage is refilled with the step `stages` further on. The sum over D runs
+// in one order inside one block, with no atomics: a result is bitwise
+// repeatable.
+// The wrapper picks the tiling from the shapes (dequant_matmul.py dqm_tile,
+// whose docstring gives the measurements behind it).
 //
-// What bounds it on the H100: operations. At the main-path shape (the
-// GPT-2-125M LM head at B8 x T512: x [4096, 768] fp32, q [768, 50432], F
-// 50304) the function is 3.17e11 flops; three bf16 passes are 9.5e11 at the
-// dense bf16 peak of 989 TFLOP/s, 0.96 ms (one fp32 pass on the CUDA cores
-// would be 4.7 ms at 67 TFLOP/s), against 0.25 ms for its bytes (mostly the
-// 824 MB fp32 output) at 3.35 TB/s. The conversions (about 9 instructions an
-// element of x per 256 columns, 3 a byte of q per 128 rows) and the shared
-// memory the wgmmas read run beside the products; a block's first stage and
-// its epilogue do not, one block fitting an SM.
+// What bounds it on the H100: at many rows, operations. At the main-path
+// shape (the GPT-2-125M LM head at B8 x T512: x [4096, 768] fp32, q [768,
+// 50432], F 50304) the function is 3.17e11 flops; three bf16 passes are
+// 9.5e11 at the dense bf16 peak of 989 TFLOP/s, 0.96 ms (one fp32 pass on
+// the CUDA cores would be 4.7 ms at 67 TFLOP/s), against 0.25 ms for its
+// bytes (mostly the 824 MB fp32 output) at 3.35 TB/s. The conversions
+// (about 9 instructions an element of x per tile of columns, 3 a byte of q
+// per tile of rows) and the shared memory the wgmmas read run beside the
+// products; a block's first stage and its epilogue do not, one block
+// fitting an SM. At a few rows (a short fine-tuning batch: 32 rows), bytes:
+// the 38.7 MB payload, 0.0116 ms at 3.35 TB/s, read once as the grid's
+// column tiles stream it.
 
 #include <stdint.h>
 
+#include <type_traits>
+
+#include <cuda.h>
+
 #include "common.cuh"
 #include "tc_tile.cuh"
+#include "tma_map.cuh"
 
 namespace {
 
 using namespace ds::tc;
 
-constexpr int kBM = 128;     // rows of x a block owns: two warpgroups of 64
 constexpr int kWgRows = 64;  // rows of one wgmma m64
-constexpr int kBN = 256;     // output columns a block owns, inside one scale block
 constexpr int kBK = 64;      // rows of D a step consumes
 constexpr int kThreads = 256;
-constexpr int kParts = 3;  // hi, mid, lo of x s
+constexpr int kParts = 3;    // hi, mid, lo of x s
+constexpr int kSets = 2;     // A sets, one per warpgroup
+constexpr int kPairs = kSets * kWgRows;  // (set, row) pairs converted a step
 
 // Shared layout (bytes from a 1024-aligned base): two buffers of converted
-// tiles (x's three parts [128][64] bf16, K-major; q [64][256] bf16, MN-major,
-// four 64-column panels), then the stage of raw tiles (x [128][64] in T,
-// q [64][256] bytes, the step's 64 scales, then its 64 zero-points).
-template <typename T> struct Layout {
-  static constexpr int a_tile = kBM * kBK * 2;
-  static constexpr int b_tile = kBK * kBN * 2;
+// tiles (for each part, both sets' [64][64] bf16 rows, K-major: one [128][64]
+// tile; q [64][BN] bf16, MN-major, BN / 64 panels), then a ring of `stages`
+// stages of raw tiles (x [64 RW][64] in T and q [64][BN] bytes by TMA, then
+// for each set the step's 64 scales and 64 zero-points: one set for RW 2,
+// whose sets share a block), then one mbarrier a stage. The ring takes as
+// many stages as fit, up to three. The side sums of the epilogue reuse the
+// first stage.
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block may opt in to
+template <typename T, int RW, int BN> struct Layout {
+  static constexpr int rows = RW * kWgRows;  // rows of x a block owns
+  static constexpr int a_tile = kPairs * kBK * 2;
+  static constexpr int b_tile = kBK * BN * 2;
   static constexpr int buf = kParts * a_tile + b_tile;
   static constexpr int raw_row = kBK * static_cast<int>(sizeof(T));  // bytes of a raw x row
-  static constexpr int raw_x = 2 * buf;
-  static constexpr int raw_q = raw_x + kBM * raw_row;
-  static constexpr int raw_s = raw_q + kBK * kBN;
-  static constexpr int bytes = raw_s + 2 * kBK * 4;
+  static constexpr int scale_sets = RW == 2 ? 1 : kSets;
+  static constexpr int raw_x = 0;  // offsets inside a stage
+  static constexpr int raw_q = raw_x + rows * raw_row;
+  static constexpr int raw_s = raw_q + kBK * BN;
+  static constexpr int stage = (raw_s + scale_sets * 2 * kBK * 4 + 127) / 128 * 128;
+  static constexpr int raw = 2 * buf;  // the first stage
+  static constexpr int fit = (kSmemMax - 1024 - raw - 8 * 3) / stage;
+  static constexpr int stages = fit < 3 ? fit : 3;
+  static constexpr int bars = raw + stages * stage;
+  static constexpr int bytes = bars + 8 * stages;
   static_assert(a_tile % 1024 == 0 && buf % 1024 == 0, "swizzled tiles sit on 1024 bytes");
+  static_assert(stages >= 1 && kPairs * 4 <= stage, "a stage fits; the side sums fit in one");
 };
 
-// Row (within one wgmma's 64 rows) and column (within its 128) of
-// accumulator entry i of wgmma m64n128 for this thread (warp w of its
-// warpgroup, lane l).
+// Row (within one wgmma's 64 rows) and column (within its 128, or 64) of
+// accumulator entry i of wgmma m64n128 (m64n64) for this thread (warp w of
+// its warpgroup, lane l).
 __device__ __forceinline__ int acc_row(int w, int l, int i) {
   return 16 * w + (l >> 2) + 8 * ((i >> 1) & 1);
 }
@@ -116,33 +163,12 @@ __device__ __forceinline__ uint32_t widen_pair(uint32_t word, int u) {
   return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
 }
 
-// hi, mid, lo bf16 pairs of two fp32 values (a in the low halves), each the
-// top 16 bits of what the parts before it leave: hi + mid + lo == a exactly.
-__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid,
-                                       uint32_t& lo) {
-  const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
-  hi = __byte_perm(ua, ub, 0x7632);
-  const float ra = a - __uint_as_float(ua & 0xffff0000u);
-  const float rb = b - __uint_as_float(ub & 0xffff0000u);
-  const uint32_t va = __float_as_uint(ra), vb = __float_as_uint(rb);
-  mid = __byte_perm(va, vb, 0x7632);
-  const float sa = ra - __uint_as_float(va & 0xffff0000u);
-  const float sb = rb - __uint_as_float(vb & 0xffff0000u);
-  lo = __byte_perm(__float_as_uint(sa), __float_as_uint(sb), 0x7632);
-}
-
-// Elements 8c .. 8c + 7 of a raw x row as fp32. fp32 rows are 256 bytes:
-// lane c of a quarter-warp reads half (c / 4) % 2 of its 32 bytes first, so
-// the eight lanes' 16-byte reads cover the 32 banks once.
+// Elements 8c .. 8c + 7 of a raw x row as fp32 (fp32 rows: read_row8_f32's
+// bank-conflict-free order).
 template <typename T>
 __device__ __forceinline__ void read_x8(const unsigned char* row, int c, float (&x)[8]) {
   if constexpr (sizeof(T) == 4) {
-    const int h = (c >> 2) & 1;
-    const float4 a = *reinterpret_cast<const float4*>(row + 32 * c + 16 * h);
-    const float4 b = *reinterpret_cast<const float4*>(row + 32 * c + 16 * (1 - h));
-    const float4 lo4 = h ? b : a, hi4 = h ? a : b;
-    x[0] = lo4.x; x[1] = lo4.y; x[2] = lo4.z; x[3] = lo4.w;
-    x[4] = hi4.x; x[5] = hi4.y; x[6] = hi4.z; x[7] = hi4.w;
+    read_row8_f32(row, c, x);
   } else {
     ds::load16<T>(reinterpret_cast<const T*>(row + 16 * c), x);
   }
@@ -161,83 +187,129 @@ template <> __device__ __forceinline__ void store2<__half>(__half* dst, float a,
   *reinterpret_cast<uint32_t*>(dst) = pack2<__half>(a, b);
 }
 
-template <typename T>
+// One k16 step of a warpgroup's columns: wgmma m64n128k16 for a 64-entry
+// accumulator, m64n64k16 for a 32-entry one.
+template <int N>
+__device__ __forceinline__ void mma_step(float (&d)[N], uint64_t da, uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_ss_mn128<__nv_bfloat16>(d, da, db);
+  } else {
+    wgmma_ss_mn64<__nv_bfloat16>(d, da, db);
+  }
+}
+
+// RW: warpgroups stacked along rows (2: 128 rows x BN columns, one scale
+// block; 1: 64 rows x BN columns, warpgroup w the column half w)
+template <typename T, int RW, int BN>
 __global__ void __launch_bounds__(kThreads, 1)
-dequant_matmul_tc_kernel(const T* __restrict__ x, long long ldx, const uint8_t* __restrict__ q,
+dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                         const __grid_constant__ CUtensorMap tmq,
                          const float* __restrict__ scale, const float* __restrict__ zero_point,
                          T* __restrict__ out, int M, int D, int Fp, int nb, int F) {
-  using L = Layout<T>;
+  using L = Layout<T, RW, BN>;
+  constexpr int kWN = BN * RW / 2;                  // output columns of a warpgroup
+  constexpr int kSub = kWN >= 128 ? kWN / 128 : 1;  // wgmmas a k16 step and part
+  constexpr int kAcc = kWN >= 128 ? 64 : 32;        // accumulator entries of one
   extern __shared__ unsigned char smem_raw[];
-  __shared__ float sxz[kBM];
   const uint32_t raw_u32 = smem_u32(smem_raw);
   const uint32_t base = (raw_u32 + 1023u) & ~1023u;
-  const unsigned char* const base_ptr = smem_raw + (base - raw_u32);
+  unsigned char* const base_ptr = smem_raw + (base - raw_u32);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, wg_warp = warp & 3;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int blk = n0 / (Fp / nb);  // the scale block of all of the block's columns
+  const int m0 = blockIdx.y * L::rows, n0 = blockIdx.x * BN;
+  const int block = Fp / nb;
+  // the scale block of each set: RW 2, the tile's; RW 1, each column half's
+  const int blk[kSets] = {n0 / block, (n0 + (RW == 1 ? kWN : 0)) / block};
+  const int rows_in = min(L::rows, M - m0);  // rows of x that exist
   const int n_steps = D / kBK;
 
-  // step k's raw tiles into the stage: rows of x past M zero-filled
+  // one mbarrier a ring stage: its TMA tiles have landed
+  const uint32_t bar0 = base + L::bars;
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tmx)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tmq)) : "memory");
+#pragma unroll
+    for (int k = 0; k < L::stages; ++k) mbar_init(bar0 + 8 * k, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // step k's raw tiles into stage k % stages: x and q by TMA (one thread;
+  // rows of x past M arrive as zeros), the scales and zero-points by 4-byte
+  // cp.async copies (a row of them need not be 16-byte aligned for TMA)
   auto load_raw = [&](int k) {
-    const int k0 = k * kBK;
-    constexpr int xc = L::raw_row / 16;  // 16-byte chunks of a raw x row
-    for (int idx = tid; idx < kBM * xc; idx += kThreads) {
-      const int r = idx / xc, c = idx % xc;
-      const bool in = m0 + r < M;
-      const T* src = x + (long long)(in ? m0 + r : 0) * ldx + k0 + c * (16 / sizeof(T));
-      cp_async16(base + L::raw_x + r * L::raw_row + c * 16, src, in);
+    const int k0 = k * kBK, slot = k % L::stages;
+    const uint32_t st = base + L::raw + slot * L::stage;
+    if (tid == 0) {
+      mbar_expect_tx(bar0 + 8 * slot, L::rows * L::raw_row + kBK * BN);
+      tma_load_2d(st + L::raw_x, &tmx, bar0 + 8 * slot, k0, m0);
+      tma_load_2d(st + L::raw_q, &tmq, bar0 + 8 * slot, n0, k0);
     }
-    constexpr int qc = kBN / 16;
-    for (int idx = tid; idx < kBK * qc; idx += kThreads) {
-      const int r = idx / qc, c = idx % qc;
-      cp_async16(base + L::raw_q + r * kBN + c * 16, q + (long long)(k0 + r) * Fp + n0 + c * 16,
-                 true);
-    }
-    if (tid < 2 * kBK) {
-      const float* src = (tid < kBK ? scale : zero_point) + (long long)(k0 + tid % kBK) * nb + blk;
-      cp_async4(base + L::raw_s + 4 * tid, src, true);
+    if (tid < L::scale_sets * 2 * kBK) {  // set, then scales / zero-points, then row
+      const int set = tid / (2 * kBK), kr = tid % kBK;
+      const float* src = ((tid / kBK) & 1 ? zero_point : scale) + (long long)(k0 + kr) * nb +
+                         blk[set];
+      cp_async4(st + L::raw_s + 4 * tid, src, true);
     }
   };
+  // step k's raw tiles have landed (the caller's barrier makes them
+  // visible to every thread)
+  auto wait_raw = [&](int k) {
+    cp_async_wait<L::stages - 1>();
+    mbar_wait(bar0 + 8 * (k % L::stages), (k / L::stages) & 1);
+  };
 
-  // the stage -> buffer `bf`: v = x s as three parts (and the side sums of
-  // this thread's rows), q - 128 widened; then the proxy fence that makes
-  // the tiles visible to wgmma
-  const int cx = tid & 7, rx = tid >> 3;  // x: chunk cx (k 8 cx ..) of rows rx + 32 j
+  // stage k % stages -> buffer k % 2: v = x s as three parts for each set
+  // (and the side sums of this thread's pairs), q - 128 widened; then the
+  // proxy fence that makes the tiles visible to wgmma. Pair p = 64 set +
+  // row; a thread converts chunk cx (k 8 cx ..) of pairs rx + 32 j.
+  const int cx = tid & 7, rx = tid >> 3;
   float xz[4] = {0.f, 0.f, 0.f, 0.f};
-  auto convert = [&](int bf) {
-    const float* rs = reinterpret_cast<const float*>(base_ptr + L::raw_s);
-    const uint32_t abuf = base + bf * L::buf, bbuf = abuf + kParts * L::a_tile;
-    float sv[8], zv[8];
+  auto convert = [&](int k) {
+    const unsigned char* st = base_ptr + L::raw + (k % L::stages) * L::stage;
+    const float* rs = reinterpret_cast<const float*>(st + L::raw_s);
+    const uint32_t abuf = base + (k & 1) * L::buf, bbuf = abuf + kParts * L::a_tile;
+    float sv[L::scale_sets][8], zv[L::scale_sets][8];
 #pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      sv[u] = rs[8 * cx + u];
-      zv[u] = rs[kBK + 8 * cx + u];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = rx + 32 * j;
-      float xv[8], v[8];
-      read_x8<T>(base_ptr + L::raw_x + r * L::raw_row, cx, xv);
+    for (int t = 0; t < L::scale_sets; ++t)
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
-        v[u] = __fmul_rn(xv[u], sv[u]);
-        xz[j] = fmaf(xv[u], zv[u], fmaf(128.0f, v[u], xz[j]));
+        sv[t][u] = rs[t * 2 * kBK + 8 * cx + u];
+        zv[t][u] = rs[t * 2 * kBK + kBK + 8 * cx + u];
       }
-      uint32_t hi[4], mid[4], lo[4];
+    // RW 2: raw rows rx + 32 j (j < 4) are pairs rx + 32 j; RW 1: raw rows
+    // rx + 32 j (j < 2) are pairs rx + 32 j (set 0) and 64 + rx + 32 j (set 1)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) split3(v[2 * u], v[2 * u + 1], hi[u], mid[u], lo[u]);
-      const uint32_t off = tile_offset<kBM>(r, cx);
-      st_shared16(abuf + off, make_uint4(hi[0], hi[1], hi[2], hi[3]));
-      st_shared16(abuf + L::a_tile + off, make_uint4(mid[0], mid[1], mid[2], mid[3]));
-      st_shared16(abuf + 2 * L::a_tile + off, make_uint4(lo[0], lo[1], lo[2], lo[3]));
+    for (int j = 0; j < 4 / kSets * RW; ++j) {
+      const int r = rx + 32 * j;
+      if (RW == 1 && r >= rows_in) continue;  // past M: its outputs are not stored
+      float xv[8];
+      read_x8<T>(st + L::raw_x + r * L::raw_row, cx, xv);
+#pragma unroll
+      for (int t = 0; t < L::scale_sets; ++t) {
+        const int jx = j + 2 * t;  // the pair: rx + 32 jx
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          v[u] = __fmul_rn(xv[u], sv[t][u]);
+          xz[jx] = fmaf(xv[u], zv[t][u], fmaf(128.0f, v[u], xz[jx]));
+        }
+        uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) split3(v[2 * u], v[2 * u + 1], hi[u], mid[u], lo[u]);
+        const uint32_t off = tile_offset<kPairs>(rx + 32 * jx, cx);
+        st_shared16(abuf + off, make_uint4(hi[0], hi[1], hi[2], hi[3]));
+        st_shared16(abuf + L::a_tile + off, make_uint4(mid[0], mid[1], mid[2], mid[3]));
+        st_shared16(abuf + 2 * L::a_tile + off, make_uint4(lo[0], lo[1], lo[2], lo[3]));
+      }
     }
-    // q: 8 bytes (row kr, columns 8 cc ..) a read, 8 reads a thread
+    // q: 8 bytes (row kr, columns 8 cc ..) a read
+    constexpr int qr = BN / 8;  // reads a row
 #pragma unroll
-    for (int j = 0; j < kBK * kBN / 8 / kThreads; ++j) {
-      const int idx = tid + kThreads * j, kr = idx >> 5, cc = idx & 31;
-      const uint2 w = *reinterpret_cast<const uint2*>(base_ptr + L::raw_q + kr * kBN + 8 * cc);
+    for (int j = 0; j < kBK * qr / kThreads; ++j) {
+      const int idx = tid + kThreads * j, kr = idx / qr, cc = idx % qr;
+      const uint2 w = *reinterpret_cast<const uint2*>(st + L::raw_q + kr * BN + 8 * cc);
       st_shared16(bbuf + tile_offset<kBK>(kr, cc),
                   make_uint4(widen_pair(w.x, 0), widen_pair(w.x, 2), widen_pair(w.y, 0),
                              widen_pair(w.y, 2)));
@@ -245,57 +317,67 @@ dequant_matmul_tc_kernel(const T* __restrict__ x, long long ldx, const uint8_t* 
     fence_proxy_async();
   };
 
-  float acc[2][64];
+  float acc[kSub][kAcc];
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < kSub; ++h)
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+    for (int i = 0; i < kAcc; ++i) acc[h][i] = 0.f;
 
-  // this warpgroup's products of buffer bf: its 64 rows x 256 columns
+  // this warpgroup's products of buffer bf: its set's 64 rows x its kWN
+  // columns (B panels from p0)
+  const int p0 = RW == 1 ? wg * (kWN / 64) : 0;
   auto mma = [&](int bf) {
-    const uint32_t abuf = base + bf * L::buf, bbuf = abuf + kParts * L::a_tile;
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
+    const uint32_t abuf = base + bf * L::buf + wg * kWgRows * kRowBytes;
+    const uint32_t bbuf = base + bf * L::buf + kParts * L::a_tile;
+#pragma unroll
+    for (int h = 0; h < kSub; ++h) fence_regs(acc[h]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint64_t db0 = desc_mnmajor<kBK>(bbuf, 0, kk), db1 = desc_mnmajor<kBK>(bbuf, 2, kk);
 #pragma unroll
       for (int p = 0; p < kParts; ++p) {
-        const uint64_t da = desc_kmajor<kBM>(abuf + p * L::a_tile + wg * kWgRows * kRowBytes, kk);
-        wgmma_ss_mn128<__nv_bfloat16>(acc[0], da, db0);
-        wgmma_ss_mn128<__nv_bfloat16>(acc[1], da, db1);
+        const uint64_t da = desc_kmajor<kPairs>(abuf + p * L::a_tile, kk);
+#pragma unroll
+        for (int h = 0; h < kSub; ++h)
+          mma_step(acc[h], da, desc_mnmajor<kBK>(bbuf, p0 + 2 * h, kk));
       }
     }
     wgmma_commit();
   };
 
-  load_raw(0);
-  cp_async_commit();
-  cp_async_wait<0>();
+  // the first `stages` steps' copies; then each step's products run while
+  // the next step is converted and the copies `stages` steps ahead land
+#pragma unroll
+  for (int k = 0; k < L::stages; ++k) {
+    if (k < n_steps) load_raw(k);
+    cp_async_commit();
+  }
+  wait_raw(0);
   __syncthreads();
   convert(0);
-  __syncthreads();  // buffer 0 is complete, the stage free
-  if (n_steps > 1) load_raw(1);
+  __syncthreads();  // buffer 0 is complete, stage 0 free
+  if (L::stages < n_steps) load_raw(L::stages);
   cp_async_commit();
 
   for (int k = 0; k < n_steps; ++k) {
     mma(k & 1);
     if (k + 1 < n_steps) {
-      cp_async_wait<0>();
+      wait_raw(k + 1);
       __syncthreads();  // step k + 1's raw tiles have landed, for every thread
-      convert((k + 1) & 1);
-      __syncthreads();  // the stage is free
-      if (k + 2 < n_steps) load_raw(k + 2);
+      convert(k + 1);
+      __syncthreads();  // its stage is free
+      if (k + 1 + L::stages < n_steps) load_raw(k + 1 + L::stages);
       cp_async_commit();
     }
     wgmma_wait<0>();
-    fence_regs(acc[0]);
-    fence_regs(acc[1]);
+#pragma unroll
+    for (int h = 0; h < kSub; ++h) fence_regs(acc[h]);
     __syncthreads();  // buffer (k + 1) & 1 is complete; buffer k & 1 is free
   }
 
-  // the side sums of a row: its eight lanes (tid & 7) in a fixed tree
+  // the side sums of a pair: its eight lanes (tid & 7) in a fixed tree,
+  // into the first stage (every copy has landed and been read)
+  float* const sxz = reinterpret_cast<float*>(base_ptr + L::raw);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     float v = xz[j];
@@ -307,14 +389,15 @@ dequant_matmul_tc_kernel(const T* __restrict__ x, long long ldx, const uint8_t* 
   __syncthreads();
 
   const bool pairs = (F & 1) == 0;  // two adjacent columns in one aligned store
+  const int row0 = m0 + (RW == 2 ? wg * kWgRows : 0), col0 = n0 + (RW == 1 ? wg * kWN : 0);
 #pragma unroll
-  for (int h = 0; h < 2; ++h)
+  for (int h = 0; h < kSub; ++h)
 #pragma unroll
-    for (int i = 0; i < 64; i += 2) {
-      const int rl = wg * kWgRows + acc_row(wg_warp, lane, i);
-      const int row = m0 + rl, col = n0 + 128 * h + acc_col(lane, i);
+    for (int i = 0; i < kAcc; i += 2) {
+      const int rl = acc_row(wg_warp, lane, i);
+      const int row = row0 + rl, col = col0 + 128 * h + acc_col(lane, i);
       if (row >= M || col >= F) continue;
-      const float add = sxz[rl];
+      const float add = sxz[wg * kWgRows + rl];  // the warpgroup's set, row rl
       const float v0 = acc[h][i] + add, v1 = acc[h][i + 1] + add;
       T* dst = out + (long long)row * F + col;
       if (pairs && col + 1 < F) {
@@ -326,23 +409,51 @@ dequant_matmul_tc_kernel(const T* __restrict__ x, long long ldx, const uint8_t* 
     }
 }
 
-template <typename T>
+template <typename T> constexpr CUtensorMapDataType kMapType =
+    sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+    : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+
+template <typename T, int RW, int BN>
 cudaError_t launch(const void* x, long long ldx, const void* q, const float* scale,
                    const float* zero_point, void* out, int M, int D, int Fp, int nb, int F,
                    cudaStream_t stream) {
-  constexpr int smem = Layout<T>::bytes + 1024;  // + the 1024-byte alignment
+  using L = Layout<T, RW, BN>;
+  constexpr int smem = L::bytes + 1024;  // + the 1024-byte alignment
+  CUtensorMap tmx, tmq;
+  if (!ds::tma::make_map(&tmx, kMapType<T>, x, M, D, ldx * sizeof(T), L::rows, kBK,
+                         CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !ds::tma::make_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, D, Fp, Fp, kBK, BN,
+                         CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
   static bool attr_set = false;  // once per instance: the attribute call costs host time
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dequant_matmul_tc_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        dequant_matmul_tc_kernel<T, RW, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
-  const dim3 grid((F + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  dequant_matmul_tc_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), ldx, static_cast<const uint8_t*>(q), scale, zero_point,
-      static_cast<T*>(out), M, D, Fp, nb, F);
+  const dim3 grid((F + BN - 1) / BN, (M + L::rows - 1) / L::rows);
+  dequant_matmul_tc_kernel<T, RW, BN><<<grid, kThreads, smem, stream>>>(
+      tmx, tmq, scale, zero_point, static_cast<T*>(out), M, D, Fp, nb, F);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_tile(int rw, int cols, const void* x, long long ldx, const void* q,
+                          const float* scale, const float* zero_point, void* out, int M, int D,
+                          int Fp, int nb, int F, cudaStream_t s) {
+  if (rw == 2 && cols == 256)
+    return launch<T, 2, 256>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+  if (rw == 2 && cols == 128)
+    return launch<T, 2, 128>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+  if (rw == 2 && cols == 64)
+    return launch<T, 2, 64>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+  if (rw == 1 && cols == 256)
+    return launch<T, 1, 256>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+  if (rw == 1 && cols == 128)
+    return launch<T, 1, 128>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -350,31 +461,35 @@ cudaError_t launch(const void* x, long long ldx, const void* q, const float* sca
 // x [M, D] with row stride ldx (elements; last dimension contiguous, rows
 // 16-byte aligned) in `dtype`; q uint8 [D, Fp] contiguous and 16-byte
 // aligned; scale / zero_point fp32 [D, nb] contiguous; out [M, F]
-// contiguous in x's dtype. The layouts taken: D % 64 == 0, Fp % nb == 0 with
-// a block Fp / nb that is a multiple of 256, F <= Fp. Returns the CUDA error
-// code of the launch (0 on success).
+// contiguous in x's dtype. The tiling: `row_wgs` (2: 128 rows x `cols` 256,
+// 128 or 64 columns a block; 1: 64 rows x `cols` 256 or 128, a warpgroup
+// each column half). The layouts taken: D % 64 == 0, Fp % nb == 0, F <= Fp,
+// and the columns of a warpgroup inside one scale block (Fp / nb a multiple
+// of `cols` for row_wgs 2, of cols / 2 for 1). Returns the CUDA error code of
+// the launch (0 on success).
 extern "C" int ds_dequant_matmul_tc(const void* x, long long ldx, const void* q,
                                     const float* scale, const float* zero_point, void* out,
-                                    int M, int D, int Fp, int nb, int F, int dtype,
-                                    void* stream) {
+                                    int M, int D, int Fp, int nb, int F, int dtype, int row_wgs,
+                                    int cols, void* stream) {
   if (M <= 0 || F <= 0) return 0;
   const int elt = dtype == ds::kF32 ? 4 : 2;
-  const bool layout = D > 0 && D % kBK == 0 && nb > 0 && Fp % nb == 0 &&
-                      (Fp / nb) % kBN == 0 && F <= Fp;
+  const int wn = row_wgs == 2 ? cols : cols / 2;  // columns of a warpgroup
+  const bool layout = D > 0 && D % kBK == 0 && nb > 0 && Fp % nb == 0 && wn >= 64 &&
+                      (Fp / nb) % wn == 0 && F <= Fp;
   const bool aligned = (ldx * elt) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(q) % 16 == 0;
   if (!layout || !aligned) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ds::kF32:
-      return static_cast<int>(
-          launch<float>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s));
+      return static_cast<int>(dispatch_tile<float>(row_wgs, cols, x, ldx, q, scale, zero_point,
+                                                   out, M, D, Fp, nb, F, s));
     case ds::kBF16:
-      return static_cast<int>(
-          launch<__nv_bfloat16>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s));
+      return static_cast<int>(dispatch_tile<__nv_bfloat16>(row_wgs, cols, x, ldx, q, scale,
+                                                           zero_point, out, M, D, Fp, nb, F, s));
     case ds::kF16:
-      return static_cast<int>(
-          launch<__half>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s));
+      return static_cast<int>(dispatch_tile<__half>(row_wgs, cols, x, ldx, q, scale, zero_point,
+                                                    out, M, D, Fp, nb, F, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

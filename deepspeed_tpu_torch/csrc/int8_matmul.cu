@@ -35,9 +35,11 @@
 // by a shuffle butterfly, the 8 warps in a fixed tree through shared
 // memory, and the cluster's blocks through distributed shared memory, each
 // block a share of the tile, in rank order. One launch, no scratch in
-// device memory, no atomics: a result is bitwise repeatable. bf16 / fp16 x
-// with more rows than a decode step take csrc/int8_matmul_tc.cu instead, on
-// the tensor cores (ops/cuda/int8_matmul.py qmm_route).
+// device memory, no atomics: a result is bitwise repeatable. x of every
+// dtype with more rows than a decode step takes csrc/int8_matmul_tc.cu
+// instead, on the tensor cores (ops/cuda/int8_matmul.py qmm_route), in the
+// layouts it takes (fp32 x: whole 64-column panels inside a group); this
+// kernel serves decode steps and the other layouts.
 
 #include <stdint.h>
 

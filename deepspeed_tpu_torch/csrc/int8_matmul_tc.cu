@@ -1,17 +1,19 @@
 // Quantized-weight matrix products on Hopper's tensor cores (sm_90a, wgmma),
-// for bf16 and fp16 x at prefill and verify row counts; plain C interface.
+// for x in fp32, bf16 or fp16 at prefill and verify row counts; plain C
+// interface.
 //
-// Replaces, for 16-bit x with more rows than a decode step, the TPU kernels
-// of deepspeed_tpu/ops/pallas/int8_matmul.py: _kernel (B6, int8, the
-// pallas_call at :101) and _kernel4 (B7, nibble-packed int4, :201). fp32 x,
-// decode rows and the layouts this kernel does not take keep the CUDA-core
-// kernel of csrc/int8_matmul.cu (ops/cuda/int8_matmul.py qmm_route picks).
-// Same function: out = x @ W with W[d, f] = float(q[d, f]) * s[(d F + f) /
+// Replaces, for x with more rows than a decode step, the TPU kernels of
+// deepspeed_tpu/ops/pallas/int8_matmul.py: _kernel (B6, int8, the
+// pallas_call at :101) and _kernel4 (B7, nibble-packed int4, :201). Decode
+// rows and the layouts this kernel does not take keep the CUDA-core kernel
+// of csrc/int8_matmul.cu (ops/cuda/int8_matmul.py qmm_route picks). Same
+// function: out = x @ W with W[d, f] = float(q[d, f]) * s[(d F + f) /
 // group] in fp32, x widened to fp32, fp32 sums, one rounding to x's dtype.
 // For B7, byte j of a packed row holds column j in its low nibble and column
 // j + F/2 in its high nibble.
 //
-// The fp32 function on 16-bit tensor cores. x is exact in its dtype and so
+// The fp32 function on 16-bit tensor cores, for bf16 / fp16 x
+// (qmatmul_tc_kernel). x is exact in its dtype and so
 // is q, but w = q s (the plain version's fp32 product) is not: w enters as hi
 // = T(w) and lo = T(w - hi), two wgmmas against the same x tile, which keep
 // w to ~2^-16 relative in bf16 where one cast keeps 2^-8. fp16's normal
@@ -21,7 +23,28 @@
 // scale over the block's chunk of D in [2^14, 2^15), and the fp32 sums by
 // 2^-e before they leave the block; both are exact.
 //
-// Work split: a block owns a tile of 128 rows of x (64 when M <= 64), two
+// For fp32 x (qmatmul_tc_f32_kernel) the weight's integers are the exact
+// operand instead: each 64-column panel lies in one group (group % 64 ==
+// 0), so for each 64-deep step v = x s_p (x times the panel's scales of
+// those rows of D) is rounded once in fp32 and cut into three bf16 parts by
+// truncation (tc_tile.cuh split3: hi + mid + lo == v exactly), and three
+// wgmmas sum v q = x (q s_p) in fp32 accumulators against the int8 / int4
+// values, exact in bf16. The plain version rounds w = q s to fp32 per
+// weight, this kernel x s per (row, panel): both are fp32-accurate products
+// of the same function (on the H100 within 2.3e-6 of the largest entry of
+// the float64 product at every projection shape of GPT-2-125M and
+// gpt2-350m, scripts/quant_tc_bench.py). Keeping the weight as the B
+// operand instead (w's three parts against x's three parts) would take
+// about six passes where this takes three. Every thread converts (x's rows
+// once for both panels, then the weight bytes; rows of x past M are not
+// converted, their outputs never being stored), then warpgroup p runs panel
+// p's products (12 wgmma m64n64k16 per 64 rows a step) while the TMA copies
+// of the next steps land in a ring of 2 (128 rows) or 3 (64 rows) stages;
+// the conversion and the products of one step do not overlap (the A tiles
+// take 96 KB at 128 rows, no room for a second buffer). The split along D
+// in a cluster and its reduction are the 16-bit kernel's.
+//
+// Work split (both kernels): a block owns a tile of 128 rows of x (64 when M <= 64), two
 // 64-column output panels and one chunk of D. int8: columns [128 b, 128 b +
 // 128). int4: packed columns [64 b, 64 b + 64), whose low nibbles are output
 // columns [64 b, 64 b + 64) and whose high nibbles [F/2 + 64 b, ...): each
@@ -41,9 +64,11 @@
 //
 // What bounds it on the H100: at M = 256 a GPT-2-125M projection is 0.3-1.2
 // GFLOP of the function, issued twice (hi and lo) on the tensor cores: 0.6-
-// 2.4 us at 989 TFLOP/s, against 0.2-0.7 us for its weight bytes at 3.35
-// TB/s. So the products bound it, and the widening (about 6 instructions a
-// weight, M / 128 times a weight) runs beside them. At the row counts of
+// 2.4 us at 989 TFLOP/s (fp32 x: three times, 0.9-3.7 us), against 0.2-0.7
+// us for its weight bytes at 3.35 TB/s. So the products bound it, and the
+// widening (about 6 instructions a weight, M / 128 times a weight) runs
+// beside them; fp32 x's conversion (about 9 instructions an element of x
+// per panel) does not. At the row counts of
 // prefill chunks and verify windows (40-128) and at narrow matrices the grid
 // is small (6-24 output tiles), so the split along D fills the card. The
 // tiles come by TMA because 16-byte cp.async copies are throttled per SM (a
@@ -61,6 +86,7 @@
 
 #include "common.cuh"
 #include "tc_tile.cuh"
+#include "tma_map.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -130,6 +156,57 @@ __device__ __forceinline__ void store_split(uint32_t hi_tile, uint32_t lo_tile, 
   const uint32_t off = tile_offset<kStep>(r, chunk);
   st_shared16(hi_tile + off, make_uint4(h[0], h[1], h[2], h[3]));
   st_shared16(lo_tile + off, make_uint4(l[0], l[1], l[2], l[3]));
+}
+
+// Four adjacent outputs from fp32 sums: T's packed pairs, or fp32 itself.
+template <typename T> __device__ __forceinline__ void store4(T* dst, float4 v) {
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack2<T>(v.x, v.y), pack2<T>(v.z, v.w));
+}
+template <> __device__ __forceinline__ void store4<float>(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+// The cluster's sum of one output tile: each block has written its sums
+// over its chunk of D to `red` ([kRows][kRedStride] fp32 in its shared
+// memory, panel p's columns at 64 p); each block adds its share of the tile
+// over the cluster's chunks, in rank order, and stores it. 4 sums a thread
+// at a time, two at once, every rank's value requested before the first is
+// added (distributed shared memory is slow to answer).
+template <typename T, int kRows>
+__device__ __forceinline__ void cluster_sum_store(cg::cluster_group& cluster, const float* red,
+                                                  T* out, int M, int F, int m0,
+                                                  const int (&col)[2], const bool (&live)[2]) {
+  cluster.sync();
+  const int cs = gridDim.z, rank = blockIdx.z, tid = threadIdx.x;
+  const int stride = 4 * cs * kThreads;
+  for (int e0 = 4 * (rank * kThreads + tid); e0 < kRows * kCols; e0 += 2 * stride) {
+    float4 t[2][kMaxCluster];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = e0 + u * stride, at = e / kCols * kRedStride + e % kCols;
+#pragma unroll
+      for (int k = 0; k < kMaxCluster; ++k)
+        if (k < cs && e < kRows * kCols)
+          t[u][k] = *reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(const_cast<float*>(red) + at, k));
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = e0 + u * stride, r = e / kCols, c = e % kCols, p = c / kPanelCols;
+      if (e >= kRows * kCols || m0 + r >= M || !(p ? live[1] : live[0])) continue;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int k = 0; k < kMaxCluster; ++k) {
+        if (k >= cs) break;
+        v.x += t[u][k].x;
+        v.y += t[u][k].y;
+        v.z += t[u][k].z;
+        v.w += t[u][k].w;
+      }
+      store4<T>(out + (long long)(m0 + r) * F + (p ? col[1] : col[0]) + c % kPanelCols, v);
+    }
+  }
+  cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
 // HALVES: 64-row halves of x a block owns (1 for M <= 64, else 2)
@@ -367,80 +444,212 @@ qmatmul_tc_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
                                    acc_col(lane, i)) =
             make_float2(acc[h][i] * down[i / 32], acc[h][i + 1] * down[i / 32]);
   }
-  cluster.sync();
-  // 4 sums a thread at a time, two at once, every rank's value requested
-  // before the first is added (distributed shared memory is slow to answer)
-  const int stride = 4 * cs * kThreads;
-  for (int e0 = 4 * (rank * kThreads + tid); e0 < kRows * kCols; e0 += 2 * stride) {
-    float4 t[2][kMaxCluster];
+  cluster_sum_store<T, kRows>(cluster, red, out, M, F, m0, col, live);
+}
+
+// ----------------------------------------------------------------- fp32 x
+// The ring of the fp32 kernel: each stage holds x's raw fp32 tile [rows][64]
+// (TMA, unswizzled: the threads read it to convert it) and the weight bytes;
+// then the A tiles (for each of the block's two 64-column panels, the three
+// bf16 parts of v = x s, K-major [rows][64] each) and one B tile (the exact
+// integers, MN-major [64][128], both panels). Three stages at 64 rows, two
+// at 128 (the A tiles take 96 KB there). The partial sums of the cluster's
+// reduction reuse the ring.
+constexpr int kParts = 3;  // hi, mid, lo of x s
+template <int BITS, int HALVES> struct LayoutF32 {
+  static constexpr int rows = HALVES * kWgRows;
+  static constexpr int row_bytes = BITS == 8 ? kCols : kPanelCols;  // weight bytes of a row
+  static constexpr int stages = HALVES == 2 ? 2 : 3;
+  static constexpr int q = rows * kStep * 4;  // after x's raw tile
+  static constexpr int stage = (q + kStep * row_bytes + 1023) / 1024 * 1024;
+  static constexpr int a_tile = rows * kStep * 2;  // one part of one panel
+  static constexpr int a = stages * stage;        // panel p, part j at a + (3 p + j) a_tile
+  static constexpr int b = a + 2 * kParts * a_tile;
+  static constexpr int bytes = b + kStep * kCols * 2;
+  static_assert(rows * kRedStride * 4 <= a, "the partial sums fit in the ring");
+};
+
+// A step's weight bytes as exact bf16 integers into the B tile: int8 row r's
+// 128 bytes are columns 0-127 (two panels); int4 row r's 64 packed bytes give
+// panel 0 (low nibbles) and panel 1 (high nibbles). An integer of at most 8
+// bits is its float's top 16 bits.
+template <int BITS>
+__device__ __forceinline__ void widen_exact(const unsigned char* raw, uint32_t btile, int tid) {
+  constexpr int row_bytes = BITS == 8 ? kCols : kPanelCols;
+  constexpr int per_row = row_bytes / 8;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int e = e0 + u * stride, at = e / kCols * kRedStride + e % kCols;
+  for (int j = 0; j < kStep * per_row / kThreads; ++j) {
+    const int idx = tid + kThreads * j, r = idx / per_row, c = idx % per_row;
+    const uint2 w8 = *reinterpret_cast<const uint2*>(raw + r * row_bytes + 8 * c);
+    float w[2][BITS == 4 ? 2 : 1][4];
+    ds::dequant_word<BITS>(w8.x, w[0]);
+    ds::dequant_word<BITS>(w8.y, w[1]);
 #pragma unroll
-      for (int k = 0; k < kMaxCluster; ++k)
-        if (k < cs && e < kRows * kCols)
-          t[u][k] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red + at, k));
+    for (int p = 0; p < (BITS == 8 ? 1 : 2); ++p) {
+      uint32_t h[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        h[u] = __byte_perm(__float_as_uint(w[u >> 1][p][2 * (u & 1)]),
+                           __float_as_uint(w[u >> 1][p][2 * (u & 1) + 1]), 0x7632);
+      st_shared16(btile + tile_offset<kStep>(r, BITS == 8 ? c : p * 8 + c),
+                  make_uint4(h[0], h[1], h[2], h[3]));
     }
+  }
+}
+
+// fp32 x: for each 64-column panel p (inside one group: group % 64 == 0),
+// v = x s_p rounded once in fp32 and cut into three exact bf16 parts
+// (split3), against the weight's exact integers; three wgmmas sum
+// v q = x (q s_p) in fp32 accumulators. Every thread converts (x's rows
+// once, for both panels; the weight bytes), then warpgroup p runs panel p's
+// products (12 wgmma m64n64k16 per 64 rows a step) while the ring's next
+// copies land. Rows of x past M are not converted: their outputs are never
+// stored.
+// tmx: x [M, D] fp32 in boxes of [64 HALVES rows][64 columns], unswizzled;
+// tmq: as qmatmul_tc_kernel's
+template <int BITS, int HALVES>
+__global__ void __launch_bounds__(kThreads, 1)
+qmatmul_tc_f32_kernel(const __grid_constant__ CUtensorMap tmx,
+                      const __grid_constant__ CUtensorMap tmq, const float* __restrict__ s,
+                      float* __restrict__ out, int M, int D, int F, int group, int chunk) {
+  using L = LayoutF32<BITS, HALVES>;
+  constexpr int kRows = L::rows;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw_u32 = smem_u32(smem_raw);
+  const uint32_t base = (raw_u32 + 1023u) & ~1023u;
+  unsigned char* const base_ptr = smem_raw + (base - raw_u32);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = gridDim.z, rank = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, wg_warp = warp & 3;
+  const int m0 = blockIdx.y * kRows, rows_in = min(kRows, M - m0);
+  const int qc0 = blockIdx.x * L::row_bytes;
+  const int col[2] = {qc0, BITS == 8 ? qc0 + kPanelCols : F / 2 + qc0};
+  const bool live[2] = {col[0] < F, col[1] < F};
+  const int gpr = F / group;                              // groups per row
+  const int gidx[2] = {col[0] / group, col[1] / group};  // each panel's group
+  const int d0 = rank * chunk;
+  const int n = max(0, min(chunk, D - d0)) / kStep;  // this block's steps
+
+  __shared__ __align__(8) uint64_t tma_bar[L::stages];
+  const uint32_t bar0 = smem_u32(&tma_bar[0]);
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tmx)) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(&tmq)) : "memory");
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int e = e0 + u * stride, r = e / kCols, c = e % kCols, p = c / kPanelCols;
-      if (e >= kRows * kCols || m0 + r >= M || !(p ? live[1] : live[0])) continue;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < L::stages; ++k) mbar_init(bar0 + 8 * k, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // step k's tiles into ring slot k % stages (one thread; rows of x past M
+  // and columns past a row arrive as zeros)
+  auto load_stage = [&](int k) {
+    const int slot = k % L::stages;
+    const uint32_t st = base + slot * L::stage, bar = bar0 + 8 * slot;
+    const int d = d0 + k * kStep;
+    mbar_expect_tx(bar, kRows * kStep * 4 + kStep * L::row_bytes);
+    tma_load_2d(st, &tmx, bar, d, m0);
+    tma_load_2d(st + L::q, &tmq, bar, qc0, d);
+  };
+  if (tid == 0)
+    for (int k = 0; k < min(n, L::stages); ++k) load_stage(k);
+
+  float acc[HALVES][32];
 #pragma unroll
-      for (int k = 0; k < kMaxCluster; ++k) {
-        if (k >= cs) break;
-        v.x += t[u][k].x;
-        v.y += t[u][k].y;
-        v.z += t[u][k].z;
-        v.w += t[u][k].w;
+  for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+
+  const int cx = tid & 7, rx = tid >> 3;  // x: chunk cx (k 8 cx ..) of rows rx + 32 j
+  for (int k = 0; k < n; ++k) {
+    // the step's scales of this thread's 8 rows of D for each panel (0 past
+    // F), read before the tiles are waited for
+    float sc[2][8];
+    const long long drow = d0 + k * kStep + 8 * cx;
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        sc[p][u] = (p ? live[1] : live[0]) ? __ldg(s + (drow + u) * gpr + (p ? gidx[1] : gidx[0]))
+                                           : 0.f;
+    mbar_wait(bar0 + 8 * (k % L::stages), (k / L::stages) & 1);
+    const unsigned char* st = base_ptr + (k % L::stages) * L::stage;
+#pragma unroll
+    for (int j = 0; j < 2 * HALVES; ++j) {
+      const int r = rx + 32 * j;
+      if (r >= rows_in) continue;
+      float xv[8];
+      read_row8_f32(st + r * kStep * 4, cx, xv);
+      const uint32_t off = tile_offset<kRows>(r, cx);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = __fmul_rn(xv[u], sc[p][u]);
+        uint32_t hi[4], mid[4], lo[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) split3(v[2 * u], v[2 * u + 1], hi[u], mid[u], lo[u]);
+        const uint32_t at = base + L::a + 3 * p * L::a_tile + off;
+        st_shared16(at, make_uint4(hi[0], hi[1], hi[2], hi[3]));
+        st_shared16(at + L::a_tile, make_uint4(mid[0], mid[1], mid[2], mid[3]));
+        st_shared16(at + 2 * L::a_tile, make_uint4(lo[0], lo[1], lo[2], lo[3]));
       }
-      *reinterpret_cast<uint2*>(out + (long long)(m0 + r) * F + (p ? col[1] : col[0]) +
-                                c % kPanelCols) =
-          make_uint2(pack2<T>(v.x, v.y), pack2<T>(v.z, v.w));
     }
+    widen_exact<BITS>(st + L::q, base + L::b, tid);
+    fence_proxy_async();
+    __syncthreads();  // A and B are complete; ring slot k % stages is free
+    if (tid == 0 && k + L::stages < n) load_stage(k + L::stages);
+    if (wg ? live[1] : live[0]) {  // warpgroup wg: panel wg's products
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h) fence_regs(acc[h]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kStep / 16; ++kk) {
+        const uint64_t db = desc_mnmajor<kStep>(base + L::b, wg, kk);
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+          for (int p = 0; p < kParts; ++p)
+            wgmma_ss_mn64<__nv_bfloat16>(
+                acc[h],
+                desc_kmajor<kRows>(base + L::a + (3 * wg + p) * L::a_tile + h * kWgRows * kRowBytes,
+                                   kk),
+                db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int h = 0; h < HALVES; ++h) fence_regs(acc[h]);
+    }
+    __syncthreads();  // A and B are free for the next step
   }
-  cluster.sync();  // no block leaves while another still reads its shared memory
-}
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (no link
-// against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                    cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
+  if (cs == 1) {  // no split along D: straight from the accumulators
+    if (!(wg ? live[1] : live[0])) return;
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int row = m0 + h * kWgRows + acc_row(wg_warp, lane, i);
+        if (row >= M) continue;
+        *reinterpret_cast<float2*>(out + (long long)row * F + (wg ? col[1] : col[0]) +
+                                   acc_col(lane, i)) = make_float2(acc[h][i], acc[h][i + 1]);
+      }
+    return;
   }
-  return fn;
-}
-
-// A 2-D tensor map of a row-major [rows, cols] matrix (`row_bytes` apart)
-// in boxes of [box_rows][box_cols]; false if the driver refuses it.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, long long rows,
-              long long cols, long long row_bytes, int box_rows, int box_cols,
-              CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  // every copy has landed and been read (the loop's last barrier): the ring
+  // holds the partial sums, warpgroup p's at panel p's columns
+  float* red = reinterpret_cast<float*>(base_ptr);  // [kRows][kRedStride]
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2)
+      *reinterpret_cast<float2*>(red + (h * kWgRows + acc_row(wg_warp, lane, i)) * kRedStride +
+                                 wg * kPanelCols + acc_col(lane, i)) =
+          make_float2(acc[h][i], acc[h][i + 1]);
+  cluster_sum_store<float, kRows>(cluster, red, out, M, F, m0, col, live);
 }
 
 template <typename T, int BITS, int HALVES>
@@ -450,10 +659,10 @@ cudaError_t launch(const void* x, long long ldx, const void* q, const float* s, 
   constexpr int kRowBytes = BITS == 8 ? kCols : kPanelCols;
   const long long Fq = BITS == 8 ? F : F / 2;
   CUtensorMap tmx, tmq;
-  if (!make_map(&tmx, std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+  if (!ds::tma::make_map(&tmx, std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                 x, M, D, 2 * ldx, HALVES * kWgRows, kStep, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, D, Fq, Fq, kStep, kRowBytes,
+      !ds::tma::make_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, D, Fq, Fq, kStep, kRowBytes,
                 CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(qmatmul_tc_kernel<T, BITS, HALVES>,
@@ -479,13 +688,54 @@ cudaError_t launch(const void* x, long long ldx, const void* q, const float* s, 
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+template <int BITS, int HALVES>
+cudaError_t launch_f32(const void* x, long long ldx, const void* q, const float* s, void* out,
+                       int M, int D, int F, int group, int chunk, int cluster,
+                       cudaStream_t stream) {
+  using L = LayoutF32<BITS, HALVES>;
+  constexpr size_t smem = L::bytes + 1024;  // + the 1024-byte alignment
+  const long long Fq = BITS == 8 ? F : F / 2;
+  CUtensorMap tmx, tmq;
+  if (!ds::tma::make_map(&tmx, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, M, D, 4 * ldx, L::rows, kStep,
+                CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !ds::tma::make_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, D, Fq, Fq, kStep, L::row_bytes,
+                CU_TENSOR_MAP_SWIZZLE_NONE))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(qmatmul_tc_f32_kernel<BITS, HALVES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((F + kCols - 1) / kCols, (M + L::rows - 1) / L::rows, cluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, qmatmul_tc_f32_kernel<BITS, HALVES>, tmx, tmq, s,
+                           static_cast<float*>(out), M, D, F, group, chunk);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// x's dtype T (float: the fp32 kernel), then the rows' tile
 template <typename T, int BITS>
 cudaError_t dispatch_rows(const void* x, long long ldx, const void* q, const float* s,
                           void* out, int M, int D, int F, int group, int chunk, int cluster,
                           cudaStream_t st) {
-  if (M <= kWgRows)
-    return launch<T, BITS, 1>(x, ldx, q, s, out, M, D, F, group, chunk, cluster, st);
-  return launch<T, BITS, 2>(x, ldx, q, s, out, M, D, F, group, chunk, cluster, st);
+  if constexpr (std::is_same<T, float>::value) {
+    if (M <= kWgRows)
+      return launch_f32<BITS, 1>(x, ldx, q, s, out, M, D, F, group, chunk, cluster, st);
+    return launch_f32<BITS, 2>(x, ldx, q, s, out, M, D, F, group, chunk, cluster, st);
+  } else {
+    if (M <= kWgRows)
+      return launch<T, BITS, 1>(x, ldx, q, s, out, M, D, F, group, chunk, cluster, st);
+    return launch<T, BITS, 2>(x, ldx, q, s, out, M, D, F, group, chunk, cluster, st);
+  }
 }
 
 template <typename T>
@@ -502,27 +752,32 @@ cudaError_t dispatch_bits(int bits, const void* x, long long ldx, const void* q,
 }  // namespace
 
 // x [M, D] with row stride ldx (elements; last dimension contiguous, rows
-// 16-byte aligned) in `dtype` 1 (bf16) or 2 (fp16); q int8 [D, F] (bits 8)
-// or packed [D, F / 2] (bits 4), contiguous and 16-byte aligned; s fp32
-// [D * F / group]; out [M, F] contiguous in x's dtype. The layouts taken: D %
-// 64 == 0, F % group == 0, group >= 8 with group % 64 == 0 or 64 % group ==
-// 0 (no 64-column panel crosses a group), F % 64 == 0 (int8) or F % 128 == 0
-// (int4). D is cut into `cluster` chunks of `chunk` rows (a multiple of 64;
-// the last may be shorter or empty). Returns the CUDA error code of the
-// launch (0 on success).
+// 16-byte aligned) in `dtype` 0 (fp32), 1 (bf16) or 2 (fp16); q int8 [D, F]
+// (bits 8) or packed [D, F / 2] (bits 4), contiguous and 16-byte aligned; s
+// fp32 [D * F / group]; out [M, F] contiguous in x's dtype. The layouts
+// taken: D % 64 == 0, F % group == 0, group >= 8 with group % 64 == 0 or 64
+// % group == 0 (no 64-column panel crosses a group; fp32: group % 64 == 0,
+// one group a panel), F % 64 == 0 (int8) or F % 128 == 0 (int4). D is cut
+// into `cluster` chunks of `chunk` rows (a multiple of 64; the last may be
+// shorter or empty). Returns the CUDA error code of the launch (0 on
+// success).
 extern "C" int ds_quant_matmul_tc(const void* x, long long ldx, const void* q, const float* s,
                                   void* out, int M, int D, int F, int group, int chunk,
                                   int cluster, int bits, int dtype, void* stream) {
+  const int elt = dtype == ds::kF32 ? 4 : 2;
   const bool layout = D % kStep == 0 && group >= 8 && F % group == 0 &&
-                      (group % kPanelCols == 0 || kPanelCols % group == 0) &&
+                      (group % kPanelCols == 0 ||
+                       (kPanelCols % group == 0 && dtype != ds::kF32)) &&
                       F % (bits == 4 ? 2 * kPanelCols : kPanelCols) == 0;
-  const bool aligned = ldx % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+  const bool aligned = (ldx * elt) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                        reinterpret_cast<uintptr_t>(q) % 16 == 0;
   if (M < 1 || D < 1 || F < 1 || !layout || !aligned || chunk < kStep || chunk % kStep != 0 ||
       cluster < 1 || cluster > kMaxCluster || (long long)chunk * cluster < D)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {  // fp32 runs the CUDA-core kernel of int8_matmul.cu
+  switch (dtype) {
+    case ds::kF32:
+      return dispatch_bits<float>(bits, x, ldx, q, s, out, M, D, F, group, chunk, cluster, st);
     case ds::kBF16:
       return dispatch_bits<__nv_bfloat16>(bits, x, ldx, q, s, out, M, D, F, group, chunk,
                                           cluster, st);

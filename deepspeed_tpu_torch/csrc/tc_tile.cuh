@@ -1,8 +1,8 @@
 // Tensor-core building blocks for Hopper (sm_90a) kernels: swizzled shared
 // tiles, the cp.async copies that fill a ring of them (or TMA copies
 // completing an mbarrier), wgmma shared-memory descriptors, the wgmma
-// instructions themselves (m64n64k16; m64n128k16 with both operands in
-// shared memory and B MN-major) and the accumulator ->
+// instructions themselves (m64n64k16; m64n64k16 and m64n128k16 with both
+// operands in shared memory and B MN-major) and the accumulator ->
 // A-fragment conversion (with the hi/lo split that keeps an fp32 operand to
 // ~2^-16, and for fp16 the running row scale that keeps the split above
 // fp16's subnormal range; or one cast, stochastic_mode's function); for
@@ -288,6 +288,22 @@ template <> __device__ __forceinline__ void wgmma_ss_mn128<__half>(float (&d)[64
 #undef DS_TC_ACC64
 #undef DS_TC_OUT64
 
+// d (64 x 64 fp32) += A B with A K-major and B MN-major (transpose flag 1),
+// both in shared memory: one 64-column panel of B (desc_mnmajor).
+template <typename T> __device__ __forceinline__ void wgmma_ss_mn64(float (&d)[32], uint64_t da,
+                                                                    uint64_t db);
+
+template <> __device__ __forceinline__ void wgmma_ss_mn64<__nv_bfloat16>(float (&d)[32],
+                                                                         uint64_t da,
+                                                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " DS_TC_ACC32
+      ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : DS_TC_OUT32(d)
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d (64 x 64 fp32) += A B with A (64 x 16) in registers and B MN-major in
 // shared memory (transpose flag 1).
 template <typename T> __device__ __forceinline__ void wgmma_rs_mn(float (&d)[32],
@@ -496,6 +512,37 @@ __device__ __forceinline__ void store_acc_tf32(float* row, const float (&acc)[NT
 
 #undef DS_TC_ACC32
 #undef DS_TC_OUT32
+
+// ----------------------------------------------------------------- three bf16 parts
+// An fp32 operand v on the 16-bit tensor cores against exact integers (B6 /
+// B7 / B8 with fp32 x): hi = the top 16 bits of v, mid = those of v - hi,
+// lo = v - hi - mid; each difference is exact and lo keeps at most 8
+// significant bits, so hi + mid + lo == v exactly. Two values at a time, as
+// bf16 pairs (a in the low halves).
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
+  hi = __byte_perm(ua, ub, 0x7632);
+  const float ra = a - __uint_as_float(ua & 0xffff0000u);
+  const float rb = b - __uint_as_float(ub & 0xffff0000u);
+  const uint32_t va = __float_as_uint(ra), vb = __float_as_uint(rb);
+  mid = __byte_perm(va, vb, 0x7632);
+  const float sa = ra - __uint_as_float(va & 0xffff0000u);
+  const float sb = rb - __uint_as_float(vb & 0xffff0000u);
+  lo = __byte_perm(__float_as_uint(sa), __float_as_uint(sb), 0x7632);
+}
+
+// Elements 8c .. 8c + 7 of a 256-byte fp32 row in shared memory (64 values):
+// lane c of a quarter-warp reads half (c / 4) % 2 of its 32 bytes first, so
+// the eight lanes' 16-byte reads cover the 32 banks once.
+__device__ __forceinline__ void read_row8_f32(const unsigned char* row, int c, float (&x)[8]) {
+  const int h = (c >> 2) & 1;
+  const float4 a = *reinterpret_cast<const float4*>(row + 32 * c + 16 * h);
+  const float4 b = *reinterpret_cast<const float4*>(row + 32 * c + 16 * (1 - h));
+  const float4 lo4 = h ? b : a, hi4 = h ? a : b;
+  x[0] = lo4.x; x[1] = lo4.y; x[2] = lo4.z; x[3] = lo4.w;
+  x[4] = hi4.x; x[5] = hi4.y; x[6] = hi4.z; x[7] = hi4.w;
+}
 
 // ----------------------------------------------------------------- fragments
 // Two fp32 values as one 32-bit pair of T (a in the low half), rounded to

@@ -13,13 +13,15 @@ writing x's dtype; each header says how it is tiled and what bounds it:
 
 - ``deepspeed_tpu_torch/csrc/dequant_matmul_tc.cu`` on the tensor cores
   (``wgmma``), for the shapes :func:`dqm_route` sends there (the LM head at
-  any training batch): x times each column block's scales as three exact
-  bf16 parts against the exact bf16 q - 128, plus a side product (the
+  every batch, from one row up, with scale blocks of 64, 128, 256 or any
+  multiple of 64 columns): x times each column block's scales as three
+  exact bf16 parts against the exact bf16 q - 128, plus a side product (the
   zero-points and the 128 taken off q), an fp32-accurate product (modelled
-  by :func:`dequant_matmul_split_ref`);
-- ``deepspeed_tpu_torch/csrc/dequant_matmul.cu`` on the CUDA cores, for every
-  other 8-bit shape (a few rows, ragged blocks, D off 64-row steps), each
-  weight dequantized as the plain version does it.
+  by :func:`dequant_matmul_split_ref`), tiled by :func:`dqm_tile`;
+- ``deepspeed_tpu_torch/csrc/dequant_matmul.cu`` on the CUDA cores, for the
+  other 8-bit shapes (an effective block off 64-column steps, which short
+  rows or a user's ``zero_quantize_block_size`` give, or D off 64-row
+  steps), each weight dequantized as the plain version does it.
 
 The reference's ``_eligible`` tile rule is a Mosaic limit and does not carry
 over: every 8-bit payload takes a kernel, ragged tiles masked. Packed int4
@@ -32,16 +34,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 
 from .. import _build
 from .flash_attention import DTYPE_CODE
 
-# the tensor-core kernel's tile: output columns inside one scale block (kBN),
-# rows of one wgmma (the route's fewest rows of x), rows of D a step (kBK)
-_TC_COLS = 256
-_TC_MIN_M = 64
+# the tensor-core kernel's granularity: a warpgroup's columns inside one
+# scale block come in 64-column panels, D in 64-row steps (kBK)
+_TC_PANEL = 64
 _TC_STEP = 64
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
@@ -55,16 +57,39 @@ def dqm_route(M: int, D: int, Fp: int, nb: int, bits: int = 8) -> str:
     """The route of one product of ``M`` rows over a ``[D, Fp]`` payload in
     ``nb`` scale blocks, from the shapes alone: ``"plain"`` for a packed
     4-bit payload (on every device, as the reference's); for 8 bits
-    ``"tensor_cores"`` where every 256-column tile lies inside one scale
-    block, x fills a 64-row wgmma tile and D is whole 64-row steps, and
-    ``"cuda_cores"`` otherwise. On the CPU both kernel routes run the plain
-    version."""
+    ``"tensor_cores"`` where a scale block is whole 64-column panels and D
+    whole 64-row steps, at any number of rows, and ``"cuda_cores"``
+    otherwise (an effective block off 64-column steps, from a user's block
+    size or ``comm.quantized.effective_block`` on rows shorter than the
+    block, or D off 64-row steps). On the CPU both kernel routes run the
+    plain version."""
+    del M  # every row count takes the route of its layout
     if bits == 4:
         return "plain"
-    if (M >= _TC_MIN_M and D % _TC_STEP == 0 and nb >= 1 and Fp % nb == 0
-            and (Fp // nb) % _TC_COLS == 0):
+    if D % _TC_STEP == 0 and nb >= 1 and Fp % nb == 0 and (Fp // nb) % _TC_PANEL == 0:
         return "tensor_cores"
     return "cuda_cores"
+
+
+def dqm_tile(M: int, Fp: int, nb: int) -> Tuple[int, int]:
+    """(row_wgs, cols) of the tensor-core kernel's block for this shape: the
+    two warpgroups stacked along rows (2: 128 rows, ``cols`` columns in one
+    scale block: 256, 128 or 64, the largest that divides the block) where
+    x has more than 64 rows, side by side (1: 64 rows, each warpgroup
+    ``cols / 2`` columns in one scale block) at 64 rows or fewer, where a
+    second row half would be empty. The side-by-side block takes 256
+    columns where the scale block is a multiple of 128, 128 (a warpgroup a
+    block of 64) otherwise. On the H100 (``scripts/quant_tc_bench.py``, x
+    fp32 over GPT-2-125M's head, every tiling on the same inputs): at 32
+    rows, block 256, the 64 x 256 block 0.0682 ms, 64 x 128 0.0748-0.0751,
+    128 x 256 0.0914-0.0916; at 4096 rows, block 128, 128 x 128 2.560-2.562
+    ms against 64 x 256 (each warpgroup its own block) 3.061-3.116 and 128 x
+    64 3.882-3.884; at block 256, 128 x 256 2.039-2.043 against 128 x 128
+    2.554-2.564."""
+    block = Fp // nb
+    if M > 64:
+        return 2, next(c for c in (256, 128, 64) if block % c == 0)
+    return 1, 256 if block % 128 == 0 else 128
 
 
 def _dequantize(q, scale, zero_point, bits, orig_size):
@@ -130,14 +155,16 @@ def _lib() -> ctypes.CDLL:
 def _lib_tc() -> ctypes.CDLL:
     lib = _build.load("dequant_matmul_tc")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ds_dequant_matmul_tc.argtypes = [ptr, i64] + [ptr] * 4 + [i32] * 6 + [ptr]
+    lib.ds_dequant_matmul_tc.argtypes = [ptr, i64] + [ptr] * 4 + [i32] * 8 + [ptr]
     lib.ds_dequant_matmul_tc.restype = i32
     return lib
 
 
-def _launch(x, q, scale, zero_point, orig_size: int, route: str) -> torch.Tensor:
+def _launch(x, q, scale, zero_point, orig_size: int, route: str,
+            tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One launch of ``route``'s kernel (the tensor-core one raises on a
-    layout it does not take)."""
+    layout it does not take; ``tile`` overrides its :func:`dqm_tile`, for
+    measurements)."""
     if x.dtype not in DTYPE_CODE:
         raise TypeError(f"dequant_matmul kernel: x dtype {x.dtype}; expected float32, "
                         "bfloat16 or float16")
@@ -150,7 +177,7 @@ def _launch(x, q, scale, zero_point, orig_size: int, route: str) -> torch.Tensor
     Fp, nb = q.shape[1], scale.shape[1]
     if route == "tensor_cores":
         if dqm_route(M, D, Fp, nb) != route:
-            raise ValueError(f"dequant_matmul tensor-core kernel: M {M}, D {D}, Fp {Fp}, "
+            raise ValueError(f"dequant_matmul tensor-core kernel: D {D}, Fp {Fp}, "
                              f"{nb} blocks is not a layout it takes")
         # the kernel copies x's rows and q's with 16-byte copies
         if x.stride(-1) != 1 or x.stride(0) * x.element_size() % 16 or x.data_ptr() % 16:
@@ -162,13 +189,16 @@ def _launch(x, q, scale, zero_point, orig_size: int, route: str) -> torch.Tensor
     dev = x.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     out = torch.empty((M, orig_size), dtype=x.dtype, device=dev)
-    lib, fn = ((_lib_tc(), "ds_dequant_matmul_tc") if route == "tensor_cores"
-               else (_lib(), "ds_dequant_matmul"))
+    args = (x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(), zero_point.data_ptr(),
+            out.data_ptr(), M, D, Fp, nb, orig_size, DTYPE_CODE[x.dtype])
     with torch.cuda.device(index):
-        status = getattr(lib, fn)(
-            x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(), zero_point.data_ptr(),
-            out.data_ptr(), M, D, Fp, nb, orig_size, DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream(index).cuda_stream)
+        stream = torch.cuda.current_stream(index).cuda_stream
+        if route == "tensor_cores":
+            lib = _lib_tc()
+            status = lib.ds_dequant_matmul_tc(*args, *(tile or dqm_tile(M, Fp, nb)), stream)
+        else:
+            lib = _lib()
+            status = lib.ds_dequant_matmul(*args, stream)
     _build.check(lib, status, "dequant_matmul")
     return out
 

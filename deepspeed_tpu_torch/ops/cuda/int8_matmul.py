@@ -8,9 +8,11 @@ Counterpart of ``deepspeed_tpu/ops/pallas/int8_matmul.py``:
   int8, or nibble-packed int4, plus one fp32 scale per ``group_size``
   consecutive weights of the row-major flattened ``[D, F]`` weight. Two
   kernels compute it: ``deepspeed_tpu_torch/csrc/int8_matmul.cu`` on the
-  CUDA cores (decode rows, fp32 x) and ``csrc/int8_matmul_tc.cu`` on the
-  tensor cores (bf16 / fp16 x at prefill and verify rows); each header says
-  how it is split and what bounds it.
+  CUDA cores (decode rows, and the layouts the other does not take) and
+  ``csrc/int8_matmul_tc.cu`` on the tensor cores (x in any float dtype at
+  prefill and verify rows: bf16 / fp16 x against hi + lo halves of the
+  weight, fp32 x as three exact bf16 parts of x times the scales against the
+  exact integers); each header says how it is split and what bounds it.
 - :func:`pack_int4` / :func:`unpack_int4`: the half-split layout, where byte
   j of a packed last axis holds value j in its low nibble and value j + F/2
   in its high nibble (shared with the quantized KV pools).
@@ -20,8 +22,9 @@ reference's shape rule: more than ``_MAX_M`` rows of ``x`` (a large prefill)
 take the reference's own route on any device, the layer's weight
 dequantized to ``x.dtype`` and one ``torch.matmul``. At most ``_MAX_M`` rows
 take a kernel on CUDA and its plain version on the CPU: the tensor-core
-kernel for bf16 / fp16 x with more than ``_TC_MIN_M`` rows in a layout it
-takes, the CUDA-core kernel otherwise. The TPU tile rules of the reference
+kernel for x with more than ``_TC_MIN_M`` rows in a layout it takes (fp32
+x: whole 64-column panels inside a group), the CUDA-core kernel
+otherwise. The TPU tile rules of the reference
 (``group % 128``, ``D % block_d``, ``F % block_f``) are Mosaic layout
 constraints and do not carry over: every shape runs a kernel. The kernels
 are inference-only and raise where autograd would differentiate them.
@@ -38,18 +41,24 @@ import torch
 
 from .. import _build
 from ..quantizer import dequantize
+from .dequant_matmul import split3
 from .flash_attention import DTYPE_CODE
 
 _MAX_M = 256  # the reference's bound: more rows take dequantize-then-matmul
 _WARPS = 8  # warps of a block, each its own rows of a chunk (kWarps)
 _MAX_CLUSTER = 8  # blocks of one cluster along D (kMaxCluster, both kernels)
-# bf16 / fp16 x with more rows than this takes the tensor-core kernel. A
-# decode step's rows (8 slots, or fewer) keep the CUDA-core kernel. On the
-# H100 (chip_smoke.py phase 2, both kernels on the same inputs, cold L2) the
-# tensor-core kernel is 1.2-2.6x faster at 16 rows over the 8 projection
-# shapes of GPT-2-125M and gpt2-350m, and already 1.1-2.1x at 8 rows; moving
-# decode onto it is a change of the decode route, which this kernel's
-# redesign of prefill and verify rows leaves as it was (ROADMAP.md).
+# x with more rows than this takes the tensor-core kernel. A decode step's
+# rows (8 slots, or fewer) keep the CUDA-core kernel. On the H100
+# (chip_smoke.py phase 2, both kernels on the same inputs, cold L2): bf16 x,
+# the tensor-core kernel is 1.2-2.6x faster at 16 rows over the 8
+# projection shapes of GPT-2-125M and gpt2-350m, and already 1.1-2.1x at 8
+# rows; moving decode onto it is a change of the decode route, which the
+# redesigns of prefill and verify rows leave as it was (ROADMAP.md). fp32 x
+# takes the same crossover: at 16 rows its tensor-core kernel is 1.06-1.81x
+# faster than the CUDA-core one over those 8 shapes, int8 and int4, and 2.6-
+# 5.9x at 256 rows, while at 8 rows the two split the shapes (0.87-1.68x;
+# chip_smoke.py phase 2) and at decode rows the fp32 CUDA-core kernel beats
+# cuBLAS fp32 (0.0125 against 0.0174 ms).
 _TC_MIN_M = 8
 _TC_ROWS = 128  # rows of x a tensor-core block owns (64 for M <= 64)
 _TC_STEP = 64  # rows of D a tensor-core step consumes (kStep)
@@ -151,6 +160,36 @@ def qmatmul_split_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, group_s
     return out.to(dtype)
 
 
+def qmatmul_fp32_split_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, group_size: int,
+                           bits: int = 8, chunk: Optional[int] = None) -> torch.Tensor:
+    """The tensor-core kernel's arithmetic for fp32 x, in IEEE fp32, for the
+    tests: for each 64-deep step of D and each column group g, v = x s_g
+    rounded once in fp32 and cut by :func:`split3` into three bf16 parts,
+    whose products with the exact integers q sum in fp32 (hi, mid, lo);
+    each ``chunk`` of D (all of it by default: a cluster of one) sums its
+    steps in order, and the chunks add in order. ``q`` is int8 [D, F], or
+    packed [D, F/2] for bits 4; needs group_size % 64 == 0 and F %
+    group_size == 0 (the kernel's fp32 layouts)."""
+    w_q = unpack_int4(q) if bits == 4 else q
+    D, F = w_q.shape
+    G = F // group_size
+    s_rows = s.reshape(D, G).float()
+    qg = w_q.float().reshape(D, G, group_size)
+    xf = x.float()
+    chunk = chunk or D
+    out = torch.zeros((x.shape[0], G, group_size), dtype=torch.float32, device=x.device)
+    for d0 in range(0, D, chunk):
+        part = torch.zeros_like(out)
+        for k in range(d0, min(d0 + chunk, D), _TC_STEP):
+            ks = slice(k, min(k + _TC_STEP, d0 + chunk, D))
+            v = xf[:, None, ks] * s_rows[ks].t()[None]  # [M, G, 64]: x s_g
+            hi, mid, lo = split3(v)
+            step = [torch.einsum("mgk,kgc->mgc", t, qg[ks]) for t in (hi, mid, lo)]
+            part = part + ((step[0] + step[1]) + step[2])
+        out = out + part
+    return out.reshape(x.shape[0], F).to(x.dtype)
+
+
 # ------------------------------------------------------------------ the route
 def tc_layout(D: int, F: int, group_size: int, bits: int) -> bool:
     """Whether the tensor-core kernel takes this weight layout: whole 64-row
@@ -161,17 +200,25 @@ def tc_layout(D: int, F: int, group_size: int, bits: int) -> bool:
             and F % (128 if bits == 4 else 64) == 0)
 
 
+def tc_takes(dtype: torch.dtype, D: int, F: int, group_size: int, bits: int) -> bool:
+    """Whether the tensor-core kernel takes x of ``dtype`` over this weight
+    layout: :func:`tc_layout`, and for fp32 x each 64-column panel inside
+    one group (its x s is one product per panel)."""
+    if dtype == torch.float32:
+        return group_size % 64 == 0 and tc_layout(D, F, group_size, bits)
+    return dtype in (torch.bfloat16, torch.float16) and tc_layout(D, F, group_size, bits)
+
+
 def qmm_route(M: int, dtype: torch.dtype, D: int, F: int, group_size: int, bits: int) -> str:
     """The route of one quantized product of ``M`` rows: ``"dequantize"``
     (more than ``_MAX_M`` rows: the reference's dequantize-then-matmul),
-    ``"tensor_cores"`` (bf16 / fp16 x with more than ``_TC_MIN_M`` rows, in a
-    layout :func:`tc_layout` takes) or ``"cuda_cores"`` (everything else:
-    fp32 x, decode rows, other layouts). On the CPU the two kernel routes run
-    the plain version."""
+    ``"tensor_cores"`` (more than ``_TC_MIN_M`` rows of fp32, bf16 or fp16
+    x, in a layout :func:`tc_takes`) or ``"cuda_cores"`` (everything else:
+    decode rows, other layouts). On the CPU the two kernel routes run the
+    plain version."""
     if M > _MAX_M:
         return "dequantize"
-    if (dtype in (torch.bfloat16, torch.float16) and M > _TC_MIN_M
-            and tc_layout(D, F, group_size, bits)):
+    if M > _TC_MIN_M and tc_takes(dtype, D, F, group_size, bits):
         return "tensor_cores"
     return "cuda_cores"
 
@@ -306,11 +353,11 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _launch_tc(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int,
                group_size: int, bits: int) -> torch.Tensor:
-    """One launch of the tensor-core kernel (bf16 / fp16 x, a layout
-    :func:`tc_layout` takes); raises on anything else."""
+    """One launch of the tensor-core kernel (x's dtype and the layout
+    :func:`tc_takes`); raises on anything else."""
     index = _launch_checks(name, x, q, s)
     M, D = x.shape
-    if x.dtype not in (torch.bfloat16, torch.float16) or not tc_layout(D, F, group_size, bits):
+    if not tc_takes(x.dtype, D, F, group_size, bits):
         raise ValueError(f"{name} tensor-core kernel: x {x.dtype} with D {D}, F {F}, group "
                          f"{group_size} is not a dtype and layout it takes")
     x, q, s = _aligned(x), _aligned(q.contiguous()), s.contiguous()

@@ -133,9 +133,11 @@ def test_three_bf16_parts_are_exact():
     (2048, 768, 50432, 197, 8, "tensor_cores"),  # B4 x T512 (phase 9a)
     (64, 64, 512, 2, 8, "tensor_cores"),         # one 64-row wgmma tile
     (64, 128, 1024, 2, 8, "tensor_cores"),       # a block of 512: two tiles a block
-    (63, 768, 50432, 197, 8, "cuda_cores"),      # M below the tile
-    (1, 768, 50432, 197, 8, "cuda_cores"),       # one row
-    (4096, 768, 3072, 24, 8, "cuda_cores"),      # a block of 128, not a multiple of 256
+    (63, 768, 50432, 197, 8, "tensor_cores"),    # under 64 rows: the 64-row tiling
+    (1, 768, 50432, 197, 8, "tensor_cores"),     # one row
+    (4096, 768, 3072, 24, 8, "tensor_cores"),    # a block of 128: 128-column tiles
+    (32, 768, 50304, 786, 8, "tensor_cores"),    # 9d's head at a block of 64
+    (4096, 768, 3000, 15, 8, "cuda_cores"),      # a block of 200, off 64-column panels
     (4096, 64, 96, 1, 8, "cuda_cores"),          # an effective block of 96
     (4096, 100, 512, 2, 8, "cuda_cores"),        # D off whole 64-row steps
     (4096, 768, 25216, 197, 4, "plain"),         # packed int4: the plain route everywhere

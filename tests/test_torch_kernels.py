@@ -590,11 +590,43 @@ def test_qmatmul_tc_kernel_within_two_ulps_and_rerun_bitwise(cuda_device, dtype,
     assert ulp_err(out, ref_fn(x.float(), q, s, group), dtype) <= 2
 
 
+_QMM_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768), (1024, 3072), (1024, 1024),
+               (1024, 4096), (4096, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("group", [128, 64])
+@pytest.mark.parametrize("M", [16, 64, 256])
+@pytest.mark.parametrize("D,F", _QMM_SHAPES, ids=[f"{d}x{f}" for d, f in _QMM_SHAPES])
+def test_qmatmul_tc_fp32_kernel_matches_plain(cuda_device, D, F, M, group, bits):
+    """B6 / B7 with fp32 x on the tensor cores (x times each group's scales
+    as three exact bf16 parts against the exact integers) at the 8
+    projection shapes of GPT-2-125M and gpt2-350m: within 5e-5 of the
+    largest output of the fp32 plain version (both fp32-accurate products of
+    the same function, rounded at other places), bitwise equal over two
+    runs, two tensor-core launches and no other."""
+    q, s = _quantized(D, F, group, bits, cuda_device, 20)
+    s = s * 0.02  # GPT-2's weight magnitudes
+    x = _normal((M, D), cuda_device, torch.float32, 21)
+    assert im.qmm_route(M, torch.float32, D, F, group, bits) == "tensor_cores"
+    fn, ref_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
+                  else (im.int8_matmul, im.int8_matmul_ref))
+    before = {c: getattr(im, c) for c in _QMM_COUNTERS}
+    out, again = fn(x, q, s, group), fn(x, q, s, group)
+    torch.cuda.synchronize()
+    assert _moved(before, {c: getattr(im, c) for c in _QMM_COUNTERS}) == {
+        f"int{bits}_tc_launches": 2}
+    assert out.dtype == torch.float32 and out.shape == (M, F) and torch.equal(out, again)
+    ref = ref_fn(x, q, s, group)
+    assert (out - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,dtype,D,F,group,route", [
     (8, torch.bfloat16, 768, 3072, 128, "cuda_cores"),
     (9, torch.bfloat16, 768, 3072, 128, "tensor_cores"),
-    (64, torch.float32, 768, 3072, 128, "cuda_cores"),
+    (64, torch.float32, 768, 3072, 128, "tensor_cores"),
     (40, torch.bfloat16, 320, 960, 128, "cuda_cores"),
     (40, torch.float16, 768, 960, 64, "tensor_cores")])
 def test_qmatmul_routes_by_rows_dtype_and_layout(cuda_device, M, dtype, D, F, group, route):
@@ -685,6 +717,39 @@ def test_dequant_matmul_routes_against_float64(cuda_device, M):
     top = exact.abs().max().item()
     for out in (tc, core):
         assert (out.double() - exact).abs().max().item() <= 1e-5 * top
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,block", [(32, 256), (1, 256), (63, 256), (256, 64), (256, 128),
+                                     (4096, 64), (4096, 128), (32, 128), (1, 64)],
+                         ids=["9d-M32", "M1", "M63", "M256-block64", "M256-block128",
+                              "M4096-block64", "M4096-block128", "M32-block128", "M1-block64"])
+def test_dequant_matmul_tc_new_shapes(cuda_device, M, block):
+    """B8 on the tensor cores at the shapes its route newly takes, at the LM
+    head's width (D 768, vocabulary 50304): fewer than 64 rows (9d's 32, one,
+    63; the 64-row tiling) and scale blocks of 64 and 128 (the narrower
+    tiles). Two tensor-core launches and no CUDA-core one; within 5e-5 of
+    the largest output of the plain version and 1e-5 of the float64 product
+    over the unrounded weights; bitwise equal over two runs."""
+    from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    D, F = 768, 50304
+    q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 22) * 0.02, bits=8,
+                                 block_size=block)
+    x = _normal((M, D), cuda_device, torch.float32, 23)
+    assert dqm.dqm_route(M, D, q.shape[1], s.shape[1]) == "tensor_cores"
+    before = (dqm.launches, dqm.tc_launches)
+    out, again = (dqm.dequant_matmul(x, q, s, z, orig_size=F) for _ in range(2))
+    torch.cuda.synchronize()
+    assert (dqm.launches - before[0], dqm.tc_launches - before[1]) == (0, 2)
+    assert out.shape == (M, F) and torch.equal(out, again)
+    ref = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F)
+    assert (out - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
+    w = (q.double() * s.double().repeat_interleave(block, 1)
+         + z.double().repeat_interleave(block, 1))[:, :F]
+    exact = x.double() @ w
+    assert (out.double() - exact).abs().max().item() <= 1e-5 * exact.abs().max().item()
 
 
 def _bs_layouts():

@@ -39,8 +39,11 @@ _COUNTERS = ("int8_launches", "int4_launches", "int8_tc_launches", "int4_tc_laun
     (9, FP16, 768, 2304, 128, 4, "tensor_cores"),        # just above the crossover
     (8, BF16, 768, 2304, 128, 8, "cuda_cores"),          # a decode step's rows
     (1, FP16, 768, 768, 128, 4, "cuda_cores"),
-    (256, FP32, 768, 3072, 128, 8, "cuda_cores"),        # fp32 keeps the CUDA cores
-    (40, FP32, 768, 3072, 128, 4, "cuda_cores"),
+    (256, FP32, 768, 3072, 128, 8, "tensor_cores"),      # fp32: three bf16 parts of x s
+    (40, FP32, 768, 3072, 128, 4, "tensor_cores"),
+    (8, FP32, 768, 3072, 128, 8, "cuda_cores"),          # fp32 decode rows
+    (9, FP32, 1024, 4096, 64, 4, "tensor_cores"),        # fp32 at group 64
+    (64, FP32, 768, 768, 32, 8, "cuda_cores"),           # fp32: a group under a panel
     (40, BF16, 3072, 768, 64, 4, "tensor_cores"),        # group 64
     (64, BF16, 768, 768, 32, 8, "tensor_cores"),         # four scales a panel row
     (64, BF16, 768, 768, 256, 8, "tensor_cores"),        # a panel inside a group
