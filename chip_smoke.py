@@ -16,11 +16,13 @@ result line):
    D 64 / 96 / 128; B6/B7's: 8, bf16 / fp16 x int8 / int4 x 64 / 128 rows a
    block, and 4 of its fp32 kernel, int8 / int4 x 64 / 128 rows) has its
    instances and every one holds HGMMA instructions in its SASS
-   (``cuobjdump -sass`` of the library), and so does each of B8's 15
-   tensor-core instances (fp32 / bf16 / fp16 x x 5 tilings) and of B9's tensor-core
+   (``cuobjdump -sass`` of the library), and so does each of B8's 30
+   tensor-core instances (fp32 / bf16 / fp16 x 5 tilings x whole or padded
+   blocks) and of B9's tensor-core
    forward, dq and dk/dv (6 each: bf16 / fp16, D 64 / 96 / 128); every 3xTF32 instance also
    holds HMMA (``mma.sync``, its products with an MN-major B); B5's 36 bf16 /
-   fp16 instances each hold HMMA and its 9 fp32 ones none.
+   fp16 instances each hold HMMA and its 9 fp32 ones none, and so do B6/B7's
+   6 decode instances (fp32 / bf16 / fp16 x int8 / int4).
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
    card inputs, at the shapes of the serving, scoring and training paths,
    with the kernel's time, the plain version's, one PyTorch library call's
@@ -75,18 +77,24 @@ result line):
    vocabulary 50304 padded to 197 blocks of 256; fp32 x, the main path,
    and bf16 x), at phase 9d's head (x [32, 768] fp32: the 64-row tiling),
    M = 1, 37 and 63, blocks of 64 and 128 at 4096 rows (9e's head) and 256
-   rows, the [768, 2304] leaf, each through the tensor cores; an effective
-   block of 96 (9d's head at a block of 96: the CUDA-core route's row) and
-   ragged D through the CUDA cores (``dqm_route``, checked by the
-   counters); bitwise on a re-run, each case's error against the float64
+   rows, blocks off 64-column panels (8, 48, 96 at 9d's head and at 4096
+   rows, 160, 250, an effective block of 96: padded to whole panels), D off
+   64-row steps (70-480), the [768, 2304] leaf, each through
+   the tensor cores (``dqm_route``, checked by the counter); bitwise on a
+   re-run (an odd block raises), each case's error against the float64
    product over the unrounded weights beside its plain version's (fp32
    within 1e-5 of its largest entry); at the result line's rows the plain
    version, cuBLAS fp32 (TF32 off) over the weight already dequantized, the
-   dequantize + cuBLAS, both bounds (three bf16 passes at the bf16 peak;
-   one fp32 pass at the fp32 peak) and, for a tensor-core row, the
-   CUDA-core kernel on the same inputs; and ptxas's report. B6/B7
+   dequantize + cuBLAS and the bound (three bf16 passes at the bf16 peak);
+   and ptxas's report. B6/B7
    through their routes (fp32 and bf16, M 1-256, the 8 projection shapes of
-   GPT-2-125M and gpt2-350m), then on the tensor cores at those shapes, M
+   GPT-2-125M and gpt2-350m; GPT-2-125M's four at group 32, M 4 and 256,
+   phase 7e's CUDA-core layout, fp32 within 1e-5 of the float64 product), then
+   the decode kernel at those shapes, M 1 / 2 / 4 / 8, int8 / int4, fp32 /
+   bf16 / fp16, groups 128 and 64 (the fp32 and 16-bit bars below, bitwise
+   on a re-run, exact decode launches; at group 128 its time beside the
+   CUDA-core kernel's on the same inputs, cuBLAS in x's dtype and the
+   bound), then on the tensor cores at those shapes, M
    16-256, bf16, fp16 and fp32, groups 128 and 64: bf16 / fp16 at most 2
    ulps of the dtype of the fp32 plain version (entries of at least 1e-3 of
    the largest), fp32 within 5e-5 of the plain version's largest output and
@@ -151,26 +159,33 @@ result line):
 7. quantized-weight inference (weights int8 or int4, group 128, through the
    B6 / B7 kernels in every projection of at most 256 rows). (a) GPT-2-125M fp32,
    ``init_inference(..., quant=...)``, B4, prompt 512, +64: tokens identical
-   to a dense fp32 engine over the dequantized tree; B6 or B7 launch 4 x 12
-   x 63 times (prefill, 2048 rows, takes the dequantize-then-matmul route)
-   and B3 12 x 63. (b) the reference's ``gpt2-350m-decode-b8-int4`` bench
+   to a dense fp32 engine over the dequantized tree; B6's or B7's decode
+   kernel launches 4 x 12 x 63 times (prefill, 2048 rows, takes the
+   dequantize-then-matmul route), the other kernels never, and B3 12 x 63.
+   (b) the reference's ``gpt2-350m-decode-b8-int4`` bench
    row beside int8 and dense bf16: bf16, B8, prompt 128, +64; the marginal
    per-token decode latency (generate 16 vs 64, five repetitions, p50, as
    the reference's bench measures it), tokens/s, the block stacks' weight
-   bytes, the greedy match rate against dense bf16 (reported only), and a
-   profile of 8 decode steps. (c) phase 6's serving run over
+   bytes, the greedy match rate against dense bf16 (reported only), exact
+   decode-kernel launches, and a profile of 8 decode steps with each kind's
+   device-busy time and B6/B7's share of it. (c) phase 6's serving run over
    ``quantize_for_inference(bits=8)`` and ``(bits=4)`` weights, fp32, dense
    pools: every request finishes, the audit is clean, tokens equal serving
    over the dequantized dense tree (where one differs, the first flip's
    logit gap is printed), each prefill forward of 9-256 rows launches the
    tensor-core B6/B7 48 times (the fp32 kernel), each decode step the
-   CUDA-core kernel 48 times. (d)
+   decode kernel 48 times, the CUDA-core kernel never. (d)
    phase 6's serving run in bf16 over int8 and over int4 weights: every
    request finishes, the audit is clean, each prefill forward of 9-256 rows
-   launches the tensor-core B6/B7 48 times, each decode step the CUDA-core
-   kernel 48 times, each larger prefill neither; TTFT, TPOT, tokens/s, the
+   launches the tensor-core B6/B7 48 times, each decode step the decode
+   kernel 48 times, each larger prefill neither, the CUDA-core kernel
+   never; TTFT, TPOT, tokens/s, the
    greedy match against the dequantized dense tree (reported only) and a
-   profile of one 128-row prefill forward with B6/B7's share.
+   profile of one 128-row prefill forward with B6/B7's share. (e) a user's
+   group of 32, int8 and int4, fp32, B4, prompt 64, +16: a layout neither
+   tensor-core kernel takes in fp32, so every projection (prefill and
+   decode) launches the CUDA-core kernel, 4 x 12 x 16 times; tokens
+   identical to the dequantized dense tree.
 8. speculative serving (n-gram drafts unless named, spec_k 4, decode_block
    1), every verify window's attention through B5. (a) phase 6's
    configuration, fp32 dense pools: tokens equal 6a's spec-off tokens and
@@ -185,7 +200,8 @@ result line):
    drafter drafting with the target's own weights: tokens equal spec-off,
    accept rate at least 0.8, B3 12 times a single-token draft forward. (e)
    int8 weights, 12 requests: tokens equal spec-off over the same tree, B6
-   48 times a verify window (its 40 fp32 rows on the tensor cores).
+   48 times a verify window (its 40 fp32 rows on the tensor cores), 48 times
+   a fallback decode step on the decode kernel, never on the CUDA cores.
 
 9. ZeRO-3 with the quantized weight wire and the quantized LM head
    (``zero_optimization: {stage: 3, zero_quantized_weights: true,
@@ -194,8 +210,7 @@ result line):
    quantized and dequantized as they are gathered, the head's product
    through B8. (a) fp32, B4 x T512, AdamW + clipping, 5 steps through B8
    and 5 with B8's plain version in its place, from the same seed: losses
-   and grad norms agree; B8 launches 5 times on the tensor cores and never
-   on the CUDA cores, B1/B2 12 times a micro-step. (b) bf16 with the fp32
+   and grad norms agree; B8 launches 5 times, B1/B2 12 times a micro-step. (b) bf16 with the fp32
    master, B8 x T512, 10 steps on one batch: the loss starts near ln(V) and
    falls, B8 launches 10 times on the tensor cores; step time, host
    issue time, tokens/s, peak memory and a profile of one step beside phase
@@ -204,13 +219,12 @@ result line):
    under ``build/``: one NCCL all-reduce, and ``qall_gather`` of a
    [768, 2304] leaf equal to quantize-then-dequantize, bitwise. (d) fp32
    at B1 x T32 (a short fine-tuning batch: 32 rows of the head), 2 steps:
-   finite losses; B8 launches twice on the tensor cores (the 64-row
-   tiling) and never on the CUDA cores; then the same with
-   ``zero_quantize_block_size`` 96 (a block off 64-column panels): twice on
-   the CUDA cores and never on the tensor cores. (e) (b)'s configuration
-   with ``zero_quantize_block_size`` 128, 3 steps: the loss starts near
-   ln(V) and stays finite, B8 launches 3 times on the tensor cores (the
-   128-column tiles) and never on the CUDA cores; step time beside (b)'s.
+   finite losses; B8 launches twice (the 64-row tiling); then the same with
+   ``zero_quantize_block_size`` 96 (a block off 64-column panels, padded to
+   128 columns): twice. (e)
+   (b)'s configuration with ``zero_quantize_block_size`` 128, 3 steps: the
+   loss starts near ln(V) and stays finite, B8 launches 3 times on the
+   tensor cores (the 128-column tiles); step time beside (b)'s.
 
 10. blocksparse attention: GPT-2-125M at full width and depth with
    ``sparse_attention=FixedSparsityConfig(num_heads=12, block=128,
@@ -240,7 +254,7 @@ Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
 only, delta on both; B9's by route). The last lines are the card's name and power limit
-(nvidia-smi), a ``{"kernels": [...]}`` line (30 kernels) and the ``{"ok": true, ...}`` line.
+(nvidia-smi), a ``{"kernels": [...]}`` line (33 kernels) and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -317,8 +331,8 @@ FWD_PATH = {"float32": ("fwd_tf32",), "bfloat16": ("fwd_tc",),
 # (stochastic_mode) function; flash 3xTF32: D 64 / 96 / 128; B6/B7: bf16 /
 # fp16 x int8 / int4 x 64 / 128 rows a block, and fp32 x int8 / int4 x 64 /
 # 128 rows a block; B8: fp32 / bf16 / fp16 x x 5 tilings (128 rows x 256 /
-# 128 / 64 columns, 64 rows x 256 / 128 columns); B9: bf16 / fp16 x D 64 /
-# 96 / 128)
+# 128 / 64 columns, 64 rows x 256 / 128 columns) x blocks of whole 64-column
+# panels or padded to them; B9: bf16 / fp16 x D 64 / 96 / 128)
 TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel", 12),),
               "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", 12),
                                          ("flash_bwd_dkv_tc_kernel", 12)),
@@ -326,7 +340,7 @@ TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel", 12),),
               "flash_attention_bwd_tf32": (("flash_bwd_dq_tf32_kernel", 3),
                                            ("flash_bwd_dkv_tf32_kernel", 3)),
               "int8_matmul_tc": (("qmatmul_tc_kernel", 8), ("qmatmul_tc_f32_kernel", 4)),
-              "dequant_matmul_tc": (("dequant_matmul_tc_kernel", 15),),
+              "dequant_matmul_tc": (("dequant_matmul_tc_kernel", 30),),
               "blocksparse_attention_fwd_tc": (("blocksparse_fwd_tc_kernel", 6),),
               "blocksparse_attention_bwd_tc": (("blocksparse_bwd_dq_tc_kernel", 6),
                                                ("blocksparse_bwd_dkv_tc_kernel", 6))}
@@ -345,7 +359,7 @@ VERIFY_FP32_INSTANCES = 9
 OLD_MS = {"decode bfloat16": 0.0504, "verify dense bfloat16": 0.0944,
           "verify dense float32": 0.0989}
 # the one-block-a-row B4 (PERF.md kernel table), by (pool, dtype, Dh, pages
-# a row), and the CUDA-core B8 at the LM head's shape
+# a row)
 OLD_PAGED_MS = {("dense", "float32", 64, 8): 0.0469, ("kv8", "float32", 64, 8): 0.0404,
                 ("kv4", "float32", 64, 8): 0.0318, ("dense", "bfloat16", 64, 8): 0.0408,
                 ("kv8", "bfloat16", 64, 8): 0.0399, ("kv4", "bfloat16", 64, 8): 0.0318,
@@ -353,7 +367,6 @@ OLD_PAGED_MS = {("dense", "float32", 64, 8): 0.0469, ("kv8", "float32", 64, 8): 
                 ("dense", "float32", 96, 8): 0.0572, ("kv8", "float32", 96, 8): 0.0406,
                 ("kv4", "float32", 96, 8): 0.0549, ("dense", "bfloat16", 96, 8): 0.0404,
                 ("kv8", "bfloat16", 96, 8): 0.0404, ("kv4", "bfloat16", 96, 8): 0.0555}
-OLD_DQM_MS = 10.6136
 # stochastic_mode's kernels against their single-cast plain versions: a
 # term whose two fp32 values straddle a rounding boundary of the dtype
 # rounds apart, so at most 2 ulps of the dtype at the largest entry and
@@ -364,13 +377,22 @@ SINGLE_MAX_ULP = 2
 SINGLE_EQUAL = 0.95
 QMM_SRC = "deepspeed_tpu_torch/csrc/int8_matmul.cu"
 QMM_TC_SRC = "deepspeed_tpu_torch/csrc/int8_matmul_tc.cu"
+QMM_DEC_SRC = "deepspeed_tpu_torch/csrc/int8_matmul_decode.cu"
 # the quantized-weight launch counters, by kernel: CUDA cores, tensor cores
+# (9-256 rows), the decode kernel (1-8 rows)
 QMM_COUNTERS = {"int8": "int8_launches", "int4": "int4_launches",
-                "int8_tc": "int8_tc_launches", "int4_tc": "int4_tc_launches"}
+                "int8_tc": "int8_tc_launches", "int4_tc": "int4_tc_launches",
+                "int8_dec": "int8_dec_launches", "int4_dec": "int4_dec_launches"}
+# each route's counter key (bits filled in)
+QMM_ROUTE_KEY = {"cuda_cores": "int{bits}", "tensor_cores": "int{bits}_tc",
+                 "decode": "int{bits}_dec"}
+# the decode kernel's mma.sync instances (fp32 / bf16 / fp16 x int8 / int4),
+# each must hold HMMA
+QMM_DEC_KERNEL = "qmatmul_decode_kernel"
+QMM_DEC_INSTANCES = 6
 QMM_TPU = {"int8": "deepspeed_tpu/ops/pallas/int8_matmul.py:42",
            "int4": "deepspeed_tpu/ops/pallas/int8_matmul.py:145"}
 QUANT_GROUP = 128
-DQM_SRC = "deepspeed_tpu_torch/csrc/dequant_matmul.cu"
 DQM_TC_SRC = "deepspeed_tpu_torch/csrc/dequant_matmul_tc.cu"
 DQM_TPU = "deepspeed_tpu/ops/pallas/dequant_matmul.py:41"  # _kernel, call :86
 BS_FWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd.cu"
@@ -464,6 +486,22 @@ def device_kernels(torch, fn):
     rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     return sorted(rows, key=lambda r: r[2], reverse=True)
+
+
+def complete_trace(torch, fn, name: str, counter, tries: int = 3):
+    """A trace of one call of ``fn`` (``device_kernels``) that holds a record
+    for every launch ``counter()`` counted in that call of the kernels whose
+    name holds ``name``: taken again, up to ``tries`` times, while records
+    are missing (a trace has been seen to drop one of 48). Returns
+    (kernels, launches, records) of the last trace taken."""
+    for _ in range(tries):
+        before = counter()
+        kernels = device_kernels(torch, fn)
+        launches = counter() - before
+        records = sum(r[1] for r in kernels if name in r[0])
+        if records == launches:
+            break
+    return kernels, launches, records
 
 
 def device_breakdown(torch, fn, wall_ms: float, top: int = 4, kernels=None) -> str:
@@ -602,6 +640,13 @@ def phase_build(torch, ctx):
     check(len(fp32) == VERIFY_FP32_INSTANCES and max(fp32) == 0,
           f"B5's fp32 instances: {len(fp32)}, expected {VERIFY_FP32_INSTANCES}, none with "
           f"HMMA ({fp32})")
+    counts = sass_tensor_ops(_build, "int8_matmul_decode", op="HMMA")
+    dec = sorted(c for fn, c in counts.items() if QMM_DEC_KERNEL in fn)
+    log(f"phase1 sass int8_matmul_decode {QMM_DEC_KERNEL}: {len(dec)} instances, HMMA per "
+        f"instance {dec}")
+    check(len(dec) == QMM_DEC_INSTANCES and min(dec) > 0,
+          f"B6/B7's decode instances: {len(dec)}, expected {QMM_DEC_INSTANCES}, each with "
+          f"HMMA ({dec})")
 
 
 def sass_tensor_ops(_build, lib: str, op: str = "HGMMA") -> dict:
@@ -905,52 +950,53 @@ def phase_kernels_flash_tc(torch, ctx, randn):
         torch.cuda.empty_cache()
 
 
-def dqm_bound(M, D, F, Fp, nb, elt, route="tensor_cores"):
+def dqm_bound(M, D, F, Fp, nb, elt):
     """Least time of one B8 product: x, the uint8 payload and its fp32
     scales and zero-points read once, the output written once; its
     operations for the fp32-accurate function at the card's fastest rate,
     three bf16 passes (x s as three exact parts against the exact q) at the
-    bf16 peak on the tensor cores, whichever route serves the case. With
-    ``route="cuda_cores"``: the CUDA cores' own ceiling, one fp32 pass (2
-    flops per multiply-add) at the fp32 peak."""
+    bf16 peak on the tensor cores."""
     nbytes = M * D * elt + D * Fp + 8 * D * nb + M * F * elt
-    if route == "tensor_cores":
-        return bound(nbytes, 3 * 2.0 * M * D * F, "bfloat16")
-    return bound(nbytes, 2.0 * M * D * F, "float32")
+    return bound(nbytes, 3 * 2.0 * M * D * F, "bfloat16")
 
 
 def _dqm_exact(torch, x, q, s, z, F):
     """x @ (q s + z)[:, :F] in float64 over the unrounded weights: the
-    function both fp32 routes approximate."""
+    function the fp32 route approximates."""
     block = q.shape[1] // s.shape[1]
     w = (q.double() * s.double().repeat_interleave(block, 1)
          + z.double().repeat_interleave(block, 1))[:, :F]
     return x.double() @ w
 
 
-# B8's rows of the {"kernels"} line, by phase 2 case (M, D, F, block, dtype):
-# the tensor-core kernel at the LM head's shape (phases 9a / 9b), under 64
-# rows (9d's B1 x T32 head) and at a block of 128 (9e), and the CUDA-core
-# kernel at 9d's head with a block of 96 (off 64-column panels)
+# B8's timed rows, by phase 2 case (M, D, F, block, dtype): the LM head's
+# shape (phases 9a / 9b), under 64 rows (9d's B1 x T32 head), at a block of
+# 128 (9e), at a block of 96 (off 64-column panels: 9d's head, and the LM
+# head at 4096 rows, timed only), and a head whose D is off 64-row steps
+# (d 480, timed only)
 DQM_ROWS = {(4096, 768, 50304, 256, "float32"): "dqm_tc",
             (32, 768, 50304, 256, "float32"): "dqm_tc_few_rows",
             (4096, 768, 50304, 128, "float32"): "dqm_tc_block128",
-            (32, 768, 50304, 96, "float32"): "dqm"}
+            (32, 768, 50304, 96, "float32"): "dqm_tc_block96",
+            (4096, 768, 50304, 96, "float32"): "dqm_tc_block96_rows4096",
+            (32, 480, 50304, 256, "float32"): "dqm_tc_d480"}
 
 
 def phase_kernels_dequant(torch, ctx):
-    """B8 against its plain version, each case through its route
-    (``dqm_route``, checked by the counters): on the tensor cores the
-    main-path shape (the GPT-2-125M LM head at B8 x T512, x fp32 as the
-    forward casts it, and with bf16 x), 9d's head at 32 rows, M = 1, 37 and
-    63 (the 64-row tiling), blocks of 64 and 128 at 4096 and 256 rows (the
-    narrower tiles), the leaf at 2048 rows; on the CUDA cores an effective
-    block of 96 (D 64 x F 96, and 9d's head at a block of 96) and ragged D;
-    every case also bitwise on a re-run, with its error and its plain
-    version's against the float64 product. The rows of ``DQM_ROWS`` also
-    time the plain version, cuBLAS fp32 (TF32 off) over the weight already
-    dequantized, the dequantize plus cuBLAS, and, for a tensor-core row, the
-    CUDA-core kernel on the same inputs."""
+    """B8 against its plain version, each case through the tensor-core
+    kernel (``dqm_route``, checked by the counter): the main-path shape (the
+    GPT-2-125M LM head at B8 x T512, x fp32 as the forward casts it, and with
+    bf16 x), 9d's head at 32 rows, M = 1, 37 and 63 (the 64-row tiling),
+    blocks of 64 and 128 at 4096 and 256 rows (the narrower tiles), blocks
+    off 64-column panels (8, 48, 96 at 9d's head and at 4096 rows, 160, 250:
+    padded to whole panels), an effective block of 96 (D 64 x F 96), D off
+    64-row steps (70, 100, 300, 333, 480; rows of x or q off 16 bytes copied
+    by the wrapper), the leaf at 2048 rows; every case also bitwise on a
+    re-run, with its error and its plain version's against the float64
+    product. The rows of ``DQM_ROWS`` also time the plain version, cuBLAS
+    fp32 (TF32 off) over the weight already dequantized and the dequantize
+    plus cuBLAS. An odd block (no quantizer gives one) must raise, with no
+    launch."""
     from deepspeed_tpu_torch.comm.quantized import dequantize_blockwise, quantize_blockwise
     from deepspeed_tpu_torch.ops import _build
     from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
@@ -958,22 +1004,27 @@ def phase_kernels_dequant(torch, ctx):
     timer = ctx["timer"]
     gen = torch.Generator(device="cuda").manual_seed(3)
     V = 50304
-    tc, cc = "tensor_cores", "cuda_cores"  # the route each case must take
-    cases = [(4096, 768, V, 256, "float32", tc), (4096, 768, V, 256, "bfloat16", tc),
-             (32, 768, V, 256, "float32", tc),  # phase 9d's head
-             (1, 768, V, 256, "float32", tc), (37, 768, V, 256, "float32", tc),
-             (63, 768, V, 128, "float32", tc), (1, 768, V, 64, "float32", tc),
-             (4096, 768, V, 128, "float32", tc),  # phase 9e's head
-             (4096, 768, V, 64, "bfloat16", tc), (256, 768, 3072, 128, "float32", tc),
-             (256, 768, 3072, 64, "float16", tc),
-             (32, 768, V, 96, "float32", cc),  # 9d's head at a block of 96
-             (64, 64, 96, 256, "float32", cc),
-             (2048, 768, 2304, 256, "float32", tc), (2048, 768, 2304, 256, "bfloat16", tc),
-             (100, 300, 1000, 256, "float32", cc), (37, 768, 3000, 128, "bfloat16", tc),
-             (200, 768, 2304, 256, "float16", tc)]
-    worst = {"cuda_cores": 0.0, "tensor_cores": 0.0}
+    cases = [(4096, 768, V, 256, "float32"), (4096, 768, V, 256, "bfloat16"),
+             (32, 768, V, 256, "float32"),  # phase 9d's head
+             (1, 768, V, 256, "float32"), (37, 768, V, 256, "float32"),
+             (63, 768, V, 128, "float32"), (1, 768, V, 64, "float32"),
+             (4096, 768, V, 128, "float32"),  # phase 9e's head
+             (4096, 768, V, 64, "bfloat16"), (256, 768, 3072, 128, "float32"),
+             (256, 768, 3072, 64, "float16"),
+             (32, 768, V, 96, "float32"),  # 9d's head at a block of 96
+             (4096, 768, V, 96, "float32"), (1, 768, V, 8, "float32"),
+             (37, 768, V, 48, "float32"), (256, 768, V, 160, "bfloat16"),
+             (63, 768, V, 250, "float32"), (256, 768, 3072, 96, "float16"),
+             (64, 64, 96, 256, "float32"),
+             (2048, 768, 2304, 256, "float32"), (2048, 768, 2304, 256, "bfloat16"),
+             (37, 768, 3000, 128, "bfloat16"), (200, 768, 2304, 256, "float16"),
+             # D off 64-row steps
+             (32, 480, V, 256, "float32"), (256, 480, 1920, 96, "bfloat16"),
+             (100, 300, 1000, 256, "float32"), (7, 100, 3000, 96, "bfloat16"),
+             (200, 333, 2304, 256, "float16"), (5, 70, 1000, 250, "float32")]
+    worst = 0.0
     payloads = {}
-    for M, D, F, block, dt, expect in cases:
+    for M, D, F, block, dt in cases:
         if (D, F, block) not in payloads:
             w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
             payloads[(D, F, block)] = quantize_blockwise(w, bits=8, block_size=block)
@@ -981,15 +1032,15 @@ def phase_kernels_dequant(torch, ctx):
         Fp, nb = q.shape[1], s.shape[1]
         route = dqm.dqm_route(M, D, Fp, nb)
         x = torch.randn((M, D), generator=gen, device="cuda").to(getattr(torch, dt))
-        before = (dqm.launches, dqm.tc_launches)
+        before = dqm.tc_launches
         out = dqm.dequant_matmul(x, q, s, z, orig_size=F)
         again = dqm.dequant_matmul(x, q, s, z, orig_size=F)
         torch.cuda.synchronize()
-        moved = (dqm.launches - before[0], dqm.tc_launches - before[1])
+        moved = dqm.tc_launches - before
         ref = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F)
         err = (out.float() - ref.float()).abs().max().item()
         rel = err / max(ref.float().abs().max().item(), 1e-30)
-        worst[route] = max(worst[route], err)
+        worst = max(worst, err)
         exact = _dqm_exact(torch, x, q, s, z, F)
         top = exact.abs().max().item()
         rel64 = (out.double() - exact).abs().max().item() / top
@@ -997,9 +1048,8 @@ def phase_kernels_dequant(torch, ctx):
         del exact
         kernel_ms = timer.ms(lambda: dqm.dequant_matmul(x, q, s, z, orig_size=F), iters=7)
         bound_ms, bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size())
-        tile = dqm.dqm_tile(M, Fp, nb) if route == tc else None
         line = (f"phase2 dequant_matmul M{M} D{D} F{F} Fp{Fp} block{Fp // nb} {dt} "
-                f"route={route} tile={tile} launches(cuda_cores, tensor_cores)={moved}: "
+                f"route={route} tile={dqm.dqm_tile(M, Fp, nb)} launches={moved}: "
                 f"max_abs_err={err:.3e} rel_err={rel:.3e} rel_err_vs_fp64={rel64:.3e} "
                 f"plain_rel_err_vs_fp64={plain_rel64:.3e} "
                 f"bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
@@ -1011,43 +1061,39 @@ def phase_kernels_dequant(torch, ctx):
             library_ms = timer.ms(lambda: torch.matmul(x, w_hat), iters=7)
             deq_library_ms = timer.ms(
                 lambda: torch.matmul(x, dequantize_blockwise(q, s, z, orig_size=F)), iters=7)
-            core_bound_ms, core_bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size(), cc)
             line += (f" plain_ms={plain_ms:.4f} library_ms(cuBLAS fp32, TF32 off, dequantize "
                      f"excluded)={library_ms:.4f} dequantize+cuBLAS_ms={deq_library_ms:.4f} "
                      f"kernel/cuBLAS={kernel_ms / library_ms:.2f} "
                      f"kernel/bound={kernel_ms / bound_ms:.2f} "
-                     f"cuda_core_ceiling_ms={core_bound_ms:.4f} ({core_bound_by}) "
                      f"kernel_tflops(fp32 function)={2.0 * M * D * F / kernel_ms / 1e9:.2f}")
-            if route == tc:  # the CUDA-core kernel on the same inputs
-                core = dqm._launch(x, q, s, z, F, cc)
-                core_rel64 = ((core.double() - _dqm_exact(torch, x, q, s, z, F)).abs().max()
-                              .item() / top)
-                core_ms = timer.ms(lambda: dqm._launch(x, q, s, z, F, cc), iters=7)
-                earlier = f" (earlier run: {OLD_DQM_MS})" if (M, block) == (4096, 256) else ""
-                line += (f" cuda_core_kernel_ms={core_ms:.4f}{earlier} "
-                         f"cuda_core_rel_err_vs_fp64={core_rel64:.3e} "
-                         f"speedup_vs_cuda_cores={core_ms / kernel_ms:.2f}")
-                worst[cc] = max(worst[cc], (core.float() - ref.float()).abs().max().item())
-                del core
             ctx[row] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
             del w_hat
         log(line)
         tag = f"dequant_matmul {M, D, F, block, dt}"
-        want = (2, 0) if expect == cc else (0, 2)
-        check(route == expect and moved == want,
-              f"{tag}: route {route}, launches {moved}; expected {expect}, {want}")
+        check(route == "tensor_cores" and moved == 2,
+              f"{tag}: route {route}, launches {moved}; expected tensor_cores, 2")
         check(torch.equal(out, again), f"{tag}: two runs differ")
         check(rel <= QMM_RTOL[dt], f"{tag}: rel error {rel}")
         if dt == "float32":  # the fp32 function, held to the float64 product
             check(rel64 <= DQM_FP64_RTOL, f"{tag}: {rel64} from the float64 product")
         del out, again, ref
-    ctx["dqm"]["max_abs_err"] = worst["cuda_cores"]
-    ctx["dqm_tc"]["max_abs_err"] = worst["tensor_cores"]
-    for lib in ("dequant_matmul", "dequant_matmul_tc"):
-        for line in _build.build_logs.get(lib, "").splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"phase2 {lib} ptxas: {line.strip()}")
+    ctx["dqm_tc"]["max_abs_err"] = worst
+    # an odd block (393 columns): no kernel takes it, so the call raises
+    q = torch.randint(0, 256, (768, V), generator=gen, device="cuda", dtype=torch.uint8)
+    s = torch.full((768, V // 393), 1e-4, device="cuda")
+    before, refused = dqm.tc_launches, False
+    try:
+        dqm.dequant_matmul(torch.randn((37, 768), generator=gen, device="cuda"), q, s, -128 * s,
+                           orig_size=V)
+    except ValueError:
+        refused = True
+    log(f"phase2 dequant_matmul odd block 393: refused={refused} "
+        f"launches={dqm.tc_launches - before}")
+    check(refused and dqm.tc_launches == before, "dequant_matmul: an odd block did not raise")
+    for line in _build.build_logs.get("dequant_matmul_tc", "").splitlines():
+        if "registers" in line or "spill" in line or "smem" in line:
+            log(f"phase2 dequant_matmul_tc ptxas: {line.strip()}")
     torch.cuda.empty_cache()
 
 
@@ -1068,11 +1114,15 @@ def phase_kernels_qmatmul(torch, ctx):
     """B6 (int8) and B7 (int4) against their plain versions at the four
     projection shapes of GPT-2-125M and of gpt2-350m, at the decode and
     prefill-chunk row counts, group 128, fp32 and bf16, each through the
-    kernel its route names (bf16 at 64 and 256 rows: the tensor cores); int8
-    also at group 64 and at a group that crosses rows. The CUDA-core
-    kernels' rows of the result line are GPT-2-125M's mlp_up at M=4 in fp32,
-    phase 7a's decode shape. Then the tensor-core kernel's own cases
-    (phase_kernels_qmatmul_tc)."""
+    kernel its route names (1-8 rows: the decode kernel; 64 and 256 rows:
+    the tensor cores); int8 also at group 64 and at a group that crosses
+    rows; int8 and int4 at phase 7e's layout (GPT-2-125M's four projections
+    at group 32 in fp32, at its 4 decode rows and 256 prefill rows: the
+    CUDA cores). Every case bitwise on a re-run and within QMM_RTOL of the
+    plain version; fp32 also within DQM_FP64_RTOL of the float64 product.
+    The CUDA-core kernels' rows of the result line are 7e's mlp_up at M=4.
+    Then the tensor-core kernel's own cases (phase_kernels_qmatmul_tc) and
+    the decode kernel's (phase_kernels_qmatmul_decode)."""
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
     from deepspeed_tpu_torch.ops.quantizer import dequantize, quantize
 
@@ -1084,6 +1134,8 @@ def phase_kernels_qmatmul(torch, ctx):
              for D, F in shapes for M in (1, 4, 8, 64, 256)]
     cases += [(M, D, F, g, 8, dt) for dt in ("float32", "bfloat16")
               for M, D, F, g in ((8, 768, 3072, 64), (8, 320, 960, 128))]
+    cases += [(M, D, F, 32, bits, "float32") for bits in (8, 4) for D, F in shapes[:4]
+              for M in (4, 256)]  # 7e's layout
     errs = {8: 0.0, 4: 0.0}
     weights = {}
     for M, D, F, group, bits, dt in cases:
@@ -1092,8 +1144,9 @@ def phase_kernels_qmatmul(torch, ctx):
         if key not in weights:
             w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
             q, s = quantize(w, bits=bits, num_groups=D * F // group)
-            weights[key] = (im.pack_int4(q) if bits == 4 else q, s)
-        q, s = weights[key]
+            w64 = (q.double().reshape(-1, group) * s.double().reshape(-1, 1)).reshape(D, F)
+            weights[key] = (im.pack_int4(q) if bits == 4 else q, s, w64)
+        q, s, w64 = weights[key]
         x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
         kernel_fn, plain_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
                                else (im.int8_matmul, im.int8_matmul_ref))
@@ -1105,6 +1158,9 @@ def phase_kernels_qmatmul(torch, ctx):
         err = (out.float() - ref.float()).abs().max().item()
         rel = err / max(ref.float().abs().max().item(), 1e-30)
         errs[bits] = max(errs[bits], err)
+        exact = x.double() @ w64
+        rel64 = (out.double() - exact).abs().max().item() / exact.abs().max().item()
+        del exact
         w_dense = dequantize(im.unpack_int4(q) if bits == 4 else q, s, dtype)
         kernel_ms = timer.ms(lambda: kernel_fn(x, q, s, group))
         plain_ms = timer.ms(lambda: plain_fn(x, q, s, group))
@@ -1112,17 +1168,23 @@ def phase_kernels_qmatmul(torch, ctx):
         bound_ms, bound_by = qmm_bound(M, D, F, group, bits, dt, x.element_size())
         name = "int4_matmul" if bits == 4 else "int8_matmul"
         log(f"phase2 {name} M{M} D{D} F{F} group{group} {dt} route={route}: max_abs_err={err:.3e} "
-            f"rel_err={rel:.3e} bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
+            f"rel_err={rel:.3e} rel_err_vs_fp64={rel64:.3e} "
+            f"bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
             f"plain_ms={plain_ms:.4f} library_ms(cuBLAS dense, dequantize excluded)="
             f"{library_ms:.4f} bound_ms={bound_ms:.5f} ({bound_by})")
         check(torch.equal(out, again), f"{name} {M, D, F, group, dt}: two runs differ")
         check(rel <= QMM_RTOL[dt], f"{name} {M, D, F, group, dt}: rel error {rel}")
-        if (M, D, F, group, dt) == (4, 768, 3072, QUANT_GROUP, "float32"):
+        if dt == "float32":
+            check(rel64 <= DQM_FP64_RTOL, f"{name} {M, D, F, group}: {rel64} from float64")
+        if group == 32:  # 7e: the CUDA cores
+            check(route == "cuda_cores", f"{name} {M, D, F} at group 32: route {route}")
+        if (M, D, F, group, dt) == (4, 768, 3072, 32, "float32"):
             ctx[f"qmm_int{bits}"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                                          bound_ms=bound_ms, bound_by=bound_by)
     for bits in (8, 4):
         ctx[f"qmm_int{bits}"]["max_abs_err"] = errs[bits]
     phase_kernels_qmatmul_tc(torch, ctx)
+    phase_kernels_qmatmul_decode(torch, ctx)
 
 
 QMM_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768),
@@ -1266,6 +1328,126 @@ def phase_kernels_qmatmul_tc(torch, ctx):
     for line in _build.build_logs.get("int8_matmul_tc", "").splitlines():
         if "registers" in line or "spill" in line or "C75" in line:
             log(f"phase2 int8_matmul_tc ptxas: {line.strip()}")
+    torch.cuda.empty_cache()
+
+
+# B6/B7's decode kernel: the rows it takes (a decode step of 1-8 slots)
+QMM_DEC_ROWS = (1, 2, 4, 8)
+
+
+def phase_kernels_qmatmul_decode(torch, ctx):
+    """B6 / B7's decode kernel (``csrc/int8_matmul_decode.cu``) at the 8
+    projection shapes of GPT-2-125M and gpt2-350m, M in QMM_DEC_ROWS, groups
+    128 and 64, int8 / int4, fp32 / bf16 / fp16 x, through the wrapper's
+    route: fp32 within QMM_RTOL of the largest output of the plain version
+    and DQM_FP64_RTOL of the float64 product's; bf16 / fp16 at most
+    QMM_TC_MAX_ULP ulps of the dtype of the fp32 plain version on the
+    entries of at least 1e-3 of the largest; bitwise on a re-run, two decode
+    launches and no other. At group 128 in fp32 and bf16 (fp16 at M=8) the
+    decode kernel, the CUDA-core kernel on the same inputs (the route before
+    it), the plain version, cuBLAS in x's dtype over the weight already
+    dequantized to it and the bound (three bf16 passes of x s in every
+    dtype, or the bytes) are timed. The result line's rows are gpt2-350m's mlp_up at M=8 in bf16,
+    phase 7b's decode shape."""
+    from deepspeed_tpu_torch.ops import _build
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
+    from deepspeed_tpu_torch.ops.quantizer import dequantize, quantize
+
+    timer = ctx["timer"]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = {8: 0.0, 4: 0.0}
+    worst_ulp = {"bfloat16": 0.0, "float16": 0.0}
+    worst_fp32 = {"plain": 0.0, "fp64": 0.0}
+    versus = {"cublas": [], "cuda_cores": []}  # (kernel / cuBLAS, CUDA cores / kernel)
+    n_cases = 0
+    for bits in (8, 4):
+        name = f"int{bits}_matmul"
+        kernel_fn, plain_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
+                               else (im.int8_matmul, im.int8_matmul_ref))
+        for D, F in QMM_SHAPES:
+            for group in (QUANT_GROUP, 64):
+                w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
+                q, s = quantize(w, bits=bits, num_groups=D * F // group)
+                w64 = (q.double().reshape(-1, group) * s.double().reshape(-1, 1)).reshape(D, F)
+                q = im.pack_int4(q) if bits == 4 else q
+                w_deq = {dt: dequantize(im.unpack_int4(q) if bits == 4 else q, s,
+                                        getattr(torch, dt))
+                         for dt in ("float32", "bfloat16", "float16")}
+                plan = im.decode_plan(D, q.shape[1], im._num_sms(0), bits)
+                for M in QMM_DEC_ROWS:
+                    for dt in ("float32", "bfloat16", "float16"):
+                        dtype = getattr(torch, dt)
+                        x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
+                        tag = f"{name} M{M} D{D} F{F} group{group} {dt}"
+                        before = {k: getattr(im, c) for k, c in QMM_COUNTERS.items()}
+                        out = kernel_fn(x, q, s, group)
+                        again = kernel_fn(x, q, s, group)
+                        torch.cuda.synchronize()
+                        moved = {k: getattr(im, c) - before[k] for k, c in QMM_COUNTERS.items()}
+                        ref = plain_fn(x.float(), q, s, group)
+                        err = (out.float() - ref).abs().max().item()
+                        bitwise = torch.equal(out, again)
+                        worst[bits] = max(worst[bits], err)
+                        n_cases += 1
+                        line = f"phase2 {tag} route=decode plan={plan}:"
+                        if dt == "float32":
+                            rel = err / ref.abs().max().item()
+                            exact = x.double() @ w64
+                            rel64 = ((out.double() - exact).abs().max().item()
+                                     / exact.abs().max().item())
+                            worst_fp32["plain"] = max(worst_fp32["plain"], rel)
+                            worst_fp32["fp64"] = max(worst_fp32["fp64"], rel64)
+                            line += f" rel_err={rel:.3e} rel_err_vs_fp64={rel64:.3e}"
+                            check(rel <= QMM_RTOL[dt], f"{tag}: rel error {rel}")
+                            check(rel64 <= DQM_FP64_RTOL, f"{tag}: {rel64} from float64")
+                            del exact
+                        else:
+                            ulps = ulp_err(torch, out, ref, dtype)
+                            worst_ulp[dt] = max(worst_ulp[dt], ulps)
+                            line += f" max_ulp_err={ulps:.2f}"
+                            check(ulps <= QMM_TC_MAX_ULP, f"{tag}: {ulps} {dt} ulps")
+                        line += f" max_abs_err={err:.3e} bitwise_rerun={bitwise} launches={moved}"
+                        check(bitwise, f"{tag}: two runs differ")
+                        want = {k: 2 if k == f"int{bits}_dec" else 0 for k in QMM_COUNTERS}
+                        check(moved == want, f"{tag}: launches {moved}, expected {want}")
+                        if group == QUANT_GROUP and (dt != "float16" or M == 8):
+                            w_lib = w_deq[dt]
+                            dec_ms = timer.ms(lambda: im._launch_decode(name, x, q, s, F, group,
+                                                                        bits))
+                            cc_ms = timer.ms(lambda: im._launch(name, x, q, s, F, group, bits))
+                            plain_ms = timer.ms(lambda: plain_fn(x, q, s, group))
+                            library_ms = timer.ms(lambda: torch.matmul(x, w_lib))
+                            bound_ms, bound_by = qmm_bound(M, D, F, group, bits, "float32",
+                                                           x.element_size())
+                            lib = "cuBLAS fp32, TF32 off" if dt == "float32" else f"cuBLAS {dt}"
+                            line += (f" dec_ms={dec_ms:.4f} cuda_cores_ms={cc_ms:.4f} "
+                                     f"plain_ms={plain_ms:.4f} "
+                                     f"library_ms({lib}, dequantize excluded)={library_ms:.4f} "
+                                     f"bound_ms={bound_ms:.5f} ({bound_by}) "
+                                     f"dec/cublas={dec_ms / library_ms:.2f} "
+                                     f"cuda_cores/dec={cc_ms / dec_ms:.2f} "
+                                     f"dec/bound={dec_ms / bound_ms:.2f}")
+                            versus["cublas"].append(dec_ms / library_ms)
+                            versus["cuda_cores"].append(cc_ms / dec_ms)
+                            if (D, F, M, dt) == (1024, 4096, 8, "bfloat16"):
+                                ctx[f"qmm_dec_int{bits}"] = dict(
+                                    ms=dec_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+                        log(line)
+                        del out, again, ref
+                del w, q, s, w64, w_deq
+    for bits in (8, 4):
+        ctx[f"qmm_dec_int{bits}"]["max_abs_err"] = worst[bits]
+    log(f"phase2 int8/int4_matmul_decode over {n_cases} cases: largest ulps bf16="
+        f"{worst_ulp['bfloat16']:.2f} fp16={worst_ulp['float16']:.2f}; fp32 largest rel error "
+        f"vs plain={worst_fp32['plain']:.3e} vs fp64={worst_fp32['fp64']:.3e}; over the "
+        f"{len(versus['cublas'])} timed cases dec/cuBLAS {min(versus['cublas']):.2f}-"
+        f"{max(versus['cublas']):.2f} (at or below 1: "
+        f"{sum(v <= 1.0 for v in versus['cublas'])}), CUDA cores/dec "
+        f"{min(versus['cuda_cores']):.2f}-{max(versus['cuda_cores']):.2f}")
+    for line in _build.build_logs.get("int8_matmul_decode", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"phase2 int8_matmul_decode ptxas: {line.strip()}")
     torch.cuda.empty_cache()
 
 
@@ -2002,7 +2184,7 @@ def _reset_counts():
     da.verify_launches = da.verify_kv8_launches = da.verify_kv4_launches = 0
     for counter in QMM_COUNTERS.values():
         setattr(im, counter, 0)
-    dqm.launches = dqm.tc_launches = 0
+    dqm.tc_launches = 0
     for names in BS_COUNTERS.values():
         for counter in names.values():
             setattr(bs, counter, 0)
@@ -2133,9 +2315,12 @@ def phase_serving(torch, ctx):
             ctx["decode"]["launches"] = decode_launches
 
 
-def _decode_profile(torch, engine, prompt, steps: int) -> str:
+def _decode_profile(torch, engine, prompt, steps: int, sink=None, name=None,
+                    counter=None) -> str:
     """Device breakdown of ``steps`` cached single-token forwards after a
-    prefill of ``prompt``, as generate runs them."""
+    prefill of ``prompt``, as generate runs them (the profiler's kernel rows
+    also appended to ``sink``; with ``name`` and ``counter``, from a trace
+    that holds every counted launch of those kernels, ``complete_trace``)."""
     model, params = engine.model, engine.params
     B, T = prompt.shape
     with torch.no_grad():
@@ -2155,7 +2340,14 @@ def _decode_profile(torch, engine, prompt, steps: int) -> str:
             decode()
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-        return device_breakdown(torch, decode, float(np.median(walls[1:])) * 1e3)
+        if counter is None:
+            kernels = device_kernels(torch, decode)
+        else:
+            kernels = complete_trace(torch, decode, name, counter)[0]
+        if sink is not None:
+            sink.extend(kernels)
+        return device_breakdown(torch, decode, float(np.median(walls[1:])) * 1e3,
+                                kernels=kernels)
 
 
 def _train_config(micro: int, gas: int = 1, **over):
@@ -2447,7 +2639,8 @@ def _qmm_expected(torch, cfg, params, rows, dtype, n=1):
     attn_out, mlp_up, mlp_down) on the kernel its ``qmm_route`` names: none
     past 256 rows (the dequantize route), the tensor cores past the
     crossover (every GPT-2 projection layout at group 128 qualifies, in
-    every dtype), the CUDA cores otherwise (decode steps of 8 rows)."""
+    every dtype), the decode kernel at 1-8 rows (every GPT-2 projection
+    layout at groups 64 and 128), the CUDA cores otherwise."""
     from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
@@ -2461,7 +2654,7 @@ def _qmm_expected(torch, cfg, params, rows, dtype, n=1):
         D, F = q.shape[1], q.shape[-1] * (2 if bits == 4 else 1)
         route = im.qmm_route(rows, dtype, D, F, D * F // node["s"].shape[-1], bits)
         if route != "dequantize":
-            want[f"int{bits}" + ("_tc" if route == "tensor_cores" else "")] += cfg.n_layer * n
+            want[QMM_ROUTE_KEY[route].format(bits=bits)] += cfg.n_layer * n
     return want
 
 
@@ -2636,8 +2829,35 @@ def phase_quantized(torch, ctx):
             f"(dense fp32 {_block_weight_bytes(plain.params)})")
         check(match == 1.0, f"{kind} fp32 generate differs from the dequantized dense path")
         want = {**{k: 0 for k in QMM_COUNTERS}, "decode": cfg.n_layer * (new - 1), "flash": 0}
-        want[kind] = 4 * cfg.n_layer * (new - 1)
+        want[f"{kind}_dec"] = 4 * cfg.n_layer * (new - 1)  # decode steps of 4 rows
         check(launches == want, f"{kind}: launches {launches}, expected {want}")
+        del engine, plain
+    torch.cuda.empty_cache()
+
+    # (e) a user's finer groups: int8 / int4 at group 32, fp32, B4, prompt 64,
+    # +16: the layout neither tensor-core kernel takes in fp32, so prefill (256
+    # rows) and every decode step run the CUDA-core kernel; tokens equal the
+    # dequantized dense tree's
+    short = prompt[:, :64]
+    for bits in (8, 4):
+        kind = f"int{bits}"
+        quant = {"enabled": True, "bits": bits, "group_size": 32}
+        engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="float32",
+                                                    quant=quant)
+        plain = deepspeed_tpu_torch.init_inference(
+            for_gpt(cfg, gpt.dequantize_params(engine.params)), dtype="float32")
+        engine.generate(short, max_new_tokens=2)  # warm-up
+        _reset_counts()  # the quantized generate main path at group 32
+        out = engine.generate(short, max_new_tokens=16)
+        launches = {k: getattr(im, c) for k, c in QMM_COUNTERS.items()}
+        ref = plain.generate(short, max_new_tokens=16)
+        match = float(np.mean(out[:, 64:] == ref[:, 64:]))
+        log(f"phase7e generate gpt2-125m B4 prompt64 new16 fp32 {kind} group32: "
+            f"greedy_match_rate vs dequantized dense={match:.4f} launches={launches}")
+        check(match == 1.0, f"{kind} group 32 generate differs from the dequantized dense path")
+        want = {k: 0 for k in QMM_COUNTERS}
+        want[kind] = 4 * cfg.n_layer * 16  # the prefill (256 rows) and 15 decode steps
+        check(launches == want, f"7e {kind}: launches {launches}, expected {want}")
         ctx[f"qmm_{kind}"]["launches"] = launches[kind]
         del engine, plain
     torch.cuda.empty_cache()
@@ -2647,7 +2867,7 @@ def phase_quantized(torch, ctx):
     cfg350 = gpt.PRESETS["gpt2-350m"]
     p350 = gpt.init_params(cfg350, 0, device="cuda")
     prompt = np.random.default_rng(0).integers(0, cfg350.vocab_size, (8, 128)).astype(np.int32)
-    toks, rows = {}, {}
+    toks, rows, busy = {}, {}, {}
     for kind, bits in (("bf16", None), ("int8", 8), ("int4", 4)):
         quant = {"enabled": True, "bits": bits, "group_size": QUANT_GROUP} if bits else {}
         engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg350, p350), dtype="bfloat16",
@@ -2662,14 +2882,28 @@ def phase_quantized(torch, ctx):
             f"decode_p50_ms={p50:.3f} decode_ms_all={[round(x, 3) for x in lat]} "
             f"tokens_per_s={1e3 / p50 * 8:.1f} block_weight_bytes={nbytes} "
             f"launches over one generate={launches}")
+        kernels = []
         log(f"phase7b {kind} profile of 8 decode steps at position 128: "
-            + _decode_profile(torch, engine, prompt, steps=8))
-        if bits:  # decode steps of 8 rows: the CUDA cores; prefill (1024 rows): dequantize
+            + _decode_profile(torch, engine, prompt, steps=8, sink=kernels, name="qmatmul",
+                              counter=lambda: sum(getattr(im, c) for c in QMM_COUNTERS.values())))
+        qmm_ms = sum(r[2] for r in kernels if "qmatmul" in r[0])
+        busy[kind] = (sum(r[2] for r in kernels), qmm_ms,
+                      sum(r[1] for r in kernels if "qmatmul" in r[0]))
+        # the busy time and share come from a trace that holds every launch:
+        # 8 steps x 4 projections x 24 layers
+        want_records = 8 * 4 * cfg350.n_layer if bits else 0
+        check(busy[kind][2] == want_records,
+              f"7b {kind}: {busy[kind][2]} B6/B7 records in the trace, expected {want_records}")
+        if bits:  # decode steps of 8 rows: the decode kernel; prefill (1024 rows): dequantize
             want = {k: 0 for k in QMM_COUNTERS}
-            want[kind] = 4 * cfg350.n_layer * (new - 1)
+            want[f"{kind}_dec"] = 4 * cfg350.n_layer * (new - 1)
             check(launches == want, f"350m {kind}: launches {launches}, expected {want}")
+            ctx[f"qmm_dec_{kind}"]["launches"] = launches[f"{kind}_dec"]
         del engine
         torch.cuda.empty_cache()
+    log("phase7b device busy of 8 decode steps (profiler): " + "; ".join(
+        f"{k}={b:.3f} ms (B6/B7 {q:.3f} ms x{n}, share {q / b if b else 0:.3f})"
+        for k, (b, q, n) in busy.items()))
     log(f"phase7b greedy match vs dense bf16 (reported only: quantization changes the "
         f"function): int8={float(np.mean(toks['int8'] == toks['bf16'])):.4f} "
         f"int4={float(np.mean(toks['int4'] == toks['bf16'])):.4f}; weight bytes vs bf16: "
@@ -2695,7 +2929,8 @@ def phase_quantized(torch, ctx):
             f"{_match(toks_q, toks_d):.4f} tpot_p50_ms={rep['per_token_p50_ms']} "
             f"tokens_per_sec={rep['tokens_per_sec']} prefill_forwards_by_rows="
             f"{launches['prefill_rows']} tc_launches_in_prefill={tc} "
-            f"cuda_core_launches_in_decode={launches[f'{kind}_in_decode']}")
+            f"decode_kernel_launches_in_decode={launches[f'{kind}_dec_in_decode']} "
+            f"cuda_core_launches={launches[f'{kind}_matmul']}")
         if toks_q != toks_d:  # where the greedy paths part, and by how much
             log("phase7c first differing request: " + _first_flip(torch, cfg, qparams,
                                                                   toks_q, toks_d, wl))
@@ -2703,6 +2938,8 @@ def phase_quantized(torch, ctx):
               f"{kind}-weight served tokens differ from the dequantized dense run")
         check(tc > 0 and tc % (4 * cfg.n_layer) == 0,
               f"7c {kind}: {tc} tensor-core launches in prefill")
+        check(launches[f"{kind}_dec_in_decode"] > 0 and launches[f"{kind}_matmul"] == 0,
+              f"7c {kind}: decode steps off the decode kernel: {launches}")
         ctx[f"qmm_tc_f32_{kind}"]["launches"] = tc
         del eng_q
         torch.cuda.empty_cache()
@@ -2739,7 +2976,8 @@ def phase_quantized_prefill(torch, ctx):
         tc = launches[f"{kind}_tc_in_prefill"]
         check(tc > 0 and tc % (4 * cfg.n_layer) == 0,
               f"7d {kind}: {tc} tensor-core launches in prefill")
-        check(launches[f"{kind}_in_decode"] > 0, f"7d {kind}: no CUDA-core launch in decode")
+        check(launches[f"{kind}_dec_in_decode"] > 0 and launches[f"{kind}_matmul"] == 0,
+              f"7d {kind}: decode steps off the decode kernel: {launches}")
 
         ids = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab_size, (1, 128)),
                               device="cuda")
@@ -2749,10 +2987,11 @@ def phase_quantized_prefill(torch, ctx):
             return gpt.forward_with_cache(cfg, eng.params, ids, cache)
 
         wall_ms = ctx["timer"].ms(prefill_128, iters=5, warmup=2, device_only=False)
-        kernels = device_kernels(torch, prefill_128)
+        counter = f"int{bits}_tc_launches"
+        kernels, profiled, qmm_n = complete_trace(torch, prefill_128, "qmatmul_tc",
+                                                  lambda: getattr(im, counter))
         busy = sum(r[2] for r in kernels)
         qmm_ms = sum(r[2] for r in kernels if "qmatmul_tc" in r[0])
-        qmm_n = sum(r[1] for r in kernels if "qmatmul_tc" in r[0])
         share = f"{qmm_ms / busy:.3f}" if busy else "not measured"
         log(f"phase7d serving bf16 {kind} weights group{QUANT_GROUP}: finished={rep['finished']}/"
             f"{len(wl)} audit_ok={rep['pool_audit_ok']} ttft_p50_ms={rep['ttft_p50_ms']} "
@@ -2761,12 +3000,17 @@ def phase_quantized_prefill(torch, ctx):
             f"{_match(toks_q, toks_d):.4f} (reported only) prefill_forwards_by_rows="
             f"{launches['prefill_rows']} tc_launches_in_prefill={tc} "
             f"tc_launches_in_verify={launches[f'{kind}_tc_in_verify']} "
-            f"cuda_core_launches_in_decode={launches[f'{kind}_in_decode']} "
-            f"cuda_core_launches_in_prefill={launches[f'{kind}_in_prefill']}")
+            f"decode_kernel_launches_in_decode={launches[f'{kind}_dec_in_decode']} "
+            f"cuda_core_launches={launches[f'{kind}_matmul']}")
         log(f"phase7d {kind} profile of one 128-row prefill forward: b6b7_tc_ms={qmm_ms:.3f} "
-            f"launches={qmm_n} share_of_busy={share} "
+            f"launches={profiled} (in the trace: {qmm_n}) share_of_busy={share} "
             + device_breakdown(torch, prefill_128, wall_ms, top=5, kernels=kernels))
-        check(qmm_n == 4 * cfg.n_layer, f"7d {kind}: {qmm_n} tensor-core kernels in the profile")
+        # the counter says what launched; the share comes from a trace that
+        # holds a record of every launch
+        check(profiled == 4 * cfg.n_layer,
+              f"7d {kind}: {profiled} tensor-core launches in the profiled forward")
+        check(qmm_n == profiled, f"7d {kind}: {qmm_n} of {profiled} tensor-core launches in "
+              "the trace after 3 tries")
         ctx[f"qmm_tc_{kind}"]["launches"] = tc
         del eng
         torch.cuda.empty_cache()
@@ -2935,8 +3179,11 @@ def phase_spec_serving(torch, ctx):
     _, toks_eo, _, _, _ = _serve(torch, cfg, qparams, "float32", workload=wl12, decode_block=1)
     log(f"phase8e fp32 int8 weights spec: {_spec_line(rep_e)} match vs spec-off="
         f"{_match(toks_e, toks_eo):.4f} B6 launches in verify: tensor cores="
-        f"{launches_e['int8_tc_in_verify']} CUDA cores={launches_e['int8_in_verify']}")
+        f"{launches_e['int8_tc_in_verify']} CUDA cores={launches_e['int8_in_verify']}; "
+        f"decode kernel in decode steps={launches_e['int8_dec_in_decode']}; CUDA cores over "
+        f"the run={launches_e['int8_matmul']}")
     check(toks_e == toks_eo, "int8-weight spec tokens differ from spec-off")
+    check(launches_e["int8_matmul"] == 0, f"8e: the CUDA-core B6 launched: {launches_e}")
     del qparams
     torch.cuda.empty_cache()
 
@@ -2974,8 +3221,7 @@ def phase_zero3(torch, ctx):
         finally:
             dqm.dequant_matmul = kernel_fn
         runs[route] = ([m["loss"].item() for m in metrics], [m["grad_norm"].item() for m in metrics],
-                       {"b8": dqm.tc_launches, "b8_cuda_cores": dqm.launches,
-                        **_flash_launches(fa)})
+                       {"b8": dqm.tc_launches, **_flash_launches(fa)})
         del engine
     (loss_k, norm_k, launches), (loss_p, norm_p, plain_launches) = runs["kernel"], runs["plain"]
     log(f"phase9a train fp32 zero3 quantized weights+head gpt2-125m B4xT512: losses={loss_k} "
@@ -2986,8 +3232,6 @@ def phase_zero3(torch, ctx):
     check(launches["b8"] == 5 and plain_launches["b8"] == 0,
           f"9a B8 tensor-core launches {launches['b8']} / plain {plain_launches['b8']}, "
           "expected 5 / 0")
-    check(launches["b8_cuda_cores"] == 0 and plain_launches["b8_cuda_cores"] == 0,
-          f"9a B8 CUDA-core launches {launches['b8_cuda_cores']}, expected 0")
     flash = {n: c for n, c in launches.items() if not n.startswith("b8")}
     expected = path_launches(flash, 5 * cfg.n_layer, _flash_path("float32"))
     check(flash == expected, f"9a flash launches {flash}, expected {expected}")
@@ -3002,7 +3246,7 @@ def phase_zero3(torch, ctx):
     wire_ledger.reset()
     fa, _ = _reset_counts()  # the bf16 stage-3 training main path
     losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, 10)
-    launches = {"b8": dqm.tc_launches, "b8_cuda_cores": dqm.launches, **_flash_launches(fa)}
+    launches = {"b8": dqm.tc_launches, **_flash_launches(fa)}
     ledger = wire_ledger.summary_dict()
     tokens_per_s = engine.tokens_per_sec()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3029,9 +3273,7 @@ def phase_zero3(torch, ctx):
     check(abs(losses[0] - math.log(V)) < 0.5, f"9b step-1 loss {losses[0]} far from ln(V)")
     check(losses[-1] < losses[0], f"9b loss did not fall: {losses}")
     check(all(math.isfinite(x) for x in losses + norms), "9b loss or grad norm not finite")
-    check(launches["b8"] == 10 and launches["b8_cuda_cores"] == 0,
-          f"9b B8 launches {launches['b8']} on the tensor cores, "
-          f"{launches['b8_cuda_cores']} on the CUDA cores, expected 10 / 0")
+    check(launches["b8"] == 10, f"9b B8 launches {launches['b8']}, expected 10")
     flash = {n: c for n, c in launches.items() if not n.startswith("b8")}
     expected = path_launches(flash, 10 * cfg.n_layer, _flash_path("bfloat16"))
     check(flash == expected, f"9b flash launches {flash}, expected {expected}")
@@ -3069,25 +3311,23 @@ def phase_zero3(torch, ctx):
 
     # (d) fp32 at B1 x T32, 2 steps: the head's product has 32 rows and
     # takes the tensor-core kernel's 64-row tiling; then the same with
-    # zero_quantize_block_size 96, a block off 64-column panels, which keeps
-    # the CUDA-core kernel
-    for block, route in ((256, "b8"), (96, "b8_cuda_cores")):
+    # zero_quantize_block_size 96, a block off 64-column panels, which the
+    # tensor-core kernel takes padded to 128 columns
+    for block in (256, 96):
         engine = _engine(_train_config(1, zero_optimization={
             **ZERO3Q, "zero_quantize_block_size": block}), cfg)
         batches = [{"input_ids": rng.integers(0, V, (1, 32)).astype(np.int32)} for _ in range(2)]
         _reset_counts()  # the short-batch fp32 stage-3 training main path
         losses = [engine.train_batch(b)["loss"].item() for b in batches]
         torch.cuda.synchronize()
-        launches = {"b8": dqm.tc_launches, "b8_cuda_cores": dqm.launches}
+        launches = {"b8": dqm.tc_launches}
         log(f"phase9d train fp32 zero3 quantized weights+head gpt2-125m B1xT32 block{block}: "
             f"losses={losses} launches over 2 steps={launches}")
         check(all(math.isfinite(x) for x in losses), f"9d block {block}: losses {losses}")
-        want = {"b8": 0, "b8_cuda_cores": 0, route: 2}
-        check(launches == want, f"9d block {block}: B8 launches {launches}, expected {want}")
-        ctx["dqm_tc_few_rows" if route == "b8" else "dqm"]["launches"] = launches[route]
+        check(launches == {"b8": 2}, f"9d block {block}: B8 launches {launches}, expected 2")
+        ctx["dqm_tc_few_rows" if block == 256 else "dqm_tc_block96"]["launches"] = launches["b8"]
         del engine
         torch.cuda.empty_cache()
-
     # (e) (b)'s configuration with zero_quantize_block_size 128 (a user's
     # block to cut quantization error), 3 steps: the head's product on the
     # tensor cores' 128-column tiles, its step beside (b)'s
@@ -3095,7 +3335,7 @@ def phase_zero3(torch, ctx):
         **ZERO3Q, "zero_quantize_block_size": 128}), cfg)
     _reset_counts()  # the bf16 stage-3 training main path at a block of 128
     losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, 3)
-    launches = {"b8": dqm.tc_launches, "b8_cuda_cores": dqm.launches}
+    launches = {"b8": dqm.tc_launches}
     log(f"phase9e train bf16 master zero3 quantized weights+head block128 gpt2-125m B8xT512: "
         f"losses={losses} grad_norms={norms} launches over 3 steps={launches} "
         f"step_ms (CUDA events, median of steps 2-3)={float(np.median(step_ms[1:])):.3f} "
@@ -3104,8 +3344,7 @@ def phase_zero3(torch, ctx):
         f"step_ms={steady_ms:.3f}")
     check(abs(losses[0] - math.log(V)) < 0.5, f"9e step-1 loss {losses[0]} far from ln(V)")
     check(all(math.isfinite(x) for x in losses + norms), "9e loss or grad norm not finite")
-    check(launches == {"b8": 3, "b8_cuda_cores": 0},
-          f"9e B8 launches {launches}, expected 3 on the tensor cores and none on the CUDA cores")
+    check(launches == {"b8": 3}, f"9e B8 launches {launches}, expected 3")
     ctx["dqm_tc_block128"]["launches"] = launches["b8"]
     del engine
     torch.cuda.empty_cache()
@@ -3409,17 +3648,20 @@ def main() -> int:
         {"name": f"int{bits}_matmul_tc_fp32", "route": "cuda", "source": QMM_TC_SRC,
          "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_tc_f32_int{bits}"]}
         for bits in (8, 4)] + [
+        {"name": f"int{bits}_matmul_decode", "route": "cuda", "source": QMM_DEC_SRC,
+         "replaces": QMM_TPU[f"int{bits}"], **ctx[f"qmm_dec_int{bits}"]}
+        for bits in (8, 4)] + [
         {"name": "paged_verify_attention" + ("" if kind == "dense" else f"_{kind}"),
          "route": "cuda", "source": VERIFY_SRC, "replaces": VERIFY_TPU,
          **ctx[f"verify_{kind}"]} for kind in PAGED_KINDS] + [
-        {"name": "dequant_matmul", "route": "cuda", "source": DQM_SRC, "replaces": DQM_TPU,
-         **ctx["dqm"]},
         {"name": "dequant_matmul_tc", "route": "cuda", "source": DQM_TC_SRC,
          "replaces": DQM_TPU, **ctx["dqm_tc"]},
         {"name": "dequant_matmul_tc_few_rows", "route": "cuda", "source": DQM_TC_SRC,
          "replaces": DQM_TPU, **ctx["dqm_tc_few_rows"]},
         {"name": "dequant_matmul_tc_block128", "route": "cuda", "source": DQM_TC_SRC,
-         "replaces": DQM_TPU, **ctx["dqm_tc_block128"]}] + [
+         "replaces": DQM_TPU, **ctx["dqm_tc_block128"]},
+        {"name": "dequant_matmul_tc_block96", "route": "cuda", "source": DQM_TC_SRC,
+         "replaces": DQM_TPU, **ctx["dqm_tc_block96"]}] + [
         {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}"),
          "route": "cuda", "source": BS_FWD_SRC if n == "fwd" else BS_BWD_SRC,
          "replaces": BS_TPU[n], **ctx[f"bs_cuda_{n}"]} for n in BS_KERNELS] + [

@@ -100,6 +100,27 @@ __device__ __forceinline__ void dequant_word(unsigned word, float (&w)[BITS == 4
   }
 }
 
+// A kernel's opt-in to more than 48 KB of dynamic shared memory, made once
+// per device (the attribute is the current device's, and the call costs host
+// time on every launch). One static instance per kernel instance:
+//
+//   static ds::SmemOptIn opt;
+//   if (const cudaError_t err = opt.set(kernel<...>, bytes)) return err;
+struct SmemOptIn {
+  static constexpr int kDevices = 64;
+  int bytes[kDevices] = {};  // what each device has been given (0: nothing yet)
+
+  template <typename K> cudaError_t set(K kernel, int want) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < kDevices && bytes[dev] >= want) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, want);
+    if (err == cudaSuccess && dev < kDevices) bytes[dev] = want;
+    return err;
+  }
+};
+
 }  // namespace ds
 
 extern "C" const char* ds_error_string(int code) {

@@ -253,13 +253,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const i
                    float scale, int n_split, int span, float* ws_ml, float* ws_acc,
                    int* tickets, cudaStream_t stream) {
   constexpr int smem = Geo<T, D>::bytes;
-  static bool attr_set = false;  // once per instance: the attribute call costs host time
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        decode_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static ds::SmemOptIn opt;  // once per device and instance
+  if (const cudaError_t err = opt.set(decode_split_kernel<T, D>, smem)) return err;
   decode_split_kernel<T, D><<<dim3(B * H, n_split), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lengths, scalar_len, H, S, q_sb, q_sh, scale, span, ws_ml, ws_acc,

@@ -4,14 +4,13 @@
 //
 //   out[M, F] = x[M, D] @ (q * scale + zero_point)[:, :F]
 //
-// Replaces, for the shapes dequant_matmul.py dqm_route sends here (D % 64 ==
-// 0 and a scale block that is a multiple of 64 columns, at any number of
-// rows: the LM head of every preset at every batch, with the default block
-// of 256 and with the blocks of 64 and 128 a user may set), the TPU kernel
-// deepspeed_tpu/ops/pallas/dequant_matmul.py:_kernel (pallas_call :86).
-// Effective blocks off 64-column steps (short rows, comm/quantized.py
-// effective_block; no preset's head has one) and D off 64-row steps keep the
-// CUDA-core kernel of csrc/dequant_matmul.cu. q is the uint8 [D, Fp] payload
+// Replaces the TPU kernel deepspeed_tpu/ops/pallas/dequant_matmul.py:_kernel
+// (pallas_call :86) for every 8-bit payload quantize_blockwise gives
+// (dequant_matmul.py dqm_route), at any number of rows, any D and any even
+// scale block: the LM head of every preset at every batch, with the default
+// block of 256 and with every block a user may set as
+// zero_quantize_block_size or that comm/quantized.py effective_block gives
+// short rows. An odd block (no quantizer gives one) is refused. q is the uint8 [D, Fp] payload
 // of comm/quantized.py quantize_blockwise with fp32 [D, nb] scales and
 // zero-points, one pair per block = Fp / nb columns of a row; x (fp32, bf16
 // or fp16) is read as fp32, the sum is an fp32-accurate product, the output
@@ -79,6 +78,31 @@
 // repeatable.
 // The wrapper picks the tiling from the shapes (dequant_matmul.py dqm_tile,
 // whose docstring gives the measurements behind it).
+//
+// Blocks off 64-column panels (96, 250, 8, ...). The kernel walks virtual
+// columns in which each scale block is padded to Bp, the next multiple of
+// 64 columns: every tile above then lies in whole virtual blocks, and a
+// warpgroup's columns in one. A tile's q bytes come as one TMA box starting
+// at the real column of its first virtual column, rounded down to 16 bytes
+// (a box's start must be 16-byte aligned: blocks of a multiple of 16, such
+// as 96, start aligned); the conversion reads each virtual column's byte
+// from its real place in the box, the few past the box's end (at most 14 a
+// row) from global memory, and writes zeros for the padding (block to Bp),
+// whose outputs are never stored; the epilogue stores each virtual column
+// at its real column. Each warpgroup's columns lie in one virtual block, so
+// the real place of a column is its set's base plus its offset, with no
+// division past the prologue. The padded path is its own instance (PAD), so
+// a block of a multiple of 64 runs the aligned code alone. A payload row
+// stride off 16 bytes (which TMA cannot take) is copied to a padded stride
+// by the wrapper. The products over the padding are the cost: a third
+// more at a block of 96, 2% at 250, and at blocks under 64 each block
+// takes a whole panel (8x the products at a block of 8). A block of a
+// multiple of 64 takes the aligned path as before.
+//
+// D off 64-row steps: the last step runs past D. TMA fills the rows of x's
+// and q's boxes past D with zeros, the scales and zero-points past D are
+// copied as zeros, and the bytes read from global memory past a q box stop
+// at D, so the rows past D add nothing.
 //
 // What bounds it on the H100: at many rows, operations. At the main-path
 // shape (the GPT-2-125M LM head at B8 x T512: x [4096, 768] fp32, q [768,
@@ -200,10 +224,12 @@ __device__ __forceinline__ void mma_step(float (&d)[N], uint64_t da, uint64_t db
 
 // RW: warpgroups stacked along rows (2: 128 rows x BN columns, one scale
 // block; 1: 64 rows x BN columns, warpgroup w the column half w)
-template <typename T, int RW, int BN>
+// PAD: the scale block is off 64-column panels (padded to bp columns)
+template <typename T, int RW, int BN, bool PAD>
 __global__ void __launch_bounds__(kThreads, 1)
 dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
                          const __grid_constant__ CUtensorMap tmq,
+                         const uint8_t* __restrict__ qg, long long ldq,
                          const float* __restrict__ scale, const float* __restrict__ zero_point,
                          T* __restrict__ out, int M, int D, int Fp, int nb, int F) {
   using L = Layout<T, RW, BN>;
@@ -217,12 +243,18 @@ dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2, wg_warp = warp & 3;
+  // n0: the tile's first virtual column (blocks padded to bp columns)
+  const int block = Fp / nb, bp = PAD ? (block + 63) / 64 * 64 : block;
   const int m0 = blockIdx.y * L::rows, n0 = blockIdx.x * BN;
-  const int block = Fp / nb;
-  // the scale block of each set: RW 2, the tile's; RW 1, each column half's
-  const int blk[kSets] = {n0 / block, (n0 + (RW == 1 ? kWN : 0)) / block};
+  // the scale block of each set (RW 2, the tile's; RW 1, each column
+  // half's) and its first column's offset in the block
+  const int blk[kSets] = {n0 / bp, (n0 + (RW == 1 ? kWN : 0)) / bp};
+  const int obase[kSets] = {n0 % bp, (n0 + (RW == 1 ? kWN : 0)) % bp};
+  // where the tile's q box starts: its first real column, rounded down to
+  // 16 bytes
+  const int qa = PAD ? (blk[0] * block + obase[0]) & ~15 : n0;
   const int rows_in = min(L::rows, M - m0);  // rows of x that exist
-  const int n_steps = D / kBK;
+  const int n_steps = (D + kBK - 1) / kBK;  // the last may run past D
 
   // one mbarrier a ring stage: its TMA tiles have landed
   const uint32_t bar0 = base + L::bars;
@@ -236,21 +268,23 @@ dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
   __syncthreads();
 
   // step k's raw tiles into stage k % stages: x and q by TMA (one thread;
-  // rows of x past M arrive as zeros), the scales and zero-points by 4-byte
-  // cp.async copies (a row of them need not be 16-byte aligned for TMA)
+  // rows of x past M and rows past D arrive as zeros), the scales and
+  // zero-points by 4-byte cp.async copies (a row of them need not be 16-byte
+  // aligned for TMA; zeros past D)
   auto load_raw = [&](int k) {
     const int k0 = k * kBK, slot = k % L::stages;
     const uint32_t st = base + L::raw + slot * L::stage;
     if (tid == 0) {
       mbar_expect_tx(bar0 + 8 * slot, L::rows * L::raw_row + kBK * BN);
       tma_load_2d(st + L::raw_x, &tmx, bar0 + 8 * slot, k0, m0);
-      tma_load_2d(st + L::raw_q, &tmq, bar0 + 8 * slot, n0, k0);
+      tma_load_2d(st + L::raw_q, &tmq, bar0 + 8 * slot, qa, k0);
     }
     if (tid < L::scale_sets * 2 * kBK) {  // set, then scales / zero-points, then row
       const int set = tid / (2 * kBK), kr = tid % kBK;
-      const float* src = ((tid / kBK) & 1 ? zero_point : scale) + (long long)(k0 + kr) * nb +
-                         blk[set];
-      cp_async4(st + L::raw_s + 4 * tid, src, true);
+      const bool in = k0 + kr < D;
+      const float* src = ((tid / kBK) & 1 ? zero_point : scale) +
+                         (in ? (long long)(k0 + kr) * nb + blk[set] : 0);
+      cp_async4(st + L::raw_s + 4 * tid, src, in);
     }
   };
   // step k's raw tiles have landed (the caller's barrier makes them
@@ -267,6 +301,7 @@ dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
   const int cx = tid & 7, rx = tid >> 3;
   float xz[4] = {0.f, 0.f, 0.f, 0.f};
   auto convert = [&](int k) {
+    const int k0 = k * kBK;
     const unsigned char* st = base_ptr + L::raw + (k % L::stages) * L::stage;
     const float* rs = reinterpret_cast<const float*>(st + L::raw_s);
     const uint32_t abuf = base + (k & 1) * L::buf, bbuf = abuf + kParts * L::a_tile;
@@ -304,15 +339,55 @@ dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
         st_shared16(abuf + 2 * L::a_tile + off, make_uint4(lo[0], lo[1], lo[2], lo[3]));
       }
     }
-    // q: 8 bytes (row kr, columns 8 cc ..) a read
+    // q: 8 bytes (row kr, virtual columns 8 cc ..) a read; padded blocks
+    // read them from their real place, pairs past the block as zeros
     constexpr int qr = BN / 8;  // reads a row
 #pragma unroll
     for (int j = 0; j < kBK * qr / kThreads; ++j) {
       const int idx = tid + kThreads * j, kr = idx / qr, cc = idx % qr;
-      const uint2 w = *reinterpret_cast<const uint2*>(st + L::raw_q + kr * BN + 8 * cc);
-      st_shared16(bbuf + tile_offset<kBK>(kr, cc),
-                  make_uint4(widen_pair(w.x, 0), widen_pair(w.x, 2), widen_pair(w.y, 0),
-                             widen_pair(w.y, 2)));
+      const unsigned char* row = st + L::raw_q + kr * BN;
+      uint4 v;
+      if constexpr (!PAD) {
+        const uint2 w = *reinterpret_cast<const uint2*>(row + 8 * cc);
+        v = make_uint4(widen_pair(w.x, 0), widen_pair(w.x, 2), widen_pair(w.y, 0),
+                       widen_pair(w.y, 2));
+      } else {
+        // the chunk lies in its set's virtual block; its real bytes start at
+        // an even offset of the box (blocks are even); pairs past the box
+        // come from global memory (none past the payload or past D: those
+        // columns' outputs are not stored, those rows add nothing)
+        const int set = RW == 1 && 8 * cc >= kWN ? 1 : 0;
+        const int local = 8 * cc - set * kWN, off = obase[set] + local;
+        const int src = blk[set] * block + off - qa;
+        uint32_t h[4];
+        if (off + 8 <= block && src % 8 == 0 && src + 8 <= BN) {
+          // a whole chunk of the block at an aligned place of the box (every
+          // chunk at blocks of a multiple of 16, such as 96): one read
+          const uint2 w = *reinterpret_cast<const uint2*>(row + src);
+          h[0] = widen_pair(w.x, 0);
+          h[1] = widen_pair(w.x, 2);
+          h[2] = widen_pair(w.y, 0);
+          h[3] = widen_pair(w.y, 2);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            h[e] = 0u;  // bf16 zeros
+            const int c = src + 2 * e;
+            if (off + 2 * e < block) {
+              uint32_t pair = 0u;
+              if (c < BN) {
+                pair = *reinterpret_cast<const uint16_t*>(row + c);
+              } else if (qa + c < Fp && k0 + kr < D) {
+                pair = __ldg(reinterpret_cast<const unsigned short*>(
+                    qg + (long long)(k0 + kr) * ldq + qa + c));
+              }
+              h[e] = widen_pair(pair, 0);
+            }
+          }
+        }
+        v = make_uint4(h[0], h[1], h[2], h[3]);
+      }
+      st_shared16(bbuf + tile_offset<kBK>(kr, cc), v);
     }
     fence_proxy_async();
   };
@@ -395,7 +470,13 @@ dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
 #pragma unroll
     for (int i = 0; i < kAcc; i += 2) {
       const int rl = acc_row(wg_warp, lane, i);
-      const int row = row0 + rl, col = col0 + 128 * h + acc_col(lane, i);
+      int col = col0 + 128 * h + acc_col(lane, i);  // virtual; even
+      if constexpr (PAD) {  // a pair past its block is padding; else its real column
+        const int set = RW == 1 ? wg : 0;
+        const int off = obase[set] + 128 * h + acc_col(lane, i);
+        col = off < block ? blk[set] * block + off : F;
+      }
+      const int row = row0 + rl;
       if (row >= M || col >= F) continue;
       const float add = sxz[wg * kWgRows + rl];  // the warpgroup's set, row rl
       const float v0 = acc[h][i] + add, v1 = acc[h][i + 1] + add;
@@ -414,82 +495,97 @@ template <typename T> constexpr CUtensorMapDataType kMapType =
     : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
-template <typename T, int RW, int BN>
-cudaError_t launch(const void* x, long long ldx, const void* q, const float* scale,
-                   const float* zero_point, void* out, int M, int D, int Fp, int nb, int F,
-                   cudaStream_t stream) {
+template <typename T, int RW, int BN, bool PAD>
+cudaError_t launch_pad(const void* x, long long ldx, const void* q, long long ldq,
+                       const float* scale, const float* zero_point, void* out, int M, int D,
+                       int Fp, int nb, int F, cudaStream_t stream) {
   using L = Layout<T, RW, BN>;
   constexpr int smem = L::bytes + 1024;  // + the 1024-byte alignment
   CUtensorMap tmx, tmq;
   if (!ds::tma::make_map(&tmx, kMapType<T>, x, M, D, ldx * sizeof(T), L::rows, kBK,
                          CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !ds::tma::make_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, D, Fp, Fp, kBK, BN,
+      !ds::tma::make_map(&tmq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, D, Fp, ldq, kBK, BN,
                          CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
-  static bool attr_set = false;  // once per instance: the attribute call costs host time
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dequant_matmul_tc_kernel<T, RW, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
-  const dim3 grid((F + BN - 1) / BN, (M + L::rows - 1) / L::rows);
-  dequant_matmul_tc_kernel<T, RW, BN><<<grid, kThreads, smem, stream>>>(
-      tmx, tmq, scale, zero_point, static_cast<T*>(out), M, D, Fp, nb, F);
+  static ds::SmemOptIn opt;  // once per device and instance
+  if (const cudaError_t err = opt.set(dequant_matmul_tc_kernel<T, RW, BN, PAD>, smem))
+    return err;
+  // the virtual columns up to the last real one (blocks padded to bp)
+  const int block = Fp / nb, bp = (block + 63) / 64 * 64;
+  const long long vf = (long long)(F - 1) / block * bp + (F - 1) % block + 1;
+  const dim3 grid(static_cast<unsigned>((vf + BN - 1) / BN), (M + L::rows - 1) / L::rows);
+  dequant_matmul_tc_kernel<T, RW, BN, PAD><<<grid, kThreads, smem, stream>>>(
+      tmx, tmq, static_cast<const uint8_t*>(q), ldq, scale, zero_point, static_cast<T*>(out),
+      M, D, Fp, nb, F);
   return cudaGetLastError();
+}
+
+template <typename T, int RW, int BN>
+cudaError_t launch(const void* x, long long ldx, const void* q, long long ldq,
+                   const float* scale, const float* zero_point, void* out, int M, int D, int Fp,
+                   int nb, int F, cudaStream_t stream) {
+  if ((Fp / nb) % 64 == 0)
+    return launch_pad<T, RW, BN, false>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb,
+                                        F, stream);
+  return launch_pad<T, RW, BN, true>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F,
+                                     stream);
 }
 
 template <typename T>
 cudaError_t dispatch_tile(int rw, int cols, const void* x, long long ldx, const void* q,
-                          const float* scale, const float* zero_point, void* out, int M, int D,
-                          int Fp, int nb, int F, cudaStream_t s) {
+                          long long ldq, const float* scale, const float* zero_point, void* out,
+                          int M, int D, int Fp, int nb, int F, cudaStream_t s) {
   if (rw == 2 && cols == 256)
-    return launch<T, 2, 256>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+    return launch<T, 2, 256>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
   if (rw == 2 && cols == 128)
-    return launch<T, 2, 128>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+    return launch<T, 2, 128>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
   if (rw == 2 && cols == 64)
-    return launch<T, 2, 64>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+    return launch<T, 2, 64>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
   if (rw == 1 && cols == 256)
-    return launch<T, 1, 256>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+    return launch<T, 1, 256>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
   if (rw == 1 && cols == 128)
-    return launch<T, 1, 128>(x, ldx, q, scale, zero_point, out, M, D, Fp, nb, F, s);
+    return launch<T, 1, 128>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x [M, D] with row stride ldx (elements; last dimension contiguous, rows
-// 16-byte aligned) in `dtype`; q uint8 [D, Fp] contiguous and 16-byte
-// aligned; scale / zero_point fp32 [D, nb] contiguous; out [M, F]
+// 16-byte aligned) in `dtype`; q uint8 [D, Fp] with row stride ldq (bytes, a
+// multiple of 16; 16-byte aligned); scale / zero_point fp32 [D, nb]
+// contiguous; out [M, F]
 // contiguous in x's dtype. The tiling: `row_wgs` (2: 128 rows x `cols` 256,
 // 128 or 64 columns a block; 1: 64 rows x `cols` 256 or 128, a warpgroup
-// each column half). The layouts taken: D % 64 == 0, Fp % nb == 0, F <= Fp,
-// and the columns of a warpgroup inside one scale block (Fp / nb a multiple
-// of `cols` for row_wgs 2, of cols / 2 for 1). Returns the CUDA error code of
+// each column half). The layouts taken: any D, Fp % nb == 0 with an even
+// block Fp / nb, F <= Fp, and the columns of a warpgroup inside one
+// virtual block (the block rounded up to a multiple of 64, a multiple of
+// `cols` for row_wgs 2, of cols / 2 for 1). Returns the CUDA error code of
 // the launch (0 on success).
 extern "C" int ds_dequant_matmul_tc(const void* x, long long ldx, const void* q,
-                                    const float* scale, const float* zero_point, void* out,
-                                    int M, int D, int Fp, int nb, int F, int dtype, int row_wgs,
-                                    int cols, void* stream) {
+                                    long long ldq, const float* scale, const float* zero_point,
+                                    void* out, int M, int D, int Fp, int nb, int F, int dtype,
+                                    int row_wgs, int cols, void* stream) {
   if (M <= 0 || F <= 0) return 0;
   const int elt = dtype == ds::kF32 ? 4 : 2;
   const int wn = row_wgs == 2 ? cols : cols / 2;  // columns of a warpgroup
-  const bool layout = D > 0 && D % kBK == 0 && nb > 0 && Fp % nb == 0 && wn >= 64 &&
-                      (Fp / nb) % wn == 0 && F <= Fp;
+  const int block = nb > 0 ? Fp / nb : 0, bp = (block + 63) / 64 * 64;
+  const bool layout = D > 0 && nb > 0 && Fp % nb == 0 && block > 0 && block % 2 == 0 &&
+                      wn >= 64 && bp % wn == 0 && F <= Fp;
   const bool aligned = (ldx * elt) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(q) % 16 == 0;
+                       reinterpret_cast<uintptr_t>(q) % 16 == 0 && ldq % 16 == 0 && ldq >= Fp;
   if (!layout || !aligned) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case ds::kF32:
-      return static_cast<int>(dispatch_tile<float>(row_wgs, cols, x, ldx, q, scale, zero_point,
-                                                   out, M, D, Fp, nb, F, s));
+      return static_cast<int>(dispatch_tile<float>(row_wgs, cols, x, ldx, q, ldq, scale,
+                                                   zero_point, out, M, D, Fp, nb, F, s));
     case ds::kBF16:
-      return static_cast<int>(dispatch_tile<__nv_bfloat16>(row_wgs, cols, x, ldx, q, scale,
-                                                           zero_point, out, M, D, Fp, nb, F, s));
+      return static_cast<int>(dispatch_tile<__nv_bfloat16>(row_wgs, cols, x, ldx, q, ldq,
+                                                           scale, zero_point, out, M, D, Fp, nb,
+                                                           F, s));
     case ds::kF16:
-      return static_cast<int>(dispatch_tile<__half>(row_wgs, cols, x, ldx, q, scale, zero_point,
-                                                    out, M, D, Fp, nb, F, s));
+      return static_cast<int>(dispatch_tile<__half>(row_wgs, cols, x, ldx, q, ldq, scale,
+                                                    zero_point, out, M, D, Fp, nb, F, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -35,11 +35,17 @@
 // by a shuffle butterfly, the 8 warps in a fixed tree through shared
 // memory, and the cluster's blocks through distributed shared memory, each
 // block a share of the tile, in rank order. One launch, no scratch in
-// device memory, no atomics: a result is bitwise repeatable. x of every
-// dtype with more rows than a decode step takes csrc/int8_matmul_tc.cu
-// instead, on the tensor cores (ops/cuda/int8_matmul.py qmm_route), in the
-// layouts it takes (fp32 x: whole 64-column panels inside a group); this
-// kernel serves decode steps and the other layouts.
+// device memory, no atomics: a result is bitwise repeatable.
+//
+// Which products still come here (ops/cuda/int8_matmul.py qmm_route): only
+// layouts that neither tensor-core kernel takes. Decode rows (1-8) in every
+// dtype take csrc/int8_matmul_decode.cu where groups are whole 64-column
+// panels that do not cross rows and D is in 64-row steps; 9-256 rows take
+// csrc/int8_matmul_tc.cu in its layouts (fp32 x: groups of whole 64-column
+// panels; bf16 / fp16 x: also groups that divide 64). So this kernel serves
+// groups that cross rows (F % group != 0), groups that split a 64-column
+// panel (96; at decode rows and for fp32 x also 8-32), D off 64-row steps,
+// and F off whole panels: no preset's layout at groups 64 and 128.
 
 #include <stdint.h>
 

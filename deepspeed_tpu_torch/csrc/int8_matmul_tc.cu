@@ -5,8 +5,9 @@
 // Replaces, for x with more rows than a decode step, the TPU kernels of
 // deepspeed_tpu/ops/pallas/int8_matmul.py: _kernel (B6, int8, the
 // pallas_call at :101) and _kernel4 (B7, nibble-packed int4, :201). Decode
-// rows and the layouts this kernel does not take keep the CUDA-core kernel
-// of csrc/int8_matmul.cu (ops/cuda/int8_matmul.py qmm_route picks). Same
+// rows take csrc/int8_matmul_decode.cu, and the layouts neither takes the
+// CUDA-core kernel of csrc/int8_matmul.cu (ops/cuda/int8_matmul.py qmm_route
+// picks). Same
 // function: out = x @ W with W[d, f] = float(q[d, f]) * s[(d F + f) /
 // group] in fp32, x widened to fp32, fp32 sums, one rounding to x's dtype.
 // For B7, byte j of a packed row holds column j in its low nibble and column

@@ -346,13 +346,8 @@ struct Args {
 template <typename T, int D, int MODE>
 cudaError_t launch(const Args& a) {
   constexpr int smem = Geo<T, D, MODE>::bytes;
-  static bool attr_set = false;  // once per instance: the attribute call costs host time
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_split_kernel<T, D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static ds::SmemOptIn opt;  // once per device and instance
+  if (const cudaError_t err = opt.set(paged_split_kernel<T, D, MODE>, smem)) return err;
   paged_split_kernel<T, D, MODE><<<dim3(a.B * a.H, a.n_split), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const unsigned char*>(a.k_pages),
       static_cast<const unsigned char*>(a.v_pages), a.k_scales, a.v_scales,

@@ -683,13 +683,8 @@ verify_split_kernel(const T* __restrict__ q, const T* __restrict__ win_k,
 template <typename T, int D, int MODE, int MT>
 cudaError_t launch(const Args& a) {
   constexpr int smem = Layout<T, D, MODE, (MT > 0 ? 64 : 32)>::bytes;
-  static bool attr_set = false;  // once per instance: the attribute call costs host time
-  if (!attr_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        verify_split_kernel<T, D, MODE, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    attr_set = true;
-  }
+  static ds::SmemOptIn opt;  // once per device and instance
+  if (const cudaError_t err = opt.set(verify_split_kernel<T, D, MODE, MT>, smem)) return err;
   verify_split_kernel<T, D, MODE, MT><<<dim3(a.B * a.H, a.n_split), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.win_k), static_cast<const T*>(a.win_v),
       a.k_pages, a.v_pages, a.k_scales, a.v_scales, static_cast<T*>(a.o), a.lengths, a.tables,

@@ -1,5 +1,5 @@
 """The dequant-fused product over the quantized wire format (kernel B8): the
-hand-written CUDA kernels, their plain version and the route between them.
+hand-written CUDA kernel, its plain version and the route to it.
 
 Counterpart of ``deepspeed_tpu/ops/pallas/dequant_matmul.py``:
 
@@ -8,26 +8,24 @@ Counterpart of ``deepspeed_tpu/ops/pallas/dequant_matmul.py``:
 with ``q`` the uint8 ``[D, Fp]`` payload of ``comm.quantized.quantize_blockwise``
 and ``scale`` / ``zero_point`` fp32 ``[D, Fp / block]``, the block extent
 ``Fp // nb`` taken from the shapes (any even block that ``effective_block``
-gives). Two kernels compute it, each reading x as fp32 whatever its dtype and
-writing x's dtype; each header says how it is tiled and what bounds it:
-
-- ``deepspeed_tpu_torch/csrc/dequant_matmul_tc.cu`` on the tensor cores
-  (``wgmma``), for the shapes :func:`dqm_route` sends there (the LM head at
-  every batch, from one row up, with scale blocks of 64, 128, 256 or any
-  multiple of 64 columns): x times each column block's scales as three
-  exact bf16 parts against the exact bf16 q - 128, plus a side product (the
-  zero-points and the 128 taken off q), an fp32-accurate product (modelled
-  by :func:`dequant_matmul_split_ref`), tiled by :func:`dqm_tile`;
-- ``deepspeed_tpu_torch/csrc/dequant_matmul.cu`` on the CUDA cores, for the
-  other 8-bit shapes (an effective block off 64-column steps, which short
-  rows or a user's ``zero_quantize_block_size`` give, or D off 64-row
-  steps), each weight dequantized as the plain version does it.
+gives). One kernel computes it for every 8-bit payload of an even block,
+reading x as fp32 whatever its dtype and writing x's dtype:
+``deepspeed_tpu_torch/csrc/dequant_matmul_tc.cu`` on the tensor cores
+(``wgmma``), at every number of rows (the LM head at every batch, from one
+row up), every D (the last 64-row step zero-filled past D) and every even
+scale block (256, 128 and 64 on whole 64-column panels; any other, such as
+a user's ``zero_quantize_block_size`` of 96 or the effective block of short
+rows, padded to the next multiple of 64 columns): x times each column
+block's scales as three exact bf16 parts against the exact bf16 q - 128,
+plus a side product (the zero-points and the 128 taken off q), an
+fp32-accurate product (modelled by :func:`dequant_matmul_split_ref`), tiled
+by :func:`dqm_tile`. Its header says how it is tiled and what bounds it.
 
 The reference's ``_eligible`` tile rule is a Mosaic limit and does not carry
-over: every 8-bit payload takes a kernel, ragged tiles masked. Packed int4
+over: every 8-bit payload takes the kernel, ragged tiles masked. Packed int4
 payloads take the plain route on every device, as the reference's do. On a
-CUDA tensor an 8-bit payload launches its route's kernel or raises; a CPU
-tensor takes the plain version.
+CUDA tensor an 8-bit payload launches the kernel or raises (an odd block,
+which no quantizer gives); a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -42,33 +40,32 @@ from .. import _build
 from .flash_attention import DTYPE_CODE
 
 # the tensor-core kernel's granularity: a warpgroup's columns inside one
-# scale block come in 64-column panels, D in 64-row steps (kBK)
+# scale block come in 64-column panels
 _TC_PANEL = 64
-_TC_STEP = 64
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
-# them to show that a main path went through the kernels): the CUDA-core
-# kernel, and the tensor-core one
-launches = 0
+# them to show that a main path went through the kernel)
 tc_launches = 0
 
 
 def dqm_route(M: int, D: int, Fp: int, nb: int, bits: int = 8) -> str:
     """The route of one product of ``M`` rows over a ``[D, Fp]`` payload in
-    ``nb`` scale blocks, from the shapes alone: ``"plain"`` for a packed
-    4-bit payload (on every device, as the reference's); for 8 bits
-    ``"tensor_cores"`` where a scale block is whole 64-column panels and D
-    whole 64-row steps, at any number of rows, and ``"cuda_cores"``
-    otherwise (an effective block off 64-column steps, from a user's block
-    size or ``comm.quantized.effective_block`` on rows shorter than the
-    block, or D off 64-row steps). On the CPU both kernel routes run the
-    plain version."""
-    del M  # every row count takes the route of its layout
+    ``nb`` scale blocks: ``"plain"`` for a packed 4-bit payload (on every
+    device, as the reference's); for 8 bits ``"tensor_cores"`` at any
+    number of rows, any D and any even block (every block
+    ``quantize_blockwise`` gives), and ``"none"`` for an odd block (no
+    kernel: a CUDA tensor raises). On the CPU every route runs the plain
+    version."""
+    del M, D  # every row count and every D take the tensor cores
     if bits == 4:
         return "plain"
-    if D % _TC_STEP == 0 and nb >= 1 and Fp % nb == 0 and (Fp // nb) % _TC_PANEL == 0:
-        return "tensor_cores"
-    return "cuda_cores"
+    return "tensor_cores" if nb >= 1 and Fp % nb == 0 and (Fp // nb) % 2 == 0 else "none"
+
+
+def padded_block(Fp: int, nb: int) -> int:
+    """The tensor-core kernel's virtual block: the scale block rounded up to
+    whole 64-column panels (the block itself at 64, 128, 256; 128 at 96)."""
+    return -(-(Fp // nb) // _TC_PANEL) * _TC_PANEL
 
 
 def dqm_tile(M: int, Fp: int, nb: int) -> Tuple[int, int]:
@@ -79,14 +76,15 @@ def dqm_tile(M: int, Fp: int, nb: int) -> Tuple[int, int]:
     ``cols / 2`` columns in one scale block) at 64 rows or fewer, where a
     second row half would be empty. The side-by-side block takes 256
     columns where the scale block is a multiple of 128, 128 (a warpgroup a
-    block of 64) otherwise. On the H100 (``scripts/quant_tc_bench.py``, x
+    block of 64) otherwise. A block off 64-column panels counts as its
+    :func:`padded_block`. On the H100 (``scripts/quant_tc_bench.py``, x
     fp32 over GPT-2-125M's head, every tiling on the same inputs): at 32
     rows, block 256, the 64 x 256 block 0.0682 ms, 64 x 128 0.0748-0.0751,
     128 x 256 0.0914-0.0916; at 4096 rows, block 128, 128 x 128 2.560-2.562
     ms against 64 x 256 (each warpgroup its own block) 3.061-3.116 and 128 x
     64 3.882-3.884; at block 256, 128 x 256 2.039-2.043 against 128 x 128
     2.554-2.564."""
-    block = Fp // nb
+    block = padded_block(Fp, nb)
     if M > 64:
         return 2, next(c for c in (256, 128, 64) if block % c == 0)
     return 1, 256 if block % 128 == 0 else 128
@@ -124,10 +122,11 @@ def split3(v: torch.Tensor):
 def dequant_matmul_split_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                              zero_point: torch.Tensor, orig_size: int) -> torch.Tensor:
     """The tensor-core kernel's arithmetic, for the tests: for each scale
-    block b, v = x times the block's scales rounded once in fp32 and cut by
-    :func:`split3`, the three parts' fp32 products with the exact q - 128,
-    plus the side product ``x @ zero_point[:, b] + 128 v.sum(1)`` in fp32;
-    one rounding to x's dtype. 8-bit payloads only."""
+    block b (of any even size: the kernel pads it to whole panels with zero
+    weights, which add nothing), v = x times the block's scales rounded once
+    in fp32 and cut by :func:`split3`, the three parts' fp32 products with
+    the exact q - 128, plus the side product ``x @ zero_point[:, b] + 128
+    v.sum(1)`` in fp32; one rounding to x's dtype. 8-bit payloads only."""
     xf = x.float()
     nb = scale.shape[1]
     block = q.shape[1] // nb
@@ -142,29 +141,32 @@ def dequant_matmul_split_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tens
     return out[:, :orig_size].to(x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("dequant_matmul")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ds_dequant_matmul.argtypes = [ptr, i64] + [ptr] * 4 + [i32] * 6 + [ptr]
-    lib.ds_dequant_matmul.restype = i32
-    return lib
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [rows, cols] as TMA reads it: unit column stride and 16-byte
+    aligned rows, as it is or as a copy whose row stride is padded to 16
+    bytes."""
+    step = 16 // t.element_size()
+    if t.stride(-1) == 1 and t.stride(0) % step == 0 and t.data_ptr() % 16 == 0:
+        return t
+    rows, cols = t.shape
+    padded = torch.empty((rows, -(-cols // step) * step), dtype=t.dtype, device=t.device)
+    padded[:, :cols] = t
+    return padded[:, :cols]
 
 
 @functools.lru_cache(maxsize=None)
 def _lib_tc() -> ctypes.CDLL:
     lib = _build.load("dequant_matmul_tc")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ds_dequant_matmul_tc.argtypes = [ptr, i64] + [ptr] * 4 + [i32] * 8 + [ptr]
+    lib.ds_dequant_matmul_tc.argtypes = [ptr, i64, ptr, i64] + [ptr] * 3 + [i32] * 8 + [ptr]
     lib.ds_dequant_matmul_tc.restype = i32
     return lib
 
 
-def _launch(x, q, scale, zero_point, orig_size: int, route: str,
+def _launch(x, q, scale, zero_point, orig_size: int,
             tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """One launch of ``route``'s kernel (the tensor-core one raises on a
-    layout it does not take; ``tile`` overrides its :func:`dqm_tile`, for
-    measurements)."""
+    """One launch of the tensor-core kernel (``tile`` overrides its
+    :func:`dqm_tile`, for measurements)."""
     if x.dtype not in DTYPE_CODE:
         raise TypeError(f"dequant_matmul kernel: x dtype {x.dtype}; expected float32, "
                         "bfloat16 or float16")
@@ -175,30 +177,19 @@ def _launch(x, q, scale, zero_point, orig_size: int, route: str,
     q, scale, zero_point = q.contiguous(), scale.contiguous(), zero_point.contiguous()
     M, D = x.shape
     Fp, nb = q.shape[1], scale.shape[1]
-    if route == "tensor_cores":
-        if dqm_route(M, D, Fp, nb) != route:
-            raise ValueError(f"dequant_matmul tensor-core kernel: D {D}, Fp {Fp}, "
-                             f"{nb} blocks is not a layout it takes")
-        # the kernel copies x's rows and q's with 16-byte copies
-        if x.stride(-1) != 1 or x.stride(0) * x.element_size() % 16 or x.data_ptr() % 16:
-            x = x.clone(memory_format=torch.contiguous_format)
-        if q.data_ptr() % 16:
-            q = q.clone()
-    elif x.stride(-1) != 1:
-        x = x.contiguous()
+    # the kernel copies x's rows and q's by TMA, which needs 16-byte aligned
+    # rows: an x or a payload whose rows are not gets a copy of padded stride
+    x, q = _tma_rows(x), _tma_rows(q)
     dev = x.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     out = torch.empty((M, orig_size), dtype=x.dtype, device=dev)
-    args = (x.data_ptr(), x.stride(0), q.data_ptr(), scale.data_ptr(), zero_point.data_ptr(),
-            out.data_ptr(), M, D, Fp, nb, orig_size, DTYPE_CODE[x.dtype])
+    tail = (scale.data_ptr(), zero_point.data_ptr(), out.data_ptr(), M, D, Fp, nb, orig_size,
+            DTYPE_CODE[x.dtype])
     with torch.cuda.device(index):
         stream = torch.cuda.current_stream(index).cuda_stream
-        if route == "tensor_cores":
-            lib = _lib_tc()
-            status = lib.ds_dequant_matmul_tc(*args, *(tile or dqm_tile(M, Fp, nb)), stream)
-        else:
-            lib = _lib()
-            status = lib.ds_dequant_matmul(*args, stream)
+        lib = _lib_tc()
+        status = lib.ds_dequant_matmul_tc(x.data_ptr(), x.stride(0), q.data_ptr(), q.stride(0),
+                                          *tail, *(tile or dqm_tile(M, Fp, nb)), stream)
     _build.check(lib, status, "dequant_matmul")
     return out
 
@@ -210,7 +201,7 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     packed 4-bit payload takes the plain route); scale / zero_point fp32
     [D, nb]. Returns [M, orig_size] in x's dtype. It has no autograd rule of
     its own: ``comm.quantized.quantized_matmul_reshard`` carries it."""
-    global launches, tc_launches
+    global tc_launches
     if bits not in (4, 8):
         raise ValueError(f"dequant_matmul: bits must be 8 or 4, got {bits}")
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[0]:
@@ -230,9 +221,9 @@ def dequant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         return dequant_matmul_ref(x, q, scale, zero_point, orig_size, bits)
     if x.device.type != "cuda":
         raise ValueError(f"dequant_matmul: unsupported device {x.device}")
-    out = _launch(x, q, scale, zero_point, orig_size, route)
-    if route == "tensor_cores":
-        tc_launches += 1
-    else:
-        launches += 1
+    if route != "tensor_cores":
+        raise ValueError(f"dequant_matmul: the kernel takes even scale blocks; q "
+                         f"{tuple(q.shape)} in {nb} blocks has blocks of {q.shape[1] / nb:g}")
+    out = _launch(x, q, scale, zero_point, orig_size)
+    tc_launches += 1
     return out

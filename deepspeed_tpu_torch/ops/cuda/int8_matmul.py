@@ -6,13 +6,17 @@ Counterpart of ``deepspeed_tpu/ops/pallas/int8_matmul.py``:
 - :func:`int8_matmul` (B6, the reference's ``_kernel``) and
   :func:`int4_matmul` (B7, ``_kernel4``): ``x @ W`` with ``W`` stored as
   int8, or nibble-packed int4, plus one fp32 scale per ``group_size``
-  consecutive weights of the row-major flattened ``[D, F]`` weight. Two
-  kernels compute it: ``deepspeed_tpu_torch/csrc/int8_matmul.cu`` on the
-  CUDA cores (decode rows, and the layouts the other does not take) and
-  ``csrc/int8_matmul_tc.cu`` on the tensor cores (x in any float dtype at
-  prefill and verify rows: bf16 / fp16 x against hi + lo halves of the
-  weight, fp32 x as three exact bf16 parts of x times the scales against the
-  exact integers); each header says how it is split and what bounds it.
+  consecutive weights of the row-major flattened ``[D, F]`` weight. Three
+  kernels compute it: ``deepspeed_tpu_torch/csrc/int8_matmul_decode.cu`` on
+  the tensor cores at decode rows (1-8 rows of x in any float dtype, mma.sync
+  over the weight streamed into registers), ``csrc/int8_matmul_tc.cu`` on the
+  tensor cores at prefill and verify rows (9-256 rows: bf16 / fp16 x against
+  hi + lo halves of the weight, fp32 x as three exact bf16 parts of x times
+  the scales against the exact integers; the decode kernel computes every
+  dtype that way), and ``csrc/int8_matmul.cu`` on the CUDA cores for the
+  layouts neither takes (groups that cross rows or split a 64-column panel,
+  D off 64-row steps; at decode rows also groups under 64); each header says
+  how it is split and what bounds it.
 - :func:`pack_int4` / :func:`unpack_int4`: the half-split layout, where byte
   j of a packed last axis holds value j in its low nibble and value j + F/2
   in its high nibble (shared with the quantized KV pools).
@@ -21,9 +25,10 @@ Counterpart of ``deepspeed_tpu/ops/pallas/int8_matmul.py``:
 reference's shape rule: more than ``_MAX_M`` rows of ``x`` (a large prefill)
 take the reference's own route on any device, the layer's weight
 dequantized to ``x.dtype`` and one ``torch.matmul``. At most ``_MAX_M`` rows
-take a kernel on CUDA and its plain version on the CPU: the tensor-core
-kernel for x with more than ``_TC_MIN_M`` rows in a layout it takes (fp32
-x: whole 64-column panels inside a group), the CUDA-core kernel
+take a kernel on CUDA and its plain version on the CPU: the decode kernel
+for x of at most ``_TC_MIN_M`` rows in a layout it takes (groups of whole
+64-column panels), the tensor-core kernel for more rows in a layout it takes
+(fp32 x: whole 64-column panels inside a group), the CUDA-core kernel
 otherwise. The TPU tile rules of the reference
 (``group % 128``, ``D % block_d``, ``F % block_f``) are Mosaic layout
 constraints and do not carry over: every shape runs a kernel. The kernels
@@ -47,30 +52,32 @@ from .flash_attention import DTYPE_CODE
 _MAX_M = 256  # the reference's bound: more rows take dequantize-then-matmul
 _WARPS = 8  # warps of a block, each its own rows of a chunk (kWarps)
 _MAX_CLUSTER = 8  # blocks of one cluster along D (kMaxCluster, both kernels)
-# x with more rows than this takes the tensor-core kernel. A decode step's
-# rows (8 slots, or fewer) keep the CUDA-core kernel. On the H100
-# (chip_smoke.py phase 2, both kernels on the same inputs, cold L2): bf16 x,
-# the tensor-core kernel is 1.2-2.6x faster at 16 rows over the 8
-# projection shapes of GPT-2-125M and gpt2-350m, and already 1.1-2.1x at 8
-# rows; moving decode onto it is a change of the decode route, which the
-# redesigns of prefill and verify rows leave as it was (ROADMAP.md). fp32 x
-# takes the same crossover: at 16 rows its tensor-core kernel is 1.06-1.81x
-# faster than the CUDA-core one over those 8 shapes, int8 and int4, and 2.6-
-# 5.9x at 256 rows, while at 8 rows the two split the shapes (0.87-1.68x;
-# chip_smoke.py phase 2) and at decode rows the fp32 CUDA-core kernel beats
-# cuBLAS fp32 (0.0125 against 0.0174 ms).
+# x with more rows than this takes the tensor-core kernel, with at most
+# this many the decode kernel (mma's n8 side holds a decode step's 8 slots).
+# On the H100 (chip_smoke.py phase 2, the kernels on the same inputs, cold
+# L2) the 64-row tiles of the tensor-core kernel were 1.1-2.1x faster than
+# the CUDA-core kernel already at 8 rows in bf16, while in fp32 the two
+# split the 8 projection shapes of GPT-2-125M and gpt2-350m (0.87-1.68x);
+# the decode kernel streams the weight through registers with no 64-row
+# tile to fill.
 _TC_MIN_M = 8
 _TC_ROWS = 128  # rows of x a tensor-core block owns (64 for M <= 64)
 _TC_STEP = 64  # rows of D a tensor-core step consumes (kStep)
 _TC_COLS = 128  # output columns a tensor-core block owns (kCols)
 
+_DEC_SLAB = 32  # rows of D a decode warp loads at once (kSlab)
+_DEC_TILE = 64  # q bytes of a row a decode warp covers (kTileBytes)
+_DEC_MAX_WARPS = 8  # warps of a decode block (kMaxWarps)
+
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
 # them to show that a main path went through the kernels): B6 and B7 on the
-# CUDA cores, and on the tensor cores
+# CUDA cores, on the tensor cores at 9-256 rows, and at decode rows
 int8_launches = 0
 int4_launches = 0
 int8_tc_launches = 0
 int4_tc_launches = 0
+int8_dec_launches = 0
+int4_dec_launches = 0
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -169,7 +176,11 @@ def qmatmul_fp32_split_ref(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, gr
     each ``chunk`` of D (all of it by default: a cluster of one) sums its
     steps in order, and the chunks add in order. ``q`` is int8 [D, F], or
     packed [D, F/2] for bits 4; needs group_size % 64 == 0 and F %
-    group_size == 0 (the kernel's fp32 layouts)."""
+    group_size == 0 (the kernel's fp32 layouts). The decode kernel computes
+    the same for x of every dtype (x widened to fp32 first, the result
+    rounded once to x's dtype), its steps 16 deep and its chunks as
+    :func:`decode_plan` cuts D: every step's x s is the same, only the order
+    of the fp32 sums differs."""
     w_q = unpack_int4(q) if bits == 4 else q
     D, F = w_q.shape
     G = F // group_size
@@ -209,18 +220,26 @@ def tc_takes(dtype: torch.dtype, D: int, F: int, group_size: int, bits: int) -> 
     return dtype in (torch.bfloat16, torch.float16) and tc_layout(D, F, group_size, bits)
 
 
+def decode_takes(dtype: torch.dtype, D: int, F: int, group_size: int, bits: int) -> bool:
+    """Whether the decode kernel takes x of ``dtype`` over this weight
+    layout: :func:`tc_layout` with groups of whole 64-column panels (each
+    warp's 64 columns in one group), in every float dtype."""
+    return (dtype in (torch.float32, torch.bfloat16, torch.float16) and group_size % 64 == 0
+            and tc_layout(D, F, group_size, bits))
+
+
 def qmm_route(M: int, dtype: torch.dtype, D: int, F: int, group_size: int, bits: int) -> str:
     """The route of one quantized product of ``M`` rows: ``"dequantize"``
     (more than ``_MAX_M`` rows: the reference's dequantize-then-matmul),
-    ``"tensor_cores"`` (more than ``_TC_MIN_M`` rows of fp32, bf16 or fp16
-    x, in a layout :func:`tc_takes`) or ``"cuda_cores"`` (everything else:
-    decode rows, other layouts). On the CPU the two kernel routes run the
-    plain version."""
+    ``"decode"`` (at most ``_TC_MIN_M`` rows of fp32, bf16 or fp16 x, in a
+    layout :func:`decode_takes`), ``"tensor_cores"`` (more rows, in a
+    layout :func:`tc_takes`) or ``"cuda_cores"`` (the other layouts). On the
+    CPU the three kernel routes run the plain version."""
     if M > _MAX_M:
         return "dequantize"
-    if M > _TC_MIN_M and tc_takes(dtype, D, F, group_size, bits):
-        return "tensor_cores"
-    return "cuda_cores"
+    if M <= _TC_MIN_M:
+        return "decode" if decode_takes(dtype, D, F, group_size, bits) else "cuda_cores"
+    return "tensor_cores" if tc_takes(dtype, D, F, group_size, bits) else "cuda_cores"
 
 
 # ------------------------------------------------------------------ kernels
@@ -239,6 +258,15 @@ def _lib_tc() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ds_quant_matmul_tc.argtypes = [ptr, i64] + [ptr] * 3 + [i32] * 8 + [ptr]
     lib.ds_quant_matmul_tc.restype = i32
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_decode() -> ctypes.CDLL:
+    lib = _build.load("int8_matmul_decode")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ds_quant_matmul_decode.argtypes = [ptr, i64] + [ptr] * 3 + [i32] * 9 + [ptr]
+    lib.ds_quant_matmul_decode.restype = i32
     return lib
 
 
@@ -292,6 +320,32 @@ def tc_plan(M: int, D: int, F: int, sms: int) -> Tuple[int, int]:
             cluster = c
     per_chunk = math.ceil(steps / cluster)
     return _TC_STEP * per_chunk, math.ceil(steps / per_chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(D: int, Fq: int, sms: int, bits: int = 8) -> Tuple[int, int, int]:
+    """(warps, per_warp, cluster) of one decode launch over a weight of D
+    rows and ``Fq`` bytes a row: a block per 64-byte column tile and chunk
+    of D, ``warps`` warps a block, each ``per_warp`` slabs of 32 rows, and
+    ``cluster`` blocks of one column tile along D. A warp takes one slab
+    while the grid fits the card at once (the weight at most 8 slabs an SM;
+    int4 at most 6: its warps hold more registers, one block an SM, and on
+    the H100 128 such blocks in clusters of 4 ran markedly slower than two
+    slabs a warp, scripts/qmm_plan_sweep.py), else two (4 KB of weight in its
+    registers, all requested before it computes), more where D would need
+    more than 8 x 8 warps. The blocks along D are the fewest that keep 8 warps a block,
+    doubled (up to 8) while the grid stays within one block an SM and every
+    warp keeps a slab: the weight spreads over the card and each SM requests
+    its share at once. A pure function of the shapes, so a result is bitwise
+    repeatable."""
+    tiles, slabs = Fq // _DEC_TILE, D // _DEC_SLAB
+    per_warp = 1 if tiles * slabs <= (8 if bits == 8 else 6) * sms else 2
+    per_warp = max(per_warp, math.ceil(slabs / (_DEC_MAX_WARPS * _MAX_CLUSTER)))
+    groups = math.ceil(slabs / per_warp)  # warps along D
+    cluster = math.ceil(groups / _DEC_MAX_WARPS)
+    while 2 * cluster <= _MAX_CLUSTER and 2 * tiles * cluster <= sms and groups >= 4 * cluster:
+        cluster *= 2
+    return math.ceil(groups / cluster), per_warp, cluster
 
 
 def _check(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int,
@@ -373,6 +427,28 @@ def _launch_tc(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: 
     return out
 
 
+def _launch_decode(name: str, x: torch.Tensor, q: torch.Tensor, s: torch.Tensor, F: int,
+                   group_size: int, bits: int) -> torch.Tensor:
+    """One launch of the decode kernel (at most ``_TC_MIN_M`` rows, a layout
+    :func:`decode_takes`); raises on anything else."""
+    index = _launch_checks(name, x, q, s)
+    M, D = x.shape
+    if M > _TC_MIN_M or not decode_takes(x.dtype, D, F, group_size, bits):
+        raise ValueError(f"{name} decode kernel: {M} rows of {x.dtype} x with D {D}, F {F}, "
+                         f"group {group_size} is not a shape it takes")
+    x, q, s = _aligned(x), _aligned(q.contiguous()), s.contiguous()
+    warps, per_warp, cluster = decode_plan(D, q.shape[1], _num_sms(index), bits)
+    out = torch.empty((M, F), dtype=x.dtype, device=x.device)
+    lib = _lib_decode()
+    with torch.cuda.device(index):
+        status = lib.ds_quant_matmul_decode(
+            x.data_ptr(), x.stride(0), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, D, F,
+            group_size, warps, per_warp, cluster, bits, DTYPE_CODE[x.dtype],
+            torch.cuda.current_stream(index).cuda_stream)
+    _build.check(lib, status, name)
+    return out
+
+
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                 group_size: int = 64) -> torch.Tensor:
     """``x @ dequantize(q, s)`` without a dequantized weight.
@@ -380,7 +456,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     x [M, D] float; q int8 [D, F]; s fp32 scales (any shape, read flat) for
     the row-major ``group_size`` runs of the weight (the
     ``models.gpt.quantize_for_inference`` layout). Returns [M, F] in x's dtype."""
-    global int8_launches, int8_tc_launches
+    global int8_launches, int8_tc_launches, int8_dec_launches
     F = q.shape[-1]
     _check("int8_matmul", x, q, s, F, group_size)
     route = qmm_route(x.shape[0], x.dtype, q.shape[0], F, group_size, 8)
@@ -390,6 +466,10 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         return int8_matmul_ref(x, q, s, group_size)
     if x.device.type != "cuda":
         raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    if route == "decode":
+        out = _launch_decode("int8_matmul", x, q, s, F, group_size, 8)
+        int8_dec_launches += 1
+        return out
     if route == "tensor_cores":
         out = _launch_tc("int8_matmul", x, q, s, F, group_size, 8)
         int8_tc_launches += 1
@@ -407,7 +487,7 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
     x [M, D] float; q4 int8 [D, F/2] in the :func:`pack_int4` layout; s fp32
     scales for the row-major ``group_size`` runs of the UNPACKED [D, F]
     weight. Returns [M, F] in x's dtype."""
-    global int4_launches, int4_tc_launches
+    global int4_launches, int4_tc_launches, int4_dec_launches
     F = 2 * q4.shape[-1]
     _check("int4_matmul", x, q4, s, F, group_size)
     route = qmm_route(x.shape[0], x.dtype, q4.shape[0], F, group_size, 4)
@@ -417,6 +497,10 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor, s: torch.Tensor,
         return int4_matmul_ref(x, q4, s, group_size)
     if x.device.type != "cuda":
         raise ValueError(f"int4_matmul: unsupported device {x.device}")
+    if route == "decode":
+        out = _launch_decode("int4_matmul", x, q4, s, F, group_size, 4)
+        int4_dec_launches += 1
+        return out
     if route == "tensor_cores":
         out = _launch_tc("int4_matmul", x, q4, s, F, group_size, 4)
         int4_tc_launches += 1

@@ -49,8 +49,8 @@ CUTS = {
             "    wgmma_fence();\n#ifndef NO_MMA\n#pragma unroll\n"
             "    for (int kk = 0; kk < kBK / 16; ++kk) {"),
     "MMA_END": ("      }\n    }\n    wgmma_commit();", "      }\n    }\n#endif\n    wgmma_commit();"),
-    "SCALES": ("      cp_async4(st + L::raw_s + 4 * tid, src, true);",
-               "#ifndef NO_SCALES\n      cp_async4(st + L::raw_s + 4 * tid, src, true);\n#endif"),
+    "SCALES": ("      cp_async4(st + L::raw_s + 4 * tid, src, in);",
+               "#ifndef NO_SCALES\n      cp_async4(st + L::raw_s + 4 * tid, src, in);\n#endif"),
     "XLOAD": ("      mbar_expect_tx(bar0 + 8 * slot, L::rows * L::raw_row + kBK * BN);\n"
               "      tma_load_2d(st + L::raw_x, &tmx, bar0 + 8 * slot, k0, m0);",
               "#ifdef NO_XLOAD\n      mbar_expect_tx(bar0 + 8 * slot, kBK * BN);\n#else\n"
@@ -96,7 +96,7 @@ def build(nvcc, flags, out_dir):
             raise _build.KernelBuildError(f"nvcc failed on variant {v}:\n{log}")
         lib = ctypes.CDLL(os.path.join(out_dir, f"{v}.so"))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ds_dequant_matmul_tc.argtypes = [ptr, i64] + [ptr] * 4 + [i32] * 8 + [ptr]
+        lib.ds_dequant_matmul_tc.argtypes = [ptr, i64, ptr, i64] + [ptr] * 3 + [i32] * 8 + [ptr]
         lib.ds_dequant_matmul_tc.restype = i32
         libs[v] = lib
     return libs
@@ -130,9 +130,9 @@ def main() -> int:
         for v, lib in libs.items():
             def run(lib=lib):
                 status = lib.ds_dequant_matmul_tc(
-                    x.data_ptr(), x.stride(0), q.data_ptr(), s.data_ptr(), z.data_ptr(),
-                    out.data_ptr(), M, D, q.shape[1], s.shape[1], F, 0, tile[0], tile[1],
-                    torch.cuda.current_stream().cuda_stream)
+                    x.data_ptr(), x.stride(0), q.data_ptr(), q.stride(0), s.data_ptr(),
+                    z.data_ptr(), out.data_ptr(), M, D, q.shape[1], s.shape[1], F, 0, tile[0],
+                    tile[1], torch.cuda.current_stream().cuda_stream)
                 if status != 0:
                     raise RuntimeError(f"dqm_ablation {v}: CUDA error {status}")
             row[f"{v}_ms"] = timer.ms(run)

@@ -5,18 +5,28 @@ LM head) and B6 / B7 (int8 / int4 weights) with fp32 x, through the route
 the checkout's wrapper picks and through each of its kernels directly.
 
 B8 rows, x fp32 over GPT-2-125M's head (D 768, vocabulary 50304): phase 9d's
-32 rows (block 256), 4096 rows at a block of 128 (``zero_quantize_block_size``
-128: phase 9e's configuration) and at the default block of 256 (phase 9b's);
+32 rows (block 256, and at a block of 96), 4096 rows at a block of 128
+(``zero_quantize_block_size`` 128: phase 9e's configuration), at the default
+block of 256 (phase 9b's) and at a block of 96; and a head whose D is off
+64-row steps (D 480, 32 and 4096 rows, block 256);
 each beside cuBLAS fp32 (TF32 off) over the weight already dequantized, the
 plain version, the bound and the error against the float64 product. Where
 the checkout has ``dqm_tile``, the tensor-core kernel is also timed at each
-of its tilings that take the shape. B6 / B7 rows: fp32 x at the 8 projection
+of its tilings that take the shape; where it has the CUDA-core B8, that
+kernel on the same inputs. B6 / B7 rows: fp32 x at the 8 projection
 shapes of GPT-2-125M and gpt2-350m, M 16 / 64 / 256, group 128: the route's
 kernel, the CUDA-core and (where the checkout's takes fp32) the tensor-core
 kernel on the same inputs, cuBLAS fp32 over the dequantized weight, the
-bound and the error against the float64 product.
+bound and the error against the float64 product. Decode rows: bf16 and
+fp32 x at M 1 / 4 / 8 over the same shapes, int8 and int4, group 128,
+through the route (the decode kernel, where the checkout has it), the CUDA-core kernel on
+the same inputs, cuBLAS in x's dtype over the weight dequantized to it and
+the bound. Paths rows: the device-busy time of 8 bf16 decode steps of
+gpt2-350m at B8 (phase 7b's row) over dense bf16, int8 and int4 weights and
+B6 / B7's share of it (torch.profiler). ``--parts`` picks the groups of rows
+(default ``b8,decode,qmm``; add ``paths``).
 
-    python3 scripts/quant_tc_bench.py [--tree DIR] [--tag NAME] [--out FILE]
+    python3 scripts/quant_tc_bench.py [--tree DIR] [--tag NAME] [--out FILE] [--parts LIST]
 
 ``--tree`` names the checkout whose ``deepspeed_tpu_torch`` is imported and
 built (default: the one holding this script). To compare two commits on one
@@ -40,12 +50,18 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.append(REPO)  # after --tree's entry, so that the tree's package is the one imported
 
-from chip_smoke import QMM_SHAPES, Timer, _dqm_exact, dqm_bound, qmm_bound  # noqa: E402
+from chip_smoke import (QMM_SHAPES, Timer, _decode_profile, _dqm_exact, dqm_bound,  # noqa: E402
+                        qmm_bound)
 
 V = 50304
-# (label, M, block): phase 9d's head, 9e's and 9b's at B8 x T512
-DQM_ROWS = [("9d", 32, 256), ("9e", 4096, 128), ("9b", 4096, 256)]
+# (label, M, D, block): phase 9d's head, 9e's and 9b's at B8 x T512, both
+# at a block of 96 (off 64-column panels), and a head of d 480 (off 64-row
+# steps)
+DQM_ROWS = [("9d", 32, 768, 256), ("9e", 4096, 768, 128), ("9b", 4096, 768, 256),
+            ("9d-block96", 32, 768, 96), ("4096-block96", 4096, 768, 96),
+            ("d480", 32, 480, 256), ("4096-d480", 4096, 480, 256)]
 QMM_ROWS = (16, 64, 256)
+DECODE_ROWS = (1, 4, 8)
 GROUP = 128
 
 
@@ -58,8 +74,9 @@ def dqm_rows(torch, timer, emit):
     from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    D = 768
-    for label, M, block in DQM_ROWS:
+    # the checkouts up to the CUDA-core B8's removal pass a route to _launch
+    routed = hasattr(dqm, "_lib")
+    for label, M, D, block in DQM_ROWS:
         w = torch.randn((D, V), generator=gen, device="cuda") * 0.02
         q, s, z = quantize_blockwise(w, bits=8, block_size=block)
         x = torch.randn((M, D), generator=gen, device="cuda")
@@ -75,14 +92,18 @@ def dqm_rows(torch, timer, emit):
                "library_ms": timer.ms(lambda: torch.matmul(x, w_hat)),
                "plain_rel_err_vs_fp64": _rel(torch.matmul(x, w_hat), exact)}
         row["bound_ms"], row["bound_by"] = dqm_bound(M, D, V, Fp, nb, 4)
-        row["cuda_cores_ms"] = timer.ms(lambda: dqm._launch(x, q, s, z, V, "cuda_cores"))
-        if hasattr(dqm, "dqm_tile"):  # every tiling of the tensor-core kernel that takes it
+        if routed:
+            row["cuda_cores_ms"] = timer.ms(lambda: dqm._launch(x, q, s, z, V, "cuda_cores"))
+        padded = getattr(dqm, "padded_block", lambda Fp, nb: Fp // nb)(Fp, nb)
+        if hasattr(dqm, "dqm_tile") and route == "tensor_cores":
+            # every tiling of the tensor-core kernel that takes it
             row["tile"] = list(dqm.dqm_tile(M, Fp, nb))
             for tile in ((2, 256), (2, 128), (2, 64), (1, 256), (1, 128)):
                 wn = tile[1] if tile[0] == 2 else tile[1] // 2
-                if (Fp // nb) % wn == 0:
+                if padded % wn == 0:
+                    args = ("tensor_cores", tile) if routed else (tile,)
                     row[f"tile_{tile[0]}x{tile[1]}_ms"] = timer.ms(
-                        lambda: dqm._launch(x, q, s, z, V, "tensor_cores", tile))
+                        lambda: dqm._launch(x, q, s, z, V, *args))
         elif route == "tensor_cores":
             row["tensor_cores_ms"] = row["ms"]
         emit(row)
@@ -128,12 +149,80 @@ def qmm_rows(torch, timer, emit):
             torch.cuda.empty_cache()
 
 
+def decode_rows(torch, timer, emit):
+    """B6 / B7 at decode rows through the route, beside the CUDA-core kernel
+    on the same inputs and cuBLAS in x's dtype."""
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
+    from deepspeed_tpu_torch.ops.quantizer import dequantize, quantize
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for bits in (8, 4):
+        name = f"int{bits}_matmul"
+        fn = im.int4_matmul if bits == 4 else im.int8_matmul
+        for D, F in QMM_SHAPES:
+            w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
+            q, s = quantize(w, bits=bits, num_groups=D * F // GROUP)
+            wq = q
+            q = im.pack_int4(q) if bits == 4 else q
+            w64 = (wq.double().reshape(-1, GROUP) * s.double().reshape(-1, 1)).reshape(D, F)
+            for dt in ("bfloat16", "float32"):
+                dtype = getattr(torch, dt)
+                w_dense = dequantize(wq, s, dtype)
+                for M in DECODE_ROWS:
+                    x = torch.randn((M, D), generator=gen, device="cuda").to(dtype)
+                    row = {"kernel": name, "M": M, "D": D, "F": F, "group": GROUP, "dtype": dt,
+                           "route": im.qmm_route(M, dtype, D, F, GROUP, bits),
+                           "ms": timer.ms(lambda: fn(x, q, s, GROUP)),
+                           "library_ms": timer.ms(lambda: torch.matmul(x, w_dense)),
+                           "cuda_cores_ms": timer.ms(
+                               lambda: im._launch(name, x, q, s, F, GROUP, bits))}
+                    if dt == "float32":
+                        row["rel_err_vs_fp64"] = _rel(fn(x, q, s, GROUP), x.double() @ w64)
+                    row["bound_ms"], row["bound_by"] = qmm_bound(M, D, F, GROUP, bits, "float32",
+                                                                 x.element_size())
+                    emit(row)
+                del w_dense
+            del w, q, s, wq, w64
+            torch.cuda.empty_cache()
+
+
+def path_rows(torch, emit):
+    """Device-busy time of 8 bf16 decode steps of gpt2-350m at B8 after a
+    128-token prompt (phase 7b), dense bf16, int8 and int4 weights."""
+    import numpy as np
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import for_gpt
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-350m"]
+    params = gpt.init_params(cfg, 0, device="cuda")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 128)).astype(np.int32)
+    for kind, bits in (("bf16", None), ("int8", 8), ("int4", 4)):
+        quant = {"enabled": True, "bits": bits, "group_size": GROUP} if bits else {}
+        engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="bfloat16",
+                                                    quant=quant)
+        for rep in range(2):
+            kernels = []
+            _decode_profile(torch, engine, prompt, steps=8, sink=kernels)
+            busy = sum(r[2] for r in kernels)
+            qmm = [r for r in kernels if "qmatmul" in r[0]]
+            emit({"path": "7b decode, 8 steps", "weights": kind, "rep": rep,
+                  "device_busy_ms": busy, "b6b7_ms": sum(r[2] for r in qmm),
+                  "b6b7_launches": sum(r[1] for r in qmm),
+                  "b6b7_kernels": sorted({r[0][:60] for r in qmm})})
+        del engine
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=REPO)
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--parts", default="b8,decode,qmm")
     args = ap.parse_args()
+    parts = set(args.parts.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -158,8 +247,11 @@ def main() -> int:
                 f.write(line + "\n")
 
     timer = Timer(torch)
-    dqm_rows(torch, timer, emit)
-    qmm_rows(torch, timer, emit)
+    for part, rows in (("b8", dqm_rows), ("decode", decode_rows), ("qmm", qmm_rows)):
+        if part in parts:
+            rows(torch, timer, emit)
+    if "paths" in parts:
+        path_rows(torch, emit)
     return 0
 
 

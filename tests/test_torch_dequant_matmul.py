@@ -44,10 +44,10 @@ def test_plain_route_matches_the_jax_fallback(M, D, F, block, bits, dtype, rtol)
     ref = jdequant_matmul(jnp.asarray(x, dtype), jnp.asarray(q), jnp.asarray(s),
                           jnp.asarray(z), orig_size=F, bits=bits)
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    before = (dqm.launches, dqm.tc_launches)
+    before = dqm.tc_launches
     got = dqm.dequant_matmul(tx, *(torch.from_numpy(a) for a in (q, s, z)), orig_size=F,
                              bits=bits)
-    assert (dqm.launches, dqm.tc_launches) == before  # a CPU tensor takes the plain version
+    assert dqm.tc_launches == before  # a CPU tensor takes the plain version
     assert got.dtype == tx.dtype and got.shape == (M, F)
     _close(got.float().numpy(), np.asarray(ref.astype(jnp.float32)), rtol)
 
@@ -81,8 +81,8 @@ def test_rejects_what_the_kernel_does_not_take():
 
 
 def _exact(x, q, s, z, F):
-    """x @ (q s + z) in float64, the weights unrounded: the function both
-    fp32 routes approximate."""
+    """x @ (q s + z) in float64, the weights unrounded: the function the
+    fp32 route approximates."""
     block = q.shape[1] // s.shape[1]
     w = (q.astype(np.float64) * np.repeat(s.astype(np.float64), block, axis=1)
          + np.repeat(z.astype(np.float64), block, axis=1))
@@ -90,8 +90,10 @@ def _exact(x, q, s, z, F):
 
 
 @pytest.mark.parametrize("M,D,F,block", [(64, 64, 512, 256), (96, 128, 700, 256),
-                                         (130, 192, 1000, 512), (64, 768, 600, 256)],
-                         ids=["one-tile", "ragged-F", "block-512", "head-width"])
+                                         (130, 192, 1000, 512), (64, 768, 600, 256),
+                                         (37, 100, 1000, 256), (32, 480, 600, 96)],
+                         ids=["one-tile", "ragged-F", "block-512", "head-width", "D100",
+                              "D480-block96"])
 def test_tensor_core_model_matches_the_jax_fallback(M, D, F, block):
     """The tensor-core route's arithmetic (x times each block's scales cut
     into three bf16 parts, the exact q, the zero-point side product; modelled
@@ -137,9 +139,18 @@ def test_three_bf16_parts_are_exact():
     (1, 768, 50432, 197, 8, "tensor_cores"),     # one row
     (4096, 768, 3072, 24, 8, "tensor_cores"),    # a block of 128: 128-column tiles
     (32, 768, 50304, 786, 8, "tensor_cores"),    # 9d's head at a block of 64
-    (4096, 768, 3000, 15, 8, "cuda_cores"),      # a block of 200, off 64-column panels
-    (4096, 64, 96, 1, 8, "cuda_cores"),          # an effective block of 96
-    (4096, 100, 512, 2, 8, "cuda_cores"),        # D off whole 64-row steps
+    (4096, 768, 3000, 15, 8, "tensor_cores"),    # a block of 200, padded to 256 columns
+    (4096, 64, 96, 1, 8, "tensor_cores"),        # an effective block of 96
+    (4096, 100, 512, 2, 8, "tensor_cores"),      # D off whole 64-row steps
+    (32, 768, 50304, 524, 8, "tensor_cores"),    # 9d's head at a block of 96
+    (4096, 768, 50304, 524, 8, "tensor_cores"),  # the LM head at a block of 96
+    (1, 768, 50304, 6288, 8, "tensor_cores"),    # a block of 8
+    (32, 768, 50304, 1048, 8, "tensor_cores"),   # a block of 48
+    (256, 768, 50400, 315, 8, "tensor_cores"),   # a block of 160
+    (63, 768, 50500, 202, 8, "tensor_cores"),    # a block of 250
+    (64, 768, 3003, 1, 8, "none"),               # an odd block: no kernel
+    (32, 480, 50432, 197, 8, "tensor_cores"),    # a head of d 480 (D off 64-row steps)
+    (37, 768, 50304, 128, 8, "none"),            # an odd block of 393
     (4096, 768, 25216, 197, 4, "plain"),         # packed int4: the plain route everywhere
 ])
 def test_dqm_route(M, D, Fp, nb, bits, route):

@@ -516,6 +516,11 @@ def test_int4_nibble_order_at_d96_on_the_card(cuda_device, kernel):
     assert (out - ref).abs().max().item() <= 5e-5
 
 
+# the launch counter of each B6 / B7 route
+_QMM_COUNTER = {"cuda_cores": "int{bits}_launches", "tensor_cores": "int{bits}_tc_launches",
+                "decode": "int{bits}_dec_launches"}
+
+
 def _quantized(D, F, group, bits, device, seed):
     from deepspeed_tpu_torch.ops.quantizer import quantize
 
@@ -538,8 +543,9 @@ def _quantized(D, F, group, bits, device, seed):
 def test_quantized_matmul_kernels_match_plain(cuda_device, dtype, rtol, bits, M, D, F, group):
     """B6 (int8) and B7 (int4) against their plain versions, at GPT-2-125M's
     and gpt2-350m's projection shapes, group 64, a group that crosses rows
-    and an odd packed width, through the route's kernel (16-bit x at 64 and
-    256 rows on the tensor cores); bitwise equal over two runs. Tolerance relative
+    and an odd packed width, through the route's kernel (x at 64 and 256
+    rows on the tensor cores, at 1-8 rows in the preset layouts on the
+    decode kernel); bitwise equal over two runs. Tolerance relative
     to the largest output entry: fp32, both accumulate in fp32 in another
     order; bf16/fp16, both round the output once."""
     q, s = _quantized(D, F, group, bits, cuda_device, 12)
@@ -547,7 +553,7 @@ def test_quantized_matmul_kernels_match_plain(cuda_device, dtype, rtol, bits, M,
     fn, ref_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
                   else (im.int8_matmul, im.int8_matmul_ref))
     route = im.qmm_route(M, dtype, D, F, group, bits)
-    counter = f"int{bits}_{'tc_' if route == 'tensor_cores' else ''}launches"
+    counter = _QMM_COUNTER[route].format(bits=bits)
     before = getattr(im, counter)
     out, again = fn(x, q, s, group), fn(x, q, s, group)
     torch.cuda.synchronize()
@@ -558,7 +564,8 @@ def test_quantized_matmul_kernels_match_plain(cuda_device, dtype, rtol, bits, M,
     assert (out.float() - ref.float()).abs().max().item() <= rtol * scale
 
 
-_QMM_COUNTERS = ("int8_launches", "int4_launches", "int8_tc_launches", "int4_tc_launches")
+_QMM_COUNTERS = ("int8_launches", "int4_launches", "int8_tc_launches", "int4_tc_launches",
+                 "int8_dec_launches", "int4_dec_launches")
 
 
 @pytest.mark.cuda
@@ -624,7 +631,8 @@ def test_qmatmul_tc_fp32_kernel_matches_plain(cuda_device, D, F, M, group, bits)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,dtype,D,F,group,route", [
-    (8, torch.bfloat16, 768, 3072, 128, "cuda_cores"),
+    (8, torch.bfloat16, 768, 3072, 128, "decode"),
+    (4, torch.float32, 768, 768, 32, "cuda_cores"),
     (9, torch.bfloat16, 768, 3072, 128, "tensor_cores"),
     (64, torch.float32, 768, 3072, 128, "tensor_cores"),
     (40, torch.bfloat16, 320, 960, 128, "cuda_cores"),
@@ -639,11 +647,88 @@ def test_qmatmul_routes_by_rows_dtype_and_layout(cuda_device, M, dtype, D, F, gr
     before = {c: getattr(im, c) for c in _QMM_COUNTERS}
     out = im.int8_matmul(x, q, s, group)
     torch.cuda.synchronize()
-    counter = "int8_tc_launches" if route == "tensor_cores" else "int8_launches"
+    counter = _QMM_COUNTER[route].format(bits=8)
     assert _moved(before, {c: getattr(im, c) for c in _QMM_COUNTERS}) == {counter: 1}
     ref = im.int8_matmul_ref(x, q, s, group)
     tol = 5e-5 if dtype == torch.float32 else 2e-2
     assert (out.float() - ref.float()).abs().max().item() <= tol * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["fp32", "bf16", "fp16"])
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("group", [128, 64])
+@pytest.mark.parametrize("M", [1, 2, 4, 8])
+@pytest.mark.parametrize("D,F", _QMM_SHAPES, ids=[f"{d}x{f}" for d, f in _QMM_SHAPES])
+def test_qmatmul_decode_kernel_holds_its_bars(cuda_device, D, F, M, group, bits, dtype):
+    """B6 / B7's decode kernel (1-8 rows on mma.sync, x s as three exact
+    bf16 parts against the exact integers) at the 8 projection shapes of
+    GPT-2-125M and gpt2-350m: fp32 within 5e-5 of the largest output of the
+    fp32 plain version and 1e-5 of the float64 product's; bf16 / fp16 at most
+    2 ulps of the dtype of the fp32 plain version on the entries of at least
+    1e-3 of the largest; bitwise equal over two runs, two decode launches
+    and no other."""
+    q, s = _quantized(D, F, group, bits, cuda_device, 30 + M)
+    s = s * 0.02  # GPT-2's weight magnitudes
+    x = _normal((M, D), cuda_device, dtype, 31 + M)
+    assert im.qmm_route(M, dtype, D, F, group, bits) == "decode"
+    fn, ref_fn = ((im.int4_matmul, im.int4_matmul_ref) if bits == 4
+                  else (im.int8_matmul, im.int8_matmul_ref))
+    before = {c: getattr(im, c) for c in _QMM_COUNTERS}
+    out, again = fn(x, q, s, group), fn(x, q, s, group)
+    torch.cuda.synchronize()
+    assert _moved(before, {c: getattr(im, c) for c in _QMM_COUNTERS}) == {
+        f"int{bits}_dec_launches": 2}
+    assert out.dtype == dtype and out.shape == (M, F) and torch.equal(out, again)
+    ref = ref_fn(x.float(), q, s, group)
+    if dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
+        wq = im.unpack_int4(q) if bits == 4 else q
+        exact = x.double() @ (wq.double().reshape(-1, group)
+                              * s.double().reshape(-1, 1)).reshape(D, F)
+        assert (out.double() - exact).abs().max().item() <= 1e-5 * exact.abs().max().item()
+    else:
+        assert ulp_err(out, ref, dtype) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decode-int8", "decode-int4", "tc64-int8", "tc64-int4",
+                                  "b8-block256", "b8-block96"])
+def test_fp32_accumulators_at_gpt_neox_d6144(cuda_device, case):
+    """The tensor-core kernels' fp32 accumulators truncate, so their error
+    grows with D: at gpt-neox-20b's width (D 6144, random weights at GPT-2's
+    scale) the decode kernel (8 rows), the fp32 tensor-core B6 / B7 (64
+    rows) and B8 (256 rows at blocks of 256 and 96) stay within 1e-5 of the
+    largest entry of the float64 product. Prints the error (``-s``)."""
+    from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    D, F = 6144, 6144
+    kind, arg = case.split("-")
+    if kind == "b8":
+        block = int(arg[len("block"):])
+        q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 40) * 0.02,
+                                     bits=8, block_size=block)
+        x = _normal((256, D), cuda_device, torch.float32, 41)
+        assert dqm.dqm_route(256, D, q.shape[1], s.shape[1]) == "tensor_cores"
+        out = dqm.dequant_matmul(x, q, s, z, orig_size=F)
+        w = (q.double() * s.double().repeat_interleave(block, 1)
+             + z.double().repeat_interleave(block, 1))[:, :F]
+    else:
+        bits, M = int(arg[3:]), 8 if kind == "decode" else 64
+        q, s = _quantized(D, F, 128, bits, cuda_device, 42)
+        s = s * 0.02
+        x = _normal((M, D), cuda_device, torch.float32, 43)
+        route = im.qmm_route(M, torch.float32, D, F, 128, bits)
+        assert route == ("decode" if kind == "decode" else "tensor_cores")
+        out = (im.int4_matmul if bits == 4 else im.int8_matmul)(x, q, s, 128)
+        wq = im.unpack_int4(q) if bits == 4 else q
+        w = (wq.double().reshape(-1, 128) * s.double().reshape(-1, 1)).reshape(D, F)
+    exact = x.double() @ w
+    rel = (out.double() - exact).abs().max().item() / exact.abs().max().item()
+    print(f"D6144 {case}: {rel:.3e} of the largest entry of the float64 product")
+    assert rel <= 1e-5
 
 
 @pytest.mark.cuda
@@ -666,12 +751,11 @@ def test_quantized_matmul_takes_the_dequantize_route_past_256_rows(cuda_device):
                                          (5, 100, 301, 64), (128, 768, 2304, 256),
                                          (70, 128, 600, 512)])
 def test_dequant_matmul_kernel_matches_plain(cuda_device, dtype, rtol, M, D, F, block):
-    """B8 against its plain version, each case through its route
-    (``dqm_route``: the tensor cores for the LM head at M 256, the qkv leaf
-    at 128 rows and a ragged 70-row block of 512; the CUDA cores for the
-    rest): the LM head's vocabulary padded to whole blocks and trimmed, M = 1
-    and 37, an effective block of 96, a block of 128, the qkv leaf, ragged D
-    and F; bitwise equal over two runs.
+    """B8 against its plain version, each case on the tensor cores
+    (``dqm_route``): the LM head's vocabulary padded to whole blocks and
+    trimmed, M = 1 and 37, an effective block of 96, a block of 128, the qkv
+    leaf, a ragged 70-row block of 512, ragged D and F; bitwise equal over
+    two runs.
     Tolerance relative to the largest output entry: fp32, both accumulate in
     fp32 in another order; bf16/fp16, both round the output once."""
     from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
@@ -680,13 +764,11 @@ def test_dequant_matmul_kernel_matches_plain(cuda_device, dtype, rtol, M, D, F, 
     q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 16) * 0.02,
                                  bits=8, block_size=block)
     x = _normal((M, D), cuda_device, dtype, 17)
-    route = dqm.dqm_route(M, D, q.shape[1], s.shape[1])
-    counter = "tc_launches" if route == "tensor_cores" else "launches"
-    before = (dqm.launches, dqm.tc_launches)
+    assert dqm.dqm_route(M, D, q.shape[1], s.shape[1]) == "tensor_cores"
+    before = dqm.tc_launches
     out, again = (dqm.dequant_matmul(x, q, s, z, orig_size=F) for _ in range(2))
     torch.cuda.synchronize()
-    moved = {c: getattr(dqm, c) - n for c, n in zip(("launches", "tc_launches"), before)}
-    assert moved == {"launches": 0, "tc_launches": 0, counter: 2}
+    assert dqm.tc_launches - before == 2
     ref = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F)
     assert out.dtype == dtype and out.shape == (M, F) and torch.equal(out, again)
     scale = ref.float().abs().max().item()
@@ -698,8 +780,8 @@ def test_dequant_matmul_kernel_matches_plain(cuda_device, dtype, rtol, M, D, F, 
 def test_dequant_matmul_routes_against_float64(cuda_device, M):
     """At the LM head's width (D 768, vocabulary 50304 in blocks of 256) the
     tensor-core kernel (three bf16 parts of x s, exact q, the zero-point side
-    product) and the CUDA-core kernel (each weight rounded to fp32 first) on
-    the same fp32 inputs: both within 1e-5 of the largest entry of the
+    product) and the plain fp32 version (each weight rounded to fp32 first)
+    on the same fp32 inputs: both within 1e-5 of the largest entry of the
     float64 product over the unrounded weights q s + z."""
     from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
     from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
@@ -708,48 +790,101 @@ def test_dequant_matmul_routes_against_float64(cuda_device, M):
     q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 18) * 0.02, bits=8)
     x = _normal((M, D), cuda_device, torch.float32, 19)
     assert dqm.dqm_route(M, D, q.shape[1], s.shape[1]) == "tensor_cores"
-    tc = dqm._launch(x, q, s, z, F, "tensor_cores")
-    core = dqm._launch(x, q, s, z, F, "cuda_cores")
+    tc = dqm._launch(x, q, s, z, F)
+    plain = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F)
     block = q.shape[1] // s.shape[1]
     w = (q.double() * s.double().repeat_interleave(block, 1)
          + z.double().repeat_interleave(block, 1))[:, :F]
     exact = x.double() @ w
     top = exact.abs().max().item()
-    for out in (tc, core):
+    for out in (tc, plain):
         assert (out.double() - exact).abs().max().item() <= 1e-5 * top
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,block", [(32, 256), (1, 256), (63, 256), (256, 64), (256, 128),
-                                     (4096, 64), (4096, 128), (32, 128), (1, 64)],
+                                     (4096, 64), (4096, 128), (32, 128), (1, 64),
+                                     (32, 96), (4096, 96), (1, 8), (256, 8), (37, 48),
+                                     (256, 48), (32, 160), (200, 160), (63, 250), (4096, 250)],
                          ids=["9d-M32", "M1", "M63", "M256-block64", "M256-block128",
-                              "M4096-block64", "M4096-block128", "M32-block128", "M1-block64"])
+                              "M4096-block64", "M4096-block128", "M32-block128", "M1-block64",
+                              "9d-M32-block96", "M4096-block96", "M1-block8", "M256-block8",
+                              "M37-block48", "M256-block48", "M32-block160", "M200-block160",
+                              "M63-block250", "M4096-block250"])
 def test_dequant_matmul_tc_new_shapes(cuda_device, M, block):
     """B8 on the tensor cores at the shapes its route newly takes, at the LM
     head's width (D 768, vocabulary 50304): fewer than 64 rows (9d's 32, one,
-    63; the 64-row tiling) and scale blocks of 64 and 128 (the narrower
-    tiles). Two tensor-core launches and no CUDA-core one; within 5e-5 of
+    63; the 64-row tiling), scale blocks of 64 and 128 (the narrower tiles)
+    and blocks off 64-column panels (8, 48, 96, 160, 250: padded to whole
+    panels). Two tensor-core launches; within 5e-5 of
     the largest output of the plain version and 1e-5 of the float64 product
     over the unrounded weights; bitwise equal over two runs."""
     from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
-    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
 
     D, F = 768, 50304
     q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 22) * 0.02, bits=8,
                                  block_size=block)
-    x = _normal((M, D), cuda_device, torch.float32, 23)
-    assert dqm.dqm_route(M, D, q.shape[1], s.shape[1]) == "tensor_cores"
-    before = (dqm.launches, dqm.tc_launches)
+    _hold_b8_to_its_bars(_normal((M, D), cuda_device, torch.float32, 23), q, s, z, F)
+
+
+def _hold_b8_to_its_bars(x, q, s, z, F):
+    """Two tensor-core launches of B8, bitwise equal; within 5e-5 (fp32) /
+    2e-2 (bf16, fp16) of the largest output of the plain version, and fp32
+    within 1e-5 of the largest entry of the float64 product over the
+    unrounded weights."""
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    M, block = x.shape[0], q.shape[1] // s.shape[1]
+    assert dqm.dqm_route(M, x.shape[1], q.shape[1], s.shape[1]) == "tensor_cores"
+    before = dqm.tc_launches
     out, again = (dqm.dequant_matmul(x, q, s, z, orig_size=F) for _ in range(2))
     torch.cuda.synchronize()
-    assert (dqm.launches - before[0], dqm.tc_launches - before[1]) == (0, 2)
-    assert out.shape == (M, F) and torch.equal(out, again)
-    ref = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F)
-    assert (out - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
-    w = (q.double() * s.double().repeat_interleave(block, 1)
-         + z.double().repeat_interleave(block, 1))[:, :F]
-    exact = x.double() @ w
-    assert (out.double() - exact).abs().max().item() <= 1e-5 * exact.abs().max().item()
+    assert dqm.tc_launches - before == 2
+    assert out.shape == (M, F) and out.dtype == x.dtype and torch.equal(out, again)
+    ref = dqm.dequant_matmul_ref(x, q, s, z, orig_size=F).float()
+    rtol = 5e-5 if x.dtype == torch.float32 else 2e-2
+    assert (out.float() - ref).abs().max().item() <= rtol * ref.abs().max().item()
+    if x.dtype == torch.float32:
+        w = (q.double() * s.double().repeat_interleave(block, 1)
+             + z.double().repeat_interleave(block, 1))[:, :F]
+        exact = x.double() @ w
+        assert (out.double() - exact).abs().max().item() <= 1e-5 * exact.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,D,F,block,dtype", [
+    (32, 480, 50304, 256, torch.float32), (256, 480, 1920, 96, torch.bfloat16),
+    (100, 300, 1000, 256, torch.float32), (7, 100, 3000, 96, torch.bfloat16),
+    (200, 333, 2304, 256, torch.float16), (4096, 200, 2304, 256, torch.float32),
+    (5, 70, 1000, 250, torch.float32)],
+    ids=["D480", "D480-block96-bf16", "D300", "D100-block96-bf16", "D333-fp16", "M4096-D200",
+         "D70-block250"])
+def test_dequant_matmul_tc_ragged_d(cuda_device, M, D, F, block, dtype):
+    """B8 on the tensor cores where D is off 64-row steps (the last step
+    zero-filled past D; rows of x or q off 16 bytes copied by the wrapper),
+    held to its bars (``_hold_b8_to_its_bars``)."""
+    from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
+
+    q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 24) * 0.02,
+                                 bits=8, block_size=block)
+    _hold_b8_to_its_bars(_normal((M, D), cuda_device, dtype, 25), q, s, z, F)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,F,block", [(768, 50304, 393), (200, 225, 75), (768, 3003, 3003)])
+def test_dequant_matmul_raises_for_odd_blocks(cuda_device, D, F, block):
+    """An odd block (no quantizer gives one) has no kernel: on a CUDA tensor
+    the call raises and launches nothing."""
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    q = torch.randint(0, 256, (D, F), dtype=torch.uint8).to(cuda_device)
+    s = torch.full((D, F // block), 1e-4, device=cuda_device)
+    x = _normal((37, D), cuda_device, torch.float32, 26)
+    assert dqm.dqm_route(37, D, F, F // block) == "none"
+    before = dqm.tc_launches
+    with pytest.raises(ValueError, match="even scale blocks"):
+        dqm.dequant_matmul(x, q, s, -128 * s, orig_size=F)
+    assert dqm.tc_launches == before
 
 
 def _bs_layouts():

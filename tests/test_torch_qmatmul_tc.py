@@ -29,7 +29,8 @@ from deepspeed_tpu_torch.ops.quantizer import quantize
 from _torch_ulps import ulp_err
 
 BF16, FP16, FP32 = torch.bfloat16, torch.float16, torch.float32
-_COUNTERS = ("int8_launches", "int4_launches", "int8_tc_launches", "int4_tc_launches")
+_COUNTERS = ("int8_launches", "int4_launches", "int8_tc_launches", "int4_tc_launches",
+             "int8_dec_launches", "int4_dec_launches")
 
 
 @pytest.mark.parametrize("M,dtype,D,F,group,bits,route", [
@@ -37,11 +38,11 @@ _COUNTERS = ("int8_launches", "int4_launches", "int8_tc_launches", "int4_tc_laun
     (257, BF16, 768, 3072, 128, 8, "dequantize"),
     (2048, FP32, 768, 3072, 128, 4, "dequantize"),
     (9, FP16, 768, 2304, 128, 4, "tensor_cores"),        # just above the crossover
-    (8, BF16, 768, 2304, 128, 8, "cuda_cores"),          # a decode step's rows
-    (1, FP16, 768, 768, 128, 4, "cuda_cores"),
+    (8, BF16, 768, 2304, 128, 8, "decode"),              # a decode step's rows
+    (1, FP16, 768, 768, 128, 4, "decode"),
     (256, FP32, 768, 3072, 128, 8, "tensor_cores"),      # fp32: three bf16 parts of x s
     (40, FP32, 768, 3072, 128, 4, "tensor_cores"),
-    (8, FP32, 768, 3072, 128, 8, "cuda_cores"),          # fp32 decode rows
+    (8, FP32, 768, 3072, 128, 8, "decode"),              # fp32 decode rows
     (9, FP32, 1024, 4096, 64, 4, "tensor_cores"),        # fp32 at group 64
     (64, FP32, 768, 768, 32, 8, "cuda_cores"),           # fp32: a group under a panel
     (40, BF16, 3072, 768, 64, 4, "tensor_cores"),        # group 64
@@ -53,6 +54,14 @@ _COUNTERS = ("int8_launches", "int4_launches", "int8_tc_launches", "int4_tc_laun
     (64, BF16, 768, 768, 4, 8, "cuda_cores"),            # groups under 8
     (64, BF16, 768, 960, 64, 8, "tensor_cores"),         # int8: whole 64-column panels
     (64, BF16, 768, 960, 64, 4, "cuda_cores"),           # int4: halves of whole panels
+    (2, FP32, 1024, 4096, 64, 4, "decode"),              # decode: group 64, every dtype
+    (4, FP16, 4096, 1024, 128, 8, "decode"),
+    (8, BF16, 768, 768, 256, 8, "decode"),               # a group of whole panels
+    (8, BF16, 768, 768, 32, 8, "cuda_cores"),            # decode: a group under a panel
+    (1, FP32, 320, 960, 128, 8, "cuda_cores"),           # decode: groups cross rows
+    (8, BF16, 100, 768, 128, 8, "cuda_cores"),           # decode: D off 64-row steps
+    (4, BF16, 768, 960, 64, 4, "cuda_cores"),            # decode, int4: halves of panels
+    (9, BF16, 768, 768, 32, 8, "tensor_cores"),          # past decode rows: the tc layouts
 ], ids=lambda v: str(v).replace("torch.", ""))
 def test_qmm_route(M, dtype, D, F, group, bits, route):
     assert im.qmm_route(M, dtype, D, F, group, bits) == route

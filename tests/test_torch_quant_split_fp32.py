@@ -164,10 +164,16 @@ def test_dequant_split_model_matches_the_pallas_kernel_at_block_128(monkeypatch)
     (32, 50432, 197, (1, 256)),    # 9d's head
     (1, 50304, 393, (1, 256)),     # a block of 128: a warpgroup each block
     (63, 50304, 786, (1, 128)),    # a block of 64: a warpgroup each block
+    (4096, 50304, 524, (2, 128)),  # a block of 96, padded to 128
+    (32, 50304, 524, (1, 256)),    # 9d's head at a block of 96
+    (4096, 50500, 202, (2, 256)),  # a block of 250, padded to 256
+    (256, 50400, 315, (2, 64)),    # a block of 160, padded to 192
+    (32, 50400, 315, (1, 128)),
+    (1, 50304, 6288, (1, 128)),    # a block of 8, padded to 64
 ])
 def test_dqm_tile(M, Fp, nb, tile):
     """The tensor-core kernel's tiling from the shapes: each warpgroup's
-    columns inside one scale block."""
+    columns inside one scale block, padded to whole 64-column panels."""
     assert dqm.dqm_tile(M, Fp, nb) == tile
     rw, cols = tile
-    assert (Fp // nb) % (cols if rw == 2 else cols // 2) == 0
+    assert dqm.padded_block(Fp, nb) % (cols if rw == 2 else cols // 2) == 0
