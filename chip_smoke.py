@@ -16,11 +16,14 @@ result line):
    D 64 / 96 / 128; B6/B7's: 8, bf16 / fp16 x int8 / int4 x 64 / 128 rows a
    block, and 4 of its fp32 kernel, int8 / int4 x 64 / 128 rows) has its
    instances and every one holds HGMMA instructions in its SASS
-   (``cuobjdump -sass`` of the library), and so does each of B8's 30
+   (``cuobjdump -sass`` of the library), and so does each of B8's 38
    tensor-core instances (fp32 / bf16 / fp16 x 5 tilings x whole or padded
-   blocks) and of B9's tensor-core
-   forward, dq and dk/dv (6 each: bf16 / fp16, D 64 / 96 / 128); every 3xTF32 instance also
-   holds HMMA (``mma.sync``, its products with an MN-major B); B5's 36 bf16 /
+   blocks, and fp32's promoting instances: 4 tilings x whole or padded) and
+   of B9's tensor-core forward (6: bf16 / fp16, D 64 / 96 / 128), dq and
+   dk/dv (12 each: bf16 / fp16 x D x whole tiles or sub-block masks) and
+   3xTF32 dq and dk/dv (6 each: D x whole tiles or sub-block masks); every
+   3xTF32 instance also holds HMMA (``mma.sync``, its products with an
+   MN-major B); B5's 36 bf16 /
    fp16 instances each hold HMMA and its 9 fp32 ones none, and so do B6/B7's
    6 decode instances (fp32 / bf16 / fp16 x int8 / int4).
 2. kernels: each CUDA kernel against its plain PyTorch version on the same
@@ -86,7 +89,10 @@ result line):
    within 1e-5 of its largest entry); at the result line's rows the plain
    version, cuBLAS fp32 (TF32 off) over the weight already dequantized, the
    dequantize + cuBLAS and the bound (three bf16 passes at the bf16 peak);
-   and ptxas's report. B6/B7
+   and ptxas's report; at gpt-neox-20b's D 6144 (fp32, 256 and 32 rows,
+   blocks of 256 and 96) B8 promotes its accumulators into fp32 sums every 256 rows
+   of D (``dqm_promotes``): its error against the float64 product beside
+   the unpromoted kernel's on the same inputs. B6/B7
    through their routes (fp32 and bf16, M 1-256, the 8 projection shapes of
    GPT-2-125M and gpt2-350m; GPT-2-125M's four at group 32, M 4 and 256,
    phase 7e's CUDA-core layout, fp32 within 1e-5 of the float64 product), then
@@ -102,24 +108,32 @@ result line):
    group 128 the tensor-core and the CUDA-core kernel timed on the same
    inputs at every M and at the crossover rows 8-64 (the speedup at M=256
    and the ratio to cuBLAS reported), with plain / cuBLAS / bound times. B9
-   (blocksparse attention: forward, dq with delta, dk/dv) over 21 cases, each
-   through its route (``bs_route``, checked by the counters: the tensor
-   cores for bf16 / fp16 at blocks 64 / 128, the CUDA cores for fp32 and
-   blocks 16 / 32): the sparse GPT-2-125M's Fixed unidirectional layout of
-   128-blocks at phase 10a's B2 x T1024 fp32 (the CUDA-core main-path row)
-   and 10b's B2 x T4096 bf16 (the tensor-core main-path row) and fp16;
-   bench.py's bidirectional Fixed row at B4 x T1024 H16 under causal;
-   BigBird with a layout per head at block 64 (fp32, bf16, fp16 D96);
-   Variable, BSLongformer and LocalSlidingWindow at blocks 16 and 32;
-   BSLongformer not causal at blocks 128 (bf16) and 64 (fp16 D96); D128 not
-   causal and D96 at gpt2-760m's 16 heads, fp32 and bf16; layouts with an
-   empty block row and column (zeros, lse -1e30); fp16 with dO 2^-8. The
-   tensor-core cases lie within 2 ulps of their dtype of the fp32 plain
-   versions (and, up to T 2048, of the split plain versions that model their
-   rounding) where a single cast of P must miss; the backward is
-   bitwise on a re-run; its yardstick is one SDPA call with the layout
-   expanded to a boolean [H, T, T] mask (mask construction excluded) and
-   that call's backward, with B1 / B2's dense causal times beside it.
+   (blocksparse attention: forward, dq with delta, dk/dv) over 27 cases, each
+   pass through its route (``bs_route``, checked by the counters: the
+   forward on the tensor cores for bf16 / fp16 at blocks 64 / 128 and on
+   the CUDA cores for fp32 and blocks 16 / 32; the backward on the tensor
+   cores at every block, bf16 / fp16 on 16-bit operands and fp32 as
+   3xTF32): the sparse GPT-2-125M's Fixed unidirectional layout of
+   128-blocks at phase 10a's B2 x T1024 fp32 (the fp32 main-path row), 10b's
+   B2 x T4096 bf16 (the bf16 main-path row) and fp16, and 10c's layout of
+   32-blocks at B2 x T1024 bf16 (the small-block main-path row); bench.py's
+   bidirectional Fixed row at B4 x T1024 H16 under causal; BigBird with a
+   layout per head at block 64 (fp32, bf16, fp16 D96); Variable,
+   BSLongformer and LocalSlidingWindow at blocks 16 and 32 in every dtype
+   (fp32 D128, fp16 D96, fp16 with dO 2^-8); BSLongformer not causal at
+   blocks 128 (bf16) and 64 (fp16 D96); D128 not causal and D96 at
+   gpt2-760m's 16 heads, fp32 and bf16; layouts with an empty block row and
+   column (zeros, lse -1e30); fp16 with dO 2^-8. The tensor-core backward
+   lies within 2 ulps of its dtype of the fp32 plain versions (and, up to T
+   2048, of the split plain versions that model its rounding) where a
+   single cast of P must miss, and so does the tensor-core forward; the
+   3xTF32 backward within 5e-5 of the largest gradient of the plain versions
+   and of its CPU model (``blocksparse_attention_bwd_tf32_ref``); the
+   backward is bitwise on a re-run; each small-block case prints the share
+   of its visited tiles' products that its layout keeps; the yardstick is
+   one SDPA call with the layout expanded to a boolean [H, T, T] mask (mask
+   construction excluded) and that call's backward, with B1 / B2's dense
+   causal times beside it.
 3. scoring path: GPT-2-125M forward + next-token loss at B4 x T512 in fp32
    (the workload of ``__graft_entry__.entry()``) through the flash kernel.
 4. serving path: ``init_inference(...).generate`` on GPT-2-125M, B4, prompt
@@ -234,14 +248,18 @@ result line):
    forward launches, no B1); 5 ``train_batch`` steps (AdamW + clipping)
    through B9 and 5 with its plain versions in their places, from the same
    seed and batches: losses and grad norms agree, and B9's CUDA-core
-   forward, dq and dk/dv launch 60 times each, its tensor-core kernels and
-   B1/B2 never. (b) bf16 with the fp32 master and ZeRO stage 2, B2 x T4096
+   forward and 3xTF32 dq and dk/dv launch 60 times each, its other kernels
+   and B1/B2 never. (b) bf16 with the fp32 master and ZeRO stage 2, B2 x T4096
    (``max_seq_len=4096``), 10 steps on one batch: the loss starts near
    ln(V) and falls, B9's tensor-core forward, dq and dk/dv launch 120 times
    each and no other attention kernel; step time, host issue time,
    tokens/s, peak memory and a profile of one step, beside the same model
    with dense attention (B1/B2, B2's share of the busy time reported) at
-   the same shape.
+   the same shape. (c) bf16 + ZeRO-2, B2 x T1024, the fixed pattern at
+   blocks of 32 (16 local, the last global: the 512-token window of (a)), 3
+   steps: the loss starts near ln(V) and stays finite, B9's CUDA-core
+   forward and the tensor-core dq and dk/dv (their sub-block-mask
+   instances) launch 36 times each and nothing else of B9.
 
 11. head dim 96: ``PRESETS["gpt2-760m"]`` (d 1536, 16 heads of 96) at full
    width, depth cut to 4 of 24 layers: (a) fp32 scoring B4 x T512 (B1 =
@@ -254,7 +272,7 @@ Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
 only, delta on both; B9's by route). The last lines are the card's name and power limit
-(nvidia-smi), a ``{"kernels": [...]}`` line (33 kernels) and the ``{"ok": true, ...}`` line.
+(nvidia-smi), a ``{"kernels": [...]}`` line (34 kernels) and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -332,7 +350,10 @@ FWD_PATH = {"float32": ("fwd_tf32",), "bfloat16": ("fwd_tc",),
 # fp16 x int8 / int4 x 64 / 128 rows a block, and fp32 x int8 / int4 x 64 /
 # 128 rows a block; B8: fp32 / bf16 / fp16 x x 5 tilings (128 rows x 256 /
 # 128 / 64 columns, 64 rows x 256 / 128 columns) x blocks of whole 64-column
-# panels or padded to them; B9: bf16 / fp16 x D 64 / 96 / 128)
+# panels or padded to them, and fp32's promoting instances (every tiling but
+# 128 x 256, whole or padded); B9's forward: bf16 / fp16 x D 64 / 96 / 128,
+# its dq and dk/dv: bf16 / fp16 x D x whole tiles (blocks 64 / 128) or
+# sub-block masks (16 / 32), and 3xTF32: D x whole tiles or masks)
 TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel", 12),),
               "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", 12),
                                          ("flash_bwd_dkv_tc_kernel", 12)),
@@ -340,18 +361,21 @@ TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel", 12),),
               "flash_attention_bwd_tf32": (("flash_bwd_dq_tf32_kernel", 3),
                                            ("flash_bwd_dkv_tf32_kernel", 3)),
               "int8_matmul_tc": (("qmatmul_tc_kernel", 8), ("qmatmul_tc_f32_kernel", 4)),
-              "dequant_matmul_tc": (("dequant_matmul_tc_kernel", 30),),
+              "dequant_matmul_tc": (("dequant_matmul_tc_kernel", 38),),
               "blocksparse_attention_fwd_tc": (("blocksparse_fwd_tc_kernel", 6),),
-              "blocksparse_attention_bwd_tc": (("blocksparse_bwd_dq_tc_kernel", 6),
-                                               ("blocksparse_bwd_dkv_tc_kernel", 6))}
+              "blocksparse_attention_bwd_tc": (("blocksparse_bwd_dq_tc_kernel", 12),
+                                               ("blocksparse_bwd_dkv_tc_kernel", 12)),
+              "blocksparse_attention_bwd_tf32": (("blocksparse_bwd_dq_tf32_kernel", 6),
+                                                 ("blocksparse_bwd_dkv_tf32_kernel", 6))}
 # B5's mma.sync instances: bf16 / fp16 x D 64 / 96 / 128 x dense / int8 /
 # int4 x one or two 16-row m tiles hold HMMA; fp32's 9 (CUDA cores) none. An
 # instance's mangled name starts its template arguments with its type
 # (If: float)
 VERIFY_KERNEL = "verify_split_kernel"
-# the 3xTF32 flash kernels' products whose B is MN-major (P V, dS k, P^T dO,
-# dS^T q) run on mma.sync: HMMA in every instance beside the HGMMA above
-TF32_MMA_LIBS = ("flash_attention_fwd_tf32", "flash_attention_bwd_tf32")
+# the 3xTF32 kernels' products whose B is MN-major (P V, dS k, P^T dO, dS^T
+# q) run on mma.sync: HMMA in every instance beside the HGMMA above
+TF32_MMA_LIBS = ("flash_attention_fwd_tf32", "flash_attention_bwd_tf32",
+                 "blocksparse_attention_bwd_tf32")
 VERIFY_MMA_INSTANCES = 36
 VERIFY_FP32_INSTANCES = 9
 # the times of the earlier one-block-per-row B3 and B5 at the main-path rows
@@ -396,24 +420,32 @@ QUANT_GROUP = 128
 DQM_TC_SRC = "deepspeed_tpu_torch/csrc/dequant_matmul_tc.cu"
 DQM_TPU = "deepspeed_tpu/ops/pallas/dequant_matmul.py:41"  # _kernel, call :86
 BS_FWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd.cu"
-BS_BWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_bwd.cu"
 BS_FWD_TC_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd_tc.cu"
 BS_BWD_TC_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_bwd_tc.cu"
+BS_BWD_TF32_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_bwd_tf32.cu"
 # B9: _fwd_kernel, _bwd_dq_kernel and _bwd_dkv_kernel (calls :186, :215, :239)
 BS_TPU = {"fwd": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:68",
           "dq": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:102",
           "dkv": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:133"}
 BS_KERNELS = ("fwd", "dq", "dkv")
-# B9's launch counters by route (ops/cuda/blocksparse_attention.py bs_route):
-# the CUDA cores for fp32 and blocks of 16 / 32, the tensor cores for bf16 /
-# fp16 at blocks of 64 / 128
-BS_COUNTERS = {"cuda": {"fwd": "launches", "dq": "bwd_dq_launches", "dkv": "bwd_dkv_launches"},
-               "tc": {"fwd": "tc_launches", "dq": "bwd_dq_tc_launches",
-                      "dkv": "bwd_dkv_tc_launches"}}
+# B9's launch counters by kernel and route (ops/cuda/blocksparse_attention.py
+# bs_route): the forward on the CUDA cores for fp32 and blocks of 16 / 32 and
+# on the tensor cores for bf16 / fp16 at blocks of 64 / 128; the backward on
+# the tensor cores at every block, bf16 / fp16 ("tc") and fp32 as 3xTF32
+# ("tf32")
+BS_COUNTERS = {"fwd_cuda": "launches", "fwd_tc": "tc_launches",
+               "dq_tc": "bwd_dq_tc_launches", "dkv_tc": "bwd_dkv_tc_launches",
+               "dq_tf32": "bwd_dq_tf32_launches", "dkv_tf32": "bwd_dkv_tf32_launches"}
+# the B9 kernels each main path launches: 10a's fp32 and 10b's bf16 training
+BS_PATH = {"float32": ("fwd_cuda", "dq_tf32", "dkv_tf32"),
+           "bfloat16": ("fwd_tc", "dq_tc", "dkv_tc")}
 # the sparse GPT-2-125M's layout (phases 2 and 10): Sparse Transformers'
 # fixed pattern, 4 local blocks of 128 and the last one of each window global
 SPARSE_GPT_LAYOUT = dict(num_heads=12, block=128, num_local_blocks=4, num_global_blocks=1,
                          attention="unidirectional")
+# phase 10c's: the same 512-token window at blocks of 32 (sub-block masks in
+# the backward's 64-token tiles)
+SMALL_BLOCK_LAYOUT = {**SPARSE_GPT_LAYOUT, "block": 32, "num_local_blocks": 16}
 # B6/B7 against their plain versions, relative to the largest output entry:
 # fp32 -- both accumulate in fp32 in another order; bf16 -- both round once
 QMM_RTOL = {"float32": 5e-5, "bfloat16": 2e-2, "float16": 2e-2}
@@ -1021,7 +1053,10 @@ def phase_kernels_dequant(torch, ctx):
              # D off 64-row steps
              (32, 480, V, 256, "float32"), (256, 480, 1920, 96, "bfloat16"),
              (100, 300, 1000, 256, "float32"), (7, 100, 3000, 96, "bfloat16"),
-             (200, 333, 2304, 256, "float16"), (5, 70, 1000, 250, "float32")]
+             (200, 333, 2304, 256, "float16"), (5, 70, 1000, 250, "float32"),
+             # gpt-neox-20b's D 6144: fp32 promotes its accumulators (dqm_promotes)
+             (256, 6144, 6144, 256, "float32"), (256, 6144, 6144, 96, "float32"),
+             (32, 6144, 6144, 256, "float32"), (32, 6144, 6144, 96, "float32")]
     worst = 0.0
     payloads = {}
     for M, D, F, block, dt in cases:
@@ -1045,13 +1080,21 @@ def phase_kernels_dequant(torch, ctx):
         top = exact.abs().max().item()
         rel64 = (out.double() - exact).abs().max().item() / top
         plain_rel64 = (ref.double() - exact).abs().max().item() / top
+        promote = dqm.dqm_promotes(D, x.dtype)
+        unpromoted = ""
+        if promote:  # the same inputs through one accumulator over all of D
+            one = dqm._launch(x, q, s, z, F, dqm.dqm_tile(M, Fp, nb), promote=False)
+            one_rel64 = (one.double() - exact).abs().max().item() / top
+            unpromoted = f"unpromoted_rel_err_vs_fp64={one_rel64:.3e} "
+            del one
         del exact
         kernel_ms = timer.ms(lambda: dqm.dequant_matmul(x, q, s, z, orig_size=F), iters=7)
         bound_ms, bound_by = dqm_bound(M, D, F, Fp, nb, x.element_size())
         line = (f"phase2 dequant_matmul M{M} D{D} F{F} Fp{Fp} block{Fp // nb} {dt} "
-                f"route={route} tile={dqm.dqm_tile(M, Fp, nb)} launches={moved}: "
+                f"route={route} tile={dqm.dqm_tile(M, Fp, nb, promote)} promote={promote} "
+                f"launches={moved}: "
                 f"max_abs_err={err:.3e} rel_err={rel:.3e} rel_err_vs_fp64={rel64:.3e} "
-                f"plain_rel_err_vs_fp64={plain_rel64:.3e} "
+                f"plain_rel_err_vs_fp64={plain_rel64:.3e} " + unpromoted +
                 f"bitwise_rerun={torch.equal(out, again)} kernel_ms={kernel_ms:.4f} "
                 f"bound_ms={bound_ms:.4f} ({bound_by})")
         row = DQM_ROWS.get((M, D, F, block, dt))
@@ -1933,10 +1976,31 @@ def bs_bounds(B, T, H, D, pairs, dtype, elt):
     }
 
 
+def bs_visited_tiles(layout, block, causal):
+    """The (64-query, 64-key) tile pairs of one batch row that B9's backward
+    kernels visit: those holding an active block (of several blocks at 16 /
+    32), less those wholly above the diagonal under causal. Their products
+    cost 64 x 64 pairs each, whatever the layout keeps of them."""
+    lay = np.asarray(layout).astype(bool)
+    H, n, _ = lay.shape
+    if block >= 64:
+        tiles = lay.repeat(block // 64, 1).repeat(block // 64, 2)
+    else:
+        g = 64 // block
+        nt = -(-n // g)
+        padded = np.zeros((H, nt * g, nt * g), bool)
+        padded[:, :n, :n] = lay
+        tiles = padded.reshape(H, nt, g, nt, g).any(axis=(2, 4))
+    if causal:
+        tiles = tiles & np.tril(np.ones(tiles.shape[1:], bool))[None]
+    return int(tiles.sum())
+
+
 def _bs_cases():
     """The B9 rows of phase 2: (label, layout, block, B, H, D, causal, dtype,
-    dO scale). bf16 / fp16 at blocks of 64 / 128 take the tensor cores, the
-    rest the CUDA cores (``bs_route``)."""
+    dO scale). The forward takes the tensor cores for bf16 / fp16 at blocks
+    of 64 / 128 and the CUDA cores otherwise, the backward the tensor cores
+    in every case (``bs_route``)."""
     from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
                                                           BSLongformerSparsityConfig,
                                                           FixedSparsityConfig,
@@ -1948,6 +2012,13 @@ def _bs_cases():
     fixed_d96 = FixedSparsityConfig(**{**SPARSE_GPT_LAYOUT, "num_heads": 16})
     bigbird = BigBirdSparsityConfig(num_heads=12, block=64, different_layout_per_head=True,
                                     attention="unidirectional").make_layout(1024)
+    variable = VariableSparsityConfig(
+        num_heads=12, block=16, num_random_blocks=2, local_window_blocks=[4],
+        global_block_indices=[0], attention="unidirectional").make_layout(512)
+    longformer = BSLongformerSparsityConfig(num_heads=12, block=32,
+                                            num_sliding_window_blocks=5).make_layout(512)
+    sliding_32 = LocalSlidingWindowSparsityConfig(
+        num_heads=12, block=32, num_sliding_window_blocks=4).make_layout(512)
     # an empty block row (head 1) and an empty block column (head 0)
     empty_128 = np.tril(np.ones((12, 8, 8), np.int64))
     empty_128[1, 3] = 0
@@ -1956,12 +2027,15 @@ def _bs_cases():
     empty_64[1, 5] = 0
     empty_64[0, :, 9] = 0
     return [
-        # (i) phase 10a's shape (the CUDA-core main-path row); (ii) phase 10b's
-        # (the tensor-core main-path row), in bf16 and fp16
+        # (i) phase 10a's shape (the fp32 main-path row); (ii) phase 10b's
+        # (the bf16 main-path row), in bf16 and fp16; phase 10c's (the
+        # small-block main-path row)
         ("fixed-uni-128 (10a)", fixed.make_layout(1024), 128, 2, 12, 64, True, "float32", 1.0),
         ("fixed-uni-128 (10b, main path)", fixed.make_layout(4096), 128, 2, 12, 64, True,
          "bfloat16", 1.0),
         ("fixed-uni-128 (10b)", fixed.make_layout(4096), 128, 2, 12, 64, True, "float16", 1.0),
+        ("fixed-uni-32 (10c)", FixedSparsityConfig(**SMALL_BLOCK_LAYOUT).make_layout(1024), 32,
+         2, 12, 64, True, "bfloat16", 1.0),
         # (iii) bench.py's row: the bidirectional default under causal=True
         ("fixed-bi-128 bench", FixedSparsityConfig(num_heads=16, block=128).make_layout(1024),
          128, 4, 16, 64, True, "bfloat16", 1.0),
@@ -1969,20 +2043,18 @@ def _bs_cases():
         ("bigbird-per-head-64", bigbird, 64, 2, 12, 64, True, "float32", 1.0),
         ("bigbird-per-head-64", bigbird, 64, 2, 12, 64, True, "bfloat16", 1.0),
         ("bigbird-per-head-64 D96", bigbird, 64, 2, 12, 96, True, "float16", 1.0),
-        # (v) small blocks (the CUDA cores in every dtype)
-        ("variable-16", VariableSparsityConfig(
-            num_heads=12, block=16, num_random_blocks=2, local_window_blocks=[4],
-            global_block_indices=[0], attention="unidirectional").make_layout(512), 16, 2, 12,
-         64, True, "float32", 1.0),
-        ("longformer-32", BSLongformerSparsityConfig(
-            num_heads=12, block=32, num_sliding_window_blocks=5).make_layout(512), 32, 2, 12,
-         64, False, "float32", 1.0),
+        # (v) small blocks: the backward's 64-token tiles hold several blocks
+        ("variable-16", variable, 16, 2, 12, 64, True, "float32", 1.0),
+        ("variable-16", variable, 16, 2, 12, 64, True, "bfloat16", 1.0),
+        ("variable-16 D96", variable, 16, 2, 12, 96, True, "float16", 1.0),
+        ("variable-16 D128", variable, 16, 2, 12, 128, True, "float32", 1.0),
+        ("longformer-32", longformer, 32, 2, 12, 64, False, "float32", 1.0),
+        ("longformer-32", longformer, 32, 2, 12, 64, False, "bfloat16", 1.0),
         ("sliding-16", LocalSlidingWindowSparsityConfig(
             num_heads=12, block=16, num_sliding_window_blocks=8).make_layout(512), 16, 2, 12, 64,
          True, "bfloat16", 1.0),
-        ("sliding-32", LocalSlidingWindowSparsityConfig(
-            num_heads=12, block=32, num_sliding_window_blocks=4).make_layout(512), 32, 2, 12, 64,
-         True, "float32", 1.0),
+        ("sliding-32", sliding_32, 32, 2, 12, 64, True, "float32", 1.0),
+        ("sliding-32 D96 small dO", sliding_32, 32, 2, 12, 96, True, "float16", 2.0**-8),
         # (vi) not causal, and head dim 128
         ("longformer-128", BSLongformerSparsityConfig(num_heads=12, block=128)
          .make_layout(2048), 128, 2, 12, 64, False, "bfloat16", 1.0),
@@ -2009,36 +2081,50 @@ def _bs_cases():
 
 
 def _bs_counts(bs):
-    return {f"{route}_{n}": getattr(bs, c) for route, names in BS_COUNTERS.items()
-            for n, c in names.items()}
+    return {name: getattr(bs, c) for name, c in BS_COUNTERS.items()}
+
+
+# the phase 2 rows that give the {"kernels": [...]} line B9's numbers, by
+# label, dtype and the kernels' keys there: 10a's (the CUDA-core forward,
+# the 3xTF32 dq / dk/dv), 10b's (the tensor cores at blocks of 128) and
+# 10c's (the tensor-core dq / dk/dv's sub-block-mask instances)
+BS_ROWS = {
+    ("fixed-uni-128 (10a)", "float32"): {"fwd": "bs_cuda_fwd", "dq": "bs_tf32_dq",
+                                         "dkv": "bs_tf32_dkv"},
+    ("fixed-uni-128 (10b, main path)", "bfloat16"): {"fwd": "bs_tc_fwd", "dq": "bs_tc_dq",
+                                                     "dkv": "bs_tc_dkv"},
+    ("fixed-uni-32 (10c)", "bfloat16"): {"dq": "bs_tc_small_dq", "dkv": "bs_tc_small_dkv"}}
 
 
 def phase_kernels_blocksparse(torch, ctx, randn):
     """B9: the forward, dq and dk/dv kernels against their plain versions on
-    q/k/v views of one fused [B, T, 3HD] buffer, each case through its route
+    q/k/v views of one fused [B, T, 3HD] buffer, each pass through its route
     (``bs_route``, checked by the counters), the backward twice (bitwise),
     their times beside one SDPA call with the expanded boolean layout (and
     causal) mask (mask construction excluded) and its backward, and beside
-    B1 / B2's dense causal times at the same shape. The tensor-core cases
-    (bf16 / fp16 at blocks 64 / 128) are also held to at most 2 ulps of the
-    dtype of the fp32 plain versions on entries of at least 1e-3 of the
-    largest (and, up to T 2048, of the split plain versions that model their
-    rounding), where a single cast of P must miss that bar."""
+    B1 / B2's dense causal times at the same shape. bf16 / fp16 are also
+    held to at most 2 ulps of the dtype of the fp32 plain versions on entries
+    of at least 1e-3 of the largest (and, up to T 2048, of the split plain
+    versions that model the tensor cores' rounding), where a single cast of
+    P must miss that bar; fp32 gradients (3xTF32) to the plain versions and
+    to ``blocksparse_attention_bwd_tf32_ref`` within 5e-5 of the largest
+    entry. Small blocks print the share of the visited tiles' products their
+    layout keeps."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
     from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
 
     timer = ctx["timer"]
-    errs = {f"{route}_{n}": 0.0 for route in BS_COUNTERS for n in BS_KERNELS}
+    errs = {key: 0.0 for keys in BS_ROWS.values() for key in keys.values()}
     for label, layout, block, B, H, D, causal, dt, do_scale in _bs_cases():
         dtype = getattr(torch, dt)
-        route = bs.bs_route(dtype, block, D)
+        route = (bs.bs_route(dtype, block, D, "fwd"), bs.bs_route(dtype, block, D, "bwd"))
         T = layout.shape[1] * block
         qkv = randn((B, T, 3 * H * D), dtype)
         q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
         do = randn((B, T, H, D), dtype) * do_scale
-        tables = bs.device_tables(layout, "cuda")
+        tables = bs.device_tables(layout, block, "cuda")
         scale = 1.0 / math.sqrt(D)
         before = _bs_counts(bs)
         o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
@@ -2049,7 +2135,7 @@ def phase_kernels_blocksparse(torch, ctx, randn):
         torch.cuda.synchronize()
         counted = {c: n - before[c] for c, n in _bs_counts(bs).items()}
         expected = {c: 0 for c in counted}
-        expected.update({f"{route}_fwd": 1, f"{route}_dq": 2, f"{route}_dkv": 2})
+        expected.update({f"fwd_{route[0]}": 1, f"dq_{route[1]}": 2, f"dkv_{route[1]}": 2})
         bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
         o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
         dq_ref, delta = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block,
@@ -2061,8 +2147,14 @@ def phase_kernels_blocksparse(torch, ctx, randn):
         rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                for a, b in zip(first, ref)]
         absd = [(a.float() - b.float()).abs().max().item() for a, b in zip(first, ref)]
-        ulps = split_ulps = cast_ulps = None
-        if route == "tc":  # the fp32 function, the split model and a single cast of P
+        ulps = split_ulps = cast_ulps = model_rel = None
+        if dt == "float32":  # the CPU model of the 3xTF32 arithmetic
+            model = bs.blocksparse_attention_bwd_tf32_ref(q, k, v, o, lse, do, layout, block,
+                                                          causal)
+            model_rel = [((a - b).abs().max() / b.abs().max()).item()
+                         for a, b in zip(first, model)]
+            del model
+        else:  # the fp32 function, the split model and a single cast of P
             ulps = [ulp_err(torch, o, o_ref, dtype)] + [ulp_err(torch, a, b, dtype)
                                                         for a, b in zip(first, ref)]
             p_cast = bs._probs(q, k, lse, layout, block, causal, scale).to(dtype).float()
@@ -2070,15 +2162,21 @@ def phase_kernels_blocksparse(torch, ctx, randn):
             cast_ulps = ulp_err(torch, dv_cast, ref[2], dtype)
             del p_cast, dv_cast
             if T <= 2048:
-                o_split, _ = bs.blocksparse_attention_split_ref(q, k, v, layout, block, causal)
                 split = bs.blocksparse_attention_bwd_split_ref(q, k, v, o, lse, do, layout,
                                                                block, causal)
-                split_ulps = [ulp_err(torch, o, o_split, dtype)] + [
-                    ulp_err(torch, a, b, dtype) for a, b in zip(first, split)]
-                del o_split, split
-        errs[f"{route}_fwd"] = max(errs[f"{route}_fwd"], o_err)
-        errs[f"{route}_dq"] = max(errs[f"{route}_dq"], absd[0])
-        errs[f"{route}_dkv"] = max(errs[f"{route}_dkv"], absd[1], absd[2])
+                split_ulps = [ulp_err(torch, a, b, dtype) for a, b in zip(first, split)]
+                if route[0] == "tc":  # the tensor-core forward's rounding
+                    o_split, _ = bs.blocksparse_attention_split_ref(q, k, v, layout, block,
+                                                                    causal)
+                    split_ulps = [ulp_err(torch, o, o_split, dtype)] + split_ulps
+                    del o_split
+                del split
+        keys = BS_ROWS.get((label, dt), {})
+        small = "_small" if block < 64 and route[1] == "tc" else ""  # the mask instances
+        for n, e in (("fwd", o_err), ("dq", absd[0]), ("dkv", max(absd[1], absd[2]))):
+            key = f"bs_{route[0] if n == 'fwd' else route[1]}{'' if n == 'fwd' else small}_{n}"
+            if key in errs:
+                errs[key] = max(errs[key], e)
         empty_ok = True
         if label.startswith("empty"):  # the empty block row of head 1 and column of head 0
             lay = np.asarray(layout)
@@ -2124,31 +2222,42 @@ def phase_kernels_blocksparse(torch, ctx, randn):
         flash_bwd_ms = timer.ms(lambda: fa.flash_attention_bwd(q, k, v, fo, flse, do, True))
         del fo, flse
         pairs = bs_visible_pairs(layout, block, causal) * B
+        tiles = bs_visited_tiles(layout, block, causal) * B
         bounds = bs_bounds(B, T, H, D, pairs, dt, q.element_size())
+        if dt == "float32":  # the backward as three TF32 passes on the tensor cores
+            tf32 = bs_bounds(B, T, H, D, pairs, "tf32x3", q.element_size())
+            bounds.update({n: tf32[n] for n in ("dq", "dkv", "bwd_total")})
         log(f"phase2 blocksparse_attention {label} B{B} T{T} H{H} D{D} block{block} "
             f"causal={causal} {dt} " + (f"dO_scale={do_scale} " if do_scale != 1.0 else "")
-            + f"route={route} launches={counted}: "
+            + f"route fwd/bwd={route[0]}/{route[1]} launches={counted}: "
             f"active_blocks={int(np.asarray(layout).sum())} "
-            f"visible_pairs={pairs} o_err={o_err:.3e} lse_err={lse_err:.3e} "
+            f"visible_pairs={pairs} visited_tiles={tiles} "
+            f"visited_share={pairs / (tiles * 64 * 64):.4f} o_err={o_err:.3e} "
+            f"lse_err={lse_err:.3e} "
             f"rel_err dq/dk/dv={rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} "
             f"max_abs_err dq/dk/dv={absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e} "
+            + (f"tf32_model_rel_err dq/dk/dv={'/'.join(f'{u:.3e}' for u in model_rel)} "
+               if model_rel else "")
             + (f"max_ulp_err o/dq/dk/dv={'/'.join(f'{u:.2f}' for u in ulps)} "
                f"single_cast_dv_ulp_err={cast_ulps:.2f} " if ulps else "")
-            + (f"split_model_ulp_err o/dq/dk/dv={'/'.join(f'{u:.2f}' for u in split_ulps)} "
-               if split_ulps else "")
+            + (f"split_model_ulp_err {'o/' if route[0] == 'tc' else ''}dq/dk/dv="
+               f"{'/'.join(f'{u:.2f}' for u in split_ulps)} " if split_ulps else "")
             + f"bitwise_rerun={bitwise} "
             + " ".join(f"{n}: kernel_ms={kernel_ms[n]:.4f} plain_ms={plain_ms[n]:.4f} "
                        f"bound_ms={bounds[n][0]:.4f} ({bounds[n][1]})" for n in BS_KERNELS)
             + f" sum_bwd_kernel_ms={kernel_ms['dq'] + kernel_ms['dkv']:.4f} "
             f"bwd_bound_ms={bounds['bwd_total'][0]:.4f} ({bounds['bwd_total'][1]}) "
             f"sdpa_masked_ms={sdpa_ms:.4f} sdpa_masked_backward_ms={sdpa_bwd_ms:.4f} "
+            f"bwd/sdpa_bwd={(kernel_ms['dq'] + kernel_ms['dkv']) / sdpa_bwd_ms:.3f} "
             f"b1_dense_causal_ms={flash_ms:.4f} b2_dense_causal_ms={flash_bwd_ms:.4f}")
         tag = f"blocksparse {label} {dt}"
-        check(counted == expected, f"{tag}: route {route}, launches {counted}")
+        check(counted == expected, f"{tag}: routes {route}, launches {counted}")
         check(o_err <= ATOL[dt], f"{tag}: o error {o_err} > {ATOL[dt]}")
         check(lse_err <= LSE_ATOL, f"{tag}: lse error {lse_err}")
         check(bitwise, f"{tag}: two backward runs differ")
         check(max(rel) <= BWD_RTOL[dt], f"{tag}: rel error {rel}")
+        check(model_rel is None or max(model_rel) <= BWD_RTOL[dt],
+              f"{tag}: {model_rel} from the 3xTF32 model")
         check(ulps is None or max(ulps) <= BWD_MAX_ULP, f"{tag}: {ulps} ulps of the fp32 function")
         check(split_ulps is None or max(split_ulps) <= BWD_MAX_ULP,
               f"{tag}: {split_ulps} ulps of the split model")
@@ -2156,16 +2265,14 @@ def phase_kernels_blocksparse(torch, ctx, randn):
               f"{tag}: a single cast of P is within {cast_ulps} ulps, the ulp check cannot "
               "tell it from the hi/lo split")
         check(empty_ok, f"{tag}: an empty block row or column is not zero")
-        main = {"fixed-uni-128 (10a)": "cuda", "fixed-uni-128 (10b, main path)": "tc"}
-        if main.get(label) == route:
-            for n in BS_KERNELS:
-                ctx[f"bs_{route}_{n}"] = dict(ms=kernel_ms[n], plain_ms=plain_ms[n],
-                                              library_ms=sdpa_ms if n == "fwd" else sdpa_bwd_ms,
-                                              bound_ms=bounds[n][0], bound_by=bounds[n][1])
+        for n, key in keys.items():
+            ctx[key] = dict(ms=kernel_ms[n], plain_ms=plain_ms[n],
+                            library_ms=sdpa_ms if n == "fwd" else sdpa_bwd_ms,
+                            bound_ms=bounds[n][0], bound_by=bounds[n][1])
         del q, k, v, qkv, do, o, lse, first, again, delta
         torch.cuda.empty_cache()
     for key, err in errs.items():
-        ctx[f"bs_{key}"]["max_abs_err"] = err
+        ctx[key]["max_abs_err"] = err
 
 
 def _reset_counts():
@@ -2185,9 +2292,8 @@ def _reset_counts():
     for counter in QMM_COUNTERS.values():
         setattr(im, counter, 0)
     dqm.tc_launches = 0
-    for names in BS_COUNTERS.values():
-        for counter in names.values():
-            setattr(bs, counter, 0)
+    for counter in BS_COUNTERS.values():
+        setattr(bs, counter, 0)
     return fa, da
 
 
@@ -3353,8 +3459,7 @@ def phase_zero3(torch, ctx):
 def _bs_launches(fa):
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
 
-    return {**{f"b9_{n}" + ("" if route == "cuda" else "_tc"): getattr(bs, c)
-               for route, names in BS_COUNTERS.items() for n, c in names.items()},
+    return {**{f"b9_{n}": getattr(bs, c) for n, c in BS_COUNTERS.items()},
             **{f"b1_{n}": c for n, c in _fwd_launches(fa).items()},
             **{f"b2_{n}": c for n, c in _bwd_launches(fa).items()}}
 
@@ -3407,9 +3512,8 @@ def phase_sparse(torch, ctx):
         f"launches={score_launches}")
     check(abs(loss - math.log(V)) < 0.5, f"10a scoring loss {loss} far from ln(V)")
     check(abs(loss - plain_loss) <= 1e-4, f"10a B9 loss {loss} vs plain {plain_loss}")
-    check(score_launches["b9_fwd"] == L and not any(
-        n for name, n in score_launches.items() if name != "b9_fwd"),
-        f"10a scoring launches {score_launches}")
+    check(score_launches == path_launches(score_launches, L, ("b9_fwd_cuda",)),
+          f"10a scoring launches {score_launches}")
 
     batches = [{"input_ids": rng.integers(0, V, (2, 1024)).astype(np.int32)} for _ in range(5)]
     runs = {}
@@ -3433,12 +3537,13 @@ def phase_sparse(torch, ctx):
     check(np.allclose(loss_k, loss_p, rtol=1e-4, atol=0), f"10a losses differ: {loss_k} vs {loss_p}")
     check(np.allclose(norm_k, norm_p, rtol=1e-3, atol=0),
           f"10a grad norms differ: {norm_k} vs {norm_p}")
-    check(launches == path_launches(launches, 5 * L, tuple(f"b9_{n}" for n in BS_KERNELS)),
-          f"10a launches {launches}, expected {5 * L} of each CUDA-core B9 kernel (fp32) and "
-          "no other")
+    path = tuple(f"b9_{n}" for n in BS_PATH["float32"])
+    check(launches == path_launches(launches, 5 * L, path),
+          f"10a launches {launches}, expected {5 * L} of each of {path} and no other")
     check(not any(plain_launches.values()), f"10a plain run launched kernels: {plain_launches}")
-    for n in BS_KERNELS:
-        ctx[f"bs_cuda_{n}"]["launches"] = launches[f"b9_{n}"]
+    for n in BS_PATH["float32"]:
+        kind, route = n.split("_")
+        ctx[f"bs_{route}_{kind}"]["launches"] = launches[f"b9_{n}"]
     torch.cuda.empty_cache()
 
     # (b) bf16 + fp32 master + ZeRO stage 2, B2 x T4096 (max_seq_len 4096),
@@ -3481,14 +3586,38 @@ def phase_sparse(torch, ctx):
     sparse, dense = rows["sparse"]["launches"], rows["dense"]["launches"]
     log(f"phase10b sparse/dense step ratio={rows['sparse']['step_ms'] / rows['dense']['step_ms']:.4f} "
         f"(below 1: the sparse step is faster than the dense one)")
-    check(sparse == path_launches(sparse, 10 * L, tuple(f"b9_{n}_tc" for n in BS_KERNELS)),
-          f"10b sparse launches {sparse}, expected {10 * L} of each tensor-core B9 kernel and "
-          "no other")
+    path = tuple(f"b9_{n}" for n in BS_PATH["bfloat16"])
+    check(sparse == path_launches(sparse, 10 * L, path),
+          f"10b sparse launches {sparse}, expected {10 * L} of each of {path} and no other")
     expected = path_launches(dense, 10 * L, (*(f"b1_{n}" for n in FWD_PATH["bfloat16"]),
                                             *(f"b2_{n}" for n in BWD_PATH["bfloat16"])))
     check(dense == expected, f"10b dense launches {dense}, expected {expected}")
     for n in BS_KERNELS:
         ctx[f"bs_tc_{n}"]["launches"] = sparse[f"b9_{n}_tc"]
+
+    # (c) bf16 + ZeRO-2, B2 x T1024, the fixed pattern at blocks of 32: the
+    # forward on the CUDA cores, dq and dk/dv on the tensor cores' sub-block
+    # mask instances
+    small_cfg = dataclasses.replace(cfg, sparse_attention=FixedSparsityConfig(
+        **SMALL_BLOCK_LAYOUT))
+    engine = _engine(_train_config(2, bf16={"enabled": True}, zero_optimization={"stage": 2}),
+                     small_cfg)
+    batch = {"input_ids": rng.integers(0, V, (2, 1024)).astype(np.int32)}
+    fa, _ = _reset_counts()  # the small-block sparse training main path
+    losses, norms, step_ms, _ = _timed_steps(torch, engine, batch, 3)
+    launches = _bs_launches(fa)
+    log(f"phase10c train bf16 master zero2 sparse gpt2-125m block 32 B2xT1024: "
+        f"losses={losses} grad_norms={norms} step_ms={[round(x, 3) for x in step_ms]} "
+        f"launches over 3 steps={launches}")
+    check(abs(losses[0] - math.log(V)) < 0.5, f"10c step-1 loss {losses[0]} far from ln(V)")
+    check(all(math.isfinite(x) for x in losses + norms), "10c loss or grad norm not finite")
+    path = ("b9_fwd_cuda", "b9_dq_tc", "b9_dkv_tc")
+    check(launches == path_launches(launches, 3 * L, path),
+          f"10c launches {launches}, expected {3 * L} of each of {path} and no other")
+    for n in ("dq", "dkv"):
+        ctx[f"bs_tc_small_{n}"]["launches"] = launches[f"b9_{n}_tc"]
+    del engine
+    torch.cuda.empty_cache()
 
 
 # phase 11: gpt2-760m (d 1536, H16: head dim 96) at full width, its 24
@@ -3662,12 +3791,17 @@ def main() -> int:
          "replaces": DQM_TPU, **ctx["dqm_tc_block128"]},
         {"name": "dequant_matmul_tc_block96", "route": "cuda", "source": DQM_TC_SRC,
          "replaces": DQM_TPU, **ctx["dqm_tc_block96"]}] + [
-        {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}"),
-         "route": "cuda", "source": BS_FWD_SRC if n == "fwd" else BS_BWD_SRC,
-         "replaces": BS_TPU[n], **ctx[f"bs_cuda_{n}"]} for n in BS_KERNELS] + [
+        {"name": "blocksparse_attention_fwd", "route": "cuda", "source": BS_FWD_SRC,
+         "replaces": BS_TPU["fwd"], **ctx["bs_cuda_fwd"]}] + [
+        {"name": f"blocksparse_attention_bwd_{n}_tf32", "route": "cuda",
+         "source": BS_BWD_TF32_SRC, "replaces": BS_TPU[n], **ctx[f"bs_tf32_{n}"]}
+        for n in ("dq", "dkv")] + [
         {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}") + "_tc",
          "route": "cuda", "source": BS_FWD_TC_SRC if n == "fwd" else BS_BWD_TC_SRC,
-         "replaces": BS_TPU[n], **ctx[f"bs_tc_{n}"]} for n in BS_KERNELS]
+         "replaces": BS_TPU[n], **ctx[f"bs_tc_{n}"]} for n in BS_KERNELS] + [
+        {"name": f"blocksparse_attention_bwd_{n}_tc_small_blocks", "route": "cuda",
+         "source": BS_BWD_TC_SRC, "replaces": BS_TPU[n], **ctx[f"bs_tc_small_{n}"]}
+        for n in ("dq", "dkv")]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

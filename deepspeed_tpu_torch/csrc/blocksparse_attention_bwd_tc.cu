@@ -1,13 +1,14 @@
 // Blocksparse-attention backward on Hopper's tensor cores (sm_90a, wgmma),
-// for bf16 and fp16 inputs at blocks of 64 and 128; plain C interface.
+// for bf16 and fp16 inputs at every block (16, 32, 64, 128); plain C
+// interface.
 //
 // Replaces, for 16-bit inputs, the TPU kernels _bwd_dq_kernel and
 // _bwd_dkv_kernel of deepspeed_tpu/ops/pallas/blocksparse_attention.py (_bwd,
-// the pallas_calls at :215 and :239). fp32 inputs and blocks of 16 / 32 take
-// the CUDA-core kernels of csrc/blocksparse_attention_bwd.cu
-// (ops/cuda/blocksparse_attention.py bs_route). The function is the
-// reference's: from the forward's saved fp32 logsumexp (lse [B*H, T]), over
-// the (q-block, k-block) pairs of the layout only,
+// the pallas_calls at :215 and :239). fp32 inputs take the 3xTF32 kernels of
+// csrc/blocksparse_attention_bwd_tf32.cu (ops/cuda/blocksparse_attention.py
+// bs_route). The function is the reference's: from the forward's saved fp32
+// logsumexp (lse [B*H, T]), over the (q-block, k-block) pairs of the layout
+// only,
 //   P  = exp(scale * q k^T - lse)      (0 where the layout or causal mask hides a key)
 //   dV = P^T dO,   dS = P * (dO v^T - delta) * scale,   delta = rowsum(dO * O)
 //   dQ = dS k,     dK = dS^T q
@@ -28,40 +29,53 @@
 // their bits above fp16's subnormal range. dQ's dS rows are queries, dV's
 // P^T and dK's dS^T rows are keys.
 //
-// The layout reaches the kernels as the host-built tables of
-// ops/cuda/blocksparse_attention.py: kidx [H, nQ, A] / kcnt [H, nQ] (each
-// q-block's active k-blocks, ascending), the transposed qidx [H, nK, Aq] /
-// qcnt [H, nK], and the work orders [H * nQ] / [H * nK] (the (head, block)
-// pairs sorted by their count, largest first: work_order).
+// The layout reaches the kernels as the host-built tile tables of
+// ops/cuda/blocksparse_attention.py (tile_tables), at the kernels' own
+// granularity of 64 tokens whatever the block: for each (head, 64-query
+// tile) the ascending 64-key tiles that hold an active block x block
+// sub-block, each with its bit mask of active sub-blocks (bit r g + c for
+// query sub-block r and key sub-block c, g = 64 / block: 16 bits at a block
+// of 16, 4 at 32; blocks of 64 and 128 are whole tiles), the transposed
+// table for dk/dv (the same bits), and the work orders [H * nT] (the (head,
+// tile) pairs sorted by their count, largest first: work_order). Blocks of
+// 16 and 32 run their own instances (MASK), which zero P (and so dS) where a
+// score's sub-block bit is clear, where the causal diagonal is masked and
+// the same way: a hidden entry is exactly 0, so fp16's running row scale is
+// unmoved by it. Blocks of 64 and 128 run the instances without the test.
+// The products over the clear sub-blocks of a visited tile are the small
+// blocks' cost (the visited share: chip_smoke.py phase 2 prints it).
 //
 // Work split: two passes, no atomics. Every output element is written by one
 // block in a fixed order, so two runs give bitwise-equal gradients.
 // - dq: one block of one warpgroup (128 threads) per (b, head, 64-row q tile),
-//   in `q_order` (the longest lists first). It stages its q and dO tiles
+//   in `order` (the longest lists first). It stages its q and dO tiles
 //   once, computes delta = rowsum(dO * O) of its rows from o and dO in
 //   global memory while they land (each row's four lanes sum a quarter of
 //   the columns and combine by two shuffles), writes it as fp32 [B*H, T] for
 //   the dk/dv pass (launched after it on the same stream, so the passes must
 //   run in that order: there is no delta launch of its own), and streams the
-//   64-key k/v tiles of k-blocks kidx[h, qi, 0 .. kcnt) through a ring of
-//   kStages cp.async stages, the next tile's rows taken from the table as
-//   its copy is issued. For each tile: S = q k^T and dP = dO v^T (wgmma
-//   m64n64k16, K-major), P and dS in registers, then dQ += dS_hi k + dS_lo k
-//   with k read MN-major from the same tile.
+//   64-key k/v tiles of its list through a ring of kStages cp.async stages,
+//   the next tile's rows taken from the table as its copy is issued. For
+//   each tile: S = q k^T and dP = dO v^T (wgmma m64n64k16, K-major), P and
+//   dS in registers, then dQ += dS_hi k + dS_lo k with k read MN-major from
+//   the same tile.
 // - dkv: one block per (b, head, 64-key k tile), of D / 64 warpgroups, in
-//   `k_order` (at the sparse GPT's Fixed layout a global k-block has ~29
+//   `order` (at the sparse GPT's Fixed layout a global k-block has ~29
 //   active q-blocks, a local one 1-4). It stages k and v once and streams the
-//   64-row q tiles of q-blocks qidx[h, ki, 0 .. qcnt) with their dO tile and
-//   lse / delta rows. With keys as the M dimension, S^T = k q^T and dP^T =
-//   v dO^T leave P^T and dS^T in accumulator registers, which feed
-//   dV += P^T_hi dO + P^T_lo dO and dK += dS^T_hi q + dS^T_lo q (q and dO read
-//   MN-major). At D 96 / 128 the two warpgroups each compute the whole S^T
-//   and dP^T and their own 64 columns of dK and dV. A k tile with no active
-//   q-block runs no tile and writes zeros.
+//   64-row q tiles of its list with their dO tile and lse / delta rows. With
+//   keys as the M dimension, S^T = k q^T and dP^T = v dO^T leave P^T and dS^T
+//   in accumulator registers, which feed dV += P^T_hi dO + P^T_lo dO and
+//   dK += dS^T_hi q + dS^T_lo q (q and dO read MN-major). At D 96 / 128 the
+//   two warpgroups each compute the whole S^T and dP^T and their own 64
+//   columns of dK and dV. A k tile with no active q tile runs no tile and
+//   writes zeros.
 // Under `causal` a tile wholly on the hidden side of the diagonal (a k tile
 // above the q tile's last row) has P exactly 0: the ascending lists put such
 // tiles at the tail of a q tile's list and at the head of a k tile's, and
 // both are cut off before the loop; only a tile on the diagonal is masked.
+// A T off 64-row tiles (blocks of 16 / 32) leaves rows past T in the last
+// tile: they are zero-filled, their sub-block bits are clear, and they are
+// neither read from lse / delta nor stored.
 // Inputs are read through their strides (last dimension contiguous, rows
 // 16-byte aligned: the views of the fused qkv projection need no copy);
 // dq/dk/dv are written contiguous [B, T, H, D].
@@ -167,17 +181,31 @@ __device__ __forceinline__ float row_delta(const T* orow, const T* drow, int lan
   return sum + __shfl_xor_sync(0xffffffffu, sum, 2);
 }
 
-template <typename T, int D>
+// Whether the entry of query t and key `key` is visible: under `causal` key
+// <= t, and (MASK) its sub-block's bit of the tile's mask `bits` is set (qr
+// and kc the query's and key's offsets in their 64-token tiles, `shift` =
+// log2(block), g = 64 / block sub-blocks a side).
+template <bool MASK>
+__device__ __forceinline__ bool visible(int t, int key, int causal, uint32_t bits, int qr, int kc,
+                                        int shift, int g) {
+  bool vis = !causal || key <= t;
+  if constexpr (MASK) vis = vis && ((bits >> ((qr >> shift) * g + (kc >> shift))) & 1u);
+  return vis;
+}
+
+// MASK: blocks of 16 / 32 (tiles of several blocks, each entry tested
+// against its sub-block's bit); blocks of 64 / 128 have whole tiles
+template <typename T, int D, bool MASK>
 __global__ void __launch_bounds__(kWgThreads)
 blocksparse_bwd_dq_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ o, const T* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ delta, T* __restrict__ dq, const int* __restrict__ kidx,
-    const int* __restrict__ kcnt, const int* __restrict__ order, int H, int T_, int block,
-    int A, long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
-    long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,
-    long long o_st, long long o_sh, long long d_sb, long long d_st, long long d_sh,
-    float scale, int causal) {
+    float* __restrict__ delta, T* __restrict__ dq, const int* __restrict__ tidx,
+    const int* __restrict__ tcnt, const int* __restrict__ tmask, const int* __restrict__ order,
+    int H, int T_, int block, int A, long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, long long o_sb, long long o_st, long long o_sh, long long d_sb,
+    long long d_st, long long d_sh, float scale, int causal) {
   using L = DqLayout<D>;
   constexpr int DP = kPadded<D>;         // whole 64-column panels (D 96: 128)
   constexpr int NP = DP / kPanelCols;    // output panels of 64 columns
@@ -186,22 +214,22 @@ blocksparse_bwd_dq_tc_kernel(
   const uint32_t sQ = base + L::q, sO = base + L::dout;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tpb = block / kTile;  // 64-row tiles a block: 1 or 2
-  const int nQ = T_ / block;
-  const int item = order[blockIdx.y / tpb];  // h * nQ + qi, the longest lists first
-  const int h = item / nQ, qi = item % nQ;
-  const int sub = tpb - 1 - static_cast<int>(blockIdx.y) % tpb;  // the later q tile first
+  const int nT = (T_ + kTile - 1) / kTile;
+  const int item = order[blockIdx.y];  // h * nT + q tile, the longest lists first
+  const int h = item / nT;
   const int b = blockIdx.x, bh = b * H + h;
-  const int q0 = qi * block + sub * kTile;
+  const int q0 = (item % nT) * kTile;
+  const int shift = __ffs(block) - 1, g = kTile >> shift;  // MASK: log2(block), blocks a side
 
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
   const T* db = dout + b * d_sb + h * d_sh;
 
-  // tile t of the list: 64-key part t % tpb of k-block idx[t / tpb]
-  const int* idx = kidx + static_cast<long long>(item) * A;
-  auto key0 = [&](int t) { return __ldg(idx + t / tpb) * block + (t % tpb) * kTile; };
-  int n_k_tiles = kcnt[item] * tpb;
+  // tile t of the list: 64-key tile idx[t], its sub-blocks' bits msk[t]
+  const int* idx = tidx + static_cast<long long>(item) * A;
+  const int* msk = tmask + static_cast<long long>(item) * A;
+  auto key0 = [&](int t) { return __ldg(idx + t) * kTile; };
+  int n_k_tiles = tcnt[item];
   if (causal)  // the ascending list's tail lies wholly above the q tile's last row
     while (n_k_tiles > 0 && key0(n_k_tiles - 1) > q0 + kTile - 1) --n_k_tiles;
 
@@ -223,15 +251,17 @@ blocksparse_bwd_dq_tc_kernel(
   }
 
   // this thread's two rows: delta (computed here, stored for the dk/dv pass)
-  // and lse (log2 domain)
+  // and lse (log2 domain); a row past T (every lane of the warp shuffles,
+  // so it reads row T - 1) gets 0 for both and stores nothing
   float lse2[2], dlt[2];
   const T* ob = o + b * o_sb + h * o_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int t = q0 + 16 * warp + (lane >> 2) + 8 * r;
-    dlt[r] = row_delta<T, D>(ob + t * o_st, db + t * d_st, lane);
-    if ((lane & 3) == 0) delta[(long long)bh * T_ + t] = dlt[r];
-    lse2[r] = lse[(long long)bh * T_ + t] * kLog2e;
+    const int t = q0 + 16 * warp + (lane >> 2) + 8 * r, tr = min(t, T_ - 1);
+    const float d = row_delta<T, D>(ob + tr * o_st, db + tr * d_st, lane);
+    dlt[r] = t < T_ ? d : 0.f;
+    if (t < T_ && (lane & 3) == 0) delta[(long long)bh * T_ + t] = d;
+    lse2[r] = t < T_ ? lse[(long long)bh * T_ + t] * kLog2e : 0.f;
   }
   const float scale2 = scale * kLog2e;
 
@@ -258,6 +288,7 @@ blocksparse_bwd_dq_tc_kernel(
     const uint32_t sK = base + L::ring + (kt % kStages) * L::stage;
     const uint32_t sV = sK + L::tile;
     const int k0 = key0(kt);
+    const uint32_t bits = MASK ? static_cast<uint32_t>(__ldg(msk + kt)) : 0u;
 
     // S = q k^T, dP = dO v^T
     float s[32], dp[32];
@@ -276,11 +307,12 @@ blocksparse_bwd_dq_tc_kernel(
     // P = exp(scale * S - lse) into s while dO v^T runs
     wgmma_wait<1>();
     fence_regs(s);
-    const bool masked = causal && k0 + kTile - 1 > q0;
+    const bool masked = MASK || (causal && k0 + kTile - 1 > q0);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float p = exp2f(fmaf(s[i], scale2, -lse2[(i >> 1) & 1]));
-      if (masked && k0 + acc_col(lane, i) > q0 + acc_row(warp, lane, i)) p = 0.f;
+      const int r = acc_row(warp, lane, i), c = acc_col(lane, i);
+      if (masked && !visible<MASK>(q0 + r, k0 + c, causal, bits, r, c, shift, g)) p = 0.f;
       s[i] = p;
     }
     // dS = P * (dP - delta) * scale into s
@@ -320,6 +352,7 @@ blocksparse_bwd_dq_tc_kernel(
     for (int i = 0; i < 32; i += 2) {
       if (p * kPanelCols + acc_col(lane, i) >= D) continue;  // D 96's zero columns
       const int t = q0 + acc_row(warp, lane, i);
+      if (t >= T_) continue;
       T* row = dq + (((long long)b * T_ + t) * H + h) * D;
       const float u = undo[(i >> 1) & 1];
       *reinterpret_cast<uint32_t*>(row + p * kPanelCols + acc_col(lane, i)) =
@@ -327,16 +360,16 @@ blocksparse_bwd_dq_tc_kernel(
     }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK>
 __global__ void __launch_bounds__(kWgThreads * (kPadded<D> / kPanelCols))
 blocksparse_bwd_dkv_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, const int* __restrict__ qidx,
-    const int* __restrict__ qcnt, const int* __restrict__ order, int H, int T_, int block,
-    int Aq, long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
-    long long k_sh, long long v_sb, long long v_st, long long v_sh, long long d_sb,
-    long long d_st, long long d_sh, float scale, int causal) {
+    T* __restrict__ dk, T* __restrict__ dv, const int* __restrict__ tidx,
+    const int* __restrict__ tcnt, const int* __restrict__ tmask, const int* __restrict__ order,
+    int H, int T_, int block, int A, long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, long long d_sb, long long d_st, long long d_sh, float scale, int causal) {
   using L = DkvLayout<D>;
   constexpr int DP = kPadded<D>;       // whole 64-column panels (D 96: 128)
   constexpr int NWG = DP / kPanelCols;  // warpgroups, one 64-column panel of dK / dV each
@@ -349,23 +382,23 @@ blocksparse_bwd_dkv_tc_kernel(
 
   const int tid = threadIdx.x, wg = tid / kWgThreads;
   const int warp = (tid % kWgThreads) >> 5, lane = tid & 31;
-  const int tpb = block / kTile;  // 64-row tiles a block: 1 or 2
-  const int nK = T_ / block;
-  const int item = order[blockIdx.y / tpb];  // h * nK + ki, the longest lists first
-  const int h = item / nK, ki = item % nK;
-  const int sub = static_cast<int>(blockIdx.y) % tpb;  // the earlier k tile (more queries) first
+  const int nT = (T_ + kTile - 1) / kTile;
+  const int item = order[blockIdx.y];  // h * nT + k tile, the longest lists first
+  const int h = item / nT;
   const int b = blockIdx.x, bh = b * H + h;
-  const int k0 = ki * block + sub * kTile;
+  const int k0 = (item % nT) * kTile;
+  const int shift = __ffs(block) - 1, g = kTile >> shift;  // MASK: log2(block), blocks a side
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* db = dout + b * d_sb + h * d_sh;
   const float* lb = lse + (long long)bh * T_;
   const float* deb = delta + (long long)bh * T_;
 
-  // tile t of the list: 64-query part t % tpb of q-block idx[t / tpb]
-  const int* idx = qidx + static_cast<long long>(item) * Aq;
-  auto query0 = [&](int t) { return __ldg(idx + t / tpb) * block + (t % tpb) * kTile; };
-  const int n_tiles = qcnt[item] * tpb;
+  // tile t of the list: 64-query tile idx[t], its sub-blocks' bits msk[t]
+  const int* idx = tidx + static_cast<long long>(item) * A;
+  const int* msk = tmask + static_cast<long long>(item) * A;
+  auto query0 = [&](int t) { return __ldg(idx + t) * kTile; };
+  const int n_tiles = tcnt[item];
   int first = 0;
   if (causal)  // the ascending list's head lies wholly before the k tile's first key
     while (first < n_tiles && query0(first) + kTile - 1 < k0) ++first;
@@ -411,6 +444,7 @@ blocksparse_bwd_dkv_tc_kernel(
     const float* sL = rows_f + s_idx * (L::row_stage / 4);
     const float* sD = sL + kTile;
     const int q0 = query0(first + it);
+    const uint32_t bits = MASK ? static_cast<uint32_t>(__ldg(msk + first + it)) : 0u;
 
     // S^T = k q^T, dP^T = v dO^T (keys are M, queries N)
     float st[32], dpt[32];
@@ -429,12 +463,12 @@ blocksparse_bwd_dkv_tc_kernel(
     // P^T into st while v dO^T runs
     wgmma_wait<1>();
     fence_regs(st);
-    const bool masked = causal && k0 + kTile - 1 > q0;
+    const bool masked = MASK || (causal && k0 + kTile - 1 > q0);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const int c = acc_col(lane, i);
+      const int r = acc_row(warp, lane, i), c = acc_col(lane, i);
       float p = exp2f(fmaf(st[i], scale2, -sL[c] * kLog2e));
-      if (masked && k0 + acc_row(warp, lane, i) > q0 + c) p = 0.f;
+      if (masked && !visible<MASK>(q0 + c, k0 + r, causal, bits, c, r, shift, g)) p = 0.f;
       st[i] = p;
     }
     float sc_p[2] = {1.f, 1.f};  // P^T's row scale in the split (fp16 only)
@@ -486,6 +520,7 @@ blocksparse_bwd_dkv_tc_kernel(
   for (int i = 0; i < 32; i += 2) {
     if (wg * kPanelCols + acc_col(lane, i) >= D) continue;  // D 96's zero columns
     const int key = k0 + acc_row(warp, lane, i);
+    if (key >= T_) continue;
     const long long off = (((long long)b * T_ + key) * H + h) * D + wg * kPanelCols +
                           acc_col(lane, i);
     const int r = (i >> 1) & 1;
@@ -505,7 +540,7 @@ struct Args {
   const float* lse;
   float* delta;
   void *dq, *dk, *dv;
-  const int *idx, *cnt, *order;
+  const int *idx, *cnt, *mask, *order;
   int B, H, T, block, A;
   Strides qs, ks, vs, os, dos;
   float scale;
@@ -519,32 +554,32 @@ cudaError_t set_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK>
 cudaError_t launch_dq(const Args& a) {
   constexpr size_t smem = DqLayout<D>::bytes + 1024;
-  cudaError_t err = set_smem(blocksparse_bwd_dq_tc_kernel<T, D>, smem);
+  cudaError_t err = set_smem(blocksparse_bwd_dq_tc_kernel<T, D, MASK>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B, a.H * (a.T / kTile));  // every (head, q tile), in `order`
-  blocksparse_bwd_dq_tc_kernel<T, D><<<grid, kWgThreads, smem, a.stream>>>(
+  const dim3 grid(a.B, a.H * ((a.T + kTile - 1) / kTile));  // every (head, q tile), in `order`
+  blocksparse_bwd_dq_tc_kernel<T, D, MASK><<<grid, kWgThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.lse, a.delta,
-      static_cast<T*>(a.dq), a.idx, a.cnt, a.order, a.H, a.T, a.block, a.A,
+      static_cast<T*>(a.dq), a.idx, a.cnt, a.mask, a.order, a.H, a.T, a.block, a.A,
       a.qs.b, a.qs.t, a.qs.h, a.ks.b, a.ks.t, a.ks.h, a.vs.b, a.vs.t, a.vs.h,
       a.os.b, a.os.t, a.os.h, a.dos.b, a.dos.t, a.dos.h, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool MASK>
 cudaError_t launch_dkv(const Args& a) {
   constexpr size_t smem = DkvLayout<D>::bytes + 1024;
-  cudaError_t err = set_smem(blocksparse_bwd_dkv_tc_kernel<T, D>, smem);
+  cudaError_t err = set_smem(blocksparse_bwd_dkv_tc_kernel<T, D, MASK>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B, a.H * (a.T / kTile));  // every (head, k tile), in `order`
-  blocksparse_bwd_dkv_tc_kernel<T, D><<<grid, kWgThreads * (kPadded<D> / kPanelCols), smem,
-                                 a.stream>>>(
+  const dim3 grid(a.B, a.H * ((a.T + kTile - 1) / kTile));  // every (head, k tile), in `order`
+  blocksparse_bwd_dkv_tc_kernel<T, D, MASK><<<grid, kWgThreads * (kPadded<D> / kPanelCols),
+                                              smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       static_cast<const T*>(a.dout), a.lse, a.delta, static_cast<T*>(a.dk),
-      static_cast<T*>(a.dv), a.idx, a.cnt, a.order, a.H, a.T, a.block, a.A,
+      static_cast<T*>(a.dv), a.idx, a.cnt, a.mask, a.order, a.H, a.T, a.block, a.A,
       a.qs.b, a.qs.t, a.qs.h, a.ks.b, a.ks.t, a.ks.h, a.vs.b, a.vs.t, a.vs.h,
       a.dos.b, a.dos.t, a.dos.h, a.scale, a.causal);
   return cudaGetLastError();
@@ -552,19 +587,26 @@ cudaError_t launch_dkv(const Args& a) {
 
 enum Pass { kDq = 0, kDkv = 1 };
 
-template <typename T>
+template <typename T, bool MASK>
 cudaError_t dispatch_dim(int D, int pass, const Args& a) {
-  if (D == 64) return pass == kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-  if (D == 96) return pass == kDq ? launch_dq<T, 96>(a) : launch_dkv<T, 96>(a);
-  if (D == 128) return pass == kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+  if (D == 64) return pass == kDq ? launch_dq<T, 64, MASK>(a) : launch_dkv<T, 64, MASK>(a);
+  if (D == 96) return pass == kDq ? launch_dq<T, 96, MASK>(a) : launch_dkv<T, 96, MASK>(a);
+  if (D == 128) return pass == kDq ? launch_dq<T, 128, MASK>(a) : launch_dkv<T, 128, MASK>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_block(int D, int pass, const Args& a) {
+  if (a.block == 16 || a.block == 32) return dispatch_dim<T, true>(D, pass, a);
+  if ((a.block == 64 || a.block == 128) && a.T % kTile == 0)
+    return dispatch_dim<T, false>(D, pass, a);
   return cudaErrorInvalidValue;
 }
 
 cudaError_t dispatch(int dtype, int D, int pass, const Args& a) {
-  if (a.block != 64 && a.block != 128) return cudaErrorInvalidValue;
-  switch (dtype) {  // fp32 runs the CUDA-core kernels of blocksparse_attention_bwd.cu
-    case ds::kBF16: return dispatch_dim<__nv_bfloat16>(D, pass, a);
-    case ds::kF16: return dispatch_dim<__half>(D, pass, a);
+  switch (dtype) {  // fp32 runs the 3xTF32 kernels of blocksparse_attention_bwd_tf32.cu
+    case ds::kBF16: return dispatch_block<__nv_bfloat16>(D, pass, a);
+    case ds::kF16: return dispatch_block<__half>(D, pass, a);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -574,17 +616,18 @@ cudaError_t dispatch(int dtype, int D, int pass, const Args& a) {
 // Each entry point launches one kernel on `stream` and returns the CUDA error
 // code of the launch (0 on success). q/k/v/o/dO [B, T, H, D] are given by
 // element strides (batch, seq, head; the last dimension contiguous, rows
-// 16-byte aligned); lse and delta [B*H, T] fp32; the tables int32 contiguous
-// on the device; dtype 1 (bf16) or 2 (fp16), D 64, 96 or 128, block 64 or 128
-// (T a multiple of it).
+// 16-byte aligned); lse and delta [B*H, T] fp32; the tile tables int32
+// contiguous on the device (nT = ceil(T / 64) tiles a side: idx and mask [H,
+// nT, A], cnt [H, nT], order [H * nT]); dtype 1 (bf16) or 2 (fp16), D 64, 96
+// or 128, block 16, 32, 64 or 128 (T a multiple of it).
 
-// dq with delta (the counterpart of _bwd_dq_kernel) on the tensor cores:
-// kidx [H, T/block, A], kcnt [H, T/block], order [H * T/block]; writes dq
-// [B, T, H, D] contiguous and delta.
+// dq with delta (the counterpart of _bwd_dq_kernel) on the tensor cores,
+// over each q tile's list of k tiles; writes dq [B, T, H, D] contiguous and
+// delta.
 extern "C" int ds_blocksparse_attention_bwd_dq_tc(
     const void* q, const void* k, const void* v, const void* o, const void* dout,
-    const float* lse, float* delta, void* dq, const int* kidx, const int* kcnt,
-    const int* order, int B, int H, int T, int D, int dtype, int block, int A,
+    const float* lse, float* delta, void* dq, const int* tidx, const int* tcnt,
+    const int* tmask, const int* order, int B, int H, int T, int D, int dtype, int block, int A,
     long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh, long long o_sb,
     long long o_st, long long o_sh, long long d_sb, long long d_st, long long d_sh,
@@ -598,8 +641,9 @@ extern "C" int ds_blocksparse_attention_bwd_dq_tc(
   a.lse = lse;
   a.delta = delta;
   a.dq = dq;
-  a.idx = kidx;
-  a.cnt = kcnt;
+  a.idx = tidx;
+  a.cnt = tcnt;
+  a.mask = tmask;
   a.order = order;
   a.B = B;
   a.H = H;
@@ -618,13 +662,12 @@ extern "C" int ds_blocksparse_attention_bwd_dq_tc(
 }
 
 // dk and dv (the counterpart of _bwd_dkv_kernel) on the tensor cores, after
-// the dq pass on the same stream (it reads that pass's delta): qidx [H,
-// T/block, Aq], qcnt [H, T/block], order [H * T/block]; writes dk and dv [B,
-// T, H, D] contiguous.
+// the dq pass on the same stream (it reads that pass's delta), over each k
+// tile's list of q tiles; writes dk and dv [B, T, H, D] contiguous.
 extern "C" int ds_blocksparse_attention_bwd_dkv_tc(
     const void* q, const void* k, const void* v, const void* dout, const float* lse,
-    const float* delta, void* dk, void* dv, const int* qidx, const int* qcnt,
-    const int* order, int B, int H, int T, int D, int dtype, int block, int Aq,
+    const float* delta, void* dk, void* dv, const int* tidx, const int* tcnt,
+    const int* tmask, const int* order, int B, int H, int T, int D, int dtype, int block, int A,
     long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh, long long d_sb,
     long long d_st, long long d_sh, float scale, int causal, void* stream) {
@@ -637,14 +680,15 @@ extern "C" int ds_blocksparse_attention_bwd_dkv_tc(
   a.delta = const_cast<float*>(delta);
   a.dk = dk;
   a.dv = dv;
-  a.idx = qidx;
-  a.cnt = qcnt;
+  a.idx = tidx;
+  a.cnt = tcnt;
+  a.mask = tmask;
   a.order = order;
   a.B = B;
   a.H = H;
   a.T = T;
   a.block = block;
-  a.A = Aq;
+  a.A = A;
   a.qs = {q_sb, q_st, q_sh};
   a.ks = {k_sb, k_st, k_sh};
   a.vs = {v_sb, v_st, v_sh};

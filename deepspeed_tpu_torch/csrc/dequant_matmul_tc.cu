@@ -42,6 +42,22 @@
 // same arithmetic in IEEE fp32 (dequant_matmul_split_ref) lies as close as
 // the plain version.
 //
+// Promotion (PROMO, fp32 x past D 1024: dequant_matmul.py dqm_promotes). The
+// wgmma accumulators' additions truncate, so an error of each addition's
+// last bit, biased toward zero, grows with the number of additions into one
+// accumulator: summed over all of D it reached 2.29e-5 of the largest output
+// at gpt-neox-20b's D 6144 (over the 1e-5 bar of an fp32-accurate product).
+// A PROMO instance adds its accumulators into IEEE fp32 sums every kPromote
+// steps (256 rows of D) and starts them again from zero, so a truncating
+// accumulator never holds more than 256 rows: dequant_matmul_trunc_ref, a
+// CPU model of truncated accumulation per k16 step, puts the error at
+// ~1.3e-6 of the largest output at any D, where one accumulator over D 6144
+// gives 1.9-3.0e-5 (the card: 2.29e-5). The sums take a second set of
+// accumulator registers, so PROMO instances exist for the tilings of at
+// most 64 accumulator entries a thread (not 128 rows x 256 columns, which
+// holds 255 registers already: dqm_tile takes 128 columns there), for fp32
+// x only (bf16 / fp16 outputs round far above the accumulators' error).
+//
 // Work split: a block is two warpgroups and walks D in 64-deep steps. Each
 // warpgroup owns 64 rows of x and WN output columns inside one scale block,
 // and reads its own A set: three parts of v = x s for its rows and its
@@ -137,6 +153,7 @@ constexpr int kThreads = 256;
 constexpr int kParts = 3;    // hi, mid, lo of x s
 constexpr int kSets = 2;     // A sets, one per warpgroup
 constexpr int kPairs = kSets * kWgRows;  // (set, row) pairs converted a step
+constexpr int kPromote = 4;  // PROMO: steps of D between promotions of the accumulators
 
 // Shared layout (bytes from a 1024-aligned base): two buffers of converted
 // tiles (for each part, both sets' [64][64] bf16 rows, K-major: one [128][64]
@@ -225,7 +242,8 @@ __device__ __forceinline__ void mma_step(float (&d)[N], uint64_t da, uint64_t db
 // RW: warpgroups stacked along rows (2: 128 rows x BN columns, one scale
 // block; 1: 64 rows x BN columns, warpgroup w the column half w)
 // PAD: the scale block is off 64-column panels (padded to bp columns)
-template <typename T, int RW, int BN, bool PAD>
+// PROMO: the accumulators are added into fp32 sums every kPromote steps
+template <typename T, int RW, int BN, bool PAD, bool PROMO>
 __global__ void __launch_bounds__(kThreads, 1)
 dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
                          const __grid_constant__ CUtensorMap tmq,
@@ -236,6 +254,7 @@ dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
   constexpr int kWN = BN * RW / 2;                  // output columns of a warpgroup
   constexpr int kSub = kWN >= 128 ? kWN / 128 : 1;  // wgmmas a k16 step and part
   constexpr int kAcc = kWN >= 128 ? 64 : 32;        // accumulator entries of one
+  static_assert(!PROMO || kSub * kAcc <= 64, "the sums fit beside the accumulators");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw_u32 = smem_u32(smem_raw);
   const uint32_t base = (raw_u32 + 1023u) & ~1023u;
@@ -393,10 +412,17 @@ dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
   };
 
   float acc[kSub][kAcc];
+  float sum[PROMO ? kSub : 1][PROMO ? kAcc : 1];  // PROMO: the promoted sums
 #pragma unroll
   for (int h = 0; h < kSub; ++h)
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) acc[h][i] = 0.f;
+  if constexpr (PROMO) {
+#pragma unroll
+    for (int h = 0; h < kSub; ++h)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) sum[h][i] = 0.f;
+  }
 
   // this warpgroup's products of buffer bf: its set's 64 rows x its kWN
   // columns (B panels from p0)
@@ -447,7 +473,24 @@ dequant_matmul_tc_kernel(const __grid_constant__ CUtensorMap tmx,
     wgmma_wait<0>();
 #pragma unroll
     for (int h = 0; h < kSub; ++h) fence_regs(acc[h]);
+    if constexpr (PROMO) {  // every kPromote steps, and after the last
+      if ((k + 1) % kPromote == 0 || k + 1 == n_steps) {
+#pragma unroll
+        for (int h = 0; h < kSub; ++h)
+#pragma unroll
+          for (int i = 0; i < kAcc; ++i) {
+            sum[h][i] += acc[h][i];
+            acc[h][i] = 0.f;
+          }
+      }
+    }
     __syncthreads();  // buffer (k + 1) & 1 is complete; buffer k & 1 is free
+  }
+  if constexpr (PROMO) {  // the epilogue reads the sums from acc
+#pragma unroll
+    for (int h = 0; h < kSub; ++h)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc[h][i] = sum[h][i];
   }
 
   // the side sums of a pair: its eight lanes (tid & 7) in a fixed tree,
@@ -495,7 +538,7 @@ template <typename T> constexpr CUtensorMapDataType kMapType =
     : std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
-template <typename T, int RW, int BN, bool PAD>
+template <typename T, int RW, int BN, bool PAD, bool PROMO>
 cudaError_t launch_pad(const void* x, long long ldx, const void* q, long long ldq,
                        const float* scale, const float* zero_point, void* out, int M, int D,
                        int Fp, int nb, int F, cudaStream_t stream) {
@@ -508,43 +551,47 @@ cudaError_t launch_pad(const void* x, long long ldx, const void* q, long long ld
                          CU_TENSOR_MAP_SWIZZLE_NONE))
     return cudaErrorInvalidValue;
   static ds::SmemOptIn opt;  // once per device and instance
-  if (const cudaError_t err = opt.set(dequant_matmul_tc_kernel<T, RW, BN, PAD>, smem))
+  if (const cudaError_t err = opt.set(dequant_matmul_tc_kernel<T, RW, BN, PAD, PROMO>, smem))
     return err;
   // the virtual columns up to the last real one (blocks padded to bp)
   const int block = Fp / nb, bp = (block + 63) / 64 * 64;
   const long long vf = (long long)(F - 1) / block * bp + (F - 1) % block + 1;
   const dim3 grid(static_cast<unsigned>((vf + BN - 1) / BN), (M + L::rows - 1) / L::rows);
-  dequant_matmul_tc_kernel<T, RW, BN, PAD><<<grid, kThreads, smem, stream>>>(
+  dequant_matmul_tc_kernel<T, RW, BN, PAD, PROMO><<<grid, kThreads, smem, stream>>>(
       tmx, tmq, static_cast<const uint8_t*>(q), ldq, scale, zero_point, static_cast<T*>(out),
       M, D, Fp, nb, F);
   return cudaGetLastError();
 }
 
-template <typename T, int RW, int BN>
+template <typename T, int RW, int BN, bool PROMO>
 cudaError_t launch(const void* x, long long ldx, const void* q, long long ldq,
                    const float* scale, const float* zero_point, void* out, int M, int D, int Fp,
                    int nb, int F, cudaStream_t stream) {
   if ((Fp / nb) % 64 == 0)
-    return launch_pad<T, RW, BN, false>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb,
-                                        F, stream);
-  return launch_pad<T, RW, BN, true>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F,
-                                     stream);
+    return launch_pad<T, RW, BN, false, PROMO>(x, ldx, q, ldq, scale, zero_point, out, M, D,
+                                               Fp, nb, F, stream);
+  return launch_pad<T, RW, BN, true, PROMO>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp,
+                                            nb, F, stream);
 }
 
-template <typename T>
+// PROMO: every tiling but 128 rows x 256 columns (too many registers)
+template <typename T, bool PROMO>
 cudaError_t dispatch_tile(int rw, int cols, const void* x, long long ldx, const void* q,
                           long long ldq, const float* scale, const float* zero_point, void* out,
                           int M, int D, int Fp, int nb, int F, cudaStream_t s) {
-  if (rw == 2 && cols == 256)
-    return launch<T, 2, 256>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
+  if constexpr (!PROMO) {
+    if (rw == 2 && cols == 256)
+      return launch<T, 2, 256, false>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F,
+                                      s);
+  }
   if (rw == 2 && cols == 128)
-    return launch<T, 2, 128>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
+    return launch<T, 2, 128, PROMO>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
   if (rw == 2 && cols == 64)
-    return launch<T, 2, 64>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
+    return launch<T, 2, 64, PROMO>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
   if (rw == 1 && cols == 256)
-    return launch<T, 1, 256>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
+    return launch<T, 1, 256, PROMO>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
   if (rw == 1 && cols == 128)
-    return launch<T, 1, 128>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
+    return launch<T, 1, 128, PROMO>(x, ldx, q, ldq, scale, zero_point, out, M, D, Fp, nb, F, s);
   return cudaErrorInvalidValue;
 }
 
@@ -559,12 +606,13 @@ cudaError_t dispatch_tile(int rw, int cols, const void* x, long long ldx, const 
 // each column half). The layouts taken: any D, Fp % nb == 0 with an even
 // block Fp / nb, F <= Fp, and the columns of a warpgroup inside one
 // virtual block (the block rounded up to a multiple of 64, a multiple of
-// `cols` for row_wgs 2, of cols / 2 for 1). Returns the CUDA error code of
-// the launch (0 on success).
+// `cols` for row_wgs 2, of cols / 2 for 1). `promote` 1 (fp32 x, any tiling
+// but row_wgs 2 x cols 256) adds the accumulators into fp32 sums every 256
+// rows of D. Returns the CUDA error code of the launch (0 on success).
 extern "C" int ds_dequant_matmul_tc(const void* x, long long ldx, const void* q,
                                     long long ldq, const float* scale, const float* zero_point,
                                     void* out, int M, int D, int Fp, int nb, int F, int dtype,
-                                    int row_wgs, int cols, void* stream) {
+                                    int row_wgs, int cols, int promote, void* stream) {
   if (M <= 0 || F <= 0) return 0;
   const int elt = dtype == ds::kF32 ? 4 : 2;
   const int wn = row_wgs == 2 ? cols : cols / 2;  // columns of a warpgroup
@@ -575,17 +623,22 @@ extern "C" int ds_dequant_matmul_tc(const void* x, long long ldx, const void* q,
                        reinterpret_cast<uintptr_t>(q) % 16 == 0 && ldq % 16 == 0 && ldq >= Fp;
   if (!layout || !aligned) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (promote && dtype != ds::kF32) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case ds::kF32:
-      return static_cast<int>(dispatch_tile<float>(row_wgs, cols, x, ldx, q, ldq, scale,
-                                                   zero_point, out, M, D, Fp, nb, F, s));
+      return static_cast<int>(
+          promote ? dispatch_tile<float, true>(row_wgs, cols, x, ldx, q, ldq, scale, zero_point,
+                                               out, M, D, Fp, nb, F, s)
+                  : dispatch_tile<float, false>(row_wgs, cols, x, ldx, q, ldq, scale,
+                                                zero_point, out, M, D, Fp, nb, F, s));
     case ds::kBF16:
-      return static_cast<int>(dispatch_tile<__nv_bfloat16>(row_wgs, cols, x, ldx, q, ldq,
-                                                           scale, zero_point, out, M, D, Fp, nb,
-                                                           F, s));
+      return static_cast<int>(dispatch_tile<__nv_bfloat16, false>(row_wgs, cols, x, ldx, q,
+                                                                  ldq, scale, zero_point, out,
+                                                                  M, D, Fp, nb, F, s));
     case ds::kF16:
-      return static_cast<int>(dispatch_tile<__half>(row_wgs, cols, x, ldx, q, ldq, scale,
-                                                    zero_point, out, M, D, Fp, nb, F, s));
+      return static_cast<int>(dispatch_tile<__half, false>(row_wgs, cols, x, ldx, q, ldq, scale,
+                                                           zero_point, out, M, D, Fp, nb, F,
+                                                           s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -43,7 +43,13 @@
 // of the next steps land in a ring of 2 (128 rows) or 3 (64 rows) stages;
 // the conversion and the products of one step do not overlap (the A tiles
 // take 96 KB at 128 rows, no room for a second buffer). The split along D
-// in a cluster and its reduction are the 16-bit kernel's.
+// in a cluster and its reduction are the 16-bit kernel's. The wgmma
+// accumulators' additions truncate, and the error grows with the additions
+// into one accumulator (csrc/dequant_matmul_tc.cu, "Promotion"): every
+// kPromote steps (256 rows of D) the accumulators are added into IEEE fp32
+// sums and start again from zero, so gpt-neox-20b's mlp_down (D 24576, a
+// chunk of 12288 rows a block at 64 rows of x) keeps the error of a 256-row
+// sum.
 //
 // Work split (both kernels): a block owns a tile of 128 rows of x (64 when M <= 64), two
 // 64-column output panels and one chunk of D. int8: columns [128 b, 128 b +
@@ -457,6 +463,7 @@ qmatmul_tc_kernel(const __grid_constant__ CUtensorMap tmx, const __grid_constant
 // at 128 (the A tiles take 96 KB there). The partial sums of the cluster's
 // reduction reuse the ring.
 constexpr int kParts = 3;  // hi, mid, lo of x s
+constexpr int kPromote = 4;  // steps of D between promotions of the fp32 accumulators
 template <int BITS, int HALVES> struct LayoutF32 {
   static constexpr int rows = HALVES * kWgRows;
   static constexpr int row_bytes = BITS == 8 ? kCols : kPanelCols;  // weight bytes of a row
@@ -557,11 +564,11 @@ qmatmul_tc_f32_kernel(const __grid_constant__ CUtensorMap tmx,
   if (tid == 0)
     for (int k = 0; k < min(n, L::stages); ++k) load_stage(k);
 
-  float acc[HALVES][32];
+  float acc[HALVES][32], sum[HALVES][32];  // sum: the promoted accumulators
 #pragma unroll
   for (int h = 0; h < HALVES; ++h)
 #pragma unroll
-    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[h][i] = sum[h][i] = 0.f;
 
   const int cx = tid & 7, rx = tid >> 3;  // x: chunk cx (k 8 cx ..) of rows rx + 32 j
   for (int k = 0; k < n; ++k) {
@@ -623,9 +630,22 @@ qmatmul_tc_f32_kernel(const __grid_constant__ CUtensorMap tmx,
       wgmma_wait<0>();
 #pragma unroll
       for (int h = 0; h < HALVES; ++h) fence_regs(acc[h]);
+      if ((k + 1) % kPromote == 0 || k + 1 == n) {  // promote, and after the last step
+#pragma unroll
+        for (int h = 0; h < HALVES; ++h)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            sum[h][i] += acc[h][i];
+            acc[h][i] = 0.f;
+          }
+      }
     }
     __syncthreads();  // A and B are free for the next step
   }
+#pragma unroll
+  for (int h = 0; h < HALVES; ++h)  // the epilogue reads the sums from acc
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = sum[h][i];
 
   if (cs == 1) {  // no split along D: straight from the accumulators
     if (!(wg ? live[1] : live[0])) return;

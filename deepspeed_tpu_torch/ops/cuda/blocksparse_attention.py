@@ -5,26 +5,32 @@ Counterpart of ``deepspeed_tpu/ops/pallas/blocksparse_attention.py``:
 attention restricted to the active blocks of a static ``[H, T/block,
 T/block]`` 0/1 layout, with flash-style online softmax, so neither the dense
 ``[T, T]`` scores nor the score blocks reach device memory. The forward
-(``_fwd`` / ``_fwd_kernel``) is ``csrc/blocksparse_attention_fwd.cu``; the
-backward's two passes (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``) are
-``csrc/blocksparse_attention_bwd.cu``, whose dq pass also writes delta =
-rowsum(dO * O) for the dk/dv pass. bf16 / fp16 inputs at blocks of 64 and
-128 take the tensor-core kernels of ``csrc/blocksparse_attention_fwd_tc.cu``
-and ``csrc/blocksparse_attention_bwd_tc.cu`` instead (:func:`bs_route`), which
-keep the reference's fp32 function from 16-bit operands (P and dS as hi +
-lo halves; :func:`blocksparse_attention_split_ref` and
-:func:`blocksparse_attention_bwd_split_ref` model their rounding). Each
-source's header says how it is split and what bounds it.
+(``_fwd`` / ``_fwd_kernel``) is ``csrc/blocksparse_attention_fwd.cu`` for
+fp32 and blocks of 16 / 32, and for bf16 / fp16 at blocks of 64 and 128 the
+tensor-core ``csrc/blocksparse_attention_fwd_tc.cu``. The backward's two
+passes (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``; the dq pass also writes
+delta = rowsum(dO * O) for the dk/dv pass) run on the tensor cores at every
+block: ``csrc/blocksparse_attention_bwd_tc.cu`` for bf16 / fp16, which keeps
+the reference's fp32 function from 16-bit operands (P and dS as hi + lo
+halves; :func:`blocksparse_attention_split_ref` and
+:func:`blocksparse_attention_bwd_split_ref` model their rounding), and
+``csrc/blocksparse_attention_bwd_tf32.cu`` for fp32, as 3xTF32
+(:func:`blocksparse_attention_bwd_tf32_ref` models it). :func:`bs_route`
+names each pass's kernels. Each source's header says how it is split and
+what bounds it.
 :class:`BlocksparseAttention` is the counterpart of the reference's
 ``jax.custom_vjp`` around ``_bs_attn``: it saves (q, k, v, o, lse) and the
 index tables in the forward and runs dq, then dk/dv.
 
-The layout reaches the kernels as the host-built tables of
-:func:`layout_tables` (bitwise the reference's) and the tensor-core kernels'
-work orders (:func:`work_order`), moved to the device once by the caller
-that keeps them (``ops/sparse_attention``). ``causal`` masks keys after the
-query (T == S, aligned top-left); blocks above the diagonal of a
-bidirectional layout are then wholly masked and the kernels skip them.
+The layout reaches the forward kernels as the host-built tables of
+:func:`layout_tables` (bitwise the reference's) and the backward kernels as
+:func:`tile_tables`, the same layout at their 64-token tiles with a bit mask
+of active sub-blocks per tile (blocks of 16 and 32 share a tile), each with
+its work order (:func:`work_order`), moved to the device once by the caller
+that keeps them (:func:`device_tables`, ``ops/sparse_attention``).
+``causal`` masks keys after the query (T == S, aligned top-left); blocks
+above the diagonal of a bidirectional layout are then wholly masked and the
+kernels skip them.
 
 Every wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its route's kernel or raises: the kernels are built for
@@ -36,7 +42,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,25 +51,41 @@ from .. import _build
 from . import flash_attention as fa
 from .flash_attention import DTYPE_CODE, NEG_INF, _readable, _stream
 
-BLOCKS = (16, 32, 64, 128)  # the kernels' block sizes (tiles of min(block, 64) rows)
-TC_BLOCKS = (64, 128)  # the tensor-core kernels' blocks (one or two 64-row tiles)
+BLOCKS = (16, 32, 64, 128)  # the kernels' block sizes
+TC_BLOCKS = (64, 128)  # the tensor-core forward's blocks (one or two 64-row tiles)
 HEAD_DIMS = (64, 96, 128)  # the kernels' template instances
+TILE = 64  # the backward kernels' tile: 64 queries x 64 keys, of one or more blocks
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
-# them to show that the main path went through the kernels): the forward,
-# and the backward's dq and dk/dv passes, on the CUDA cores (route "cuda")
-# and on the tensor cores (route "tc")
+# them to show that the main path went through the kernels): the forward on
+# the CUDA cores (route "cuda") and on the tensor cores ("tc"); the
+# backward's dq and dk/dv passes on the tensor cores, bf16 / fp16 ("tc")
+# and fp32 as 3xTF32 ("tf32")
 launches = 0
-bwd_dq_launches = 0
-bwd_dkv_launches = 0
 tc_launches = 0
 bwd_dq_tc_launches = 0
 bwd_dkv_tc_launches = 0
+bwd_dq_tf32_launches = 0
+bwd_dkv_tf32_launches = 0
 
-# kidx, kcnt, qidx, qcnt (layout_tables) and the q- and k-block work orders
-# (work_order), int32 on one device
-Tables = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-               torch.Tensor]
+
+class Tables(NamedTuple):
+    """A layout's tables as int32 tensors on one device: the forward's
+    (:func:`layout_tables`' kidx / kcnt and the work order of kcnt), and the
+    backward's :func:`tile_tables` with their work orders (dq walks each
+    64-query tile's list of 64-key tiles, dk/dv each key tile's list of
+    query tiles)."""
+    kidx: torch.Tensor
+    kcnt: torch.Tensor
+    q_order: torch.Tensor
+    qt_idx: torch.Tensor
+    qt_cnt: torch.Tensor
+    qt_mask: torch.Tensor
+    qt_order: torch.Tensor
+    kt_idx: torch.Tensor
+    kt_cnt: torch.Tensor
+    kt_mask: torch.Tensor
+    kt_order: torch.Tensor
 
 
 @functools.lru_cache(maxsize=None)
@@ -73,19 +95,6 @@ def _lib() -> ctypes.CDLL:
     lib.ds_blocksparse_attention_fwd.argtypes = (
         [ptr] * 7 + [i32] * 7 + [i64] * 9 + [ctypes.c_float, i32, ptr])
     lib.ds_blocksparse_attention_fwd.restype = i32
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("blocksparse_attention_bwd")
-    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.ds_blocksparse_attention_bwd_dq.argtypes = (
-        [ptr] * 10 + [i32] * 7 + [i64] * 15 + [f32, i32, ptr])
-    lib.ds_blocksparse_attention_bwd_dkv.argtypes = (
-        [ptr] * 10 + [i32] * 7 + [i64] * 12 + [f32, i32, ptr])
-    lib.ds_blocksparse_attention_bwd_dq.restype = i32
-    lib.ds_blocksparse_attention_bwd_dkv.restype = i32
     return lib
 
 
@@ -100,15 +109,15 @@ def _tc_lib() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_tc_lib() -> ctypes.CDLL:
-    lib = _build.load("blocksparse_attention_bwd_tc")
+def _bwd_lib(route: str) -> ctypes.CDLL:
+    """The backward's library of ``route``: "tc" (bf16 / fp16) or "tf32"
+    (fp32); both take the same arguments."""
+    lib = _build.load(f"blocksparse_attention_bwd_{route}")
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    lib.ds_blocksparse_attention_bwd_dq_tc.argtypes = (
-        [ptr] * 11 + [i32] * 7 + [i64] * 15 + [f32, i32, ptr])
-    lib.ds_blocksparse_attention_bwd_dkv_tc.argtypes = (
-        [ptr] * 11 + [i32] * 7 + [i64] * 12 + [f32, i32, ptr])
-    lib.ds_blocksparse_attention_bwd_dq_tc.restype = i32
-    lib.ds_blocksparse_attention_bwd_dkv_tc.restype = i32
+    dq, dkv = (getattr(lib, f"ds_blocksparse_attention_bwd_{p}_{route}") for p in ("dq", "dkv"))
+    dq.argtypes = [ptr] * 12 + [i32] * 7 + [i64] * 15 + [f32, i32, ptr]
+    dkv.argtypes = [ptr] * 12 + [i32] * 7 + [i64] * 12 + [f32, i32, ptr]
+    dq.restype = dkv.restype = i32
     return lib
 
 
@@ -145,12 +154,64 @@ def work_order(cnt: np.ndarray) -> np.ndarray:
     return np.argsort(-np.asarray(cnt).reshape(-1), kind="stable").astype(np.int32)
 
 
-def device_tables(layout: np.ndarray, device) -> Tables:
-    """:func:`layout_tables` and the work orders of kcnt and qcnt
-    (:func:`work_order`) as int32 tensors on ``device``."""
-    kidx, kcnt, qidx, qcnt = layout_tables(np.asarray(layout))
-    return tuple(torch.from_numpy(t).to(device)
-                 for t in (kidx, kcnt, qidx, qcnt, work_order(kcnt), work_order(qcnt)))
+def tile_masks(layout: np.ndarray, block: int) -> np.ndarray:
+    """[H, nT, nT] int32, nT = ceil(T / 64): for each (64-query tile, 64-key
+    tile) of a [H, T/block, T/block] layout, the bit mask of its active
+    block x block sub-blocks: bit r g + c for query sub-block r and key
+    sub-block c, g = 64 / block (16 bits at a block of 16, 4 at 32; sub-blocks
+    past T are clear). A block of 64 or 128 covers whole tiles: 1 where its
+    block is active. 0 where the tile holds no active block."""
+    lay = np.asarray(layout).astype(bool)
+    H, n, _ = lay.shape
+    if block >= TILE:
+        f = block // TILE
+        return np.repeat(np.repeat(lay, f, 1), f, 2).astype(np.int32)
+    g = TILE // block
+    nT = -(-n // g)
+    padded = np.zeros((H, nT * g, nT * g), bool)
+    padded[:, :n, :n] = lay
+    sub = padded.reshape(H, nT, g, nT, g).transpose(0, 1, 3, 2, 4).reshape(H, nT, nT, g * g)
+    return (sub.astype(np.int64) << np.arange(g * g)).sum(-1).astype(np.int32)
+
+
+def _tile_lists(masks: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """idx [H, n, A] (the ascending columns of each row with a nonzero mask,
+    padded with 0), cnt [H, n] and their masks [H, n, A] of a [H, n, m] mask
+    table."""
+    H, n, _ = masks.shape
+    cnt = (masks != 0).sum(-1).astype(np.int32)
+    A = max(1, int(cnt.max()))
+    idx = np.zeros((H, n, A), np.int32)
+    msk = np.zeros((H, n, A), np.int32)
+    for h in range(H):
+        for i in range(n):
+            cols = np.nonzero(masks[h, i])[0]
+            idx[h, i, : len(cols)] = cols
+            msk[h, i, : len(cols)] = masks[h, i, cols]
+    return idx, cnt, msk
+
+
+def tile_tables(layout: np.ndarray, block: int) -> Tuple[np.ndarray, ...]:
+    """The backward kernels' tables of a [H, T/block, T/block] layout, at
+    their 64-token tiles (:func:`tile_masks`): (qt_idx [H, nT, A], qt_cnt
+    [H, nT], qt_mask [H, nT, A]) the ascending key tiles of each query tile
+    that hold an active sub-block, with their masks; (kt_idx, kt_cnt,
+    kt_mask) the same for each key tile's query tiles (the masks' bits keep
+    the query-major order). int32, padded with 0 past each count."""
+    masks = tile_masks(layout, block)
+    return (*_tile_lists(masks), *_tile_lists(masks.transpose(0, 2, 1)))
+
+
+def device_tables(layout: np.ndarray, block: int, device) -> Tables:
+    """:func:`layout_tables`' kidx / kcnt, :func:`tile_tables` and the work
+    orders of the three counts (:func:`work_order`) as int32 tensors on
+    ``device``."""
+    layout = np.asarray(layout)
+    kidx, kcnt, _, _ = layout_tables(layout)
+    qt_idx, qt_cnt, qt_mask, kt_idx, kt_cnt, kt_mask = tile_tables(layout, block)
+    tables = (kidx, kcnt, work_order(kcnt), qt_idx, qt_cnt, qt_mask, work_order(qt_cnt),
+              kt_idx, kt_cnt, kt_mask, work_order(kt_cnt))
+    return Tables(*(torch.from_numpy(t).to(device) for t in tables))
 
 
 def _scale(q: torch.Tensor, softmax_scale: Optional[float]) -> float:
@@ -185,12 +246,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout, block: int
         raise ValueError(f"blocksparse_attention: T={T} is not a multiple of block {block}")
 
 
-def bs_route(dtype: torch.dtype, block: int, head_dim: int) -> str:
-    """The kernels CUDA inputs of ``dtype``, ``block`` and ``head_dim`` take:
-    "tc" (the tensor-core forward, dq and dk/dv) for bf16 / fp16 at blocks of
-    64 and 128, "cuda" (the CUDA-core ones) for fp32 and for blocks of 16
-    and 32, at every head dim the kernels are built for. Other blocks and
-    head dims raise NotImplementedError, other dtypes TypeError: nothing
+def bs_route(dtype: torch.dtype, block: int, head_dim: int, pass_: str) -> str:
+    """The kernels CUDA inputs of ``dtype``, ``block`` and ``head_dim`` take
+    in ``pass_`` "fwd" (the forward) or "bwd" (dq and dk/dv): the forward
+    "tc" (the tensor cores) for bf16 / fp16 at blocks of 64 and 128, "cuda"
+    (the CUDA cores) for fp32 and for blocks of 16 and 32; the backward "tc"
+    for bf16 / fp16 and "tf32" (3xTF32 on the tensor cores) for fp32, at
+    every block; at every head dim the kernels are built for. Other blocks
+    and head dims raise NotImplementedError, other dtypes TypeError: nothing
     falls back."""
     if block not in BLOCKS or head_dim not in HEAD_DIMS:
         raise NotImplementedError(
@@ -200,13 +263,17 @@ def bs_route(dtype: torch.dtype, block: int, head_dim: int) -> str:
     if dtype not in DTYPE_CODE:
         raise TypeError(f"blocksparse_attention kernel: dtype {dtype} (built for "
                         f"{tuple(DTYPE_CODE)})")
+    if pass_ == "bwd":
+        return "tf32" if dtype == torch.float32 else "tc"
+    if pass_ != "fwd":
+        raise ValueError(f"bs_route: pass {pass_!r} (fwd or bwd)")
     return "tc" if dtype != torch.float32 and block in TC_BLOCKS else "cuda"
 
 
-def _check_kernel(block: int, *ts: torch.Tensor) -> str:
-    """The route of ``ts[0]`` (:func:`bs_route`), after checking that the
-    kernels can read every tensor of ``ts``."""
-    route = bs_route(ts[0].dtype, block, ts[0].shape[-1])
+def _check_kernel(block: int, pass_: str, *ts: torch.Tensor) -> str:
+    """The route of ``ts[0]`` in ``pass_`` (:func:`bs_route`), after checking
+    that the kernels can read every tensor of ``ts``."""
+    route = bs_route(ts[0].dtype, block, ts[0].shape[-1], pass_)
     for t in ts:
         if not _readable(t):
             raise ValueError("blocksparse_attention kernel: the head dim must be contiguous "
@@ -335,11 +402,96 @@ def blocksparse_attention_bwd_split_ref(q, k, v, o, lse, do, layout, block: int,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def blocksparse_attention_bwd_tf32_ref(q, k, v, o, lse, do, layout, block: int,
+                                       causal: bool = True,
+                                       softmax_scale: Optional[float] = None, passes: int = 3
+                                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the fp32 backward kernels' arithmetic (3xTF32, for
+    the tests and the card check; the CPU path runs the plain versions):
+    every product of the backward (q k^T scored as the fp32 product times the
+    scale, dO v^T, P^T dO, dS k, dS^T q) in ``fa._mm_tf32`` over the
+    expanded layout; delta the fp32 rowsum of the dq pass. ``passes`` 1 is
+    one TF32 pass, which the fp32 bars must refuse. Returns (dq, dk, dv)
+    fp32."""
+    B, T, H, _ = q.shape
+    scale = _scale(q, softmax_scale)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(B, H, T, 1)
+    s = fa._mm_tf32("bthd,bshd->bhts", q, k, passes) * scale
+    p = torch.exp(s - lse.reshape(B, H, T, 1))
+    p = p.masked_fill(~layout_mask(layout, block, causal, q.device), 0.0)
+    dp = fa._mm_tf32("bthd,bshd->bhts", do, v, passes)
+    ds = p * (dp - delta) * scale
+    dv = fa._mm_tf32("bhts,bthd->bshd", p, do, passes)
+    dk = fa._mm_tf32("bhts,bthd->bshd", ds, q, passes)
+    dq = fa._mm_tf32("bhts,bshd->bthd", ds, k, passes)
+    return dq, dk, dv
+
+
+def _tile_visible(bits: int, block: int, q0: int, k0: int, nq: int, nk: int, causal: bool,
+                  device) -> torch.Tensor:
+    """[nq, nk] bool: the entries of the 64-token tile pair at (q0, k0) that
+    a backward kernel keeps: its sub-block's bit of the tile's mask ``bits``
+    set (every entry at blocks of 64 / 128), and under ``causal`` key <=
+    query."""
+    r = torch.arange(nq, device=device)[:, None]
+    c = torch.arange(nk, device=device)[None, :]
+    if block < TILE:
+        g = TILE // block
+        vis = ((bits >> ((r // block) * g + c // block)) & 1).bool()
+    else:
+        vis = torch.ones((nq, nk), dtype=torch.bool, device=device)
+    return vis & (k0 + c <= q0 + r) if causal else vis
+
+
+def blocksparse_attention_bwd_tiles_ref(q, k, v, o, lse, do, layout, block: int,
+                                        causal: bool = True,
+                                        softmax_scale: Optional[float] = None
+                                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A plain model of the backward kernels' walk over :func:`tile_tables`,
+    in fp32, for the tests: dq sums, for each (head, 64-query tile), its
+    listed key tiles in ascending order, each entry kept by its sub-block bit
+    and the causal mask (:func:`_tile_visible`); dk and dv sum each key
+    tile's listed query tiles the same way. Tiles not listed add nothing.
+    Returns (dq, dk, dv) fp32."""
+    B, T, H, D = q.shape
+    scale = _scale(q, softmax_scale)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    lse_ = lse.reshape(B, H, T)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)  # [B, H, T]
+    qt_idx, qt_cnt, qt_mask, kt_idx, kt_cnt, kt_mask = tile_tables(layout, block)
+    dq, dk, dv = (torch.zeros((B, T, H, D), dtype=torch.float32, device=q.device)
+                  for _ in range(3))
+
+    def tile(h, i, j, bits):
+        """P and dS [B, nq, nk] of query tile i and key tile j of head h."""
+        rows = slice(i * TILE, min(T, (i + 1) * TILE))
+        cols = slice(j * TILE, min(T, (j + 1) * TILE))
+        qh, kh = qf[:, rows, h], kf[:, cols, h]
+        p = torch.exp(torch.einsum("btd,bsd->bts", qh, kh) * scale - lse_[:, h, rows, None])
+        vis = _tile_visible(int(bits), block, i * TILE, j * TILE, qh.shape[1], kh.shape[1],
+                            causal, q.device)
+        p = p.masked_fill(~vis, 0.0)
+        dp = torch.einsum("btd,bsd->bts", dof[:, rows, h], vf[:, cols, h])
+        return rows, cols, p, p * (dp - delta[:, h, rows, None]) * scale
+
+    for h in range(H):
+        for i in range(qt_cnt.shape[1]):
+            for t in range(qt_cnt[h, i]):
+                rows, cols, _, ds = tile(h, i, qt_idx[h, i, t], qt_mask[h, i, t])
+                dq[:, rows, h] += torch.einsum("bts,bsd->btd", ds, kf[:, cols, h])
+        for j in range(kt_cnt.shape[1]):
+            for t in range(kt_cnt[h, j]):
+                rows, cols, p, ds = tile(h, kt_idx[h, j, t], j, kt_mask[h, j, t])
+                dv[:, cols, h] += torch.einsum("bts,btd->bsd", p, dof[:, rows, h])
+                dk[:, cols, h] += torch.einsum("bts,btd->bsd", ds, qf[:, rows, h])
+    return dq, dk, dv
+
+
 # --------------------------------------------------------------------------- kernels
-def _device_tables(layout, tables: Optional[Tables], device) -> Tables:
+def _device_tables(layout, block: int, tables: Optional[Tables], device) -> Tables:
     if tables is None:
-        return device_tables(layout, device)
-    return tuple(t if t.device == device else t.to(device) for t in tables)
+        return device_tables(layout, block, device)
+    return Tables(*(t if t.device == device else t.to(device) for t in tables))
 
 
 def blocksparse_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout,
@@ -357,8 +509,8 @@ def blocksparse_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return blocksparse_attention_fwd_ref(q, k, v, layout, block, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"blocksparse_attention: unsupported device {q.device}")
-    route = _check_kernel(block, q, k, v)
-    kidx, kcnt, _, _, q_order, _ = _device_tables(layout, tables, q.device)
+    route = _check_kernel(block, "fwd", q, k, v)
+    t = _device_tables(layout, block, tables, q.device)
     B, T, H, D = q.shape
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
@@ -368,15 +520,15 @@ def blocksparse_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lib = _tc_lib()
             status = lib.ds_blocksparse_attention_fwd_tc(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                kidx.data_ptr(), kcnt.data_ptr(), q_order.data_ptr(), B, H, T, D,
-                DTYPE_CODE[q.dtype], block, kidx.shape[-1], *strides, scale,
+                t.kidx.data_ptr(), t.kcnt.data_ptr(), t.q_order.data_ptr(), B, H, T, D,
+                DTYPE_CODE[q.dtype], block, t.kidx.shape[-1], *strides, scale,
                 int(bool(causal)), _stream())
         else:
             lib = _lib()
             status = lib.ds_blocksparse_attention_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                kidx.data_ptr(), kcnt.data_ptr(), B, H, T, D, DTYPE_CODE[q.dtype], block,
-                kidx.shape[-1], *strides, scale, int(bool(causal)), _stream())
+                t.kidx.data_ptr(), t.kcnt.data_ptr(), B, H, T, D, DTYPE_CODE[q.dtype], block,
+                t.kidx.shape[-1], *strides, scale, int(bool(causal)), _stream())
     _build.check(lib, status, f"blocksparse_attention_fwd ({route})")
     if route == "tc":
         tc_launches += 1
@@ -389,33 +541,31 @@ def blocksparse_attention_bwd_dq(q, k, v, o, do, lse, layout, block: int, causal
                                  scale: float, tables: Optional[Tables] = None
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dq [B, T, H, D] in q's dtype, delta [B*H, T] fp32), the dq kernel of
-    :func:`bs_route`'s route."""
-    global bwd_dq_launches, bwd_dq_tc_launches
+    :func:`bs_route`'s backward route, over each query tile's list of key
+    tiles."""
+    global bwd_dq_tc_launches, bwd_dq_tf32_launches
     if q.device.type == "cpu":
         return blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block, causal,
                                                 scale)
-    route = _check_kernel(block, q, k, v, o, do)
-    kidx, kcnt, _, _, q_order, _ = _device_tables(layout, tables, q.device)
+    route = _check_kernel(block, "bwd", q, k, v, o, do)
+    t = _device_tables(layout, block, tables, q.device)
     B, T, H, D = q.shape
     dq = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), kidx.data_ptr(), kcnt.data_ptr())
-    rest = (B, H, T, D, DTYPE_CODE[q.dtype], block, kidx.shape[-1],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-            *do.stride()[:3], scale, int(bool(causal)), _stream())
+    lib = _bwd_lib(route)
     with torch.cuda.device(q.device):
-        if route == "tc":
-            lib = _bwd_tc_lib()
-            status = lib.ds_blocksparse_attention_bwd_dq_tc(*ptrs, q_order.data_ptr(), *rest)
-        else:
-            lib = _bwd_lib()
-            status = lib.ds_blocksparse_attention_bwd_dq(*ptrs, *rest)
+        status = getattr(lib, f"ds_blocksparse_attention_bwd_dq_{route}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), t.qt_idx.data_ptr(),
+            t.qt_cnt.data_ptr(), t.qt_mask.data_ptr(), t.qt_order.data_ptr(), B, H, T, D,
+            DTYPE_CODE[q.dtype], block, t.qt_idx.shape[-1], *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], scale, int(bool(causal)),
+            _stream())
     _build.check(lib, status, f"blocksparse_attention_bwd_dq ({route})")
     if route == "tc":
         bwd_dq_tc_launches += 1
     else:
-        bwd_dq_launches += 1
+        bwd_dq_tf32_launches += 1
     return dq, delta
 
 
@@ -423,33 +573,30 @@ def blocksparse_attention_bwd_dkv(q, k, v, do, lse, delta, layout, block: int, c
                                   scale: float, tables: Optional[Tables] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B, T, H, D] in k's dtype, the dk/dv kernel of
-    :func:`bs_route`'s route; ``delta`` is the dq pass's."""
-    global bwd_dkv_launches, bwd_dkv_tc_launches
+    :func:`bs_route`'s backward route, over each key tile's list of query
+    tiles; ``delta`` is the dq pass's."""
+    global bwd_dkv_tc_launches, bwd_dkv_tf32_launches
     if q.device.type == "cpu":
         return blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta, layout, block,
                                                  causal, scale)
-    route = _check_kernel(block, q, k, v, do)
-    _, _, qidx, qcnt, _, k_order = _device_tables(layout, tables, q.device)
+    route = _check_kernel(block, "bwd", q, k, v, do)
+    t = _device_tables(layout, block, tables, q.device)
     B, T, H, D = q.shape
     dk = torch.empty((B, T, H, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, T, H, D), dtype=v.dtype, device=v.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), qidx.data_ptr(), qcnt.data_ptr())
-    rest = (B, H, T, D, DTYPE_CODE[q.dtype], block, qidx.shape[-1],
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
-            scale, int(bool(causal)), _stream())
+    lib = _bwd_lib(route)
     with torch.cuda.device(q.device):
-        if route == "tc":
-            lib = _bwd_tc_lib()
-            status = lib.ds_blocksparse_attention_bwd_dkv_tc(*ptrs, k_order.data_ptr(), *rest)
-        else:
-            lib = _bwd_lib()
-            status = lib.ds_blocksparse_attention_bwd_dkv(*ptrs, *rest)
+        status = getattr(lib, f"ds_blocksparse_attention_bwd_dkv_{route}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), t.kt_idx.data_ptr(),
+            t.kt_cnt.data_ptr(), t.kt_mask.data_ptr(), t.kt_order.data_ptr(), B, H, T, D,
+            DTYPE_CODE[q.dtype], block, t.kt_idx.shape[-1], *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], scale, int(bool(causal)), _stream())
     _build.check(lib, status, f"blocksparse_attention_bwd_dkv ({route})")
     if route == "tc":
         bwd_dkv_tc_launches += 1
     else:
-        bwd_dkv_launches += 1
+        bwd_dkv_tf32_launches += 1
     return dk, dv
 
 
@@ -473,7 +620,7 @@ def blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block: int, causal: b
         if not _readable(do):  # autograd may hand dO over in any layout
             do = do.contiguous()
         lse = lse.float().contiguous()
-        tables = _device_tables(layout, tables, q.device)
+        tables = _device_tables(layout, block, tables, q.device)
     elif q.device.type != "cpu":
         raise ValueError(f"blocksparse_attention: unsupported device {q.device}")
     dq, delta = blocksparse_attention_bwd_dq(q, k, v, o, do, lse, layout, block, causal, scale,
@@ -504,7 +651,7 @@ class BlocksparseAttention(torch.autograd.Function):
         q, k, v, o, lse, *tables = ctx.saved_tensors
         dq, dk, dv = blocksparse_attention_bwd(q, k, v, o, lse, do, ctx.layout, ctx.block,
                                                ctx.causal, ctx.softmax_scale,
-                                               tuple(tables) or None)
+                                               Tables(*tables) if tables else None)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -19,7 +19,10 @@ rows, padded to the next multiple of 64 columns): x times each column
 block's scales as three exact bf16 parts against the exact bf16 q - 128,
 plus a side product (the zero-points and the 128 taken off q), an
 fp32-accurate product (modelled by :func:`dequant_matmul_split_ref`), tiled
-by :func:`dqm_tile`. Its header says how it is tiled and what bounds it.
+by :func:`dqm_tile`. The tensor cores' fp32 accumulators truncate, so past
+a D of 1024 fp32 x adds them into IEEE fp32 sums every 256 rows of D
+(:func:`dqm_promotes`; :func:`dequant_matmul_trunc_ref` models both). Its
+header says how it is tiled and what bounds it.
 
 The reference's ``_eligible`` tile rule is a Mosaic limit and does not carry
 over: every 8-bit payload takes the kernel, ragged tiles masked. Packed int4
@@ -42,6 +45,11 @@ from .flash_attention import DTYPE_CODE
 # the tensor-core kernel's granularity: a warpgroup's columns inside one
 # scale block come in 64-column panels
 _TC_PANEL = 64
+# the kernel's step of D, and its steps between promotions of the
+# accumulators into fp32 sums (kPromote); fp32 x past _PROMOTE_D promotes
+_TC_STEP = 64
+_PROMOTE_STEPS = 4
+_PROMOTE_D = 1024
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
 # them to show that a main path went through the kernel)
@@ -68,10 +76,24 @@ def padded_block(Fp: int, nb: int) -> int:
     return -(-(Fp // nb) // _TC_PANEL) * _TC_PANEL
 
 
-def dqm_tile(M: int, Fp: int, nb: int) -> Tuple[int, int]:
+def dqm_promotes(D: int, dtype: torch.dtype) -> bool:
+    """Whether the tensor-core kernel adds its accumulators into IEEE fp32
+    sums every 256 rows of D: for fp32 x past a D of 1024. wgmma's fp32
+    accumulators truncate each addition, so their error grows with the rows
+    summed into one: 2.29e-5 of the largest output at gpt-neox-20b's D 6144
+    on the H100 (over the 1e-5 bar), 3.8e-6 at GPT-2's D 768;
+    :func:`dequant_matmul_trunc_ref` gives 1.9-3.0e-5 and 2.7-3.1e-6 there,
+    4.6e-6 at D 1024, and ~1.3e-6 at any D with the promotion. bf16 / fp16
+    outputs round far above that error and never promote."""
+    return dtype == torch.float32 and D > _PROMOTE_D
+
+
+def dqm_tile(M: int, Fp: int, nb: int, promote: bool = False) -> Tuple[int, int]:
     """(row_wgs, cols) of the tensor-core kernel's block for this shape: the
     two warpgroups stacked along rows (2: 128 rows, ``cols`` columns in one
-    scale block: 256, 128 or 64, the largest that divides the block) where
+    scale block: 256, 128 or 64, the largest that divides the block; 128 or
+    64 with ``promote``, whose fp32 sums take a second set of accumulator
+    registers that 128 x 256 has no room for) where
     x has more than 64 rows, side by side (1: 64 rows, each warpgroup
     ``cols / 2`` columns in one scale block) at 64 rows or fewer, where a
     second row half would be empty. The side-by-side block takes 256
@@ -83,10 +105,16 @@ def dqm_tile(M: int, Fp: int, nb: int) -> Tuple[int, int]:
     128 x 256 0.0914-0.0916; at 4096 rows, block 128, 128 x 128 2.560-2.562
     ms against 64 x 256 (each warpgroup its own block) 3.061-3.116 and 128 x
     64 3.882-3.884; at block 256, 128 x 256 2.039-2.043 against 128 x 128
-    2.554-2.564."""
+    2.554-2.564. Promoting at gpt-neox-20b's D 6144 (256 rows, block 256):
+    128 x 128 1.214-1.219 ms against the unpromoted 128 x 256's
+    0.918-0.919; at a block of 96 the 64 x 256 block's promoting padded
+    instance spills (5.10 ms against 64 x 128's 3.90), so a promoting block
+    off 64-column panels takes 128 columns at 64 rows or fewer."""
     block = padded_block(Fp, nb)
     if M > 64:
-        return 2, next(c for c in (256, 128, 64) if block % c == 0)
+        return 2, next(c for c in ((128, 64) if promote else (256, 128, 64)) if block % c == 0)
+    if promote and (Fp // nb) % _TC_PANEL:
+        return 1, 128
     return 1, 256 if block % 128 == 0 else 128
 
 
@@ -141,6 +169,48 @@ def dequant_matmul_split_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tens
     return out[:, :orig_size].to(x.dtype)
 
 
+def _round_toward_zero(x: torch.Tensor) -> torch.Tensor:
+    """float64 ``x`` rounded toward zero to fp32."""
+    y = x.float()
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def dequant_matmul_trunc_ref(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                             zero_point: torch.Tensor, orig_size: int,
+                             promote: bool = False) -> torch.Tensor:
+    """A model of the tensor-core kernel's fp32 accumulators, for the tests
+    (fp32 x): :func:`dequant_matmul_split_ref`'s arithmetic, each wgmma's
+    k16 slice of each part summed exactly and added to the fp32 accumulator
+    rounded toward zero (the tensor cores' additions truncate), D in the
+    kernel's order (64-deep steps of 4 k16 x 3 parts); with ``promote`` the
+    accumulator is added into an IEEE fp32 sum every 4 steps and zeroed, as
+    the kernel's PROMO instances do. Returns fp32 [M, orig_size]."""
+    xf = x.float()
+    D = xf.shape[1]
+    nb = scale.shape[1]
+    block = q.shape[1] // nb
+    out = torch.empty((x.shape[0], nb * block), dtype=torch.float32, device=x.device)
+    for b in range(nb):
+        cols = slice(b * block, (b + 1) * block)
+        qb = q[:, cols].double() - 128.0
+        v = xf * scale[:, b]
+        parts = [p.double() for p in split3(v)]
+        acc = torch.zeros((x.shape[0], block), dtype=torch.float32, device=x.device)
+        total = torch.zeros_like(acc)
+        steps = -(-D // _TC_STEP)
+        for k in range(steps):
+            for k0 in range(k * _TC_STEP, min(D, (k + 1) * _TC_STEP), 16):
+                rows = slice(k0, min(D, k0 + 16))
+                for p in parts:
+                    acc = _round_toward_zero(acc.double() + p[:, rows] @ qb[rows])
+            if promote and ((k + 1) % _PROMOTE_STEPS == 0 or k + 1 == steps):
+                total, acc = total + acc, torch.zeros_like(acc)
+        side = xf @ zero_point[:, b] + 128.0 * v.sum(dim=1)
+        out[:, cols] = (total + acc) + side[:, None]
+    return out[:, :orig_size]
+
+
 def _tma_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` [rows, cols] as TMA reads it: unit column stride and 16-byte
     aligned rows, as it is or as a copy whose row stride is padded to 16
@@ -158,15 +228,17 @@ def _tma_rows(t: torch.Tensor) -> torch.Tensor:
 def _lib_tc() -> ctypes.CDLL:
     lib = _build.load("dequant_matmul_tc")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ds_dequant_matmul_tc.argtypes = [ptr, i64, ptr, i64] + [ptr] * 3 + [i32] * 8 + [ptr]
+    lib.ds_dequant_matmul_tc.argtypes = [ptr, i64, ptr, i64] + [ptr] * 3 + [i32] * 9 + [ptr]
     lib.ds_dequant_matmul_tc.restype = i32
     return lib
 
 
 def _launch(x, q, scale, zero_point, orig_size: int,
-            tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """One launch of the tensor-core kernel (``tile`` overrides its
-    :func:`dqm_tile`, for measurements)."""
+            tile: Optional[Tuple[int, int]] = None,
+            promote: Optional[bool] = None) -> torch.Tensor:
+    """One launch of the tensor-core kernel (``tile`` and ``promote``
+    override its :func:`dqm_tile` and :func:`dqm_promotes`, for
+    measurements)."""
     if x.dtype not in DTYPE_CODE:
         raise TypeError(f"dequant_matmul kernel: x dtype {x.dtype}; expected float32, "
                         "bfloat16 or float16")
@@ -177,6 +249,7 @@ def _launch(x, q, scale, zero_point, orig_size: int,
     q, scale, zero_point = q.contiguous(), scale.contiguous(), zero_point.contiguous()
     M, D = x.shape
     Fp, nb = q.shape[1], scale.shape[1]
+    promote = dqm_promotes(D, x.dtype) if promote is None else promote
     # the kernel copies x's rows and q's by TMA, which needs 16-byte aligned
     # rows: an x or a payload whose rows are not gets a copy of padded stride
     x, q = _tma_rows(x), _tma_rows(q)
@@ -189,7 +262,8 @@ def _launch(x, q, scale, zero_point, orig_size: int,
         stream = torch.cuda.current_stream(index).cuda_stream
         lib = _lib_tc()
         status = lib.ds_dequant_matmul_tc(x.data_ptr(), x.stride(0), q.data_ptr(), q.stride(0),
-                                          *tail, *(tile or dqm_tile(M, Fp, nb)), stream)
+                                          *tail, *(tile or dqm_tile(M, Fp, nb, promote)),
+                                          int(promote), stream)
     _build.check(lib, status, "dequant_matmul")
     return out
 

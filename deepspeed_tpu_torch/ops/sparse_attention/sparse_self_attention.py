@@ -42,7 +42,7 @@ def _tables(config: SparsityConfig, seq_len: int, device: torch.device) -> Table
     cache = _CACHE.setdefault(config, {})
     key = (seq_len, str(device))
     if key not in cache:
-        cache[key] = device_tables(_layout(config, seq_len), device)
+        cache[key] = device_tables(_layout(config, seq_len), config.block, device)
     return cache[key]
 
 

@@ -3,13 +3,17 @@
 checkout of the PyTorch/CUDA port on one CUDA card, at ``chip_smoke.py``
 phase 10b's shape (the sparse GPT-2-125M: B2 x T4096, H12, D64, bf16, the Fixed
 unidirectional layout of blocks of 128, 4 local and 1 global: 192 of the 528
-causal blocks active) and at phase 2's D96 row (the same pattern at
-gpt2-760m's 16 heads of 96, B2 x T1024, bf16), beside B1 / B2 on the tensor
-cores over dense causal attention at the same shape (and that time scaled
-to the layout's share of the causal blocks), one SDPA call with the layout
-expanded to a boolean [H, T, T] mask and its backward, and the bound; then
-phase 10b's sparse and dense training step (bf16 master + ZeRO-2, B2 x
-T4096): step ms, device busy and B9's (or B1 / B2's) share of it.
+causal blocks active), at phase 2's D96 row (the same pattern at
+gpt2-760m's 16 heads of 96, B2 x T1024, bf16), at phase 10a's fp32 row (the
+sparse GPT-2-125M at B2 x T1024) and at phase 2's small blocks (B2 x T512,
+H12, D64: Variable at blocks of 16, BSLongformer not causal at 32), in bf16
+and fp32, beside B1 / B2 over dense causal attention at the same shape (and
+that time scaled to the layout's share of the causal blocks), one SDPA call
+with the layout expanded to a boolean [H, T, T] mask and its backward, and
+the bounds (fp32: three TF32 passes at the TF32 peak, and one fp32 pass on
+the CUDA cores); then phase 10b's sparse and dense training step (bf16
+master + ZeRO-2, B2 x T4096): step ms, device busy and B9's (or B1 / B2's)
+share of it.
 
     python3 scripts/blocksparse_bench.py [--tree DIR] [--tag NAME] [--out FILE] [--no-paths]
 
@@ -42,45 +46,75 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.append(REPO)  # after --tree's entry, so that the tree's package is the one imported
 
 from chip_smoke import (SPARSE_GPT_LAYOUT, Timer, _engine, _timed_steps,  # noqa: E402
-                        _train_config, bs_bounds, bs_visible_pairs, device_kernels,
-                        flash_bound, flash_bwd_bounds)
+                        _train_config, bs_bounds, bs_visible_pairs, bs_visited_tiles,
+                        device_kernels, flash_bound, flash_bwd_bounds)
 
-# (label, B, T, H, D): phase 10b's main-path row and phase 2's D96 row
-SHAPES = [("10b", 2, 4096, 12, 64), ("d96", 2, 1024, 16, 96)]
+# (label, B, T, H, D, dtype): phase 10b's main-path row, phase 2's D96 row,
+# phase 10a's fp32 row (the fixed layout of SPARSE_GPT_LAYOUT at H heads),
+# then phase 2's small blocks (SMALL_BLOCKS)
+SHAPES = [("10b", 2, 4096, 12, 64, "bfloat16"), ("d96", 2, 1024, 16, 96, "bfloat16"),
+          ("10a", 2, 1024, 12, 64, "float32"),
+          ("variable-16", 2, 512, 12, 64, "bfloat16"), ("variable-16", 2, 512, 12, 64, "float32"),
+          ("longformer-32", 2, 512, 12, 64, "bfloat16"),
+          ("longformer-32", 2, 512, 12, 64, "float32")]
+
+
+def _layout(label, H, T):
+    """(layout, block, causal) of a row: phase 2's layouts."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (BSLongformerSparsityConfig,
+                                                          FixedSparsityConfig,
+                                                          VariableSparsityConfig)
+
+    if label == "variable-16":
+        cfg = VariableSparsityConfig(num_heads=H, block=16, num_random_blocks=2,
+                                     local_window_blocks=[4], global_block_indices=[0],
+                                     attention="unidirectional")
+        return cfg.make_layout(T), 16, True
+    if label == "longformer-32":
+        cfg = BSLongformerSparsityConfig(num_heads=H, block=32, num_sliding_window_blocks=5)
+        return cfg.make_layout(T), 32, False
+    cfg = FixedSparsityConfig(**{**SPARSE_GPT_LAYOUT, "num_heads": H})
+    return cfg.make_layout(T), cfg.block, True
+
+
+def _routes(bs, dtype, block, D):
+    """(forward, backward) routes of the tree's B9 (an older tree's bs_route
+    names one route for both passes)."""
+    if not hasattr(bs, "tile_tables"):
+        route = bs.bs_route(dtype, block, D) if hasattr(bs, "bs_route") else "cuda"
+        return route, route
+    return bs.bs_route(dtype, block, D, "fwd"), bs.bs_route(dtype, block, D, "bwd")
 
 
 def kernel_rows(torch, bs, fa, timer, emit):
     import torch.nn.functional as F
-
-    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    for label, B, T, H, D in SHAPES:
-        dtype = torch.bfloat16
-        cfg = FixedSparsityConfig(**{**SPARSE_GPT_LAYOUT, "num_heads": H})
-        block = cfg.block
-        layout = cfg.make_layout(T)
+    for label, B, T, H, D, dt in SHAPES:
+        dtype = getattr(torch, dt)
+        layout, block, causal = _layout(label, H, T)
         qkv = randn((B, T, 3 * H * D), dtype)
         q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
         do = randn((B, T, H, D), dtype)
-        tables = bs.device_tables(layout, "cuda")
+        tables = (bs.device_tables(layout, block, "cuda") if hasattr(bs, "tile_tables")
+                  else bs.device_tables(layout, "cuda"))
         scale = 1.0 / math.sqrt(D)
-        route = bs.bs_route(dtype, block, D) if hasattr(bs, "bs_route") else "cuda"
+        route = _routes(bs, dtype, block, D)
 
-        o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, True, tables=tables)
-        dq, delta = bs.blocksparse_attention_bwd_dq(q, k, v, o, do, lse, layout, block, True,
+        o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
+        dq, delta = bs.blocksparse_attention_bwd_dq(q, k, v, o, do, lse, layout, block, causal,
                                                     scale, tables)
-        dk, dv = bs.blocksparse_attention_bwd_dkv(q, k, v, do, lse, delta, layout, block, True,
-                                                  scale, tables)
-        o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, True)
+        dk, dv = bs.blocksparse_attention_bwd_dkv(q, k, v, do, lse, delta, layout, block,
+                                                  causal, scale, tables)
+        o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
         dq_ref, delta_ref = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout,
-                                                                block, True, scale)
+                                                                block, causal, scale)
         ref = (dq_ref, *bs.blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta_ref,
-                                                            layout, block, True, scale))
+                                                            layout, block, causal, scale))
         rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                for a, b in zip((dq, dk, dv), ref)]
         o_err = (o.float() - o_ref.float()).abs().max().item()
@@ -88,12 +122,12 @@ def kernel_rows(torch, bs, fa, timer, emit):
         del o_ref, lse_ref, dq_ref, ref, dq, dk, dv
 
         ms = {
-            "fwd": timer.ms(lambda: bs.blocksparse_attention_fwd(q, k, v, layout, block, True,
+            "fwd": timer.ms(lambda: bs.blocksparse_attention_fwd(q, k, v, layout, block, causal,
                                                                  tables=tables)),
             "dq": timer.ms(lambda: bs.blocksparse_attention_bwd_dq(
-                q, k, v, o, do, lse, layout, block, True, scale, tables)),
+                q, k, v, o, do, lse, layout, block, causal, scale, tables)),
             "dkv": timer.ms(lambda: bs.blocksparse_attention_bwd_dkv(
-                q, k, v, do, lse, delta, layout, block, True, scale, tables)),
+                q, k, v, do, lse, delta, layout, block, causal, scale, tables)),
         }
         # B1 / B2 on the tensor cores over dense causal attention at the same shape
         fo, flse = fa.flash_attention_fwd(q, k, v, causal=True)
@@ -110,7 +144,7 @@ def kernel_rows(torch, bs, fa, timer, emit):
         active = int(np.tril(np.asarray(layout)).sum())
         share = active / (H * n * (n + 1) // 2)  # of the causal blocks
         # the yardstick: SDPA with the layout expanded to a [H, T, T] bool mask
-        mask = bs.layout_mask(layout, block, True, "cuda")
+        mask = bs.layout_mask(layout, block, causal, "cuda")
         qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
         sdpa_ms = timer.ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
@@ -118,16 +152,23 @@ def kernel_rows(torch, bs, fa, timer, emit):
         sdpa_bwd_ms = timer.ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                            retain_graph=True))
         del out, mask, qt, kt, vt
-        pairs = bs_visible_pairs(layout, block, True) * B
-        bounds = bs_bounds(B, T, H, D, pairs, "bfloat16", 2)
-        dense_bounds = {"fwd": flash_bound(B, T, T, H, D, True, "bfloat16", 2),
-                        **flash_bwd_bounds(B, T, T, H, D, True, "bfloat16", 2)}
+        pairs = bs_visible_pairs(layout, block, causal) * B
+        elt = q.element_size()
+        bounds = bs_bounds(B, T, H, D, pairs, dt, elt)
+        # fp32: the backward's bound as three TF32 passes on the tensor cores
+        tf32 = bs_bounds(B, T, H, D, pairs, "tf32x3", elt) if dt == "float32" else None
+        tiles = bs_visited_tiles(layout, block, causal)
+        dense_bounds = {"fwd": flash_bound(B, T, T, H, D, True, dt, elt),
+                        **flash_bwd_bounds(B, T, T, H, D, True, dt, elt)}
         emit({"kernel": "B9", "shape": label, "route": route, "B": B, "T": T, "H": H, "D": D,
-              "block": block, "dtype": "bfloat16", "active_blocks": int(np.asarray(layout).sum()),
-              "causal_share": share, "visible_pairs": pairs, "o_err": o_err, "lse_err": lse_err,
-              "rel_err_dq_dk_dv": rel,
+              "block": block, "causal": causal, "dtype": dt,
+              "active_blocks": int(np.asarray(layout).sum()),
+              "causal_share": share, "visible_pairs": pairs,
+              "visited_tiles": tiles, "visited_share": pairs / (B * tiles * 64 * 64),
+              "o_err": o_err, "lse_err": lse_err, "rel_err_dq_dk_dv": rel,
               **{f"{n}_ms": t for n, t in ms.items()}, "dq+dkv_ms": ms["dq"] + ms["dkv"],
               **{f"{n}_bound_ms": bounds[n][0] for n in ms}, "bound_by": bounds["fwd"][1],
+              **({f"{n}_tf32x3_bound_ms": tf32[n][0] for n in ("dq", "dkv")} if tf32 else {}),
               **{f"dense_tc_{n}_ms": t for n, t in dense.items()},
               **{f"dense_tc_{n}_x_share_ms": t * share for n, t in dense.items()},
               **{f"dense_{n}_bound_ms": dense_bounds[n][0] for n in ms},
@@ -156,8 +197,7 @@ def path_rows(torch, bs, emit):
         attn = sum(ms for kname, _, ms in kernels if "blocksparse_" in kname or "flash_" in kname)
         b9 = sum(ms for kname, _, ms in kernels if "blocksparse_" in kname)
         emit({"path": f"phase 10b {name} step, gpt2-125m B2xT4096 bf16 ZeRO-2",
-              "route": (bs.bs_route(torch.bfloat16, 128, 64) if hasattr(bs, "bs_route")
-                        else "cuda") if sc else "dense",
+              "route": _routes(bs, torch.bfloat16, 128, 64) if sc else "dense",
               "step_ms": float(np.median(step_ms[1:])), "step_ms_all": step_ms,
               "host_issue_ms": float(np.median(host_ms[1:])), "device_busy_ms": busy,
               "attention_ms": attn, "b9_ms": b9, "b9_share_of_busy": b9 / busy if busy else None,

@@ -8,8 +8,10 @@ B8 rows, x fp32 over GPT-2-125M's head (D 768, vocabulary 50304): phase 9d's
 32 rows (block 256, and at a block of 96), 4096 rows at a block of 128
 (``zero_quantize_block_size`` 128: phase 9e's configuration), at the default
 block of 256 (phase 9b's) and at a block of 96; and a head whose D is off
-64-row steps (D 480, 32 and 4096 rows, block 256);
-each beside cuBLAS fp32 (TF32 off) over the weight already dequantized, the
+64-row steps (D 480, 32 and 4096 rows, block 256), and gpt-neox-20b's D 6144
+(256 rows, blocks of 256 and 96: where the checkout promotes its
+accumulators into fp32 sums, the unpromoted kernel's time and error on the
+same inputs too); each beside cuBLAS fp32 (TF32 off) over the weight already dequantized, the
 plain version, the bound and the error against the float64 product. Where
 the checkout has ``dqm_tile``, the tensor-core kernel is also timed at each
 of its tilings that take the shape; where it has the CUDA-core B8, that
@@ -23,8 +25,10 @@ through the route (the decode kernel, where the checkout has it), the CUDA-core 
 the same inputs, cuBLAS in x's dtype over the weight dequantized to it and
 the bound. Paths rows: the device-busy time of 8 bf16 decode steps of
 gpt2-350m at B8 (phase 7b's row) over dense bf16, int8 and int4 weights and
-B6 / B7's share of it (torch.profiler). ``--parts`` picks the groups of rows
-(default ``b8,decode,qmm``; add ``paths``).
+B6 / B7's share of it (torch.profiler). Neox rows: B6 / B7 with fp32 x at
+gpt-neox-20b's mlp_down (D 24576), 8 and 64 rows, with the error against the
+float64 product. ``--parts`` picks the groups of rows (default
+``b8,decode,qmm``; add ``paths``, ``neox``).
 
     python3 scripts/quant_tc_bench.py [--tree DIR] [--tag NAME] [--out FILE] [--parts LIST]
 
@@ -55,11 +59,12 @@ from chip_smoke import (QMM_SHAPES, Timer, _decode_profile, _dqm_exact, dqm_boun
 
 V = 50304
 # (label, M, D, block): phase 9d's head, 9e's and 9b's at B8 x T512, both
-# at a block of 96 (off 64-column panels), and a head of d 480 (off 64-row
-# steps)
+# at a block of 96 (off 64-column panels), a head of d 480 (off 64-row
+# steps), and gpt-neox-20b's D 6144 at 256 rows
 DQM_ROWS = [("9d", 32, 768, 256), ("9e", 4096, 768, 128), ("9b", 4096, 768, 256),
             ("9d-block96", 32, 768, 96), ("4096-block96", 4096, 768, 96),
-            ("d480", 32, 480, 256), ("4096-d480", 4096, 480, 256)]
+            ("d480", 32, 480, 256), ("4096-d480", 4096, 480, 256),
+            ("neox-d6144", 256, 6144, 256), ("neox-d6144-block96", 256, 6144, 96)]
 QMM_ROWS = (16, 64, 256)
 DECODE_ROWS = (1, 4, 8)
 GROUP = 128
@@ -95,12 +100,20 @@ def dqm_rows(torch, timer, emit):
         if routed:
             row["cuda_cores_ms"] = timer.ms(lambda: dqm._launch(x, q, s, z, V, "cuda_cores"))
         padded = getattr(dqm, "padded_block", lambda Fp, nb: Fp // nb)(Fp, nb)
+        promote = hasattr(dqm, "dqm_promotes") and dqm.dqm_promotes(D, x.dtype)
+        if promote:  # one accumulator over all of D, on the same inputs
+            tile = dqm.dqm_tile(M, Fp, nb)
+            row["unpromoted_ms"] = timer.ms(lambda: dqm._launch(x, q, s, z, V, tile, False))
+            row["unpromoted_rel_err_vs_fp64"] = _rel(dqm._launch(x, q, s, z, V, tile, False),
+                                                     exact)
         if hasattr(dqm, "dqm_tile") and route == "tensor_cores":
-            # every tiling of the tensor-core kernel that takes it
-            row["tile"] = list(dqm.dqm_tile(M, Fp, nb))
+            # every tiling of the tensor-core kernel that takes it (promoting
+            # where the checkout does: not 128 x 256)
+            row["tile"] = list(dqm.dqm_tile(M, Fp, nb, promote) if promote
+                               else dqm.dqm_tile(M, Fp, nb))
             for tile in ((2, 256), (2, 128), (2, 64), (1, 256), (1, 128)):
                 wn = tile[1] if tile[0] == 2 else tile[1] // 2
-                if padded % wn == 0:
+                if padded % wn == 0 and not (promote and tile == (2, 256)):
                     args = ("tensor_cores", tile) if routed else (tile,)
                     row[f"tile_{tile[0]}x{tile[1]}_ms"] = timer.ms(
                         lambda: dqm._launch(x, q, s, z, V, *args))
@@ -186,6 +199,36 @@ def decode_rows(torch, timer, emit):
             torch.cuda.empty_cache()
 
 
+def neox_rows(torch, timer, emit):
+    """B6 / B7 with fp32 x at gpt-neox-20b's mlp_down (D 24576, F 6144,
+    group 128, weights at GPT-2's scale): 8 rows (the decode kernel) and 64
+    rows (the tensor cores, whose accumulators truncate: the widest D of the
+    presets), int8 and int4, each with its error against the float64
+    product and its time."""
+    from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
+    from deepspeed_tpu_torch.ops.quantizer import quantize
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    D, F = 24576, 6144
+    for bits in (8, 4):
+        fn = im.int4_matmul if bits == 4 else im.int8_matmul
+        w = torch.randn((D, F), generator=gen, device="cuda") * 0.02
+        q, s = quantize(w, bits=bits, num_groups=D * F // GROUP)
+        w64 = (q.double().reshape(-1, GROUP) * s.double().reshape(-1, 1)).reshape(D, F)
+        q = im.pack_int4(q) if bits == 4 else q
+        for M in (8, 64):
+            x = torch.randn((M, D), generator=gen, device="cuda")
+            row = {"kernel": f"int{bits}_matmul", "row": "neox-mlp_down", "M": M, "D": D, "F": F,
+                   "group": GROUP, "dtype": "float32",
+                   "route": im.qmm_route(M, torch.float32, D, F, GROUP, bits),
+                   "ms": timer.ms(lambda: fn(x, q, s, GROUP)),
+                   "rel_err_vs_fp64": _rel(fn(x, q, s, GROUP), x.double() @ w64)}
+            row["bound_ms"], row["bound_by"] = qmm_bound(M, D, F, GROUP, bits, "float32", 4)
+            emit(row)
+        del w, q, s, w64
+        torch.cuda.empty_cache()
+
+
 def path_rows(torch, emit):
     """Device-busy time of 8 bf16 decode steps of gpt2-350m at B8 after a
     128-token prompt (phase 7b), dense bf16, int8 and int4 weights."""
@@ -247,7 +290,8 @@ def main() -> int:
                 f.write(line + "\n")
 
     timer = Timer(torch)
-    for part, rows in (("b8", dqm_rows), ("decode", decode_rows), ("qmm", qmm_rows)):
+    for part, rows in (("b8", dqm_rows), ("decode", decode_rows), ("qmm", qmm_rows),
+                       ("neox", neox_rows)):
         if part in parts:
             rows(torch, timer, emit)
     if "paths" in parts:

@@ -2,9 +2,11 @@
 and the plain versions of its rounding against the JAX package's B9.
 
 ``blocksparse_attention_split_ref`` and ``blocksparse_attention_bwd_split_ref``
-compute what the card's tensor-core kernels compute for bf16 / fp16 inputs at
-blocks of 64 and 128 (16-bit operands, fp32 sums, P and dS as hi + lo halves
-of the dtype, fp16 with its powers of two). The reference side is
+compute what the card's tensor-core kernels compute for bf16 / fp16 inputs
+(the forward at blocks of 64 and 128, the backward at every block: 16-bit
+operands, fp32 sums, P and dS as hi + lo halves of the dtype, fp16 with its
+powers of two; the backward's 64-token tiles hold several blocks of 16 or 32,
+and its fp16 row scales run over those tiles). The reference side is
 ``deepspeed_tpu.ops.pallas.blocksparse_attention`` in the same dtype (the
 Pallas kernels in interpret mode on the CPU, as
 ``tests/test_sparse_attention.py`` runs them): every operand widened to fp32,
@@ -78,6 +80,9 @@ CASES = [
     ("empty-row-col-128-causal-fp16", "empty-causal", 128, 64, True, "float16", 1.0),
     ("fixed-128-fp16-small-grad", "fixed", 128, 64, True, "float16", 2.0**-8),
     ("bigbird-per-head-64-d96-fp16-small-grad", "bigbird", 64, 96, True, "float16", 2.0**-8),
+    ("fixed-16-bf16", "fixed", 16, 64, True, "bfloat16", 1.0),
+    ("longformer-32-noncausal-d96-fp16", "longformer", 32, 96, False, "float16", 1.0),
+    ("bigbird-per-head-32-fp16-small-grad", "bigbird", 32, 64, True, "float16", 2.0**-8),
 ]
 
 
@@ -160,18 +165,25 @@ def test_single_cast_of_p_misses_the_bar(dtype):
     assert ulp_err(split, o, tdt) <= MAX_ULP and ulp_err(split_dv, ref[2], tdt) <= MAX_ULP
 
 
-ROUTES = [(dt, block, D, "tc" if dt != torch.float32 and block >= 64 else "cuda")
+def _route(dtype, block, pass_):
+    if pass_ == "bwd":
+        return "tf32" if dtype == torch.float32 else "tc"
+    return "tc" if dtype != torch.float32 and block >= 64 else "cuda"
+
+
+ROUTES = [(dt, block, D, pass_, _route(dt, block, pass_))
           for dt in (torch.float32, torch.bfloat16, torch.float16)
-          for block in (16, 32, 64, 128) for D in (64, 96, 128)]
+          for block in (16, 32, 64, 128) for D in (64, 96, 128) for pass_ in ("fwd", "bwd")]
 
 
-@pytest.mark.parametrize("dtype,block,D,route", ROUTES,
-                         ids=[f"{str(r[0])[6:]}-b{r[1]}-d{r[2]}" for r in ROUTES])
-def test_bs_route(dtype, block, D, route):
-    """bf16 / fp16 at blocks of 64 and 128 take the tensor cores, fp32 and
-    blocks of 16 / 32 the CUDA cores, at every head dim the kernels are
-    built for."""
-    assert bs.bs_route(dtype, block, D) == route
+@pytest.mark.parametrize("dtype,block,D,pass_,route", ROUTES,
+                         ids=[f"{str(r[0])[6:]}-b{r[1]}-d{r[2]}-{r[3]}" for r in ROUTES])
+def test_bs_route(dtype, block, D, pass_, route):
+    """The forward: bf16 / fp16 at blocks of 64 and 128 take the tensor
+    cores, fp32 and blocks of 16 / 32 the CUDA cores. The backward: the
+    tensor cores at every block, bf16 / fp16 on 16-bit operands and fp32 as
+    3xTF32. At every head dim the kernels are built for."""
+    assert bs.bs_route(dtype, block, D, pass_) == route
 
 
 @pytest.mark.parametrize("dtype,block,D,error", [
@@ -180,20 +192,25 @@ def test_bs_route(dtype, block, D, route):
     (torch.float64, 64, 64, TypeError), (torch.int8, 128, 64, TypeError)])
 def test_bs_route_raises_for_unbuilt_shapes_and_dtypes(dtype, block, D, error):
     with pytest.raises(error):
-        bs.bs_route(dtype, block, D)
+        bs.bs_route(dtype, block, D, "bwd")
 
 
 def test_work_order_puts_the_longest_lists_first():
-    """The kernels hand out (head, block) pairs by their count, largest
-    first, ties in index order; the device tables carry both orders."""
+    """The kernels hand out (head, block) and (head, tile) pairs by their
+    count, largest first, ties in index order; the device tables carry the
+    forward's layout tables and the backward's tile tables with an order
+    for each count."""
     cnt = np.array([[1, 3, 2], [3, 0, 1]], np.int32)
     assert bs.work_order(cnt).tolist() == [1, 3, 2, 0, 5, 4]
     layout = _layout("fixed", 128)
-    kidx, kcnt, qidx, qcnt, q_order, k_order = bs.device_tables(layout, "cpu")
-    ref = bs.layout_tables(layout)
-    for t, r in zip((kidx, kcnt, qidx, qcnt), ref):
-        np.testing.assert_array_equal(t.numpy(), r)
-    for order, cnt in ((q_order, kcnt), (k_order, qcnt)):
+    t = bs.device_tables(layout, 128, "cpu")
+    kidx, kcnt, _, _ = bs.layout_tables(layout)
+    np.testing.assert_array_equal(t.kidx.numpy(), kidx)
+    np.testing.assert_array_equal(t.kcnt.numpy(), kcnt)
+    for got, ref in zip((t.qt_idx, t.qt_cnt, t.qt_mask, t.kt_idx, t.kt_cnt, t.kt_mask),
+                        bs.tile_tables(layout, 128)):
+        np.testing.assert_array_equal(got.numpy(), ref)
+    for order, cnt in ((t.q_order, t.kcnt), (t.qt_order, t.qt_cnt), (t.kt_order, t.kt_cnt)):
         assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(cnt.numel()))
         assert (np.diff(cnt.reshape(-1)[order.long()].numpy()) <= 0).all()
 
@@ -207,12 +224,12 @@ def test_cpu_tensors_never_reach_a_library(monkeypatch, dtype):
         raise AssertionError(f"a CPU call reached the kernel library {name}")
 
     monkeypatch.setattr(_build, "load", refuse)
-    counters = ("launches", "bwd_dq_launches", "bwd_dkv_launches", "tc_launches",
-                "bwd_dq_tc_launches", "bwd_dkv_tc_launches")
+    counters = ("launches", "tc_launches", "bwd_dq_tc_launches", "bwd_dkv_tc_launches",
+                "bwd_dq_tf32_launches", "bwd_dkv_tf32_launches")
     before = [getattr(bs, c) for c in counters]
     layout, block = _layout("fixed", 128), 128
     q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _inputs(64, "float32", 1.0, seed=9))
-    tables = bs.device_tables(layout, "cpu")
+    tables = bs.device_tables(layout, block, "cpu")
     o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, tables=tables)
     grads = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, tables=tables)
     assert [getattr(bs, c) for c in counters] == before

@@ -694,24 +694,26 @@ def test_qmatmul_decode_kernel_holds_its_bars(cuda_device, D, F, M, group, bits,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["decode-int8", "decode-int4", "tc64-int8", "tc64-int4",
-                                  "b8-block256", "b8-block96"])
+                                  "b8-block256", "b8-block96", "b8-block256-rows32",
+                                  "b8-block96-rows32"])
 def test_fp32_accumulators_at_gpt_neox_d6144(cuda_device, case):
     """The tensor-core kernels' fp32 accumulators truncate, so their error
     grows with D: at gpt-neox-20b's width (D 6144, random weights at GPT-2's
     scale) the decode kernel (8 rows), the fp32 tensor-core B6 / B7 (64
-    rows) and B8 (256 rows at blocks of 256 and 96) stay within 1e-5 of the
+    rows) and B8 (256 and 32 rows at blocks of 256 and 96, promoted into
+    fp32 sums every 256 rows of D: ``dqm_promotes``) stay within 1e-5 of the
     largest entry of the float64 product. Prints the error (``-s``)."""
     from deepspeed_tpu_torch.comm.quantized import quantize_blockwise
     from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
 
     D, F = 6144, 6144
-    kind, arg = case.split("-")
+    kind, arg, *rows = case.split("-")
     if kind == "b8":
-        block = int(arg[len("block"):])
+        block, M = int(arg[len("block"):]), int(rows[0][len("rows"):]) if rows else 256
         q, s, z = quantize_blockwise(_normal((D, F), cuda_device, torch.float32, 40) * 0.02,
                                      bits=8, block_size=block)
-        x = _normal((256, D), cuda_device, torch.float32, 41)
-        assert dqm.dqm_route(256, D, q.shape[1], s.shape[1]) == "tensor_cores"
+        x = _normal((M, D), cuda_device, torch.float32, 41)
+        assert dqm.dqm_route(M, D, q.shape[1], s.shape[1]) == "tensor_cores"
         out = dqm.dequant_matmul(x, q, s, z, orig_size=F)
         w = (q.double() * s.double().repeat_interleave(block, 1)
              + z.double().repeat_interleave(block, 1))[:, :F]
@@ -728,6 +730,30 @@ def test_fp32_accumulators_at_gpt_neox_d6144(cuda_device, case):
     exact = x.double() @ w
     rel = (out.double() - exact).abs().max().item() / exact.abs().max().item()
     print(f"D6144 {case}: {rel:.3e} of the largest entry of the float64 product")
+    assert rel <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["decode-int8", "decode-int4", "tc64-int8", "tc64-int4"])
+def test_fp32_accumulators_at_gpt_neox_mlp_down_d24576(cuda_device, case):
+    """gpt-neox-20b's mlp_down (D 24576, F 6144, random weights at GPT-2's
+    scale), the widest D of the presets: the decode kernel (8 rows) and the
+    fp32 tensor-core B6 / B7 (64 rows, whose accumulators are promoted into
+    fp32 sums every 256 rows of D) stay within 1e-5 of the largest entry of
+    the float64 product. Prints the error (``-s``)."""
+    D, F = 24576, 6144
+    kind, arg = case.split("-")
+    bits, M = int(arg[3:]), 8 if kind == "decode" else 64
+    q, s = _quantized(D, F, 128, bits, cuda_device, 44)
+    s = s * 0.02
+    x = _normal((M, D), cuda_device, torch.float32, 45)
+    route = im.qmm_route(M, torch.float32, D, F, 128, bits)
+    assert route == ("decode" if kind == "decode" else "tensor_cores")
+    out = (im.int4_matmul if bits == 4 else im.int8_matmul)(x, q, s, 128)
+    wq = im.unpack_int4(q) if bits == 4 else q
+    exact = x.double() @ (wq.double().reshape(-1, 128) * s.double().reshape(-1, 1)).reshape(D, F)
+    rel = (out.double() - exact).abs().max().item() / exact.abs().max().item()
+    print(f"D24576 {case}: {rel:.3e} of the largest entry of the float64 product")
     assert rel <= 1e-5
 
 
@@ -916,32 +942,44 @@ def _bs_layouts():
         ("sliding-32-noncausal", sa.LocalSlidingWindowSparsityConfig(
             H, block=32, attention="bidirectional").make_layout(256), 32, False),
         ("empty-row-32", empty, 32, False),
+        # T off 64-token tiles: the backward's last tile holds rows past T
+        ("sliding-16-t208", sa.LocalSlidingWindowSparsityConfig(H, block=16)
+         .make_layout(208), 16, True),
     ]
 
 
-_BS_COUNTERS = {"cuda": ("launches", "bwd_dq_launches", "bwd_dkv_launches"),
-                "tc": ("tc_launches", "bwd_dq_tc_launches", "bwd_dkv_tc_launches")}
+# B9's counters: the forward's by route ("cuda", "tc"), the backward's
+# (dq, dk/dv) by route ("tc": bf16 / fp16, "tf32": fp32)
+_BS_FWD_COUNTERS = {"cuda": "launches", "tc": "tc_launches"}
+_BS_BWD_COUNTERS = {"tc": ("bwd_dq_tc_launches", "bwd_dkv_tc_launches"),
+                    "tf32": ("bwd_dq_tf32_launches", "bwd_dkv_tf32_launches")}
 
 
 def _bs_counts(bs):
-    return {c: getattr(bs, c) for names in _BS_COUNTERS.values() for c in names}
+    names = [*_BS_FWD_COUNTERS.values(), *(c for cs in _BS_BWD_COUNTERS.values() for c in cs)]
+    return {c: getattr(bs, c) for c in names}
 
 
-def _bs_route_counts(route):
-    """The counters one forward and two backward runs move on ``route``."""
-    return dict(zip(_BS_COUNTERS[route], (1, 2, 2)))
+def _bs_route_counts(bs, dtype, block, D):
+    """The counters one forward and two backward runs move at ``dtype``,
+    ``block`` and ``D`` (``bs_route`` of each pass)."""
+    fwd = _BS_FWD_COUNTERS[bs.bs_route(dtype, block, D, "fwd")]
+    return {fwd: 1, **dict.fromkeys(_BS_BWD_COUNTERS[bs.bs_route(dtype, block, D, "bwd")], 2)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("D", [64, pytest.param(96, id="d96"), 128])
-@pytest.mark.parametrize("case", range(8))
+@pytest.mark.parametrize("case", range(9))
 def test_blocksparse_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, rtol, D, case):
     """B9 (forward, dq with delta, dk/dv) vs the plain versions, with q/k/v
     read as views of one fused buffer, and two backward runs giving
-    bitwise-equal gradients (no atomics). o within the forward tolerances
-    (fp32 5e-5, bf16 2e-2), lse within 1e-4, gradients relative to the
-    largest entry."""
+    bitwise-equal gradients (no atomics), each pass through its route's
+    kernels (the backward on the tensor cores at every block: fp32 as
+    3xTF32). o within the forward tolerances (fp32 5e-5, bf16 2e-2), lse
+    within 1e-4, gradients relative to the largest entry; fp32 gradients
+    also within 5e-5 of the CPU model of the 3xTF32 arithmetic
+    (``blocksparse_attention_bwd_tf32_ref``)."""
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
 
     _, layout, block, causal = _bs_layouts()[case]
@@ -950,7 +988,7 @@ def test_blocksparse_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, r
     qkv = _normal((2, T, 3 * H * D), cuda_device, dtype, 20 + case)
     q, k, v = (t.reshape(2, T, H, D) for t in qkv.split(H * D, dim=-1))
     do = _normal((2, T, H, D), cuda_device, dtype, 40 + case)
-    tables = bs.device_tables(layout, cuda_device)
+    tables = bs.device_tables(layout, block, cuda_device)
     before = _bs_counts(bs)
     o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
     grads = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
@@ -958,7 +996,7 @@ def test_blocksparse_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, r
     again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                          tables=tables)
     torch.cuda.synchronize()
-    assert _moved(before, _bs_counts(bs)) == _bs_route_counts(bs.bs_route(dtype, block, D))
+    assert _moved(before, _bs_counts(bs)) == _bs_route_counts(bs, dtype, block, D)
     o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
     assert (o.float() - o_ref.float()).abs().max().item() <= (5e-5 if dtype == torch.float32
                                                               else 2e-2)
@@ -972,6 +1010,10 @@ def test_blocksparse_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, r
         assert g.shape == r.shape and g.dtype == dtype
         assert torch.equal(g, g2)
         assert (g.float() - r.float()).abs().max().item() <= rtol * r.float().abs().max().item()
+    if dtype == torch.float32:
+        model = bs.blocksparse_attention_bwd_tf32_ref(q, k, v, o, lse, do, layout, block, causal)
+        for g, m in zip(grads, model):
+            assert (g - m).abs().max().item() <= rtol * m.abs().max().item()
 
 
 @pytest.mark.cuda
@@ -1020,8 +1062,11 @@ def test_blocksparse_kernel_raises_for_unbuilt_shapes(cuda_device, block, D):
 def _bs_tc_layouts():
     """(name, layout, block, causal) of the tensor-core B9 card cases: the
     sparse GPT's Fixed unidirectional layout at blocks of 128 and 64,
-    BigBird with a layout per head, BSLongformer not causal, and a layout
-    with an empty block row (head 1) and an empty block column (head 0)."""
+    BigBird with a layout per head, BSLongformer not causal, a layout with
+    an empty block row (head 1) and an empty block column (head 0); and at
+    blocks of 16 and 32 (the backward on the tensor cores, several blocks a
+    64-token tile; the forward on the CUDA cores): Variable, BSLongformer
+    not causal, LocalSlidingWindow at a T off 64-token tiles."""
     from deepspeed_tpu_torch.ops import sparse_attention as sa
 
     H = 4
@@ -1041,21 +1086,30 @@ def _bs_tc_layouts():
         ("longformer-128-noncausal", sa.BSLongformerSparsityConfig(H, block=128)
          .make_layout(1024), 128, False),
         ("empty-row-col-128", empty, 128, True),
+        ("variable-16", sa.VariableSparsityConfig(H, block=16, num_random_blocks=2,
+                                                  local_window_blocks=[4],
+                                                  attention="unidirectional")
+         .make_layout(512), 16, True),
+        ("longformer-32-noncausal", sa.BSLongformerSparsityConfig(
+            H, block=32, num_sliding_window_blocks=5).make_layout(512), 32, False),
+        ("sliding-32-t224", sa.LocalSlidingWindowSparsityConfig(
+            H, block=32, num_sliding_window_blocks=4).make_layout(224), 32, True),
     ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [64, pytest.param(96, id="d96"), 128])
-@pytest.mark.parametrize("case", range(5))
+@pytest.mark.parametrize("case", range(8))
 def test_blocksparse_tc_kernels_within_two_ulps_and_rerun_bitwise(cuda_device, dtype, D, case):
-    """B9 on the tensor cores (bf16 / fp16 at blocks 64 / 128): the forward,
-    dq and dk/dv within 2 ulps of the dtype of the fp32 plain versions and of
-    the split plain versions (the kernels' own rounding) on entries of at
-    least 1e-3 of the largest, lse within 1e-4; a single cast of P more than
-    2 ulps off; the backward bitwise on a re-run; only the tensor-core
-    counters move. fp16 also runs with dO 2^-8 of unit scale, where dS lies
-    below fp16's normal range unless the kernels scale its rows."""
+    """B9 on the tensor cores (bf16 / fp16; the forward at blocks 64 / 128,
+    the backward at every block): the forward, dq and dk/dv within 2 ulps of
+    the dtype of the fp32 plain versions and of the split plain versions
+    (the kernels' own rounding) on entries of at least 1e-3 of the largest,
+    lse within 1e-4; a single cast of P more than 2 ulps off; the backward
+    bitwise on a re-run; only the route's counters move. fp16 also runs with
+    dO 2^-8 of unit scale, where dS lies below fp16's normal range unless the
+    kernels scale its rows."""
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
 
     _, layout, block, causal = _bs_tc_layouts()[case]
@@ -1063,8 +1117,8 @@ def test_blocksparse_tc_kernels_within_two_ulps_and_rerun_bitwise(cuda_device, d
     T = n * block
     qkv = _normal((2, T, 3 * H * D), cuda_device, dtype, 70 + case)
     q, k, v = (t.reshape(2, T, H, D) for t in qkv.split(H * D, dim=-1))
-    tables = bs.device_tables(layout, cuda_device)
-    assert bs.bs_route(dtype, block, D) == "tc"
+    tables = bs.device_tables(layout, block, cuda_device)
+    assert bs.bs_route(dtype, block, D, "bwd") == "tc"
     for do_scale in (1.0, 2.0**-8) if dtype == torch.float16 else (1.0,):
         do = _normal((2, T, H, D), cuda_device, dtype, 90 + case) * do_scale
         before = _bs_counts(bs)
@@ -1074,12 +1128,15 @@ def test_blocksparse_tc_kernels_within_two_ulps_and_rerun_bitwise(cuda_device, d
         again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                              tables=tables)
         torch.cuda.synchronize()
-        assert _moved(before, _bs_counts(bs)) == _bs_route_counts("tc")
+        assert _moved(before, _bs_counts(bs)) == _bs_route_counts(bs, dtype, block, D)
         o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
-        o_split, lse_split = bs.blocksparse_attention_split_ref(q, k, v, layout, block, causal)
-        assert ulp_err(o, o_ref, dtype) <= 2.0 and ulp_err(o, o_split, dtype) <= 2.0
+        assert ulp_err(o, o_ref, dtype) <= 2.0
         assert (lse - lse_ref).abs().max().item() <= 1e-4
-        assert (lse - lse_split).abs().max().item() <= 1e-4
+        if bs.bs_route(dtype, block, D, "fwd") == "tc":  # the forward's rounding (64 / 128)
+            o_split, lse_split = bs.blocksparse_attention_split_ref(q, k, v, layout, block,
+                                                                    causal)
+            assert ulp_err(o, o_split, dtype) <= 2.0
+            assert (lse - lse_split).abs().max().item() <= 1e-4
         scale = 1.0 / np.sqrt(D)
         dq_ref, delta = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block,
                                                             causal, scale)

@@ -177,3 +177,57 @@ def test_dqm_tile(M, Fp, nb, tile):
     assert dqm.dqm_tile(M, Fp, nb) == tile
     rw, cols = tile
     assert dqm.padded_block(Fp, nb) % (cols if rw == 2 else cols // 2) == 0
+
+
+@pytest.mark.parametrize("M,Fp,nb,tile", [
+    (4096, 50432, 197, (2, 128)),  # a block of 256: 128 columns, not 256
+    (256, 6144, 24, (2, 128)),     # gpt-neox-20b's width, a block of 256
+    (256, 6144, 64, (2, 128)),     # a block of 96, padded to 128
+    (256, 6144, 32, (2, 64)),      # a block of 192
+    (256, 6144, 96, (2, 64)),      # a block of 64
+    (32, 50432, 197, (1, 256)),    # at most 64 rows: as without promotion at whole panels
+    (63, 50304, 786, (1, 128)),
+    (32, 6144, 64, (1, 128)),      # a block of 96: 64 x 256's padded instance would spill
+])
+def test_dqm_tile_when_promoting(M, Fp, nb, tile):
+    """With promotion the 128-row block takes at most 128 columns (its fp32
+    sums need the registers that 128 x 256 holds); the 64-row tilings are
+    unchanged at whole 64-column panels and take 128 columns at padded
+    blocks."""
+    assert dqm.dqm_tile(M, Fp, nb, promote=True) == tile
+    rw, cols = tile
+    assert dqm.padded_block(Fp, nb) % (cols if rw == 2 else cols // 2) == 0
+
+
+@pytest.mark.parametrize("D,dtype,promotes", [
+    (768, torch.float32, False), (1024, torch.float32, False), (1536, torch.float32, True),
+    (6144, torch.float32, True), (6144, torch.bfloat16, False), (6144, torch.float16, False)])
+def test_dqm_promotes_fp32_x_past_d_1024(D, dtype, promotes):
+    assert dqm.dqm_promotes(D, dtype) is promotes
+
+
+@pytest.mark.parametrize("D", [768, 6144])
+def test_truncating_accumulators_and_their_promotion(D):
+    """``dequant_matmul_trunc_ref`` (the kernel's arithmetic with every
+    addition into the fp32 accumulator rounded toward zero): one accumulator
+    over gpt-neox-20b's D 6144 misses the 1e-5 bar against the float64
+    product (the card: 2.29e-5), over GPT-2's D 768 it keeps it (the card:
+    3.8e-6); added into fp32 sums every 256 rows of D it stays within 3e-6
+    at both, and the same arithmetic in IEEE fp32
+    (``dequant_matmul_split_ref``) within 1e-6."""
+    rng = np.random.default_rng(D)
+    x = rng.standard_normal((8, D)).astype(np.float32)
+    w = rng.standard_normal((D, 256)).astype(np.float32) * 0.02
+    q, s, z = (np.array(a) for a in jq.quantize_blockwise(jnp.asarray(w), bits=8,
+                                                           block_size=256))
+    exact = x.astype(np.float64) @ (q.astype(np.float64) * np.repeat(s, 256, 1)
+                                    + np.repeat(z, 256, 1))
+    args = [torch.from_numpy(a) for a in (x, q, s, z)]
+    rel = {}
+    for name, fn in (("one", lambda: dqm.dequant_matmul_trunc_ref(*args, orig_size=256)),
+                     ("promoted", lambda: dqm.dequant_matmul_trunc_ref(*args, orig_size=256,
+                                                                      promote=True)),
+                     ("ieee", lambda: dqm.dequant_matmul_split_ref(*args, orig_size=256))):
+        rel[name] = np.abs(fn().double().numpy() - exact).max() / np.abs(exact).max()
+    assert rel["promoted"] <= 3e-6 and rel["ieee"] <= 1e-6, rel
+    assert (rel["one"] > 1e-5) if D == 6144 else (rel["one"] <= 1e-5), rel
