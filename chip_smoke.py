@@ -109,11 +109,9 @@ result line):
    inputs at every M and at the crossover rows 8-64 (the speedup at M=256
    and the ratio to cuBLAS reported), with plain / cuBLAS / bound times. B9
    (blocksparse attention: forward, dq with delta, dk/dv) over 27 cases, each
-   pass through its route (``bs_route``, checked by the counters: the
-   forward on the tensor cores for bf16 / fp16 at blocks 64 / 128 and on
-   the CUDA cores for fp32 and blocks 16 / 32; the backward on the tensor
-   cores at every block, bf16 / fp16 on 16-bit operands and fp32 as
-   3xTF32): the sparse GPT-2-125M's Fixed unidirectional layout of
+   pass through its route (``bs_route``, checked by the counters: every
+   pass on the tensor cores at every block, bf16 / fp16 on 16-bit operands
+   and fp32 as 3xTF32): the sparse GPT-2-125M's Fixed unidirectional layout of
    128-blocks at phase 10a's B2 x T1024 fp32 (the fp32 main-path row), 10b's
    B2 x T4096 bf16 (the bf16 main-path row) and fp16, and 10c's layout of
    32-blocks at B2 x T1024 bf16 (the small-block main-path row); bench.py's
@@ -123,13 +121,15 @@ result line):
    (fp32 D128, fp16 D96, fp16 with dO 2^-8); BSLongformer not causal at
    blocks 128 (bf16) and 64 (fp16 D96); D128 not causal and D96 at
    gpt2-760m's 16 heads, fp32 and bf16; layouts with an empty block row and
-   column (zeros, lse -1e30); fp16 with dO 2^-8. The tensor-core backward
-   lies within 2 ulps of its dtype of the fp32 plain versions (and, up to T
-   2048, of the split plain versions that model its rounding) where a
-   single cast of P must miss, and so does the tensor-core forward; the
+   column (zeros, lse -1e30); fp16 with dO 2^-8. The tensor-core forward
+   and backward lie within 2 ulps of their dtype of the fp32 plain versions
+   (and, up to T 2048, of the split plain versions that model their
+   rounding) where a single cast of P must miss; the 3xTF32 forward within
+   5e-5 of the largest entry of the plain version and of its CPU model
+   (``blocksparse_attention_fwd_tf32_ref``), lse within 1e-4, and the
    3xTF32 backward within 5e-5 of the largest gradient of the plain versions
    and of its CPU model (``blocksparse_attention_bwd_tf32_ref``); the
-   backward is bitwise on a re-run; each small-block case prints the share
+   forward and the backward are bitwise on a re-run; each case prints the share
    of its visited tiles' products that its layout keeps; the yardstick is
    one SDPA call with the layout expanded to a boolean [H, T, T] mask (mask
    construction excluded) and that call's backward, with B1 / B2's dense
@@ -247,9 +247,9 @@ result line):
    length): the scoring loss through B9 equals its plain versions' (12
    forward launches, no B1); 5 ``train_batch`` steps (AdamW + clipping)
    through B9 and 5 with its plain versions in their places, from the same
-   seed and batches: losses and grad norms agree, and B9's CUDA-core
-   forward and 3xTF32 dq and dk/dv launch 60 times each, its other kernels
-   and B1/B2 never. (b) bf16 with the fp32 master and ZeRO stage 2, B2 x T4096
+   seed and batches: losses and grad norms agree, and B9's 3xTF32
+   forward, dq and dk/dv launch 60 times each, its other kernels and B1/B2
+   never. (b) bf16 with the fp32 master and ZeRO stage 2, B2 x T4096
    (``max_seq_len=4096``), 10 steps on one batch: the loss starts near
    ln(V) and falls, B9's tensor-core forward, dq and dk/dv launch 120 times
    each and no other attention kernel; step time, host issue time,
@@ -257,9 +257,9 @@ result line):
    with dense attention (B1/B2, B2's share of the busy time reported) at
    the same shape. (c) bf16 + ZeRO-2, B2 x T1024, the fixed pattern at
    blocks of 32 (16 local, the last global: the 512-token window of (a)), 3
-   steps: the loss starts near ln(V) and stays finite, B9's CUDA-core
-   forward and the tensor-core dq and dk/dv (their sub-block-mask
-   instances) launch 36 times each and nothing else of B9.
+   steps: the loss starts near ln(V) and stays finite, B9's tensor-core
+   forward, dq and dk/dv (their sub-block-mask instances) launch 36 times
+   each and nothing else of B9.
 
 11. head dim 96: ``PRESETS["gpt2-760m"]`` (d 1536, 16 heads of 96) at full
    width, depth cut to 4 of 24 layers: (a) fp32 scoring B4 x T512 (B1 =
@@ -272,7 +272,7 @@ Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
 only, delta on both; B9's by route). The last lines are the card's name and power limit
-(nvidia-smi), a ``{"kernels": [...]}`` line (34 kernels) and the ``{"ok": true, ...}`` line.
+(nvidia-smi), a ``{"kernels": [...]}`` line (35 kernels) and the ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -351,9 +351,9 @@ FWD_PATH = {"float32": ("fwd_tf32",), "bfloat16": ("fwd_tc",),
 # 128 rows a block; B8: fp32 / bf16 / fp16 x x 5 tilings (128 rows x 256 /
 # 128 / 64 columns, 64 rows x 256 / 128 columns) x blocks of whole 64-column
 # panels or padded to them, and fp32's promoting instances (every tiling but
-# 128 x 256, whole or padded); B9's forward: bf16 / fp16 x D 64 / 96 / 128,
-# its dq and dk/dv: bf16 / fp16 x D x whole tiles (blocks 64 / 128) or
-# sub-block masks (16 / 32), and 3xTF32: D x whole tiles or masks)
+# 128 x 256, whole or padded); B9's forward, dq and dk/dv: bf16 / fp16 x D
+# 64 / 96 / 128 x whole tiles (blocks 64 / 128) or sub-block masks (16 /
+# 32), and 3xTF32: D x whole tiles or masks)
 TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel", 12),),
               "flash_attention_bwd_tc": (("flash_bwd_dq_tc_kernel", 12),
                                          ("flash_bwd_dkv_tc_kernel", 12)),
@@ -362,7 +362,8 @@ TC_KERNELS = {"flash_attention_fwd_tc": (("flash_fwd_tc_kernel", 12),),
                                            ("flash_bwd_dkv_tf32_kernel", 3)),
               "int8_matmul_tc": (("qmatmul_tc_kernel", 8), ("qmatmul_tc_f32_kernel", 4)),
               "dequant_matmul_tc": (("dequant_matmul_tc_kernel", 38),),
-              "blocksparse_attention_fwd_tc": (("blocksparse_fwd_tc_kernel", 6),),
+              "blocksparse_attention_fwd_tc": (("blocksparse_fwd_tc_kernel", 12),),
+              "blocksparse_attention_fwd_tf32": (("blocksparse_fwd_tf32_kernel", 6),),
               "blocksparse_attention_bwd_tc": (("blocksparse_bwd_dq_tc_kernel", 12),
                                                ("blocksparse_bwd_dkv_tc_kernel", 12)),
               "blocksparse_attention_bwd_tf32": (("blocksparse_bwd_dq_tf32_kernel", 6),
@@ -375,7 +376,7 @@ VERIFY_KERNEL = "verify_split_kernel"
 # the 3xTF32 kernels' products whose B is MN-major (P V, dS k, P^T dO, dS^T
 # q) run on mma.sync: HMMA in every instance beside the HGMMA above
 TF32_MMA_LIBS = ("flash_attention_fwd_tf32", "flash_attention_bwd_tf32",
-                 "blocksparse_attention_bwd_tf32")
+                 "blocksparse_attention_fwd_tf32", "blocksparse_attention_bwd_tf32")
 VERIFY_MMA_INSTANCES = 36
 VERIFY_FP32_INSTANCES = 9
 # the times of the earlier one-block-per-row B3 and B5 at the main-path rows
@@ -419,7 +420,7 @@ QMM_TPU = {"int8": "deepspeed_tpu/ops/pallas/int8_matmul.py:42",
 QUANT_GROUP = 128
 DQM_TC_SRC = "deepspeed_tpu_torch/csrc/dequant_matmul_tc.cu"
 DQM_TPU = "deepspeed_tpu/ops/pallas/dequant_matmul.py:41"  # _kernel, call :86
-BS_FWD_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd.cu"
+BS_FWD_TF32_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd_tf32.cu"
 BS_FWD_TC_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_fwd_tc.cu"
 BS_BWD_TC_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_bwd_tc.cu"
 BS_BWD_TF32_SRC = "deepspeed_tpu_torch/csrc/blocksparse_attention_bwd_tf32.cu"
@@ -429,15 +430,13 @@ BS_TPU = {"fwd": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:68",
           "dkv": "deepspeed_tpu/ops/pallas/blocksparse_attention.py:133"}
 BS_KERNELS = ("fwd", "dq", "dkv")
 # B9's launch counters by kernel and route (ops/cuda/blocksparse_attention.py
-# bs_route): the forward on the CUDA cores for fp32 and blocks of 16 / 32 and
-# on the tensor cores for bf16 / fp16 at blocks of 64 / 128; the backward on
-# the tensor cores at every block, bf16 / fp16 ("tc") and fp32 as 3xTF32
-# ("tf32")
-BS_COUNTERS = {"fwd_cuda": "launches", "fwd_tc": "tc_launches",
+# bs_route): every pass on the tensor cores at every block, bf16 / fp16
+# ("tc") and fp32 as 3xTF32 ("tf32")
+BS_COUNTERS = {"fwd_tc": "fwd_tc_launches", "fwd_tf32": "fwd_tf32_launches",
                "dq_tc": "bwd_dq_tc_launches", "dkv_tc": "bwd_dkv_tc_launches",
                "dq_tf32": "bwd_dq_tf32_launches", "dkv_tf32": "bwd_dkv_tf32_launches"}
 # the B9 kernels each main path launches: 10a's fp32 and 10b's bf16 training
-BS_PATH = {"float32": ("fwd_cuda", "dq_tf32", "dkv_tf32"),
+BS_PATH = {"float32": ("fwd_tf32", "dq_tf32", "dkv_tf32"),
            "bfloat16": ("fwd_tc", "dq_tc", "dkv_tc")}
 # the sparse GPT-2-125M's layout (phases 2 and 10): Sparse Transformers'
 # fixed pattern, 4 local blocks of 128 and the last one of each window global
@@ -486,13 +485,17 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
 
+    def flush(self):
+        """Evict the L2 cache by writing 128 MB (the lines it leaves are dirty)."""
+        self.flush_buf.zero_()
+
     def ms(self, fn, iters: int = 15, warmup: int = 3, device_only: bool = True) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         events = []
         for _ in range(iters):
-            self.flush_buf.zero_()
+            self.flush()
             if device_only:
                 torch.cuda._sleep(self.HOST_LEAD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
@@ -1815,6 +1818,7 @@ def phase_kernels_bwd(torch, ctx, randn):
         expected = {n: 2 if n in names.values() else 0 for n in counted}
         bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
         delta = fa.flash_attention_bwd_delta(o, do)
+        delta_bitwise = torch.equal(delta, fa.flash_attention_bwd_delta(o, do))
         delta_ref = fa.flash_attention_bwd_delta_ref(o, do)
         ref = fa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
         rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -1871,7 +1875,8 @@ def phase_kernels_bwd(torch, ctx, randn):
                f"single_cast_dv_ulp_err={cast_ulps:.2f} " if ulps else "")
             + (f"tf32_model_rel_err={model_rel:.3e} one_pass_model_rel_err={one_pass_rel:.3e} "
                if model_rel is not None else "")
-            + f"delta_err={delta_err:.3e} bitwise_rerun={bitwise} launches={counted} "
+            + f"delta_err={delta_err:.3e} delta_bitwise_rerun={delta_bitwise} "
+            f"bitwise_rerun={bitwise} launches={counted} "
             + " ".join(f"{n}: kernel_ms={kernel_ms[n]:.4f} plain_ms={plain_ms[n]:.4f} "
                        f"bound_ms={bounds[n][0]:.4f} ({bounds[n][1]})" for n in BWD_KERNELS)
             + f" delta_einsum_ms={delta_library_ms:.4f}"
@@ -1882,6 +1887,7 @@ def phase_kernels_bwd(torch, ctx, randn):
             + f"dq+dkv_ms={pair_ms:.4f} sdpa_backward_ms={library_ms:.4f} "
             f"dq+dkv/sdpa_backward={pair_ms / library_ms:.3f}")
         check(bitwise, f"flash backward {B, T, S, D, dt}: two runs differ")
+        check(delta_bitwise, f"flash backward delta {B, T, S, D, dt}: two runs differ")
         check(counted == expected, f"flash backward {B, T, S, D, dt}: launches {counted}")
         check(max(rel) <= BWD_RTOL[dt], f"flash backward {B, T, S, D, dt}: rel error {rel}")
         check(ulps is None or max(ulps) <= BWD_MAX_ULP,
@@ -1998,9 +2004,8 @@ def bs_visited_tiles(layout, block, causal):
 
 def _bs_cases():
     """The B9 rows of phase 2: (label, layout, block, B, H, D, causal, dtype,
-    dO scale). The forward takes the tensor cores for bf16 / fp16 at blocks
-    of 64 / 128 and the CUDA cores otherwise, the backward the tensor cores
-    in every case (``bs_route``)."""
+    dO scale). Every pass takes the tensor cores in every case
+    (``bs_route``)."""
     from deepspeed_tpu_torch.ops.sparse_attention import (BigBirdSparsityConfig,
                                                           BSLongformerSparsityConfig,
                                                           FixedSparsityConfig,
@@ -2085,31 +2090,33 @@ def _bs_counts(bs):
 
 
 # the phase 2 rows that give the {"kernels": [...]} line B9's numbers, by
-# label, dtype and the kernels' keys there: 10a's (the CUDA-core forward,
-# the 3xTF32 dq / dk/dv), 10b's (the tensor cores at blocks of 128) and
-# 10c's (the tensor-core dq / dk/dv's sub-block-mask instances)
+# label, dtype and the kernels' keys there: 10a's (the 3xTF32 kernels), 10b's
+# (the tensor cores at blocks of 128) and 10c's (the tensor-core kernels'
+# sub-block-mask instances)
 BS_ROWS = {
-    ("fixed-uni-128 (10a)", "float32"): {"fwd": "bs_cuda_fwd", "dq": "bs_tf32_dq",
+    ("fixed-uni-128 (10a)", "float32"): {"fwd": "bs_tf32_fwd", "dq": "bs_tf32_dq",
                                          "dkv": "bs_tf32_dkv"},
     ("fixed-uni-128 (10b, main path)", "bfloat16"): {"fwd": "bs_tc_fwd", "dq": "bs_tc_dq",
                                                      "dkv": "bs_tc_dkv"},
-    ("fixed-uni-32 (10c)", "bfloat16"): {"dq": "bs_tc_small_dq", "dkv": "bs_tc_small_dkv"}}
+    ("fixed-uni-32 (10c)", "bfloat16"): {"fwd": "bs_tc_small_fwd", "dq": "bs_tc_small_dq",
+                                         "dkv": "bs_tc_small_dkv"}}
 
 
 def phase_kernels_blocksparse(torch, ctx, randn):
     """B9: the forward, dq and dk/dv kernels against their plain versions on
     q/k/v views of one fused [B, T, 3HD] buffer, each pass through its route
-    (``bs_route``, checked by the counters), the backward twice (bitwise),
-    their times beside one SDPA call with the expanded boolean layout (and
-    causal) mask (mask construction excluded) and its backward, and beside
-    B1 / B2's dense causal times at the same shape. bf16 / fp16 are also
-    held to at most 2 ulps of the dtype of the fp32 plain versions on entries
-    of at least 1e-3 of the largest (and, up to T 2048, of the split plain
-    versions that model the tensor cores' rounding), where a single cast of
-    P must miss that bar; fp32 gradients (3xTF32) to the plain versions and
-    to ``blocksparse_attention_bwd_tf32_ref`` within 5e-5 of the largest
-    entry. Small blocks print the share of the visited tiles' products their
-    layout keeps."""
+    (``bs_route``, checked by the counters), the forward and the backward
+    twice (bitwise), their times beside one SDPA call with the expanded
+    boolean layout (and causal) mask (mask construction excluded) and its
+    backward, and beside B1 / B2's dense causal times at the same shape.
+    bf16 / fp16 are also held to at most 2 ulps of the dtype of the fp32
+    plain versions on entries of at least 1e-3 of the largest (and, up to T
+    2048, of the split plain versions that model the tensor cores'
+    rounding), where a single cast of P must miss that bar (in o and dV);
+    fp32 (3xTF32) o and gradients to the plain versions and to
+    ``blocksparse_attention_fwd_tf32_ref`` / ``_bwd_tf32_ref`` within 5e-5
+    of the largest entry, lse within 1e-4 of both. Every case prints the
+    share of the visited tiles' products its layout keeps."""
     import torch.nn.functional as F
 
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
@@ -2128,6 +2135,7 @@ def phase_kernels_blocksparse(torch, ctx, randn):
         scale = 1.0 / math.sqrt(D)
         before = _bs_counts(bs)
         o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
+        o2, lse2 = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
         first = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                              tables=tables)
         again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
@@ -2135,46 +2143,54 @@ def phase_kernels_blocksparse(torch, ctx, randn):
         torch.cuda.synchronize()
         counted = {c: n - before[c] for c, n in _bs_counts(bs).items()}
         expected = {c: 0 for c in counted}
-        expected.update({f"fwd_{route[0]}": 1, f"dq_{route[1]}": 2, f"dkv_{route[1]}": 2})
+        expected.update({f"fwd_{route[0]}": 2, f"dq_{route[1]}": 2, f"dkv_{route[1]}": 2})
+        fwd_bitwise = torch.equal(o, o2) and torch.equal(lse, lse2)
         bitwise = all(torch.equal(a, b) for a, b in zip(first, again))
+        del o2, lse2
         o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
         dq_ref, delta = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block,
                                                             causal, scale)
         ref = (dq_ref, *bs.blocksparse_attention_bwd_dkv_ref(q, k, v, do, lse, delta, layout,
                                                             block, causal, scale))
         o_err = (o.float() - o_ref.float()).abs().max().item()
+        o_rel = o_err / o_ref.float().abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
         rel = [((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
                for a, b in zip(first, ref)]
         absd = [(a.float() - b.float()).abs().max().item() for a, b in zip(first, ref)]
-        ulps = split_ulps = cast_ulps = model_rel = None
-        if dt == "float32":  # the CPU model of the 3xTF32 arithmetic
+        ulps = split_ulps = cast_ulps = o_cast_ulps = model_rel = None
+        fwd_model_rel = fwd_model_lse_err = None
+        if dt == "float32":  # the CPU models of the 3xTF32 arithmetic
+            o_model, lse_model = bs.blocksparse_attention_fwd_tf32_ref(q, k, v, layout, block,
+                                                                       causal)
+            fwd_model_rel = ((o - o_model).abs().max() / o_model.abs().max()).item()
+            fwd_model_lse_err = (lse - lse_model).abs().max().item()
+            del o_model, lse_model
             model = bs.blocksparse_attention_bwd_tf32_ref(q, k, v, o, lse, do, layout, block,
                                                           causal)
             model_rel = [((a - b).abs().max() / b.abs().max()).item()
                          for a, b in zip(first, model)]
             del model
-        else:  # the fp32 function, the split model and a single cast of P
+        else:  # the fp32 function, the split models and a single cast of P
             ulps = [ulp_err(torch, o, o_ref, dtype)] + [ulp_err(torch, a, b, dtype)
                                                         for a, b in zip(first, ref)]
             p_cast = bs._probs(q, k, lse, layout, block, causal, scale).to(dtype).float()
+            o_cast = torch.einsum("bhts,bshd->bthd", p_cast, v.float()).to(dtype)
+            o_cast_ulps = ulp_err(torch, o_cast, o_ref, dtype)
             dv_cast = torch.einsum("bhts,bthd->bshd", p_cast, do.float()).to(dtype)
             cast_ulps = ulp_err(torch, dv_cast, ref[2], dtype)
-            del p_cast, dv_cast
+            del p_cast, o_cast, dv_cast
             if T <= 2048:
                 split = bs.blocksparse_attention_bwd_split_ref(q, k, v, o, lse, do, layout,
                                                                block, causal)
-                split_ulps = [ulp_err(torch, a, b, dtype) for a, b in zip(first, split)]
-                if route[0] == "tc":  # the tensor-core forward's rounding
-                    o_split, _ = bs.blocksparse_attention_split_ref(q, k, v, layout, block,
-                                                                    causal)
-                    split_ulps = [ulp_err(torch, o, o_split, dtype)] + split_ulps
-                    del o_split
-                del split
+                o_split, _ = bs.blocksparse_attention_split_ref(q, k, v, layout, block, causal)
+                split_ulps = [ulp_err(torch, o, o_split, dtype)] + [
+                    ulp_err(torch, a, b, dtype) for a, b in zip(first, split)]
+                del o_split, split
         keys = BS_ROWS.get((label, dt), {})
         small = "_small" if block < 64 and route[1] == "tc" else ""  # the mask instances
         for n, e in (("fwd", o_err), ("dq", absd[0]), ("dkv", max(absd[1], absd[2]))):
-            key = f"bs_{route[0] if n == 'fwd' else route[1]}{'' if n == 'fwd' else small}_{n}"
+            key = f"bs_{route[0] if n == 'fwd' else route[1]}{small}_{n}"
             if key in errs:
                 errs[key] = max(errs[key], e)
         empty_ok = True
@@ -2224,23 +2240,27 @@ def phase_kernels_blocksparse(torch, ctx, randn):
         pairs = bs_visible_pairs(layout, block, causal) * B
         tiles = bs_visited_tiles(layout, block, causal) * B
         bounds = bs_bounds(B, T, H, D, pairs, dt, q.element_size())
-        if dt == "float32":  # the backward as three TF32 passes on the tensor cores
-            tf32 = bs_bounds(B, T, H, D, pairs, "tf32x3", q.element_size())
-            bounds.update({n: tf32[n] for n in ("dq", "dkv", "bwd_total")})
+        cuda_core_fwd = bounds["fwd"]
+        if dt == "float32":  # every pass as three TF32 passes on the tensor cores
+            bounds = bs_bounds(B, T, H, D, pairs, "tf32x3", q.element_size())
         log(f"phase2 blocksparse_attention {label} B{B} T{T} H{H} D{D} block{block} "
             f"causal={causal} {dt} " + (f"dO_scale={do_scale} " if do_scale != 1.0 else "")
             + f"route fwd/bwd={route[0]}/{route[1]} launches={counted}: "
             f"active_blocks={int(np.asarray(layout).sum())} "
             f"visible_pairs={pairs} visited_tiles={tiles} "
             f"visited_share={pairs / (tiles * 64 * 64):.4f} o_err={o_err:.3e} "
-            f"lse_err={lse_err:.3e} "
-            f"rel_err dq/dk/dv={rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} "
+            f"o_rel_err={o_rel:.3e} lse_err={lse_err:.3e} fwd_bitwise_rerun={fwd_bitwise} "
+            + (f"fwd_tf32_model_rel_err={fwd_model_rel:.3e} "
+               f"fwd_tf32_model_lse_err={fwd_model_lse_err:.3e} "
+               f"cuda_core_fwd_bound_ms={cuda_core_fwd[0]:.4f} ({cuda_core_fwd[1]}) "
+               if fwd_model_rel is not None else "")
+            + f"rel_err dq/dk/dv={rel[0]:.3e}/{rel[1]:.3e}/{rel[2]:.3e} "
             f"max_abs_err dq/dk/dv={absd[0]:.3e}/{absd[1]:.3e}/{absd[2]:.3e} "
             + (f"tf32_model_rel_err dq/dk/dv={'/'.join(f'{u:.3e}' for u in model_rel)} "
                if model_rel else "")
             + (f"max_ulp_err o/dq/dk/dv={'/'.join(f'{u:.2f}' for u in ulps)} "
-               f"single_cast_dv_ulp_err={cast_ulps:.2f} " if ulps else "")
-            + (f"split_model_ulp_err {'o/' if route[0] == 'tc' else ''}dq/dk/dv="
+               f"single_cast_o/dv_ulp_err={o_cast_ulps:.2f}/{cast_ulps:.2f} " if ulps else "")
+            + (f"split_model_ulp_err o/dq/dk/dv="
                f"{'/'.join(f'{u:.2f}' for u in split_ulps)} " if split_ulps else "")
             + f"bitwise_rerun={bitwise} "
             + " ".join(f"{n}: kernel_ms={kernel_ms[n]:.4f} plain_ms={plain_ms[n]:.4f} "
@@ -2254,16 +2274,21 @@ def phase_kernels_blocksparse(torch, ctx, randn):
         check(counted == expected, f"{tag}: routes {route}, launches {counted}")
         check(o_err <= ATOL[dt], f"{tag}: o error {o_err} > {ATOL[dt]}")
         check(lse_err <= LSE_ATOL, f"{tag}: lse error {lse_err}")
+        check(fwd_bitwise, f"{tag}: two forward runs differ")
         check(bitwise, f"{tag}: two backward runs differ")
+        check(fwd_model_rel is None or (o_rel <= BWD_RTOL[dt] and fwd_model_rel <= BWD_RTOL[dt]
+                                        and fwd_model_lse_err <= LSE_ATOL),
+              f"{tag}: o {o_rel} from the plain version, {fwd_model_rel} (lse "
+              f"{fwd_model_lse_err}) from the 3xTF32 model")
         check(max(rel) <= BWD_RTOL[dt], f"{tag}: rel error {rel}")
         check(model_rel is None or max(model_rel) <= BWD_RTOL[dt],
               f"{tag}: {model_rel} from the 3xTF32 model")
         check(ulps is None or max(ulps) <= BWD_MAX_ULP, f"{tag}: {ulps} ulps of the fp32 function")
         check(split_ulps is None or max(split_ulps) <= BWD_MAX_ULP,
               f"{tag}: {split_ulps} ulps of the split model")
-        check(ulps is None or cast_ulps > BWD_MAX_ULP,
-              f"{tag}: a single cast of P is within {cast_ulps} ulps, the ulp check cannot "
-              "tell it from the hi/lo split")
+        check(ulps is None or (cast_ulps > BWD_MAX_ULP and o_cast_ulps > BWD_MAX_ULP),
+              f"{tag}: a single cast of P is within {o_cast_ulps} / {cast_ulps} ulps (o / dV), "
+              "the ulp check cannot tell it from the hi/lo split")
         check(empty_ok, f"{tag}: an empty block row or column is not zero")
         for n, key in keys.items():
             ctx[key] = dict(ms=kernel_ms[n], plain_ms=plain_ms[n],
@@ -3512,7 +3537,7 @@ def phase_sparse(torch, ctx):
         f"launches={score_launches}")
     check(abs(loss - math.log(V)) < 0.5, f"10a scoring loss {loss} far from ln(V)")
     check(abs(loss - plain_loss) <= 1e-4, f"10a B9 loss {loss} vs plain {plain_loss}")
-    check(score_launches == path_launches(score_launches, L, ("b9_fwd_cuda",)),
+    check(score_launches == path_launches(score_launches, L, ("b9_fwd_tf32",)),
           f"10a scoring launches {score_launches}")
 
     batches = [{"input_ids": rng.integers(0, V, (2, 1024)).astype(np.int32)} for _ in range(5)]
@@ -3596,8 +3621,7 @@ def phase_sparse(torch, ctx):
         ctx[f"bs_tc_{n}"]["launches"] = sparse[f"b9_{n}_tc"]
 
     # (c) bf16 + ZeRO-2, B2 x T1024, the fixed pattern at blocks of 32: the
-    # forward on the CUDA cores, dq and dk/dv on the tensor cores' sub-block
-    # mask instances
+    # forward, dq and dk/dv on the tensor cores' sub-block mask instances
     small_cfg = dataclasses.replace(cfg, sparse_attention=FixedSparsityConfig(
         **SMALL_BLOCK_LAYOUT))
     engine = _engine(_train_config(2, bf16={"enabled": True}, zero_optimization={"stage": 2}),
@@ -3611,10 +3635,10 @@ def phase_sparse(torch, ctx):
         f"launches over 3 steps={launches}")
     check(abs(losses[0] - math.log(V)) < 0.5, f"10c step-1 loss {losses[0]} far from ln(V)")
     check(all(math.isfinite(x) for x in losses + norms), "10c loss or grad norm not finite")
-    path = ("b9_fwd_cuda", "b9_dq_tc", "b9_dkv_tc")
+    path = tuple(f"b9_{n}" for n in BS_PATH["bfloat16"])
     check(launches == path_launches(launches, 3 * L, path),
           f"10c launches {launches}, expected {3 * L} of each of {path} and no other")
-    for n in ("dq", "dkv"):
+    for n in BS_KERNELS:
         ctx[f"bs_tc_small_{n}"]["launches"] = launches[f"b9_{n}_tc"]
     del engine
     torch.cuda.empty_cache()
@@ -3791,17 +3815,16 @@ def main() -> int:
          "replaces": DQM_TPU, **ctx["dqm_tc_block128"]},
         {"name": "dequant_matmul_tc_block96", "route": "cuda", "source": DQM_TC_SRC,
          "replaces": DQM_TPU, **ctx["dqm_tc_block96"]}] + [
-        {"name": "blocksparse_attention_fwd", "route": "cuda", "source": BS_FWD_SRC,
-         "replaces": BS_TPU["fwd"], **ctx["bs_cuda_fwd"]}] + [
-        {"name": f"blocksparse_attention_bwd_{n}_tf32", "route": "cuda",
-         "source": BS_BWD_TF32_SRC, "replaces": BS_TPU[n], **ctx[f"bs_tf32_{n}"]}
-        for n in ("dq", "dkv")] + [
+        {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}") + "_tf32",
+         "route": "cuda", "source": BS_FWD_TF32_SRC if n == "fwd" else BS_BWD_TF32_SRC,
+         "replaces": BS_TPU[n], **ctx[f"bs_tf32_{n}"]} for n in BS_KERNELS] + [
         {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}") + "_tc",
          "route": "cuda", "source": BS_FWD_TC_SRC if n == "fwd" else BS_BWD_TC_SRC,
          "replaces": BS_TPU[n], **ctx[f"bs_tc_{n}"]} for n in BS_KERNELS] + [
-        {"name": f"blocksparse_attention_bwd_{n}_tc_small_blocks", "route": "cuda",
-         "source": BS_BWD_TC_SRC, "replaces": BS_TPU[n], **ctx[f"bs_tc_small_{n}"]}
-        for n in ("dq", "dkv")]
+        {"name": "blocksparse_attention_" + ("fwd" if n == "fwd" else f"bwd_{n}")
+         + "_tc_small_blocks", "route": "cuda",
+         "source": BS_FWD_TC_SRC if n == "fwd" else BS_BWD_TC_SRC, "replaces": BS_TPU[n],
+         **ctx[f"bs_tc_small_{n}"]} for n in BS_KERNELS]
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms"]
     log(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))

@@ -181,18 +181,6 @@ __device__ __forceinline__ float row_delta(const T* orow, const T* drow, int lan
   return sum + __shfl_xor_sync(0xffffffffu, sum, 2);
 }
 
-// Whether the entry of query t and key `key` is visible: under `causal` key
-// <= t, and (MASK) its sub-block's bit of the tile's mask `bits` is set (qr
-// and kc the query's and key's offsets in their 64-token tiles, `shift` =
-// log2(block), g = 64 / block sub-blocks a side).
-template <bool MASK>
-__device__ __forceinline__ bool visible(int t, int key, int causal, uint32_t bits, int qr, int kc,
-                                        int shift, int g) {
-  bool vis = !causal || key <= t;
-  if constexpr (MASK) vis = vis && ((bits >> ((qr >> shift) * g + (kc >> shift))) & 1u);
-  return vis;
-}
-
 // MASK: blocks of 16 / 32 (tiles of several blocks, each entry tested
 // against its sub-block's bit); blocks of 64 / 128 have whole tiles
 template <typename T, int D, bool MASK>

@@ -17,10 +17,10 @@
 // copied and given the layout's tile lists as their source of tiles: a
 // template policy shared by both files is still to come): every product in
 // 3xTF32 (csrc/tc_tile.cuh, section tf32), ~2^-21 of each term dropped where
-// one TF32 pass keeps ~2^-11. q k^T is the fp32 product times the scale; the
-// CUDA-core forward that wrote lse scales q first, so P matches lse to float
-// tolerance, not bitwise. The products whose operands are both K-major run
-// on wgmma m64nNk8 SS over split tiles: q k^T and dO v^T (dq), k q^T and
+// one TF32 pass keeps ~2^-11. q k^T is the fp32 product times the scale, as
+// the 3xTF32 forward that wrote lse (csrc/blocksparse_attention_fwd_tf32.cu)
+// scores it. The products whose operands are both K-major run on wgmma
+// m64nNk8 SS over split tiles: q k^T and dO v^T (dq), k q^T and
 // v dO^T (dk/dv); the three whose B would be MN-major (dS k, P^T dO, dS^T q)
 // on mma.sync m16n8k8 tf32 (HMMA), A from the accumulator as it lies, B
 // gathered per thread from the same split tiles.
@@ -143,27 +143,6 @@ __device__ __forceinline__ float row_delta(const float* orow, const float* drow,
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   return sum + __shfl_xor_sync(0xffffffffu, sum, 2);
-}
-
-// Whether the entry of query t and key `key` is visible: under `causal` key
-// <= t, and (MASK) its sub-block's bit of the tile's mask `bits` is set (qr
-// and kc the query's and key's offsets in their 64-token tiles, `shift` =
-// log2(block), g = 64 / block sub-blocks a side).
-template <bool MASK>
-__device__ __forceinline__ bool visible(int t, int key, int causal, uint32_t bits, int qr, int kc,
-                                        int shift, int g) {
-  bool vis = !causal || key <= t;
-  if constexpr (MASK) vis = vis && ((bits >> ((qr >> shift) * g + (kc >> shift))) & 1u);
-  return vis;
-}
-
-// Whether a table entry's mask `bits` has an active sub-block among key
-// sub-blocks [lo, hi] (keys) or among query sub-blocks [lo, hi] (!keys).
-__device__ __forceinline__ bool any_bits(uint32_t bits, int g, int lo, int hi, bool keys) {
-  for (int r = 0; r < g; ++r)
-    for (int c = lo; c <= hi; ++c)
-      if ((bits >> (keys ? r * g + c : c * g + r)) & 1u) return true;
-  return false;
 }
 
 // MASK: blocks of 16 / 32 (tiles of several blocks, each entry tested

@@ -1,17 +1,17 @@
 // Blocksparse-attention forward on Hopper's tensor cores (sm_90a, wgmma), for
-// bf16 and fp16 inputs at blocks of 64 and 128; plain C interface.
+// bf16 and fp16 inputs at every block (16, 32, 64, 128); plain C interface.
 //
 // Replaces, for 16-bit inputs, the TPU kernel _fwd_kernel of
 // deepspeed_tpu/ops/pallas/blocksparse_attention.py (_fwd, the pallas_call at
-// :186). fp32 inputs and blocks of 16 / 32 take the CUDA-core kernel of
-// csrc/blocksparse_attention_fwd.cu (ops/cuda/blocksparse_attention.py
+// :186). fp32 inputs take the 3xTF32 kernel of
+// csrc/blocksparse_attention_fwd_tf32.cu (ops/cuda/blocksparse_attention.py
 // bs_route). The function is the reference's: for each (batch, head),
 // o = softmax(scale q k^T + mask) v where the mask keeps the (q-block,
 // k-block) pairs of a static [H, T/block, T/block] layout and, under
 // `causal`, keys at or before the query (T == S, aligned top-left); an fp32
 // online softmax; a row with no visible key gives o = 0 and lse = -1e30 (l
-// == 0 -> l_safe = 1, as the CUDA-core kernel and the plain version); o cast
-// to the input dtype and the fp32 logsumexp stored as [B*H, T].
+// == 0 -> l_safe = 1, as the plain version); o cast to the input dtype and
+// the fp32 logsumexp stored as [B*H, T].
 //
 // Numerics, as the tensor-core flash forward (csrc/flash_attention_fwd_tc.cu)
 // keeps the reference's fp32 function from 16-bit operands. S = q k^T takes
@@ -26,34 +26,45 @@
 // lo half stays above fp16's subnormal range; l sums the same scaled P, so
 // only lse subtracts 14 ln 2.
 //
-// The layout reaches the kernel as the host-built tables of
-// ops/cuda/blocksparse_attention.py: kidx [H, nQ, A] (each q-block's active
-// k-blocks, ascending) and kcnt [H, nQ], and `order` [H * nQ], the (head,
-// q-block) pairs sorted by kcnt, largest first (work_order).
+// The layout reaches the kernel as the host-built tile tables of
+// ops/cuda/blocksparse_attention.py (tile_tables), the ones the backward's dq
+// pass walks: for each (head, 64-query tile) the ascending 64-key tiles that
+// hold an active block x block sub-block, each with its bit mask of active
+// sub-blocks (bit r g + c for query sub-block r and key sub-block c, g = 64 /
+// block: 16 bits at a block of 16, 4 at 32; blocks of 64 and 128 are whole
+// tiles), and `order` [H * nT], the (head, q tile) pairs sorted by their
+// count, largest first (work_order). Blocks of 16 and 32 run their own
+// instances (MASK), which hide an entry whose sub-block bit is clear where
+// the causal diagonal is tested: it scores kNegInf, so it moves no running
+// maximum, and its P is set to exactly 0 from the test, not left to exp's
+// underflow (a row whose earlier tiles hid all its keys still has its maximum
+// at kNegInf, where exp2(s - m) would be 1). Its l stays 0 until its first
+// visible key, whose rescale exp2(kNegInf - m) is 0; a row that no listed
+// tile shows (an empty block row) ends with l = 0 and writes o = 0 and lse =
+// -1e30. Blocks of 64 and 128 run the instances without the test, over the
+// same tiles in the same order as the block lists they expand.
 //
 // Work split: one block of one warpgroup (128 threads) per (b, head, 64-row q
-// tile); a block of 128 is two q tiles. The grid walks `order`, so the tiles
-// with the longest lists start first and the short ones fill the tail (at
-// the sparse GPT-2-125M's Fixed layout a late q-block's list is ~8x a local
-// one's); of a 128-block's two q tiles the later one (more keys on the
-// diagonal) goes first. A q tile visits the 64-key tiles of k-blocks
-// kidx[h, qi, 0 .. kcnt) in order (two a block of 128): the block stages its q
-// tile once and streams k/v tiles through a ring of kStages shared stages
-// filled by 16-byte cp.async copies into csrc/tc_tile.cuh's swizzled panels,
-// the next tile's rows taken from the table as its copy is issued, one
-// stage ahead. The table is ascending, so under `causal` the tiles wholly
-// above the q tile's last row are the list's tail: they are cut off before
-// the loop (their P is exactly 0 in the reference), and only a tile that
-// straddles the diagonal is masked. For each tile: S = q k^T (wgmma
-// m64n64k16, q and k K-major), the online-softmax update of the thread's two
-// rows in registers, the O accumulator times the rows' alpha, then O += P V
-// with P's A fragments taken from the score accumulator and V read MN-major
-// from its tile. D 96 runs as the padded 128-column panel (kPadded). Rows with
-// an empty list (kcnt == 0: custom and non-causal layouts) run no tile and
-// write zeros. Head h = the pair's head picks the table, so per-head layouts
-// work; q/k/v are read through their strides (last dimension contiguous,
-// rows 16-byte aligned: the views of the fused qkv projection need no copy);
-// o is written contiguous [B, T, H, D].
+// tile), in `order`, so the tiles with the longest lists start first and the
+// short ones fill the tail (at the sparse GPT-2-125M's Fixed layout a late q
+// tile's list is ~8x a local one's). A q tile stages its q tile once and
+// streams the 64-key k/v tiles of its list through a ring of kStages shared
+// stages filled by 16-byte cp.async copies into csrc/tc_tile.cuh's swizzled
+// panels, the next tile's rows taken from the table as its copy is issued, one
+// stage ahead. The list is ascending, so under `causal` the tiles wholly
+// above the q tile's last row are its tail: they are cut off before the loop
+// (their P is exactly 0 in the reference), and only a tile that straddles the
+// diagonal is masked. For each tile: S = q k^T (wgmma m64n64k16, q and k
+// K-major), the online-softmax update of the thread's two rows in registers,
+// the O accumulator times the rows' alpha, then O += P V with P's A fragments
+// taken from the score accumulator and V read MN-major from its tile. D 96
+// runs as the padded 128-column panel (kPadded). A T off 64-row tiles (blocks
+// of 16 / 32) leaves rows past T in the last tile: they are zero-filled,
+// their sub-block bits are clear, and nothing is stored past T. Head h = the
+// pair's head picks the table, so per-head layouts work; q/k/v are read
+// through their strides (last dimension contiguous, rows 16-byte aligned: the
+// views of the fused qkv projection need no copy); o is written contiguous
+// [B, T, H, D].
 //
 // What bounds it on the H100: at the sparse GPT-2-125M training shape (B2,
 // T4096, H12, D64, the Fixed layout of 4 local and 1 global block of 128,
@@ -61,10 +72,10 @@
 // it needs 2 products over the visible pairs, 17.7 GFLOP, 0.018 ms at 989
 // TFLOP/s, and moves q, k, v, o and lse once, 50 MB, 0.015 ms at 3.35 TB/s:
 // operation-bound. It issues 3 products' worth of wgmma (S, P_hi V, P_lo V)
-// over every visited tile (the diagonal tiles' hidden half included), and
-// each block is one warpgroup waiting on its own copies and products, as the
-// flash forward does: latency, not bytes or the tensor rate, bounds this
-// first tensor-core design.
+// over every visited tile (the diagonal tiles' hidden half included, and at
+// blocks of 16 / 32 the clear sub-blocks of a tile), and each block is one
+// warpgroup waiting on its own copies and products, as the flash forward
+// does: latency, not bytes or the tensor rate, bounds this design.
 
 #include <type_traits>
 
@@ -107,14 +118,17 @@ __device__ __forceinline__ int acc_col(int l, int i) {
   return 8 * (i >> 2) + 2 * (l & 3) + (i & 1);
 }
 
-template <typename T, int D>
+// MASK: blocks of 16 / 32 (tiles of several blocks, each entry tested
+// against its sub-block's bit); blocks of 64 / 128 have whole tiles
+template <typename T, int D, bool MASK>
 __global__ void __launch_bounds__(kWgThreads)
 blocksparse_fwd_tc_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ kidx,
-    const int* __restrict__ kcnt, const int* __restrict__ order, int H, int T_, int block,
-    int A, long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
-    long long k_sh, long long v_sb, long long v_st, long long v_sh, float scale, int causal) {
+    T* __restrict__ o, float* __restrict__ lse, const int* __restrict__ tidx,
+    const int* __restrict__ tcnt, const int* __restrict__ tmask, const int* __restrict__ order,
+    int H, int T_, int block, int A, long long q_sb, long long q_st, long long q_sh,
+    long long k_sb, long long k_st, long long k_sh, long long v_sb, long long v_st,
+    long long v_sh, float scale, int causal) {
   using L = FwdLayout<D>;
   constexpr int DP = kPadded<D>;         // whole 64-column panels (D 96: 128)
   constexpr int NP = DP / kPanelCols;    // output panels of 64 columns
@@ -124,22 +138,22 @@ blocksparse_fwd_tc_kernel(
   const uint32_t sQ = base + L::q;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tpb = block / kTile;  // 64-row tiles a block: 1 or 2
-  const int nQ = T_ / block;
-  const int item = order[blockIdx.y / tpb];  // h * nQ + qi, the longest lists first
-  const int h = item / nQ, qi = item % nQ;
-  const int sub = tpb - 1 - static_cast<int>(blockIdx.y) % tpb;  // the later q tile first
+  const int nT = (T_ + kTile - 1) / kTile;
+  const int item = order[blockIdx.y];  // h * nT + q tile, the longest lists first
+  const int h = item / nT;
   const int b = blockIdx.x, bh = b * H + h;
-  const int q0 = qi * block + sub * kTile;
+  const int q0 = (item % nT) * kTile;
+  const int shift = __ffs(block) - 1, g = kTile >> shift;  // MASK: log2(block), blocks a side
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
 
-  // tile t of the list: 64-key part t % tpb of k-block idx[t / tpb]
-  const int* idx = kidx + static_cast<long long>(item) * A;
-  auto key0 = [&](int t) { return __ldg(idx + t / tpb) * block + (t % tpb) * kTile; };
-  int n_k_tiles = kcnt[item] * tpb;
+  // tile t of the list: 64-key tile idx[t], its sub-blocks' bits msk[t]
+  const int* idx = tidx + static_cast<long long>(item) * A;
+  const int* msk = tmask + static_cast<long long>(item) * A;
+  auto key0 = [&](int t) { return __ldg(idx + t) * kTile; };
+  int n_k_tiles = tcnt[item];
   if (causal)  // the ascending list's tail lies wholly above the q tile's last row
     while (n_k_tiles > 0 && key0(n_k_tiles - 1) > q0 + kTile - 1) --n_k_tiles;
 
@@ -182,6 +196,7 @@ blocksparse_fwd_tc_kernel(
     const uint32_t sK = base + L::ring + (kt % kStages) * L::stage;
     const uint32_t sV = sK + L::tile;
     const int k0 = key0(kt);
+    const uint32_t bits = MASK ? static_cast<uint32_t>(__ldg(msk + kt)) : 0u;
 
     // S = q k^T
     float s[32];
@@ -195,15 +210,16 @@ blocksparse_fwd_tc_kernel(
     fence_regs(s);
 
     // the online softmax of this thread's two rows (entries i with
-    // (i >> 1) & 1 == r lie on row r); only a tile on the diagonal hides
-    // keys: they score kNegInf and their P is 0, so a row that has seen no
-    // visible key keeps l = 0
-    const bool masked = causal && k0 + kTile - 1 > q0;
+    // (i >> 1) & 1 == r lie on row r); a tile on the diagonal and (MASK)
+    // every tile hide keys: they score kNegInf and their P is set to 0, so a
+    // row that has seen no visible key keeps l = 0
+    const bool masked = MASK || (causal && k0 + kTile - 1 > q0);
     float mx[2] = {m2[0], m2[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float t = s[i] * score2;
-      if (masked && k0 + acc_col(lane, i) > q0 + acc_row(warp, lane, i)) t = ds::kNegInf;
+      const int r = acc_row(warp, lane, i), c = acc_col(lane, i);
+      if (masked && !visible<MASK>(q0 + r, k0 + c, causal, bits, r, c, shift, g)) t = ds::kNegInf;
       s[i] = t;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], t);
     }
@@ -263,7 +279,7 @@ blocksparse_fwd_tc_kernel(
     const float l_safe = l[r] == 0.f ? 1.f : l[r];
     inv[r] = 1.f / l_safe;
     const int t = q0 + 16 * warp + (lane >> 2) + 8 * r;
-    if ((lane & 3) == 0) {
+    if ((lane & 3) == 0 && t < T_) {
       const float m = m2[r] == ds::kNegInf ? ds::kNegInf : m2[r] * kLn2;
       lse[(long long)bh * T_ + t] = m + logf(l_safe) - kPOffset * kLn2;
     }
@@ -274,6 +290,7 @@ blocksparse_fwd_tc_kernel(
     for (int i = 0; i < 32; i += 2) {
       if (p * kPanelCols + acc_col(lane, i) >= D) continue;  // D 96's zero columns
       const int t = q0 + acc_row(warp, lane, i);
+      if (t >= T_) continue;
       T* row = o + (((long long)b * T_ + t) * H + h) * D;
       const float u = inv[(i >> 1) & 1];
       *reinterpret_cast<uint32_t*>(row + p * kPanelCols + acc_col(lane, i)) =
@@ -285,7 +302,7 @@ struct Args {
   const void *q, *k, *v;
   void* o;
   float* lse;
-  const int *kidx, *kcnt, *order;
+  const int *idx, *cnt, *mask, *order;
   int B, H, T, block, A;
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh;
   float scale;
@@ -293,27 +310,34 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool MASK>
 cudaError_t launch(const Args& a) {
   constexpr size_t smem = FwdLayout<D>::bytes + 1024;  // + the 1024-byte alignment
-  cudaError_t err = cudaFuncSetAttribute(blocksparse_fwd_tc_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(blocksparse_fwd_tc_kernel<T, D, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.B, a.H * (a.T / kTile));  // every (head, q tile), in `order`
-  blocksparse_fwd_tc_kernel<T, D><<<grid, kWgThreads, smem, a.stream>>>(
+  const dim3 grid(a.B, a.H * ((a.T + kTile - 1) / kTile));  // every (head, q tile), in `order`
+  blocksparse_fwd_tc_kernel<T, D, MASK><<<grid, kWgThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<T*>(a.o), a.lse, a.kidx, a.kcnt, a.order, a.H, a.T, a.block, a.A,
+      static_cast<T*>(a.o), a.lse, a.idx, a.cnt, a.mask, a.order, a.H, a.T, a.block, a.A,
       a.q_sb, a.q_st, a.q_sh, a.k_sb, a.k_st, a.k_sh, a.v_sb, a.v_st, a.v_sh, a.scale,
       a.causal);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool MASK>
 cudaError_t dispatch_dim(int D, const Args& a) {
-  if (D == 64) return launch<T, 64>(a);
-  if (D == 96) return launch<T, 96>(a);
-  if (D == 128) return launch<T, 128>(a);
+  if (D == 64) return launch<T, 64, MASK>(a);
+  if (D == 96) return launch<T, 96, MASK>(a);
+  if (D == 128) return launch<T, 128, MASK>(a);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_block(int D, const Args& a) {
+  if (a.block == 16 || a.block == 32) return dispatch_dim<T, true>(D, a);
+  if ((a.block == 64 || a.block == 128) && a.T % kTile == 0) return dispatch_dim<T, false>(D, a);
   return cudaErrorInvalidValue;
 }
 
@@ -321,25 +345,26 @@ cudaError_t dispatch_dim(int D, const Args& a) {
 
 // q/k/v [B, T, H, D] given by element strides (batch, seq, head; the last
 // dimension contiguous, rows 16-byte aligned); o [B, T, H, D] contiguous in
-// the input dtype; lse [B*H, T] fp32; kidx [H, T/block, A], kcnt [H, T/block]
-// and order [H * T/block] int32 contiguous on the device. dtype is 1 (bf16)
-// or 2 (fp16), D 64, 96 or 128, block 64 or 128 (T a multiple of it).
-// Returns the CUDA error code of the launch (0 on success).
+// the input dtype; lse [B*H, T] fp32; the tile tables int32 contiguous on the
+// device (nT = ceil(T / 64) tiles a side: idx and mask [H, nT, A], cnt [H,
+// nT], order [H * nT]). dtype is 1 (bf16) or 2 (fp16), D 64, 96 or 128,
+// block 16, 32, 64 or 128 (T a multiple of it). Returns the CUDA error code
+// of the launch (0 on success).
 extern "C" int ds_blocksparse_attention_fwd_tc(const void* q, const void* k, const void* v,
-                                               void* o, float* lse, const int* kidx,
-                                               const int* kcnt, const int* order, int B, int H,
-                                               int T, int D, int dtype, int block, int A,
+                                               void* o, float* lse, const int* tidx,
+                                               const int* tcnt, const int* tmask,
+                                               const int* order, int B, int H, int T, int D,
+                                               int dtype, int block, int A,
                                                long long q_sb, long long q_st, long long q_sh,
                                                long long k_sb, long long k_st, long long k_sh,
                                                long long v_sb, long long v_st, long long v_sh,
                                                float scale, int causal, void* stream) {
-  if (block != 64 && block != 128) return cudaErrorInvalidValue;
-  const Args a{q, k, v, o, lse, kidx, kcnt, order, B, H, T, block, A,
+  const Args a{q, k, v, o, lse, tidx, tcnt, tmask, order, B, H, T, block, A,
                q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh,
                scale, causal, static_cast<cudaStream_t>(stream)};
-  switch (dtype) {  // fp32 runs the CUDA-core kernel of blocksparse_attention_fwd.cu
-    case ds::kBF16: return dispatch_dim<__nv_bfloat16>(D, a);
-    case ds::kF16: return dispatch_dim<__half>(D, a);
+  switch (dtype) {  // fp32 runs the 3xTF32 kernel of blocksparse_attention_fwd_tf32.cu
+    case ds::kBF16: return dispatch_block<__nv_bfloat16>(D, a);
+    case ds::kF16: return dispatch_block<__half>(D, a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -7,7 +7,8 @@
 // ~2^-16, and for fp16 the running row scale that keeps the split above
 // fp16's subnormal range; or one cast, stochastic_mode's function); for
 // fp32 operands, the 3xTF32 pieces (section "tf32"): wgmma m64nNk8 tf32 over
-// split tiles and mma.sync m16n8k8 tf32 fed from accumulators.
+// split tiles and mma.sync m16n8k8 tf32 fed from accumulators; and the tests
+// of B9's sub-block masks (section "blocksparse tiles").
 //
 // Tile layout. A [R][D] tile of 16-bit elements (R a multiple of 8, D a
 // multiple of 64; a head dim of 96 is kept as 128, kPadded, its last 32
@@ -512,6 +513,34 @@ __device__ __forceinline__ void store_acc_tf32(float* row, const float (&acc)[NT
 
 #undef DS_TC_ACC32
 #undef DS_TC_OUT32
+
+// ----------------------------------------------------------------- blocksparse tiles
+// B9's kernels walk 64-token tiles, each listed with the bit mask of its
+// active block x block sub-blocks: bit r g + c for query sub-block r and key
+// sub-block c, g = 64 / block sub-blocks a side (ops/cuda/blocksparse_attention.py
+// tile_masks). Blocks of 64 and 128 cover whole tiles and test no bit (MASK
+// false).
+
+// Whether the entry of query t and key `key` is visible: under `causal` key
+// <= t, and (MASK) its sub-block's bit of the tile's mask `bits` is set (qr
+// and kc the query's and key's offsets in their 64-token tiles, `shift` =
+// log2(block)).
+template <bool MASK>
+__device__ __forceinline__ bool visible(int t, int key, int causal, uint32_t bits, int qr, int kc,
+                                        int shift, int g) {
+  bool vis = !causal || key <= t;
+  if constexpr (MASK) vis = vis && ((bits >> ((qr >> shift) * g + (kc >> shift))) & 1u);
+  return vis;
+}
+
+// Whether a tile's mask `bits` has an active sub-block among key sub-blocks
+// [lo, hi] (keys) or among query sub-blocks [lo, hi] (!keys).
+__device__ __forceinline__ bool any_bits(uint32_t bits, int g, int lo, int hi, bool keys) {
+  for (int r = 0; r < g; ++r)
+    for (int c = lo; c <= hi; ++c)
+      if ((bits >> (keys ? r * g + c : c * g + r)) & 1u) return true;
+  return false;
+}
 
 // ----------------------------------------------------------------- three bf16 parts
 // An fp32 operand v on the 16-bit tensor cores against exact integers (B6 /

@@ -4,33 +4,35 @@ plain versions.
 Counterpart of ``deepspeed_tpu/ops/pallas/blocksparse_attention.py``:
 attention restricted to the active blocks of a static ``[H, T/block,
 T/block]`` 0/1 layout, with flash-style online softmax, so neither the dense
-``[T, T]`` scores nor the score blocks reach device memory. The forward
-(``_fwd`` / ``_fwd_kernel``) is ``csrc/blocksparse_attention_fwd.cu`` for
-fp32 and blocks of 16 / 32, and for bf16 / fp16 at blocks of 64 and 128 the
-tensor-core ``csrc/blocksparse_attention_fwd_tc.cu``. The backward's two
-passes (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``; the dq pass also writes
-delta = rowsum(dO * O) for the dk/dv pass) run on the tensor cores at every
-block: ``csrc/blocksparse_attention_bwd_tc.cu`` for bf16 / fp16, which keeps
-the reference's fp32 function from 16-bit operands (P and dS as hi + lo
-halves; :func:`blocksparse_attention_split_ref` and
+``[T, T]`` scores nor the score blocks reach device memory. Every pass runs
+on the tensor cores at every block (16, 32, 64, 128): the forward (``_fwd`` /
+``_fwd_kernel``) and the backward's two passes (``_bwd_dq_kernel``,
+``_bwd_dkv_kernel``; the dq pass also writes delta = rowsum(dO * O) for the
+dk/dv pass) are ``csrc/blocksparse_attention_{fwd,bwd}_tc.cu`` for bf16 /
+fp16, which keep the reference's fp32 function from 16-bit operands (P and
+dS as hi + lo halves; :func:`blocksparse_attention_split_ref` and
 :func:`blocksparse_attention_bwd_split_ref` model their rounding), and
-``csrc/blocksparse_attention_bwd_tf32.cu`` for fp32, as 3xTF32
-(:func:`blocksparse_attention_bwd_tf32_ref` models it). :func:`bs_route`
+``csrc/blocksparse_attention_{fwd,bwd}_tf32.cu`` for fp32, as 3xTF32
+(:func:`blocksparse_attention_fwd_tf32_ref` and
+:func:`blocksparse_attention_bwd_tf32_ref` model them). :func:`bs_route`
 names each pass's kernels. Each source's header says how it is split and
 what bounds it.
 :class:`BlocksparseAttention` is the counterpart of the reference's
 ``jax.custom_vjp`` around ``_bs_attn``: it saves (q, k, v, o, lse) and the
 index tables in the forward and runs dq, then dk/dv.
 
-The layout reaches the forward kernels as the host-built tables of
-:func:`layout_tables` (bitwise the reference's) and the backward kernels as
-:func:`tile_tables`, the same layout at their 64-token tiles with a bit mask
-of active sub-blocks per tile (blocks of 16 and 32 share a tile), each with
-its work order (:func:`work_order`), moved to the device once by the caller
-that keeps them (:func:`device_tables`, ``ops/sparse_attention``).
-``causal`` masks keys after the query (T == S, aligned top-left); blocks
-above the diagonal of a bidirectional layout are then wholly masked and the
-kernels skip them.
+The layout reaches every kernel as :func:`tile_tables`: the layout at the
+kernels' 64-token tiles with a bit mask of active sub-blocks per tile
+(blocks of 16 and 32 share a tile), each with its work order
+(:func:`work_order`), moved to the device once by the caller that keeps them
+(:func:`device_tables`, ``ops/sparse_attention``); the forward and dq walk
+each query tile's list of key tiles, dk/dv each key tile's list of query
+tiles. :func:`blocksparse_attention_fwd_tiles_ref` and
+:func:`blocksparse_attention_bwd_tiles_ref` are plain models of those walks.
+:func:`layout_tables` (bitwise the reference's block lists) stays for the
+tests. ``causal`` masks keys after the query (T == S, aligned top-left);
+blocks above the diagonal of a bidirectional layout are then wholly masked
+and the kernels skip them.
 
 Every wrapper takes its plain version only for tensors on the CPU. For CUDA
 tensors it launches its route's kernel or raises: the kernels are built for
@@ -52,17 +54,15 @@ from . import flash_attention as fa
 from .flash_attention import DTYPE_CODE, NEG_INF, _readable, _stream
 
 BLOCKS = (16, 32, 64, 128)  # the kernels' block sizes
-TC_BLOCKS = (64, 128)  # the tensor-core forward's blocks (one or two 64-row tiles)
 HEAD_DIMS = (64, 96, 128)  # the kernels' template instances
-TILE = 64  # the backward kernels' tile: 64 queries x 64 keys, of one or more blocks
+TILE = 64  # the kernels' tile: 64 queries x 64 keys, of one or more blocks
 
 # kernel launches since import or the last reset to 0 (chip_smoke.py reads
-# them to show that the main path went through the kernels): the forward on
-# the CUDA cores (route "cuda") and on the tensor cores ("tc"); the
-# backward's dq and dk/dv passes on the tensor cores, bf16 / fp16 ("tc")
-# and fp32 as 3xTF32 ("tf32")
-launches = 0
-tc_launches = 0
+# them to show that the main path went through the kernels): the forward,
+# dq and dk/dv passes by route, bf16 / fp16 on the tensor cores ("tc") and
+# fp32 as 3xTF32 on them ("tf32")
+fwd_tc_launches = 0
+fwd_tf32_launches = 0
 bwd_dq_tc_launches = 0
 bwd_dkv_tc_launches = 0
 bwd_dq_tf32_launches = 0
@@ -70,14 +70,9 @@ bwd_dkv_tf32_launches = 0
 
 
 class Tables(NamedTuple):
-    """A layout's tables as int32 tensors on one device: the forward's
-    (:func:`layout_tables`' kidx / kcnt and the work order of kcnt), and the
-    backward's :func:`tile_tables` with their work orders (dq walks each
-    64-query tile's list of 64-key tiles, dk/dv each key tile's list of
-    query tiles)."""
-    kidx: torch.Tensor
-    kcnt: torch.Tensor
-    q_order: torch.Tensor
+    """A layout's :func:`tile_tables` as int32 tensors on one device, with
+    their work orders (the forward and dq walk each 64-query tile's list of
+    64-key tiles, dk/dv each key tile's list of query tiles)."""
     qt_idx: torch.Tensor
     qt_cnt: torch.Tensor
     qt_mask: torch.Tensor
@@ -89,22 +84,14 @@ class Tables(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("blocksparse_attention_fwd")
+def _fwd_lib(route: str) -> ctypes.CDLL:
+    """The forward's library of ``route``: "tc" (bf16 / fp16) or "tf32"
+    (fp32); both take the same arguments."""
+    lib = _build.load(f"blocksparse_attention_fwd_{route}")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ds_blocksparse_attention_fwd.argtypes = (
-        [ptr] * 7 + [i32] * 7 + [i64] * 9 + [ctypes.c_float, i32, ptr])
-    lib.ds_blocksparse_attention_fwd.restype = i32
-    return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _tc_lib() -> ctypes.CDLL:
-    lib = _build.load("blocksparse_attention_fwd_tc")
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ds_blocksparse_attention_fwd_tc.argtypes = (
-        [ptr] * 8 + [i32] * 7 + [i64] * 9 + [ctypes.c_float, i32, ptr])
-    lib.ds_blocksparse_attention_fwd_tc.restype = i32
+    fn = getattr(lib, f"ds_blocksparse_attention_fwd_{route}")
+    fn.argtypes = [ptr] * 9 + [i32] * 7 + [i64] * 9 + [ctypes.c_float, i32, ptr]
+    fn.restype = i32
     return lib
 
 
@@ -192,8 +179,8 @@ def _tile_lists(masks: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 
 def tile_tables(layout: np.ndarray, block: int) -> Tuple[np.ndarray, ...]:
-    """The backward kernels' tables of a [H, T/block, T/block] layout, at
-    their 64-token tiles (:func:`tile_masks`): (qt_idx [H, nT, A], qt_cnt
+    """The kernels' tables of a [H, T/block, T/block] layout, at their
+    64-token tiles (:func:`tile_masks`): (qt_idx [H, nT, A], qt_cnt
     [H, nT], qt_mask [H, nT, A]) the ascending key tiles of each query tile
     that hold an active sub-block, with their masks; (kt_idx, kt_cnt,
     kt_mask) the same for each key tile's query tiles (the masks' bits keep
@@ -203,14 +190,11 @@ def tile_tables(layout: np.ndarray, block: int) -> Tuple[np.ndarray, ...]:
 
 
 def device_tables(layout: np.ndarray, block: int, device) -> Tables:
-    """:func:`layout_tables`' kidx / kcnt, :func:`tile_tables` and the work
-    orders of the three counts (:func:`work_order`) as int32 tensors on
-    ``device``."""
-    layout = np.asarray(layout)
-    kidx, kcnt, _, _ = layout_tables(layout)
-    qt_idx, qt_cnt, qt_mask, kt_idx, kt_cnt, kt_mask = tile_tables(layout, block)
-    tables = (kidx, kcnt, work_order(kcnt), qt_idx, qt_cnt, qt_mask, work_order(qt_cnt),
-              kt_idx, kt_cnt, kt_mask, work_order(kt_cnt))
+    """:func:`tile_tables` and the work orders of their two counts
+    (:func:`work_order`) as int32 tensors on ``device``."""
+    qt_idx, qt_cnt, qt_mask, kt_idx, kt_cnt, kt_mask = tile_tables(np.asarray(layout), block)
+    tables = (qt_idx, qt_cnt, qt_mask, work_order(qt_cnt), kt_idx, kt_cnt, kt_mask,
+              work_order(kt_cnt))
     return Tables(*(torch.from_numpy(t).to(device) for t in tables))
 
 
@@ -248,13 +232,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout, block: int
 
 def bs_route(dtype: torch.dtype, block: int, head_dim: int, pass_: str) -> str:
     """The kernels CUDA inputs of ``dtype``, ``block`` and ``head_dim`` take
-    in ``pass_`` "fwd" (the forward) or "bwd" (dq and dk/dv): the forward
-    "tc" (the tensor cores) for bf16 / fp16 at blocks of 64 and 128, "cuda"
-    (the CUDA cores) for fp32 and for blocks of 16 and 32; the backward "tc"
-    for bf16 / fp16 and "tf32" (3xTF32 on the tensor cores) for fp32, at
-    every block; at every head dim the kernels are built for. Other blocks
-    and head dims raise NotImplementedError, other dtypes TypeError: nothing
-    falls back."""
+    in ``pass_`` "fwd" (the forward) or "bwd" (dq and dk/dv): "tc" (the
+    tensor cores on 16-bit operands) for bf16 / fp16 and "tf32" (3xTF32 on
+    the tensor cores) for fp32, in both passes, at every block and head dim
+    the kernels are built for. Other blocks and head dims raise
+    NotImplementedError, other dtypes TypeError, other passes ValueError:
+    nothing falls back."""
     if block not in BLOCKS or head_dim not in HEAD_DIMS:
         raise NotImplementedError(
             f"blocksparse_attention kernel: block {block}, head dim {head_dim} (built for "
@@ -263,11 +246,9 @@ def bs_route(dtype: torch.dtype, block: int, head_dim: int, pass_: str) -> str:
     if dtype not in DTYPE_CODE:
         raise TypeError(f"blocksparse_attention kernel: dtype {dtype} (built for "
                         f"{tuple(DTYPE_CODE)})")
-    if pass_ == "bwd":
-        return "tf32" if dtype == torch.float32 else "tc"
-    if pass_ != "fwd":
+    if pass_ not in ("fwd", "bwd"):
         raise ValueError(f"bs_route: pass {pass_!r} (fwd or bwd)")
-    return "tc" if dtype != torch.float32 and block in TC_BLOCKS else "cuda"
+    return "tf32" if dtype == torch.float32 else "tc"
 
 
 def _check_kernel(block: int, pass_: str, *ts: torch.Tensor) -> str:
@@ -306,9 +287,8 @@ def blocksparse_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 def _probs(q, k, lse, layout, block: int, causal: bool, scale: float,
            scale_q: bool = True) -> torch.Tensor:
     """P = exp(scale * q k^T - lse) as [B, H, T, T] fp32, 0 where a key is
-    hidden; q scaled in fp32 first (as the reference and the CUDA-core
-    kernels score), or with ``scale_q`` False the fp32 product scaled (as the
-    tensor-core kernels score)."""
+    hidden; q scaled in fp32 first (as the reference scores), or with
+    ``scale_q`` False the fp32 product scaled (as the kernels score)."""
     B, T, H, _ = q.shape
     if scale_q:
         s = torch.einsum("bthd,bshd->bhts", q.float() * scale, k.float())
@@ -350,10 +330,11 @@ def blocksparse_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.T
                                     softmax_scale: Optional[float] = None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the tensor-core forward's rounding (bf16 / fp16
-    inputs): the fp32 product times the scale; each 64-key tile's P = exp(s -
-    m_t) relative to the row's running maximum m_t as of that tile (the
-    kernel visits a row's active tiles in ascending order, and hidden keys
-    move no maximum), entering P V as hi + lo halves of the input dtype
+    inputs, every block): the fp32 product times the scale; each 64-key
+    tile's P = exp(s - m_t) relative to the row's running maximum m_t as of
+    that tile (the kernel visits a query tile's listed key tiles in ascending
+    order; hidden keys, by the layout's sub-block bits or the causal mask,
+    move no maximum, and a tile it skips holds only hidden keys), entering P V as hi + lo halves of the input dtype
     (fp16's times 2^14 first, exact both ways), weighted by exp(m_t - m); l
     sums the unrounded P; hidden keys have P = 0, so a row with no visible
     key gives o = 0 and lse = -1e30. For the tests and the card check: the
@@ -402,6 +383,78 @@ def blocksparse_attention_bwd_split_ref(q, k, v, o, lse, do, layout, block: int,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def blocksparse_attention_fwd_tf32_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                       layout, block: int, causal: bool = True,
+                                       softmax_scale: Optional[float] = None, passes: int = 3
+                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the fp32 forward kernel's arithmetic (3xTF32, for the
+    tests and the card check; the CPU path runs the plain version): S = q
+    k^T in ``fa._mm_tf32`` times the scale over the expanded layout, each
+    64-key tile's P = exp(s - m_t) relative to the row's running maximum as
+    of that tile (hidden keys move none and have P = 0), P V in
+    ``fa._mm_tf32`` with P weighted by exp(m_t - m) after its split, as the
+    kernel rescales its accumulator. A row with no visible key gives o = 0
+    and lse = -1e30. ``passes`` 1 is one TF32 pass, which the fp32 bars must
+    refuse. Returns (o fp32, lse [B*H, T] fp32)."""
+    B, T, H, _ = q.shape
+    s = fa._mm_tf32("bthd,bshd->bhts", q, k, passes) * _scale(q, softmax_scale)
+    vis = layout_mask(layout, block, causal, q.device)
+    s = s.masked_fill(~vis, NEG_INF)
+    m_t = fa._running_tile_max(s)
+    m = m_t[..., -1:]
+    p = torch.exp(s - m_t).masked_fill(~vis, 0.0)
+    w = torch.exp(m_t - m)
+    l = (p * w).sum(-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = fa._mm_tf32("bhts,bshd->bthd", p, v, passes, a_weight=w / l_safe)
+    return o, (m + torch.log(l_safe)).reshape(B * H, T)
+
+
+def blocksparse_attention_fwd_tiles_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                        layout, block: int, causal: bool = True,
+                                        softmax_scale: Optional[float] = None
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A plain model of the forward kernels' walk over :func:`tile_tables`,
+    in fp32, for the tests: each (head, 64-query tile) visits its listed key
+    tiles in ascending order with an online softmax whose running maximum
+    moves once a tile; an entry is kept by its sub-block bit and the causal
+    mask (:func:`_tile_visible`), a hidden one scores -1e30 and has P set to
+    0 (not left to exp: a row whose earlier tiles hid all its keys still has
+    its maximum at -1e30). A row that no listed tile shows gives o = 0 and
+    lse = -1e30. Returns (o fp32, lse [B*H, T] fp32)."""
+    B, T, H, D = q.shape
+    scale = _scale(q, softmax_scale)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    qt_idx, qt_cnt, qt_mask, _, _, _ = tile_tables(layout, block)
+    o = torch.zeros((B, T, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.zeros((B, H, T), dtype=torch.float32, device=q.device)
+    for h in range(H):
+        for i in range(qt_cnt.shape[1]):
+            rows = slice(i * TILE, min(T, (i + 1) * TILE))
+            qh = qf[:, rows, h]
+            nq = qh.shape[1]
+            m = torch.full((B, nq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+            l = torch.zeros((B, nq, 1), dtype=torch.float32, device=q.device)
+            acc = torch.zeros((B, nq, D), dtype=torch.float32, device=q.device)
+            for t in range(qt_cnt[h, i]):
+                j = int(qt_idx[h, i, t])
+                cols = slice(j * TILE, min(T, (j + 1) * TILE))
+                s = torch.einsum("btd,bsd->bts", qh, kf[:, cols, h]) * scale
+                vis = _tile_visible(int(qt_mask[h, i, t]), block, i * TILE, j * TILE, nq,
+                                    s.shape[-1], causal, q.device)
+                s = s.masked_fill(~vis, NEG_INF)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(s - m_new).masked_fill(~vis, 0.0)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + torch.einsum("bts,bsd->btd", p, vf[:, cols, h])
+                m = m_new
+            l_safe = torch.where(l == 0.0, 1.0, l)
+            o[:, rows, h] = acc / l_safe
+            lse[:, h, rows] = (m + torch.log(l_safe))[..., 0]
+    return o, lse.reshape(B * H, T)
+
+
 def blocksparse_attention_bwd_tf32_ref(q, k, v, o, lse, do, layout, block: int,
                                        causal: bool = True,
                                        softmax_scale: Optional[float] = None, passes: int = 3
@@ -430,7 +483,7 @@ def blocksparse_attention_bwd_tf32_ref(q, k, v, o, lse, do, layout, block: int,
 def _tile_visible(bits: int, block: int, q0: int, k0: int, nq: int, nk: int, causal: bool,
                   device) -> torch.Tensor:
     """[nq, nk] bool: the entries of the 64-token tile pair at (q0, k0) that
-    a backward kernel keeps: its sub-block's bit of the tile's mask ``bits``
+    a kernel keeps: its sub-block's bit of the tile's mask ``bits``
     set (every entry at blocks of 64 / 128), and under ``causal`` key <=
     query."""
     r = torch.arange(nq, device=device)[:, None]
@@ -502,7 +555,7 @@ def blocksparse_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k/v [B, T, H, D] -> (o [B, T, H, D] in q's dtype, lse [B*H, T]
     fp32), the forward kernel of :func:`bs_route`'s route. ``tables`` are
     :func:`device_tables` of ``layout`` (built here when None)."""
-    global launches, tc_launches
+    global fwd_tc_launches, fwd_tf32_launches
     _check(q, k, v, layout, block)
     scale = _scale(q, softmax_scale)
     if q.device.type == "cpu":
@@ -514,26 +567,19 @@ def blocksparse_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, T, H, D = q.shape
     o = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    lib = _fwd_lib(route)
     with torch.cuda.device(q.device):
-        if route == "tc":
-            lib = _tc_lib()
-            status = lib.ds_blocksparse_attention_fwd_tc(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                t.kidx.data_ptr(), t.kcnt.data_ptr(), t.q_order.data_ptr(), B, H, T, D,
-                DTYPE_CODE[q.dtype], block, t.kidx.shape[-1], *strides, scale,
-                int(bool(causal)), _stream())
-        else:
-            lib = _lib()
-            status = lib.ds_blocksparse_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                t.kidx.data_ptr(), t.kcnt.data_ptr(), B, H, T, D, DTYPE_CODE[q.dtype], block,
-                t.kidx.shape[-1], *strides, scale, int(bool(causal)), _stream())
+        status = getattr(lib, f"ds_blocksparse_attention_fwd_{route}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            t.qt_idx.data_ptr(), t.qt_cnt.data_ptr(), t.qt_mask.data_ptr(),
+            t.qt_order.data_ptr(), B, H, T, D, DTYPE_CODE[q.dtype], block, t.qt_idx.shape[-1],
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale, int(bool(causal)),
+            _stream())
     _build.check(lib, status, f"blocksparse_attention_fwd ({route})")
     if route == "tc":
-        tc_launches += 1
+        fwd_tc_launches += 1
     else:
-        launches += 1
+        fwd_tf32_launches += 1
     return o, lse
 
 

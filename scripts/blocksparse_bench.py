@@ -5,17 +5,19 @@ phase 10b's shape (the sparse GPT-2-125M: B2 x T4096, H12, D64, bf16, the Fixed
 unidirectional layout of blocks of 128, 4 local and 1 global: 192 of the 528
 causal blocks active), at phase 2's D96 row (the same pattern at
 gpt2-760m's 16 heads of 96, B2 x T1024, bf16), at phase 10a's fp32 row (the
-sparse GPT-2-125M at B2 x T1024) and at phase 2's small blocks (B2 x T512,
-H12, D64: Variable at blocks of 16, BSLongformer not causal at 32), in bf16
-and fp32, beside B1 / B2 over dense causal attention at the same shape (and
+sparse GPT-2-125M at B2 x T1024), at phase 10c's (the same window at blocks
+of 32, B2 x T1024 bf16) and at phase 2's small blocks (B2 x T512, H12, D64:
+Variable at blocks of 16, BSLongformer not causal at 32), in bf16 and fp32,
+beside B1 / B2 over dense causal attention at the same shape (and
 that time scaled to the layout's share of the causal blocks), one SDPA call
 with the layout expanded to a boolean [H, T, T] mask and its backward, and
 the bounds (fp32: three TF32 passes at the TF32 peak, and one fp32 pass on
 the CUDA cores); then phase 10b's sparse and dense training step (bf16
-master + ZeRO-2, B2 x T4096): step ms, device busy and B9's (or B1 / B2's)
-share of it.
+master + ZeRO-2, B2 x T4096), phase 10a's fp32 step and 10c's bf16 step at
+blocks of 32: step ms, device busy and B9's (or B1 / B2's) share of it.
 
     python3 scripts/blocksparse_bench.py [--tree DIR] [--tag NAME] [--out FILE] [--no-paths]
+                                         [--fwd-ref FILE]
 
 ``--tree`` names the checkout whose ``deepspeed_tpu_torch`` is imported and
 built (default: the one holding this script). To compare two commits on one
@@ -27,7 +29,11 @@ one call with the L2 flushed before it and the host's launch kept out
 (median of 15), as ``chip_smoke.py`` times them; step times are CUDA events
 around ``train_batch`` (median of steps 2-6); busy times are the kernels'
 self times in a ``torch.profiler`` trace of one step. ``--no-paths`` times
-the kernels alone.
+the kernels alone. ``--fwd-ref FILE`` keeps each row's forward output (o
+and lse): a run that finds FILE missing writes it, a run that finds it
+compares its own with it bitwise (``fwd_bitwise_vs_ref`` in each row), so
+a parent run followed by a change run shows whether the change keeps the
+parent's forward bit for bit.
 """
 
 from __future__ import annotations
@@ -45,15 +51,15 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.append(REPO)  # after --tree's entry, so that the tree's package is the one imported
 
-from chip_smoke import (SPARSE_GPT_LAYOUT, Timer, _engine, _timed_steps,  # noqa: E402
-                        _train_config, bs_bounds, bs_visible_pairs, bs_visited_tiles,
-                        device_kernels, flash_bound, flash_bwd_bounds)
+from chip_smoke import (SMALL_BLOCK_LAYOUT, SPARSE_GPT_LAYOUT, Timer, _engine,  # noqa: E402
+                        _timed_steps, _train_config, bs_bounds, bs_visible_pairs,
+                        bs_visited_tiles, device_kernels, flash_bound, flash_bwd_bounds)
 
 # (label, B, T, H, D, dtype): phase 10b's main-path row, phase 2's D96 row,
 # phase 10a's fp32 row (the fixed layout of SPARSE_GPT_LAYOUT at H heads),
-# then phase 2's small blocks (SMALL_BLOCKS)
+# phase 10c's (SMALL_BLOCK_LAYOUT), then phase 2's small blocks
 SHAPES = [("10b", 2, 4096, 12, 64, "bfloat16"), ("d96", 2, 1024, 16, 96, "bfloat16"),
-          ("10a", 2, 1024, 12, 64, "float32"),
+          ("10a", 2, 1024, 12, 64, "float32"), ("10c", 2, 1024, 12, 64, "bfloat16"),
           ("variable-16", 2, 512, 12, 64, "bfloat16"), ("variable-16", 2, 512, 12, 64, "float32"),
           ("longformer-32", 2, 512, 12, 64, "bfloat16"),
           ("longformer-32", 2, 512, 12, 64, "float32")]
@@ -73,6 +79,9 @@ def _layout(label, H, T):
     if label == "longformer-32":
         cfg = BSLongformerSparsityConfig(num_heads=H, block=32, num_sliding_window_blocks=5)
         return cfg.make_layout(T), 32, False
+    if label == "10c":
+        cfg = FixedSparsityConfig(**{**SMALL_BLOCK_LAYOUT, "num_heads": H})
+        return cfg.make_layout(T), cfg.block, True
     cfg = FixedSparsityConfig(**{**SPARSE_GPT_LAYOUT, "num_heads": H})
     return cfg.make_layout(T), cfg.block, True
 
@@ -86,8 +95,13 @@ def _routes(bs, dtype, block, D):
     return bs.bs_route(dtype, block, D, "fwd"), bs.bs_route(dtype, block, D, "bwd")
 
 
-def kernel_rows(torch, bs, fa, timer, emit):
+def kernel_rows(torch, bs, fa, timer, emit, fwd_ref=""):
     import torch.nn.functional as F
+
+    saved = {}
+    if fwd_ref and os.path.exists(fwd_ref):
+        saved = torch.load(fwd_ref, map_location="cuda")
+    outputs = {}
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -120,6 +134,13 @@ def kernel_rows(torch, bs, fa, timer, emit):
         o_err = (o.float() - o_ref.float()).abs().max().item()
         lse_err = (lse - lse_ref).abs().max().item()
         del o_ref, lse_ref, dq_ref, ref, dq, dk, dv
+        row_key = f"{label} {dt}"
+        fwd_bitwise = None
+        if row_key in saved:  # the reference run's forward on the same inputs
+            fwd_bitwise = (torch.equal(o, saved[row_key][0])
+                           and torch.equal(lse, saved[row_key][1]))
+        elif fwd_ref:
+            outputs[row_key] = (o.clone(), lse.clone())
 
         ms = {
             "fwd": timer.ms(lambda: bs.blocksparse_attention_fwd(q, k, v, layout, block, causal,
@@ -166,41 +187,57 @@ def kernel_rows(torch, bs, fa, timer, emit):
               "causal_share": share, "visible_pairs": pairs,
               "visited_tiles": tiles, "visited_share": pairs / (B * tiles * 64 * 64),
               "o_err": o_err, "lse_err": lse_err, "rel_err_dq_dk_dv": rel,
+              **({"fwd_bitwise_vs_ref": fwd_bitwise} if fwd_bitwise is not None else {}),
               **{f"{n}_ms": t for n, t in ms.items()}, "dq+dkv_ms": ms["dq"] + ms["dkv"],
               **{f"{n}_bound_ms": bounds[n][0] for n in ms}, "bound_by": bounds["fwd"][1],
-              **({f"{n}_tf32x3_bound_ms": tf32[n][0] for n in ("dq", "dkv")} if tf32 else {}),
+              **({f"{n}_tf32x3_bound_ms": tf32[n][0] for n in ("fwd", "dq", "dkv")}
+                 if tf32 else {}),
               **{f"dense_tc_{n}_ms": t for n, t in dense.items()},
               **{f"dense_tc_{n}_x_share_ms": t * share for n, t in dense.items()},
               **{f"dense_{n}_bound_ms": dense_bounds[n][0] for n in ms},
               "sdpa_masked_ms": sdpa_ms, "sdpa_masked_backward_ms": sdpa_bwd_ms})
         del q, k, v, qkv, do, o, lse, delta
         torch.cuda.empty_cache()
+    if outputs:
+        torch.save(outputs, fwd_ref)
 
 
 def path_rows(torch, bs, emit):
-    """Phase 10b's bf16 ZeRO-2 step at B2 x T4096, sparse and dense: step ms
-    (CUDA events, median of steps 2-6), host issue ms, device busy of one
-    step and the attention kernels' share of it."""
+    """Phase 10b's bf16 ZeRO-2 step at B2 x T4096, sparse and dense, then
+    phase 10a's fp32 step (B2 x T1024, Fixed 128) and 10c's bf16 ZeRO-2 step
+    (B2 x T1024, Fixed at blocks of 32), each one micro-step: step ms (CUDA
+    events, median of steps 2-6), host issue ms, device busy of one step and
+    the attention kernels' (and B9's) share of it."""
     from deepspeed_tpu_torch.models import gpt
     from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
 
-    cfg = dataclasses.replace(gpt.PRESETS["gpt2-125m"], max_seq_len=4096)
+    base = gpt.PRESETS["gpt2-125m"]
     rng = np.random.default_rng(10)
-    batch = {"input_ids": rng.integers(0, cfg.vocab_size, (2, 4096)).astype(np.int32)}
-    for name, sc in (("sparse", FixedSparsityConfig(**SPARSE_GPT_LAYOUT)), ("dense", None)):
-        engine = _engine(_train_config(2, bf16={"enabled": True},
-                                       zero_optimization={"stage": 2}),
-                         dataclasses.replace(cfg, sparse_attention=sc))
+    bf16 = dict(bf16={"enabled": True}, zero_optimization={"stage": 2})
+    rows = [("phase 10b sparse step, gpt2-125m B2xT4096 bf16 ZeRO-2", 4096,
+             FixedSparsityConfig(**SPARSE_GPT_LAYOUT), bf16, torch.bfloat16),
+            ("phase 10b dense step, gpt2-125m B2xT4096 bf16 ZeRO-2", 4096, None, bf16,
+             torch.bfloat16),
+            ("phase 10a step, sparse gpt2-125m B2xT1024 fp32", 1024,
+             FixedSparsityConfig(**SPARSE_GPT_LAYOUT), {}, torch.float32),
+            ("phase 10c step, sparse gpt2-125m blocks of 32 B2xT1024 bf16 ZeRO-2", 1024,
+             FixedSparsityConfig(**SMALL_BLOCK_LAYOUT), bf16, torch.bfloat16)]
+    for name, T, sc, over, dtype in rows:
+        cfg = dataclasses.replace(base, max_seq_len=max(T, base.max_seq_len),
+                                  sparse_attention=sc)
+        batch = {"input_ids": rng.integers(0, cfg.vocab_size, (2, T)).astype(np.int32)}
+        engine = _engine(_train_config(2, **over), cfg)
         losses, _, step_ms, host_ms = _timed_steps(torch, engine, batch, 6)
         kernels = device_kernels(torch, lambda: engine.train_batch(batch))
         busy = sum(ms for _, _, ms in kernels)
         attn = sum(ms for kname, _, ms in kernels if "blocksparse_" in kname or "flash_" in kname)
         b9 = sum(ms for kname, _, ms in kernels if "blocksparse_" in kname)
-        emit({"path": f"phase 10b {name} step, gpt2-125m B2xT4096 bf16 ZeRO-2",
-              "route": _routes(bs, torch.bfloat16, 128, 64) if sc else "dense",
+        emit({"path": name,
+              "route": _routes(bs, dtype, sc.block, 64) if sc else "dense",
               "step_ms": float(np.median(step_ms[1:])), "step_ms_all": step_ms,
               "host_issue_ms": float(np.median(host_ms[1:])), "device_busy_ms": busy,
               "attention_ms": attn, "b9_ms": b9, "b9_share_of_busy": b9 / busy if busy else None,
+              "b9_kernels": [(k, n, ms) for k, n, ms in kernels if "blocksparse_" in k],
               "losses": [float(x) for x in losses]})
         del engine
         torch.cuda.empty_cache()
@@ -212,6 +249,7 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--no-paths", action="store_true")
+    ap.add_argument("--fwd-ref", default="")
     args = ap.parse_args()
     import torch
 
@@ -237,7 +275,7 @@ def main() -> int:
             with open(args.out, "a") as f:
                 f.write(line + "\n")
 
-    kernel_rows(torch, bs, fa, Timer(torch), emit)
+    kernel_rows(torch, bs, fa, Timer(torch), emit, args.fwd_ref)
     if not args.no_paths:
         path_rows(torch, bs, emit)
     return 0

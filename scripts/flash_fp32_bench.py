@@ -3,11 +3,14 @@
 port on one CUDA card: B1's forward and B2's dq and dk/dv (with delta) at
 the kernel table's shapes, beside SDPA's forward and backward in fp32 and
 both bounds (three TF32 passes at the TF32 peak; one fp32 pass on the CUDA
-cores), and the device-busy time of ``chip_smoke.py`` phase 3's fp32 scoring
-forward (GPT-2-125M, B4 x T512) and of one phase 5a fp32 training step
-(the same model and shape, one micro-step, AdamW + clipping).
+cores), B2's delta in fp32 and bf16 at the same backward shapes (phase 5b's
+B8 x T512 H12 D64 among them) beside one ``einsum`` of rowsum(dO * O) and
+its byte bound, and the device-busy time of ``chip_smoke.py`` phase 3's fp32
+scoring forward (GPT-2-125M, B4 x T512) and of one phase 5a fp32 training
+step (the same model and shape, one micro-step, AdamW + clipping).
 
     python3 scripts/flash_fp32_bench.py [--tree DIR] [--tag NAME] [--out FILE] [--no-paths]
+                                        [--delta-sweep]
 
 ``--tree`` names the checkout whose ``deepspeed_tpu_torch`` is imported and
 built (default: the one holding this script). To compare two commits on one
@@ -18,7 +21,9 @@ the tree's route for fp32 inputs. Kernel times are CUDA events around one
 call with the L2 flushed before it and the host's launch kept out (median
 of 15), as ``chip_smoke.py`` times them; busy times are the kernels' self
 times in a ``torch.profiler`` trace (mean of 3 calls after 2 warm-ups).
-``--no-paths`` times the kernels alone.
+``--no-paths`` times the kernels alone; ``--delta-sweep`` adds delta over T
+256-8192 with the L2 evicted by writes and by reads, beside ``torch.mul``
+and an empty launch (what holds a byte-bound kernel of ~10 us).
 """
 
 from __future__ import annotations
@@ -107,6 +112,63 @@ def kernel_rows(torch, fa, timer, emit, route):
         del q, k, v, do, o, lse, grads, ref, delta
         torch.cuda.empty_cache()
 
+    # B2's delta (o and dO read once, delta written once: byte-bound) in fp32
+    # and bf16, o a strided view of a fused buffer as the training path's is
+    for B, T, S, H, D, causal in BWD_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            dtype = getattr(torch, dt)
+            o = randn((B, T, 2 * H * D), dtype)[..., H * D:].reshape(B, T, H, D)
+            do = randn((B, T, H, D), dtype)
+            delta = fa.flash_attention_bwd_delta(o, do)
+            bitwise = torch.equal(delta, fa.flash_attention_bwd_delta(o, do))
+            err = (delta - fa.flash_attention_bwd_delta_ref(o, do)).abs().max().item()
+            bms, by = flash_bwd_bounds(B, T, S, H, D, causal, dt, o.element_size())["delta"]
+            emit({"kernel": "B2 delta", "B": B, "T": T, "H": H, "D": D, "dtype": dt,
+                  "max_abs_err": err, "bitwise_rerun": bitwise,
+                  "kernel_ms": timer.ms(lambda: fa.flash_attention_bwd_delta(o, do)),
+                  "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_delta_ref(o, do)),
+                  "library_ms": timer.ms(lambda: torch.einsum("bthd,bthd->bht", o, do)),
+                  "bound_ms": bms, "bound_by": by})
+            del o, do, delta
+            torch.cuda.empty_cache()
+
+
+class ReadFlushTimer(Timer):
+    """``Timer`` that evicts the L2 cache by reading 128 MB: the lines left
+    behind are clean, so a kernel's reads evict nothing that must be written
+    back first."""
+
+    def flush(self):
+        self.flush_buf.sum()
+
+
+def delta_sweep(torch, fa, emit):
+    """What holds B2's delta: its time at B8 H12 D64 over T 256-8192 (bf16
+    and fp32), with the L2 evicted by writes (``Timer``, as every kernel is
+    timed) and by reads, beside ``torch.mul(o, dO)`` (reads both, writes one)
+    and an empty launch's time (``zero_`` of one element)."""
+    timer, read_timer = Timer(torch), ReadFlushTimer(torch)
+    one = torch.empty(1, device="cuda")
+    emit({"kernel": "empty launch", "write_flush_ms": timer.ms(lambda: one.zero_()),
+          "read_flush_ms": read_timer.ms(lambda: one.zero_())})
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    B, H, D = 8, 12, 64
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        for T in (256, 512, 1024, 2048, 4096, 8192):
+            o, do = (torch.randn((B, T, H, D), generator=gen, device="cuda").to(dtype)
+                     for _ in range(2))
+            bms, _ = flash_bwd_bounds(B, T, T, H, D, True, dt, o.element_size())["delta"]
+            emit({"kernel": "B2 delta sweep", "B": B, "T": T, "H": H, "D": D, "dtype": dt,
+                  "bytes": 2 * o.numel() * o.element_size() + B * H * T * 4,
+                  "write_flush_ms": timer.ms(lambda: fa.flash_attention_bwd_delta(o, do)),
+                  "read_flush_ms": read_timer.ms(lambda: fa.flash_attention_bwd_delta(o, do)),
+                  "mul_write_flush_ms": timer.ms(lambda: torch.mul(o, do)),
+                  "mul_read_flush_ms": read_timer.ms(lambda: torch.mul(o, do)),
+                  "bound_ms": bms})
+            del o, do
+            torch.cuda.empty_cache()
+
 
 def path_rows(torch, emit, route):
     """Device busy of phase 3's fp32 scoring forward and of one phase 5a
@@ -153,6 +215,7 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--no-paths", action="store_true")
+    ap.add_argument("--delta-sweep", action="store_true")
     args = ap.parse_args()
     import torch
 
@@ -179,6 +242,8 @@ def main() -> int:
                 f.write(line + "\n")
 
     kernel_rows(torch, fa, Timer(torch), emit, route)
+    if args.delta_sweep:
+        delta_sweep(torch, fa, emit)
     if not args.no_paths:
         path_rows(torch, emit, route)
     return 0

@@ -3,10 +3,11 @@ and the plain versions of its rounding against the JAX package's B9.
 
 ``blocksparse_attention_split_ref`` and ``blocksparse_attention_bwd_split_ref``
 compute what the card's tensor-core kernels compute for bf16 / fp16 inputs
-(the forward at blocks of 64 and 128, the backward at every block: 16-bit
-operands, fp32 sums, P and dS as hi + lo halves of the dtype, fp16 with its
-powers of two; the backward's 64-token tiles hold several blocks of 16 or 32,
-and its fp16 row scales run over those tiles). The reference side is
+(the forward and the backward at every block: 16-bit operands, fp32 sums, P
+and dS as hi + lo halves of the dtype, fp16 with its powers of two; the
+kernels' 64-token tiles hold several blocks of 16 or 32, the forward's
+running maximum moves once a tile, and the backward's fp16 row scales run
+over those tiles). The reference side is
 ``deepspeed_tpu.ops.pallas.blocksparse_attention`` in the same dtype (the
 Pallas kernels in interpret mode on the CPU, as
 ``tests/test_sparse_attention.py`` runs them): every operand widened to fp32,
@@ -166,9 +167,7 @@ def test_single_cast_of_p_misses_the_bar(dtype):
 
 
 def _route(dtype, block, pass_):
-    if pass_ == "bwd":
-        return "tf32" if dtype == torch.float32 else "tc"
-    return "tc" if dtype != torch.float32 and block >= 64 else "cuda"
+    return "tf32" if dtype == torch.float32 else "tc"
 
 
 ROUTES = [(dt, block, D, pass_, _route(dt, block, pass_))
@@ -179,10 +178,9 @@ ROUTES = [(dt, block, D, pass_, _route(dt, block, pass_))
 @pytest.mark.parametrize("dtype,block,D,pass_,route", ROUTES,
                          ids=[f"{str(r[0])[6:]}-b{r[1]}-d{r[2]}-{r[3]}" for r in ROUTES])
 def test_bs_route(dtype, block, D, pass_, route):
-    """The forward: bf16 / fp16 at blocks of 64 and 128 take the tensor
-    cores, fp32 and blocks of 16 / 32 the CUDA cores. The backward: the
-    tensor cores at every block, bf16 / fp16 on 16-bit operands and fp32 as
-    3xTF32. At every head dim the kernels are built for."""
+    """Both passes on the tensor cores at every block: bf16 / fp16 on 16-bit
+    operands ("tc"), fp32 as 3xTF32 ("tf32"). At every head dim the kernels
+    are built for."""
     assert bs.bs_route(dtype, block, D, pass_) == route
 
 
@@ -196,21 +194,25 @@ def test_bs_route_raises_for_unbuilt_shapes_and_dtypes(dtype, block, D, error):
 
 
 def test_work_order_puts_the_longest_lists_first():
-    """The kernels hand out (head, block) and (head, tile) pairs by their
-    count, largest first, ties in index order; the device tables carry the
-    forward's layout tables and the backward's tile tables with an order
-    for each count."""
+    """The kernels hand out (head, tile) pairs by their count, largest
+    first, ties in index order; the device tables carry the tile tables,
+    which every kernel walks, with an order for each count. At blocks of 128
+    a query tile's list is its block's list expanded to 64-key tiles, in the
+    same ascending order."""
     cnt = np.array([[1, 3, 2], [3, 0, 1]], np.int32)
     assert bs.work_order(cnt).tolist() == [1, 3, 2, 0, 5, 4]
     layout = _layout("fixed", 128)
     t = bs.device_tables(layout, 128, "cpu")
-    kidx, kcnt, _, _ = bs.layout_tables(layout)
-    np.testing.assert_array_equal(t.kidx.numpy(), kidx)
-    np.testing.assert_array_equal(t.kcnt.numpy(), kcnt)
     for got, ref in zip((t.qt_idx, t.qt_cnt, t.qt_mask, t.kt_idx, t.kt_cnt, t.kt_mask),
                         bs.tile_tables(layout, 128)):
         np.testing.assert_array_equal(got.numpy(), ref)
-    for order, cnt in ((t.q_order, t.kcnt), (t.qt_order, t.qt_cnt), (t.kt_order, t.kt_cnt)):
+    kidx, kcnt, _, _ = bs.layout_tables(layout)
+    for tile in range(t.qt_cnt.shape[1]):
+        blocks = kidx[:, tile // 2, :]
+        for h in range(H):
+            want = [2 * j + f for j in blocks[h, :kcnt[h, tile // 2]] for f in (0, 1)]
+            assert t.qt_idx[h, tile, :t.qt_cnt[h, tile]].tolist() == want
+    for order, cnt in ((t.qt_order, t.qt_cnt), (t.kt_order, t.kt_cnt)):
         assert order.dtype == torch.int32 and sorted(order.tolist()) == list(range(cnt.numel()))
         assert (np.diff(cnt.reshape(-1)[order.long()].numpy()) <= 0).all()
 
@@ -224,8 +226,8 @@ def test_cpu_tensors_never_reach_a_library(monkeypatch, dtype):
         raise AssertionError(f"a CPU call reached the kernel library {name}")
 
     monkeypatch.setattr(_build, "load", refuse)
-    counters = ("launches", "tc_launches", "bwd_dq_tc_launches", "bwd_dkv_tc_launches",
-                "bwd_dq_tf32_launches", "bwd_dkv_tf32_launches")
+    counters = ("fwd_tc_launches", "fwd_tf32_launches", "bwd_dq_tc_launches",
+                "bwd_dkv_tc_launches", "bwd_dq_tf32_launches", "bwd_dkv_tf32_launches")
     before = [getattr(bs, c) for c in counters]
     layout, block = _layout("fixed", 128), 128
     q, k, v, do = (torch.from_numpy(x).to(dtype) for x in _inputs(64, "float32", 1.0, seed=9))

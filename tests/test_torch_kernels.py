@@ -277,6 +277,32 @@ def test_flash_backward_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, pytest.param(96, id="d96"), 128])
+@pytest.mark.parametrize("B,T,H", [(8, 512, 12), (2, 100, 12), (3, 37, 5)])
+def test_flash_delta_kernel_rerun_bitwise_and_within_fp32_rounding(cuda_device, dtype, D, B,
+                                                                   T, H):
+    """B2's delta = rowsum(dO * O) in every dtype and head dim, with o read
+    as a strided view of a fused buffer and row counts off the kernel's
+    block of rows (B3 T37 H5): one launch a call, bitwise equal on a re-run,
+    and within fp32 rounding of the plain version (both sum D products in
+    fp32 in another order: each row within 2 D 2^-24 of its sum of |dO O|)."""
+    fused = _normal((B, T, 2 * H * D), cuda_device, dtype, 31)
+    o = fused[..., H * D:].reshape(B, T, H, D)
+    do = _normal((B, T, H, D), cuda_device, dtype, 32)
+    before = _counts()
+    delta = fa.flash_attention_bwd_delta(o, do)
+    again = fa.flash_attention_bwd_delta(o, do)
+    torch.cuda.synchronize()
+    assert _moved(before, _counts()) == {"bwd_delta_launches": 2}
+    assert delta.shape == (B * H, T) and delta.dtype == torch.float32
+    assert torch.equal(delta, again)
+    ref = fa.flash_attention_bwd_delta_ref(o, do)
+    mag = (do.float() * o.float()).abs().sum(-1).transpose(1, 2).reshape(B * H, T)
+    assert ((delta - ref).abs() <= 2 * D * 2.0**-24 * mag).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("D", [64, pytest.param(96, id="d96"), 128])
 def test_flash_backward_fp16_small_gradients_on_the_card(cuda_device, D):
     """fp16 with dO 2^-8 of unit scale, as a loss averaged over many tokens
@@ -948,9 +974,9 @@ def _bs_layouts():
     ]
 
 
-# B9's counters: the forward's by route ("cuda", "tc"), the backward's
-# (dq, dk/dv) by route ("tc": bf16 / fp16, "tf32": fp32)
-_BS_FWD_COUNTERS = {"cuda": "launches", "tc": "tc_launches"}
+# B9's counters by route ("tc": bf16 / fp16, "tf32": fp32): the forward's,
+# and the backward's (dq, dk/dv)
+_BS_FWD_COUNTERS = {"tc": "fwd_tc_launches", "tf32": "fwd_tf32_launches"}
 _BS_BWD_COUNTERS = {"tc": ("bwd_dq_tc_launches", "bwd_dkv_tc_launches"),
                     "tf32": ("bwd_dq_tf32_launches", "bwd_dkv_tf32_launches")}
 
@@ -961,10 +987,10 @@ def _bs_counts(bs):
 
 
 def _bs_route_counts(bs, dtype, block, D):
-    """The counters one forward and two backward runs move at ``dtype``,
+    """The counters two forward and two backward runs move at ``dtype``,
     ``block`` and ``D`` (``bs_route`` of each pass)."""
     fwd = _BS_FWD_COUNTERS[bs.bs_route(dtype, block, D, "fwd")]
-    return {fwd: 1, **dict.fromkeys(_BS_BWD_COUNTERS[bs.bs_route(dtype, block, D, "bwd")], 2)}
+    return {fwd: 2, **dict.fromkeys(_BS_BWD_COUNTERS[bs.bs_route(dtype, block, D, "bwd")], 2)}
 
 
 @pytest.mark.cuda
@@ -973,12 +999,15 @@ def _bs_route_counts(bs, dtype, block, D):
 @pytest.mark.parametrize("case", range(9))
 def test_blocksparse_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, rtol, D, case):
     """B9 (forward, dq with delta, dk/dv) vs the plain versions, with q/k/v
-    read as views of one fused buffer, and two backward runs giving
-    bitwise-equal gradients (no atomics), each pass through its route's
-    kernels (the backward on the tensor cores at every block: fp32 as
-    3xTF32). o within the forward tolerances (fp32 5e-5, bf16 2e-2), lse
-    within 1e-4, gradients relative to the largest entry; fp32 gradients
-    also within 5e-5 of the CPU model of the 3xTF32 arithmetic
+    read as views of one fused buffer, two forward and two backward runs
+    giving bitwise-equal outputs (no atomics), each pass through its route's
+    kernels (every pass on the tensor cores at every block: fp32 as 3xTF32,
+    bf16 on 16-bit operands). fp32 o within 5e-5 of the largest entry of the
+    plain version and of the CPU model of the 3xTF32 forward
+    (``blocksparse_attention_fwd_tf32_ref``), bf16 o within 2 ulps of the
+    fp32 function and of the split model on entries of at least 1e-3 of the
+    largest; lse within 1e-4; gradients relative to the largest entry, fp32
+    gradients also within 5e-5 of the CPU model of the 3xTF32 backward
     (``blocksparse_attention_bwd_tf32_ref``)."""
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
 
@@ -991,15 +1020,25 @@ def test_blocksparse_kernels_match_plain_and_rerun_bitwise(cuda_device, dtype, r
     tables = bs.device_tables(layout, block, cuda_device)
     before = _bs_counts(bs)
     o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
+    o2, lse2 = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
     grads = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                          tables=tables)
     again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                          tables=tables)
     torch.cuda.synchronize()
     assert _moved(before, _bs_counts(bs)) == _bs_route_counts(bs, dtype, block, D)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
     assert (o.float() - o_ref.float()).abs().max().item() <= (5e-5 if dtype == torch.float32
                                                               else 2e-2)
+    if dtype == torch.float32:
+        o_model, lse_model = bs.blocksparse_attention_fwd_tf32_ref(q, k, v, layout, block, causal)
+        for ref in (o_ref, o_model):
+            assert (o - ref).abs().max().item() <= 5e-5 * ref.abs().max().item()
+        assert (lse - lse_model).abs().max().item() <= 1e-4
+    else:
+        o_split, _ = bs.blocksparse_attention_split_ref(q, k, v, layout, block, causal)
+        assert ulp_err(o, o_ref, dtype) <= 2.0 and ulp_err(o, o_split, dtype) <= 2.0
     assert (lse - lse_ref).abs().max().item() <= 1e-4
     scale = 1.0 / np.sqrt(D)
     dq_ref, delta = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block,
@@ -1064,9 +1103,9 @@ def _bs_tc_layouts():
     sparse GPT's Fixed unidirectional layout at blocks of 128 and 64,
     BigBird with a layout per head, BSLongformer not causal, a layout with
     an empty block row (head 1) and an empty block column (head 0); and at
-    blocks of 16 and 32 (the backward on the tensor cores, several blocks a
-    64-token tile; the forward on the CUDA cores): Variable, BSLongformer
-    not causal, LocalSlidingWindow at a T off 64-token tiles."""
+    blocks of 16 and 32 (several blocks a 64-token tile, each entry tested
+    against its sub-block's bit): Variable, BSLongformer not causal,
+    LocalSlidingWindow at a T off 64-token tiles."""
     from deepspeed_tpu_torch.ops import sparse_attention as sa
 
     H = 4
@@ -1102,12 +1141,12 @@ def _bs_tc_layouts():
 @pytest.mark.parametrize("D", [64, pytest.param(96, id="d96"), 128])
 @pytest.mark.parametrize("case", range(8))
 def test_blocksparse_tc_kernels_within_two_ulps_and_rerun_bitwise(cuda_device, dtype, D, case):
-    """B9 on the tensor cores (bf16 / fp16; the forward at blocks 64 / 128,
-    the backward at every block): the forward, dq and dk/dv within 2 ulps of
-    the dtype of the fp32 plain versions and of the split plain versions
-    (the kernels' own rounding) on entries of at least 1e-3 of the largest,
-    lse within 1e-4; a single cast of P more than 2 ulps off; the backward
-    bitwise on a re-run; only the route's counters move. fp16 also runs with
+    """B9 on the tensor cores (bf16 / fp16, every pass at every block): the
+    forward, dq and dk/dv within 2 ulps of the dtype of the fp32 plain
+    versions and of the split plain versions (the kernels' own rounding) on
+    entries of at least 1e-3 of the largest, lse within 1e-4; a single cast
+    of P more than 2 ulps off; the forward and the backward bitwise on a
+    re-run; only the route's counters move. fp16 also runs with
     dO 2^-8 of unit scale, where dS lies below fp16's normal range unless the
     kernels scale its rows."""
     from deepspeed_tpu_torch.ops.cuda import blocksparse_attention as bs
@@ -1118,25 +1157,25 @@ def test_blocksparse_tc_kernels_within_two_ulps_and_rerun_bitwise(cuda_device, d
     qkv = _normal((2, T, 3 * H * D), cuda_device, dtype, 70 + case)
     q, k, v = (t.reshape(2, T, H, D) for t in qkv.split(H * D, dim=-1))
     tables = bs.device_tables(layout, block, cuda_device)
-    assert bs.bs_route(dtype, block, D, "bwd") == "tc"
+    assert bs.bs_route(dtype, block, D, "fwd") == bs.bs_route(dtype, block, D, "bwd") == "tc"
     for do_scale in (1.0, 2.0**-8) if dtype == torch.float16 else (1.0,):
         do = _normal((2, T, H, D), cuda_device, dtype, 90 + case) * do_scale
         before = _bs_counts(bs)
         o, lse = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
+        o2, lse2 = bs.blocksparse_attention_fwd(q, k, v, layout, block, causal, tables=tables)
         grads = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                              tables=tables)
         again = bs.blocksparse_attention_bwd(q, k, v, o, lse, do, layout, block, causal,
                                              tables=tables)
         torch.cuda.synchronize()
         assert _moved(before, _bs_counts(bs)) == _bs_route_counts(bs, dtype, block, D)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
         o_ref, lse_ref = bs.blocksparse_attention_fwd_ref(q, k, v, layout, block, causal)
         assert ulp_err(o, o_ref, dtype) <= 2.0
         assert (lse - lse_ref).abs().max().item() <= 1e-4
-        if bs.bs_route(dtype, block, D, "fwd") == "tc":  # the forward's rounding (64 / 128)
-            o_split, lse_split = bs.blocksparse_attention_split_ref(q, k, v, layout, block,
-                                                                    causal)
-            assert ulp_err(o, o_split, dtype) <= 2.0
-            assert (lse - lse_split).abs().max().item() <= 1e-4
+        o_split, lse_split = bs.blocksparse_attention_split_ref(q, k, v, layout, block, causal)
+        assert ulp_err(o, o_split, dtype) <= 2.0
+        assert (lse - lse_split).abs().max().item() <= 1e-4
         scale = 1.0 / np.sqrt(D)
         dq_ref, delta = bs.blocksparse_attention_bwd_dq_ref(q, k, v, o, do, lse, layout, block,
                                                             causal, scale)
