@@ -268,6 +268,28 @@ result line):
    ``generate`` (B4), (e) n-gram speculative serving = spec-off (B5), each
    with exact launch counts.
 
+12. checkpointing: GPT-2-125M at full width and depth, the tags under a
+   ``tempfile.mkdtemp()`` directory (its free space printed first), each
+   part's removed as soon as it ends. (a) bf16 + ZeRO-2, B8 x T512 (5b's
+   configuration): 5 uninterrupted steps from seed 0; a second engine takes
+   3, saves, and saves again under a second tag; a third, from seed 1,
+   loads (the newer tag, through ``latest``) and takes steps 4-5 (B1/B2 on
+   the tensor cores, 24 launches each). (b) ZeRO-3 with the quantized wire
+   and head, fp32 B4 x T512 (9a's): a save at step 2, a load into a fresh
+   engine, step 3 (B8 once, the 3xTF32 flash kernels 12 times). In both the
+   loaded state is bitwise the saver's (``torch.equal`` on the card) and
+   the resumed losses and grad norms are within rtol 1e-6 of the
+   uninterrupted run's (whether bitwise is printed); the save and
+   verified-load ms, the tag's bytes, GB/s and checksum are printed. (c)
+   mid-accumulation at 5c's gas 2 x 4 (fp32) through ``forward`` /
+   ``backward`` / ``step``: a save after the first micro-step, a load, the
+   window finished: the accumulation buffer and then the params bitwise
+   those of the uninterrupted window. (d) ``save_16bit_model`` after (a):
+   every array of the ``.npz`` bitwise the engine's params. (e) one byte of
+   one array of (a)'s newer tag flipped: ``load_checkpoint(tag=None)``
+   falls back to the older committed tag and logs the rejection, and the
+   newer tag by name raises ``CheckpointCorruptionError``.
+
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
@@ -3745,6 +3767,230 @@ def phase_head_dim_96(torch, ctx):
     torch.cuda.empty_cache()
 
 
+def _state_diff(torch, a, b):
+    """Keys of the train-state leaves of engines ``a`` and ``b`` that are not
+    bitwise equal (``torch.equal`` on the card)."""
+    from deepspeed_tpu_torch.checkpoint.serialization import flatten_with_paths
+
+    fa, fb = flatten_with_paths(a.state), flatten_with_paths(b.state)
+    if [k for k, _ in fa] != [k for k, _ in fb]:
+        return ["<structure>"]
+    return [k for (k, x), (_, y) in zip(fa, fb) if not torch.equal(x, y)]
+
+
+def _tag_bytes(tag_dir: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(tag_dir) for f in files)
+
+
+def _timed(torch, fn):
+    """(fn's result, wall ms), the device drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _resume_run(torch, name, conf, cfg, batches, split, root, retag=None):
+    """Phase 12's resume check. An uninterrupted run of ``batches`` from
+    seed 0; a second engine takes the first ``split`` steps and saves (and,
+    with ``retag``, saves again under that tag); a third, built from seed 1
+    so that the load must replace everything, loads the newest tag and takes
+    the rest. Checks the loaded state bitwise against the saver's, and the
+    resumed steps' losses and grad norms against the uninterrupted run's to
+    rtol 1e-6 (the reference's bar, ``tests/test_checkpoint.py``). Returns
+    (saver, loader, launches of the resumed steps, the report dict)."""
+    import os
+
+    from deepspeed_tpu_torch.ops.cuda import dequant_matmul as dqm
+
+    ref = _engine(conf, cfg)
+    metrics = [ref.train_batch(b) for b in batches]
+    ref_curve = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+    del ref, metrics
+    saver = _engine(conf, cfg)
+    for b in batches[:split]:
+        saver.train_batch(b)
+    tag_dir, save_ms = _timed(torch, lambda: saver.save_checkpoint(root))
+    if retag:
+        saver.save_checkpoint(root, tag=retag)
+    loader = _engine(conf, cfg, seed=1)
+    (path, _), load_ms = _timed(torch, lambda: loader.load_checkpoint(root))
+    check(path.endswith(retag or tag_dir.rsplit("/", 1)[-1]), f"12{name}: loaded {path}")
+    diff = _state_diff(torch, saver, loader)
+    fa, _ = _reset_counts()  # the resumed training main path
+    metrics = [loader.train_batch(b) for b in batches[split:]]
+    torch.cuda.synchronize()
+    launches = {"b8": dqm.tc_launches, **_flash_launches(fa)}
+    curve = [(m["loss"].item(), m["grad_norm"].item()) for m in metrics]
+    nbytes = _tag_bytes(tag_dir)
+    with open(os.path.join(tag_dir, "MANIFEST.json")) as f:
+        algo = json.load(f)["checksum"]
+    rep = dict(save_ms=save_ms, load_ms=load_ms, bytes=nbytes, algo=algo,
+               save_gb_s=nbytes / save_ms / 1e6, load_gb_s=nbytes / load_ms / 1e6)
+    log(f"phase12{name} resume after step {split}: resumed (loss, grad_norm)={curve} "
+        f"uninterrupted={ref_curve[split:]} bitwise={curve == ref_curve[split:]} "
+        f"state leaves differing after load={diff} launches={launches} tag_bytes={nbytes} "
+        f"checksum={algo} save_ms={save_ms:.1f} ({rep['save_gb_s']:.3f} GB/s) "
+        f"verified_load_ms={load_ms:.1f} ({rep['load_gb_s']:.3f} GB/s)")
+    check(not diff, f"12{name}: loaded leaves differ from the saver's: {diff}")
+    check(np.allclose(curve, ref_curve[split:], rtol=1e-6, atol=0),
+          f"12{name}: resumed {curve} vs uninterrupted {ref_curve[split:]}")
+    return saver, loader, launches, rep
+
+
+def phase_checkpoint(torch, ctx):
+    """Phase 12: checkpointing on GPT-2-125M at full width and depth, the tags
+    under a ``tempfile.mkdtemp()`` directory, each part's removed when it ends.
+    (a) bf16 + ZeRO-2, B8 x T512 (5b's configuration): 5 uninterrupted steps;
+    3 steps, a save, a second save at step 3 under another tag; an engine
+    from another seed loads and takes steps 4-5. (b) ZeRO-3 with the
+    quantized wire and head, fp32 B4 x T512 (9a's): a save at step 2, a
+    load, step 3, B8 once. Both: the loaded state bitwise the saver's, the
+    resumed losses and grad norms within rtol 1e-6 of the uninterrupted run
+    (whether bitwise is printed), save and verified-load ms, the tag's bytes
+    and GB/s, the checksum. (c) mid-accumulation at 5c's gas 2 x 4 (fp32)
+    through ``forward`` / ``backward`` / ``step``: a save after the first
+    micro-step, a load, the window finished: the params bitwise those of the
+    uninterrupted window. (d) ``save_16bit_model`` after (a): every array
+    bitwise the params. (e) a byte of one array of (a)'s newer tag flipped:
+    ``load_checkpoint(tag=None)`` falls back to the older tag and logs the
+    rejection; the newer tag by name raises ``CheckpointCorruptionError``."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.checkpoint.serialization import flatten_with_paths
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.resilience import CheckpointCorruptionError
+    from deepspeed_tpu_torch.utils.logging import logger
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    V, L = cfg.vocab_size, cfg.n_layer
+    rng = np.random.default_rng(12)
+    root = tempfile.mkdtemp(prefix="ckpt12_")
+    log(f"phase12 tags under {root}: free disk {shutil.disk_usage(root).free / 1e9:.1f} GB")
+    try:
+        # (a) bf16 + ZeRO-2, 3 + 2 steps around a save
+        dir_a = os.path.join(root, "a")
+        conf = _train_config(8, bf16={"enabled": True}, zero_optimization={"stage": 2})
+        batches = [{"input_ids": rng.integers(0, V, (8, 512)).astype(np.int32)}
+                   for _ in range(5)]
+        saver, loader, launches, rep = _resume_run(torch, "a", conf, cfg, batches, 3, dir_a,
+                                                   retag="resave_global_step3")
+        want = path_launches({k: v for k, v in launches.items() if k != "b8"}, 2 * L,
+                             _flash_path("bfloat16"))
+        check(launches == {"b8": 0, **want}, f"12a launches {launches}, expected {want}")
+        ctx["ckpt12"] = {"a": rep}
+
+        # (d) save_16bit_model of the resumed engine
+        path, ms16 = _timed(torch, lambda: loader.save_16bit_model(os.path.join(root, "m16")))
+        with np.load(path) as npz:
+            stored = {k: npz[k] for k in npz.files}
+        bad = []
+        for key, p in flatten_with_paths(loader.state["params"]):
+            arr = stored.pop(f"{key}::bfloat16", None)
+            t = None if arr is None else torch.from_numpy(arr.view(np.int16)).view(
+                torch.bfloat16).to(p.device)
+            if t is None or not torch.equal(t, p.detach()):
+                bad.append(key)
+        log(f"phase12d save_16bit_model: {os.path.getsize(path)} bytes in {ms16:.1f} ms, "
+            f"arrays not bitwise the params={bad} extra keys={sorted(stored)}")
+        check(not bad and not stored, f"12d: {bad} / {sorted(stored)}")
+
+        # (e) one flipped byte in the newer tag
+        victim = os.path.join(dir_a, "resave_global_step3", "state", "arrays", "0.npy")
+        with open(victim, "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([byte[0] ^ 0x01]))
+        records = []
+        handler = logging.Handler(level=logging.ERROR)
+        handler.emit = records.append
+        logger.addHandler(handler)
+        try:
+            fallback, _ = loader.load_checkpoint(dir_a)
+        finally:
+            logger.removeHandler(handler)
+        rejected = [r.getMessage() for r in records if "resave_global_step3" in r.getMessage()]
+        diff = _state_diff(torch, saver, loader)
+        try:
+            loader.load_checkpoint(dir_a, tag="resave_global_step3")
+            strict = "loaded"
+        except CheckpointCorruptionError as e:
+            strict = f"CheckpointCorruptionError: {e.reason}"
+        log(f"phase12e flipped a byte of resave_global_step3/state/arrays/0.npy: tag=None "
+            f"loaded {fallback} (rejections logged: {rejected}); leaves differing from the "
+            f"saver's={diff}; tag=resave_global_step3 -> {strict}")
+        check(fallback.endswith("/global_step3") and rejected and not diff,
+              f"12e: fallback {fallback}, rejections {rejected}, diff {diff}")
+        check(strict.startswith("CheckpointCorruptionError"), f"12e: strict load {strict}")
+        del saver, loader
+        shutil.rmtree(dir_a)
+        torch.cuda.empty_cache()
+
+        # (b) ZeRO-3, quantized wire and head, fp32 B4 x T512, 2 + 1 steps
+        dir_b = os.path.join(root, "b")
+        batches = [{"input_ids": rng.integers(0, V, (4, 512)).astype(np.int32)}
+                   for _ in range(3)]
+        saver, loader, launches, rep = _resume_run(
+            torch, "b", _train_config(4, zero_optimization=ZERO3Q), cfg, batches, 2, dir_b)
+        want = path_launches({k: v for k, v in launches.items() if k != "b8"}, L,
+                             _flash_path("float32"))
+        check(launches == {"b8": 1, **want}, f"12b launches {launches}, expected B8 1 and {want}")
+        ctx["ckpt12"]["b"] = rep
+        del saver, loader
+        shutil.rmtree(dir_b)
+        torch.cuda.empty_cache()
+
+        # (c) mid-accumulation: gas 2 x micro 4, fp32, a save after micro-step 1
+        dir_c = os.path.join(root, "c")
+        conf = _train_config(4, gas=2)
+        rows = rng.integers(0, V, (2, 4, 512)).astype(np.int32)
+
+        def micro(engine, i):
+            engine.backward(engine.forward({"input_ids": rows[i]}))
+            engine.step()
+
+        ref = _engine(conf, cfg)
+        micro(ref, 0)
+        micro(ref, 1)
+        want_params = [t.detach().clone() for t in tree_leaves(ref.state["params"])]
+        del ref
+        saver = _engine(conf, cfg)
+        micro(saver, 0)
+        _, save_ms = _timed(torch, lambda: saver.save_checkpoint(dir_c))
+        loader = _engine(conf, cfg, seed=1)
+        _, load_ms = _timed(torch, lambda: loader.load_checkpoint(dir_c))
+        acc_equal = all(torch.equal(a, b) for a, b in zip(saver._grad_acc, loader._grad_acc))
+        diff = _state_diff(torch, saver, loader)
+        fa, _ = _reset_counts()  # the resumed accumulation window
+        micro(loader, 1)
+        torch.cuda.synchronize()
+        launches = _flash_launches(fa)
+        params_equal = all(torch.equal(a, b) for a, b in
+                           zip(tree_leaves(loader.state["params"]), want_params))
+        log(f"phase12c mid-accumulation gas 2 x micro 4 fp32: saved after micro-step 1 "
+            f"({save_ms:.1f} ms), loaded ({load_ms:.1f} ms): grad_acc bitwise={acc_equal} "
+            f"state leaves differing={diff}; after step(): global_steps={loader.global_steps} "
+            f"params bitwise the uninterrupted window's={params_equal} launches={launches}")
+        check(acc_equal and not diff, f"12c: grad_acc {acc_equal}, leaves {diff}")
+        check(params_equal and loader.global_steps == 1, "12c: params differ after the window")
+        want = path_launches(launches, L, _flash_path("float32"))
+        check(launches == want, f"12c launches {launches}, expected {want}")
+        del saver, loader
+        shutil.rmtree(dir_c)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3759,7 +4005,7 @@ def main() -> int:
     failures = []
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
                   phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
-                  phase_sparse, phase_head_dim_96):
+                  phase_sparse, phase_head_dim_96, phase_checkpoint):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)

@@ -13,7 +13,9 @@ with the quantized weight wire and LM head, data parallel over the ranks of
 ``comm.init_distributed``),
 KV-cache greedy generation through :func:`init_inference` (dense, or int8 /
 int4 weights with ``quant={"enabled": True, ...}``), and continuous-batching
-paged serving (``inference.serving``).
+paged serving (``inference.serving``), and checkpointing
+(``engine.save_checkpoint`` / ``load_checkpoint`` in the JAX package's
+universal format, :mod:`.checkpoint`).
 """
 
 from __future__ import annotations

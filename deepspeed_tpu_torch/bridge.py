@@ -109,6 +109,26 @@ def _map_opt(state: Any, fn) -> Any:
                          for f, v in zip(state._fields, state)))
 
 
+def map_param_trees(state: Dict[str, Any], fn) -> Dict[str, Any]:
+    """``fn`` over the parameter-shaped trees of a train state: ``params``,
+    ``master`` (when there is one) and the optimizer state's moments."""
+    return {**state, "params": fn(state["params"]),
+            "master": fn(state["master"]) if state["master"] else {},
+            "opt": _map_opt(state["opt"], fn)}
+
+
+def join_tree(tree: Any, specs: Any) -> Any:
+    """Every rank's slices of a parameter-shaped tree joined into the full
+    leaves, in their dtype (a collective: every rank calls it)."""
+    return tree_map(lambda t, d: t.detach() if d is None else comm.all_gather(t.detach(), axis=d),
+                    tree, specs)
+
+
+def join_state(state: Dict[str, Any], specs: Any) -> Dict[str, Any]:
+    """:func:`join_tree` over every parameter-shaped tree of a train state."""
+    return map_param_trees(state, lambda tree: join_tree(tree, specs))
+
+
 def train_state_from_numpy(state: Dict[str, Any], device=None,
                            dtype: Optional[torch.dtype] = None,
                            policy: Any = None) -> Dict[str, Any]:
@@ -119,19 +139,16 @@ def train_state_from_numpy(state: Dict[str, Any], device=None,
     engine's ``zero_policy``) cuts every parameter-shaped tree to this
     rank's slices."""
     dev = resolve_device(device)
-    master = state.get("master") or {}
-    opt = state["opt"]
+    state = {**state, "master": state.get("master") or {}}
     if policy is not None:
         specs = policy.tree_param_specs(state["params"])
-        cut = lambda tree: policy.shard_tree(  # noqa: E731
-            tree_map(np.asarray, tree), specs)
-        state = {**state, "params": cut(state["params"])}
-        master = cut(master) if master else {}
-        opt = _map_opt(opt, cut)
+        state = map_param_trees(
+            state, lambda tree: policy.shard_tree(tree_map(np.asarray, tree), specs))
+    master = state["master"]
     return {
         "params": params_from_numpy(state["params"], dev, dtype),
         "master": params_from_numpy(master, dev, torch.float32) if master else {},
-        "opt": opt_state_from_numpy(opt, dev),
+        "opt": opt_state_from_numpy(state["opt"], dev),
         "step": _scalar(state["step"], dev, torch.int32),
         "micro": _scalar(state["micro"], dev, torch.int32),
         "scaler": scaler_state_from_numpy(state["scaler"], dev),
@@ -143,11 +160,7 @@ def train_state_to_numpy(state: Dict[str, Any], specs: Any = None) -> Dict[str, 
     fp32). ``specs`` (the engine's ``param_specs``) joins every rank's
     slices into the full leaves first."""
     if specs is not None:
-        join = lambda tree: tree_map(  # noqa: E731
-            lambda t, d: t if d is None else comm.all_gather(t.detach(), axis=d), tree, specs)
-        state = {**state, "params": join(state["params"]),
-                 "master": join(state["master"]) if state["master"] else {},
-                 "opt": _map_opt(state["opt"], join)}
+        state = join_state(state, specs)
     return {
         "params": params_to_numpy(state["params"]),
         "master": params_to_numpy(state["master"]) if state["master"] else {},

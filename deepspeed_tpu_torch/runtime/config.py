@@ -10,7 +10,8 @@ the reference's rules and error messages.
 Ported blocks: ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``prescale_gradients`` / ``gradient_predivide_factor``,
 ``communication_data_type``, ``seed``, ``steps_per_print``, ``dump_state``,
-``zero_optimization`` (see :mod:`.zero.config`), ``comms_logger``, and
+``zero_optimization`` (see :mod:`.zero.config`), ``comms_logger``,
+``checkpoint`` (the checkpoint engine), ``load_universal_checkpoint``, and
 ``mesh`` with a data-parallel axis only: ``{"dp": W}`` must name the world
 size the config is loaded for (``initialize`` passes the initialized
 process group's). Every other block the reference knows raises
@@ -134,8 +135,6 @@ _UNPORTED_BLOCKS = {
     "elasticity": (_enabled, "A11"),
     "autotuning": (_enabled, "A13"),
     "aio": (_enabled, "A12"),
-    "checkpoint": (_enabled, "A4"),
-    "load_universal_checkpoint": (bool, "A4"),
     "wall_clock_breakdown": (bool, "A3b"),
 }
 
@@ -171,6 +170,10 @@ class DeepSpeedConfig:
         default_factory=DeepSpeedZeroConfig)
     comms_logger: CommsLoggerConfig = dataclasses.field(default_factory=CommsLoggerConfig)
     mesh: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # {"checkpoint_engine": "native" | "async", "writers": N}
+    checkpoint: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # every tag is universal (each leaf stored whole): a plain flag
+    load_universal_checkpoint: bool = False
 
     # ------------------------------------------------------------------ loading
     @classmethod
@@ -184,7 +187,7 @@ class DeepSpeedConfig:
         if not isinstance(config, dict):
             raise TypeError(f"config must be a dict or path, got {type(config)}")
         blocks = {"fp16", "bf16", "optimizer", "scheduler", "zero_optimization",
-                  "comms_logger", "mesh"}
+                  "comms_logger", "mesh", "checkpoint"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         for key in config:
             if key not in scalars and key not in blocks and key not in _UNPORTED_BLOCKS:
@@ -202,6 +205,7 @@ class DeepSpeedConfig:
         self.zero_optimization = DeepSpeedZeroConfig.from_dict(config.get("zero_optimization"))
         self.comms_logger = _from_dict(CommsLoggerConfig, config.get("comms_logger"))
         self.mesh = dict(config.get("mesh") or {})
+        self.checkpoint = dict(config.get("checkpoint") or {})
         self._resolve_batch(world_size)
         self._validate(world_size)
         return self

@@ -21,7 +21,9 @@ Nothing reads a device value back per leaf: metrics come back as 0-dim
 tensors (``loss``, ``grad_norm``, ``lr``, ``loss_scale``, ``overflow``).
 With fp16 loss scaling the engine reads the overflow flag once per step,
 to skip the update. ZeRO stages 0-2 run at world size 1, where partitioning
-over one rank is the identity.
+over one rank is the identity. ``save_checkpoint`` / ``load_checkpoint``
+write and read the reference's tagged format (:mod:`..checkpoint`), the
+open accumulation window included.
 
 ZeRO stage 3 runs at any world size of the process group
 (``comm.init_distributed``; none is needed at world size 1). Each rank keeps
@@ -41,7 +43,7 @@ everything else the reference engine does and the port does not raises
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -135,6 +137,9 @@ class DeepSpeedEngine:
         self.global_steps = 0
         self.micro_steps = 0
         self.skipped_steps = 0
+        # global batches consumed (stepped on or skipped), saved in checkpoints
+        self.data_cursor = 0
+        self._ckpt_engine = None  # built from the "checkpoint" block at the first save
         self._micro = 0  # micro-steps accumulated in the open window (host mirror of state["micro"])
         self._grad_acc: Optional[List[torch.Tensor]] = None
         self._pending = None  # the scaled loss of the last imperative forward()
@@ -331,6 +336,7 @@ class DeepSpeedEngine:
     def _finish_step(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
         skipped = metrics.pop("_skipped")
         self.global_steps += 1
+        self.data_cursor += 1
         self._last_metrics = metrics
         if skipped:
             self.skipped_steps += 1
@@ -454,16 +460,38 @@ class DeepSpeedEngine:
         self.config.gradient_accumulation_steps = self.gas
         self.config.train_batch_size = train_batch_size
 
+    def load_universal_checkpoint(self) -> bool:
+        """The reference's accessor. Every tag is universal here (each leaf
+        is stored whole), so the flag selects no other path."""
+        return bool(self.config.load_universal_checkpoint)
+
+    # ------------------------------------------------------------------ checkpoint
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[dict] = None, save_latest: bool = True) -> str:
+        """A committed tag under ``save_dir`` (``global_step<N>`` by default);
+        see :func:`deepspeed_tpu_torch.checkpoint.save_checkpoint`."""
+        from ..checkpoint import save_checkpoint
+
+        return save_checkpoint(self, save_dir, tag=tag, client_state=client_state or {},
+                               save_latest=save_latest)
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_optimizer_states: bool = True) -> Tuple[Optional[str], dict]:
+        """(tag directory, client_state) of the verified tag loaded, or
+        (None, {}); see :func:`deepspeed_tpu_torch.checkpoint.load_checkpoint`."""
+        from ..checkpoint import load_checkpoint
+
+        return load_checkpoint(self, load_dir, tag=tag,
+                               load_optimizer_states=load_optimizer_states)
+
+    def save_16bit_model(self, save_dir: str, save_filename: str = "pytorch_model.npz") -> str:
+        """The compute-dtype weights in one ``.npz``; see
+        :func:`deepspeed_tpu_torch.checkpoint.save_16bit_model`."""
+        from ..checkpoint import save_16bit_model
+
+        return save_16bit_model(self, save_dir, save_filename)
+
     # ------------------------------------------------------------------ not ported yet
-    def save_checkpoint(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.save_checkpoint", "A4")
-
-    def load_checkpoint(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.load_checkpoint", "A4")
-
-    def save_16bit_model(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.save_16bit_model", "A4")
-
     def comms_verify(self, *args, **kwargs):
         raise unported("DeepSpeedEngine.comms_verify", "A9b")
 

@@ -37,6 +37,7 @@ def rank_main(rank, world, init_file, out_dir, inputs):
     torch.set_num_threads(1)
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch import bridge
+    from deepspeed_tpu_torch.checkpoint.serialization import flatten_with_paths
     from deepspeed_tpu_torch.comm import comm, quantized as tq
     from deepspeed_tpu_torch.comm.runtime_accounting import wire_ledger
     from deepspeed_tpu_torch.models import gpt
@@ -62,6 +63,8 @@ def rank_main(rank, world, init_file, out_dir, inputs):
     out["qkv_w_slice_rows"] = torch.tensor(engine.state["params"]["blocks"]["qkv_w"].shape[1])
     for k, v in first_layer(engine).items():
         out[f"layer0.{k}"] = torch.from_numpy(v)
+    ckpt = os.path.join(out_dir, "ckpt")
+    engine.save_checkpoint(ckpt, tag="init")  # every rank's slices joined, rank 0 writes
     losses, norms = train(engine, inputs["batches"])
     out["losses"], out["grad_norms"] = torch.tensor(losses), torch.tensor(norms)
     full = bridge.train_state_to_numpy(engine.state, specs=engine.param_specs)
@@ -70,6 +73,16 @@ def rank_main(rank, world, init_file, out_dir, inputs):
             out[f"final.{k}"] = torch.from_numpy(v)
     out["final.blocks.qkv_w"] = torch.from_numpy(full["params"]["blocks"]["qkv_w"])
     out["final.opt.mu.wte"] = torch.from_numpy(full["opt"].mu["wte"])
+    # the trained state saved at dp2 and loaded back into an engine from another seed
+    engine.save_checkpoint(ckpt)
+    reloaded, *_ = deepspeed_tpu_torch.initialize(model=model, config=CONFIG, device="cpu",
+                                                  seed=1)
+    reloaded.load_checkpoint(ckpt)
+    out["reload_slices_bitwise"] = torch.tensor(all(
+        torch.equal(a.detach(), b.detach()) for (_, a), (_, b) in
+        zip(flatten_with_paths(engine.state), flatten_with_paths(reloaded.state))))
+    out["reload_layer0_bitwise"] = torch.tensor(all(
+        np.array_equal(first_layer(engine)[k], v) for k, v in first_layer(reloaded).items()))
     out["wire_ratio_qgather"] = torch.tensor(wire_ledger.ratio("qgather[zero3]"))
     out["reduce_scatter_calls"] = torch.tensor(
         comm.comms_logger.records["reduce_scatter[dp]"].count)

@@ -256,8 +256,7 @@ def test_info_surface_and_set_train_batch_size():
         engine.set_train_batch_size(6)
 
 
-@pytest.mark.parametrize("method", ["save_checkpoint", "load_checkpoint", "save_16bit_model",
-                                    "comms_verify", "measure_overlap",
+@pytest.mark.parametrize("method", ["comms_verify", "measure_overlap",
                                     "analyze", "install_preemption_guard", "request_drain"])
 def test_unported_engine_methods_raise(method):
     model, _ = gpt.build("tiny")

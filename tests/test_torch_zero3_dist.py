@@ -18,8 +18,16 @@ imports no JAX, and the JAX results are computed here in the parent).
   1e-5, grad norms 1e-4 relative: after step 1 a last-bit difference can
   flip a round-half case by one quantization level); the joined final state
   equals world 1's within 2e-5.
+- Checkpoints at dp2: the tag saved right after the start state was loaded
+  holds the full logical leaves, bitwise the world-1 state's (the ranks'
+  slices joined, and the format topology-free); the trained state saved and
+  loaded back into an engine from another seed gives each rank bitwise the
+  slices it saved, and the layer gathered over the int wire after the load
+  is bitwise the one before (a slice never cuts a quantization block); a
+  world-1 engine refuses the dp2 tag (reshard-on-load, ROADMAP.md A9b).
 """
 
+import json
 import os
 import time
 
@@ -36,6 +44,7 @@ import deepspeed_tpu_torch
 from deepspeed_tpu.comm import quantized as jq
 from deepspeed_tpu.utils.jax_compat import shard_map
 from deepspeed_tpu_torch import bridge
+from deepspeed_tpu_torch.checkpoint import serialization
 from deepspeed_tpu_torch.models import gpt
 
 W = 2
@@ -83,6 +92,7 @@ def dist_run(tmp_path_factory):
     world1 = {"layer0": workers.first_layer(engine)}
     world1["losses"], world1["grad_norms"] = workers.train(engine, inputs["batches"])
     world1["final"] = bridge.train_state_to_numpy(engine.state)
+    world1["ckpt"] = tmp / "ckpt"
     return ranks, world1
 
 
@@ -164,3 +174,37 @@ def test_dp2_trajectory_and_state_match_world1(dist_run):
                                    final["params"]["blocks"]["qkv_w"], rtol=0, atol=2e-5)
         np.testing.assert_allclose(ranks[r]["final.opt.mu.wte"], final["opt"].mu["wte"],
                                    rtol=0, atol=2e-5)
+
+
+def _tag_leaves(tag_dir):
+    directory = os.path.join(tag_dir, "state")
+    return {m["key"]: np.load(os.path.join(directory, "arrays", f"{m['index']}.npy"))
+            for m in serialization.read_meta(directory)["leaves"]}
+
+
+def test_dp2_tag_holds_the_world1_state_bitwise(dist_run):
+    _, world1 = dist_run
+    stored = _tag_leaves(world1["ckpt"] / "init")
+    state0 = bridge.train_state_to_numpy(_world1_engine().state)
+    want = dict(serialization.flatten_with_paths(state0))
+    assert list(stored) == list(want)
+    for k, v in want.items():
+        assert stored[k].dtype == v.dtype and stored[k].tobytes() == v.tobytes(), k
+    meta = json.loads((world1["ckpt"] / "init" / "meta.json").read_text())
+    assert meta["world_size"] == 2 and meta["partition"]["global_batch"] == 4
+    final = _tag_leaves(world1["ckpt"] / "global_step3")
+    np.testing.assert_allclose(final["params/blocks/qkv_w"],
+                               world1["final"]["params"]["blocks"]["qkv_w"], rtol=0, atol=2e-5)
+
+
+def test_dp2_reload_gives_each_rank_its_slices_bitwise(dist_run):
+    ranks, _ = dist_run
+    for r in range(W):
+        assert ranks[r]["reload_slices_bitwise"] == 1
+        assert ranks[r]["reload_layer0_bitwise"] == 1
+
+
+def test_world1_refuses_the_dp2_tag(dist_run):
+    _, world1 = dist_run
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9b"):
+        _world1_engine().load_checkpoint(str(world1["ckpt"]))
