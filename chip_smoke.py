@@ -290,6 +290,29 @@ result line):
    falls back to the older committed tag and logs the rejection, and the
    newer tag by name raises ``CheckpointCorruptionError``.
 
+13. GPT variants. (a) ``PRESETS["bloom-7b1"]`` at full width and depth
+   (7.07 G params, ALiBi on every layer), random weights drawn on the card
+   from a seed: fp32 ``generate`` B4, prompt 512, +64; the cached path's
+   logits at every generated position (prefill, then single-token steps fed
+   generate's tokens) equal the uncached ``forward``'s over the same
+   sequence within 1e-4 of their largest magnitude (greedy match printed),
+   and neither reaches a kernel (B3 and B1 take no bias: 0 launches); bf16
+   prefill ms, decode tokens/s and a profile of 8 decode steps. (b) bloom's geometry at 2 of 30 layers,
+   bf16 + ZeRO-2, B2 x T2048, 3 steps with ``loss_chunk`` 256 and with 0:
+   step 1 equal in both, finite, falling, within 2e-2 of each other; the
+   chunked step's ``max_memory_allocated`` below the unchunked one's by at
+   least 3/4 of one fp32 [2, 2048, 250880] tensor (3.08 GB). (c) GPT-2-125M
+   fp32 with ``loss_chunk`` 128 on phase 5a's batches: 5a's losses and grad
+   norms (rtol 1e-5) and launches. (d) GPT-2-125M with
+   ``local_attention_period`` 2, ``window_size`` 128, fp32 B4, prompt 512,
+   +16: cached = uncached as in (a), no B3 or B1 launch.
+
+14. decoding modes, GPT-2-125M B4, prompt 512, +64. fp32: ``top_k=1`` and
+   ``top_p=1e-6`` (temperature 1) return phase 4's greedy tokens;
+   ``temperature=1, top_k=50`` with one seed gives the same tokens twice;
+   ``num_beams=4`` the plain path's beam tokens, with B3 launched 12 x 63
+   times over 16 rows. bf16: greedy, sampled and beam tokens/s.
+
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
@@ -545,12 +568,17 @@ def device_kernels(torch, fn):
     return sorted(rows, key=lambda r: r[2], reverse=True)
 
 
-def complete_trace(torch, fn, name: str, counter, tries: int = 3):
+# traces taken at most for one complete record of a call (complete_trace)
+TRACE_TRIES = 6
+
+
+def complete_trace(torch, fn, name: str, counter, tries: int = TRACE_TRIES):
     """A trace of one call of ``fn`` (``device_kernels``) that holds a record
     for every launch ``counter()`` counted in that call of the kernels whose
     name holds ``name``: taken again, up to ``tries`` times, while records
-    are missing (a trace has been seen to drop one of 48). Returns
-    (kernels, launches, records) of the last trace taken."""
+    are missing (a trace has been seen to drop one of 48, on a loaded host in
+    three traces running). Returns (kernels, launches, records) of the last
+    trace taken."""
     for _ in range(tries):
         before = counter()
         kernels = device_kernels(torch, fn)
@@ -2464,6 +2492,7 @@ def phase_serving(torch, ctx):
               f"{dtype}: {decode_launches} decode launches, expected {expected}")
         if dtype == "float32":
             check(match == 1.0, f"fp32 generate differs from the plain path ({match})")
+            ctx["greedy4"] = (prompt, out)  # phase 14's degenerate samplers return these
         else:
             ctx["decode"]["launches"] = decode_launches
 
@@ -2561,6 +2590,7 @@ def phase_training(torch, ctx):
                            [m["grad_norm"].item() for m in metrics], launches)
         del engine
     (loss_k, norm_k, launches), (loss_p, norm_p, plain_launches) = runs[None], runs[False]
+    ctx["train5a"] = (batches, loss_k, norm_k, launches)  # phase 13c's unchunked run
     log(f"phase5a train fp32 gpt2-125m B4xT512 AdamW clip1.0: losses={loss_k} "
         f"plain_losses={loss_p} grad_norms={norm_k} plain_grad_norms={norm_p} "
         f"launches over 5 micro-steps={launches} plain-path launches={plain_launches}")
@@ -3163,7 +3193,7 @@ def phase_quantized_prefill(torch, ctx):
         check(profiled == 4 * cfg.n_layer,
               f"7d {kind}: {profiled} tensor-core launches in the profiled forward")
         check(qmm_n == profiled, f"7d {kind}: {qmm_n} of {profiled} tensor-core launches in "
-              "the trace after 3 tries")
+              f"the trace after {TRACE_TRIES} tries")
         ctx[f"qmm_tc_{kind}"]["launches"] = tc
         del eng
         torch.cuda.empty_cache()
@@ -3991,6 +4021,253 @@ def phase_checkpoint(torch, ctx):
     torch.cuda.empty_cache()
 
 
+def _cached_vs_uncached(torch, cfg, params, prompt, new):
+    """``generate``'s greedy fp32 tokens (the cached path, the user's entry
+    point), then the cached path's logits at every generated position (the
+    prefill's last, then ``new`` - 1 single-token steps fed generate's tokens)
+    against the uncached ``forward``'s over the same sequence. Returns
+    (tokens, error relative to the uncached logits' largest magnitude,
+    greedy match of the uncached argmax against the tokens, B3 launches,
+    flash forward launches, generate s)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import for_gpt
+    from deepspeed_tpu_torch.models import gpt
+
+    B, T = prompt.shape
+    engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="float32")
+    with torch.no_grad():
+        fa, da = _reset_counts()  # the biased model's decode path
+        t0 = time.perf_counter()
+        out = engine.generate(prompt, max_new_tokens=new)
+        gen_s = time.perf_counter() - t0
+        seq = torch.as_tensor(out, device="cuda").long()
+        cache = gpt.init_cache(cfg, B, -(-(T + new) // 128) * 128, torch.float32, "cuda")
+        logits, cache = gpt.forward_with_cache(cfg, params, seq[:, :T], cache)
+        cached = [logits[:, -1]]
+        for j in range(new - 1):
+            logits, cache = gpt.forward_with_cache(cfg, params, seq[:, T + j:T + j + 1], cache)
+            cached.append(logits[:, -1])
+        del cache, logits
+        cached = torch.stack(cached, dim=1)  # [B, new, V]
+        uncached = gpt.forward(cfg, params, seq[:, :T + new - 1], train=False)[:, T - 1:]
+        torch.cuda.synchronize()
+        decode_launches, flash = da.launches, sum(_fwd_launches(fa).values())
+        err = ((cached - uncached).abs().max() / uncached.abs().max()).item()
+        match = (uncached.argmax(-1) == seq[:, T:]).float().mean().item()
+    return out, err, match, decode_launches, flash, gen_s
+
+
+def _generate_rate(engine, prompt, new, reps=3, **kw):
+    """(prefill ms, generate ms, decode tokens/s) of ``generate``: medians of
+    ``reps`` runs of 1 and of ``new`` tokens after a warm-up, on the host
+    clock (generate returns host numpy, so each run ends synchronised)."""
+    def run(n):
+        t0 = time.perf_counter()
+        engine.generate(prompt, max_new_tokens=n, **kw)
+        return time.perf_counter() - t0
+
+    run(2)
+    prefill_s = float(np.median([run(1) for _ in range(reps)]))
+    total_s = float(np.median([run(new) for _ in range(reps)]))
+    return prefill_s * 1e3, total_s * 1e3, prompt.shape[0] * (new - 1) / (total_s - prefill_s)
+
+
+# the cached path against the uncached forward, relative to the largest logit
+CACHED_TOL = 1e-4
+
+
+def phase_gpt_variants(torch, ctx):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import for_gpt
+    from deepspeed_tpu_torch.models import gpt
+
+    # (a) bloom-7b1 at full width and depth, random weights from a seed drawn
+    # on the card, fp32 and then bf16: every layer ALiBi-biased, so every
+    # attention (prefill, decode, the uncached forward) takes the plain path
+    cfg = gpt.PRESETS["bloom-7b1"]
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_params = sum(t.numel() for t in params["blocks"].values()) + sum(
+        t.numel() for k, t in params.items() if k != "blocks")
+    torch.cuda.synchronize()
+    log(f"phase13a bloom-7b1 init on the card: {n_params / 1e9:.3f} G params, "
+        f"{n_params * 4 / 1e9:.2f} GB fp32, {time.perf_counter() - t0:.1f} s")
+    prompt = np.random.default_rng(13).integers(0, cfg.vocab_size, (4, 512)).astype(np.int32)
+    out, err, match, decode_launches, flash, gen_s = _cached_vs_uncached(
+        torch, cfg, params, prompt, 64)
+    log(f"phase13a bloom-7b1 fp32 B4 prompt512 new64: cached vs uncached logits max err "
+        f"{err:.3e} of the largest (limit {CACHED_TOL:.0e}), greedy match {match:.4f}, "
+        f"decode_launches={decode_launches} flash_fwd_launches={flash} "
+        f"generate_s={gen_s:.2f}")
+    check(out.shape == (4, 576), f"bloom generate shape {out.shape}")
+    check(err <= CACHED_TOL, f"bloom fp32 cached logits differ from the uncached: {err:.3e}")
+    check(decode_launches == 0, f"a biased decode step reached B3: {decode_launches} launches")
+    check(flash == 0, f"a biased forward reached B1: {flash} launches")
+    params = gpt.cast_params(params, torch.device("cuda"), torch.bfloat16)  # fp32 freed
+    torch.cuda.empty_cache()
+    bf16 = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="bfloat16")
+    del params
+    torch.cuda.reset_peak_memory_stats()
+    fa, da = _reset_counts()  # the bf16 bloom decode path
+    prefill_ms, gen_ms, tok_s = _generate_rate(bf16, prompt, 64)
+    torch.cuda.synchronize()
+    log(f"phase13a bloom-7b1 bf16 B4 prompt512 new64: prefill_ms={prefill_ms:.2f} "
+        f"generate_ms={gen_ms:.2f} decode_tokens_per_s={tok_s:.1f} "
+        f"decode_launches={da.launches} flash_fwd_launches={sum(_fwd_launches(fa).values())} "
+        f"peak_memory_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    check(da.launches == 0, f"a bf16 biased decode step reached B3: {da.launches} launches")
+    log("phase13a bloom-7b1 bf16 profile of 8 decode steps at position 512: "
+        + _decode_profile(torch, bf16, prompt, steps=8))
+    del bf16
+    torch.cuda.empty_cache()
+
+    # (b) bloom's geometry at 2 of 30 layers, bf16 + ZeRO-2, B2 x T2048, 3
+    # steps with loss_chunk 256 against 0: the chunked loss's peak memory
+    cfg_b = dataclasses.replace(cfg, n_layer=2)
+    V = cfg.vocab_size
+    batch = {"input_ids": np.random.default_rng(14).integers(0, V, (2, 2048)).astype(np.int32)}
+    runs = {}
+    for chunk in (256, 0):
+        engine = _engine(_train_config(2, bf16={"enabled": True},
+                                       zero_optimization={"stage": 2}),
+                         dataclasses.replace(cfg_b, loss_chunk=chunk))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fa, _ = _reset_counts()  # the bloom training path
+        losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, 3)
+        runs[chunk] = dict(losses=losses, norms=norms, step_ms=step_ms, base=base,
+                           peak=torch.cuda.max_memory_allocated(),
+                           flash=sum(_flash_launches(fa).values()))
+        del engine
+        torch.cuda.empty_cache()
+    logits_bytes = 2 * 2048 * V * 4
+    saved = runs[0]["peak"] - runs[256]["peak"]
+    diff = max(abs(a - b) for a, b in zip(runs[256]["losses"], runs[0]["losses"]))
+    for chunk, r in runs.items():
+        log(f"phase13b bloom-7b1 2 layers bf16 zero2 B2xT2048 loss_chunk={chunk}: "
+            f"losses={r['losses']} grad_norms={r['norms']} "
+            f"step_ms={[round(x, 3) for x in r['step_ms']]} "
+            f"state_gb={r['base'] / 1e9:.3f} peak_memory_gb={r['peak'] / 1e9:.3f} "
+            f"flash_launches={r['flash']}")
+    log(f"phase13b chunked peak below the unchunked by {saved / 1e9:.3f} GB (one fp32 "
+        f"[2, 2048, {V}] tensor is {logits_bytes / 1e9:.3f} GB; limit 3/4 of it); "
+        f"largest loss difference {diff:.3e}; ln(V)={math.log(V):.4f}, the input token's "
+        f"own logit at init ~ d_model * 0.02 = {cfg.d_model * 0.02:.1f}")
+    # the step-1 loss is not near ln(V) at Bloom's width: under the embedding
+    # LayerNorm and the tied head the init's hidden state carries the input
+    # token's embedding / 0.02, so that token's logit is ~ d_model * 0.02 (the
+    # JAX package's init gives the same); both runs start from the same state
+    first = [r["losses"][0] for r in runs.values()]
+    check(abs(first[0] - first[1]) <= 1e-4 * abs(first[1]), f"bloom step-1 losses {first}")
+    for r in runs.values():
+        check(all(math.isfinite(x) for x in r["losses"] + r["norms"]), "bloom loss not finite")
+        check(r["losses"][-1] < r["losses"][0], f"bloom loss did not fall: {r['losses']}")
+        check(r["flash"] == 0, f"a biased training step reached B1/B2: {r['flash']} launches")
+    check(all(abs(a - b) <= 2e-2 * abs(b) for a, b in zip(runs[256]["losses"], runs[0]["losses"])),
+          f"chunked and unchunked losses differ by up to {diff}")
+    check(saved >= 0.75 * logits_bytes, f"the chunked loss saved {saved / 1e9:.3f} GB")
+
+    # (c) GPT-2-125M fp32, phase 5a's batches and 5 steps with loss_chunk 128:
+    # 5a's unchunked losses and grad norms, and its B1 / B2 launches
+    batches, loss_5a, norm_5a, launches_5a = ctx["train5a"]
+    engine = _engine(_train_config(4), dataclasses.replace(gpt.PRESETS["gpt2-125m"],
+                                                           loss_chunk=128))
+    fa, _ = _reset_counts()  # the chunked fp32 training path
+    metrics = [engine.train_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    launches = _flash_launches(fa)
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    del engine
+    torch.cuda.empty_cache()
+    log(f"phase13c train fp32 gpt2-125m B4xT512 loss_chunk=128: losses={losses} "
+        f"grad_norms={norms}; 5a unchunked losses={loss_5a} grad_norms={norm_5a}; "
+        f"largest rel diff loss {max(abs(a / b - 1) for a, b in zip(losses, loss_5a)):.3e} "
+        f"grad norm {max(abs(a / b - 1) for a, b in zip(norms, norm_5a)):.3e}; "
+        f"launches={launches}")
+    check(np.allclose(losses, loss_5a, rtol=1e-5, atol=0), "chunked losses differ from 5a's")
+    check(np.allclose(norms, norm_5a, rtol=1e-5, atol=0), "chunked grad norms differ from 5a's")
+    check(launches == launches_5a, f"chunked launches {launches}, 5a's {launches_5a}")
+
+    # (d) GPT-2-125M with GPT-Neo's alternation, window 128, fp32 B4 prompt
+    # 512 + 16: every layer biased (zero on the global ones), plain path
+    local = dataclasses.replace(gpt.PRESETS["gpt2-125m"], local_attention_period=2,
+                                window_size=128)
+    prompt = np.random.default_rng(1).integers(0, local.vocab_size, (4, 512)).astype(np.int32)
+    out, err, match, decode_launches, flash, gen_s = _cached_vs_uncached(
+        torch, local, ctx["params"], prompt, 16)
+    log(f"phase13d gpt2-125m local period 2 window 128 fp32 B4 prompt512 new16: cached vs "
+        f"uncached max err {err:.3e} of the largest, greedy match {match:.4f}, "
+        f"decode_launches={decode_launches} flash_fwd_launches={flash}")
+    check(err <= CACHED_TOL, f"local-window cached logits differ from the uncached: {err:.3e}")
+    check(decode_launches == 0 and flash == 0,
+          f"a windowed layer reached a kernel: B3 {decode_launches}, B1 {flash}")
+
+
+def phase_decoding_modes(torch, ctx):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.inference import for_gpt
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    params = ctx["params"]
+    prompt, greedy = ctx["greedy4"]  # phase 4's fp32 prompt and greedy tokens
+    new = 64
+    expected = cfg.n_layer * (new - 1)
+    engine = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="float32")
+    for kw in ({"top_k": 1}, {"top_p": 1e-6}):
+        fa, da = _reset_counts()  # the sampled decode path
+        out = engine.generate(prompt, max_new_tokens=new, temperature=1.0, seed=3, **kw)
+        log(f"phase14 fp32 temperature=1 {kw}: greedy match "
+            f"{float(np.mean(out == greedy)):.4f} decode_launches={da.launches}")
+        check(np.array_equal(out, greedy), f"{kw} is not phase 4's greedy decoding")
+        check(da.launches == expected, f"{kw}: {da.launches} B3 launches, expected {expected}")
+    kw = dict(max_new_tokens=new, temperature=1.0, top_k=50, seed=7)
+    a, b = engine.generate(prompt, **kw), engine.generate(prompt, **kw)
+    log(f"phase14 fp32 temperature=1 top_k=50 seed=7 twice: identical={np.array_equal(a, b)}, "
+        f"match to greedy {float(np.mean(a[:, 512:] == greedy[:, 512:])):.4f}")
+    check(np.array_equal(a, b), "seeded sampling is not reproducible")
+
+    # beam search, 4 beams: every step's decode through B3 over the B*K rows
+    rows = []
+    decode_attention = gpt.decode_attention
+
+    def recording(q, *args, **kw):
+        rows.append(q.shape[0])
+        return decode_attention(q, *args, **kw)
+
+    plain = deepspeed_tpu_torch.init_inference(
+        for_gpt(dataclasses.replace(cfg, use_flash=False), params), dtype="float32")
+    gpt.decode_attention = recording
+    try:
+        fa, da = _reset_counts()  # the beam-search decode path
+        t0 = time.perf_counter()
+        beam = engine.generate(prompt, max_new_tokens=new, num_beams=4)
+        beam_s = time.perf_counter() - t0
+        beam_launches = da.launches
+    finally:
+        gpt.decode_attention = decode_attention
+    ref = plain.generate(prompt, max_new_tokens=new, num_beams=4)
+    log(f"phase14 fp32 beam search K=4: tokens equal to the plain path's "
+        f"{np.array_equal(beam, ref)} (match {float(np.mean(beam == ref)):.4f}), match to "
+        f"greedy {float(np.mean(beam[:, 512:] == greedy[:, 512:])):.4f}, "
+        f"decode_launches={beam_launches} rows per launch {sorted(set(rows))} "
+        f"generate_s={beam_s:.2f}")
+    check(np.array_equal(beam, ref), "fp32 beam search differs from the plain path's")
+    check(beam_launches == expected, f"beam: {beam_launches} B3 launches, expected {expected}")
+    check(set(rows) == {16}, f"beam decode rows {sorted(set(rows))}, expected 16")
+    del engine, plain
+    torch.cuda.empty_cache()
+
+    bf16 = deepspeed_tpu_torch.init_inference(for_gpt(cfg, params), dtype="bfloat16")
+    for name, kw in (("greedy", {}), ("sampled t1 top_k50", dict(temperature=1.0, top_k=50)),
+                     ("beam K4", dict(num_beams=4))):
+        prefill_ms, gen_ms, tok_s = _generate_rate(bf16, prompt, new, **kw)
+        log(f"phase14 bf16 {name} B4 prompt512 new64: prefill_ms={prefill_ms:.2f} "
+            f"generate_ms={gen_ms:.2f} tokens_per_s={tok_s:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -4005,7 +4282,8 @@ def main() -> int:
     failures = []
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
                   phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
-                  phase_sparse, phase_head_dim_96, phase_checkpoint):
+                  phase_sparse, phase_head_dim_96, phase_checkpoint, phase_gpt_variants,
+                  phase_decoding_modes):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)

@@ -7,13 +7,14 @@ caller passes ``device="cpu"``, which takes the plain PyTorch versions of
 the kernels. The package imports torch and numpy, never jax and nothing of
 ``deepspeed_tpu``.
 
-Ported so far: GPT forward and next-token loss (``models.gpt``), training
-through :func:`initialize` (``DeepSpeedEngine.train_batch``; ZeRO stage 3
-with the quantized weight wire and LM head, data parallel over the ranks of
-``comm.init_distributed``),
-KV-cache greedy generation through :func:`init_inference` (dense, or int8 /
-int4 weights with ``quant={"enabled": True, ...}``), and continuous-batching
-paged serving (``inference.serving``), and checkpointing
+Ported so far: GPT forward and next-token loss (``models.gpt``; ALiBi, local
+attention and the chunked cross-entropy too), training through
+:func:`initialize` (``DeepSpeedEngine.train_batch``; ZeRO stage 3 with the
+quantized weight wire and LM head, data parallel over the ranks of
+``comm.init_distributed``), KV-cache generation (greedy, sampled or beam
+search) through :func:`init_inference` (dense, or int8 / int4 weights with
+``quant={"enabled": True, ...}``), continuous-batching paged serving
+(``inference.serving``), and checkpointing
 (``engine.save_checkpoint`` / ``load_checkpoint`` in the JAX package's
 universal format, :mod:`.checkpoint`).
 """

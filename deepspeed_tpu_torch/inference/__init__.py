@@ -1,4 +1,4 @@
 from .config import DeepSpeedInferenceConfig
-from .engine import InferenceEngine, for_gpt
+from .engine import InferenceEngine, filter_logits, for_gpt
 
-__all__ = ["InferenceEngine", "DeepSpeedInferenceConfig", "for_gpt"]
+__all__ = ["InferenceEngine", "DeepSpeedInferenceConfig", "filter_logits", "for_gpt"]

@@ -3,9 +3,11 @@
 ``InferenceEngine`` casts the model's parameters to the configured dtype on
 its device and runs KV-cache generation: one prefill over the prompt, then
 one cached forward per new token, each reaching the decode-attention kernel
-on CUDA. The reference compiles the whole loop into one program; here it runs
-eagerly, as a Python loop, until CUDA-graph capture is ported (ROADMAP.md
-A5b). Greedy decoding only: sampling and beam search raise (A5b).
+on CUDA (a model with an attention bias, ALiBi or a local window, decodes on
+the plain masked path). Decoding is greedy, sampled (temperature, top-k,
+nucleus) or a beam search. The reference compiles the whole loop into one
+program; here it runs eagerly, as a Python loop, until CUDA-graph capture is
+ported (ROADMAP.md A5b).
 
 With ``quant.enabled`` (or a tree that arrives quantized) the layer stacks
 hold int8 or packed int4 weights with fp32 group scales, and every
@@ -14,6 +16,7 @@ projection of a decode step runs the int8 / int4 weight kernels.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import numpy as np
@@ -87,17 +90,16 @@ class InferenceEngine:
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 0.0,
                  num_beams: int = 1, repetition_penalty: float = 1.0,
                  eos_token_id: Optional[int] = None, seed: int = 0) -> np.ndarray:
-        """Greedy autoregressive generation with a KV cache; returns the prompt
+        """Autoregressive generation with a KV cache; returns the prompt
         followed by the new tokens, [B, T + max_new_tokens] int32.
 
-        Rows that emit ``eos_token_id`` freeze (repeat their last token);
-        ``repetition_penalty`` shrinks the logits of tokens already seen. The
-        sampling knobs and ``num_beams > 1`` are not ported and raise; ``seed``
-        is accepted for the reference's signature and unused by greedy decoding."""
-        if temperature != 0.0 or top_k or top_p:
-            raise unported("sampled generation (temperature / top_k / top_p)", "A5b")
-        if num_beams > 1:
-            raise unported("beam search (num_beams > 1)", "A5b")
+        Greedy when ``temperature`` is 0, else a categorical draw from the
+        logits :func:`filter_logits` leaves (``top_k``, nucleus ``top_p``),
+        from a ``torch.Generator`` on the engine's device seeded with
+        ``seed``, one draw a step. ``num_beams > 1`` runs deterministic beam
+        search (:meth:`_beam_search`). Rows that emit ``eos_token_id`` freeze
+        (repeat their last token); ``repetition_penalty`` shrinks the logits
+        of tokens already seen."""
         ids = self._ids(input_ids)
         B, T = ids.shape
         if self.config.max_batch_size and B > self.config.max_batch_size:
@@ -114,10 +116,29 @@ class InferenceEngine:
         if self.config.decode_buckets:
             max_new = bucket_for(max_new, self.config.decode_buckets)
         eos = -1 if eos_token_id is None else eos_token_id
-        # cache length padded to a 128-multiple, as the reference sizes it;
-        # the validity mask makes the padding inert
-        total = -(-(T + max_new) // 128) * 128
+        if num_beams > 1:
+            if temperature != 0.0 or top_k or top_p or repetition_penalty != 1.0:
+                raise ValueError("beam search is deterministic; sampling knobs cannot "
+                                 "combine with num_beams > 1")
+            gen = self._beam_search(ids, max_new, num_beams, eos)
+        else:
+            gen = self._sample_loop(ids, max_new, temperature, top_k, top_p,
+                                    repetition_penalty, eos, seed)
+        gen = gen[:, :requested]  # bucket padding: slice back
+        return torch.cat([ids, gen], dim=1).cpu().numpy().astype(np.int32)
+
+    def _cache_len(self, T: int, max_new: int) -> int:
+        # padded to a 128-multiple, as the reference sizes it; the validity
+        # mask makes the padding inert
+        return -(-(T + max_new) // 128) * 128
+
+    def _sample_loop(self, ids: torch.Tensor, max_new: int, temperature: float, top_k: int,
+                     top_p: float, repetition_penalty: float, eos: int,
+                     seed: int) -> torch.Tensor:
+        """Greedy or sampled decoding: [B, max_new] new tokens."""
+        B, T = ids.shape
         rows = torch.arange(B, device=self.device)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
 
         def penalize(logits, seen):
             # CTRL-style repetition penalty: seen tokens' logits shrink
@@ -128,25 +149,104 @@ class InferenceEngine:
             pen = torch.where(logits > 0, logits / p, logits * p)
             return torch.where(seen, pen, logits)
 
-        cache = self.model.init_cache(B, total, self.dtype, self.device)
+        def sample(logits):
+            if temperature == 0.0:
+                return logits.argmax(dim=-1)
+            return categorical(filter_logits(logits, temperature, top_k, top_p), gen)
+
+        cache = self.model.init_cache(B, self._cache_len(T, max_new), self.dtype, self.device)
         logits, cache = self.model.prefill(self.params, ids, cache)
         seen = torch.zeros((B, logits.shape[-1]), dtype=torch.bool, device=self.device)
         if repetition_penalty != 1.0:
             seen[rows[:, None], ids] = True
-        tok = penalize(logits[:, -1, :], seen).argmax(dim=-1)
+        tok = sample(penalize(logits[:, -1, :], seen))
         seen[rows, tok] = True
         done = tok == eos
         out = [tok]
         for _ in range(max_new - 1):
             logits, cache = self.model.prefill(self.params, tok[:, None], cache)
-            nxt = penalize(logits[:, -1, :], seen).argmax(dim=-1)
+            nxt = sample(penalize(logits[:, -1, :], seen))
             nxt = torch.where(done, tok, nxt)  # freeze finished rows
             seen[rows, nxt] = True
             done = done | (nxt == eos)
             out.append(nxt)
             tok = nxt
-        gen = torch.stack(out, dim=1)[:, :requested]  # bucket padding: slice back
-        return torch.cat([ids, gen], dim=1).cpu().numpy().astype(np.int32)
+        return torch.stack(out, dim=1)
+
+    def _beam_search(self, ids: torch.Tensor, max_new: int, K: int, eos: int) -> torch.Tensor:
+        """Deterministic beam search: K beams per row share one [B*K]-row KV
+        cache, whose rows follow their beams (``index_select`` on the batch
+        axis) every step; finished beams continue on a zero-cost eos lane.
+        Returns the highest-scoring beam per row, [B, max_new]."""
+        B, T = ids.shape
+        dev = self.device
+        cache = self.model.init_cache(B * K, self._cache_len(T, max_new), self.dtype, dev)
+        logits, cache = self.model.prefill(self.params, ids.repeat_interleave(K, dim=0), cache)
+        V = logits.shape[-1]
+        logp = torch.log_softmax(logits[:, -1, :].float(), dim=-1).reshape(B, K, V)
+        # the beams are identical after the prefill: the first step takes
+        # the row's top K tokens
+        scores, toks = top_k_stable(logp[:, 0, :], K)  # [B, K]
+        done = toks == eos
+        out = torch.zeros((B, K, max_new), dtype=torch.long, device=dev)
+        out[:, :, 0] = toks
+        eos_lane = torch.full((V,), -math.inf, device=dev)
+        eos_lane[eos] = 0.0
+        base = (torch.arange(B, device=dev) * K)[:, None]
+        for t in range(1, max_new):
+            logits, cache = self.model.prefill(self.params, toks.reshape(B * K, 1), cache)
+            logp = torch.log_softmax(logits[:, -1, :].float(), dim=-1).reshape(B, K, V)
+            logp = torch.where(done[:, :, None], eos_lane, logp)
+            scores, idx = top_k_stable((scores[:, :, None] + logp).reshape(B, K * V), K)
+            src = idx // V  # the beam each winner extends
+            toks = idx % V
+            beam_rows = (base + src).reshape(-1)
+            cache = {k: (v.index_select(1, beam_rows)
+                         if torch.is_tensor(v) and v.dim() >= 2 and v.shape[1] == B * K else v)
+                     for k, v in cache.items()}
+            out = out.gather(1, src[:, :, None].expand(B, K, max_new))
+            out[:, :, t] = toks
+            done = done.gather(1, src) | (toks == eos)
+        best = scores.argmax(dim=1)
+        return out[torch.arange(B, device=dev), best]
+
+
+def filter_logits(logits: torch.Tensor, temperature: float, top_k: int = 0,
+                  top_p: float = 0.0) -> torch.Tensor:
+    """The logits a sampled step draws from, in the reference's ``sample``:
+    divided by ``temperature``; with ``top_k`` > 0, every logit below the
+    k-th largest set to -inf (ties at it kept); with ``0 < top_p < 1``, the
+    nucleus: every logit below the smallest one of the shortest sorted
+    prefix whose exclusive cumulative probability stays below ``top_p``
+    (which always holds the top token) set to -inf. The nucleus's
+    probabilities are summed in fp32 whatever the logits' dtype."""
+    logits = logits / temperature
+    if top_k > 0:
+        kth = logits.sort(dim=-1).values[..., -min(top_k, logits.shape[-1]), None]
+        logits = torch.where(logits < kth, -math.inf, logits)
+    if 0.0 < top_p < 1.0:
+        desc = logits.sort(dim=-1, descending=True).values
+        probs = torch.softmax(desc.float(), dim=-1)
+        exclusive_cum = torch.cumsum(probs, dim=-1) - probs
+        kept = torch.where(exclusive_cum >= top_p, math.inf, desc)
+        thr = kept.min(dim=-1, keepdim=True).values
+        logits = torch.where(logits < thr, -math.inf, logits)
+    return logits
+
+
+def categorical(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """One draw per row from softmax(``logits``) by the Gumbel-max trick
+    (the reference's ``jax.random.categorical``), its uniforms from ``gen``."""
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    u = u.clamp_(min=torch.finfo(u.dtype).tiny)
+    return (logits.float() - torch.log(-torch.log(u))).argmax(dim=-1)
+
+
+def top_k_stable(x: torch.Tensor, k: int):
+    """The ``k`` largest entries of each row and their indices, ties in index
+    order (as ``jax.lax.top_k`` breaks them)."""
+    values, idx = x.sort(dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
 
 
 class _GPTInferenceAdapter:

@@ -182,7 +182,7 @@ class ServingEngine:
             raise unported("ServingEngine(monitor=...) (serving telemetry)", "A3b")
         check_serving_config(s)
         gpt_mod.check_config(cfg)
-        if s.max_model_len > cfg.max_seq_len and not cfg.rotary:
+        if s.max_model_len > cfg.max_seq_len and not (cfg.rotary or cfg.alibi):
             raise ValueError(f"max_model_len {s.max_model_len} exceeds the model's learned "
                              f"position table ({cfg.max_seq_len})")
         if not (1 <= s.decode_block <= s.page_size):

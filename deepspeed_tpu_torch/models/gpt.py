@@ -34,7 +34,16 @@ The functional API of the reference is kept, ``f(cfg, params, ...)`` with
 - the training-mode forward has dropout and stochastic depth drawn from
   explicit per-(step, layer, salt) seeds, and activation checkpointing
   (``remat``) through ``torch.utils.checkpoint``, which recomputes each
-  block with the same seeds and so the same masks.
+  block with the same seeds and so the same masks;
+- ALiBi (``alibi``) and GPT-Neo's alternating local window
+  (``local_attention_period``) are additive biases on the attention
+  logits, so those layers take the plain attention path, in the cached
+  decode step too: the flash and decode kernels take no bias, as in the
+  reference; the paged paths refuse them with the reference's
+  ``ValueError``;
+- ``loss_chunk`` evaluates the LM head and the cross entropy over
+  sequence slices (:class:`_ChunkedCE`): the fp32 ``[B, T, V]`` logits
+  exist neither in the forward nor in the backward.
 
 :func:`build` makes the trainable :class:`~.api.Module` the engine takes;
 :class:`GPTModel` is a thin frozen ``nn.Module`` for inference. Options this
@@ -87,7 +96,7 @@ class GPTConfig:
     activation: str = "gelu"  # "gelu" (tanh approx), "gelu_exact", "relu", "quick_gelu"
     parallel_residual: bool = False  # NeoX-style x + attn(ln1 x) + mlp(ln2 x)
     pos_offset: int = 0  # learned-position index offset (OPT uses 2)
-    alibi: bool = False  # not ported (ROADMAP.md A2b)
+    alibi: bool = False  # Bloom: linear attention bias instead of positions
     rotary_interleaved: bool = False  # GPT-J rotate_every_two vs NeoX rotate_half
     embed_layernorm: bool = False  # Bloom: LN right after the token embedding
     lm_head_bias: bool = False  # GPT-J: bias on the (untied) LM head
@@ -100,7 +109,9 @@ class GPTConfig:
     flash_block_k: int = 256
     stochastic_mode: bool = False  # flash attention's single-cast function (16-bit inputs)
     stochastic_depth: float = 0.0  # whole-block drop probability, training only
-    local_attention_period: int = 0  # not ported (A2b)
+    # GPT-Neo-style alternating local attention: the last layer of each
+    # period attends only to the trailing ``window_size`` positions
+    local_attention_period: int = 0  # 0 = all layers global
     window_size: int = 256
     attention_scale: Optional[float] = None  # None = 1/sqrt(head_dim)
     has_lm_head: bool = True  # False: pure encoder, only return_hidden=True is valid
@@ -112,7 +123,9 @@ class GPTConfig:
     random_ltd_layer_ids: Tuple[int, ...] = ()  # random-LTD, not ported (A3b)
     random_ltd_keep: Optional[int] = None
     seq_parallel_impl: str = "dense"  # "ring" / "ulysses" not ported (A13)
-    loss_chunk: int = 0  # chunked cross-entropy, not ported (A2b)
+    # chunked cross-entropy: the LM head and the loss over ``loss_chunk``-token
+    # slices, so the fp32 [B, T, V] logits never exist. 0 = whole sequence
+    loss_chunk: int = 0
 
     @property
     def ffn_dim(self) -> int:
@@ -156,12 +169,6 @@ PRESETS: Dict[str, GPTConfig] = {
 
 def check_config(cfg: GPTConfig) -> None:
     """Raise for a config option whose semantics this slice does not port."""
-    if cfg.alibi:
-        raise unported("GPTConfig.alibi (ALiBi attention bias)", "A2b")
-    if cfg.local_attention_period > 1:
-        raise unported("GPTConfig.local_attention_period (local attention)", "A2b")
-    if cfg.loss_chunk:
-        raise unported("GPTConfig.loss_chunk (chunked cross-entropy)", "A2b")
     if cfg.seq_parallel_impl != "dense":
         raise unported(f"seq_parallel_impl={cfg.seq_parallel_impl!r} "
                        "(sequence-parallel attention)", "A13")
@@ -261,6 +268,51 @@ def _rope(x: torch.Tensor, positions: torch.Tensor, rotary_dims: int,
     return torch.cat([rotated, x_pass], dim=-1)
 
 
+def alibi_slopes(n_heads: int) -> np.ndarray:
+    """Bloom's per-head ALiBi slopes, fp32 (non-power-of-two head counts take
+    every other slope of the next power of two for the heads past the
+    largest power of two below)."""
+    def pow2_slopes(n):
+        start = 2.0 ** (-(2.0 ** -(np.log2(n) - 3)))
+        return start * (start ** np.arange(n))
+
+    n = 2 ** int(np.floor(np.log2(n_heads)))
+    slopes = pow2_slopes(n)
+    if n < n_heads:
+        extra = pow2_slopes(2 * n)[0::2][: n_heads - n]
+        slopes = np.concatenate([slopes, extra])
+    return slopes.astype(np.float32)
+
+
+def _alibi_bias(cfg: GPTConfig, q_positions: torch.Tensor, kv_len: int) -> torch.Tensor:
+    """[B, H, T, S] fp32 additive bias: slopes[h] * (s - t_abs)."""
+    dev = q_positions.device
+    slopes = torch.from_numpy(alibi_slopes(cfg.n_head)).to(dev)
+    s_idx = torch.arange(kv_len, device=dev)[None, None, None, :]
+    t_abs = q_positions[:, None, :, None]
+    return slopes[None, :, None, None] * (s_idx - t_abs).float()
+
+
+def _is_local_layer(cfg: GPTConfig, layer_idx: Optional[int]) -> Optional[bool]:
+    """Does layer ``layer_idx`` attend over a window? GPT-Neo alternates
+    [global, local]: the last layer of each period is local. None when the
+    config never uses local attention."""
+    if cfg.local_attention_period <= 1 or layer_idx is None:
+        return None
+    p = cfg.local_attention_period
+    return layer_idx % p == p - 1
+
+
+def _local_window_bias(cfg: GPTConfig, q_positions: torch.Tensor, kv_len: int,
+                       is_local: bool) -> torch.Tensor:
+    """[B, 1, T, S] fp32 additive bias masking keys at ``s <= t - window_size``
+    with -1e30 on a local layer (zero on a global one, as the reference's
+    uniform layer program has it)."""
+    s_idx = torch.arange(kv_len, device=q_positions.device)[None, None, None, :]
+    too_old = s_idx <= q_positions[:, None, :, None] - cfg.window_size
+    return torch.where(too_old & is_local, NEG_INF, 0.0)
+
+
 def _act(cfg: GPTConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.activation == "relu":
         return F.relu(h)
@@ -315,16 +367,33 @@ def _qkv(cfg: GPTConfig, x: torch.Tensor, w: Params, positions: torch.Tensor):
     return q, k, v
 
 
+def _attention_bias(cfg: GPTConfig, positions: torch.Tensor, kv_len: int,
+                    layer_idx: Optional[int]) -> Optional[torch.Tensor]:
+    """The sum of the ALiBi and local-window biases of layer ``layer_idx``
+    (None when the config has neither)."""
+    bias = _alibi_bias(cfg, positions, kv_len) if cfg.alibi else None
+    is_local = _is_local_layer(cfg, layer_idx)
+    if is_local is not None:
+        lb = _local_window_bias(cfg, positions, kv_len, is_local)
+        bias = lb if bias is None else bias + lb
+    return bias
+
+
 def _attention_delta(cfg: GPTConfig, x: torch.Tensor, w: Params,
-                     positions: torch.Tensor) -> torch.Tensor:
-    """Attention output (pre-residual): attn_out(MHA(ln1(x)))."""
+                     positions: torch.Tensor, layer_idx: Optional[int] = None) -> torch.Tensor:
+    """Attention output (pre-residual): attn_out(MHA(ln1(x))). A bias (ALiBi,
+    a local window) sends the layer to the plain attention path."""
     B, T, D = x.shape
     q, k, v = _qkv(cfg, x, w, positions)
+    bias = _attention_bias(cfg, positions, T, layer_idx)
     if cfg.sparse_attention is not None:
+        if bias is not None:
+            raise ValueError("sparse_attention cannot compose with alibi/local-window "
+                             "biases (the blocksparse kernel has no bias input)")
         attn = sparse_attention(q, k, v, cfg.sparse_attention, causal=True,
                                 softmax_scale=cfg.attention_scale)
     else:
-        attn = multihead_attention(q, k, v, causal=True, use_flash=cfg.use_flash,
+        attn = multihead_attention(q, k, v, causal=True, bias=bias, use_flash=cfg.use_flash,
                                    softmax_scale=cfg.attention_scale,
                                    stochastic_mode=cfg.stochastic_mode)
     return _wm(attn.reshape(B, T, D), w["attn_out_w"]) + w["attn_out_b"]
@@ -349,13 +418,16 @@ def _dropout(x: torch.Tensor, rate: float, seed: Optional[int], train: bool,
 
 
 def _block(cfg: GPTConfig, x: torch.Tensor, w: Params, positions: torch.Tensor,
-           seed: Optional[int] = None, train: bool = False) -> torch.Tensor:
-    """One block; ``seed`` is the layer's dropout seed (None: no dropout)."""
+           seed: Optional[int] = None, train: bool = False,
+           layer_idx: Optional[int] = None) -> torch.Tensor:
+    """One block; ``seed`` is the layer's dropout seed (None: no dropout),
+    ``layer_idx`` its index (which layers are local)."""
+    attn = _dropout(_attention_delta(cfg, x, w, positions, layer_idx), cfg.dropout, seed,
+                    train, 0)
     if cfg.parallel_residual:
         # NeoX/GPT-J style: both sublayers read the same input
-        attn = _dropout(_attention_delta(cfg, x, w, positions), cfg.dropout, seed, train, 0)
         return x + attn + _dropout(_mlp_delta(cfg, x, w), cfg.dropout, seed, train, 1)
-    x = x + _dropout(_attention_delta(cfg, x, w, positions), cfg.dropout, seed, train, 0)
+    x = x + attn
     return x + _dropout(_mlp_delta(cfg, x, w), cfg.dropout, seed, train, 1)
 
 
@@ -436,14 +508,14 @@ def forward(cfg: GPTConfig, params: Params, input_ids, rngs=None, train: bool = 
     drop_seed = (rngs or {}).get("dropout")
     sd = cfg.stochastic_depth if train else 0.0
 
-    def block_fn(x, w, seed):
-        return _block(cfg, x, w, positions, seed, train)
+    def block_fn(x, w, seed, i):
+        return _block(cfg, x, w, positions, seed, train, layer_idx=i)
 
     if cfg.remat and torch.is_grad_enabled():
         # recompute each block in the backward; the explicit seeds give the
         # recompute the masks of the first pass
-        def run(x, w, seed):
-            return checkpoint(block_fn, x, w, seed, use_reentrant=False)
+        def run(x, w, seed, i):
+            return checkpoint(block_fn, x, w, seed, i, use_reentrant=False)
     else:
         run = block_fn
     for i, w in zero3_layers(blocks):
@@ -454,9 +526,9 @@ def forward(cfg: GPTConfig, params: Params, input_ids, rngs=None, train: bool = 
             # so that eval needs no correction
             u = torch.rand((), generator=torch.Generator().manual_seed(fold_in(seed, 0x5D)))
             if bool(u < 1.0 - sd):
-                x = x + (run(x, w, seed) - x) / (1.0 - sd)
+                x = x + (run(x, w, seed, i) - x) / (1.0 - sd)
         else:
-            x = run(x, w, seed)
+            x = run(x, w, seed, i)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layer_norm_eps)
     if return_hidden:
         return x
@@ -497,13 +569,156 @@ def next_token_loss(forward_fn, max_seq_len: int, batch: Dict[str, torch.Tensor]
     return loss, {"num_tokens": nll.numel()}
 
 
+def _chunk_logits(h_c: torch.Tensor, head: torch.Tensor,
+                  head_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """One chunk's LM-head logits in the compute dtype."""
+    logits = h_c @ head.to(h_c.dtype).t()
+    if head_bias is not None:
+        logits = logits + head_bias.to(logits.dtype)
+    return logits
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Masked next-token cross entropy over ``chunk``-token sequence slices:
+    (sum of masked nll, sum of mask). The forward computes one chunk's
+    logits at a time and keeps only each position's fp32 logsumexp; the
+    backward computes each chunk's logits again and accumulates dh and the
+    head's gradient chunk by chunk, so neither pass holds more than one
+    chunk's ``[B, chunk, V]`` logits (the reference's rematerialized scan).
+    The gradient is the reference's: the fp32 cotangent of a chunk's logits
+    is cast to the compute dtype before the two products, and the chunks'
+    head gradients are summed in the compute dtype, in place."""
+
+    @staticmethod
+    def forward(ctx, hidden, head, head_bias, targets, mask, chunk):
+        B, T, _ = hidden.shape
+        logz = torch.empty((B, T), dtype=torch.float32, device=hidden.device)
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, T, chunk):
+            sl = slice(c0, c0 + chunk)
+            logits32 = _chunk_logits(hidden[:, sl], head, head_bias).float()
+            logz[:, sl] = torch.logsumexp(logits32, dim=-1)
+            gold = logits32.gather(-1, targets[:, sl, None])[..., 0]
+            total = total + ((logz[:, sl] - gold) * mask[:, sl]).sum()
+            del logits32
+        ctx.chunk = chunk
+        ctx.save_for_backward(hidden, head, head_bias, targets, mask, logz)
+        count = mask.sum()
+        ctx.mark_non_differentiable(count)
+        return total, count
+
+    @staticmethod
+    def backward(ctx, g_sum, _g_count):
+        hidden, head, head_bias, targets, mask, logz = ctx.saved_tensors
+        chunk = ctx.chunk
+        need_h, need_w, need_b = ctx.needs_input_grad[:3]
+        dh = torch.empty_like(hidden) if need_h else None
+        dw = torch.zeros(head.shape, dtype=hidden.dtype, device=head.device) if need_w else None
+        db = torch.zeros_like(head_bias) if need_b else None
+        head_c = head.to(hidden.dtype)
+        for c0 in range(0, hidden.shape[1], chunk):
+            sl = slice(c0, c0 + chunk)
+            h_c = hidden[:, sl]
+            logits = _chunk_logits(h_c, head, head_bias)
+            dtype = logits.dtype
+            # d nll / d logits32 = softmax - onehot(target), scaled by mask * g
+            # (in place: an fp32 chunk's logits become its cotangent)
+            d32 = logits.float()
+            del logits
+            d32.sub_(logz[:, sl, None]).exp_()
+            d32.scatter_add_(-1, targets[:, sl, None],
+                             torch.full_like(logz[:, sl, None], -1.0))
+            d32.mul_((mask[:, sl] * g_sum)[..., None])
+            d = d32.to(dtype)
+            del d32
+            if need_h:
+                dh[:, sl] = d @ head_c
+            if need_w:  # in place: no [V, D] product besides the accumulator
+                dw.addmm_(d.flatten(0, 1).t(), h_c.flatten(0, 1))
+            if need_b:
+                db += d.sum(dim=(0, 1)).to(db.dtype)
+        return dh, dw.to(head.dtype) if need_w else None, db, None, None, None
+
+
+def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor, head_bias: Optional[torch.Tensor],
+                targets: torch.Tensor, mask: torch.Tensor,
+                chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked cross entropy over ``chunk``-token sequence slices (see
+    :class:`_ChunkedCE`). Returns (sum of masked nll, sum of mask)."""
+    T = hidden.shape[1]
+    if T % chunk:
+        raise ValueError(f"loss_chunk {chunk} must divide seq len {T}")
+    return _ChunkedCE.apply(hidden, head, head_bias, targets.long(), mask.float(), chunk)
+
+
+def _chunk_targets(cfg: GPTConfig, batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """(input_ids for the forward, targets [B, T], mask [B, T], the number of
+    real targets), :func:`next_token_loss`'s label / mask / packing semantics
+    on full-T tiles: in the plain shift the last position has no target, so
+    it gets a dummy target 0 under mask 0 and is not counted."""
+    input_ids = batch["input_ids"]
+    labels = batch.get("labels")
+    loss_mask = batch.get("loss_mask")
+    if labels is None and input_ids.shape[1] > cfg.max_seq_len:
+        # seq+1 token packing: inputs are the first max_seq_len tokens
+        ids_in, shift_targets = input_ids[:, :-1], input_ids[:, 1:]
+    else:
+        ids_in, shift_targets = input_ids, None
+    B, T = ids_in.shape
+    ones = torch.ones((B, T), dtype=torch.float32, device=input_ids.device)
+    if labels is not None:
+        mask = loss_mask.float() if loss_mask is not None else ones
+        return ids_in, labels, mask, labels.numel()
+    if shift_targets is not None:
+        mask = loss_mask[:, 1:].float() if loss_mask is not None else ones
+        return ids_in, shift_targets, mask, shift_targets.numel()
+    pad = torch.zeros((B, 1), dtype=input_ids.dtype, device=input_ids.device)
+    targets = torch.cat([input_ids[:, 1:], pad], dim=1)
+    mask = torch.cat([ones[:, 1:], pad.float()], dim=1)
+    if loss_mask is not None:
+        mask = mask * torch.cat([loss_mask[:, 1:], pad.to(loss_mask.dtype)], dim=1).float()
+    return ids_in, targets, mask, targets.numel() - B  # the dummy column excluded
+
+
+def chunked_head_loss(cfg: GPTConfig, params: Params, hidden: torch.Tensor,
+                      targets: torch.Tensor, mask: torch.Tensor,
+                      num_tokens: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """The chunked LM head and masked cross entropy over the post-LN
+    ``hidden``. The head is the dense leaf (``wte`` tied, else ``lm_head``),
+    as the reference reads it, with or without ``zero_quantized_head``."""
+    head = params["wte"] if cfg.tie_embeddings else params["lm_head"]
+    head_b = params.get("lm_head_b") if (cfg.lm_head_bias and not cfg.tie_embeddings) else None
+    s, c = _chunked_ce(hidden, head, head_b, targets, mask, cfg.loss_chunk)
+    # the masked mean is next_token_loss's in every case: without a
+    # loss_mask the mask counts exactly the real target positions
+    return s / c.clamp(min=1.0), {
+        "num_tokens": int(num_tokens if num_tokens is not None else targets.numel())}
+
+
+def chunked_loss(cfg: GPTConfig, params: Params, batch: Dict[str, torch.Tensor], rngs=None,
+                 train: bool = True, pld_theta=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """:func:`loss_fn` with the LM head and the cross entropy evaluated in
+    ``cfg.loss_chunk``-token slices; the same masked mean as
+    :func:`next_token_loss`."""
+    ids_in, targets, mask, n_tok = _chunk_targets(cfg, batch)
+    hidden = forward(cfg, params, ids_in, rngs=rngs, train=train, return_hidden=True,
+                     pld_theta=pld_theta)
+    return chunked_head_loss(cfg, params, hidden, targets, mask, num_tokens=n_tok)
+
+
 def loss_fn(cfg: GPTConfig, params: Params, batch: Dict[str, Any], rngs=None,
             train: bool = True, pld_theta=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Next-token cross entropy. ``batch``: {"input_ids": [B,T]} (+ optional
-    "labels"/"loss_mask"), tensors or numpy arrays."""
+    "labels"/"loss_mask"), tensors or numpy arrays; chunked over the
+    sequence when ``cfg.loss_chunk`` is set."""
     check_config(cfg)
     dev = params["wte"].device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    if cfg.loss_chunk:
+        if not cfg.has_lm_head:
+            raise ValueError("loss_chunk needs an LM head")
+        return chunked_loss(cfg, params, batch, rngs=rngs, train=train, pld_theta=pld_theta)
     return next_token_loss(
         lambda ids: forward(cfg, params, ids, rngs=rngs, train=train, pld_theta=pld_theta),
         cfg.max_seq_len, batch)
@@ -694,6 +909,8 @@ def attn_with_cache(cfg: GPTConfig, x: torch.Tensor, w: Params, k_cache: torch.T
     v_cache[:, :, pos:pos + T] = v.transpose(1, 2).to(v_cache.dtype)
     scale = cfg.attention_scale if cfg.attention_scale is not None else 1.0 / math.sqrt(Dh)
     use_kernel = cfg.use_flash is True or (cfg.use_flash is None and x.is_cuda)
+    if cfg.alibi or cfg.local_attention_period > 1:
+        use_kernel = False  # the decode kernel has no bias input
     if T == 1 and use_kernel:
         # per-token decode: the decode-attention kernel over the cache
         attn = decode_attention(q.to(k_cache.dtype), k_cache, v_cache, pos + 1,
@@ -701,7 +918,14 @@ def attn_with_cache(cfg: GPTConfig, x: torch.Tensor, w: Params, k_cache: torch.T
     else:
         # prefill: attend over the whole cache with a validity + causal mask
         logits = torch.einsum("bthd,bhsd->bhts", q.float(), k_cache.float()) * scale
-        mask = torch.arange(S, device=x.device)[None, None, :] <= positions[:, :, None]
+        s_idx = torch.arange(S, device=x.device)[None, None, :]
+        t_idx = positions[:, :, None]  # each query token's absolute position
+        mask = s_idx <= t_idx  # [B, T, S]
+        if _is_local_layer(cfg, layer_idx):
+            # a windowed layer also drops keys older than window_size
+            mask = mask & (s_idx > t_idx - cfg.window_size)
+        if cfg.alibi:
+            logits = logits + _alibi_bias(cfg, positions, S)
         logits = logits.masked_fill(~mask[:, None], NEG_INF)
         probs = torch.softmax(logits, dim=-1)
         attn = torch.einsum("bhts,bhsd->bthd", probs.to(v_cache.dtype), v_cache)
@@ -972,7 +1196,12 @@ def paged_decode_step(cfg: GPTConfig, params: Params, input_ids,
     of page 0) write to the sink page and give logits the caller ignores.
     Dense or quantized pools (recognized by the scale stacks); learned or
     rotary positions; the parallel residual. ``impl`` goes to
-    :func:`paged_decode_attention` (None: the B4 kernel on CUDA)."""
+    :func:`paged_decode_attention` (None: the B4 kernel on CUDA). ALiBi and
+    local attention raise the reference's ``ValueError``: B4 has no bias
+    input."""
+    if cfg.alibi or cfg.local_attention_period > 1:
+        raise ValueError("paged decode does not support alibi/local-window attention yet "
+                         "(the paged kernel has no bias input)")
     check_config(cfg)
     ids = _as_ids(input_ids, params)
     if ids.dim() == 1:
@@ -1040,8 +1269,11 @@ def paged_verify_step(cfg: GPTConfig, params: Params, window_ids, paged_cache: D
     as :func:`paged_decode_step`: learned or rotary positions, the parallel
     residual, dense or quantized weights (projections of at most 256 rows
     take the B6/B7 kernels), dense, int8 or int4 pools; alibi and local
-    attention raise. ``impl`` goes to :func:`paged_verify_attention` (None:
+    attention raise the reference's ``ValueError``. ``impl`` goes to :func:`paged_verify_attention` (None:
     the B5 kernel on CUDA)."""
+    if cfg.alibi or cfg.local_attention_period > 1:
+        raise ValueError("paged verification does not support alibi/local-window attention "
+                         "yet (same bound as paged_decode_step)")
     check_config(cfg)
     ids = _as_ids(window_ids, params)
     B, W = ids.shape

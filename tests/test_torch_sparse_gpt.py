@@ -156,11 +156,11 @@ def test_sparse_remat_grads_equal_no_remat_grads():
 
 
 def test_sparse_with_alibi_or_local_attention_raises_their_item():
-    """The reference refuses sparse + alibi/local biases with a ValueError;
-    the port raises for alibi and local attention first (ROADMAP.md A2b)."""
+    """Sparse attention with an alibi or local-window bias raises the
+    reference's ValueError (the blocksparse kernel has no bias input)."""
     sc = sa.FixedSparsityConfig(**FIXED)
     params = gpt.init_params(gpt.PRESETS["tiny"], 0, device="cpu")
     for over in ({"alibi": True}, {"local_attention_period": 2}):
         cfg = dataclasses.replace(gpt.PRESETS["tiny"], sparse_attention=sc, **over)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A2b"):
+        with pytest.raises(ValueError, match="cannot compose with alibi/local-window"):
             gpt.forward(cfg, params, torch.from_numpy(_ids(4)), train=False)

@@ -241,7 +241,7 @@ def test_paged_verify_step_matches_jax(variant, bits, qweights):
 
 def test_paged_verify_step_rejects_alibi():
     cfg = dataclasses.replace(TG.PRESETS["tiny"], alibi=True)
-    with pytest.raises(NotImplementedError, match="alibi"):
+    with pytest.raises(ValueError, match="alibi"):
         TG.paged_verify_step(cfg, {}, np.zeros((1, 2), np.int32), {}, np.zeros((1, 1)),
                              np.zeros(1))
 
