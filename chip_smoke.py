@@ -74,7 +74,10 @@ result line):
    (90 base cases: windows 2-17, pages 8-128, fp32 and bf16; 36 more at Dh96 and
    in fp16) must agree with its plain version on the committable window
    positions, be bitwise equal on a re-run, and in bf16 / fp16 lie within 2
-   ulps of the dtype of the fp32 function. B1, B2, B4 and B9 also run cases
+   ulps of the dtype of the fp32 function. Both also run on block tables as
+   the prefix cache leaves them, seven of 8 rows beginning with the same two
+   physical pages (B4: dense and int8 pools; B5: dense, windows 2 / 5 / 17;
+   fp32 and bf16), at the same tolerances and bitwise on a re-run. B1, B2, B4 and B9 also run cases
    at Dh 96. B8 (the dequant-fused
    product of the quantized wire) at the LM head's shape (x [4096, 768],
    vocabulary 50304 padded to 197 blocks of 256; fp32 x, the main path,
@@ -312,6 +315,28 @@ result line):
    ``temperature=1, top_k=50`` with one seed gives the same tokens twice;
    ``num_beams=4`` the plain path's beam tokens, with B3 launched 12 x 63
    times over 16 rows. bf16: greedy, sampled and beam tokens/s.
+
+15. the serving levers on phase 6's configuration. (a) the copy-on-write
+   prefix cache, fp32: phase 6a's workload with the reference bench's
+   128-token system prompt ahead of every prompt, served with the cache
+   off, on, on with n-gram speculation (spec_k 4) and on at pool 9: every
+   cache-on run gives the cache-off tokens, shares pages (physical/logical
+   below 1), ends with a clean audit, no page allocated and an empty index;
+   pool 9 preempts at least one slot holding borrowed pages; B4 12 times a
+   decode step, B5 12 times a verify window. (b) overload control, bf16:
+   the reference's overload worker at full width (saturation calibrated by
+   ``estimate_saturation_rps``, 24 requests at 2x that rate, seed 5, an SLO
+   of 2 s) through a scheduler with ``max_queue`` = slots,
+   ``max_queued_tokens`` = the pool's tokens and TTFT / end-to-end
+   deadlines of SLO / 2 and SLO, and through one without: no controlled
+   request unfinished, clean audits, B4 12 times a decode step; goodput,
+   shed and deadline-miss rates and the accepted TTFT p99 of both. (c)
+   dispatch-fault recovery, fp32: every decode block of 4 steps raises,
+   ``dispatch_retries`` 1, ``quarantine_after`` 2: 6a's tokens, 2 failed
+   episodes of 2 attempts each, the block shape of 4 quarantined, a clean
+   audit. Every serving phase (6, 7c, 7d, 8, 11, 15) fails on a
+   ``dispatch_error`` or ``dispatch_failed`` it did not inject, so a retry
+   never hides a failed launch.
 
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
@@ -1558,6 +1583,30 @@ def _paged_lengths(B, pages, ps, rng):
     return lens[:B]
 
 
+def _aliased_table(lens_list, pages, pool, ps, shared, rng, ahead=0):
+    """A block table as a prefix cache leaves it: every row whose length
+    covers ``shared`` full pages begins with the same ``shared`` physical
+    pages; the rest of each row (the pages its length, plus ``ahead``
+    positions, reaches) are private pages, distinct across rows."""
+    common = rng.choice(np.arange(1, pool), shared, replace=False)
+    private = [p for p in rng.permutation(np.arange(1, pool)) if p not in common]
+    table = np.zeros((len(lens_list), pages), np.int32)
+    for b, n in enumerate(lens_list):
+        used = min(-(-(n + ahead) // ps), pages)
+        lead = shared if n >= shared * ps else 0
+        table[b, :lead] = common[:lead]
+        for i in range(lead, used):
+            table[b, i] = private.pop()
+    return table
+
+
+# the aliased-table rows of B4 and B5 (phase 6's cell: 8 slots, page 64, 8
+# pages a row, pool 17): seven rows borrow the same two leading pages (a
+# 128-token system prompt), one short row does not
+ALIASED_LENS = {"B4": [128, 129, 191, 192, 200, 250, 300, 5],
+                "B5": [128, 129, 150, 191, 192, 200, 250, 5]}
+
+
 def phase_kernels_paged(torch, ctx):
     """B4 (dense pools) and B4q (int8, int4 pools), split over each row's
     pages (``split_plan``), against the gather + plain softmax version: the
@@ -1665,6 +1714,36 @@ def phase_kernels_paged(torch, ctx):
                                                 bound_by=bound_by)
                 del q, k, v, kc, vc, out, again
         torch.cuda.empty_cache()
+
+    # tables whose leading pages are the same physical pages in several
+    # slots, as the prefix cache leaves them (phase 15)
+    lens_list = ALIASED_LENS["B4"]
+    tables = torch.from_numpy(_aliased_table(lens_list, 8, 17, 64, 2, rng)).cuda()
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        for kind in ("dense", "kv8"):
+            q = randn((8, 1, H, 64), dtype)
+            if kind == "dense":
+                k, v = randn((H, 17, 64, 64), dtype), randn((H, 17, 64, 64), dtype)
+                ks = vs = None
+            else:
+                k, v = (torch.randint(-128, 128, (H, 17, 64, 64), generator=gen, device="cuda",
+                                      dtype=torch.int8) for _ in range(2))
+                ks, vs = (torch.rand((H, 17), generator=gen, device="cuda") * 0.02 + 1e-3
+                          for _ in range(2))
+            out = da.paged_decode_attention(q, k, v, lens, tables, k_scales=ks, v_scales=vs)
+            again = da.paged_decode_attention(q, k, v, lens, tables, k_scales=ks, v_scales=vs)
+            ref = da.paged_decode_attention(q, k, v, lens, tables, impl="gather", k_scales=ks,
+                                            v_scales=vs)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            errs[kind] = max(errs[kind], err)
+            log(f"phase2 paged_decode_attention {kind} aliased tables (rows 0-6 share pages "
+                f"{tables[0, :2].tolist()}) B8 H{H} Dh64 ps64 pool17 lengths={lens_list} {dt}: "
+                f"max_abs_err={err:.3e} bitwise_rerun={torch.equal(out, again)}")
+            check(err <= ATOL[dt], f"paged {kind} aliased {dt}: max_abs_err {err}")
+            check(torch.equal(out, again), f"paged {kind} aliased {dt}: two runs differ")
     for kind in PAGED_KINDS:
         ctx[f"paged_{kind}"]["max_abs_err"] = errs[kind]
 
@@ -1812,6 +1891,37 @@ def phase_kernels_verify(torch, ctx):
         + f"; largest ulps of the fp32 function bf16={worst_ulp['bfloat16']:.2f} "
         f"fp16={worst_ulp['float16']:.2f}")
     check(n_cases == 126, f"B5: {n_cases} cases, expected 90 + 36")
+
+    # tables whose leading pages are the same physical pages in several
+    # slots, as the prefix cache leaves them (phase 15): dense pools
+    lens_list = ALIASED_LENS["B5"]
+    tables = torch.from_numpy(_aliased_table(lens_list, 8, 17, 64, 2, rng, ahead=17)).cuda()
+    lens = torch.tensor(lens_list, dtype=torch.int32, device="cuda")
+    for dt in ("float32", "bfloat16"):
+        dtype = getattr(torch, dt)
+        k, v = randn((H, 17, 64, 64), dtype), randn((H, 17, 64, 64), dtype)
+        for W in (2, 5, 17):
+            qkv = randn((B, W, 3 * H * 64), dtype)
+            q, wk, wv = (x.reshape(B, W, H, 64) for x in qkv.split(H * 64, dim=-1))
+            out = da.paged_verify_attention(q, k, v, lens, tables, wk, wv)
+            again = da.paged_verify_attention(q, k, v, lens, tables, wk, wv)
+            ref = da.paged_verify_attention(q, k, v, lens, tables, wk, wv, impl="gather")
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            errs["dense"] = max(errs["dense"], err)
+            ulps = None
+            if dt != "float32":  # against the fp32 function of the same inputs
+                ref32 = da.paged_verify_attention(q.float(), k.float(), v.float(), lens, tables,
+                                                  wk.float(), wv.float(), impl="gather")
+                ulps = ulp_err(torch, out, ref32, dtype)
+                check(ulps <= BWD_MAX_ULP, f"verify aliased W{W} {dt}: {ulps} ulps")
+            log(f"phase2 paged_verify_attention dense aliased tables (rows 0-6 share pages "
+                f"{tables[0, :2].tolist()}) B{B} H{H} Dh64 ps64 pool17 W{W} lengths={lens_list} "
+                f"{dt}: max_abs_err={err:.3e} "
+                + (f"max_ulp_err={ulps:.2f} " if ulps is not None else "")
+                + f"bitwise_rerun={torch.equal(out, again)}")
+            check(err <= ATOL[dt], f"verify aliased W{W} {dt}: max_abs_err {err}")
+            check(torch.equal(out, again), f"verify aliased W{W} {dt}: two runs differ")
     for kind in PAGED_KINDS:
         ctx[f"verify_{kind}"]["max_abs_err"] = errs[kind]
 
@@ -2702,11 +2812,15 @@ SERVE_WORKLOAD = (24, 8.0, (32, 128), (16, 96))  # requests, rps, prompt and gen
 
 
 def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_CFG, draft=None,
-           **over):
+           system_prompt=None, fail_blocks=(), **over):
     """One ``run_continuous`` of an open-loop workload (seed 0; by default
-    the bench's: 24 requests at 8 rps, prompts 32-128, generations 16-96)
-    after ``warmup``, with the launch counts set to 0 just before and read
-    just after. Checks what the path must launch: B4 12 times a decode step,
+    the bench's: 24 requests at 8 rps, prompts 32-128, generations 16-96,
+    each prompt behind ``system_prompt`` where one is given) after
+    ``warmup``, with the launch counts set to 0 just before and read just
+    after. A decode block of a size in ``fail_blocks`` raises before it
+    launches anything (an injected dispatch fault); otherwise the run must
+    record no ``dispatch_error`` and no ``dispatch_failed``, so no retry hides
+    a failed launch. Checks what the path must launch: B4 12 times a decode step,
     B5 12 times a verify window (by pool kind; neither on the gather path),
     B3 12 times a single-token draft-model forward and never otherwise, B1
     never, and over a quantized tree, in every prefill forward, decode step,
@@ -2724,7 +2838,8 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
                         draft=draft)
     eng.warmup()
     decode, verify, forward_with_cache = eng.decode, eng.verify, gpt.forward_with_cache
-    count = {"steps": 0, "windows": 0, "draft_tokens": 0}
+    count = {"steps": 0, "windows": 0, "draft_tokens": 0, "borrowed_preemptions": 0}
+    blocks = {}  # decode block size -> launched blocks
     qmm = {f"{k}_in_{where}": 0 for k in QMM_COUNTERS
            for where in ("prefill", "decode", "verify", "draft")}
     prefill_rows = {}  # rows of a prefill forward -> forwards
@@ -2760,11 +2875,38 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
         return qmm_counted(forward_with_cache, "draft" if draft_token else "prefill", params_,
                            rows, 1, cfg_, params_, ids, cache)
 
-    eng.decode = counted(decode, "steps", lambda *a, steps=1: steps, lambda *a, **k: eng.num_slots)
+    counted_decode = counted(decode, "steps", lambda *a, steps=1: steps,
+                             lambda *a, **k: eng.num_slots)
+
+    def decode_block(*args, steps=1, **kw):
+        if steps in fail_blocks:
+            raise RuntimeError(f"injected fault: a decode block of {steps} steps")
+        blocks[steps] = blocks.get(steps, 0) + 1
+        return counted_decode(*args, steps=steps, **kw)
+
+    make_scheduler = eng.make_scheduler
+
+    def make_counted_scheduler(*args, **kw):
+        """The engine's scheduler, counting preemptions of slots that hold
+        pages borrowed from the prefix index."""
+        sched = make_scheduler(*args, **kw)
+        preempt = sched._preempt
+
+        def counted_preempt(slot, *a, **k):
+            count["borrowed_preemptions"] += sched._slot_shared[slot] > 0
+            return preempt(slot, *a, **k)
+
+        sched._preempt = counted_preempt
+        return sched
+
+    eng.decode, eng.make_scheduler = decode_block, make_counted_scheduler
     eng.verify = counted(verify, "windows", lambda *a: 1,
                          lambda tokens, *a: eng.num_slots * int(np.asarray(tokens).shape[1]))
     n_req, rps, prompts, gens = workload
     wl = make_open_loop_workload(n_req, rps, prompts, gens, cfg.vocab_size, seed=0)
+    if system_prompt is not None:
+        for r in wl:
+            r.prompt = np.concatenate([system_prompt, r.prompt]).astype(np.int32)
     gpt.forward_with_cache = counted_forward
     try:
         fa, da = _reset_counts()  # a paged serving main path
@@ -2781,8 +2923,18 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
                 "prefill_rows": dict(sorted(prefill_rows.items()))}
     tag = " ".join([dtype] + [f"{k}={v}" for k, v in over.items()])
     spec = rep.get("spec", {})
+    faults = {k: rep["recovery_counters"].get(k, 0)
+              for k in ("dispatch_error", "dispatch_failed", "block_quarantined")}
+    rep["borrowed_preemptions"] = count["borrowed_preemptions"]
+    rep["decode_blocks"] = dict(sorted(blocks.items()))
+    if system_prompt is not None:
+        tag += f" system_prompt={len(system_prompt)}"
     log(f"phase run {tag}: finished={rep['finished']}/{len(wl)} audit_ok={rep['pool_audit_ok']} "
         f"scheduler_steps={rep['decode_steps']} decode_steps={count['steps']} "
+        f"decode_blocks={rep['decode_blocks']} dispatch_faults={faults} "
+        f"page_stats={rep['page_stats']} "
+        f"physical_logical={rep['physical_logical_page_ratio']} "
+        f"borrowed_preemptions={count['borrowed_preemptions']} "
         f"verify_windows={count['windows']} draft_single_token_forwards={count['draft_tokens']} "
         f"preemptions={rep['preemptions']} launches={launches} "
         f"ttft_p50_ms={rep['ttft_p50_ms']} ttft_p99_ms={rep['ttft_p99_ms']} "
@@ -2791,6 +2943,8 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
         + (f" spec={spec}" if spec else ""))
     check(rep["finished"] == len(wl), f"{tag}: {rep['finished']} of {len(wl)} finished")
     check(rep["pool_audit_ok"], f"{tag}: the page audit failed")
+    if not fail_blocks:
+        check(not any(faults.values()), f"{tag}: a dispatch failed or was retried: {faults}")
     check(launches["flash"] == 0, f"{tag}: B1 launched on the paged path: {launches}")
     check(launches["decode"] == cfg.n_layer * count["draft_tokens"],
           f"{tag}: B3 launches {launches['decode']}, expected 12 per single-token draft "
@@ -2841,11 +2995,12 @@ def _qmm_expected(torch, cfg, params, rows, dtype, n=1):
     return want
 
 
-def _first_flip(torch, cfg, qparams, toks_q, toks_d, wl) -> str:
+def _first_flip(torch, cfg, qparams, toks_q, toks_d, wl, names=("quantized", "dense")) -> str:
     """The first request whose served tokens differ between the quantized
-    tree and its dequantized dense tree: the position, both tokens, and the
-    gap between the two largest logits of the dense tree's forward over the
-    shared prefix there (a near tie flips under another rounding)."""
+    tree and its dequantized dense tree (or two runs over one dense tree,
+    ``names`` saying which): the position, both tokens, and the gap between
+    the two largest logits of the dense tree's forward over the shared
+    prefix there (a near tie flips under another rounding)."""
     from deepspeed_tpu_torch.models import gpt
 
     for i, (a, b) in enumerate(zip(toks_q, toks_d)):
@@ -2856,7 +3011,7 @@ def _first_flip(torch, cfg, qparams, toks_q, toks_d, wl) -> str:
         logits = gpt.forward(cfg, gpt.dequantize_params(qparams),
                              torch.as_tensor(ids, device="cuda"), train=False)[0, -1].float()
         top2 = torch.topk(logits, 2).values
-        return (f"request {i} token {j}: quantized {a[j]} dense {b[j]} "
+        return (f"request {i} token {j}: {names[0]} {a[j]} {names[1]} {b[j]} "
                 f"dense top-2 logit gap {float(top2[0] - top2[1]):.3e}")
     return "none"
 
@@ -4268,6 +4423,132 @@ def phase_decoding_modes(torch, ctx):
             f"generate_ms={gen_ms:.2f} tokens_per_s={tok_s:.1f}")
 
 
+# phase 15: the serving levers on phase 6's cell. The chat-style workload of
+# the reference bench's prefix lever row: every prompt opens with the system
+# prompt (arange(prefix_len) * 7 + 3) % V, prefix_len = 2 pages = 128 tokens,
+# exactly one prefill chunk. 15b is the reference's overload worker at full
+# width: 2x the saturation rate, 24 requests, seed 5, SLO 2 s.
+LEVER_PREFIX_PAGES = 2
+OVERLOAD = dict(factor=2.0, requests=24, seed=5, slo_s=2.0, max_wall_s=120.0)
+
+
+def phase_serving_levers(torch, ctx):
+    from deepspeed_tpu_torch.inference.serving import (ContinuousBatchingScheduler, RequestState,
+                                                       ServingConfig, ServingEngine,
+                                                       estimate_saturation_rps,
+                                                       make_open_loop_workload, run_continuous)
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    params = ctx["params"]
+    ps = SERVE_CFG["page_size"]
+
+    # (a) the copy-on-write prefix cache, fp32: off, on, on with n-gram
+    # speculation, on at pool 9 (preemption of borrowers)
+    sysp = ((np.arange(LEVER_PREFIX_PAGES * ps) * 7 + 3) % cfg.vocab_size).astype(np.int32)
+    rep_off, toks_off, _, _, _ = _serve(torch, cfg, params, "float32", system_prompt=sysp)
+    log(f"phase15a fp32 prefix cache off: physical/logical="
+        f"{rep_off['physical_logical_page_ratio']} page_stats={rep_off['page_stats']}")
+    for name, over in (("on", {}), ("on spec_k4", SPEC), ("on pool9", {"num_pages": 9})):
+        rep, toks, wl, _, eng = _serve(torch, cfg, params, "float32", system_prompt=sysp,
+                                       enable_prefix_cache=True, **over)
+        sched = eng.last_scheduler
+        stats, ratio = rep["page_stats"], rep["physical_logical_page_ratio"]
+        index = sched.prefix_cache
+        log(f"phase15a fp32 prefix cache {name}: match vs cache off={_match(toks, toks_off):.4f} "
+            f"shared_pages={stats['shared']} physical/logical={ratio} (cache off "
+            f"{rep_off['physical_logical_page_ratio']}) index hits={index.hits} "
+            f"misses={index.misses} preemptions={rep['preemptions']} "
+            f"borrowed_preemptions={rep['borrowed_preemptions']} at the end: audit_ok="
+            f"{sched.audit()['ok']} allocated={sched.allocator.allocated_pages} "
+            f"indexed={len(index)} ttft_p50_ms={rep['ttft_p50_ms']} "
+            f"tokens_per_sec={rep['tokens_per_sec']}")
+        if toks != toks_off:
+            log("phase15a first differing request: " + _first_flip(
+                torch, cfg, params, toks, toks_off, wl, names=(f"cache {name}", "cache off")))
+        check(toks == toks_off, f"prefix cache {name}: tokens differ from the cache-off run")
+        check(stats["shared"] > 0 and ratio < 1,
+              f"prefix cache {name}: nothing shared ({stats}, ratio {ratio})")
+        check(sched.audit()["ok"] and sched.allocator.allocated_pages == 0 and not len(index),
+              f"prefix cache {name}: pages or index entries left at the end")
+        if "num_pages" in over:
+            check(rep["borrowed_preemptions"] >= 1,
+                  "pool 9 preempted no slot holding borrowed pages")
+        del eng, sched
+    torch.cuda.empty_cache()
+
+    # (b) overload control, bf16: the reference's overload worker at full width
+    eng = ServingEngine(cfg, params, ServingConfig(**SERVE_CFG, dtype="bfloat16"))
+    eng.warmup()
+    _, _, prompts, gens = SERVE_WORKLOAD
+    sat = estimate_saturation_rps(eng, prompts, gens, cfg.vocab_size)
+    calib = dict(eng.last_scheduler.counters)
+    check(not any(k.startswith("dispatch_") for k in calib), f"15b calibration: {calib}")
+    rate = OVERLOAD["factor"] * sat
+    slo = OVERLOAD["slo_s"]
+    decoded = {"steps": 0}
+    decode = eng.decode
+
+    def counted_decode(*args, steps=1, **kw):
+        decoded["steps"] += steps
+        return decode(*args, steps=steps, **kw)
+
+    eng.decode = counted_decode
+    reps = {}
+    for side in ("controlled", "uncontrolled"):
+        kw = (dict(max_queue=eng.num_slots, max_queued_tokens=eng.hbm_token_slots(),
+                   ttft_deadline_s=slo / 2, deadline_s=slo) if side == "controlled" else {})
+        sched = ContinuousBatchingScheduler(
+            executor=eng, num_slots=eng.num_slots, num_pages=eng.num_pages, page_size=ps,
+            pages_per_seq=eng.serving.pages_per_seq, decode_block=eng.serving.decode_block,
+            max_context=eng.serving.max_model_len, **kw)
+        wl = make_open_loop_workload(OVERLOAD["requests"], rate, prompts, gens, cfg.vocab_size,
+                                     seed=OVERLOAD["seed"])
+        decoded["steps"] = 0
+        fa, da = _reset_counts()  # the overload-controlled (or not) serving path
+        rep = run_continuous(eng, wl, max_wall_s=OVERLOAD["max_wall_s"], slo_s=slo,
+                             scheduler=sched)
+        torch.cuda.synchronize()
+        reps[side] = rep
+        states = {st.value: sum(r.state is st for r in wl) for st in RequestState}
+        c = rep["recovery_counters"]
+        log(f"phase15b bf16 overload {side}: saturation_rps={sat:.3f} offered_rps={rate:.3f} "
+            f"slo_s={slo} goodput_tokens_per_sec={rep['goodput_tokens_per_sec']} "
+            f"shed_rate={rep['shed_rate']} deadline_miss_rate={rep['deadline_miss_rate']} "
+            f"accepted_ttft_p99_ms={rep['ttft_p99_ms']} ttft_p50_ms={rep['ttft_p50_ms']} "
+            f"tokens_per_sec={rep['tokens_per_sec']} unfinished={rep['unfinished']} "
+            f"states={states} counters={c} preemptions={rep['preemptions']} "
+            f"decode_steps={decoded['steps']} B4_launches={da.paged_launches} "
+            f"audit_ok={rep['pool_audit_ok']} allocated={sched.allocator.allocated_pages} "
+            f"wall_s={rep['wall_s']}")
+        check(rep["pool_audit_ok"] and sched.allocator.allocated_pages == 0,
+              f"15b {side}: the audit failed or pages are left")
+        check(not any(k.startswith("dispatch_") for k in c), f"15b {side}: {c}")
+        check(da.paged_launches == cfg.n_layer * decoded["steps"] and decoded["steps"] > 0,
+              f"15b {side}: B4 launches {da.paged_launches}, steps {decoded['steps']}")
+        if side == "controlled":
+            check(rep["unfinished"] == 0 and states["queued"] == states["running"] == 0,
+                  f"15b: controlled requests left unfinished: {states}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # (c) dispatch-fault recovery on the device executor, fp32: every decode
+    # block of 4 steps raises; one retry, quarantine after 2 failed episodes
+    rep, toks, _, _, eng = _serve(torch, cfg, params, "float32", fail_blocks=(4,),
+                                  dispatch_retries=1, quarantine_after=2)
+    c, sched = rep["recovery_counters"], eng.last_scheduler
+    log(f"phase15c fp32 decode blocks of 4 fail: match vs 6a={_match(toks, ctx['toks_6a']):.4f} "
+        f"counters={c} quarantined={sorted(sched._quarantined_blocks)} "
+        f"decode_blocks={rep['decode_blocks']} preemptions={rep['preemptions']} "
+        f"audit_ok={sched.audit()['ok']}")
+    check(toks == ctx["toks_6a"], "15c: healed tokens differ from 6a's")
+    check(c.get("block_quarantined") == 1 and c.get("dispatch_failed") == 2
+          and c.get("dispatch_error") == 4, f"15c: recovery counters {c}")
+    check(sched._quarantined_blocks == {4} and set(rep["decode_blocks"]) <= {1, 2},
+          f"15c: blocks {rep['decode_blocks']}, quarantined {sched._quarantined_blocks}")
+    check(sched.audit()["ok"] and sched.allocator.allocated_pages == 0, "15c: audit")
+
+
 def main() -> int:
     import torch
 
@@ -4283,7 +4564,7 @@ def main() -> int:
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
                   phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
                   phase_sparse, phase_head_dim_96, phase_checkpoint, phase_gpt_variants,
-                  phase_decoding_modes):
+                  phase_decoding_modes, phase_serving_levers):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)

@@ -80,11 +80,16 @@ def _report(requests: Sequence[Request], t0: float, t_end: float, mode: str,
         return None if x != x else round(x * 1e3, nd)  # NaN -> JSON null
 
     shed = [r for r in requests if r.state is RequestState.REJECTED]
+    expired = [r for r in requests if r.state is RequestState.EXPIRED]
     accepted = len(requests) - len(shed)
+    # accepted requests still unfinished at the end: under an SLO, those whose
+    # deadline lapsed count as misses, as expired ones do
     unfinished = [r for r in requests
-                  if r.state is not RequestState.REJECTED and r.t_done is None]
+                  if r.state not in (RequestState.REJECTED, RequestState.EXPIRED)
+                  and r.t_done is None]
     if slo_s is not None:
         late += sum(1 for r in unfinished if t_end - (t0 + r.arrival_time) > slo_s)
+    misses = len(expired) + late
     wall = max(t_end - t0, 1e-9)
     row = {
         "mode": mode,
@@ -100,8 +105,8 @@ def _report(requests: Sequence[Request], t0: float, t_end: float, mode: str,
         "shed": len(shed),
         "shed_rate": round(len(shed) / max(len(requests), 1), 4),
         "unfinished": len(unfinished),
-        "deadline_misses": late,
-        "deadline_miss_rate": round(late / max(accepted, 1), 4),
+        "deadline_misses": misses,
+        "deadline_miss_rate": round(misses / max(accepted, 1), 4),
         "goodput_tokens_per_sec": round(goodput_tokens / wall, 2),
     }
     if slo_s is not None:

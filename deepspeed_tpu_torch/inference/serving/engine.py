@@ -50,7 +50,7 @@ from ...accelerator import resolve_device, to_device
 from ...models import gpt as gpt_mod
 from ...utils.errors import unported
 from .buckets import bucket_for, default_buckets
-from .paging import pages_for
+from .paging import PrefixIndex, pages_for
 from .scheduler import ContinuousBatchingScheduler
 from .speculate import make_drafter, spec_k_ladder
 
@@ -64,8 +64,13 @@ class ServingConfig:
     knobs ``spec_drafter`` (None | "ngram" | "draft_model"), ``spec_k`` (1 to
     16), ``spec_adaptive``, ``spec_ngram`` and ``spec_draft_model``, ``dtype``
     and ``kernel_impl`` (None = the kernel on CUDA | "kernel" | "gather").
-    ``spec_equivalence_harness`` is accepted and does nothing: its only
-    reader is the reference's dslint rule ``analysis/rules_serving.py``
+    ``enable_prefix_cache`` (a ``PrefixIndex`` on the scheduler), the
+    overload knobs ``max_queue``, ``max_queued_tokens`` and ``shed_policy``,
+    the deadlines ``ttft_deadline_s`` and ``request_deadline_s``, and the
+    dispatch-fault knobs ``dispatch_retries``, ``quarantine_after`` and
+    ``dispatch_failure_budget`` reach the scheduler ``make_scheduler``
+    builds. ``spec_equivalence_harness`` is accepted and does nothing: its
+    only reader is the reference's dslint rule ``analysis/rules_serving.py``
     (ROADMAP.md A14). The rest must keep their defaults (see
     :func:`check_serving_config`)."""
 
@@ -130,9 +135,6 @@ class ServingConfig:
 
 # the knobs outside this slice, by the ROADMAP.md item that ports them
 _UNPORTED_KNOBS = {
-    "A7": ("enable_prefix_cache", "max_queue", "max_queued_tokens", "shed_policy",
-           "ttft_deadline_s", "request_deadline_s", "dispatch_retries", "quarantine_after",
-           "dispatch_failure_budget"),
     "A10": ("tp", "role", "tiers", "tenants", "brownout_window_s",
             "brownout_enter_shed_rate", "brownout_enter_misses", "brownout_exit_shed_rate",
             "brownout_min_dwell_s"),
@@ -400,7 +402,9 @@ class ServingEngine:
     # -------------------------------------------------------------- assembly
     def make_scheduler(self, clock=time.monotonic,
                        recovery_log=None) -> ContinuousBatchingScheduler:
-        """The scheduler over this engine, sized by its config."""
+        """The scheduler over this engine, sized by its config, with its
+        overload, deadline and dispatch-fault knobs, and a ``PrefixIndex``
+        when ``enable_prefix_cache`` is set."""
         if recovery_log is not None:
             raise unported("make_scheduler(recovery_log=...) (the serving recovery trail)",
                            "A11")
@@ -409,6 +413,12 @@ class ServingEngine:
             executor=self, num_slots=self.num_slots, num_pages=self.num_pages,
             page_size=s.page_size, pages_per_seq=s.pages_per_seq,
             decode_block=s.decode_block, max_context=s.max_model_len, clock=clock,
+            max_queue=s.max_queue, max_queued_tokens=s.max_queued_tokens,
+            shed_policy=s.shed_policy, ttft_deadline_s=s.ttft_deadline_s,
+            deadline_s=s.request_deadline_s, dispatch_retries=s.dispatch_retries,
+            quarantine_after=s.quarantine_after,
+            dispatch_failure_budget=s.dispatch_failure_budget,
+            prefix_cache=PrefixIndex(s.page_size) if s.enable_prefix_cache else None,
             drafter=make_drafter(self, s), spec_k=s.spec_k, spec_adaptive=s.spec_adaptive)
         self.last_scheduler = sched
         return sched

@@ -15,14 +15,22 @@ raise), the free list is LIFO, and every allocated page carries a refcount
 copy-on-write trigger). :meth:`PageAllocator.audit` checks the conservation
 invariant.
 
+:class:`PrefixIndex` is the host-side lookup behind the copy-on-write
+prefix cache: a hash chain over page-sized prompt token blocks
+(:func:`prefix_chain_hashes`; block j's key commits to blocks 0..j) mapping
+each chain hash to the physical page that holds that block's KV, so requests
+that open with the same page-aligned tokens (a system prompt) share pages.
+
 Not ported here: the reference's chaos hook (``_alloc_fault_armed``, an
-injected allocation failure) goes with the chaos harness (ROADMAP.md A11);
-``PrefixIndex`` and ``prefix_chain_hashes`` go with the prefix cache (A7).
+injected allocation failure) goes with the chaos harness (ROADMAP.md A11).
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, FrozenSet, List, Optional, Sequence
+
+import numpy as np
 
 RESERVED_PAGE = 0
 
@@ -151,3 +159,86 @@ class PageAllocator:
                 self._free.append(p)
                 released.append(p)
         return released
+
+
+# ---------------------------------------------------------------- prefix index
+def prefix_chain_hashes(tokens: Sequence[int], page_size: int) -> List[bytes]:
+    """Hash chain over page-sized token blocks (blake2b, 16-byte digests of
+    the int64 tokens): entry j commits to blocks 0..j, so equal hashes mean
+    equal page-aligned prefixes. Only full blocks take part: a partial tail
+    page would be written at different offsets by different requests."""
+    toks = np.asarray(tokens, np.int64)
+    out: List[bytes] = []
+    h = hashlib.blake2b(digest_size=16)
+    for j in range(len(toks) // page_size):
+        h.update(toks[j * page_size:(j + 1) * page_size].tobytes())
+        out.append(h.digest())
+    return out
+
+
+class PrefixIndex:
+    """Map from prompt-prefix hash chains to the physical pages holding their
+    KV. Entries are registered after a prefill wrote the page (the first
+    writer wins) and forgotten when the page's last reference dies
+    (``PageAllocator.free`` returns the released pages), so a recycled page
+    never serves a stale prefix."""
+
+    def __init__(self, page_size: int):
+        self.page_size = int(page_size)
+        self._by_hash: Dict[bytes, int] = {}
+        self._by_page: Dict[int, bytes] = {}
+        self.hits = 0      # pages served from the index
+        self.misses = 0    # lookups that stopped short of their full blocks
+
+    def __len__(self) -> int:
+        return len(self._by_hash)
+
+    def lookup(self, tokens: Sequence[int]) -> List[int]:
+        """Pages of the longest indexed page-aligned prefix of ``tokens``
+        (the chain stops at its first miss), counted in the statistics."""
+        hashes = prefix_chain_hashes(tokens, self.page_size)
+        pages = self.lookup_chain(hashes)
+        self.count(hashes, pages)
+        return pages
+
+    def count(self, hashes: Sequence[bytes], pages: Sequence[int]) -> None:
+        """Record one lookup's outcome; the scheduler calls it only at the
+        admission that proceeds, so retries under head-of-line blocking
+        count once."""
+        self.hits += len(pages)
+        if len(pages) < len(hashes):
+            self.misses += 1
+
+    def lookup_chain(self, hashes: Sequence[bytes]) -> List[int]:
+        """:meth:`lookup` over a precomputed chain, without counting."""
+        pages: List[int] = []
+        for h in hashes:
+            page = self._by_hash.get(h)
+            if page is None:
+                break
+            pages.append(page)
+        return pages
+
+    def register(self, tokens: Sequence[int], pages: Sequence[int]) -> int:
+        """Index the full blocks of ``tokens`` against ``pages`` (the owning
+        request's table pages, in order). An existing entry wins, and a page
+        already indexed under another chain is skipped. Returns the number
+        of new entries."""
+        added = 0
+        for j, h in enumerate(prefix_chain_hashes(tokens, self.page_size)):
+            if j >= len(pages):
+                break
+            page = int(pages[j])
+            if page == RESERVED_PAGE or h in self._by_hash or page in self._by_page:
+                continue
+            self._by_hash[h] = page
+            self._by_page[page] = h
+            added += 1
+        return added
+
+    def forget(self, released_pages: Sequence[int]) -> None:
+        """Drop the entries of pages whose storage was just recycled."""
+        for p in released_pages:
+            h = self._by_page.pop(int(p), None)
+            if h is not None:
+                self._by_hash.pop(h, None)

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler: per-decode-step admit / evict / preempt.
 
-The port's copy of the default configuration of
+The port's copy of the untiered configuration of
 ``deepspeed_tpu/inference/serving/scheduler.py`` (the port imports nothing of
 the JAX package). The unit of scheduling is a decode slot: the decode step
 runs over a fixed number of slots whether they are occupied or not.
@@ -19,7 +19,8 @@ The scheduler is host-only: all device work goes through an *executor*
 (``serving.engine.ServingEngine``, or a fake in tests) with
 
 - ``prefill(slot, tokens, table_row) -> first_token`` and optionally
-  ``prefill_many(items) -> {slot: first_token}`` for one admission cycle;
+  ``prefill_many(items) -> {slot: first_token}`` for one admission cycle
+  (with the prefix cache, each call or item also carries ``start``);
 - ``decode(tokens, tables, lengths, active, steps=1) -> [steps, num_slots]``;
 - with a drafter, ``verify(tokens, tables, lengths, active, eos, budget) ->
   (outputs [num_slots, W], n_accept [num_slots])``.
@@ -31,15 +32,42 @@ the executor) and appends the accepted tokens; k follows the accept rate
 (``AdaptiveSpecK``). A step in which no slot drafted falls back to plain
 decode.
 
-An executor exception propagates out of :meth:`step` unchanged: nothing
-here retries, so a device fault is never hidden.
+Overload control: ``submit`` returns a typed :class:`AdmissionVerdict`.
+Past ``max_queue`` requests or ``max_queued_tokens`` of queued work
+(:attr:`Request.work_tokens`), the shed policy rejects the newcomer
+(``reject_newest``) or sheds strictly larger queued requests to make room
+(``reject_largest``, only when that admits the newcomer).
+
+Deadlines: per-request TTFT and end-to-end deadlines (the scheduler's
+defaults where a request sets none) are swept on the injected ``clock`` at
+every step. An expired request leaves as ``EXPIRED`` with its pages freed
+and a ``deadline_miss`` counted; TTFT applies only while the first token is
+still owed.
+
+Dispatch-fault recovery: every executor call runs through :meth:`_dispatch`,
+which retries ``dispatch_retries`` times on ``backoff_delay``'s curve and
+counts each failed attempt as ``dispatch_error``. When a whole episode fails
+(``dispatch_failed``), the affected slots are preempted and requeued with
+their tokens kept (greedy re-prefill reproduces the state), a decode block
+shape that failed ``quarantine_after`` episodes is no longer used, the page
+audit runs, and ``dispatch_failure_budget`` consecutive failed episodes of
+one kind raise :class:`ServingFaultError`. A retry that succeeds is visible
+only in ``counters``.
+
+Copy-on-write prefix cache: with a :class:`~.paging.PrefixIndex` attached,
+admission shares the physical pages of the longest indexed page-aligned
+prompt prefix (allocator refcounts) instead of allocating them, passes the
+executor each row's first unshared position as ``start`` (the prefill
+forward still runs the whole context; its KV scatter skips the borrowed
+pages), and registers the request's full prompt pages after the prefill.
+:meth:`audit` then also checks every refcount against the slots' references
+and that no shared page reaches a write frontier.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP.md item when a constructor argument asks for it: overload control,
-deadlines and dispatch-fault recovery (retries, quarantine, failure budget)
-and the prefix cache (A7); SLO tiers, tenants, the brownout
-ladder and the disaggregated prefill/decode roles (A10); the recovery log,
-the watchdog and page fingerprints (A11).
+ROADMAP.md item when a constructor argument asks for it: SLO tiers, tenants,
+the brownout ladder and the disaggregated prefill/decode roles (A10); the
+recovery log, the watchdog, page fingerprints and the chaos plan's dispatch
+hook (A11).
 """
 
 from __future__ import annotations
@@ -49,12 +77,14 @@ import enum
 import itertools
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Set
 
 import numpy as np
 
+from ...resilience.retry import backoff_delay
 from ...utils.errors import unported
-from .paging import PageAllocator, pages_for
+from ...utils.logging import logger
+from .paging import PageAllocator, PrefixIndex, pages_for, prefix_chain_hashes
 from .speculate import AdaptiveSpecK, spec_k_ladder
 
 
@@ -62,19 +92,39 @@ class RequestState(enum.Enum):
     QUEUED = "queued"
     RUNNING = "running"
     FINISHED = "finished"
-    REJECTED = "rejected"   # refused at submit (unservable, or draining)
+    REJECTED = "rejected"   # shed at or after submit (overload, unservable, draining)
+    EXPIRED = "expired"     # missed its deadline; evicted, pages freed
+
+
+class ServingFaultError(RuntimeError):
+    """``dispatch_failure_budget`` consecutive dispatch episodes of one kind
+    failed, each already retried: the serving process should be recycled."""
+
+
+class _DispatchFailure(RuntimeError):
+    """One dispatch episode failed on every attempt."""
+
+    def __init__(self, kind: str, attempts: int, last: BaseException):
+        super().__init__(f"{kind} dispatch failed after {attempts} attempts: {last!r}")
+        self.kind = kind
+        self.attempts = attempts
+        self.last = last
 
 
 @dataclasses.dataclass(frozen=True)
 class AdmissionVerdict:
     """The typed result of :meth:`ContinuousBatchingScheduler.submit`.
     ``reason``: ``admitted`` | ``unservable`` (prompt + max_new can never fit
-    the serving bound: a caller bug, not load) | ``draining`` (the scheduler
-    finishes accepted work and admits nothing new)."""
+    the serving bound: a caller bug, not load) | ``queue_full`` |
+    ``token_backlog`` (the queued work would pass ``max_queued_tokens``) |
+    ``draining`` (the scheduler finishes accepted work and admits nothing
+    new). ``shed_rid``: under ``reject_largest``, the rid of the queued
+    request shed to make room."""
 
     admitted: bool
     reason: str = "admitted"
     detail: str = ""
+    shed_rid: Optional[int] = None
 
     def __bool__(self) -> bool:
         return self.admitted
@@ -92,6 +142,10 @@ class Request:
     max_new_tokens: int
     eos_token_id: Optional[int] = None
     arrival_time: float = 0.0           # offset into the workload (open loop)
+    # deadlines in seconds from t_submit (None: the scheduler's defaults);
+    # TTFT while the first token is owed, end to end for the whole lifetime
+    ttft_deadline_s: Optional[float] = None
+    deadline_s: Optional[float] = None
     rid: int = dataclasses.field(default_factory=lambda: next(_rid))
 
     # lifecycle (filled by the scheduler)
@@ -101,7 +155,7 @@ class Request:
     t_first_token: Optional[float] = None
     t_done: Optional[float] = None
     preemptions: int = 0
-    reject_reason: Optional[str] = None
+    reject_reason: Optional[str] = None  # set when REJECTED or EXPIRED
     # the request's speculation ledger: draft positions offered to the
     # verifier, and confirmed by it
     spec_drafted: int = 0
@@ -118,15 +172,18 @@ class Request:
                 or (self.eos_token_id is not None and bool(self.tokens)
                     and self.tokens[-1] == self.eos_token_id))
 
+    @property
+    def work_tokens(self) -> int:
+        """Remaining worst-case work, what ``max_queued_tokens`` charges:
+        the prompt's KV plus the tokens still to decode."""
+        return len(self.prompt) + self.max_new_tokens - len(self.tokens)
+
+
+SHED_POLICIES = ("reject_newest", "reject_largest")
 
 # constructor arguments the port does not honour yet: (default, ROADMAP.md item)
 _UNPORTED_ARGS = {
-    "max_queue": (None, "A7"), "max_queued_tokens": (None, "A7"),
-    "shed_policy": ("reject_newest", "A7"), "ttft_deadline_s": (None, "A7"),
-    "deadline_s": (None, "A7"), "dispatch_retries": (2, "A7"),
-    "retry_base_delay": (0.02, "A7"), "retry_max_delay": (0.25, "A7"),
-    "quarantine_after": (2, "A7"), "dispatch_failure_budget": (8, "A7"),
-    "prefix_cache": (None, "A7"), "role": ("both", "A10"), "tiers": (None, "A10"),
+    "role": ("both", "A10"), "tiers": (None, "A10"),
     "tenants": (None, "A10"), "brownout": (None, "A10"),
     "latency_preempt_budget": (2, "A10"), "recovery_log": (None, "A11"),
     "watchdog": (None, "A11"), "page_fingerprints": (False, "A11"),
@@ -137,7 +194,13 @@ _UNPORTED_ARGS = {
 class ContinuousBatchingScheduler:
     def __init__(self, executor: Any, num_slots: int, num_pages: int, page_size: int,
                  pages_per_seq: int, decode_block: int = 1,
-                 max_context: Optional[int] = None, clock=time.monotonic, drafter=None,
+                 max_context: Optional[int] = None, clock=time.monotonic,
+                 max_queue: Optional[int] = None, max_queued_tokens: Optional[int] = None,
+                 shed_policy: str = "reject_newest", ttft_deadline_s: Optional[float] = None,
+                 deadline_s: Optional[float] = None, dispatch_retries: int = 2,
+                 retry_base_delay: float = 0.02, retry_max_delay: float = 0.25,
+                 quarantine_after: int = 2, dispatch_failure_budget: int = 8,
+                 prefix_cache: Optional[PrefixIndex] = None, drafter=None,
                  spec_k: int = 4, spec_adaptive: bool = True, **unported_args):
         for name, value in unported_args.items():
             if name not in _UNPORTED_ARGS:
@@ -148,6 +211,8 @@ class ContinuousBatchingScheduler:
                 raise unported(f"ContinuousBatchingScheduler({name}={value!r})", item)
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
+        if shed_policy not in SHED_POLICIES:
+            raise ValueError(f"shed_policy {shed_policy!r} not in {SHED_POLICIES}")
         self.executor = executor
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
@@ -161,19 +226,39 @@ class ContinuousBatchingScheduler:
                                else pages_per_seq * page_size)
         self.allocator = PageAllocator(num_pages)
         self.clock = clock
+        self.max_queue = None if max_queue is None else int(max_queue)
+        self.max_queued_tokens = None if max_queued_tokens is None else int(max_queued_tokens)
+        self.shed_policy = shed_policy
+        self.ttft_deadline_s = ttft_deadline_s
+        self.deadline_s = deadline_s
+        self.dispatch_retries = int(dispatch_retries)
+        self.retry_base_delay = float(retry_base_delay)
+        self.retry_max_delay = float(retry_max_delay)
+        self.quarantine_after = int(quarantine_after)
+        self.dispatch_failure_budget = int(dispatch_failure_budget)
+        # failed episodes in a row, per kind: a healthy prefill path must not
+        # reset the count of a dead decode path
+        self._consecutive_failures: Dict[str, int] = {}
+        self._block_failures: Dict[int, int] = {}
+        self._quarantined_blocks: Set[int] = set()
+        self.prefix_cache = prefix_cache
         # cumulative page accounting: pages every admission or growth asked
-        # for (logical), allocated (physical), served shared (always 0 here)
+        # for (logical), allocated (physical), served from the prefix index
+        # (shared)
         self.page_stats: Dict[str, int] = {"logical": 0, "physical": 0, "shared": 0}
         self.queue: Deque[Request] = deque()
         self.slots: List[Optional[Request]] = [None] * self.num_slots
         self._slot_pages: List[List[int]] = [[] for _ in range(self.num_slots)]
+        # leading pages of each slot that are borrowed from the prefix index
+        self._slot_shared: List[int] = [0] * self.num_slots
         self._admit_seq: List[int] = [0] * self.num_slots  # admission order
         self._admissions = 0
         self.tables = np.zeros((self.num_slots, self.pages_per_seq), np.int32)
         self.lengths = np.zeros(self.num_slots, np.int32)
         self.next_input = np.zeros(self.num_slots, np.int32)
         self.finished: List[Request] = []
-        self.shed: List[Request] = []      # REJECTED at submit
+        self.shed: List[Request] = []      # REJECTED (at submit or by policy)
+        self.expired: List[Request] = []   # EXPIRED (deadline misses)
         self.counters: Dict[str, int] = {}
         self.steps = 0
         self._draining = False
@@ -217,6 +302,12 @@ class ContinuousBatchingScheduler:
             self._draining = True
             self._record("drain_started")
 
+    @property
+    def queued_tokens(self) -> int:
+        """The queue's worst-case work in tokens, what ``max_queued_tokens``
+        bounds."""
+        return sum(r.work_tokens for r in self.queue)
+
     def _record(self, event: str) -> None:
         self.counters[event] = self.counters.get(event, 0) + 1
 
@@ -229,7 +320,8 @@ class ContinuousBatchingScheduler:
     def submit(self, req: Request) -> AdmissionVerdict:
         """Admission control: a request that can never fit the serving bound
         (the model length, the table, or the whole pool) is refused here, at
-        the front door, and never enters the queue."""
+        the front door, and so is one the overload bounds turn away; a
+        rejected request is ``REJECTED`` and never enters the queue."""
         if self._draining:
             detail = (f"request {req.rid} rejected: scheduler is draining "
                       f"({len(self.queue)} queued + {len(self.active_slots)} running "
@@ -249,17 +341,65 @@ class ContinuousBatchingScheduler:
                       f"pages) -- reject at the front door, not mid-decode")
             self._mark_shed(req, "unservable")
             return AdmissionVerdict(False, "unservable", detail)
+        verdict = self._admission_control(req)
+        if not verdict.admitted:
+            return verdict
+        if req.ttft_deadline_s is None:
+            req.ttft_deadline_s = self.ttft_deadline_s
+        if req.deadline_s is None:
+            req.deadline_s = self.deadline_s
         req.state = RequestState.QUEUED
         if req.t_submit is None:
             req.t_submit = self.clock()
         self.queue.append(req)
-        return AdmissionVerdict(True)
+        return verdict
+
+    def _admission_control(self, req: Request) -> AdmissionVerdict:
+        """The queue-depth cap, then the token backlog. Over either bound,
+        ``reject_largest`` plans to shed the largest queued requests, each
+        strictly larger than the newcomer, and sheds them only if the
+        newcomer then fits; otherwise the newcomer is rejected."""
+        max_q, max_t = self.max_queue, self.max_queued_tokens
+
+        def over(queued: List[Request]) -> bool:
+            return ((max_q is not None and len(queued) >= max_q)
+                    or (max_t is not None
+                        and sum(r.work_tokens for r in queued) + req.work_tokens > max_t))
+
+        queued = list(self.queue)
+        if not over(queued):
+            return AdmissionVerdict(True)
+        if self.shed_policy == "reject_largest":
+            sim, victims = list(queued), []
+            while sim and over(sim):
+                v = max(sim, key=lambda r: r.work_tokens)
+                if v.work_tokens <= req.work_tokens:
+                    break
+                sim.remove(v)
+                victims.append(v)
+            if not over(sim):
+                for v in victims:
+                    self.queue.remove(v)
+                    self._mark_shed(v, "shed_for_smaller")
+                return AdmissionVerdict(True, shed_rid=victims[-1].rid if victims else None)
+        reason = "queue_full" if max_q is not None and len(queued) >= max_q else "token_backlog"
+        detail = (f"request {req.rid} rejected ({reason}): queue depth {len(queued)}"
+                  + (f"/{max_q}" if max_q is not None else "")
+                  + f", queued work {sum(r.work_tokens for r in queued)} tokens"
+                  + (f"/{max_t}" if max_t is not None else ""))
+        self._mark_shed(req, reason)
+        return AdmissionVerdict(False, reason, detail)
 
     def _release(self, slot: int) -> None:
         if self.drafter is not None:
             self.drafter.release(slot)
-        self.allocator.free(self._slot_pages[slot])
+        released = self.allocator.free(self._slot_pages[slot])
+        if self.prefix_cache is not None and released:
+            # a page whose last reference died is recycled: it must never
+            # serve another request's prefix lookup
+            self.prefix_cache.forget(released)
         self._slot_pages[slot] = []
+        self._slot_shared[slot] = 0
         self.tables[slot] = 0
         self.lengths[slot] = 0
         self.next_input[slot] = 0
@@ -283,11 +423,94 @@ class ContinuousBatchingScheduler:
         self._release(slot)
         self.queue.appendleft(req)
 
+    # ------------------------------------------------------------- deadlines
+    def _expire(self, req: Request, where: str) -> None:
+        req.state = RequestState.EXPIRED
+        req.reject_reason = f"deadline_{where}"
+        self.expired.append(req)
+        self._record("deadline_miss")
+
+    def _sweep_deadlines(self) -> int:
+        """Evict expired requests: queued ones past their TTFT deadline (while
+        the first token is owed; a preempted request has delivered it) or
+        their end-to-end one, running ones past their end-to-end one (pages
+        freed). Returns the number evicted; any eviction is followed by the
+        page audit."""
+        now = self.clock()
+        evicted = 0
+        for req in list(self.queue):
+            t0 = req.t_submit if req.t_submit is not None else now
+            miss_ttft = (req.ttft_deadline_s is not None and req.t_first_token is None
+                         and now - t0 > req.ttft_deadline_s)
+            miss_e2e = req.deadline_s is not None and now - t0 > req.deadline_s
+            if miss_ttft or miss_e2e:
+                self.queue.remove(req)
+                self._expire(req, "queued")
+                evicted += 1
+        for slot in self.active_slots:
+            req = self.slots[slot]
+            t0 = req.t_submit if req.t_submit is not None else now
+            if req.deadline_s is not None and now - t0 > req.deadline_s:
+                self._release(slot)
+                self._expire(req, "running")
+                evicted += 1
+        if evicted:
+            self._audit_after_recovery("deadline_sweep")
+        return evicted
+
+    # ----------------------------------------------------- dispatch recovery
+    def _dispatch(self, kind: str, fn, *args: Any, **kw: Any) -> Any:
+        """One dispatch episode: ``fn`` tried ``dispatch_retries + 1`` times,
+        with ``backoff_delay`` between attempts; every failed attempt counts
+        as ``dispatch_error``. Raises :class:`_DispatchFailure` when all fail."""
+        attempts = self.dispatch_retries + 1
+        last: Optional[BaseException] = None
+        for attempt in range(1, attempts + 1):
+            try:
+                out = fn(*args, **kw)
+                self._consecutive_failures[kind] = 0
+                return out
+            except Exception as e:  # the episode's verdict comes after every attempt
+                last = e
+                self._record("dispatch_error")
+                logger.warning(f"serving {kind} dispatch failed (attempt {attempt}/{attempts}): "
+                               f"{type(e).__name__}: {e}")
+                if attempt < attempts:
+                    time.sleep(backoff_delay(attempt, self.retry_base_delay,
+                                             self.retry_max_delay))
+        raise _DispatchFailure(kind, attempts, last)
+
+    def _on_dispatch_episode_failed(self, fail: _DispatchFailure, affected: List[int],
+                                    block: Optional[int] = None) -> None:
+        """A whole episode failed: quarantine a decode block shape after
+        ``quarantine_after`` failures, preempt and requeue the affected slots
+        (newest first, so the oldest ends at the queue's head), audit the
+        pool, and raise :class:`ServingFaultError` once
+        ``dispatch_failure_budget`` consecutive episodes of this kind failed."""
+        if block is not None and block > 1:
+            n = self._block_failures.get(block, 0) + 1
+            self._block_failures[block] = n
+            if n >= self.quarantine_after and block not in self._quarantined_blocks:
+                self._quarantined_blocks.add(block)
+                self._record("block_quarantined")
+        for slot in sorted(affected, key=lambda s: self._admit_seq[s], reverse=True):
+            if self.slots[slot] is not None:
+                self._preempt(slot)
+        n = self._consecutive_failures.get(fail.kind, 0) + 1
+        self._consecutive_failures[fail.kind] = n
+        self._record("dispatch_failed")
+        self._audit_after_recovery(f"dispatch_failed[{fail.kind}]")
+        if n >= self.dispatch_failure_budget:
+            raise ServingFaultError(
+                f"{n} consecutive {fail.kind} dispatch episodes failed (budget "
+                f"{self.dispatch_failure_budget}); last: {fail}") from fail.last
+
     # ----------------------------------------------------------- page audit
     def audit(self) -> Dict[str, Any]:
         """The allocator's conservation invariant plus the scheduler's
         cross-checks: every allocated page is owned by exactly as many slots
-        as its refcount says, no slot lists a page twice, and no page shared
+        as its refcount says, no slot lists a page twice, no slot's write
+        frontier lies inside its borrowed prefix pages, and no page shared
         between slots reaches a slot's write frontier (the next append lands
         at ``lengths[slot]``)."""
         rep = self.allocator.audit()
@@ -312,6 +535,9 @@ class ContinuousBatchingScheduler:
                               f"{have} (leaked refcount)")
         for s_idx, pages in enumerate(self._slot_pages):
             frontier = int(self.lengths[s_idx])
+            if self._slot_shared[s_idx] * self.page_size > frontier:
+                errors.append(f"slot {s_idx} records {self._slot_shared[s_idx]} borrowed "
+                              f"prefix pages but its write frontier {frontier} is inside them")
             for idx, p in enumerate(pages):
                 if (self.allocator.refcount(p) > 1
                         and (idx + 1) * self.page_size > frontier):
@@ -322,11 +548,46 @@ class ContinuousBatchingScheduler:
         rep["page_stats"] = dict(self.page_stats)
         return rep
 
+    def _audit_after_recovery(self, context: str) -> None:
+        rep = self.audit()
+        if not rep["ok"]:
+            self._record("page_audit_failed")
+            raise RuntimeError(f"page conservation broken after {context}: {rep['errors']}")
+
     # ------------------------------------------------------------ admission
+    def _claim_pages(self, req: Request, need: int) -> Optional[tuple]:
+        """Pages for one admission: the borrowed prefix pages from the index
+        (a reference taken on each) and fresh ones for the rest. Returns
+        (pages, borrowed count), or None, claiming nothing, when the pool
+        cannot cover the unshared remainder: the free list is probed before
+        any reference is taken. The borrowed count is below ``need``, since
+        the first decode write lands past the prompt's full pages. The
+        prompt's chain is hashed once and kept on the request, and the index
+        counts a hit only at the admission that proceeds."""
+        shared: List[int] = []
+        hashes = ()
+        if self.prefix_cache is not None:
+            hashes = getattr(req, "_prefix_hashes", None)
+            if hashes is None:
+                hashes = prefix_chain_hashes(np.asarray(req.prompt), self.page_size)
+                req._prefix_hashes = hashes
+            shared = self.prefix_cache.lookup_chain(hashes)[:need]
+        if not self.allocator.can_alloc(need - len(shared)):
+            return None
+        if shared:
+            self.allocator.share(shared)
+        own = self.allocator.alloc(need - len(shared))
+        if self.prefix_cache is not None:
+            self.prefix_cache.count(hashes, shared)
+        self.page_stats["logical"] += need
+        self.page_stats["physical"] += len(own)
+        self.page_stats["shared"] += len(shared)
+        return shared + own, len(shared)
+
     def _admit(self) -> int:
         # phase 1: claim slots + pages for everything that fits this cycle,
         # in FIFO order; a head that does not fit blocks the queue
-        batch = []  # (slot, context tokens)
+        batch = []  # (slot, context tokens, first unshared position)
         free = deque(s for s in range(self.num_slots) if self.slots[s] is None)
         while free and self.queue:
             req = self.queue[0]
@@ -334,14 +595,14 @@ class ContinuousBatchingScheduler:
             # +1: the first decode step appends its token's KV at position
             # ctx, which may open a fresh page
             need = pages_for(ctx + 1, self.page_size)
-            pages = self.allocator.alloc(need)
-            if pages is None:
+            claim = self._claim_pages(req, need)
+            if claim is None:
                 break
-            self.page_stats["logical"] += need
-            self.page_stats["physical"] += need
+            pages, shared = claim
             slot = free.popleft()
             self.queue.popleft()
             self._slot_pages[slot] = pages
+            self._slot_shared[slot] = shared
             self.tables[slot] = 0
             self.tables[slot, :len(pages)] = pages
             tokens = np.concatenate([np.asarray(req.prompt, np.int32),
@@ -351,18 +612,31 @@ class ContinuousBatchingScheduler:
             self._admissions += 1
             self._admit_seq[slot] = self._admissions
             req.state = RequestState.RUNNING
-            batch.append((slot, tokens))
+            batch.append((slot, tokens, shared * self.page_size))
         if not batch:
             return 0
         # phase 2: prefill the whole admission cycle, batched when the
-        # executor can
-        if hasattr(self.executor, "prefill_many"):
-            results = self.executor.prefill_many(
-                [(slot, toks, self.tables[slot]) for slot, toks in batch])
-        else:
-            results = {slot: self.executor.prefill(slot, toks, self.tables[slot])
-                       for slot, toks in batch}
-        for slot, _ in batch:
+        # executor can. With the prefix cache each row also carries its first
+        # unshared position, where its KV scatter starts (the forward runs
+        # the whole context); without it the 3-tuple protocol stands. A
+        # failed episode requeues the whole cycle: no token was appended yet
+        try:
+            if hasattr(self.executor, "prefill_many"):
+                items = [(slot, toks, self.tables[slot])
+                         + ((start,) if self.prefix_cache is not None else ())
+                         for slot, toks, start in batch]
+                results = self._dispatch("prefill", self.executor.prefill_many, items)
+            else:
+                results = {}
+                for slot, toks, start in batch:
+                    args = (slot, toks, self.tables[slot])
+                    if self.prefix_cache is not None:
+                        args += (start,)
+                    results[slot] = int(self._dispatch("prefill", self.executor.prefill, *args))
+        except _DispatchFailure as fail:
+            self._on_dispatch_episode_failed(fail, [slot for slot, _, _ in batch])
+            return 0
+        for slot, _, _ in batch:
             req = self.slots[slot]
             first = int(results[slot])
             self.next_input[slot] = first
@@ -371,6 +645,10 @@ class ContinuousBatchingScheduler:
             req.tokens.append(first)
             if req.t_first_token is None:
                 req.t_first_token = self.clock()
+            if self.prefix_cache is not None:
+                # the slot's full prompt pages hold their final KV now: index
+                # them for later arrivals (first writer wins)
+                self.prefix_cache.register(np.asarray(req.prompt), self._slot_pages[slot])
             if req.done:
                 self._finish(slot)
         return len(batch)
@@ -408,12 +686,15 @@ class ContinuousBatchingScheduler:
         k = 1
         while k * 2 <= min(remaining, self.decode_block):
             k *= 2
+        while k > 1 and k in self._quarantined_blocks:
+            k //= 2  # shapes that keep failing dispatch are off the menu
         return k
 
     def step(self) -> int:
-        """Admit what fits, then run one decode step (or one safe decode
-        block, or with a drafter one speculation window) over the slot
-        array. Returns the tokens produced."""
+        """Expire blown deadlines, admit what fits, then run one decode step
+        (or one safe decode block, or with a drafter one speculation window)
+        over the slot array. Returns the tokens produced."""
+        self._sweep_deadlines()
         self._admit()
         if not self.active_slots:
             return 0
@@ -480,8 +761,16 @@ class ContinuousBatchingScheduler:
             budget[slot] = req.max_new_tokens - len(req.tokens)
         mask = np.zeros(self.num_slots, bool)
         mask[active] = True
-        outs, n_acc = self.executor.verify(win, self.tables.copy(), self.lengths.copy(), mask,
-                                           eos, budget)
+        try:
+            outs, n_acc = self._dispatch("verify", self.executor.verify, win,
+                                         self.tables.copy(), self.lengths.copy(), mask, eos,
+                                         budget)
+        except _DispatchFailure as fail:
+            # no token of the window was seen: every slot requeues with exactly
+            # its tokens (whatever the call wrote lies past any borrowed page,
+            # in pages freed with the slot)
+            self._on_dispatch_episode_failed(fail, active)
+            return 0
         outs, n_acc = np.asarray(outs), np.asarray(n_acc)
         self.steps += 1
         produced = step_offered = step_accepted = 0
@@ -524,8 +813,15 @@ class ContinuousBatchingScheduler:
         block = min(block, self._block_size())  # preemption may shrink it
         mask = np.zeros(self.num_slots, bool)
         mask[active] = True
-        out = np.asarray(self.executor.decode(self.next_input.copy(), self.tables.copy(),
-                                              self.lengths.copy(), mask, steps=block))
+        try:
+            out = np.asarray(self._dispatch("decode", self.executor.decode,
+                                            self.next_input.copy(), self.tables.copy(),
+                                            self.lengths.copy(), mask, steps=block))
+        except _DispatchFailure as fail:
+            # no token of the episode was seen: every active slot requeues
+            # with exactly its tokens, so the healed rerun is greedy-identical
+            self._on_dispatch_episode_failed(fail, active, block=block)
+            return 0
         if out.ndim == 1:  # simple executors may return a flat single step
             if block != 1:
                 raise ValueError(f"executor returned a flat token vector for a {block}-step "

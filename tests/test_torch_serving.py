@@ -1,6 +1,6 @@
 """The port's continuous-batching serving stack vs the JAX package's: the
-scheduler under one fake executor, the knobs the port refuses, the workload
-generator, and ``ServingEngine`` end to end.
+scheduler under one fake executor, the knobs the port refuses and the A7
+knobs it honours, the workload generator, and ``ServingEngine`` end to end.
 
 The end-to-end runs use the JAX serving tests' configuration (GPT 2 layers,
 d 32, 4 heads, vocab 64; 3 slots, page 8, model length 64, prefill chunk
@@ -118,21 +118,33 @@ def test_decode_blocks_batch_steps_without_changing_tokens():
 
 
 def test_executor_fault_propagates_and_drain_refuses():
+    """A decode that always fails is retried, healed by requeue, and after
+    ``dispatch_failure_budget`` failed episodes ends in ``ServingFaultError``
+    chained from the device error, with the audit clean (the reference's
+    semantics); a drain then refuses new work."""
     class Broken(FakeExecutor):
         def decode(self, *a, **kw):
             raise RuntimeError("device fault")
 
     sched = serving.ContinuousBatchingScheduler(Broken(), num_slots=1, num_pages=8,
-                                                page_size=4, pages_per_seq=4)
-    sched.submit(serving.Request(prompt=np.zeros(2, np.int32), max_new_tokens=3))
-    with pytest.raises(RuntimeError, match="device fault"):
-        sched.step()
+                                                page_size=4, pages_per_seq=4,
+                                                dispatch_failure_budget=3,
+                                                retry_base_delay=0.001, retry_max_delay=0.002)
+    # each healed episode re-prefills, which appends a token: 4 outlast 3 failures
+    sched.submit(serving.Request(prompt=np.zeros(2, np.int32), max_new_tokens=4))
+    with pytest.raises(serving.ServingFaultError, match="3 consecutive decode") as err:
+        sched.run_to_completion(max_steps=50)
+    assert isinstance(err.value.__cause__, RuntimeError)
+    assert str(err.value.__cause__) == "device fault"
+    assert sched.counters["dispatch_failed"] == 3
+    assert sched.counters["dispatch_error"] == 3 * (sched.dispatch_retries + 1)
+    assert sched.audit()["ok"]
     sched.drain()
     verdict = sched.submit(serving.Request(prompt=np.zeros(2, np.int32), max_new_tokens=3))
     assert not verdict and verdict.reason == "draining"
 
 
-# ----------------------------------------------------------- refused knobs
+# ------------------------------------------- refused knobs, and A7's honoured
 SCHED_KNOBS = [("max_queue", 8, "A7"), ("ttft_deadline_s", 1.0, "A7"),
                ("dispatch_retries", 0, "A7"), ("quarantine_after", 1, "A7"),
                ("dispatch_failure_budget", 1, "A7"), ("prefix_cache", object(), "A7"),
@@ -143,6 +155,19 @@ SCHED_KNOBS = [("max_queue", 8, "A7"), ("ttft_deadline_s", 1.0, "A7"),
 
 @pytest.mark.parametrize("name,value,item", SCHED_KNOBS, ids=[k[0] for k in SCHED_KNOBS])
 def test_scheduler_refuses_unported_arguments(name, value, item):
+    """A10 / A11 arguments raise naming their item; the A7 ones, ported, are
+    kept as the reference's scheduler keeps them."""
+    if item == "A7":
+        kw = dict(num_slots=1, num_pages=4, page_size=4, pages_per_seq=2)
+        if name == "prefix_cache":
+            out = serving.ContinuousBatchingScheduler(FakeExecutor(), **kw,
+                                                      prefix_cache=serving.PrefixIndex(4))
+            assert isinstance(out.prefix_cache, serving.PrefixIndex)
+            return
+        ref = jserving.ContinuousBatchingScheduler(FakeExecutor(), **kw, **{name: value})
+        out = serving.ContinuousBatchingScheduler(FakeExecutor(), **kw, **{name: value})
+        assert getattr(out, name) == getattr(ref, name) == value
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         serving.ContinuousBatchingScheduler(FakeExecutor(), num_slots=1, num_pages=4,
                                             page_size=4, pages_per_seq=2, **{name: value})
@@ -152,7 +177,14 @@ def test_scheduler_refuses_unported_arguments(name, value, item):
                                         pages_per_seq=2, **{name: default})
 
 
-CONFIG_KNOBS = [(f.name, item) for item, names in serving.engine._UNPORTED_KNOBS.items()
+# the ServingConfig fields A7 ported: the scheduler attribute each reaches
+A7_CONFIG_KNOBS = {"enable_prefix_cache": "prefix_cache", "max_queue": "max_queue",
+                   "max_queued_tokens": "max_queued_tokens", "shed_policy": "shed_policy",
+                   "ttft_deadline_s": "ttft_deadline_s", "request_deadline_s": "deadline_s",
+                   "dispatch_retries": "dispatch_retries", "quarantine_after": "quarantine_after",
+                   "dispatch_failure_budget": "dispatch_failure_budget"}
+CONFIG_KNOBS = [(f.name, item) for item, names in
+                [("A7", tuple(A7_CONFIG_KNOBS))] + list(serving.engine._UNPORTED_KNOBS.items())
                 for f in dataclasses.fields(serving.ServingConfig) if f.name in names]
 
 
@@ -167,14 +199,32 @@ def _knob_value(name, default):
         return not default
     if isinstance(default, (int, float)):
         return default + 1
-    return {"shed_policy": "reject_largest", "role": "decode"}.get(name, "set")
+    return {"shed_policy": "reject_largest", "role": "decode", "max_queue": 8,
+            "max_queued_tokens": 4096, "ttft_deadline_s": 1.0,
+            "request_deadline_s": 30.0}.get(name, "set")
 
 
 @pytest.mark.parametrize("name,item", CONFIG_KNOBS, ids=[k[0] for k in CONFIG_KNOBS])
-def test_serving_config_refuses_unported_knobs(name, item):
+def test_serving_config_refuses_unported_knobs(name, item, weights):
+    """A10 / A11 / A14 knobs raise naming their item; each A7 knob reaches the
+    scheduler ``make_scheduler()`` builds with the value the JAX engine's
+    ``make_scheduler()`` gives it."""
+    value = _knob_value(name, getattr(serving.ServingConfig(), name))
+    if item == "A7":
+        over = {"max_model_len": 64, name: value}
+        ref = jserving.ServingEngine(CFG, weights[0],
+                                     jserving.ServingConfig(**over)).make_scheduler()
+        out = serving.ServingEngine(TCFG, params_from_numpy(weights[1], "cpu"),
+                                    serving.ServingConfig(**over), device="cpu").make_scheduler()
+        attr = A7_CONFIG_KNOBS[name]
+        if name == "enable_prefix_cache":
+            assert isinstance(out.prefix_cache, serving.PrefixIndex)
+            assert out.prefix_cache.page_size == ref.prefix_cache.page_size == 64
+        else:
+            assert getattr(out, attr) == getattr(ref, attr) == value
+        return
     cfg = TG.PRESETS["tiny"]
     params = TG.init_params(cfg, 0, device="cpu")
-    value = _knob_value(name, getattr(serving.ServingConfig(), name))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         serving.ServingEngine(cfg, params, serving.ServingConfig(**{name: value}), device="cpu")
 

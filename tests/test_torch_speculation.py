@@ -258,12 +258,26 @@ def test_spec_scheduler_outputs_match_plain_decode_in_fewer_calls():
 
 
 def test_executor_fault_in_verify_propagates():
+    """A verify that always fails is retried and its slot requeued; after
+    ``dispatch_failure_budget`` failed episodes the fault propagates as
+    ``ServingFaultError`` chained from the device error, with the audit
+    clean and the JAX scheduler's counters."""
     class Broken(SpecFakeExecutor):
         def verify(self, *a):
             raise RuntimeError("device fault")
 
-    sched = serving.ContinuousBatchingScheduler(Broken(), num_slots=1, num_pages=8, page_size=4,
-                                                pages_per_seq=4, drafter=ChainDrafter())
-    sched.submit(serving.Request(prompt=np.arange(3, dtype=np.int32), max_new_tokens=5))
-    with pytest.raises(RuntimeError, match="device fault"):
-        sched.step()
+    counters = []
+    for pkg in (jserving, serving):
+        sched = pkg.ContinuousBatchingScheduler(
+            Broken(), num_slots=1, num_pages=8, page_size=4, pages_per_seq=4,
+            drafter=ChainDrafter(), dispatch_failure_budget=3, retry_base_delay=0.001,
+            retry_max_delay=0.002)
+        # each healed episode re-prefills, which appends a token: 5 outlast 3 failures
+        sched.submit(pkg.Request(prompt=np.arange(3, dtype=np.int32), max_new_tokens=5))
+        with pytest.raises(pkg.ServingFaultError, match="3 consecutive verify") as err:
+            sched.run_to_completion(max_steps=50)
+        assert str(err.value.__cause__) == "device fault"
+        assert sched.audit()["ok"]
+        counters.append(dict(sched.counters))
+    assert counters[1] == counters[0]
+    assert counters[1]["dispatch_failed"] == 3 and counters[1]["dispatch_error"] == 9
