@@ -338,6 +338,42 @@ result line):
    ``dispatch_error`` or ``dispatch_failed`` it did not inject, so a retry
    never hides a failed launch.
 
+16. data parallelism and the ZeRO++ quantized gradient exchange on
+   GPT-2-125M at full width and depth, from seed 0. (a) 5b's configuration
+   with ``zero_quantized_gradients`` (int8, block 256), error feedback and
+   the per-layer buckets, 10 steps on 5b's batch: step 1's loss equal to a
+   dense ZeRO-2 step 1's (whether bitwise is printed) and its grad norm
+   within 10%, the loss from near ln(V) falling, both residuals finite and
+   nonzero, the wire ledger's ``qgrad_bucket_rs`` / ``qgrad_bucket_ag`` 12
+   times a step and the monolithic pair once, every ratio at least 3.5, the
+   tensor-core B1 / B2 exactly 120 launches each; step ms, host issue ms,
+   tokens/s and peak memory beside 5b's, and a profile of one step with the
+   exchange's share of the busy time (against a dense step's busy time);
+   then int4, 3 steps: finite, every ratio at least 7. (b) fp16 with the
+   fp32 master, a NaN residual: the step overflows and is skipped, the
+   residuals read zero, the next step is finite without overflow. (c) two
+   rank processes on the one card (``comm.init_distributed(backend="gloo",
+   device="cuda")`` over a file store; the card's compute mode printed
+   first), fp32 B4 x T512 (2 rows a rank), AdamW + clipping, 3 steps each
+   at stages 0, 1, 2 and stage 2 with int8 quantized gradients and error
+   feedback, against the same runs at world size 1 in this process: losses
+   rtol 1e-5 and grad norms 1e-4 of world 1's, the ranks' params bitwise
+   equal after every step (checksums of their bits), the final params within
+   2e-5 of world 1's but for at most a millionth of the entries and none
+   past 2 lr a step (AdamW's normalized update turns a last-bit difference
+   of a nearly cancelling gradient entry into up to 2 lr), a rank's master
+   and optimizer-state bytes at most 0.502 of world 1's at stages 1-2
+   (equal at stage 0), the 3xTF32 B1 / B2 dq / dk/dv and delta 12 launches
+   a micro-step on each rank; with the
+   quantized exchange, step 1's loss equal to the dense dp2 step's, its
+   grad norm within 10%, finite losses, each rank's residual rows nonzero,
+   its ledger ratios at least 3.5; each rank's step ms (gloo: the
+   collectives cross host memory, no figure for NCCL). (d) the dp2 run's
+   tag after step 3 loads into a world-1 engine: every leaf bitwise the
+   stored one, the residuals zero at the world-1 shape, global_steps and the
+   cursor 3; step 4 finite through B1 / B2; the tag saved after it loads
+   into two rank processes, each leaf bitwise the rank's slice.
+
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
@@ -2754,7 +2790,7 @@ def phase_training(torch, ctx):
     ctx["flash_tc"]["launches"] = launches["fwd_tc"]
     del engine
     torch.cuda.empty_cache()
-    train5b_batch = batch
+    train5b_batch = ctx["train5b_batch"] = batch
 
     # (c) gas 2 x micro 4 and gas 1 x micro 8 over the same 8 rows (fp32):
     # three micro-steps, each through the 3xTF32 flash kernels
@@ -4549,6 +4585,427 @@ def phase_serving_levers(torch, ctx):
     check(sched.audit()["ok"] and sched.allocator.allocated_pages == 0, "15c: audit")
 
 
+# phase 16: the quantized gradient exchange (int8 / int4, block 256, error
+# feedback) and data parallelism at two ranks on the one card
+QGRAD_EF = {"stage": 2, "zero_quantized_gradients": True, "zero_quantize_error_feedback": True}
+DP_WORLD = 2
+DP_STEPS = 3
+# the dp2 runs of 16c: each stage dense, then stage 2 with the quantized exchange
+DP_CASES = (("stage0", {"stage": 0}), ("stage1", {"stage": 1}), ("stage2", {"stage": 2}),
+            ("qgrad", QGRAD_EF))
+DP_JOIN_S = 420.0  # a rank that has not finished by then has hung: the phase fails
+# the bytes of a rank's master copy and optimizer state at stages 1-2 against world 1's:
+# half, and the 1-D and [L, n] leaves whole (about 0.1% of GPT-2-125M)
+DP_OPT_SHARE = 0.502
+# 16c's final params against world 1's. The two runs sum each gradient in
+# another order; AdamW's normalized update (m / (sqrt(v) + eps), about +-1
+# where a gradient's terms nearly cancel) turns a last-bit difference of
+# such an entry into up to 2 lr a step. So: within 2e-5 but for at most a
+# millionth of the entries, and none past 2 lr a step (lr 6e-4, 3 steps)
+DP_PARAM_ATOL = 2e-5
+DP_PARAM_OUTLIERS = 1e-6
+DP_PARAM_MAX = 2 * 6e-4 * DP_STEPS
+
+
+def _dp_batches(V):
+    """16c's global batches (B4 x T512, 2 rows a rank) and 16d's step 4."""
+    rng = np.random.default_rng(16)
+    return [{"input_ids": rng.integers(0, V, (4, 512)).astype(np.int32)}
+            for _ in range(DP_STEPS + 1)]
+
+
+def _param_checksum(torch, engine):
+    """Per leaf, the int64 sum of the fp32 params' bits (host list): two
+    ranks' lists are equal where their params are bitwise equal."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    return torch.stack([p.detach().view(torch.int32).long().sum()
+                        for p in tree_leaves(engine.state["params"])]).tolist()
+
+
+def _state_bytes(engine):
+    """The bytes of the master copy and the optimizer state this rank keeps."""
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    st = engine.state
+    return sum(t.numel() * t.element_size() for t in tree_leaves(
+        {"master": st["master"], "mu": st["opt"].mu, "nu": st["opt"].nu}))
+
+
+def _stored_slices_differ(torch, engine, tag_dir):
+    """Keys of ``engine``'s state whose leaf is not bitwise this rank's slice
+    of the stored full leaf (the params by param_spec, the master copy and
+    the moments by opt_spec; the counters whole). The residuals are left
+    out: a load at another world size resets them."""
+    import os
+
+    from deepspeed_tpu_torch.checkpoint.serialization import flatten_with_paths, read_meta
+
+    def walk(tree, prefix, out):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/", out)
+            else:
+                out[f"{prefix}{k}"] = v
+        return out
+
+    dims = {f"params/{k}": d for k, d in walk(engine.param_specs, "", {}).items()}
+    for tree in ("master", "opt/mu", "opt/nu"):
+        dims.update({f"{tree}/{k}": d for k, d in walk(engine.opt_specs, "", {}).items()})
+    directory = os.path.join(tag_dir, "state")
+    index = {m["key"]: m["index"] for m in read_meta(directory)["leaves"]}
+    bad = []
+    for key, leaf in flatten_with_paths(engine.state):
+        if key.startswith("qgrad"):
+            continue
+        arr = np.load(os.path.join(directory, "arrays", f"{index[key]}.npy"))
+        want = torch.from_numpy(engine.zero_policy.shard(arr, dims.get(key)).copy())
+        if not torch.equal(leaf.detach().cpu(), want):
+            bad.append(key)
+    return bad
+
+
+def _dp_rank_main(rank, world, store, out_dir, part):
+    """One of 16c / 16d's two rank processes on the one card (gloo, the
+    collectives through host memory). ``part`` "train": DP_CASES' 3 steps
+    each (losses, grad norms, params checksums after every step, step ms,
+    launches, the state's bytes, the wire ledger; rank 0 saves each case's
+    final params), the qgrad run saving a tag after step 3; "load": the
+    world-1 tag saved after step 4 loads, each leaf checked against its
+    slice of the stored one. Writes ``rank<r>_<part>.json``."""
+    import os
+
+    import torch
+
+    from deepspeed_tpu_torch.checkpoint.serialization import flatten_with_paths
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.comm.runtime_accounting import wire_ledger
+    from deepspeed_tpu_torch.models import gpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 1's setting, in this process too
+    torch.backends.cudnn.allow_tf32 = False
+    comm.init_distributed(init_method=f"file://{store}", world_size=world, rank=rank,
+                          backend="gloo", device="cuda")
+    cfg = gpt.PRESETS["gpt2-125m"]
+    batches = _dp_batches(cfg.vocab_size)
+    out = {"backend": torch.distributed.get_backend(), "world": comm.get_world_size()}
+    if part == "train":
+        for name, zero in DP_CASES:
+            engine = _engine(_train_config(4 // world, zero_optimization=zero), cfg)
+            wire_ledger.reset()
+            fa, _ = _reset_counts()  # this rank's fp32 data-parallel training path
+            rec = {"losses": [], "norms": [], "sums": [], "step_ms": []}
+            for b in batches[:DP_STEPS]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = engine.train_batch(b)
+                rec["losses"].append(m["loss"].item())
+                rec["norms"].append(m["grad_norm"].item())
+                rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["sums"].append(_param_checksum(torch, engine))
+            rec["launches"] = _flash_launches(fa)
+            rec["state_bytes"] = _state_bytes(engine)
+            rec["ledger"] = wire_ledger.summary_dict()
+            for key in ("qgrad_residual", "qgrad_bucket_residual"):
+                if key in engine.state:
+                    r = engine.state[key]
+                    rec[key] = {"shape": list(r.shape), "finite": bool(torch.isfinite(r).all()),
+                                "nonzero": bool(r.any())}
+            if rank == 0:
+                torch.save({k: v.detach().cpu() for k, v in
+                            flatten_with_paths(engine.state["params"])},
+                           os.path.join(out_dir, f"dp2_{name}.pt"))
+            if name == "qgrad":
+                engine.save_checkpoint(os.path.join(out_dir, "tags_dp2"))
+            out[name] = rec
+            del engine
+            torch.cuda.empty_cache()
+    else:
+        engine = _engine(_train_config(4 // world, zero_optimization=QGRAD_EF), cfg, seed=1)
+        engine.load_checkpoint(os.path.join(out_dir, "tags_w1"))
+        tag = os.path.join(out_dir, "tags_w1", f"global_step{DP_STEPS + 1}")
+        out["load"] = {"differ": _stored_slices_differ(torch, engine, tag),
+                       "global_steps": engine.global_steps, "cursor": engine.data_cursor,
+                       "resid_zero": not any(bool(engine.state[k].any()) for k in
+                                             ("qgrad_residual", "qgrad_bucket_residual"))}
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}_{part}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _dp_spawn(torch, out_dir, part):
+    """DP_WORLD rank processes of ``_dp_rank_main`` on the one card, joined
+    with a deadline (a hung rank is killed and fails the phase); returns
+    each rank's results."""
+    import os
+
+    import torch.multiprocessing as mp
+
+    store = os.path.join(out_dir, f"store_{part}")
+    ctx = mp.start_processes(_dp_rank_main, args=(DP_WORLD, store, out_dir, part),
+                             nprocs=DP_WORLD, join=False, start_method="spawn")
+    end = time.monotonic() + DP_JOIN_S
+    while not ctx.join(timeout=max(0.1, end - time.monotonic())):
+        if time.monotonic() >= end:
+            for proc in ctx.processes:
+                proc.kill()
+            raise Failed(f"16 {part}: the {DP_WORLD} rank processes did not finish within "
+                         f"{DP_JOIN_S} s")
+    out = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}_{part}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_data_parallel(torch, ctx):
+    """Phase 16: the quantized gradient exchange and data parallelism below
+    stage 3 on GPT-2-125M at full width and depth, from seed 0. (a) 5b's
+    configuration with ``zero_quantized_gradients`` (int8, block 256),
+    error feedback and the per-layer buckets, 10 steps on 5b's batch,
+    beside a dense ZeRO-2 step 1 and 5b's numbers; int4, 3 steps. (b) fp16
+    with a NaN residual: the step overflows, the residuals are zeroed, the
+    next step is finite. (c) two rank processes on the one card over gloo,
+    fp32 B4 x T512, stages 0, 1, 2 and stage 2 with the quantized exchange,
+    3 steps each, against the same runs at world size 1. (d) the dp2 qgrad
+    run's tag loads at world size 1; step 4; that engine's tag loads back
+    into two ranks, each getting its slices bitwise."""
+    import os
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.checkpoint.serialization import flatten_with_paths, read_meta
+    from deepspeed_tpu_torch.comm.runtime_accounting import wire_ledger
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    V, L = cfg.vocab_size, cfg.n_layer
+    batch = ctx["train5b_batch"]
+
+    # (a) the quantized exchange at one rank, bf16 + fp32 master, B8 x T512
+    dense = _engine(_train_config(8, bf16={"enabled": True}, zero_optimization={"stage": 2}),
+                    cfg)
+    m = dense.train_batch(batch)
+    loss_d, norm_d = m["loss"].item(), m["grad_norm"].item()
+    dense_kernels = device_kernels(torch, lambda: dense.train_batch(batch))
+    del dense
+    torch.cuda.empty_cache()
+    engine = _engine(_train_config(8, bf16={"enabled": True}, zero_optimization=QGRAD_EF), cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wire_ledger.reset()
+    fa, _ = _reset_counts()  # the bf16 quantized-exchange training main path
+    losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, 10)
+    launches = _flash_launches(fa)
+    ledger = wire_ledger.summary_dict()
+    tokens_per_s = engine.tokens_per_sec()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steady_ms = float(np.median(step_ms[1:]))
+    resid = {k: (bool(torch.isfinite(engine.state[k]).all()), bool(engine.state[k].any()),
+                 list(engine.state[k].shape))
+             for k in ("qgrad_residual", "qgrad_bucket_residual")}
+    kernels = device_kernels(torch, lambda: engine.train_batch(batch))
+    busy_q = sum(r[2] for r in kernels)
+    busy_d = sum(r[2] for r in dense_kernels)
+    share = f"{(busy_q - busy_d) / busy_q:.3f}" if busy_q else "not measured"
+    z2 = ctx["train5b"]
+    log(f"phase16a train bf16 master zero2 qgrad int8 block256 EF buckets gpt2-125m B8xT512: "
+        f"losses={losses} grad_norms={norms} dense zero2 step 1: loss={loss_d} "
+        f"grad_norm={norm_d} step-1 loss bitwise={losses[0] == loss_d} grad-norm rel diff="
+        f"{abs(norms[0] - norm_d) / norm_d:.4e} launches over 10 steps={launches} "
+        f"residuals (finite, nonzero, shape)={resid}")
+    log(f"phase16a step_ms (CUDA events, median of steps 2-10)={steady_ms:.3f} "
+        f"step_ms_all={[round(x, 3) for x in step_ms]} host_issue_ms (median of steps 2-10)="
+        f"{float(np.median(host_ms[1:])):.3f} tokens_per_s={tokens_per_s:.1f} "
+        f"peak_memory_gb={peak_gb:.3f}; phase5b in this run: step_ms={z2['step_ms']:.3f} "
+        f"host_issue_ms={z2['host_ms']:.3f} tokens_per_s={z2['tokens_per_s']:.1f} "
+        f"peak_memory_gb={z2['peak_gb']:.3f}")
+    log(f"phase16a profile of one step: " + device_breakdown(torch, None, steady_ms, top=6,
+                                                              kernels=kernels)
+        + f"; dense zero2 step device_busy_ms={busy_d:.3f}; the exchange's share of the busy "
+        f"time (qgrad busy - dense busy) / qgrad busy={share}")
+    log("phase16a wire ledger over 10 steps: " + "; ".join(
+        f"{n} count={r['count']} logical={r['logical_bytes']} wire={r['wire_bytes']} "
+        f"ratio={r['ratio']}" for n, r in ledger.items()))
+    check(abs(losses[0] - loss_d) <= 1e-6 * abs(loss_d),
+          f"16a step-1 loss {losses[0]} differs from the dense step's {loss_d}")
+    check(abs(norms[0] - norm_d) <= 0.1 * norm_d, f"16a step-1 grad norm {norms[0]} vs {norm_d}")
+    check(abs(losses[0] - math.log(V)) < 0.5, f"16a step-1 loss {losses[0]} far from ln(V)")
+    check(losses[-1] < losses[0], f"16a loss did not fall: {losses}")
+    check(all(math.isfinite(x) for x in losses + norms), "16a loss or grad norm not finite")
+    check(all(f and nz for f, nz, _ in resid.values()), f"16a residuals: {resid}")
+    want = {"qgrad_bucket_rs[dp]": 10 * L, "qgrad_bucket_ag[dp]": 10 * L,
+            "qgrad_reduce_scatter[dp]": 10, "qgrad_all_gather[dp]": 10}
+    check({n: r["count"] for n, r in ledger.items()} == want, f"16a ledger counts {ledger}")
+    check(all(r["ratio"] >= 3.5 for r in ledger.values()), f"16a ledger ratios {ledger}")
+    expected = path_launches(launches, 10 * L, _flash_path("bfloat16"))
+    check(launches == expected, f"16a launches {launches}, expected {expected}")
+    del engine
+    torch.cuda.empty_cache()
+    engine = _engine(_train_config(8, bf16={"enabled": True}, zero_optimization={
+        **QGRAD_EF, "zero_quantize_bits": 4}), cfg)
+    wire_ledger.reset()
+    _reset_counts()  # the int4 exchange's training path
+    losses4 = [engine.train_batch(batch)["loss"].item() for _ in range(3)]
+    ledger4 = wire_ledger.summary_dict()
+    log(f"phase16a int4: losses={losses4} ledger ratios="
+        f"{ {n: r['ratio'] for n, r in ledger4.items()} }")
+    check(all(math.isfinite(x) for x in losses4), f"16a int4 losses {losses4}")
+    check(all(r["ratio"] >= 7 for r in ledger4.values()), f"16a int4 ledger {ledger4}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # (b) the overflow reset: fp16 with the fp32 master, a NaN residual
+    engine = _engine(_train_config(8, fp16={"enabled": True}, zero_optimization=QGRAD_EF), cfg)
+    engine.state["qgrad_residual"].fill_(float("nan"))
+    m1 = engine.train_batch(batch)
+    after = {k: (bool(torch.isfinite(engine.state[k]).all()), bool(engine.state[k].any()))
+             for k in ("qgrad_residual", "qgrad_bucket_residual")}
+    m2 = engine.train_batch(batch)
+    log(f"phase16b fp16 master qgrad EF B8xT512, NaN residual: step 1 overflow="
+        f"{bool(m1['overflow'])} skipped_steps={engine.skipped_steps} residuals after (finite, "
+        f"nonzero)={after}; step 2 overflow={bool(m2['overflow'])} loss={m2['loss'].item()} "
+        f"loss_scale={m2['loss_scale'].item()}")
+    check(bool(m1["overflow"]) and engine.skipped_steps == 1, "16b: the NaN step did not skip")
+    check(all(f and not nz for f, nz in after.values()), f"16b residuals after: {after}")
+    check(not bool(m2["overflow"]) and math.isfinite(m2["loss"].item()), "16b: no recovery")
+    del engine
+    torch.cuda.empty_cache()
+
+    # (c) two ranks on the one card over gloo, against world size 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    log(f"phase16c compute_mode={smi.stdout.strip() or smi.stderr.strip()} (two rank processes "
+        "share the card; a card that refuses a second process fails this phase)")
+    out_dir = tempfile.mkdtemp(prefix="dp16_")
+    try:
+        free_gb = shutil.disk_usage(out_dir).free / 1e9
+        log(f"phase16c files under {out_dir}: {free_gb:.1f} GB free")
+        batches = _dp_batches(V)
+        world1, finals = {}, {}
+        for name, zero in DP_CASES:
+            e = _engine(_train_config(4, zero_optimization=zero), cfg)
+            ms = [e.train_batch(b) for b in batches[:DP_STEPS]]
+            world1[name] = dict(losses=[x["loss"].item() for x in ms],
+                                norms=[x["grad_norm"].item() for x in ms],
+                                state_bytes=_state_bytes(e))
+            finals[name] = {k: v.detach().clone() for k, v in
+                            flatten_with_paths(e.state["params"])}
+            del e, ms
+        torch.cuda.empty_cache()
+        ranks = _dp_spawn(torch, out_dir, "train")
+        for r, rank in enumerate(ranks):
+            log(f"phase16c rank {r}: backend={rank['backend']} world={rank['world']} "
+                + " ".join(f"{n}: step_ms={[round(x, 1) for x in rank[n]['step_ms']]}"
+                           for n, _ in DP_CASES)
+                + " (gloo: every collective crosses host memory, no figure for NCCL)")
+            check(rank["backend"] == "gloo" and rank["world"] == DP_WORLD, f"16c rank {r}")
+        for name, _ in DP_CASES:
+            w1 = world1[name]
+            full = torch.load(os.path.join(out_dir, f"dp2_{name}.pt"))
+            diffs = {k: (full[k].to(v.device) - v).abs() for k, v in finals[name].items()}
+            err = max(float(d.max()) for d in diffs.values())
+            worst = max(diffs, key=lambda k: float(diffs[k].max()))
+            n_over = sum(int((d > DP_PARAM_ATOL).sum()) for d in diffs.values())
+            numel = sum(d.numel() for d in diffs.values())
+            del full, diffs
+            os.remove(os.path.join(out_dir, f"dp2_{name}.pt"))
+            recs = [rank[name] for rank in ranks]
+            share = recs[0]["state_bytes"] / w1["state_bytes"]
+            log(f"phase16c {name} dp2 fp32 gpt2-125m B4xT512 (2 rows a rank): "
+                f"losses={[x['losses'] for x in recs]} world1={w1['losses']} "
+                f"grad_norms={[x['norms'] for x in recs]} world1={w1['norms']} ranks' params "
+                f"equal after every step={recs[0]['sums'] == recs[1]['sums']} final params "
+                f"max_abs_err vs world1={err:.3e} (in {worst}; {n_over} of {numel} entries "
+                f"past {DP_PARAM_ATOL}) state bytes a rank / world1={share:.5f} "
+                f"launches={[x['launches'] for x in recs]} "
+                + (f"ledger={[x['ledger'] for x in recs]} residuals="
+                   f"{[{k: x[k] for k in ('qgrad_residual', 'qgrad_bucket_residual')} for x in recs]}"
+                   if name == "qgrad" else ""))
+            check(recs[0]["sums"] == recs[1]["sums"], f"16c {name}: the ranks' params differ")
+            for r, rec in enumerate(recs):
+                expected = path_launches(rec["launches"], DP_STEPS * L, _flash_path("float32"))
+                check(rec["launches"] == expected,
+                      f"16c {name} rank {r}: launches {rec['launches']}, expected {expected}")
+                if name != "qgrad":
+                    check(np.allclose(rec["losses"], w1["losses"], rtol=1e-5, atol=0),
+                          f"16c {name} rank {r}: losses {rec['losses']} vs {w1['losses']}")
+                    check(np.allclose(rec["norms"], w1["norms"], rtol=1e-4, atol=0),
+                          f"16c {name} rank {r}: grad norms {rec['norms']} vs {w1['norms']}")
+            if name == "qgrad":
+                dense2 = ranks[0]["stage2"]
+                check(abs(recs[0]["losses"][0] - dense2["losses"][0])
+                      <= 1e-6 * abs(dense2["losses"][0]),
+                      f"16c qgrad step-1 loss {recs[0]['losses'][0]} vs {dense2['losses'][0]}")
+                check(abs(recs[0]["norms"][0] - dense2["norms"][0]) <= 0.1 * dense2["norms"][0],
+                      f"16c qgrad step-1 grad norm {recs[0]['norms'][0]} vs dense "
+                      f"{dense2['norms'][0]}")
+                check(all(math.isfinite(x) for rec in recs for x in rec["losses"]),
+                      "16c qgrad losses not finite")
+                for r, rec in enumerate(recs):
+                    check(all(v["finite"] and v["nonzero"] for v in (
+                        rec["qgrad_residual"], rec["qgrad_bucket_residual"])),
+                          f"16c qgrad rank {r}: residual rows {rec['qgrad_residual']}")
+                    check(all(x["ratio"] >= 3.5 for x in rec["ledger"].values()),
+                          f"16c qgrad rank {r}: ledger {rec['ledger']}")
+            else:
+                check(n_over <= DP_PARAM_OUTLIERS * numel and err <= DP_PARAM_MAX,
+                      f"16c {name}: final params {err} from world 1's, {n_over} entries past "
+                      f"{DP_PARAM_ATOL}")
+                if name == "stage0":
+                    check(share == 1.0, f"16c stage0: a rank keeps {share} of the state")
+                else:
+                    check(share <= DP_OPT_SHARE, f"16c {name}: a rank keeps {share} of the state")
+        del finals
+
+        # (d) reshard on the card: the dp2 qgrad tag at world 1, then back at dp2
+        tag = os.path.join(out_dir, "tags_dp2", f"global_step{DP_STEPS}")
+        e = _engine(_train_config(4, zero_optimization=QGRAD_EF), cfg, seed=1)
+        e.load_checkpoint(os.path.join(out_dir, "tags_dp2"))
+        directory = os.path.join(tag, "state")
+        index = {mm["key"]: mm["index"] for mm in read_meta(directory)["leaves"]}
+        differ, resid_zero = [], True
+        for key, leaf in flatten_with_paths(e.state):
+            if key.startswith("qgrad"):
+                resid_zero = resid_zero and not bool(leaf.any())
+                continue
+            arr = np.load(os.path.join(directory, "arrays", f"{index[key]}.npy"))
+            if not torch.equal(leaf.detach().cpu(), torch.from_numpy(arr)):
+                differ.append(key)
+        shapes = {k: list(e.state[k].shape) for k in ("qgrad_residual", "qgrad_bucket_residual")}
+        loaded = (e.global_steps, e.data_cursor)
+        fa, _ = _reset_counts()  # the resumed world-1 step
+        m4 = e.train_batch(batches[DP_STEPS])
+        torch.cuda.synchronize()
+        launches = _flash_launches(fa)
+        log(f"phase16d the dp2 tag at world 1: leaves differing from the stored ones={differ} "
+            f"residuals zero={resid_zero} at {shapes} (global_steps, data_cursor)={loaded} "
+            f"step 4 loss={m4['loss'].item()} launches={launches}")
+        check(not differ, f"16d: loaded leaves differ: {differ}")
+        check(resid_zero and shapes["qgrad_residual"][0] == 1, f"16d residuals {shapes}")
+        check(loaded == (DP_STEPS, DP_STEPS), f"16d counters after the load {loaded}")
+        check(math.isfinite(m4["loss"].item()), "16d step 4 not finite")
+        expected = path_launches(launches, L, _flash_path("float32"))
+        check(launches == expected, f"16d launches {launches}, expected {expected}")
+        e.save_checkpoint(os.path.join(out_dir, "tags_w1"))
+        del e
+        torch.cuda.empty_cache()
+        shutil.rmtree(os.path.join(out_dir, "tags_dp2"))
+        ranks = _dp_spawn(torch, out_dir, "load")
+        for r, rank in enumerate(ranks):
+            got = rank["load"]
+            log(f"phase16d the world-1 tag at dp2, rank {r}: leaves not bitwise its slice="
+                f"{got['differ']} global_steps={got['global_steps']} cursor={got['cursor']} "
+                f"residuals zero={got['resid_zero']}")
+            check(not got["differ"], f"16d rank {r}: slices differ: {got['differ']}")
+            check(got["global_steps"] == got["cursor"] == DP_STEPS + 1 and got["resid_zero"],
+                  f"16d rank {r}: {got}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -4564,7 +5021,7 @@ def main() -> int:
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
                   phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
                   phase_sparse, phase_head_dim_96, phase_checkpoint, phase_gpt_variants,
-                  phase_decoding_modes, phase_serving_levers):
+                  phase_decoding_modes, phase_serving_levers, phase_data_parallel):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)

@@ -11,10 +11,14 @@ field names too, so a whole engine state crosses over
 (:func:`train_state_from_numpy` / :func:`train_state_to_numpy`). The JAX
 side's NamedTuples are read by their field names; nothing here imports JAX.
 
-Under ZeRO stage 3 a rank holds slices: ``train_state_from_numpy(...,
+Under ZeRO a rank holds slices (the parameters at stage 3, the master copy
+and the optimizer state from stage 1): ``train_state_from_numpy(...,
 policy=engine.zero_policy)`` cuts a full state into this rank's slices, and
-``train_state_to_numpy(state, specs=engine.param_specs)`` joins every rank's
-slices back into the full state (a collective: every rank calls it).
+``train_state_to_numpy(state, specs=engine.param_specs,
+opt_specs=engine.opt_specs)`` joins every rank's slices back into the full
+state (a collective: every rank calls it). The quantized gradient
+exchange's error-feedback residuals cross too: a rank holds its row of the
+reference's global ``[W, npad]`` / ``[L, W, npad_l]`` arrays.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from .comm import comm
 from .models import gpt as gpt_mod
 from .ops.optimizers import AdagradState, AdamState, SGDState
 from .runtime.precision import ScalerState
+from .runtime.zero.reshard import RESIDUAL_RANK_AXIS
 from .utils.tree import tree_map
 
 
@@ -109,12 +114,14 @@ def _map_opt(state: Any, fn) -> Any:
                          for f, v in zip(state._fields, state)))
 
 
-def map_param_trees(state: Dict[str, Any], fn) -> Dict[str, Any]:
+def map_param_trees(state: Dict[str, Any], fn, opt_fn=None) -> Dict[str, Any]:
     """``fn`` over the parameter-shaped trees of a train state: ``params``,
-    ``master`` (when there is one) and the optimizer state's moments."""
+    ``master`` (when there is one) and the optimizer state's moments;
+    ``opt_fn`` (default ``fn``) takes the master copy and the moments."""
+    opt_fn = opt_fn or fn
     return {**state, "params": fn(state["params"]),
-            "master": fn(state["master"]) if state["master"] else {},
-            "opt": _map_opt(state["opt"], fn)}
+            "master": opt_fn(state["master"]) if state["master"] else {},
+            "opt": _map_opt(state["opt"], opt_fn)}
 
 
 def join_tree(tree: Any, specs: Any) -> Any:
@@ -124,9 +131,18 @@ def join_tree(tree: Any, specs: Any) -> Any:
                     tree, specs)
 
 
-def join_state(state: Dict[str, Any], specs: Any) -> Dict[str, Any]:
-    """:func:`join_tree` over every parameter-shaped tree of a train state."""
-    return map_param_trees(state, lambda tree: join_tree(tree, specs))
+def join_state(state: Dict[str, Any], specs: Any, opt_specs: Any = None) -> Dict[str, Any]:
+    """:func:`join_tree` over every parameter-shaped tree of a train state
+    (the master copy and the moments by ``opt_specs``, default ``specs``),
+    and every rank's error-feedback residual row joined into the global
+    array."""
+    opt_specs = specs if opt_specs is None else opt_specs
+    out = map_param_trees(state, lambda tree: join_tree(tree, specs),
+                          lambda tree: join_tree(tree, opt_specs))
+    for key, axis in RESIDUAL_RANK_AXIS.items():
+        if key in state:
+            out[key] = comm.all_gather(state[key].detach(), axis=axis)
+    return out
 
 
 def train_state_from_numpy(state: Dict[str, Any], device=None,
@@ -137,15 +153,21 @@ def train_state_from_numpy(state: Dict[str, Any], device=None,
     compute dtype of ``params`` (default: as given); the master copy and the
     optimizer state are fp32. ``policy`` (a ``ZeroShardingPolicy``, the
     engine's ``zero_policy``) cuts every parameter-shaped tree to this
-    rank's slices."""
+    rank's slices (the params by ``param_spec``, the master copy and the
+    moments by ``opt_spec``) and each error-feedback residual to its row."""
     dev = resolve_device(device)
     state = {**state, "master": state.get("master") or {}}
     if policy is not None:
         specs = policy.tree_param_specs(state["params"])
+        opt_specs = policy.tree_opt_specs(state["params"])
         state = map_param_trees(
-            state, lambda tree: policy.shard_tree(tree_map(np.asarray, tree), specs))
+            state, lambda tree: policy.shard_tree(tree_map(np.asarray, tree), specs),
+            lambda tree: policy.shard_tree(tree_map(np.asarray, tree), opt_specs))
+        for key, axis in RESIDUAL_RANK_AXIS.items():
+            if key in state:
+                state[key] = policy.shard(np.asarray(state[key]), axis)
     master = state["master"]
-    return {
+    out = {
         "params": params_from_numpy(state["params"], dev, dtype),
         "master": params_from_numpy(master, dev, torch.float32) if master else {},
         "opt": opt_state_from_numpy(state["opt"], dev),
@@ -153,15 +175,21 @@ def train_state_from_numpy(state: Dict[str, Any], device=None,
         "micro": _scalar(state["micro"], dev, torch.int32),
         "scaler": scaler_state_from_numpy(state["scaler"], dev),
     }
+    for key in RESIDUAL_RANK_AXIS:
+        if key in state:
+            out[key] = _tensor(state[key]).to(device=dev, dtype=torch.float32)
+    return out
 
 
-def train_state_to_numpy(state: Dict[str, Any], specs: Any = None) -> Dict[str, Any]:
+def train_state_to_numpy(state: Dict[str, Any], specs: Any = None,
+                         opt_specs: Any = None) -> Dict[str, Any]:
     """The inverse of :func:`train_state_from_numpy` (bf16 leaves widen to
-    fp32). ``specs`` (the engine's ``param_specs``) joins every rank's
-    slices into the full leaves first."""
+    fp32). ``specs`` (the engine's ``param_specs``) and ``opt_specs`` (its
+    ``opt_specs``, default ``specs``) join every rank's slices into the full
+    leaves first, and the residuals' rows into their global arrays."""
     if specs is not None:
-        state = join_state(state, specs)
-    return {
+        state = join_state(state, specs, opt_specs)
+    out = {
         "params": params_to_numpy(state["params"]),
         "master": params_to_numpy(state["master"]) if state["master"] else {},
         "opt": opt_state_to_numpy(state["opt"]),
@@ -169,3 +197,7 @@ def train_state_to_numpy(state: Dict[str, Any], specs: Any = None) -> Dict[str, 
         "micro": state["micro"].cpu().numpy(),
         "scaler": scaler_state_to_numpy(state["scaler"]),
     }
+    for key in RESIDUAL_RANK_AXIS:
+        if key in state:
+            out[key] = state[key].detach().cpu().numpy()
+    return out

@@ -8,10 +8,16 @@ cursor, ``client_state`` and the config), a copy of ``zero_to_fp32.py``,
 and the commit protocol's ``MANIFEST.json`` and ``COMMIT``
 (:mod:`..resilience.manifest`); ``latest`` beside the tags names the newest.
 
-Under ZeRO stage 3 a save joins every rank's slices into the full leaves
-(a collective: every rank calls it) and rank 0 writes; a load cuts the full
-leaves to this rank's slices. A tag written at another world size raises
-ROADMAP.md A9b (reshard-on-load), one with offload state A12.
+Under ZeRO a save joins every rank's slices into the full leaves (a
+collective: every rank calls it), and the error-feedback residuals' rows
+into the reference's global ``[W, npad]`` / ``[L, W, npad_l]`` arrays, and
+rank 0 writes; a load cuts the full leaves to this rank's slices. The
+format is topology-free, so a tag written at another world size loads too
+(reshard-on-load, :mod:`..runtime.zero.reshard`): the logical leaves are
+cut to the new slices, the residuals reset to zeros of the new shape, the
+data cursor remapped, and a mid-accumulation window dropped for the new
+decomposition to consume again from its start. A tag with offload state
+raises ROADMAP.md A12.
 """
 
 from __future__ import annotations
@@ -36,7 +42,12 @@ from ..resilience import (
     write_latest,
 )
 from ..resilience.manifest import CheckpointCorruptionError
-from ..runtime.zero.reshard import partition_record
+from ..runtime.zero.reshard import (
+    RESIDUAL_RANK_AXIS,
+    apply_cursor_reshard,
+    load_resolver,
+    partition_record,
+)
 from ..utils.errors import unported
 from ..utils.logging import log_dist, logger
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -77,9 +88,14 @@ def _get_ckpt_engine(engine):
 
 def _grad_acc_tree(engine):
     """The open accumulation window's gradients as the params-shaped fp32
-    tree the reference saves, every rank's slices joined (a collective)."""
-    tree = tree_unflatten(engine.state["params"], engine._grad_acc)
-    return bridge.join_tree(tree, engine.param_specs)
+    tree the reference saves: reduced over the ranks (below stage 3 each
+    rank holds its own rows' sum until the boundary) and every rank's
+    slices joined (a collective)."""
+    acc = engine._grad_acc
+    if (engine.world_size > 1 and engine.zero_policy.stage < 3
+            and not engine._qcomm.gradients):
+        acc = [comm.all_reduce(g, op="mean") for g in acc]
+    return bridge.join_tree(tree_unflatten(engine.state["params"], acc), engine.param_specs)
 
 
 def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
@@ -99,7 +115,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         os.makedirs(ckpt_dir, exist_ok=True)
         # a re-saved tag is uncommitted for the whole rewrite
         invalidate_tag(ckpt_dir)
-    state = bridge.join_state(engine.state, engine.param_specs)
+    state = bridge.join_state(engine.state, engine.param_specs, engine.opt_specs)
     mid_accum = engine._grad_acc is not None and engine._micro > 0
     grad_acc = _grad_acc_tree(engine) if mid_accum else None
     if is_writer:
@@ -163,11 +179,10 @@ def _full_template(tree, specs, world: int):
     return tree_map(full, tree, specs)
 
 
-def _cut_tree(tree, engine):
+def _cut_tree(tree, engine, specs):
     """This rank's slices of a parameter-shaped tree of full CPU tensors."""
     policy = engine.zero_policy
-    return tree_map(lambda t, d: t if d is None else policy.shard(t, d).clone(), tree,
-                    engine.param_specs)
+    return tree_map(lambda t, d: t if d is None else policy.shard(t, d).clone(), tree, specs)
 
 
 def _to_device(tree, device):
@@ -196,35 +211,66 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     ckpt_dir = os.path.join(load_dir, resolved)
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
-    old_world = meta.get("world_size")
-    if old_world is not None and int(old_world) != engine.world_size:
-        raise unported(f"loading a tag written at world size {old_world} at world size "
-                       f"{engine.world_size} (reshard-on-load)", "A9b")
     if any(os.path.exists(os.path.join(ckpt_dir, n)) for n in _OFFLOAD_FILES):
         raise unported("loading a tag with ZeRO-Offload host state", "A12")
-
     world = engine.world_size
-    template = bridge.map_param_trees(
-        engine.state, lambda tree: _full_template(tree, engine.param_specs, world))
-    state = load_pytree(template, os.path.join(ckpt_dir, "state"))
-    state = _to_device(bridge.map_param_trees(state, lambda tree: _cut_tree(tree, engine)),
-                       engine.device)
+    old_world = int(meta.get("world_size") or world)
+    resharding = old_world != world
+
+    def full(tree, specs):
+        return _full_template(tree, specs, world)
+
+    template = bridge.map_param_trees(engine.state, lambda t: full(t, engine.param_specs),
+                                      lambda t: full(t, engine.opt_specs))
+    for key, axis in RESIDUAL_RANK_AXIS.items():
+        if key in engine.state:
+            shape = list(engine.state[key].shape)
+            shape[axis] *= world
+            template[key] = torch.empty(shape, dtype=torch.float32, device="meta")
+    state = load_pytree(template, os.path.join(ckpt_dir, "state"),
+                        on_shape_mismatch=load_resolver(old_world, world) if resharding
+                        else None)
+    state = bridge.map_param_trees(state, lambda t: _cut_tree(t, engine, engine.param_specs),
+                                   lambda t: _cut_tree(t, engine, engine.opt_specs))
+    for key, axis in RESIDUAL_RANK_AXIS.items():
+        if key in state:
+            state[key] = engine.zero_policy.shard(state[key], axis).clone()
+    state = _to_device(state, engine.device)
     if not load_optimizer_states:
         state = {**state, "opt": engine.state["opt"], "master": engine.state["master"]}
     grad_acc = None
-    if meta.get("has_grad_acc"):
-        acc_template = tree_map(lambda t: t.float(), _full_template(
-            engine.state["params"], engine.param_specs, world))
+    if meta.get("has_grad_acc") and not resharding:
+        acc_template = tree_map(lambda t: t.float(), full(engine.state["params"],
+                                                          engine.param_specs))
         acc = load_pytree(acc_template, os.path.join(ckpt_dir, "grad_acc"))
-        grad_acc = tree_leaves(_to_device(_cut_tree(acc, engine), engine.device))
+        grad_acc = tree_leaves(_to_device(_cut_tree(acc, engine, engine.param_specs),
+                                          engine.device))
+    elif meta.get("has_grad_acc"):
+        # another decomposition's partial window cannot be continued: it is
+        # dropped, and the window is consumed again from its start
+        state["micro"] = torch.zeros_like(state["micro"])
+    cursor = int(meta.get("data_cursor", int(meta.get("global_steps", 0))
+                          + int(meta.get("skipped_steps", 0))))
+    plan = None
+    if resharding:  # refused (ReshardError) before anything changes
+        before, engine.data_cursor = engine.data_cursor, cursor
+        try:
+            plan = apply_cursor_reshard(engine, meta, old_world)
+        finally:
+            engine.data_cursor = before
+        cursor = plan.new_cursor
     engine.load_state(state)
     engine._grad_acc = grad_acc
     engine.global_steps = int(meta.get("global_steps", 0))
     engine.micro_steps = int(meta.get("micro_steps", 0))
     engine.skipped_steps = int(meta.get("skipped_steps", 0))
-    engine.data_cursor = int(meta.get("data_cursor",
-                                      engine.global_steps + engine.skipped_steps))
+    engine.data_cursor = cursor
     engine.seed = int(meta.get("seed", engine.seed))
+    if plan is not None:
+        logger.warning(f"load_checkpoint: resharded tag {resolved!r} from world={old_world} to "
+                       f"world={world} (cursor {plan.old_cursor} -> {plan.new_cursor}"
+                       + (", mid-accumulation window rewound" if plan.window_rewound else "")
+                       + ")")
     log_dist(f"loaded checkpoint {ckpt_dir}")
     return ckpt_dir, meta.get("client_state", {})
 

@@ -126,12 +126,16 @@ def _stored_tensor(directory: str, m: dict) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def load_pytree(template: Any, directory: str) -> Any:
+def load_pytree(template: Any, directory: str,
+                on_shape_mismatch: Optional[Callable[[str, Any, Any], Any]] = None) -> Any:
     """The tree stored under ``directory``, in the structure of
     ``template``, whose leaves give each stored leaf's shape and dtype
     (anything with ``shape`` and a torch ``dtype``: a ``meta`` tensor will
     do). Leaves come back as CPU tensors; a leaf is cast only where its
-    stored dtype differs from the template's, and a shape mismatch raises."""
+    stored dtype differs from the template's. A shape mismatch raises, or
+    goes to ``on_shape_mismatch(key, stored, template_leaf)``, which returns
+    the leaf to use, of the template's shape (the reshard-on-load policy,
+    ``runtime/zero/reshard.py`` ``load_resolver``)."""
     by_key = {m["key"]: m for m in read_meta(directory)["leaves"]}
 
     def load(key, leaf):
@@ -142,8 +146,13 @@ def load_pytree(template: Any, directory: str) -> Any:
         if t.dtype != leaf.dtype:
             t = t.to(leaf.dtype)
         if tuple(t.shape) != tuple(leaf.shape):
-            raise ValueError(f"shape mismatch for {key!r}: checkpoint {tuple(t.shape)} vs "
-                             f"model {tuple(leaf.shape)}")
+            if on_shape_mismatch is None:
+                raise ValueError(f"shape mismatch for {key!r}: checkpoint {tuple(t.shape)} vs "
+                                 f"model {tuple(leaf.shape)}")
+            t = torch.as_tensor(np.asarray(on_shape_mismatch(key, t, leaf))).to(leaf.dtype)
+            if tuple(t.shape) != tuple(leaf.shape):
+                raise ValueError(f"shape-mismatch resolver for {key!r} returned shape "
+                                 f"{tuple(t.shape)}, expected {tuple(leaf.shape)}")
         return t
 
     return map_with_paths(load, template)

@@ -1,6 +1,8 @@
 """Collectives (counterpart of ``deepspeed_tpu/comm``): the facade over
-``torch.distributed``, the quantized wire and its byte ledger. The trace-side
-accounting (``profile_collectives``, ``verify_comms``) is ROADMAP.md A9b."""
+``torch.distributed`` (NCCL, or gloo with CUDA tensors staged through host
+memory), the quantized wire (the stage-3 gathers, the ZeRO++ gradient
+exchange ``grad_bucket_reduce``) and its byte ledger. The trace-side
+accounting (``profile_collectives``, ``verify_comms``) is ROADMAP.md A9c."""
 
 from .comm import (
     CommsLogger,
@@ -21,6 +23,7 @@ from .comm import (
 from .quantized import (
     QuantizedCommConfig,
     dequantize_blockwise,
+    grad_bucket_reduce,
     qall_gather,
     qall_to_all,
     qreduce_scatter,
@@ -39,6 +42,7 @@ __all__ = [
     "qall_gather",
     "qreduce_scatter",
     "qall_to_all",
+    "grad_bucket_reduce",
     "quantized_reshard",
     "comms_logger",
     "configure",

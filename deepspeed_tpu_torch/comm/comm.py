@@ -14,7 +14,13 @@ collective is the identity and none is issued.
 
 :func:`init_distributed` picks NCCL for a CUDA device (the default, as every
 entry point of the port) and gloo for the CPU, so that the multi-rank paths
-run in CPU processes where there is one card or none.
+run in CPU processes where there is one card or none. gloo may also be asked
+for with CUDA tensors: that is how two ranks share one card, which NCCL
+refuses. Under gloo every collective of the facade (``all_reduce``,
+``all_gather``, ``reduce_scatter``, ``all_to_all``, ``broadcast``) on a CUDA
+tensor crosses host memory: the tensor is copied to the host, the
+collective runs there, and the result is copied back to the tensor's card.
+The rule is the backend's and the op's, never a retry after a failed call.
 """
 
 from __future__ import annotations
@@ -109,7 +115,9 @@ def init_distributed(init_method: Optional[str] = None, world_size: Optional[int
     ``init_distributed``). ``init_method`` defaults to ``env://`` and
     ``world_size`` / ``rank`` to ``WORLD_SIZE`` / ``RANK`` (1 / 0). The
     backend is NCCL when ``device`` is a CUDA device (the default; the
-    rank's card is then ``LOCAL_RANK``'s) and gloo for ``device="cpu"``. A
+    rank's card is then ``LOCAL_RANK``'s) and gloo for ``device="cpu"``;
+    ``backend="gloo"`` with a CUDA device leaves the current card as it is
+    (ranks may share it) and stages the collectives through host memory. A
     second call is a no-op."""
     if is_initialized():
         return
@@ -148,6 +156,12 @@ def _issued(group) -> bool:
     return get_world_size(group) > 1
 
 
+def _host_staged(x: torch.Tensor, group) -> bool:
+    """Whether a collective of ``x`` over ``group`` crosses host memory: a
+    CUDA tensor under gloo (see the module docstring)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
 # --------------------------------------------------------------------------- collectives
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
 
@@ -159,8 +173,11 @@ def all_reduce(x: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
     comms_logger.record(f"all_reduce[{_name(group)}]", _nbytes(x))
     if not _issued(group):
         return x
-    y = x.detach().clone()  # collectives carry no autograd history
+    staged = _host_staged(x, group)
+    # collectives carry no autograd history
+    y = x.detach().cpu() if staged else x.detach().clone()
     dist.all_reduce(y, op=_OPS["sum" if op == "mean" else op], group=group)
+    y = y.to(x.device) if staged else y
     return y / get_world_size(group) if op == "mean" else y
 
 
@@ -171,10 +188,12 @@ def all_gather(x: torch.Tensor, group=None, axis: int = 0, tiled: bool = True) -
     if not _issued(group):
         return x if tiled else x.unsqueeze(axis)
     W = get_world_size(group)
+    staged = _host_staged(x, group)
+    src = x.detach().cpu() if staged else x.contiguous()
     # flat buffers: the one layout every backend takes
-    out = torch.empty(W * x.numel(), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x.contiguous().view(-1), group=group)
-    out = out.view((W,) + tuple(x.shape))
+    out = torch.empty(W * x.numel(), dtype=x.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src.contiguous().view(-1), group=group)
+    out = out.view((W,) + tuple(x.shape)).to(x.device)
     if not tiled:
         return out.movedim(0, axis)
     axis = axis % max(1, x.dim())
@@ -191,8 +210,11 @@ def reduce_scatter(x: torch.Tensor, group=None, axis: int = 0) -> torch.Tensor:
     if xm.shape[0] % W:
         raise ValueError(f"reduce_scatter: dim {axis} extent {xm.shape[0]} not divisible "
                          f"by the world size {W}")
-    out = torch.empty(xm.numel() // W, dtype=x.dtype, device=x.device)
-    dist.reduce_scatter_tensor(out, xm.contiguous().view(-1), group=group)
+    staged = _host_staged(x, group)
+    src = xm.detach().cpu() if staged else xm
+    out = torch.empty(xm.numel() // W, dtype=x.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src.contiguous().view(-1), group=group)
+    out = out.to(x.device)
     return out.view((xm.shape[0] // W,) + tuple(xm.shape[1:])).movedim(0, axis)
 
 
@@ -208,10 +230,11 @@ def all_to_all(x: torch.Tensor, group=None, split_axis: int = 0,
     if xm.shape[0] % W:
         raise ValueError(f"all_to_all: dim {split_axis} extent {xm.shape[0]} not divisible "
                          f"by the world size {W}")
-    send = xm.reshape((W, xm.shape[0] // W) + tuple(xm.shape[1:])).contiguous()
+    send = xm.reshape((W, xm.shape[0] // W) + tuple(xm.shape[1:]))
+    send = send.detach().cpu() if _host_staged(x, group) else send.contiguous()
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send, group=group)
-    chunks = [c.movedim(0, split_axis) for c in recv.unbind(0)]
+    chunks = [c.movedim(0, split_axis) for c in recv.to(x.device).unbind(0)]
     return torch.cat(chunks, dim=concat_axis)
 
 
@@ -220,10 +243,11 @@ def broadcast(x: torch.Tensor, group=None, src_index: int = 0) -> torch.Tensor:
     comms_logger.record(f"broadcast[{_name(group)}]", _nbytes(x))
     if not _issued(group):
         return x
-    y = x.clone()
+    staged = _host_staged(x, group)
+    y = x.detach().cpu() if staged else x.clone()
     src = src_index if group is None else dist.get_global_rank(group, src_index)
     dist.broadcast(y, src=src, group=group)
-    return y
+    return y.to(x.device) if staged else y
 
 
 def barrier(group=None) -> None:

@@ -10,7 +10,10 @@
   operations in the same order, round half to even.
 - Collectives over the :mod:`.comm` facade: :func:`qall_gather`,
   :func:`qreduce_scatter` (dequantize, then reduce in fp32: only the wire is
-  int) and :func:`qall_to_all`.
+  int) and :func:`qall_to_all`; :func:`grad_bucket_reduce`, one gradient
+  bucket's ZeRO++ exchange (a mean reduce-scatter, then an all-gather, both
+  quantized), which the engine runs per layer for
+  ``zero_quantized_gradients`` (``runtime/engine.py``).
 - Autograd functions: :func:`quantized_reshard` gathers a leaf's shards as
   int payloads and dequantizes them (the stage-3 gather of
   ``runtime/zero/gather.py``); its backward is straight through the
@@ -40,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda import dequant_matmul as dqm
+from ..utils.tree import tree_leaves, tree_unflatten
 from . import comm
 from .runtime_accounting import wire_ledger
 
@@ -293,6 +297,46 @@ def qall_to_all(x: torch.Tensor, group=None, split_axis: int = 0, concat_axis: i
     return dequantize_blockwise(Q, S, Z, bits=bits, orig_size=x.shape[-1]).to(x.dtype)
 
 
+def grad_bucket_reduce(tree: Any, resid: Optional[torch.Tensor], scale, bits: int = 8,
+                       block_size: int = DEFAULT_BLOCK, group=None,
+                       op_name: str = "qgrad_bucket") -> Tuple[Any, Optional[torch.Tensor]]:
+    """One bucket's quantized data-parallel gradient exchange (the arithmetic
+    of the reference's ``grad_bucket_reduce`` backward tap): the leaves of
+    ``tree`` (gradients carrying the loss scale ``scale``) flattened in
+    :func:`~..utils.tree.tree_leaves` order to one fp32 vector, zero-padded
+    to a multiple of W, :func:`qreduce_scatter` with ``mean``, then
+    :func:`qall_gather` of the reduced chunk; each leaf comes back in its
+    own shape and dtype. ``resid``: this rank's error-feedback residual
+    (any shape of the padded size), kept in unscaled units: multiplied by
+    ``scale`` on the way in, the new one divided by it on the way out.
+    Returns ``(tree, new_resid or None)``. At world size 1 the bucket is
+    still quantized and dequantized twice."""
+    leaves = tree_leaves(tree)
+    flat = torch.cat([t.float().reshape(-1) for t in leaves])
+    W = comm.get_world_size(group)
+    n = flat.numel()
+    npad = -(-n // W) * W
+    flat = torch.nn.functional.pad(flat, (0, npad - n))
+    kw = dict(bits=bits, block_size=block_size, mean=True, op_name=f"{op_name}_rs")
+    new_resid = None
+    if resid is not None:
+        if resid.numel() != npad:
+            raise ValueError(f"grad_bucket_reduce: residual size {tuple(resid.shape)} != padded "
+                             f"bucket size {npad} (pad the per-bucket residual to a multiple "
+                             f"of the dp extent {W})")
+        red, new_r = qreduce_scatter(flat, group, residual=resid.reshape(-1) * scale, **kw)
+        new_resid = (new_r / scale).reshape(resid.shape).to(resid.dtype)
+    else:
+        red = qreduce_scatter(flat, group, **kw)
+    full = qall_gather(red, group, axis=0, tiled=True, bits=bits, block_size=block_size,
+                       op_name=f"{op_name}_ag")
+    out, off = [], 0
+    for t in leaves:
+        out.append(full[off:off + t.numel()].reshape(t.shape).to(t.dtype))
+        off += t.numel()
+    return tree_unflatten(tree, out), new_resid
+
+
 # --------------------------------------------------------------------------- autograd
 def shard_grad(g: torch.Tensor, dim: Optional[int], group=None) -> torch.Tensor:
     """The cotangent of a gathered leaf, mean-reduced back to this rank's
@@ -390,7 +434,7 @@ def quantized_matmul_reshard(h: torch.Tensor, w: torch.Tensor, bits: int = 8,
 __all__ = [
     "QuantizedCommConfig", "effective_block", "quantization_shrinks", "quantize_blockwise",
     "dequantize_blockwise", "np_quantize_blockwise", "np_dequantize_blockwise",
-    "error_feedback_step", "qall_gather", "qreduce_scatter", "qall_to_all",
+    "error_feedback_step", "qall_gather", "qreduce_scatter", "qall_to_all", "grad_bucket_reduce",
     "quantized_reshard", "quantized_matmul_reshard", "shard_grad", "wire_bytes_per_element",
     "DEFAULT_BLOCK", "SUPPORTED_BITS",
 ]

@@ -7,8 +7,10 @@ plus per-block scales and zero-points it moves (wire). The reference records
 once per trace; the eager port records once per executed call, so counts
 differ between the two while each op's wire/logical ratio does not.
 
-The profiler-trace parsers, the overlap column and the host-DMA column are
-not ported yet (ROADMAP.md A9b).
+The gradient exchange's ops (``qgrad_bucket_rs`` / ``qgrad_bucket_ag`` per
+layer bucket, ``qgrad_reduce_scatter`` / ``qgrad_all_gather`` for the rest)
+record here like the stage-3 gathers. The profiler-trace parsers, the
+overlap column and the host-DMA column are not ported yet (ROADMAP.md A9c).
 """
 
 from __future__ import annotations

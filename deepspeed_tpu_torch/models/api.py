@@ -8,8 +8,13 @@ A model is a pair of functions over a parameter dict, as in the reference:
   plus loss.
 
 ``gpt_config`` is the GPTConfig a ``models.gpt.build`` module was built
-from. The reference's partitioning, pipeline and streaming hooks belong to
-later slices (ROADMAP.md A9, A12, A13).
+from. ``grad_bucket_key`` names the layer-stacked subtree whose gradients
+the quantized exchange sends one layer (bucket) at a time, as the
+reference's does. ``loss_count(batch)`` is the number of targets the loss
+averages over (a 0-dim fp32 tensor): across data-parallel ranks the engine
+weights each rank's masked mean by its share of the total, so that the
+loss is the global masked mean. The reference's pipeline and streaming
+hooks belong to later slices (ROADMAP.md A12, A13).
 """
 
 from __future__ import annotations
@@ -29,3 +34,5 @@ class Module:
     init: Callable[..., Params]
     apply: Callable[..., Tuple[torch.Tensor, Dict[str, Any]]]
     gpt_config: Optional[Any] = None
+    grad_bucket_key: Optional[str] = None
+    loss_count: Optional[Callable[[Dict[str, Any]], torch.Tensor]] = None

@@ -724,6 +724,20 @@ def loss_fn(cfg: GPTConfig, params: Params, batch: Dict[str, Any], rngs=None,
         cfg.max_seq_len, batch)
 
 
+def loss_token_count(batch: Dict[str, Any]) -> torch.Tensor:
+    """The number of targets :func:`loss_fn`'s masked mean divides by before
+    its clamp to 1 (a 0-dim fp32 tensor): the ``loss_mask`` entries of the
+    target positions, or every target position without a mask."""
+    ids = torch.as_tensor(batch["input_ids"])
+    mask = batch.get("loss_mask")
+    labels = batch.get("labels")
+    if mask is None:
+        n = ids.numel() if labels is not None else ids.shape[0] * (ids.shape[1] - 1)
+        return torch.full((), float(n), dtype=torch.float32, device=ids.device)
+    mask = torch.as_tensor(mask)
+    return (mask if labels is not None else mask[:, 1:]).float().sum()
+
+
 # ------------------------------------------------------------- quantized weights
 class GPTStream:
     """The model as ``embed`` / ``layer_0..L-1`` / ``final`` units with a host
@@ -1385,8 +1399,9 @@ class GPTModel(nn.Module):
 # --------------------------------------------------------------------------- build
 def build(cfg_or_name: Union[str, GPTConfig]) -> Tuple[Module, GPTConfig]:
     """A trainable :class:`~.api.Module` from a config or preset name: its
-    ``init(seed, device)`` is :func:`init_params` and its ``apply`` is
-    :func:`loss_fn`."""
+    ``init(seed, device)`` is :func:`init_params`, its ``apply``
+    :func:`loss_fn` and its ``loss_count`` :func:`loss_token_count`; the
+    layer-stacked ``blocks`` are its gradient buckets."""
     cfg = PRESETS[cfg_or_name] if isinstance(cfg_or_name, str) else cfg_or_name
     check_config(cfg)
 
@@ -1396,4 +1411,5 @@ def build(cfg_or_name: Union[str, GPTConfig]) -> Tuple[Module, GPTConfig]:
     def apply(params, batch, rngs=None, train: bool = True, pld_theta=None):
         return loss_fn(cfg, params, batch, rngs=rngs, train=train, pld_theta=pld_theta)
 
-    return Module(init=init, apply=apply, gpt_config=cfg), cfg
+    return Module(init=init, apply=apply, gpt_config=cfg, grad_bucket_key="blocks",
+                  loss_count=loss_token_count), cfg

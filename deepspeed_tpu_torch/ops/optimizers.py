@@ -143,7 +143,11 @@ def fused_lamb(
     min_coeff: float = 0.01,
     bias_correction: bool = True,
 ) -> Optimizer:
-    """LAMB with a per-tensor trust ratio (the reference's ``fused_lamb``)."""
+    """LAMB with a per-tensor trust ratio (the reference's ``fused_lamb``).
+    Its ``update`` takes ``sliced``, one bool per leaf, for a state cut over
+    the data-parallel ranks (ZeRO): the trust ratio of a sliced leaf takes
+    the norms of the logical leaf, the squared norms of the ranks' slices
+    all-reduced, as the reference's norms see the global array."""
     b1, b2 = betas
 
     def init(params):
@@ -151,7 +155,7 @@ def fused_lamb(
         return AdamState(count=torch.zeros((), dtype=torch.int32, device=device),
                          mu=_zeros_like(params), nu=_zeros_like(params))
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, sliced: Optional[List[bool]] = None):
         count = state.count + 1
         bc1, bc2 = _bias_corrections(count, (b1, b2), bias_correction)
         leaves = tree_leaves(params)
@@ -164,6 +168,13 @@ def fused_lamb(
             torch._foreach_add_(upd, torch._foreach_mul(p32, weight_decay))
         w_norm = torch.stack(torch._foreach_norm(p32))
         u_norm = torch.stack(torch._foreach_norm(upd))
+        if sliced is not None and any(sliced):
+            from ..comm import comm
+
+            cut = torch.tensor(sliced, device=w_norm.device)
+            norms = torch.stack([w_norm, u_norm])
+            logical = comm.all_reduce(norms.square() * cut).sqrt()
+            w_norm, u_norm = torch.where(cut, logical, norms).unbind(0)
         trust = torch.where((w_norm > 0) & (u_norm > 0),
                             torch.clamp(w_norm / u_norm, min_coeff, max_coeff),
                             torch.ones_like(w_norm))

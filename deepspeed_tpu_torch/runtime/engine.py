@@ -1,4 +1,4 @@
-"""The training engine on one device (counterpart of
+"""The training engine (counterpart of
 ``deepspeed_tpu/runtime/engine.py``).
 
 It owns the model, the optimizer, the precision policy, the LR schedule
@@ -12,32 +12,50 @@ fp32 master copy, or ``{}``), ``opt`` (the optimizer state, fp32),
 ``step``, ``micro`` and ``scaler``. One micro-step is the reference's
 ``_micro_step``: forward, ``torch.autograd.grad`` of the (loss-scaled,
 predivided) loss, the gradients cast to fp32, unscaled and accumulated
-times 1/gas. The boundary is its ``_boundary_step``: the overflow check
-(fp16 loss scaling), the global norm, clipping, the LR at the count of
-steps taken so far, the optimizer on the master (or the params), and the
-recast of the master to the compute dtype.
+times 1/gas. The boundary is its ``_boundary_step``: the gradient reduction
+across ranks, the overflow check (fp16 loss scaling), the global norm,
+clipping, the LR at the count of steps taken so far, the optimizer on the
+master (or the params), and the recast of the master to the compute dtype.
 
 Nothing reads a device value back per leaf: metrics come back as 0-dim
 tensors (``loss``, ``grad_norm``, ``lr``, ``loss_scale``, ``overflow``).
 With fp16 loss scaling the engine reads the overflow flag once per step,
-to skip the update. ZeRO stages 0-2 run at world size 1, where partitioning
-over one rank is the identity. ``save_checkpoint`` / ``load_checkpoint``
-write and read the reference's tagged format (:mod:`..checkpoint`), the
-open accumulation window included.
+to skip the update. ``save_checkpoint`` / ``load_checkpoint`` write and
+read the reference's tagged format (:mod:`..checkpoint`), the open
+accumulation window included; a tag loads at any world size.
 
-ZeRO stage 3 runs at any world size of the process group
-(``comm.init_distributed``; none is needed at world size 1). Each rank keeps
-its slices of the parameters, of the fp32 master copy and of the optimizer
-state (``zero/policy.py``), and takes its rows of the global batch. The
+Every ZeRO stage runs at any world size of the process group
+(``comm.init_distributed``; none is needed at world size 1). Each rank
+takes its rows of the global batch. The stages are the reference's
+(``zero/policy.py``): from stage 1 a rank keeps its slices of the fp32
+master copy and of the optimizer state and updates only those; the recast
+parameters are all-gathered whole, so every rank holds bitwise the same
+parameters after each step. At the boundary the accumulated fp32 gradients
+are mean-reduced: all-reduced at stages 0-1, reduce-scattered to the
+owners' slices at stage 2. At stage 3 the parameters are sliced too; the
 forward gathers the top-level leaves whole and, under the bound
 :func:`~.zero.gather.gather_window`, the model gathers each layer just
-before it runs (over the int wire with ``zero_quantized_weights``); the
-gathers' backward mean-reduces each gradient to its owners' slices, so the
-update is rank-local. The global norm for clipping, the overflow flag and
-the reported loss are reduced over the ranks. A ``loss_mask`` across ranks
-(a mean of per-rank means is not the global masked mean), LAMB's per-leaf
-trust ratios over slices, and stages 1-2 across ranks raise ROADMAP.md A9b;
-everything else the reference engine does and the port does not raises
+before it runs (over the int wire with ``zero_quantized_weights``), and the
+gathers' backward mean-reduces each gradient to its owners' slices. The
+global norm for clipping, the overflow flag (min-reduced), LAMB's trust
+ratios and the reported loss are reduced over the ranks; a ``loss_mask``
+weights each rank's masked mean by its share of the mask, so the loss and
+the gradients are the global masked mean.
+
+``zero_quantized_gradients`` (stages 0-2) replaces the gradient reduction
+with the reference's ``_qdp_grads`` exchange after each micro-step's
+backward (``comm/quantized.py``): with ``overlap_comm`` (the default),
+deterministic rounding and a model with ``grad_bucket_key``, one quantized
+reduce-scatter + all-gather per layer of the stacked ``blocks``
+(``qgrad_bucket_rs`` / ``qgrad_bucket_ag``) and one for the rest
+(``qgrad_reduce_scatter`` / ``qgrad_all_gather``); otherwise one exchange
+for the whole tree. With ``zero_quantize_error_feedback`` each rank keeps
+its row of the residuals ``qgrad_residual`` [W, npad] and
+``qgrad_bucket_residual`` [L, W, npad_l] in ``state``, zeroed at an
+overflow. The buckets are exchanged after the backward, layer by layer;
+issuing them during the backward, the side-stream gather prefetch,
+``comms_verify`` and ``measure_overlap`` are ROADMAP.md A9c. Everything
+else the reference engine does and the port does not raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -49,6 +67,7 @@ import torch
 
 from ..accelerator import resolve_device, to_device
 from ..comm import comm
+from ..comm.quantized import QuantizedCommConfig, grad_bucket_reduce, qall_gather, qreduce_scatter
 from ..comm.runtime_accounting import wire_ledger
 from ..models.api import Module
 from ..ops.optimizers import Optimizer, get_optimizer
@@ -71,10 +90,12 @@ from .precision import (
 from .utils import clip_by_global_norm, count_parameters, global_norm
 from .zero.gather import gather_leaf, gather_window
 from .zero.policy import STACKED, ZeroShardingPolicy
+from .zero.reshard import RESIDUAL_RESET_KEYS
 
 
 class DeepSpeedEngine:
-    """Training engine on one device. See the module docstring."""
+    """Training engine over the ranks of the process group. See the module
+    docstring."""
 
     def __init__(self, model: Module, config: DeepSpeedConfig, seed: Optional[int] = None,
                  lr_scheduler_fn: Optional[Callable] = None,
@@ -89,18 +110,13 @@ class DeepSpeedEngine:
         self.train_batch_size = int(config.train_batch_size or 1)
         stage = config.zero_optimization.stage
         self.world_size, self.rank = comm.get_world_size(), comm.get_rank()
-        if self.world_size > 1 and stage < 3:
-            raise unported(f"data parallelism across {self.world_size} ranks at ZeRO stage "
-                           f"{stage}", "A9b")
         if self.train_batch_size != self.micro_batch_size * self.gas * self.world_size:
             raise ValueError(f"train_batch_size {self.train_batch_size} != micro "
                              f"{self.micro_batch_size} x gas {self.gas} x world "
                              f"{self.world_size}: load the config for this world size")
-        if stage in (1, 2):
-            log_dist(f"ZeRO stage {stage} at world size 1: partitioning over one rank is "
-                     "the identity, so the update runs unsharded")
         self.zero_policy = ZeroShardingPolicy(config.zero_optimization, self.world_size,
                                               self.rank)
+        self._qcomm = QuantizedCommConfig.from_zero_config(config.zero_optimization)
         cl = config.comms_logger
         if cl.enabled:
             comm.configure(enabled=True, verbose=cl.verbose or cl.debug, prof_all=cl.prof_all,
@@ -129,8 +145,6 @@ class DeepSpeedEngine:
         else:
             base = self.base_lr
             self.lr_fn = lambda step: base
-        if self.world_size > 1 and self.optimizer.name == "FusedLamb":
-            raise unported("LAMB's per-leaf trust ratio over ZeRO-3 slices", "A9b")
 
         # ---------------- counters, timer, state
         self.seed = int(seed if seed is not None else config.seed)
@@ -146,6 +160,10 @@ class DeepSpeedEngine:
         self._last_metrics: Dict[str, Any] = {}
         sync = torch.cuda.synchronize if self.device.type == "cuda" else None
         self.tput_timer = ThroughputTimer(synchronize=sync)
+        # stochastic rounding of the gradient exchange: a stream per rank
+        self._qgrad_gen = (torch.Generator(device=self.device).manual_seed(
+            fold_in(self.seed, self.rank)) if self._qcomm.gradients and self._qcomm.stochastic
+            else None)
         self.state = self._init_state()
         log_dist(
             f"engine ready: {count_parameters(tree_leaves(self.state['params'])) / 1e6:.1f}M "
@@ -157,23 +175,79 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ state
     def _init_state(self) -> Dict[str, Any]:
         params_f32 = self.model.init(self.seed, device=self.device)
-        # every rank builds the whole tree from the seed and keeps its slices
-        self.param_specs = self.zero_policy.tree_param_specs(params_f32)
-        self._leaf_dims = [t[0] for t in tree_leaves(
-            tree_map(lambda p, d: (d,), params_f32, self.param_specs))]
-        params_f32 = tree_map(lambda p, d: self.zero_policy.shard(p, d).clone(),
-                              params_f32, self.param_specs)
-        params = cast_to_compute(params_f32, self.pc)
-        master = make_master(params_f32, self.pc)
-        opt = self.optimizer.init(master if master is not None else params)
-        return self._with_leaves({
+        if self._qcomm.gradients:
+            self._init_qgrad(params_f32)
+        # every rank builds the whole tree from the seed and keeps its slices:
+        # of the params by param_spec, of the master copy and the optimizer
+        # state by opt_spec
+        policy = self.zero_policy
+        self.param_specs = policy.tree_param_specs(params_f32)
+        self.grad_specs = policy.tree_grad_specs(params_f32)
+        self.opt_specs = policy.tree_opt_specs(params_f32)
+
+        def dims(specs):
+            return [t[0] for t in tree_leaves(tree_map(lambda p, d: (d,), params_f32, specs))]
+
+        self._param_dims, self._grad_dims, self._opt_dims = (
+            dims(self.param_specs), dims(self.grad_specs), dims(self.opt_specs))
+        master = make_master(tree_map(lambda p, d: policy.shard(p, d), params_f32,
+                                      self.opt_specs), self.pc)
+        params = cast_to_compute(tree_map(lambda p, d: policy.shard(p, d).clone(), params_f32,
+                                          self.param_specs), self.pc)
+        del params_f32
+        opt = self.optimizer.init(master if master is not None else self._opt_view(params))
+        state = {
             "params": params,
             "master": master if master is not None else {},
             "opt": opt,
             "step": torch.zeros((), dtype=torch.int32, device=self.device),
             "micro": torch.zeros((), dtype=torch.int32, device=self.device),
             "scaler": init_scaler_state(self.pc, self.device),
-        })
+        }
+        if self._qcomm.gradients and self._qcomm.error_feedback:
+            # this rank's row of the reference's [W, npad] / [L, W, npad_l]
+            zeros = lambda *shape: torch.zeros(shape, dtype=torch.float32,  # noqa: E731
+                                               device=self.device)
+            state["qgrad_residual"] = zeros(1, self._qgrad_npad)
+            if self._qgrad_bucket_key is not None:
+                state["qgrad_bucket_residual"] = zeros(self._qgrad_bucket_L, 1,
+                                                       self._qgrad_bucket_npad)
+        return self._with_leaves(state)
+
+    def _init_qgrad(self, params_f32) -> None:
+        """The flat geometry of the quantized gradient exchange (the
+        reference's): the layer stack of ``grad_bucket_key`` goes in
+        per-layer buckets when ``overlap_comm`` is on, rounding is
+        deterministic and the stack has more than one layer; the rest, or
+        the whole tree, in one padded fp32 vector."""
+        qc, W = self._qcomm, self.world_size
+        total = sum(t.numel() for t in tree_leaves(params_f32))
+        self._qgrad_bucket_key = None
+        bk = self.model.grad_bucket_key
+        if (self.config.zero_optimization.overlap_comm_effective and not qc.stochastic and bk
+                and bk in params_f32):
+            bleaves = tree_leaves(params_f32[bk])
+            L = int(bleaves[0].shape[0]) if bleaves else 0
+            if L > 1 and all(t.shape[:1] == (L,) for t in bleaves):
+                n_layer = sum(t[0].numel() for t in bleaves)
+                self._qgrad_bucket_key = bk
+                self._qgrad_bucket_L = L
+                self._qgrad_bucket_npad = -(-n_layer // W) * W
+                total -= L * n_layer
+        self._qgrad_n = total
+        self._qgrad_npad = -(-total // W) * W
+        log_dist(f"zero_quantized_gradients: int{qc.bits} block={qc.block_size} exchange over "
+                 f"dp={W} ({total} grads monolithic, padded {self._qgrad_npad}"
+                 + (f"; {self._qgrad_bucket_L} per-layer buckets of {self._qgrad_bucket_npad} "
+                    "exchanged after the backward" if self._qgrad_bucket_key else "")
+                 + (", error feedback on" if qc.error_feedback else "") + ")")
+
+    def _opt_view(self, params):
+        """This rank's params in the optimizer's layout: a whole leaf that
+        the optimizer state slices is cut to this rank's slice (a view, so
+        an in-place update writes through)."""
+        return tree_map(lambda p, pd, od: self.zero_policy.shard(p, od) if pd is None else p,
+                        params, self.param_specs, self.opt_specs)
 
     @staticmethod
     def _with_leaves(state: Dict[str, Any]) -> Dict[str, Any]:
@@ -188,7 +262,7 @@ class DeepSpeedEngine:
         JAX engine by ``bridge.train_state_from_numpy``, cut to this rank's
         slices by ``policy=engine.zero_policy``). It must have the keys of the
         engine's own state; the step counters follow it."""
-        missing = {"params", "master", "opt", "step", "micro", "scaler"} - set(state)
+        missing = set(self.state) - set(state)
         if missing:
             raise ValueError(f"load_state: missing keys {sorted(missing)}")
         if bool(state["master"]) != self.pc.master_weights:
@@ -214,8 +288,6 @@ class DeepSpeedEngine:
         cast = self.pc.compute_dtype if (self.config.fp16.enabled
                                          and self.config.fp16.auto_cast) else None
         if self.world_size > 1:
-            if "loss_mask" in batch:
-                raise unported("a loss_mask across data-parallel ranks", "A9b")
             batch = {k: self.zero_policy.shard(v, rows_axis) for k, v in batch.items()}
 
         def place(x):
@@ -236,8 +308,10 @@ class DeepSpeedEngine:
     def _scales(self):
         """(loss multiplier, gradient multiplier): the loss scale over the
         predivide factor and its inverse (the reference's eff_scale, inv)."""
+        # the quantized exchange carries the loss scale alone, as the
+        # reference's _qdp_grads does
         predivide = (float(self.config.gradient_predivide_factor or 1.0)
-                     if self.config.prescale_gradients else 1.0)
+                     if self.config.prescale_gradients and not self._qcomm.gradients else 1.0)
         if self.pc.loss_scaling:
             eff = self.state["scaler"].scale / predivide
             return eff, 1.0 / eff
@@ -259,16 +333,35 @@ class DeepSpeedEngine:
             out = self.model.apply(self._model_params(), batch,
                                    rngs={"dropout": self._micro_seed()}, train=True)
         loss, _ = out if isinstance(out, tuple) else (out, {})
+        weight = self._loss_weight(batch)
+        if weight is not None:
+            loss = loss * weight
         eff, _ = self._scales()
         return loss.float() * eff, loss
+
+    def _loss_weight(self, batch) -> Optional[torch.Tensor]:
+        """With a ``loss_mask`` across ranks, W times this rank's share of
+        the mask's targets: the mean of the weighted per-rank masked means
+        is the global masked mean, as the reference computes it over the
+        whole batch. The quantized exchange keeps the reference's mean of
+        per-rank means (its ``_qdp_grads`` loss is per rank)."""
+        if self.world_size == 1 or "loss_mask" not in batch or self._qcomm.gradients:
+            return None
+        if self.model.loss_count is None:
+            raise ValueError("a loss_mask across data-parallel ranks needs the model's "
+                             "loss_count (the targets its masked mean divides by)")
+        count = self.model.loss_count(batch).float()
+        return count * self.world_size / comm.all_reduce(count).clamp(min=1.0)
 
     def _accumulate(self, scaled_loss: torch.Tensor) -> None:
         """Gradients of ``scaled_loss`` w.r.t. the params, in fp32, unscaled,
         added times 1/gas into the accumulation buffer."""
         leaves = tree_leaves(self.state["params"])
         grads = torch.autograd.grad(scaled_loss, leaves, materialize_grads=True)
+        eff, inv = self._scales()
+        if self._qcomm.gradients:
+            grads = self._qgrad_exchange(list(grads), eff)
         grads = [g.float() for g in grads]  # bf16/fp16 leaves give grads in their dtype
-        _, inv = self._scales()
         if not (isinstance(inv, float) and inv == 1.0):
             torch._foreach_mul_(grads, inv)
         if self.gas > 1:
@@ -281,11 +374,87 @@ class DeepSpeedEngine:
         self.micro_steps += 1
         self.state["micro"] += 1
 
+    def _qgrad_exchange(self, grads: List[torch.Tensor], scale) -> List[torch.Tensor]:
+        """One micro-step's quantized gradient exchange (the reference's
+        ``_qdp_grads`` after its backward): ``grads`` carry the loss scale
+        ``scale``; each rank gets the mean over the ranks, dequantized. The
+        per-layer buckets come back in the leaves' dtype, the monolithic
+        rest in fp32, as the reference's do. Updates the residuals in
+        ``state`` in place of the old ones."""
+        qc, state = self._qcomm, self.state
+        g_tree = tree_unflatten(state["params"], grads)
+        bk = self._qgrad_bucket_key
+        rest = g_tree
+        if bk is not None:
+            blocks = g_tree[bk]
+            resid = state.get("qgrad_bucket_residual")
+            layers, new_resid = [], []
+            for i in range(self._qgrad_bucket_L):
+                layer, r = grad_bucket_reduce(
+                    {k: v[i] for k, v in blocks.items()}, None if resid is None else resid[i],
+                    scale, bits=qc.bits, block_size=qc.block_size, op_name="qgrad_bucket")
+                layers.append(layer)
+                new_resid.append(r)
+            g_tree = {**g_tree, bk: {k: torch.stack([lay[k] for lay in layers])
+                                     for k in blocks}}
+            if resid is not None:
+                state["qgrad_bucket_residual"] = torch.stack(new_resid)
+            rest = {k: v for k, v in g_tree.items() if k != bk}
+        rest_leaves = tree_leaves(rest)
+        n, npad = self._qgrad_n, self._qgrad_npad
+        flat = torch.nn.functional.pad(torch.cat([g.float().reshape(-1) for g in rest_leaves]),
+                                       (0, npad - n))
+        kw = dict(bits=qc.bits, block_size=qc.block_size, stochastic=qc.stochastic,
+                  generator=self._qgrad_gen, mean=True, op_name="qgrad_reduce_scatter")
+        if "qgrad_residual" in state:
+            # the residual persists in unscaled units, so that it survives a
+            # change of the loss scale
+            red, new_r = qreduce_scatter(flat, residual=state["qgrad_residual"][0] * scale, **kw)
+            state["qgrad_residual"] = (new_r / scale)[None]
+        else:
+            red = qreduce_scatter(flat, **kw)
+        full = qall_gather(red, axis=0, tiled=True, bits=qc.bits, block_size=qc.block_size,
+                           op_name="qgrad_all_gather")
+        out, off = [], 0
+        for g in rest_leaves:
+            out.append(full[off:off + g.numel()].reshape(g.shape))
+            off += g.numel()
+        if bk is None:
+            return out
+        return tree_leaves({**g_tree, **tree_unflatten(rest, out)})
+
+    def _reduce_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The accumulated gradients, mean-reduced over the ranks (an
+        all-reduce at stages 0-1, a reduce-scatter to the owners' slices at
+        stage 2; stage 3's gathers and the quantized exchange have reduced
+        them already), in the optimizer state's layout."""
+        layout = self._param_dims
+        if self.world_size > 1 and self.zero_policy.stage < 3 and not self._qcomm.gradients:
+            W = self.world_size
+            grads = [comm.all_reduce(g, op="mean") if d is None
+                     else comm.reduce_scatter(g, axis=d) / W
+                     for g, d in zip(grads, self._grad_dims)]
+            layout = self._grad_dims
+        # a leaf whole here and sliced in the optimizer state keeps this rank's slice
+        return [self.zero_policy.shard(g, o) if d is None and o is not None else g
+                for g, d, o in zip(grads, layout, self._opt_dims)]
+
+    def _publish(self, target: List[torch.Tensor], has_master: bool) -> None:
+        """The updated slices (``target``, in the optimizer's layout) into
+        the compute-dtype params: the recast of the master, and an
+        all-gather where the params are whole and the slice is not."""
+        for p, t, pd, od in zip(tree_leaves(self.state["params"]), target, self._param_dims,
+                                self._opt_dims):
+            if od != pd:
+                p.copy_(comm.all_gather(t.to(p.dtype), axis=od))
+            elif has_master:
+                p.copy_(t)  # the recast to the compute dtype
+
     def _boundary_step(self) -> Dict[str, Any]:
         """The optimizer step at the accumulation boundary (the reference's
         ``_boundary_step``, overflow skip included)."""
         state = self.state
-        grads = self._grad_acc
+        grads = self._reduce_grads(self._grad_acc)
         self._grad_acc = None
         if self.pc.loss_scaling:
             finite = grads_finite(grads)
@@ -302,14 +471,20 @@ class DeepSpeedEngine:
         lr = torch.full((), float(self.lr_fn(self.global_steps)), dtype=torch.float32,
                         device=self.device)
         has_master = bool(state["master"])
-        target = state["master"] if has_master else state["params"]
+        target = state["master"] if has_master else self._opt_view(state["params"])
+        kw = ({"sliced": [d is not None for d in self._opt_dims]}
+              if self.optimizer.name == "FusedLamb" and self.world_size > 1 else {})
         if do_update:
             with torch.no_grad():
                 target, state["opt"] = self.optimizer.update(
-                    tree_unflatten(target, grads), state["opt"], target, lr)
-                if has_master:
-                    for p, m in zip(tree_leaves(state["params"]), tree_leaves(target)):
-                        p.copy_(m)  # the recast to the compute dtype
+                    tree_unflatten(target, grads), state["opt"], target, lr, **kw)
+                self._publish(tree_leaves(target), has_master)
+        else:
+            # an overflow poisons the error-feedback residuals (a block's scale
+            # goes inf): drop them with the skipped update, as the reference does
+            for key in RESIDUAL_RESET_KEYS:
+                if key in state:
+                    state[key].zero_()
         loss_scale = state["scaler"].scale
         state["scaler"] = update_scaler(self.pc, state["scaler"], finite)
         state["step"] = state["step"] + 1
@@ -319,9 +494,10 @@ class DeepSpeedEngine:
                 "_skipped": not do_update}
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The global gradient norm: the squares of the sliced leaves summed
-        over the ranks, plus those of the leaves every rank holds whole."""
-        if self.world_size == 1:
+        """The global gradient norm of the reduced gradients (in the
+        optimizer's layout): the squares of the sliced leaves summed over
+        the ranks, plus those of the leaves every rank holds whole."""
+        if all(d is None for d in self._opt_dims):
             return global_norm(grads)
 
         def sq(ts):
@@ -329,8 +505,8 @@ class DeepSpeedEngine:
                 return torch.zeros((), dtype=torch.float32, device=self.device)
             return torch.stack(torch._foreach_norm([t.float() for t in ts])).square().sum()
 
-        sliced = [g for g, d in zip(grads, self._leaf_dims) if d is not None]
-        whole = [g for g, d in zip(grads, self._leaf_dims) if d is None]
+        sliced = [g for g, d in zip(grads, self._opt_dims) if d is not None]
+        whole = [g for g, d in zip(grads, self._opt_dims) if d is None]
         return torch.sqrt(comm.all_reduce(sq(sliced)) + sq(whole))
 
     def _finish_step(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
@@ -493,10 +669,10 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------ not ported yet
     def comms_verify(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.comms_verify", "A9b")
+        raise unported("DeepSpeedEngine.comms_verify", "A9c")
 
     def measure_overlap(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.measure_overlap", "A9b")
+        raise unported("DeepSpeedEngine.measure_overlap", "A9c")
 
     def analyze(self, *args, **kwargs):
         raise unported("DeepSpeedEngine.analyze (static analysis)", "A14")

@@ -2,19 +2,24 @@
 ``deepspeed_tpu/runtime/zero/config.py``), as a dataclass.
 
 Every field of the reference's ``DeepSpeedZeroConfig`` parses with its
-default. Stages 0-3 run: stage 3 partitions the parameters, their fp32
-master copy and the optimizer state over the data-parallel ranks
-(``runtime/zero/policy.py``) and gathers each layer just before it runs
+default. Stages 0-3 run at any world size: stage 1 partitions the
+optimizer state and the fp32 master copy over the data-parallel ranks,
+stage 2 the gradients too, and stage 3 the parameters
+(``runtime/zero/policy.py``), each layer then gathered just before it runs
 (``runtime/zero/gather.py``); at world size 1 partitioning is the identity.
 ``zero_quantized_weights`` sends the stage-3 gathers over the int8/int4 wire
-and ``zero_quantized_head`` the LM head through the dequant-fused product
-(``comm/quantized.py``). The knobs still to port raise
-``NotImplementedError`` naming their ROADMAP.md item: the quantized gradient
-exchange and its error feedback (A9b), offload (A12). ``overlap_comm`` and
-``overlap_prefetch_depth`` are accepted: they only move where a gather is
-issued, and the port runs the inline schedule (see ``gather.py``). The
-bucket sizes and the other stage-3 tuning fields shape traffic the eager
-port does not batch; they are read by nothing but ``window_size``.
+and ``zero_quantized_head`` the LM head through the dequant-fused product;
+``zero_quantized_gradients`` (stages 0-2) exchanges the gradients over it,
+with ``zero_quantize_error_feedback``'s residuals (``comm/quantized.py``,
+``runtime/engine.py``). The knobs still to port raise
+``NotImplementedError`` naming their ROADMAP.md item: offload (A12) and
+quantized gradients at stage 3 (A9c). ``overlap_comm`` and
+``overlap_prefetch_depth`` are accepted: they only move where a gather or a
+gradient bucket is issued, and the port runs the inline schedule (see
+``gather.py``; the side-stream schedule is A9c); ``overlap_comm`` also picks
+the per-layer gradient buckets, as in the reference. The bucket sizes and
+the other stage-3 tuning fields shape traffic the eager port does not
+batch; they are read by nothing but ``window_size``.
 """
 
 from __future__ import annotations
@@ -28,7 +33,6 @@ from ...utils.errors import unported
 # ROADMAP.md item that ports it
 _UNPORTED: Dict[str, str] = {
     "offload_param": "A12", "offload_optimizer": "A12", "cpu_offload": "A12",
-    "zero_quantized_gradients": "A9b", "zero_quantize_error_feedback": "A9b",
 }
 
 
@@ -67,6 +71,11 @@ class DeepSpeedZeroConfig:
     fields_set: FrozenSet[str] = dataclasses.field(default=frozenset(), compare=False,
                                                     repr=False)
 
+    @property
+    def overlap_comm_effective(self) -> bool:
+        """``overlap_comm`` with the unset default resolved to on."""
+        return self.overlap_comm is not False
+
     @classmethod
     def from_dict(cls, block: Optional[Dict[str, Any]]) -> "DeepSpeedZeroConfig":
         block = dict(block or {})
@@ -80,6 +89,10 @@ class DeepSpeedZeroConfig:
             value = block.get(key)
             if value and (not isinstance(value, dict) or value.get("device", "none") != "none"):
                 raise unported(f"zero_optimization.{key}", item)
+        if self.zero_quantized_gradients and self.stage >= 3:
+            # the reference gathers the whole parameter set per device for
+            # this and discourages it (its engine's warning)
+            raise unported("zero_optimization.zero_quantized_gradients at ZeRO stage 3", "A9c")
         if self.zero_quantize_bits not in (4, 8):
             raise ValueError(f"zero_quantize_bits must be 4 or 8, got {self.zero_quantize_bits}")
         if self.zero_quantize_block_size < 8 or self.zero_quantize_block_size % 2:

@@ -20,7 +20,10 @@ and the reference's docstring states that its forward is bitwise the inline
 schedule's. The port accepts ``overlap_comm`` and
 ``overlap_prefetch_depth`` and runs the inline schedule, one gather per
 window issued just before the window runs (op name ``qgather[zero3]``); the
-prefetch on a side stream is ROADMAP.md A9b.
+prefetch on a side stream is ROADMAP.md A9c. The reference's scan is also
+where its per-layer gradient buckets are issued, inside the backward; the
+port's engine exchanges them after the backward (``runtime/engine.py``),
+and issuing them during it is A9c as well.
 """
 
 from __future__ import annotations

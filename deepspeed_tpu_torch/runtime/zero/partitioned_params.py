@@ -8,7 +8,7 @@
   host numpy (every rank takes part in the gather), yields them for reading
   or mutation, and with ``modify=True`` writes each leaf back into this
   rank's slice of the parameters and, where there is one, of the fp32
-  master copy. ``quantized=True`` fetches float leaves over the int8/int4
+  master copy (cut by the optimizer state's layout). ``quantized=True`` fetches float leaves over the int8/int4
   wire (quantized on the device, dequantized on the host), for reading only.
 """
 
@@ -98,10 +98,11 @@ class GatheredParameters:
         state, policy = self.engine.state, self.engine.zero_policy
         with torch.no_grad():
             for p, full in self._gathered.items():
-                mine = policy.shard(full, _leaf(self.engine.param_specs, p))
-                mine = torch.as_tensor(np.ascontiguousarray(mine))
-                for tree in (state["params"], state["master"]):
+                for tree, specs in ((state["params"], self.engine.param_specs),
+                                    (state["master"], self.engine.opt_specs)):
                     if tree:
+                        mine = policy.shard(full, _leaf(specs, p))
+                        mine = torch.as_tensor(np.ascontiguousarray(mine))
                         t = _leaf(tree, p)
                         t.copy_(mine.to(t.device, t.dtype))
         return False

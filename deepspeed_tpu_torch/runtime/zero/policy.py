@@ -18,9 +18,14 @@ gathered from every rank). 1-D leaves and the layer-stacked ``[L, n]``
 vectors stay whole on every rank. Then a rank's quantization blocks are
 whole rows of the logical leaf and its payload is the logical leaf's.
 
-At stage 3 a leaf's gradient and optimizer state live on its parameter's
-slice, so the update needs no gather; stages 0-2 keep everything whole
-(partitioning optimizer states or gradients across ranks is ROADMAP.md A9b).
+The stages are the reference's: stage 1 slices the optimizer state and the
+fp32 master copy (``opt_spec``), stage 2 the gradients too (``grad_spec``),
+and stage 3 the parameters (``param_spec``, with
+``stage3_param_persistence_threshold``). Gradients and optimizer state take
+no threshold, as in the reference, so at stage 3 a small leaf that every
+rank holds whole has its master copy and optimizer state sliced all the
+same. The engine updates each rank's slice and all-gathers the recast
+parameters where they are whole.
 """
 
 from __future__ import annotations
@@ -70,21 +75,34 @@ class ZeroShardingPolicy:
                                self.config.stage3_param_persistence_threshold, stacked)
 
     def grad_spec(self, shape: Sequence[int], stacked: bool = False) -> Optional[int]:
-        return self.param_spec(shape, stacked)
+        if self.stage < 2:
+            return None
+        return shard_leaf_over(shape, self.world_size, stacked=stacked)
 
     def opt_spec(self, shape: Sequence[int], stacked: bool = False) -> Optional[int]:
-        return self.param_spec(shape, stacked)
+        if self.stage < 1:
+            return None
+        return shard_leaf_over(shape, self.world_size, stacked=stacked)
 
     # ------------------------------------------------------------------ trees
-    def tree_param_specs(self, params: Dict[str, Any]) -> Dict[str, Any]:
-        """The ``param_spec`` of every leaf of a parameter dict (anything with
-        a ``shape``), the ``blocks`` subtree read as layer-stacked."""
+    def _tree_specs(self, spec, params: Dict[str, Any]) -> Dict[str, Any]:
         def walk(node, stacked):
             if isinstance(node, dict):
                 return {k: walk(v, stacked or k == STACKED) for k, v in node.items()}
-            return self.param_spec(tuple(node.shape), stacked)
+            return spec(tuple(node.shape), stacked)
 
         return walk(params, False)
+
+    def tree_param_specs(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """The ``param_spec`` of every leaf of a parameter dict (anything with
+        a ``shape``), the ``blocks`` subtree read as layer-stacked."""
+        return self._tree_specs(self.param_spec, params)
+
+    def tree_grad_specs(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        return self._tree_specs(self.grad_spec, params)
+
+    def tree_opt_specs(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        return self._tree_specs(self.opt_spec, params)
 
     def shard(self, x, dim: Optional[int]):
         """This rank's slice of a full leaf (a tensor or numpy array)."""

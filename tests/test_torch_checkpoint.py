@@ -325,12 +325,17 @@ def _recommit(tag_dir, **meta_over):
 
 
 def test_other_world_size_and_offload_state_raise_their_items(trained, tmp_path):
-    _, root = trained
+    """A tag of another world size loads (reshard-on-load: the leaves are
+    the logical ones and the global batch is the same, so the cursor
+    stays); a tag with offload host state still raises its item (A12)."""
+    saver, root = trained
     root = _copy(root, tmp_path / "ckpt")
     _recommit(root / "global_step2", world_size=2)
     e = engine(config(bf16={"enabled": True}))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9b"):
-        e.load_checkpoint(str(root), tag="global_step2")
+    e.load_checkpoint(str(root), tag="global_step2")
+    assert_states_equal(e, saver)
+    assert e.global_steps == 2 and e.data_cursor == 2
+    e = engine(config(bf16={"enabled": True}))
     (root / "global_step1" / "host_state").mkdir()
     (root / "global_step1" / "host_state" / "host_meta.json").write_text("{}")
     commit_tag(str(root / "global_step1"))

@@ -216,7 +216,7 @@ def test_dropout_reproducible_from_seed_and_differs_across_steps():
 @pytest.mark.parametrize("block", [
     {"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
-    {"zero_optimization": {"stage": 2, "zero_quantized_gradients": True}},
+    {"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
     {"mesh": {"tp": 2}},
     {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
     {"tensorboard": {"enabled": True}},

@@ -202,6 +202,6 @@ def test_config_blocks_and_unknown_keys(tmp_path):
     assert cfg.bf16.enabled and cfg.zero_optimization.stage == 2 and cfg.zero_enabled
     assert cfg.optimizer.type == "AdamW" and cfg.gradient_clipping == 1.0
     assert precision.PrecisionConfig.from_ds_config(cfg).compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A9c"):
         DeepSpeedConfig.load({"zero_optimization": {"stage": 3,
                                                     "zero_quantized_gradients": True}})

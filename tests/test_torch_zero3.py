@@ -277,14 +277,24 @@ def test_gathered_parameters_reads_and_writes_back():
 
 
 @pytest.mark.parametrize("block,match", [
-    ({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}}, "A9b"),
-    ({"zero_optimization": {"stage": 2, "zero_quantize_error_feedback": True}}, "A9b"),
+    ({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}}, "A9c"),
+    ({"elasticity": {"enabled": True, "max_train_batch_size": 8}}, "A11"),
     ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}}, "A12"),
     ({"mesh": {"dp": 1, "tp": 2}}, "A13"),
 ])
 def test_knobs_still_to_port_raise(block, match):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {match}"):
         DeepSpeedConfig.load({**_cfg(), **block})
+
+
+def test_stage2_error_feedback_config_is_accepted():
+    """Stages 0-2 take the quantized gradient exchange and its error
+    feedback (the ZeRO++ gradient wire)."""
+    z = DeepSpeedConfig.load(_cfg(zero_optimization={
+        "stage": 2, "zero_quantized_gradients": True, "zero_quantize_error_feedback": True,
+        "zero_quantize_bits": 4})).zero_optimization
+    assert z.zero_quantized_gradients and z.zero_quantize_error_feedback
+    assert z.zero_quantize_bits == 4 and z.overlap_comm_effective
 
 
 def test_config_checks_and_accepts_the_ported_blocks():
@@ -303,7 +313,7 @@ def test_config_checks_and_accepts_the_ported_blocks():
     model, _ = gpt.build("tiny")
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=_cfg(), device="cpu")
     for method in ("comms_verify", "measure_overlap"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A9b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A9c"):
             getattr(engine, method)()
 
 

@@ -24,7 +24,8 @@ imports no JAX, and the JAX results are computed here in the parent).
   loaded back into an engine from another seed gives each rank bitwise the
   slices it saved, and the layer gathered over the int wire after the load
   is bitwise the one before (a slice never cuts a quantization block); a
-  world-1 engine refuses the dp2 tag (reshard-on-load, ROADMAP.md A9b).
+  world-1 engine loads the dp2 tag (reshard-on-load), every logical leaf
+  bitwise the stored one.
 """
 
 import json
@@ -205,6 +206,14 @@ def test_dp2_reload_gives_each_rank_its_slices_bitwise(dist_run):
 
 
 def test_world1_refuses_the_dp2_tag(dist_run):
+    """Once refused, now resharded on load: a world-1 engine loads the dp2
+    tag, every logical leaf bitwise the stored one."""
     _, world1 = dist_run
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A9b"):
-        _world1_engine().load_checkpoint(str(world1["ckpt"]))
+    engine = _world1_engine()
+    engine.load_checkpoint(str(world1["ckpt"]))
+    stored = _tag_leaves(world1["ckpt"] / "global_step3")
+    loaded = dict(serialization.flatten_with_paths(bridge.train_state_to_numpy(engine.state)))
+    assert list(stored) == list(loaded)
+    for k, v in loaded.items():
+        assert stored[k].tobytes() == np.ascontiguousarray(v).tobytes(), k
+    assert engine.global_steps == 3 and engine.data_cursor == 3
