@@ -374,6 +374,34 @@ result line):
    cursor 3; step 4 finite through B1 / B2; the tag saved after it loads
    into two rank processes, each leaf bitwise the rank's slice.
 
+17. the engine features on GPT-2-125M at full width and depth, from seed 0,
+   through ``initialize``, each part's kernel path against the plain
+   attention path (``use_flash=False``) from the same seed and draws
+   (losses rtol 1e-4, grad norms 1e-3), launches counted exactly. (a)
+   ``initialize(training_data=...)`` over 64 samples of 512 tokens, fp32
+   B4 x T512, 20 steps through a ``RepeatingLoader`` (the epoch wraps) with
+   the CSV and JSONL monitors and ``wall_clock_breakdown``: the batches a
+   numpy replay of the sampler, the losses bitwise the same batches fed by
+   hand, 12 launches of each fp32 kernel a micro-step, 20 rows of each
+   ``Train/*`` event (18 of ``samples_per_sec``), ``Train/loss`` bitwise the
+   metrics, the timers' two log lines. (b) 5b's configuration and batch, 3
+   steps under no remat and each recomputing policy (``nothing_saveable``,
+   ``save_attn_mlp_out``, ``dots_with_no_batch_dims_saveable``,
+   ``dots_saveable``): losses equal to no remat's (bitwise printed), B1 24
+   launches a micro-step under a policy and 12 without, each B2 kernel 12,
+   peak memory in the policies' order; step ms and peak GB each. (c) the
+   seqlen curriculum 128 -> 512 in steps of 128 over 3 steps, fp32, 5 steps:
+   T 256, 384, 512, 512, 512, 12 launches of each kernel every step. (d)
+   random-LTD in layers 1-10, keep 128 -> 512 in steps of 128 over 4 steps,
+   bf16 B8 x T512, 6 steps: keep 128, 128, 256, 384, 512, 512; step 3's
+   launches at T 256 in the LTD layers and 512 in the other two, 12 of each
+   kernel; one forward's dropped positions bitwise through each LTD layer.
+   (e) progressive layer drop (theta 0.5, gamma 0.5), bf16, 6 steps: B1 and
+   each B2 kernel once per kept layer, the host draw's count; the kept
+   layers per step. (f) the flops profiler at profile_step 2 on 5b's
+   configuration: the kernel path's total equal to the plain path's (0.1%),
+   the step ms and achieved TFLOPS beside the card's name and power limit.
+
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
@@ -5006,6 +5034,444 @@ def phase_data_parallel(torch, ctx):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+PHASE17_STEPS = {"loader": 20, "remat": 3, "curriculum": 5, "ltd": 6, "pld": 6}
+REMAT_POLICIES = ("nothing_saveable", "save_attn_mlp_out", "dots_with_no_batch_dims_saveable",
+                  "dots_saveable")
+CURRICULUM = {"enabled": True, "curriculum_type": "seqlen", "min_difficulty": 128,
+              "max_difficulty": 512, "schedule_type": "fixed_linear",
+              "schedule_config": {"total_curriculum_step": 3, "difficulty_step": 128}}
+RANDOM_LTD = {"enabled": True, "data_routing": {"enabled": True, "random_ltd": {
+    "enabled": True, "total_layer_num": 12, "random_ltd_layer_num": 10,
+    "random_ltd_schedule": {"min_value": 128, "max_value": 512, "schedule_type": "fixed_linear",
+                            "schedule_config": {"seq_per_step": 128, "require_steps": 4}}}}}
+PLD = {"enabled": True, "theta": 0.5, "gamma": 0.5}
+BF16_ZERO2 = dict(bf16={"enabled": True}, zero_optimization={"stage": 2})
+
+
+def _smi_line() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _clone_tree(torch, x):
+    """A copy of a train state (dicts, named tuples, tensors)."""
+    if torch.is_tensor(x):
+        return x.detach().clone()
+    if isinstance(x, dict):
+        return {k: _clone_tree(torch, v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        vals = [_clone_tree(torch, v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def _lockstep(torch, kern, plain, batches, before_step=None):
+    """Each batch through the kernel-path engine, then through the
+    plain-attention engine (``use_flash=False``) started from the state the
+    kernel path had before that step: from one state the two must agree to
+    phase 5a's bars. (In bf16 the plain path rounds the logits to bf16 where
+    the kernels keep them in fp32, so two free-running bf16 trajectories part
+    after the first update: about 1.6e-3 in step 2's grad norm on an H100,
+    which 17b prints.)
+    The engines' micro-step counts move together, so both draw the same
+    dropout, PLD and random-LTD seeds. Per step: (loss, grad norm, plain
+    loss, plain grad norm, the kernel path's launches in that step)."""
+    fa, _ = _reset_counts()  # the part's training main path
+    rows = []
+    for s, b in enumerate(batches):
+        if before_step is not None:
+            before_step(s, kern, fa)
+        snap = _clone_tree(torch, kern.state)
+        before = _flash_launches(fa)
+        m = kern.train_batch(b)
+        torch.cuda.synchronize()
+        after = _flash_launches(fa)
+        plain.load_state(snap)
+        mp = plain.train_batch(b)
+        torch.cuda.synchronize()
+        check(_flash_launches(fa) == after, "the plain path launched kernels")
+        rows.append((m["loss"].item(), m["grad_norm"].item(), mp["loss"].item(),
+                     mp["grad_norm"].item(), {k: after[k] - before[k] for k in after}))
+    return rows
+
+
+def _close(name, rows):
+    """Phase 5a's bars, step by step, between the kernel and the plain path."""
+    for s, (loss, norm, p_loss, p_norm, _) in enumerate(rows):
+        check(abs(loss - p_loss) <= 1e-4 * abs(p_loss) and abs(norm - p_norm) <= 1e-3 * p_norm,
+              f"{name} step {s + 1}: loss {loss} / grad norm {norm} vs plain {p_loss} / "
+              f"{p_norm}")
+
+
+def _rows_text(rows):
+    return (f"losses={[r[0] for r in rows]} plain_losses={[r[2] for r in rows]} "
+            f"grad_norms={[r[1] for r in rows]} plain_grad_norms={[r[3] for r in rows]}")
+
+
+def _pair(conf, cfg):
+    """(kernel-path engine, plain-attention engine), both from seed 0."""
+    return _engine(conf, cfg), _engine(conf, dataclasses.replace(cfg, use_flash=False))
+
+
+def _log_capture():
+    """A handler on the port's logger and the list of messages it collects."""
+    import logging
+
+    from deepspeed_tpu_torch.utils.logging import logger
+
+    lines = []
+
+    class _H(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    h = _H()
+    logger.addHandler(h)
+    return h, lines
+
+
+def _csv_rows(path):
+    import csv
+
+    with open(path) as f:
+        return [(int(r[0]), float(r[1])) for r in list(csv.reader(f))[1:]]
+
+
+def phase_engine_features(torch, ctx):
+    """Phase 17: the engine features of the training path on GPT-2-125M at
+    full width and depth, from seed 0, through ``initialize``: (a) the data
+    loader, monitors and ``wall_clock_breakdown``; (b) every recomputing
+    remat policy in bf16; (c) the seqlen curriculum; (d) random-LTD; (e)
+    progressive layer drop; (f) the flops profiler. Each part's kernel path
+    against the plain-attention path from the same seed and draws (phase
+    5a's bars), launches counted exactly."""
+    import os
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    card = _smi_line()
+    root = tempfile.mkdtemp(prefix="features17_")
+    try:
+        _phase17_loader(torch, ctx, cfg, card, root)
+        _phase17_remat(torch, ctx, cfg, card)
+        _phase17_curriculum(torch, cfg, card)
+        _phase17_random_ltd(torch, ctx, cfg, card)
+        _phase17_pld(torch, ctx, cfg, card)
+        _phase17_flops(torch, ctx, cfg, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase17_loader(torch, ctx, cfg, card, root):
+    """(a) initialize(training_data=64 samples of 512 tokens), fp32 B4xT512,
+    20 steps through a RepeatingLoader (the epoch of 16 batches wraps), CSV
+    and JSONL monitors and wall_clock_breakdown on, the plain path in
+    lockstep; the same batches by hand to a second kernel-path engine."""
+    import json
+    import os
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.runtime.dataloader import RepeatingLoader
+    from deepspeed_tpu_torch.utils.logging import logger
+
+    V, L, n = cfg.vocab_size, cfg.n_layer, PHASE17_STEPS["loader"]
+    rng = np.random.default_rng(17)
+    data = [{"input_ids": rng.integers(0, V, 512).astype(np.int32)} for _ in range(64)]
+    mon = {"csv_monitor": {"enabled": True, "output_path": root, "job_name": "a"},
+           "monitor_config": {"jsonl": {"enabled": True, "output_path": root, "job_name": "a"}}}
+    conf = _train_config(4, steps_per_print=10, wall_clock_breakdown=True, **mon)
+    model, _ = gpt.build(cfg)
+    engine, _, loader, _ = deepspeed_tpu_torch.initialize(model=model, config=conf,
+                                                          training_data=data, seed=0)
+    plain = _engine(_train_config(4), dataclasses.replace(cfg, use_flash=False))
+    it = RepeatingLoader(loader)
+    batches = [next(it) for _ in range(n)]
+    handler, lines = _log_capture()
+    try:
+        rows = _lockstep(torch, engine, plain, batches)
+    finally:
+        logger.removeHandler(handler)
+    losses = [r[0] for r in rows]
+    del engine, plain
+    torch.cuda.empty_cache()
+    # the sampler replayed in numpy: epoch e's order is default_rng(0 + e)
+    replay = []
+    for s in range(n):
+        order = np.random.default_rng(s // 16).permutation(64)
+        replay.append(np.stack([data[j]["input_ids"] for j in order[4 * (s % 16):
+                                                                    4 * (s % 16) + 4]]))
+    same_batches = all(np.array_equal(b["input_ids"], r) for b, r in zip(batches, replay))
+    by_hand = _engine(_train_config(4), cfg)
+    hand = [by_hand.train_batch(b)["loss"].item() for b in batches]
+    del by_hand
+    torch.cuda.empty_cache()
+    csv_dir = os.path.join(root, "a")
+    rows_csv = {name: _csv_rows(os.path.join(csv_dir, name.replace("/", "_") + ".csv"))
+                for name in ("Train/loss", "Train/lr", "Train/grad_norm",
+                             "Train/samples_per_sec")}
+    with open(os.path.join(csv_dir, "events.jsonl")) as f:
+        jsonl = [json.loads(x) for x in f]
+    jl_loss = [e["value"] for e in jsonl if e["name"] == "Train/loss"]
+    timer_lines = [x for x in lines if x.startswith("time (ms) | ")]
+    launches = {k: sum(r[4][k] for r in rows) for k in rows[0][4]}
+    log(f"phase17a loader fp32 gpt2-125m B4xT512 {n} steps over 64 samples (an epoch of 16 "
+        f"batches wraps): batches = numpy replay {same_batches}; {_rows_text(rows)}; by hand "
+        f"bitwise={losses == hand}; launches over {n} micro-steps={launches}; csv rows "
+        f"{ {k: len(v) for k, v in rows_csv.items()} } jsonl events={len(jsonl)}; "
+        f"timer lines={timer_lines}; card={card}")
+    check(same_batches, "17a: the loader's batches differ from the numpy replay")
+    check(losses == hand, f"17a: loader losses {losses} != by-hand losses {hand}")
+    _close("17a", rows)
+    expected = path_launches(launches, n * L, _flash_path("float32"))
+    check(launches == expected, f"17a launches {launches}, expected {expected}")
+    for name in ("Train/loss", "Train/lr", "Train/grad_norm"):
+        check([s for s, _ in rows_csv[name]] == list(range(1, n + 1)),
+              f"17a: {name} rows at steps {[s for s, _ in rows_csv[name]]}")
+    check([s for s, _ in rows_csv["Train/samples_per_sec"]] == list(range(3, n + 1)),
+          "17a: samples_per_sec from step 3 (two warm-up steps), as in the reference")
+    check([v for _, v in rows_csv["Train/loss"]] == losses and jl_loss == losses,
+          "17a: the monitors' Train/loss is not the metrics' bitwise")
+    check(len(timer_lines) == 2 and all("batch_input: " in x and "train_batch: " in x
+                                        for x in timer_lines),
+          f"17a: wall_clock_breakdown lines {timer_lines}")
+    check(all(math.isfinite(x) for x in losses) and abs(losses[0] - math.log(V)) < 0.5,
+          f"17a: losses {losses}")
+
+
+def _phase17_remat(torch, ctx, cfg, card):
+    """(b) 5b's configuration and batch, 3 steps under no remat and each
+    recomputing policy: losses, launches, step ms and peak memory."""
+    L, n = cfg.n_layer, PHASE17_STEPS["remat"]
+    batch = ctx["train5b_batch"]
+    runs = {}
+    for policy in (None,) + REMAT_POLICIES:
+        over = {} if policy is None else {"remat": True, "remat_policy": policy}
+        engine = _engine(_train_config(8, **BF16_ZERO2), dataclasses.replace(cfg, **over))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa, _ = _reset_counts()  # the bf16 remat training main path
+        losses, norms, step_ms, host_ms = _timed_steps(torch, engine, batch, n)
+        runs[policy] = (losses, norms, float(np.median(step_ms[1:])),
+                        torch.cuda.max_memory_allocated() / 1e9, _flash_launches(fa))
+        del engine
+        torch.cuda.empty_cache()
+    kern, plain = _pair(_train_config(8, **BF16_ZERO2), cfg)
+    rows = _lockstep(torch, kern, plain, [batch] * n)
+    del kern, plain
+    # the plain path free-running beside them, reported: why the parts compare in lockstep
+    plain = _engine(_train_config(8, **BF16_ZERO2), dataclasses.replace(cfg, use_flash=False))
+    free = [plain.train_batch(batch) for _ in range(n)]
+    free = ([m["loss"].item() for m in free], [m["grad_norm"].item() for m in free])
+    del plain
+    torch.cuda.empty_cache()
+    base = runs[None]
+    for policy, (losses, norms, ms, peak, launches) in runs.items():
+        log(f"phase17b remat {policy or 'none'} bf16 zero2 B8xT512 {n} steps: losses={losses} "
+            f"bitwise_no_remat={losses == base[0]} grad_norms={norms} step_ms(CUDA events, "
+            f"median of steps 2-{n})={ms:.3f} peak_gb={peak:.3f} launches={launches} "
+            f"card={card}")
+        check(np.allclose(losses, base[0], rtol=1e-4, atol=0) and
+              np.allclose(norms, base[1], rtol=1e-3, atol=0),
+              f"17b {policy}: {losses} / {norms} vs no remat {base[0]} / {base[1]}")
+        fwd = n * L * (2 if policy is not None else 1)
+        expected = {k: (fwd if k == "fwd_tc" else n * L if k in BWD_PATH["bfloat16"] else 0)
+                    for k in launches}
+        check(launches == expected, f"17b {policy}: launches {launches}, expected {expected}")
+    log(f"phase17b no remat, the plain path in lockstep: {_rows_text(rows)}; the plain path "
+        f"free-running: losses={free[0]} grad_norms={free[1]}, largest relative gap to the "
+        f"kernel path {max(abs(a - b) / b for a, b in zip(free[0], base[0])):.3e} / "
+        f"{max(abs(a - b) / b for a, b in zip(free[1], base[1])):.3e} (reported only)")
+    check([r[0] for r in rows] == base[0], "17b: the lockstep run's losses are not no remat's")
+    _close("17b", rows)
+    peaks = [runs[p][3] for p in REMAT_POLICIES] + [base[3]]
+    check(peaks[0] < peaks[1] < peaks[2] <= peaks[3] < peaks[4],
+          f"17b: peak GB by policy {dict(zip(REMAT_POLICIES + ('none',), peaks))} out of order")
+
+
+def _phase17_curriculum(torch, cfg, card):
+    """(c) fixed_linear 128 -> 512 in steps of 128 over 3 steps, fp32
+    B4xT512, 5 steps: T per step and 12 launches a micro-step at each T."""
+    L, n = cfg.n_layer, PHASE17_STEPS["curriculum"]
+    rng = np.random.default_rng(173)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (4, 512)).astype(np.int32)}
+               for _ in range(n)]
+    kern, plain = _pair(_train_config(4, curriculum_learning=CURRICULUM), cfg)
+    seen = {}
+    for name, engine in (("kernel", kern), ("plain", plain)):
+        apply, seen[name] = engine.model.apply, []
+
+        def rec(params, b, _apply=apply, _seen=seen[name], **kw):
+            _seen.append(int(b["input_ids"].shape[-1]))
+            return _apply(params, b, **kw)
+
+        engine.model = dataclasses.replace(engine.model, apply=rec)
+    rows = _lockstep(torch, kern, plain, batches)
+    del kern, plain
+    torch.cuda.empty_cache()
+    per_step = [r[4] for r in rows]
+    log(f"phase17c curriculum fp32 B4xT512 {n} steps: T per step={seen['kernel']} "
+        f"{_rows_text(rows)} launches per step={per_step} card={card}")
+    check(seen["kernel"] == seen["plain"] == [256, 384, 512, 512, 512],
+          f"17c: T per step {seen}")
+    _close("17c", rows)
+    expected = path_launches(per_step[0], L, _flash_path("float32"))
+    check(all(p == expected for p in per_step), f"17c: launches {per_step}, each {expected}")
+
+
+def _record_T(fa, calls):
+    """Wrap B1's and B2's launchers so that each call records (kernel, T);
+    returns the originals, to put back."""
+    orig = {n: getattr(fa, n) for n in ("flash_attention_fwd", "flash_attention_bwd_delta",
+                                        "flash_attention_bwd_dq", "flash_attention_bwd_dkv")}
+
+    def wrap(name, fn):
+        def call(t, *a, **kw):
+            calls.append((name, int(t.shape[1])))
+            return fn(t, *a, **kw)
+        return call
+
+    for name, fn in orig.items():
+        setattr(fa, name, wrap(name, fn))
+    return orig
+
+
+def _phase17_random_ltd(torch, ctx, cfg, card):
+    """(d) random-LTD in layers 1-10, keep 128 -> 512 in steps of 128 over 4
+    steps, bf16 B8xT512, 6 steps; one micro-step traced; one forward's
+    dropped positions held through each LTD layer."""
+    from deepspeed_tpu_torch.models import gpt
+
+    n = PHASE17_STEPS["ltd"]
+    batch = ctx["train5b_batch"]
+    kern, plain = _pair(_train_config(8, data_efficiency=RANDOM_LTD, **BF16_ZERO2), cfg)
+    calls, orig = [], {}
+
+    def before_step(s, engine, fa):
+        for name, fn in orig.items():  # the trace covers step 3 only
+            setattr(fa, name, fn)
+        orig.clear()
+        if s == 2:
+            orig.update(_record_T(fa, calls))
+
+    try:
+        rows = _lockstep(torch, kern, plain, [batch] * n, before_step)
+    finally:
+        from deepspeed_tpu_torch.ops.cuda import flash_attention as fa
+
+        for name, fn in orig.items():
+            setattr(fa, name, fn)
+    keeps = [kern.model.gpt_config.random_ltd_keep, plain.model.gpt_config.random_ltd_keep]
+    # one forward at keep 128, its scatters held: dropped positions pass bitwise
+    passes, scatter = [], gpt.random_ltd_scatter
+    model = kern.model.with_ltd_keep(128, tuple(range(1, 11)))
+
+    def rec(out, idx, x_full):
+        y = scatter(out, idx, x_full)
+        dropped = torch.ones(x_full.shape[:2], dtype=torch.bool, device=x_full.device)
+        dropped.scatter_(1, idx, False)
+        passes.append(bool(torch.equal(y[dropped], x_full[dropped])))
+        return y
+
+    gpt.random_ltd_scatter = rec
+    try:
+        with torch.no_grad():
+            model.apply(kern.state["params"], kern._place_batch(batch), rngs={"dropout": 5},
+                        train=True)
+    finally:
+        gpt.random_ltd_scatter = scatter
+    sched = kern._random_ltd
+    del kern, plain
+    torch.cuda.empty_cache()
+    by_kernel = {}
+    for name, T in calls:
+        by_kernel.setdefault(name, []).append(T)
+    keep_per_step = [sched.get_value(s) for s in range(n)]
+    log(f"phase17d random-LTD bf16 B8xT512 layers {sched.layer_ids} {n} steps: keep per step="
+        f"{keep_per_step} (last: kernel {keeps[0]}, plain {keeps[1]}) {_rows_text(rows)}; "
+        f"launches per step={[r[4] for r in rows]}; step 3 traced, T per launch={by_kernel}; "
+        f"dropped positions bitwise through the 10 LTD layers={passes} card={card}")
+    check(sched.layer_ids == list(range(1, 11)), f"17d: LTD layers {sched.layer_ids}")
+    check(keep_per_step == [128, 128, 256, 384, 512, 512] and keeps == [512, 512],
+          f"17d: keep per step {keep_per_step}, last {keeps}")
+    _close("17d", rows)
+    want = sorted([256] * 10 + [512] * 2)
+    check(set(by_kernel) == {"flash_attention_fwd", "flash_attention_bwd_delta",
+                             "flash_attention_bwd_dq", "flash_attention_bwd_dkv"}
+          and all(sorted(v) == want for v in by_kernel.values()),
+          f"17d: T per launch {by_kernel}, each kernel {want}")
+    expected = path_launches(rows[0][4], cfg.n_layer, _flash_path("bfloat16"))
+    check(all(r[4] == expected for r in rows), f"17d: launches {[r[4] for r in rows]}")
+    check(len(passes) == 10 and all(passes), f"17d: pass-through {passes}")
+
+
+def _phase17_pld(torch, ctx, cfg, card):
+    """(e) progressive layer drop, theta 0.5, gamma 0.5, bf16 B8xT512, 6
+    steps: B1 and each B2 kernel once per kept layer, the count the host
+    draw gives."""
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.runtime.progressive_layer_drop import pld_theta
+
+    L, n = cfg.n_layer, PHASE17_STEPS["pld"]
+    batch = ctx["train5b_batch"]
+    kern, plain = _pair(_train_config(8, progressive_layer_drop=PLD, **BF16_ZERO2), cfg)
+    kept = []
+
+    def before_step(s, engine, fa):
+        theta = pld_theta(PLD["theta"], PLD["gamma"], engine.global_steps)
+        draw = gpt.pld_kept_layers(L, theta, engine._micro_seed())
+        kept.append([i for i, k in enumerate(draw) if k])
+
+    rows = _lockstep(torch, kern, plain, [batch] * n, before_step)
+    del kern, plain
+    torch.cuda.empty_cache()
+    per_step = [r[4] for r in rows]
+    log(f"phase17e PLD theta 0.5 gamma 0.5 bf16 B8xT512 {n} steps: kept layers per step="
+        f"{kept} {_rows_text(rows)} launches per step={per_step} card={card}")
+    check(any(len(k) < L for k in kept), f"17e: no layer dropped in {n} steps: {kept}")
+    _close("17e", rows)
+    for k, p in zip(kept, per_step):
+        expected = path_launches(p, len(k), _flash_path("bfloat16"))
+        check(p == expected, f"17e: launches {p}, expected {expected} for kept {k}")
+
+
+def _phase17_flops(torch, ctx, cfg, card):
+    """(f) the flops profiler at profile_step 2 on 5b's configuration: the
+    kernel path's total against the plain path's (the count depends on the
+    shapes only), the step ms and the achieved TFLOPS."""
+    batch = ctx["train5b_batch"]
+    conf = _train_config(8, flops_profiler={"enabled": True, "profile_step": 2},
+                         **BF16_ZERO2)
+    out = {}
+    for use_flash in (None, False):
+        engine = _engine(conf, dataclasses.replace(cfg, use_flash=use_flash))
+        fa, _ = _reset_counts()  # the profiled step's main path
+        for _ in range(2):
+            engine.train_batch(batch)
+        torch.cuda.synchronize()
+        p = engine._flops_profiler.profile
+        out[use_flash] = (p["flops"], p["aten_flops"], p["kernel_flops"], p["latency_s"],
+                          p.get("modules", {}).get("totals"), _flash_launches(fa))
+        del engine
+        torch.cuda.empty_cache()
+    (flops, aten, kern, lat, mods, launches), plain = out[None], out[False]
+    rel = abs(flops - plain[0]) / plain[0]
+    log(f"phase17f flops profiler bf16 zero2 B8xT512 at profile_step 2: kernel path "
+        f"total={flops:.6e} (aten {aten:.6e}, kernels {kern}) plain path total={plain[0]:.6e} "
+        f"rel_diff={rel:.3e}; profiled fwd+bwd ms (CUDA events, mean of 3)={lat * 1e3:.3f} "
+        f"plain={plain[3] * 1e3:.3f}; achieved TFLOPS={flops / lat / 1e12:.2f} plain="
+        f"{plain[0] / plain[3] / 1e12:.2f}; module tree totals={mods}; launches over the two "
+        f"steps and the profile={launches} card={card}")
+    check(rel <= 1e-3, f"17f: kernel-path flops {flops} vs plain {plain[0]}")
+    check(set(kern) == {"flash_attention_fwd", "flash_attention_bwd_dq",
+                        "flash_attention_bwd_dkv"} and not plain[2],
+          f"17f: kernel flops {kern}, plain {plain[2]}")
+    check(not any(plain[5].values()), f"17f: the plain path launched {plain[5]}")
+
 def main() -> int:
     import torch
 
@@ -5021,7 +5487,8 @@ def main() -> int:
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
                   phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
                   phase_sparse, phase_head_dim_96, phase_checkpoint, phase_gpt_variants,
-                  phase_decoding_modes, phase_serving_levers, phase_data_parallel):
+                  phase_decoding_modes, phase_serving_levers, phase_data_parallel,
+                  phase_engine_features):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)

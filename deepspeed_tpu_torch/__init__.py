@@ -11,7 +11,9 @@ Ported so far: GPT forward and next-token loss (``models.gpt``; ALiBi, local
 attention and the chunked cross-entropy too), training through
 :func:`initialize` (``DeepSpeedEngine.train_batch``; ZeRO stage 3 with the
 quantized weight wire and LM head, data parallel over the ranks of
-``comm.init_distributed``), KV-cache generation (greedy, sampled or beam
+``comm.init_distributed``; the DeepSpeed data loader, the seqlen
+curriculum, random-LTD, progressive layer drop, every remat policy, the
+monitors, ``wall_clock_breakdown`` and the flops profiler), KV-cache generation (greedy, sampled or beam
 search) through :func:`init_inference` (dense, or int8 / int4 weights with
 ``quant={"enabled": True, ...}``), continuous-batching paged serving
 (``inference.serving``), and checkpointing
@@ -66,8 +68,7 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
                device=None) -> Tuple[Any, Any, None, Callable]:
     """Create a training engine (counterpart of ``deepspeed_tpu.initialize``),
     with the reference's parameters in its order (``device`` after them) and
-    its return arity ``(engine, optimizer, dataloader, lr_scheduler)``; the
-    dataloader is None.
+    its return arity ``(engine, optimizer, dataloader, lr_scheduler)``.
 
     ``model`` is a :class:`models.api.Module` (``models.gpt.build``);
     ``config`` a DeepSpeed JSON dict, a path or a ``DeepSpeedConfig``
@@ -80,7 +81,14 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     ``WORLD_SIZE`` / ``RANK`` environment when it names more than one rank
     and none is joined yet (single-process runs need none, as in the
     reference); False leaves it to the caller (``comm.init_distributed``).
-    ``training_data`` (A3b) and ``topology`` (A13) raise: not ported.
+    ``training_data`` (a sequence of samples) gives a
+    :class:`~.runtime.dataloader.DeepSpeedDataLoader` of global micro-batches,
+    else the dataloader is None. The rule: every rank's loader yields the
+    same global micro-batch of ``micro x world`` samples (one shared order,
+    ``num_replicas`` 1), and the engine keeps rank r's block of rows, ``r *
+    micro`` to ``(r + 1) * micro``, as it does for every batch it is handed.
+    So rank r trains on the rows the reference's loader hands device r of
+    its data-parallel mesh. ``topology`` (A13) raises: not ported.
     ``device`` defaults to the CUDA device and raises when there is none. The
     data-parallel world is the joined process group (one rank without it)."""
     import os
@@ -94,8 +102,6 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
 
     if model is None:
         raise ValueError("deepspeed_tpu_torch.initialize: model is required")
-    if training_data is not None:
-        raise unported("initialize(training_data=...): the DeepSpeed dataloader", "A3b")
     if topology is not None:
         raise unported("initialize(topology=...): a device mesh", "A13")
     if not isinstance(model, Module):
@@ -115,4 +121,11 @@ def initialize(args: Any = None, model: Any = None, optimizer: Any = None,
     engine = DeepSpeedEngine(model, ds_config, seed=seed,
                              lr_scheduler_fn=lr_scheduler if callable(lr_scheduler) else None,
                              client_optimizer=optimizer, device=device)
-    return engine, engine.optimizer, None, engine.lr_fn
+    loader = None
+    if training_data is not None:
+        from .runtime.dataloader import DeepSpeedDataLoader
+
+        loader = DeepSpeedDataLoader(training_data,
+                                     batch_size=engine.micro_batch_size * engine.world_size,
+                                     num_replicas=1, rank=0)
+    return engine, engine.optimizer, loader, engine.lr_fn

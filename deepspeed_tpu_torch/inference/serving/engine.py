@@ -181,7 +181,7 @@ class ServingEngine:
         self.draft = draft
         s = self.serving
         if monitor is not None:
-            raise unported("ServingEngine(monitor=...) (serving telemetry)", "A3b")
+            raise unported("ServingEngine(monitor=...) (serving telemetry)", "A11")
         check_serving_config(s)
         gpt_mod.check_config(cfg)
         if s.max_model_len > cfg.max_seq_len and not (cfg.rotary or cfg.alibi):

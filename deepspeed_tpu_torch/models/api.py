@@ -13,8 +13,10 @@ the quantized exchange sends one layer (bucket) at a time, as the
 reference's does. ``loss_count(batch)`` is the number of targets the loss
 averages over (a 0-dim fp32 tensor): across data-parallel ranks the engine
 weights each rank's masked mean by its share of the total, so that the
-loss is the global masked mean. The reference's pipeline and streaming
-hooks belong to later slices (ROADMAP.md A12, A13).
+loss is the global masked mean. ``with_ltd_keep(keep, layer_ids)`` gives
+the model whose listed layers train on ``keep``-token subsets (random-LTD;
+the engine calls it when the schedule moves). The reference's pipeline and
+streaming hooks belong to later slices (ROADMAP.md A12, A13).
 """
 
 from __future__ import annotations
@@ -36,3 +38,4 @@ class Module:
     gpt_config: Optional[Any] = None
     grad_bucket_key: Optional[str] = None
     loss_count: Optional[Callable[[Dict[str, Any]], torch.Tensor]] = None
+    with_ltd_keep: Optional[Callable[[int, Tuple[int, ...]], "Module"]] = None

@@ -31,10 +31,14 @@ The functional API of the reference is kept, ``f(cfg, params, ...)`` with
   ``zero_quantized_head`` as well, the LM head runs through
   ``comm.quantized.quantized_matmul_reshard`` and kernel B8, exactly where
   the reference's ``_head_quantization`` gate opens;
-- the training-mode forward has dropout and stochastic depth drawn from
-  explicit per-(step, layer, salt) seeds, and activation checkpointing
-  (``remat``) through ``torch.utils.checkpoint``, which recomputes each
-  block with the same seeds and so the same masks;
+- the training-mode forward has dropout, stochastic depth, progressive
+  layer drop (``pld_theta``) and random-LTD's token subsets drawn from
+  explicit per-(step, layer, salt) seeds; a block that progressive layer
+  drop or stochastic depth drops is not run at all. Activation
+  checkpointing (``remat``) goes through ``torch.utils.checkpoint``, which
+  recomputes each block with the same seeds and so the same masks, under
+  each of the reference's ``remat_policy`` names (:data:`REMAT_POLICIES`,
+  the selective ones through PyTorch's selective checkpointing);
 - ALiBi (``alibi``) and GPT-Neo's alternating local window
   (``local_attention_period``) are additive biases on the attention
   logits, so those layers take the plain attention path, in the cached
@@ -61,7 +65,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..accelerator import resolve_device, to_device
 from ..comm.quantized import QuantizedCommConfig, quantized_matmul_reshard
@@ -72,6 +77,9 @@ from ..ops.cuda.flash_attention import NEG_INF
 from ..ops.cuda.int8_matmul import int4_matmul, int8_matmul, pack_int4, unpack_int4
 from ..ops.quantizer import dequantize, quantize
 from ..ops.sparse_attention import sparse_attention
+from ..runtime.data_pipeline.data_routing.random_ltd import (random_ltd_gather,
+                                                             random_ltd_indices,
+                                                             random_ltd_scatter)
 from ..runtime.zero.gather import _active_cfg, _quantization, zero3_layers
 from ..utils.errors import unported
 from ..utils.rng import fold_in
@@ -101,7 +109,7 @@ class GPTConfig:
     embed_layernorm: bool = False  # Bloom: LN right after the token embedding
     lm_head_bias: bool = False  # GPT-J: bias on the (untied) LM head
     remat: bool = False  # activation checkpointing per block (torch.utils.checkpoint)
-    remat_policy: str = "nothing_saveable"  # the only policy ported (others: A3b)
+    remat_policy: str = "nothing_saveable"  # a name of REMAT_POLICIES
     use_flash: Optional[bool] = None  # None = auto dispatch (the kernels on CUDA)
     # the reference's Pallas tile sizes; the CUDA kernels fix their own tiles
     # (64 rows), and the tile size does not change the result
@@ -120,7 +128,8 @@ class GPTConfig:
     # whatever use_flash says; the cached and paged paths attend densely, as
     # the reference's do
     sparse_attention: Optional[Any] = None
-    random_ltd_layer_ids: Tuple[int, ...] = ()  # random-LTD, not ported (A3b)
+    # random-LTD: in training these layers run on random_ltd_keep tokens of each row
+    random_ltd_layer_ids: Tuple[int, ...] = ()
     random_ltd_keep: Optional[int] = None
     seq_parallel_impl: str = "dense"  # "ring" / "ulysses" not ported (A13)
     # chunked cross-entropy: the LM head and the loss over ``loss_chunk``-token
@@ -174,15 +183,86 @@ def check_config(cfg: GPTConfig) -> None:
                        "(sequence-parallel attention)", "A13")
 
 
-def _check_train(cfg: GPTConfig, train: bool, pld_theta, seq_len: int) -> None:
+# ----------------------------------------------------------- training options
+_ATEN = torch.ops.aten
+# the selective remat policies: the aten products whose outputs are saved
+# (``jax.checkpoint_policies``' dots are dot_generals; a product with batch
+# dims is a bmm here). ``save_attn_mlp_out`` saves the products of the
+# attention and MLP output projections (the reference's names "attn_out"
+# and "mlp_out"), picked out by their weight (:func:`_remat_context_fn`).
+_SAVED_DOTS = {
+    "dots_saveable": (_ATEN.mm, _ATEN.addmm, _ATEN.bmm, _ATEN.baddbmm),
+    "checkpoint_dots": (_ATEN.mm, _ATEN.addmm, _ATEN.bmm, _ATEN.baddbmm),
+    "dots_with_no_batch_dims_saveable": (_ATEN.mm, _ATEN.addmm),
+    "checkpoint_dots_with_no_batch_dims": (_ATEN.mm, _ATEN.addmm),
+    "save_attn_mlp_out": (),
+}
+REMAT_POLICIES = ("nothing_saveable", "everything_saveable", *_SAVED_DOTS)
+PLD_SALT = 0x91D  # the reference's fold_in salts of the PLD keep draw
+LTD_SALT = 0x17D  # and of random-LTD's token subset
+SD_SALT = 0x5D  # and of stochastic depth's draw
+
+
+def _check_train(cfg: GPTConfig, train: bool, pld_theta, seed: Optional[int],
+                 ltd: bool) -> None:
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; one of {REMAT_POLICIES}")
     if pld_theta is not None:
-        raise unported("progressive layer drop (pld_theta)", "A3b")
-    if (train and cfg.random_ltd_keep is not None and cfg.random_ltd_keep < seq_len
-            and cfg.random_ltd_layer_ids):
-        raise unported("random-LTD (random_ltd_keep / random_ltd_layer_ids)", "A3b")
-    if cfg.remat and cfg.remat_policy != "nothing_saveable":
-        raise unported(f"remat_policy={cfg.remat_policy!r} (only nothing_saveable "
-                       "is ported)", "A3b")
+        if cfg.stochastic_depth > 0.0 or not train:
+            raise ValueError("progressive_layer_drop is train-only and exclusive with "
+                             "stochastic_depth (both gate whole blocks)")
+        if seed is None:
+            raise ValueError("progressive_layer_drop needs a dropout seed: pass "
+                             "rngs={'dropout': seed} to forward()")
+    if ltd and seed is None:
+        # a fixed fallback seed would freeze the token subset across steps
+        raise ValueError("random-LTD needs a dropout seed: pass rngs={'dropout': seed} "
+                         "to forward()")
+
+
+def pld_keep_prob(i: int, n_layer: int, theta: float) -> float:
+    """Layer ``i``'s keep probability under progressive layer drop,
+    ``1 - (i+1)/L * (1 - theta)``, in fp32 arithmetic as the reference's."""
+    one = np.float32(1.0)
+    return float(one - (np.float32(i + 1) / np.float32(n_layer)) * (one - np.float32(theta)))
+
+
+def pld_kept_layers(n_layer: int, theta: float, seed: int) -> Tuple[bool, ...]:
+    """Which layers progressive layer drop keeps for the forward with dropout
+    seed ``seed``: layer i keeps when a uniform draw from the host generator
+    seeded ``fold_in(fold_in(fold_in(seed, i), 0x91D), i)`` lies below its
+    keep probability (the reference's fold of its key, another stream)."""
+    kept = []
+    for i in range(n_layer):
+        gen = torch.Generator().manual_seed(fold_in(fold_in(fold_in(seed, i), PLD_SALT), i))
+        kept.append(bool(torch.rand((), generator=gen) < pld_keep_prob(i, n_layer, theta)))
+    return tuple(kept)
+
+
+def ltd_indices(batch: int, seq: int, keep: int, layer_seed: int, i: int,
+                device) -> torch.Tensor:
+    """Random-LTD's token subset of layer ``i`` ([batch, keep], sorted),
+    drawn on ``device`` from the generator seeded ``fold_in(fold_in(
+    layer_seed, 0x17D), i)``: per (micro-step seed, layer)."""
+    gen = torch.Generator(device=device).manual_seed(fold_in(fold_in(layer_seed, LTD_SALT), i))
+    return random_ltd_indices(batch, seq, keep, gen)
+
+
+def _remat_context_fn(policy: str, w: Params):
+    """The selective-checkpoint contexts of ``policy`` for one block with
+    weights ``w``: the policy's products are saved, everything else is
+    recomputed in the backward."""
+    dots = _SAVED_DOTS[policy]
+    named = ({w["attn_out_w"].data_ptr(), w["mlp_down_w"].data_ptr()}
+             if policy == "save_attn_mlp_out" else set())
+
+    def policy_fn(ctx, func, *args, **kwargs):
+        packet = func.overloadpacket
+        if packet in dots or (named and packet is _ATEN.mm and args[1].data_ptr() in named):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return lambda: create_selective_checkpoint_contexts(policy_fn)
 
 
 # --------------------------------------------------------------------------- init
@@ -490,8 +570,18 @@ def forward(cfg: GPTConfig, params: Params, input_ids, rngs=None, train: bool = 
     ``rngs={"dropout": seed}`` (an int) seeds the training-mode draws: layer
     i uses ``fold_in(seed, i)``, its two dropout masks fold in salts 0 and 1
     and its stochastic-depth draw 0x5D, as the reference folds its keys.
-    Without a seed (or with ``train=False``) nothing is dropped. Random-LTD
-    and progressive layer drop raise (ROADMAP.md A3b)."""
+    Without a seed (or with ``train=False``) nothing is dropped.
+
+    ``pld_theta`` (progressive layer drop, training only, with a seed and
+    without stochastic depth): layer i keeps with ``p_i = 1 - (i+1)/L * (1 -
+    theta)`` (:func:`pld_kept_layers`), a kept block's delta scaled by
+    ``1/max(p_i, 1e-3)``; a dropped block is not run. Random-LTD (training
+    with ``cfg.random_ltd_keep`` below T): the layers of
+    ``cfg.random_ltd_layer_ids`` run on each row's ``keep`` tokens
+    (:func:`ltd_indices`, sorted) at their own positions, and the other
+    tokens pass them unchanged. ``cfg.remat`` recomputes each block in the
+    backward under ``cfg.remat_policy`` (``everything_saveable`` saves all,
+    so it recomputes nothing)."""
     check_config(cfg)
     if _is_qleaf(params["blocks"]["qkv_w"]):
         raise TypeError("forward takes dense weights, as the reference's does; a quantized "
@@ -499,36 +589,59 @@ def forward(cfg: GPTConfig, params: Params, input_ids, rngs=None, train: bool = 
                         "and generate) or paged_decode_step")
     input_ids = _as_ids(input_ids, params)
     B, T = input_ids.shape
-    _check_train(cfg, train, pld_theta, T)
+    drop_seed = (rngs or {}).get("dropout")
+    keep = cfg.random_ltd_keep
+    ltd_ids = (set(cfg.random_ltd_layer_ids)
+               if train and keep is not None and keep < T else set())
+    _check_train(cfg, train, pld_theta, drop_seed, bool(ltd_ids))
     if T > cfg.max_seq_len:
         raise ValueError(f"sequence length {T} exceeds max_seq_len {cfg.max_seq_len}")
     positions = torch.arange(T, device=input_ids.device).expand(B, T)
     x = _embed(cfg, params, input_ids, positions)
     blocks = params["blocks"]
-    drop_seed = (rngs or {}).get("dropout")
     sd = cfg.stochastic_depth if train else 0.0
+    L = _n_layers(blocks)
+    kept_layers = pld_kept_layers(L, pld_theta, drop_seed) if pld_theta is not None else None
 
-    def block_fn(x, w, seed, i):
-        return _block(cfg, x, w, positions, seed, train, layer_idx=i)
+    def block_fn(x, w, seed, i, pos):
+        return _block(cfg, x, w, pos, seed, train, layer_idx=i)
 
-    if cfg.remat and torch.is_grad_enabled():
+    if cfg.remat and torch.is_grad_enabled() and cfg.remat_policy != "everything_saveable":
         # recompute each block in the backward; the explicit seeds give the
         # recompute the masks of the first pass
-        def run(x, w, seed, i):
-            return checkpoint(block_fn, x, w, seed, i, use_reentrant=False)
+        def run(x, w, seed, i, pos):
+            kw = ({} if cfg.remat_policy == "nothing_saveable"
+                  else {"context_fn": _remat_context_fn(cfg.remat_policy, w)})
+            return checkpoint(block_fn, x, w, seed, i, pos, use_reentrant=False, **kw)
     else:
         run = block_fn
+
+    def layer(x, w, seed, i):
+        if i not in ltd_ids:
+            return run(x, w, seed, i, positions)
+        kept, idx = random_ltd_gather(x, keep, idx=ltd_indices(B, T, keep, seed, i, x.device))
+        out = run(kept, w, seed, i, torch.gather(positions, 1, idx))
+        return random_ltd_scatter(out, idx, x)
+
     for i, w in zero3_layers(blocks):
         seed = fold_in(drop_seed, i) if drop_seed is not None else None
-        if sd > 0.0 and seed is not None:
+        if kept_layers is not None:
+            # progressive layer drop (host-side draws, so no device sync): a
+            # dropped block adds exactly 0 and is skipped; a kept delta is
+            # scaled so that eval runs the whole stack uncorrected
+            if kept_layers[i]:
+                p = pld_keep_prob(i, L, pld_theta)
+                y = layer(x, w, seed, i)
+                x = y if p >= 1.0 else x + (y - x) / max(p, 1e-3)
+        elif sd > 0.0 and seed is not None:
             # stochastic depth: drop the whole block with probability sd (a
             # host-side draw, so no device sync); a surviving delta is scaled
             # so that eval needs no correction
-            u = torch.rand((), generator=torch.Generator().manual_seed(fold_in(seed, 0x5D)))
+            u = torch.rand((), generator=torch.Generator().manual_seed(fold_in(seed, SD_SALT)))
             if bool(u < 1.0 - sd):
-                x = x + (run(x, w, seed, i) - x) / (1.0 - sd)
+                x = x + (layer(x, w, seed, i) - x) / (1.0 - sd)
         else:
-            x = run(x, w, seed, i)
+            x = layer(x, w, seed, i)
     x = layer_norm(x, params["lnf_scale"], params["lnf_bias"], cfg.layer_norm_eps)
     if return_hidden:
         return x
@@ -1401,7 +1514,9 @@ def build(cfg_or_name: Union[str, GPTConfig]) -> Tuple[Module, GPTConfig]:
     """A trainable :class:`~.api.Module` from a config or preset name: its
     ``init(seed, device)`` is :func:`init_params`, its ``apply``
     :func:`loss_fn` and its ``loss_count`` :func:`loss_token_count`; the
-    layer-stacked ``blocks`` are its gradient buckets."""
+    layer-stacked ``blocks`` are its gradient buckets; ``with_ltd_keep(keep,
+    layer_ids)`` is the same model with random-LTD at ``keep`` tokens in
+    those layers (the config changes, the parameters do not)."""
     cfg = PRESETS[cfg_or_name] if isinstance(cfg_or_name, str) else cfg_or_name
     check_config(cfg)
 
@@ -1411,5 +1526,9 @@ def build(cfg_or_name: Union[str, GPTConfig]) -> Tuple[Module, GPTConfig]:
     def apply(params, batch, rngs=None, train: bool = True, pld_theta=None):
         return loss_fn(cfg, params, batch, rngs=rngs, train=train, pld_theta=pld_theta)
 
+    def with_ltd_keep(keep: int, layer_ids) -> Module:
+        return build(dataclasses.replace(cfg, random_ltd_keep=int(keep),
+                                         random_ltd_layer_ids=tuple(layer_ids)))[0]
+
     return Module(init=init, apply=apply, gpt_config=cfg, grad_bucket_key="blocks",
-                  loss_count=loss_token_count), cfg
+                  loss_count=loss_token_count, with_ltd_keep=with_ltd_keep), cfg

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ...profiling import flops_profiler
 from . import flash_attention as fa
 from .flash_attention import DTYPE_CODE, NEG_INF, _readable, _stream
 
@@ -211,6 +212,17 @@ def layout_mask(layout, block: int, causal: bool, device) -> torch.Tensor:
         T = vis.shape[-1]
         vis = vis & torch.ones((T, T), dtype=torch.bool, device=device).tril()
     return vis
+
+
+def _count_flops(name: str, q: torch.Tensor, layout, block: int, causal: bool) -> None:
+    """Add a kernel's 4·B·D·block² flops per visible block of the layout
+    (over the heads; under ``causal`` the blocks at or below the diagonal)
+    to the open flop counts, if any."""
+    if flops_profiler.counting():
+        lay = np.asarray(layout) != 0
+        visible = int((np.tril(lay) if causal else lay).sum())
+        flops_profiler.add_kernel_flops(name, 4 * q.shape[0] * q.shape[3] * block * block
+                                        * visible)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, layout, block: int) -> None:
@@ -576,6 +588,7 @@ def blocksparse_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], scale, int(bool(causal)),
             _stream())
     _build.check(lib, status, f"blocksparse_attention_fwd ({route})")
+    _count_flops("blocksparse_attention_fwd", q, layout, block, causal)
     if route == "tc":
         fwd_tc_launches += 1
     else:
@@ -608,6 +621,7 @@ def blocksparse_attention_bwd_dq(q, k, v, o, do, lse, layout, block: int, causal
             *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], scale, int(bool(causal)),
             _stream())
     _build.check(lib, status, f"blocksparse_attention_bwd_dq ({route})")
+    _count_flops("blocksparse_attention_bwd_dq", q, layout, block, causal)
     if route == "tc":
         bwd_dq_tc_launches += 1
     else:
@@ -639,6 +653,7 @@ def blocksparse_attention_bwd_dkv(q, k, v, do, lse, delta, layout, block: int, c
             DTYPE_CODE[q.dtype], block, t.kt_idx.shape[-1], *q.stride()[:3], *k.stride()[:3],
             *v.stride()[:3], *do.stride()[:3], scale, int(bool(causal)), _stream())
     _build.check(lib, status, f"blocksparse_attention_bwd_dkv ({route})")
+    _count_flops("blocksparse_attention_bwd_dkv", q, layout, block, causal)
     if route == "tc":
         bwd_dkv_tc_launches += 1
     else:

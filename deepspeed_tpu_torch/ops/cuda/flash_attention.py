@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
+from ...profiling.flops_profiler import add_kernel_flops
 
 NEG_INF = -1e30
 # the kernels' template instances: the head dims of every preset the
@@ -339,6 +340,15 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def attention_flops(B: int, H: int, T: int, S: int, D: int) -> int:
+    """The flops each kernel adds to an open flop count: the two products of
+    the forward (QK^T and PV), or the two of dq (dO V^T and dS K), or the two
+    of dk/dv (P^T dO and dS^T Q), each 2·B·H·T·S·D. A causal call counts
+    the whole T×S product, as the plain attention path computes it, so the
+    kernels' step counts what the plain path's does (B1 + B2 = 3x this)."""
+    return 4 * B * H * T * S * D
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, softmax_scale: Optional[float] = None,
                         stochastic: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -371,6 +381,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lib = _fwd_tf32_lib()
             status = lib.ds_flash_attention_fwd_tf32(*args, _stream())
     _build.check(lib, status, f"flash_attention_fwd_{route}")
+    add_kernel_flops("flash_attention_fwd", attention_flops(B, H, T, S, D))
     if stochastic:
         fwd_tc_stochastic_launches += 1
     elif route == "tc":
@@ -592,6 +603,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
             lib = _bwd_tf32_lib()
             status = lib.ds_flash_attention_bwd_dq_tf32(*args, _stream())
     _build.check(lib, status, f"flash_attention_bwd_dq_{route}")
+    add_kernel_flops("flash_attention_bwd_dq", attention_flops(B, H, T, S, D))
     if stochastic:
         bwd_dq_tc_stochastic_launches += 1
     elif route == "tc":
@@ -628,6 +640,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
             lib = _bwd_tf32_lib()
             status = lib.ds_flash_attention_bwd_dkv_tf32(*args, _stream())
     _build.check(lib, status, f"flash_attention_bwd_dkv_{route}")
+    add_kernel_flops("flash_attention_bwd_dkv", attention_flops(B, H, T, S, D))
     if stochastic:
         bwd_dkv_tc_stochastic_launches += 1
     elif route == "tc":

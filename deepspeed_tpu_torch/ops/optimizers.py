@@ -260,7 +260,7 @@ def get_optimizer(name: str, params: Dict[str, Any]) -> Optimizer:
                           adam_w_mode=(name_l != "adam") or opts.get("adam_w_mode", True),
                           bias_correction=opts.get("bias_correction", True))
     if name_l in ("onebitadam", "zerooneadam", "onebitlamb"):
-        raise unported(f"the 1-bit optimizer {name!r}", "A3b")
+        raise unported(f"the 1-bit optimizer {name!r}", "A3c")
     if name_l in ("lamb", "fusedlamb"):
         return fused_lamb(betas=betas, eps=eps, weight_decay=wd,
                           max_coeff=opts.get("max_coeff", 10.0),

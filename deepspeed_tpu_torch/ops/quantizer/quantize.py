@@ -8,7 +8,7 @@ scale is ``absmax / qmax`` (1 for an all-zero run) and its values round half
 to even and clip to ``[-qmax - 1, qmax]``. Any width up to 8 bits is stored
 as int8. These are plain tensor ops on any device, as in the reference
 (where XLA fuses them); the quantization-aware-training variants
-(``fake_quant*``, ``annealed_bits``) are ROADMAP.md A3b.
+(``fake_quant*``, ``annealed_bits``) are ROADMAP.md A3c.
 """
 
 from __future__ import annotations

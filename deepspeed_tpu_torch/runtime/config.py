@@ -11,12 +11,17 @@ Ported blocks: ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 ``gradient_clipping``, ``prescale_gradients`` / ``gradient_predivide_factor``,
 ``communication_data_type``, ``seed``, ``steps_per_print``, ``dump_state``,
 ``zero_optimization`` (see :mod:`.zero.config`), ``comms_logger``,
-``checkpoint`` (the checkpoint engine), ``load_universal_checkpoint``, and
-``mesh`` with a data-parallel axis only: ``{"dp": W}`` must name the world
-size the config is loaded for (``initialize`` passes the initialized
-process group's). Every other block the reference knows raises
-``NotImplementedError`` naming its ROADMAP.md item when it is set to
-something other than its default.
+``checkpoint`` (the checkpoint engine), ``load_universal_checkpoint``,
+``activation_checkpointing``, ``flops_profiler``, the monitors
+(``monitor_config`` and the legacy top-level ``tensorboard`` /
+``csv_monitor`` / ``wandb`` blocks, merged by :attr:`DeepSpeedConfig.monitor`),
+``progressive_layer_drop``, ``curriculum_learning``, ``data_efficiency``
+(read by the engine: seqlen curriculum and random-LTD),
+``wall_clock_breakdown``, and ``mesh`` with a data-parallel axis only:
+``{"dp": W}`` must name the world size the config is loaded for
+(``initialize`` passes the initialized process group's). Every other block
+the reference knows raises ``NotImplementedError`` naming its ROADMAP.md
+item when it is set to something other than its default.
 """
 
 from __future__ import annotations
@@ -112,6 +117,99 @@ class CommsLoggerConfig:
     prof_ops: List[str] = dataclasses.field(default_factory=list)
 
 
+@dataclasses.dataclass
+class FlopsProfilerConfig:
+    """The ``"flops_profiler"`` block (:mod:`...profiling.flops_profiler`)."""
+
+    enabled: bool = False
+    recompute_fwd_factor: float = 0.0
+    profile_step: int = 1
+    module_depth: int = -1
+    top_modules: int = 1
+    detailed: bool = True
+    output_file: Optional[str] = None
+
+
+@dataclasses.dataclass
+class ActivationCheckpointingConfig:
+    """The ``"activation_checkpointing"`` block (read by
+    ``runtime.activation_checkpointing.configure``)."""
+
+    partition_activations: bool = False
+    cpu_checkpointing: bool = False
+    contiguous_memory_optimization: bool = False
+    number_checkpoints: Optional[int] = None
+    synchronize_checkpoint_boundary: bool = False
+    profile: bool = False
+
+
+@dataclasses.dataclass
+class TensorBoardConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class CSVConfig:
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+
+
+@dataclasses.dataclass
+class WandbConfig:
+    enabled: bool = False
+    team: Optional[str] = None
+    group: Optional[str] = None
+    project: str = "deepspeed"
+
+
+@dataclasses.dataclass
+class JSONLConfig:
+    """The append-only JSONL monitor backend; ``rotate_mb`` bounds the file
+    by size (0 = the default cap), keeping ``rotate_keep`` generations."""
+
+    enabled: bool = False
+    output_path: str = ""
+    job_name: str = "DeepSpeedJobName"
+    rotate_mb: float = 0.0
+    rotate_keep: int = 3
+
+
+@dataclasses.dataclass
+class MonitorConfig:
+    """The ``"monitor_config"`` block: one sub-block per backend."""
+
+    tensorboard: TensorBoardConfig = dataclasses.field(default_factory=TensorBoardConfig)
+    csv_monitor: CSVConfig = dataclasses.field(default_factory=CSVConfig)
+    wandb: WandbConfig = dataclasses.field(default_factory=WandbConfig)
+    jsonl: JSONLConfig = dataclasses.field(default_factory=JSONLConfig)
+
+    @classmethod
+    def from_dict(cls, block: Optional[Dict[str, Any]]) -> "MonitorConfig":
+        block = block or {}
+        return cls(tensorboard=_from_dict(TensorBoardConfig, block.get("tensorboard")),
+                   csv_monitor=_from_dict(CSVConfig, block.get("csv_monitor")),
+                   wandb=_from_dict(WandbConfig, block.get("wandb")),
+                   jsonl=_from_dict(JSONLConfig, block.get("jsonl")))
+
+    @property
+    def enabled(self) -> bool:
+        return (self.tensorboard.enabled or self.csv_monitor.enabled
+                or self.wandb.enabled or self.jsonl.enabled)
+
+
+@dataclasses.dataclass
+class ProgressiveLayerDropConfig:
+    """Progressive layer drop: ``theta`` is the asymptotic keep probability,
+    ``gamma`` the decay rate, theta(t) = (1 - theta) exp(-gamma t) + theta."""
+
+    enabled: bool = False
+    theta: float = 0.5
+    gamma: float = 0.001
+
+
 # Known blocks and flags this slice does not port: key -> (is it asking for
 # the feature?, ROADMAP.md item). Default values pass.
 _UNPORTED_BLOCKS = {
@@ -119,23 +217,13 @@ _UNPORTED_BLOCKS = {
     "pipeline": (lambda v: any(v.get(k, d) != d for k, d in
                                (("stages", 1), ("activation_checkpoint_interval", 0),
                                 ("micro_batches", 0))), "A13"),
-    "activation_checkpointing": (_enabled, "A3b"),
-    "flops_profiler": (_enabled, "A3b"),
-    "monitor_config": (_enabled, "A3b"),
-    "tensorboard": (_enabled, "A3b"),
-    "csv_monitor": (_enabled, "A3b"),
-    "wandb": (_enabled, "A3b"),
-    "eigenvalue": (_enabled, "A3b"),
-    "progressive_layer_drop": (_enabled, "A3b"),
-    "compression_training": (_enabled, "A3b"),
-    "curriculum_learning": (_enabled, "A3b"),
-    "data_efficiency": (_enabled, "A3b"),
+    "eigenvalue": (_enabled, "A3c"),
+    "compression_training": (_enabled, "A3c"),
     "analysis": (_enabled, "A14"),
     "resilience": (_enabled, "A11"),
     "elasticity": (_enabled, "A11"),
     "autotuning": (_enabled, "A13"),
     "aio": (_enabled, "A12"),
-    "wall_clock_breakdown": (bool, "A3b"),
 }
 
 
@@ -150,6 +238,7 @@ class DeepSpeedConfig:
 
     # ---- core knobs
     steps_per_print: int = 10
+    wall_clock_breakdown: bool = False
     dump_state: bool = False
     prescale_gradients: bool = False
     gradient_predivide_factor: float = 1.0
@@ -169,6 +258,18 @@ class DeepSpeedConfig:
     zero_optimization: DeepSpeedZeroConfig = dataclasses.field(
         default_factory=DeepSpeedZeroConfig)
     comms_logger: CommsLoggerConfig = dataclasses.field(default_factory=CommsLoggerConfig)
+    activation_checkpointing: ActivationCheckpointingConfig = dataclasses.field(
+        default_factory=ActivationCheckpointingConfig)
+    flops_profiler: FlopsProfilerConfig = dataclasses.field(default_factory=FlopsProfilerConfig)
+    monitor_config: MonitorConfig = dataclasses.field(default_factory=MonitorConfig)
+    tensorboard: Optional[TensorBoardConfig] = None  # the legacy top-level blocks
+    csv_monitor: Optional[CSVConfig] = None
+    wandb: Optional[WandbConfig] = None
+    progressive_layer_drop: ProgressiveLayerDropConfig = dataclasses.field(
+        default_factory=ProgressiveLayerDropConfig)
+    # read by the engine: the seqlen curriculum and random-LTD
+    data_efficiency: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    curriculum_learning: Dict[str, Any] = dataclasses.field(default_factory=dict)
     mesh: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # {"checkpoint_engine": "native" | "async", "writers": N}
     checkpoint: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -187,7 +288,9 @@ class DeepSpeedConfig:
         if not isinstance(config, dict):
             raise TypeError(f"config must be a dict or path, got {type(config)}")
         blocks = {"fp16", "bf16", "optimizer", "scheduler", "zero_optimization",
-                  "comms_logger", "mesh", "checkpoint"}
+                  "comms_logger", "mesh", "checkpoint", "activation_checkpointing",
+                  "flops_profiler", "monitor_config", "tensorboard", "csv_monitor", "wandb",
+                  "progressive_layer_drop", "data_efficiency", "curriculum_learning"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         for key in config:
             if key not in scalars and key not in blocks and key not in _UNPORTED_BLOCKS:
@@ -206,6 +309,18 @@ class DeepSpeedConfig:
         self.comms_logger = _from_dict(CommsLoggerConfig, config.get("comms_logger"))
         self.mesh = dict(config.get("mesh") or {})
         self.checkpoint = dict(config.get("checkpoint") or {})
+        self.activation_checkpointing = _from_dict(ActivationCheckpointingConfig,
+                                                   config.get("activation_checkpointing"))
+        self.flops_profiler = _from_dict(FlopsProfilerConfig, config.get("flops_profiler"))
+        self.monitor_config = MonitorConfig.from_dict(config.get("monitor_config"))
+        for key, cls_ in (("tensorboard", TensorBoardConfig), ("csv_monitor", CSVConfig),
+                          ("wandb", WandbConfig)):
+            if config.get(key) is not None:
+                setattr(self, key, _from_dict(cls_, config[key]))
+        self.progressive_layer_drop = _from_dict(ProgressiveLayerDropConfig,
+                                                 config.get("progressive_layer_drop"))
+        self.data_efficiency = dict(config.get("data_efficiency") or {})
+        self.curriculum_learning = dict(config.get("curriculum_learning") or {})
         self._resolve_batch(world_size)
         self._validate(world_size)
         return self
@@ -262,6 +377,15 @@ class DeepSpeedConfig:
     @property
     def zero_enabled(self) -> bool:
         return self.zero_optimization.stage > 0
+
+    @property
+    def monitor(self) -> MonitorConfig:
+        """``monitor_config`` with the enabled legacy top-level ``tensorboard``
+        / ``csv_monitor`` / ``wandb`` blocks in place of its own."""
+        updates = {key: getattr(self, key) for key in ("tensorboard", "csv_monitor", "wandb")
+                   if getattr(self, key) is not None and getattr(self, key).enabled}
+        return dataclasses.replace(self.monitor_config, **updates) if updates \
+            else self.monitor_config
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)

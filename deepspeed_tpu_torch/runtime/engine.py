@@ -54,9 +54,27 @@ its row of the residuals ``qgrad_residual`` [W, npad] and
 ``qgrad_bucket_residual`` [L, W, npad_l] in ``state``, zeroed at an
 overflow. The buckets are exchanged after the backward, layer by layer;
 issuing them during the backward, the side-stream gather prefetch,
-``comms_verify`` and ``measure_overlap`` are ROADMAP.md A9c. Everything
-else the reference engine does and the port does not raises
-``NotImplementedError`` naming its ROADMAP.md item.
+``comms_verify`` and ``measure_overlap`` are ROADMAP.md A9c.
+
+The engine features of the reference run at its places: the seqlen
+curriculum (``curriculum_learning``, or ``data_efficiency``'s
+``data_sampling`` with a ``seqlen`` metric) truncates each batch's sequence
+keys to the scheduler's value at ``global_steps + 1``; random-LTD
+(``data_efficiency.data_routing.random_ltd``) moves the model to the
+schedule's ``keep`` before each ``train_batch`` (``Module.with_ltd_keep``),
+in the default sandwich of layers 1..n unless ``random_ltd_layer_id`` names
+them; progressive layer drop hands the model ``theta`` at the count of steps
+taken before the current one and the host tracker follows it after each
+step; the monitors get the reference's events at every boundary
+(``Train/loss``, ``lr``, ``grad_norm``, ``loss_scale`` under loss scaling,
+``pld_theta``, ``samples_per_sec``; ``Resilience/overflow_skip`` on a
+skipped step); ``wall_clock_breakdown`` times ``batch_input`` and
+``train_batch`` (``forward`` and ``step`` on the imperative path), each
+timer synchronising only under the flag; the flops profiler profiles the
+step at its ``profile_step``; and the ``activation_checkpointing`` block
+configures :mod:`.activation_checkpointing`. Everything else the reference
+engine does and the port does not raises ``NotImplementedError`` naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -74,10 +92,11 @@ from ..ops.optimizers import Optimizer, get_optimizer
 from ..utils.errors import unported
 from ..utils.logging import log_dist
 from ..utils.rng import fold_in
-from ..utils.timer import ThroughputTimer
+from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
-from .config import DeepSpeedConfig
+from .config import ActivationCheckpointingConfig, DeepSpeedConfig
 from .lr_schedules import schedule_fn_from_config
+from .progressive_layer_drop import ProgressiveLayerDrop, pld_theta
 from .precision import (
     PrecisionConfig,
     cast_to_compute,
@@ -121,6 +140,14 @@ class DeepSpeedEngine:
         if cl.enabled:
             comm.configure(enabled=True, verbose=cl.verbose or cl.debug, prof_all=cl.prof_all,
                            prof_ops=cl.prof_ops)
+        # a user's configure() before initialize wins unless the config's
+        # block asks for something, as in the reference
+        from .activation_checkpointing import checkpointing as ac
+
+        if (not ac.is_configured()
+                or config.activation_checkpointing != ActivationCheckpointingConfig()):
+            ac.configure(deepspeed_config=config)
+        self._init_data_efficiency(model, config)
 
         # ---------------- optimizer + lr schedule
         opt_cfg = config.optimizer
@@ -160,6 +187,17 @@ class DeepSpeedEngine:
         self._last_metrics: Dict[str, Any] = {}
         sync = torch.cuda.synchronize if self.device.type == "cuda" else None
         self.tput_timer = ThroughputTimer(synchronize=sync)
+        self.timers = SynchronizedWallClockTimer()
+        self._monitor = None
+        if config.monitor.enabled:
+            from ..monitor.monitor import MonitorMaster
+
+            self._monitor = MonitorMaster(config.monitor)
+        self._flops_profiler = None
+        if config.flops_profiler.enabled:
+            from ..profiling import FlopsProfiler
+
+            self._flops_profiler = FlopsProfiler(self, config.flops_profiler)
         # stochastic rounding of the gradient exchange: a stream per rank
         self._qgrad_gen = (torch.Generator(device=self.device).manual_seed(
             fold_in(self.seed, self.rank)) if self._qcomm.gradients and self._qcomm.stochastic
@@ -213,6 +251,66 @@ class DeepSpeedEngine:
                 state["qgrad_bucket_residual"] = zeros(self._qgrad_bucket_L, 1,
                                                        self._qgrad_bucket_npad)
         return self._with_leaves(state)
+
+    def _init_data_efficiency(self, model: Module, config: DeepSpeedConfig) -> None:
+        """The curriculum scheduler, random-LTD's scheduler and progressive
+        layer drop's tracker, with the reference's resolution and refusals."""
+        # the seqlen curriculum: the legacy block, or the data-efficiency
+        # schema's data_sampling.curriculum_learning with a seqlen metric
+        self.curriculum_scheduler = None
+        cl = config.curriculum_learning
+        if not (cl and cl.get("enabled")):
+            de = config.data_efficiency or {}
+            ds_blk = de.get("data_sampling", {})
+            decl = ds_blk.get("curriculum_learning", {})
+            if de.get("enabled") and ds_blk.get("enabled", True) and decl.get("enabled"):
+                metrics = decl.get("curriculum_metrics", {})
+                if set(metrics) == {"seqlen"}:
+                    m = metrics["seqlen"]
+                    cl = {"enabled": True, "curriculum_type": "seqlen",
+                          "min_difficulty": m["min_difficulty"],
+                          "max_difficulty": m["max_difficulty"],
+                          "schedule_type": m.get("schedule_type", "fixed_linear"),
+                          "schedule_config": m.get("schedule_config", {})}
+                elif metrics:
+                    raise NotImplementedError(
+                        f"data_efficiency curriculum metrics {sorted(metrics)} unsupported "
+                        "in-engine (only 'seqlen' truncation is; metric-file sampling goes "
+                        "through DeepSpeedDataSampler)")
+        if cl and cl.get("enabled"):
+            from .data_pipeline import CurriculumScheduler
+
+            self.curriculum_scheduler = CurriculumScheduler(cl)
+        # random-LTD: the listed layers train on keep-token subsets
+        self._random_ltd = None
+        self._ltd_keep = None
+        de = config.data_efficiency or {}
+        routing = de.get("data_routing", {})
+        rl = routing.get("random_ltd", {})
+        if de.get("enabled") and routing.get("enabled", True) and rl.get("enabled"):
+            from .data_pipeline.data_routing.random_ltd import RandomLTDScheduler
+
+            if model.with_ltd_keep is None:
+                raise ValueError("random_ltd requires a model with a with_ltd_keep rebuild "
+                                 "hook (models.gpt.build provides one)")
+            self._random_ltd = RandomLTDScheduler(rl)
+            if not self._random_ltd.layer_ids:
+                n = int(rl.get("random_ltd_layer_num", 0))
+                total = int(rl.get("total_layer_num", n + 2))
+                # the default sandwich: the first and last layers stay dense
+                self._random_ltd.layer_ids = list(range(1, min(n + 1, total - 1)))
+            if not self._random_ltd.layer_ids:
+                raise ValueError(
+                    "random_ltd resolved ZERO layers to drop tokens in: set "
+                    "random_ltd_layer_id or a positive random_ltd_layer_num (a silently "
+                    "inert schedule would still log transitions)")
+        self.progressive_layer_drop = None
+        if config.progressive_layer_drop.enabled:
+            if self._qcomm.gradients:
+                raise ValueError("zero_quantized_gradients does not compose with "
+                                 "compression_training or progressive_layer_drop")
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                config.progressive_layer_drop.theta, config.progressive_layer_drop.gamma)
 
     def _init_qgrad(self, params_f32) -> None:
         """The flat geometry of the quantized gradient exchange (the
@@ -327,11 +425,56 @@ class DeepSpeedEngine:
         return {k: v if k == STACKED else tree_map(gather_leaf, v, self.param_specs[k])
                 for k, v in params.items()}
 
+    # sequence-bearing batch keys that the seqlen curriculum truncates
+    _SEQ_KEYS = ("input_ids", "labels", "attention_mask", "position_ids", "token_type_ids")
+
+    def _apply_curriculum(self, batch):
+        """The batch with its sequence keys cut to the curriculum's length at
+        ``global_steps + 1``."""
+        if self.curriculum_scheduler is None:
+            return batch
+        seqlen = self.curriculum_scheduler.update_difficulty(self.global_steps + 1)
+
+        def trunc(x):
+            if hasattr(x, "ndim") and x.ndim >= 2 and x.shape[-1] > seqlen:
+                return x[..., :seqlen]
+            return x
+
+        return {k: (trunc(v) if k in self._SEQ_KEYS else v) for k, v in batch.items()}
+
+    def _apply_random_ltd(self) -> None:
+        """Move the model to random-LTD's ``keep`` at ``global_steps`` when it
+        changes."""
+        if self._random_ltd is None:
+            return
+        keep = self._random_ltd.update(self.global_steps)
+        if keep == self._ltd_keep:
+            return
+        self._ltd_keep = keep
+        self.model = self.model.with_ltd_keep(keep, tuple(self._random_ltd.layer_ids))
+        log_dist(f"random_ltd: keep -> {keep} tokens (layers {self._random_ltd.layer_ids})")
+
+    def wall_clock_breakdown(self) -> bool:
+        return bool(self.config.wall_clock_breakdown)
+
     def _forward(self, batch):
         """The model's training loss on one placed micro-batch, with its graph."""
+        kwargs = {}
+        if self.progressive_layer_drop is not None:
+            pcfg = self.config.progressive_layer_drop
+            # theta at the count of steps taken before this one
+            kwargs["pld_theta"] = pld_theta(pcfg.theta, pcfg.gamma, self.global_steps)
         with gather_window(self.config.zero_optimization, self.param_specs.get(STACKED)):
-            out = self.model.apply(self._model_params(), batch,
-                                   rngs={"dropout": self._micro_seed()}, train=True)
+            try:
+                out = self.model.apply(self._model_params(), batch,
+                                       rngs={"dropout": self._micro_seed()}, train=True,
+                                       **kwargs)
+            except TypeError as e:
+                if "pld_theta" in str(e):
+                    raise ValueError("progressive_layer_drop is enabled but this model's "
+                                     "apply() takes no pld_theta (models.gpt.build models "
+                                     "take it)") from e
+                raise
         loss, _ = out if isinstance(out, tuple) else (out, {})
         weight = self._loss_weight(batch)
         if weight is not None:
@@ -514,10 +657,28 @@ class DeepSpeedEngine:
         self.global_steps += 1
         self.data_cursor += 1
         self._last_metrics = metrics
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
         if skipped:
             self.skipped_steps += 1
             log_dist(f"step {self.global_steps}: non-finite grads, step skipped; loss scale "
                      f"-> {float(self.state['scaler'].scale)}")
+            if self._monitor is not None:
+                self._monitor.write_events([("Resilience/overflow_skip", 1.0,
+                                             self.global_steps)])
+        if self._monitor is not None and "loss" in metrics:
+            step = self.global_steps
+            events = [("Train/loss", float(metrics["loss"]), step),
+                      ("Train/lr", float(metrics["lr"]), step),
+                      ("Train/grad_norm", float(metrics["grad_norm"]), step)]
+            if self.pc.loss_scaling:
+                events.append(("Train/loss_scale", float(metrics["loss_scale"]), step))
+            if self.progressive_layer_drop is not None:
+                events.append(("Train/pld_theta", self.progressive_layer_drop.get_theta(), step))
+            sps = self.tput_timer.avg_samples_per_sec()
+            if sps:
+                events.append(("Train/samples_per_sec", sps, step))
+            self._monitor.write_events(events)
         spp = self.config.steps_per_print
         if spp and self.global_steps % spp == 0:
             loss = metrics.get("loss")
@@ -535,7 +696,35 @@ class DeepSpeedEngine:
                                f"({self._micro} of {self.gas} micro-steps); finish it with "
                                "step() first")
         self.tput_timer.start()
-        batch = self._place_batch(batch, rows_axis=1 if self.gas > 1 else 0)
+        prof = self._flops_profiler
+        if prof is not None and self.global_steps + 1 == self.config.flops_profiler.profile_step:
+            pcfg = self.config.flops_profiler
+            prof.profile_train_batch(batch)
+            prof.print_model_profile(profile_step=pcfg.profile_step,
+                                     module_depth=pcfg.module_depth,
+                                     top_modules=pcfg.top_modules, detailed=pcfg.detailed,
+                                     output_file=pcfg.output_file)
+        wcb = self.wall_clock_breakdown()
+        self._apply_random_ltd()
+        if wcb:
+            self.timers("batch_input").start()
+        batch = self._place_batch(self._apply_curriculum(batch),
+                                  rows_axis=1 if self.gas > 1 else 0)
+        if wcb:
+            self.timers("batch_input").stop()
+            self.timers("train_batch").start()
+        metrics = self._step(batch)
+        if wcb:
+            self.timers("train_batch").stop(sync_on=metrics["loss"])
+        self._finish_step(metrics)
+        spp = self.config.steps_per_print
+        if wcb and spp and self.global_steps % spp == 0:
+            self.timers.log(["batch_input", "train_batch"])
+        self._stop_tput(batch)
+        return metrics
+
+    def _step(self, batch) -> Dict[str, Any]:
+        """``gas`` micro-steps over the placed ``batch`` and the boundary."""
         ids = batch["input_ids"]
         if self.gas > 1 and (ids.dim() != 3 or ids.shape[0] != self.gas):
             raise ValueError(f"train_batch: with gas={self.gas} the batch leaves are "
@@ -549,17 +738,32 @@ class DeepSpeedEngine:
         metrics = self._boundary_step()
         loss = losses[0] if self.gas == 1 else torch.stack(losses).mean()
         metrics["loss"] = comm.all_reduce(loss, op="mean")
-        self.tput_timer.stop(tokens=ids.numel() * self.world_size)
-        return self._finish_step(metrics)
+        return metrics
+
+    def _stop_tput(self, placed) -> None:
+        ids = placed["input_ids"]
+        rows = ids.shape[0] * (ids.shape[1] if self.gas > 1 else 1)
+        self.tput_timer.stop(tokens=ids.numel() * self.world_size,
+                             samples=rows * self.world_size)
 
     def train_batches(self, batch) -> Dict[str, Any]:
         """K full steps. Batch leaves are [k, gas, micro, ...] when gas > 1,
         else [k, micro, ...]. Returns the last step's metrics, with
         ``mean_loss`` over the K steps and each metric's K values stacked
-        under ``"steps"``."""
+        under ``"steps"``. Random-LTD's keep and the curriculum's length are
+        those of the window's first step, as in the reference."""
         k = int(next(iter(batch.values())).shape[0])
-        per_step = [self.train_batch({name: v[i] for name, v in batch.items()})
-                    for i in range(k)]
+        if self._micro:
+            raise RuntimeError("train_batches: an imperative accumulation window is open")
+        self._apply_random_ltd()
+        batch = self._apply_curriculum(batch)
+        per_step = []
+        for i in range(k):
+            self.tput_timer.start()
+            placed = self._place_batch({name: v[i] for name, v in batch.items()},
+                                       rows_axis=1 if self.gas > 1 else 0)
+            per_step.append(self._finish_step(self._step(placed)))
+            self._stop_tput(placed)
         out = dict(per_step[-1])
         out["steps"] = {name: torch.stack([torch.as_tensor(m[name]) for m in per_step])
                         for name in per_step[-1]}
@@ -569,9 +773,15 @@ class DeepSpeedEngine:
     def forward(self, batch) -> torch.Tensor:
         """The training loss of one micro-batch (across ranks: its mean over
         them), with its graph kept for :meth:`backward`."""
-        scaled, loss = self._forward(self._place_batch(batch))
+        wcb = self.wall_clock_breakdown()
+        if wcb:
+            self.timers("forward").start()
+        scaled, loss = self._forward(self._place_batch(self._apply_curriculum(batch)))
         self._pending = scaled
-        return comm.all_reduce(loss, op="mean")
+        loss = comm.all_reduce(loss, op="mean")
+        if wcb:
+            self.timers("forward").stop(sync_on=loss)
+        return loss
 
     def backward(self, loss: Optional[torch.Tensor] = None) -> None:
         """Accumulate the gradients of the last :meth:`forward`'s loss."""
@@ -590,7 +800,12 @@ class DeepSpeedEngine:
         if self._grad_acc is None:
             raise RuntimeError("step(): gradient-accumulation boundary reached with no "
                                "accumulated gradients")
+        wcb = self.wall_clock_breakdown()
+        if wcb:
+            self.timers("step").start()
         self._finish_step(self._boundary_step())
+        if wcb:
+            self.timers("step").stop(sync_on=self.state["step"])
 
     # ------------------------------------------------------------------ info surface
     def comms_summary(self) -> str:

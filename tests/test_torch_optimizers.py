@@ -85,7 +85,7 @@ def test_bf16_params_without_master_update_in_fp32():
 
 
 def test_one_bit_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A3c"):
         optimizers.get_optimizer("OneBitAdam", {})
 
 

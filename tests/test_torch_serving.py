@@ -235,7 +235,7 @@ def test_serving_engine_refuses_auto_slots_monitor_and_draft(monkeypatch):
     cfg = TG.PRESETS["tiny"]
     params = TG.init_params(cfg, 0, device="cpu")
     for kw, item in ((dict(serving=serving.ServingConfig(num_slots="auto")), "A14"),
-                     (dict(monitor=object()), "A3b")):
+                     (dict(monitor=object()), "A11")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
             serving.ServingEngine(cfg, params, device="cpu", **kw)
     draft = (cfg, params)
