@@ -402,6 +402,29 @@ result line):
    configuration: the kernel path's total equal to the plain path's (0.1%),
    the step ms and achieved TFLOPS beside the card's name and power limit.
 
+18. the 1-bit optimizers, ``compression_training`` and the eigenvalue probe
+   on GPT-2-125M at full width and depth, from seed 0, through
+   ``initialize``. (a) 1-bit Adam, 1-bit LAMB and 0/1 Adam at dp2 (two rank
+   processes on the card over gloo, as in 16c), bf16, B4 x T512, freeze_step
+   2, 5 steps: the warmup steps bitwise the dense Adam / LAMB run from the
+   same seed, the ranks' params bitwise equal after every step, finite
+   losses, 12 launches of each bf16 kernel a micro-step, the compressed
+   wire bytes a step against the fp32 ones (ratio at least 31), the
+   residual rows finite and nonzero; 1-bit Adam's tag after step 4 resumes
+   to step 5 bitwise, residuals included. (b) 5b's cell with MoQ bits 8 -> 4
+   from step 1 (period 1) and L1 pruning to half density from step 3, 10
+   steps in lockstep with the plain path (losses rtol 1e-4, grad norms
+   1e-3): the bits of every step equal to the host schedule, each pruned
+   weight's density 0.5 (what it keeps past the k largest only ties at the
+   threshold, which bf16 values often are), exact launches;
+   step ms with and without compression. (c) the probe on the kernels (bf16,
+   B2 x T512): disabled with the log line after one forward, training goes
+   on, exact launches; on the plain path (fp32, all 12 layers): the
+   curvature finite in [0, 1] with a maximum of 1, the MoQ onsets stretched
+   per layer and the transform gated by them, the probe's time a layer; one
+   layer's HVP at full width and depth 2 in fp64 within 1e-3 of the
+   central difference of two gradients.
+
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
 paths the 3xTF32 flash kernels only, bf16 paths the 16-bit tensor-core ones
@@ -5472,6 +5495,401 @@ def _phase17_flops(torch, ctx, cfg, card):
           f"17f: kernel flops {kern}, plain {plain[2]}")
     check(not any(plain[5].values()), f"17f: the plain path launched {plain[5]}")
 
+
+# --------------------------------------------------------------------------- phase 18
+ONEBIT_VARIANTS = (("OneBitAdam", "Adam"), ("OneBitLamb", "Lamb"), ("ZeroOneAdam", "Adam"))
+ONEBIT_STEPS = 5
+ONEBIT_FREEZE = 2
+ONEBIT_SAVE_AT = 4  # the tag written after step 4 resumes to step 5
+ONEBIT_MIN_RATIO = 31.0  # fp32 reduce-scatter + all-gather bytes over the signs and scales
+# 18b: bits 8 -> 4 from step 1 (period 1: 8, 7, 6, 6, 5, 5, 5, 5, 4), L1
+# pruning to half density from step 3, every matmul weight
+MOQ18 = {"weight_quantization": {
+    "shared_parameters": {"enabled": True, "schedule_offset": 1},
+    "different_groups": {"g": {"params": {"start_bits": 8, "target_bits": 4,
+                                          "quantization_period": 1}}}},
+    "sparse_pruning": {"shared_parameters": {"enabled": True, "schedule_offset": 3},
+                       "different_groups": {"s": {"params": {"dense_ratio": 0.5}}}}}
+MOQ18_STEPS = 10
+# 18c: the probe, and the MoQ onset it stretches (offset 2: onsets 2-10 by layer)
+EV18 = {"enabled": True, "max_iter": 6, "tol": 1e-2}
+EV18_MOQ = {"weight_quantization": {
+    "shared_parameters": {"enabled": True, "schedule_offset": 2},
+    "different_groups": {"g": {"params": {"start_bits": 8}}}}}
+FD_EPS = 1e-4  # the central difference's step along v (fp64)
+FD_RTOL = 1e-3  # its truncation is O(eps^2); the probe's fp32 theta rounds at 1e-7
+
+
+def _onebit_config(opt, onebit=True):
+    params = {"lr": 6e-4, "weight_decay": 0.01}
+    if onebit:
+        params.update(freeze_step=ONEBIT_FREEZE, var_freeze_step=ONEBIT_FREEZE + 1)
+    return _train_config(4 // DP_WORLD, bf16={"enabled": True},
+                         optimizer={"type": opt, "params": params})
+
+
+def _bits_checksum(torch, t):
+    """The int64 sum of a float tensor's bits: equal where the tensors are
+    bitwise equal."""
+    return int(t.detach().float().contiguous().view(torch.int32).long().sum())
+
+
+def _onebit_rank_main(rank, world, store, out_dir):
+    """One of 18a's two rank processes on the one card (gloo): each 1-bit
+    variant's dense counterpart for the warmup steps, then the variant for
+    ONEBIT_STEPS steps (losses, grad norms, params checksums, step ms, the
+    wire ledger per step, launches, the residual rows' checksums); 1-bit
+    Adam saves a tag after step ONEBIT_SAVE_AT, which a fresh engine loads
+    and resumes to the last step. Writes ``rank<r>_onebit.json``."""
+    import os
+
+    import torch
+
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.comm.runtime_accounting import wire_ledger
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 1's setting, in this process too
+    torch.backends.cudnn.allow_tf32 = False
+    comm.init_distributed(init_method=f"file://{store}", world_size=world, rank=rank,
+                          backend="gloo", device="cuda")
+    cfg = gpt.PRESETS["gpt2-125m"]
+    rng = np.random.default_rng(18)
+    batches = [{"input_ids": rng.integers(0, cfg.vocab_size, (4, 512)).astype(np.int32)}
+               for _ in range(ONEBIT_STEPS)]
+
+    def resid(engine):
+        ob = engine.state["onebit"]
+        return {k: [_bits_checksum(torch, v), bool(torch.isfinite(v).all()), bool(v.any())]
+                for k, v in ob.items()}
+
+    out = {"backend": torch.distributed.get_backend(), "world": comm.get_world_size()}
+    dense_sums = {}  # the dense runs' checksums, one run per dense optimizer
+    for opt, dense in ONEBIT_VARIANTS:
+        rec = {"losses": [], "norms": [], "sums": [], "step_ms": [], "wire": []}
+        if dense not in dense_sums:
+            engine = _engine(_onebit_config(dense, onebit=False), cfg)
+            dense_sums[dense] = []
+            for b in batches[:ONEBIT_FREEZE]:
+                engine.train_batch(b)
+                dense_sums[dense].append(_param_checksum(torch, engine))
+            del engine
+            torch.cuda.empty_cache()
+        rec["dense_sums"] = dense_sums[dense]
+        engine = _engine(_onebit_config(opt), cfg)
+        rec["fp32_allreduce_bytes"] = 4 * sum(p.numel() for p in
+                                              tree_leaves(engine.state["params"]))
+        wire_ledger.reset()
+        fa, _ = _reset_counts()  # this rank's 1-bit training path
+        for s, b in enumerate(batches):
+            if opt == "OneBitAdam" and s == ONEBIT_SAVE_AT:
+                engine.save_checkpoint(os.path.join(out_dir, "tag18"))
+                rec["saved_resid"] = resid(engine)
+            before = wire_ledger.summary_dict().get("compressed_allreduce[dp]", {})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = engine.train_batch(b)
+            rec["losses"].append(m["loss"].item())
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["norms"].append(m["grad_norm"].item())
+            rec["sums"].append(_param_checksum(torch, engine))
+            after = wire_ledger.summary_dict().get("compressed_allreduce[dp]", {})
+            rec["wire"].append([after.get(k, 0) - before.get(k, 0)
+                                for k in ("logical_bytes", "wire_bytes")])
+        rec["launches"] = _flash_launches(fa)
+        rec["resid"] = resid(engine)
+        if opt == "OneBitAdam":
+            again = _engine(_onebit_config(opt), cfg, seed=1)
+            again.load_checkpoint(os.path.join(out_dir, "tag18"))
+            rec["loaded_resid"] = resid(again)
+            m = again.train_batch(batches[ONEBIT_SAVE_AT])
+            rec["resumed"] = {"loss": m["loss"].item(), "norm": m["grad_norm"].item(),
+                              "sums": _param_checksum(torch, again), "resid": resid(again)}
+            del again
+        out[opt] = rec
+        del engine
+        torch.cuda.empty_cache()
+    comm.barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}_onebit.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_a3c(torch, ctx):
+    """Phase 18: the 1-bit optimizers, ``compression_training`` and the
+    eigenvalue probe on GPT-2-125M at full width and depth, from seed 0,
+    through ``initialize``: (a) 1-bit Adam, 1-bit LAMB and 0/1 Adam at dp2
+    (two rank processes on the card over gloo), bf16, freeze_step 2, 5
+    steps; (b) MoQ bits 8 -> 4 and L1 pruning, the kernel path in lockstep
+    with the plain-attention path; (c) the probe on the kernels (disabled)
+    and on the plain path at full depth, and one layer's fp64 HVP against a
+    central difference."""
+    import os
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    card = _smi_line()
+    root = tempfile.mkdtemp(prefix="a3c18_")
+    try:
+        _phase18_onebit(torch, cfg, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _phase18_compression(torch, ctx, cfg, card)
+    _phase18_eigenvalue(torch, ctx, cfg, card)
+    # the bf16 paths of 18b and 18c (this process) in the kernels line
+    launches = ctx["a3c_launches"]
+    ctx["flash_tc"]["launches"] += launches["fwd_tc"]
+    for n in BWD_PATH["bfloat16"]:
+        ctx[f"bwd_{n}"]["launches"] += launches[n]
+
+
+def _phase18_onebit(torch, cfg, card, root):
+    import os
+
+    import torch.multiprocessing as mp
+
+    store = os.path.join(root, "store")
+    procs = mp.start_processes(_onebit_rank_main, args=(DP_WORLD, store, root),
+                               nprocs=DP_WORLD, join=False, start_method="spawn")
+    end = time.monotonic() + DP_JOIN_S
+    while not procs.join(timeout=max(0.1, end - time.monotonic())):
+        if time.monotonic() >= end:
+            for proc in procs.processes:
+                proc.kill()
+            raise Failed(f"18a: the {DP_WORLD} rank processes did not finish within "
+                         f"{DP_JOIN_S} s")
+    ranks = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(root, f"rank{r}_onebit.json")) as f:
+            ranks.append(json.load(f))
+    L = cfg.n_layer
+    for opt, dense in ONEBIT_VARIANTS:
+        recs = [rank[opt] for rank in ranks]
+        rec = recs[0]
+        wire = rec["wire"][ONEBIT_FREEZE]
+        log(f"phase18a {opt} dp2 bf16 gpt2-125m B4xT512 (2 rows a rank) freeze_step "
+            f"{ONEBIT_FREEZE}: losses={rec['losses']} grad_norms={rec['norms']} warmup bitwise "
+            f"{dense}={[x['sums'][:ONEBIT_FREEZE] == x['dense_sums'] for x in recs]} ranks' "
+            f"params equal after every step={recs[0]['sums'] == recs[1]['sums']} step_ms "
+            f"(host clock)={[[round(x, 1) for x in y['step_ms']] for y in recs]} compressed "
+            f"wire bytes a step={wire[1]} (logical {wire[0]}: the fp32 reduce-scatter + "
+            f"all-gather; one fp32 all-reduce of the gradients {rec['fp32_allreduce_bytes']}) "
+            f"ratio={wire[0] / max(1, wire[1]):.2f} launches={[x['launches'] for x in recs]} "
+            f"residuals={[x['resid'] for x in recs]} card={card}")
+        for r, x in enumerate(recs):
+            check(x["sums"][:ONEBIT_FREEZE] == x["dense_sums"],
+                  f"18a {opt} rank {r}: the warmup is not bitwise dense {dense}")
+            check(all(math.isfinite(v) for v in x["losses"] + x["norms"]),
+                  f"18a {opt} rank {r}: losses {x['losses']}")
+            expected = path_launches(x["launches"], ONEBIT_STEPS * L, _flash_path("bfloat16"))
+            check(x["launches"] == expected,
+                  f"18a {opt} rank {r}: launches {x['launches']}, expected {expected}")
+            check(all(w == [0, 0] for w in x["wire"][:ONEBIT_FREEZE]) and all(
+                w[1] > 0 and w[0] / w[1] >= ONEBIT_MIN_RATIO for w in x["wire"][ONEBIT_FREEZE:]),
+                f"18a {opt} rank {r}: wire per step {x['wire']}")
+            check(all(f and nz for _, f, nz in x["resid"].values()),
+                  f"18a {opt} rank {r}: residuals {x['resid']}")
+        check(recs[0]["sums"] == recs[1]["sums"], f"18a {opt}: the ranks' params differ")
+        check(recs[0]["losses"] == recs[1]["losses"], f"18a {opt}: the ranks' losses differ")
+        if opt == "OneBitAdam":
+            for r, x in enumerate(recs):
+                got = x["resumed"]
+                log(f"phase18a {opt} rank {r}: the tag after step {ONEBIT_SAVE_AT} resumed to "
+                    f"step {ONEBIT_STEPS}: loss={got['loss']} (uninterrupted "
+                    f"{x['losses'][-1]}) params bitwise={got['sums'] == x['sums'][-1]} "
+                    f"residuals loaded bitwise={x['loaded_resid'] == x['saved_resid']} and "
+                    f"after the step={got['resid'] == x['resid']}")
+                check(got["loss"] == x["losses"][-1] and got["norm"] == x["norms"][-1]
+                      and got["sums"] == x["sums"][-1],
+                      f"18a rank {r}: the resumed step 5 is not the uninterrupted one")
+                check(x["loaded_resid"] == x["saved_resid"] and got["resid"] == x["resid"],
+                      f"18a rank {r}: residuals {x['loaded_resid']} / {got['resid']}")
+
+
+def _moq_bits(step):
+    """The host schedule of MOQ18: None before the onset, then 8 bits less
+    one at t = 1, 2, 4, 8 (t = step - 1), never below 4."""
+    t = step - 1
+    return None if t < 0 else float(max(4, 8 - (t.bit_length() if t >= 1 else 0)))
+
+
+def _phase18_compression(torch, ctx, cfg, card):
+    """(b) 5b's configuration and batch with MOQ18, MOQ18_STEPS steps in
+    lockstep with the plain path: the bits each step against the host
+    schedule, launches, each pruned weight's density; step ms with and
+    without compression."""
+    from deepspeed_tpu_torch.compression import compress
+
+    L, n = cfg.n_layer, MOQ18_STEPS
+    batch = ctx["train5b_batch"]
+    conf = _train_config(8, compression_training=MOQ18, **BF16_ZERO2)
+    kern, plain = _pair(conf, cfg)
+    seen, step = {}, [0]
+    real = compress.fake_quant_dynamic
+
+    def spy(x, bits, groups=1):
+        seen.setdefault(step[0], set()).add(float(bits))
+        return real(x, bits, groups)
+
+    compress.fake_quant_dynamic = spy
+    try:
+        rows = _lockstep(torch, kern, plain, [batch] * n,
+                         before_step=lambda s, engine, fa: step.__setitem__(0, s))
+    finally:
+        compress.fake_quant_dynamic = real
+    want = {s: _moq_bits(s) for s in range(n)}
+    got = {s: (sorted(seen[s]) if s in seen else None) for s in range(n)}
+    plan = kern._compression.plan
+    ratio = MOQ18["sparse_pruning"]["different_groups"]["s"]["params"]["dense_ratio"]
+    densities, ties_only = {}, {}
+    with torch.no_grad():
+        for key in plan:
+            leaf = kern.state["params"]
+            for part in key.split("/"):
+                leaf = leaf[part]
+            mag, kept = leaf.abs(), compress._prune_l1(leaf, ratio) != 0
+            k = max(1, round(leaf.numel() * ratio))
+            floor = mag[kept].min()
+            densities[key] = float(kept.float().mean())
+            # the configured density: every entry at or above the k-th
+            # largest magnitude kept and no other, so past k only ties at the
+            # threshold (bf16 values tie often), as in the reference
+            ties_only[key] = (int((mag > floor).sum()) < k <= int(kept.sum())
+                              and bool(kept[mag >= floor].all()))
+    launches = {k: sum(r[4][k] for r in rows) for k in rows[0][4]}
+    del plain
+    torch.cuda.empty_cache()
+    _, _, ms_moq, _ = _timed_steps(torch, kern, batch, 4)
+    del kern
+    torch.cuda.empty_cache()
+    dense = _engine(_train_config(8, **BF16_ZERO2), cfg)
+    _, _, ms_dense, _ = _timed_steps(torch, dense, batch, 4)
+    del dense
+    torch.cuda.empty_cache()
+    log(f"phase18b compression bf16 zero2 gpt2-125m B8xT512 {n} steps (bits 8 -> 4 from step "
+        f"1, period 1; L1 pruning to 0.5 from step 3; {len(plan)} weights): {_rows_text(rows)}; "
+        f"bits per step={[got[s] for s in range(n)]} host schedule={[want[s] for s in range(n)]}"
+        f" densities={densities} (past 0.5 only ties at the threshold: {ties_only}) "
+        f"launches over {n} steps={launches} step_ms (CUDA events, "
+        f"median of steps 2-4) with compression={float(np.median(ms_moq[1:])):.3f} without="
+        f"{float(np.median(ms_dense[1:])):.3f} card={card}")
+    _close("18b", rows)
+    for s in range(n):
+        check(got[s] == (None if want[s] is None else [want[s]]),
+              f"18b step {s + 1}: bits {got[s]}, host schedule {want[s]}")
+    check(all(ties_only.values()), f"18b densities {densities}: {ties_only}")
+    expected = path_launches(launches, n * L, _flash_path("bfloat16"))
+    check(launches == expected, f"18b launches {launches}, expected {expected}")
+    ctx["a3c_launches"] = launches
+
+
+def _phase18_eigenvalue(torch, ctx, cfg, card):
+    """(c) the probe: on the kernels it disables itself with the log and
+    training goes on; on the plain path at full depth it gives a curvature
+    in [0, 1] with a maximum of 1 that stretches the MoQ onset per layer;
+    one layer's HVP at full width and depth 2 in fp64 against a central
+    difference of two gradients."""
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.runtime.eigenvalue import Eigenvalue
+    from deepspeed_tpu_torch.utils.logging import logger
+    from deepspeed_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+    L, V = cfg.n_layer, cfg.vocab_size
+    rng = np.random.default_rng(181)
+    batch = {"input_ids": rng.integers(0, V, (2, 512)).astype(np.int32)}
+    # on the kernels, bf16: the probe's first create_graph backward reaches
+    # FlashAttention's refusal after one forward (12 B1 launches)
+    engine = _engine(_train_config(2, eigenvalue=EV18, **BF16_ZERO2), cfg)
+    handler, lines = _log_capture()
+    fa, _ = _reset_counts()  # the probed bf16 training path on the kernels
+    try:
+        losses = [engine.train_batch(batch)["loss"].item() for _ in range(2)]
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(handler)
+    launches = _flash_launches(fa)
+    disabled = [x for x in lines if "disabling probe" in x]
+    log(f"phase18c probe on the kernels bf16 B2xT512 2 steps: losses={losses} probe disabled="
+        f"{engine._eigenvalue is None} log lines={disabled} launches={launches}")
+    check(engine._eigenvalue is None and len(disabled) == 1
+          and "FlashAttention is not twice differentiable" in disabled[0],
+          f"18c: the probe on the kernels: {disabled}")
+    check(all(math.isfinite(x) for x in losses), f"18c losses {losses}")
+    expected = path_launches(launches, 2 * L, _flash_path("bfloat16"))
+    expected["fwd_tc"] += L  # the probe's one forward before the refusal
+    check(launches == expected, f"18c launches {launches}, expected {expected}")
+    ctx["a3c_launches"] = {k: v + launches[k] for k, v in ctx["a3c_launches"].items()}
+    del engine
+    torch.cuda.empty_cache()
+
+    # the plain path at full depth, fp32, with MoQ on the probed curvature
+    engine = _engine(_train_config(2, eigenvalue=EV18, compression_training=EV18_MOQ),
+                     dataclasses.replace(cfg, use_flash=False))
+    probe, times = engine._eigenvalue, []
+    compute = probe.compute
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = compute(*a, **kw)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    probe.compute = timed
+    fa, _ = _reset_counts()  # the plain path launches nothing
+    m = engine.train_batch(batch)
+    curv = engine.state["curvature"].cpu().numpy()
+    offset = EV18_MOQ["weight_quantization"]["shared_parameters"]["schedule_offset"]
+    onsets = [int(offset * (1 + math.floor(4 * float(c)))) for c in curv]
+    mid = (min(onsets) + max(onsets)) // 2
+    with torch.no_grad():
+        params = engine.state["params"]
+        moq = engine._compression.transform(params, mid, curvature=curv)
+        quantized = [not torch.equal(moq["blocks"]["mlp_up_w"][i], params["blocks"]["mlp_up_w"][i])
+                     for i in range(L)]
+    log(f"phase18c probe on the plain path fp32 B2xT512 {L} layers (max_iter "
+        f"{EV18['max_iter']}, tol {EV18['tol']}): loss={m['loss'].item()} curvature="
+        f"{[round(float(c), 4) for c in curv]} MoQ onsets by layer={onsets} quantized at step "
+        f"{mid}={quantized} probe s={times[0]:.3f} ({times[0] / L * 1e3:.1f} ms a layer) "
+        f"launches={_flash_launches(fa)} card={card}")
+    check(len(times) == 1 and engine._eigenvalue is not None, "18c: the plain probe did not run")
+    check(bool(np.isfinite(curv).all()) and curv.min() >= 0 and curv.max() == 1.0,
+          f"18c curvature {curv}")
+    check(max(onsets) > min(onsets), f"18c: the onsets {onsets} do not stretch")
+    check(quantized == [o <= mid for o in onsets], f"18c: quantized {quantized} at {mid}")
+    check(not any(_flash_launches(fa).values()), "18c: the plain path launched kernels")
+    del engine, params, moq
+    torch.cuda.empty_cache()
+
+    # one layer's HVP in fp64 at full width and depth 2 against a central difference
+    small = dataclasses.replace(cfg, n_layer=2, use_flash=False)
+    model, _ = gpt.build(small)
+    params = tree_map(lambda t: t.double(), model.init(0, device="cuda"))
+    b = {"input_ids": torch.from_numpy(rng.integers(0, V, (1, 128)).astype(np.int64)).cuda()}
+    loss = lambda q, bb: model.apply(q, bb, train=False)[0]  # noqa: E731
+    blocks = tree_leaves(params["blocks"])
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    v = [torch.randn(a[1].shape, generator=gen, device="cuda") for a in blocks]
+    hv = Eigenvalue().hvp(loss, params, b, 1, v)
+
+    def grad_at(eps):
+        theta = [(a[1] + eps * w.double()).requires_grad_(True) for a, w in zip(blocks, v)]
+        stacked = [torch.cat([a[:1], t[None], a[2:]]) for a, t in zip(blocks, theta)]
+        q = {**params, "blocks": tree_unflatten(params["blocks"], stacked)}
+        return torch.autograd.grad(loss(q, b), theta)
+
+    fd = [(p - m_) / (2 * FD_EPS) for p, m_ in zip(grad_at(FD_EPS), grad_at(-FD_EPS))]
+    num = math.sqrt(sum(float(((h.double() - f) ** 2).sum()) for h, f in zip(hv, fd)))
+    den = math.sqrt(sum(float((f ** 2).sum()) for f in fd))
+    log(f"phase18c fp64 HVP of layer 1, gpt2-125m width at depth 2, B1xT128, against the "
+        f"central difference at eps {FD_EPS}: relative error={num / den:.3e} |Hv|={den:.4e}")
+    check(num <= FD_RTOL * den, f"18c: the HVP is {num / den:.3e} from the central difference")
+
+
 def main() -> int:
     import torch
 
@@ -5488,7 +5906,7 @@ def main() -> int:
                   phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
                   phase_sparse, phase_head_dim_96, phase_checkpoint, phase_gpt_variants,
                   phase_decoding_modes, phase_serving_levers, phase_data_parallel,
-                  phase_engine_features):
+                  phase_engine_features, phase_a3c):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)

@@ -13,7 +13,8 @@ attention and the chunked cross-entropy too), training through
 quantized weight wire and LM head, data parallel over the ranks of
 ``comm.init_distributed``; the DeepSpeed data loader, the seqlen
 curriculum, random-LTD, progressive layer drop, every remat policy, the
-monitors, ``wall_clock_breakdown`` and the flops profiler), KV-cache generation (greedy, sampled or beam
+monitors, ``wall_clock_breakdown`` and the flops profiler; the 1-bit optimizers,
+``compression_training`` and the eigenvalue probe), KV-cache generation (greedy, sampled or beam
 search) through :func:`init_inference` (dense, or int8 / int4 weights with
 ``quant={"enabled": True, ...}``), continuous-batching paged serving
 (``inference.serving``), and checkpointing

@@ -16,9 +16,11 @@ and the optimizer state from stage 1): ``train_state_from_numpy(...,
 policy=engine.zero_policy)`` cuts a full state into this rank's slices, and
 ``train_state_to_numpy(state, specs=engine.param_specs,
 opt_specs=engine.opt_specs)`` joins every rank's slices back into the full
-state (a collective: every rank calls it). The quantized gradient
-exchange's error-feedback residuals cross too: a rank holds its row of the
-reference's global ``[W, npad]`` / ``[L, W, npad_l]`` arrays.
+state (a collective: every rank calls it). The error-feedback residuals
+cross too: a rank holds its row of the reference's global arrays (the
+quantized gradient exchange's ``[W, npad]`` / ``[L, W, npad_l]``, the 1-bit
+optimizers' ``onebit`` ``worker_error`` [W, Np] and ``server_error`` [W,
+Np / W]), and so does the eigenvalue probe's ``curvature`` [n_layer].
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from .comm import comm
 from .models import gpt as gpt_mod
 from .ops.optimizers import AdagradState, AdamState, SGDState
 from .runtime.precision import ScalerState
-from .runtime.zero.reshard import RESIDUAL_RANK_AXIS
+from .runtime.zero.reshard import RESIDUAL_RANK_AXIS, get_path, set_path
 from .utils.tree import tree_map
 
 
@@ -140,8 +142,9 @@ def join_state(state: Dict[str, Any], specs: Any, opt_specs: Any = None) -> Dict
     out = map_param_trees(state, lambda tree: join_tree(tree, specs),
                           lambda tree: join_tree(tree, opt_specs))
     for key, axis in RESIDUAL_RANK_AXIS.items():
-        if key in state:
-            out[key] = comm.all_gather(state[key].detach(), axis=axis)
+        row = get_path(state, key)
+        if row is not None:
+            set_path(out, key, comm.all_gather(row.detach(), axis=axis))
     return out
 
 
@@ -164,8 +167,8 @@ def train_state_from_numpy(state: Dict[str, Any], device=None,
             state, lambda tree: policy.shard_tree(tree_map(np.asarray, tree), specs),
             lambda tree: policy.shard_tree(tree_map(np.asarray, tree), opt_specs))
         for key, axis in RESIDUAL_RANK_AXIS.items():
-            if key in state:
-                state[key] = policy.shard(np.asarray(state[key]), axis)
+            if get_path(state, key) is not None:
+                set_path(state, key, policy.shard(np.asarray(get_path(state, key)), axis))
     master = state["master"]
     out = {
         "params": params_from_numpy(state["params"], dev, dtype),
@@ -175,9 +178,9 @@ def train_state_from_numpy(state: Dict[str, Any], device=None,
         "micro": _scalar(state["micro"], dev, torch.int32),
         "scaler": scaler_state_from_numpy(state["scaler"], dev),
     }
-    for key in RESIDUAL_RANK_AXIS:
-        if key in state:
-            out[key] = _tensor(state[key]).to(device=dev, dtype=torch.float32)
+    for key in (*RESIDUAL_RANK_AXIS, "curvature"):
+        if get_path(state, key) is not None:
+            set_path(out, key, _tensor(get_path(state, key)).to(device=dev, dtype=torch.float32))
     return out
 
 
@@ -197,7 +200,7 @@ def train_state_to_numpy(state: Dict[str, Any], specs: Any = None,
         "micro": state["micro"].cpu().numpy(),
         "scaler": scaler_state_to_numpy(state["scaler"]),
     }
-    for key in RESIDUAL_RANK_AXIS:
-        if key in state:
-            out[key] = state[key].detach().cpu().numpy()
+    for key in (*RESIDUAL_RANK_AXIS, "curvature"):
+        if get_path(state, key) is not None:
+            set_path(out, key, get_path(state, key).detach().cpu().numpy())
     return out

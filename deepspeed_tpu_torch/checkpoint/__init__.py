@@ -45,8 +45,10 @@ from ..resilience.manifest import CheckpointCorruptionError
 from ..runtime.zero.reshard import (
     RESIDUAL_RANK_AXIS,
     apply_cursor_reshard,
+    get_path,
     load_resolver,
     partition_record,
+    set_path,
 )
 from ..utils.errors import unported
 from ..utils.logging import log_dist, logger
@@ -223,18 +225,19 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     template = bridge.map_param_trees(engine.state, lambda t: full(t, engine.param_specs),
                                       lambda t: full(t, engine.opt_specs))
     for key, axis in RESIDUAL_RANK_AXIS.items():
-        if key in engine.state:
-            shape = list(engine.state[key].shape)
+        row = get_path(engine.state, key)
+        if row is not None:
+            shape = list(row.shape)
             shape[axis] *= world
-            template[key] = torch.empty(shape, dtype=torch.float32, device="meta")
+            set_path(template, key, torch.empty(shape, dtype=torch.float32, device="meta"))
     state = load_pytree(template, os.path.join(ckpt_dir, "state"),
                         on_shape_mismatch=load_resolver(old_world, world) if resharding
                         else None)
     state = bridge.map_param_trees(state, lambda t: _cut_tree(t, engine, engine.param_specs),
                                    lambda t: _cut_tree(t, engine, engine.opt_specs))
     for key, axis in RESIDUAL_RANK_AXIS.items():
-        if key in state:
-            state[key] = engine.zero_policy.shard(state[key], axis).clone()
+        if get_path(state, key) is not None:
+            set_path(state, key, engine.zero_policy.shard(get_path(state, key), axis).clone())
     state = _to_device(state, engine.device)
     if not load_optimizer_states:
         state = {**state, "opt": engine.state["opt"], "master": engine.state["master"]}

@@ -6,8 +6,11 @@
   trailing dimension, edge-padded to a whole block), 8-bit or packed 4-bit
   payloads (low nibble first), optional stochastic rounding from a
   ``torch.Generator``; their numpy mirrors for the host; the error-feedback
-  step. Deterministic rounding is the reference's bit for bit: the same fp32
-  operations in the same order, round half to even.
+  step; the 1-bit wire of the compressed allreduce (:func:`pack_signs`,
+  numpy's ``packbits`` layout, and :func:`quantize_1bit`: the signs and
+  one fp32 scale ``||x|| / sqrt(n)``). Deterministic rounding is the
+  reference's bit for bit: the same fp32 operations in the same order,
+  round half to even.
 - Collectives over the :mod:`.comm` facade: :func:`qall_gather`,
   :func:`qreduce_scatter` (dequantize, then reduce in fp32: only the wire is
   int) and :func:`qall_to_all`; :func:`grad_bucket_reduce`, one gradient
@@ -217,9 +220,44 @@ def np_dequantize_blockwise(q: np.ndarray, scale: np.ndarray, zero_point: np.nda
 def error_feedback_step(buf, quantize_fn, dequantize_fn):
     """Compress ``buf`` and keep what the wire format lost: returns
     ``(payload, new_residual)``; the caller folds the residual into the next
-    step's ``buf``."""
+    step's ``buf``. The one residual update of the int collectives and of
+    the 1-bit allreduce (``runtime/comm/compressed.py``)."""
     payload = quantize_fn(buf)
     return payload, buf - dequantize_fn(payload)
+
+
+# 1-bit (sign) wire format of the compressed allreduce: numpy's packbits
+# layout (big bit order: element 8j + 7 - b in bit b of byte j), 1 = x >= 0
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def pack_signs(x: torch.Tensor) -> torch.Tensor:
+    """[n] float -> [n/8] uint8 of sign bits (1 = non-negative, so -0.0
+    packs as 1 and NaN as 0), bytewise ``np.packbits(x >= 0)``. n % 8 == 0."""
+    if x.numel() % 8:
+        raise ValueError(f"pack_signs: {x.numel()} elements is not a multiple of 8")
+    bits = (x.reshape(-1, 8) >= 0).to(torch.uint8)
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=x.device)
+    return (bits * weights).sum(dim=-1, dtype=torch.uint8)
+
+
+def unpack_signs(packed: torch.Tensor, n: int) -> torch.Tensor:
+    """[..., n/8] uint8 -> [..., n] fp32 of +-1."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return 2.0 * bits.reshape(packed.shape[:-1] + (-1,))[..., :n].float() - 1.0
+
+
+def quantize_1bit(buf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Magnitude-preserving 1-bit quantization: (packed signs, the fp32 scale
+    ``||buf|| / sqrt(n)``), the 1-bit Adam wire format."""
+    n = buf.shape[-1]
+    scale = torch.linalg.vector_norm(buf.float()) / float(np.float32(np.sqrt(n)))
+    return pack_signs(buf), scale
+
+
+def dequantize_1bit(packed: torch.Tensor, scale: torch.Tensor, n: int) -> torch.Tensor:
+    return scale * unpack_signs(packed, n)
 
 
 def wire_bytes_per_element(bits: int, block_size: int) -> float:

@@ -700,7 +700,13 @@ class _ChunkedCE(torch.autograd.Function):
     chunk's ``[B, chunk, V]`` logits (the reference's rematerialized scan).
     The gradient is the reference's: the fp32 cotangent of a chunk's logits
     is cast to the compute dtype before the two products, and the chunks'
-    head gradients are summed in the compute dtype, in place."""
+    head gradients are summed in the compute dtype, in place.
+
+    A backward asked to build a graph (``create_graph=True``: a
+    Hessian-vector product, as the reference's probe differentiates its
+    rematerialized scan twice) takes the same arithmetic out of place, with
+    each chunk's logsumexp recomputed from the logits rather than read from
+    the saved one, so that no term of the second derivative is lost."""
 
     @staticmethod
     def forward(ctx, hidden, head, head_bias, targets, mask, chunk):
@@ -724,6 +730,9 @@ class _ChunkedCE(torch.autograd.Function):
     def backward(ctx, g_sum, _g_count):
         hidden, head, head_bias, targets, mask, logz = ctx.saved_tensors
         chunk = ctx.chunk
+        if torch.is_grad_enabled():
+            return _chunked_ce_grads_with_graph(ctx, hidden, head, head_bias, targets, mask,
+                                                g_sum, chunk)
         need_h, need_w, need_b = ctx.needs_input_grad[:3]
         dh = torch.empty_like(hidden) if need_h else None
         dw = torch.zeros(head.shape, dtype=hidden.dtype, device=head.device) if need_w else None
@@ -751,6 +760,34 @@ class _ChunkedCE(torch.autograd.Function):
             if need_b:
                 db += d.sum(dim=(0, 1)).to(db.dtype)
         return dh, dw.to(head.dtype) if need_w else None, db, None, None, None
+
+
+def _chunked_ce_grads_with_graph(ctx, hidden, head, head_bias, targets, mask, g_sum, chunk):
+    """:class:`_ChunkedCE`'s gradients as differentiable functions of its
+    inputs and of ``g_sum``: its backward's arithmetic out of place, the
+    logsumexp recomputed per chunk."""
+    need_h, need_w, need_b = ctx.needs_input_grad[:3]
+    dhs, dw, db = [], None, None
+    head_c = head.to(hidden.dtype)
+    for c0 in range(0, hidden.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        h_c = hidden[:, sl]
+        logits = _chunk_logits(h_c, head, head_bias)
+        logits32 = logits.float()
+        p = torch.exp(logits32 - torch.logsumexp(logits32, dim=-1, keepdim=True))
+        idx = targets[:, sl, None]
+        p = p.scatter_add(-1, idx, torch.full(idx.shape, -1.0, dtype=p.dtype, device=p.device))
+        d = (p * (mask[:, sl] * g_sum)[..., None]).to(logits.dtype)
+        if need_h:
+            dhs.append(d @ head_c)
+        if need_w:
+            part = d.flatten(0, 1).t() @ h_c.flatten(0, 1)
+            dw = part if dw is None else dw + part
+        if need_b:
+            part = d.sum(dim=(0, 1)).to(head_bias.dtype)
+            db = part if db is None else db + part
+    return (torch.cat(dhs, dim=1) if need_h else None,
+            dw.to(head.dtype) if need_w else None, db, None, None, None)
 
 
 def _chunked_ce(hidden: torch.Tensor, head: torch.Tensor, head_bias: Optional[torch.Tensor],

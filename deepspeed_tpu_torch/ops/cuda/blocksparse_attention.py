@@ -52,7 +52,7 @@ import torch
 from .. import _build
 from ...profiling import flops_profiler
 from . import flash_attention as fa
-from .flash_attention import DTYPE_CODE, NEG_INF, _readable, _stream
+from .flash_attention import DTYPE_CODE, NEG_INF, _readable, _stream, refuse_double_backward
 
 BLOCKS = (16, 32, 64, 128)  # the kernels' block sizes
 HEAD_DIMS = (64, 96, 128)  # the kernels' template instances
@@ -695,7 +695,8 @@ class BlocksparseAttention(torch.autograd.Function):
     """Differentiable blocksparse attention: the forward kernel, then the dq
     and dk/dv kernels from the saved logsumexp (the reference's
     ``custom_vjp`` around ``_bs_attn``). On CPU tensors both halves take
-    their plain versions."""
+    their plain versions. Its backward refuses to build a graph
+    (``create_graph=True``) on every device, as ``FlashAttention``'s does."""
 
     @staticmethod
     def forward(ctx, q, k, v, layout, block: int, causal: bool,
@@ -709,6 +710,7 @@ class BlocksparseAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        refuse_double_backward("BlocksparseAttention")
         q, k, v, o, lse, *tables = ctx.saved_tensors
         dq, dk, dv = blocksparse_attention_bwd(q, k, v, o, lse, do, ctx.layout, ctx.block,
                                                ctx.causal, ctx.softmax_scale,

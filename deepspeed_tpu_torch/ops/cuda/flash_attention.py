@@ -678,10 +678,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     return dq, dk, dv
 
 
+def refuse_double_backward(name: str) -> None:
+    """Raise where a backward is asked to build a graph of its gradients
+    (grad mode is on inside a backward only under ``create_graph=True``)."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            f"{name} is not twice differentiable: its backward kernels return gradients "
+            "without a graph (run the plain attention path, use_flash=False, for "
+            "second-order derivatives)")
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention: B1 forward, B2 backward from the
     saved logsumexp (the reference's ``custom_vjp`` around ``_flash``).
-    On CPU tensors both halves take their plain versions."""
+    On CPU tensors both halves take their plain versions.
+
+    Once differentiable, never twice: the kernels' gradients carry no graph,
+    so a backward asked to build one (``create_graph=True``, as a
+    Hessian-vector product does) raises ``NotImplementedError`` on every
+    device, as the reference's ``custom_vjp`` has no rule for a second
+    derivative. Without it the attention term of a second derivative would
+    vanish on the card and not on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, softmax_scale: Optional[float],
@@ -695,6 +712,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        refuse_double_backward("FlashAttention")
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal, ctx.softmax_scale,
                                          ctx.stochastic)

@@ -28,7 +28,6 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from ..utils.errors import unported
 from ..utils.tree import tree_leaves, tree_map
 
 Params = Any
@@ -135,6 +134,29 @@ def fused_adam(
     return Optimizer(init=init, update=update, name="FusedAdam")
 
 
+def lamb_trust_ratios(p32: List[torch.Tensor], upd: List[torch.Tensor], min_coeff: float,
+                      max_coeff: float, sliced: Optional[List[bool]] = None
+                      ) -> List[torch.Tensor]:
+    """LAMB's per-leaf trust ratios ``clip(|w| / |u|, min_coeff, max_coeff)``
+    (1 where a norm is 0), as 0-dim tensors. A leaf marked in ``sliced`` is
+    this rank's slice of a leaf cut over the data-parallel ranks: its norms
+    are the logical leaf's, the squared norms of the ranks' slices
+    all-reduced, as the reference's norms see the global array."""
+    w_norm = torch.stack(torch._foreach_norm(p32))
+    u_norm = torch.stack(torch._foreach_norm(upd))
+    if sliced is not None and any(sliced):
+        from ..comm import comm
+
+        cut = torch.tensor(sliced, device=w_norm.device)
+        norms = torch.stack([w_norm, u_norm])
+        logical = comm.all_reduce(norms.square() * cut).sqrt()
+        w_norm, u_norm = torch.where(cut, logical, norms).unbind(0)
+    trust = torch.where((w_norm > 0) & (u_norm > 0),
+                        torch.clamp(w_norm / u_norm, min_coeff, max_coeff),
+                        torch.ones_like(w_norm))
+    return list(trust.unbind())
+
+
 def fused_lamb(
     betas: Tuple[float, float] = (0.9, 0.999),
     eps: float = 1e-8,
@@ -145,9 +167,7 @@ def fused_lamb(
 ) -> Optimizer:
     """LAMB with a per-tensor trust ratio (the reference's ``fused_lamb``).
     Its ``update`` takes ``sliced``, one bool per leaf, for a state cut over
-    the data-parallel ranks (ZeRO): the trust ratio of a sliced leaf takes
-    the norms of the logical leaf, the squared norms of the ranks' slices
-    all-reduced, as the reference's norms see the global array."""
+    the data-parallel ranks (ZeRO; :func:`lamb_trust_ratios`)."""
     b1, b2 = betas
 
     def init(params):
@@ -166,19 +186,7 @@ def fused_lamb(
         upd = _adam_direction(mu, nu, bc1, bc2, eps)
         if weight_decay:
             torch._foreach_add_(upd, torch._foreach_mul(p32, weight_decay))
-        w_norm = torch.stack(torch._foreach_norm(p32))
-        u_norm = torch.stack(torch._foreach_norm(upd))
-        if sliced is not None and any(sliced):
-            from ..comm import comm
-
-            cut = torch.tensor(sliced, device=w_norm.device)
-            norms = torch.stack([w_norm, u_norm])
-            logical = comm.all_reduce(norms.square() * cut).sqrt()
-            w_norm, u_norm = torch.where(cut, logical, norms).unbind(0)
-        trust = torch.where((w_norm > 0) & (u_norm > 0),
-                            torch.clamp(w_norm / u_norm, min_coeff, max_coeff),
-                            torch.ones_like(w_norm))
-        torch._foreach_mul_(upd, list(trust.unbind()))
+        torch._foreach_mul_(upd, lamb_trust_ratios(p32, upd, min_coeff, max_coeff, sliced))
         _apply(leaves, p32, upd, lr)
         return params, AdamState(count=count, mu=state.mu, nu=state.nu)
 
@@ -249,7 +257,8 @@ def sgd(momentum: float = 0.0, weight_decay: float = 0.0, nesterov: bool = False
 # --------------------------------------------------------------------------- registry
 def get_optimizer(name: str, params: Dict[str, Any]) -> Optimizer:
     """Build an optimizer from a DeepSpeed ``"optimizer"`` config block (the
-    reference's name dispatch). The 1-bit optimizers are not ported yet."""
+    reference's name dispatch). The 1-bit optimizers give their dense
+    counterparts, the math of their warmup."""
     name_l = name.lower()
     opts = {k: v for k, v in params.items() if k != "lr"}
     betas = tuple(opts.get("betas", (0.9, 0.999)))
@@ -259,9 +268,11 @@ def get_optimizer(name: str, params: Dict[str, Any]) -> Optimizer:
         return fused_adam(betas=betas, eps=eps, weight_decay=wd,
                           adam_w_mode=(name_l != "adam") or opts.get("adam_w_mode", True),
                           bias_correction=opts.get("bias_correction", True))
-    if name_l in ("onebitadam", "zerooneadam", "onebitlamb"):
-        raise unported(f"the 1-bit optimizer {name!r}", "A3c")
-    if name_l in ("lamb", "fusedlamb"):
+    if name_l in ("onebitadam", "zerooneadam"):
+        # the 1-bit optimizers' warmup math; the engine routes their compressed
+        # stage through runtime/fp16/onebit.py
+        return fused_adam(betas=betas, eps=eps, weight_decay=wd)
+    if name_l in ("lamb", "fusedlamb", "onebitlamb"):
         return fused_lamb(betas=betas, eps=eps, weight_decay=wd,
                           max_coeff=opts.get("max_coeff", 10.0),
                           min_coeff=opts.get("min_coeff", 0.01))

@@ -1,1 +1,7 @@
-from .quantize import dequantize, quantize  # noqa: F401
+from .quantize import (  # noqa: F401
+    annealed_bits,
+    dequantize,
+    fake_quant,
+    fake_quant_dynamic,
+    quantize,
+)

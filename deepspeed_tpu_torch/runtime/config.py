@@ -16,7 +16,8 @@ Ported blocks: ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 (``monitor_config`` and the legacy top-level ``tensorboard`` /
 ``csv_monitor`` / ``wandb`` blocks, merged by :attr:`DeepSpeedConfig.monitor`),
 ``progressive_layer_drop``, ``curriculum_learning``, ``data_efficiency``
-(read by the engine: seqlen curriculum and random-LTD),
+(read by the engine: seqlen curriculum and random-LTD), ``eigenvalue``,
+``compression_training``,
 ``wall_clock_breakdown``, and ``mesh`` with a data-parallel axis only:
 ``{"dp": W}`` must name the world size the config is loaded for
 (``initialize`` passes the initialized process group's). Every other block
@@ -201,6 +202,22 @@ class MonitorConfig:
 
 
 @dataclasses.dataclass
+class EigenvalueConfig:
+    """The ``"eigenvalue"`` block: the per-layer Hessian eigenvalue probe
+    (``runtime/eigenvalue.py``). The reference's default ``layer_name``
+    names BERT's layers; a tree without it falls back to ``blocks``."""
+
+    enabled: bool = False
+    verbose: bool = False
+    max_iter: int = 100
+    tol: float = 1e-2
+    stability: float = 1e-6
+    gas_boundary_resolution: int = 1
+    layer_name: str = "bert.encoder.layer"
+    layer_num: int = 0
+
+
+@dataclasses.dataclass
 class ProgressiveLayerDropConfig:
     """Progressive layer drop: ``theta`` is the asymptotic keep probability,
     ``gamma`` the decay rate, theta(t) = (1 - theta) exp(-gamma t) + theta."""
@@ -217,8 +234,6 @@ _UNPORTED_BLOCKS = {
     "pipeline": (lambda v: any(v.get(k, d) != d for k, d in
                                (("stages", 1), ("activation_checkpoint_interval", 0),
                                 ("micro_batches", 0))), "A13"),
-    "eigenvalue": (_enabled, "A3c"),
-    "compression_training": (_enabled, "A3c"),
     "analysis": (_enabled, "A14"),
     "resilience": (_enabled, "A11"),
     "elasticity": (_enabled, "A11"),
@@ -267,6 +282,9 @@ class DeepSpeedConfig:
     wandb: Optional[WandbConfig] = None
     progressive_layer_drop: ProgressiveLayerDropConfig = dataclasses.field(
         default_factory=ProgressiveLayerDropConfig)
+    eigenvalue: EigenvalueConfig = dataclasses.field(default_factory=EigenvalueConfig)
+    # the compression_training block as given (compression/config.py normalizes it)
+    compression_training: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # read by the engine: the seqlen curriculum and random-LTD
     data_efficiency: Dict[str, Any] = dataclasses.field(default_factory=dict)
     curriculum_learning: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -290,11 +308,17 @@ class DeepSpeedConfig:
         blocks = {"fp16", "bf16", "optimizer", "scheduler", "zero_optimization",
                   "comms_logger", "mesh", "checkpoint", "activation_checkpointing",
                   "flops_profiler", "monitor_config", "tensorboard", "csv_monitor", "wandb",
-                  "progressive_layer_drop", "data_efficiency", "curriculum_learning"}
+                  "progressive_layer_drop", "data_efficiency", "curriculum_learning",
+                  "eigenvalue", "compression_training"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         for key in config:
             if key not in scalars and key not in blocks and key not in _UNPORTED_BLOCKS:
                 logger.warning(f"DeepSpeedConfig: ignoring unrecognized key {key!r}")
+        opt_type = str((config.get("optimizer") or {}).get("type", "")).lower()
+        if opt_type in ("onebitadam", "onebitlamb", "zerooneadam") and _mesh_asks(
+                config.get("mesh")):
+            raise ValueError(f"{opt_type}: 1-bit optimizers require pure data parallelism "
+                             "(tp=pp=sp=ep=1), matching the reference's restrictions")
         for key, (asks, item) in _UNPORTED_BLOCKS.items():
             if key in config and asks(config[key]):
                 raise unported(f"the {key!r} config block", item)
@@ -319,6 +343,8 @@ class DeepSpeedConfig:
                 setattr(self, key, _from_dict(cls_, config[key]))
         self.progressive_layer_drop = _from_dict(ProgressiveLayerDropConfig,
                                                  config.get("progressive_layer_drop"))
+        self.eigenvalue = _from_dict(EigenvalueConfig, config.get("eigenvalue"))
+        self.compression_training = dict(config.get("compression_training") or {})
         self.data_efficiency = dict(config.get("data_efficiency") or {})
         self.curriculum_learning = dict(config.get("curriculum_learning") or {})
         self._resolve_batch(world_size)

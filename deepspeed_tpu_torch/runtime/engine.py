@@ -72,15 +72,28 @@ skipped step); ``wall_clock_breakdown`` times ``batch_input`` and
 ``train_batch`` (``forward`` and ``step`` on the imperative path), each
 timer synchronising only under the flag; the flops profiler profiles the
 step at its ``profile_step``; and the ``activation_checkpointing`` block
-configures :mod:`.activation_checkpointing`. Everything else the reference
-engine does and the port does not raises ``NotImplementedError`` naming its
-ROADMAP.md item.
+configures :mod:`.activation_checkpointing`.
+
+The 1-bit optimizers (``OneBitAdam``, ``OneBitLamb``, ``ZeroOneAdam``) train
+with their dense counterpart until ``freeze_step``; from there the boundary
+is :mod:`.fp16.onebit`'s, on each rank's local gradients, with the
+residual rows in ``state["onebit"]``. ``compression_training`` applies
+:mod:`..compression`'s transform to the parameters inside the loss at the
+count of steps taken (at stage 3 the planned layer-stacked leaves are
+gathered whole first). The ``eigenvalue`` probe runs after every
+``gas_boundary_resolution``-th step on the step's (first micro-)batch and
+writes ``state["curvature"]``, which stretches the MoQ schedule per layer;
+where the model cannot be differentiated twice (the attention kernels) it
+logs and disables itself. The reference's refusals of what these do not
+compose with are kept. Everything else the reference engine does and the
+port does not raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..accelerator import resolve_device, to_device
@@ -109,7 +122,7 @@ from .precision import (
 from .utils import clip_by_global_norm, count_parameters, global_norm
 from .zero.gather import gather_leaf, gather_window
 from .zero.policy import STACKED, ZeroShardingPolicy
-from .zero.reshard import RESIDUAL_RESET_KEYS
+from .zero.reshard import RESIDUAL_RANK_AXIS, get_path
 
 
 class DeepSpeedEngine:
@@ -213,6 +226,7 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------ state
     def _init_state(self) -> Dict[str, Any]:
         params_f32 = self.model.init(self.seed, device=self.device)
+        self._init_a3c(params_f32)
         if self._qcomm.gradients:
             self._init_qgrad(params_f32)
         # every rank builds the whole tree from the seed and keeps its slices:
@@ -250,7 +264,57 @@ class DeepSpeedEngine:
             if self._qgrad_bucket_key is not None:
                 state["qgrad_bucket_residual"] = zeros(self._qgrad_bucket_L, 1,
                                                        self._qgrad_bucket_npad)
+        if self._onebit is not None:
+            state["onebit"] = self._onebit.init_state(self.device)
+        if self._eigenvalue is not None:
+            # normalized per-layer eigenvalues; 0 = not probed yet (factor 1 in the MoQ gate)
+            state["curvature"] = torch.zeros(len(self._curvature_np), dtype=torch.float32,
+                                             device=self.device)
         return self._with_leaves(state)
+
+    def _init_a3c(self, params_f32) -> None:
+        """The 1-bit runner, the compression scheduler and the eigenvalue
+        probe, and the reference's refusals of what they do not compose with."""
+        from ..compression import init_compression
+        from .eigenvalue import Eigenvalue
+        from .fp16.onebit import ONEBIT_TYPES, OnebitRunner
+
+        config = self.config
+        self._onebit = None
+        opt_type = config.optimizer.type.lower() if config.optimizer else ""
+        if opt_type in ONEBIT_TYPES:
+            self._onebit = OnebitRunner(self, opt_type, config.optimizer.params,
+                                        sum(t.numel() for t in tree_leaves(params_f32)))
+        self._compression = None
+        if config.compression_training:
+            sched = init_compression(params_f32, config)
+            self._compression = sched if sched.enabled else None
+        self._eigenvalue = None
+        self._ev_last_batch = None
+        self._curvature_np = None  # the host copy of state["curvature"]
+        if config.eigenvalue.enabled:
+            self._eigenvalue = Eigenvalue.from_config(config.eigenvalue)
+            scope, _, n_layer = self._eigenvalue._blocks(params_f32)
+            self._curvature_np = np.zeros(n_layer, np.float32)
+            if self._compression is not None:
+                # the per-layer MoQ gate covers the probed subtree only
+                self._compression.curvature_scope = scope.replace(".", "/")
+        if self._onebit is not None and self._random_ltd is not None:
+            raise ValueError("random_ltd is not supported together with ZeRO-Offload or 1-bit "
+                             "optimizers (their compiled programs cannot follow the "
+                             "keep-schedule's model rebuilds)")
+        if self._onebit is not None and self.progressive_layer_drop is not None:
+            raise ValueError("progressive_layer_drop is not supported together with "
+                             "ZeRO-Offload/Infinity or 1-bit optimizers")
+        if self._compression is not None and self._onebit is not None:
+            raise ValueError("compression_training is not supported together with "
+                             "ZeRO-Offload or 1-bit optimizers")
+        if self._qcomm.gradients and self._onebit is not None:
+            raise ValueError("zero_quantized_gradients and 1-bit optimizers are exclusive "
+                             "(each owns the gradient exchange)")
+        if self._qcomm.gradients and self._compression is not None:
+            raise ValueError("zero_quantized_gradients does not compose with "
+                             "compression_training or progressive_layer_drop")
 
     def _init_data_efficiency(self, model: Module, config: DeepSpeedConfig) -> None:
         """The curriculum scheduler, random-LTD's scheduler and progressive
@@ -366,6 +430,8 @@ class DeepSpeedEngine:
         if bool(state["master"]) != self.pc.master_weights:
             raise ValueError("load_state: the master copy does not match the precision mode")
         self.state = self._with_leaves(dict(state))
+        if "curvature" in state:
+            self._curvature_np = state["curvature"].detach().cpu().numpy().astype(np.float32)
         self.global_steps = int(state["step"])
         self._micro = int(state["micro"])
         self._grad_acc = None
@@ -464,9 +530,12 @@ class DeepSpeedEngine:
             pcfg = self.config.progressive_layer_drop
             # theta at the count of steps taken before this one
             kwargs["pld_theta"] = pld_theta(pcfg.theta, pcfg.gamma, self.global_steps)
-        with gather_window(self.config.zero_optimization, self.param_specs.get(STACKED)):
+        params, dims = self._model_params(), self.param_specs.get(STACKED)
+        if self._compression is not None:
+            params, dims = self._compressed(params, dims)
+        with gather_window(self.config.zero_optimization, dims):
             try:
-                out = self.model.apply(self._model_params(), batch,
+                out = self.model.apply(params, batch,
                                        rngs={"dropout": self._micro_seed()}, train=True,
                                        **kwargs)
             except TypeError as e:
@@ -482,13 +551,29 @@ class DeepSpeedEngine:
         eff, _ = self._scales()
         return loss.float() * eff, loss
 
+    def _compressed(self, params, dims):
+        """The compression transform at the count of steps taken, inside the
+        loss so that the straight-through gradient reaches the weights. At
+        stage 3 each planned layer-stacked leaf is gathered whole first (its
+        layers then skip the per-layer gather): the transform sees the
+        logical leaves, as the reference's does."""
+        if self.zero_policy.stage >= 3:
+            stacked = {k for k in self._compression.plan if k.startswith(STACKED + "/")}
+            names = {k.split("/", 1)[1] for k in stacked}
+            params = {**params, STACKED: {k: gather_leaf(v, dims.get(k)) if k in names else v
+                                          for k, v in params[STACKED].items()}}
+            dims = {k: None if k in names else d for k, d in dims.items()}
+        return (self._compression.transform(params, self.global_steps,
+                                            curvature=self._curvature_np), dims)
+
     def _loss_weight(self, batch) -> Optional[torch.Tensor]:
         """With a ``loss_mask`` across ranks, W times this rank's share of
         the mask's targets: the mean of the weighted per-rank masked means
         is the global masked mean, as the reference computes it over the
         whole batch. The quantized exchange keeps the reference's mean of
         per-rank means (its ``_qdp_grads`` loss is per rank)."""
-        if self.world_size == 1 or "loss_mask" not in batch or self._qcomm.gradients:
+        if (self.world_size == 1 or "loss_mask" not in batch or self._qcomm.gradients
+                or (self._onebit is not None and self._onebit.compressed())):
             return None
         if self.model.loss_count is None:
             raise ValueError("a loss_mask across data-parallel ranks needs the model's "
@@ -625,9 +710,9 @@ class DeepSpeedEngine:
         else:
             # an overflow poisons the error-feedback residuals (a block's scale
             # goes inf): drop them with the skipped update, as the reference does
-            for key in RESIDUAL_RESET_KEYS:
-                if key in state:
-                    state[key].zero_()
+            for key in RESIDUAL_RANK_AXIS:
+                if get_path(state, key) is not None:
+                    get_path(state, key).zero_()
         loss_scale = state["scaler"].scale
         state["scaler"] = update_scaler(self.pc, state["scaler"], finite)
         state["step"] = state["step"] + 1
@@ -717,6 +802,9 @@ class DeepSpeedEngine:
         if wcb:
             self.timers("train_batch").stop(sync_on=metrics["loss"])
         self._finish_step(metrics)
+        if self._eigenvalue is not None:  # on the step's batch, the first micro-batch
+            self._update_curvature(batch if self.gas == 1 else {k: v[0] for k, v in
+                                                                 batch.items()})
         spp = self.config.steps_per_print
         if wcb and spp and self.global_steps % spp == 0:
             self.timers.log(["batch_input", "train_batch"])
@@ -735,7 +823,10 @@ class DeepSpeedEngine:
             scaled, loss = self._forward(mb)
             self._accumulate(scaled)
             losses.append(loss.detach())
-        metrics = self._boundary_step()
+        if self._onebit is not None and self._onebit.compressed():
+            metrics = self._onebit.boundary()
+        else:
+            metrics = self._boundary_step()
         loss = losses[0] if self.gas == 1 else torch.stack(losses).mean()
         metrics["loss"] = comm.all_reduce(loss, op="mean")
         return metrics
@@ -755,6 +846,10 @@ class DeepSpeedEngine:
         k = int(next(iter(batch.values())).shape[0])
         if self._micro:
             raise RuntimeError("train_batches: an imperative accumulation window is open")
+        if self._onebit is not None:
+            raise ValueError("train_batches requires the fully in-HBM fused path; the "
+                             "1-bit/offload/param-stream runners interleave host work per "
+                             "step — call train_batch per step instead")
         self._apply_random_ltd()
         batch = self._apply_curriculum(batch)
         per_step = []
@@ -773,10 +868,18 @@ class DeepSpeedEngine:
     def forward(self, batch) -> torch.Tensor:
         """The training loss of one micro-batch (across ranks: its mean over
         them), with its graph kept for :meth:`backward`."""
+        if self._onebit is not None:
+            raise RuntimeError(
+                "1-bit optimizers use the fused train_batch() API (the compressed stage is a "
+                "single program; the split forward/backward/step surface cannot express "
+                "per-rank gradient exchange)")
         wcb = self.wall_clock_breakdown()
         if wcb:
             self.timers("forward").start()
-        scaled, loss = self._forward(self._place_batch(self._apply_curriculum(batch)))
+        placed = self._place_batch(self._apply_curriculum(batch))
+        scaled, loss = self._forward(placed)
+        if self._eigenvalue is not None:  # probed at the next step() boundary
+            self._ev_last_batch = placed
         self._pending = scaled
         loss = comm.all_reduce(loss, op="mean")
         if wcb:
@@ -804,8 +907,44 @@ class DeepSpeedEngine:
         if wcb:
             self.timers("step").start()
         self._finish_step(self._boundary_step())
+        if self._eigenvalue is not None and self._ev_last_batch is not None:
+            self._update_curvature(self._ev_last_batch)
         if wcb:
             self.timers("step").stop(sync_on=self.state["step"])
+
+    # ------------------------------------------------------------------ eigenvalue
+    def _ev_loss(self, params, batch) -> torch.Tensor:
+        """The probe's loss: the model's loss at ``train=False`` (one stable
+        function, no compression transform)."""
+        out = self.model.apply(params, batch, train=False)
+        return (out[0] if isinstance(out, tuple) else out).float()
+
+    def _update_curvature(self, batch) -> None:
+        """The per-layer eigenvalues refreshed every
+        ``gas_boundary_resolution``-th step, on ``batch`` (this rank's rows;
+        across ranks each Hessian-vector product is their mean). A model that
+        cannot be differentiated twice (the attention kernels' Functions
+        raise ``NotImplementedError``) logs and disables the probe, as the
+        reference does; any other error propagates."""
+        if self.global_steps % self._eigenvalue.gas_boundary_resolution != 0:
+            return
+        from .. import bridge
+
+        params = bridge.join_tree(self.state["params"], self.param_specs)  # detached
+        reduce = ((lambda hv: [comm.all_reduce(h, op="mean") for h in hv])
+                  if self.world_size > 1 else None)
+        try:
+            ev = self._eigenvalue.compute(self._ev_loss, params, batch=batch, reduce=reduce)
+        except (TypeError, NotImplementedError) as e:
+            log_dist(f"eigenvalue: model does not support second-order differentiation ({e}); "
+                     "disabling probe")
+            self._eigenvalue = None
+            return
+        self._curvature_np = ev
+        self.state["curvature"] = torch.as_tensor(ev, dtype=torch.float32, device=self.device)
+        if self._monitor is not None:
+            self._monitor.write_events([("Train/eigenvalue_mean", float(np.mean(ev)),
+                                         self.global_steps)])
 
     # ------------------------------------------------------------------ info surface
     def comms_summary(self) -> str:

@@ -12,10 +12,12 @@ of ``deepspeed_tpu/runtime/zero/reshard.py``).
   rescaled exactly in samples, and a remap that would split a global batch
   (drop or replay samples) raises :class:`ReshardError`.
 - :func:`load_resolver`: what a load does with a leaf whose stored shape
-  differs from the engine's. The quantized-gradient error-feedback
-  residuals (:data:`RESIDUAL_RESET_KEYS`) hold per-rank quantization error
-  against the old decomposition's chunks, so they are reset to zeros of the
-  new shape; any other leaf raises.
+  differs from the engine's. The error-feedback residuals of the quantized
+  gradient exchange (:data:`RESIDUAL_RESET_KEYS`) and of the 1-bit
+  optimizers (:data:`ONEBIT_RESET_KEYS`) hold per-rank quantization error
+  against the old decomposition's chunks (the 1-bit buffers are also padded
+  to a multiple of ``world * 8``), so they are reset to zeros of the new
+  shape; any other leaf raises.
 - :func:`apply_cursor_reshard`: the cursor remap after such a load
   (``checkpoint.load_checkpoint``). A mid-accumulation tag's partial window
   cannot be continued by another decomposition: the loader drops it and the
@@ -39,12 +41,41 @@ import numpy as np
 
 from ...utils.logging import logger
 
-#: state keys reset at a world change (per-rank quantization error)
+#: state keys reset at a world change (per-rank quantization error), the
+#: reference's
 RESIDUAL_RESET_KEYS = ("qgrad_residual", "qgrad_bucket_residual")
 
-#: the axis of each residual that indexes the ranks: a rank holds one row
-#: of it, and a checkpoint stores the reference's global shape
-RESIDUAL_RANK_AXIS = {"qgrad_residual": 0, "qgrad_bucket_residual": 1}
+#: the 1-bit optimizers' residuals (``onebit/...``), reset too: their rows
+#: are also padded to a multiple of ``world * 8`` (the reference's resolver
+#: refuses them at another world size)
+ONEBIT_RESET_KEYS = ("worker_error", "server_error")
+
+#: the key path of each residual in the train state and its axis that
+#: indexes the ranks: a rank holds one row of it, and a checkpoint stores the
+#: reference's global shape
+RESIDUAL_RANK_AXIS = {"qgrad_residual": 0, "qgrad_bucket_residual": 1,
+                      "onebit/worker_error": 0, "onebit/server_error": 0}
+
+
+def get_path(tree: Dict[str, Any], path: str):
+    """The leaf at a ``/``-separated key path of nested dicts, or None."""
+    node: Any = tree
+    for part in path.split("/"):
+        if not isinstance(node, dict) or part not in node:
+            return None
+        node = node[part]
+    return node
+
+
+def set_path(tree: Dict[str, Any], path: str, value) -> None:
+    """Put ``value`` at ``path`` in ``tree``, copying the nested dicts on
+    the way (the caller's top-level dict is the only one changed)."""
+    parts = path.split("/")
+    node = tree
+    for part in parts[:-1]:
+        node[part] = dict(node.get(part) or {})
+        node = node[part]
+    node[parts[-1]] = value
 
 #: partition layout identifier recorded in checkpoint meta
 PARTITION_FORMAT = "flat-padded-v1"
@@ -145,13 +176,13 @@ def partition_record(engine) -> Dict[str, Any]:
 def load_resolver(old_world: int, new_world: int) -> Callable[[str, Any, Any], Any]:
     """The ``on_shape_mismatch(key, stored, template_leaf)`` hook a load
     across world sizes passes to ``load_pytree``: a residual of
-    :data:`RESIDUAL_RESET_KEYS` comes back as zeros of the template's shape
-    and dtype (with a log line where the reference records
+    :data:`RESIDUAL_RESET_KEYS` or :data:`ONEBIT_RESET_KEYS` comes back as zeros of the
+    template's shape and dtype (with a log line where the reference records
     ``reshard_residual_reset``); any other leaf raises :class:`ReshardError`."""
 
     def resolve(key: str, stored, leaf):
         name = key.rsplit("/", 1)[-1]
-        if name in RESIDUAL_RESET_KEYS:
+        if name in RESIDUAL_RESET_KEYS + ONEBIT_RESET_KEYS:
             logger.warning(f"reshard: {key} reset to zeros {tuple(leaf.shape)} (written at "
                            f"world={old_world}, loading at world={new_world})")
             return np.zeros(tuple(leaf.shape), dtype=np.float32)
@@ -195,6 +226,7 @@ def apply_cursor_reshard(engine, meta: Dict[str, Any], old_world: int) -> Reshar
 
 
 __all__ = ["ReshardError", "ReshardPlan", "RESIDUAL_RESET_KEYS", "RESIDUAL_RANK_AXIS",
+           "ONEBIT_RESET_KEYS", "get_path", "set_path",
            "PARTITION_FORMAT", "shard_len", "partition_flat", "merge_flat", "repartition_flat",
            "rescale_cursor", "partition_record", "engine_global_batch", "load_resolver",
            "apply_cursor_reshard"]

@@ -225,11 +225,8 @@ _NON_SEQLEN = {"data_efficiency": {"enabled": True, "data_sampling": {"curriculu
     {"zero_optimization": {"stage": 2, "offload_optimizer": {"device": "cpu"}}},
     {"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}},
     {"mesh": {"tp": 2}},
-    {"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}},
     {"aio": {"block_size": 1048576}},
     {"autotuning": {"enabled": True}},
-    {"eigenvalue": {"enabled": True}},
-    {"compression_training": {"weight_quantization": {"shared_parameters": {"enabled": True}}}},
     {"analysis": {"enabled": True}},
     _NON_SEQLEN,
     {"resilience": {"enabled": True, "save_dir": "/nonexistent"}},
@@ -238,8 +235,6 @@ _NON_SEQLEN = {"data_efficiency": {"enabled": True, "data_sampling": {"curriculu
 def test_unported_config_blocks_raise(block):
     model, _ = gpt.build("tiny")
     match = "unsupported in-engine" if block is _NON_SEQLEN else "ROADMAP.md"
-    if "eigenvalue" in block or "compression_training" in block:
-        match = "ROADMAP.md A3c"
     with pytest.raises(NotImplementedError, match=match):
         deepspeed_tpu_torch.initialize(model=model, config={**config(), **block},
                                        device="cpu")

@@ -85,8 +85,14 @@ def test_bf16_params_without_master_update_in_fp32():
 
 
 def test_one_bit_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3c"):
-        optimizers.get_optimizer("OneBitAdam", {})
+    """The 1-bit names give their dense warmup counterparts, as the
+    reference's ``get_optimizer`` does (the engine runs their compressed
+    stage); an unknown name still raises."""
+    assert optimizers.get_optimizer("OneBitAdam", {}).name == "FusedAdam"
+    assert optimizers.get_optimizer("ZeroOneAdam", {}).name == "FusedAdam"
+    assert optimizers.get_optimizer("OneBitLamb", {}).name == "FusedLamb"
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        optimizers.get_optimizer("TwoBitAdam", {})
 
 
 @pytest.mark.parametrize("sched,params", [
