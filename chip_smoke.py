@@ -181,8 +181,8 @@ result line):
    dequantize-then-matmul route), the other kernels never, and B3 12 x 63.
    (b) the reference's ``gpt2-350m-decode-b8-int4`` bench
    row beside int8 and dense bf16: bf16, B8, prompt 128, +64; the marginal
-   per-token decode latency (generate 16 vs 64, five repetitions, p50, as
-   the reference's bench measures it), tokens/s, the block stacks' weight
+   per-token decode latency (generate 16 vs 64, three repetitions after
+   one warm call, p50, as the reference's bench measures it), tokens/s, the block stacks' weight
    bytes, the greedy match rate against dense bf16 (reported only), exact
    decode-kernel launches, and a profile of 8 decode steps with each kind's
    device-busy time and B6/B7's share of it. (c) phase 6's serving run over
@@ -354,7 +354,7 @@ result line):
    residuals read zero, the next step is finite without overflow. (c) two
    rank processes on the one card (``comm.init_distributed(backend="gloo",
    device="cuda")`` over a file store; the card's compute mode printed
-   first), fp32 B4 x T512 (2 rows a rank), AdamW + clipping, 3 steps each
+   first), fp32 B4 x T512 (2 rows a rank), AdamW + clipping, 2 steps each
    at stages 0, 1, 2 and stage 2 with int8 quantized gradients and error
    feedback, against the same runs at world size 1 in this process: losses
    rtol 1e-5 and grad norms 1e-4 of world 1's, the ranks' params bitwise
@@ -369,9 +369,9 @@ result line):
    grad norm within 10%, finite losses, each rank's residual rows nonzero,
    its ledger ratios at least 3.5; each rank's step ms (gloo: the
    collectives cross host memory, no figure for NCCL). (d) the dp2 run's
-   tag after step 3 loads into a world-1 engine: every leaf bitwise the
+   tag after step 2 loads into a world-1 engine: every leaf bitwise the
    stored one, the residuals zero at the world-1 shape, global_steps and the
-   cursor 3; step 4 finite through B1 / B2; the tag saved after it loads
+   cursor 2; step 3 finite through B1 / B2; the tag saved after it loads
    into two rank processes, each leaf bitwise the rank's slice.
 
 17. the engine features on GPT-2-125M at full width and depth, from seed 0,
@@ -424,6 +424,39 @@ result line):
    per layer and the transform gated by them, the probe's time a layer; one
    layer's HVP at full width and depth 2 in fp64 within 1e-3 of the
    central difference of two gradients.
+19. resilience and elasticity on GPT-2-125M at full width and depth, from
+   seeds, the tags in a temporary directory. (a) 5b's cell
+   armed: ``resilience`` with the sentinel (an anchor every 2 steps), the
+   watchdog, integrity (4 blocks of 1 MiB stamped after every step and
+   verified before the next, a spot check every 2 steps) and the chaos plan
+   ``RES_CHAOS``: the NaN at data cursor 5 rolls back to global_step4 and
+   skips cursors 4-5, the bit flipped in the master domain at cursor 8 is
+   named and rolled back to global_step6 before the step; the recovery-event
+   trail equal to ``RES_TRAIL``; every spot check bitwise; the steps after
+   the rejoin and the final state bitwise a clean run's from global_step4;
+   B1 / B2 12 launches a forward / backward, spot checks included; the
+   in-memory anchor restored bitwise; the armed step's ms beside the
+   unarmed one's, and the scan's MiB and ms a step. (b) children of this
+   script (``--phase19-child``), fp32 B4 x T512: a SIGTERM after step 3
+   drains to an emergency tag and exit 83, the relaunch finishes bitwise the
+   uninterrupted run; a SIGKILL at the second save's pre-commit leaves a
+   torn tag that is rejected, and the resume from the previous tag is
+   bitwise too. (c) beside (b), ``DSElasticAgent`` over two gloo ranks
+   sharing the card (``--phase19-elastic``), fp32, the elastic batch of 4:
+   rank 1 lost at cursor 2 (``lose_worker_at_step``), the agent relaunches
+   at world 1 from global_step2 (resharded; a membership change, no
+   restart), every step's loss within 1e-5 and grad norm within 1e-4 of an
+   uninterrupted world-1 run's; a preempted exit spends no restart budget.
+   (d) 15a's cell with n-gram speculation, page fingerprints (a scan of 2
+   pages a step) and the serving watchdog (0.5 s deadlines): a bit flipped
+   in a shared KV page, an allocation failure at the first admission claim
+   that borrows prefix pages, and a 1.5 s dispatch stall; the tokens equal
+   the cache-off run's, the flip detected and healed, the failed claim
+   unwound (every refcount as before, the audit clean) with its request
+   queued and finished later, the stall flagged, B4 12 a decode step and
+   B5 12 a window; the same run without faults detects nothing. Each of
+   (c)'s rank 0s leads a process group, recorded in the phase's directory:
+   the phase stops those groups and no other process.
 
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
@@ -665,13 +698,22 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+# the host's wait between starting a trace and the call it traces: on a
+# loaded host, traces of calls made at once have lost the calls' first
+# device records
+PROFILER_LEAD_S = 0.05
+
+
 def device_kernels(torch, fn):
     """The CUDA kernels of one call of ``fn`` from a torch.profiler trace, as
-    [(name, count, self device ms)], largest first."""
+    [(name, count, self device ms)], largest first. The call starts
+    ``PROFILER_LEAD_S`` after the trace, the device idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_LEAD_S)
         fn()
         torch.cuda.synchronize()
     # device-side rows only: a CPU op's row carries its kernels' time as well
@@ -808,8 +850,12 @@ def phase_build(torch, ctx):
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"phase1 ptxas {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    sass = sass_texts(_build, sorted({*TC_KERNELS, "paged_verify_attention",
+                                      "int8_matmul_decode"}))
+    log(f"phase1 sass: {len(sass)} libraries disassembled in {time.perf_counter() - t0:.2f} s")
     for lib, kernels in TC_KERNELS.items():
-        counts = sass_tensor_ops(_build, lib)
+        counts = sass_tensor_ops(sass[lib])
         for kernel, instances in kernels:
             per_instance = sorted(c for fn, c in counts.items() if kernel in fn)
             log(f"phase1 sass {lib} {kernel}: {len(per_instance)} instances, "
@@ -818,14 +864,14 @@ def phase_build(torch, ctx):
                   f"{kernel} in {lib}: {len(per_instance)} instances, expected {instances}, "
                   f"each with wgmma ({per_instance})")
     for lib in TF32_MMA_LIBS:
-        counts = sass_tensor_ops(_build, lib, op="HMMA")
+        counts = sass_tensor_ops(sass[lib], op="HMMA")
         for kernel, instances in TC_KERNELS[lib]:
             per_instance = sorted(c for fn, c in counts.items() if kernel in fn)
             log(f"phase1 sass {lib} {kernel}: HMMA (mma.sync) per instance {per_instance}")
             check(len(per_instance) == instances and min(per_instance) > 0,
                   f"{kernel} in {lib}: {len(per_instance)} instances, expected {instances}, "
                   f"each with mma.sync ({per_instance})")
-    counts = sass_tensor_ops(_build, "paged_verify_attention", op="HMMA")
+    counts = sass_tensor_ops(sass["paged_verify_attention"], op="HMMA")
     fp32 = sorted(c for fn, c in counts.items() if VERIFY_KERNEL + "If" in fn)
     mma = sorted(c for fn, c in counts.items() if VERIFY_KERNEL in fn
                  and VERIFY_KERNEL + "If" not in fn)
@@ -837,7 +883,7 @@ def phase_build(torch, ctx):
     check(len(fp32) == VERIFY_FP32_INSTANCES and max(fp32) == 0,
           f"B5's fp32 instances: {len(fp32)}, expected {VERIFY_FP32_INSTANCES}, none with "
           f"HMMA ({fp32})")
-    counts = sass_tensor_ops(_build, "int8_matmul_decode", op="HMMA")
+    counts = sass_tensor_ops(sass["int8_matmul_decode"], op="HMMA")
     dec = sorted(c for fn, c in counts.items() if QMM_DEC_KERNEL in fn)
     log(f"phase1 sass int8_matmul_decode {QMM_DEC_KERNEL}: {len(dec)} instances, HMMA per "
         f"instance {dec}")
@@ -846,14 +892,25 @@ def phase_build(torch, ctx):
           f"HMMA ({dec})")
 
 
-def sass_tensor_ops(_build, lib: str, op: str = "HGMMA") -> dict:
-    """``op`` instructions (HGMMA: wgmma; HMMA: mma.sync) in each function
-    of a built library's SASS."""
+def sass_texts(_build, libs) -> dict:
+    """Each built library's SASS: one ``cuobjdump`` a library, all started
+    together."""
+    from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
+
+    def dump(lib):
+        return subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        return dict(zip(libs, pool.map(dump, libs)))
+
+
+def sass_tensor_ops(sass: str, op: str = "HGMMA") -> dict:
+    """``op`` instructions (HGMMA: wgmma; HMMA: mma.sync) in each function
+    of a library's SASS."""
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -2899,7 +2956,7 @@ SERVE_WORKLOAD = (24, 8.0, (32, 128), (16, 96))  # requests, rps, prompt and gen
 
 
 def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_CFG, draft=None,
-           system_prompt=None, fail_blocks=(), **over):
+           system_prompt=None, fail_blocks=(), monitor=None, **over):
     """One ``run_continuous`` of an open-loop workload (seed 0; by default
     the bench's: 24 requests at 8 rps, prompts 32-128, generations 16-96,
     each prompt behind ``system_prompt`` where one is given) after
@@ -2922,7 +2979,7 @@ def _serve(torch, cfg, params, dtype, workload=SERVE_WORKLOAD, serve_cfg=SERVE_C
     from deepspeed_tpu_torch.ops.cuda import int8_matmul as im
 
     eng = ServingEngine(cfg, params, ServingConfig(**{**serve_cfg, "dtype": dtype, **over}),
-                        draft=draft)
+                        draft=draft, monitor=monitor)
     eng.warmup()
     decode, verify, forward_with_cache = eng.decode, eng.verify, gpt.forward_with_cache
     count = {"steps": 0, "windows": 0, "draft_tokens": 0, "borrowed_preemptions": 0}
@@ -3203,13 +3260,13 @@ def _block_weight_bytes(params) -> int:
     return total
 
 
-def _marginal_decode_ms(engine, prompt, short=16, long_=64, reps=5):
+def _marginal_decode_ms(engine, prompt, short=16, long_=64, reps=3):
     """The reference bench's per-token decode latency: generate ``short`` and
-    ``long_`` new tokens back to back, ``reps`` times; the difference of the
-    two times over ``long_ - short`` tokens, p50 (host clock; generate
-    returns host numpy, so each call ends synchronized)."""
+    ``long_`` new tokens back to back, ``reps`` times (after one warm
+    ``short`` call); the difference of the two times over ``long_ - short``
+    tokens, p50 (host clock; generate returns host numpy, so each call ends
+    synchronized)."""
     engine.generate(prompt, max_new_tokens=short)
-    engine.generate(prompt, max_new_tokens=long_)
     lat = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -4534,6 +4591,7 @@ def phase_serving_levers(torch, ctx):
     # speculation, on at pool 9 (preemption of borrowers)
     sysp = ((np.arange(LEVER_PREFIX_PAGES * ps) * 7 + 3) % cfg.vocab_size).astype(np.int32)
     rep_off, toks_off, _, _, _ = _serve(torch, cfg, params, "float32", system_prompt=sysp)
+    ctx["toks_15a_off"] = toks_off  # phase 19d's bar
     log(f"phase15a fp32 prefix cache off: physical/logical="
         f"{rep_off['physical_logical_page_ratio']} page_stats={rep_off['page_stats']}")
     for name, over in (("on", {}), ("on spec_k4", SPEC), ("on pool9", {"num_pages": 9})):
@@ -4640,7 +4698,7 @@ def phase_serving_levers(torch, ctx):
 # feedback) and data parallelism at two ranks on the one card
 QGRAD_EF = {"stage": 2, "zero_quantized_gradients": True, "zero_quantize_error_feedback": True}
 DP_WORLD = 2
-DP_STEPS = 3
+DP_STEPS = 2
 # the dp2 runs of 16c: each stage dense, then stage 2 with the quantized exchange
 DP_CASES = (("stage0", {"stage": 0}), ("stage1", {"stage": 1}), ("stage2", {"stage": 2}),
             ("qgrad", QGRAD_EF))
@@ -4659,7 +4717,7 @@ DP_PARAM_MAX = 2 * 6e-4 * DP_STEPS
 
 
 def _dp_batches(V):
-    """16c's global batches (B4 x T512, 2 rows a rank) and 16d's step 4."""
+    """16c's global batches (B4 x T512, 2 rows a rank) and 16d's next step."""
     rng = np.random.default_rng(16)
     return [{"input_ids": rng.integers(0, V, (4, 512)).astype(np.int32)}
             for _ in range(DP_STEPS + 1)]
@@ -4718,11 +4776,11 @@ def _stored_slices_differ(torch, engine, tag_dir):
 
 def _dp_rank_main(rank, world, store, out_dir, part):
     """One of 16c / 16d's two rank processes on the one card (gloo, the
-    collectives through host memory). ``part`` "train": DP_CASES' 3 steps
-    each (losses, grad norms, params checksums after every step, step ms,
-    launches, the state's bytes, the wire ledger; rank 0 saves each case's
-    final params), the qgrad run saving a tag after step 3; "load": the
-    world-1 tag saved after step 4 loads, each leaf checked against its
+    collectives through host memory). ``part`` "train": DP_CASES' DP_STEPS
+    steps each (losses, grad norms, params checksums after every step, step
+    ms, launches, the state's bytes, the wire ledger; rank 0 saves each
+    case's final params), the qgrad run saving a tag after its last step;
+    "load": the world-1 tag saved after the next step loads, each leaf checked against its
     slice of the stored one. Writes ``rank<r>_<part>.json``."""
     import os
 
@@ -4819,8 +4877,9 @@ def phase_data_parallel(torch, ctx):
     with a NaN residual: the step overflows, the residuals are zeroed, the
     next step is finite. (c) two rank processes on the one card over gloo,
     fp32 B4 x T512, stages 0, 1, 2 and stage 2 with the quantized exchange,
-    3 steps each, against the same runs at world size 1. (d) the dp2 qgrad
-    run's tag loads at world size 1; step 4; that engine's tag loads back
+    DP_STEPS steps each, against the same runs at world size 1. (d) the dp2
+    qgrad run's tag loads at world size 1; one more step; that engine's tag
+    loads back
     into two ranks, each getting its slices bitwise."""
     import os
     import shutil
@@ -5033,11 +5092,11 @@ def phase_data_parallel(torch, ctx):
         launches = _flash_launches(fa)
         log(f"phase16d the dp2 tag at world 1: leaves differing from the stored ones={differ} "
             f"residuals zero={resid_zero} at {shapes} (global_steps, data_cursor)={loaded} "
-            f"step 4 loss={m4['loss'].item()} launches={launches}")
+            f"step {DP_STEPS + 1} loss={m4['loss'].item()} launches={launches}")
         check(not differ, f"16d: loaded leaves differ: {differ}")
         check(resid_zero and shapes["qgrad_residual"][0] == 1, f"16d residuals {shapes}")
         check(loaded == (DP_STEPS, DP_STEPS), f"16d counters after the load {loaded}")
-        check(math.isfinite(m4["loss"].item()), "16d step 4 not finite")
+        check(math.isfinite(m4["loss"].item()), f"16d step {DP_STEPS + 1} not finite")
         expected = path_launches(launches, L, _flash_path("float32"))
         check(launches == expected, f"16d launches {launches}, expected {expected}")
         e.save_checkpoint(os.path.join(out_dir, "tags_w1"))
@@ -5890,7 +5949,669 @@ def _phase18_eigenvalue(torch, ctx, cfg, card):
     check(num <= FD_RTOL * den, f"18c: the HVP is {num / den:.3e} from the central difference")
 
 
+# --------------------------------------------------------------------------- phase 19
+# 19a: 5b's cell armed (save_dir, the sentinel with an anchor every 2 steps,
+# the watchdog, integrity scanning every step and a spot check every 2), the
+# chaos plan a NaN at data cursor 5, then a flip in the master domain at 8
+RES_CHAOS = {"nan_at_step": 5, "flip_bit_at": 8, "flip_bit_domain": "master"}
+RES_STEPS = 7  # the armed run's last step
+RES_BATCHES = 10  # the data cursors the armed run can reach
+# the recovery-event trail the plan must leave, in order: (event, step, cursor
+# or skipped cursors). The NaN batch (cursor 5) is step 6: the rollback lands
+# on global_step4 and skips every batch consumed since it (cursors 4 and 5,
+# the reference's window); the flip is found before cursor 8's step and rolls
+# back to global_step6, replaying (not skipping) from cursor 8
+RES_TRAIL = ([("integrity_scan", s, None) for s in (1, 2, 3, 4, 5)]
+             + [("divergence_rollback", 4, [4, 5]), ("integrity_scan", 4, None),
+                ("poison_skip", 4, 4), ("poison_skip", 4, 5), ("integrity_scan", 5, None),
+                ("integrity_scan", 6, None), ("sdc_detected", 0, None),
+                ("divergence_rollback", 6, []), ("sdc_rollback", 6, None),
+                ("integrity_scan", 7, None)])
+# 19b / 19c: fp32 B4 x T512 children of this script
+RES_CHILD_STEPS = 6
+RES_JOIN_S = 300.0  # a child or the agent not done by then has hung: the phase fails
+ELASTIC19 = {"enabled": True, "max_train_batch_size": 4, "micro_batch_sizes": [2],
+             "min_world_size": 1, "max_world_size": 2}
+ELASTIC19_STEPS = 4
+ELASTIC19_LOSE_AT = 2  # the data cursor at which rank 1 is lost
+# 19d: the serving watchdog's deadline and the injected stall
+RES_SERVE_DEADLINE_S = 0.5
+RES_SERVE_STALL_S = 1.5
+
+
+def _state_prints(engine):
+    """Per leaf, the crc32 of the params' and the optimizer state's bytes
+    (and the master copy's): equal dicts are bitwise-equal states."""
+    from deepspeed_tpu_torch.checkpoint.serialization import flatten_with_paths
+    from deepspeed_tpu_torch.resilience import fingerprint_array
+
+    st = engine.state
+    tree = {"params": st["params"], "master": st["master"] or {},
+            "mu": st["opt"].mu, "nu": st["opt"].nu}
+    return {k: fingerprint_array(v, "crc32") for k, v in flatten_with_paths(tree)}
+
+
+def _res_child_conf(save_dir, **res):
+    return _train_config(4, resilience={"enabled": True, "save_dir": save_dir, **res})
+
+
+def _res_child_batches(V):
+    rng = np.random.default_rng(191)
+    return [{"input_ids": rng.integers(0, V, (4, 512)).astype(np.int32)}
+            for _ in range(RES_CHILD_STEPS)]
+
+
+def _res_child(mode, save_dir):
+    """19b's child (``--phase19-child MODE DIR``): fp32 B4 x T512 under
+    ``resilience`` in DIR. ``term``: prints a ready line after step 3 and
+    waits for the drain a SIGTERM requests; the next step drains (an
+    emergency tag, exit 83). ``kill``: saves after steps 2 and 4, the plan in
+    ``DS_FAULT_PLAN`` SIGKILLs the second save. ``resume``: auto-resumes and
+    trains to the last step, then writes the state's prints."""
+    import os
+
+    import torch
+
+    from deepspeed_tpu_torch.models import gpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # phase 1's setting, in this process too
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt.PRESETS["gpt2-125m"]
+    batches = _res_child_batches(cfg.vocab_size)
+    engine = _engine(_res_child_conf(save_dir, install_signal_handlers=(mode == "term")), cfg)
+    start = engine.global_steps
+    while engine.global_steps < RES_CHILD_STEPS:
+        engine.train_batch(batches[engine.global_steps])
+        if mode == "kill" and engine.global_steps in (2, 4):
+            engine.save_checkpoint(save_dir)
+        if mode == "term" and engine.global_steps == 3:
+            print("PHASE19 READY", flush=True)
+            end = time.monotonic() + 60
+            while not engine._preemption_guard.drain_requested and time.monotonic() < end:
+                time.sleep(0.02)
+    torch.cuda.synchronize()
+    with open(os.path.join(save_dir, "final.json"), "w") as f:
+        json.dump({"start": start, "steps": engine.global_steps,
+                   "preemptions_survived": engine._preemptions_survived,
+                   "prints": _state_prints(engine)}, f)
+    return 0
+
+
+def _elastic19_conf(save_dir=None):
+    """19c's config: the elastic ladder sets the batch; with ``save_dir``,
+    ``resilience`` with an anchor every 2 steps."""
+    conf = {"optimizer": {"type": "AdamW", "params": {"lr": 6e-4}}, "gradient_clipping": 1.0,
+            "steps_per_print": 0, "elasticity": dict(ELASTIC19)}
+    if save_dir:
+        conf["resilience"] = {"enabled": True, "save_dir": save_dir,
+                              "install_signal_handlers": False,
+                              "sentinel": {"enabled": True, "warmup_steps": 1,
+                                           "checkpoint_interval": 2}}
+    return conf
+
+
+def _elastic19_train(engine, batches, log_path=None):
+    """The cursor-driven loop at the engine's decomposition: the cursor's
+    global batch as [gas, micro x world, T]. Returns {step: (loss, grad norm)}."""
+    out = {}
+    gas = engine.gradient_accumulation_steps()
+    while engine.global_steps < ELASTIC19_STEPS:
+        ids = batches[engine.data_cursor]["input_ids"]
+        m = engine.train_batch({"input_ids": ids.reshape(gas, -1, ids.shape[-1])
+                                if gas > 1 else ids})
+        out[engine.global_steps] = (m["loss"].item(), m["grad_norm"].item())
+        if log_path:
+            with open(log_path, "a") as f:
+                f.write(json.dumps({"step": engine.global_steps, "world": engine.world_size,
+                                    "gas": gas, "loss": out[engine.global_steps][0],
+                                    "grad_norm": out[engine.global_steps][1]}) + "\n")
+    return out
+
+
+def _elastic19_worker(save_dir, world, world_file, plan=None, rank=0, store=None):
+    """19c's worker (``--phase19-elastic DIR WORLD WORLD_FILE [PLAN]``):
+    ``world`` gloo ranks sharing the card (this process is rank 0 and starts
+    the others; PLAN, a fault plan's JSON, arms rank 1 only). A rank killed
+    by a signal is a lost device: rank 0 writes ``world - 1`` to WORLD_FILE,
+    the count the agent probes, and exits 1. Rank 0 leads a process group of
+    its own, recorded in DIR/groups ("start" on entry, "end" once its peers
+    are gone), so the phase can stop exactly the ranks it started."""
+    import os
+    import subprocess
+
+    groups = os.path.join(save_dir, "groups")
+    if rank == 0:
+        os.setpgid(0, 0)  # the peers started below join this group
+        with open(groups, "a") as f:
+            f.write(f"start {os.getpid()}\n")
+    import torch
+
+    from deepspeed_tpu_torch.comm import comm
+    from deepspeed_tpu_torch.models import gpt
+    from deepspeed_tpu_torch.resilience import FAULT_PLAN_ENV
+
+    store = store or os.path.join(save_dir, f"store_w{world}_{os.getpid()}")
+    peers = []
+    for r in range(1, world if rank == 0 else 1):
+        env = dict(os.environ, **({FAULT_PLAN_ENV: plan} if plan else {}))
+        peers.append(subprocess.Popen([sys.executable, __file__, "--phase19-elastic-rank",
+                                       save_dir, str(world), world_file, str(r), store],
+                                      env=env))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if world > 1:
+        comm.init_distributed(init_method=f"file://{store}", world_size=world, rank=rank,
+                              backend="gloo", device="cuda", timeout_s=120)
+    cfg = gpt.PRESETS["gpt2-125m"]
+    rc = 0
+    try:
+        engine = _engine(_elastic19_conf(save_dir), cfg)
+        _elastic19_train(engine, _res_child_batches(cfg.vocab_size),
+                         os.path.join(save_dir, "log.jsonl") if rank == 0 else None)
+    except Exception as e:  # a lost peer breaks the collectives
+        print(f"phase19c rank {rank}: {type(e).__name__}: {e}", file=sys.stderr, flush=True)
+        rc = 1
+    for peer in peers:
+        try:
+            code = peer.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            peer.kill()
+            code = peer.wait()
+        if code < 0:
+            with open(world_file, "w") as f:
+                f.write(str(world - 1))
+        rc = rc or int(code != 0)
+    if rank == 0:
+        with open(groups, "a") as f:
+            f.write(f"end {os.getpid()}\n")
+    return rc
+
+
+def _res_children_main(argv):
+    """The child modes of phase 19, or None for the smoke run itself."""
+    if len(argv) > 1 and argv[1] == "--phase19-child":
+        return _res_child(argv[2], argv[3])
+    if len(argv) > 1 and argv[1] == "--phase19-elastic":
+        return _elastic19_worker(argv[2], int(argv[3]), argv[4], *argv[5:6])
+    if len(argv) > 1 and argv[1] == "--phase19-elastic-rank":
+        return _elastic19_worker(argv[2], int(argv[3]), argv[4], rank=int(argv[5]),
+                                 store=argv[6])
+    return None
+
+
+def phase_resilience(torch, ctx):
+    """Phase 19: resilience and elasticity (A11) on GPT-2-125M at full width
+    and depth, from seeds, the tags under a scratch directory removed at the
+    end. (a) 5b's cell (bf16 ZeRO-2, B8 x T512) armed: the sentinel with an
+    anchor every 2 steps, the watchdog, integrity scanning 4 blocks of 1 MiB
+    every step and a spot check every 2; a NaN at data cursor 5 rolls back
+    to global_step4 and skips cursors 4-5; a bit flipped in the master
+    domain at cursor 8 is found before the step, named, and rolled back to
+    global_step6. The steps after the rejoin are bitwise a clean run's from
+    global_step4 that skips the same cursors; every spot check is quiet; the
+    event trail is exact; B1/B2 launch 12 a forward / backward, spot checks
+    included; the in-memory anchor restores bitwise. (b) children of this
+    script, fp32 B4 x T512: a SIGTERM after step 3 drains (an emergency tag,
+    exit 83) and the relaunch finishes bitwise the uninterrupted run; a
+    SIGKILL at the second save's pre-commit leaves a torn tag, rejected, and
+    the resume from the older tag is bitwise too. (c) the elastic agent over
+    two gloo ranks sharing the card; rank 1 is lost at cursor 2; the agent
+    relaunches at world 1 from global_step2 (resharded) and every step's loss
+    and grad norm is within 16c's bars of an uninterrupted world-1 run; a
+    preempted exit spends no restart budget. (d) 15a's cell with n-gram
+    speculation, page fingerprints (a scan of 2 pages a step), the serving
+    watchdog and three faults (a bit in a shared KV page, an allocation
+    failure in a claim that borrows prefix pages, a stalled dispatch): the
+    tokens are the cache-off run's, the flip detected and healed, the claim
+    unwound and its request queued, the stall flagged, B4 12 a decode step
+    and B5 12 a window; a run without faults detects nothing. (a) runs alone (its
+    step times are compared); (d) runs while (b)'s and (c)'s processes start
+    and train, then (b) and (c) are checked."""
+    import os
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    root = tempfile.mkdtemp(prefix="res19_")
+    try:
+        t0 = time.perf_counter()
+        _phase19a(torch, ctx, cfg, os.path.join(root, "a"))
+        log(f"phase19a took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        st = _phase19bc_start(cfg, root)
+        try:
+            _phase19d(torch, ctx, cfg)  # while 19b's and 19c's processes start up
+            log(f"phase19d took {time.perf_counter() - t0:.1f} s (beside 19b / 19c)")
+            _phase19bc_finish(torch, cfg, root, st)
+        finally:
+            _phase19bc_abort(st)  # nothing is left running, whatever failed
+        log(f"phase19b+c+d took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase19a(torch, ctx, cfg, save_dir):
+    from deepspeed_tpu_torch.resilience import install_plan, read_events
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    V = cfg.vocab_size
+    rng = np.random.default_rng(19)
+    batches = [rng.integers(0, V, (8, 512)).astype(np.int32) for _ in range(RES_BATCHES)]
+    cell = dict(bf16={"enabled": True}, zero_optimization={"stage": 2})
+    res = {"enabled": True, "save_dir": save_dir, "install_signal_handlers": False,
+           "sentinel": {"enabled": True, "warmup_steps": 1, "checkpoint_interval": 2},
+           "watchdog": {"enabled": True},
+           "integrity": {"enabled": True, "scan_interval": 1, "blocks_per_scan": 4,
+                         "spot_check_interval": 2},
+           "chaos": dict(RES_CHAOS)}
+    engine = _engine(_train_config(8, **cell, resilience=res), cfg)
+    fa, _ = _reset_counts()  # the armed bf16 training path, spot checks included
+    rows = []  # (global_steps after the call, cursor of the call, what, wall ms, loss)
+    try:
+        while engine.global_steps < RES_STEPS:
+            cursor = engine.data_cursor
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = engine.train_batch({"input_ids": batches[cursor]})
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rb = m.get("health", {}).get("rolled_back")
+            what = ("skip" if m.get("skipped_batch") else "sdc" if m.get("sdc") else
+                    "rollback" if rb else "step")
+            loss = float(m["loss"]) if what == "step" else None
+            rows.append((engine.global_steps, cursor, what, ms, loss))
+        launches = _flash_launches(fa)
+        rep = engine._integrity.report()
+        events = read_events(save_dir)
+        # the in-memory anchor: a host copy, restored bitwise over a state
+        # overwritten on the card
+        before = _state_prints(engine)
+        engine._health._take_memory_snapshot()
+        with torch.no_grad():
+            st = engine.state
+            for t in tree_leaves({"p": st["params"], "m": st["master"], "o": st["opt"].mu}):
+                t.add_(1.0)
+        moved = _state_prints(engine) != before
+        engine._health._restore_memory_snapshot()
+        restored = _state_prints(engine) == before
+    finally:
+        engine._watchdog.stop()
+        install_plan(None)
+    trail = [(e["event"], e["step"],
+              e.get("cursor", e.get("skip_cursors"))) for e in events]
+    sdc = [e for e in events if e["event"] == "sdc_detected"]
+    executed = sum(w in ("step", "rollback") for _, _, w, _, _ in rows)
+    armed_ms = float(np.median([ms for gs, _, w, ms, _ in rows if w == "step" and gs % 2]))
+    calls = [(g, c, w, round(ms, 1), loss) for g, c, w, ms, loss in rows]
+    log(f"phase19a armed bf16 zero2 gpt2-125m B8xT512: calls (global_steps, cursor, what, ms, "
+        f"loss)={calls} trail={trail} "
+        f"sdc={[(e['unit'], e['block']) for e in sdc]} integrity={rep} launches={launches} "
+        f"anchor moved by a step={moved} restored bitwise={restored}")
+    check(trail == RES_TRAIL, f"19a: the recovery-event trail {trail}, expected {RES_TRAIL}")
+    check(len(sdc) == 1 and sdc[0]["domain"] == "master" and "unit" in sdc[0],
+          f"19a: the flip was not named: {sdc}")
+    sdc_calls = [c for _, c, w, _, _ in rows if w == "sdc"]
+    check(sdc_calls == [RES_CHAOS["flip_bit_at"]],
+          f"19a: the flip was not caught before cursor 8's step: {calls}")
+    check(rep["spot_checks"] >= 4 and rep["spot_mismatches"] == 0 and rep["mismatches"] == 1,
+          f"19a: spot checks {rep}")
+    want = path_launches(launches, cfg.n_layer * (executed + 2 * rep["spot_checks"]),
+                         _flash_path("bfloat16"))
+    check(launches == want, f"19a: launches {launches}, expected {want}")
+    check(moved and restored, "19a: the in-memory anchor did not restore bitwise")
+    # the clean run from global_step4 that skips cursors 4 and 5
+    clean = _engine(_train_config(8, **cell), cfg, seed=1)
+    clean.load_checkpoint(save_dir, tag="global_step4")
+    # the executed steps after the rejoin, by step (the step replayed after
+    # the flip's rollback counts once)
+    after = {gs: (c, loss) for gs, c, w, _, loss in rows
+             if w == "step" and c > RES_CHAOS["nan_at_step"]}
+    clean_rows = []
+    for gs in sorted(after):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = clean.train_batch({"input_ids": batches[after[gs][0]]})
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        clean_rows.append((gs, (time.perf_counter() - t0) * 1e3, loss))
+    # the armed engine's state after step 7 (before the anchor check's step)
+    # was restored above: it is the clean run's state after the same batches
+    same_state = _state_prints(clean) == before
+    plain_ms = float(np.median([ms for _, ms, _ in clean_rows]))
+    scan_ms = rep["scan_s"] * 1e3 / max(1, executed)
+    scan_mb = rep["bytes_fingerprinted"] / max(1, executed) / 2**20
+    clean_losses = [loss for _, _, loss in clean_rows]
+    armed_losses = [after[g][1] for g in sorted(after)]
+    log(f"phase19a clean run from global_step4 skipping cursors 4-5: (step, ms, loss)="
+        f"{[(g, round(ms, 1), loss) for g, ms, loss in clean_rows]} armed losses="
+        f"{armed_losses} bitwise={clean_losses == armed_losses} final state bitwise={same_state}")
+    log(f"phase19a step_ms (host clock, synchronized, steps with no save or spot check): "
+        f"armed={armed_ms:.3f} unarmed={plain_ms:.3f} (phase5b CUDA events "
+        f"{ctx.get('train5b', {}).get('step_ms', float('nan')):.3f}); integrity scan: "
+        f"{scan_mb:.2f} MiB and {scan_ms:.3f} ms a step ({rep['blocks_stamped']} blocks "
+        f"stamped, {rep['blocks_verified']} verified, {rep['algo']}); spot check "
+        f"{(rep['overhead_s'] - rep['scan_s']) * 1e3 / max(1, rep['spot_checks']):.1f} ms each")
+    check(clean_losses == armed_losses,
+          f"19a: the rejoined steps are not bitwise the clean run's: {clean_rows} vs {after}")
+    check(same_state, "19a: the final state is not bitwise the clean run's")
+    del engine, clean
+    torch.cuda.empty_cache()
+
+
+def _reader(proc, lines, on_line=None):
+    """A thread that keeps ``proc``'s stdout drained into ``lines``."""
+    import threading
+
+    def run():
+        for line in proc.stdout:
+            lines.append(line)
+            if on_line is not None:
+                on_line(line)
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    return t
+
+
+def _phase19bc_start(cfg, root):
+    """Start 19b's first two children and 19c's agent (in a thread); the
+    SIGTERM goes out as soon as the term child says it is ready."""
+    import os
+    import signal
+    import subprocess
+    import threading
+
+    from deepspeed_tpu_torch.elasticity.elastic_agent import DSElasticAgent
+    from deepspeed_tpu_torch.resilience import FAULT_PLAN_ENV
+
+    script = os.path.abspath(__file__)
+    st = {"script": script, "t0": time.perf_counter(), "ready_s": None, "procs": [],
+          "dirs": {k: os.path.join(root, k) for k in ("term", "kill", "elastic", "agent")}}
+    for d in st["dirs"].values():
+        os.makedirs(d)
+
+    def child(mode, directory, env=None):
+        p = subprocess.Popen([sys.executable, script, "--phase19-child", mode, directory],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                             env=dict(os.environ, **(env or {})))
+        st["procs"].append(p)
+        return p
+
+    st["child"] = child
+
+    def on_term_line(line):
+        if "PHASE19 READY" in line and st["ready_s"] is None:
+            st["ready_s"] = time.perf_counter() - st["t0"]
+            st["term"].send_signal(signal.SIGTERM)
+
+    st["term"] = child("term", st["dirs"]["term"])
+    st["term_out"] = []
+    st["term_reader"] = _reader(st["term"], st["term_out"], on_term_line)
+    st["kill"] = child("kill", st["dirs"]["kill"], {FAULT_PLAN_ENV: json.dumps(
+        {"kill_at_phase": "pre-commit", "kill_at_save": 1})})
+    st["kill_out"] = []
+    st["kill_reader"] = _reader(st["kill"], st["kill_out"])
+    # (c): the lost-worker plan rides on the world-2 launch's command line
+    # (rank 0 hands it to rank 1 alone); once the phase stops, the agent's
+    # launches run nothing
+    world_file = os.path.join(st["dirs"]["elastic"], "world")
+    with open(world_file, "w") as f:
+        f.write("2")
+    st["agent_out"] = {}
+    st["stopped"] = False
+    lose = json.dumps({"lose_worker_at_step": ELASTIC19_LOSE_AT})
+
+    def make_cmd(spec):
+        if st["stopped"]:
+            return [sys.executable, "-c", "pass"]
+        return [sys.executable, script, "--phase19-elastic", st["dirs"]["elastic"],
+                str(spec.world_size), world_file] + ([lose] if spec.world_size == 2 else [])
+
+    def run_agent():
+        agent = DSElasticAgent(make_cmd, {"elasticity": ELASTIC19},
+                               device_count_fn=lambda: int(open(world_file).read()),
+                               max_restarts=1, poll_interval=0.5,
+                               checkpoint_dir=st["dirs"]["elastic"], backoff_base=0.1)
+        try:
+            st["agent_out"]["result"] = agent.run()
+        except Exception as e:
+            st["agent_out"]["error"] = e
+
+    st["agent"] = threading.Thread(target=run_agent, daemon=True)
+    st["agent"].start()
+    return st
+
+
+def _phase19bc_abort(st):
+    """Stop every process 19b / 19c started, and nothing else: the children
+    here by their handles, the agent's workers by the process groups their
+    rank 0 recorded under this run's directory (a group is killed until
+    the agent, which launches nothing more, has returned)."""
+    import os
+    import signal
+
+    st["stopped"] = True
+    for p in st["procs"]:
+        if p.poll() is None:
+            p.kill()
+
+    def kill_groups():
+        path = os.path.join(st["dirs"]["elastic"], "groups")
+        lines = open(path).read().split() if os.path.exists(path) else []
+        marks = list(zip(lines[::2], map(int, lines[1::2])))
+        for pgid in {g for m, g in marks if m == "start"} - {g for m, g in marks if m == "end"}:
+            try:
+                os.killpg(pgid, signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+
+    end = time.monotonic() + 60
+    while st["agent"].is_alive() and time.monotonic() < end:
+        kill_groups()
+        st["agent"].join(timeout=0.5)
+    kill_groups()  # a rank 1 whose rank 0 the agent stopped
+
+
+def _phase19bc_finish(torch, cfg, root, st):
+    import os
+    import signal
+
+    from deepspeed_tpu_torch.elasticity.elastic_agent import DSElasticAgent
+    from deepspeed_tpu_torch.resilience import (PREEMPTED_EXIT_CODE, is_committed, read_events,
+                                                resolve_tag_for_load, verify_tag)
+
+    dirs = st["dirs"]
+    end = time.monotonic() + RES_JOIN_S
+    term, kill = st["term"], st["kill"]
+    term.wait(timeout=max(1.0, end - time.monotonic()))
+    kill.wait(timeout=max(1.0, end - time.monotonic()))
+    st["term_reader"].join(timeout=10)
+    st["kill_reader"].join(timeout=10)
+    children_s = time.perf_counter() - st["t0"]
+    term_out, kill_out = "".join(st["term_out"]), "".join(st["kill_out"])
+    check(st["ready_s"] is not None, "19b: the SIGTERM child never reached step 3:\n"
+          + term_out[-3000:])
+    check(term.returncode == PREEMPTED_EXIT_CODE,
+          f"19b: the SIGTERM child exited {term.returncode}:\n" + term_out[-3000:])
+    check(kill.returncode == -signal.SIGKILL,
+          f"19b: the kill child exited {kill.returncode}:\n" + kill_out[-3000:])
+    meta = json.load(open(os.path.join(dirs["term"], "global_step4", "meta.json")))
+    torn = os.path.join(dirs["kill"], "global_step4")
+    try:
+        verify_tag(torn)
+        torn_rejected = None
+    except Exception as e:
+        torn_rejected = f"{type(e).__name__}: {e}"
+    resolved = resolve_tag_for_load(dirs["kill"])[0]
+    resumes = {mode: st["child"]("resume", dirs[mode]) for mode in ("term", "kill")}
+    outs = {mode: [] for mode in resumes}
+    readers = [_reader(p, outs[mode]) for mode, p in resumes.items()]
+    # the uninterrupted runs, here, while the resumes and the agent run
+    ref = _engine(_train_config(4), cfg)
+    for b in _res_child_batches(cfg.vocab_size):
+        ref.train_batch(b)
+    torch.cuda.synchronize()
+    ref_prints = _state_prints(ref)
+    del ref
+    world1 = _engine(_elastic19_conf(), cfg)
+    w1 = _elastic19_train(world1, _res_child_batches(cfg.vocab_size))
+    del world1
+    torch.cuda.empty_cache()
+    for p in resumes.values():
+        p.wait(timeout=max(1.0, end - time.monotonic()))
+    for t in readers:
+        t.join(timeout=10)
+    st["agent"].join(timeout=max(1.0, end - time.monotonic()))
+    for mode, p in resumes.items():
+        check(p.returncode == 0, f"19b: the {mode} resume exited {p.returncode}:\n"
+              + "".join(outs[mode])[-3000:])
+    finals = {m: json.load(open(os.path.join(dirs[m], "final.json"))) for m in resumes}
+    log(f"phase19b fp32 gpt2-125m B4xT512, children of this script: SIGTERM after step 3 "
+        f"(ready at {st['ready_s']:.1f} s) -> exit {term.returncode}, tag global_step4 "
+        f"emergency={meta['emergency']} cursor={meta['data_cursor']}; the relaunch resumed at "
+        f"step {finals['term']['start']} "
+        f"preemptions_survived={finals['term']['preemptions_survived']} bitwise the "
+        f"uninterrupted run={finals['term']['prints'] == ref_prints}; SIGKILL at the second "
+        f"save's pre-commit -> exit {kill.returncode}, global_step4 committed="
+        f"{is_committed(torn)} rejected: {torn_rejected}; resolved to {resolved}; the resume "
+        f"started at step {finals['kill']['start']} "
+        f"bitwise={finals['kill']['prints'] == ref_prints}; the first two children took "
+        f"{children_s:.1f} s")
+    check(meta["emergency"] is True and meta["data_cursor"] == 4, f"19b: emergency meta {meta}")
+    check(finals["term"]["start"] == 4 and finals["term"]["preemptions_survived"] == 1,
+          f"19b: the relaunch did not resume the emergency tag: {finals['term']['start']}")
+    check(finals["term"]["prints"] == ref_prints, "19b: the SIGTERM resume is not bitwise")
+    check(torn_rejected is not None and not is_committed(torn) and resolved == "global_step2",
+          f"19b: the torn tag: rejected={torn_rejected} resolved={resolved}")
+    check(finals["kill"]["start"] == 2 and finals["kill"]["prints"] == ref_prints,
+          "19b: the resume after the torn save is not bitwise")
+    # (c)
+    agent_out = st["agent_out"]
+    check("error" not in agent_out and not st["agent"].is_alive(),
+          f"19c: the agent failed or hung: {agent_out}")
+    result = agent_out["result"]
+    recs = [json.loads(ln) for ln in open(os.path.join(dirs["elastic"], "log.jsonl"))]
+    events = [e["event"] for e in read_events(dirs["elastic"])]
+    launched = [(s.world_size, s.micro_batch, s.gas) for s in result.history]
+    steps = [(r["step"], r["world"], r["loss"], r["grad_norm"]) for r in recs]
+    log(f"phase19c elastic agent, fp32 gpt2-125m, global batch 4 (micro 2): result="
+        f"{result.state} restarts={result.restarts} membership_changes="
+        f"{result.membership_changes} launches (world, micro, gas)={launched} steps (step, "
+        f"world, loss, grad norm)={steps} uninterrupted world 1={w1} events={events}; "
+        f"19b and 19c took {time.perf_counter() - st['t0']:.1f} s")
+    check(result.state == "SUCCEEDED" and result.restarts == 0
+          and result.membership_changes == 1, f"19c: agent result {result}")
+    check([(s.world_size, s.gas) for s in result.history] == [(2, 1), (1, 2)],
+          f"19c: launches {result.history}")
+    check([(r["step"], r["world"]) for r in recs] == [(1, 2), (2, 2), (3, 1), (4, 1)],
+          f"19c: steps {recs}")
+    check({"membership_change", "reshard_applied"} <= set(events), f"19c: events {events}")
+    for r in recs:
+        loss, norm = w1[r["step"]]
+        check(abs(r["loss"] - loss) <= 1e-5 * abs(loss)
+              and abs(r["grad_norm"] - norm) <= 1e-4 * abs(norm),
+              f"19c step {r['step']}: ({r['loss']}, {r['grad_norm']}) vs world 1 ({loss}, {norm})")
+    marker = os.path.join(dirs["agent"], "first")
+    code = (f"import os, sys\np = {marker!r}\nif not os.path.exists(p):\n"
+            f"    open(p, 'w').write('x'); sys.exit({PREEMPTED_EXIT_CODE})\nsys.exit(0)\n")
+    pre = DSElasticAgent(lambda s: [sys.executable, "-c", code], {"elasticity": ELASTIC19},
+                         device_count_fn=lambda: 1, max_restarts=0, poll_interval=0.05,
+                         checkpoint_dir=dirs["agent"]).run()
+    log(f"phase19c a preempted exit at max_restarts=0: {pre.state} restarts={pre.restarts} "
+        f"preemptions={pre.preemptions}")
+    check((pre.state, pre.restarts, pre.preemptions) == ("SUCCEEDED", 0, 1),
+          f"19c: the preempted exit spent budget: {pre}")
+
+
+def _phase19d(torch, ctx, cfg):
+    from deepspeed_tpu_torch.inference.serving import ContinuousBatchingScheduler, prefix_chain_hashes
+    from deepspeed_tpu_torch.resilience import FaultPlan, install_plan
+
+    params = ctx["params"]
+    ps = SERVE_CFG["page_size"]
+    sysp = ((np.arange(LEVER_PREFIX_PAGES * ps) * 7 + 3) % cfg.vocab_size).astype(np.int32)
+    knobs = dict(enable_prefix_cache=True, page_fingerprints=True, pages_scan_per_step=2,
+                 prefill_deadline_s=RES_SERVE_DEADLINE_S, decode_deadline_s=RES_SERVE_DEADLINE_S,
+                 watchdog_poll_s=0.05, **SPEC)
+    claim_pages = ContinuousBatchingScheduler._claim_pages
+    runs = {}
+    for name, plan in (("faults", FaultPlan(flip_bit_at=6, flip_bit_domain="kv_page",
+                                            dispatch_stall_at=40,
+                                            dispatch_stall_seconds=RES_SERVE_STALL_S)),
+                       ("clean", None)):
+        events = []
+        mon = type("Monitor", (), {"write_events": lambda self, ev: events.extend(ev)})()
+        claims = []  # the claims the plan's alloc_fail_at failed
+
+        def claim(sched, req, need, plan=plan, claims=claims):
+            """The plan's one alloc_fail_at, armed at the run's first claim
+            that borrows prefix pages (the next alloc call is that claim's);
+            a failed claim's trace: borrowed pages, the request still
+            queued, every refcount as before, the audit."""
+            hashes = prefix_chain_hashes(np.asarray(req.prompt), sched.page_size)
+            borrowed = len(sched.prefix_cache.lookup_chain(hashes)[:need])
+            if plan is not None and plan.alloc_fail_at is None and borrowed:
+                plan.alloc_fail_at = sched.allocator._alloc_calls
+            alloc = sched.allocator
+            refs, faults = {p: alloc.refcount(p) for p in alloc.allocated_ids}, alloc._alloc_faults
+            out = claim_pages(sched, req, need)
+            if alloc._alloc_faults > faults:
+                claims.append({"rid": req.rid, "step": sched.steps, "borrowed": borrowed,
+                               "claimed": out is not None, "queued": req in sched.queue,
+                               "unwound": refs == {p: alloc.refcount(p)
+                                                   for p in alloc.allocated_ids},
+                               "audit_ok": sched.audit()["ok"]})
+            return out
+
+        ContinuousBatchingScheduler._claim_pages = claim
+        if plan:
+            install_plan(plan)
+        try:
+            rep, toks, wl, _, eng = _serve(torch, cfg, params, "float32", system_prompt=sysp,
+                                           monitor=mon, **knobs)
+        finally:
+            install_plan(None)
+            ContinuousBatchingScheduler._claim_pages = claim_pages
+        names = [n.split("/", 1)[1] for n, _, _ in events]
+        stalls = [(n, v) for n, v, _ in events if n == "Serving/watchdog_stall"]
+        alloc = eng.last_scheduler.allocator
+        runs[name] = (toks, names)
+        log(f"phase19d fp32 15a cell + n-gram spec, page fingerprints (scan 2 a step), "
+            f"{name}: events={sorted(set(names))} sdc_detected={names.count('sdc_detected')} "
+            f"sdc_healed={names.count('sdc_healed')} preemptions={rep['preemptions']} "
+            f"stalls={stalls} alloc_calls={alloc._alloc_calls} alloc_fail_at="
+            f"{plan.alloc_fail_at if plan else None} failed claims={claims} "
+            f"match vs cache off (15a)={_match(toks, ctx['toks_15a_off']):.4f} "
+            f"audit_ok={rep['pool_audit_ok']} recovery_counters={rep['recovery_counters']}")
+        check(toks == ctx["toks_15a_off"], f"19d {name}: tokens differ from the cache-off run")
+        if plan:
+            check(names.count("sdc_detected") >= 1 and "sdc_healed" in names
+                  and names.index("chaos_injected") < names.index("sdc_detected")
+                  < names.index("sdc_healed"), f"19d: the flip was not healed: {names}")
+            check(any(v >= RES_SERVE_DEADLINE_S for _, v in stalls),
+                  f"19d: the stall was not flagged: {stalls}")
+            # the failed claim degraded to queueing: its borrowed references
+            # unwound, the request queued, the audit clean, and the request
+            # admitted later and finished (its tokens are checked above)
+            rid = claims[0]["rid"] if len(claims) == 1 else None
+            check(alloc._alloc_faults == 1 and len(claims) == 1 and claims[0]["borrowed"] > 0
+                  and not claims[0]["claimed"] and claims[0]["queued"]
+                  and claims[0]["unwound"] and claims[0]["audit_ok"]
+                  and any(r.rid == rid and r.state.name == "FINISHED" for r in wl),
+                  f"19d: the allocation fault: {alloc._alloc_faults} fired, claims {claims}")
+        else:
+            check("sdc_detected" not in names and "chaos_injected" not in names
+                  and alloc._alloc_faults == 0 and not claims, f"19d clean: {names}")
+        del eng
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    child = _res_children_main(sys.argv)  # phase 19's child processes
+    if child is not None:
+        return child
     import torch
 
     if not torch.cuda.is_available():
@@ -5906,7 +6627,7 @@ def main() -> int:
                   phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
                   phase_sparse, phase_head_dim_96, phase_checkpoint, phase_gpt_variants,
                   phase_decoding_modes, phase_serving_levers, phase_data_parallel,
-                  phase_engine_features, phase_a3c):
+                  phase_engine_features, phase_a3c, phase_resilience):
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)

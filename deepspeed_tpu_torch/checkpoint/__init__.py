@@ -18,6 +18,14 @@ cut to the new slices, the residuals reset to zeros of the new shape, the
 data cursor remapped, and a mid-accumulation window dropped for the new
 decomposition to consume again from its start. A tag with offload state
 raises ROADMAP.md A12.
+
+A save passes the chaos plan's fault points (``begin-save``, ``shard`` after
+each array, the commit's three, ``pre-latest``, ``end-save``), writes
+``emergency`` (a drain's save), ``preemptions_survived`` and the
+``resume_state`` of the engine's ``resume_state_provider``; a load restores
+them (``engine.resumed_state``) and records ``preemption_survived``,
+``resume_latency_s``, ``tag_rejected_on_load`` and ``reshard_applied`` in
+the engine's recovery log.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from ..comm import comm
 from ..resilience import (
     RetryingWriter,
     commit_tag,
+    fault_point,
     invalidate_tag,
     resolve_tag_for_load,
     write_latest,
@@ -95,7 +104,7 @@ def _grad_acc_tree(engine):
     slices joined (a collective)."""
     acc = engine._grad_acc
     if (engine.world_size > 1 and engine.zero_policy.stage < 3
-            and not engine._qcomm.gradients):
+            and not engine._qgrad_live):
         acc = [comm.all_reduce(g, op="mean") for g in acc]
     return bridge.join_tree(tree_unflatten(engine.state["params"], acc), engine.param_specs)
 
@@ -109,6 +118,7 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
     directory."""
     tag = tag or _tag_for(int(engine.state["step"]))
     _validate_tag(tag, engine.device)
+    fault_point("begin-save")
     ckpt_engine = _get_ckpt_engine(engine)
     ckpt_engine.create(tag)
     ckpt_dir = os.path.join(save_dir, tag)
@@ -126,6 +136,13 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         if mid_accum:
             save_pytree(grad_acc, os.path.join(ckpt_dir, "grad_acc"), file_writer=writer)
         part = partition_record(engine)
+        resume_state = None
+        provider = getattr(engine, "resume_state_provider", None)
+        if provider is not None:
+            try:
+                resume_state = provider()
+            except Exception as e:  # a dataloader hook must not kill a drain's save
+                logger.warning(f"resume_state_provider failed: {e}")
         meta = {
             "tag": tag,
             "has_grad_acc": mid_accum,
@@ -141,9 +158,9 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             # fold_in(seed, micro_steps), restored from "seed" and "micro_steps"
             "rng_key": None,
             "saved_unix_time": time.time(),
-            "emergency": False,  # the emergency drain and its counters are A11
-            "preemptions_survived": 0,
-            "resume_state": None,
+            "emergency": bool(getattr(engine, "_draining", False)),
+            "preemptions_survived": int(getattr(engine, "_preemptions_survived", 0)),
+            "resume_state": resume_state,
             "seed": int(engine.seed),
         }
         RetryingWriter().write_bytes(os.path.join(ckpt_dir, "meta.json"),
@@ -162,9 +179,11 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
         # durability point 2: fsync, MANIFEST.json, COMMIT; only then latest
         retrier = RetryingWriter()
         commit_tag(ckpt_dir, retrier, tag=tag)
+        fault_point("pre-latest", tag_dir=ckpt_dir)
         if save_latest:
             write_latest(save_dir, tag, retrier)
     comm.barrier()
+    fault_point("end-save", tag_dir=ckpt_dir)
     log_dist(f"saved checkpoint {ckpt_dir} (committed)")
     return ckpt_dir
 
@@ -203,13 +222,19 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     keeps the engine's optimizer state and master copy."""
     if tag is not None and not os.path.isdir(os.path.join(load_dir, tag)):
         raise FileNotFoundError(f"checkpoint {os.path.join(load_dir, tag)} not found")
-    resolved, rejected = resolve_tag_for_load(load_dir, tag, deep=True)
+    res = getattr(engine.config, "resilience", None)
+    resolved, rejected = resolve_tag_for_load(load_dir, tag,
+                                              deep=bool(getattr(res, "deep_verify", True)))
     if resolved is None:
         log_dist(f"no committed checkpoint at {load_dir}; nothing loaded")
         return None, {}
+    rec = getattr(engine, "_recovery_log", None)
     for bad_tag, reason in rejected:
         logger.error(f"load_checkpoint: tag {bad_tag!r} rejected ({reason}); falling back to "
                      f"newest committed tag {resolved!r}")
+        if rec is not None:
+            rec.record("tag_rejected_on_load", step=engine.global_steps, tag=bad_tag,
+                       reason=reason)
     ckpt_dir = os.path.join(load_dir, resolved)
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
@@ -231,8 +256,9 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
             shape[axis] *= world
             set_path(template, key, torch.empty(shape, dtype=torch.float32, device="meta"))
     state = load_pytree(template, os.path.join(ckpt_dir, "state"),
-                        on_shape_mismatch=load_resolver(old_world, world) if resharding
-                        else None)
+                        on_shape_mismatch=load_resolver(
+                            old_world, world, recovery_log=rec,
+                            step=int(meta.get("global_steps", 0))) if resharding else None)
     state = bridge.map_param_trees(state, lambda t: _cut_tree(t, engine, engine.param_specs),
                                    lambda t: _cut_tree(t, engine, engine.opt_specs))
     for key, axis in RESIDUAL_RANK_AXIS.items():
@@ -274,6 +300,23 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                        f"world={world} (cursor {plan.old_cursor} -> {plan.new_cursor}"
                        + (", mid-accumulation window rewound" if plan.window_rewound else "")
                        + ")")
+        if rec is not None:
+            rec.record("reshard_applied", step=engine.global_steps, tag=resolved,
+                       old_world=old_world, new_world=plan.new_world,
+                       old_cursor=plan.old_cursor, new_cursor=plan.new_cursor,
+                       window_rewound=plan.window_rewound)
+    engine.resumed_state = meta.get("resume_state")
+    # the counter rides every tag; an emergency tag adds the preemption it survived
+    engine._preemptions_survived = int(meta.get("preemptions_survived", 0))
+    if meta.get("emergency"):
+        engine._preemptions_survived += 1
+        if rec is not None:
+            rec.record("preemption_survived", value=engine._preemptions_survived,
+                       step=engine.global_steps, tag=resolved)
+            saved_at = meta.get("saved_unix_time")
+            if saved_at is not None:
+                rec.record("resume_latency_s", value=max(0.0, time.time() - float(saved_at)),
+                           step=engine.global_steps, tag=resolved)
     log_dist(f"loaded checkpoint {ckpt_dir}")
     return ckpt_dir, meta.get("client_state", {})
 

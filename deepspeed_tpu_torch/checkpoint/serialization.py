@@ -89,13 +89,17 @@ def save_pytree(tree: Any, directory: str,
     """Write ``tree``'s leaves (full logical tensors, on any device) under
     ``directory``. ``file_writer(path, array)`` is the checkpoint engine's
     (default: an atomic tmp + ``os.replace`` write). The fsync and the
-    manifest are the commit's (``resilience.manifest.commit_tag``)."""
+    manifest are the commit's (``resilience.manifest.commit_tag``); each
+    array passes the chaos plan's ``shard`` fault point."""
+    from ..resilience.chaos import fault_point
+
     os.makedirs(os.path.join(directory, "arrays"), exist_ok=True)
     writer = file_writer or RetryingWriter().write_array
     meta = []
     for i, (key, leaf) in enumerate(flatten_with_paths(tree)):
         arr, dtype_name, raw_view = leaf_to_numpy(leaf)
         writer(os.path.join(directory, "arrays", f"{i}.npy"), arr)
+        fault_point("shard", index=i)
         meta.append({"key": key, "index": i, "shape": [int(n) for n in arr.shape],
                      "dtype": dtype_name, "raw_view": raw_view})
     RetryingWriter().write_bytes(

@@ -33,12 +33,31 @@ class WireLedger:
     """Logical-vs-wire byte ledger for quantized collectives, per op name."""
 
     records: Dict[str, WireRecord] = field(default_factory=dict)
+    # ops the health controller demoted to the full-precision wire
+    # (resilience/rollback.py), so the summary shows the wire's real state
+    demotions: list = field(default_factory=list)
 
     def record(self, op_name: str, logical_bytes: int, wire_bytes: int) -> None:
         rec = self.records.setdefault(op_name, WireRecord())
         rec.count += 1
         rec.logical_bytes += int(logical_bytes)
         rec.wire_bytes += int(wire_bytes)
+
+    def record_demotion(self, op: str, step: int, reason: str) -> None:
+        """A quantized op fell back to the full-precision wire at ``step``."""
+        self.demotions.append({"op": op, "step": int(step), "reason": reason,
+                               "repromoted_step": None})
+
+    def record_repromotion(self, op: str, step: int) -> None:
+        """The newest open demotion of ``op`` ended at ``step``."""
+        for d in reversed(self.demotions):
+            if d["op"] == op and d["repromoted_step"] is None:
+                d["repromoted_step"] = int(step)
+                return
+
+    def demoted_ops(self) -> list:
+        """Ops on the full-precision wire now (open demotions)."""
+        return [d["op"] for d in self.demotions if d["repromoted_step"] is None]
 
     def ratio(self, prefix: Optional[str] = None) -> float:
         """Aggregate logical/wire compression ratio over ops matching
@@ -64,6 +83,11 @@ class WireLedger:
                          f"({row['ratio']}x)")
         if not self.records:
             lines.append("  (no quantized collectives ran)")
+        for d in self.demotions:
+            end = (f"re-promoted at step {d['repromoted_step']}"
+                   if d["repromoted_step"] is not None else "STILL DEMOTED")
+            lines.append(f"  degraded wire: {d['op']} -> full-precision at step {d['step']} "
+                         f"({d['reason']}); {end}")
         out = "\n".join(lines)
         log_dist(out)
         return out
@@ -81,6 +105,7 @@ class WireLedger:
 
     def reset(self) -> None:
         self.records.clear()
+        self.demotions.clear()
 
 
 wire_ledger = WireLedger()

@@ -16,10 +16,10 @@
 - :mod:`.bench`: open-loop workload, TTFT/tokens-per-second reports, and the
   static-batch baseline.
 
-Not ported yet: SLO tiers, tenancy, the brownout ladder, tensor parallelism,
-the disaggregated handoff and the fleet (ROADMAP.md A10), and the resilience
-hooks: the recovery log, the watchdog, page fingerprints and the chaos plan
-(A11).
+The resilience hooks (the recovery log, the serving watchdog, page
+fingerprints, the chaos plan's dispatch and allocation faults) are the
+reference's. Not ported yet: SLO tiers, tenancy, the brownout ladder, tensor
+parallelism, the disaggregated handoff and the fleet (ROADMAP.md A10).
 """
 
 from .bench import (estimate_saturation_rps, make_open_loop_workload, percentile,

@@ -125,18 +125,21 @@ def run_continuous(engine, workload: Sequence[Request], max_wall_s: float = 600.
     pending = sorted(workload, key=lambda r: r.arrival_time)
     t0 = time.monotonic()
     i = 0
-    while i < len(pending) or not sched.idle:
-        now = time.monotonic() - t0
-        if now > max_wall_s:
-            break
-        while i < len(pending) and pending[i].arrival_time <= now:
-            sched.submit(pending[i])
-            i += 1
-        if sched.idle:
-            if i < len(pending):  # nothing in flight: sleep to the next arrival
-                time.sleep(min(max(pending[i].arrival_time - now, 0.0), 0.25))
-            continue
-        sched.step()
+    try:
+        while i < len(pending) or not sched.idle:
+            now = time.monotonic() - t0
+            if now > max_wall_s:
+                break
+            while i < len(pending) and pending[i].arrival_time <= now:
+                sched.submit(pending[i])
+                i += 1
+            if sched.idle:
+                if i < len(pending):  # nothing in flight: sleep to the next arrival
+                    time.sleep(min(max(pending[i].arrival_time - now, 0.0), 0.25))
+                continue
+            sched.step()
+    finally:
+        sched.close()  # stops a watchdog the engine made for it
     t_end = time.monotonic()
     stats = dict(sched.page_stats)
     extra = {

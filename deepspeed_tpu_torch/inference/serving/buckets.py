@@ -1,4 +1,5 @@
-"""Shape buckets (a copy of ``bucket_for`` and ``default_buckets`` from
+"""Shape buckets (a copy of ``bucket_for``, ``default_buckets`` and
+``record_compile`` from
 ``deepspeed_tpu/inference/serving/buckets.py``; the port imports nothing of the
 JAX package).
 
@@ -9,6 +10,7 @@ rounds ``max_new_tokens`` up to a bucket and slices the output back.
 
 from __future__ import annotations
 
+import time
 from typing import Sequence, Tuple
 
 
@@ -37,3 +39,15 @@ def bucket_for(n: int, buckets: Sequence[int]) -> int:
     raise ValueError(f"length {n} exceeds the largest bucket "
                      f"{max(buckets)} — raise the bucket set or reject the "
                      f"request at admission")
+
+
+def record_compile(compile_log: list, monitor, channel: str, kind: str,
+                   shape: Tuple[int, ...]) -> None:
+    """Append one program-shape record ``{"kind", "shape", "time"}`` (the
+    reference's schema) and write the running count to ``monitor`` as
+    ``channel`` (``Serving/compile_events``)."""
+    compile_log.append({"kind": kind, "shape": tuple(int(x) for x in shape),
+                        "time": time.time()})
+    if monitor is not None:
+        n = len(compile_log)
+        monitor.write_events([(channel, n, n)])

@@ -30,7 +30,16 @@ are the reference's:
 
 PyTorch runs eagerly, so nothing is compiled: ``compile_log`` records the
 first dispatch of each program shape, the events the reference logs at each
-compile. CUDA graphs over the decode step are ROADMAP.md A5b.
+compile (written to ``monitor`` as ``Serving/compile_events``). CUDA graphs
+over the decode step are ROADMAP.md A5b.
+
+Resilience: ``fingerprint_pages`` / ``corrupt_page_bit`` are the page
+integrity primitives over the card's pools (dense, int8, int4: every pool
+tensor of a page, scales included, chained in sorted-key order), and
+``make_scheduler`` hands the scheduler a recovery log (the caller's, or a
+monitor-only one when a ``monitor`` is attached), a watchdog over the
+``prefill_deadline_s`` / ``decode_deadline_s`` phases (stack dumps to
+``stacks_dir``), and the page-fingerprint knobs.
 
 Every ``ServingConfig`` knob outside this slice keeps the reference's
 default; any other value raises ``NotImplementedError`` naming its
@@ -49,7 +58,7 @@ import torch
 from ...accelerator import resolve_device, to_device
 from ...models import gpt as gpt_mod
 from ...utils.errors import unported
-from .buckets import bucket_for, default_buckets
+from .buckets import bucket_for, default_buckets, record_compile
 from .paging import PrefixIndex, pages_for
 from .scheduler import ContinuousBatchingScheduler
 from .speculate import make_drafter, spec_k_ladder
@@ -138,8 +147,6 @@ _UNPORTED_KNOBS = {
     "A10": ("tp", "role", "tiers", "tenants", "brownout_window_s",
             "brownout_enter_shed_rate", "brownout_enter_misses", "brownout_exit_shed_rate",
             "brownout_min_dwell_s"),
-    "A11": ("page_fingerprints", "pages_scan_per_step", "prefill_deadline_s",
-            "decode_deadline_s", "watchdog_poll_s", "stacks_dir"),
     "A14": ("model_name",),
 }
 
@@ -180,8 +187,7 @@ class ServingEngine:
         self.serving = serving or ServingConfig()
         self.draft = draft
         s = self.serving
-        if monitor is not None:
-            raise unported("ServingEngine(monitor=...) (serving telemetry)", "A11")
+        self.monitor = monitor
         check_serving_config(s)
         gpt_mod.check_config(cfg)
         if s.max_model_len > cfg.max_seq_len and not (cfg.rotary or cfg.alibi):
@@ -216,7 +222,8 @@ class ServingEngine:
         key = (kind, tuple(int(x) for x in shape))
         if key not in self._seen_shapes:
             self._seen_shapes.add(key)
-            self.compile_log.append({"kind": kind, "shape": key[1], "time": time.time()})
+            record_compile(self.compile_log, self.monitor, "Serving/compile_events", kind,
+                           key[1])
 
     def _to_device(self, a, dtype=np.int64) -> torch.Tensor:
         """A host array on the engine's device, copied without draining the
@@ -399,16 +406,74 @@ class ServingEngine:
                         np.full(self.num_slots, -1, np.int32), zeros)
         return len(self.compile_log)
 
+    # -------------------------------------------------------------- integrity
+    def fingerprint_pages(self, page_ids) -> list:
+        """One fingerprint per page of its current pool contents, chained
+        over every pool tensor (k / v pages, and the scales of a quantized
+        pool) in sorted-key order, so a flip in any of them changes the
+        page's print. The pages' bytes are gathered on the card and copied
+        to the host once a call, so callers budget the count."""
+        from ...resilience.checksum import CHECKSUMS, preferred_checksum
+
+        fn = CHECKSUMS[preferred_checksum()]
+        ids = [int(p) for p in np.asarray(page_ids).reshape(-1)]
+        if not ids:
+            return []
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        host = {}
+        for key, arr in sorted(self.paged_cache.items()):
+            # the raw bytes (bf16 has no numpy dtype) on a trailing axis
+            sel = arr.index_select(2, idx).contiguous().unsqueeze(-1)
+            host[key] = sel.view(torch.uint8).cpu().numpy()
+        out = []
+        for j in range(len(ids)):
+            crc = 0
+            for key in sorted(host):
+                crc = fn(np.ascontiguousarray(host[key][:, :, j]).tobytes(), crc)
+            out.append(int(crc))
+        return out
+
+    def corrupt_page_bit(self, page: int) -> None:
+        """Chaos only: flip one real bit of ``page`` in the first pool tensor
+        (sorted keys), in place on the card (its bytes as ``uint8``, one XOR),
+        at the middle byte of the page, as the reference does."""
+        key = sorted(self.paged_cache)[0]
+        arr = self.paged_cache[key]
+        sub = arr[:, :, int(page)].contiguous()
+        flat = sub.view(torch.uint8).reshape(-1)
+        flat[flat.numel() // 2: flat.numel() // 2 + 1].bitwise_xor_(1)
+        arr[:, :, int(page)].copy_(sub)
+
     # -------------------------------------------------------------- assembly
     def make_scheduler(self, clock=time.monotonic,
                        recovery_log=None) -> ContinuousBatchingScheduler:
         """The scheduler over this engine, sized by its config, with its
-        overload, deadline and dispatch-fault knobs, and a ``PrefixIndex``
-        when ``enable_prefix_cache`` is set."""
-        if recovery_log is not None:
-            raise unported("make_scheduler(recovery_log=...) (the serving recovery trail)",
-                           "A11")
+        overload, deadline and dispatch-fault knobs, a ``PrefixIndex`` when
+        ``enable_prefix_cache`` is set, ``recovery_log`` (a
+        :class:`~...resilience.events.RecoveryLog`; with none and a monitor
+        attached, a monitor-only log so ``Serving/*`` scalars flow), a
+        watchdog (which the scheduler owns: ``close()`` stops it) when a
+        serving phase deadline is set, and the page-fingerprint knobs."""
         s = self.serving
+        if recovery_log is None and self.monitor is not None:
+            from ...resilience.events import RecoveryLog
+
+            recovery_log = RecoveryLog(monitor=self.monitor, role="serving", prefix="Serving")
+        watchdog = None
+        if s.prefill_deadline_s or s.decode_deadline_s:
+            from ...resilience.watchdog import HealthWatchdog
+
+            deadlines = {}
+            if s.prefill_deadline_s:
+                deadlines["serving_prefill"] = float(s.prefill_deadline_s)
+            if s.decode_deadline_s:
+                # a verify window is a decode-like dispatch: it rides the
+                # decode deadline
+                deadlines["serving_decode"] = float(s.decode_deadline_s)
+                deadlines["serving_verify"] = float(s.decode_deadline_s)
+            watchdog = HealthWatchdog(deadlines, poll_interval=s.watchdog_poll_s,
+                                      recovery_log=recovery_log,
+                                      stacks_dir=s.stacks_dir).start()
         sched = ContinuousBatchingScheduler(
             executor=self, num_slots=self.num_slots, num_pages=self.num_pages,
             page_size=s.page_size, pages_per_seq=s.pages_per_seq,
@@ -418,8 +483,11 @@ class ServingEngine:
             deadline_s=s.request_deadline_s, dispatch_retries=s.dispatch_retries,
             quarantine_after=s.quarantine_after,
             dispatch_failure_budget=s.dispatch_failure_budget,
+            recovery_log=recovery_log, watchdog=watchdog,
             prefix_cache=PrefixIndex(s.page_size) if s.enable_prefix_cache else None,
-            drafter=make_drafter(self, s), spec_k=s.spec_k, spec_adaptive=s.spec_adaptive)
+            drafter=make_drafter(self, s), spec_k=s.spec_k, spec_adaptive=s.spec_adaptive,
+            page_fingerprints=s.page_fingerprints, pages_scan_per_step=s.pages_scan_per_step)
+        sched._owns_watchdog = watchdog is not None
         self.last_scheduler = sched
         return sched
 

@@ -21,18 +21,28 @@ prefix cache: a hash chain over page-sized prompt token blocks
 each chain hash to the physical page that holds that block's KV, so requests
 that open with the same page-aligned tokens (a system prompt) share pages.
 
-Not ported here: the reference's chaos hook (``_alloc_fault_armed``, an
-injected allocation failure) goes with the chaos harness (ROADMAP.md A11).
+An armed chaos plan's ``alloc_fail_at`` makes the Nth ``alloc`` call report
+exhaustion (:func:`_alloc_fault_armed`), so admission and growth degrade as
+they do under real pool pressure; :meth:`PageAllocator.audit` re-fingerprints
+every stamped shared page when it is handed the stamps and the executor's
+fingerprint function.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, FrozenSet, List, Optional, Sequence
+from typing import Callable, Dict, FrozenSet, List, Optional, Sequence
 
 import numpy as np
 
+from ...resilience.chaos import serving_alloc_fault
+
 RESERVED_PAGE = 0
+
+
+def _alloc_fault_armed(index: int) -> bool:
+    """Whether an armed fault plan fails alloc call ``index``."""
+    return serving_alloc_fault(index)
 
 
 def pages_for(tokens: int, page_size: int) -> int:
@@ -53,6 +63,8 @@ class PageAllocator:
         self.num_pages = int(num_pages)
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._ref: Dict[int, int] = {}  # page id -> live references
+        self._alloc_calls = 0  # the chaos plan's alloc index
+        self._alloc_faults = 0  # calls the chaos plan failed
 
     @property
     def free_pages(self) -> int:
@@ -79,6 +91,11 @@ class PageAllocator:
         nothing) if the pool cannot cover the request."""
         if n < 0:
             raise ValueError(f"alloc({n})")
+        idx = self._alloc_calls
+        self._alloc_calls += 1
+        if _alloc_fault_armed(idx):
+            self._alloc_faults += 1
+            return None  # chaos: exhaustion through the normal path
         if n > len(self._free):
             return None
         pages = [self._free.pop() for _ in range(n)]
@@ -114,13 +131,30 @@ class PageAllocator:
         self._ref[page] -= 1
         return fresh[0]
 
-    def audit(self) -> Dict[str, object]:
+    def audit(self, expected_fingerprints: Optional[Dict[int, int]] = None,
+              fingerprint_fn: Optional[Callable[[Sequence[int]], List[int]]] = None
+              ) -> Dict[str, object]:
         """Conservation invariant over the pool: every page id 1..N-1 is in
         exactly one of {free list, allocated set}, with no duplicates, no
         reserved-page escapes, and every allocated page holding >= 1 live
-        reference. Returns ``{"ok", "free", "allocated", "total", "refs",
-        "errors"}``; ``errors`` names each violated invariant."""
+        reference. Given ``expected_fingerprints`` (page -> its stamp) and
+        ``fingerprint_fn`` (pages -> their fingerprints now), every stamped
+        page with more than one reference is re-fingerprinted and a mismatch
+        fails the audit by name. Returns ``{"ok", "free", "allocated",
+        "total", "refs", "errors", "fingerprinted", "mismatches"}``."""
         errors: List[str] = []
+        fingerprinted = 0
+        fp_mismatches: List[int] = []
+        if expected_fingerprints and fingerprint_fn is not None:
+            shared = sorted(p for p, c in self._ref.items()
+                            if c > 1 and p in expected_fingerprints)
+            if shared:
+                fingerprinted = len(shared)
+                fp_mismatches = [p for p, fp in zip(shared, fingerprint_fn(shared))
+                                 if int(fp) != int(expected_fingerprints[p])]
+                if fp_mismatches:
+                    errors.append(f"shared-page fingerprint mismatch (silent corruption of "
+                                  f"immutable pages): {fp_mismatches}")
         free_set = set(self._free)
         if len(free_set) != len(self._free):
             errors.append("duplicate ids in the free list")
@@ -141,7 +175,8 @@ class PageAllocator:
             errors.append(f"conservation broken: free {len(free_set)} + unique "
                           f"allocated {len(self._ref)} != total {total}")
         return {"ok": not errors, "free": len(free_set), "allocated": len(self._ref),
-                "total": total, "refs": sum(self._ref.values()), "errors": errors}
+                "total": total, "refs": sum(self._ref.values()), "errors": errors,
+                "fingerprinted": fingerprinted, "mismatches": fp_mismatches}
 
     def free(self, pages: Sequence[int]) -> List[int]:
         """Drop one reference per page; pages whose last reference died go

@@ -63,11 +63,25 @@ pages), and registers the request's full prompt pages after the prefill.
 :meth:`audit` then also checks every refcount against the slots' references
 and that no shared page reaches a write frontier.
 
+Resilience: every counted event also goes to ``recovery_log`` (a
+:class:`~...resilience.events.RecoveryLog`, the reference's ``Serving/*``
+trail and fields); each dispatch runs inside the ``watchdog``'s
+``serving_<kind>`` phase, with the chaos plan's dispatch injections inside
+it and before the executor call; the allocator consults the plan's
+``alloc_fail_at``. With ``page_fingerprints`` the executor's
+``fingerprint_pages`` stamps each full prompt page once when it is
+registered in the prefix index, and the stamp is verified when the page is
+about to be shared, by a round-robin scan of ``pages_scan_per_step`` pages a
+step (before admission) and by the audit over every shared page; a
+mismatch (``sdc_detected``) evicts the page from the index and preempts its
+borrowers, who re-prefill into clean pages (``sdc_healed``). The chaos
+plan's ``flip_bit_at`` in the ``kv_page`` domain flips a real bit of a
+stamped page (a shared one first) through the executor's
+``corrupt_page_bit``.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP.md item when a constructor argument asks for it: SLO tiers, tenants,
-the brownout ladder and the disaggregated prefill/decode roles (A10); the
-recovery log, the watchdog, page fingerprints and the chaos plan's dispatch
-hook (A11).
+the brownout ladder and the disaggregated prefill/decode roles (A10).
 """
 
 from __future__ import annotations
@@ -77,10 +91,12 @@ import enum
 import itertools
 import time
 from collections import deque
+from contextlib import nullcontext
 from typing import Any, Deque, Dict, List, Optional, Set
 
 import numpy as np
 
+from ...resilience.chaos import sdc_flip_fault, serving_dispatch_fault
 from ...resilience.retry import backoff_delay
 from ...utils.errors import unported
 from ...utils.logging import logger
@@ -185,9 +201,7 @@ SHED_POLICIES = ("reject_newest", "reject_largest")
 _UNPORTED_ARGS = {
     "role": ("both", "A10"), "tiers": (None, "A10"),
     "tenants": (None, "A10"), "brownout": (None, "A10"),
-    "latency_preempt_budget": (2, "A10"), "recovery_log": (None, "A11"),
-    "watchdog": (None, "A11"), "page_fingerprints": (False, "A11"),
-    "pages_scan_per_step": (1, "A11"),
+    "latency_preempt_budget": (2, "A10"),
 }
 
 
@@ -200,8 +214,10 @@ class ContinuousBatchingScheduler:
                  deadline_s: Optional[float] = None, dispatch_retries: int = 2,
                  retry_base_delay: float = 0.02, retry_max_delay: float = 0.25,
                  quarantine_after: int = 2, dispatch_failure_budget: int = 8,
+                 recovery_log: Any = None, watchdog: Any = None,
                  prefix_cache: Optional[PrefixIndex] = None, drafter=None,
-                 spec_k: int = 4, spec_adaptive: bool = True, **unported_args):
+                 spec_k: int = 4, spec_adaptive: bool = True, page_fingerprints: bool = False,
+                 pages_scan_per_step: int = 1, **unported_args):
         for name, value in unported_args.items():
             if name not in _UNPORTED_ARGS:
                 raise TypeError(f"ContinuousBatchingScheduler got an unexpected argument "
@@ -236,6 +252,16 @@ class ContinuousBatchingScheduler:
         self.retry_max_delay = float(retry_max_delay)
         self.quarantine_after = int(quarantine_after)
         self.dispatch_failure_budget = int(dispatch_failure_budget)
+        self.recovery_log = recovery_log
+        self.watchdog = watchdog
+        self._owns_watchdog = False  # set by ServingEngine.make_scheduler
+        self._dispatch_count = 0  # the chaos plan's dispatch index
+        # KV pages behind the write frontier are stamped when they become
+        # shareable and verified at every trust boundary
+        self.page_fingerprints = bool(page_fingerprints)
+        self.pages_scan_per_step = max(0, int(pages_scan_per_step))
+        self._page_fp: Dict[int, int] = {}
+        self._page_scan_rr = 0  # round-robin cursor over the stamped pages
         # failed episodes in a row, per kind: a healthy prefill path must not
         # reset the count of a dead decode path
         self._consecutive_failures: Dict[str, int] = {}
@@ -300,7 +326,7 @@ class ContinuousBatchingScheduler:
         and running requests step to completion."""
         if not self._draining:
             self._draining = True
-            self._record("drain_started")
+            self._record("drain_started", queued=len(self.queue), active=len(self.active_slots))
 
     @property
     def queued_tokens(self) -> int:
@@ -308,14 +334,20 @@ class ContinuousBatchingScheduler:
         bounds."""
         return sum(r.work_tokens for r in self.queue)
 
-    def _record(self, event: str) -> None:
+    def _record(self, event: str, value: float = 1.0, **fields: Any) -> None:
         self.counters[event] = self.counters.get(event, 0) + 1
+        if self.recovery_log is not None:
+            try:
+                self.recovery_log.record(event, value=value, step=self.steps, **fields)
+            except Exception:  # event export must never fail serving
+                pass
 
-    def _mark_shed(self, req: Request, reason: str) -> None:
+    def _mark_shed(self, req: Request, reason: str, detail: str = "") -> None:
         req.state = RequestState.REJECTED
         req.reject_reason = reason
         self.shed.append(req)
-        self._record("request_shed")
+        self._record("request_shed", rid=req.rid, reason=reason, work_tokens=req.work_tokens,
+                     detail=detail[:200])
 
     def submit(self, req: Request) -> AdmissionVerdict:
         """Admission control: a request that can never fit the serving bound
@@ -326,7 +358,7 @@ class ContinuousBatchingScheduler:
             detail = (f"request {req.rid} rejected: scheduler is draining "
                       f"({len(self.queue)} queued + {len(self.active_slots)} running "
                       f"to finish)")
-            self._mark_shed(req, "draining")
+            self._mark_shed(req, "draining", detail)
             return AdmissionVerdict(False, "draining", detail)
         worst = len(req.prompt) + req.max_new_tokens
         pool = self.allocator.num_pages - 1  # page 0 reserved
@@ -339,7 +371,7 @@ class ContinuousBatchingScheduler:
                       f"serving bound (max_context={self.max_context}, pages_per_seq="
                       f"{self.pages_per_seq} x page_size={self.page_size}, pool={pool} "
                       f"pages) -- reject at the front door, not mid-decode")
-            self._mark_shed(req, "unservable")
+            self._mark_shed(req, "unservable", detail)
             return AdmissionVerdict(False, "unservable", detail)
         verdict = self._admission_control(req)
         if not verdict.admitted:
@@ -380,14 +412,14 @@ class ContinuousBatchingScheduler:
             if not over(sim):
                 for v in victims:
                     self.queue.remove(v)
-                    self._mark_shed(v, "shed_for_smaller")
+                    self._mark_shed(v, "shed_for_smaller", f"shed for request {req.rid}")
                 return AdmissionVerdict(True, shed_rid=victims[-1].rid if victims else None)
         reason = "queue_full" if max_q is not None and len(queued) >= max_q else "token_backlog"
         detail = (f"request {req.rid} rejected ({reason}): queue depth {len(queued)}"
                   + (f"/{max_q}" if max_q is not None else "")
                   + f", queued work {sum(r.work_tokens for r in queued)} tokens"
                   + (f"/{max_t}" if max_t is not None else ""))
-        self._mark_shed(req, reason)
+        self._mark_shed(req, reason, detail)
         return AdmissionVerdict(False, reason, detail)
 
     def _release(self, slot: int) -> None:
@@ -398,6 +430,8 @@ class ContinuousBatchingScheduler:
             # a page whose last reference died is recycled: it must never
             # serve another request's prefix lookup
             self.prefix_cache.forget(released)
+        for p in released:
+            self._page_fp.pop(p, None)  # a recycled page's stamp means nothing
         self._slot_pages[slot] = []
         self._slot_shared[slot] = 0
         self.tables[slot] = 0
@@ -410,25 +444,29 @@ class ContinuousBatchingScheduler:
         req.state = RequestState.FINISHED
         req.t_done = self.clock()
         self.finished.append(req)
-        self._record("request_finished")
+        self._record("request_finished", value=float(len(req.tokens)), rid=req.rid,
+                     tokens=len(req.tokens))
         self._release(slot)
 
-    def _preempt(self, slot: int) -> None:
+    def _preempt(self, slot: int, why: str = "pool") -> None:
         """Recompute-style preemption: pages freed, generated tokens kept;
-        the request requeues at the front."""
+        the request requeues at the front. ``why``: ``pool`` (page
+        pressure) or ``sdc`` (a corrupt page it read)."""
         req = self.slots[slot]
         req.preemptions += 1
         req.state = RequestState.QUEUED
-        self._record("preemption")
+        self._record("preemption", rid=req.rid, why=why, tokens_done=len(req.tokens))
         self._release(slot)
         self.queue.appendleft(req)
 
     # ------------------------------------------------------------- deadlines
-    def _expire(self, req: Request, where: str) -> None:
+    def _expire(self, req: Request, where: str, now: float) -> None:
         req.state = RequestState.EXPIRED
         req.reject_reason = f"deadline_{where}"
         self.expired.append(req)
-        self._record("deadline_miss")
+        t0 = req.t_submit if req.t_submit is not None else now
+        self._record("deadline_miss", value=now - t0, rid=req.rid, where=where,
+                     tokens_done=len(req.tokens))
 
     def _sweep_deadlines(self) -> int:
         """Evict expired requests: queued ones past their TTFT deadline (while
@@ -445,34 +483,47 @@ class ContinuousBatchingScheduler:
             miss_e2e = req.deadline_s is not None and now - t0 > req.deadline_s
             if miss_ttft or miss_e2e:
                 self.queue.remove(req)
-                self._expire(req, "queued")
+                self._expire(req, "queued", now)
                 evicted += 1
         for slot in self.active_slots:
             req = self.slots[slot]
             t0 = req.t_submit if req.t_submit is not None else now
             if req.deadline_s is not None and now - t0 > req.deadline_s:
                 self._release(slot)
-                self._expire(req, "running")
+                self._expire(req, "running", now)
                 evicted += 1
         if evicted:
             self._audit_after_recovery("deadline_sweep")
         return evicted
 
     # ----------------------------------------------------- dispatch recovery
+    def _phase(self, kind: str):
+        if self.watchdog is None:
+            return nullcontext()
+        return self.watchdog.phase(f"serving_{kind}")
+
     def _dispatch(self, kind: str, fn, *args: Any, **kw: Any) -> Any:
         """One dispatch episode: ``fn`` tried ``dispatch_retries + 1`` times,
         with ``backoff_delay`` between attempts; every failed attempt counts
-        as ``dispatch_error``. Raises :class:`_DispatchFailure` when all fail."""
+        as ``dispatch_error``. Raises :class:`_DispatchFailure` when all fail.
+        Each attempt runs in the watchdog's ``serving_<kind>`` phase, the
+        chaos plan's injections first (a stall is seen by the deadline, a
+        raise tears no device state)."""
         attempts = self.dispatch_retries + 1
         last: Optional[BaseException] = None
         for attempt in range(1, attempts + 1):
+            idx = self._dispatch_count
+            self._dispatch_count += 1
             try:
-                out = fn(*args, **kw)
+                with self._phase(kind):
+                    serving_dispatch_fault(kind, idx)
+                    out = fn(*args, **kw)
                 self._consecutive_failures[kind] = 0
                 return out
             except Exception as e:  # the episode's verdict comes after every attempt
                 last = e
-                self._record("dispatch_error")
+                self._record("dispatch_error", kind=kind, attempt=attempt,
+                             error=f"{type(e).__name__}: {e}"[:200])
                 logger.warning(f"serving {kind} dispatch failed (attempt {attempt}/{attempts}): "
                                f"{type(e).__name__}: {e}")
                 if attempt < attempts:
@@ -492,13 +543,14 @@ class ContinuousBatchingScheduler:
             self._block_failures[block] = n
             if n >= self.quarantine_after and block not in self._quarantined_blocks:
                 self._quarantined_blocks.add(block)
-                self._record("block_quarantined")
+                self._record("block_quarantined", value=block, block=block, failures=n)
         for slot in sorted(affected, key=lambda s: self._admit_seq[s], reverse=True):
             if self.slots[slot] is not None:
                 self._preempt(slot)
         n = self._consecutive_failures.get(fail.kind, 0) + 1
         self._consecutive_failures[fail.kind] = n
-        self._record("dispatch_failed")
+        self._record("dispatch_failed", kind=fail.kind, attempts=fail.attempts, consecutive=n,
+                     error=f"{type(fail.last).__name__}: {fail.last}"[:200])
         self._audit_after_recovery(f"dispatch_failed[{fail.kind}]")
         if n >= self.dispatch_failure_budget:
             raise ServingFaultError(
@@ -512,8 +564,12 @@ class ContinuousBatchingScheduler:
         as its refcount says, no slot lists a page twice, no slot's write
         frontier lies inside its borrowed prefix pages, and no page shared
         between slots reaches a slot's write frontier (the next append lands
-        at ``lengths[slot]``)."""
-        rep = self.allocator.audit()
+        at ``lengths[slot]``). With page fingerprints, every stamped shared
+        page is re-fingerprinted too."""
+        fp_fn = (getattr(self.executor, "fingerprint_pages", None)
+                 if self.page_fingerprints else None)
+        rep = (self.allocator.audit(expected_fingerprints=self._page_fp, fingerprint_fn=fp_fn)
+               if fp_fn is not None else self.allocator.audit())
         errors: List[str] = list(rep["errors"])
         refs: Dict[int, int] = {}
         for s_idx, pages in enumerate(self._slot_pages):
@@ -551,8 +607,84 @@ class ContinuousBatchingScheduler:
     def _audit_after_recovery(self, context: str) -> None:
         rep = self.audit()
         if not rep["ok"]:
-            self._record("page_audit_failed")
+            self._record("page_audit_failed", context=context,
+                         errors="; ".join(rep["errors"])[:400])
             raise RuntimeError(f"page conservation broken after {context}: {rep['errors']}")
+
+    # ---------------------------------------------- KV-page data integrity
+    def _stamp_pages(self, pages: List[int]) -> None:
+        """Fingerprint pages whose content just became immutable (full
+        prompt pages at registration). Stamp once: a page keeps its first
+        writer's fingerprint (a re-stamp would bless whatever is there now);
+        stamps die with the page in :meth:`_release`."""
+        if not self.page_fingerprints:
+            return
+        fn = getattr(self.executor, "fingerprint_pages", None)
+        todo = [p for p in pages if p not in self._page_fp]
+        if fn is None or not todo:
+            return
+        for p, fp in zip(todo, fn(todo)):
+            self._page_fp[p] = int(fp)
+
+    def _verify_pages(self, pages: List[int], context: str) -> List[int]:
+        """Re-fingerprint the stamped ones of ``pages``; returns the
+        mismatches, each recorded as ``sdc_detected``."""
+        fn = getattr(self.executor, "fingerprint_pages", None)
+        check = [p for p in pages if p in self._page_fp]
+        if fn is None or not check:
+            return []
+        bad = [p for p, fp in zip(check, fn(check)) if int(fp) != self._page_fp[p]]
+        for p in bad:
+            self._record("sdc_detected", domain="kv_page", page=int(p), context=context,
+                         refcount=self.allocator.refcount(p))
+        return bad
+
+    def _quarantine_page(self, page: int, context: str) -> None:
+        """Contain and heal a corrupt KV page: out of the prefix index (no
+        admission borrows it again), its stamp voided, and every slot
+        reading it preempted, recompute-style: each re-prefills prompt +
+        kept tokens into clean pages, and greedy decoding reproduces its
+        stream. Never a retry over rotten KV."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.forget([page])
+        self._page_fp.pop(page, None)
+        victims = [i for i, pages in enumerate(self._slot_pages)
+                   if page in pages and self.slots[i] is not None]
+        for i in victims:
+            self._preempt(i, why="sdc")
+        self._record("sdc_healed", domain="kv_page", page=int(page), context=context,
+                     victims=len(victims))
+        self._audit_after_recovery(f"sdc_{context}")
+
+    def _integrity_scan(self) -> None:
+        """The budgeted background sweep: up to ``pages_scan_per_step``
+        stamped pages verified round-robin a step, a mismatch quarantined.
+        Also where the chaos plan's ``flip_bit_at`` (domain ``kv_page``)
+        lands: in a stamped page's pool bytes, a shared page first."""
+        flip = sdc_flip_fault(self.steps, scope="serving")
+        if flip is not None and self._page_fp:
+            corrupt = getattr(self.executor, "corrupt_page_bit", None)
+            if corrupt is not None:
+                shared = [p for p in sorted(self._page_fp) if self.allocator.refcount(p) > 1]
+                target = (shared or sorted(self._page_fp))[0]
+                corrupt(target)
+                self._record("chaos_injected", kind="sdc_flip", page=int(target))
+        stamped = sorted(self._page_fp)
+        if not stamped or self.pages_scan_per_step <= 0:
+            return
+        k = min(self.pages_scan_per_step, len(stamped))
+        start = self._page_scan_rr % len(stamped)
+        batch = [stamped[(start + j) % len(stamped)] for j in range(k)]
+        self._page_scan_rr = (start + k) % len(stamped)
+        for p in self._verify_pages(batch, "scan"):
+            self._quarantine_page(p, "scan")
+
+    def close(self) -> None:
+        """Stop a watchdog the engine made for this scheduler (a no-op for
+        one the caller owns, or none)."""
+        if self._owns_watchdog and self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
 
     # ------------------------------------------------------------ admission
     def _claim_pages(self, req: Request, need: int) -> Optional[tuple]:
@@ -572,11 +704,26 @@ class ContinuousBatchingScheduler:
                 hashes = prefix_chain_hashes(np.asarray(req.prompt), self.page_size)
                 req._prefix_hashes = hashes
             shared = self.prefix_cache.lookup_chain(hashes)[:need]
+        if shared and self.page_fingerprints:
+            # a trust boundary: these pages are about to serve another
+            # request's prefix. A mismatch cuts the borrow at the first
+            # corrupt page (the chain's suffix runs through it) and
+            # quarantines; the admission goes on as a (partial) miss
+            bad = self._verify_pages(shared, "share")
+            if bad:
+                cut = min(shared.index(p) for p in bad)
+                for p in bad:
+                    self._quarantine_page(p, "share")
+                shared = shared[:cut]
         if not self.allocator.can_alloc(need - len(shared)):
             return None
         if shared:
             self.allocator.share(shared)
         own = self.allocator.alloc(need - len(shared))
+        if own is None:  # the chaos plan's alloc_fail_at, through the normal path
+            if shared:
+                self.prefix_cache.forget(self.allocator.free(shared))
+            return None
         if self.prefix_cache is not None:
             self.prefix_cache.count(hashes, shared)
         self.page_stats["logical"] += need
@@ -600,7 +747,9 @@ class ContinuousBatchingScheduler:
                 break
             pages, shared = claim
             slot = free.popleft()
-            self.queue.popleft()
+            # remove THIS request: a page quarantined during the claim
+            # requeues its borrowers at the front
+            self.queue.remove(req)
             self._slot_pages[slot] = pages
             self._slot_shared[slot] = shared
             self.tables[slot] = 0
@@ -647,8 +796,9 @@ class ContinuousBatchingScheduler:
                 req.t_first_token = self.clock()
             if self.prefix_cache is not None:
                 # the slot's full prompt pages hold their final KV now: index
-                # them for later arrivals (first writer wins)
+                # them for later arrivals (first writer wins) and stamp them
                 self.prefix_cache.register(np.asarray(req.prompt), self._slot_pages[slot])
+                self._stamp_pages(self._slot_pages[slot][:len(req.prompt) // self.page_size])
             if req.done:
                 self._finish(slot)
         return len(batch)
@@ -695,6 +845,10 @@ class ContinuousBatchingScheduler:
         (or one safe decode block, or with a drafter one speculation window)
         over the slot array. Returns the tokens produced."""
         self._sweep_deadlines()
+        if self.page_fingerprints:
+            # before admission: a rotten page is quarantined before this
+            # step's admissions could borrow it
+            self._integrity_scan()
         self._admit()
         if not self.active_slots:
             return 0
@@ -734,8 +888,8 @@ class ContinuousBatchingScheduler:
             try:
                 d = np.asarray(self.drafter.draft(slot, req.rid, np.asarray(req.prompt, np.int32),
                                                   req.tokens, k), np.int32)[:k]
-            except Exception:  # a broken drafter must not stop serving: no drafts
-                self._record("drafter_error")
+            except Exception as e:  # a broken drafter must not stop serving: no drafts
+                self._record("drafter_error", error=f"{type(e).__name__}: {e}"[:200])
                 d = np.empty(0, np.int32)
             drafts[slot] = d
         if not any(len(d) for d in drafts.values()):
@@ -801,7 +955,10 @@ class ContinuousBatchingScheduler:
         self.spec_stats["accepted"] += step_accepted
         self.spec_stats["committed_tokens"] += produced
         self._spec_ctl.observe(step_offered, step_accepted)
-        self._record("spec_window")
+        self._record("spec_window", value=float(produced), k=k, drafted=step_offered,
+                     accepted=step_accepted,
+                     accept_rate=round(step_accepted / max(step_offered, 1), 4),
+                     tokens_per_dispatch=produced, drafter=self.spec_stats["drafter"])
         return produced
 
     def _decode_step(self) -> int:

@@ -20,33 +20,10 @@ import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 from ..comm import comm
+from ..resilience.events import DEFAULT_ROTATE_BYTES, rotate_jsonl
 from ..utils.logging import logger
 
 Event = Tuple[str, float, int]
-
-DEFAULT_ROTATE_BYTES = 32 << 20
-DEFAULT_ROTATE_KEEP = 3
-
-
-def rotate_jsonl(path: str, max_bytes: Optional[int], keep: int = DEFAULT_ROTATE_KEEP) -> bool:
-    """Size-based rotation for an append-only JSONL file: when ``path`` is at
-    or past ``max_bytes``, shift ``path`` -> ``path.1`` -> ... -> ``path.keep``
-    (the oldest generation drops). Returns True when it rotated. ``max_bytes``
-    None or <= 0 disables it. A failure is logged, never raised."""
-    if not max_bytes or max_bytes <= 0 or keep < 1:
-        return False
-    try:
-        if not os.path.exists(path) or os.path.getsize(path) < max_bytes:
-            return False
-        for i in range(keep - 1, 0, -1):
-            src = f"{path}.{i}"
-            if os.path.exists(src):
-                os.replace(src, f"{path}.{i + 1}")
-        os.replace(path, f"{path}.1")
-        return True
-    except OSError as e:
-        logger.warning(f"jsonl rotation failed for {path}: {e}")
-        return False
 
 
 class TensorBoardMonitor:

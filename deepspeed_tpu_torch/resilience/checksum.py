@@ -7,8 +7,8 @@ when a C implementation of it is importable and zlib's CRC-32 otherwise.
 The port imports no CRC-32C package, so it writes ``crc32`` (zlib, C speed)
 and keeps CRC-32C's table implementation to verify the reference's tags:
 correct, but about 5 MB/s. ``DS_CHECKPOINT_CHECKSUM`` forces an algorithm,
-as in the reference. The live-state fingerprints of the reference's module
-are ROADMAP.md A11.
+as in the reference. The live-state fingerprints (:mod:`.fingerprint`) use
+the same registry.
 """
 
 from __future__ import annotations

@@ -21,9 +21,10 @@ committed tag or at the new one. A kill anywhere in a save loses at most
 one save interval: :func:`resolve_tag_for_load` walks the committed tags
 newest first and returns the first that verifies.
 
-A tag the reference quarantined (a ``QUARANTINED`` marker) is rejected
-here too; writing the marker (``quarantine_tag``) and the fault points of
-the reference's chaos tests are ROADMAP.md A11.
+A quarantined tag (a ``QUARANTINED`` marker, :func:`quarantine_tag`: the
+elastic agent's crash-loop verdict) is rejected too. The chaos plan's fault
+points fire at ``pre-manifest``, ``pre-commit`` and ``post-commit``
+(:mod:`.chaos`).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from ..utils.logging import logger
+from .chaos import fault_point
 from .checksum import CHECKSUMS, checksum_file, preferred_checksum
 from .retry import RetryingWriter
 
@@ -102,9 +104,11 @@ def commit_tag(tag_dir: str, writer: Optional[RetryingWriter] = None,
         dirs.add(os.path.dirname(os.path.join(tag_dir, rel)))
     for d in dirs:
         writer.fsync_dir(d)
+    fault_point("pre-manifest", tag_dir=tag_dir)
     manifest = build_manifest(tag_dir, tag=tag)
     manifest_bytes = json.dumps(manifest, indent=1, sort_keys=True).encode()
     writer.write_bytes(os.path.join(tag_dir, MANIFEST_NAME), manifest_bytes)
+    fault_point("pre-commit", tag_dir=tag_dir)
     algo = manifest["checksum"]
     commit = {
         "tag": manifest["tag"],
@@ -115,6 +119,7 @@ def commit_tag(tag_dir: str, writer: Optional[RetryingWriter] = None,
     }
     writer.write_bytes(os.path.join(tag_dir, COMMIT_NAME),
                        json.dumps(commit, sort_keys=True).encode())
+    fault_point("post-commit", tag_dir=tag_dir)
     return manifest
 
 
@@ -268,8 +273,31 @@ def resolve_tag_for_load(save_dir: str, tag: Optional[str] = None, deep: bool = 
         + "; ".join(f"{t}: {r}" for t, r in rejected))
 
 
+def quarantine_tag(save_dir: str, tag: str, reason: str,
+                   writer: Optional[RetryingWriter] = None) -> Optional[str]:
+    """Mark a tag unloadable (workers keep dying on it) and repoint
+    ``latest`` at the newest remaining committed tag, which is returned (None
+    when none remains). The data stays on disk for a post-mortem; only its
+    eligibility for a load is revoked."""
+    writer = writer or RetryingWriter()
+    writer.write_bytes(os.path.join(save_dir, tag, QUARANTINE_NAME),
+                       json.dumps({"reason": reason, "quarantined_unix_time": time.time()},
+                                  sort_keys=True).encode())
+    remaining = committed_tags(save_dir)
+    new_latest = remaining[-1] if remaining else None
+    if new_latest is not None:
+        write_latest(save_dir, new_latest, writer)
+    else:
+        try:
+            os.remove(os.path.join(save_dir, LATEST_FILE))
+        except OSError:
+            pass
+    logger.error(f"checkpoint tag {tag!r} QUARANTINED ({reason}); latest -> {new_latest!r}")
+    return new_latest
+
+
 __all__ = [
-    "CheckpointCorruptionError", "UncommittedTagError",
+    "CheckpointCorruptionError", "UncommittedTagError", "quarantine_tag",
     "build_manifest", "commit_tag", "verify_tag", "is_committed", "invalidate_tag",
     "committed_tags", "read_latest", "write_latest", "resolve_tag_for_load",
     "MANIFEST_NAME", "COMMIT_NAME", "QUARANTINE_NAME", "LATEST_FILE", "MANIFEST_VERSION",

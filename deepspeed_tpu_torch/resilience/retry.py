@@ -7,9 +7,10 @@ a 50-shard checkpoint should be retried with backoff, and only a persistent
 failure surfaces. :class:`RetryingWriter` wraps every durable-write
 primitive of the commit protocol (tmp-write, fsync, atomic replace) in
 bounded exponential backoff with jitter. The jitter comes from
-``os.urandom``, so checkpoint I/O draws from no seeded random stream.
-The reference's fault-injection hook (``resilience/chaos.py``) is ROADMAP.md
-A11.
+``os.urandom``, so checkpoint I/O draws from no seeded random stream. An
+armed :class:`~.chaos.FaultPlan` stalls or fails attempts inside
+:meth:`RetryingWriter.call`, so the chaos tests exercise the retry path
+production runs.
 """
 
 from __future__ import annotations
@@ -57,10 +58,15 @@ class RetryingWriter:
 
     def call(self, fn: Callable[..., Any], *args: Any, describe: Optional[str] = None,
              **kwargs: Any) -> Any:
+        from .chaos import get_fault_plan
+
         what = describe or getattr(fn, "__name__", "io")
+        plan = get_fault_plan()
         last: Optional[BaseException] = None
         for attempt in range(1, self.attempts + 1):
             try:
+                if plan is not None:
+                    plan.on_io(what)  # may stall or raise a transient error
                 return fn(*args, **kwargs)
             except TRANSIENT_ERRORS as e:
                 last = e

@@ -17,7 +17,8 @@ Ported blocks: ``fp16``, ``bf16``, ``optimizer``, ``scheduler``,
 ``csv_monitor`` / ``wandb`` blocks, merged by :attr:`DeepSpeedConfig.monitor`),
 ``progressive_layer_drop``, ``curriculum_learning``, ``data_efficiency``
 (read by the engine: seqlen curriculum and random-LTD), ``eigenvalue``,
-``compression_training``,
+``compression_training``, ``resilience`` (preemption, the watchdog,
+rollback, integrity, chaos), ``elasticity`` (the elastic batch ladder),
 ``wall_clock_breakdown``, and ``mesh`` with a data-parallel axis only:
 ``{"dp": W}`` must name the world size the config is loaded for
 (``initialize`` passes the initialized process group's). Every other block
@@ -227,6 +228,164 @@ class ProgressiveLayerDropConfig:
     gamma: float = 0.001
 
 
+def _check_ranges(obj, rules) -> None:
+    """The reference's field constraints: ``rules`` maps a field to
+    (operator, bound), each of ``gt`` / ``ge`` / ``lt``."""
+    ops = {"gt": lambda v, b: v > b, "ge": lambda v, b: v >= b, "lt": lambda v, b: v < b}
+    for name, checks in rules.items():
+        for op, bound in checks:
+            v = getattr(obj, name)
+            if not ops[op](v, bound):
+                raise ValueError(f"{type(obj).__name__}.{name}={v!r} must be {op} {bound}")
+
+
+@dataclasses.dataclass
+class SentinelConfig:
+    """``resilience.sentinel``: the divergence sentinels and rollback
+    (``resilience/rollback.py``). Every completed step's loss (and grad norm
+    when ``grad_norm_zscore`` > 0) feeds an EMA z-score detector; a
+    non-finite loss or a spike rolls back to the newest committed tag and
+    skips the batches consumed since it. ``checkpoint_interval`` > 0 saves
+    an anchor every N steps; ``memory_fallback`` keeps a host copy of the
+    last anchor; ``max_rollbacks`` bounds the loop."""
+
+    enabled: bool = False
+    zscore: float = 6.0
+    grad_norm_zscore: float = 8.0  # 0 disables the grad-norm channel
+    min_relative_spike: float = 0.1
+    ema_beta: float = 0.98
+    warmup_steps: int = 20
+    max_rollbacks: int = 3
+    checkpoint_interval: int = 0  # 0: the caller saves
+    skip_poisoned_batches: bool = True
+    memory_fallback: bool = True
+    cursor_checkpointable: bool = False
+
+    def __post_init__(self):
+        _check_ranges(self, {"zscore": [("gt", 0)], "grad_norm_zscore": [("ge", 0)],
+                             "min_relative_spike": [("ge", 0)],
+                             "ema_beta": [("gt", 0), ("lt", 1)], "warmup_steps": [("ge", 1)],
+                             "max_rollbacks": [("ge", 1)], "checkpoint_interval": [("ge", 0)]})
+
+
+@dataclasses.dataclass
+class WatchdogConfig:
+    """``resilience.watchdog``: per-phase deadlines in seconds (<= 0 turns a
+    phase's check off). A stall dumps the stacks to
+    ``<save_dir>/watchdog_stacks.txt``, records ``watchdog_stall`` and, with
+    ``escalate``, requests a drain. ``straggler_check_every`` > 0 gathers
+    each rank's step time every N steps and names the ranks slower than
+    ``straggler_factor`` x the median. The offload deadlines are read by
+    nothing until ROADMAP.md A12."""
+
+    enabled: bool = False
+    poll_interval_s: float = 1.0
+    compile_deadline_s: float = 1800.0
+    step_deadline_s: float = 300.0
+    collective_deadline_s: float = 120.0
+    checkpoint_deadline_s: float = 600.0
+    offload_fetch_deadline_s: float = 120.0
+    offload_flush_deadline_s: float = 600.0
+    escalate: bool = True
+    straggler_check_every: int = 0
+    straggler_factor: float = 2.0
+
+    def __post_init__(self):
+        _check_ranges(self, {"poll_interval_s": [("gt", 0)],
+                             "straggler_check_every": [("ge", 0)],
+                             "straggler_factor": [("gt", 1)]})
+
+
+@dataclasses.dataclass
+class IntegrityConfig:
+    """``resilience.integrity``: every ``scan_interval`` steps
+    ``blocks_per_scan`` blocks of ``block_bytes`` of the master and
+    optimizer state are fingerprinted after the step and verified before
+    the next; a mismatch rolls back (``sdc_detected``). ``spot_check_interval``
+    > 0 reruns one micro-batch every N steps and compares the loss and the
+    gradient norm bitwise; across ranks the boundary fingerprint rides the
+    straggler exchange to a majority vote."""
+
+    enabled: bool = False
+    scan_interval: int = 16
+    blocks_per_scan: int = 4
+    block_bytes: int = 1 << 20
+    spot_check_interval: int = 0
+    verify_anchors: bool = True
+
+    def __post_init__(self):
+        _check_ranges(self, {"scan_interval": [("ge", 1)], "blocks_per_scan": [("ge", 1)],
+                             "block_bytes": [("ge", 256)],
+                             "spot_check_interval": [("ge", 0)]})
+
+
+@dataclasses.dataclass
+class DegradedModeConfig:
+    """``resilience.degraded``: ``demote_after`` consecutive overflow steps
+    move the quantized gradient exchange to the fp32 wire,
+    ``repromote_after`` clean steps bring it back (residuals zeroed)."""
+
+    demote_after: int = 3
+    repromote_after: int = 100
+
+    def __post_init__(self):
+        _check_ranges(self, {"demote_after": [("ge", 1)], "repromote_after": [("ge", 1)]})
+
+
+@dataclasses.dataclass
+class ResilienceConfig:
+    """The ``resilience`` block (``resilience/``). Enabled (it needs
+    ``save_dir``), the engine installs the SIGTERM / SIGINT drain handlers,
+    resumes from the newest committed tag in ``save_dir`` at init (or
+    ``resume_tag``), and on a drain saves an emergency tag and exits with
+    ``exit_code``. ``deep_verify`` checks every file's checksum on load.
+    ``chaos``: a :class:`~deepspeed_tpu_torch.resilience.chaos.FaultPlan`
+    dict, installed at engine init (fault-injection tests only)."""
+
+    enabled: bool = False
+    save_dir: Optional[str] = None
+    resume_tag: Optional[str] = None
+    auto_resume: bool = True
+    install_signal_handlers: bool = True
+    exit_code: int = 83
+    deep_verify: bool = True
+    chaos: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    sentinel: SentinelConfig = dataclasses.field(default_factory=SentinelConfig)
+    watchdog: WatchdogConfig = dataclasses.field(default_factory=WatchdogConfig)
+    degraded: DegradedModeConfig = dataclasses.field(default_factory=DegradedModeConfig)
+    integrity: IntegrityConfig = dataclasses.field(default_factory=IntegrityConfig)
+
+    @classmethod
+    def from_dict(cls, block: Optional[Dict[str, Any]]) -> "ResilienceConfig":
+        block = dict(block or {})
+        subs = {"sentinel": SentinelConfig, "watchdog": WatchdogConfig,
+                "degraded": DegradedModeConfig, "integrity": IntegrityConfig}
+        out = _from_dict(cls, {k: v for k, v in block.items() if k not in subs})
+        for name, sub in subs.items():
+            setattr(out, name, _from_dict(sub, block.get(name)))
+        out._check()
+        return out
+
+    def _check(self) -> None:
+        """The reference's validators."""
+        if self.enabled and not self.save_dir:
+            raise ValueError("resilience.enabled requires resilience.save_dir (where "
+                             "emergency checkpoints land and auto-resume looks)")
+        if (self.sentinel.enabled or self.watchdog.enabled) and not self.enabled:
+            raise ValueError("resilience.sentinel / resilience.watchdog require "
+                             "resilience.enabled (rollback anchors and drain escalation "
+                             "both live in resilience.save_dir)")
+        if self.integrity.enabled and not self.enabled:
+            raise ValueError("resilience.integrity requires resilience.enabled (SDC "
+                             "containment rolls back to anchors in resilience.save_dir)")
+        if not (0 < self.exit_code < 256):
+            raise ValueError(f"resilience.exit_code must be in 1..255, got {self.exit_code}")
+        if self.chaos:
+            from ..resilience.chaos import FaultPlan
+
+            FaultPlan.from_dict(dict(self.chaos))  # validate keys up front
+
+
 # Known blocks and flags this slice does not port: key -> (is it asking for
 # the feature?, ROADMAP.md item). Default values pass.
 _UNPORTED_BLOCKS = {
@@ -235,8 +394,6 @@ _UNPORTED_BLOCKS = {
                                (("stages", 1), ("activation_checkpoint_interval", 0),
                                 ("micro_batches", 0))), "A13"),
     "analysis": (_enabled, "A14"),
-    "resilience": (_enabled, "A11"),
-    "elasticity": (_enabled, "A11"),
     "autotuning": (_enabled, "A13"),
     "aio": (_enabled, "A12"),
 }
@@ -289,6 +446,9 @@ class DeepSpeedConfig:
     data_efficiency: Dict[str, Any] = dataclasses.field(default_factory=dict)
     curriculum_learning: Dict[str, Any] = dataclasses.field(default_factory=dict)
     mesh: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    resilience: ResilienceConfig = dataclasses.field(default_factory=ResilienceConfig)
+    # the elasticity block as given (elasticity/elasticity.py validates it)
+    elasticity: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # {"checkpoint_engine": "native" | "async", "writers": N}
     checkpoint: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # every tag is universal (each leaf stored whole): a plain flag
@@ -309,7 +469,7 @@ class DeepSpeedConfig:
                   "comms_logger", "mesh", "checkpoint", "activation_checkpointing",
                   "flops_profiler", "monitor_config", "tensorboard", "csv_monitor", "wandb",
                   "progressive_layer_drop", "data_efficiency", "curriculum_learning",
-                  "eigenvalue", "compression_training"}
+                  "eigenvalue", "compression_training", "resilience", "elasticity"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         for key in config:
             if key not in scalars and key not in blocks and key not in _UNPORTED_BLOCKS:
@@ -347,6 +507,9 @@ class DeepSpeedConfig:
         self.compression_training = dict(config.get("compression_training") or {})
         self.data_efficiency = dict(config.get("data_efficiency") or {})
         self.curriculum_learning = dict(config.get("curriculum_learning") or {})
+        self.resilience = ResilienceConfig.from_dict(config.get("resilience"))
+        self.elasticity = dict(config.get("elasticity") or {})
+        self._adopt_elastic_batch(world_size)
         self._resolve_batch(world_size)
         self._validate(world_size)
         return self
@@ -378,7 +541,72 @@ class DeepSpeedConfig:
         self.train_micro_batch_size_per_gpu = micro
         self.gradient_accumulation_steps = gas
 
+    def _elastic_world(self, world_size: int) -> int:
+        """The data-parallel world the elastic ladder is judged at: an
+        explicit ``mesh.dp`` wins over the process group's."""
+        dp = int(self.mesh.get("dp", -1) or -1)
+        return dp if dp > 0 else world_size
+
+    def _adopt_elastic_batch(self, world_size: int) -> None:
+        """With an enabled ``elasticity`` block and no batch knob, the batch
+        triangle is the ladder's decomposition at this world size, as in the
+        reference."""
+        e = self.elasticity
+        if not (e and e.get("enabled")) or e.get("ignore_non_elastic_batch_info", False):
+            return
+        if (self.train_batch_size is not None or self.train_micro_batch_size_per_gpu is not None
+                or self.gradient_accumulation_steps is not None):
+            return  # explicit knobs: checked against the ladder in _validate
+        from ..elasticity import ElasticityError, compute_elastic_config
+
+        world = self._elastic_world(world_size)
+        try:
+            final_bs, _, micro = compute_elastic_config({"elasticity": dict(e)}, world)
+        except ElasticityError as err:
+            raise ValueError(f"invalid elasticity block: {err}") from err
+        self.train_batch_size = final_bs
+        self.train_micro_batch_size_per_gpu = micro
+        self.gradient_accumulation_steps = final_bs // (micro * world)
+        logger.info(f"elasticity: adopted batch plan for world={world}: global={final_bs} "
+                    f"micro={micro} gas={self.gradient_accumulation_steps}")
+
+    def _validate_elasticity(self, world_size: int) -> None:
+        """The ``elasticity`` block is validated at load (a malformed block,
+        or a batch triangle off the ladder, fails here, not at the first
+        resize)."""
+        e = self.elasticity
+        if not e:
+            return
+        from ..elasticity import ElasticityError, compute_elastic_config, \
+            validate_elasticity_block
+
+        try:
+            block = validate_elasticity_block(dict(e), warn=logger.warning)
+        except ElasticityError as err:
+            raise ValueError(f"invalid elasticity block: {err}") from err
+        if not block.get("enabled"):
+            return
+        final_bs, valid, _ = compute_elastic_config({"elasticity": block}, 0)
+        if block.get("ignore_non_elastic_batch_info", False):
+            logger.warning("elasticity.ignore_non_elastic_batch_info: the batch triangle is "
+                           "NOT checked against the elastic ladder; resizes may change the "
+                           "effective batch")
+            return
+        world = self._elastic_world(world_size)
+        if world not in valid:
+            raise ValueError(
+                f"elasticity: world size {world} is not among the valid elastic sizes "
+                f"{valid} for batch {final_bs}: the resize plan could never have launched "
+                "this decomposition (set ignore_non_elastic_batch_info to override)")
+        if self.train_batch_size != final_bs:
+            raise ValueError(
+                f"elasticity: train_batch_size={self.train_batch_size} is off the elastic "
+                f"ladder (the block resolves to {final_bs}): a resize would change the "
+                "effective batch; drop the batch knobs to adopt the ladder, or set "
+                "ignore_non_elastic_batch_info to override")
+
     def _validate(self, world_size: int) -> None:
+        self._validate_elasticity(world_size)
         train = self.train_batch_size
         micro = self.train_micro_batch_size_per_gpu
         gas = self.gradient_accumulation_steps

@@ -85,12 +85,27 @@ gathered whole first). The ``eigenvalue`` probe runs after every
 writes ``state["curvature"]``, which stretches the MoQ schedule per layer;
 where the model cannot be differentiated twice (the attention kernels) it
 logs and disables itself. The reference's refusals of what these do not
-compose with are kept. Everything else the reference engine does and the
+compose with are kept.
+
+The ``resilience`` block arms the reference's lifecycle around the step
+(``resilience/``): at init the chaos plan, the drain handlers and the
+auto-resume from the newest committed tag, the watchdog, the health
+controller (the divergence sentinel with rollback, the poisoned window's
+skip, the in-memory anchor, the periodic anchor saves, the quantized wire's
+demotion) and the integrity monitor (the master and optimizer state's
+blockwise fingerprints, stamped after a step and verified before the next
+and before a save, and the spot check); per step the chaos injections, the
+watchdog's phases, the straggler poll and the drain at each micro-batch
+boundary (:meth:`request_drain`, or SIGTERM: an emergency tag, then exit
+``resilience.exit_code``). Everything else the reference engine does and the
 port does not raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -103,7 +118,7 @@ from ..comm.runtime_accounting import wire_ledger
 from ..models.api import Module
 from ..ops.optimizers import Optimizer, get_optimizer
 from ..utils.errors import unported
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
 from ..utils.rng import fold_in
 from ..utils.timer import SynchronizedWallClockTimer, ThroughputTimer
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
@@ -215,6 +230,26 @@ class DeepSpeedEngine:
         self._qgrad_gen = (torch.Generator(device=self.device).manual_seed(
             fold_in(self.seed, self.rank)) if self._qcomm.gradients and self._qcomm.stochastic
             else None)
+        # the quantized exchange demoted to the fp32 wire (the health
+        # controller's WireDemotionController); read by every micro-step
+        self._qgrad_demoted = False
+        self._preemption_guard = None
+        self._recovery_log = None
+        self._draining = False
+        self._drain_polled_at = None  # micro_steps of the last drain poll
+        self._preemptions_survived = 0
+        # a callable whose value a save stores as resume_state, handed back
+        # after a load as resumed_state (a dataloader's position, say)
+        self.resume_state_provider: Optional[Callable[[], Any]] = None
+        self.resumed_state: Any = None
+        self._watchdog = None
+        self._health = None
+        self._integrity = None
+        self._integrity_boundary_fp = None
+        self._tb_dispatched = False  # the first step runs under the "compile" deadline
+        self._skip_window_remaining = 0  # imperative poison skip: micro-batches left
+        self._skip_backward = False
+        self._last_loss = None
         self.state = self._init_state()
         log_dist(
             f"engine ready: {count_parameters(tree_leaves(self.state['params'])) / 1e6:.1f}M "
@@ -222,6 +257,7 @@ class DeepSpeedEngine:
             f"{self.device}, micro_bs {self.micro_batch_size} x gas {self.gas}")
         if config.dump_state:
             config.print_config()
+        self._init_resilience()
 
     # ------------------------------------------------------------------ state
     def _init_state(self) -> Dict[str, Any]:
@@ -411,6 +447,52 @@ class DeepSpeedEngine:
         return tree_map(lambda p, pd, od: self.zero_policy.shard(p, od) if pd is None else p,
                         params, self.param_specs, self.opt_specs)
 
+    @property
+    def _qgrad_live(self) -> bool:
+        """The quantized gradient exchange runs this step (configured, not
+        demoted)."""
+        return self._qcomm.gradients and not self._qgrad_demoted
+
+    def _init_resilience(self) -> None:
+        """The reference's order (its engine's init): the chaos plan, the
+        recovery log, the drain handlers and the auto-resume, then the
+        watchdog and the health controller (whose in-memory anchor holds the
+        resumed state), then integrity (whose first stamps cover it)."""
+        res = self.config.resilience
+        if res.chaos:
+            from ..resilience.chaos import FaultPlan, install_plan
+
+            install_plan(FaultPlan.from_dict(dict(res.chaos)))
+        if not res.enabled:
+            return
+        from ..resilience import PreemptionGuard, RecoveryLog
+
+        if self.rank == 0:
+            self._recovery_log = RecoveryLog.for_dir(res.save_dir, monitor=self._monitor)
+        if res.install_signal_handlers:
+            self._preemption_guard = PreemptionGuard().install()
+        if res.auto_resume:
+            loaded, _ = self.load_checkpoint(res.save_dir, tag=res.resume_tag)
+            if loaded is not None:
+                log_dist(f"resilience: auto-resumed from {loaded} (step {self.global_steps})")
+        wd = res.watchdog
+        if wd.enabled:
+            from ..resilience.watchdog import HealthWatchdog
+
+            self._watchdog = HealthWatchdog(
+                deadlines={"compile": wd.compile_deadline_s, "step": wd.step_deadline_s,
+                           "collective": wd.collective_deadline_s,
+                           "checkpoint": wd.checkpoint_deadline_s},
+                poll_interval=wd.poll_interval_s,
+                on_stall=self._watchdog_escalate if wd.escalate else None,
+                recovery_log=self._recovery_log, stacks_dir=res.save_dir).start()
+        if res.sentinel.enabled or self._qcomm.gradients:
+            from ..resilience.rollback import HealthController
+
+            self._health = HealthController(self)
+        if res.integrity.enabled:
+            self._init_integrity()
+
     @staticmethod
     def _with_leaves(state: Dict[str, Any]) -> Dict[str, Any]:
         """Make the compute-dtype params the autograd leaves."""
@@ -475,7 +557,7 @@ class DeepSpeedEngine:
         # the quantized exchange carries the loss scale alone, as the
         # reference's _qdp_grads does
         predivide = (float(self.config.gradient_predivide_factor or 1.0)
-                     if self.config.prescale_gradients and not self._qcomm.gradients else 1.0)
+                     if self.config.prescale_gradients and not self._qgrad_live else 1.0)
         if self.pc.loss_scaling:
             eff = self.state["scaler"].scale / predivide
             return eff, 1.0 / eff
@@ -572,7 +654,7 @@ class DeepSpeedEngine:
         is the global masked mean, as the reference computes it over the
         whole batch. The quantized exchange keeps the reference's mean of
         per-rank means (its ``_qdp_grads`` loss is per rank)."""
-        if (self.world_size == 1 or "loss_mask" not in batch or self._qcomm.gradients
+        if (self.world_size == 1 or "loss_mask" not in batch or self._qgrad_live
                 or (self._onebit is not None and self._onebit.compressed())):
             return None
         if self.model.loss_count is None:
@@ -587,7 +669,7 @@ class DeepSpeedEngine:
         leaves = tree_leaves(self.state["params"])
         grads = torch.autograd.grad(scaled_loss, leaves, materialize_grads=True)
         eff, inv = self._scales()
-        if self._qcomm.gradients:
+        if self._qgrad_live:
             grads = self._qgrad_exchange(list(grads), eff)
         grads = [g.float() for g in grads]  # bf16/fp16 leaves give grads in their dtype
         if not (isinstance(inv, float) and inv == 1.0):
@@ -657,7 +739,7 @@ class DeepSpeedEngine:
         stage 2; stage 3's gathers and the quantized exchange have reduced
         them already), in the optimizer state's layout."""
         layout = self._param_dims
-        if self.world_size > 1 and self.zero_policy.stage < 3 and not self._qcomm.gradients:
+        if self.world_size > 1 and self.zero_policy.stage < 3 and not self._qgrad_live:
             W = self.world_size
             grads = [comm.all_reduce(g, op="mean") if d is None
                      else comm.reduce_scatter(g, axis=d) / W
@@ -740,7 +822,6 @@ class DeepSpeedEngine:
     def _finish_step(self, metrics: Dict[str, Any]) -> Dict[str, Any]:
         skipped = metrics.pop("_skipped")
         self.global_steps += 1
-        self.data_cursor += 1
         self._last_metrics = metrics
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
@@ -748,7 +829,12 @@ class DeepSpeedEngine:
             self.skipped_steps += 1
             log_dist(f"step {self.global_steps}: non-finite grads, step skipped; loss scale "
                      f"-> {float(self.state['scaler'].scale)}")
-            if self._monitor is not None:
+            if self._recovery_log is not None:  # writes the monitor's scalar too
+                self._recovery_log.record(
+                    "overflow_skip", step=self.global_steps, data_cursor=int(self.data_cursor),
+                    loss_scale=(float(self.state["scaler"].scale) if self.pc.loss_scaling
+                                else None))
+            elif self._monitor is not None:
                 self._monitor.write_events([("Resilience/overflow_skip", 1.0,
                                              self.global_steps)])
         if self._monitor is not None and "loss" in metrics:
@@ -770,16 +856,33 @@ class DeepSpeedEngine:
             loss_str = f"loss={float(loss):.4f} " if loss is not None else ""
             log_dist(f"step={self.global_steps} {loss_str}lr={float(metrics['lr']):.3e} "
                      f"grad_norm={float(metrics['grad_norm']):.3f}")
+        self.data_cursor += 1  # after the events, which carry the step's own cursor
         return metrics
 
     # ------------------------------------------------------------------ public API
     def train_batch(self, batch) -> Dict[str, Any]:
         """One full step: ``gas`` micro-batches and the optimizer update.
-        ``batch`` arrays are [gas, micro, ...] when gas > 1, else [micro, ...]."""
+        ``batch`` arrays are [gas, micro, ...] when gas > 1, else [micro, ...].
+        Under ``resilience``, in the reference's order: a batch inside the
+        poisoned window after a rollback is consumed without running; the
+        chaos plan's injections for this cursor; integrity's verification of
+        the blocks stamped after the last step; the step inside the
+        watchdog's bracket (closed after the loss is read to the host, which
+        waits for the card); the health checks; integrity's stamps and spot
+        check; the straggler poll; the drain."""
         if self._micro:
             raise RuntimeError("train_batch: an imperative accumulation window is open "
                                f"({self._micro} of {self.gas} micro-steps); finish it with "
                                "step() first")
+        if self._health is not None and self._health.should_skip(self.data_cursor):
+            return self._skip_poisoned_batch()
+        from ..resilience.chaos import training_faults
+
+        inj = training_faults(self.data_cursor)
+        if self._integrity is not None:
+            sdc_metrics = self._integrity_prestep()
+            if sdc_metrics is not None:
+                return sdc_metrics
         self.tput_timer.start()
         prof = self._flops_profiler
         if prof is not None and self.global_steps + 1 == self.config.flops_profiler.profile_step:
@@ -797,11 +900,29 @@ class DeepSpeedEngine:
                                   rows_axis=1 if self.gas > 1 else 0)
         if wcb:
             self.timers("batch_input").stop()
-            self.timers("train_batch").start()
-        metrics = self._step(batch)
-        if wcb:
-            self.timers("train_batch").stop(sync_on=metrics["loss"])
-        self._finish_step(metrics)
+        if inj.stall_s:
+            # a stalled collective, inside the phase whose deadline sees one
+            with self._watch_phase("collective"):
+                time.sleep(inj.stall_s)
+        t_step = time.monotonic()
+        with self._watch_phase("compile" if not self._tb_dispatched else "step"):
+            if wcb:
+                self.timers("train_batch").start()
+            metrics = self._step(batch)
+            self._tb_dispatched = True
+            if wcb:
+                self.timers("train_batch").stop(sync_on=metrics["loss"])
+            metrics = self._inject(metrics, inj)
+            if self._watchdog is not None or self._health is not None:
+                # the read the sentinel needs: the bracket closes once the card
+                # has finished the step, so a wedged kernel holds it open
+                float(metrics["loss"])
+            self._finish_step(metrics)
+        if self._health is not None:
+            hinfo = self._health.after_step(metrics)
+            if hinfo:
+                metrics = dict(metrics)
+                metrics["health"] = hinfo
         if self._eigenvalue is not None:  # on the step's batch, the first micro-batch
             self._update_curvature(batch if self.gas == 1 else {k: v[0] for k, v in
                                                                  batch.items()})
@@ -809,6 +930,23 @@ class DeepSpeedEngine:
         if wcb and spp and self.global_steps % spp == 0:
             self.timers.log(["batch_input", "train_batch"])
         self._stop_tput(batch)
+        if self._integrity is not None:
+            self._integrity_poststep(batch, time.monotonic() - t_step)
+        self._straggler_poll(time.monotonic() - t_step)
+        self._maybe_drain()
+        return metrics
+
+    def _inject(self, metrics, inj) -> Dict[str, Any]:
+        """The chaos plan's metric injections for this step: a NaN loss, a
+        quantized-gradient overflow."""
+        if inj.nan_loss:
+            metrics = dict(metrics)
+            metrics["loss"] = torch.full((), float("nan"), device=self.device)
+        if inj.ef_overflow:  # accounted as a skipped overflow step, as the reference does
+            metrics = dict(metrics)
+            metrics["overflow"] = torch.ones((), dtype=torch.bool, device=self.device)
+            metrics["_skipped"] = True
+        self._last_loss = metrics["loss"]
         return metrics
 
     def _step(self, batch) -> Dict[str, Any]:
@@ -842,7 +980,11 @@ class DeepSpeedEngine:
         else [k, micro, ...]. Returns the last step's metrics, with
         ``mean_loss`` over the K steps and each metric's K values stacked
         under ``"steps"``. Random-LTD's keep and the curriculum's length are
-        those of the window's first step, as in the reference."""
+        those of the window's first step, as in the reference. The window
+        has no pre-step boundary for integrity (its stamps are voided); a
+        window overlapping the poisoned cursors is consumed without running;
+        a rollback inside it ends it, the metrics those of the steps
+        accepted before it."""
         k = int(next(iter(batch.values())).shape[0])
         if self._micro:
             raise RuntimeError("train_batches: an imperative accumulation window is open")
@@ -850,20 +992,43 @@ class DeepSpeedEngine:
             raise ValueError("train_batches requires the fully in-HBM fused path; the "
                              "1-bit/offload/param-stream runners interleave host work per "
                              "step — call train_batch per step instead")
+        if self._integrity is not None:
+            self._integrity.invalidate("train-batches-window")
+        if self._health is not None and any(self._health.should_skip(self.data_cursor + i)
+                                            for i in range(k)):
+            out = None
+            for _ in range(k):
+                out = self._skip_poisoned_batch()
+            return out
         self._apply_random_ltd()
         batch = self._apply_curriculum(batch)
-        per_step = []
-        for i in range(k):
-            self.tput_timer.start()
-            placed = self._place_batch({name: v[i] for name, v in batch.items()},
-                                       rows_axis=1 if self.gas > 1 else 0)
-            per_step.append(self._finish_step(self._step(placed)))
-            self._stop_tput(placed)
-        out = dict(per_step[-1])
-        out["steps"] = {name: torch.stack([torch.as_tensor(m[name]) for m in per_step])
-                        for name in per_step[-1]}
-        out["mean_loss"] = out["steps"]["loss"].mean()
-        return out
+        per_step, hinfo = [], None
+        with self._watch_phase("compile" if not self._tb_dispatched else "step"):
+            for i in range(k):
+                self.tput_timer.start()
+                placed = self._place_batch({name: v[i] for name, v in batch.items()},
+                                           rows_axis=1 if self.gas > 1 else 0)
+                metrics = self._step(placed)
+                self._tb_dispatched = True
+                self._last_loss = metrics["loss"]
+                self._finish_step(metrics)
+                self._stop_tput(placed)
+                if self._health is not None:
+                    hinfo = self._health.after_step(metrics)
+                    if hinfo.get("rolled_back"):
+                        break
+                per_step.append(metrics)
+        if not per_step:
+            last = {"loss": float("nan"), "mean_loss": float("nan")}
+        else:
+            last = dict(per_step[-1])
+            last["steps"] = {name: torch.stack([torch.as_tensor(m[name]) for m in per_step])
+                             for name in per_step[-1]}
+            last["mean_loss"] = last["steps"]["loss"].mean()
+        if hinfo and hinfo.get("rolled_back"):
+            last["health"] = hinfo
+        self._maybe_drain()
+        return last
 
     def forward(self, batch) -> torch.Tensor:
         """The training loss of one micro-batch (across ranks: its mean over
@@ -873,6 +1038,22 @@ class DeepSpeedEngine:
                 "1-bit optimizers use the fused train_batch() API (the compressed stage is a "
                 "single program; the split forward/backward/step surface cannot express "
                 "per-rank gradient exchange)")
+        # the imperative poison skip: at a window start a poisoned cursor arms
+        # a gas-wide skip; the caller keeps its forward / backward / step
+        # rhythm while the window's micro-batches are consumed unrun
+        if (self._health is not None and self._skip_window_remaining == 0 and self._micro == 0
+                and self._health.should_skip(self.data_cursor)):
+            cursor = self.data_cursor
+            self.data_cursor += 1
+            self._health.note_skipped(cursor)
+            self._skip_window_remaining = self.gas
+            log_dist(f"health: skipping poisoned global batch at data cursor {cursor} "
+                     f"({self.gas} micro-batch(es))")
+        if self._skip_window_remaining > 0:
+            self._skip_window_remaining -= 1
+            self._skip_backward = True
+            return (self._last_loss if self._last_loss is not None
+                    else torch.full((), float("nan"), device=self.device))
         wcb = self.wall_clock_breakdown()
         if wcb:
             self.timers("forward").start()
@@ -882,16 +1063,23 @@ class DeepSpeedEngine:
             self._ev_last_batch = placed
         self._pending = scaled
         loss = comm.all_reduce(loss, op="mean")
+        self._last_loss = loss.detach()
         if wcb:
             self.timers("forward").stop(sync_on=loss)
         return loss
 
     def backward(self, loss: Optional[torch.Tensor] = None) -> None:
-        """Accumulate the gradients of the last :meth:`forward`'s loss."""
+        """Accumulate the gradients of the last :meth:`forward`'s loss, then
+        poll the drain: a micro-batch boundary, where the open window is
+        state a save can carry."""
+        if self._skip_backward:  # the forward was a skipped poisoned micro-batch
+            self._skip_backward = False
+            return
         if self._pending is None:
             raise RuntimeError("backward(): no forward() loss to differentiate")
         scaled, self._pending = self._pending, None
         self._accumulate(scaled)
+        self._maybe_drain()
 
     def is_gradient_accumulation_boundary(self) -> bool:
         return self._micro >= self.gas
@@ -907,10 +1095,18 @@ class DeepSpeedEngine:
         if wcb:
             self.timers("step").start()
         self._finish_step(self._boundary_step())
+        if self._health is not None:
+            # the boundary computes no loss: the window's last forward()'s
+            # feeds the sentinel
+            m = dict(self._last_metrics)
+            if "loss" not in m and self._last_loss is not None:
+                m["loss"] = self._last_loss
+            self._health.after_step(m)
         if self._eigenvalue is not None and self._ev_last_batch is not None:
             self._update_curvature(self._ev_last_batch)
         if wcb:
             self.timers("step").stop(sync_on=self.state["step"])
+        self._maybe_drain()
 
     # ------------------------------------------------------------------ eigenvalue
     def _ev_loss(self, params, batch) -> torch.Tensor:
@@ -1002,8 +1198,17 @@ class DeepSpeedEngine:
         see :func:`deepspeed_tpu_torch.checkpoint.save_checkpoint`."""
         from ..checkpoint import save_checkpoint
 
-        return save_checkpoint(self, save_dir, tag=tag, client_state=client_state or {},
-                               save_latest=save_latest)
+        if self._integrity is not None:
+            # the stamped blocks must still verify before a save blesses the
+            # bytes: a committed rotten state would poison every later anchor
+            from ..resilience.integrity import SDCError
+
+            mismatches = self._integrity.verify_pending()
+            if mismatches:
+                raise SDCError(mismatches)
+        with self._watch_phase("checkpoint"):
+            return save_checkpoint(self, save_dir, tag=tag, client_state=client_state or {},
+                                   save_latest=save_latest)
 
     def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
                         load_optimizer_states: bool = True) -> Tuple[Optional[str], dict]:
@@ -1011,8 +1216,11 @@ class DeepSpeedEngine:
         (None, {}); see :func:`deepspeed_tpu_torch.checkpoint.load_checkpoint`."""
         from ..checkpoint import load_checkpoint
 
-        return load_checkpoint(self, load_dir, tag=tag,
-                               load_optimizer_states=load_optimizer_states)
+        out = load_checkpoint(self, load_dir, tag=tag,
+                              load_optimizer_states=load_optimizer_states)
+        if self._integrity is not None:
+            self._integrity.invalidate("checkpoint-load")  # stamps over replaced state
+        return out
 
     def save_16bit_model(self, save_dir: str, save_filename: str = "pytorch_model.npz") -> str:
         """The compute-dtype weights in one ``.npz``; see
@@ -1031,8 +1239,248 @@ class DeepSpeedEngine:
     def analyze(self, *args, **kwargs):
         raise unported("DeepSpeedEngine.analyze (static analysis)", "A14")
 
-    def install_preemption_guard(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.install_preemption_guard", "A11")
 
-    def request_drain(self, *args, **kwargs):
-        raise unported("DeepSpeedEngine.request_drain", "A11")
+    # ------------------------------------------------------------------ resilience
+    def install_preemption_guard(self):
+        """Install the SIGTERM / SIGINT drain handlers (main thread only).
+        ``resilience.enabled`` with ``install_signal_handlers`` does it at
+        init; this is for an engine built off the main thread or with the
+        handlers off."""
+        if self._preemption_guard is None:
+            from ..resilience import PreemptionGuard
+
+            self._preemption_guard = PreemptionGuard()
+        return self._preemption_guard.install()
+
+    def request_drain(self, reason: str = "manual") -> None:
+        """Save and exit at the next micro-batch boundary, as a SIGTERM
+        would. Needs the ``resilience`` block (its ``save_dir``)."""
+        if not self.config.resilience.enabled:
+            raise ValueError("request_drain needs resilience.enabled with a save_dir: without "
+                             "it the drain would be silently ignored at the next boundary")
+        if self._preemption_guard is None:
+            from ..resilience import PreemptionGuard
+
+            self._preemption_guard = PreemptionGuard()
+        self._preemption_guard.request_drain(reason)
+
+    def _maybe_drain(self) -> None:
+        """At a micro-batch boundary: when a drain was signalled, save an
+        emergency tag and exit with ``resilience.exit_code``. Across ranks the
+        flags are max-reduced first, so that every rank drains at the same
+        boundary (the save is a collective)."""
+        res = self.config.resilience
+        if self._draining or not res.enabled:
+            return
+        if self._drain_polled_at == self.micro_steps:
+            return  # backward() polled this boundary already
+        self._drain_polled_at = self.micro_steps
+        g = self._preemption_guard
+        local = bool(g is not None and g.drain_requested)
+        if self.world_size > 1:
+            with self._watch_phase("collective"):
+                flag = torch.full((1,), float(local), device=self.device)
+                drain = bool(comm.all_reduce(flag, op="max").item() > 0)
+        else:
+            drain = local
+        if not drain:
+            return
+        signal_name = g.signal_name if local and g is not None else "peer-preemption"
+        self._draining = True  # the save marks its meta as emergency
+        t0 = time.monotonic()
+        log_dist(f"drain requested ({signal_name}): emergency checkpoint to {res.save_dir} at "
+                 f"step {self.global_steps}")
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # every issued step has landed
+            path = self.save_checkpoint(res.save_dir)
+        except BaseException as e:
+            if self._recovery_log is not None:
+                self._recovery_log.record("emergency_save_failed", step=self.global_steps,
+                                          error=str(e))
+            logger.error(f"emergency checkpoint FAILED: {e}")
+            raise SystemExit(1) from e
+        if self._recovery_log is not None:
+            self._recovery_log.record("emergency_save", value=time.monotonic() - t0,
+                                      step=self.global_steps, tag=os.path.basename(path),
+                                      signal=signal_name or "")
+        log_dist(f"drain complete: {path} committed in {time.monotonic() - t0:.2f}s; exiting "
+                 f"{res.exit_code}")
+        raise SystemExit(res.exit_code)
+
+    def _watch_phase(self, name: str):
+        """The watchdog's deadline bracket for ``name``; inert without one."""
+        if self._watchdog is not None:
+            return self._watchdog.phase(name)
+        return contextlib.nullcontext()
+
+    def _watchdog_escalate(self, phase: str, elapsed: float) -> None:
+        """A stall (from the watchdog's thread) becomes a drain request: if
+        it clears, the next boundary saves and exits with the preemption
+        code."""
+        try:
+            self.request_drain(f"watchdog-stall:{phase}")
+        except Exception as e:  # escalation must never kill the watchdog
+            logger.error(f"watchdog escalation failed: {e}")
+
+    def _skip_poisoned_batch(self) -> Dict[str, Any]:
+        """Consume one data cursor without running it (the poisoned window
+        after a rollback); no optimizer step happens."""
+        cursor = self.data_cursor
+        self.data_cursor += 1
+        self._health.note_skipped(cursor)
+        log_dist(f"health: skipped poisoned batch at data cursor {cursor} (step stays "
+                 f"{self.global_steps})")
+        m = dict(self._last_metrics) if self._last_metrics else {"loss": float("nan")}
+        m["skipped_batch"] = True
+        m["skipped_cursor"] = cursor
+        return m
+
+    # ------------------------------------------------------------------ integrity
+    def _init_integrity(self) -> None:
+        """The integrity monitor over the device-resident state: the master
+        copy and the optimizer state (a rank's slices at stages 1-2)."""
+        from ..resilience.integrity import IntegrityMonitor
+
+        icfg = self.config.resilience.integrity
+        mon = IntegrityMonitor(scan_interval=icfg.scan_interval,
+                               blocks_per_scan=icfg.blocks_per_scan,
+                               block_bytes=icfg.block_bytes, recovery_log=self._recovery_log)
+        mon.register_domain("master", self._device_master_units)
+        self._integrity = mon
+        log_dist(f"integrity: armed ({mon.algo}, scan every {mon.scan_interval} steps x "
+                 f"{mon.blocks_per_scan} blocks of {mon.block_bytes} B, domains {mon.domains})")
+
+    def _device_master_units(self) -> Dict[str, Any]:
+        """The master and optimizer leaves keyed by their tree path, as the
+        reference names them (``master['blocks']['qkv_w']``, ``opt.mu[...]``)."""
+        out: Dict[str, Any] = {}
+
+        def walk(prefix, node):
+            if isinstance(node, dict):
+                for k in sorted(node):
+                    walk(f"{prefix}[{k!r}]", node[k])
+            elif isinstance(node, tuple) and hasattr(node, "_fields"):
+                for f in node._fields:
+                    walk(f"{prefix}.{f}", getattr(node, f))
+            elif isinstance(node, (list, tuple)):
+                for i, v in enumerate(node):
+                    walk(f"{prefix}[{i}]", v)
+            elif isinstance(node, torch.Tensor):
+                out[prefix] = node
+
+        for name in ("master", "opt"):
+            tree = self.state.get(name)
+            if tree:
+                walk(name, tree)
+        return out
+
+    def _integrity_prestep(self) -> Optional[Dict[str, Any]]:
+        """Before the step: an armed chaos flip lands (inside a stamped
+        block), then the stamped blocks are verified. A mismatch rolls back
+        through the health controller (the window replayed, not skipped),
+        or raises :class:`~..resilience.integrity.SDCError` without one."""
+        from ..resilience.chaos import sdc_flip_fault
+        from ..resilience.integrity import SDCError
+
+        mon = self._integrity
+        domain = sdc_flip_fault(self.data_cursor, scope="training")
+        if domain is not None:
+            mon.inject_flip(domain)
+        mismatches = mon.verify_pending()
+        if not mismatches:
+            return None
+        if self._health is None:
+            raise SDCError(mismatches)
+        info = self._health.sdc_rollback(mismatches[0])
+        m = dict(self._last_metrics) if self._last_metrics else {"loss": float("nan")}
+        m["health"] = {"rolled_back": info}
+        m["sdc"] = mismatches
+        return m
+
+    def _integrity_poststep(self, batch, step_dt: float) -> None:
+        """After the step: the next blocks of the rotation stamped (verified
+        before the next step), the spot check, the boundary fingerprint."""
+        mon = self._integrity
+        mon.note_step_time(step_dt)
+        if mon.scan_due(self.global_steps):
+            stamped = mon.stamp_next()
+            if stamped and self._recovery_log is not None:
+                self._recovery_log.record("integrity_scan", value=float(stamped),
+                                          step=self.global_steps, pending=mon.pending_blocks)
+        sci = int(self.config.resilience.integrity.spot_check_interval or 0)
+        if (sci > 0 and self.global_steps % sci == 0 and self._onebit is None
+                and not self._qcomm.gradients):
+            self._integrity_spot_check(batch)
+        elif self._last_loss is not None:
+            from ..resilience.fingerprint import fingerprint_array
+
+            self._integrity_boundary_fp = fingerprint_array(
+                torch.as_tensor(self._last_loss, dtype=torch.float32))
+
+    def _integrity_spot_check(self, batch) -> None:
+        """The redundant-compute canary: one micro-batch's loss and gradient
+        norm (reduced over the ranks) computed twice on the current state (the
+        same dropout seed, no update) and compared bitwise; the first doubles
+        as the boundary fingerprint of the majority vote."""
+        from ..resilience.fingerprint import fingerprint_bytes
+
+        mon = self._integrity
+        t0 = time.monotonic()
+        mb = batch if self.gas == 1 else {k: v[0] for k, v in batch.items()}
+        leaves = tree_leaves(self.state["params"])
+
+        def canary() -> bytes:
+            scaled, loss = self._forward(mb)
+            grads = torch.autograd.grad(scaled, leaves, materialize_grads=True)
+            # reduced over the ranks, as at the boundary: every rank's
+            # fingerprint is then the same, and the vote can name a deviant
+            gnorm = self._global_norm(self._reduce_grads([g.float() for g in grads]))
+            loss = comm.all_reduce(loss.detach().float(), op="mean")
+            return torch.stack([loss, gnorm.float()]).cpu().numpy().tobytes()
+
+        fp_a = fingerprint_bytes(canary())
+        fp_b = fingerprint_bytes(canary())
+        self._integrity_boundary_fp = fp_a
+        mon.record_spot_check(fp_a == fp_b, self.global_steps,
+                              detail=None if fp_a == fp_b else
+                              {"check": "spot", "fp_a": int(fp_a), "fp_b": int(fp_b)})
+        mon.add_overhead(time.monotonic() - t0)
+
+    def _straggler_poll(self, step_duration_s: float) -> None:
+        """Every ``straggler_check_every`` steps across ranks: gather each
+        rank's step time (and the integrity boundary fingerprint, for the
+        majority vote) and name the outliers. A collective at a step
+        boundary, never from the watchdog's thread."""
+        if self._watchdog is None or self.world_size == 1:
+            return
+        wd = self.config.resilience.watchdog
+        every = int(wd.straggler_check_every or 0)
+        if every <= 0 or self.global_steps % every != 0:
+            return
+        from ..resilience.watchdog import allgather_host_stats, identify_stragglers
+
+        fp = self._integrity_boundary_fp if self._integrity is not None else None
+        stats = allgather_host_stats(step_duration_s, fingerprint=fp, device=self.device)
+        if not stats:
+            return
+        if fp is not None:
+            from ..resilience.integrity import fingerprint_vote
+
+            _majority, deviants = fingerprint_vote(stats)
+            for d in deviants:
+                logger.error(f"integrity: rank {d['process_index']} ({d['hostname']!r}) "
+                             "deviates from the majority boundary fingerprint at step "
+                             f"{self.global_steps}: SDC suspect")
+                if self._recovery_log is not None:
+                    self._recovery_log.record("sdc_suspect", step=self.global_steps,
+                                              hostname=d["hostname"],
+                                              process_index=d["process_index"])
+        for idx in identify_stragglers([s["step_s"] for s in stats], factor=wd.straggler_factor):
+            s = stats[idx]
+            logger.warning(f"straggler: rank {s['process_index']} ({s['hostname']!r}) took "
+                           f"{s['step_s']:.2f}s against the median at step {self.global_steps}")
+            if self._recovery_log is not None:
+                self._recovery_log.record("straggler_detected", value=s["step_s"],
+                                          step=self.global_steps, hostname=s["hostname"],
+                                          process_index=s["process_index"])

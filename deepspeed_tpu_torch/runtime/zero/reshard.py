@@ -27,9 +27,9 @@ of ``deepspeed_tpu/runtime/zero/reshard.py``).
 The checkpoint format is topology-free (every leaf stored whole), so the
 logical leaves load at any world size by cutting each to the new slices.
 The host-state functions of the reference (``partition_host_state``,
-``repartition_host_state``) belong with offload (ROADMAP.md A12), and the
-recovery events (``reshard_applied``, ``reshard_residual_reset``) with the
-recovery log (A11): the port logs a line in their place.
+``repartition_host_state``) belong with offload (ROADMAP.md A12). A reset
+residual is recorded as a ``reshard_residual_reset`` recovery event (and the
+load records ``reshard_applied``) when the engine keeps a recovery log.
 """
 
 from __future__ import annotations
@@ -173,18 +173,22 @@ def partition_record(engine) -> Dict[str, Any]:
 
 
 # --------------------------------------------------------------- load-side
-def load_resolver(old_world: int, new_world: int) -> Callable[[str, Any, Any], Any]:
+def load_resolver(old_world: int, new_world: int, recovery_log: Any = None,
+                  step: int = 0) -> Callable[[str, Any, Any], Any]:
     """The ``on_shape_mismatch(key, stored, template_leaf)`` hook a load
     across world sizes passes to ``load_pytree``: a residual of
     :data:`RESIDUAL_RESET_KEYS` or :data:`ONEBIT_RESET_KEYS` comes back as zeros of the
-    template's shape and dtype (with a log line where the reference records
-    ``reshard_residual_reset``); any other leaf raises :class:`ReshardError`."""
+    template's shape and dtype, recorded as a ``reshard_residual_reset``
+    event in ``recovery_log``; any other leaf raises :class:`ReshardError`."""
 
     def resolve(key: str, stored, leaf):
         name = key.rsplit("/", 1)[-1]
         if name in RESIDUAL_RESET_KEYS + ONEBIT_RESET_KEYS:
             logger.warning(f"reshard: {key} reset to zeros {tuple(leaf.shape)} (written at "
                            f"world={old_world}, loading at world={new_world})")
+            if recovery_log is not None:
+                recovery_log.record("reshard_residual_reset", step=step, key=key,
+                                    old_world=old_world, new_world=new_world)
             return np.zeros(tuple(leaf.shape), dtype=np.float32)
         raise ReshardError(
             f"checkpoint leaf {key!r} has shape {tuple(stored.shape)} (written at "

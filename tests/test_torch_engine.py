@@ -232,8 +232,26 @@ _NON_SEQLEN = {"data_efficiency": {"enabled": True, "data_sampling": {"curriculu
     {"resilience": {"enabled": True, "save_dir": "/nonexistent"}},
     {"elasticity": {"enabled": True}},
 ], ids=lambda b: "-".join(str(k) for k in b) + ("-" + str(list(b.values())[0])[:24]))
-def test_unported_config_blocks_raise(block):
+def test_unported_config_blocks_raise(block, tmp_path):
+    """The blocks of items still to port raise naming their item. The
+    ``resilience`` and ``elasticity`` blocks (A11, ported) reach the engine:
+    the recovery log and the drain handlers under ``save_dir``; the elastic
+    ladder's check, which refuses this config's batch knobs as the
+    reference's does."""
     model, _ = gpt.build("tiny")
+    if "resilience" in block:
+        block = {"resilience": {**block["resilience"], "save_dir": str(tmp_path),
+                                "install_signal_handlers": False}}
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={**config(), **block},
+                                                    device="cpu")
+        assert engine._recovery_log.path == str(tmp_path / "recovery_events.jsonl")
+        assert engine.config.resilience.enabled and engine._preemption_guard is None
+        return
+    if "elasticity" in block:
+        with pytest.raises(ValueError, match="elastic ladder"):
+            deepspeed_tpu_torch.initialize(model=model, config={**config(), **block},
+                                           device="cpu")
+        return
     match = "unsupported in-engine" if block is _NON_SEQLEN else "ROADMAP.md"
     with pytest.raises(NotImplementedError, match=match):
         deepspeed_tpu_torch.initialize(model=model, config={**config(), **block},
@@ -264,8 +282,23 @@ def test_info_surface_and_set_train_batch_size():
 @pytest.mark.parametrize("method", ["comms_verify", "measure_overlap",
                                     "analyze", "install_preemption_guard", "request_drain"])
 def test_unported_engine_methods_raise(method):
+    """The methods of items still to port raise naming their item; A11's,
+    ported, act: ``install_preemption_guard`` installs the SIGTERM / SIGINT
+    handlers, and ``request_drain`` without the resilience block refuses, as
+    the reference's does."""
     model, _ = gpt.build("tiny")
     engine, *_ = deepspeed_tpu_torch.initialize(model=model, config=config(), device="cpu")
+    if method == "install_preemption_guard":
+        guard = engine.install_preemption_guard()
+        try:
+            assert guard.installed and not guard.drain_requested
+        finally:
+            guard.uninstall()
+        return
+    if method == "request_drain":
+        with pytest.raises(ValueError, match="resilience.enabled"):
+            engine.request_drain()
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md A\d+"):
         getattr(engine, method)()
 

@@ -144,7 +144,7 @@ def test_executor_fault_propagates_and_drain_refuses():
     assert not verdict and verdict.reason == "draining"
 
 
-# ------------------------------------------- refused knobs, and A7's honoured
+# ------------------------------------ refused knobs, and A7's and A11's honoured
 SCHED_KNOBS = [("max_queue", 8, "A7"), ("ttft_deadline_s", 1.0, "A7"),
                ("dispatch_retries", 0, "A7"), ("quarantine_after", 1, "A7"),
                ("dispatch_failure_budget", 1, "A7"), ("prefix_cache", object(), "A7"),
@@ -155,9 +155,9 @@ SCHED_KNOBS = [("max_queue", 8, "A7"), ("ttft_deadline_s", 1.0, "A7"),
 
 @pytest.mark.parametrize("name,value,item", SCHED_KNOBS, ids=[k[0] for k in SCHED_KNOBS])
 def test_scheduler_refuses_unported_arguments(name, value, item):
-    """A10 / A11 arguments raise naming their item; the A7 ones, ported, are
-    kept as the reference's scheduler keeps them."""
-    if item == "A7":
+    """A10 arguments raise naming their item; the A7 and A11 ones, ported,
+    are kept as the reference's scheduler keeps them."""
+    if item in ("A7", "A11"):
         kw = dict(num_slots=1, num_pages=4, page_size=4, pages_per_seq=2)
         if name == "prefix_cache":
             out = serving.ContinuousBatchingScheduler(FakeExecutor(), **kw,
@@ -183,8 +183,18 @@ A7_CONFIG_KNOBS = {"enable_prefix_cache": "prefix_cache", "max_queue": "max_queu
                    "ttft_deadline_s": "ttft_deadline_s", "request_deadline_s": "deadline_s",
                    "dispatch_retries": "dispatch_retries", "quarantine_after": "quarantine_after",
                    "dispatch_failure_budget": "dispatch_failure_budget"}
+# the fields A11 ported: what each reaches in the scheduler or its watchdog
+A11_CONFIG_KNOBS = {
+    "page_fingerprints": lambda sc: sc.page_fingerprints,
+    "pages_scan_per_step": lambda sc: sc.pages_scan_per_step,
+    "prefill_deadline_s": lambda sc: sc.watchdog.deadlines["serving_prefill"],
+    "decode_deadline_s": lambda sc: (sc.watchdog.deadlines["serving_decode"],
+                                     sc.watchdog.deadlines["serving_verify"]),
+    "watchdog_poll_s": lambda sc: sc.watchdog.poll_interval,
+    "stacks_dir": lambda sc: sc.watchdog.stacks_dir}
 CONFIG_KNOBS = [(f.name, item) for item, names in
-                [("A7", tuple(A7_CONFIG_KNOBS))] + list(serving.engine._UNPORTED_KNOBS.items())
+                [("A7", tuple(A7_CONFIG_KNOBS)), ("A11", tuple(A11_CONFIG_KNOBS))]
+                + list(serving.engine._UNPORTED_KNOBS.items())
                 for f in dataclasses.fields(serving.ServingConfig) if f.name in names]
 
 
@@ -201,15 +211,30 @@ def _knob_value(name, default):
         return default + 1
     return {"shed_policy": "reject_largest", "role": "decode", "max_queue": 8,
             "max_queued_tokens": 4096, "ttft_deadline_s": 1.0,
-            "request_deadline_s": 30.0}.get(name, "set")
+            "request_deadline_s": 30.0, "prefill_deadline_s": 5.0,
+            "decode_deadline_s": 5.0, "stacks_dir": "stacks"}.get(name, "set")
 
 
 @pytest.mark.parametrize("name,item", CONFIG_KNOBS, ids=[k[0] for k in CONFIG_KNOBS])
 def test_serving_config_refuses_unported_knobs(name, item, weights):
-    """A10 / A11 / A14 knobs raise naming their item; each A7 knob reaches the
-    scheduler ``make_scheduler()`` builds with the value the JAX engine's
-    ``make_scheduler()`` gives it."""
+    """A10 / A14 knobs raise naming their item; each A7 and A11 knob reaches
+    the scheduler ``make_scheduler()`` builds (or its watchdog) with the value
+    the JAX engine's ``make_scheduler()`` gives it."""
     value = _knob_value(name, getattr(serving.ServingConfig(), name))
+    if item == "A11":
+        # the watchdog's knobs need a phase deadline for a watchdog to exist
+        over = {"max_model_len": 64, "decode_deadline_s": 5.0, name: value}
+        ref = jserving.ServingEngine(CFG, weights[0],
+                                     jserving.ServingConfig(**over)).make_scheduler()
+        out = serving.ServingEngine(TCFG, params_from_numpy(weights[1], "cpu"),
+                                    serving.ServingConfig(**over), device="cpu").make_scheduler()
+        try:
+            got, want = A11_CONFIG_KNOBS[name](out), A11_CONFIG_KNOBS[name](ref)
+            assert got == want and (got == value or got == (value, value))
+        finally:
+            out.close()
+            ref.close()
+        return
     if item == "A7":
         over = {"max_model_len": 64, name: value}
         ref = jserving.ServingEngine(CFG, weights[0],
@@ -230,14 +255,35 @@ def test_serving_config_refuses_unported_knobs(name, item, weights):
 
 
 def test_serving_engine_refuses_auto_slots_monitor_and_draft(monkeypatch):
-    """``num_slots="auto"`` and ``monitor`` raise naming their item; ``draft``
-    (the draft model of speculative decoding) is accepted and kept."""
+    """``num_slots="auto"`` raises naming its item; ``monitor`` (A11) is kept
+    and fed the ``Serving/*`` trail through the recovery log
+    ``make_scheduler`` makes for it and ``Serving/compile_events``;
+    ``draft`` (the draft model of speculative decoding) is accepted and
+    kept."""
     cfg = TG.PRESETS["tiny"]
     params = TG.init_params(cfg, 0, device="cpu")
-    for kw, item in ((dict(serving=serving.ServingConfig(num_slots="auto")), "A14"),
-                     (dict(monitor=object()), "A11")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-            serving.ServingEngine(cfg, params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A14"):
+        serving.ServingEngine(cfg, params, device="cpu",
+                              serving=serving.ServingConfig(num_slots="auto"))
+
+    class Monitor:
+        def __init__(self):
+            self.events = []
+
+        def write_events(self, events):
+            self.events.extend(events)
+
+    mon = Monitor()
+    eng = serving.ServingEngine(cfg, params, serving.ServingConfig(max_model_len=64),
+                                monitor=mon, device="cpu")
+    assert eng.monitor is mon
+    sched = eng.make_scheduler()
+    assert sched.recovery_log.monitor is mon and sched.recovery_log.prefix == "Serving"
+    sched.drain()
+    eng.decode(np.zeros(eng.num_slots, np.int32),
+               np.zeros((eng.num_slots, eng.serving.pages_per_seq), np.int32),
+               np.zeros(eng.num_slots, np.int32), np.zeros(eng.num_slots, bool))
+    assert [e[0] for e in mon.events] == ["Serving/drain_started", "Serving/compile_events"]
     draft = (cfg, params)
     eng = serving.ServingEngine(cfg, params, serving.ServingConfig(
         max_model_len=64, spec_drafter="draft_model"), draft=draft, device="cpu")

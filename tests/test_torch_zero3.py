@@ -283,6 +283,18 @@ def test_gathered_parameters_reads_and_writes_back():
     ({"mesh": {"dp": 1, "tp": 2}}, "A13"),
 ])
 def test_knobs_still_to_port_raise(block, match):
+    """The knobs of items still to port raise naming their item. The
+    ``elasticity`` block (A11, ported) is validated as the reference's: batch
+    knobs off its ladder raise, and without them the config adopts it."""
+    if match == "A11":
+        with pytest.raises(ValueError, match="off the elastic ladder"):
+            DeepSpeedConfig.load({**_cfg(), **block})
+        cfg = {k: v for k, v in _cfg().items() if k != "train_micro_batch_size_per_gpu"}
+        out = DeepSpeedConfig.load({**cfg, **block})
+        # the reference's resolution: batch 8, the largest dividing micro 4, gas 2
+        assert (out.train_batch_size, out.train_micro_batch_size_per_gpu,
+                out.gradient_accumulation_steps) == (8, 4, 2)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {match}"):
         DeepSpeedConfig.load({**_cfg(), **block})
 
