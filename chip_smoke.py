@@ -456,7 +456,34 @@ result line):
    queued and finished later, the stall flagged, B4 12 a decode step and
    B5 12 a window; the same run without faults detects nothing. Each of
    (c)'s rank 0s leads a process group, recorded in the phase's directory:
-   the phase stops those groups and no other process.
+   the phase stops those groups and no other process. (b)'s resumes and
+   (c)'s world-1 run train while phase 20 runs; their checks close phase 19
+   after it (``phase_resilience_join``).
+
+20. ZeRO-Offload and ZeRO-Infinity on GPT-2-125M at full width and depth,
+   from seed 0, the tags and NVMe stores in a temporary directory. (a)
+   ``offload_optimizer`` cpu (the legacy ``cpu_offload`` key), fp32 B4 x
+   T512, 3 steps against the in-device AdamW run from the same weights:
+   losses rtol 2e-4, host masters rtol 1e-3 / atol 2e-5, exact launches;
+   step ms, host-step ms, peak memory beside the in-device run's; NVMe
+   optimizer state with the ``aio`` block, a step bitwise the RAM run's.
+   (b) ``offload_param`` cpu, bf16, 5b's batch, 3 steps at
+   prefetch depths 0, 1, 2: losses, grad norms and every host master bitwise
+   equal across depths, step 1 within 0.5 of ln V, the loss falling, B1 24
+   launches a step (each layer's forward and its recompute) and each B2
+   kernel 12; peak memory, the host-DMA row. (c) the drained gradients
+   bitwise synchronous copies, the bf16 push buffers bitwise the masters'
+   casts. (d) the int8 quantized fetch within rel 0.05, wire ratio >= 1.9.
+   (e) + (f) a save at step 2 (host shards under the manifest) resumed by an
+   engine with NVMe masters, step 3 bitwise the RAM run's; an injected
+   fetch stall named ``offload_fetch`` by the watchdog. Phase 1 also builds
+   the host C++ (``csrc/host``: the SIMD Adam and the I/O pool) with the
+   host compiler.
+
+``--only phase_a,phase_b`` runs those phases alone and prints no result line
+(a partial run). A phase that reads an earlier phase's results needs that
+phase in the list (phase 20 reads 5b's batch and peak, and phase 5 the kernel
+phase's results: ``--only phase_build,phase_kernels,phase_training,phase_offload``).
 
 Each main path runs with every kernel's launch count set to 0 just before it
 and read just after: each path's exact launch counts name the route (fp32
@@ -700,20 +727,22 @@ class Timer:
 
 # the host's wait between starting a trace and the call it traces: on a
 # loaded host, traces of calls made at once have lost the calls' first
-# device records
-PROFILER_LEAD_S = 0.05
+# device records (at a 50 ms lead still, in 7d's int8 trace on a host whose
+# 5b step was 79 ms; at 0.25 s in all 6 tries on one whose 5b step was 74
+# ms, so complete_trace doubles the lead on each retry)
+PROFILER_LEAD_S = 0.25
 
 
-def device_kernels(torch, fn):
+def device_kernels(torch, fn, lead_s: float = PROFILER_LEAD_S):
     """The CUDA kernels of one call of ``fn`` from a torch.profiler trace, as
     [(name, count, self device ms)], largest first. The call starts
-    ``PROFILER_LEAD_S`` after the trace, the device idle."""
+    ``lead_s`` after the trace, the device idle."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        time.sleep(PROFILER_LEAD_S)
+        time.sleep(lead_s)
         fn()
         torch.cuda.synchronize()
     # device-side rows only: a CPU op's row carries its kernels' time as well
@@ -731,11 +760,12 @@ def complete_trace(torch, fn, name: str, counter, tries: int = TRACE_TRIES):
     for every launch ``counter()`` counted in that call of the kernels whose
     name holds ``name``: taken again, up to ``tries`` times, while records
     are missing (a trace has been seen to drop one of 48, on a loaded host in
-    three traces running). Returns (kernels, launches, records) of the last
-    trace taken."""
-    for _ in range(tries):
+    three traces running). Each try doubles the lead before the call (0.25 s
+    to 8 s), since the records a short trace lacks are the call's first ones.
+    Returns (kernels, launches, records) of the last trace taken."""
+    for k in range(tries):
         before = counter()
-        kernels = device_kernels(torch, fn)
+        kernels = device_kernels(torch, fn, PROFILER_LEAD_S * 2 ** k)
         launches = counter() - before
         records = sum(r[1] for r in kernels if name in r[0])
         if records == launches:
@@ -842,10 +872,30 @@ def phase_build(torch, ctx):
     torch.backends.cudnn.allow_tf32 = False
     log(f"phase1 tf32: matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
+    import threading
+
     t0 = time.perf_counter()
+    host = {}  # the host C++ of ZeRO-Offload (phase 20), beside nvcc
+
+    def build_host():
+        try:
+            for name in ("cpu_adam", "aio"):
+                _build.load_host(name)
+            host["s"] = time.perf_counter() - t0
+        except Exception as e:  # raised below, in this thread
+            host["error"] = e
+
+    th = threading.Thread(target=build_host)
+    th.start()
     _build.build_all()
     log(f"phase1 build: {len(_build.sources())} kernel sources in "
         f"{time.perf_counter() - t0:.2f} s")
+    th.join()
+    if "error" in host:
+        raise host["error"]
+    log(f"phase1 host build: cpu_adam and aio in {host['s']:.2f} s with "
+        f"{' '.join(_build.host_flags())} (cpu_adam SIMD level "
+        f"{_build.load_host('cpu_adam').ds_cpu_ops_simd()})")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -6166,7 +6216,9 @@ def phase_resilience(torch, ctx):
     unwound and its request queued, the stall flagged, B4 12 a decode step
     and B5 12 a window; a run without faults detects nothing. (a) runs alone (its
     step times are compared); (d) runs while (b)'s and (c)'s processes start
-    and train, then (b) and (c) are checked."""
+    and train; (b)'s first children are checked and their resumes started,
+    and phase 20 runs while the resumes and (c)'s agent train
+    (:func:`phase_resilience_join` checks them after it)."""
     import os
     import shutil
     import tempfile
@@ -6175,21 +6227,41 @@ def phase_resilience(torch, ctx):
 
     cfg = gpt.PRESETS["gpt2-125m"]
     root = tempfile.mkdtemp(prefix="res19_")
+    st = None
     try:
         t0 = time.perf_counter()
         _phase19a(torch, ctx, cfg, os.path.join(root, "a"))
         log(f"phase19a took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
         st = _phase19bc_start(cfg, root)
-        try:
-            _phase19d(torch, ctx, cfg)  # while 19b's and 19c's processes start up
-            log(f"phase19d took {time.perf_counter() - t0:.1f} s (beside 19b / 19c)")
-            _phase19bc_finish(torch, cfg, root, st)
-        finally:
-            _phase19bc_abort(st)  # nothing is left running, whatever failed
-        log(f"phase19b+c+d took {time.perf_counter() - t0:.1f} s")
+        _phase19d(torch, ctx, cfg)  # while 19b's and 19c's processes start up
+        log(f"phase19d took {time.perf_counter() - st['t0']:.1f} s (beside 19b / 19c)")
+        _phase19bc_relaunch(torch, cfg, st)
+        ctx["res19"] = {"root": root, "st": st}  # joined by phase_resilience_join
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if "res19" not in ctx:  # nothing is left running, whatever failed
+            if st is not None:
+                _phase19bc_abort(st)
+            shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_resilience_join(torch, ctx):
+    """Phase 19's end, after phase 20 (which ran beside 19b's resumes and
+    19c's agent): those processes joined and checked, every process 19b /
+    19c started stopped, the tags removed. Nothing to do when phase 19 did
+    not leave them running."""
+    import shutil
+
+    pending = ctx.pop("res19", None)
+    if pending is None:
+        return
+    st = pending["st"]
+    try:
+        _phase19bc_check(st)
+        log(f"phase19b+c+d took {time.perf_counter() - st['t0']:.1f} s (phase 20 beside the "
+            "resumes and the agent)")
+    finally:
+        _phase19bc_abort(st)
+        shutil.rmtree(pending["root"], ignore_errors=True)
 
 
 def _phase19a(torch, ctx, cfg, save_dir):
@@ -6201,7 +6273,11 @@ def _phase19a(torch, ctx, cfg, save_dir):
     batches = [rng.integers(0, V, (8, 512)).astype(np.int32) for _ in range(RES_BATCHES)]
     cell = dict(bf16={"enabled": True}, zero_optimization={"stage": 2})
     res = {"enabled": True, "save_dir": save_dir, "install_signal_handlers": False,
-           "sentinel": {"enabled": True, "warmup_steps": 1, "checkpoint_interval": 2},
+           # every anchor the trail needs is on disk: no host copy of the
+           # 1.74 GB state after each save (the in-memory anchor is checked
+           # by hand below)
+           "sentinel": {"enabled": True, "warmup_steps": 1, "checkpoint_interval": 2,
+                        "memory_fallback": False},
            "watchdog": {"enabled": True},
            "integrity": {"enabled": True, "scan_interval": 1, "blocks_per_scan": 4,
                          "spot_check_interval": 2},
@@ -6414,16 +6490,17 @@ def _phase19bc_abort(st):
     kill_groups()  # a rank 1 whose rank 0 the agent stopped
 
 
-def _phase19bc_finish(torch, cfg, root, st):
+def _phase19bc_relaunch(torch, cfg, st):
+    """19b's first two children joined and checked, their resumes started;
+    the uninterrupted runs (19b's and 19c's world 1) here meanwhile."""
     import os
     import signal
 
-    from deepspeed_tpu_torch.elasticity.elastic_agent import DSElasticAgent
-    from deepspeed_tpu_torch.resilience import (PREEMPTED_EXIT_CODE, is_committed, read_events,
-                                                resolve_tag_for_load, verify_tag)
+    from deepspeed_tpu_torch.resilience import (PREEMPTED_EXIT_CODE, resolve_tag_for_load,
+                                                verify_tag)
 
     dirs = st["dirs"]
-    end = time.monotonic() + RES_JOIN_S
+    end = st["end"] = time.monotonic() + RES_JOIN_S
     term, kill = st["term"], st["kill"]
     term.wait(timeout=max(1.0, end - time.monotonic()))
     kill.wait(timeout=max(1.0, end - time.monotonic()))
@@ -6459,6 +6536,20 @@ def _phase19bc_finish(torch, cfg, root, st):
     w1 = _elastic19_train(world1, _res_child_batches(cfg.vocab_size))
     del world1
     torch.cuda.empty_cache()
+    st["b"] = (children_s, meta, torn, torn_rejected, resolved, resumes, outs, readers,
+               ref_prints, w1)
+
+
+def _phase19bc_check(st):
+    """19b's resumes and 19c's agent joined; both parts checked."""
+    import os
+
+    from deepspeed_tpu_torch.elasticity.elastic_agent import DSElasticAgent
+    from deepspeed_tpu_torch.resilience import PREEMPTED_EXIT_CODE, is_committed, read_events
+
+    dirs, end, term, kill = st["dirs"], st["end"], st["term"], st["kill"]
+    children_s, meta, torn, torn_rejected, resolved, resumes, outs, readers, ref_prints, w1 = (
+        st["b"])
     for p in resumes.values():
         p.wait(timeout=max(1.0, end - time.monotonic()))
     for t in readers:
@@ -6608,6 +6699,306 @@ def _phase19d(torch, ctx, cfg):
     torch.cuda.empty_cache()
 
 
+# phase 20: ZeRO-Offload / ZeRO-Infinity on GPT-2-125M at full width and depth
+OFF20_STEPS = 3
+OFF20_Q_STEPS = 2  # the int8 fetch's steps (numpy quantizes ~135M weights a step)
+OFF20_DEPTHS = (0, 1, 2)
+OFF20_STALL_S = 1.0  # the injected offload-fetch hang, against a 0.3 s deadline
+
+
+def _host_prints(runner):
+    """The crc32 of every host master of an offload runner, in RAM or on
+    NVMe (equal lists: bitwise-equal masters)."""
+    import zlib
+
+    d = runner.host_state_dict()
+    n = sum(k.startswith("master_") for k in d)
+    return [zlib.crc32(np.ascontiguousarray(d[f"master_{i}"]).view(np.uint8)) for i in range(n)]
+
+
+def _timed_host_steps(torch, engine, batches):
+    """Steps with the host clock around a synchronised call each: (losses,
+    grad norms, ms)."""
+    losses, norms, ms = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = engine.train_batch(b)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, norms, ms
+
+
+def _stream_launch_want(launches, n_layer, steps):
+    """The param stream's exact counts: B1 twice a layer (the forward and
+    the backward's recompute), each B2 kernel once a layer, per step."""
+    path = _flash_path("bfloat16")
+    return {name: (2 if name in FWD_PATH["bfloat16"] else 1) * n_layer * steps
+            if name in path else 0 for name in launches}
+
+
+def phase_offload(torch, ctx):
+    """Phase 20: ZeRO-Offload and ZeRO-Infinity (A12) on GPT-2-125M at full
+    width and depth, from seed 0, through ``initialize``; tags and NVMe stores
+    under a temporary directory removed at the end. (a) ``offload_optimizer``
+    cpu (through the legacy ``cpu_offload`` key), fp32 B4 x T512, 3 steps,
+    against the in-device AdamW run from the same weights: losses rtol 2e-4,
+    the host masters rtol 1e-3 / atol 2e-5 of the device's, exact launches;
+    step ms, host-step ms and peak memory beside the in-device step's; the
+    optimizer state on NVMe (the ``aio`` block's threads) for one step,
+    bitwise the RAM run's. (b) ``offload_param`` cpu, bf16 B8 x T512 (5b's
+    batch), 3 steps at prefetch depths 0, 1 and 2: losses, grad norms and
+    every host master bitwise equal across depths; step 1 within 0.5 of
+    ln V, the loss falls; B1 2 x 12 and each B2 kernel 12 launches a step;
+    peak memory beside 5b's in-device step and the fp32 model's bytes, the
+    ``host_dma`` row at each depth. (c) one more step at depth 2 with every
+    drained gradient held bitwise against a synchronous ``.cpu()`` of the
+    same device tensor, and every bf16 push buffer bitwise
+    ``master.to(torch.bfloat16)``. (d) ``quantized_fetch`` int8, 2 steps:
+    losses within rel 0.05 of (b)'s, wire ratio at least 1.9. (e) + (f) a
+    save after step 2 with host shards under the MANIFEST; a fresh engine
+    whose masters live on NVMe loads it and takes step 3 bitwise the
+    uninterrupted RAM run's; then an injected ``stall_offload_at`` hang is
+    named ``offload_fetch`` by the watchdog."""
+    import os
+    import shutil
+    import tempfile
+
+    from deepspeed_tpu_torch.models import gpt
+
+    cfg = gpt.PRESETS["gpt2-125m"]
+    root = tempfile.mkdtemp(prefix="off20_")
+    try:
+        t0 = time.perf_counter()
+        _phase20a(torch, ctx, cfg, root)
+        log(f"phase20a took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        _phase20bf(torch, ctx, cfg, root)
+        log(f"phase20b-f took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase20a(torch, ctx, cfg, root):
+    import os
+
+    from deepspeed_tpu_torch.utils.tree import tree_leaves
+
+    V, L = cfg.vocab_size, cfg.n_layer
+    rng = np.random.default_rng(20)
+    batches = [{"input_ids": rng.integers(0, V, (4, 512)).astype(np.int32)}
+               for _ in range(OFF20_STEPS)]
+    runs = {}
+    step1 = None
+    # the RAM run through the legacy key (migrated to offload_optimizer cpu)
+    for name, over in (("device", {}),
+                       ("offload", {"zero_optimization": {"cpu_offload": True}})):
+        engine = _engine(_train_config(4, **over), cfg, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa, _ = _reset_counts()  # each run's fp32 path
+        losses, norms, ms = [], [], []
+        for b in batches:
+            lo, no, t = _timed_host_steps(torch, engine, [b])
+            losses, norms, ms = losses + lo, norms + no, ms + t
+            if name == "offload" and step1 is None:
+                step1 = _host_prints(engine._offload)
+        launches = _flash_launches(fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if name == "device":
+            final = [p.detach().float().cpu().numpy() for p in tree_leaves(engine.state["params"])]
+            host = {}
+        else:
+            check(engine._offload is not None, "20a: cpu_offload did not build the runner")
+            final = engine._offload.master
+            host = dict(engine._offload.last_stats)
+        runs[name] = (losses, norms, ms, launches, peak_gb, final, host)
+        del engine
+        torch.cuda.empty_cache()
+    (dl, dn, dms, _, dpeak, dfinal, _), (ol, on, oms, launches, opeak, ofinal, host) = (
+        runs["device"], runs["offload"])
+    err = max(float(np.max(np.abs(a - b) / (2e-5 + 1e-3 * np.abs(b))))
+              for a, b in zip(ofinal, dfinal))
+    log(f"phase20a offload_optimizer cpu (legacy cpu_offload) fp32 gpt2-125m B4xT512: losses={ol} "
+        f"device losses={dl} grad_norms={on} device grad_norms={dn} launches over "
+        f"{OFF20_STEPS} steps={launches} masters' worst |diff| / (2e-5 + 1e-3 |device|)={err:.4f}")
+    log(f"phase20a step_ms (host clock, synchronized)={[round(x, 1) for x in oms]} device step "
+        f"ms={[round(x, 1) for x in dms]} last host step ms={host['host_step_s'] * 1e3:.1f} "
+        f"fetch ms={host['fetch_s'] * 1e3:.1f} host cores={os.cpu_count()} peak memory GB: "
+        f"offload={opeak:.3f} device={dpeak:.3f}")
+    check(np.allclose(ol, dl, rtol=2e-4, atol=0), f"20a losses {ol} vs the device's {dl}")
+    check(err <= 1.0, f"20a host masters off the device's (rtol 1e-3 / atol 2e-5): {err}")
+    want = path_launches(launches, OFF20_STEPS * L, _flash_path("float32"))
+    check(launches == want, f"20a launches {launches}, expected {want}")
+    check(opeak < dpeak, f"20a offload peak {opeak} GB not below the device run's {dpeak}")
+    # the optimizer state on NVMe, through the aio block's threads: step 1
+    # bitwise the RAM run's
+    engine = _engine(_train_config(4, aio={"thread_count": 4}, zero_optimization={
+        "offload_optimizer": {"device": "nvme", "nvme_path": os.path.join(root, "nvme20a")}}),
+        cfg, seed=0)
+    nl, nn, nms = _timed_host_steps(torch, engine, batches[:1])
+    nprints = _host_prints(engine._offload)
+    log(f"phase20a offload_optimizer nvme (aio thread_count 4): step 1 loss={nl[0]} "
+        f"grad_norm={nn[0]} ms={nms[0]:.1f} (RAM {ol[0]} {on[0]} {oms[0]:.1f}); "
+        f"{engine._offload.store.aio.num_threads} aio threads")
+    check(nl[0] == ol[0] and nn[0] == on[0] and nprints == step1,
+          "20a: the NVMe optimizer step is not bitwise the RAM run's")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def _stream_conf(**op):
+    return _train_config(8, bf16={"enabled": True},
+                         zero_optimization={"offload_param": {"device": "cpu", **op}})
+
+
+def _phase20bf(torch, ctx, cfg, root):
+    import os
+
+    from deepspeed_tpu_torch.comm.runtime_accounting import wire_ledger
+    from deepspeed_tpu_torch.resilience import FaultPlan, install_plan, read_events
+    from deepspeed_tpu_torch.runtime.zero import stream as offload_stream
+
+    V, L = cfg.vocab_size, cfg.n_layer
+    check("train5b_batch" in ctx, "phase 20 reads phase 5b's batch and peak: run phase_kernels "
+          "and phase_training before it")
+    batch, peak5b = ctx["train5b_batch"], ctx["train5b"]["peak_gb"]
+    model_gb = cfg.num_params() * 4 / 1e9
+    runs = {}
+    for depth in OFF20_DEPTHS:
+        engine = _engine(_stream_conf(prefetch_depth=depth), cfg, seed=0)
+        runner = engine._param_stream
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa, _ = _reset_counts()  # the param stream's bf16 path at this depth
+        losses, norms, ms, dma = [], [], [], []
+        for step in range(OFF20_STEPS):
+            lo, no, t = _timed_host_steps(torch, engine, [batch])
+            losses += lo
+            norms += no
+            ms += t
+            dma.append(runner.last_stats["host_dma"])
+            if depth == 2 and step == 1:
+                # (f) the save after step 2, host shards under the manifest
+                t0 = time.perf_counter()
+                tag = engine.save_checkpoint(os.path.join(root, "ckpt"))
+                save_s = time.perf_counter() - t0
+        launches = _flash_launches(fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        runs[depth] = dict(losses=losses, norms=norms, ms=ms, dma=dma, launches=launches,
+                           peak_gb=peak_gb, prints=_host_prints(runner),
+                           host_step_ms=runner.last_stats["host_step_s"] * 1e3)
+        r = runs[depth]
+        log(f"phase20b offload_param cpu bf16 gpt2-125m B8xT512 prefetch_depth={depth}: "
+            f"losses={losses} grad_norms={norms} step_ms (host clock, synchronized)="
+            f"{[round(x, 1) for x in ms]} host step ms={r['host_step_ms']:.1f} launches over "
+            f"{OFF20_STEPS} steps={launches} peak memory GB={peak_gb:.3f} (5b in-device "
+            f"{peak5b:.3f}, fp32 model "
+            f"{model_gb:.3f}) host_dma (last step)={dma[-1]}")
+        if depth == 2:
+            # (c) the copy checks: the bf16 push buffers against the masters'
+            # casts, then one step with every drained gradient held against a
+            # synchronous copy of its device tensor
+            masters = runner.host_units()
+            pushed_ok = all(torch.equal(buf.view(torch.int16), torch.from_numpy(
+                masters[f"master_{i}"]).to(torch.bfloat16).view(torch.int16))
+                for i, buf in enumerate(runner._push_bufs))
+            runner.verify_copies = True
+            engine.train_batch(batch)
+            cc = dict(runner.copy_check)
+            log(f"phase20c copy checks: push buffers bitwise the masters' bf16 casts="
+                f"{pushed_ok}; drained gradients against synchronous copies={cc}")
+            check(pushed_ok, "20c: a bf16 push buffer differs from its master's cast")
+            check(cc["drains"] == L + 3 and cc["tensors"] > 0 and cc["mismatches"] == 0,
+                  f"20c: drained gradients differ from synchronous copies: {cc}")
+        del engine, runner
+        torch.cuda.empty_cache()
+    base = runs[0]
+    for depth in OFF20_DEPTHS[1:]:
+        r = runs[depth]
+        check(r["losses"] == base["losses"] and r["norms"] == base["norms"],
+              f"20b depth {depth}: losses / norms {r['losses']} {r['norms']} not bitwise "
+              f"depth 0's {base['losses']} {base['norms']}")
+        check(r["prints"] == base["prints"], f"20b depth {depth}: host masters not bitwise "
+              "depth 0's")
+    for depth, r in runs.items():
+        want = _stream_launch_want(r["launches"], L, OFF20_STEPS)
+        check(r["launches"] == want, f"20b depth {depth}: launches {r['launches']}, "
+              f"expected {want}")
+    check(abs(base["losses"][0] - math.log(V)) < 0.5,
+          f"20b step-1 loss {base['losses'][0]} far from ln(V)")
+    check(base["losses"][-1] < base["losses"][0], f"20b loss did not fall: {base['losses']}")
+    check(all(math.isfinite(x) for x in base["losses"] + base["norms"]), "20b not finite")
+
+    # (d) the quantized fetch, int8 blocks of 256
+    wire_ledger.reset()
+    engine = _engine(_stream_conf(prefetch_depth=2, quantized_fetch=True), cfg, seed=0)
+    fa, _ = _reset_counts()
+    ql, qn, qms = _timed_host_steps(torch, engine, [batch] * OFF20_Q_STEPS)
+    qlaunches = _flash_launches(fa)
+    qdma = engine._param_stream.last_stats["host_dma"]
+    ratio = wire_ledger.ratio("qpush")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ql, base["losses"]))
+    log(f"phase20d quantized_fetch int8 bf16: losses={ql} (exact {base['losses']}, worst rel "
+        f"{rel:.4f}) grad_norms={qn} step_ms={[round(x, 1) for x in qms]} wire ratio "
+        f"(ledger qpush)={ratio:.3f} host_dma={qdma} launches={qlaunches}")
+    check(rel <= 0.05, f"20d losses off the exact run's by {rel}")
+    check(ratio >= 1.9 and qdma["ratio"] >= 1.9, f"20d wire ratio {ratio} / {qdma['ratio']}")
+    want = _stream_launch_want(qlaunches, L, OFF20_Q_STEPS)
+    check(qlaunches == want, f"20d launches {qlaunches}, expected {want}")
+    wire_ledger.reset()
+    del engine
+    torch.cuda.empty_cache()
+
+    # (e) + (f) the step-2 tag (RAM host shards) resumed by an engine whose
+    # masters live on NVMe: its step 3 bitwise the uninterrupted RAM run's;
+    # then the injected stall
+    manifest = json.load(open(os.path.join(tag, "MANIFEST.json")))
+    shards = [f for f in manifest["files"] if f.startswith("host_state/shard_")]
+    res_dir = os.path.join(root, "res")
+    nvme = os.path.join(root, "nvme")
+    res = {"enabled": True, "save_dir": res_dir, "install_signal_handlers": False,
+           "watchdog": {"enabled": True, "poll_interval_s": 0.05,
+                        "offload_fetch_deadline_s": 0.3, "escalate": False}}
+    engine = _engine(_stream_conf(prefetch_depth=2, device="nvme", nvme_path=nvme)
+                     | {"resilience": res}, cfg, seed=1)
+    try:
+        t0 = time.perf_counter()
+        engine.load_checkpoint(os.path.join(root, "ckpt"))
+        load_s = time.perf_counter() - t0
+        rl, rn, rms = _timed_host_steps(torch, engine, [batch])
+        same = (rl[0] == runs[2]["losses"][2] and rn[0] == runs[2]["norms"][2]
+                and _host_prints(engine._param_stream) == runs[2]["prints"])
+        files = len(os.listdir(os.path.join(nvme, "param_stream")))
+        install_plan(FaultPlan(stall_offload_at=offload_stream._fetch_wait_index,
+                               stall_offload_seconds=OFF20_STALL_S))
+        engine.train_batch(batch)
+        torch.cuda.synchronize()
+        deadline = time.monotonic() + 3.0
+        while engine._watchdog.stall_count == 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        stalls = [e for e in read_events(res_dir) if e["event"] == "watchdog_stall"]
+        last = engine._watchdog.last_stall
+    finally:
+        install_plan(None)
+        engine._watchdog.stop()
+    log(f"phase20e+f save after step 2: {len(shards)} host shards under the manifest, "
+        f"COMMIT={os.path.exists(os.path.join(tag, 'COMMIT'))}, saved in {save_s:.2f} s, "
+        f"loaded verified into NVMe masters ({files} leaf files) in {load_s:.2f} s; resumed "
+        f"step 3 loss={rl[0]} grad_norm={rn[0]} ms={rms[0]:.1f} (RAM {runs[2]['ms'][2]:.1f}) "
+        f"bitwise the uninterrupted RAM run={same}; injected {OFF20_STALL_S} s fetch stall: "
+        f"watchdog last stall={last} events={[(e['phase'], round(e['value'], 3)) for e in stalls]}")
+    check(len(shards) == L + 2 and os.path.exists(os.path.join(tag, "COMMIT")),
+          f"20f: host shards {shards} not all under the manifest")
+    check(same, "20e/f: the resumed NVMe step 3 is not bitwise the uninterrupted RAM run's")
+    check(last is not None and last[0] == "offload_fetch" and stalls
+          and stalls[-1]["phase"] == "offload_fetch", f"20f: the stall was not named: {last}")
+    del engine
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     child = _res_children_main(sys.argv)  # phase 19's child processes
     if child is not None:
@@ -6623,11 +7014,16 @@ def main() -> int:
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     ctx = {"timer": Timer(torch)}
     failures = []
+    # --only phase_a,phase_b: those phases alone, without the result lines
+    only = set(sys.argv[sys.argv.index("--only") + 1].split(",")) if "--only" in sys.argv else None
     for phase in (phase_build, phase_kernels, phase_scoring, phase_serving, phase_training,
                   phase_paged_serving, phase_quantized, phase_spec_serving, phase_zero3,
                   phase_sparse, phase_head_dim_96, phase_checkpoint, phase_gpt_variants,
                   phase_decoding_modes, phase_serving_levers, phase_data_parallel,
-                  phase_engine_features, phase_a3c, phase_resilience):
+                  phase_engine_features, phase_a3c, phase_resilience, phase_offload,
+                  phase_resilience_join):
+        if only and phase.__name__ not in only and phase is not phase_resilience_join:
+            continue
         t0 = time.perf_counter()
         try:
             phase(torch, ctx)
@@ -6641,6 +7037,8 @@ def main() -> int:
         for f in failures:
             print(f"FAILED {f}", file=sys.stderr)
         return 1
+    if only:
+        return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

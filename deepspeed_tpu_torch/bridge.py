@@ -83,8 +83,11 @@ def _scalar(a: Any, device, dtype: torch.dtype) -> torch.Tensor:
 def opt_state_from_numpy(state: Any, device=None) -> Any:
     """An optimizer state (a NamedTuple with the reference's fields, numpy or
     JAX leaves) -> the port's NamedTuple on ``device``: the int32 step count,
-    fp32 moment trees."""
+    fp32 moment trees. An empty dict (the offload runners keep the optimizer
+    state on the host) stays one."""
     dev = resolve_device(device)
+    if isinstance(state, dict) and not state:
+        return {}
     cls = _OPT_STATES.get(tuple(state._fields))
     if cls is None:
         raise TypeError(f"unknown optimizer state fields {state._fields}")
@@ -96,6 +99,8 @@ def opt_state_from_numpy(state: Any, device=None) -> Any:
 def opt_state_to_numpy(state: Any) -> Any:
     """The inverse of :func:`opt_state_from_numpy`: the same NamedTuple type
     with numpy leaves."""
+    if isinstance(state, dict) and not state:
+        return {}
     return type(state)(*(None if v is None else params_to_numpy(v) for v in state))
 
 
@@ -112,6 +117,8 @@ def scaler_state_to_numpy(state: ScalerState) -> ScalerState:
 
 def _map_opt(state: Any, fn) -> Any:
     """``fn`` over the parameter-shaped trees of an optimizer state."""
+    if isinstance(state, dict) and not state:
+        return {}
     return type(state)(*(v if (v is None or f == "count") else fn(v)
                          for f, v in zip(state._fields, state)))
 

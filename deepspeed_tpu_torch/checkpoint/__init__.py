@@ -16,8 +16,16 @@ format is topology-free, so a tag written at another world size loads too
 (reshard-on-load, :mod:`..runtime.zero.reshard`): the logical leaves are
 cut to the new slices, the residuals reset to zeros of the new shape, the
 data cursor remapped, and a mid-accumulation window dropped for the new
-decomposition to consume again from its start. A tag with offload state
-raises ROADMAP.md A12.
+decomposition to consume again from its start.
+
+Under ZeRO-Offload / ZeRO-Infinity the fp32 masters and moments live on the
+offload runner: a save writes them before the MANIFEST + COMMIT pass, which
+then covers them, as per-unit atomic ``host_state/shard_<k>.npz`` files with
+a ``host-shard`` fault point between them (RAM mode), or as the consolidated
+``host_optimizer.npz`` (NVMe mode); a load restores either, and a tag of the
+parameter stream keeps its weights only there, so it refuses
+``load_optimizer_states=False``. Host state crosses with the JAX package's
+tags both ways.
 
 A save passes the chaos plan's fault points (``begin-save``, ``shard`` after
 each array, the commit's three, ``pre-latest``, ``end-save``), writes
@@ -59,7 +67,6 @@ from ..runtime.zero.reshard import (
     partition_record,
     set_path,
 )
-from ..utils.errors import unported
 from ..utils.logging import log_dist, logger
 from ..utils.tree import tree_leaves, tree_map, tree_unflatten
 from .serialization import (
@@ -70,8 +77,8 @@ from .serialization import (
     save_pytree,
 )
 
-# the reference's offload state inside a tag (ROADMAP.md A12)
-_OFFLOAD_FILES = ("host_state", "host_optimizer.npz")
+# the offload runners' host state inside a tag
+HOST_OPTIMIZER_FILE = "host_optimizer.npz"
 
 
 def _tag_for(step: int) -> str:
@@ -173,6 +180,16 @@ def save_checkpoint(engine, save_dir: str, tag: Optional[str] = None,
             shutil.copyfile(zero_to_fp32.__file__, os.path.join(ckpt_dir, "zero_to_fp32.py"))
         except OSError as e:  # a convenience copy never fails a save
             log_dist(f"zero_to_fp32.py copy skipped: {e}")
+    runner = engine._offload or engine._param_stream
+    if runner is not None and is_writer:
+        # the host masters and moments, before the manifest hashes the tag
+        from ..runtime.zero.stream import HOST_STATE_DIRNAME
+
+        if runner.master is None:  # a save before the first step
+            runner.init_host_state()
+        if not runner.flush_host_shards(os.path.join(ckpt_dir, HOST_STATE_DIRNAME)):
+            ckpt_engine.save(runner.host_state_dict(),
+                             os.path.join(ckpt_dir, HOST_OPTIMIZER_FILE))
     # durability point 1: the checkpoint engine's queued writes are done
     ckpt_engine.commit(tag)
     if is_writer:
@@ -220,6 +237,10 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     tag's directory, its ``client_state``), or (None, {}) where
     ``load_dir`` holds no committed tag. ``load_optimizer_states=False``
     keeps the engine's optimizer state and master copy."""
+    if engine._param_stream is not None and not load_optimizer_states:
+        # checked before anything changes: the weights live in the host state
+        raise ValueError("offload_param checkpoints keep the weights inside the host master "
+                         "state; load_optimizer_states=False would restore no weights")
     if tag is not None and not os.path.isdir(os.path.join(load_dir, tag)):
         raise FileNotFoundError(f"checkpoint {os.path.join(load_dir, tag)} not found")
     res = getattr(engine.config, "resilience", None)
@@ -238,8 +259,13 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
     ckpt_dir = os.path.join(load_dir, resolved)
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
-    if any(os.path.exists(os.path.join(ckpt_dir, n)) for n in _OFFLOAD_FILES):
-        raise unported("loading a tag with ZeRO-Offload host state", "A12")
+    runner = engine._offload or engine._param_stream
+    host_dir, host_file = _host_state_paths(ckpt_dir)
+    if runner is not None and load_optimizer_states and host_dir is None and host_file is None:
+        raise FileNotFoundError(f"checkpoint {ckpt_dir} has no host_state/ shards or "
+                                "host_optimizer.npz but the engine runs ZeRO-Offload; pass "
+                                "load_optimizer_states=False to restart the optimizer "
+                                "deliberately")
     world = engine.world_size
     old_world = int(meta.get("world_size") or world)
     resharding = old_world != world
@@ -305,6 +331,14 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                        old_world=old_world, new_world=plan.new_world,
                        old_cursor=plan.old_cursor, new_cursor=plan.new_cursor,
                        window_rewound=plan.window_rewound)
+    if runner is not None and load_optimizer_states:
+        if runner.master is None:
+            runner.init_host_state(for_load=True)
+        if host_dir is not None:
+            runner.load_host_shards_dir(host_dir)
+        else:  # the consolidated format (NVMe stores, older tags)
+            with np.load(host_file) as d:
+                runner.load_host_state_dict(dict(d))
     engine.resumed_state = meta.get("resume_state")
     # the counter rides every tag; an emergency tag adds the preemption it survived
     engine._preemptions_survived = int(meta.get("preemptions_survived", 0))
@@ -319,6 +353,17 @@ def load_checkpoint(engine, load_dir: str, tag: Optional[str] = None,
                            step=engine.global_steps, tag=resolved)
     log_dist(f"loaded checkpoint {ckpt_dir}")
     return ckpt_dir, meta.get("client_state", {})
+
+
+def _host_state_paths(ckpt_dir: str) -> Tuple[Optional[str], Optional[str]]:
+    """(the ``host_state/`` shard directory, the ``host_optimizer.npz``
+    file) of a tag, each None where absent."""
+    from ..runtime.zero.stream import HOST_STATE_DIRNAME
+
+    host_dir = os.path.join(ckpt_dir, HOST_STATE_DIRNAME)
+    host_file = os.path.join(ckpt_dir, HOST_OPTIMIZER_FILE)
+    return (host_dir if os.path.isdir(host_dir) else None,
+            host_file if os.path.exists(host_file) else None)
 
 
 def save_16bit_model(engine, save_dir: str, save_filename: str = "pytorch_model.npz") -> str:

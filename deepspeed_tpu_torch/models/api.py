@@ -15,8 +15,10 @@ averages over (a 0-dim fp32 tensor): across data-parallel ranks the engine
 weights each rank's masked mean by its share of the total, so that the
 loss is the global masked mean. ``with_ltd_keep(keep, layer_ids)`` gives
 the model whose listed layers train on ``keep``-token subsets (random-LTD;
-the engine calls it when the schedule moves). The reference's pipeline and
-streaming hooks belong to later slices (ROADMAP.md A12, A13).
+the engine calls it when the schedule moves). ``stream()`` gives the
+model's unit decomposition for ZeRO-Infinity's parameter stream
+(``models.gpt.GPTStream``). The reference's pipeline hook belongs to a
+later slice (ROADMAP.md A13).
 """
 
 from __future__ import annotations
@@ -39,3 +41,4 @@ class Module:
     grad_bucket_key: Optional[str] = None
     loss_count: Optional[Callable[[Dict[str, Any]], torch.Tensor]] = None
     with_ltd_keep: Optional[Callable[[int, Tuple[int, ...]], "Module"]] = None
+    stream: Optional[Callable[[], Any]] = None

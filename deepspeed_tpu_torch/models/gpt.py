@@ -831,15 +831,20 @@ def _chunk_targets(cfg: GPTConfig, batch: Dict[str, torch.Tensor]
     return ids_in, targets, mask, targets.numel() - B  # the dummy column excluded
 
 
+def _dense_head(cfg: GPTConfig, params: Params) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The LM head's dense leaf (``wte`` tied, else ``lm_head``) and its bias or None."""
+    head = params["wte"] if cfg.tie_embeddings else params["lm_head"]
+    return head, (params.get("lm_head_b") if (cfg.lm_head_bias and not cfg.tie_embeddings)
+                  else None)
+
+
 def chunked_head_loss(cfg: GPTConfig, params: Params, hidden: torch.Tensor,
                       targets: torch.Tensor, mask: torch.Tensor,
                       num_tokens: Optional[int] = None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """The chunked LM head and masked cross entropy over the post-LN
     ``hidden``. The head is the dense leaf (``wte`` tied, else ``lm_head``),
     as the reference reads it, with or without ``zero_quantized_head``."""
-    head = params["wte"] if cfg.tie_embeddings else params["lm_head"]
-    head_b = params.get("lm_head_b") if (cfg.lm_head_bias and not cfg.tie_embeddings) else None
-    s, c = _chunked_ce(hidden, head, head_b, targets, mask, cfg.loss_chunk)
+    s, c = _chunked_ce(hidden, *_dense_head(cfg, params), targets, mask, cfg.loss_chunk)
     # the masked mean is next_token_loss's in every case: without a
     # loss_mask the mask counts exactly the real target positions
     return s / c.clamp(min=1.0), {
@@ -890,15 +895,25 @@ def loss_token_count(batch: Dict[str, Any]) -> torch.Tensor:
 
 # ------------------------------------------------------------- quantized weights
 class GPTStream:
-    """The model as ``embed`` / ``layer_0..L-1`` / ``final`` units with a host
-    (numpy) init per unit, the reference's ``GPTStream`` init: every unit
-    draws from its own ``default_rng([seed, unit index])``, so one layer can
-    be made without the others. The stream runner's device programs (the
-    param-stream offload) are ROADMAP.md A12."""
+    """The model as ``embed`` / ``layer_0..L-1`` / ``final`` units, the
+    reference's ``GPTStream`` (``Module.stream``), for ZeRO-Infinity's
+    parameter stream (``runtime/zero/infinity.py``): the masters stay on the
+    host and one unit at a time crosses to the device.
+
+    :meth:`init_unit` is the host (numpy) init: every unit draws from its own
+    ``default_rng([seed, unit index])``, so one layer is made without the
+    others and the model never exists whole on the device. The unit programs
+    are :meth:`embed_fwd`, :meth:`layer_fwd` (one block, the dense model's
+    ``_block``, so attention takes the same dispatch and the flash kernels
+    run where they run in the dense model) and :meth:`head_loss` (the final
+    LayerNorm, the head and :func:`loss_fn`'s loss, chunked with
+    ``cfg.loss_chunk``); :meth:`forward_ids` is what the units run on."""
 
     def __init__(self, cfg: GPTConfig):
+        check_config(cfg)
         self.cfg = cfg
         self.n_layer = cfg.n_layer
+        self.tied = cfg.tie_embeddings
 
     def unit_names(self):
         return ["embed"] + [f"layer_{i}" for i in range(self.n_layer)] + ["final"]
@@ -943,6 +958,60 @@ class GPTStream:
             "mlp_up_w": normal((d, f), std), "mlp_up_b": zeros((f,)),
             "mlp_down_w": normal((f, d), res_std), "mlp_down_b": zeros((d,)),
         }
+
+    # ---------------------------------------------------------- unit programs
+    def embed_fwd(self, emb: Params, input_ids: torch.Tensor,
+                  compute_dtype: torch.dtype) -> torch.Tensor:
+        """The embedding unit: token (and learned position) embeddings, the
+        embedding LayerNorm where the config has one, in ``compute_dtype``."""
+        cfg = self.cfg
+        B, T = input_ids.shape
+        x = F.embedding(input_ids, emb["wte"])
+        if "wpe" in emb:
+            positions = torch.arange(T, device=input_ids.device).expand(B, T)
+            x = x + F.embedding(positions + cfg.pos_offset, emb["wpe"])
+        if cfg.embed_layernorm:
+            x = layer_norm(x, emb["emb_ln_scale"], emb["emb_ln_bias"], cfg.layer_norm_eps)
+        return x.to(compute_dtype)
+
+    def layer_fwd(self, w: Params, x: torch.Tensor, layer_idx: int,
+                  seed: Optional[int]) -> torch.Tensor:
+        """Layer unit ``layer_idx`` in training mode (``seed`` its dropout
+        seed, None for none)."""
+        B, T = x.shape[:2]
+        positions = torch.arange(T, device=x.device).expand(B, T)
+        return _block(self.cfg, x, w, positions, seed, train=True, layer_idx=layer_idx)
+
+    def forward_ids(self, input_ids: torch.Tensor,
+                    labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The ids the units run on, as :func:`next_token_loss` slices them:
+        all of ``input_ids``, or all but the last with seq+1 packing (no
+        labels, one token past ``max_seq_len``)."""
+        if labels is None and input_ids.shape[1] > self.cfg.max_seq_len:
+            return input_ids[:, :-1]
+        return input_ids
+
+    def head_loss(self, final: Params, wte: torch.Tensor, x: torch.Tensor,
+                  input_ids: torch.Tensor, labels: Optional[torch.Tensor] = None,
+                  loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The final unit and :func:`loss_fn`'s loss over the last layer's
+        output ``x``: the final LayerNorm, the head and the next-token cross
+        entropy of :func:`next_token_loss` (of :func:`chunked_head_loss` when
+        ``cfg.loss_chunk`` is set). ``input_ids`` is the whole batch's, ``x``
+        that of :meth:`forward_ids`."""
+        cfg = self.cfg
+        params = dict(final, wte=wte)
+        batch = {"input_ids": input_ids}
+        if labels is not None:
+            batch["labels"] = labels
+        if loss_mask is not None:
+            batch["loss_mask"] = loss_mask
+        x = layer_norm(x, final["lnf_scale"], final["lnf_bias"], cfg.layer_norm_eps)
+        if cfg.loss_chunk:
+            _, targets, mask, n_tok = _chunk_targets(cfg, batch)
+            return chunked_head_loss(cfg, params, x, targets, mask, num_tokens=n_tok)[0]
+        logits = _chunk_logits(x, *_dense_head(cfg, params))
+        return next_token_loss(lambda ids: logits, cfg.max_seq_len, batch)[0]
 
 
 def _quantized_leaf(q: torch.Tensor, s: torch.Tensor, bits: int) -> Dict[str, torch.Tensor]:
@@ -1553,7 +1622,8 @@ def build(cfg_or_name: Union[str, GPTConfig]) -> Tuple[Module, GPTConfig]:
     :func:`loss_fn` and its ``loss_count`` :func:`loss_token_count`; the
     layer-stacked ``blocks`` are its gradient buckets; ``with_ltd_keep(keep,
     layer_ids)`` is the same model with random-LTD at ``keep`` tokens in
-    those layers (the config changes, the parameters do not)."""
+    those layers (the config changes, the parameters do not); ``stream()`` its
+    :class:`GPTStream`."""
     cfg = PRESETS[cfg_or_name] if isinstance(cfg_or_name, str) else cfg_or_name
     check_config(cfg)
 
@@ -1568,4 +1638,5 @@ def build(cfg_or_name: Union[str, GPTConfig]) -> Tuple[Module, GPTConfig]:
                                          random_ltd_layer_ids=tuple(layer_ids)))[0]
 
     return Module(init=init, apply=apply, gpt_config=cfg, grad_bucket_key="blocks",
-                  loss_count=loss_token_count, with_ltd_keep=with_ltd_keep), cfg
+                  loss_count=loss_token_count, with_ltd_keep=with_ltd_keep,
+                  stream=lambda: GPTStream(cfg)), cfg

@@ -18,11 +18,12 @@ runs in production, not a mock:
 
 A plan is armed by the environment (``DS_FAULT_PLAN``, JSON), by the
 ``resilience.chaos`` config block (installed at engine init) or in code
-(:func:`install_plan`). The injectors of modules the port does not have
-yet raise when a plan arms them, naming their ROADMAP.md item, so none sits
-inert: the offload fetch stall (``stall_offload_at``), the ``host-shard``
-kill phase and the ``host_shards`` flip domain (A12), and the tenant flood
-(``tenant_flood_*``, A10).
+(:func:`install_plan`). The offload runners call :func:`offload_fetch_fault`
+at every blocking host<->device wait (inside the ``offload_fetch`` watchdog
+bracket) and the host-shard flush calls :func:`fault_point` with
+``host-shard`` after each shard. The injectors of a module the port does
+not have yet raise when a plan arms them, naming their ROADMAP.md item, so
+none sits inert: the tenant flood (``tenant_flood_*``, A10).
 
 Imports neither torch nor the rest of the package beyond logging: the
 elastic agent arms plans for its workers.
@@ -81,8 +82,14 @@ class FaultPlan:
     training cursor (``"master"``) or scheduler step (``"kv_page"``) at or
     past ``flip_bit_at``. One-shot.
 
-    ``tenant_flood_*`` (A10), ``stall_offload_*``, the ``host-shard`` kill
-    phase and the ``host_shards`` domain (A12) raise when armed.
+    Offload path: the ``stall_offload_at``-th (0-based, process-wide)
+    blocking host<->device wait sleeps ``stall_offload_seconds`` before it
+    blocks (one-shot), a hung copy that the ``offload_fetch`` deadline must
+    flag; ``kill_at_phase: "host-shard:N"`` SIGKILLs right after host shard
+    N of the flush lands; ``flip_bit_domain`` ``"host_shards"`` (the default)
+    flips a bit of the host optimizer state.
+
+    ``tenant_flood_*`` (A10) raises when armed.
     """
 
     kill_at_phase: Optional[str] = None
@@ -112,7 +119,7 @@ class FaultPlan:
     tenant_flood_max_new: int = 8
     tenant_flood_vocab: int = 64
     tenant_flood_tenant: str = "flooder"
-    # offload-path injectors (A12)
+    # offload-path injectors
     stall_offload_at: Optional[int] = None
     stall_offload_seconds: float = 0.0
     # silent-data-corruption injector
@@ -127,20 +134,13 @@ class FaultPlan:
     _collective_stall_fired: bool = dataclasses.field(default=False, repr=False)
     _ef_overflows_left: int = dataclasses.field(default=0, repr=False)
     _flip_bit_fired: bool = dataclasses.field(default=False, repr=False)
+    _offload_stall_fired: bool = dataclasses.field(default=False, repr=False)
 
     def __post_init__(self) -> None:
         defaults = FaultPlan.__dataclass_fields__
         if any(getattr(self, f) != defaults[f].default for f in _TENANT_FLOOD_FIELDS):
             raise unported("FaultPlan.tenant_flood_* (the noisy-neighbor injection of "
                            "multi-tenant serving)", "A10")
-        if self.stall_offload_at is not None or self.stall_offload_seconds:
-            raise unported("FaultPlan.stall_offload_at (the offload fetch stall)", "A12")
-        if self.kill_at_phase is not None and self.kill_at_phase.split(":")[0] == "host-shard":
-            raise unported("FaultPlan.kill_at_phase='host-shard:N' (the offload host-shard "
-                           "flush)", "A12")
-        if self.flip_bit_at is not None and self.flip_bit_domain == "host_shards":
-            raise unported("FaultPlan.flip_bit_domain='host_shards' (the offload host "
-                           "shards)", "A12")
         self._io_failures_left = int(self.fail_io_times)
         self._stalls_left = int(self.stall_io_times)
         self._ef_overflows_left = int(self.ef_overflow_steps)
@@ -226,6 +226,14 @@ class FaultPlan:
             logger.warning(f"chaos: forcing quantized-gradient overflow at cursor {cursor} "
                            f"({self._ef_overflows_left} more)")
         return TrainingFaults(nan_loss=nan, stall_s=stall, ef_overflow=ef)
+
+    def offload_fetch(self, index: int) -> float:
+        """Seconds to stall blocking offload wait ``index`` (one-shot)."""
+        if (self.stall_offload_at is None or self._offload_stall_fired
+                or index < int(self.stall_offload_at) or self.stall_offload_seconds <= 0):
+            return 0.0
+        self._offload_stall_fired = True
+        return float(self.stall_offload_seconds)
 
     def serving_dispatch(self, index: int) -> "ServingFault":
         """The injections for executor dispatch ``index`` (every attempt,
@@ -363,6 +371,20 @@ def sdc_flip_fault(index: int, scope: str = "training") -> Optional[str]:
     return domain
 
 
+def offload_fetch_fault(index: int) -> None:
+    """Fire the stall armed for blocking offload wait ``index``; the caller
+    is inside its ``offload_fetch`` watchdog bracket, so the deadline sees the
+    hang as it would a wedged copy."""
+    plan = get_fault_plan()
+    if plan is None:
+        return
+    stall = plan.offload_fetch(index)
+    if stall > 0:
+        logger.warning(f"chaos: stalling offload fetch #{index} for {stall}s (an injected "
+                       "host<->device copy hang)")
+        time.sleep(stall)
+
+
 def serving_alloc_fault(index: int) -> bool:
     """Whether the armed plan fails ``PageAllocator.alloc`` call ``index``."""
     plan = get_fault_plan()
@@ -377,4 +399,4 @@ def serving_alloc_fault(index: int) -> bool:
 __all__ = ["FaultPlan", "TrainingFaults", "ServingFault", "InjectedDispatchError",
            "FAULT_PLAN_ENV", "install_plan", "get_fault_plan", "fault_point",
            "training_faults", "serving_dispatch_fault", "serving_alloc_fault",
-           "sdc_flip_fault"]
+           "sdc_flip_fault", "offload_fetch_fault"]

@@ -31,6 +31,8 @@ import math
 import time
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+
 from ..utils.logging import log_dist, logger
 
 
@@ -277,7 +279,14 @@ class HealthController:
         """The anchor: a host copy of the state (1.7 GB at GPT-2-125M with an
         fp32 master and Adam), taken after the device finished the step."""
         eng = self.engine
+        runner = eng._offload or eng._param_stream
+        host = None
+        if runner is not None and runner.master is not None:
+            # the offload runner's masters and moments: the host state a
+            # restore must bring back with the device state
+            host = {k: np.array(v, copy=True) for k, v in runner.host_state_dict().items()}
         self._memory_snapshot = {
+            "host": host,
             "state": _host_copy(eng.state),
             "global_steps": eng.global_steps,
             "micro_steps": eng.micro_steps,
@@ -313,6 +322,10 @@ class HealthController:
         snap = self._memory_snapshot
         eng = self.engine
         eng.load_state(_to_device(snap["state"], eng.device))
+        runner = eng._offload or eng._param_stream
+        if runner is not None and snap["host"] is not None:
+            runner.load_host_state_dict({k: np.array(v, copy=True)
+                                         for k, v in snap["host"].items()})
         eng._grad_acc = None
         eng.global_steps = int(snap["global_steps"])
         eng.micro_steps = int(snap["micro_steps"])

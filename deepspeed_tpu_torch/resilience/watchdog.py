@@ -54,8 +54,8 @@ PHASES = ("compile", "step", "collective", "checkpoint")
 #: ``watchdog_stall`` recovery event, escalation callback.
 SERVING_PHASES = ("serving_prefill", "serving_decode", "serving_verify")
 
-#: The offload runners' phases (ROADMAP.md A12): named here so a config's
-#: deadlines parse, armed by nothing until offload is ported.
+#: The offload runners' phases: the blocking host<->device waits and the
+#: host optimizer pass / host-shard flush, nested inside ``step``.
 OFFLOAD_PHASES = ("offload_fetch", "offload_flush")
 
 

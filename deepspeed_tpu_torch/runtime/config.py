@@ -276,7 +276,8 @@ class WatchdogConfig:
     ``escalate``, requests a drain. ``straggler_check_every`` > 0 gathers
     each rank's step time every N steps and names the ranks slower than
     ``straggler_factor`` x the median. The offload deadlines are read by
-    nothing until ROADMAP.md A12."""
+    the offload runners' waits and host passes (``runtime/zero/offload.py``,
+    ``infinity.py``), nested inside ``step``."""
 
     enabled: bool = False
     poll_interval_s: float = 1.0
@@ -395,8 +396,12 @@ _UNPORTED_BLOCKS = {
                                 ("micro_batches", 0))), "A13"),
     "analysis": (_enabled, "A14"),
     "autotuning": (_enabled, "A13"),
-    "aio": (_enabled, "A12"),
 }
+
+# the "aio" block's keys (DeepSpeed's asynchronous I/O settings) and their
+# defaults; the offload runners' NVMe stores read thread_count
+AIO_DEFAULTS = {"block_size": 1048576, "queue_depth": 8, "thread_count": 1,
+                "single_submit": False, "overlap_events": True}
 
 
 @dataclasses.dataclass
@@ -453,6 +458,8 @@ class DeepSpeedConfig:
     checkpoint: Dict[str, Any] = dataclasses.field(default_factory=dict)
     # every tag is universal (each leaf stored whole): a plain flag
     load_universal_checkpoint: bool = False
+    # DeepSpeed's asynchronous I/O settings, as given (keys of AIO_DEFAULTS)
+    aio: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
     # ------------------------------------------------------------------ loading
     @classmethod
@@ -469,7 +476,7 @@ class DeepSpeedConfig:
                   "comms_logger", "mesh", "checkpoint", "activation_checkpointing",
                   "flops_profiler", "monitor_config", "tensorboard", "csv_monitor", "wandb",
                   "progressive_layer_drop", "data_efficiency", "curriculum_learning",
-                  "eigenvalue", "compression_training", "resilience", "elasticity"}
+                  "eigenvalue", "compression_training", "resilience", "elasticity", "aio"}
         scalars = {f.name for f in dataclasses.fields(cls)} - blocks
         for key in config:
             if key not in scalars and key not in blocks and key not in _UNPORTED_BLOCKS:
@@ -509,6 +516,12 @@ class DeepSpeedConfig:
         self.curriculum_learning = dict(config.get("curriculum_learning") or {})
         self.resilience = ResilienceConfig.from_dict(config.get("resilience"))
         self.elasticity = dict(config.get("elasticity") or {})
+        self.aio = dict(config.get("aio") or {})
+        unknown = set(self.aio) - set(AIO_DEFAULTS)
+        if unknown:
+            raise ValueError(f"aio: unknown keys {sorted(unknown)}; known: {sorted(AIO_DEFAULTS)}")
+        if int(self.aio.get("thread_count", 1)) < 1:
+            raise ValueError(f"aio.thread_count must be >= 1, got {self.aio['thread_count']}")
         self._adopt_elastic_batch(world_size)
         self._resolve_batch(world_size)
         self._validate(world_size)
@@ -640,6 +653,14 @@ class DeepSpeedConfig:
                    if getattr(self, key) is not None and getattr(self, key).enabled}
         return dataclasses.replace(self.monitor_config, **updates) if updates \
             else self.monitor_config
+
+    def aio_threads(self, buffer_count: int) -> int:
+        """The I/O threads of an NVMe store: the ``aio`` block's
+        ``thread_count`` where it sets one, else the offload block's
+        ``buffer_count`` (the reference's choice), at least 1."""
+        if "thread_count" in self.aio:
+            return int(self.aio["thread_count"])
+        return max(1, int(buffer_count))
 
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)

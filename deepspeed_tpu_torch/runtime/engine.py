@@ -87,6 +87,21 @@ where the model cannot be differentiated twice (the attention kernels) it
 logs and disables itself. The reference's refusals of what these do not
 compose with are kept.
 
+ZeRO-Offload and ZeRO-Infinity run through the same ``train_batch``:
+``offload_optimizer`` (or the legacy ``cpu_offload``) hands the step to
+:class:`~.zero.offload.HostOffloadRunner` (the device computes the
+gradients, the host steps the fp32 masters and moments and pushes the
+compute-dtype copy back); ``offload_param`` supersedes it with
+:class:`~.zero.infinity.ParamStreamRunner` (the masters on the host, the
+layer units streamed through the device; the device state holds no
+parameters). The runners' state is ``engine._offload`` /
+``engine._param_stream``, their last step's numbers ``last_stats`` (with
+``host_dma``, the stream's copy accounting) and :meth:`memory_stats`. They
+run at world size 1 (more ranks raise A12b) and keep the reference's
+refusals: fp16 loss scaling, the 1-bit optimizers, ``compression_training``,
+random-LTD, progressive layer drop, the quantized gradient exchange, and
+gradient accumulation with ``offload_param``.
+
 The ``resilience`` block arms the reference's lifecycle around the step
 (``resilience/``): at init the chaos plan, the drain handlers and the
 auto-resume from the newest committed tag, the watchdog, the health
@@ -250,7 +265,16 @@ class DeepSpeedEngine:
         self._skip_window_remaining = 0  # imperative poison skip: micro-batches left
         self._skip_backward = False
         self._last_loss = None
+        self._offload = self._param_stream = None
         self.state = self._init_state()
+        if self._offload_requested:
+            from .zero.offload import HostOffloadRunner
+
+            self._offload = HostOffloadRunner(self)
+        if self._param_stream_requested:
+            from .zero.infinity import ParamStreamRunner
+
+            self._param_stream = ParamStreamRunner(self)
         log_dist(
             f"engine ready: {count_parameters(tree_leaves(self.state['params'])) / 1e6:.1f}M "
             f"params, ZeRO stage {stage}, dtype {self.pc.compute_dtype}, device "
@@ -261,6 +285,24 @@ class DeepSpeedEngine:
 
     # ------------------------------------------------------------------ state
     def _init_state(self) -> Dict[str, Any]:
+        zc = self.config.zero_optimization
+        self._param_stream_requested = zc.offload_param_device in ("cpu", "nvme")
+        # offload_param implies the host optimizer: it supersedes offload_optimizer
+        self._offload_requested = (zc.offload_optimizer_device in ("cpu", "nvme")
+                                   and not self._param_stream_requested)
+        if (self._offload_requested or self._param_stream_requested) and self.world_size > 1:
+            raise unported("ZeRO-Offload at world size > 1", "A12b")
+        if self._param_stream_requested:
+            # the model never exists whole on the device: the runner makes the
+            # host masters unit by unit; the device state is bookkeeping only
+            self._init_a3c(self.model.init(self.seed, device="cpu")
+                           if self.config.compression_training else {})
+            self.param_specs = self.grad_specs = self.opt_specs = {}
+            self._param_dims, self._grad_dims, self._opt_dims = [], [], []
+            return {"params": {}, "master": {}, "opt": {},
+                    "step": torch.zeros((), dtype=torch.int32, device=self.device),
+                    "micro": torch.zeros((), dtype=torch.int32, device=self.device),
+                    "scaler": init_scaler_state(self.pc, self.device)}
         params_f32 = self.model.init(self.seed, device=self.device)
         self._init_a3c(params_f32)
         if self._qcomm.gradients:
@@ -283,7 +325,13 @@ class DeepSpeedEngine:
         params = cast_to_compute(tree_map(lambda p, d: policy.shard(p, d).clone(), params_f32,
                                           self.param_specs), self.pc)
         del params_f32
-        opt = self.optimizer.init(master if master is not None else self._opt_view(params))
+        if self._offload_requested:
+            # the master copy and the moments live on the host (the runner);
+            # the device keeps the compute-dtype parameters only
+            master = None
+            opt = {}
+        else:
+            opt = self.optimizer.init(master if master is not None else self._opt_view(params))
         state = {
             "params": params,
             "master": master if master is not None else {},
@@ -328,6 +376,10 @@ class DeepSpeedEngine:
         self._eigenvalue = None
         self._ev_last_batch = None
         self._curvature_np = None  # the host copy of state["curvature"]
+        self._check_offload()
+        if config.eigenvalue.enabled and self._param_stream_requested:
+            raise ValueError("the eigenvalue probe differentiates the in-device parameters; "
+                             "offload_param keeps none on the device")
         if config.eigenvalue.enabled:
             self._eigenvalue = Eigenvalue.from_config(config.eigenvalue)
             scope, _, n_layer = self._eigenvalue._blocks(params_f32)
@@ -351,6 +403,35 @@ class DeepSpeedEngine:
         if self._qcomm.gradients and self._compression is not None:
             raise ValueError("zero_quantized_gradients does not compose with "
                              "compression_training or progressive_layer_drop")
+
+    def _check_offload(self) -> None:
+        """The reference's refusals of what the offload runners do not
+        compose with (their gradient programs bypass these)."""
+        stream, offload = self._param_stream_requested, self._offload_requested
+        if not (stream or offload):
+            return
+        if stream and self._onebit is not None:
+            raise ValueError("offload_param and 1-bit optimizers are exclusive")
+        if stream and self._compression is not None:
+            raise ValueError("compression_training is not supported with offload_param "
+                             "(the streamed per-unit programs bypass the QAT transform)")
+        if self._random_ltd is not None:
+            if self.config.zero_optimization.offload_optimizer_device != "none":
+                raise ValueError("random_ltd is not supported together with ZeRO-Offload or "
+                                 "1-bit optimizers (their compiled programs cannot follow the "
+                                 "keep-schedule's model rebuilds)")
+            raise ValueError("random_ltd is not supported with offload_param")
+        if offload and self._onebit is not None:
+            raise ValueError("offload_optimizer and 1-bit optimizers are exclusive")
+        if self.progressive_layer_drop is not None:
+            raise ValueError("progressive_layer_drop is not supported together with "
+                             "ZeRO-Offload/Infinity or 1-bit optimizers")
+        if offload and self._compression is not None:
+            raise ValueError("compression_training is not supported together with "
+                             "ZeRO-Offload or 1-bit optimizers")
+        if self._qcomm.gradients:
+            raise ValueError("zero_quantized_gradients is not supported with "
+                             "ZeRO-Offload/Infinity (their runners own the gradient program)")
 
     def _init_data_efficiency(self, model: Module, config: DeepSpeedConfig) -> None:
         """The curriculum scheduler, random-LTD's scheduler and progressive
@@ -482,7 +563,11 @@ class DeepSpeedEngine:
             self._watchdog = HealthWatchdog(
                 deadlines={"compile": wd.compile_deadline_s, "step": wd.step_deadline_s,
                            "collective": wd.collective_deadline_s,
-                           "checkpoint": wd.checkpoint_deadline_s},
+                           "checkpoint": wd.checkpoint_deadline_s,
+                           # the offload runners' host<->device waits and host
+                           # passes, nested inside step
+                           "offload_fetch": wd.offload_fetch_deadline_s,
+                           "offload_flush": wd.offload_flush_deadline_s},
                 poll_interval=wd.poll_interval_s,
                 on_stall=self._watchdog_escalate if wd.escalate else None,
                 recovery_log=self._recovery_log, stacks_dir=res.save_dir).start()
@@ -509,7 +594,8 @@ class DeepSpeedEngine:
         missing = set(self.state) - set(state)
         if missing:
             raise ValueError(f"load_state: missing keys {sorted(missing)}")
-        if bool(state["master"]) != self.pc.master_weights:
+        host_masters = self._offload_requested or self._param_stream_requested
+        if bool(state["master"]) != (self.pc.master_weights and not host_masters):
             raise ValueError("load_state: the master copy does not match the precision mode")
         self.state = self._with_leaves(dict(state))
         if "curvature" in state:
@@ -950,7 +1036,11 @@ class DeepSpeedEngine:
         return metrics
 
     def _step(self, batch) -> Dict[str, Any]:
-        """``gas`` micro-steps over the placed ``batch`` and the boundary."""
+        """``gas`` micro-steps over the placed ``batch`` and the boundary (or
+        the offload runner's step)."""
+        runner = self._offload or self._param_stream
+        if runner is not None:
+            return runner.train_batch(batch)
         ids = batch["input_ids"]
         if self.gas > 1 and (ids.dim() != 3 or ids.shape[0] != self.gas):
             raise ValueError(f"train_batch: with gas={self.gas} the batch leaves are "
@@ -988,7 +1078,7 @@ class DeepSpeedEngine:
         k = int(next(iter(batch.values())).shape[0])
         if self._micro:
             raise RuntimeError("train_batches: an imperative accumulation window is open")
-        if self._onebit is not None:
+        if self._onebit is not None or self._offload is not None or self._param_stream is not None:
             raise ValueError("train_batches requires the fully in-HBM fused path; the "
                              "1-bit/offload/param-stream runners interleave host work per "
                              "step — call train_batch per step instead")
@@ -1038,6 +1128,9 @@ class DeepSpeedEngine:
                 "1-bit optimizers use the fused train_batch() API (the compressed stage is a "
                 "single program; the split forward/backward/step surface cannot express "
                 "per-rank gradient exchange)")
+        if self._offload is not None or self._param_stream is not None:
+            raise RuntimeError("ZeRO-Offload/Infinity uses the fused train_batch() API (the host "
+                               "optimizer step is driven once per global batch)")
         # the imperative poison skip: at a window start a poisoned cursor arms
         # a gas-wide skip; the caller keeps its forward / backward / step
         # rhythm while the window's micro-batches are consumed unrun
@@ -1148,9 +1241,21 @@ class DeepSpeedEngine:
         executed call, so no scaling by steps), followed by the quantized
         wire's logical-vs-wire ledger when a quantized op ran."""
         out = comm.comms_logger.log_summary()
-        if wire_ledger.records:
+        if wire_ledger.records or wire_ledger.host_dma:
+            # host_dma: the offload stream's copy column, quantized or not
             out += "\n" + wire_ledger.summary()
         return out
+
+    def memory_stats(self) -> Dict[str, Any]:
+        """The device's bytes in use and peak (``hbm_bytes_in_use``,
+        ``hbm_peak_bytes``, on a CUDA device) and the host's resident bytes;
+        under an offload runner, its last step's numbers too (``host_dma``,
+        ``host_step_s``, ...)."""
+        from .zero.offload import memory_stats
+
+        runner = self._offload or self._param_stream
+        return {**(runner.last_stats if runner is not None else {}),
+                **memory_stats(self.device)}
 
     def tokens_per_sec(self) -> float:
         """Training throughput over the steps after the first (synchronises)."""
@@ -1346,7 +1451,13 @@ class DeepSpeedEngine:
         mon = IntegrityMonitor(scan_interval=icfg.scan_interval,
                                blocks_per_scan=icfg.blocks_per_scan,
                                block_bytes=icfg.block_bytes, recovery_log=self._recovery_log)
-        mon.register_domain("master", self._device_master_units)
+        runner = self._offload or self._param_stream
+        if runner is not None:
+            # the in-RAM host state (NVMe-backed state is not resident and is
+            # not scanned); a chaos flip is a bit flipped in RAM
+            mon.register_domain("host_shards", runner.host_units)
+        else:
+            mon.register_domain("master", self._device_master_units)
         self._integrity = mon
         log_dist(f"integrity: armed ({mon.algo}, scan every {mon.scan_interval} steps x "
                  f"{mon.blocks_per_scan} blocks of {mon.block_bytes} B, domains {mon.domains})")
@@ -1410,7 +1521,8 @@ class DeepSpeedEngine:
                                           step=self.global_steps, pending=mon.pending_blocks)
         sci = int(self.config.resilience.integrity.spot_check_interval or 0)
         if (sci > 0 and self.global_steps % sci == 0 and self._onebit is None
-                and not self._qcomm.gradients):
+                and not self._qcomm.gradients and self._offload is None
+                and self._param_stream is None):
             self._integrity_spot_check(batch)
         elif self._last_loss is not None:
             from ..resilience.fingerprint import fingerprint_array

@@ -1,6 +1,7 @@
 """ZeRO (counterpart of ``deepspeed_tpu/runtime/zero``): the stage policy,
 the stage-3 gathers, the user surface for partitioned parameters, reshard
-on load and the memory estimators."""
+on load, the memory estimators, and ZeRO-Offload / ZeRO-Infinity (the
+runners of ``offload.py`` and ``infinity.py`` over ``stream.py``)."""
 
 from ...utils.errors import unported
 from .config import DeepSpeedZeroConfig  # noqa: F401

@@ -11,9 +11,12 @@ stage 2 the gradients too, and stage 3 the parameters
 and ``zero_quantized_head`` the LM head through the dequant-fused product;
 ``zero_quantized_gradients`` (stages 0-2) exchanges the gradients over it,
 with ``zero_quantize_error_feedback``'s residuals (``comm/quantized.py``,
-``runtime/engine.py``). The knobs still to port raise
-``NotImplementedError`` naming their ROADMAP.md item: offload (A12) and
-quantized gradients at stage 3 (A9c). ``overlap_comm`` and
+``runtime/engine.py``). ``offload_optimizer`` (or the legacy
+``cpu_offload: true``, migrated into it) keeps the optimizer state on the
+host (``runtime/zero/offload.py``), and ``offload_param`` streams the
+parameters from host masters too (``runtime/zero/infinity.py``),
+superseding ``offload_optimizer``; both run at world size 1 (more ranks
+raise A12b). Quantized gradients at stage 3 raise A9c. ``overlap_comm`` and
 ``overlap_prefetch_depth`` are accepted: they only move where a gather or a
 gradient bucket is issued, and the port runs the inline schedule (see
 ``gather.py``; the side-stream schedule is A9c); ``overlap_comm`` also picks
@@ -29,11 +32,71 @@ from typing import Any, Dict, FrozenSet, Optional
 
 from ...utils.errors import unported
 
-# keys whose non-default value asks for a feature not ported yet, with the
-# ROADMAP.md item that ports it
-_UNPORTED: Dict[str, str] = {
-    "offload_param": "A12", "offload_optimizer": "A12", "cpu_offload": "A12",
-}
+OFFLOAD_DEVICES = ("none", "cpu", "nvme")
+
+
+def _offload_block(cls, block: Optional[Dict[str, Any]], name: str):
+    if block is None:
+        return None
+    if isinstance(block, cls):
+        return block
+    names = {f.name for f in dataclasses.fields(cls)}
+    self = cls(**{k: v for k, v in dict(block).items() if k in names})
+    if self.device not in OFFLOAD_DEVICES:
+        raise ValueError(f"zero_optimization.{name}.device must be one of {OFFLOAD_DEVICES}, "
+                         f"got {self.device!r}")
+    if self.buffer_count < 0:
+        raise ValueError(f"zero_optimization.{name}.buffer_count must be >= 0")
+    return self
+
+
+@dataclasses.dataclass
+class DeepSpeedZeroOffloadParamConfig:
+    """``offload_param``: the masters on the host (``cpu``) or on NVMe, the
+    layer units streamed through the device. ``stream`` (unset: on) with
+    ``prefetch_depth`` d (0-8) keeps d unit copies in flight ahead of the
+    layer that consumes them; ``stream: false`` or depth 0 fetches on
+    demand, bitwise the same values. ``quantized_fetch`` pushes the units
+    over the block-int wire (``zero_quantize_bits`` / ``_block_size``).
+    ``buffer_count`` is the number of last layer units kept on the device for
+    the backward."""
+
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 5
+    buffer_size: int = int(1e8)
+    max_in_cpu: int = int(1e9)
+    pin_memory: bool = False
+    stream: Optional[bool] = None
+    prefetch_depth: int = 2
+    quantized_fetch: bool = False
+
+    def __post_init__(self):
+        if not 0 <= int(self.prefetch_depth) <= 8:
+            raise ValueError(f"offload_param.prefetch_depth must be 0-8, got "
+                             f"{self.prefetch_depth}")
+
+    @property
+    def stream_effective(self) -> bool:
+        return self.stream is not False and self.prefetch_depth >= 1
+
+    @property
+    def effective_prefetch_depth(self) -> int:
+        return self.prefetch_depth if self.stream_effective else 0
+
+
+@dataclasses.dataclass
+class DeepSpeedZeroOffloadOptimizerConfig:
+    """``offload_optimizer``: the optimizer state on the host (``cpu``) or on
+    NVMe, stepped by the host SIMD optimizer."""
+
+    device: str = "none"
+    nvme_path: Optional[str] = None
+    buffer_count: int = 4
+    pin_memory: bool = False
+    pipeline_read: bool = False
+    pipeline_write: bool = False
+    fast_init: bool = False
 
 
 @dataclasses.dataclass
@@ -49,8 +112,8 @@ class DeepSpeedZeroConfig:
     load_from_fp32_weights: bool = True
     elastic_checkpoint: bool = False
     cpu_offload: Optional[bool] = None
-    offload_param: Optional[Dict[str, Any]] = None
-    offload_optimizer: Optional[Dict[str, Any]] = None
+    offload_param: Optional[DeepSpeedZeroOffloadParamConfig] = None
+    offload_optimizer: Optional[DeepSpeedZeroOffloadOptimizerConfig] = None
     sub_group_size: int = int(1e9)
     stage3_max_live_parameters: int = int(1e9)
     stage3_max_reuse_distance: int = int(1e9)
@@ -76,6 +139,14 @@ class DeepSpeedZeroConfig:
         """``overlap_comm`` with the unset default resolved to on."""
         return self.overlap_comm is not False
 
+    @property
+    def offload_optimizer_device(self) -> str:
+        return self.offload_optimizer.device if self.offload_optimizer else "none"
+
+    @property
+    def offload_param_device(self) -> str:
+        return self.offload_param.device if self.offload_param else "none"
+
     @classmethod
     def from_dict(cls, block: Optional[Dict[str, Any]]) -> "DeepSpeedZeroConfig":
         block = dict(block or {})
@@ -85,10 +156,13 @@ class DeepSpeedZeroConfig:
         if not 0 <= int(self.stage) <= 3:
             raise ValueError(f"zero_optimization.stage must be 0-3, got {self.stage}")
         self.stage = int(self.stage)
-        for key, item in _UNPORTED.items():
-            value = block.get(key)
-            if value and (not isinstance(value, dict) or value.get("device", "none") != "none"):
-                raise unported(f"zero_optimization.{key}", item)
+        self.offload_param = _offload_block(DeepSpeedZeroOffloadParamConfig,
+                                            self.offload_param, "offload_param")
+        self.offload_optimizer = _offload_block(DeepSpeedZeroOffloadOptimizerConfig,
+                                                self.offload_optimizer, "offload_optimizer")
+        if self.cpu_offload and self.offload_optimizer is None:
+            # the legacy flat key: offload_optimizer={"device": "cpu"}
+            self.offload_optimizer = DeepSpeedZeroOffloadOptimizerConfig(device="cpu")
         if self.zero_quantized_gradients and self.stage >= 3:
             # the reference gathers the whole parameter set per device for
             # this and discourages it (its engine's warning)

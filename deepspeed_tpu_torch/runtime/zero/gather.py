@@ -150,3 +150,21 @@ def zero3_layers(blocks: Dict[str, torch.Tensor]) -> Iterator[Tuple[int, Dict[st
         window = _gather_layer({n: v[w * k:(w + 1) * k] for n, v in blocks.items()}, dims, qc)
         for j in range(k):
             yield w * k + j, {n: v[j] for n, v in window.items()}
+
+
+def prefetch_schedule(n: int, depth: int):
+    """The software-pipelined issue / consume order of ``n`` units at
+    ``depth`` (the reference's): yields ``("issue", i)`` / ``("consume", i)``.
+    ``depth`` issues go out first, then unit i + depth is issued before unit i
+    is consumed; ``depth`` 0 is fetch-on-demand. Units are consumed in order
+    0..n-1 at every depth, so a pipelined consumer computes what an inline
+    one does. The offload stream (``stream.py``) runs its host->device copies
+    on this schedule."""
+    n = int(n)
+    d = max(0, min(int(depth), n))
+    for i in range(d):
+        yield ("issue", i)
+    for i in range(n):
+        if i + d < n:
+            yield ("issue", i + d)
+        yield ("consume", i)

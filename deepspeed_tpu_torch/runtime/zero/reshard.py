@@ -26,8 +26,9 @@ of ``deepspeed_tpu/runtime/zero/reshard.py``).
 
 The checkpoint format is topology-free (every leaf stored whole), so the
 logical leaves load at any world size by cutting each to the new slices.
-The host-state functions of the reference (``partition_host_state``,
-``repartition_host_state``) belong with offload (ROADMAP.md A12). A reset
+:func:`partition_host_state` / :func:`repartition_host_state` do the same for
+the offload runners' host state (every ``master_<i>`` / ``m_<i>`` / ``v_<i>``
+leaf flat-partitioned, scalars such as ``count`` passed through). A reset
 residual is recorded as a ``reshard_residual_reset`` recovery event (and the
 load records ``reshard_applied``) when the engine keeps a recovery log.
 """
@@ -35,7 +36,7 @@ load records ``reshard_applied``) when the engine keeps a recovery log.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import numpy as np
 
@@ -230,7 +231,35 @@ def apply_cursor_reshard(engine, meta: Dict[str, Any], old_world: int) -> Reshar
 
 
 __all__ = ["ReshardError", "ReshardPlan", "RESIDUAL_RESET_KEYS", "RESIDUAL_RANK_AXIS",
-           "ONEBIT_RESET_KEYS", "get_path", "set_path",
+           "ONEBIT_RESET_KEYS", "partition_host_state", "repartition_host_state", "get_path", "set_path",
            "PARTITION_FORMAT", "shard_len", "partition_flat", "merge_flat", "repartition_flat",
            "rescale_cursor", "partition_record", "engine_global_batch", "load_resolver",
            "apply_cursor_reshard"]
+
+
+def partition_host_state(host_state: Dict[str, np.ndarray], world: int
+                         ) -> Tuple[Dict[str, np.ndarray], Dict[str, int]]:
+    """Every leaf of an offload host-state dict as ``[world, shard]`` stacks
+    (:func:`partition_flat`), with the logical sizes to merge them back;
+    0-dim counters are world-invariant and pass through (size 0)."""
+    shards: Dict[str, np.ndarray] = {}
+    sizes: Dict[str, int] = {}
+    for key, arr in host_state.items():
+        arr = np.asarray(arr)
+        if arr.ndim == 0:
+            shards[key], sizes[key] = arr, 0
+            continue
+        shards[key] = partition_flat(arr.reshape(-1), world)
+        sizes[key] = int(arr.size)
+    return shards, sizes
+
+
+def repartition_host_state(shards: Dict[str, np.ndarray], sizes: Dict[str, int],
+                           new_world: int) -> Dict[str, np.ndarray]:
+    """Every partitioned host-state leaf remapped to ``new_world`` shards
+    (:func:`repartition_flat`), scalars passed through."""
+    out: Dict[str, np.ndarray] = {}
+    for key, stack in shards.items():
+        arr = np.asarray(stack)
+        out[key] = arr if arr.ndim == 0 else repartition_flat(arr, new_world, sizes[key])
+    return out

@@ -7,9 +7,11 @@ reader of ``state.msgpack`` is :func:`unpack_msgpack` below, which the
 port's ``checkpoint.msgpack_codec`` uses too). Each leaf is stored whole,
 so consolidation is extraction: the fp32 master copy where there is one,
 else the parameters widened to fp32 (bf16 leaves are stored as the uint16
-view of their bits).
-Tags that keep their masters in offload host state are not read yet
-(ROADMAP.md A12).
+view of their bits). Under ZeRO-Offload the masters live in the tag's host
+state (the ``host_state/`` shards with ``host_meta.json``, or the
+consolidated ``host_optimizer.npz``), ``master_<i>`` in the order of the
+parameter leaves; a ZeRO-Infinity parameter-stream tag has no device
+parameters at all, and its masters are keyed ``unit/name`` from the meta.
 
 CLI:  python zero_to_fp32.py <checkpoint_dir> <output.npz>
 where <checkpoint_dir> is a run directory (its ``latest`` tag is read) or
@@ -18,6 +20,7 @@ a tag directory.
 
 from __future__ import annotations
 
+import json
 import os
 import struct
 import sys
@@ -103,6 +106,27 @@ def _resolve_tag_dir(path: str) -> str:
     raise FileNotFoundError(f"{path} is neither a tag dir nor has a 'latest' file")
 
 
+def _load_host_masters(ckpt: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """(the flat host state, the shard meta) of a tag's offload state, or
+    ({}, {}) where it has none."""
+    host_dir = os.path.join(ckpt, "host_state")
+    meta_path = os.path.join(host_dir, "host_meta.json")
+    if os.path.isdir(host_dir) and os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+        out: Dict[str, np.ndarray] = {}
+        for shard in meta.get("shards", []):
+            with np.load(os.path.join(host_dir, shard["file"])) as d:
+                for key in d.files:
+                    out[key] = d[key]
+        return out, meta
+    host_path = os.path.join(ckpt, "host_optimizer.npz")
+    if os.path.exists(host_path):
+        with np.load(host_path) as d:
+            return {k: d[k] for k in d.files}, {}
+    return {}, {}
+
+
 def get_fp32_state_dict_from_zero_checkpoint(
         checkpoint_dir: str, tag: Optional[str] = None) -> Dict[str, np.ndarray]:
     """{param key: fp32 array} of a tag: its master copy, else its params."""
@@ -111,11 +135,16 @@ def get_fp32_state_dict_from_zero_checkpoint(
     leaves = _load_leaves(os.path.join(ckpt, "state"))
     masters = {k[len("master/"):]: v for k, v in leaves.items() if k.startswith("master/")}
     params = {k[len("params/"):]: v for k, v in leaves.items() if k.startswith("params/")}
-    if not masters and any(os.path.exists(os.path.join(ckpt, n))
-                           for n in ("host_state", "host_optimizer.npz")):
-        raise NotImplementedError(
-            "fp32 masters in ZeRO-Offload host state are not read by this script yet "
-            "(ROADMAP.md A12)")
+    host, host_meta = ({}, {}) if masters else _load_host_masters(ckpt)
+    if not masters and host:
+        if not params and host_meta.get("leaves"):
+            # a parameter-stream tag: the weights exist only as host masters
+            return {f"{lf['unit']}/{lf['name']}": np.asarray(host[f"master_{lf['i']}"],
+                                                              np.float32)
+                    for lf in host_meta["leaves"]}
+        for i, key in enumerate(params):  # the params' leaf order
+            if f"master_{i}" in host:
+                masters[key] = host[f"master_{i}"].reshape(params[key].shape)
     out = {}
     for key, arr in params.items():
         src = masters.get(key, arr)

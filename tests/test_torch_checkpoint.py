@@ -38,6 +38,7 @@ from deepspeed_tpu_torch.runtime.checkpoint_engine import (
     NativeCheckpointEngine,
     get_checkpoint_engine,
 )
+from deepspeed_tpu_torch.runtime.zero.stream import flush_host_shards
 from deepspeed_tpu_torch.utils import zero_to_fp32
 from deepspeed_tpu_torch.utils.tree import tree_leaves
 
@@ -327,7 +328,10 @@ def _recommit(tag_dir, **meta_over):
 def test_other_world_size_and_offload_state_raise_their_items(trained, tmp_path):
     """A tag of another world size loads (reshard-on-load: the leaves are
     the logical ones and the global batch is the same, so the cursor
-    stays); a tag with offload host state still raises its item (A12)."""
+    stays). A tag with offload host state loads too: an engine without an
+    offload runner passes the host state over, ``zero_to_fp32`` reads the
+    host masters of a tag without device masters, and an offload engine
+    refuses a tag without host state before anything changes."""
     saver, root = trained
     root = _copy(root, tmp_path / "ckpt")
     _recommit(root / "global_step2", world_size=2)
@@ -336,18 +340,24 @@ def test_other_world_size_and_offload_state_raise_their_items(trained, tmp_path)
     assert_states_equal(e, saver)
     assert e.global_steps == 2 and e.data_cursor == 2
     e = engine(config(bf16={"enabled": True}))
-    (root / "global_step1" / "host_state").mkdir()
-    (root / "global_step1" / "host_state" / "host_meta.json").write_text("{}")
+    masters = zero_to_fp32.get_fp32_state_dict_from_zero_checkpoint(str(root), "global_step1")
+    host = {f"master_{i}": arr * 2 for i, arr in enumerate(masters.values())}
+    flush_host_shards(str(root / "global_step1" / "host_state"), [("leaves_0", host)],
+                      meta={"count": 1, "runner": "offload"})
     commit_tag(str(root / "global_step1"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        e.load_checkpoint(str(root), tag="global_step1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):
-        zero_to_fp32_without_master(root)
-    assert e.global_steps == 0  # nothing changed before the raise
+    e.load_checkpoint(str(root), tag="global_step1")
+    assert e.global_steps == 1
+    for key, arr in zero_to_fp32_without_master(root).items():
+        np.testing.assert_array_equal(arr, masters[key] * 2)
+    off = engine(config(bf16={"enabled": True},
+                        zero_optimization={"offload_optimizer": {"device": "cpu"}}))
+    with pytest.raises(FileNotFoundError, match="host_state"):
+        off.load_checkpoint(str(root), tag="global_step2")
+    assert off.global_steps == 0  # nothing changed before the raise
 
 
 def zero_to_fp32_without_master(root):
-    """zero_to_fp32 on a tag whose masters would live in offload state."""
+    """zero_to_fp32 on a tag whose masters live in offload state only."""
     tag = root / "global_step1"
     meta = serialization.read_meta(str(tag / "state"))
     meta["leaves"] = [m for m in meta["leaves"] if not m["key"].startswith("master/")]

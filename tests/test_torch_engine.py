@@ -237,8 +237,20 @@ def test_unported_config_blocks_raise(block, tmp_path):
     ``resilience`` and ``elasticity`` blocks (A11, ported) reach the engine:
     the recovery log and the drain handlers under ``save_dir``; the elastic
     ladder's check, which refuses this config's batch knobs as the
-    reference's does."""
+    reference's does. The offload blocks and ``aio`` (A12, ported) build
+    their runner, which trains a step, and set the NVMe stores' threads."""
     model, _ = gpt.build("tiny")
+    zero = block.get("zero_optimization", {})
+    if "offload_param" in zero or "offload_optimizer" in zero or "aio" in block:
+        engine, *_ = deepspeed_tpu_torch.initialize(model=model, config={**config(), **block},
+                                                    device="cpu")
+        if "aio" in block:
+            assert engine.config.aio == block["aio"] and engine.config.aio_threads(4) == 4
+            return
+        runner = engine._param_stream if "offload_param" in zero else engine._offload
+        assert runner is not None and engine.state["opt"] == {}
+        assert np.isfinite(_f(engine.train_batch(batch(0))["loss"])) and runner.count == 1
+        return
     if "resilience" in block:
         block = {"resilience": {**block["resilience"], "save_dir": str(tmp_path),
                                 "install_signal_handlers": False}}

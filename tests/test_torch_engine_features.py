@@ -241,9 +241,14 @@ def test_engine_random_ltd_walks_the_schedule_and_refuses_as_the_reference():
     with pytest.raises(ValueError, match="with_ltd_keep"):
         deepspeed_tpu_torch.initialize(model=dataclasses.replace(model, with_ltd_keep=None),
                                        config=_ltd_config(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A12"):  # ZeRO-Offload
-        deepspeed_tpu_torch.initialize(model=model, config={**_ltd_config(), "zero_optimization": {
-            "stage": 2, "offload_optimizer": {"device": "cpu"}}}, device="cpu")
+    # ZeRO-Offload refuses random-LTD, with the reference's ValueError
+    offload = {**_ltd_config(), "zero_optimization": {"stage": 2, "offload_optimizer": {
+        "device": "cpu"}}}
+    with pytest.raises(ValueError, match="random_ltd is not supported together with ZeRO-Offload"):
+        deepspeed_tpu_torch.initialize(model=model, config=offload, device="cpu")
+    with pytest.raises(ValueError, match="random_ltd is not supported together with ZeRO-Offload"):
+        deepspeed_tpu.initialize(model=jmodel, config=JaxDeepSpeedConfig.load(offload, 1),
+                                 topology=MeshTopology.single_device())
 
 
 # ------------------------------------------------------------------ PLD

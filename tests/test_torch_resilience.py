@@ -114,21 +114,40 @@ def test_fault_plan_fires_at_the_same_indices(source, monkeypatch):
 
 
 @pytest.mark.parametrize("arm,item", [
-    ({"stall_offload_at": 0, "stall_offload_seconds": 1.0}, "A12"),
-    ({"kill_at_phase": "host-shard:0"}, "A12"),
-    ({"flip_bit_at": 2}, "A12"),  # the default domain: the offload host shards
+    ({"stall_offload_at": 0, "stall_offload_seconds": 1.0}, None),
+    ({"kill_at_phase": "host-shard:0"}, None),
+    ({"flip_bit_at": 2}, None),  # the default domain: the offload host shards
     ({"tenant_flood_at": 3}, "A10"),
 ])
 def test_unported_injectors_raise_naming_their_item(arm, item, tmp_path):
     """An injector of a module the port does not have yet raises when armed,
-    in code and through the config block, so none sits inert."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        tres.FaultPlan(**arm)
+    in code and through the config block, so none sits inert. The offload
+    injectors (``item`` None) are ported: the plan builds both ways and
+    fires as the JAX package's does (the fetch stall once, at its wait
+    index; the kill after host shard 0 of the armed save; the flip in the
+    host-shard domain at its cursor)."""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
-        DeepSpeedConfig.load({"resilience": {"enabled": True, "save_dir": str(tmp_path),
-                                             "chaos": arm}})
+    block = {"resilience": {"enabled": True, "save_dir": str(tmp_path), "chaos": arm}}
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            tres.FaultPlan(**arm)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
+            DeepSpeedConfig.load(block)
+        return
+    assert DeepSpeedConfig.load(block).resilience.chaos == arm
+    tp, jp = tres.FaultPlan(**arm), jres.FaultPlan(**arm)
+    if "stall_offload_at" in arm:
+        assert [tp.offload_fetch(i) for i in range(3)] == \
+            [jp.offload_fetch(i) for i in range(3)] == [1.0, 0.0, 0.0]
+    elif "kill_at_phase" in arm:
+        for plan in (tp, jp):
+            plan.fault_point("begin-save")
+            assert plan._kill_armed("host-shard", 0) and not plan._kill_armed("host-shard", 1)
+            assert not plan._kill_armed("shard", 0)
+    else:
+        assert [tp.sdc_flip(i, "training") for i in range(4)] == \
+            [jp.sdc_flip(i, "training") for i in range(4)] == [None, None, "host_shards", None]
 
 
 def test_retrying_writer_absorbs_injected_io_faults(tmp_path):

@@ -279,13 +279,32 @@ def test_gathered_parameters_reads_and_writes_back():
 @pytest.mark.parametrize("block,match", [
     ({"zero_optimization": {"stage": 3, "zero_quantized_gradients": True}}, "A9c"),
     ({"elasticity": {"enabled": True, "max_train_batch_size": 8}}, "A11"),
-    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}}, "A12"),
+    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}}, "A12b"),
     ({"mesh": {"dp": 1, "tp": 2}}, "A13"),
 ])
-def test_knobs_still_to_port_raise(block, match):
+def test_knobs_still_to_port_raise(block, match, monkeypatch):
     """The knobs of items still to port raise naming their item. The
     ``elasticity`` block (A11, ported) is validated as the reference's: batch
-    knobs off its ladder raise, and without them the config adopts it."""
+    knobs off its ladder raise, and without them the config adopts it.
+    ``offload_param`` (A12, ported) parses and builds its runner at world
+    size 1; at more ranks the engine raises A12b before anything is
+    gathered."""
+    if match == "A12b":
+        cfg = DeepSpeedConfig.load({**_cfg(), **block})
+        assert cfg.zero_optimization.offload_param.device == "cpu"
+        assert cfg.zero_optimization.offload_param.effective_prefetch_depth == 2
+        model, _ = gpt.build(gpt.GPTConfig(**TINY))
+        one = deepspeed_tpu_torch.initialize(model=model, config={**_cfg(), **block},
+                                             device="cpu")[0]
+        assert one._param_stream is not None and one.state["params"] == {}
+        from deepspeed_tpu_torch.comm import comm
+        from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+
+        monkeypatch.setattr(comm, "get_world_size", lambda *a, **k: 2)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A12b"):
+            DeepSpeedEngine(model, DeepSpeedConfig.load({**_cfg(), **block}, world_size=2),
+                            device="cpu")
+        return
     if match == "A11":
         with pytest.raises(ValueError, match="off the elastic ladder"):
             DeepSpeedConfig.load({**_cfg(), **block})
